@@ -1,0 +1,513 @@
+"""SPC5 block-sparse matrix formats without zero padding (Bramas & Kus 2018).
+
+A numpy copy of the reference package's ``repro.core.formats``, cut to what
+the port's mask-SpMV path uses: CSR, the beta(r,c) format, the CSR ->
+beta(r,c) conversion, and the two chunked device layouts. The builders are
+kept line for line, so both packages produce the same bytes from the same
+matrix (``tests/test_torch_formats.py`` holds them to that).
+
+The beta(r,c) format (paper fig. 2):
+  * blocks are r-row aligned (top row of a block is a multiple of r) but may
+    start at ANY column;
+  * ``values`` holds ONLY the nonzeros (no padding), in block order and
+    row-major inside each block;
+  * ``block_colidx`` holds the leftmost column of each block;
+  * ``block_rowptr[i]`` is the index of the first block of row-interval i
+    (interval = rows [i*r, (i+1)*r));
+  * ``block_masks`` holds one r*c-bit mask per block; bit (lr*c + j) set means
+    position (row lr, col j) inside the block is a nonzero. r*c reaches 32
+    for 4x8 and 8x4, so bit 31 is used.
+
+Two device-facing layouts are derived from :class:`SPC5Matrix`:
+
+  * :func:`to_chunked` -> :class:`SPC5Chunked`: flat chunks of CB blocks for
+    the whole-vector kernels (each chunk reads all of x and scatters into
+    all of y);
+  * :func:`to_panels` -> :class:`SPC5Panels`: row-panel-tiled chunks, each
+    touching one ``(pr,)`` slice of y and one ``xw``-wide window of x.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+
+SUPPORTED_BLOCKS: Tuple[Tuple[int, int], ...] = (
+    (1, 4), (1, 8), (2, 4), (2, 8), (4, 4), (4, 8), (8, 4),
+)
+
+#: Canonical value-storage dtypes of the reference. The port's kernels take
+#: f32 only so far; bf16/int8 are a later slice (ROADMAP queue 1, item 5).
+VDTYPES: Tuple[str, ...] = ("f32", "bf16", "int8")
+
+_VDTYPE_ALIASES = {
+    "f32": "f32", "float32": "f32", "fp32": "f32",
+    "bf16": "bf16", "bfloat16": "bf16",
+    "int8": "int8", "i8": "int8", "s8": "int8",
+}
+
+
+def canonical_vdtype(name: str) -> str:
+    """Normalise a value-dtype name to one of :data:`VDTYPES` (the sentinels
+    ``""`` and ``"auto"`` pass through unchanged)."""
+    if name in ("", "auto"):
+        return name
+    key = str(name).strip().lower()
+    if key not in _VDTYPE_ALIASES:
+        raise ValueError(f"unknown vdtype {name!r}; expected one of "
+                         f"{VDTYPES + ('auto', '')}")
+    return _VDTYPE_ALIASES[key]
+
+
+@dataclasses.dataclass
+class CSRMatrix:
+    """Compressed sparse row, the de-facto baseline format (paper fig. 1)."""
+
+    shape: Tuple[int, int]
+    rowptr: np.ndarray  # int32/int64, (nrows + 1,)
+    colidx: np.ndarray  # int32, (nnz,)
+    values: np.ndarray  # float, (nnz,)
+
+    @property
+    def nnz(self) -> int:
+        return int(self.values.shape[0])
+
+    @property
+    def nrows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def ncols(self) -> int:
+        return self.shape[1]
+
+    def to_dense(self) -> np.ndarray:
+        out = np.zeros(self.shape, dtype=self.values.dtype)
+        for i in range(self.nrows):
+            lo, hi = int(self.rowptr[i]), int(self.rowptr[i + 1])
+            out[i, self.colidx[lo:hi]] = self.values[lo:hi]
+        return out
+
+
+@dataclasses.dataclass
+class SPC5Matrix:
+    """The paper's beta(r, c) block format with bitmasks, no zero padding."""
+
+    shape: Tuple[int, int]
+    r: int
+    c: int
+    block_rowptr: np.ndarray   # int64, (ceil(nrows/r) + 1,)
+    block_colidx: np.ndarray   # int32, (nblocks,)
+    block_masks: np.ndarray    # uint32, (nblocks,)  (r*c <= 32 bits used)
+    block_voffset: np.ndarray  # int64, (nblocks,)  exclusive prefix popcount
+    values: np.ndarray         # float, (nnz,) -- exactly nnz, no padding
+
+    @property
+    def nnz(self) -> int:
+        return int(self.values.shape[0])
+
+    @property
+    def nblocks(self) -> int:
+        return int(self.block_colidx.shape[0])
+
+    @property
+    def nrows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def ncols(self) -> int:
+        return self.shape[1]
+
+    @property
+    def avg_nnz_per_block(self) -> float:
+        """Avg(r, c) = NNZ / N_blocks(r, c) -- the paper's selection feature."""
+        return self.nnz / max(self.nblocks, 1)
+
+
+# ----------------------------------------------------------------------------
+# Construction / conversion
+# ----------------------------------------------------------------------------
+
+def csr_from_dense(dense: np.ndarray) -> CSRMatrix:
+    nrows, _ = dense.shape
+    rowptr = np.zeros(nrows + 1, dtype=np.int64)
+    cols, vals = [], []
+    for i in range(nrows):
+        nz = np.nonzero(dense[i])[0]
+        rowptr[i + 1] = rowptr[i] + nz.shape[0]
+        cols.append(nz.astype(np.int32))
+        vals.append(dense[i, nz])
+    colidx = (np.concatenate(cols) if cols else np.zeros(0, np.int32))
+    values = (np.concatenate(vals) if vals else np.zeros(0, dense.dtype))
+    return CSRMatrix((nrows, dense.shape[1]), rowptr, colidx, values)
+
+
+def csr_from_coo(shape: Tuple[int, int], rows: np.ndarray, cols: np.ndarray,
+                 vals: np.ndarray) -> CSRMatrix:
+    """Build CSR from COO triplets (duplicates summed)."""
+    nrows, ncols = shape
+    order = np.lexsort((cols, rows))
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    # collapse duplicates
+    if rows.shape[0]:
+        key = rows.astype(np.int64) * ncols + cols.astype(np.int64)
+        uniq, inv = np.unique(key, return_inverse=True)
+        summed = np.zeros(uniq.shape[0], dtype=vals.dtype)
+        np.add.at(summed, inv, vals)
+        rows = (uniq // ncols).astype(np.int64)
+        cols = (uniq % ncols).astype(np.int32)
+        vals = summed
+    rowptr = np.zeros(nrows + 1, dtype=np.int64)
+    np.add.at(rowptr, rows + 1, 1)
+    rowptr = np.cumsum(rowptr)
+    return CSRMatrix(shape, rowptr, cols.astype(np.int32), vals)
+
+
+def csr_to_spc5(csr: CSRMatrix, r: int, c: int) -> SPC5Matrix:
+    """Convert CSR to beta(r, c).
+
+    Greedy left-to-right block construction per r-row interval, exactly the
+    coverage the paper's figures show: a block opens at the leftmost uncovered
+    nonzero column of the interval and spans c columns.
+    """
+    if r * c > 32:
+        raise ValueError(f"mask must fit uint32, got r*c={r*c}")
+    nrows, ncols = csr.shape
+    n_intervals = -(-nrows // r)
+
+    rowptr = np.zeros(n_intervals + 1, dtype=np.int64)
+    all_colidx, all_masks, all_values = [], [], []
+
+    for it in range(n_intervals):
+        row0, row1 = it * r, min((it + 1) * r, nrows)
+        lo, hi = int(csr.rowptr[row0]), int(csr.rowptr[row1])
+        if lo == hi:
+            rowptr[it + 1] = rowptr[it]
+            continue
+        cols = csr.colidx[lo:hi].astype(np.int64)
+        vals = csr.values[lo:hi]
+        # local row of each nnz within the interval
+        lrows = np.repeat(
+            np.arange(row0, row1) - row0,
+            np.diff(csr.rowptr[row0:row1 + 1]).astype(np.int64),
+        )
+        # Greedy block starts over the sorted unique columns -- one loop
+        # iteration per BLOCK (not per nnz).
+        ucols = np.unique(cols)
+        starts = []
+        i = 0
+        while i < ucols.shape[0]:
+            s = ucols[i]
+            starts.append(s)
+            i = int(np.searchsorted(ucols, s + c, side="left"))
+        starts = np.asarray(starts, dtype=np.int64)
+        # Assign each nnz to its block.
+        bidx = np.searchsorted(starts, cols, side="right") - 1
+        bit = lrows * c + (cols - starts[bidx])
+        # values in block order, row-major inside block == sort by
+        # (block, local_row, col)
+        order = np.lexsort((cols, lrows, bidx))
+        masks = np.zeros(starts.shape[0], dtype=np.uint32)
+        np.bitwise_or.at(masks, bidx, (np.uint32(1) << bit.astype(np.uint32)))
+        all_colidx.append(starts.astype(np.int32))
+        all_masks.append(masks)
+        all_values.append(vals[order])
+        rowptr[it + 1] = rowptr[it] + starts.shape[0]
+
+    colidx = (np.concatenate(all_colidx) if all_colidx else np.zeros(0, np.int32))
+    masks = (np.concatenate(all_masks) if all_masks else np.zeros(0, np.uint32))
+    values = (np.concatenate(all_values) if all_values else np.zeros(0, csr.values.dtype))
+    voffset = (exclusive_prefix_popcount(masks) if masks.shape[0]
+               else np.zeros(0, np.int64))
+    return SPC5Matrix((nrows, ncols), r, c, rowptr, colidx.astype(np.int32),
+                      masks, voffset.astype(np.int64), values)
+
+
+def popcount_u32(x: np.ndarray) -> np.ndarray:
+    x = x.astype(np.uint32)
+    out = np.zeros(x.shape, dtype=np.int32)
+    for k in range(32):
+        out += ((x >> np.uint32(k)) & np.uint32(1)).astype(np.int32)
+    return out
+
+
+def exclusive_prefix_popcount(masks: np.ndarray, axis: int = -1) -> np.ndarray:
+    """Exclusive prefix sum of mask popcounts along ``axis``: the offset
+    each block's packed values start at (the paper's voffset)."""
+    pop = popcount_u32(np.asarray(masks)).astype(np.int64)
+    return np.cumsum(pop, axis=axis) - pop
+
+
+# ----------------------------------------------------------------------------
+# Chunked device layout (whole-vector kernels)
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SPC5Chunked:
+    """Fixed-size chunks of CB blocks each, value windows 8-value aligned.
+
+    Every chunk has the same static shape; the values array stays packed
+    except chunk starts are rounded up to ``align`` values. Pad blocks have
+    mask == 0 (they load nothing and contribute nothing). Because chunk
+    starts and ``vmax`` are multiples of ``align`` (8), every chunk's value
+    window ``[vbase, vbase + vmax)`` is 32-byte aligned in f32, and the tail
+    is padded so the last window stays in bounds.
+    """
+
+    shape: Tuple[int, int]
+    r: int
+    c: int
+    cb: int                 # blocks per chunk
+    vmax: int               # max values per chunk window (static tile size)
+    nchunks: int
+    chunk_col: np.ndarray   # int32 (nchunks, cb)   block left column
+    chunk_mask: np.ndarray  # uint32 (nchunks, cb)  0 => padding block
+    chunk_voff: np.ndarray  # int32 (nchunks, cb)   value offset within window
+    chunk_row: np.ndarray   # int32 (nchunks, cb)   global top row of block
+    chunk_vbase: np.ndarray  # int32 (nchunks,)     aligned start into values
+    values: np.ndarray      # float (nvals_padded,)
+    nnz: int
+
+    @property
+    def nrows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def ncols(self) -> int:
+        return self.shape[1]
+
+
+# ----------------------------------------------------------------------------
+# Row-panel-tiled device layout (panel kernels)
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SPC5Panels:
+    """Row-panel-tiled chunked layout.
+
+      * rows are cut into panels of ``pr`` rows (``pr`` a multiple of ``r``,
+        so the r-row-aligned blocks NEVER straddle a panel boundary: a
+        panel's rows are written by that panel's chunks alone);
+      * within a panel, blocks are sorted by left column and greedily packed
+        into chunks of at most ``cb`` blocks whose columns all fall inside
+        one ``xw``-wide window of ``x`` (``chunk_xbase`` is the window start,
+        aligned down to ``align``);
+      * ``chunk_row`` is panel-relative (in ``[0, pr - r]``) and
+        ``chunk_col`` window-relative (in ``[0, xw - c]``);
+      * ``values`` stays packed with only chunk-alignment padding.
+
+    Chunk counts are padded to the per-panel maximum so every panel walks
+    the same number of chunks; padding chunks have ``mask == 0``. ``x`` must
+    be padded to ``ncols_pad`` so every window load stays in bounds.
+    """
+
+    shape: Tuple[int, int]
+    r: int
+    c: int
+    pr: int                  # panel height in rows, multiple of r
+    cb: int                  # blocks per chunk
+    xw: int                  # x-window width per chunk, multiple of align
+    vmax: int                # values per chunk window (static tile size)
+    npanels: int
+    nchunks: int             # chunks per panel (uniform, padded)
+    ncols_pad: int           # pad x to this length for in-bounds windows
+    chunk_col: np.ndarray    # int32 (npanels, nchunks, cb)  window-relative
+    chunk_mask: np.ndarray   # uint32 (npanels, nchunks, cb) 0 => padding
+    chunk_voff: np.ndarray   # int32 (npanels, nchunks, cb)  offset in window
+    chunk_row: np.ndarray    # int32 (npanels, nchunks, cb)  panel-relative
+    chunk_vbase: np.ndarray  # int32 (npanels, nchunks)      into values
+    chunk_xbase: np.ndarray  # int32 (npanels, nchunks)      x window start
+    values: np.ndarray       # float (nvals_padded,)
+    nnz: int
+
+    @property
+    def nrows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def ncols(self) -> int:
+        return self.shape[1]
+
+
+def _panel_chunk_plan(mat: SPC5Matrix, pr: int, cb: int, xw: int,
+                      align: int = 8):
+    """Pass 1 of :func:`to_panels`: per panel, column-sort blocks and find
+    chunk boundaries. Returns ``(panels, pr, xw, npanels)`` where ``panels``
+    holds one ``(order, chunk_starts, xbases, nb)`` tuple per panel (None
+    for empty panels) and pr/xw are normalised to the layout's alignment
+    invariants.
+    """
+    r, c = mat.r, mat.c
+    nrows = mat.shape[0]
+    pr = max(r, -(-pr // r) * r)                 # multiple of r
+    # a window must hold one block wherever it lands after aligning down
+    xw = max(xw, c + align)
+    xw = -(-xw // align) * align
+    npanels = max(1, -(-nrows // pr))
+    intervals_per_panel = pr // r
+    n_intervals = mat.block_rowptr.shape[0] - 1
+    interval_of_block = np.repeat(
+        np.arange(n_intervals, dtype=np.int64), np.diff(mat.block_rowptr))
+
+    panels = []          # (order, chunk_starts, xbases, nb) per panel
+    for p in range(npanels):
+        it0 = min(p * intervals_per_panel, n_intervals)
+        it1 = min((p + 1) * intervals_per_panel, n_intervals)
+        b0, b1 = int(mat.block_rowptr[it0]), int(mat.block_rowptr[it1])
+        nb = b1 - b0
+        if nb == 0:
+            panels.append(None)
+            continue
+        cols = mat.block_colidx[b0:b1].astype(np.int64)
+        ivl = interval_of_block[b0:b1]
+        order = np.lexsort((ivl, cols)) + b0     # by column, then interval
+        scols = mat.block_colidx[order].astype(np.int64)
+        starts, xbases = [], []
+        s = 0
+        while s < nb:
+            xbase = (int(scols[s]) // align) * align
+            e = min(s + cb, int(np.searchsorted(scols, xbase + xw - c,
+                                                side="right")))
+            starts.append(s)
+            xbases.append(xbase)
+            s = e
+        panels.append((order, np.asarray(starts, dtype=np.int64),
+                       np.asarray(xbases, dtype=np.int64), nb))
+    return panels, pr, xw, npanels
+
+
+def to_panels(mat: SPC5Matrix, pr: int = 512, cb: int = 64, xw: int = 512,
+              align: int = 8) -> SPC5Panels:
+    """Convert beta(r,c) to the row-panel-tiled layout (see SPC5Panels).
+
+    The only per-element Python loop is over CHUNKS (boundary discovery via
+    searchsorted); block/value assembly is vectorized.
+    """
+    r, c = mat.r, mat.c
+    nrows, ncols = mat.shape
+    panels, pr, xw, npanels = _panel_chunk_plan(mat, pr, cb, xw, align)
+    intervals_per_panel = pr // r
+    n_intervals = mat.block_rowptr.shape[0] - 1
+    pop = popcount_u32(mat.block_masks).astype(np.int64)
+    interval_of_block = np.repeat(
+        np.arange(n_intervals, dtype=np.int64), np.diff(mat.block_rowptr))
+
+    nchunks = max(1, max((len(pp[1]) for pp in panels if pp is not None),
+                         default=1))
+    chunk_col = np.zeros((npanels, nchunks, cb), dtype=np.int32)
+    chunk_mask = np.zeros((npanels, nchunks, cb), dtype=np.uint32)
+    chunk_voff = np.zeros((npanels, nchunks, cb), dtype=np.int32)
+    chunk_row = np.zeros((npanels, nchunks, cb), dtype=np.int32)
+    chunk_vbase = np.zeros((npanels, nchunks), dtype=np.int32)
+    chunk_xbase = np.zeros((npanels, nchunks), dtype=np.int32)
+
+    # -- pass 2: vectorized per-panel assembly
+    per_panel = []       # deferred value scatters
+    vmax = 0
+    ncols_pad = xw
+    for p, pp in enumerate(panels):
+        if pp is None:
+            continue
+        order, starts, xbases, nb = pp
+        nch_p = starts.shape[0]
+        sizes = np.diff(np.append(starts, nb))
+        chunk_of = np.repeat(np.arange(nch_p, dtype=np.int64), sizes)
+        slot = np.arange(nb, dtype=np.int64) - np.repeat(starts, sizes)
+        lens = pop[order]
+        cum_excl = np.concatenate([[0], np.cumsum(lens)[:-1]])
+        chunk_nnz = np.add.reduceat(lens, starts) if nb else np.zeros(0, np.int64)
+
+        chunk_mask[p, chunk_of, slot] = mat.block_masks[order]
+        chunk_col[p, chunk_of, slot] = (
+            mat.block_colidx[order].astype(np.int64)
+            - np.repeat(xbases, sizes)).astype(np.int32)
+        chunk_row[p, chunk_of, slot] = (
+            (interval_of_block[order] - p * intervals_per_panel) * r
+        ).astype(np.int32)
+        chunk_voff[p, chunk_of, slot] = (
+            cum_excl - np.repeat(cum_excl[starts], sizes)).astype(np.int32)
+        chunk_xbase[p, :nch_p] = xbases
+        ncols_pad = max(ncols_pad, int(xbases.max()) + xw)
+        vmax = max(vmax, int(chunk_nnz.max()) if nch_p else 0)
+        # packed panel values in chunk order (no inter-chunk padding yet)
+        total = int(lens.sum())
+        src = (np.repeat(mat.block_voffset[order] - cum_excl, lens)
+               + np.arange(total, dtype=np.int64))
+        per_panel.append((p, nch_p, chunk_nnz, cum_excl[starts], src))
+
+    vmax = max(align, vmax + (-vmax) % align)
+    # chunk value windows: aligned exclusive cumsum across (panel, chunk)
+    all_nnz = np.concatenate([pp[2] for pp in per_panel]) if per_panel else \
+        np.zeros(0, np.int64)
+    aligned = -(-all_nnz // align) * align
+    vbases = np.concatenate([[0], np.cumsum(aligned)[:-1]]) if aligned.shape[0] \
+        else np.zeros(0, np.int64)
+    # every chunk's [vbase, vbase + vmax) window must be in bounds, and the
+    # last chunk has the largest vbase
+    nvals = (int(vbases[-1]) + vmax) if aligned.shape[0] else vmax
+    values = np.zeros(nvals, mat.values.dtype)
+    ci0 = 0
+    for p, nch_p, chunk_nnz, cum_chunk, src in per_panel:
+        vb = vbases[ci0:ci0 + nch_p]
+        chunk_vbase[p, :nch_p] = vb.astype(np.int32)
+        dst = (np.repeat(vb - cum_chunk, chunk_nnz)
+               + np.arange(int(chunk_nnz.sum()), dtype=np.int64))
+        values[dst] = mat.values[src]
+        ci0 += nch_p
+    return SPC5Panels(mat.shape, r, c, pr, cb, int(xw), int(vmax), npanels,
+                      nchunks, int(ncols_pad), chunk_col, chunk_mask,
+                      chunk_voff, chunk_row, chunk_vbase, chunk_xbase, values,
+                      mat.nnz)
+
+
+def to_chunked(mat: SPC5Matrix, cb: int = 256, align: int = 8) -> SPC5Chunked:
+    r, c = mat.r, mat.c
+    nblocks = mat.nblocks
+    nchunks = max(1, -(-nblocks // cb))
+    n_intervals = mat.block_rowptr.shape[0] - 1
+    interval_of_block = np.repeat(
+        np.arange(n_intervals, dtype=np.int64), np.diff(mat.block_rowptr))
+    pop = popcount_u32(mat.block_masks).astype(np.int64)
+
+    chunk_col = np.zeros((nchunks, cb), dtype=np.int32)
+    chunk_mask = np.zeros((nchunks, cb), dtype=np.uint32)
+    chunk_voff = np.zeros((nchunks, cb), dtype=np.int32)
+    chunk_row = np.zeros((nchunks, cb), dtype=np.int32)
+    chunk_vbase = np.zeros((nchunks,), dtype=np.int32)
+
+    vals_out = []
+    vcursor = 0
+    vmax = 0
+    for ch in range(nchunks):
+        b0, b1 = ch * cb, min((ch + 1) * cb, nblocks)
+        n = b1 - b0
+        if n <= 0:
+            chunk_vbase[ch] = vcursor
+            continue
+        lens = pop[b0:b1]
+        local_off = np.concatenate([[0], np.cumsum(lens)[:-1]])
+        total = int(lens.sum())
+        chunk_col[ch, :n] = mat.block_colidx[b0:b1]
+        chunk_mask[ch, :n] = mat.block_masks[b0:b1]
+        chunk_voff[ch, :n] = local_off
+        chunk_row[ch, :n] = (interval_of_block[b0:b1] * r).astype(np.int32)
+        chunk_vbase[ch] = vcursor
+        v0 = int(mat.block_voffset[b0])
+        vals_out.append(mat.values[v0:v0 + total])
+        vmax = max(vmax, total)
+        vcursor += total
+        pad = (-vcursor) % align
+        if pad:
+            vals_out.append(np.zeros(pad, mat.values.dtype))
+            vcursor += pad
+    # round the static window up to alignment, at least one vector
+    vmax = max(align, vmax + (-vmax) % align)
+    values = (np.concatenate(vals_out) if vals_out
+              else np.zeros(0, mat.values.dtype))
+    # tail padding so the last window load stays in bounds
+    tail_need = (int(chunk_vbase[-1]) + vmax) - values.shape[0]
+    if tail_need > 0:
+        values = np.concatenate([values, np.zeros(tail_need, mat.values.dtype)])
+    return SPC5Chunked(mat.shape, r, c, cb, int(vmax), nchunks, chunk_col,
+                       chunk_mask, chunk_voff, chunk_row, chunk_vbase, values,
+                       mat.nnz)

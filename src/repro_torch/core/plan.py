@@ -1,0 +1,374 @@
+"""Execution plans: a layout registry, the plan passes and one executor.
+
+The port's counterpart of ``repro.core.plan``, cut to the mask-SpMV slice:
+
+  * **Registry** (:class:`LayoutSpec`, :func:`register_layout`): the
+    ``whole_vector`` and ``panels`` layouts, each a ``build`` and a
+    ``lower_spmv`` entry plus the ``cost`` that "auto" resolution reads.
+  * **Plan** (:class:`SPC5Plan`): a frozen dataclass holding the layout's
+    tensors (all on one device), the geometry as ``meta`` and the pass
+    ``trace``. Geometry keys and array names resolve as attributes.
+  * **Passes** (:func:`make_plan`): tune -> reorder -> layout -> build, each
+    appending a ``duration_s``-stamped entry to ``plan.trace`` with the
+    reference's keys.
+  * **Executor** (:func:`execute_spmv`): the only place that dispatches on
+    the layout key.
+
+Not ported yet (each raises ``NotImplementedError``): the descriptor
+lowering, bf16/int8 values, reordering, the ``test`` layout, SpMM and the
+record-store tuner (ROADMAP queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import spc5_spmv
+
+from . import formats as F
+from . import ref_spmv as R
+
+LAYOUT_WHOLE = "whole_vector"
+LAYOUT_PANELS = "panels"
+LOWERING_MASK = "mask"
+
+#: Legacy spellings accepted by :func:`canonical_layout`.
+_LAYOUT_ALIASES: Dict[str, str] = {"whole": LAYOUT_WHOLE}
+_LAYOUT_SENTINELS = ("auto", "")
+
+Device = R.Device
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP queue 1, {item})")
+
+
+# ----------------------------------------------------------------------------
+# Registry
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LayoutSpec:
+    """One device layout: ``array_names`` fixes the order of the plan's
+    tensors, ``build(state)`` returns ``(arrays, geom)``, ``lower_spmv`` runs
+    y = A @ x, ``cost(nrows, ncols, itemsize)`` is the footprint "auto"
+    resolution compares with the budget."""
+
+    name: str
+    array_names: Tuple[str, ...]
+    build: Callable
+    lower_spmv: Callable
+    cost: Callable
+    device_view: Callable
+
+
+_REGISTRY: Dict[str, LayoutSpec] = {}
+_AUTO_ORDER: List[str] = []
+
+
+def register_layout(spec: LayoutSpec) -> LayoutSpec:
+    """Add a layout to the registry (idempotent by name, last wins)."""
+    if spec.name in _LAYOUT_SENTINELS:
+        raise ValueError(f"{spec.name!r} is reserved")
+    if spec.name not in _REGISTRY:
+        _AUTO_ORDER.append(spec.name)
+    _REGISTRY[spec.name] = spec
+    return spec
+
+
+def layout_names() -> Tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))
+
+
+def canonical_layout(name: str) -> str:
+    if name in _LAYOUT_SENTINELS or name in _REGISTRY:
+        return name
+    if name in _LAYOUT_ALIASES:
+        return _LAYOUT_ALIASES[name]
+    if name == "test":
+        raise _not_ported("the beta(r,c)_test layout", "item 5")
+    raise ValueError(f"unknown layout {name!r}; expected one of "
+                     f"{layout_names()} or 'auto'")
+
+
+def get_layout(name: str) -> LayoutSpec:
+    return _REGISTRY[canonical_layout(name)]
+
+
+# The reference's whole-vector rule, kept as it is for now: x (ncols) and y
+# (nrows) must fit a 2 MiB budget. That number is the TPU's VMEM budget
+# (16 MiB VMEM with headroom for the decode), not anything measured on an
+# H100, where x and y live in device memory and L2 either way; an H100 rule
+# needs the port's own measurements (PERF.md, open questions).
+VMEM_WHOLE_VECTOR_BUDGET = 2 * 2**20
+
+
+def _cost_whole(nrows: int, ncols: int, itemsize: int) -> int:
+    return (nrows + ncols) * itemsize
+
+
+def _cost_panels(nrows: int, ncols: int, itemsize: int) -> int:
+    return 0                            # bounded per CTA: always fits
+
+
+def fits_whole_vector(nrows: int, ncols: int, itemsize: int = 4) -> bool:
+    return _cost_whole(nrows, ncols, itemsize) <= VMEM_WHOLE_VECTOR_BUDGET
+
+
+# ----------------------------------------------------------------------------
+# The plan
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class SPC5Plan:
+    """Layout key + the layout's tensors (one device) + geometry + trace."""
+
+    layout: str
+    arrays: Tuple[torch.Tensor, ...]
+    meta: Tuple[Tuple[str, Any], ...]
+    trace_json: str = "[]"
+
+    def __getattr__(self, name):
+        meta = object.__getattribute__(self, "meta")
+        for k, v in meta:
+            if k == name:
+                return v
+        names = _REGISTRY[object.__getattribute__(self, "layout")].array_names
+        if name in names:
+            return object.__getattribute__(self, "arrays")[names.index(name)]
+        raise AttributeError(f"SPC5Plan ({self.layout!r}) has no attribute "
+                             f"{name!r}")
+
+    @property
+    def device(self) -> torch.device:
+        return self.arrays[0].device
+
+    @property
+    def dev(self):
+        """The layout's tensor view (``SPC5Device`` / ``SPC5PanelDevice``)."""
+        return _REGISTRY[self.layout].device_view(self.arrays)
+
+    @property
+    def trace(self) -> List[dict]:
+        return json.loads(self.trace_json)
+
+
+# ----------------------------------------------------------------------------
+# Pipeline state + passes
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PlanState:
+    mat: F.SPC5Matrix
+    device: torch.device
+    layout: str = "auto"
+    lowering: str = LOWERING_MASK
+    pr: Optional[int] = None
+    xw: Optional[int] = None
+    cb: Optional[int] = None
+    align: int = 8
+    vdtype: str = "auto"
+    tune: bool = True
+    dtype: Any = None
+    trace: List[dict] = dataclasses.field(default_factory=list)
+
+    @property
+    def itemsize(self) -> int:
+        """Bytes per value as the reference's "auto" rule counts them: 4 for
+        an explicit f32, else the requested ``dtype`` or the matrix's own
+        (8 for the generators' float64, though both packages store f32)."""
+        if self.vdtype == "f32":
+            return 4
+        return np.dtype(self.dtype or self.mat.values.dtype).itemsize
+
+
+def _tune_pass(st: PlanState) -> None:
+    """The port has no record store yet: the pass records why it did not
+    consult one, with the reference's three sources for that."""
+    explicit = (st.layout != "auto" or st.pr is not None
+                or st.xw is not None or st.cb is not None)
+    source = ("disabled" if not st.tune else
+              "explicit" if explicit else "no-store")
+    st.trace.append({"pass": "tune", "source": source})
+
+
+def _reorder_pass(st: PlanState) -> None:
+    st.trace.append({"pass": "reorder", "strategy": "", "applied": False})
+
+
+def _layout_pass(st: PlanState) -> None:
+    entry: dict = {"pass": "layout"}
+    if st.vdtype == "auto":
+        st.vdtype = ""
+    entry["vdtype"] = st.vdtype
+    if st.layout == "auto":
+        entry["reason"] = "vmem-fit"
+        st.layout = next(name for name in _AUTO_ORDER
+                         if _REGISTRY[name].cost(st.mat.nrows, st.mat.ncols,
+                                                 st.itemsize)
+                         <= VMEM_WHOLE_VECTOR_BUDGET)
+    else:
+        entry["reason"] = "requested"
+    entry["layout"] = st.layout
+    entry["lowering"] = st.lowering
+    st.trace.append(entry)
+
+
+def _build_pass(st: PlanState) -> SPC5Plan:
+    spec = _REGISTRY[st.layout]
+    t0 = time.perf_counter()
+    arrays, geom = spec.build(st)
+    st.trace.append({"pass": "build", "layout": st.layout,
+                     "duration_s": time.perf_counter() - t0,
+                     "rows_fused": False,
+                     **{k: v for k, v in sorted(geom.items())
+                        if isinstance(v, (int, float, str, bool))}})
+    return SPC5Plan(layout=st.layout, arrays=tuple(arrays),
+                    meta=tuple(sorted(geom.items())),
+                    trace_json=json.dumps(st.trace, sort_keys=True))
+
+
+def make_plan(mat: F.SPC5Matrix, *, device: Device, layout: str = "auto",
+              lowering: str = LOWERING_MASK, pr: Optional[int] = None,
+              xw: Optional[int] = None, cb: Optional[int] = None,
+              align: int = 8, dtype=None, vdtype: str = "auto",
+              tune: bool = True) -> SPC5Plan:
+    """The plan pipeline: tune -> reorder -> layout -> build.
+
+    Values are stored as float32 ("" / "f32"), which is what the reference
+    holds for the generators' float64 values too. ``dtype`` may only be
+    None or float32."""
+    vdtype = F.canonical_vdtype(vdtype)
+    if vdtype not in ("", "auto", "f32"):
+        raise _not_ported(f"vdtype={vdtype!r}", "item 5")
+    if dtype is not None and not _is_f32(dtype):
+        raise _not_ported(f"dtype={dtype!r}", "item 5")
+    if lowering != LOWERING_MASK:
+        raise _not_ported(f"lowering={lowering!r}", "item 5")
+    st = PlanState(mat=mat, device=torch.device(device),
+                   layout=canonical_layout(layout), lowering=lowering, pr=pr,
+                   xw=xw, cb=cb, align=align, vdtype=vdtype, tune=tune,
+                   dtype=None if dtype is None else np.float32)
+    for pass_fn in (_tune_pass, _reorder_pass, _layout_pass):
+        t0 = time.perf_counter()
+        pass_fn(st)
+        st.trace[-1]["duration_s"] = time.perf_counter() - t0
+    return _build_pass(st)
+
+
+def _is_f32(dtype) -> bool:
+    if isinstance(dtype, torch.dtype):
+        return dtype == torch.float32
+    return np.dtype(dtype) == np.float32
+
+
+# ----------------------------------------------------------------------------
+# Executor (the ONLY layout dispatch)
+# ----------------------------------------------------------------------------
+
+def execute_spmv(plan: SPC5Plan, x: torch.Tensor, *,
+                 double_buffer: bool = True) -> torch.Tensor:
+    """y = A @ x through the plan's registered lowering, on the plan's
+    device: the CUDA kernels for a plan on the card, the plain PyTorch
+    version for a plan on the CPU. ``x`` must be float32 on that device."""
+    if not isinstance(x, torch.Tensor) or x.device != plan.device:
+        raise ValueError(f"x must be a tensor on the plan's device "
+                         f"{plan.device}")
+    return _REGISTRY[plan.layout].lower_spmv(plan, x,
+                                             double_buffer=double_buffer)
+
+
+def plan_from_arrays(layout: str, arrays, meta, *,
+                     device: Device) -> SPC5Plan:
+    """A port plan from another plan's host arrays and geometry.
+
+    ``arrays`` are the layout's arrays in registry order (each anything
+    ``np.asarray`` takes, e.g. a JAX plan's device arrays) and ``meta`` its
+    ``(key, value)`` geometry, so the port computes with exactly the bytes
+    the other package built."""
+    spec = get_layout(layout)
+    meta = tuple(sorted((str(k), v) for k, v in meta))
+    m = dict(meta)
+    if m.get("lowering", LOWERING_MASK) != LOWERING_MASK:
+        raise _not_ported(f"lowering={m['lowering']!r}", "item 5")
+    if m.get("vdtype", "") not in ("", "f32"):
+        raise _not_ported(f"vdtype={m['vdtype']!r}", "item 5")
+    arrays = [np.asarray(a) for a in arrays]
+    if len(arrays) != len(spec.array_names):
+        raise ValueError(f"layout {spec.name!r} has arrays "
+                         f"{spec.array_names}, got {len(arrays)}")
+    return SPC5Plan(layout=spec.name,
+                    arrays=tuple(R.to_tensor(a, device) for a in arrays),
+                    meta=meta)
+
+
+# ----------------------------------------------------------------------------
+# whole_vector layout
+# ----------------------------------------------------------------------------
+
+def _build_whole(st: PlanState):
+    ch = F.to_chunked(st.mat, cb=256 if st.cb is None else st.cb,
+                      align=st.align)
+    geom = dict(r=ch.r, c=ch.c, cb=ch.cb, vmax=ch.vmax, nrows=ch.nrows,
+                ncols=ch.ncols, nnz=ch.nnz, nblocks=int(st.mat.nblocks),
+                lowering=st.lowering, vdtype=st.vdtype)
+    return tuple(R.device_put(ch, st.device)), geom
+
+
+def _lower_spmv_whole(plan: SPC5Plan, x, *, double_buffer):
+    fn = spc5_spmv.spmv_cuda_db if double_buffer else spc5_spmv.spmv_cuda
+    return fn(plan.chunk_vbase, plan.chunk_col, plan.chunk_mask,
+              plan.chunk_voff, plan.chunk_row, plan.values, x,
+              r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax,
+              nrows=plan.nrows, ncols=plan.ncols)
+
+
+register_layout(LayoutSpec(
+    name=LAYOUT_WHOLE,
+    array_names=R.SPC5Device._fields,
+    build=_build_whole,
+    lower_spmv=_lower_spmv_whole,
+    cost=_cost_whole,
+    device_view=lambda arrays: R.SPC5Device(*arrays),
+))
+
+
+# ----------------------------------------------------------------------------
+# panels layout
+# ----------------------------------------------------------------------------
+
+def _build_panels(st: PlanState):
+    pan = F.to_panels(st.mat, pr=512 if st.pr is None else st.pr,
+                      cb=64 if st.cb is None else st.cb,
+                      xw=512 if st.xw is None else st.xw, align=st.align)
+    geom = dict(r=pan.r, c=pan.c, pr=pan.pr, cb=pan.cb, xw=pan.xw,
+                vmax=pan.vmax, npanels=pan.npanels, nchunks=pan.nchunks,
+                nrows=pan.nrows, ncols=pan.ncols, ncols_pad=pan.ncols_pad,
+                nnz=pan.nnz, nblocks=int(st.mat.nblocks),
+                lowering=st.lowering, vdtype=st.vdtype)
+    return tuple(R.device_put_panels(pan, st.device)), geom
+
+
+def _lower_spmv_panels(plan: SPC5Plan, x, *, double_buffer):
+    fn = (spc5_spmv.spmv_cuda_panels_db if double_buffer
+          else spc5_spmv.spmv_cuda_panels)
+    return fn(plan.chunk_vbase, plan.chunk_xbase, plan.chunk_col,
+              plan.chunk_mask, plan.chunk_voff, plan.chunk_row, plan.values,
+              x, r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax, xw=plan.xw,
+              pr=plan.pr, nrows=plan.nrows, ncols_pad=plan.ncols_pad)
+
+
+register_layout(LayoutSpec(
+    name=LAYOUT_PANELS,
+    array_names=R.SPC5PanelDevice._fields,
+    build=_build_panels,
+    lower_spmv=_lower_spmv_panels,
+    cost=_cost_panels,
+    device_view=lambda arrays: R.SPC5PanelDevice(*arrays),
+))

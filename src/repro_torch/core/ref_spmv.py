@@ -1,0 +1,127 @@
+"""Plain PyTorch SpMV over the chunked SPC5 device layouts.
+
+These are the port's plain versions of the mask-decode kernels: composed
+torch ops, device-agnostic, mirroring the reference's jnp oracle
+(``repro.core.ref_spmv.spmv`` / ``spmv_panels``) for f32 values. The CPU
+tests run them in place of the CUDA kernels, and ``chip_smoke.py`` holds
+every kernel against them on the card. The decode is
+
+    ranks = cumsum(mask_bits) - mask_bits        # rank of each set bit
+    expanded[k] = values[vbase + voff + ranks[k]]
+
+so only the packed values are read, as in the paper.
+
+Masks are ``uint32`` in the host formats and bit 31 is used (r*c = 32 for
+4x8 and 8x4). torch has no right shift for ``UInt32`` on the CPU, so the
+device views carry masks as an ``int32`` view of the same bits: after an
+arithmetic shift ``(m >> k) & 1`` is still bit k.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Union
+
+import numpy as np
+import torch
+
+from .formats import SPC5Chunked, SPC5Panels
+
+Device = Union[str, torch.device]
+
+
+class SPC5Device(NamedTuple):
+    """Tensor view of :class:`SPC5Chunked` (static meta kept python-side)."""
+
+    values: torch.Tensor       # (nvals_padded,) float32
+    chunk_col: torch.Tensor    # (nchunks, cb) int32
+    chunk_mask: torch.Tensor   # (nchunks, cb) int32 view of the uint32 masks
+    chunk_voff: torch.Tensor   # (nchunks, cb) int32
+    chunk_row: torch.Tensor    # (nchunks, cb) int32
+    chunk_vbase: torch.Tensor  # (nchunks,) int32
+
+
+class SPC5PanelDevice(NamedTuple):
+    """Tensor view of :class:`SPC5Panels` (static meta kept python-side)."""
+
+    values: torch.Tensor       # (nvals_padded,) float32
+    chunk_col: torch.Tensor    # (npanels, nchunks, cb) int32, window-relative
+    chunk_mask: torch.Tensor   # (npanels, nchunks, cb) int32 view of uint32
+    chunk_voff: torch.Tensor   # (npanels, nchunks, cb) int32
+    chunk_row: torch.Tensor    # (npanels, nchunks, cb) int32, panel-relative
+    chunk_vbase: torch.Tensor  # (npanels, nchunks) int32
+    chunk_xbase: torch.Tensor  # (npanels, nchunks) int32
+
+
+def to_tensor(a: np.ndarray, device: Device) -> torch.Tensor:
+    """One host array -> a contiguous tensor on ``device``.
+
+    ``uint32`` becomes its ``int32`` view (same bytes) and float values
+    become float32, which is what the reference stores too: its
+    ``jnp.asarray`` drops the generators' float64 to float32 because JAX
+    runs without x64."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:           # e.g. a JAX array's host view
+        a = a.copy()
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    elif a.dtype.kind == "f":
+        a = a.astype(np.float32, copy=False)
+    return torch.from_numpy(a).to(device)
+
+
+def device_put(chunked: SPC5Chunked, device: Device) -> SPC5Device:
+    return SPC5Device(*(to_tensor(getattr(chunked, n), device)
+                        for n in SPC5Device._fields))
+
+
+def device_put_panels(panels: SPC5Panels, device: Device) -> SPC5PanelDevice:
+    return SPC5PanelDevice(*(to_tensor(getattr(panels, n), device)
+                             for n in SPC5PanelDevice._fields))
+
+
+def _decode(values, chunk_mask, chunk_voff, chunk_vbase, r: int, c: int):
+    """Shared mask decode over any leading chunk shape: returns the expanded
+    values (set lanes only, others 0) and the lane index k, both with a
+    trailing r*c axis."""
+    rc = r * c
+    k = torch.arange(rc, dtype=torch.int32, device=values.device)
+    bits = (chunk_mask[..., None] >> k) & 1
+    ranks = torch.cumsum(bits, dim=-1, dtype=torch.int32) - bits
+    vidx = chunk_vbase[..., None, None] + chunk_voff[..., None] + ranks
+    vidx = vidx.clamp(0, values.shape[0] - 1).long()
+    vals = values[vidx] * bits.to(values.dtype)
+    return vals, k
+
+
+def spmv(dev: SPC5Device, x: torch.Tensor, *, r: int, c: int, nrows: int,
+         ncols: int) -> torch.Tensor:
+    """y = A @ x with A in chunked beta(r, c) (whole-vector layout).
+
+    Unset lanes carry a zero value; their clamped gather/scatter indices
+    stay in bounds and add nothing (the reference's jnp scatter drops
+    out-of-range rows instead, with the same result)."""
+    vals, k = _decode(dev.values, dev.chunk_mask, dev.chunk_voff,
+                      dev.chunk_vbase, r, c)
+    xcol = (dev.chunk_col[..., None] + k % c).clamp(0, ncols - 1).long()
+    yrow = (dev.chunk_row[..., None] + k // c).clamp(0, nrows - 1).long()
+    contrib = vals * x[xcol]
+    y = torch.zeros(nrows, dtype=contrib.dtype, device=contrib.device)
+    return y.index_add_(0, yrow.reshape(-1), contrib.reshape(-1))
+
+
+def spmv_panels(dev: SPC5PanelDevice, x: torch.Tensor, *, r: int, c: int,
+                pr: int, nrows: int, ncols_pad: int) -> torch.Tensor:
+    """y = A @ x with A in the row-panel-tiled layout; x (ncols,)."""
+    npanels = dev.chunk_mask.shape[0]
+    xp = torch.nn.functional.pad(x, (0, max(0, ncols_pad - x.shape[0])))
+    vals, k = _decode(dev.values, dev.chunk_mask, dev.chunk_voff,
+                      dev.chunk_vbase, r, c)
+    xcol = (dev.chunk_xbase[..., None, None] + dev.chunk_col[..., None]
+            + k % c).clamp(0, ncols_pad - 1).long()
+    panel_row0 = (torch.arange(npanels, dtype=torch.int32, device=x.device)
+                  * pr)[:, None, None, None]
+    yrow = (panel_row0 + dev.chunk_row[..., None]
+            + k // c).clamp(0, npanels * pr - 1).long()
+    contrib = vals * xp[xcol]
+    y = torch.zeros(npanels * pr, dtype=contrib.dtype, device=contrib.device)
+    y.index_add_(0, yrow.reshape(-1), contrib.reshape(-1))
+    return y[:nrows]

@@ -1,0 +1,120 @@
+"""Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
+
+Each ``csrc/*.cu`` file is compiled on first use into one shared library
+with a plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3
+-shared -Xcompiler -fPIC``); no PyTorch header is included, so a build
+takes seconds. Libraries land in ``kernels/build/`` (listed in
+``.gitignore``) under a name keyed by a hash of the source and the flags,
+so an edited source is rebuilt and an unchanged one is loaded as it is.
+Sources are compiled in parallel, one nvcc process each. A failed build
+raises; nothing falls back.
+
+Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List, Tuple
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+
+NVCC_FLAGS: Tuple[str, ...] = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+#: C entry points per source: name -> argtypes. Every pointer and the stream
+#: are ``c_void_p`` so 64-bit addresses are never truncated.
+SIGNATURES: Dict[str, Dict[str, List]] = {
+    "spc5_spmv": {
+        **{f"spc5_spmv_whole_s{s}": [_P] * 8 + [_I] * 7 + [_P]
+           for s in (1, 2)},
+        **{f"spc5_spmv_panels_s{s}": [_P] * 9 + [_I] * 11 + [_P]
+           for s in (1, 2)},
+    },
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+#: What the last build printed, per source: nvcc's ``-Xptxas -v`` report
+#: (registers, shared memory and spills of each kernel) and the seconds it
+#: took. Empty for a source loaded from an earlier build.
+BUILD_LOG: Dict[str, Dict[str, object]] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked at $NVCC, PATH and $CUDA_HOME/bin); the "
+        "CUDA kernels are built from source at first use")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def _start(name: str) -> Tuple[str, subprocess.Popen, Path, Path, float]:
+    out = _lib_path(name)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return name, proc, tmp, out, time.perf_counter()
+
+
+def _bind(name: str, path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return lib
+
+
+def build_all(names=None) -> Dict[str, ctypes.CDLL]:
+    """Build (where needed) and load every source in ``names`` (default:
+    all of :data:`SIGNATURES`), all nvcc processes started together."""
+    names = list(SIGNATURES if names is None else names)
+    with _lock:
+        todo = [n for n in names if n not in _libs]
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        started = [_start(n) for n in todo if not _lib_path(n).exists()]
+        failures = []
+        for name, proc, tmp, out, t0 in started:
+            log, _ = proc.communicate()
+            BUILD_LOG[name] = {"seconds": time.perf_counter() - t0,
+                               "log": log}
+            if proc.returncode != 0:
+                failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)
+        if failures:
+            raise RuntimeError("CUDA build failed:\n" + "\n".join(failures))
+        for n in todo:
+            _libs[n] = _bind(n, _lib_path(n))
+        return {n: _libs[n] for n in names}
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    lib = _libs.get(name)
+    return lib if lib is not None else build_all([name])[name]

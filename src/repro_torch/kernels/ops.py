@@ -1,0 +1,73 @@
+"""Public SpMV entry points of the port: :func:`prepare` and :func:`spmv`.
+
+The counterpart of ``repro.kernels.ops`` for the mask-SpMV slice.
+:func:`prepare` runs the plan passes (``repro_torch.core.plan``) and puts
+the plan's tensors on a device: the card unless the caller asks for the
+CPU. :func:`spmv` multiplies through the plan executor, which runs the CUDA
+kernels for a plan on the card and the plain PyTorch version for a plan on
+the CPU.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import formats as F
+from repro_torch.core import plan as P
+
+
+def resolve_device(device: Optional[P.Device]) -> torch.device:
+    """``None`` means the card. With no card present that raises: the port
+    runs on the CPU only when the caller asks for it."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the plain "
+            "PyTorch version on the host")
+    return torch.device("cuda")
+
+
+def prepare(mat: F.SPC5Matrix, *, layout: str = "auto",
+            lowering: str = "mask", config=None, pr: Optional[int] = None,
+            xw: Optional[int] = None, cb: Optional[int] = None,
+            align: int = 8, dtype=None, vdtype: str = "auto",
+            tune: bool = True,
+            device: Optional[P.Device] = None) -> P.SPC5Plan:
+    """Build an execution plan for ``mat`` on ``device`` (default: the card).
+
+    ``layout`` is "whole_vector", "panels" (or the alias "whole") or "auto",
+    which keeps the reference's rule (whole-vector when x and y fit
+    ``plan.VMEM_WHOLE_VECTOR_BUDGET``). ``pr``/``xw`` default to 512 and
+    ``cb`` to 256 (whole-vector) or 64 (panels). ``config`` takes a
+    ``PanelConfig``-like object (``layout``, ``pr``, ``xw``, ``cb``,
+    ``lowering``, ``vdtype`` attributes) whole, filling every
+    axis the caller left at its default, as the reference does.
+
+    Only the mask lowering and f32 values are ported; anything else raises
+    ``NotImplementedError``."""
+    if config is not None:
+        if layout == "auto":
+            layout = getattr(config, "layout", "") or "auto"
+        pr = pr if pr is not None else (getattr(config, "pr", 0) or None)
+        xw = xw if xw is not None else (getattr(config, "xw", 0) or None)
+        cb = cb if cb is not None else (getattr(config, "cb", 0) or None)
+        lowering = getattr(config, "lowering", "") or lowering
+        if getattr(config, "reorder", ""):
+            raise NotImplementedError(
+                "reordering is not ported to repro_torch yet (ROADMAP queue "
+                "1, item 5)")
+        if vdtype == "auto" and getattr(config, "vdtype", "") not in ("", "f32"):
+            vdtype = config.vdtype
+    return P.make_plan(mat, device=resolve_device(device), layout=layout,
+                       lowering=lowering, pr=pr, xw=xw, cb=cb, align=align,
+                       dtype=dtype, vdtype=vdtype, tune=tune)
+
+
+def spmv(plan: P.SPC5Plan, x: torch.Tensor, *,
+         double_buffer: bool = True) -> torch.Tensor:
+    """y = A @ x; ``x`` is a float32 (ncols,) tensor on the plan's device.
+    ``double_buffer`` picks the kernel that prefetches the next chunk's
+    windows (the default, as in the reference) or the single-buffered one."""
+    return P.execute_spmv(plan, x, double_buffer=double_buffer)

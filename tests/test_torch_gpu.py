@@ -1,0 +1,134 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU with nvcc: it is marked ``gpu`` and
+skips from the ``cuda`` fixture where ``torch.cuda.is_available()`` is
+False (decided when the test runs, so every pytest-xdist worker collects
+the same tests). Run on the card with
+
+    python -m pytest -m gpu tests/test_torch_gpu.py
+
+This file imports only torch, numpy and the port (the card's machine has no
+JAX). Tolerance: the kernels sum each row in another f32 order than the
+plain version (the whole-vector kernels through global atomics, in an order
+that changes from run to run), so outputs agree to ``1e-5 * max|y|``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import formats as F
+from repro_torch.core import matgen
+from repro_torch.core import ref_spmv as R
+from repro_torch.kernels import ops
+from repro_torch.kernels import spc5_spmv as K
+
+pytestmark = pytest.mark.gpu
+
+RTOL = 1e-5
+
+KERNELS = ("spmv_cuda", "spmv_cuda_db", "spmv_cuda_panels",
+           "spmv_cuda_panels_db")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (run: python -m pytest -m gpu "
+                    "tests/test_torch_gpu.py on the card)")
+    return torch.device("cuda")
+
+
+def _matrix(rc, n=300, m=260, density=0.08, seed=0):
+    rng = np.random.default_rng(seed + 10 * rc[0] + rc[1])
+    d = ((rng.random((n, m)) < density)
+         * rng.standard_normal((n, m))).astype(np.float32)
+    return F.csr_to_spc5(F.csr_from_dense(d), *rc)
+
+
+def _run(kernel, mat, x, device, **geom):
+    layout = "panels" if "panels" in kernel else "whole_vector"
+    plan = ops.prepare(mat, layout=layout, tune=False, device=device, **geom)
+    xt = torch.from_numpy(x).to(device)
+    dev = plan.dev
+    if layout == "panels":
+        plain = R.spmv_panels(dev, xt, r=plan.r, c=plan.c, pr=plan.pr,
+                              nrows=plan.nrows, ncols_pad=plan.ncols_pad)
+    else:
+        plain = R.spmv(dev, xt, r=plan.r, c=plan.c, nrows=plan.nrows,
+                       ncols=plan.ncols)
+    before = K.LAUNCHES[kernel]
+    y = ops.spmv(plan, xt, double_buffer=kernel.endswith("_db"))
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[kernel] == before + 1
+    assert y.device.type == "cuda" and y.shape == (mat.nrows,)
+    scale = float(plain.abs().max())
+    err = float((y - plain).abs().max())
+    assert torch.isfinite(y).all()
+    assert err <= RTOL * max(scale, 1.0), (err, scale)
+    return plan
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+def test_kernel_matches_plain(cuda, kernel, rc):
+    """Several chunks and panels (pr=64, xw=64, cb=16), nrows % r != 0 for
+    r in (4, 8), and bit-31 masks for 4x8 / 8x4."""
+    mat = _matrix(rc, n=302)
+    x = np.random.default_rng(1).standard_normal(mat.ncols).astype(np.float32)
+    geom = (dict(pr=64, xw=64, cb=16) if "panels" in kernel
+            else dict(cb=16))
+    plan = _run(kernel, mat, x, cuda, **geom)
+    assert plan.npanels > 1 if "panels" in kernel else plan.cb == 16
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_fem_matrix_default_geometry(cuda, kernel):
+    """The chip_smoke matrix class (SET_A bone010) at a small size, with the
+    layouts' default geometry."""
+    csr = matgen.fem_blocks(8_000, 4, 12, seed=5)
+    mat = F.csr_to_spc5(csr, 4, 4)
+    x = np.random.default_rng(2).standard_normal(mat.ncols).astype(np.float32)
+    _run(kernel, mat, x, cuda)
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+@pytest.mark.parametrize("kind", ["empty", "last_row_only", "left_columns"])
+def test_edge_matrices(cuda, kernel, kind):
+    """No nonzero at all; one nonzero in the last row and column (nrows %
+    r != 0); nonzeros only in the first columns (panel ncols_pad < ncols)."""
+    d = np.zeros((37, 29), np.float32)
+    if kind == "last_row_only":
+        d[36, 28] = 2.0
+    elif kind == "left_columns":
+        d[::3, :9] = np.random.default_rng(6).standard_normal((13, 9))
+    mat = F.csr_to_spc5(F.csr_from_dense(d), 8, 4)
+    x = np.random.default_rng(7).standard_normal(29).astype(np.float32)
+    geom = (dict(pr=16, xw=16, cb=4) if "panels" in kernel else dict(cb=4))
+    _run(kernel, mat, x, cuda, **geom)
+
+
+@pytest.mark.parametrize("kernel", ("spmv_cuda", "spmv_cuda_db"))
+def test_cb512_needs_large_shared_memory(cuda, kernel):
+    """cb=512 at 4x8 on a dense-ish matrix: vmax is far above 48 KB / 4 B per
+    stage, so the launch must opt in to large dynamic shared memory."""
+    mat = _matrix((4, 8), n=512, m=512, density=0.9)
+    x = np.random.default_rng(3).standard_normal(mat.ncols).astype(np.float32)
+    plan = _run(kernel, mat, x, cuda, cb=512)
+    stages = 2 if kernel.endswith("_db") else 1
+    assert stages * plan.vmax * 4 > 48 * 1024
+
+
+def test_oversized_shared_memory_raises(cuda):
+    mat = _matrix((4, 8), n=1024, m=1024, density=0.95)
+    plan = ops.prepare(mat, layout="whole_vector", cb=2048, tune=False,
+                       device=cuda)
+    x = torch.zeros(mat.ncols, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.spmv(plan, x)
+
+
+def test_cuda_plan_rejects_cpu_x(cuda):
+    plan = ops.prepare(_matrix((2, 4)), layout="panels", tune=False,
+                       device=cuda)
+    with pytest.raises(ValueError, match="device"):
+        ops.spmv(plan, torch.zeros(plan.ncols))

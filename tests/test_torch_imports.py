@@ -1,0 +1,61 @@
+"""The port stands alone: no module of ``src/repro_torch`` and not
+``chip_smoke.py`` imports JAX, ``ml_dtypes`` or the JAX package ``repro``
+(the card's machine has none of them), and importing the port builds
+nothing."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "src", "repro_torch")
+FORBIDDEN = {"jax", "jaxlib", "ml_dtypes", "repro"}
+
+FILES = sorted(
+    os.path.relpath(os.path.join(d, f), REPO)
+    for d, _, fs in os.walk(PORT) for f in fs if f.endswith(".py")
+) + ["chip_smoke.py"]
+
+
+def _imported_roots(path):
+    with open(os.path.join(REPO, path), encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", FILES)
+def test_no_jax_or_reference_imports(path):
+    bad = [(m, ln) for m, ln in _imported_roots(path) if m in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_port_modules_cover_the_slice():
+    names = {os.path.relpath(p, os.path.join("src", "repro_torch"))
+             for p in FILES if p.startswith("src")}
+    assert {"core/formats.py", "core/matgen.py", "core/ref_spmv.py",
+            "core/plan.py", "kernels/_build.py", "kernels/spc5_spmv.py",
+            "kernels/ops.py"} <= names
+    assert os.path.isfile(os.path.join(PORT, "kernels", "csrc",
+                                       "spc5_spmv.cu"))
+
+
+def test_importing_the_port_loads_no_jax_and_builds_nothing():
+    code = (
+        "import sys\n"
+        "import repro_torch.kernels.ops, repro_torch.core.matgen\n"
+        "from repro_torch.kernels import _build\n"
+        "assert not any(m.split('.')[0] in {'jax', 'ml_dtypes', 'repro'} "
+        "for m in sys.modules), sorted(m for m in sys.modules if 'jax' in m)\n"
+        "assert not _build._libs and not _build.BUILD_LOG\n"
+    )
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert res.returncode == 0, res.stderr
