@@ -223,6 +223,32 @@ def csr_to_spc5(csr: CSRMatrix, r: int, c: int) -> SPC5Matrix:
                       masks, voffset.astype(np.int64), values)
 
 
+def beta_breakeven_avg(r: int, c: int, s_int: int = 4) -> float:
+    """Paper eq. (4): minimum Avg(r,c) for beta(r,c) to beat CSR's last term."""
+    return 1.0 + (r * c) / (8.0 * s_int)
+
+
+def block_stats(csr: CSRMatrix, r: int, c: int) -> Tuple[int, float]:
+    """(N_blocks(r,c), Avg(r,c)) without materializing the format's values.
+
+    This is the cheap statistic the paper's selector uses *before* conversion.
+    """
+    nrows = csr.shape[0]
+    n_intervals = -(-nrows // r)
+    nblocks = 0
+    for it in range(n_intervals):
+        row0, row1 = it * r, min((it + 1) * r, nrows)
+        lo, hi = int(csr.rowptr[row0]), int(csr.rowptr[row1])
+        if lo == hi:
+            continue
+        ucols = np.unique(csr.colidx[lo:hi].astype(np.int64))
+        i = 0
+        while i < ucols.shape[0]:
+            i = int(np.searchsorted(ucols, ucols[i] + c, side="left"))
+            nblocks += 1
+    return nblocks, csr.nnz / max(nblocks, 1)
+
+
 def popcount_u32(x: np.ndarray) -> np.ndarray:
     x = x.astype(np.uint32)
     out = np.zeros(x.shape, dtype=np.int32)

@@ -1,21 +1,23 @@
 """Execution plans: a layout registry, the plan passes and one executor.
 
-The port's counterpart of ``repro.core.plan``, cut to the mask-SpMV slice:
+The port's counterpart of ``repro.core.plan``, cut to the mask SpMV and
+SpMM slices:
 
   * **Registry** (:class:`LayoutSpec`, :func:`register_layout`): the
-    ``whole_vector`` and ``panels`` layouts, each a ``build`` and a
-    ``lower_spmv`` entry plus the ``cost`` that "auto" resolution reads.
+    ``whole_vector`` and ``panels`` layouts, each a ``build``, a
+    ``lower_spmv`` and a ``lower_spmm`` entry plus the ``cost`` that "auto"
+    resolution reads.
   * **Plan** (:class:`SPC5Plan`): a frozen dataclass holding the layout's
     tensors (all on one device), the geometry as ``meta`` and the pass
     ``trace``. Geometry keys and array names resolve as attributes.
   * **Passes** (:func:`make_plan`): tune -> reorder -> layout -> build, each
     appending a ``duration_s``-stamped entry to ``plan.trace`` with the
     reference's keys.
-  * **Executor** (:func:`execute_spmv`): the only place that dispatches on
-    the layout key.
+  * **Executors** (:func:`execute_spmv`, :func:`execute_spmm`): the only
+    place that dispatches on the layout key.
 
 Not ported yet (each raises ``NotImplementedError``): the descriptor
-lowering, bf16/int8 values, reordering, the ``test`` layout, SpMM and the
+lowering, bf16/int8 values, reordering, the ``test`` layout and the
 record-store tuner (ROADMAP queue 1).
 """
 from __future__ import annotations
@@ -28,7 +30,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import spc5_spmv
+from repro_torch.kernels import spc5_spmm, spc5_spmv
 
 from . import formats as F
 from . import ref_spmv as R
@@ -57,13 +59,14 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 class LayoutSpec:
     """One device layout: ``array_names`` fixes the order of the plan's
     tensors, ``build(state)`` returns ``(arrays, geom)``, ``lower_spmv`` runs
-    y = A @ x, ``cost(nrows, ncols, itemsize)`` is the footprint "auto"
-    resolution compares with the budget."""
+    y = A @ x and ``lower_spmm`` Y = A @ X, ``cost(nrows, ncols, itemsize,
+    nvec)`` is the footprint "auto" resolution compares with the budget."""
 
     name: str
     array_names: Tuple[str, ...]
     build: Callable
     lower_spmv: Callable
+    lower_spmm: Callable
     cost: Callable
     device_view: Callable
 
@@ -105,20 +108,26 @@ def get_layout(name: str) -> LayoutSpec:
 # (nrows) must fit a 2 MiB budget. That number is the TPU's VMEM budget
 # (16 MiB VMEM with headroom for the decode), not anything measured on an
 # H100, where x and y live in device memory and L2 either way; an H100 rule
-# needs the port's own measurements (PERF.md, open questions).
+# needs the port's own measurements (PERF.md, open questions). SpMM scales
+# the footprint by its tile width, nvt = min(nvec, 128), as the reference's
+# whole-vector SpMM kernel holds (ncols, nvt) and (nrows, nvt) tiles.
 VMEM_WHOLE_VECTOR_BUDGET = 2 * 2**20
 
 
-def _cost_whole(nrows: int, ncols: int, itemsize: int) -> int:
-    return (nrows + ncols) * itemsize
+def _cost_whole(nrows: int, ncols: int, itemsize: int, nvec: int) -> int:
+    return (nrows + ncols) * itemsize * min(max(nvec, 1), 128)
 
 
-def _cost_panels(nrows: int, ncols: int, itemsize: int) -> int:
+def _cost_panels(nrows: int, ncols: int, itemsize: int, nvec: int) -> int:
     return 0                            # bounded per CTA: always fits
 
 
-def fits_whole_vector(nrows: int, ncols: int, itemsize: int = 4) -> bool:
-    return _cost_whole(nrows, ncols, itemsize) <= VMEM_WHOLE_VECTOR_BUDGET
+def fits_whole_vector(nrows: int, ncols: int, itemsize: int = 4,
+                      budget_bytes: int = VMEM_WHOLE_VECTOR_BUDGET,
+                      nvec: int = 1) -> bool:
+    """The reference's rule: whole-vector only when x and y, at the widest
+    SpMM batch ``nvec`` the plan will see, fit the budget."""
+    return _cost_whole(nrows, ncols, itemsize, nvec) <= budget_bytes
 
 
 # ----------------------------------------------------------------------------
@@ -172,6 +181,7 @@ class PlanState:
     pr: Optional[int] = None
     xw: Optional[int] = None
     cb: Optional[int] = None
+    nvec: int = 1
     align: int = 8
     vdtype: str = "auto"
     tune: bool = True
@@ -211,7 +221,7 @@ def _layout_pass(st: PlanState) -> None:
         entry["reason"] = "vmem-fit"
         st.layout = next(name for name in _AUTO_ORDER
                          if _REGISTRY[name].cost(st.mat.nrows, st.mat.ncols,
-                                                 st.itemsize)
+                                                 st.itemsize, st.nvec)
                          <= VMEM_WHOLE_VECTOR_BUDGET)
     else:
         entry["reason"] = "requested"
@@ -237,13 +247,15 @@ def _build_pass(st: PlanState) -> SPC5Plan:
 def make_plan(mat: F.SPC5Matrix, *, device: Device, layout: str = "auto",
               lowering: str = LOWERING_MASK, pr: Optional[int] = None,
               xw: Optional[int] = None, cb: Optional[int] = None,
-              align: int = 8, dtype=None, vdtype: str = "auto",
-              tune: bool = True) -> SPC5Plan:
+              nvec: int = 1, align: int = 8, dtype=None,
+              vdtype: str = "auto", tune: bool = True) -> SPC5Plan:
     """The plan pipeline: tune -> reorder -> layout -> build.
 
-    Values are stored as float32 ("" / "f32"), which is what the reference
-    holds for the generators' float64 values too. ``dtype`` may only be
-    None or float32."""
+    ``nvec`` is the widest SpMM batch the plan will see; "auto" layout
+    budgets x and y at that width, as the reference does. Values are stored
+    as float32 ("" / "f32"), which is what the reference holds for the
+    generators' float64 values too. ``dtype`` may only be None or
+    float32."""
     vdtype = F.canonical_vdtype(vdtype)
     if vdtype not in ("", "auto", "f32"):
         raise _not_ported(f"vdtype={vdtype!r}", "item 5")
@@ -253,8 +265,8 @@ def make_plan(mat: F.SPC5Matrix, *, device: Device, layout: str = "auto",
         raise _not_ported(f"lowering={lowering!r}", "item 5")
     st = PlanState(mat=mat, device=torch.device(device),
                    layout=canonical_layout(layout), lowering=lowering, pr=pr,
-                   xw=xw, cb=cb, align=align, vdtype=vdtype, tune=tune,
-                   dtype=None if dtype is None else np.float32)
+                   xw=xw, cb=cb, nvec=nvec, align=align, vdtype=vdtype,
+                   tune=tune, dtype=None if dtype is None else np.float32)
     for pass_fn in (_tune_pass, _reorder_pass, _layout_pass):
         t0 = time.perf_counter()
         pass_fn(st)
@@ -277,11 +289,26 @@ def execute_spmv(plan: SPC5Plan, x: torch.Tensor, *,
     """y = A @ x through the plan's registered lowering, on the plan's
     device: the CUDA kernels for a plan on the card, the plain PyTorch
     version for a plan on the CPU. ``x`` must be float32 on that device."""
+    _check_device(plan, x)
+    return _REGISTRY[plan.layout].lower_spmv(plan, x,
+                                             double_buffer=double_buffer)
+
+
+def execute_spmm(plan: SPC5Plan, x: torch.Tensor, *, nvt: int = 128,
+                 double_buffer: bool = True) -> torch.Tensor:
+    """Y = A @ X, X of shape (ncols, nvec) float32 on the plan's device,
+    through the plan's registered lowering (the CUDA kernels on the card,
+    the plain PyTorch version on the CPU). ``nvt`` is the reference's
+    column tile: nvec must be a multiple of min(nvt, nvec)."""
+    _check_device(plan, x)
+    return _REGISTRY[plan.layout].lower_spmm(plan, x, nvt=nvt,
+                                             double_buffer=double_buffer)
+
+
+def _check_device(plan: SPC5Plan, x) -> None:
     if not isinstance(x, torch.Tensor) or x.device != plan.device:
         raise ValueError(f"x must be a tensor on the plan's device "
                          f"{plan.device}")
-    return _REGISTRY[plan.layout].lower_spmv(plan, x,
-                                             double_buffer=double_buffer)
 
 
 def plan_from_arrays(layout: str, arrays, meta, *,
@@ -329,11 +356,20 @@ def _lower_spmv_whole(plan: SPC5Plan, x, *, double_buffer):
               nrows=plan.nrows, ncols=plan.ncols)
 
 
+def _lower_spmm_whole(plan: SPC5Plan, x, *, nvt, double_buffer):
+    # the reference has one whole-vector SpMM kernel: no double buffer
+    return spc5_spmm.spmm_cuda(
+        plan.chunk_vbase, plan.chunk_col, plan.chunk_mask, plan.chunk_voff,
+        plan.chunk_row, plan.values, x, r=plan.r, c=plan.c, cb=plan.cb,
+        vmax=plan.vmax, nrows=plan.nrows, ncols=plan.ncols, nvt=nvt)
+
+
 register_layout(LayoutSpec(
     name=LAYOUT_WHOLE,
     array_names=R.SPC5Device._fields,
     build=_build_whole,
     lower_spmv=_lower_spmv_whole,
+    lower_spmm=_lower_spmm_whole,
     cost=_cost_whole,
     device_view=lambda arrays: R.SPC5Device(*arrays),
 ))
@@ -364,11 +400,22 @@ def _lower_spmv_panels(plan: SPC5Plan, x, *, double_buffer):
               pr=plan.pr, nrows=plan.nrows, ncols_pad=plan.ncols_pad)
 
 
+def _lower_spmm_panels(plan: SPC5Plan, x, *, nvt, double_buffer):
+    fn = (spc5_spmm.spmm_cuda_panels_db if double_buffer
+          else spc5_spmm.spmm_cuda_panels)
+    return fn(plan.chunk_vbase, plan.chunk_xbase, plan.chunk_col,
+              plan.chunk_mask, plan.chunk_voff, plan.chunk_row, plan.values,
+              x, r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax, xw=plan.xw,
+              pr=plan.pr, nrows=plan.nrows, ncols_pad=plan.ncols_pad,
+              nvt=nvt)
+
+
 register_layout(LayoutSpec(
     name=LAYOUT_PANELS,
     array_names=R.SPC5PanelDevice._fields,
     build=_build_panels,
     lower_spmv=_lower_spmv_panels,
+    lower_spmm=_lower_spmm_panels,
     cost=_cost_panels,
     device_view=lambda arrays: R.SPC5PanelDevice(*arrays),
 ))

@@ -1,10 +1,11 @@
-"""Plain PyTorch SpMV over the chunked SPC5 device layouts.
+"""Plain PyTorch SpMV and SpMM over the chunked SPC5 device layouts.
 
 These are the port's plain versions of the mask-decode kernels: composed
 torch ops, device-agnostic, mirroring the reference's jnp oracle
-(``repro.core.ref_spmv.spmv`` / ``spmv_panels``) for f32 values. The CPU
-tests run them in place of the CUDA kernels, and ``chip_smoke.py`` holds
-every kernel against them on the card. The decode is
+(``repro.core.ref_spmv.spmv`` / ``spmv_panels`` / ``spmm`` /
+``spmm_panels``) for f32 values. The CPU tests run them in place of the
+CUDA kernels, and ``chip_smoke.py`` holds every kernel against them on the
+card. The decode is
 
     ranks = cumsum(mask_bits) - mask_bits        # rank of each set bit
     expanded[k] = values[vbase + voff + ranks[k]]
@@ -80,8 +81,8 @@ def device_put_panels(panels: SPC5Panels, device: Device) -> SPC5PanelDevice:
 
 def _decode(values, chunk_mask, chunk_voff, chunk_vbase, r: int, c: int):
     """Shared mask decode over any leading chunk shape: returns the expanded
-    values (set lanes only, others 0) and the lane index k, both with a
-    trailing r*c axis."""
+    values (set lanes only, others 0), the lane index k and the lane bits,
+    each with a trailing r*c axis."""
     rc = r * c
     k = torch.arange(rc, dtype=torch.int32, device=values.device)
     bits = (chunk_mask[..., None] >> k) & 1
@@ -89,7 +90,7 @@ def _decode(values, chunk_mask, chunk_voff, chunk_vbase, r: int, c: int):
     vidx = chunk_vbase[..., None, None] + chunk_voff[..., None] + ranks
     vidx = vidx.clamp(0, values.shape[0] - 1).long()
     vals = values[vidx] * bits.to(values.dtype)
-    return vals, k
+    return vals, k, bits
 
 
 def spmv(dev: SPC5Device, x: torch.Tensor, *, r: int, c: int, nrows: int,
@@ -99,8 +100,8 @@ def spmv(dev: SPC5Device, x: torch.Tensor, *, r: int, c: int, nrows: int,
     Unset lanes carry a zero value; their clamped gather/scatter indices
     stay in bounds and add nothing (the reference's jnp scatter drops
     out-of-range rows instead, with the same result)."""
-    vals, k = _decode(dev.values, dev.chunk_mask, dev.chunk_voff,
-                      dev.chunk_vbase, r, c)
+    vals, k, _ = _decode(dev.values, dev.chunk_mask, dev.chunk_voff,
+                         dev.chunk_vbase, r, c)
     xcol = (dev.chunk_col[..., None] + k % c).clamp(0, ncols - 1).long()
     yrow = (dev.chunk_row[..., None] + k // c).clamp(0, nrows - 1).long()
     contrib = vals * x[xcol]
@@ -113,8 +114,8 @@ def spmv_panels(dev: SPC5PanelDevice, x: torch.Tensor, *, r: int, c: int,
     """y = A @ x with A in the row-panel-tiled layout; x (ncols,)."""
     npanels = dev.chunk_mask.shape[0]
     xp = torch.nn.functional.pad(x, (0, max(0, ncols_pad - x.shape[0])))
-    vals, k = _decode(dev.values, dev.chunk_mask, dev.chunk_voff,
-                      dev.chunk_vbase, r, c)
+    vals, k, _ = _decode(dev.values, dev.chunk_mask, dev.chunk_voff,
+                         dev.chunk_vbase, r, c)
     xcol = (dev.chunk_xbase[..., None, None] + dev.chunk_col[..., None]
             + k % c).clamp(0, ncols_pad - 1).long()
     panel_row0 = (torch.arange(npanels, dtype=torch.int32, device=x.device)
@@ -125,3 +126,58 @@ def spmv_panels(dev: SPC5PanelDevice, x: torch.Tensor, *, r: int, c: int,
     y = torch.zeros(npanels * pr, dtype=contrib.dtype, device=contrib.device)
     y.index_add_(0, yrow.reshape(-1), contrib.reshape(-1))
     return y[:nrows]
+
+
+#: Most elements (set lanes x columns) one column slice of the plain SpMM
+#: materialises per temporary: 2**28 f32 values are 1 GiB, so the plain
+#: product of a full-width layer fits on the card beside its kernels.
+_SLICE_ELEMS = 2 ** 28
+
+
+def _spmm_set_lanes(vals, bits, xcol, yrow, x: torch.Tensor,
+                    nrows: int) -> torch.Tensor:
+    """Y[yrow] += vals * X[xcol] over the set lanes only, X (ncols, nvec).
+
+    A set lane always names a row and a column inside the matrix, so no
+    index is clamped and X needs no padding; the columns of X go through in
+    slices of at most ``_SLICE_ELEMS`` products."""
+    keep = bits.bool()
+    vals = vals[keep]
+    xcol, yrow = xcol[keep].long(), yrow[keep].long()
+    nvec = x.shape[1]
+    y = torch.zeros(nrows, nvec, dtype=vals.dtype, device=vals.device)
+    step = max(1, _SLICE_ELEMS // max(1, vals.shape[0]))
+    for j0 in range(0, nvec, step):
+        xs = x[:, j0:j0 + step]
+        part = torch.zeros(nrows, xs.shape[1], dtype=vals.dtype,
+                           device=vals.device)
+        y[:, j0:j0 + step] = part.index_add_(0, yrow, vals[:, None] * xs[xcol])
+    return y
+
+
+def spmm(dev: SPC5Device, x: torch.Tensor, *, r: int, c: int, nrows: int,
+         ncols: int) -> torch.Tensor:
+    """Y = A @ X with A in chunked beta(r, c) (whole-vector layout); X is
+    (ncols, nvec) and Y (nrows, nvec), both row-major."""
+    vals, k, bits = _decode(dev.values, dev.chunk_mask, dev.chunk_voff,
+                            dev.chunk_vbase, r, c)
+    xcol = dev.chunk_col[..., None] + k % c
+    yrow = dev.chunk_row[..., None] + k // c
+    return _spmm_set_lanes(vals, bits, xcol, yrow, x, nrows)
+
+
+def spmm_panels(dev: SPC5PanelDevice, x: torch.Tensor, *, r: int, c: int,
+                pr: int, nrows: int, ncols_pad: int) -> torch.Tensor:
+    """Y = A @ X with A in the row-panel-tiled layout; X (ncols, nvec).
+
+    ``ncols_pad`` is kept for the reference's signature: set lanes never
+    reach past the matrix's columns, so X is not padded here."""
+    npanels = dev.chunk_mask.shape[0]
+    vals, k, bits = _decode(dev.values, dev.chunk_mask, dev.chunk_voff,
+                            dev.chunk_vbase, r, c)
+    xcol = (dev.chunk_xbase[..., None, None] + dev.chunk_col[..., None]
+            + k % c)
+    panel_row0 = (torch.arange(npanels, dtype=torch.int32, device=x.device)
+                  * pr)[:, None, None, None]
+    yrow = panel_row0 + dev.chunk_row[..., None] + k // c
+    return _spmm_set_lanes(vals, bits, xcol, yrow, x, nrows)

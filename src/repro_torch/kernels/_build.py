@@ -4,8 +4,9 @@ Each ``csrc/*.cu`` file is compiled on first use into one shared library
 with a plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -shared -Xcompiler -fPIC``); no PyTorch header is included, so a build
 takes seconds. Libraries land in ``kernels/build/`` (listed in
-``.gitignore``) under a name keyed by a hash of the source and the flags,
-so an edited source is rebuilt and an unchanged one is loaded as it is.
+``.gitignore``) under a name keyed by a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is.
 Sources are compiled in parallel, one nvcc process each. A failed build
 raises; nothing falls back.
 
@@ -43,6 +44,11 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         **{f"spc5_spmv_panels_s{s}": [_P] * 9 + [_I] * 11 + [_P]
            for s in (1, 2)},
     },
+    "spc5_spmm": {
+        "spc5_spmm_whole": [_P] * 8 + [_I] * 8 + [_P],
+        **{f"spc5_spmm_panels_s{s}": [_P] * 9 + [_I] * 11 + [_P]
+           for s in (1, 2)},
+    },
 }
 
 _lock = threading.Lock()
@@ -67,6 +73,8 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

@@ -38,39 +38,9 @@
 // Each launcher runs on the caller's stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() (0 on success).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "spc5_stage.cuh"
 
 namespace {
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Copy n floats (n a multiple of 4, both pointers 16-byte aligned) from
-// global to shared memory with all threads of the CTA: asynchronously with
-// cp.async, or with plain 16-byte loads and stores.
-template <bool kAsync>
-__device__ __forceinline__ void stage(float* dst, const float* src, int n) {
-  const int n4 = n >> 2;
-  for (int i = threadIdx.x; i < n4; i += blockDim.x) {
-    if (kAsync) {
-      cp_async16(dst + 4 * i, src + 4 * i);
-    } else {
-      reinterpret_cast<float4*>(dst)[i] = __ldg(reinterpret_cast<const float4*>(src) + i);
-    }
-  }
-}
 
 // Decode one block: for each local row with a set bit, the dot product of
 // its packed values with x, handed to add(row, sum). Bits are walked in
@@ -196,27 +166,6 @@ spmv_panels_kernel(const int* __restrict__ chunk_vbase, const int* __restrict__ 
   const int row0 = p * pr;
   const int nout = min(pr, nrows - row0);
   for (int i = threadIdx.x; i < nout; i += blockDim.x) y[row0 + i] = ytile[i];
-}
-
-// Opt in to more than 48 KB of dynamic shared memory where needed, and size
-// the whole-vector grid to the CTAs that fit on the card at once.
-template <typename Kernel>
-cudaError_t prepare_launch(Kernel kernel, int device, size_t smem, int threads, int* ctas_per_card) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  if (ctas_per_card != nullptr) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-    if (err != cudaSuccess) return err;
-    *ctas_per_card = sms * (per_sm > 0 ? per_sm : 1);
-  }
-  return cudaSuccess;
 }
 
 template <int kStages>

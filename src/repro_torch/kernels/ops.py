@@ -1,11 +1,12 @@
-"""Public SpMV entry points of the port: :func:`prepare` and :func:`spmv`.
+"""Public entry points of the port: :func:`prepare`, :func:`spmv` and
+:func:`spmm`.
 
-The counterpart of ``repro.kernels.ops`` for the mask-SpMV slice.
+The counterpart of ``repro.kernels.ops`` for the mask SpMV and SpMM slices.
 :func:`prepare` runs the plan passes (``repro_torch.core.plan``) and puts
 the plan's tensors on a device: the card unless the caller asks for the
-CPU. :func:`spmv` multiplies through the plan executor, which runs the CUDA
-kernels for a plan on the card and the plain PyTorch version for a plan on
-the CPU.
+CPU. :func:`spmv` and :func:`spmm` multiply through the plan executors,
+which run the CUDA kernels for a plan on the card and the plain PyTorch
+version for a plan on the CPU.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ def resolve_device(device: Optional[P.Device]) -> torch.device:
 def prepare(mat: F.SPC5Matrix, *, layout: str = "auto",
             lowering: str = "mask", config=None, pr: Optional[int] = None,
             xw: Optional[int] = None, cb: Optional[int] = None,
-            align: int = 8, dtype=None, vdtype: str = "auto",
+            nvec: int = 1, align: int = 8, dtype=None, vdtype: str = "auto",
             tune: bool = True,
             device: Optional[P.Device] = None) -> P.SPC5Plan:
     """Build an execution plan for ``mat`` on ``device`` (default: the card).
@@ -43,7 +44,9 @@ def prepare(mat: F.SPC5Matrix, *, layout: str = "auto",
     ``cb`` to 256 (whole-vector) or 64 (panels). ``config`` takes a
     ``PanelConfig``-like object (``layout``, ``pr``, ``xw``, ``cb``,
     ``lowering``, ``vdtype`` attributes) whole, filling every
-    axis the caller left at its default, as the reference does.
+    axis the caller left at its default, as the reference does. Pass
+    ``nvec``, the widest SpMM batch the plan will see, so that "auto"
+    budgets the SpMM tiles and not only the SpMV vectors.
 
     Only the mask lowering and f32 values are ported; anything else raises
     ``NotImplementedError``."""
@@ -61,8 +64,8 @@ def prepare(mat: F.SPC5Matrix, *, layout: str = "auto",
         if vdtype == "auto" and getattr(config, "vdtype", "") not in ("", "f32"):
             vdtype = config.vdtype
     return P.make_plan(mat, device=resolve_device(device), layout=layout,
-                       lowering=lowering, pr=pr, xw=xw, cb=cb, align=align,
-                       dtype=dtype, vdtype=vdtype, tune=tune)
+                       lowering=lowering, pr=pr, xw=xw, cb=cb, nvec=nvec,
+                       align=align, dtype=dtype, vdtype=vdtype, tune=tune)
 
 
 def spmv(plan: P.SPC5Plan, x: torch.Tensor, *,
@@ -71,3 +74,11 @@ def spmv(plan: P.SPC5Plan, x: torch.Tensor, *,
     ``double_buffer`` picks the kernel that prefetches the next chunk's
     windows (the default, as in the reference) or the single-buffered one."""
     return P.execute_spmv(plan, x, double_buffer=double_buffer)
+
+
+def spmm(plan: P.SPC5Plan, x: torch.Tensor, *, nvt: int = 128,
+         double_buffer: bool = True) -> torch.Tensor:
+    """Y = A @ X; ``x`` is a contiguous float32 (ncols, nvec) tensor on the
+    plan's device and Y is (nrows, nvec). ``nvt`` and ``double_buffer`` as
+    in the reference (the whole-vector layout has one SpMM kernel)."""
+    return P.execute_spmm(plan, x, nvt=nvt, double_buffer=double_buffer)

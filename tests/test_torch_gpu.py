@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (SpMV and SpMM) against their plain PyTorch
+versions, on the card.
 
 Every test here needs an NVIDIA GPU with nvcc: it is marked ``gpu`` and
 skips from the ``cuda`` fixture where ``torch.cuda.is_available()`` is
@@ -10,7 +11,8 @@ the same tests). Run on the card with
 This file imports only torch, numpy and the port (the card's machine has no
 JAX). Tolerance: the kernels sum each row in another f32 order than the
 plain version (the whole-vector kernels through global atomics, in an order
-that changes from run to run), so outputs agree to ``1e-5 * max|y|``.
+that changes from run to run), so outputs agree to ``1e-5 * max|y|`` (per
+whole Y for SpMM).
 """
 import numpy as np
 import pytest
@@ -19,7 +21,9 @@ import torch
 from repro_torch.core import formats as F
 from repro_torch.core import matgen
 from repro_torch.core import ref_spmv as R
+from repro_torch.core.sparse_linear import SparseLinear
 from repro_torch.kernels import ops
+from repro_torch.kernels import spc5_spmm as KM
 from repro_torch.kernels import spc5_spmv as K
 
 pytestmark = pytest.mark.gpu
@@ -132,3 +136,131 @@ def test_cuda_plan_rejects_cpu_x(cuda):
                        device=cuda)
     with pytest.raises(ValueError, match="device"):
         ops.spmv(plan, torch.zeros(plan.ncols))
+
+
+# ----------------------------------------------------------------------------
+# SpMM
+# ----------------------------------------------------------------------------
+
+SPMM_KERNELS = ("spmm_cuda", "spmm_cuda_panels", "spmm_cuda_panels_db")
+
+
+def _run_spmm(kernel, mat, nvec, device, nvt=128, seed=4, **geom):
+    layout = "panels" if "panels" in kernel else "whole_vector"
+    plan = ops.prepare(mat, layout=layout, tune=False, device=device, **geom)
+    xh = np.random.default_rng(seed).standard_normal(
+        (mat.ncols, nvec)).astype(np.float32)
+    xt = torch.from_numpy(xh).to(device)
+    dev = plan.dev
+    if layout == "panels":
+        plain = R.spmm_panels(dev, xt, r=plan.r, c=plan.c, pr=plan.pr,
+                              nrows=plan.nrows, ncols_pad=plan.ncols_pad)
+    else:
+        plain = R.spmm(dev, xt, r=plan.r, c=plan.c, nrows=plan.nrows,
+                       ncols=plan.ncols)
+    before = KM.LAUNCHES[kernel]
+    y = ops.spmm(plan, xt, nvt=nvt, double_buffer=kernel.endswith("_db"))
+    torch.cuda.synchronize()
+    assert KM.LAUNCHES[kernel] == before + 1
+    assert y.device.type == "cuda" and y.shape == (mat.nrows, nvec)
+    assert torch.isfinite(y).all()
+    scale = float(plain.abs().max()) if plain.numel() else 0.0
+    err = float((y - plain).abs().max()) if y.numel() else 0.0
+    assert err <= RTOL * max(scale, 1.0), (err, scale)
+    return plan
+
+
+@pytest.mark.parametrize("nvec", [3, 16, 128])
+@pytest.mark.parametrize("kernel", SPMM_KERNELS)
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+def test_spmm_kernel_matches_plain(cuda, kernel, rc, nvec):
+    """Several chunks and panels (pr=64, xw=64, cb=16), nrows % r != 0 for
+    r in (4, 8), bit-31 masks, and column tiles of 4 (nvec=3, one idle
+    lane), 16 and 32 (four tiles)."""
+    mat = _matrix(rc, n=302)
+    geom = (dict(pr=64, xw=64, cb=16) if "panels" in kernel
+            else dict(cb=16))
+    _run_spmm(kernel, mat, nvec, cuda, **geom)
+
+
+@pytest.mark.parametrize("kernel", SPMM_KERNELS)
+def test_spmm_partial_column_tile(cuda, kernel):
+    """nvec = 40 with nvt = 8: two column tiles of 32, the second with 24
+    idle lanes."""
+    _run_spmm(kernel, _matrix((2, 4), n=150, m=90), 40, cuda, nvt=8,
+              **(dict(pr=32, xw=32, cb=8) if "panels" in kernel
+                 else dict(cb=8)))
+
+
+@pytest.mark.parametrize("kernel", SPMM_KERNELS)
+@pytest.mark.parametrize("kind", ["empty", "last_row_only", "left_columns"])
+def test_spmm_edge_matrices(cuda, kernel, kind):
+    d = np.zeros((37, 29), np.float32)
+    if kind == "last_row_only":
+        d[36, 28] = 2.0
+    elif kind == "left_columns":
+        d[::3, :9] = np.random.default_rng(6).standard_normal((13, 9))
+    mat = F.csr_to_spc5(F.csr_from_dense(d), 8, 4)
+    geom = (dict(pr=16, xw=16, cb=4) if "panels" in kernel else dict(cb=4))
+    _run_spmm(kernel, mat, 5, cuda, **geom)
+
+
+@pytest.mark.parametrize("kernel", SPMM_KERNELS)
+def test_spmm_smoke_geometry(cuda, kernel):
+    """The largest geometry chip_smoke.py uses: pr=512, cb=64, xw=512 for
+    panels (a (512, 32) Y tile beside two value windows), cb=256 for
+    whole-vector, at 4x8 and nvec=128, on a 2,000 x 4,096 slice of the
+    density-0.1 vocab weight."""
+    w = np.random.default_rng(0).standard_normal((2_000, 4_096), np.float32)
+    w = np.where(np.abs(w) >= np.quantile(np.abs(w), 0.9), w, 0.0)
+    mat = F.csr_to_spc5(F.csr_from_dense(w.astype(np.float32)), 4, 8)
+    geom = (dict(pr=512, xw=512, cb=64) if "panels" in kernel
+            else dict(cb=256))
+    plan = _run_spmm(kernel, mat, 128, cuda, **geom)
+    if "panels" in kernel:
+        stages = 2 if kernel.endswith("_db") else 1
+        tw = KM.column_tile(128, lambda tw: KM.panels_smem_bytes(
+            stages, plan.cb, plan.vmax, plan.pr, tw))
+        assert tw == 32
+
+
+def test_spmm_oversized_shared_memory_raises(cuda):
+    mat = _matrix((4, 8), n=1024, m=1024, density=0.95)
+    plan = ops.prepare(mat, layout="whole_vector", cb=2048, tune=False,
+                       device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.spmm(plan, torch.zeros(mat.ncols, 4, device=cuda))
+
+
+def test_spmm_cuda_plan_rejects_cpu_x(cuda):
+    plan = ops.prepare(_matrix((2, 4)), layout="panels", tune=False,
+                       device=cuda)
+    with pytest.raises(ValueError, match="device"):
+        ops.spmm(plan, torch.zeros(plan.ncols, 4))
+
+
+@pytest.mark.parametrize("layout", ["whole_vector", "panels"])
+def test_sparse_linear_on_the_card_matches_the_cpu_layer(cuda, layout):
+    """Batch 1 goes to an SpMV kernel, wider batches to an SpMM kernel; the
+    card's layer agrees with the same layer built on the CPU."""
+    rng = np.random.default_rng(9)
+    w = rng.standard_normal((300, 200)).astype(np.float32)
+    b = rng.standard_normal(300).astype(np.float32)
+    kw = dict(density=0.2, block=(4, 8), bias=b, layout=layout, tune=False)
+    on_card = SparseLinear.from_dense(w, device=cuda, **kw)
+    on_cpu = SparseLinear.from_dense(w, device="cpu", **kw)
+    assert on_card.plan.layout == layout and on_card.bias.device.type == "cuda"
+    for shape in [(200,), (1, 200), (5, 200), (2, 3, 200)]:
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        K.reset_launches()
+        KM.reset_launches()
+        y = on_card(x.to(cuda))
+        torch.cuda.synchronize()
+        spmv_runs = sum(K.LAUNCHES.values())
+        spmm_runs = sum(KM.LAUNCHES.values())
+        batch = int(np.prod(shape[:-1]))
+        assert (spmv_runs, spmm_runs) == ((1, 0) if batch == 1 else (0, 1))
+        ref = on_cpu(x)
+        assert y.shape == ref.shape == (*shape[:-1], 300)
+        err = float((y.cpu() - ref).abs().max())
+        assert err <= RTOL * float(ref.abs().max()), err
