@@ -10,19 +10,28 @@ phase that goes wrong:
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
    for sm_90a, one nvcc per source, all started together, and prints the
    build time and each kernel's registers (``-Xptxas -v``);
-3. holds all seven kernels against their plain PyTorch versions on small
-   matrices of every supported block shape (SpMM at nvec 3, 16 and 128);
+3. holds all eleven kernels against their plain PyTorch versions on small
+   matrices of every supported block shape (SpMM at nvec 3, 16 and 128),
+   and the four descriptor kernels also on a matrix wider and one taller
+   than 32,767 (int32 ``xcol`` / ``yrow`` tables);
 4. SpMV path: builds ``matgen.fem_blocks(200_000, 4, 12, seed=5)``, the
    SET_A bone010 structure class at 200,000 rows (about 9.5 M nonzeros), in
    beta(4,4), and drives ``ops.prepare`` + ``ops.spmv`` through both
-   layouts (whole-vector, cb=256; panels, pr=512, cb=64, xw=512), each with
-   ``double_buffer`` True and False;
+   layouts (whole-vector, cb=256; panels, pr=512, cb=64, xw=512) and both
+   lowerings (mask, descriptor), each with ``double_buffer`` True and
+   False; checks that ``lowering="auto"`` resolves to the descriptor
+   lowering by the cost model, as in the reference;
 5. SparseLinear path: the vocab projection of yi-6b (64,000 x 4,096, the
    weight ``serve.py``'s vocab bench draws: ``default_rng(0)``, standard
    normal, float32), magnitude-pruned to density 0.1 in beta(4,8), through
    ``SparseLinear.from_dense(..., nvec=128)`` (layout auto: panels), a
    whole-vector layer on the same matrix, ``ops.spmm(...,
    double_buffer=False)`` and a batch-1 call, at batches of 16 and 128;
+   then one decode token through the same weight: ``ops.prepare(...,
+   lowering="auto")`` at nvec=1 (whole-vector + descriptor, the
+   reference's pick) and ``ops.spmv`` with ``double_buffer`` True and
+   False, printing the tables' bytes and the host time of
+   ``chunk_descriptors``;
 6. in each path every launch counter is set to 0 just before and read just
    after, and every kernel of the path must have launched; every output is
    checked against the kernel's plain version on the card and against a
@@ -32,7 +41,8 @@ phase that goes wrong:
    inputs (``torch.mv`` / ``@`` on a ``torch.sparse_csr_tensor``; timed
    only, never used by the port) with CUDA events, after warm-up, with L2
    flushed before every launch, and computes each kernel's bound from this
-   run's bytes over 3.35 TB/s and its flops over 67 TFLOP/s;
+   run's bytes over 3.35 TB/s and its flops over 67 TFLOP/s (for a
+   descriptor kernel also the mask plan's bound for the same product);
 8. prints the ``{"kernels": [...]}`` line, then, last, the
    ``{"ok": true, "device": ...}`` line.
 
@@ -81,18 +91,31 @@ SPMM_KERNELS = {
                   "src/repro/kernels/spc5_spmm.py:140"),
 }
 KERNELS = {
-    # name: (layout, double_buffer, the Pallas function it replaces)
-    "spmv_cuda_db": ("whole_vector", True,
+    # name: (layout, lowering, double_buffer, the Pallas function it
+    # replaces)
+    "spmv_cuda_db": ("whole_vector", "mask", True,
                      "src/repro/kernels/spc5_spmv.py:1000"),
-    "spmv_cuda": ("whole_vector", False,
+    "spmv_cuda": ("whole_vector", "mask", False,
                   "src/repro/kernels/spc5_spmv.py:223"),
-    "spmv_cuda_panels_db": ("panels", True,
+    "spmv_cuda_panels_db": ("panels", "mask", True,
                             "src/repro/kernels/spc5_spmv.py:490"),
-    "spmv_cuda_panels": ("panels", False,
+    "spmv_cuda_panels": ("panels", "mask", False,
                          "src/repro/kernels/spc5_spmv.py:376"),
+    "spmv_cuda_desc_db": ("whole_vector", "descriptor", True,
+                          "src/repro/kernels/spc5_spmv.py:729"),
+    "spmv_cuda_desc": ("whole_vector", "descriptor", False,
+                       "src/repro/kernels/spc5_spmv.py:657"),
+    "spmv_cuda_panels_desc_db": ("panels", "descriptor", True,
+                                 "src/repro/kernels/spc5_spmv.py:925"),
+    "spmv_cuda_panels_desc": ("panels", "descriptor", False,
+                              "src/repro/kernels/spc5_spmv.py:824"),
 }
-SOURCE = "src/repro_torch/kernels/csrc/spc5_spmv.cu"
+SOURCE = {"mask": "src/repro_torch/kernels/csrc/spc5_spmv.cu",
+          "descriptor": "src/repro_torch/kernels/csrc/spc5_spmv_desc.cu"}
 SPMM_SOURCE = "src/repro_torch/kernels/csrc/spc5_spmm.cu"
+#: Matrices whose whole-vector descriptor xcol (ncols) or yrow (nrows)
+#: bound needs int32 tables.
+WIDE_TALL = {"wide": (300, 40_000), "tall": (40_000, 300)}
 
 
 class SmokeFailure(Exception):
@@ -118,8 +141,8 @@ def build_kernels() -> None:
         kernel = ""
         for line in str(rec["log"]).splitlines():
             if "Compiling entry function" in line:
-                m = re.search(r"(sp(?:mv|mm)_(?:whole|panels)_kernel)I"
-                              r"((?:Li\d+E)+)E", line)
+                m = re.search(r"(sp(?:mv|mm)(?:_desc)?_(?:whole|panels)"
+                              r"_kernel)I((?:Li\d+E)+)E", line)
                 if m:
                     targs = re.findall(r"Li(\d+)E", m.group(2))
                     kernel = f"{m.group(1)}<{','.join(targs)}>"
@@ -135,6 +158,12 @@ def plain_y(plan, x):
     """The plain version of the plan's kernel: SpMV for a 1-D x, SpMM for a
     2-D X."""
     from repro_torch.core import ref_spmv as R
+    if plan.lowering == "descriptor":
+        if plan.layout == "panels":
+            return R.spmv_panels_desc(plan.dev, x, pr=plan.pr,
+                                      nrows=plan.nrows,
+                                      ncols_pad=plan.ncols_pad)
+        return R.spmv_desc(plan.dev, x, nrows=plan.nrows)
     if plan.layout == "panels":
         fn = R.spmv_panels if x.dim() == 1 else R.spmm_panels
         return fn(plan.dev, x, r=plan.r, c=plan.c, pr=plan.pr,
@@ -151,42 +180,61 @@ def rel_err(y, y_ref) -> float:
     return float((y.double() - y_ref.double()).abs().max()) / scale
 
 
+SMALL_GEOM = {"whole_vector": dict(cb=16),
+              "panels": dict(pr=64, xw=64, cb=16)}
+
+
 def small_check(device) -> None:
-    """All seven kernels against their plain versions, every block shape,
+    """All eleven kernels against their plain versions, every block shape,
     several chunks and panels (302x260, cb=16, pr=xw=64); the SpMM kernels
-    at nvec 3, 16 and 128."""
+    at nvec 3, 16 and 128; the descriptor kernels also on the
+    :data:`WIDE_TALL` matrices, whose whole-vector xcol / yrow tables are
+    int32."""
     import torch
     from repro_torch.core import formats as F
     from repro_torch.kernels import ops
     worst = 0.0
-    for rc in F.SUPPORTED_BLOCKS:
-        rng = np.random.default_rng(10 * rc[0] + rc[1])
-        d = ((rng.random((302, 260)) < 0.08)
-             * rng.standard_normal((302, 260))).astype(np.float32)
+    cases = [(rc, (302, 260), 0.08) for rc in F.SUPPORTED_BLOCKS]
+    cases += [((2, 4), shape, 3e-3) for shape in WIDE_TALL.values()]
+    for rc, (n, m), density in cases:
+        rng = np.random.default_rng(10 * rc[0] + rc[1] + n)
+        d = ((rng.random((n, m)) < density)
+             * rng.standard_normal((n, m))).astype(np.float32)
         mat = F.csr_to_spc5(F.csr_from_dense(d), *rc)
-        x = torch.from_numpy(rng.standard_normal(260).astype(np.float32))
+        x = torch.from_numpy(rng.standard_normal(m).astype(np.float32))
         x = x.to(device)
-        plans = {layout: ops.prepare(mat, layout=layout, lowering="mask",
-                                     tune=False, device=device, **geom)
-                 for layout, geom in (("whole_vector", dict(cb=16)),
-                                      ("panels", dict(pr=64, xw=64, cb=16)))}
-        runs = [(name, layout, x, lambda p, v, db=db: ops.spmv(
+        plans = {(layout, lowering): ops.prepare(
+                    mat, layout=layout, lowering=lowering, tune=False,
+                    device=device, **geom)
+                 for layout, geom in SMALL_GEOM.items()
+                 for lowering in ("mask", "descriptor")}
+        wide_tall = (n, m) in WIDE_TALL.values()
+        if wide_tall:
+            table = "desc_xcol" if m > n else "desc_yrow"
+            dtype = getattr(plans["whole_vector", "descriptor"], table).dtype
+            if dtype != torch.int32:
+                raise SmokeFailure(f"small check: {n}x{m} {table} is {dtype}")
+        runs = [(name, (layout, lowering), x, lambda p, v, db=db: ops.spmv(
                     p, v, double_buffer=db))
-                for name, (layout, db, _) in KERNELS.items()]
-        for nvec in (3, 16, 128):
+                for name, (layout, lowering, db, _) in KERNELS.items()
+                if lowering == "descriptor" or not wide_tall]
+        for nvec in () if wide_tall else (3, 16, 128):
             xm = torch.from_numpy(rng.standard_normal(
-                (260, nvec)).astype(np.float32)).to(device)
-            runs += [(f"{name} nvec={nvec}", layout, xm,
+                (m, nvec)).astype(np.float32)).to(device)
+            runs += [(f"{name} nvec={nvec}", (layout, "mask"), xm,
                       lambda p, v, db=db: ops.spmm(p, v, double_buffer=db))
                      for name, (layout, db, _) in SPMM_KERNELS.items()]
-        for name, layout, v, run in runs:
-            err = rel_err(run(plans[layout], v), plain_y(plans[layout], v))
+        for name, key, v, run in runs:
+            err = rel_err(run(plans[key], v), plain_y(plans[key], v))
             worst = max(worst, err)
             if not err <= TOL:
-                raise SmokeFailure(f"small check: {name} {rc} rel err {err}")
+                raise SmokeFailure(f"small check: {name} {rc} {n}x{m} rel "
+                                   f"err {err}")
     print(f"small check: {len(KERNELS) + len(SPMM_KERNELS)} kernels x "
           f"{len(F.SUPPORTED_BLOCKS)} block shapes (SpMM at nvec 3, 16, 128) "
-          f"agree with the plain versions (worst {worst:.3g} of max|y|)")
+          f"and the 4 descriptor kernels on the {' and '.join(WIDE_TALL)} "
+          f"matrices (int32 xcol / yrow) agree with the plain versions "
+          f"(worst {worst:.3g} of max|y|)")
 
 
 def make_matrix(dim=MATRIX["dim"]):
@@ -205,60 +253,95 @@ def make_matrix(dim=MATRIX["dim"]):
     return csr, mat
 
 
+LOWERINGS = ("mask", "descriptor")
+
+
+def check_auto_lowering(mat, device) -> None:
+    """``lowering="auto"`` must resolve to the descriptor lowering by the
+    cost model, as the reference resolves it for this matrix."""
+    from repro_torch.kernels import ops
+    plan = ops.prepare(mat, lowering="auto", tune=False, device=device)
+    entry = next(e for e in plan.trace if e["pass"] == "layout")
+    print(f"auto lowering: layout pass {json.dumps(entry, sort_keys=True)}")
+    if (entry["lowering"], entry.get("lowering_reason")) != ("descriptor",
+                                                            "cost-model"):
+        raise SmokeFailure(f"lowering='auto' resolved to {entry}")
+
+
+def print_plan(name, plan) -> None:
+    """Geometry, the kernels' dynamic shared memory per CTA (ptxas reports
+    only static shared memory, which is 0) and, for a descriptor plan, the
+    tables' dtypes and bytes."""
+    g = {k: getattr(plan, k) for k in ("cb", "vmax", "pr", "xw", "npanels",
+                                       "nchunks", "desc_lane_nbytes")
+         if k in dict(plan.meta)}
+    if plan.layout == "whole_vector":
+        g["nchunks"] = int(plan.chunk_vbase.shape[0])
+    for stages in (1, 2):
+        g[f"smem_bytes_s{stages}"] = 4 * (
+            stages * (plan.vmax + plan.xw) + plan.pr
+            if plan.layout == "panels" else stages * plan.vmax)
+    if plan.lowering == "descriptor":
+        tables = [getattr(plan, f"desc_{t}")
+                  for t in ("valid", "vidx", "xcol", "yrow")]
+        g["tables"] = "/".join(str(t.dtype).replace("torch.", "")
+                               for t in tables)
+        g["table_bytes"] = sum(t.numel() * t.element_size() for t in tables)
+    g["plan_bytes"] = sum(a.numel() * a.element_size() for a in plan.arrays)
+    print(f"plan {name}: {g}, build {plan.trace[-1]['duration_s']:.1f} s")
+
+
 def drive(mat, x, device):
-    """The main path, through the entry points a user calls. Returns the
-    plans, each kernel's y and the launch counts of this run alone."""
+    """The main path, through the entry points a user calls: both layouts
+    and both lowerings. Returns the plans (keyed by layout and lowering),
+    each kernel's y and the launch counts of this run alone."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import spc5_spmv as K
+    from repro_torch.kernels import spc5_spmv_desc as KD
     K.reset_launches()
+    KD.reset_launches()
     plans, ys = {}, {}
     for layout, geom in GEOM.items():
-        plans[layout] = ops.prepare(mat, layout=layout, lowering="mask",
-                                    tune=False, device=device, **geom)
-    for name, (layout, db, _) in KERNELS.items():
-        ys[name] = ops.spmv(plans[layout], x, double_buffer=db)
+        for lowering in LOWERINGS:
+            plans[layout, lowering] = ops.prepare(
+                mat, layout=layout, lowering=lowering, tune=False,
+                device=device, **geom)
+    for name, (layout, lowering, db, _) in KERNELS.items():
+        ys[name] = ops.spmv(plans[layout, lowering], x, double_buffer=db)
     if device.type == "cuda":
         torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
-    for layout, plan in plans.items():
-        g = {k: getattr(plan, k) for k in ("cb", "vmax", "pr", "xw",
-                                           "npanels", "nchunks")
-             if k in dict(plan.meta)}
-        if layout == "whole_vector":
-            g["nchunks"] = int(plan.chunk_vbase.shape[0])
-        for stages in (1, 2):
-            # the kernels' dynamic shared memory per CTA (ptxas reports
-            # only static shared memory, which is 0)
-            g[f"smem_bytes_s{stages}"] = 4 * (
-                stages * (plan.vmax + plan.xw) + plan.pr
-                if layout == "panels" else stages * plan.vmax)
-        print(f"plan {layout}: {g}, build "
-              f"{plan.trace[-1]['duration_s']:.1f} s")
+    launches = {**K.LAUNCHES, **KD.LAUNCHES}
+    for (layout, lowering), plan in plans.items():
+        print_plan(f"{layout} {lowering}", plan)
     return plans, ys, launches
 
 
-def check(plans, ys, launches, x, y64):
-    """Every kernel launched, and each y is finite, of the right shape and
-    within tolerance of its plain version and of the f64 product."""
+def check_y(name, y, plan, x, y64, launches, path):
+    """The kernel launched on its path, and y is finite, of the right shape
+    and within tolerance of the plain version and of the f64 product.
+    Returns max|y - plain|."""
     import torch
-    errs = {}
-    for name, (layout, _, _) in KERNELS.items():
-        y, plan = ys[name], plans[layout]
-        if launches.get(name, 0) <= 0:
-            raise SmokeFailure(f"{name} was not launched on the main path "
-                               f"(counts {launches})")
-        if tuple(y.shape) != (plan.nrows,) or not bool(torch.isfinite(y).all()):
-            raise SmokeFailure(f"{name}: bad output {tuple(y.shape)}")
-        plain = plain_y(plan, x)
-        abs_err = float((y - plain).abs().max())
-        e_plain, e64 = rel_err(y, plain), rel_err(y, torch.from_numpy(y64))
-        print(f"check {name}: max|y - plain| = {abs_err:.3g} "
-              f"({e_plain:.3g} of max|y|), vs f64 scipy {e64:.3g} of max|y|")
-        if not (e_plain <= TOL and e64 <= TOL):
-            raise SmokeFailure(f"{name} disagrees: {e_plain} / {e64} > {TOL}")
-        errs[name] = abs_err
-    return errs
+    if launches.get(name, 0) <= 0:
+        raise SmokeFailure(f"{name} was not launched on the {path} "
+                           f"(counts {launches})")
+    if tuple(y.shape) != (plan.nrows,) or not bool(torch.isfinite(y).all()):
+        raise SmokeFailure(f"{name}: bad output {tuple(y.shape)}")
+    plain = plain_y(plan, x)
+    abs_err = float((y - plain).abs().max())
+    e_plain, e64 = rel_err(y, plain), rel_err(y, torch.from_numpy(y64))
+    print(f"check {name} ({path}): max|y - plain| = {abs_err:.3g} "
+          f"({e_plain:.3g} of max|y|), vs f64 scipy {e64:.3g} of max|y|")
+    if not (e_plain <= TOL and e64 <= TOL):
+        raise SmokeFailure(f"{name} disagrees: {e_plain} / {e64} > {TOL}")
+    return abs_err
+
+
+def check(plans, ys, launches, x, y64):
+    """Every kernel launched, and each y checked by :func:`check_y`."""
+    return {name: check_y(name, ys[name], plans[layout, lowering], x, y64,
+                          launches, "SpMV path")
+            for name, (layout, lowering, _, _) in KERNELS.items()}
 
 
 def cuda_time_ms(fn, device, reps=REPS):
@@ -315,11 +398,17 @@ def kernel_call(name, plan, x):
     """A call of kernel ``name``'s wrapper on the plan's arrays and x."""
     from repro_torch.kernels import spc5_spmm as KM
     from repro_torch.kernels import spc5_spmv as K
-    fn = getattr(KM if name.startswith("spmm") else K, name)
+    from repro_torch.kernels import spc5_spmv_desc as KD
+    fn = getattr(KM if name.startswith("spmm") else
+                 KD if "desc" in name else K, name)
     args = ((plan.chunk_vbase, plan.chunk_xbase) if plan.layout == "panels"
             else (plan.chunk_vbase,))
-    args += (plan.chunk_col, plan.chunk_mask, plan.chunk_voff,
-             plan.chunk_row, plan.values, x)
+    if plan.lowering == "descriptor":
+        args += (plan.desc_valid, plan.desc_vidx, plan.desc_xcol,
+                 plan.desc_yrow, plan.values, x)
+    else:
+        args += (plan.chunk_col, plan.chunk_mask, plan.chunk_voff,
+                 plan.chunk_row, plan.values, x)
     kw = dict(r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax,
               nrows=plan.nrows)
     kw.update(dict(xw=plan.xw, pr=plan.pr, ncols_pad=plan.ncols_pad)
@@ -334,23 +423,28 @@ def measure(plans, x, csr, launches, errs, timer=cuda_time_ms):
     print("  timing cuSPARSE CSR (torch.mv on sparse_csr_tensor)")
     library_ms = timer(lambda: torch.mv(csr_t, x), device)
     plain_ms = {}
-    for layout, plan in plans.items():
-        print(f"  timing the plain version, {layout}")
-        plain_ms[layout] = timer(lambda p=plan: plain_y(p, x), device)
+    for key, plan in plans.items():
+        print(f"  timing the plain version, {key[0]} {key[1]}")
+        plain_ms[key] = timer(lambda p=plan: plain_y(p, x), device)
     rows = []
-    for name, (layout, db, replaces) in KERNELS.items():
-        plan = plans[layout]
+    for name, (layout, lowering, db, replaces) in KERNELS.items():
+        plan = plans[layout, lowering]
         print(f"  timing {name}")
         ms = timer(kernel_call(name, plan, x), device)
         bound_ms, bound_by, nbytes = bound(plan, csr.nnz)
-        print(f"time {name}: {ms:.4f} ms, plain {plain_ms[layout]:.4f} ms, "
-              f"cuSPARSE CSR {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({nbytes} bytes)")
-        rows.append({"name": name, "route": "cuda", "source": SOURCE,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": errs[name], "ms": ms,
-                     "plain_ms": plain_ms[layout], "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms})
+        mask_bound_ms = bound(plans[layout, "mask"], csr.nnz)[0]
+        print(f"time {name}: {ms:.4f} ms, plain "
+              f"{plain_ms[layout, lowering]:.4f} ms, cuSPARSE CSR "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} "
+              f"bytes), mask plan's bound {mask_bound_ms:.4f} ms")
+        row = {"name": name, "route": "cuda", "source": SOURCE[lowering],
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": errs[name], "ms": ms,
+               "plain_ms": plain_ms[layout, lowering], "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": library_ms}
+        if lowering == "descriptor":
+            row["mask_bound_ms"] = mask_bound_ms
+        rows.append(row)
     return rows
 
 
@@ -543,6 +637,94 @@ def measure_vocab(layers, acts, csr, launches, errs, timer=cuda_time_ms):
     return rows
 
 
+# ----------------------------------------------------------------------------
+# One decode token through the vocab weight: batch 1, descriptor lowering
+# ----------------------------------------------------------------------------
+
+TOKEN_KERNELS = ("spmv_cuda_desc_db", "spmv_cuda_desc")
+
+
+def build_token_plan(mat, device):
+    """``ops.prepare(mat, lowering="auto")`` at nvec=1, as a batch-1 caller
+    builds it: the layout pass must pick whole-vector and the descriptor
+    lowering (the reference's choice). The host time of
+    ``formats.chunk_descriptors`` inside the build is taken by wrapping it
+    for this one call."""
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import ops
+    seconds = []
+    expand = F.chunk_descriptors
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = expand(*args, **kw)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    F.chunk_descriptors = timed
+    try:
+        t0 = time.perf_counter()
+        plan = ops.prepare(mat, lowering="auto", device=device)
+        total = time.perf_counter() - t0
+    finally:
+        F.chunk_descriptors = expand
+    entry = next(e for e in plan.trace if e["pass"] == "layout")
+    print(f"token plan: layout pass {json.dumps(entry, sort_keys=True)}; "
+          f"prepare {total:.1f} s, of which chunk_descriptors "
+          f"{sum(seconds):.1f} s (host)")
+    if (plan.layout, plan.lowering, entry.get("lowering_reason")) != (
+            "whole_vector", "descriptor", "cost-model"):
+        raise SmokeFailure(f"the batch-1 plan is {plan.layout} / "
+                           f"{plan.lowering}: {entry}")
+    print_plan("vocab whole_vector descriptor", plan)
+    return plan
+
+
+def drive_token(plan, x1, device):
+    """``ops.spmv`` with both buffer settings; launch counts of this run."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import spc5_spmv_desc as KD
+    KD.reset_launches()
+    ys = {name: ops.spmv(plan, x1, double_buffer=name.endswith("_db"))
+          for name in TOKEN_KERNELS}
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return ys, dict(KD.LAUNCHES)
+
+
+def measure_token(plan, mask_plan, x1, csr, launches, errs,
+                  timer=cuda_time_ms):
+    """Each whole-vector descriptor kernel at batch 1, its plain version,
+    cuSPARSE ``torch.mv`` and, for context, the mask kernel with the same
+    buffering on the mask plan of the same weight."""
+    import torch
+    device = x1.device
+    csr_t = sparse_csr(csr, device)
+    print("  token: timing cuSPARSE CSR (torch.mv on sparse_csr_tensor)")
+    library_ms = timer(lambda: torch.mv(csr_t, x1), device)
+    print("  token: timing the plain version")
+    plain_ms = timer(lambda: plain_y(plan, x1), device)
+    mask_bound_ms = bound(mask_plan, csr.nnz)[0]
+    per = {}
+    for name in TOKEN_KERNELS:
+        print(f"  token: timing {name}")
+        ms = timer(kernel_call(name, plan, x1), device)
+        mask_name = name.replace("_desc", "")
+        print(f"  token: timing {mask_name} on the mask plan (context)")
+        mask_ms = timer(kernel_call(mask_name, mask_plan, x1), device)
+        bound_ms, bound_by, nbytes = bound(plan, csr.nnz)
+        print(f"time {name} (token): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"cuSPARSE CSR {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"by {bound_by} ({nbytes} bytes), mask plan's bound "
+              f"{mask_bound_ms:.4f} ms, {mask_name} {mask_ms:.4f} ms")
+        per[name] = {"launches": launches[name], "max_abs_err": errs[name],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms,
+                     "mask_bound_ms": mask_bound_ms, "mask_ms": mask_ms}
+    return per
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -567,6 +749,7 @@ def main() -> int:
             (csr.values, csr.colidx, csr.rowptr), shape=csr.shape
         ) @ x_host.astype(np.float64)
         x = torch.from_numpy(x_host).to(device)
+        check_auto_lowering(mat, device)
         plans, ys, launches = drive(mat, x, device)
         print(f"launches on the SpMV path: {launches}")
         errs = check(plans, ys, launches, x, y64)
@@ -574,7 +757,7 @@ def main() -> int:
         del plans, ys
         w, vcsr, vmat = make_vocab()
         layers = build_layers(w, vmat, device)
-        del w, vmat
+        del w
         rng = np.random.default_rng(1)
         acts = {n: torch.from_numpy(rng.standard_normal(
             (n, VOCAB["cols"])).astype(np.float32)).to(device)
@@ -584,6 +767,22 @@ def main() -> int:
         verrs = check_vocab(layers, vys, y1, vlaunches, acts, vcsr)
         del vys
         rows += measure_vocab(layers, acts, vcsr, vlaunches, verrs)
+        tplan = build_token_plan(vmat, device)
+        del vmat
+        x1 = acts[SPMM_NVECS[0]][0].contiguous()
+        tys, tlaunches = drive_token(tplan, x1, device)
+        print(f"launches on the token path: {tlaunches}")
+        y64 = scipy.sparse.csr_matrix(
+            (vcsr.values.astype(np.float64), vcsr.colidx, vcsr.rowptr),
+            shape=vcsr.shape) @ x1.cpu().double().numpy()
+        terrs = {name: check_y(name, tys[name], tplan, x1, y64, tlaunches,
+                               "token path") for name in TOKEN_KERNELS}
+        del tys
+        token = measure_token(tplan, layers["whole_vector"].plan, x1, vcsr,
+                              tlaunches, terrs)
+        for row in rows:
+            if row["name"] in token:
+                row["vocab_batch1"] = token[row["name"]]
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,8 +1,9 @@
 """SPC5 block-sparse matrix formats without zero padding (Bramas & Kus 2018).
 
 A numpy copy of the reference package's ``repro.core.formats``, cut to what
-the port's mask-SpMV path uses: CSR, the beta(r,c) format, the CSR ->
-beta(r,c) conversion, and the two chunked device layouts. The builders are
+the port's paths use: CSR, the beta(r,c) format, the CSR -> beta(r,c)
+conversion, the two chunked device layouts, and the descriptor lowering's
+byte models and tables (:func:`chunk_descriptors`). The builders are
 kept line for line, so both packages produce the same bytes from the same
 matrix (``tests/test_torch_formats.py`` holds them to that).
 
@@ -29,7 +30,7 @@ Two device-facing layouts are derived from :class:`SPC5Matrix`:
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -262,6 +263,143 @@ def exclusive_prefix_popcount(masks: np.ndarray, axis: int = -1) -> np.ndarray:
     each block's packed values start at (the paper's voffset)."""
     pop = popcount_u32(np.asarray(masks)).astype(np.int64)
     return np.cumsum(pop, axis=axis) - pop
+
+
+# ----------------------------------------------------------------------------
+# Lowering byte models and the descriptor tables
+# ----------------------------------------------------------------------------
+
+def narrow_index_dtype(max_value: int) -> np.dtype:
+    """Narrowest signed integer dtype that represents ``[0, max_value]``."""
+    if max_value <= np.iinfo(np.int8).max:
+        return np.dtype(np.int8)
+    if max_value <= np.iinfo(np.int16).max:
+        return np.dtype(np.int16)
+    return np.dtype(np.int32)
+
+
+def descriptor_lane_nbytes(vmax: int, xmax: int, ymax: int) -> int:
+    """Bytes per descriptor LANE at the narrowed table dtypes: one int8
+    ``valid`` byte plus the narrowed itemsizes of ``vidx`` (bounded by
+    vmax), ``xcol`` (by xmax) and ``yrow`` (by ymax)."""
+    return 1 + sum(narrow_index_dtype(max(b - 1, 0)).itemsize
+                   for b in (vmax, xmax, ymax))
+
+
+#: int32 words per descriptor lane (valid, vidx, xcol, yrow) before
+#: narrowing: the storage the ``descriptor`` lowering trades against the
+#: mask decode's work.
+DESC_WORDS_PER_LANE = 4
+
+
+def descriptor_table_bytes(nblocks: int, r: int, c: int,
+                           s_int: int = 4) -> int:
+    """Extra index bytes of the descriptor lowering: 4 int32 per block LANE
+    (r*c lanes per block) instead of the mask lowering's 4 int32 per BLOCK.
+    """
+    return nblocks * r * c * DESC_WORDS_PER_LANE * s_int
+
+
+def spmv_bytes_per_nnz(r: int, c: int, avg: float, lowering: str = "mask",
+                       s_float: int = 4, s_int: int = 4,
+                       desc_lane_nbytes: Optional[int] = None) -> float:
+    """Device-memory bytes per nonzero of one SpMV pass, per lowering.
+
+    Both lowerings stream the packed values (``s_float`` bytes each) and
+    one chunk-base int per block; the mask lowering adds 4 int32 per block
+    (mask, voffset, colidx, row), the descriptor lowering
+    ``desc_lane_nbytes`` per block lane (default: 4 int32 words)."""
+    avg = max(avg, 1e-12)
+    if lowering == "descriptor":
+        lane = (DESC_WORDS_PER_LANE * s_int if desc_lane_nbytes is None
+                else desc_lane_nbytes)
+        per_block = lane * r * c
+    else:
+        per_block = 4 * s_int
+    return s_float + (per_block + s_int) / avg
+
+
+@dataclasses.dataclass
+class ChunkDescriptors:
+    """The chunk masks expanded at build time into per-lane gather tables.
+
+    One entry per block LANE (bit position): ``valid`` is the mask bit,
+    ``vidx`` the lane's value index inside its chunk's value window,
+    ``xcol`` the x gather index and ``yrow`` the y scatter index, which are
+    what the mask kernels recompute on every call. Shapes follow the source
+    arrays with a trailing ``r*c`` axis: ``(nchunks, cb, r*c)`` for the
+    whole-vector layout, ``(npanels, nchunks, cb, r*c)`` for panels (where
+    ``xcol`` is window-relative and ``yrow`` panel-relative). ``valid`` is
+    int8; each index table is narrowed to the smallest signed integer its
+    bound allows (:func:`narrow_index_dtype`)."""
+
+    valid: np.ndarray  # int8, mask bit per lane (0 => padding lane)
+    vidx: np.ndarray   # int8/int16/int32, value index within chunk window
+    xcol: np.ndarray   # int8/int16/int32, x gather (col_map pre-folded)
+    yrow: np.ndarray   # int8/int16/int32, y scatter index
+
+    @property
+    def lane_nbytes(self) -> int:
+        """Actual bytes per lane across the four tables."""
+        return (self.valid.dtype.itemsize + self.vidx.dtype.itemsize
+                + self.xcol.dtype.itemsize + self.yrow.dtype.itemsize)
+
+
+#: Lanes :func:`chunk_descriptors` expands per slice (2**24 lanes: about
+#: 130 MB per int64 temporary).
+DESC_SLICE_LANES = 2 ** 24
+
+
+def chunk_descriptors(chunk_mask: np.ndarray, chunk_voff: np.ndarray,
+                      chunk_col: np.ndarray, chunk_row: np.ndarray, *,
+                      r: int, c: int, vmax: int, xmax: int, ymax: int,
+                      col_map: Optional[np.ndarray] = None
+                      ) -> ChunkDescriptors:
+    """Expand chunk masks once into :class:`ChunkDescriptors`.
+
+    Works on any leading shape. ``xmax``/``ymax`` are the gather/scatter
+    clip bounds (ncols/nrows for the whole-vector layout, xw/pr for panels);
+    ``col_map`` folds a column permutation into ``xcol``. Clipped lanes are
+    always ``valid == 0``. The bytes are the reference's, but the work goes
+    in slices of about :data:`DESC_SLICE_LANES` lanes along the flattened
+    leading axes, each written into the narrowed output: the reference's
+    int64 temporaries span all lanes at once (about 1.7 GB each for a
+    64,000 x 4,096 layer in beta(4,8)), these span one slice, so the host
+    peak stays near the output's own size."""
+    rc = r * c
+    lead = chunk_mask.shape
+    cb = lead[-1]
+    masks = np.asarray(chunk_mask).reshape(-1, cb)
+    voffs = np.asarray(chunk_voff).reshape(-1, cb)
+    cols = np.asarray(chunk_col).reshape(-1, cb)
+    rows = np.asarray(chunk_row).reshape(-1, cb)
+    cmap = None if col_map is None else np.asarray(col_map, dtype=np.int64)
+    out = ChunkDescriptors(
+        np.empty((masks.shape[0], cb, rc), np.int8),
+        np.empty((masks.shape[0], cb, rc), narrow_index_dtype(vmax - 1)),
+        np.empty((masks.shape[0], cb, rc), narrow_index_dtype(xmax - 1)),
+        np.empty((masks.shape[0], cb, rc), narrow_index_dtype(ymax - 1)))
+    k = np.arange(rc, dtype=np.uint32)
+    kk = np.arange(rc, dtype=np.int64)
+    step = max(1, DESC_SLICE_LANES // max(1, cb * rc))
+    for s in range(0, masks.shape[0], step):
+        sl = slice(s, s + step)
+        bits = ((masks[sl, :, None].astype(np.uint32) >> k)
+                & np.uint32(1)).astype(np.int32)
+        ranks = np.cumsum(bits, axis=-1, dtype=np.int64) - bits
+        out.valid[sl] = bits
+        out.vidx[sl] = np.clip(voffs[sl, :, None].astype(np.int64) + ranks,
+                               0, vmax - 1)
+        xcol = np.clip(cols[sl, :, None].astype(np.int64) + (kk % c),
+                       0, xmax - 1)
+        out.xcol[sl] = xcol if cmap is None else cmap[xcol]
+        out.yrow[sl] = np.clip(rows[sl, :, None].astype(np.int64)
+                               + (kk // c), 0, ymax - 1)
+    shape = (*lead, rc)
+    return ChunkDescriptors(out.valid.reshape(shape),
+                            out.vidx.reshape(shape),
+                            out.xcol.reshape(shape),
+                            out.yrow.reshape(shape))
 
 
 # ----------------------------------------------------------------------------

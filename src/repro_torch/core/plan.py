@@ -1,28 +1,33 @@
 """Execution plans: a layout registry, the plan passes and one executor.
 
-The port's counterpart of ``repro.core.plan``, cut to the mask SpMV and
-SpMM slices:
+The port's counterpart of ``repro.core.plan``, cut to the SpMV and SpMM
+slices ported so far:
 
   * **Registry** (:class:`LayoutSpec`, :func:`register_layout`): the
     ``whole_vector`` and ``panels`` layouts, each a ``build``, a
     ``lower_spmv`` and a ``lower_spmm`` entry plus the ``cost`` that "auto"
-    resolution reads.
+    resolution reads, and the lowerings it registers: ``mask`` (the bit
+    mask decoded on every call) and ``descriptor`` (the decode expanded
+    into gather tables at build time).
   * **Plan** (:class:`SPC5Plan`): a frozen dataclass holding the layout's
     tensors (all on one device), the geometry as ``meta`` and the pass
-    ``trace``. Geometry keys and array names resolve as attributes.
+    ``trace``. Geometry keys and array names (per lowering) resolve as
+    attributes.
   * **Passes** (:func:`make_plan`): tune -> reorder -> layout -> build, each
     appending a ``duration_s``-stamped entry to ``plan.trace`` with the
     reference's keys.
   * **Executors** (:func:`execute_spmv`, :func:`execute_spmm`): the only
     place that dispatches on the layout key.
 
-Not ported yet (each raises ``NotImplementedError``): the descriptor
-lowering, bf16/int8 values, reordering, the ``test`` layout and the
-record-store tuner (ROADMAP queue 1).
+Not ported yet (each raises ``NotImplementedError``): SpMM on a
+descriptor plan (ROADMAP queue 2, items 12-14), bf16/int8 values,
+reordering, the ``test`` layout and the record-store tuner (ROADMAP
+queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
+import difflib
 import json
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -30,14 +35,20 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import spc5_spmm, spc5_spmv
+from repro_torch.kernels import spc5_spmm, spc5_spmv, spc5_spmv_desc
 
 from . import formats as F
 from . import ref_spmv as R
 
 LAYOUT_WHOLE = "whole_vector"
 LAYOUT_PANELS = "panels"
+# How a layout's kernels consume the chunk metadata: "mask" decodes the bit
+# masks on every call, "descriptor" reads per-lane gather tables expanded at
+# build time (formats.chunk_descriptors), trading bytes for the decode.
 LOWERING_MASK = "mask"
+LOWERING_DESC = "descriptor"
+_LOWERING_NAMES = (LOWERING_MASK, LOWERING_DESC)
+_LOWERING_SENTINELS = ("auto", "")
 
 #: Legacy spellings accepted by :func:`canonical_layout`.
 _LAYOUT_ALIASES: Dict[str, str] = {"whole": LAYOUT_WHOLE}
@@ -51,6 +62,23 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to repro_torch yet (ROADMAP queue 1, {item})")
 
 
+def _desc_spmm_not_ported() -> NotImplementedError:
+    return NotImplementedError(
+        "SpMM on a descriptor plan is not ported to repro_torch yet (ROADMAP "
+        "queue 2, items 12-14: the descriptor SpMM kernels)")
+
+
+def canonical_lowering(name: str) -> str:
+    """Validate a lowering name ("auto"/"" pass through, like layouts)."""
+    if name in _LOWERING_SENTINELS or name in _LOWERING_NAMES:
+        return name
+    close = difflib.get_close_matches(str(name), _LOWERING_NAMES, n=1,
+                                      cutoff=0.6)
+    hint = f" -- did you mean {close[0]!r}?" if close else ""
+    raise ValueError(f"unknown lowering {name!r}; expected one of "
+                     f"{_LOWERING_NAMES} or 'auto'{hint}")
+
+
 # ----------------------------------------------------------------------------
 # Registry
 # ----------------------------------------------------------------------------
@@ -60,7 +88,11 @@ class LayoutSpec:
     """One device layout: ``array_names`` fixes the order of the plan's
     tensors, ``build(state)`` returns ``(arrays, geom)``, ``lower_spmv`` runs
     y = A @ x and ``lower_spmm`` Y = A @ X, ``cost(nrows, ncols, itemsize,
-    nvec)`` is the footprint "auto" resolution compares with the budget."""
+    nvec)`` is the footprint "auto" resolution compares with the budget.
+    ``lowerings`` lists the lowerings the layout registers ("mask" first,
+    the tie-break winner of the cost arbitration); a descriptor plan's
+    tensors are named by ``desc_array_names`` and viewed by
+    ``desc_device_view``."""
 
     name: str
     array_names: Tuple[str, ...]
@@ -69,6 +101,15 @@ class LayoutSpec:
     lower_spmm: Callable
     cost: Callable
     device_view: Callable
+    lowerings: Tuple[str, ...] = (LOWERING_MASK,)
+    desc_array_names: Optional[Tuple[str, ...]] = None
+    desc_device_view: Optional[Callable] = None
+
+    def plan_array_names(self, lowering: str) -> Tuple[str, ...]:
+        """The tensor names of a plan of this layout under ``lowering``."""
+        if lowering == LOWERING_DESC and self.desc_array_names:
+            return self.desc_array_names
+        return self.array_names
 
 
 _REGISTRY: Dict[str, LayoutSpec] = {}
@@ -130,6 +171,39 @@ def fits_whole_vector(nrows: int, ncols: int, itemsize: int = 4,
     return _cost_whole(nrows, ncols, itemsize, nvec) <= budget_bytes
 
 
+# The reference's closed-form lowering arbitration, kept with its constants
+# so both packages choose the same lowering for the same request. They are
+# the TPU's figures (v5e HBM bandwidth and a coarse decode throughput), not
+# anything measured on an H100; an H100 rule waits for the port's sweep
+# (ROADMAP queue 1, item 11). lowering_cost is the roofline max of bytes
+# (formats.spmv_bytes_per_nnz, where the descriptor tables' r*c-fold index
+# bytes enter) and decode operations per nonzero.
+LOWERING_HBM_BW = 819e9      # bytes/s (TPU v5e)
+LOWERING_DECODE_FLOPS = 2e11  # effective decode op throughput, ops/s (TPU)
+_MASK_LANE_OPS = 8.0          # shift+and+cumsum+rank+3 idx ops+mask mul
+_DESC_LANE_OPS = 2.0          # gather-index add + mask mul
+
+
+def lowering_cost(r: int, c: int, avg: float, itemsize: int,
+                  lowering: str) -> float:
+    """Estimated seconds per nonzero of one SpMV pass under ``lowering``
+    (the reference's model, on the TPU constants above)."""
+    rc = r * c
+    avg = max(avg, 1e-12)
+    bytes_nnz = F.spmv_bytes_per_nnz(r, c, avg, lowering, s_float=itemsize)
+    lane_ops = _DESC_LANE_OPS if lowering == LOWERING_DESC else _MASK_LANE_OPS
+    flops_nnz = 2.0 + lane_ops * rc / avg
+    return max(bytes_nnz / LOWERING_HBM_BW,
+               flops_nnz / LOWERING_DECODE_FLOPS)
+
+
+def _meta_lowering(meta) -> str:
+    for k, v in meta:
+        if k == "lowering":
+            return v
+    return LOWERING_MASK
+
+
 # ----------------------------------------------------------------------------
 # The plan
 # ----------------------------------------------------------------------------
@@ -148,7 +222,8 @@ class SPC5Plan:
         for k, v in meta:
             if k == name:
                 return v
-        names = _REGISTRY[object.__getattribute__(self, "layout")].array_names
+        names = _REGISTRY[object.__getattribute__(self, "layout")] \
+            .plan_array_names(_meta_lowering(meta))
         if name in names:
             return object.__getattribute__(self, "arrays")[names.index(name)]
         raise AttributeError(f"SPC5Plan ({self.layout!r}) has no attribute "
@@ -160,8 +235,12 @@ class SPC5Plan:
 
     @property
     def dev(self):
-        """The layout's tensor view (``SPC5Device`` / ``SPC5PanelDevice``)."""
-        return _REGISTRY[self.layout].device_view(self.arrays)
+        """The layout's tensor view for the plan's lowering
+        (``SPC5Device`` / ``SPC5PanelDevice``, or their descriptor twins)."""
+        spec = _REGISTRY[self.layout]
+        if _meta_lowering(self.meta) == LOWERING_DESC:
+            return spec.desc_device_view(self.arrays)
+        return spec.device_view(self.arrays)
 
     @property
     def trace(self) -> List[dict]:
@@ -226,6 +305,21 @@ def _layout_pass(st: PlanState) -> None:
     else:
         entry["reason"] = "requested"
     entry["layout"] = st.layout
+    # the lowering: a request the layout did not register is demoted to
+    # "mask" (traced); "auto" is arbitrated by lowering_cost
+    spec = _REGISTRY[st.layout]
+    if (st.lowering not in _LOWERING_SENTINELS
+            and st.lowering not in spec.lowerings):
+        st.lowering = LOWERING_MASK
+        entry["lowering_demoted"] = True
+        entry["lowering_demoted_reason"] = "unregistered-lowering"
+    if st.lowering in _LOWERING_SENTINELS:
+        st.lowering = min(
+            spec.lowerings,
+            key=lambda n: lowering_cost(st.mat.r, st.mat.c,
+                                        st.mat.avg_nnz_per_block,
+                                        st.itemsize, n))
+        entry["lowering_reason"] = "cost-model"
     entry["lowering"] = st.lowering
     st.trace.append(entry)
 
@@ -252,19 +346,19 @@ def make_plan(mat: F.SPC5Matrix, *, device: Device, layout: str = "auto",
     """The plan pipeline: tune -> reorder -> layout -> build.
 
     ``nvec`` is the widest SpMM batch the plan will see; "auto" layout
-    budgets x and y at that width, as the reference does. Values are stored
-    as float32 ("" / "f32"), which is what the reference holds for the
-    generators' float64 values too. ``dtype`` may only be None or
-    float32."""
+    budgets x and y at that width, as the reference does. ``lowering`` is
+    "mask", "descriptor" or "auto" (the reference's :func:`lowering_cost`
+    arbitration). Values are stored as float32 ("" / "f32"), which is what
+    the reference holds for the generators' float64 values too. ``dtype``
+    may only be None or float32."""
     vdtype = F.canonical_vdtype(vdtype)
     if vdtype not in ("", "auto", "f32"):
         raise _not_ported(f"vdtype={vdtype!r}", "item 5")
     if dtype is not None and not _is_f32(dtype):
         raise _not_ported(f"dtype={dtype!r}", "item 5")
-    if lowering != LOWERING_MASK:
-        raise _not_ported(f"lowering={lowering!r}", "item 5")
     st = PlanState(mat=mat, device=torch.device(device),
-                   layout=canonical_layout(layout), lowering=lowering, pr=pr,
+                   layout=canonical_layout(layout),
+                   lowering=canonical_lowering(lowering), pr=pr,
                    xw=xw, cb=cb, nvec=nvec, align=align, vdtype=vdtype,
                    tune=tune, dtype=None if dtype is None else np.float32)
     for pass_fn in (_tune_pass, _reorder_pass, _layout_pass):
@@ -315,21 +409,25 @@ def plan_from_arrays(layout: str, arrays, meta, *,
                      device: Device) -> SPC5Plan:
     """A port plan from another plan's host arrays and geometry.
 
-    ``arrays`` are the layout's arrays in registry order (each anything
-    ``np.asarray`` takes, e.g. a JAX plan's device arrays) and ``meta`` its
-    ``(key, value)`` geometry, so the port computes with exactly the bytes
-    the other package built."""
+    ``arrays`` are the layout's arrays in registry order for the lowering
+    ``meta`` names (each anything ``np.asarray`` takes, e.g. a JAX plan's
+    device arrays; descriptor tables keep their narrow dtypes) and ``meta``
+    its ``(key, value)`` geometry, so the port computes with exactly the
+    bytes the other package built."""
     spec = get_layout(layout)
     meta = tuple(sorted((str(k), v) for k, v in meta))
     m = dict(meta)
-    if m.get("lowering", LOWERING_MASK) != LOWERING_MASK:
-        raise _not_ported(f"lowering={m['lowering']!r}", "item 5")
+    lowering = m.get("lowering", LOWERING_MASK)
+    if lowering not in spec.lowerings:
+        raise ValueError(f"layout {spec.name!r} has no lowering "
+                         f"{lowering!r}")
     if m.get("vdtype", "") not in ("", "f32"):
         raise _not_ported(f"vdtype={m['vdtype']!r}", "item 5")
     arrays = [np.asarray(a) for a in arrays]
-    if len(arrays) != len(spec.array_names):
-        raise ValueError(f"layout {spec.name!r} has arrays "
-                         f"{spec.array_names}, got {len(arrays)}")
+    names = spec.plan_array_names(lowering)
+    if len(arrays) != len(names):
+        raise ValueError(f"layout {spec.name!r} ({lowering}) has arrays "
+                         f"{names}, got {len(arrays)}")
     return SPC5Plan(layout=spec.name,
                     arrays=tuple(R.to_tensor(a, device) for a in arrays),
                     meta=meta)
@@ -345,10 +443,25 @@ def _build_whole(st: PlanState):
     geom = dict(r=ch.r, c=ch.c, cb=ch.cb, vmax=ch.vmax, nrows=ch.nrows,
                 ncols=ch.ncols, nnz=ch.nnz, nblocks=int(st.mat.nblocks),
                 lowering=st.lowering, vdtype=st.vdtype)
+    if st.lowering == LOWERING_DESC:
+        desc = F.chunk_descriptors(ch.chunk_mask, ch.chunk_voff,
+                                   ch.chunk_col, ch.chunk_row, r=ch.r,
+                                   c=ch.c, vmax=ch.vmax, xmax=ch.ncols,
+                                   ymax=ch.nrows)
+        geom["desc_lane_nbytes"] = desc.lane_nbytes
+        return tuple(R.device_put_desc(ch.values, desc, ch.chunk_vbase,
+                                       st.device)), geom
     return tuple(R.device_put(ch, st.device)), geom
 
 
 def _lower_spmv_whole(plan: SPC5Plan, x, *, double_buffer):
+    if plan.lowering == LOWERING_DESC:
+        fn = (spc5_spmv_desc.spmv_cuda_desc_db if double_buffer
+              else spc5_spmv_desc.spmv_cuda_desc)
+        return fn(plan.chunk_vbase, plan.desc_valid, plan.desc_vidx,
+                  plan.desc_xcol, plan.desc_yrow, plan.values, x, r=plan.r,
+                  c=plan.c, cb=plan.cb, vmax=plan.vmax, nrows=plan.nrows,
+                  ncols=plan.ncols)
     fn = spc5_spmv.spmv_cuda_db if double_buffer else spc5_spmv.spmv_cuda
     return fn(plan.chunk_vbase, plan.chunk_col, plan.chunk_mask,
               plan.chunk_voff, plan.chunk_row, plan.values, x,
@@ -357,6 +470,8 @@ def _lower_spmv_whole(plan: SPC5Plan, x, *, double_buffer):
 
 
 def _lower_spmm_whole(plan: SPC5Plan, x, *, nvt, double_buffer):
+    if plan.lowering == LOWERING_DESC:
+        raise _desc_spmm_not_ported()
     # the reference has one whole-vector SpMM kernel: no double buffer
     return spc5_spmm.spmm_cuda(
         plan.chunk_vbase, plan.chunk_col, plan.chunk_mask, plan.chunk_voff,
@@ -372,6 +487,9 @@ register_layout(LayoutSpec(
     lower_spmm=_lower_spmm_whole,
     cost=_cost_whole,
     device_view=lambda arrays: R.SPC5Device(*arrays),
+    lowerings=_LOWERING_NAMES,
+    desc_array_names=R.SPC5DescDevice._fields,
+    desc_device_view=lambda arrays: R.SPC5DescDevice(*arrays),
 ))
 
 
@@ -388,10 +506,27 @@ def _build_panels(st: PlanState):
                 nrows=pan.nrows, ncols=pan.ncols, ncols_pad=pan.ncols_pad,
                 nnz=pan.nnz, nblocks=int(st.mat.nblocks),
                 lowering=st.lowering, vdtype=st.vdtype)
+    if st.lowering == LOWERING_DESC:
+        # window-relative xcol and panel-relative yrow tables
+        desc = F.chunk_descriptors(pan.chunk_mask, pan.chunk_voff,
+                                   pan.chunk_col, pan.chunk_row, r=pan.r,
+                                   c=pan.c, vmax=pan.vmax, xmax=pan.xw,
+                                   ymax=pan.pr)
+        geom["desc_lane_nbytes"] = desc.lane_nbytes
+        return tuple(R.device_put_desc(pan.values, desc, pan.chunk_vbase,
+                                       st.device, pan.chunk_xbase)), geom
     return tuple(R.device_put_panels(pan, st.device)), geom
 
 
 def _lower_spmv_panels(plan: SPC5Plan, x, *, double_buffer):
+    if plan.lowering == LOWERING_DESC:
+        fn = (spc5_spmv_desc.spmv_cuda_panels_desc_db if double_buffer
+              else spc5_spmv_desc.spmv_cuda_panels_desc)
+        return fn(plan.chunk_vbase, plan.chunk_xbase, plan.desc_valid,
+                  plan.desc_vidx, plan.desc_xcol, plan.desc_yrow,
+                  plan.values, x, r=plan.r, c=plan.c, cb=plan.cb,
+                  vmax=plan.vmax, xw=plan.xw, pr=plan.pr, nrows=plan.nrows,
+                  ncols_pad=plan.ncols_pad)
     fn = (spc5_spmv.spmv_cuda_panels_db if double_buffer
           else spc5_spmv.spmv_cuda_panels)
     return fn(plan.chunk_vbase, plan.chunk_xbase, plan.chunk_col,
@@ -401,6 +536,8 @@ def _lower_spmv_panels(plan: SPC5Plan, x, *, double_buffer):
 
 
 def _lower_spmm_panels(plan: SPC5Plan, x, *, nvt, double_buffer):
+    if plan.lowering == LOWERING_DESC:
+        raise _desc_spmm_not_ported()
     fn = (spc5_spmm.spmm_cuda_panels_db if double_buffer
           else spc5_spmm.spmm_cuda_panels)
     return fn(plan.chunk_vbase, plan.chunk_xbase, plan.chunk_col,
@@ -418,4 +555,7 @@ register_layout(LayoutSpec(
     lower_spmm=_lower_spmm_panels,
     cost=_cost_panels,
     device_view=lambda arrays: R.SPC5PanelDevice(*arrays),
+    lowerings=_LOWERING_NAMES,
+    desc_array_names=R.SPC5PanelDescDevice._fields,
+    desc_device_view=lambda arrays: R.SPC5PanelDescDevice(*arrays),
 ))

@@ -1,16 +1,18 @@
 """Plain PyTorch SpMV and SpMM over the chunked SPC5 device layouts.
 
-These are the port's plain versions of the mask-decode kernels: composed
-torch ops, device-agnostic, mirroring the reference's jnp oracle
+These are the port's plain versions of the kernels: composed torch ops,
+device-agnostic, mirroring the reference's jnp oracle
 (``repro.core.ref_spmv.spmv`` / ``spmv_panels`` / ``spmm`` /
-``spmm_panels``) for f32 values. The CPU tests run them in place of the
-CUDA kernels, and ``chip_smoke.py`` holds every kernel against them on the
-card. The decode is
+``spmm_panels`` / ``spmv_desc`` / ``spmv_panels_desc``) for f32 values.
+The CPU tests run them in place of the CUDA kernels, and ``chip_smoke.py``
+holds every kernel against them on the card. The mask decode is
 
     ranks = cumsum(mask_bits) - mask_bits        # rank of each set bit
     expanded[k] = values[vbase + voff + ranks[k]]
 
-so only the packed values are read, as in the paper.
+so only the packed values are read, as in the paper. The descriptor
+lowering reads that expansion from build-time tables instead
+(:func:`spmv_desc`, :func:`spmv_panels_desc`).
 
 Masks are ``uint32`` in the host formats and bit 31 is used (r*c = 32 for
 4x8 and 8x4). torch has no right shift for ``UInt32`` on the CPU, so the
@@ -24,7 +26,7 @@ from typing import NamedTuple, Union
 import numpy as np
 import torch
 
-from .formats import SPC5Chunked, SPC5Panels
+from .formats import ChunkDescriptors, SPC5Chunked, SPC5Panels
 
 Device = Union[str, torch.device]
 
@@ -181,3 +183,99 @@ def spmm_panels(dev: SPC5PanelDevice, x: torch.Tensor, *, r: int, c: int,
                   * pr)[:, None, None, None]
     yrow = panel_row0 + dev.chunk_row[..., None] + k // c
     return _spmm_set_lanes(vals, bits, xcol, yrow, x, nrows)
+
+
+# ----------------------------------------------------------------------------
+# Descriptor lowering: build-time gather tables, no mask decode
+# ----------------------------------------------------------------------------
+
+class SPC5DescDevice(NamedTuple):
+    """Tensor view of the whole-vector descriptor lowering (the reference's
+    field order). The index tables keep the narrowed dtypes they were built
+    with (:func:`repro_torch.core.formats.chunk_descriptors`)."""
+
+    values: torch.Tensor       # (nvals_padded,) float32
+    desc_valid: torch.Tensor   # (nchunks, cb, r*c) int8, 0 => padding lane
+    desc_vidx: torch.Tensor    # (nchunks, cb, r*c) int8/16/32, in window
+    desc_xcol: torch.Tensor    # (nchunks, cb, r*c) int8/16/32, global x
+    desc_yrow: torch.Tensor    # (nchunks, cb, r*c) int8/16/32, global y
+    chunk_vbase: torch.Tensor  # (nchunks,) int32
+
+
+class SPC5PanelDescDevice(NamedTuple):
+    """Tensor view of the panel descriptor lowering (``desc_xcol``
+    window-relative, ``desc_yrow`` panel-relative)."""
+
+    values: torch.Tensor       # (nvals_padded,) float32
+    desc_valid: torch.Tensor   # (npanels, nchunks, cb, r*c) int8
+    desc_vidx: torch.Tensor    # (npanels, nchunks, cb, r*c) int8/16/32
+    desc_xcol: torch.Tensor    # (npanels, nchunks, cb, r*c), window-rel
+    desc_yrow: torch.Tensor    # (npanels, nchunks, cb, r*c), panel-rel
+    chunk_vbase: torch.Tensor  # (npanels, nchunks) int32
+    chunk_xbase: torch.Tensor  # (npanels, nchunks) int32
+
+
+def device_put_desc(values: np.ndarray, desc: ChunkDescriptors,
+                    chunk_vbase: np.ndarray, device: Device,
+                    chunk_xbase: np.ndarray = None):
+    """Host descriptor tables -> :class:`SPC5DescDevice` (or, with
+    ``chunk_xbase``, :class:`SPC5PanelDescDevice`) on ``device``, each
+    table in the narrow dtype it was built with."""
+    arrays = (values, desc.valid, desc.vidx, desc.xcol, desc.yrow,
+              chunk_vbase)
+    if chunk_xbase is None:
+        return SPC5DescDevice(*(to_tensor(a, device) for a in arrays))
+    return SPC5PanelDescDevice(*(to_tensor(a, device)
+                                 for a in arrays + (chunk_xbase,)))
+
+
+def _desc_unsupported(cmap, value_scale) -> None:
+    if cmap is not None:
+        raise NotImplementedError(
+            "cmap (fused column permutation) is not ported yet: ROADMAP "
+            "queue 1, item 5 (reorder pass)")
+    if value_scale is not None:
+        raise NotImplementedError(
+            "value_scale (int8 values) is not ported yet: ROADMAP queue 1, "
+            "item 5 (bf16/int8 values)")
+
+
+def _desc_vals(values, valid, vidx, vbase):
+    """The descriptor expand: one gather from the chunk's value window and
+    the valid mask (narrow tables promote to int64 for indexing)."""
+    gidx = vbase[..., None, None].long() + vidx.long()
+    vals = values[gidx.clamp(0, values.shape[0] - 1)]
+    return vals * valid.to(vals.dtype)
+
+
+def spmv_desc(dev: SPC5DescDevice, x: torch.Tensor, value_scale=None, *,
+              nrows: int) -> torch.Tensor:
+    """y = A @ x through the whole-vector descriptors. Unset lanes carry a
+    zero value and in-bounds (clipped) indices, as in the reference."""
+    _desc_unsupported(None, value_scale)
+    vals = _desc_vals(dev.values, dev.desc_valid, dev.desc_vidx,
+                      dev.chunk_vbase)
+    contrib = vals * x[dev.desc_xcol.long()]
+    y = torch.zeros(nrows, dtype=contrib.dtype, device=contrib.device)
+    return y.index_add_(0, dev.desc_yrow.reshape(-1).long(),
+                        contrib.reshape(-1))
+
+
+def spmv_panels_desc(dev: SPC5PanelDescDevice, x: torch.Tensor, cmap=None,
+                     value_scale=None, *, pr: int, nrows: int,
+                     ncols_pad: int) -> torch.Tensor:
+    """y = A @ x through the panel descriptors; x (ncols,)."""
+    _desc_unsupported(cmap, value_scale)
+    npanels = dev.desc_valid.shape[0]
+    xp = torch.nn.functional.pad(x, (0, max(0, ncols_pad - x.shape[0])))
+    vals = _desc_vals(dev.values, dev.desc_valid, dev.desc_vidx,
+                      dev.chunk_vbase)
+    xcol = (dev.chunk_xbase[..., None, None].long()
+            + dev.desc_xcol.long()).clamp(0, ncols_pad - 1)
+    panel_row0 = (torch.arange(npanels, device=x.device)
+                  * pr)[:, None, None, None]
+    yrow = panel_row0 + dev.desc_yrow.long()
+    contrib = vals * xp[xcol]
+    y = torch.zeros(npanels * pr, dtype=contrib.dtype, device=contrib.device)
+    y.index_add_(0, yrow.reshape(-1), contrib.reshape(-1))
+    return y[:nrows]

@@ -96,11 +96,16 @@ class SparseLinear(nn.Module):
 
         ``nvec`` is the widest activation batch the layer will see; it feeds
         the "auto" layout's budget exactly as in the reference (default 128,
-        one full SpMM tile). ``lowering`` defaults to "mask", the only
-        lowering ported. A ``store``, ``reorder``, a truthy ``verify`` and
-        bf16/int8 values raise ``NotImplementedError`` naming their ROADMAP
-        item."""
+        one full SpMM tile). ``lowering`` must be "mask": a descriptor plan
+        cannot run SpMM until its kernels are ported. Another ``lowering``,
+        a ``store``, ``reorder``, a truthy ``verify`` and bf16/int8 values
+        raise ``NotImplementedError`` naming their ROADMAP item."""
         _no_store(store)
+        if lowering != "mask":
+            raise NotImplementedError(
+                f"lowering={lowering!r}: a layer needs SpMM, and the "
+                f"descriptor SpMM kernels are not ported to repro_torch yet "
+                f"(ROADMAP queue 2, items 12-14)")
         if reorder is not None:
             raise NotImplementedError(
                 "reordering is not ported to repro_torch yet (ROADMAP queue "

@@ -44,6 +44,12 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         **{f"spc5_spmv_panels_s{s}": [_P] * 9 + [_I] * 11 + [_P]
            for s in (1, 2)},
     },
+    "spc5_spmv_desc": {
+        **{f"spc5_spmv_desc_whole_s{s}": [_P] * 8 + [_I] * 8 + [_P]
+           for s in (1, 2)},
+        **{f"spc5_spmv_desc_panels_s{s}": [_P] * 9 + [_I] * 12 + [_P]
+           for s in (1, 2)},
+    },
     "spc5_spmm": {
         "spc5_spmm_whole": [_P] * 8 + [_I] * 8 + [_P],
         **{f"spc5_spmm_panels_s{s}": [_P] * 9 + [_I] * 11 + [_P]

@@ -1,7 +1,7 @@
 """Public entry points of the port: :func:`prepare`, :func:`spmv` and
 :func:`spmm`.
 
-The counterpart of ``repro.kernels.ops`` for the mask SpMV and SpMM slices.
+The counterpart of ``repro.kernels.ops`` for the SpMV and SpMM slices.
 :func:`prepare` runs the plan passes (``repro_torch.core.plan``) and puts
 the plan's tensors on a device: the card unless the caller asks for the
 CPU. :func:`spmv` and :func:`spmm` multiply through the plan executors,
@@ -48,8 +48,11 @@ def prepare(mat: F.SPC5Matrix, *, layout: str = "auto",
     ``nvec``, the widest SpMM batch the plan will see, so that "auto"
     budgets the SpMM tiles and not only the SpMV vectors.
 
-    Only the mask lowering and f32 values are ported; anything else raises
-    ``NotImplementedError``."""
+    ``lowering`` is "mask" (the default here until the descriptor SpMM
+    kernels are ported), "descriptor" (build-time gather tables; SpMV only
+    so far) or "auto", the reference's cost model (``plan.lowering_cost``).
+    Only f32 values are ported; bf16/int8, reordering and the ``test``
+    layout raise ``NotImplementedError``."""
     if config is not None:
         if layout == "auto":
             layout = getattr(config, "layout", "") or "auto"

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (SpMV and SpMM) against their plain PyTorch
-versions, on the card.
+"""The port's CUDA kernels (mask SpMV, SpMM and descriptor SpMV) against
+their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU with nvcc: it is marked ``gpu`` and
 skips from the ``cuda`` fixture where ``torch.cuda.is_available()`` is
@@ -25,6 +25,7 @@ from repro_torch.core.sparse_linear import SparseLinear
 from repro_torch.kernels import ops
 from repro_torch.kernels import spc5_spmm as KM
 from repro_torch.kernels import spc5_spmv as K
+from repro_torch.kernels import spc5_spmv_desc as KD
 
 pytestmark = pytest.mark.gpu
 
@@ -264,3 +265,123 @@ def test_sparse_linear_on_the_card_matches_the_cpu_layer(cuda, layout):
         assert y.shape == ref.shape == (*shape[:-1], 300)
         err = float((y.cpu() - ref).abs().max())
         assert err <= RTOL * float(ref.abs().max()), err
+
+
+# ----------------------------------------------------------------------------
+# descriptor SpMV
+# ----------------------------------------------------------------------------
+
+DESC_KERNELS = ("spmv_cuda_desc", "spmv_cuda_desc_db",
+                "spmv_cuda_panels_desc", "spmv_cuda_panels_desc_db")
+
+
+def _run_desc(kernel, mat, x, device, **geom):
+    layout = "panels" if "panels" in kernel else "whole_vector"
+    plan = ops.prepare(mat, layout=layout, lowering="descriptor", tune=False,
+                       device=device, **geom)
+    xt = torch.from_numpy(x).to(device)
+    if layout == "panels":
+        plain = R.spmv_panels_desc(plan.dev, xt, pr=plan.pr,
+                                   nrows=plan.nrows,
+                                   ncols_pad=plan.ncols_pad)
+    else:
+        plain = R.spmv_desc(plan.dev, xt, nrows=plan.nrows)
+    before = KD.LAUNCHES[kernel]
+    y = ops.spmv(plan, xt, double_buffer=kernel.endswith("_db"))
+    torch.cuda.synchronize()
+    assert KD.LAUNCHES[kernel] == before + 1
+    assert y.device.type == "cuda" and y.shape == (mat.nrows,)
+    assert torch.isfinite(y).all()
+    scale = float(plain.abs().max()) if plain.numel() else 0.0
+    err = float((y - plain).abs().max()) if y.numel() else 0.0
+    assert err <= RTOL * max(scale, 1.0), (err, scale)
+    return plan
+
+
+@pytest.mark.parametrize("kernel", DESC_KERNELS)
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+def test_desc_kernel_matches_plain(cuda, kernel, rc):
+    """Several chunks and panels (pr=64, xw=64, cb=16), nrows % r != 0 for
+    r in (4, 8), and bit-31 masks for 4x8 / 8x4."""
+    mat = _matrix(rc, n=302)
+    x = np.random.default_rng(1).standard_normal(mat.ncols).astype(np.float32)
+    geom = (dict(pr=64, xw=64, cb=16) if "panels" in kernel
+            else dict(cb=16))
+    _run_desc(kernel, mat, x, cuda, **geom)
+
+
+@pytest.mark.parametrize("kernel", DESC_KERNELS)
+def test_desc_fem_matrix_default_geometry(cuda, kernel):
+    """The chip_smoke matrix class at a small size, default geometry."""
+    mat = F.csr_to_spc5(matgen.fem_blocks(8_000, 4, 12, seed=5), 4, 4)
+    x = np.random.default_rng(2).standard_normal(mat.ncols).astype(np.float32)
+    _run_desc(kernel, mat, x, cuda)
+
+
+@pytest.mark.parametrize("kernel", DESC_KERNELS)
+@pytest.mark.parametrize("kind", ["empty", "last_row_only", "left_columns"])
+def test_desc_edge_matrices(cuda, kernel, kind):
+    d = np.zeros((37, 29), np.float32)
+    if kind == "last_row_only":
+        d[36, 28] = 2.0
+    elif kind == "left_columns":
+        d[::3, :9] = np.random.default_rng(6).standard_normal((13, 9))
+    mat = F.csr_to_spc5(F.csr_from_dense(d), 8, 4)
+    x = np.random.default_rng(7).standard_normal(29).astype(np.float32)
+    geom = (dict(pr=16, xw=16, cb=4) if "panels" in kernel else dict(cb=4))
+    _run_desc(kernel, mat, x, cuda, **geom)
+
+
+def _dense(shape, density, seed):
+    rng = np.random.default_rng(seed)
+    return ((rng.random(shape) < density)
+            * rng.standard_normal(shape)).astype(np.float32)
+
+
+def _width_case(table, width, layout):
+    """A matrix (beta(4,8) for vidx, beta(2,4) otherwise) and geometry
+    whose ``table`` narrows to ``width`` bits: vidx is bounded by vmax
+    (cb), xcol by ncols or xw, yrow by nrows or pr."""
+    if table == "vidx":
+        cb = {8: 4, 16: 16, 32: 1_280}[width]
+        d = (_dense((64, 4_096), 1.0, 7) if width == 32
+             else _dense((120, 100), 0.3, 7))
+        geom = (dict(cb=cb) if layout == "whole_vector"
+                else dict(pr=64, xw=1_024 if width == 32 else 64, cb=cb))
+        return F.csr_to_spc5(F.csr_from_dense(d), 4, 8), geom
+    big = {8: 100, 16: 1_000, 32: 40_000}[width]
+    if table == "xcol":
+        d = _dense((60, big), min(1.0, 300 / big), 8)
+        geom = (dict(cb=16) if layout == "whole_vector"
+                else dict(pr=64, xw=big, cb=16))
+    else:
+        d = _dense((big, 60), min(1.0, 300 / big), 9)
+        geom = (dict(cb=16) if layout == "whole_vector"
+                else dict(pr=big, xw=64, cb=16))
+    return F.csr_to_spc5(F.csr_from_dense(d), 2, 4), geom
+
+
+@pytest.mark.parametrize("width", [8, 16, 32])
+@pytest.mark.parametrize("table", ["vidx", "xcol", "yrow"])
+@pytest.mark.parametrize("kernel", DESC_KERNELS)
+def test_desc_table_widths(cuda, kernel, table, width):
+    """Each index table at each width it can have, read as built. An int32
+    vidx needs a value window above 32,768 floats (128 KB) and a panel
+    int32 xcol an x window as wide, so the double-buffered kernels, which
+    hold two of each, refuse them for want of shared memory."""
+    layout = "panels" if "panels" in kernel else "whole_vector"
+    mat, geom = _width_case(table, width, layout)
+    x = np.random.default_rng(width).standard_normal(
+        mat.ncols).astype(np.float32)
+    too_big = width == 32 and kernel.endswith("_db") and (
+        table == "vidx" or (table == "xcol" and layout == "panels"))
+    if too_big:
+        plan = ops.prepare(mat, layout=layout, lowering="descriptor",
+                           tune=False, device=cuda, **geom)
+        assert getattr(plan, f"desc_{table}").dtype == torch.int32
+        with pytest.raises(ValueError, match="shared memory"):
+            ops.spmv(plan, torch.from_numpy(x).to(cuda))
+        return
+    plan = _run_desc(kernel, mat, x, cuda, **geom)
+    assert getattr(plan, f"desc_{table}").dtype == getattr(
+        torch, f"int{width}")

@@ -42,8 +42,9 @@ def test_port_modules_cover_the_slice():
     assert {"core/formats.py", "core/matgen.py", "core/ref_spmv.py",
             "core/plan.py", "core/sparse_linear.py", "kernels/_build.py",
             "kernels/spc5_spmv.py", "kernels/spc5_spmm.py",
-            "kernels/ops.py"} <= names
-    for src in ("spc5_spmv.cu", "spc5_spmm.cu", "spc5_stage.cuh"):
+            "kernels/spc5_spmv_desc.py", "kernels/ops.py"} <= names
+    for src in ("spc5_spmv.cu", "spc5_spmm.cu", "spc5_spmv_desc.cu",
+                "spc5_stage.cuh"):
         assert os.path.isfile(os.path.join(PORT, "kernels", "csrc", src))
 
 
@@ -52,6 +53,7 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import sys\n"
         "import repro_torch.kernels.ops, repro_torch.core.matgen\n"
         "import repro_torch.core.sparse_linear\n"
+        "import repro_torch.kernels.spc5_spmv_desc\n"
         "from repro_torch.kernels import _build\n"
         "assert not any(m.split('.')[0] in {'jax', 'ml_dtypes', 'repro'} "
         "for m in sys.modules), sorted(m for m in sys.modules if 'jax' in m)\n"

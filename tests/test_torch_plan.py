@@ -21,6 +21,7 @@ from repro.kernels import ops as jops
 from repro_torch.core import formats as TF
 from repro_torch.core import matgen as TM
 from repro_torch.core import plan as TP
+from repro_torch.core.sparse_linear import SparseLinear
 from repro_torch.kernels import ops as tops
 
 RTOL = 1e-5
@@ -161,15 +162,32 @@ def test_prepare_without_device_needs_a_card():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(lowering="descriptor"), dict(lowering="auto"), dict(vdtype="bf16"),
+    dict(entry="spmm", lowering="descriptor"),
+    dict(entry="from_dense", lowering="descriptor"),
+    dict(vdtype="bf16"),
     dict(vdtype="int8"), dict(layout="test"), dict(dtype=np.float64),
     dict(config=JS.PanelConfig(layout="panels", reorder="rcm")),
-    dict(config=JS.PanelConfig(layout="panels", lowering="descriptor")),
+    dict(config=JS.PanelConfig(layout="panels", lowering="descriptor",
+                               vdtype="bf16")),
+    dict(lowering="descriptor", layout="test"),
 ])
 def test_unported_axes_raise(kw):
+    """``entry`` names the call under test: ``ops.prepare`` (default),
+    ``ops.spmm`` on a plan built with the other keywords, or
+    ``SparseLinear.from_dense`` with them."""
     _, tmat = _pair((1, 8))
+    kw = dict(kw)
+    entry = kw.pop("entry", "prepare")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.prepare(tmat, device="cpu", **kw)
+        if entry == "spmm":
+            plan = tops.prepare(tmat, device="cpu", tune=False, **kw)
+            tops.spmm(plan, torch.zeros(tmat.ncols, 4))
+        elif entry == "from_dense":
+            w = np.random.default_rng(0).standard_normal((16, 24))
+            SparseLinear.from_dense(w.astype(np.float32), block=(1, 8),
+                                    device="cpu", **kw)
+        else:
+            tops.prepare(tmat, device="cpu", **kw)
 
 
 def test_spmv_wants_x_on_the_plans_device():
