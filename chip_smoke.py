@@ -10,10 +10,10 @@ phase that goes wrong:
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
    for sm_90a, one nvcc per source, all started together, and prints the
    build time and each kernel's registers (``-Xptxas -v``);
-3. holds all eleven kernels against their plain PyTorch versions on small
-   matrices of every supported block shape (SpMM at nvec 3, 16 and 128),
-   and the four descriptor kernels also on a matrix wider and one taller
-   than 32,767 (int32 ``xcol`` / ``yrow`` tables);
+3. holds all fourteen kernels against their plain PyTorch versions on
+   small matrices of every supported block shape (SpMM at nvec 3, 16 and
+   128), and the seven descriptor kernels also on a matrix wider and one
+   taller than 32,767 (int32 ``xcol`` / ``yrow`` tables);
 4. SpMV path: builds ``matgen.fem_blocks(200_000, 4, 12, seed=5)``, the
    SET_A bone010 structure class at 200,000 rows (about 9.5 M nonzeros), in
    beta(4,4), and drives ``ops.prepare`` + ``ops.spmv`` through both
@@ -23,14 +23,19 @@ phase that goes wrong:
    lowering by the cost model, as in the reference;
 5. SparseLinear path: the vocab projection of yi-6b (64,000 x 4,096, the
    weight ``serve.py``'s vocab bench draws: ``default_rng(0)``, standard
-   normal, float32), magnitude-pruned to density 0.1 in beta(4,8), through
-   ``SparseLinear.from_dense(..., nvec=128)`` (layout auto: panels), a
-   whole-vector layer on the same matrix, ``ops.spmm(...,
-   double_buffer=False)`` and a batch-1 call, at batches of 16 and 128;
-   then one decode token through the same weight: ``ops.prepare(...,
-   lowering="auto")`` at nvec=1 (whole-vector + descriptor, the
-   reference's pick) and ``ops.spmv`` with ``double_buffer`` True and
-   False, printing the tables' bytes and the host time of
+   normal, float32), magnitude-pruned to density 0.1 (beta(4,8) by eq. 4),
+   through ``SparseLinear.from_dense(w, density=0.1, nvec=128)`` with every
+   other argument at its default, the reference's default layer, whose
+   layout pass must resolve to panels + descriptor (its forward runs
+   ``spmm_cuda_panels_desc_db``); beside it two mask layers on the same
+   converted matrix (``ops.prepare(lowering="mask")``: auto layout, panels,
+   and whole-vector), ``ops.spmm(..., double_buffer=False)`` on both panel
+   layers and a batch-1 call of both, at batches of 16 and 128;
+   then the whole-vector descriptor plan of the same weight:
+   ``ops.prepare(mat)`` at nvec=1 (whole-vector + descriptor, the
+   reference's pick for one decode token), ``ops.spmv`` with
+   ``double_buffer`` True and False and ``ops.spmm`` at batches of 16 and
+   128, printing the tables' bytes and the host time of
    ``chunk_descriptors``;
 6. in each path every launch counter is set to 0 just before and read just
    after, and every kernel of the path must have launched; every output is
@@ -40,9 +45,12 @@ phase that goes wrong:
 7. times each kernel, its plain version and the cuSPARSE call on the same
    inputs (``torch.mv`` / ``@`` on a ``torch.sparse_csr_tensor``; timed
    only, never used by the port) with CUDA events, after warm-up, with L2
-   flushed before every launch, and computes each kernel's bound from this
-   run's bytes over 3.35 TB/s and its flops over 67 TFLOP/s (for a
-   descriptor kernel also the mask plan's bound for the same product);
+   flushed before every launch, and computes each kernel's bound from the
+   bytes this run's product needs over 3.35 TB/s and its flops over 67
+   TFLOP/s (for a descriptor kernel, whose ``xcol`` / ``yrow`` tables
+   repeat each block's columns and rows, c and r entries per block; beside
+   it the bound on the whole plan's bytes, the mask plan's bound for the
+   same product and the mask kernel's time on the mask plan);
 8. prints the ``{"kernels": [...]}`` line, then, last, the
    ``{"ok": true, "device": ...}`` line.
 
@@ -113,9 +121,27 @@ KERNELS = {
 SOURCE = {"mask": "src/repro_torch/kernels/csrc/spc5_spmv.cu",
           "descriptor": "src/repro_torch/kernels/csrc/spc5_spmv_desc.cu"}
 SPMM_SOURCE = "src/repro_torch/kernels/csrc/spc5_spmm.cu"
+DESC_SPMM_KERNELS = {
+    # name: (layout, double_buffer, the Pallas function it replaces)
+    "spmm_cuda_panels_desc_db": ("panels", True,
+                                 "src/repro/kernels/spc5_spmm.py:768"),
+    "spmm_cuda_panels_desc": ("panels", False,
+                              "src/repro/kernels/spc5_spmm.py:654"),
+    "spmm_cuda_desc": ("whole_vector", False,
+                       "src/repro/kernels/spc5_spmm.py:546"),
+}
+DESC_SPMM_SOURCE = "src/repro_torch/kernels/csrc/spc5_spmm_desc.cu"
+#: The mask kernel each descriptor SpMM kernel is timed beside.
+MASK_TWIN = {"spmm_cuda_panels_desc_db": "spmm_cuda_panels_db",
+             "spmm_cuda_panels_desc": "spmm_cuda_panels",
+             "spmm_cuda_desc": "spmm_cuda"}
 #: Matrices whose whole-vector descriptor xcol (ncols) or yrow (nrows)
 #: bound needs int32 tables.
 WIDE_TALL = {"wide": (300, 40_000), "tall": (40_000, 300)}
+
+
+#: Itanium mangling of the kernels' vidx type parameter.
+INDEX_TYPE = {"a": "int8", "s": "int16", "i": "int32"}
 
 
 class SmokeFailure(Exception):
@@ -142,9 +168,10 @@ def build_kernels() -> None:
         for line in str(rec["log"]).splitlines():
             if "Compiling entry function" in line:
                 m = re.search(r"(sp(?:mv|mm)(?:_desc)?_(?:whole|panels)"
-                              r"_kernel)I((?:Li\d+E)+)E", line)
+                              r"_kernel)I((?:Li\d+E|[asi])+)E", line)
                 if m:
-                    targs = re.findall(r"Li(\d+)E", m.group(2))
+                    targs = [n or INDEX_TYPE[t] for n, t in re.findall(
+                        r"Li(\d+)E|([asi])", m.group(2))]
                     kernel = f"{m.group(1)}<{','.join(targs)}>"
                 else:
                     kernel = line.split("'")[1]
@@ -160,10 +187,11 @@ def plain_y(plan, x):
     from repro_torch.core import ref_spmv as R
     if plan.lowering == "descriptor":
         if plan.layout == "panels":
-            return R.spmv_panels_desc(plan.dev, x, pr=plan.pr,
-                                      nrows=plan.nrows,
-                                      ncols_pad=plan.ncols_pad)
-        return R.spmv_desc(plan.dev, x, nrows=plan.nrows)
+            fn = R.spmv_panels_desc if x.dim() == 1 else R.spmm_panels_desc
+            return fn(plan.dev, x, pr=plan.pr, nrows=plan.nrows,
+                      ncols_pad=plan.ncols_pad)
+        fn = R.spmv_desc if x.dim() == 1 else R.spmm_desc
+        return fn(plan.dev, x, nrows=plan.nrows)
     if plan.layout == "panels":
         fn = R.spmv_panels if x.dim() == 1 else R.spmm_panels
         return fn(plan.dev, x, r=plan.r, c=plan.c, pr=plan.pr,
@@ -185,9 +213,9 @@ SMALL_GEOM = {"whole_vector": dict(cb=16),
 
 
 def small_check(device) -> None:
-    """All eleven kernels against their plain versions, every block shape,
-    several chunks and panels (302x260, cb=16, pr=xw=64); the SpMM kernels
-    at nvec 3, 16 and 128; the descriptor kernels also on the
+    """All fourteen kernels against their plain versions, every block
+    shape, several chunks and panels (302x260, cb=16, pr=xw=64); the SpMM
+    kernels at nvec 3, 16 and 128; the descriptor kernels also on the
     :data:`WIDE_TALL` matrices, whose whole-vector xcol / yrow tables are
     int32."""
     import torch
@@ -218,23 +246,29 @@ def small_check(device) -> None:
                     p, v, double_buffer=db))
                 for name, (layout, lowering, db, _) in KERNELS.items()
                 if lowering == "descriptor" or not wide_tall]
-        for nvec in () if wide_tall else (3, 16, 128):
+        for nvec in (3, 16, 128):
             xm = torch.from_numpy(rng.standard_normal(
                 (m, nvec)).astype(np.float32)).to(device)
-            runs += [(f"{name} nvec={nvec}", (layout, "mask"), xm,
+            spmm = [(name, (layout, "descriptor"), db)
+                    for name, (layout, db, _) in DESC_SPMM_KERNELS.items()]
+            if not wide_tall:
+                spmm += [(name, (layout, "mask"), db)
+                         for name, (layout, db, _) in SPMM_KERNELS.items()]
+            runs += [(f"{name} nvec={nvec}", key, xm,
                       lambda p, v, db=db: ops.spmm(p, v, double_buffer=db))
-                     for name, (layout, db, _) in SPMM_KERNELS.items()]
+                     for name, key, db in spmm]
         for name, key, v, run in runs:
             err = rel_err(run(plans[key], v), plain_y(plans[key], v))
             worst = max(worst, err)
             if not err <= TOL:
                 raise SmokeFailure(f"small check: {name} {rc} {n}x{m} rel "
                                    f"err {err}")
-    print(f"small check: {len(KERNELS) + len(SPMM_KERNELS)} kernels x "
-          f"{len(F.SUPPORTED_BLOCKS)} block shapes (SpMM at nvec 3, 16, 128) "
-          f"and the 4 descriptor kernels on the {' and '.join(WIDE_TALL)} "
-          f"matrices (int32 xcol / yrow) agree with the plain versions "
-          f"(worst {worst:.3g} of max|y|)")
+    nkernels = len(KERNELS) + len(SPMM_KERNELS) + len(DESC_SPMM_KERNELS)
+    print(f"small check: {nkernels} kernels x {len(F.SUPPORTED_BLOCKS)} "
+          f"block shapes (SpMM at nvec 3, 16, 128) and the 7 descriptor "
+          f"kernels on the {' and '.join(WIDE_TALL)} matrices (int32 xcol / "
+          f"yrow) agree with the plain versions (worst {worst:.3g} of "
+          f"max|y|)")
 
 
 def make_matrix(dim=MATRIX["dim"]):
@@ -368,18 +402,45 @@ def cuda_time_ms(fn, device, reps=REPS):
     return float(np.median(times))
 
 
-def bound(plan, nnz, nvec=1):
-    """The least time for one SpMV (nvec = 1) or SpMM: every input array of
-    this run read once (the plan's arrays as built, padding included, and
-    X) and Y written once, over the HBM rate; 2 flops per nonzero and
-    column over the f32 rate. Returns (ms, "bytes" | "operations",
-    bytes)."""
-    nbytes = (sum(a.numel() * a.element_size() for a in plan.arrays)
+def needed_bytes(plan, whole_plan=False):
+    """The bytes of the plan that the product must read: every array as
+    built, padding included, except that a descriptor plan's ``xcol`` and
+    ``yrow`` tables repeat each block's c columns over its r rows and its r
+    rows over its c columns, so the product needs only c ``xcol`` and r
+    ``yrow`` entries per block (``valid`` and ``vidx`` per lane).
+    ``whole_plan`` counts every byte of the plan instead."""
+    total = sum(a.numel() * a.element_size() for a in plan.arrays)
+    if plan.lowering == "descriptor" and not whole_plan:
+        rc = plan.r * plan.c
+        for table, kept in (("desc_xcol", plan.c), ("desc_yrow", plan.r)):
+            t = getattr(plan, table)
+            total -= t.numel() * t.element_size() // rc * (rc - kept)
+    return total
+
+
+def bound(plan, nnz, nvec=1, whole_plan=False):
+    """The least time for one SpMV (nvec = 1) or SpMM: the plan bytes the
+    product needs (:func:`needed_bytes`) and X read once and Y written
+    once, over the HBM rate; 2 flops per nonzero and column over the f32
+    rate. Returns (ms, "bytes" | "operations", bytes)."""
+    nbytes = (needed_bytes(plan, whole_plan)
               + 4 * nvec * (plan.ncols + plan.nrows))
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = 2 * nnz * nvec / F32_FLOP_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def desc_bounds(plan, mask_plan, nnz, nvec=1):
+    """A descriptor kernel's two other bounds, printed and kept beside its
+    own: the mask plan's for the same product, and one that reads every
+    byte of the descriptor plan as built (the repeated ``xcol`` / ``yrow``
+    entries too)."""
+    out = {"mask_bound_ms": bound(mask_plan, nnz, nvec)[0],
+           "plan_bound_ms": bound(plan, nnz, nvec, whole_plan=True)[0]}
+    print(f"    mask plan's bound {out['mask_bound_ms']:.4f} ms, bound on "
+          f"the whole descriptor plan's bytes {out['plan_bound_ms']:.4f} ms")
+    return out
 
 
 def sparse_csr(csr, device):
@@ -397,10 +458,12 @@ def sparse_csr(csr, device):
 def kernel_call(name, plan, x):
     """A call of kernel ``name``'s wrapper on the plan's arrays and x."""
     from repro_torch.kernels import spc5_spmm as KM
+    from repro_torch.kernels import spc5_spmm_desc as KDM
     from repro_torch.kernels import spc5_spmv as K
     from repro_torch.kernels import spc5_spmv_desc as KD
-    fn = getattr(KM if name.startswith("spmm") else
-                 KD if "desc" in name else K, name)
+    module = ({True: KDM, False: KM} if name.startswith("spmm")
+              else {True: KD, False: K})["desc" in name]
+    fn = getattr(module, name)
     args = ((plan.chunk_vbase, plan.chunk_xbase) if plan.layout == "panels"
             else (plan.chunk_vbase,))
     if plan.lowering == "descriptor":
@@ -432,18 +495,17 @@ def measure(plans, x, csr, launches, errs, timer=cuda_time_ms):
         print(f"  timing {name}")
         ms = timer(kernel_call(name, plan, x), device)
         bound_ms, bound_by, nbytes = bound(plan, csr.nnz)
-        mask_bound_ms = bound(plans[layout, "mask"], csr.nnz)[0]
         print(f"time {name}: {ms:.4f} ms, plain "
               f"{plain_ms[layout, lowering]:.4f} ms, cuSPARSE CSR "
               f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} "
-              f"bytes), mask plan's bound {mask_bound_ms:.4f} ms")
+              f"bytes)")
         row = {"name": name, "route": "cuda", "source": SOURCE[lowering],
                "replaces": replaces, "launches": launches[name],
                "max_abs_err": errs[name], "ms": ms,
                "plain_ms": plain_ms[layout, lowering], "bound_ms": bound_ms,
                "bound_by": bound_by, "library_ms": library_ms}
         if lowering == "descriptor":
-            row["mask_bound_ms"] = mask_bound_ms
+            row.update(desc_bounds(plan, plans[layout, "mask"], csr.nnz))
         rows.append(row)
     return rows
 
@@ -456,8 +518,8 @@ def make_vocab():
     """The vocab weight as serve.py's vocab bench draws it (float64 normal
     from ``default_rng(0)``, cast to float32), and its CSR and beta(4,8)
     matrix pruned and converted as ``SparseLinear.from_dense`` does it: the
-    CSR feeds the f64 product and cuSPARSE, the matrix the whole-vector
-    layer."""
+    CSR feeds the f64 product and cuSPARSE, the matrix the mask layers and
+    the token plan."""
     from repro_torch.core import formats as F
     from repro_torch.core.sparse_linear import prune_by_magnitude
     t0 = time.perf_counter()
@@ -476,132 +538,200 @@ def make_vocab():
     return w, csr, mat
 
 
+def print_spmm_plan(name, plan) -> None:
+    """Geometry and each SpMM kernel's column tile, CTAs and dynamic shared
+    memory per CTA at every batch (for a descriptor plan also whether vidx
+    is staged, and the tables' dtypes and bytes)."""
+    from repro_torch.kernels import spc5_spmm as KM
+    from repro_torch.kernels import spc5_spmm_desc as KDM
+    g = {k: getattr(plan, k) for k in ("cb", "vmax", "pr", "xw", "npanels",
+                                       "nchunks", "desc_lane_nbytes")
+         if k in dict(plan.meta)}
+    panels = plan.layout == "panels"
+    units = plan.npanels if panels else int(plan.chunk_vbase.shape[0])
+    for nvec in SPMM_NVECS:
+        for stages in ((1, 2) if panels else (1,)):
+            staged = None
+            if plan.lowering == "descriptor":
+                tw, staged, nbytes = KDM.smem_plan(
+                    stages, plan.cb, plan.r, plan.c, plan.vmax,
+                    plan.desc_vidx.element_size(), nvec,
+                    pr=plan.pr if panels else 0)
+            elif panels:
+                def smem(t, s=stages, p=plan):
+                    return KM.panels_smem_bytes(s, p.cb, p.vmax, p.pr, t)
+                tw = KM.column_tile(nvec, smem)
+                nbytes = smem(tw)
+            else:
+                tw = KM.column_tile(nvec)
+                nbytes = KM.whole_smem_bytes(plan.cb, plan.vmax)
+            g[f"nvec{nvec}_s{stages}"] = dict(
+                tile=tw, ctas=units * -(-nvec // tw), smem_bytes=nbytes,
+                **({} if staged is None else {"vidx_staged": staged}))
+    if plan.lowering == "descriptor":
+        tables = [getattr(plan, f"desc_{t}")
+                  for t in ("valid", "vidx", "xcol", "yrow")]
+        g["tables"] = "/".join(str(t.dtype).replace("torch.", "")
+                               for t in tables)
+        g["table_bytes"] = sum(t.numel() * t.element_size() for t in tables)
+    g["plan_bytes"] = sum(a.numel() * a.element_size() for a in plan.arrays)
+    print(f"  plan {name}: {g}, build {plan.trace[-1]['duration_s']:.1f} s")
+
+
 def build_layers(w, mat, device):
-    """The layers of the path: ``SparseLinear.from_dense`` with the layout
-    left to "auto" at nvec=128 (panels), and a whole-vector layer on the
-    same converted matrix."""
+    """The layers of the path. ``SparseLinear.from_dense(w, density=0.1,
+    nvec=128)`` with every other argument at its default, the reference's
+    default layer: its layout pass must pick panels (from nvec) and the
+    descriptor lowering (by the cost model). Beside it, two mask layers on
+    the same converted matrix through ``ops.prepare(lowering="mask")``: the
+    auto layout (panels) and whole-vector."""
     from repro_torch.core.sparse_linear import SparseLinear
     from repro_torch.kernels import ops
-    from repro_torch.kernels import spc5_spmm as KM
     t0 = time.perf_counter()
-    auto = SparseLinear.from_dense(w, density=VOCAB["density"],
-                                   block=VOCAB["block"], nvec=VOCAB["nvec"],
-                                   device=device)
+    default = SparseLinear.from_dense(w, density=VOCAB["density"],
+                                      nvec=VOCAB["nvec"])
     t1 = time.perf_counter()
+    panels = SparseLinear(ops.prepare(mat, lowering="mask",
+                                      nvec=VOCAB["nvec"], device=device))
     whole = SparseLinear(ops.prepare(mat, layout="whole_vector",
-                                     nvec=VOCAB["nvec"], device=device))
+                                     lowering="mask", nvec=VOCAB["nvec"],
+                                     device=device))
     t2 = time.perf_counter()
     print(f"layers: from_dense {t1 - t0:.1f} s (prune, convert, plan), "
-          f"whole-vector plan {t2 - t1:.1f} s")
-    layout_pass = next(e for e in auto.plan.trace if e["pass"] == "layout")
-    if auto.plan.layout != "panels":
-        raise SmokeFailure(f"from_dense(nvec={VOCAB['nvec']}) chose "
-                           f"{auto.plan.layout!r}, not panels: {layout_pass}")
-    print(f"  auto layout: {layout_pass['layout']} ({layout_pass['reason']})")
-    for layer in (auto, whole):
-        plan = layer.plan
-        g = {k: getattr(plan, k) for k in ("cb", "vmax", "pr", "xw",
-                                           "npanels", "nchunks")
-             if k in dict(plan.meta)}
-        units = (plan.npanels if plan.layout == "panels"
-                 else int(plan.chunk_vbase.shape[0]))
-        for nvec in SPMM_NVECS:
-            # each SpMM kernel's column tile, CTAs and shared memory per CTA
-            for stages in ((1, 2) if plan.layout == "panels" else (1,)):
-                if plan.layout == "panels":
-                    def smem(t, s=stages, p=plan):
-                        return KM.panels_smem_bytes(s, p.cb, p.vmax, p.pr, t)
-                    tw = KM.column_tile(nvec, smem)
-                    nbytes = smem(tw)
-                else:
-                    tw = KM.column_tile(nvec)
-                    nbytes = KM.whole_smem_bytes(plan.cb, plan.vmax)
-                g[f"nvec{nvec}_s{stages}"] = dict(
-                    tile=tw, ctas=units * -(-nvec // tw), smem_bytes=nbytes)
-        print(f"  plan {plan.layout}: {g}, build "
-              f"{plan.trace[-1]['duration_s']:.1f} s")
-    return {"panels": auto, "whole_vector": whole}
+          f"the two mask plans {t2 - t1:.1f} s")
+    print(f"  default layer's trace: {json.dumps(default.plan.trace)}")
+    entry = next(e for e in default.plan.trace if e["pass"] == "layout")
+    got = (default.plan.layout, default.plan.lowering, entry["reason"],
+           entry.get("lowering_reason"), (default.plan.r, default.plan.c))
+    if got != ("panels", "descriptor", "vmem-fit", "cost-model",
+               VOCAB["block"]):
+        raise SmokeFailure(f"from_dense at its defaults built {got}, not "
+                           f"panels + descriptor in beta{VOCAB['block']}")
+    if panels.plan.layout != "panels":
+        raise SmokeFailure(f"the mask layer's auto layout is "
+                           f"{panels.plan.layout!r}, not panels")
+    print(f"  default layer: {entry['layout']} ({entry['reason']}) + "
+          f"{entry['lowering']} ({entry['lowering_reason']})")
+    layers = {("panels", "descriptor"): default, ("panels", "mask"): panels,
+              ("whole_vector", "mask"): whole}
+    for (layout, lowering), layer in layers.items():
+        print_spmm_plan(f"{layout} {lowering}", layer.plan)
+    return layers
+
+
+def layer_key(name):
+    """The layer (layout, lowering) SpMM kernel ``name`` runs on."""
+    lowering = "descriptor" if name in DESC_SPMM_KERNELS else "mask"
+    table = DESC_SPMM_KERNELS if lowering == "descriptor" else SPMM_KERNELS
+    return table[name][0], lowering
+
+
+VOCAB_SPMM = ("spmm_cuda_panels_desc_db", "spmm_cuda_panels_desc",
+              "spmm_cuda_panels_db", "spmm_cuda_panels", "spmm_cuda")
+BATCH1 = {"spmv_cuda_panels_desc_db": ("panels", "descriptor"),
+          "spmv_cuda_panels_db": ("panels", "mask")}
+
+
+def reset_all_launches():
+    from repro_torch.kernels import (spc5_spmm, spc5_spmm_desc, spc5_spmv,
+                                     spc5_spmv_desc)
+    mods = (spc5_spmv, spc5_spmv_desc, spc5_spmm, spc5_spmm_desc)
+    for mod in mods:
+        mod.reset_launches()
+    return lambda: {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
 
 
 def drive_vocab(layers, acts, device):
-    """The SparseLinear path, through the entry points a user calls: both
-    layers on every batch, ``ops.spmm(..., double_buffer=False)`` on the
-    auto layer's plan, and one batch-1 call. Returns each kernel's Y
-    (rows, nvec) per batch, the batch-1 y and this run's launch counts."""
+    """The SparseLinear path, through the entry points a user calls: every
+    layer's forward on every batch, ``ops.spmm(..., double_buffer=False)``
+    on both panel layers, and a batch-1 forward of both panel layers.
+    Returns each kernel's Y (rows, nvec) per batch, the batch-1 ys and this
+    run's launch counts."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels import spc5_spmm as KM
-    from repro_torch.kernels import spc5_spmv as K
-    K.reset_launches()
-    KM.reset_launches()
-    auto, whole = layers["panels"], layers["whole_vector"]
+    counts = reset_all_launches()
+    default = layers["panels", "descriptor"]
+    panels, whole = layers["panels", "mask"], layers["whole_vector", "mask"]
     ys = {}
     for nvec, a in acts.items():
-        ys["spmm_cuda_panels_db", nvec] = auto(a).t()
-        ys["spmm_cuda", nvec] = whole(a).t()
+        ys["spmm_cuda_panels_desc_db", nvec] = default(a).t()
+        ys["spmm_cuda_panels_desc", nvec] = ops.spmm(
+            default.plan, a.t().contiguous(), double_buffer=False)
+        ys["spmm_cuda_panels_db", nvec] = panels(a).t()
         ys["spmm_cuda_panels", nvec] = ops.spmm(
-            auto.plan, a.t().contiguous(), double_buffer=False)
-    y1 = auto(acts[SPMM_NVECS[0]][0])
+            panels.plan, a.t().contiguous(), double_buffer=False)
+        ys["spmm_cuda", nvec] = whole(a).t()
+    x1 = acts[SPMM_NVECS[0]][0]
+    y1 = {name: layers[key](x1) for name, key in BATCH1.items()}
     if device.type == "cuda":
         torch.cuda.synchronize()
-    return ys, y1, {**K.LAUNCHES, **KM.LAUNCHES}
+    return ys, y1, counts()
+
+
+def check_spmm(name, y, plan, x, y64, path):
+    """Y is finite, of the right shape and within tolerance of the plain
+    version and of the f64 product. Returns max|Y - plain|."""
+    import torch
+    nvec = x.shape[1]
+    if (tuple(y.shape) != (plan.nrows, nvec)
+            or not bool(torch.isfinite(y).all())):
+        raise SmokeFailure(f"{name}: bad output {tuple(y.shape)}")
+    plain = plain_y(plan, x)
+    abs_err = float((y - plain).abs().max())
+    e_plain, e64 = rel_err(y, plain), rel_err(y, torch.from_numpy(y64))
+    del plain
+    print(f"check {name} nvec={nvec} ({path}): max|Y - plain| = "
+          f"{abs_err:.3g} ({e_plain:.3g} of max|Y|), vs f64 scipy "
+          f"{e64:.3g} of max|Y|")
+    if not (e_plain <= TOL and e64 <= TOL):
+        raise SmokeFailure(f"{name} nvec={nvec} disagrees: {e_plain} / "
+                           f"{e64} > {TOL}")
+    return abs_err
+
+
+def f64_matrix(csr):
+    import scipy.sparse
+    return scipy.sparse.csr_matrix((csr.values.astype(np.float64),
+                                    csr.colidx, csr.rowptr), shape=csr.shape)
 
 
 def check_vocab(layers, ys, y1, launches, acts, csr):
-    """Every SpMM kernel and the batch-1 SpMV kernel launched; each output
-    is finite, of the right shape and within tolerance of its plain version
-    and of the f64 product."""
-    import scipy.sparse
-    import torch
-    for name in (*SPMM_KERNELS, "spmv_cuda_panels_db"):
+    """Every SpMM kernel of the path and both batch-1 SpMV kernels
+    launched; each output is checked by :func:`check_spmm` (batch 1 by
+    :func:`check_y`)."""
+    for name in (*VOCAB_SPMM, *BATCH1):
         if launches.get(name, 0) <= 0:
             raise SmokeFailure(f"{name} was not launched on the SparseLinear "
                                f"path (counts {launches})")
-    a64 = scipy.sparse.csr_matrix((csr.values.astype(np.float64), csr.colidx,
-                                   csr.rowptr), shape=csr.shape)
+    a64 = f64_matrix(csr)
     errs = {}
     for nvec, act in acts.items():
         x = act.t().contiguous()
         y64 = a64 @ x.cpu().double().numpy()
-        for name, (layout, _, _) in SPMM_KERNELS.items():
-            y, plan = ys[name, nvec], layers[layout].plan
-            if (tuple(y.shape) != (plan.nrows, nvec)
-                    or not bool(torch.isfinite(y).all())):
-                raise SmokeFailure(f"{name}: bad output {tuple(y.shape)}")
-            plain = plain_y(plan, x)
-            abs_err = float((y - plain).abs().max())
-            e_plain, e64 = rel_err(y, plain), rel_err(y, torch.from_numpy(y64))
-            del plain
-            print(f"check {name} nvec={nvec}: max|Y - plain| = "
-                  f"{abs_err:.3g} ({e_plain:.3g} of max|Y|), vs f64 scipy "
-                  f"{e64:.3g} of max|Y|")
-            if not (e_plain <= TOL and e64 <= TOL):
-                raise SmokeFailure(f"{name} nvec={nvec} disagrees: {e_plain} "
-                                   f"/ {e64} > {TOL}")
-            errs[name] = max(errs.get(name, 0.0), abs_err)
+        for name in VOCAB_SPMM:
+            err = check_spmm(name, ys[name, nvec], layers[layer_key(name)].plan,
+                             x, y64, "SparseLinear path")
+            errs[name] = max(errs.get(name, 0.0), err)
     x1 = acts[SPMM_NVECS[0]][0]
-    plan = layers["panels"].plan
-    e_plain = rel_err(y1, plain_y(plan, x1))
-    e64 = rel_err(y1, torch.from_numpy(a64 @ x1.cpu().double().numpy()))
-    print(f"check batch-1 SparseLinear (spmv_cuda_panels_db): {e_plain:.3g} "
-          f"/ {e64:.3g} of max|y| against plain / f64")
-    if tuple(y1.shape) != (plan.nrows,) or not (e_plain <= TOL
-                                                 and e64 <= TOL):
-        raise SmokeFailure(f"batch-1 layer call disagrees: {e_plain} / {e64}")
+    y64 = a64 @ x1.cpu().double().numpy()
+    for name, key in BATCH1.items():
+        errs[name] = check_y(name, y1[name], layers[key].plan, x1, y64,
+                             launches, "SparseLinear path, batch 1")
     return errs
 
 
-def measure_vocab(layers, acts, csr, launches, errs, timer=cuda_time_ms):
-    """Each SpMM kernel, its plain version and cuSPARSE SpMM at every batch;
-    the JSON row carries nvec=128 in its main keys and nvec=16 beside."""
+def measure_vocab(layers, acts, csr, timer=cuda_time_ms):
+    """cuSPARSE SpMM, each layer's plain version and each SpMM kernel at
+    every batch. Returns {(name, nvec): numbers} and cuSPARSE's ms per
+    batch."""
     import torch
     device = next(iter(acts.values())).device
     csr_t = sparse_csr(csr, device)
-    per = {}
+    per, library = {}, {}
     for nvec, act in acts.items():
         x = act.t().contiguous()
         print(f"  nvec={nvec}: timing cuSPARSE SpMM (sparse_csr_tensor @ X)")
-        library_ms = timer(lambda: csr_t @ x, device)
+        library[nvec] = timer(lambda: csr_t @ x, device)
         if nvec == max(acts):
             dense = csr_t.to_dense()
             print(f"  nvec={nvec}: timing dense torch.matmul of the pruned "
@@ -610,25 +740,41 @@ def measure_vocab(layers, acts, csr, launches, errs, timer=cuda_time_ms):
             print(f"context: dense f32 matmul {dense_ms:.4f} ms")
             del dense
         plain_ms = {}
-        for layout, layer in layers.items():
-            print(f"  nvec={nvec}: timing the plain version, {layout}")
-            plain_ms[layout] = timer(lambda p=layer.plan: plain_y(p, x),
-                                     device)
-        for name, (layout, _, _) in SPMM_KERNELS.items():
-            plan = layers[layout].plan
+        for key, layer in layers.items():
+            print(f"  nvec={nvec}: timing the plain version, {key}")
+            plain_ms[key] = timer(lambda p=layer.plan: plain_y(p, x), device)
+        for name in VOCAB_SPMM:
+            key = layer_key(name)
+            plan = layers[key].plan
             print(f"  nvec={nvec}: timing {name}")
             ms = timer(kernel_call(name, plan, x), device)
             bound_ms, bound_by, nbytes = bound(plan, csr.nnz, nvec)
             print(f"time {name} nvec={nvec}: {ms:.4f} ms, plain "
-                  f"{plain_ms[layout]:.4f} ms, cuSPARSE SpMM "
-                  f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+                  f"{plain_ms[key]:.4f} ms, cuSPARSE SpMM "
+                  f"{library[nvec]:.4f} ms, bound {bound_ms:.4f} ms by "
                   f"{bound_by} ({nbytes} bytes)")
-            per[name, nvec] = {"ms": ms, "plain_ms": plain_ms[layout],
+            per[name, nvec] = {"ms": ms, "plain_ms": plain_ms[key],
                                "bound_ms": bound_ms, "bound_by": bound_by,
-                               "library_ms": library_ms}
+                               "library_ms": library[nvec]}
+            if key[1] == "descriptor":
+                per[name, nvec].update(desc_bounds(
+                    plan, layers[key[0], "mask"].plan, csr.nnz, nvec))
+    for name in VOCAB_SPMM:
+        if name in MASK_TWIN:
+            for nvec in acts:
+                per[name, nvec]["mask_ms"] = per[MASK_TWIN[name], nvec]["ms"]
+    return per, library
+
+
+def spmm_rows(names, per, launches, errs):
+    """One JSON row per SpMM kernel: nvec=128 in the main keys, nvec=16
+    beside."""
     rows = []
-    for name, (_, _, replaces) in SPMM_KERNELS.items():
-        rows.append({"name": name, "route": "cuda", "source": SPMM_SOURCE,
+    for name in names:
+        desc = name in DESC_SPMM_KERNELS
+        replaces = (DESC_SPMM_KERNELS if desc else SPMM_KERNELS)[name][-1]
+        rows.append({"name": name, "route": "cuda",
+                     "source": DESC_SPMM_SOURCE if desc else SPMM_SOURCE,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": errs[name],
                      **per[name, VOCAB["nvec"]], "nvec": VOCAB["nvec"],
@@ -638,16 +784,17 @@ def measure_vocab(layers, acts, csr, launches, errs, timer=cuda_time_ms):
 
 
 # ----------------------------------------------------------------------------
-# One decode token through the vocab weight: batch 1, descriptor lowering
+# The whole-vector descriptor plan: one decode token through the vocab
+# weight (SpMV), and the same plan's SpMM
 # ----------------------------------------------------------------------------
 
 TOKEN_KERNELS = ("spmv_cuda_desc_db", "spmv_cuda_desc")
 
 
 def build_token_plan(mat, device):
-    """``ops.prepare(mat, lowering="auto")`` at nvec=1, as a batch-1 caller
-    builds it: the layout pass must pick whole-vector and the descriptor
-    lowering (the reference's choice). The host time of
+    """``ops.prepare(mat)`` at nvec=1 with the lowering left at its default,
+    as a batch-1 caller builds it: the layout pass must pick whole-vector
+    and the descriptor lowering (the reference's choice). The host time of
     ``formats.chunk_descriptors`` inside the build is taken by wrapping it
     for this one call."""
     from repro_torch.core import formats as F
@@ -664,7 +811,7 @@ def build_token_plan(mat, device):
     F.chunk_descriptors = timed
     try:
         t0 = time.perf_counter()
-        plan = ops.prepare(mat, lowering="auto", device=device)
+        plan = ops.prepare(mat, device=device)
         total = time.perf_counter() - t0
     finally:
         F.chunk_descriptors = expand
@@ -677,27 +824,34 @@ def build_token_plan(mat, device):
         raise SmokeFailure(f"the batch-1 plan is {plan.layout} / "
                            f"{plan.lowering}: {entry}")
     print_plan("vocab whole_vector descriptor", plan)
+    print_spmm_plan("vocab whole_vector descriptor", plan)
     return plan
 
 
-def drive_token(plan, x1, device):
-    """``ops.spmv`` with both buffer settings; launch counts of this run."""
+def drive_token(plan, x1, acts, device):
+    """``ops.spmv`` with both buffer settings and ``ops.spmm`` at every
+    batch on the whole-vector descriptor plan; launch counts of this run."""
     import torch
     from repro_torch.kernels import ops
-    from repro_torch.kernels import spc5_spmv_desc as KD
-    KD.reset_launches()
+    counts = reset_all_launches()
     ys = {name: ops.spmv(plan, x1, double_buffer=name.endswith("_db"))
           for name in TOKEN_KERNELS}
+    for nvec, a in acts.items():
+        ys["spmm_cuda_desc", nvec] = ops.spmm(plan, a.t().contiguous())
     if device.type == "cuda":
         torch.cuda.synchronize()
-    return ys, dict(KD.LAUNCHES)
+    return ys, counts()
 
 
-def measure_token(plan, mask_plan, x1, csr, launches, errs,
-                  timer=cuda_time_ms):
-    """Each whole-vector descriptor kernel at batch 1, its plain version,
-    cuSPARSE ``torch.mv`` and, for context, the mask kernel with the same
-    buffering on the mask plan of the same weight."""
+def measure_token(plan, mask_plan, x1, acts, csr, launches, errs, vper,
+                  library, timer=cuda_time_ms):
+    """Each whole-vector descriptor SpMV kernel at batch 1, its plain
+    version, cuSPARSE ``torch.mv`` and, for context, the mask kernel with
+    the same buffering on the mask plan of the same weight; then
+    ``spmm_cuda_desc`` at every batch beside its plain version (cuSPARSE
+    SpMM and ``spmm_cuda`` on the mask plan come from
+    :func:`measure_vocab`). Returns the SpMV numbers and adds
+    ``spmm_cuda_desc``'s to ``vper``."""
     import torch
     device = x1.device
     csr_t = sparse_csr(csr, device)
@@ -705,7 +859,6 @@ def measure_token(plan, mask_plan, x1, csr, launches, errs,
     library_ms = timer(lambda: torch.mv(csr_t, x1), device)
     print("  token: timing the plain version")
     plain_ms = timer(lambda: plain_y(plan, x1), device)
-    mask_bound_ms = bound(mask_plan, csr.nnz)[0]
     per = {}
     for name in TOKEN_KERNELS:
         print(f"  token: timing {name}")
@@ -716,12 +869,32 @@ def measure_token(plan, mask_plan, x1, csr, launches, errs,
         bound_ms, bound_by, nbytes = bound(plan, csr.nnz)
         print(f"time {name} (token): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"cuSPARSE CSR {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"by {bound_by} ({nbytes} bytes), mask plan's bound "
-              f"{mask_bound_ms:.4f} ms, {mask_name} {mask_ms:.4f} ms")
+              f"by {bound_by} ({nbytes} bytes), {mask_name} "
+              f"{mask_ms:.4f} ms")
         per[name] = {"launches": launches[name], "max_abs_err": errs[name],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms,
-                     "mask_bound_ms": mask_bound_ms, "mask_ms": mask_ms}
+                     **desc_bounds(plan, mask_plan, csr.nnz),
+                     "mask_ms": mask_ms}
+    name = "spmm_cuda_desc"
+    for nvec, act in acts.items():
+        x = act.t().contiguous()
+        print(f"  nvec={nvec}: timing the plain version, whole_vector "
+              f"descriptor")
+        spmm_plain_ms = timer(lambda: plain_y(plan, x), device)
+        print(f"  nvec={nvec}: timing {name}")
+        ms = timer(kernel_call(name, plan, x), device)
+        bound_ms, bound_by, nbytes = bound(plan, csr.nnz, nvec)
+        mask_ms = vper["spmm_cuda", nvec]["ms"]
+        print(f"time {name} nvec={nvec}: {ms:.4f} ms, plain "
+              f"{spmm_plain_ms:.4f} ms, cuSPARSE SpMM {library[nvec]:.4f} "
+              f"ms, bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes), "
+              f"spmm_cuda {mask_ms:.4f} ms")
+        vper[name, nvec] = {"ms": ms, "plain_ms": spmm_plain_ms,
+                            "bound_ms": bound_ms, "bound_by": bound_by,
+                            "library_ms": library[nvec],
+                            **desc_bounds(plan, mask_plan, csr.nnz, nvec),
+                            "mask_ms": mask_ms}
     return per
 
 
@@ -744,10 +917,7 @@ def main() -> int:
         csr, mat = make_matrix()
         x_host = np.random.default_rng(0).standard_normal(
             mat.ncols).astype(np.float32)
-        import scipy.sparse
-        y64 = scipy.sparse.csr_matrix(
-            (csr.values, csr.colidx, csr.rowptr), shape=csr.shape
-        ) @ x_host.astype(np.float64)
+        y64 = f64_matrix(csr) @ x_host.astype(np.float64)
         x = torch.from_numpy(x_host).to(device)
         check_auto_lowering(mat, device)
         plans, ys, launches = drive(mat, x, device)
@@ -765,24 +935,35 @@ def main() -> int:
         vys, y1, vlaunches = drive_vocab(layers, acts, device)
         print(f"launches on the SparseLinear path: {vlaunches}")
         verrs = check_vocab(layers, vys, y1, vlaunches, acts, vcsr)
-        del vys
-        rows += measure_vocab(layers, acts, vcsr, vlaunches, verrs)
+        del vys, y1
+        vper, library = measure_vocab(layers, acts, vcsr)
         tplan = build_token_plan(vmat, device)
         del vmat
         x1 = acts[SPMM_NVECS[0]][0].contiguous()
-        tys, tlaunches = drive_token(tplan, x1, device)
-        print(f"launches on the token path: {tlaunches}")
-        y64 = scipy.sparse.csr_matrix(
-            (vcsr.values.astype(np.float64), vcsr.colidx, vcsr.rowptr),
-            shape=vcsr.shape) @ x1.cpu().double().numpy()
+        tys, tlaunches = drive_token(tplan, x1, acts, device)
+        print(f"launches on the whole-vector descriptor path: {tlaunches}")
+        a64 = f64_matrix(vcsr)
+        y64 = a64 @ x1.cpu().double().numpy()
         terrs = {name: check_y(name, tys[name], tplan, x1, y64, tlaunches,
                                "token path") for name in TOKEN_KERNELS}
+        if tlaunches["spmm_cuda_desc"] <= 0:
+            raise SmokeFailure(f"spmm_cuda_desc was not launched on the "
+                               f"whole-vector descriptor path ({tlaunches})")
+        for nvec, act in acts.items():
+            x = act.t().contiguous()
+            err = check_spmm("spmm_cuda_desc", tys["spmm_cuda_desc", nvec],
+                             tplan, x, a64 @ x.cpu().double().numpy(),
+                             "whole-vector descriptor path")
+            terrs["spmm_cuda_desc"] = max(terrs.get("spmm_cuda_desc", 0.0),
+                                          err)
         del tys
-        token = measure_token(tplan, layers["whole_vector"].plan, x1, vcsr,
-                              tlaunches, terrs)
+        token = measure_token(tplan, layers["whole_vector", "mask"].plan, x1,
+                              acts, vcsr, tlaunches, terrs, vper, library)
         for row in rows:
             if row["name"] in token:
                 row["vocab_batch1"] = token[row["name"]]
+        rows += spmm_rows(VOCAB_SPMM, vper, vlaunches, verrs)
+        rows += spmm_rows(("spmm_cuda_desc",), vper, tlaunches, terrs)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

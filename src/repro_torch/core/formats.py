@@ -164,64 +164,95 @@ def csr_from_coo(shape: Tuple[int, int], rows: np.ndarray, cols: np.ndarray,
     return CSRMatrix(shape, rowptr, cols.astype(np.int32), vals)
 
 
+def _interval_keys(csr: CSRMatrix, r: int, c: int):
+    """Each nonzero's row, column and (r-row interval, column) as one int64
+    key = interval * span + column, and ``span``: a column plus c stays
+    below the next interval's first key."""
+    rowptr = np.asarray(csr.rowptr, dtype=np.int64)
+    rows = np.repeat(np.arange(csr.shape[0], dtype=np.int64),
+                     np.diff(rowptr))
+    cols = np.asarray(csr.colidx[:rowptr[-1]], dtype=np.int64)
+    span = csr.shape[1] + c
+    return rows, cols, (rows // r) * span + cols, span
+
+
+def _sorted_unique(keys: np.ndarray, return_inverse: bool = False):
+    """``np.unique`` of int64 keys by an explicit sort (or stable argsort
+    when the inverse is wanted) and a neighbour comparison: numpy 2.3's
+    ``np.unique`` took about 50 s for 26 M keys where the sort takes about
+    one, on the host of an H100 machine (PERF.md)."""
+    order = np.argsort(keys, kind="stable") if return_inverse else None
+    sk = keys[order] if return_inverse else np.sort(keys)
+    first = np.ones(sk.shape[0], dtype=bool)
+    np.not_equal(sk[1:], sk[:-1], out=first[1:])
+    if not return_inverse:
+        return sk[first]
+    inv = np.empty(keys.shape[0], dtype=np.int64)
+    inv[order] = np.cumsum(first) - 1
+    return sk[first], inv
+
+
+def _greedy_opens(ukeys: np.ndarray, c: int, span: int) -> np.ndarray:
+    """Over the sorted unique keys, True where the greedy cover opens a
+    block: in each interval a block opens at the leftmost uncovered column
+    and spans c columns. The keys are unique and increasing, so the next
+    block opens at most c keys later: c - 1 streaming comparisons find it
+    (a binary search per key misses the cache on every step at this size).
+    Every interval then walks its cover at once, one numpy step per block of
+    the longest cover, not one Python step per block of the matrix."""
+    n = ukeys.shape[0]
+    nxt = np.arange(1, n + 1)
+    for k in range(1, min(c, n)):
+        nxt[:n - k] += ukeys[k:] < ukeys[:n - k] + c
+    pos = np.flatnonzero(np.diff(ukeys // span, prepend=-1))  # first keys
+    end = np.append(pos[1:], n)
+    opens = np.zeros(n, dtype=bool)
+    while pos.shape[0]:
+        opens[pos] = True
+        pos = nxt[pos]
+        inside = pos < end
+        pos, end = pos[inside], end[inside]
+    return opens
+
+
 def csr_to_spc5(csr: CSRMatrix, r: int, c: int) -> SPC5Matrix:
     """Convert CSR to beta(r, c).
 
     Greedy left-to-right block construction per r-row interval, exactly the
     coverage the paper's figures show: a block opens at the leftmost uncovered
-    nonzero column of the interval and spans c columns.
+    nonzero column of the interval and spans c columns. All intervals are
+    converted at once (:func:`_greedy_opens`); the bytes are those of the
+    reference's interval-by-interval loop.
     """
     if r * c > 32:
         raise ValueError(f"mask must fit uint32, got r*c={r*c}")
     nrows, ncols = csr.shape
     n_intervals = -(-nrows // r)
-
+    rows, cols, keys, span = _interval_keys(csr, r, c)
+    vals = csr.values[:rows.shape[0]]
+    ukeys, inv = _sorted_unique(keys, return_inverse=True)
+    opens = _greedy_opens(ukeys, c, span)
+    starts = ukeys[opens]                      # block keys, in block order
+    bidx = (np.cumsum(opens) - 1)[inv]         # each nonzero's block
+    start_col = starts % span
+    lrows = rows % r
+    bit = (lrows * c + (cols - start_col[bidx])).astype(np.uint32)
+    # values in block order, row-major inside block == sort by
+    # (block, local_row, col) == by (block, bit), r*c <= 32
+    order = np.argsort(bidx * 32 + bit, kind="stable")
+    nblocks = starts.shape[0]
+    # every block holds a nonzero, so no segment of the reduction is empty
+    counts = np.bincount(bidx, minlength=nblocks)
+    masks = (np.bitwise_or.reduceat(np.uint32(1) << bit[order],
+                                    np.cumsum(counts) - counts)
+             .astype(np.uint32) if nblocks else np.zeros(0, np.uint32))
     rowptr = np.zeros(n_intervals + 1, dtype=np.int64)
-    all_colidx, all_masks, all_values = [], [], []
-
-    for it in range(n_intervals):
-        row0, row1 = it * r, min((it + 1) * r, nrows)
-        lo, hi = int(csr.rowptr[row0]), int(csr.rowptr[row1])
-        if lo == hi:
-            rowptr[it + 1] = rowptr[it]
-            continue
-        cols = csr.colidx[lo:hi].astype(np.int64)
-        vals = csr.values[lo:hi]
-        # local row of each nnz within the interval
-        lrows = np.repeat(
-            np.arange(row0, row1) - row0,
-            np.diff(csr.rowptr[row0:row1 + 1]).astype(np.int64),
-        )
-        # Greedy block starts over the sorted unique columns -- one loop
-        # iteration per BLOCK (not per nnz).
-        ucols = np.unique(cols)
-        starts = []
-        i = 0
-        while i < ucols.shape[0]:
-            s = ucols[i]
-            starts.append(s)
-            i = int(np.searchsorted(ucols, s + c, side="left"))
-        starts = np.asarray(starts, dtype=np.int64)
-        # Assign each nnz to its block.
-        bidx = np.searchsorted(starts, cols, side="right") - 1
-        bit = lrows * c + (cols - starts[bidx])
-        # values in block order, row-major inside block == sort by
-        # (block, local_row, col)
-        order = np.lexsort((cols, lrows, bidx))
-        masks = np.zeros(starts.shape[0], dtype=np.uint32)
-        np.bitwise_or.at(masks, bidx, (np.uint32(1) << bit.astype(np.uint32)))
-        all_colidx.append(starts.astype(np.int32))
-        all_masks.append(masks)
-        all_values.append(vals[order])
-        rowptr[it + 1] = rowptr[it] + starts.shape[0]
-
-    colidx = (np.concatenate(all_colidx) if all_colidx else np.zeros(0, np.int32))
-    masks = (np.concatenate(all_masks) if all_masks else np.zeros(0, np.uint32))
-    values = (np.concatenate(all_values) if all_values else np.zeros(0, csr.values.dtype))
-    voffset = (exclusive_prefix_popcount(masks) if masks.shape[0]
+    rowptr[1:] = np.cumsum(np.bincount(starts // span,
+                                       minlength=n_intervals))
+    voffset = (exclusive_prefix_popcount(masks) if nblocks
                else np.zeros(0, np.int64))
-    return SPC5Matrix((nrows, ncols), r, c, rowptr, colidx.astype(np.int32),
-                      masks, voffset.astype(np.int64), values)
+    return SPC5Matrix((nrows, ncols), r, c, rowptr, start_col.astype(np.int32),
+                      masks, voffset.astype(np.int64), vals[order])
 
 
 def beta_breakeven_avg(r: int, c: int, s_int: int = 4) -> float:
@@ -232,21 +263,12 @@ def beta_breakeven_avg(r: int, c: int, s_int: int = 4) -> float:
 def block_stats(csr: CSRMatrix, r: int, c: int) -> Tuple[int, float]:
     """(N_blocks(r,c), Avg(r,c)) without materializing the format's values.
 
-    This is the cheap statistic the paper's selector uses *before* conversion.
+    This is the cheap statistic the paper's selector uses *before* conversion:
+    the blocks of :func:`csr_to_spc5`'s greedy cover, counted.
     """
-    nrows = csr.shape[0]
-    n_intervals = -(-nrows // r)
-    nblocks = 0
-    for it in range(n_intervals):
-        row0, row1 = it * r, min((it + 1) * r, nrows)
-        lo, hi = int(csr.rowptr[row0]), int(csr.rowptr[row1])
-        if lo == hi:
-            continue
-        ucols = np.unique(csr.colidx[lo:hi].astype(np.int64))
-        i = 0
-        while i < ucols.shape[0]:
-            i = int(np.searchsorted(ucols, ucols[i] + c, side="left"))
-            nblocks += 1
+    _, _, keys, span = _interval_keys(csr, r, c)
+    nblocks = int(np.count_nonzero(_greedy_opens(_sorted_unique(keys), c,
+                                                 span)))
     return nblocks, csr.nnz / max(nblocks, 1)
 
 

@@ -19,8 +19,7 @@ slices ported so far:
   * **Executors** (:func:`execute_spmv`, :func:`execute_spmm`): the only
     place that dispatches on the layout key.
 
-Not ported yet (each raises ``NotImplementedError``): SpMM on a
-descriptor plan (ROADMAP queue 2, items 12-14), bf16/int8 values,
+Not ported yet (each raises ``NotImplementedError``): bf16/int8 values,
 reordering, the ``test`` layout and the record-store tuner (ROADMAP
 queue 1).
 """
@@ -35,7 +34,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import spc5_spmm, spc5_spmv, spc5_spmv_desc
+from repro_torch.kernels import (spc5_spmm, spc5_spmm_desc, spc5_spmv,
+                                 spc5_spmv_desc)
 
 from . import formats as F
 from . import ref_spmv as R
@@ -60,12 +60,6 @@ Device = R.Device
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP queue 1, {item})")
-
-
-def _desc_spmm_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "SpMM on a descriptor plan is not ported to repro_torch yet (ROADMAP "
-        "queue 2, items 12-14: the descriptor SpMM kernels)")
 
 
 def canonical_lowering(name: str) -> str:
@@ -256,7 +250,7 @@ class PlanState:
     mat: F.SPC5Matrix
     device: torch.device
     layout: str = "auto"
-    lowering: str = LOWERING_MASK
+    lowering: str = "auto"
     pr: Optional[int] = None
     xw: Optional[int] = None
     cb: Optional[int] = None
@@ -339,7 +333,7 @@ def _build_pass(st: PlanState) -> SPC5Plan:
 
 
 def make_plan(mat: F.SPC5Matrix, *, device: Device, layout: str = "auto",
-              lowering: str = LOWERING_MASK, pr: Optional[int] = None,
+              lowering: str = "auto", pr: Optional[int] = None,
               xw: Optional[int] = None, cb: Optional[int] = None,
               nvec: int = 1, align: int = 8, dtype=None,
               vdtype: str = "auto", tune: bool = True) -> SPC5Plan:
@@ -470,9 +464,13 @@ def _lower_spmv_whole(plan: SPC5Plan, x, *, double_buffer):
 
 
 def _lower_spmm_whole(plan: SPC5Plan, x, *, nvt, double_buffer):
+    # the reference has one whole-vector SpMM kernel per lowering: no
+    # double buffer
     if plan.lowering == LOWERING_DESC:
-        raise _desc_spmm_not_ported()
-    # the reference has one whole-vector SpMM kernel: no double buffer
+        return spc5_spmm_desc.spmm_cuda_desc(
+            plan.chunk_vbase, plan.desc_valid, plan.desc_vidx, plan.desc_xcol,
+            plan.desc_yrow, plan.values, x, r=plan.r, c=plan.c, cb=plan.cb,
+            vmax=plan.vmax, nrows=plan.nrows, ncols=plan.ncols, nvt=nvt)
     return spc5_spmm.spmm_cuda(
         plan.chunk_vbase, plan.chunk_col, plan.chunk_mask, plan.chunk_voff,
         plan.chunk_row, plan.values, x, r=plan.r, c=plan.c, cb=plan.cb,
@@ -537,7 +535,13 @@ def _lower_spmv_panels(plan: SPC5Plan, x, *, double_buffer):
 
 def _lower_spmm_panels(plan: SPC5Plan, x, *, nvt, double_buffer):
     if plan.lowering == LOWERING_DESC:
-        raise _desc_spmm_not_ported()
+        fn = (spc5_spmm_desc.spmm_cuda_panels_desc_db if double_buffer
+              else spc5_spmm_desc.spmm_cuda_panels_desc)
+        return fn(plan.chunk_vbase, plan.chunk_xbase, plan.desc_valid,
+                  plan.desc_vidx, plan.desc_xcol, plan.desc_yrow,
+                  plan.values, x, r=plan.r, c=plan.c, cb=plan.cb,
+                  vmax=plan.vmax, xw=plan.xw, pr=plan.pr, nrows=plan.nrows,
+                  ncols_pad=plan.ncols_pad, nvt=nvt)
     fn = (spc5_spmm.spmm_cuda_panels_db if double_buffer
           else spc5_spmm.spmm_cuda_panels)
     return fn(plan.chunk_vbase, plan.chunk_xbase, plan.chunk_col,

@@ -3,7 +3,8 @@
 These are the port's plain versions of the kernels: composed torch ops,
 device-agnostic, mirroring the reference's jnp oracle
 (``repro.core.ref_spmv.spmv`` / ``spmv_panels`` / ``spmm`` /
-``spmm_panels`` / ``spmv_desc`` / ``spmv_panels_desc``) for f32 values.
+``spmm_panels`` / ``spmv_desc`` / ``spmv_panels_desc`` / ``spmm_desc`` /
+``spmm_panels_desc``) for f32 values.
 The CPU tests run them in place of the CUDA kernels, and ``chip_smoke.py``
 holds every kernel against them on the card. The mask decode is
 
@@ -12,7 +13,8 @@ holds every kernel against them on the card. The mask decode is
 
 so only the packed values are read, as in the paper. The descriptor
 lowering reads that expansion from build-time tables instead
-(:func:`spmv_desc`, :func:`spmv_panels_desc`).
+(:func:`spmv_desc`, :func:`spmv_panels_desc`, :func:`spmm_desc`,
+:func:`spmm_panels_desc`).
 
 Masks are ``uint32`` in the host formats and bit 31 is used (r*c = 32 for
 4x8 and 8x4). torch has no right shift for ``UInt32`` on the CPU, so the
@@ -21,6 +23,7 @@ arithmetic shift ``(m >> k) & 1`` is still bit k.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Union
 
 import numpy as np
@@ -144,8 +147,15 @@ def _spmm_set_lanes(vals, bits, xcol, yrow, x: torch.Tensor,
     index is clamped and X needs no padding; the columns of X go through in
     slices of at most ``_SLICE_ELEMS`` products."""
     keep = bits.bool()
-    vals = vals[keep]
-    xcol, yrow = xcol[keep].long(), yrow[keep].long()
+    return _spmm_scatter(vals[keep], xcol[keep].long(), yrow[keep].long(),
+                         x, nrows)
+
+
+def _spmm_scatter(vals, xcol, yrow, x: torch.Tensor,
+                  nrows: int) -> torch.Tensor:
+    """Y[yrow] += vals * X[xcol] over a flat list of lanes (int64 indices
+    inside X and Y), the columns of X in slices of at most
+    ``_SLICE_ELEMS`` products."""
     nvec = x.shape[1]
     y = torch.zeros(nrows, nvec, dtype=vals.dtype, device=vals.device)
     step = max(1, _SLICE_ELEMS // max(1, vals.shape[0]))
@@ -279,3 +289,47 @@ def spmv_panels_desc(dev: SPC5PanelDescDevice, x: torch.Tensor, cmap=None,
     y = torch.zeros(npanels * pr, dtype=contrib.dtype, device=contrib.device)
     y.index_add_(0, yrow.reshape(-1), contrib.reshape(-1))
     return y[:nrows]
+
+
+def _desc_set_lanes(dev):
+    """The valid lanes of a descriptor view as flat int64 indices: each
+    lane's unit (chunk, or panel * nchunks + chunk), its value and its
+    table entries. A valid lane names a value in
+    its window and a row and column inside the matrix, so nothing is
+    clamped."""
+    lanes = torch.nonzero(dev.desc_valid.reshape(-1)).squeeze(1)
+    unit = lanes // max(1, math.prod(dev.desc_valid.shape[-2:]))
+    vals = dev.values[dev.chunk_vbase.reshape(-1)[unit].long()
+                      + dev.desc_vidx.reshape(-1)[lanes].long()]
+    xcol = dev.desc_xcol.reshape(-1)[lanes].long()
+    yrow = dev.desc_yrow.reshape(-1)[lanes].long()
+    return unit, vals, xcol, yrow
+
+
+def spmm_desc(dev: SPC5DescDevice, x: torch.Tensor, value_scale=None, *,
+              nrows: int) -> torch.Tensor:
+    """Y = A @ X through the whole-vector descriptors; X (ncols, nvec).
+
+    Only the valid lanes are multiplied (the reference multiplies every
+    lane, unset ones by 0: about 27 G products for a 64,000 x 4,096 layer
+    in beta(4,8) at nvec = 128, which do not fit the card)."""
+    _desc_unsupported(None, value_scale)
+    _, vals, xcol, yrow = _desc_set_lanes(dev)
+    return _spmm_scatter(vals, xcol, yrow, x, nrows)
+
+
+def spmm_panels_desc(dev: SPC5PanelDescDevice, x: torch.Tensor, cmap=None,
+                     value_scale=None, *, pr: int, nrows: int,
+                     ncols_pad: int) -> torch.Tensor:
+    """Y = A @ X through the panel descriptors; X (ncols, nvec).
+
+    The reference pads X with zero rows up to ``ncols_pad``; a lane whose
+    column is at or past X's rows is dropped here instead, which adds the
+    same nothing without a copy of X."""
+    _desc_unsupported(cmap, value_scale)
+    nchunks = dev.chunk_vbase.shape[1]
+    unit, vals, xcol, yrow = _desc_set_lanes(dev)
+    xcol = xcol + dev.chunk_xbase.reshape(-1)[unit].long()
+    yrow = yrow + (unit // nchunks) * pr
+    inside = xcol < x.shape[0]
+    return _spmm_scatter(vals[inside], xcol[inside], yrow[inside], x, nrows)

@@ -88,7 +88,7 @@ class SparseLinear(nn.Module):
                    vdtype: str = "auto", layout: str = "auto",
                    pr: Optional[int] = None, xw: Optional[int] = None,
                    nvec: int = 128, tune: bool = True, reorder=None,
-                   lowering: str = "mask", verify=False, *,
+                   lowering: str = "auto", verify=False, *,
                    device: Optional[P.Device] = None) -> "SparseLinear":
         """Prune ``w`` (d_out, d_in) to ``density``, convert it to
         beta(``block``) (default: :func:`choose_block`) and build its plan
@@ -96,16 +96,12 @@ class SparseLinear(nn.Module):
 
         ``nvec`` is the widest activation batch the layer will see; it feeds
         the "auto" layout's budget exactly as in the reference (default 128,
-        one full SpMM tile). ``lowering`` must be "mask": a descriptor plan
-        cannot run SpMM until its kernels are ported. Another ``lowering``,
-        a ``store``, ``reorder``, a truthy ``verify`` and bf16/int8 values
-        raise ``NotImplementedError`` naming their ROADMAP item."""
+        one full SpMM tile). ``lowering`` ("mask" | "descriptor" | "auto",
+        the default) picks the kernel variant exactly as on
+        :func:`repro_torch.kernels.ops.prepare`. A ``store``, ``reorder``, a
+        truthy ``verify`` and bf16/int8 values raise
+        ``NotImplementedError`` naming their ROADMAP item."""
         _no_store(store)
-        if lowering != "mask":
-            raise NotImplementedError(
-                f"lowering={lowering!r}: a layer needs SpMM, and the "
-                f"descriptor SpMM kernels are not ported to repro_torch yet "
-                f"(ROADMAP queue 2, items 12-14)")
         if reorder is not None:
             raise NotImplementedError(
                 "reordering is not ported to repro_torch yet (ROADMAP queue "

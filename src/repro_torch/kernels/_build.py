@@ -55,6 +55,11 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         **{f"spc5_spmm_panels_s{s}": [_P] * 9 + [_I] * 11 + [_P]
            for s in (1, 2)},
     },
+    "spc5_spmm_desc": {
+        "spc5_spmm_desc_whole": [_P] * 8 + [_I] * 13 + [_P],
+        **{f"spc5_spmm_desc_panels_s{s}": [_P] * 9 + [_I] * 16 + [_P]
+           for s in (1, 2)},
+    },
 }
 
 _lock = threading.Lock()

@@ -68,28 +68,6 @@ __device__ __forceinline__ void stage_chunk(float* vwin, int* meta, const float*
   stage_words<kAsync>(meta + 3 * cb, row + slot0, cb);
 }
 
-// This thread's place in the work split: its group's run [b0, b1) of the
-// chunk's cb blocks and its column j (clamped into [0, nvec) as jc, so an
-// idle lane of the last tile reads valid memory; it adds nothing).
-struct Lanes {
-  int b0, b1, lane, jc;
-  bool live;
-};
-
-__device__ __forceinline__ Lanes lanes_of(int tw, int tile, int nvec, int cb) {
-  Lanes t;
-  const int g = threadIdx.x / tw;
-  t.lane = threadIdx.x - g * tw;
-  const int ngroups = blockDim.x / tw;
-  const int seg = (cb + ngroups - 1) / ngroups;
-  t.b0 = min(cb, g * seg);
-  t.b1 = min(cb, t.b0 + seg);
-  const int j = tile * tw + t.lane;
-  t.live = j < nvec;
-  t.jc = t.live ? j : nvec - 1;
-  return t;
-}
-
 template <int R>
 __device__ __forceinline__ void flush_rows(float* out, int ldo, int row, const float (&acc)[R],
                                            uint32_t touched, bool live) {

@@ -44,13 +44,6 @@
 
 namespace {
 
-// Entry i of an index table stored as int8, int16 or int32 (width 1, 2, 4).
-__device__ __forceinline__ int load_index(const void* table, size_t i, int width) {
-  if (width == 1) return __ldg(static_cast<const signed char*>(table) + i);
-  if (width == 2) return __ldg(static_cast<const short*>(table) + i);
-  return __ldg(static_cast<const int*>(table) + i);
-}
-
 // Sum v over each run of consecutive warp lanes that share key and hand the
 // run's total to add(key, total) once, from the run's first lane. Every lane
 // of the warp calls it; a lane outside the chunk passes key -1 and v 0. A

@@ -31,7 +31,7 @@ def resolve_device(device: Optional[P.Device]) -> torch.device:
 
 
 def prepare(mat: F.SPC5Matrix, *, layout: str = "auto",
-            lowering: str = "mask", config=None, pr: Optional[int] = None,
+            lowering: str = "auto", config=None, pr: Optional[int] = None,
             xw: Optional[int] = None, cb: Optional[int] = None,
             nvec: int = 1, align: int = 8, dtype=None, vdtype: str = "auto",
             tune: bool = True,
@@ -44,13 +44,14 @@ def prepare(mat: F.SPC5Matrix, *, layout: str = "auto",
     ``cb`` to 256 (whole-vector) or 64 (panels). ``config`` takes a
     ``PanelConfig``-like object (``layout``, ``pr``, ``xw``, ``cb``,
     ``lowering``, ``vdtype`` attributes) whole, filling every
-    axis the caller left at its default, as the reference does. Pass
+    axis the caller left at its default, as the reference does (so an
+    explicit ``lowering`` wins over the config's). Pass
     ``nvec``, the widest SpMM batch the plan will see, so that "auto"
     budgets the SpMM tiles and not only the SpMV vectors.
 
-    ``lowering`` is "mask" (the default here until the descriptor SpMM
-    kernels are ported), "descriptor" (build-time gather tables; SpMV only
-    so far) or "auto", the reference's cost model (``plan.lowering_cost``).
+    ``lowering`` is "mask", "descriptor" (build-time gather tables) or
+    "auto" (the default, as in the reference): its cost model
+    (``plan.lowering_cost``).
     Only f32 values are ported; bf16/int8, reordering and the ``test``
     layout raise ``NotImplementedError``."""
     if config is not None:
@@ -59,7 +60,8 @@ def prepare(mat: F.SPC5Matrix, *, layout: str = "auto",
         pr = pr if pr is not None else (getattr(config, "pr", 0) or None)
         xw = xw if xw is not None else (getattr(config, "xw", 0) or None)
         cb = cb if cb is not None else (getattr(config, "cb", 0) or None)
-        lowering = getattr(config, "lowering", "") or lowering
+        if lowering == "auto":
+            lowering = getattr(config, "lowering", "") or lowering
         if getattr(config, "reorder", ""):
             raise NotImplementedError(
                 "reordering is not ported to repro_torch yet (ROADMAP queue "

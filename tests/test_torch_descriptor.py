@@ -21,6 +21,7 @@ from repro.core import formats as JF
 from repro.core import matgen as JM
 from repro.core import plan as JP
 from repro.core import selector as JS
+from repro.core import sparse_linear as JL
 from repro.kernels import ops as jops
 from repro_torch.core import formats as TF
 from repro_torch.core import matgen as TM
@@ -251,19 +252,46 @@ def test_unknown_lowering_is_a_value_error():
 
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_spmm_on_a_descriptor_plan_raises(layout):
-    _, tmat = _fem_pair((2, 4))
+    """SpMM on a descriptor plan runs (the descriptor SpMM kernels are
+    ported) and raises only where the reference raises: an nvec that is
+    not a multiple of min(nvt, nvec), and, in the port, an X on another
+    device than the plan."""
+    jmat, tmat = _fem_pair((2, 4))
     plan = tops.prepare(tmat, layout=layout, lowering="descriptor",
                         tune=False, device="cpu", **GEOM[layout])
-    with pytest.raises(NotImplementedError, match="queue 2, items 12-14"):
-        tops.spmm(plan, torch.zeros(tmat.ncols, 4))
+    jplan = jops.prepare(jmat, layout=layout, lowering="descriptor",
+                         tune=False, **GEOM[layout])
+    x = np.random.default_rng(2).standard_normal((tmat.ncols, 4)).astype(
+        np.float32)
+    assert_close(tops.spmm(plan, torch.from_numpy(x)),
+                 jops.spmm(jplan, jnp.asarray(x), use_pallas=False))
+    with pytest.raises(ValueError, match="not divisible"):
+        tops.spmm(plan, torch.zeros(tmat.ncols, 6), nvt=4)
+    with pytest.raises(ValueError, match="not divisible"):
+        jops.spmm(jplan, jnp.zeros((tmat.ncols, 6)), use_pallas=True,
+                  interpret=True, nvt=4)
+    with pytest.raises(ValueError, match="device"):
+        tops.spmm(plan, torch.zeros(tmat.ncols, 4, device="meta"))
 
 
 @pytest.mark.parametrize("lowering", ["descriptor", "auto"])
 def test_sparse_linear_descriptor_raises(lowering):
+    """A descriptor (or auto) layer builds and runs, batch 1 and wider, as
+    the reference's does; with bf16 or int8 values it raises, naming the
+    ROADMAP item those wait for."""
     w = np.random.default_rng(0).standard_normal((40, 32)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="queue 2, items 12-14"):
-        SparseLinear.from_dense(w, density=0.5, block=(2, 4),
-                                lowering=lowering, device="cpu")
+    kw = dict(density=0.5, block=(2, 4), lowering=lowering, tune=False)
+    layer = SparseLinear.from_dense(w, device="cpu", **kw)
+    ref = JL.SparseLinear.from_dense(w, **kw)
+    assert layer.plan.lowering == ref.handle.lowering
+    assert_arrays_byte_equal(layer.plan, ref.handle)
+    x = np.random.default_rng(1).standard_normal((3, 32)).astype(np.float32)
+    for xb in (x, x[0]):
+        assert_close(layer(torch.from_numpy(xb)).numpy(),
+                     ref(jnp.asarray(xb), use_pallas=False))
+    for vdtype in ("bf16", "int8"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+            SparseLinear.from_dense(w, device="cpu", vdtype=vdtype, **kw)
 
 
 # ----------------------------------------------------------------------------

@@ -147,3 +147,26 @@ def test_popcount_helpers_match():
     np.testing.assert_array_equal(JF.popcount_u32(m), TF.popcount_u32(m))
     np.testing.assert_array_equal(JF.exclusive_prefix_popcount(m),
                                   TF.exclusive_prefix_popcount(m))
+
+
+@pytest.mark.parametrize("kind", ["random", "fem", "empty", "gaps", "dense"])
+@pytest.mark.parametrize("rc", TF.SUPPORTED_BLOCKS)
+def test_greedy_cover_matches_reference(rc, kind):
+    """The port converts all r-row intervals at once; ``block_stats`` and
+    ``csr_to_spc5`` must give the reference's per-interval loops' counts
+    and bytes: on the random and FEM matrices, an empty one, one with empty
+    row intervals and a short last interval, and a dense one (the longest
+    covers)."""
+    if kind in ("random", "fem"):
+        jcsr, tcsr = _csr_pair(kind)
+    else:
+        d = {"empty": np.zeros((37, 29), np.float32),
+             "gaps": _dense(101, 67, 0.3, seed=4),
+             "dense": _dense(33, 517, 1.0, seed=5)}[kind]
+        if kind == "gaps":
+            d[8:40] = 0.0
+        jcsr, tcsr = JF.csr_from_dense(d), TF.csr_from_dense(d)
+    assert TF.block_stats(tcsr, *rc) == JF.block_stats(jcsr, *rc)
+    tmat = TF.csr_to_spc5(tcsr, *rc)
+    assert_same_bytes(JF.csr_to_spc5(jcsr, *rc), tmat, SPC5_FIELDS)
+    assert TF.block_stats(tcsr, *rc)[0] == tmat.nblocks

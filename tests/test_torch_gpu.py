@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (mask SpMV, SpMM and descriptor SpMV) against
-their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (mask SpMV and SpMM, descriptor SpMV and SpMM)
+against their plain PyTorch versions, on the card.
 
 Every test here needs an NVIDIA GPU with nvcc: it is marked ``gpu`` and
 skips from the ``cuda`` fixture where ``torch.cuda.is_available()`` is
@@ -24,6 +24,7 @@ from repro_torch.core import ref_spmv as R
 from repro_torch.core.sparse_linear import SparseLinear
 from repro_torch.kernels import ops
 from repro_torch.kernels import spc5_spmm as KM
+from repro_torch.kernels import spc5_spmm_desc as KDM
 from repro_torch.kernels import spc5_spmv as K
 from repro_torch.kernels import spc5_spmv_desc as KD
 
@@ -52,7 +53,8 @@ def _matrix(rc, n=300, m=260, density=0.08, seed=0):
 
 def _run(kernel, mat, x, device, **geom):
     layout = "panels" if "panels" in kernel else "whole_vector"
-    plan = ops.prepare(mat, layout=layout, tune=False, device=device, **geom)
+    plan = ops.prepare(mat, layout=layout, lowering="mask", tune=False,
+                       device=device, **geom)
     xt = torch.from_numpy(x).to(device)
     dev = plan.dev
     if layout == "panels":
@@ -125,16 +127,16 @@ def test_cb512_needs_large_shared_memory(cuda, kernel):
 
 def test_oversized_shared_memory_raises(cuda):
     mat = _matrix((4, 8), n=1024, m=1024, density=0.95)
-    plan = ops.prepare(mat, layout="whole_vector", cb=2048, tune=False,
-                       device=cuda)
+    plan = ops.prepare(mat, layout="whole_vector", lowering="mask",
+                       cb=2048, tune=False, device=cuda)
     x = torch.zeros(mat.ncols, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         ops.spmv(plan, x)
 
 
 def test_cuda_plan_rejects_cpu_x(cuda):
-    plan = ops.prepare(_matrix((2, 4)), layout="panels", tune=False,
-                       device=cuda)
+    plan = ops.prepare(_matrix((2, 4)), layout="panels", lowering="mask",
+                       tune=False, device=cuda)
     with pytest.raises(ValueError, match="device"):
         ops.spmv(plan, torch.zeros(plan.ncols))
 
@@ -148,7 +150,8 @@ SPMM_KERNELS = ("spmm_cuda", "spmm_cuda_panels", "spmm_cuda_panels_db")
 
 def _run_spmm(kernel, mat, nvec, device, nvt=128, seed=4, **geom):
     layout = "panels" if "panels" in kernel else "whole_vector"
-    plan = ops.prepare(mat, layout=layout, tune=False, device=device, **geom)
+    plan = ops.prepare(mat, layout=layout, lowering="mask", tune=False,
+                       device=device, **geom)
     xh = np.random.default_rng(seed).standard_normal(
         (mat.ncols, nvec)).astype(np.float32)
     xt = torch.from_numpy(xh).to(device)
@@ -227,15 +230,15 @@ def test_spmm_smoke_geometry(cuda, kernel):
 
 def test_spmm_oversized_shared_memory_raises(cuda):
     mat = _matrix((4, 8), n=1024, m=1024, density=0.95)
-    plan = ops.prepare(mat, layout="whole_vector", cb=2048, tune=False,
-                       device=cuda)
+    plan = ops.prepare(mat, layout="whole_vector", lowering="mask",
+                       cb=2048, tune=False, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         ops.spmm(plan, torch.zeros(mat.ncols, 4, device=cuda))
 
 
 def test_spmm_cuda_plan_rejects_cpu_x(cuda):
-    plan = ops.prepare(_matrix((2, 4)), layout="panels", tune=False,
-                       device=cuda)
+    plan = ops.prepare(_matrix((2, 4)), layout="panels", lowering="mask",
+                       tune=False, device=cuda)
     with pytest.raises(ValueError, match="device"):
         ops.spmm(plan, torch.zeros(plan.ncols, 4))
 
@@ -247,7 +250,8 @@ def test_sparse_linear_on_the_card_matches_the_cpu_layer(cuda, layout):
     rng = np.random.default_rng(9)
     w = rng.standard_normal((300, 200)).astype(np.float32)
     b = rng.standard_normal(300).astype(np.float32)
-    kw = dict(density=0.2, block=(4, 8), bias=b, layout=layout, tune=False)
+    kw = dict(density=0.2, block=(4, 8), bias=b, layout=layout,
+              lowering="mask", tune=False)
     on_card = SparseLinear.from_dense(w, device=cuda, **kw)
     on_cpu = SparseLinear.from_dense(w, device="cpu", **kw)
     assert on_card.plan.layout == layout and on_card.bias.device.type == "cuda"
@@ -385,3 +389,173 @@ def test_desc_table_widths(cuda, kernel, table, width):
     plan = _run_desc(kernel, mat, x, cuda, **geom)
     assert getattr(plan, f"desc_{table}").dtype == getattr(
         torch, f"int{width}")
+
+
+# ----------------------------------------------------------------------------
+# descriptor SpMM
+# ----------------------------------------------------------------------------
+
+DESC_SPMM_KERNELS = ("spmm_cuda_desc", "spmm_cuda_panels_desc",
+                     "spmm_cuda_panels_desc_db")
+
+
+def _run_desc_spmm(kernel, mat, nvec, device, nvt=128, seed=4, xrows=None,
+                   **geom):
+    """One ``ops.spmm`` on a descriptor plan through ``kernel``, held
+    against the plain version; ``xrows`` cuts X short of the matrix's
+    columns (the kernels then add nothing past X, as the reference's zero
+    padding adds nothing)."""
+    layout = "panels" if "panels" in kernel else "whole_vector"
+    plan = ops.prepare(mat, layout=layout, lowering="descriptor", tune=False,
+                       device=device, **geom)
+    xh = np.random.default_rng(seed).standard_normal(
+        (mat.ncols if xrows is None else xrows, nvec)).astype(np.float32)
+    xt = torch.from_numpy(xh).to(device)
+    if layout == "panels":
+        plain = R.spmm_panels_desc(plan.dev, xt, pr=plan.pr,
+                                   nrows=plan.nrows,
+                                   ncols_pad=plan.ncols_pad)
+    else:
+        plain = R.spmm_desc(plan.dev, xt, nrows=plan.nrows)
+    before = KDM.LAUNCHES[kernel]
+    y = ops.spmm(plan, xt, nvt=nvt, double_buffer=kernel.endswith("_db"))
+    torch.cuda.synchronize()
+    assert KDM.LAUNCHES[kernel] == before + 1
+    assert y.device.type == "cuda" and y.shape == (mat.nrows, nvec)
+    assert torch.isfinite(y).all()
+    scale = float(plain.abs().max()) if plain.numel() else 0.0
+    err = float((y - plain).abs().max()) if y.numel() else 0.0
+    assert err <= RTOL * max(scale, 1.0), (err, scale)
+    return plan
+
+
+@pytest.mark.parametrize("nvec", [3, 16, 128])
+@pytest.mark.parametrize("kernel", DESC_SPMM_KERNELS)
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+def test_desc_spmm_kernel_matches_plain(cuda, kernel, rc, nvec):
+    """Several chunks and panels (pr=64, xw=64, cb=16), nrows % r != 0 for
+    r in (4, 8), bit-31 masks, and column tiles of 4 (nvec=3, one idle
+    lane), 16 and 32 (four tiles)."""
+    mat = _matrix(rc, n=302)
+    geom = (dict(pr=64, xw=64, cb=16) if "panels" in kernel
+            else dict(cb=16))
+    _run_desc_spmm(kernel, mat, nvec, cuda, **geom)
+
+
+@pytest.mark.parametrize("kernel", DESC_SPMM_KERNELS)
+def test_desc_spmm_partial_column_tile(cuda, kernel):
+    """nvec = 40 with nvt = 8: two column tiles of 32, the second with 24
+    idle lanes."""
+    _run_desc_spmm(kernel, _matrix((2, 4), n=150, m=90), 40, cuda, nvt=8,
+                   **(dict(pr=32, xw=32, cb=8) if "panels" in kernel
+                      else dict(cb=8)))
+
+
+@pytest.mark.parametrize("kernel", DESC_SPMM_KERNELS)
+@pytest.mark.parametrize("kind", ["empty", "last_row_only", "left_columns"])
+def test_desc_spmm_edge_matrices(cuda, kernel, kind):
+    d = np.zeros((37, 29), np.float32)
+    if kind == "last_row_only":
+        d[36, 28] = 2.0
+    elif kind == "left_columns":
+        d[::3, :9] = np.random.default_rng(6).standard_normal((13, 9))
+    mat = F.csr_to_spc5(F.csr_from_dense(d), 8, 4)
+    geom = (dict(pr=16, xw=16, cb=4) if "panels" in kernel else dict(cb=4))
+    _run_desc_spmm(kernel, mat, 5, cuda, **geom)
+
+
+@pytest.mark.parametrize("kernel", ("spmm_cuda_panels_desc",
+                                    "spmm_cuda_panels_desc_db"))
+def test_desc_spmm_short_x_is_read_in_place(cuda, kernel):
+    """X with fewer rows than the panel layout's ncols_pad: nothing is
+    read past X and nothing is added for the columns it lacks."""
+    mat = _matrix((2, 4), n=130, m=100, density=0.1)
+    plan = _run_desc_spmm(kernel, mat, 8, cuda, xrows=90, pr=64, xw=64,
+                          cb=16)
+    assert plan.ncols_pad > 90
+
+
+@pytest.mark.parametrize("width", [8, 16, 32])
+@pytest.mark.parametrize("table", ["vidx", "xcol", "yrow"])
+@pytest.mark.parametrize("kernel", DESC_SPMM_KERNELS)
+def test_desc_spmm_table_widths(cuda, kernel, table, width):
+    """Each index table at each width it can have, read as built. An int32
+    vidx needs a value window above 32,768 floats (128 KB): it is read
+    through L1 instead of staged, and the double-buffered kernel, which
+    holds two windows, refuses it for want of shared memory."""
+    layout = "panels" if "panels" in kernel else "whole_vector"
+    mat, geom = _width_case(table, width, layout)
+    if width == 32 and table == "vidx" and kernel.endswith("_db"):
+        plan = ops.prepare(mat, layout=layout, lowering="descriptor",
+                           tune=False, device=cuda, **geom)
+        assert plan.desc_vidx.dtype == torch.int32
+        with pytest.raises(ValueError, match="shared memory"):
+            ops.spmm(plan, torch.zeros(mat.ncols, 16, device=cuda))
+        return
+    plan = _run_desc_spmm(kernel, mat, 16, cuda, **geom)
+    assert getattr(plan, f"desc_{table}").dtype == getattr(
+        torch, f"int{width}")
+
+
+def test_desc_spmm_oversized_shared_memory_raises(cuda):
+    """cb=2048 at 4x8 on a dense matrix: a 256 KB value window."""
+    mat = _matrix((4, 8), n=1024, m=1024, density=0.95)
+    plan = ops.prepare(mat, layout="whole_vector", lowering="descriptor",
+                       cb=2048, tune=False, device=cuda)
+    before = dict(KDM.LAUNCHES)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.spmm(plan, torch.zeros(mat.ncols, 4, device=cuda))
+    assert KDM.LAUNCHES == before
+
+
+@pytest.mark.parametrize("kernel", DESC_SPMM_KERNELS)
+def test_desc_spmm_smoke_geometry(cuda, kernel):
+    """The geometry chip_smoke.py uses, on a 2,000 x 4,096 slice of the
+    density-0.1 vocab weight in beta(4,8) at nvec=128: the panel kernels
+    stage vidx beside a (512, 32) Y tile."""
+    w = np.random.default_rng(0).standard_normal((2_000, 4_096), np.float32)
+    w = np.where(np.abs(w) >= np.quantile(np.abs(w), 0.9), w, 0.0)
+    mat = F.csr_to_spc5(F.csr_from_dense(w.astype(np.float32)), 4, 8)
+    geom = (dict(pr=512, xw=512, cb=64) if "panels" in kernel
+            else dict(cb=256))
+    plan = _run_desc_spmm(kernel, mat, 128, cuda, **geom)
+    stages = 2 if kernel.endswith("_db") else 1
+    tw, staged, _ = KDM.smem_plan(
+        stages, plan.cb, plan.r, plan.c, plan.vmax,
+        plan.desc_vidx.element_size(), 128,
+        pr=plan.pr if "panels" in kernel else 0)
+    assert (tw, staged) == (32, True)
+
+
+def test_desc_spmm_cuda_plan_rejects_cpu_x(cuda):
+    plan = ops.prepare(_matrix((2, 4)), layout="panels",
+                       lowering="descriptor", tune=False, device=cuda)
+    with pytest.raises(ValueError, match="device"):
+        ops.spmm(plan, torch.zeros(plan.ncols, 4))
+
+
+def test_default_sparse_linear_on_the_card_matches_the_cpu_layer(cuda):
+    """``from_dense`` at its defaults on a 3000 x 1200 weight: panels +
+    descriptor by the cost model. Batch 1 goes to spmv_cuda_panels_desc_db,
+    wider batches to spmm_cuda_panels_desc_db; the card's layer agrees with
+    the same layer built on the CPU."""
+    rng = np.random.default_rng(10)
+    w = rng.standard_normal((3000, 1200)).astype(np.float32)
+    on_card = SparseLinear.from_dense(w, density=0.05)
+    on_cpu = SparseLinear.from_dense(w, density=0.05, device="cpu")
+    assert (on_card.plan.layout, on_card.plan.lowering) == ("panels",
+                                                            "descriptor")
+    for batch in (1, 4, 16):
+        x = torch.from_numpy(rng.standard_normal((batch, 1200)).astype(
+            np.float32))
+        for mod in (K, KM, KD, KDM):
+            mod.reset_launches()
+        y = on_card(x.to(cuda))
+        torch.cuda.synchronize()
+        runs = {**K.LAUNCHES, **KM.LAUNCHES, **KD.LAUNCHES, **KDM.LAUNCHES}
+        want = ("spmv_cuda_panels_desc_db" if batch == 1
+                else "spmm_cuda_panels_desc_db")
+        assert {k: v for k, v in runs.items() if v} == {want: 1}
+        ref = on_cpu(x)
+        err = float((y.cpu() - ref).abs().max())
+        assert err <= RTOL * float(ref.abs().max()), err

@@ -16,7 +16,7 @@ FORBIDDEN = {"jax", "jaxlib", "ml_dtypes", "repro"}
 FILES = sorted(
     os.path.relpath(os.path.join(d, f), REPO)
     for d, _, fs in os.walk(PORT) for f in fs if f.endswith(".py")
-) + ["chip_smoke.py"]
+) + ["chip_smoke.py", "time_spmm_desc.py"]
 
 
 def _imported_roots(path):
@@ -63,3 +63,30 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, env=env)
     assert res.returncode == 0, res.stderr
+
+
+def _c_params(source, name):
+    """The parameter list of C entry point ``name`` in ``csrc/<source>.cu``:
+    "p" for a pointer, "i" for an int."""
+    import re
+    path = os.path.join(PORT, "kernels", "csrc", f"{source}.cu")
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    m = re.search(r"\bint\s+" + name + r"\s*\(([^)]*)\)\s*\{", text)
+    assert m, f"{name} not defined in {source}.cu"
+    params = [p.strip() for p in m.group(1).split(",")]
+    return ["p" if "*" in p else "i" for p in params]
+
+
+@pytest.mark.parametrize("source", ["spc5_spmv", "spc5_spmv_desc",
+                                    "spc5_spmm", "spc5_spmm_desc"])
+def test_ctypes_signatures_match_the_sources(source):
+    """Each entry point's argtypes in ``_build.SIGNATURES`` have the count
+    and kinds (pointer or int) of its C parameters, so a launch never passes
+    one argument too few or too many."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    for name, argtypes in _build.SIGNATURES[source].items():
+        kinds = ["p" if t is ctypes.c_void_p else "i" for t in argtypes]
+        assert kinds == _c_params(source, name), name

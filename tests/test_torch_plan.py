@@ -162,8 +162,8 @@ def test_prepare_without_device_needs_a_card():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(entry="spmm", lowering="descriptor"),
-    dict(entry="from_dense", lowering="descriptor"),
+    dict(entry="from_dense", vdtype="bf16"),
+    dict(entry="from_dense", lowering="descriptor", vdtype="int8"),
     dict(vdtype="bf16"),
     dict(vdtype="int8"), dict(layout="test"), dict(dtype=np.float64),
     dict(config=JS.PanelConfig(layout="panels", reorder="rcm")),
@@ -172,17 +172,15 @@ def test_prepare_without_device_needs_a_card():
     dict(lowering="descriptor", layout="test"),
 ])
 def test_unported_axes_raise(kw):
-    """``entry`` names the call under test: ``ops.prepare`` (default),
-    ``ops.spmm`` on a plan built with the other keywords, or
-    ``SparseLinear.from_dense`` with them."""
+    """``entry`` names the call under test: ``ops.prepare`` (default) or
+    ``SparseLinear.from_dense`` with the other keywords. kw0 and kw1 reach
+    the bf16 / int8 refusal through ``from_dense`` (at its default lowering
+    and at ``descriptor``), an entry point that kw2 and kw3 do not take."""
     _, tmat = _pair((1, 8))
     kw = dict(kw)
     entry = kw.pop("entry", "prepare")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if entry == "spmm":
-            plan = tops.prepare(tmat, device="cpu", tune=False, **kw)
-            tops.spmm(plan, torch.zeros(tmat.ncols, 4))
-        elif entry == "from_dense":
+        if entry == "from_dense":
             w = np.random.default_rng(0).standard_normal((16, 24))
             SparseLinear.from_dense(w.astype(np.float32), block=(1, 8),
                                     device="cpu", **kw)

@@ -110,8 +110,8 @@ def test_plain_spmm_slices_wide_batches(monkeypatch):
     columns pass its limit; the slices give the same Y."""
     d, x = _inputs((2, 4), 12)
     plan = tops.prepare(TF.csr_to_spc5(TF.csr_from_dense(d), 2, 4),
-                        layout="panels", tune=False, device="cpu",
-                        **GEOM["panels"])
+                        layout="panels", lowering="mask", tune=False,
+                        device="cpu", **GEOM["panels"])
     whole = tops.spmm(plan, torch.from_numpy(x))
     monkeypatch.setattr(TR, "_SLICE_ELEMS", int(np.count_nonzero(d)) * 5)
     assert torch.equal(tops.spmm(plan, torch.from_numpy(x)), whole)
