@@ -10,10 +10,12 @@ phase that goes wrong:
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
    for sm_90a, one nvcc per source, all started together, and prints the
    build time and each kernel's registers (``-Xptxas -v``);
-3. holds all fourteen kernels against their plain PyTorch versions on
+3. holds all fifteen kernels against their plain PyTorch versions on
    small matrices of every supported block shape (SpMM at nvec 3, 16 and
-   128), and the seven descriptor kernels also on a matrix wider and one
-   taller than 32,767 (int32 ``xcol`` / ``yrow`` tables);
+   128), the seven descriptor kernels also on a matrix wider and one
+   taller than 32,767 (int32 ``xcol`` / ``yrow`` tables), and the test
+   split's tail kernel on three bucket geometries (the reference's tail
+   test, nrows % pr != 0, and a window wider than 12,288 columns);
 4. SpMV path: builds ``matgen.fem_blocks(200_000, 4, 12, seed=5)``, the
    SET_A bone010 structure class at 200,000 rows (about 9.5 M nonzeros), in
    beta(4,4), and drives ``ops.prepare`` + ``ops.spmv`` through both
@@ -37,12 +39,22 @@ phase that goes wrong:
    ``double_buffer`` True and False and ``ops.spmm`` at batches of 16 and
    128, printing the tables' bytes and the host time of
    ``chunk_descriptors``;
-6. in each path every launch counter is set to 0 just before and read just
+6. beta(r,c)_test path: the same weight in beta(2,4) (whose singleton
+   blocks hold about 30 % of the nonzeros) as
+   ``SparseLinear.from_dense(w, density=0.1, block=(2, 4), layout="test",
+   nvec=128)``: its multi sub-plan is panels by the 2 MiB rule, lowered by
+   the cost model, and its tail is bucketed by panel; batch 1 runs the
+   multi SpMV kernel + ``spmv_tail_cuda``, batches of 16 and 128 the multi
+   SpMM kernel + the plain ``spmm_coo``. Beside it the flat-tail plan
+   ``ops.prepare(beta(2,4), layout="test")`` at nvec = 1: whole-vector
+   multi, tail through the plain ``spmv_coo``, no tail kernel. Prints the
+   host time of ``split_singletons``;
+7. in each path every launch counter is set to 0 just before and read just
    after, and every kernel of the path must have launched; every output is
    checked against the kernel's plain version on the card and against a
    float64 scipy product on the host, both within ``1e-5 * max|y_ref|``
    (f32 sums in another order);
-7. times each kernel, its plain version and the cuSPARSE call on the same
+8. times each kernel, its plain version and the cuSPARSE call on the same
    inputs (``torch.mv`` / ``@`` on a ``torch.sparse_csr_tensor``; timed
    only, never used by the port) with CUDA events, after warm-up, with L2
    flushed before every launch, and computes each kernel's bound from the
@@ -50,8 +62,11 @@ phase that goes wrong:
    TFLOP/s (for a descriptor kernel, whose ``xcol`` / ``yrow`` tables
    repeat each block's columns and rows, c and r entries per block; beside
    it the bound on the whole plan's bytes, the mask plan's bound for the
-   same product and the mask kernel's time on the mask plan);
-8. prints the ``{"kernels": [...]}`` line, then, last, the
+   same product and the mask kernel's time on the mask plan); the tail
+   kernel beside its bound (its 12-byte slots, padding included, x and y),
+   cuSPARSE on the tail alone and its plain version, and the test layer's
+   forwards beside the default layer's and cuSPARSE on the whole weight;
+9. prints the ``{"kernels": [...]}`` line, then, last, the
    ``{"ok": true, "device": ...}`` line.
 
 It needs the repository beside it (``src/repro_torch``) and a CUDA device;
@@ -138,6 +153,13 @@ MASK_TWIN = {"spmm_cuda_panels_desc_db": "spmm_cuda_panels_db",
 #: Matrices whose whole-vector descriptor xcol (ncols) or yrow (nrows)
 #: bound needs int32 tables.
 WIDE_TALL = {"wide": (300, 40_000), "tall": (40_000, 300)}
+#: The test split's tail kernel.
+TAIL_KERNEL = "spmv_tail_cuda"
+TAIL_SOURCE = "src/repro_torch/kernels/csrc/spc5_spmv_tail.cu"
+TAIL_REPLACES = "src/repro/kernels/spc5_spmv.py:558"
+#: beta(2,4), one of the two shapes the reference's bench runs the paper's
+#: beta_test variants on (benchmarks/bench_spmv_seq.py:207-217).
+TEST_BLOCK = (2, 4)
 
 
 #: Itanium mangling of the kernels' vidx type parameter.
@@ -173,6 +195,8 @@ def build_kernels() -> None:
                     targs = [n or INDEX_TYPE[t] for n, t in re.findall(
                         r"Li(\d+)E|([asi])", m.group(2))]
                     kernel = f"{m.group(1)}<{','.join(targs)}>"
+                elif "spmv_tail_kernel" in line:
+                    kernel = "spmv_tail_kernel"
                 else:
                     kernel = line.split("'")[1]
             elif "Used" in line and kernel:
@@ -181,10 +205,34 @@ def build_kernels() -> None:
         print("  loaded from an earlier build")
 
 
+def tail_y(plan, x):
+    """A test plan's singleton tail times x (1-D) or X (2-D), in plain
+    PyTorch: ``spmv_coo_panels`` (the tail kernel's plain version) for
+    panel buckets, ``spmv_coo`` for a flat tail, ``spmm_coo`` for SpMM."""
+    import torch
+    from repro_torch.core import ref_spmv as R
+    rows, cols, vals = plan.single_rows, plan.single_cols, plan.single_values
+    if x.dim() == 1:
+        if plan.tail_pr:
+            return R.spmv_coo_panels(rows, cols, vals, x, pr=plan.tail_pr,
+                                     nrows=plan.nrows)
+        return R.spmv_coo(rows, cols, vals, x, nrows=plan.nrows)
+    if not plan.tail_pr:
+        return R.spmm_coo(rows, cols, vals, x, nrows=plan.nrows)
+    npanels = rows.shape[0]
+    grows = (torch.arange(npanels, dtype=rows.dtype, device=rows.device)
+             [:, None] * plan.tail_pr + rows)
+    return R.spmm_coo(grows.reshape(-1), cols.reshape(-1), vals.reshape(-1),
+                      x, nrows=npanels * plan.tail_pr)[:plan.nrows]
+
+
 def plain_y(plan, x):
     """The plain version of the plan's kernel: SpMV for a 1-D x, SpMM for a
-    2-D X."""
+    2-D X (for a test plan: its multi sub-plan's plus its tail's)."""
     from repro_torch.core import ref_spmv as R
+    if plan.layout == "test":
+        y = plain_y(plan.multi, x)
+        return y + tail_y(plan, x) if plan.n_single else y
     if plan.lowering == "descriptor":
         if plan.layout == "panels":
             fn = R.spmv_panels_desc if x.dim() == 1 else R.spmm_panels_desc
@@ -263,12 +311,72 @@ def small_check(device) -> None:
             if not err <= TOL:
                 raise SmokeFailure(f"small check: {name} {rc} {n}x{m} rel "
                                    f"err {err}")
-    nkernels = len(KERNELS) + len(SPMM_KERNELS) + len(DESC_SPMM_KERNELS)
-    print(f"small check: {nkernels} kernels x {len(F.SUPPORTED_BLOCKS)} "
-          f"block shapes (SpMM at nvec 3, 16, 128) and the 7 descriptor "
-          f"kernels on the {' and '.join(WIDE_TALL)} matrices (int32 xcol / "
-          f"yrow) agree with the plain versions (worst {worst:.3g} of "
-          f"max|y|)")
+    worst = max(worst, small_check_tail(device))
+    nkernels = (len(KERNELS) + len(SPMM_KERNELS) + len(DESC_SPMM_KERNELS)
+                + 1)
+    print(f"small check: {nkernels} kernels: {nkernels - 1} x "
+          f"{len(F.SUPPORTED_BLOCKS)} block shapes (SpMM at nvec 3, 16, 128), "
+          f"the 7 descriptor kernels on the {' and '.join(WIDE_TALL)} "
+          f"matrices (int32 xcol / yrow), {TAIL_KERNEL} on "
+          f"{len(TAIL_SMALL)} bucket geometries; all agree with the plain "
+          f"versions (worst {worst:.3g} of max|y|)")
+
+
+#: The tail kernel's small geometries: the reference's tail test
+#: (tests/test_plan.py:312-330), nrows % pr != 0, and buckets spanning more
+#: than 12,288 columns (48 KB of f32).
+TAIL_SMALL = {
+    "powerlaw(320)": ("powerlaw", 320, dict(pr=16, xw=32, cb=8)),
+    "powerlaw(330)": ("powerlaw", 330, dict(pr=16, xw=32, cb=8)),
+    "300x40000": ("wide", 300, dict(pr=64, xw=512, cb=16)),
+}
+
+
+def small_check_tail(device) -> float:
+    """``spmv_tail_cuda`` against ``spmv_coo_panels`` on each
+    :data:`TAIL_SMALL` geometry in beta(2,4), and the whole test plan's SpMV
+    against its plain version. Returns the worst error over max|y|."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.core import matgen
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import spc5_spmv_tail as KT
+    worst = 0.0
+    for label, (kind, n, geom) in TAIL_SMALL.items():
+        if kind == "powerlaw":
+            csr = matgen.powerlaw(n, 5, seed=17)
+        else:
+            rng = np.random.default_rng(3)
+            m = WIDE_TALL["wide"][1]
+            csr = F.csr_from_dense(((rng.random((n, m)) < 3e-3)
+                                    * rng.standard_normal((n, m)))
+                                   .astype(np.float32))
+        plan = ops.prepare(F.csr_to_spc5(csr, *TEST_BLOCK), layout="test",
+                           multi_layout="panels", lowering="mask",
+                           tune=False, device=device, **geom)
+        shape = dict(nrows=plan.nrows, pr=plan.tail_pr, xw=plan.tail_xw,
+                     smax=int(plan.single_rows.shape[1]))
+        if ((kind == "wide" and plan.tail_xw <= 12_288)
+                or (n == 330 and n % plan.tail_pr == 0)):
+            raise SmokeFailure(f"small check: tail geometry {label} is "
+                               f"{shape}")
+        x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            plan.ncols).astype(np.float32)).to(device)
+        y = KT.spmv_tail_cuda(plan.tail_xbase, plan.single_rows,
+                              plan.single_cols, plan.single_values, x,
+                              pr=plan.tail_pr, xw=plan.tail_xw,
+                              nrows=plan.nrows,
+                              ncols_pad=plan.tail_ncols_pad)
+        for what, got, want in (("tail", y, tail_y(plan, x)),
+                                ("plan", ops.spmv(plan, x),
+                                 plain_y(plan, x))):
+            err = rel_err(got, want)
+            worst = max(worst, err)
+            if tuple(got.shape) != (plan.nrows,) or not err <= TOL:
+                raise SmokeFailure(f"small check: {TAIL_KERNEL} {what} "
+                                   f"{label} {shape}: rel err {err}")
+        print(f"  {TAIL_KERNEL} {label}: {shape}")
+    return worst
 
 
 def make_matrix(dim=MATRIX["dim"]):
@@ -634,8 +742,9 @@ BATCH1 = {"spmv_cuda_panels_desc_db": ("panels", "descriptor"),
 
 def reset_all_launches():
     from repro_torch.kernels import (spc5_spmm, spc5_spmm_desc, spc5_spmv,
-                                     spc5_spmv_desc)
-    mods = (spc5_spmv, spc5_spmv_desc, spc5_spmm, spc5_spmm_desc)
+                                     spc5_spmv_desc, spc5_spmv_tail)
+    mods = (spc5_spmv, spc5_spmv_desc, spc5_spmm, spc5_spmm_desc,
+            spc5_spmv_tail)
     for mod in mods:
         mod.reset_launches()
     return lambda: {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
@@ -898,6 +1007,268 @@ def measure_token(plan, mask_plan, x1, acts, csr, launches, errs, vper,
     return per
 
 
+# ----------------------------------------------------------------------------
+# beta(r,c)_test path: the vocab weight in beta(2,4), singleton blocks split
+# off into a COO tail
+# ----------------------------------------------------------------------------
+
+def kernel_name(plan, spmm=False, double_buffer=True):
+    """The kernel ``ops.spmv`` (or ``ops.spmm``) launches for a whole-vector
+    or panel plan (the whole-vector layout has one SpMM kernel)."""
+    panels = plan.layout == "panels"
+    return ("spmm_cuda" if spmm else "spmv_cuda") + (
+        "_panels" if panels else "") + (
+        "_desc" if plan.lowering == "descriptor" else "") + (
+        "_db" if double_buffer and (panels or not spmm) else "")
+
+
+def describe_test_plan(name, plan) -> None:
+    """The split's numbers and its multi sub-plan's choices."""
+    entry = next(e for e in plan.multi.trace if e["pass"] == "layout")
+    smax = int(plan.single_rows.shape[1]) if plan.tail_pr else 0
+    tail_bytes = sum(a.numel() * a.element_size() for a in plan.arrays)
+    print(f"{name}: multi {plan.multi.layout} ({entry['reason']}) + "
+          f"{plan.multi.lowering} ({entry.get('lowering_reason')}); "
+          f"n_single {plan.n_single} of {plan.nnz} nnz "
+          f"({100 * plan.n_single / plan.nnz:.1f} %), multi "
+          f"{plan.multi.nblocks} blocks, Avg "
+          f"{(plan.nnz - plan.n_single) / max(plan.multi.nblocks, 1):.3f}; "
+          f"tail_pr {plan.tail_pr}, tail_xw {plan.tail_xw}, smax {smax}, "
+          f"buckets {tuple(plan.single_rows.shape)}, tail {tail_bytes} "
+          f"bytes")
+    print_spmm_plan(f"{name} multi {plan.multi.layout} "
+                    f"{plan.multi.lowering}", plan.multi)
+
+
+def build_test_layer(w, device):
+    """(a) ``SparseLinear.from_dense(w, density=0.1, block=(2, 4),
+    layout="test", nvec=128)``: the multi sub-plan must be panels by the
+    2 MiB rule (its lowering is the cost model's) and the tail bucketed by
+    its panels. The host time of ``formats.split_singletons`` inside the
+    build is taken by wrapping it for this one call."""
+    from repro_torch.core import formats as F
+    from repro_torch.core.sparse_linear import SparseLinear
+    seconds = []
+    split = F.split_singletons
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = split(*args, **kw)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    F.split_singletons = timed
+    try:
+        t0 = time.perf_counter()
+        layer = SparseLinear.from_dense(
+            w, density=VOCAB["density"], block=TEST_BLOCK, layout="test",
+            nvec=VOCAB["nvec"])
+        total = time.perf_counter() - t0
+    finally:
+        F.split_singletons = split
+    plan = layer.plan
+    print(f"test layer (a): from_dense {total:.1f} s (prune, convert, "
+          f"split, plan), of which split_singletons {sum(seconds):.2f} s "
+          f"(host)")
+    describe_test_plan("test layer (a)", plan)
+    entry = next(e for e in plan.multi.trace if e["pass"] == "layout")
+    got = (plan.layout, plan.multi.layout, entry["reason"],
+           entry.get("lowering_reason"), (plan.multi.r, plan.multi.c))
+    if (got != ("test", "panels", "vmem-fit", "cost-model", TEST_BLOCK)
+            or plan.tail_pr != plan.multi.pr or not plan.n_single):
+        raise SmokeFailure(f"the test layer is {got}, tail_pr "
+                           f"{plan.tail_pr}")
+    return layer
+
+
+def build_flat_test_plan(csr, device):
+    """(b) ``ops.prepare(beta(2,4), layout="test")`` at nvec = 1: the multi
+    sub-plan must be whole-vector, so the tail stays flat."""
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    mat = F.csr_to_spc5(csr, *TEST_BLOCK)
+    t1 = time.perf_counter()
+    plan = ops.prepare(mat, layout="test", device=device)
+    t2 = time.perf_counter()
+    print(f"flat-tail plan (b): csr_to_spc5 {t1 - t0:.1f} s, prepare "
+          f"{t2 - t1:.1f} s (host)")
+    describe_test_plan("flat-tail plan (b)", plan)
+    if plan.multi.layout != "whole_vector" or plan.tail_pr:
+        raise SmokeFailure(f"the flat-tail plan's multi is "
+                           f"{plan.multi.layout}, tail_pr {plan.tail_pr}")
+    return plan
+
+
+def drive_test(layer, flat, x1, acts, device):
+    """(a) the test layer's forward at batch 1 and at every SpMM batch;
+    (b) ``ops.spmv`` on the flat-tail plan. Launch counts of each run."""
+    import torch
+    from repro_torch.kernels import ops
+    counts = reset_all_launches()
+    ys = {1: layer(x1)}
+    for nvec, a in acts.items():
+        ys[nvec] = layer(a).t()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches_a = counts()
+    counts = reset_all_launches()
+    y_flat = ops.spmv(flat, x1)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return ys, y_flat, launches_a, counts()
+
+
+def check_test(layer, flat, ys, y_flat, launches_a, launches_b, x1, acts,
+               csr):
+    """(a) launched the tail kernel and the multi SpMV and SpMM kernels,
+    (b) the multi SpMV kernel and no tail kernel; every output within
+    tolerance of the plain path on the card and of the f64 product."""
+    plan = layer.plan
+    for name in (TAIL_KERNEL, kernel_name(plan.multi),
+                 kernel_name(plan.multi, spmm=True)):
+        if launches_a.get(name, 0) <= 0:
+            raise SmokeFailure(f"{name} was not launched on the test path "
+                               f"(counts {launches_a})")
+    flat_name = kernel_name(flat.multi)
+    if launches_b.get(TAIL_KERNEL, 0) != 0 or launches_b.get(flat_name,
+                                                             0) <= 0:
+        raise SmokeFailure(f"the flat-tail plan's launches are "
+                           f"{launches_b}")
+    a64 = f64_matrix(csr)
+    y64 = a64 @ x1.cpu().double().numpy()
+    check_y(TAIL_KERNEL, ys[1], plan, x1, y64, launches_a,
+            f"test path (a), batch 1, with {kernel_name(plan.multi)}")
+    for nvec, act in acts.items():
+        x = act.t().contiguous()
+        check_spmm(f"{kernel_name(plan.multi, spmm=True)} + spmm_coo",
+                   ys[nvec], plan, x, a64 @ x.cpu().double().numpy(),
+                   "test path (a)")
+    check_y(flat_name, y_flat, flat, x1, y64, launches_b,
+            "test path (b), with spmv_coo")
+
+
+def tail_parts(plan):
+    """The tail kernel's arguments, and the tail as a host scipy CSR in
+    float64 (the padding slots dropped: a singleton's value is never 0)."""
+    import scipy.sparse
+    args = (plan.tail_xbase, plan.single_rows, plan.single_cols,
+            plan.single_values)
+    kw = dict(pr=plan.tail_pr, xw=plan.tail_xw, nrows=plan.nrows,
+              ncols_pad=plan.tail_ncols_pad)
+    rows = plan.single_rows.cpu().numpy().astype(np.int64)
+    rows += np.arange(rows.shape[0], dtype=np.int64)[:, None] * plan.tail_pr
+    vals = plan.single_values.cpu().numpy()
+    keep = vals != 0
+    tail = scipy.sparse.csr_matrix(
+        (vals[keep].astype(np.float64),
+         (rows[keep], plan.single_cols.cpu().numpy()[keep])),
+        shape=(plan.nrows, plan.ncols))
+    if tail.nnz != plan.n_single:
+        raise SmokeFailure(f"the tail holds {tail.nnz} nonzeros, the plan "
+                           f"says {plan.n_single}")
+    return args, kw, tail
+
+
+def check_tail(plan, x1):
+    """The tail kernel alone against its plain version on the card and the
+    f64 product of the tail. Returns max|y - plain| and the tail's CSR."""
+    import torch
+    from repro_torch.kernels import spc5_spmv_tail as KT
+    args, kw, tail = tail_parts(plan)
+    y = KT.spmv_tail_cuda(*args, x1, **kw)
+    plain = tail_y(plan, x1)
+    abs_err = float((y - plain).abs().max())
+    y64 = tail @ x1.cpu().double().numpy()
+    e_plain, e64 = rel_err(y, plain), rel_err(y, torch.from_numpy(y64))
+    print(f"check {TAIL_KERNEL} alone: max|y - plain| = {abs_err:.3g} "
+          f"({e_plain:.3g} of max|y|), vs f64 scipy {e64:.3g} of max|y|")
+    if not (e_plain <= TOL and e64 <= TOL):
+        raise SmokeFailure(f"{TAIL_KERNEL} disagrees: {e_plain} / {e64} > "
+                           f"{TOL}")
+    return abs_err, tail
+
+
+def measure_test(layer, flat, default, x1, acts, csr, tail, launches,
+                 abs_err, library, timer=cuda_time_ms):
+    """The tail kernel beside its bound, its plain version and cuSPARSE on
+    the tail alone; the test layer's forwards beside the default layer's
+    and cuSPARSE on the whole weight; the parts of each forward; the
+    flat-tail plan's SpMV. Returns the kernel's JSON row."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import spc5_spmv_tail as KT
+    device = x1.device
+    plan = layer.plan
+    args, kw, _ = tail_parts(plan)
+    print(f"  test: timing {TAIL_KERNEL}")
+    ms = timer(lambda: KT.spmv_tail_cuda(*args, x1, **kw), device)
+    print("  test: timing the plain version (spmv_coo_panels)")
+    plain_ms = timer(lambda: tail_y(plan, x1), device)
+    tail_t = sparse_csr(F.CSRMatrix(tail.shape, tail.indptr, tail.indices,
+                                    tail.data), device)
+    print("  test: timing cuSPARSE on the tail alone (torch.mv)")
+    library_ms = timer(lambda: torch.mv(tail_t, x1), device)
+    slots = plan.single_rows.numel()
+    nbytes = 12 * slots + 4 * (plan.tail_xbase.numel() + plan.ncols
+                               + plan.nrows)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * slots / F32_FLOP_PER_S
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"time {TAIL_KERNEL}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"cuSPARSE on the tail {library_ms:.4f} ms, bound {bound_ms:.4f} "
+          f"ms by {bound_by} ({nbytes} bytes, {slots} slots)")
+    csr_t = sparse_csr(csr, device)
+    multi = plan.multi
+    parts = {
+        "cusparse_batch1": lambda: torch.mv(csr_t, x1),
+        "default_batch1": lambda: default(x1),
+        "test_batch1": lambda: layer(x1),
+        "multi_spmv": kernel_call(kernel_name(multi), multi, x1),
+        "flat_spmv": lambda: ops.spmv(flat, x1),
+        "flat_multi_spmv": kernel_call(kernel_name(flat.multi), flat.multi,
+                                       x1),
+        "flat_spmv_coo": lambda: tail_y(flat, x1),
+    }
+    for nvec, act in acts.items():
+        x = act.t().contiguous()
+        parts.update({
+            f"default_nvec{nvec}": lambda a=act: default(a),
+            f"test_nvec{nvec}": lambda a=act: layer(a),
+            f"multi_spmm_nvec{nvec}": kernel_call(
+                kernel_name(multi, spmm=True), multi, x),
+            f"spmm_coo_nvec{nvec}": lambda x=x: tail_y(plan, x)})
+    forwards = {}
+    for key, fn in parts.items():
+        print(f"  test: timing {key}")
+        forwards[key] = timer(fn, device)
+    print(f"time test layer (a), batch 1: {forwards['test_batch1']:.4f} ms "
+          f"({kernel_name(multi)} {forwards['multi_spmv']:.4f} + "
+          f"{TAIL_KERNEL} {ms:.4f}); default layer "
+          f"{forwards['default_batch1']:.4f} ms; cuSPARSE on the whole "
+          f"weight {forwards['cusparse_batch1']:.4f} ms")
+    for nvec in acts:
+        print(f"time test layer (a), nvec={nvec}: "
+              f"{forwards[f'test_nvec{nvec}']:.4f} ms "
+              f"({kernel_name(multi, spmm=True)} "
+              f"{forwards[f'multi_spmm_nvec{nvec}']:.4f} + spmm_coo "
+              f"{forwards[f'spmm_coo_nvec{nvec}']:.4f}); default layer "
+              f"{forwards[f'default_nvec{nvec}']:.4f} ms; cuSPARSE SpMM "
+              f"{library[nvec]:.4f} ms")
+    print(f"time flat-tail plan (b), batch 1: {forwards['flat_spmv']:.4f} "
+          f"ms ({kernel_name(flat.multi)} "
+          f"{forwards['flat_multi_spmv']:.4f} + spmv_coo "
+          f"{forwards['flat_spmv_coo']:.4f})")
+    return {"name": TAIL_KERNEL, "route": "cuda", "source": TAIL_SOURCE,
+            "replaces": TAIL_REPLACES, "launches": launches[TAIL_KERNEL],
+            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "bound_bytes": nbytes,
+            "slots": slots, "n_single": plan.n_single,
+            "test_path_ms": forwards}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -927,6 +1298,7 @@ def main() -> int:
         del plans, ys
         w, vcsr, vmat = make_vocab()
         layers = build_layers(w, vmat, device)
+        test_layer = build_test_layer(w, device)
         del w
         rng = np.random.default_rng(1)
         acts = {n: torch.from_numpy(rng.standard_normal(
@@ -964,6 +1336,16 @@ def main() -> int:
                 row["vocab_batch1"] = token[row["name"]]
         rows += spmm_rows(VOCAB_SPMM, vper, vlaunches, verrs)
         rows += spmm_rows(("spmm_cuda_desc",), vper, tlaunches, terrs)
+        del tplan
+        flat = build_flat_test_plan(vcsr, device)
+        ys, y_flat, la, lb = drive_test(test_layer, flat, x1, acts, device)
+        print(f"launches on the test path: (a) {la}; (b) {lb}")
+        check_test(test_layer, flat, ys, y_flat, la, lb, x1, acts, vcsr)
+        del ys, y_flat
+        tail_err, tail = check_tail(test_layer.plan, x1)
+        rows.append(measure_test(test_layer, flat,
+                                 layers["panels", "descriptor"], x1, acts,
+                                 vcsr, tail, la, tail_err, library))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

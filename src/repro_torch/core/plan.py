@@ -4,15 +4,16 @@ The port's counterpart of ``repro.core.plan``, cut to the SpMV and SpMM
 slices ported so far:
 
   * **Registry** (:class:`LayoutSpec`, :func:`register_layout`): the
-    ``whole_vector`` and ``panels`` layouts, each a ``build``, a
+    ``whole_vector``, ``panels`` and ``test`` layouts, each a ``build``, a
     ``lower_spmv`` and a ``lower_spmm`` entry plus the ``cost`` that "auto"
-    resolution reads, and the lowerings it registers: ``mask`` (the bit
-    mask decoded on every call) and ``descriptor`` (the decode expanded
-    into gather tables at build time).
+    resolution reads (``test`` is never picked by "auto"), and the
+    lowerings it registers: ``mask`` (the bit mask decoded on every call)
+    and ``descriptor`` (the decode expanded into gather tables at build
+    time).
   * **Plan** (:class:`SPC5Plan`): a frozen dataclass holding the layout's
-    tensors (all on one device), the geometry as ``meta`` and the pass
-    ``trace``. Geometry keys and array names (per lowering) resolve as
-    attributes.
+    tensors (all on one device), its sub-plans (the ``test`` split's
+    multi-block plan), the geometry as ``meta`` and the pass ``trace``.
+    Geometry keys and array names (per lowering) resolve as attributes.
   * **Passes** (:func:`make_plan`): tune -> reorder -> layout -> build, each
     appending a ``duration_s``-stamped entry to ``plan.trace`` with the
     reference's keys.
@@ -20,8 +21,7 @@ slices ported so far:
     place that dispatches on the layout key.
 
 Not ported yet (each raises ``NotImplementedError``): bf16/int8 values,
-reordering, the ``test`` layout and the record-store tuner (ROADMAP
-queue 1).
+reordering and the record-store tuner (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -35,13 +35,14 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import (spc5_spmm, spc5_spmm_desc, spc5_spmv,
-                                 spc5_spmv_desc)
+                                 spc5_spmv_desc, spc5_spmv_tail)
 
 from . import formats as F
 from . import ref_spmv as R
 
 LAYOUT_WHOLE = "whole_vector"
 LAYOUT_PANELS = "panels"
+LAYOUT_TEST = "test"
 # How a layout's kernels consume the chunk metadata: "mask" decodes the bit
 # masks on every call, "descriptor" reads per-lane gather tables expanded at
 # build time (formats.chunk_descriptors), trading bytes for the decode.
@@ -80,9 +81,11 @@ def canonical_lowering(name: str) -> str:
 @dataclasses.dataclass(frozen=True)
 class LayoutSpec:
     """One device layout: ``array_names`` fixes the order of the plan's
-    tensors, ``build(state)`` returns ``(arrays, geom)``, ``lower_spmv`` runs
+    tensors, ``build(state)`` returns ``(arrays, geom)`` or ``(arrays, geom,
+    extra)`` (``extra["children"]``: sub-plans), ``lower_spmv`` runs
     y = A @ x and ``lower_spmm`` Y = A @ X, ``cost(nrows, ncols, itemsize,
-    nvec)`` is the footprint "auto" resolution compares with the budget.
+    nvec)`` is the footprint "auto" resolution compares with the budget;
+    ``auto_eligible=False`` keeps a layout (the test split) out of "auto".
     ``lowerings`` lists the lowerings the layout registers ("mask" first,
     the tie-break winner of the cost arbitration); a descriptor plan's
     tensors are named by ``desc_array_names`` and viewed by
@@ -94,7 +97,8 @@ class LayoutSpec:
     lower_spmv: Callable
     lower_spmm: Callable
     cost: Callable
-    device_view: Callable
+    device_view: Optional[Callable] = None
+    auto_eligible: bool = True
     lowerings: Tuple[str, ...] = (LOWERING_MASK,)
     desc_array_names: Optional[Tuple[str, ...]] = None
     desc_device_view: Optional[Callable] = None
@@ -114,7 +118,7 @@ def register_layout(spec: LayoutSpec) -> LayoutSpec:
     """Add a layout to the registry (idempotent by name, last wins)."""
     if spec.name in _LAYOUT_SENTINELS:
         raise ValueError(f"{spec.name!r} is reserved")
-    if spec.name not in _REGISTRY:
+    if spec.name not in _REGISTRY and spec.auto_eligible:
         _AUTO_ORDER.append(spec.name)
     _REGISTRY[spec.name] = spec
     return spec
@@ -129,8 +133,6 @@ def canonical_layout(name: str) -> str:
         return name
     if name in _LAYOUT_ALIASES:
         return _LAYOUT_ALIASES[name]
-    if name == "test":
-        raise _not_ported("the beta(r,c)_test layout", "item 5")
     raise ValueError(f"unknown layout {name!r}; expected one of "
                      f"{layout_names()} or 'auto'")
 
@@ -204,11 +206,13 @@ def _meta_lowering(meta) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class SPC5Plan:
-    """Layout key + the layout's tensors (one device) + geometry + trace."""
+    """Layout key + the layout's tensors (one device) + geometry + the
+    sub-plans (``children``) + trace."""
 
     layout: str
     arrays: Tuple[torch.Tensor, ...]
     meta: Tuple[Tuple[str, Any], ...]
+    children: Tuple["SPC5Plan", ...] = ()
     trace_json: str = "[]"
 
     def __getattr__(self, name):
@@ -232,9 +236,19 @@ class SPC5Plan:
         """The layout's tensor view for the plan's lowering
         (``SPC5Device`` / ``SPC5PanelDevice``, or their descriptor twins)."""
         spec = _REGISTRY[self.layout]
-        if _meta_lowering(self.meta) == LOWERING_DESC:
-            return spec.desc_device_view(self.arrays)
-        return spec.device_view(self.arrays)
+        view = (spec.desc_device_view
+                if _meta_lowering(self.meta) == LOWERING_DESC
+                else spec.device_view)
+        if view is None:
+            raise AttributeError(f"layout {self.layout!r} has no dev view")
+        return view(self.arrays)
+
+    @property
+    def multi(self) -> "SPC5Plan":
+        """The test split's multi-nonzero-block sub-plan."""
+        if not self.children:
+            raise AttributeError(f"layout {self.layout!r} has no sub-plans")
+        return self.children[0]
 
     @property
     def trace(self) -> List[dict]:
@@ -250,6 +264,7 @@ class PlanState:
     mat: F.SPC5Matrix
     device: torch.device
     layout: str = "auto"
+    multi_layout: str = "auto"      # the test split's inner-layout request
     lowering: str = "auto"
     pr: Optional[int] = None
     xw: Optional[int] = None
@@ -273,10 +288,12 @@ class PlanState:
 
 def _tune_pass(st: PlanState) -> None:
     """The port has no record store yet: the pass records why it did not
-    consult one, with the reference's three sources for that."""
+    consult one, with the reference's sources for that ("delegated": the
+    test split's multi sub-plan runs its own passes)."""
     explicit = (st.layout != "auto" or st.pr is not None
                 or st.xw is not None or st.cb is not None)
-    source = ("disabled" if not st.tune else
+    source = ("delegated" if st.layout == LAYOUT_TEST else
+              "disabled" if not st.tune else
               "explicit" if explicit else "no-store")
     st.trace.append({"pass": "tune", "source": source})
 
@@ -299,6 +316,13 @@ def _layout_pass(st: PlanState) -> None:
     else:
         entry["reason"] = "requested"
     entry["layout"] = st.layout
+    if st.layout == LAYOUT_TEST:
+        # the multi sub-plan resolves its own lowering; the tail's arrays
+        # do not depend on it
+        entry["lowering"] = st.lowering
+        entry["lowering_reason"] = "delegated"
+        st.trace.append(entry)
+        return
     # the lowering: a request the layout did not register is demoted to
     # "mask" (traced); "auto" is arbitrated by lowering_cost
     spec = _REGISTRY[st.layout]
@@ -321,14 +345,15 @@ def _layout_pass(st: PlanState) -> None:
 def _build_pass(st: PlanState) -> SPC5Plan:
     spec = _REGISTRY[st.layout]
     t0 = time.perf_counter()
-    arrays, geom = spec.build(st)
+    arrays, geom, *extra = spec.build(st)
+    children = tuple(extra[0].get("children", ())) if extra else ()
     st.trace.append({"pass": "build", "layout": st.layout,
                      "duration_s": time.perf_counter() - t0,
                      "rows_fused": False,
                      **{k: v for k, v in sorted(geom.items())
                         if isinstance(v, (int, float, str, bool))}})
     return SPC5Plan(layout=st.layout, arrays=tuple(arrays),
-                    meta=tuple(sorted(geom.items())),
+                    meta=tuple(sorted(geom.items())), children=children,
                     trace_json=json.dumps(st.trace, sort_keys=True))
 
 
@@ -336,15 +361,18 @@ def make_plan(mat: F.SPC5Matrix, *, device: Device, layout: str = "auto",
               lowering: str = "auto", pr: Optional[int] = None,
               xw: Optional[int] = None, cb: Optional[int] = None,
               nvec: int = 1, align: int = 8, dtype=None,
-              vdtype: str = "auto", tune: bool = True) -> SPC5Plan:
+              vdtype: str = "auto", tune: bool = True,
+              multi_layout: str = "auto") -> SPC5Plan:
     """The plan pipeline: tune -> reorder -> layout -> build.
 
     ``nvec`` is the widest SpMM batch the plan will see; "auto" layout
     budgets x and y at that width, as the reference does. ``lowering`` is
     "mask", "descriptor" or "auto" (the reference's :func:`lowering_cost`
-    arbitration). Values are stored as float32 ("" / "f32"), which is what
-    the reference holds for the generators' float64 values too. ``dtype``
-    may only be None or float32."""
+    arbitration). ``multi_layout`` is the test split's request for its
+    multi sub-plan's layout (read only with ``layout="test"``). Values are
+    stored as float32 ("" / "f32"), which is what the reference holds for
+    the generators' float64 values too. ``dtype`` may only be None or
+    float32."""
     vdtype = F.canonical_vdtype(vdtype)
     if vdtype not in ("", "auto", "f32"):
         raise _not_ported(f"vdtype={vdtype!r}", "item 5")
@@ -352,6 +380,7 @@ def make_plan(mat: F.SPC5Matrix, *, device: Device, layout: str = "auto",
         raise _not_ported(f"dtype={dtype!r}", "item 5")
     st = PlanState(mat=mat, device=torch.device(device),
                    layout=canonical_layout(layout),
+                   multi_layout=canonical_layout(multi_layout),
                    lowering=canonical_lowering(lowering), pr=pr,
                    xw=xw, cb=cb, nvec=nvec, align=align, vdtype=vdtype,
                    tune=tune, dtype=None if dtype is None else np.float32)
@@ -399,16 +428,24 @@ def _check_device(plan: SPC5Plan, x) -> None:
                          f"{plan.device}")
 
 
-def plan_from_arrays(layout: str, arrays, meta, *,
-                     device: Device) -> SPC5Plan:
+def plan_from_arrays(layout: str, arrays, meta, *, device: Device,
+                     children=()) -> SPC5Plan:
     """A port plan from another plan's host arrays and geometry.
 
     ``arrays`` are the layout's arrays in registry order for the lowering
     ``meta`` names (each anything ``np.asarray`` takes, e.g. a JAX plan's
     device arrays; descriptor tables keep their narrow dtypes) and ``meta``
     its ``(key, value)`` geometry, so the port computes with exactly the
-    bytes the other package built."""
+    bytes the other package built. A test plan also takes its multi
+    sub-plan as ``children=[(layout, arrays, meta)]`` (e.g. a JAX plan's
+    ``handle.multi.layout``, ``.arrays`` and ``.meta``)."""
     spec = get_layout(layout)
+    children = tuple(plan_from_arrays(*child, device=device)
+                     for child in children)
+    want = 1 if spec.name == LAYOUT_TEST else 0
+    if len(children) != want:
+        raise ValueError(f"layout {spec.name!r} takes {want} sub-plans, got "
+                         f"{len(children)}")
     meta = tuple(sorted((str(k), v) for k, v in meta))
     m = dict(meta)
     lowering = m.get("lowering", LOWERING_MASK)
@@ -424,7 +461,7 @@ def plan_from_arrays(layout: str, arrays, meta, *,
                          f"{names}, got {len(arrays)}")
     return SPC5Plan(layout=spec.name,
                     arrays=tuple(R.to_tensor(a, device) for a in arrays),
-                    meta=meta)
+                    meta=meta, children=children)
 
 
 # ----------------------------------------------------------------------------
@@ -562,4 +599,132 @@ register_layout(LayoutSpec(
     lowerings=_LOWERING_NAMES,
     desc_array_names=R.SPC5PanelDescDevice._fields,
     desc_device_view=lambda arrays: R.SPC5PanelDescDevice(*arrays),
+))
+
+
+# ----------------------------------------------------------------------------
+# test layout: beta(r,c)_test split (multi-block sub-plan + COO tail)
+# ----------------------------------------------------------------------------
+
+_TEST_ARRAYS = ("single_rows", "single_cols", "single_values", "tail_xbase")
+
+
+def _bucket_tail_by_panel(rows: np.ndarray, cols: np.ndarray,
+                          vals: np.ndarray, pr: int, npanels: int,
+                          align: int = 8):
+    """Sort the singleton COO tail into per-panel buckets padded to the
+    largest panel's count (zero values at local row 0 and column 0), plus
+    one aligned x window per panel covering its bucket's column span, of
+    one width for every panel. The reference's builder, line for line
+    (byte-equal buckets); the tail must not be empty."""
+    n = rows.shape[0]
+    panel = rows.astype(np.int64) // pr
+    order = np.lexsort((cols, rows, panel))
+    counts = np.bincount(panel, minlength=npanels).astype(np.int64)
+    smax = int(counts.max())
+    brows = np.zeros((npanels, smax), dtype=np.int32)
+    bcols = np.zeros((npanels, smax), dtype=np.int32)
+    bvals = np.zeros((npanels, smax), dtype=vals.dtype)
+    cum = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot = np.arange(n, dtype=np.int64) - np.repeat(cum, counts)
+    p_sorted = panel[order]
+    brows[p_sorted, slot] = (rows[order].astype(np.int64) % pr).astype(np.int32)
+    bcols[p_sorted, slot] = cols[order]
+    bvals[p_sorted, slot] = vals[order]
+    cmin = np.full(npanels, np.iinfo(np.int64).max, dtype=np.int64)
+    cmax = np.zeros(npanels, dtype=np.int64)
+    np.minimum.at(cmin, panel, cols.astype(np.int64))
+    np.maximum.at(cmax, panel, cols.astype(np.int64))
+    cmin[counts == 0] = 0
+    cmax[counts == 0] = 0
+    xbase = (cmin // align) * align
+    span = int((cmax - xbase + 1).max())
+    tail_xw = max(align, -(-span // align) * align)
+    ncols_pad = int(xbase.max()) + tail_xw
+    return brows, bcols, bvals, xbase.astype(np.int32), tail_xw, ncols_pad
+
+
+def _build_test(st: PlanState):
+    """The split, the multi sub-plan through this pipeline (its own passes,
+    no reordering) and the tail: bucketed by the sub-plan's panels when it
+    is a panel plan, else flat (zero-length arrays: no singletons)."""
+    split = F.split_singletons(st.mat)
+    dt = st.dtype or st.mat.values.dtype
+    multi = make_plan(split.multi, device=st.device, layout=st.multi_layout,
+                      pr=st.pr, xw=st.xw, cb=st.cb, nvec=st.nvec,
+                      align=st.align, dtype=st.dtype,
+                      vdtype=st.vdtype or "auto", tune=st.tune,
+                      lowering=st.lowering)
+    n_single = int(split.single_values.shape[0])
+    if multi.layout == LAYOUT_PANELS and n_single:
+        brows, bcols, bvals, xbase, tail_xw, tail_pad = \
+            _bucket_tail_by_panel(split.single_rows, split.single_cols,
+                                  split.single_values.astype(dt), multi.pr,
+                                  multi.npanels, align=st.align)
+        arrays = (brows, bcols, bvals, xbase)
+        tail_pr = multi.pr
+    else:
+        arrays = (split.single_rows, split.single_cols,
+                  split.single_values.astype(dt), np.zeros((0,), np.int32))
+        tail_pr, tail_xw, tail_pad = 0, 0, 0
+    geom = dict(nrows=st.mat.nrows, ncols=st.mat.ncols, nnz=st.mat.nnz,
+                tail_pr=tail_pr, tail_xw=tail_xw, tail_ncols_pad=tail_pad,
+                n_single=n_single, lowering=multi.lowering,
+                vdtype=multi.vdtype)
+    return (tuple(R.to_tensor(a, st.device) for a in arrays), geom,
+            {"children": (multi,)})
+
+
+def _tail_spmv(plan: SPC5Plan, x):
+    """The singleton tail's y: the CUDA tail kernel (or, for a plan on the
+    CPU, its plain version) for panel buckets; for a flat tail the plain
+    ``spmv_coo`` on any device, as the reference computes it outside any
+    kernel."""
+    rows, cols, vals, xbase = plan.arrays
+    if plan.tail_pr:
+        return spc5_spmv_tail.spmv_tail_cuda(
+            xbase, rows, cols, vals, x, pr=plan.tail_pr, xw=plan.tail_xw,
+            nrows=plan.nrows, ncols_pad=plan.tail_ncols_pad)
+    return R.spmv_coo(rows, cols, vals, x, nrows=plan.nrows)
+
+
+def _lower_spmv_test(plan: SPC5Plan, x, *, double_buffer):
+    y = execute_spmv(plan.multi, x, double_buffer=double_buffer)
+    if plan.single_values.numel():
+        y = y + _tail_spmv(plan, x)
+    return y
+
+
+def _lower_spmm_test(plan: SPC5Plan, x, *, nvt, double_buffer):
+    """The multi sub-plan's SpMM plus the tail's, which is the plain
+    ``spmm_coo`` on every device (the reference has no kernel for it)."""
+    y = execute_spmm(plan.multi, x, nvt=nvt, double_buffer=double_buffer)
+    if plan.single_values.numel():
+        rows, cols, vals = (plan.single_rows, plan.single_cols,
+                            plan.single_values)
+        if plan.tail_pr:                # bucketed: panel-local -> global rows
+            npanels = rows.shape[0]
+            rows = (torch.arange(npanels, dtype=rows.dtype,
+                                 device=rows.device)[:, None]
+                    * plan.tail_pr + rows)
+            tail = R.spmm_coo(rows.reshape(-1), cols.reshape(-1),
+                              vals.reshape(-1), x,
+                              nrows=npanels * plan.tail_pr)[:plan.nrows]
+        else:
+            tail = R.spmm_coo(rows, cols, vals, x, nrows=plan.nrows)
+        y = y + tail
+    return y
+
+
+register_layout(LayoutSpec(
+    name=LAYOUT_TEST,
+    array_names=_TEST_ARRAYS,
+    build=_build_test,
+    lower_spmv=_lower_spmv_test,
+    lower_spmm=_lower_spmm_test,
+    cost=lambda nrows, ncols, itemsize, nvec: 0,
+    auto_eligible=False,
+    # the lowering is the multi sub-plan's; the tail's arrays do not
+    # depend on it
+    lowerings=_LOWERING_NAMES,
 ))

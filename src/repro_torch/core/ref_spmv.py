@@ -4,7 +4,8 @@ These are the port's plain versions of the kernels: composed torch ops,
 device-agnostic, mirroring the reference's jnp oracle
 (``repro.core.ref_spmv.spmv`` / ``spmv_panels`` / ``spmm`` /
 ``spmm_panels`` / ``spmv_desc`` / ``spmv_panels_desc`` / ``spmm_desc`` /
-``spmm_panels_desc``) for f32 values.
+``spmm_panels_desc`` and the beta(r,c)_test tail's ``spmv_coo`` /
+``spmm_coo`` / ``spmv_coo_panels``) for f32 values.
 The CPU tests run them in place of the CUDA kernels, and ``chip_smoke.py``
 holds every kernel against them on the card. The mask decode is
 
@@ -333,3 +334,54 @@ def spmm_panels_desc(dev: SPC5PanelDescDevice, x: torch.Tensor, cmap=None,
     yrow = yrow + (unit // nchunks) * pr
     inside = xcol < x.shape[0]
     return _spmm_scatter(vals[inside], xcol[inside], yrow[inside], x, nrows)
+
+
+# ----------------------------------------------------------------------------
+# The beta(r,c)_test split's singleton tail (COO)
+# ----------------------------------------------------------------------------
+
+def _upcast(vals: torch.Tensor) -> torch.Tensor:
+    """The reference's f32-accumulation contract: values stored narrower
+    than f32 are upcast before any multiply; f32 passes through as it is."""
+    if vals.is_floating_point() and vals.element_size() < 4:
+        return vals.float()
+    return vals
+
+
+def spmv_coo(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+             x: torch.Tensor, *, nrows: int) -> torch.Tensor:
+    """y = the singleton tail times x, the tail as flat COO (n_single,):
+    one x element per nonzero, summed into its row (``index_add_``). The
+    reference computes this outside any kernel (a jnp segment sum)."""
+    prod = _upcast(vals) * x[cols.long()]
+    y = torch.zeros(nrows, dtype=prod.dtype, device=prod.device)
+    return y.index_add_(0, rows.long(), prod)
+
+
+def spmm_coo(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+             x: torch.Tensor, *, nrows: int) -> torch.Tensor:
+    """Y = the singleton tail times X (ncols, nvec), the tail as flat COO.
+    The columns of X go through in slices of at most ``_SLICE_ELEMS``
+    products, with the reference's arithmetic (a product per nonzero and
+    column, summed into its row); the reference has no kernel for it."""
+    return _spmm_scatter(_upcast(vals), cols.long(), rows.long(), x, nrows)
+
+
+def spmv_coo_panels(rows: torch.Tensor, cols: torch.Tensor,
+                    vals: torch.Tensor, x: torch.Tensor, *, pr: int,
+                    nrows: int) -> torch.Tensor:
+    """y = the panel-bucketed singleton tail times x: ``rows`` are
+    panel-local, and ``rows``, ``cols`` and ``vals`` are (npanels, smax)
+    buckets padded with zero values at local row 0 and column 0. Each
+    panel's entries are summed into its (pr,) slice of y; a row outside
+    [0, pr) is dropped, as the reference's segment sum drops it. Returns
+    y[:nrows]. The plain version of ``spmv_tail_cuda``."""
+    npanels = rows.shape[0]
+    prod = _upcast(vals) * x[cols.long()]                  # (npanels, smax)
+    inside = (rows >= 0) & (rows < pr)
+    prod = torch.where(inside, prod, torch.zeros_like(prod))
+    grow = (torch.arange(npanels, device=rows.device)[:, None] * pr
+            + rows.long().clamp(0, pr - 1))
+    y = torch.zeros(npanels * pr, dtype=prod.dtype, device=prod.device)
+    y.index_add_(0, grow.reshape(-1), prod.reshape(-1))
+    return y[:nrows]

@@ -96,8 +96,10 @@ class SparseLinear(nn.Module):
 
         ``nvec`` is the widest activation batch the layer will see; it feeds
         the "auto" layout's budget exactly as in the reference (default 128,
-        one full SpMM tile). ``lowering`` ("mask" | "descriptor" | "auto",
-        the default) picks the kernel variant exactly as on
+        one full SpMM tile). ``layout="test"`` builds the beta(r,c)_test
+        split (its multi sub-plan's layout by the "auto" rule).
+        ``lowering`` ("mask" | "descriptor" | "auto", the default) picks
+        the kernel variant exactly as on
         :func:`repro_torch.kernels.ops.prepare`. A ``store``, ``reorder``, a
         truthy ``verify`` and bf16/int8 values raise
         ``NotImplementedError`` naming their ROADMAP item."""
@@ -122,12 +124,15 @@ class SparseLinear(nn.Module):
 
     @classmethod
     def from_arrays(cls, layout: str, arrays, meta, bias=None, *,
-                    device: P.Device) -> "SparseLinear":
+                    device: P.Device, children=()) -> "SparseLinear":
         """A layer over another plan's host arrays and geometry (e.g. a JAX
-        ``SparseLinear``'s ``handle.arrays``, ``handle.meta`` and ``bias``),
-        so the port computes with exactly the bytes the other package
-        built (:func:`repro_torch.core.plan.plan_from_arrays`)."""
-        plan = P.plan_from_arrays(layout, arrays, meta, device=device)
+        ``SparseLinear``'s ``handle.arrays``, ``handle.meta`` and ``bias``;
+        for a test plan also ``children=[(handle.multi.layout,
+        handle.multi.arrays, handle.multi.meta)]``), so the port computes
+        with exactly the bytes the other package built
+        (:func:`repro_torch.core.plan.plan_from_arrays`)."""
+        plan = P.plan_from_arrays(layout, arrays, meta, device=device,
+                                  children=children)
         return cls(plan, _bias_tensor(bias, plan.device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

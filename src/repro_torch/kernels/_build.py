@@ -60,6 +60,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         **{f"spc5_spmm_desc_panels_s{s}": [_P] * 9 + [_I] * 16 + [_P]
            for s in (1, 2)},
     },
+    "spc5_spmv_tail": {
+        "spc5_spmv_tail": [_P] * 6 + [_I] * 7 + [_P],
+    },
 }
 
 _lock = threading.Lock()

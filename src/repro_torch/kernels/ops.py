@@ -1,5 +1,5 @@
-"""Public entry points of the port: :func:`prepare`, :func:`spmv` and
-:func:`spmm`.
+"""Public entry points of the port: :func:`prepare`, :func:`spmv`,
+:func:`spmm` and :func:`spmv_test`.
 
 The counterpart of ``repro.kernels.ops`` for the SpMV and SpMM slices.
 :func:`prepare` runs the plan passes (``repro_torch.core.plan``) and puts
@@ -34,13 +34,18 @@ def prepare(mat: F.SPC5Matrix, *, layout: str = "auto",
             lowering: str = "auto", config=None, pr: Optional[int] = None,
             xw: Optional[int] = None, cb: Optional[int] = None,
             nvec: int = 1, align: int = 8, dtype=None, vdtype: str = "auto",
-            tune: bool = True,
+            tune: bool = True, multi_layout: str = "auto",
             device: Optional[P.Device] = None) -> P.SPC5Plan:
     """Build an execution plan for ``mat`` on ``device`` (default: the card).
 
-    ``layout`` is "whole_vector", "panels" (or the alias "whole") or "auto",
-    which keeps the reference's rule (whole-vector when x and y fit
-    ``plan.VMEM_WHOLE_VECTOR_BUDGET``). ``pr``/``xw`` default to 512 and
+    ``layout`` is "whole_vector", "panels" (or the alias "whole"), "test"
+    or "auto", which keeps the reference's rule (whole-vector when x and y
+    fit ``plan.VMEM_WHOLE_VECTOR_BUDGET``) and never picks "test".
+    ``layout="test"`` builds the beta(r,c)_test split: the blocks with two
+    or more nonzeros in a sub-plan of layout ``multi_layout`` ("auto" by
+    the same rule) and the singleton blocks as a COO tail, bucketed by row
+    panel (the CUDA tail kernel) when the sub-plan is a panel plan.
+    ``pr``/``xw`` default to 512 and
     ``cb`` to 256 (whole-vector) or 64 (panels). ``config`` takes a
     ``PanelConfig``-like object (``layout``, ``pr``, ``xw``, ``cb``,
     ``lowering``, ``vdtype`` attributes) whole, filling every
@@ -52,8 +57,8 @@ def prepare(mat: F.SPC5Matrix, *, layout: str = "auto",
     ``lowering`` is "mask", "descriptor" (build-time gather tables) or
     "auto" (the default, as in the reference): its cost model
     (``plan.lowering_cost``).
-    Only f32 values are ported; bf16/int8, reordering and the ``test``
-    layout raise ``NotImplementedError``."""
+    Only f32 values are ported; bf16/int8 and reordering raise
+    ``NotImplementedError``."""
     if config is not None:
         if layout == "auto":
             layout = getattr(config, "layout", "") or "auto"
@@ -70,7 +75,8 @@ def prepare(mat: F.SPC5Matrix, *, layout: str = "auto",
             vdtype = config.vdtype
     return P.make_plan(mat, device=resolve_device(device), layout=layout,
                        lowering=lowering, pr=pr, xw=xw, cb=cb, nvec=nvec,
-                       align=align, dtype=dtype, vdtype=vdtype, tune=tune)
+                       align=align, dtype=dtype, vdtype=vdtype, tune=tune,
+                       multi_layout=multi_layout)
 
 
 def spmv(plan: P.SPC5Plan, x: torch.Tensor, *,
@@ -87,3 +93,9 @@ def spmm(plan: P.SPC5Plan, x: torch.Tensor, *, nvt: int = 128,
     plan's device and Y is (nrows, nvec). ``nvt`` and ``double_buffer`` as
     in the reference (the whole-vector layout has one SpMM kernel)."""
     return P.execute_spmm(plan, x, nvt=nvt, double_buffer=double_buffer)
+
+
+def spmv_test(plan: P.SPC5Plan, x: torch.Tensor, **kw) -> torch.Tensor:
+    """y = A @ x over the beta(r,c)_test split: the same executor as
+    :func:`spmv`, kept as a named entry point as in the reference."""
+    return P.execute_spmv(plan, x, **kw)

@@ -251,7 +251,7 @@ def test_unknown_lowering_is_a_value_error():
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)
-def test_spmm_on_a_descriptor_plan_raises(layout):
+def test_spmm_on_a_descriptor_plan_matches_reference(layout):
     """SpMM on a descriptor plan runs (the descriptor SpMM kernels are
     ported) and raises only where the reference raises: an nvec that is
     not a multiple of min(nvt, nvec), and, in the port, an X on another
@@ -275,7 +275,7 @@ def test_spmm_on_a_descriptor_plan_raises(layout):
 
 
 @pytest.mark.parametrize("lowering", ["descriptor", "auto"])
-def test_sparse_linear_descriptor_raises(lowering):
+def test_sparse_linear_descriptor_matches_reference(lowering):
     """A descriptor (or auto) layer builds and runs, batch 1 and wider, as
     the reference's does; with bf16 or int8 values it raises, naming the
     ROADMAP item those wait for."""

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (mask SpMV and SpMM, descriptor SpMV and SpMM)
-against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels (mask SpMV and SpMM, descriptor SpMV and SpMM,
+the test split's singleton tail) against their plain PyTorch versions, on
+the card.
 
 Every test here needs an NVIDIA GPU with nvcc: it is marked ``gpu`` and
 skips from the ``cuda`` fixture where ``torch.cuda.is_available()`` is
@@ -27,6 +28,7 @@ from repro_torch.kernels import spc5_spmm as KM
 from repro_torch.kernels import spc5_spmm_desc as KDM
 from repro_torch.kernels import spc5_spmv as K
 from repro_torch.kernels import spc5_spmv_desc as KD
+from repro_torch.kernels import spc5_spmv_tail as KT
 
 pytestmark = pytest.mark.gpu
 
@@ -559,3 +561,115 @@ def test_default_sparse_linear_on_the_card_matches_the_cpu_layer(cuda):
         ref = on_cpu(x)
         err = float((y.cpu() - ref).abs().max())
         assert err <= RTOL * float(ref.abs().max()), err
+
+
+# ----------------------------------------------------------------------------
+# the beta(r,c)_test split: singleton tail kernel and the test plan
+# ----------------------------------------------------------------------------
+
+#: Tail bucket geometries: the reference's tail test (320 rows, pr=16,
+#: xw=32, cb=8), nrows % pr != 0, and a 300 x 40,000 matrix whose buckets
+#: span more than 12,288 columns (tail_xw wider than 48 KB of f32).
+TAIL_CASES = {
+    "powerlaw": (lambda: matgen.powerlaw(320, 5, seed=17), dict(pr=16, xw=32,
+                                                               cb=8)),
+    "ragged": (lambda: matgen.powerlaw(330, 5, seed=17), dict(pr=16, xw=32,
+                                                             cb=8)),
+    "wide": (lambda: F.csr_from_dense(((np.random.default_rng(3).random(
+        (300, 40_000)) < 3e-3) * np.random.default_rng(4).standard_normal(
+        (300, 40_000))).astype(np.float32)), dict(pr=64, xw=512, cb=16)),
+}
+
+
+def _tail_plan(case, rc, device, lowering="mask"):
+    csr, geom = TAIL_CASES[case]
+    return ops.prepare(F.csr_to_spc5(csr(), *rc), layout="test",
+                       multi_layout="panels", lowering=lowering, tune=False,
+                       device=device, **geom)
+
+
+def _tail_args(plan):
+    return ((plan.tail_xbase, plan.single_rows, plan.single_cols,
+             plan.single_values),
+            dict(pr=plan.tail_pr, xw=plan.tail_xw, nrows=plan.nrows,
+                 ncols_pad=plan.tail_ncols_pad))
+
+
+@pytest.mark.parametrize("case", TAIL_CASES)
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+def test_tail_kernel_matches_plain(cuda, rc, case):
+    plan = _tail_plan(case, rc, cuda)
+    if not plan.n_single:
+        pytest.skip(f"no singleton blocks in beta{rc} for {case}")
+    if case == "ragged":
+        assert plan.nrows % plan.tail_pr
+    if case == "wide":
+        assert plan.tail_xw > 12_288
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        plan.ncols).astype(np.float32)).to(cuda)
+    args, kw = _tail_args(plan)
+    before = KT.LAUNCHES["spmv_tail_cuda"]
+    y = KT.spmv_tail_cuda(*args, x, **kw)
+    torch.cuda.synchronize()
+    assert KT.LAUNCHES["spmv_tail_cuda"] == before + 1
+    plain = R.spmv_coo_panels(*args[1:], x, pr=plan.tail_pr,
+                              nrows=plan.nrows)
+    assert y.shape == (plan.nrows,) and torch.isfinite(y).all()
+    err = float((y - plain).abs().max())
+    assert err <= RTOL * max(float(plain.abs().max()), 1.0), err
+
+
+def test_tail_kernel_reads_x_in_place(cuda):
+    """Hand-made buckets whose window runs past x's end: a column at or
+    past ncols reads 0 (the reference pads x with zeros), a row outside
+    [0, pr) is clipped into it, and padding slots multiply like any other
+    slot, as in the reference's kernel."""
+    rows = torch.tensor([[0, 2, 2, 9], [1, 1, -3, 0]], dtype=torch.int32)
+    cols = torch.tensor([[5, 6, 7, 0], [2, 3, 9, 0]], dtype=torch.int32)
+    vals = torch.tensor([[1., 2., 3., 4.], [5., 6., 7., 0.]])
+    xbase = torch.tensor([4, 0], dtype=torch.int32)
+    x = torch.arange(1, 8, dtype=torch.float32)          # ncols = 7
+    y = KT.spmv_tail_cuda(xbase.to(cuda), rows.to(cuda), cols.to(cuda),
+                          vals.to(cuda), x.to(cuda), pr=4, xw=4, nrows=7,
+                          ncols_pad=8)
+    # panel 0: x[5]=6 and x[6]=7; col 7 is past x (0); row 9 clips to 3,
+    # where col 0 clips to the window start x[4]=5. Panel 1: row -3 clips
+    # to 0 and col 9 to the window's last column x[3]=4; the padding slot
+    # adds 0 * x[0]
+    want = torch.tensor([6., 0., 2 * 7., 4 * 5., 7 * 4., 5 * 3. + 6 * 4., 0.])
+    assert torch.equal(y.cpu(), want)
+
+
+def test_tail_kernel_refuses_other_dtypes(cuda):
+    plan = _tail_plan("powerlaw", (2, 4), cuda)
+    args, kw = _tail_args(plan)
+    x = torch.zeros(plan.ncols, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        KT.spmv_tail_cuda(*args[:3], args[3].double(), x, **kw)
+    with pytest.raises(TypeError, match="int32"):
+        KT.spmv_tail_cuda(args[0], args[1].long(), *args[2:], x, **kw)
+
+
+@pytest.mark.parametrize("lowering", ["mask", "descriptor"])
+@pytest.mark.parametrize("multi_layout", ["whole_vector", "panels"])
+def test_test_plan_on_the_card_matches_the_cpu_plan(cuda, multi_layout,
+                                                    lowering):
+    """SpMV (multi kernel + tail: the tail kernel for panel buckets,
+    spmv_coo for a flat tail) and SpMM (multi kernel + spmm_coo) of a test
+    plan on the card against the same plan on the CPU."""
+    mat = F.csr_to_spc5(matgen.powerlaw(2_000, 6, seed=9), 2, 4)
+    kw = dict(layout="test", multi_layout=multi_layout, lowering=lowering,
+              tune=False, pr=64, xw=64, cb=16)
+    card = ops.prepare(mat, device=cuda, **kw)
+    cpu = ops.prepare(mat, device="cpu", **kw)
+    rng = np.random.default_rng(6)
+    KT.reset_launches()
+    for shape in ((2_000,), (2_000, 16)):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        fn = ops.spmv if len(shape) == 1 else ops.spmm
+        y = fn(card, x.to(cuda))
+        torch.cuda.synchronize()
+        ref = fn(cpu, x)
+        err = float((y.cpu() - ref).abs().max())
+        assert err <= RTOL * float(ref.abs().max()), err
+    assert KT.LAUNCHES["spmv_tail_cuda"] == (multi_layout == "panels")

@@ -42,9 +42,10 @@ def test_port_modules_cover_the_slice():
     assert {"core/formats.py", "core/matgen.py", "core/ref_spmv.py",
             "core/plan.py", "core/sparse_linear.py", "kernels/_build.py",
             "kernels/spc5_spmv.py", "kernels/spc5_spmm.py",
-            "kernels/spc5_spmv_desc.py", "kernels/ops.py"} <= names
+            "kernels/spc5_spmv_desc.py", "kernels/spc5_spmm_desc.py",
+            "kernels/spc5_spmv_tail.py", "kernels/ops.py"} <= names
     for src in ("spc5_spmv.cu", "spc5_spmm.cu", "spc5_spmv_desc.cu",
-                "spc5_stage.cuh"):
+                "spc5_spmm_desc.cu", "spc5_spmv_tail.cu", "spc5_stage.cuh"):
         assert os.path.isfile(os.path.join(PORT, "kernels", "csrc", src))
 
 
@@ -54,6 +55,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import repro_torch.kernels.ops, repro_torch.core.matgen\n"
         "import repro_torch.core.sparse_linear\n"
         "import repro_torch.kernels.spc5_spmv_desc\n"
+        "import repro_torch.kernels.spc5_spmm_desc\n"
+        "import repro_torch.kernels.spc5_spmv_tail\n"
         "from repro_torch.kernels import _build\n"
         "assert not any(m.split('.')[0] in {'jax', 'ml_dtypes', 'repro'} "
         "for m in sys.modules), sorted(m for m in sys.modules if 'jax' in m)\n"
@@ -79,7 +82,8 @@ def _c_params(source, name):
 
 
 @pytest.mark.parametrize("source", ["spc5_spmv", "spc5_spmv_desc",
-                                    "spc5_spmm", "spc5_spmm_desc"])
+                                    "spc5_spmm", "spc5_spmm_desc",
+                                    "spc5_spmv_tail"])
 def test_ctypes_signatures_match_the_sources(source):
     """Each entry point's argtypes in ``_build.SIGNATURES`` have the count
     and kinds (pointer or int) of its C parameters, so a launch never passes

@@ -165,17 +165,20 @@ def test_prepare_without_device_needs_a_card():
     dict(entry="from_dense", vdtype="bf16"),
     dict(entry="from_dense", lowering="descriptor", vdtype="int8"),
     dict(vdtype="bf16"),
-    dict(vdtype="int8"), dict(layout="test"), dict(dtype=np.float64),
+    dict(vdtype="int8"), dict(layout="test", vdtype="bf16"),
+    dict(dtype=np.float64),
     dict(config=JS.PanelConfig(layout="panels", reorder="rcm")),
     dict(config=JS.PanelConfig(layout="panels", lowering="descriptor",
                                vdtype="bf16")),
-    dict(lowering="descriptor", layout="test"),
+    dict(layout="test", vdtype="int8"),
 ])
 def test_unported_axes_raise(kw):
     """``entry`` names the call under test: ``ops.prepare`` (default) or
     ``SparseLinear.from_dense`` with the other keywords. kw0 and kw1 reach
     the bf16 / int8 refusal through ``from_dense`` (at its default lowering
-    and at ``descriptor``), an entry point that kw2 and kw3 do not take."""
+    and at ``descriptor``), an entry point that kw2 and kw3 do not take;
+    kw4 and kw8 reach it on the ``test`` layout, whose tail and multi
+    sub-plan would both store the values."""
     _, tmat = _pair((1, 8))
     kw = dict(kw)
     entry = kw.pop("entry", "prepare")
