@@ -32,7 +32,10 @@ phase that goes wrong:
    ``spmm_cuda_panels_desc_db``); beside it two mask layers on the same
    converted matrix (``ops.prepare(lowering="mask")``: auto layout, panels,
    and whole-vector), ``ops.spmm(..., double_buffer=False)`` on both panel
-   layers and a batch-1 call of both, at batches of 16 and 128;
+   layers at batches of 16 and 128, and batch 1 (one decode token): both
+   panel layers' forwards and ``ops.spmv(..., double_buffer=False)`` on the
+   default layer, so both panel descriptor SpMV kernels run on it (their
+   launches, S, grid and CTAs per SM are printed);
    then the whole-vector descriptor plan of the same weight:
    ``ops.prepare(mat)`` at nvec=1 (whole-vector + descriptor, the
    reference's pick for one decode token), ``ops.spmv`` with
@@ -45,10 +48,12 @@ phase that goes wrong:
    nvec=128)``: its multi sub-plan is panels by the 2 MiB rule, lowered by
    the cost model, and its tail is bucketed by panel; batch 1 runs the
    multi SpMV kernel + ``spmv_tail_cuda``, batches of 16 and 128 the multi
-   SpMM kernel + the plain ``spmm_coo``. Beside it the flat-tail plan
-   ``ops.prepare(beta(2,4), layout="test")`` at nvec = 1: whole-vector
-   multi, tail through the plain ``spmv_coo``, no tail kernel. Prints the
-   host time of ``split_singletons``;
+   SpMM kernel + the plain ``spmm_coo``; both panel descriptor SpMV kernels
+   also run on the multi sub-plan alone (``ops.spmv``), checked against its
+   plain version and the f64 product less the tail's. Beside it the
+   flat-tail plan ``ops.prepare(beta(2,4), layout="test")`` at nvec = 1:
+   whole-vector multi, tail through the plain ``spmv_coo``, no tail kernel.
+   Prints the host time of ``split_singletons``;
 7. in each path every launch counter is set to 0 just before and read just
    after, and every kernel of the path must have launched; every output is
    checked against the kernel's plain version on the card and against a
@@ -60,12 +65,17 @@ phase that goes wrong:
    flushed before every launch, and computes each kernel's bound from the
    bytes this run's product needs over 3.35 TB/s and its flops over 67
    TFLOP/s (for a descriptor kernel, whose ``xcol`` / ``yrow`` tables
-   repeat each block's columns and rows, c and r entries per block; beside
+   repeat each block's columns and rows, c ``xcol`` entries per block and
+   r ``yrow`` entries, one in the panel layout; beside
    it the bound on the whole plan's bytes, the mask plan's bound for the
    same product and the mask kernel's time on the mask plan); the tail
    kernel beside its bound (its 12-byte slots, padding included, x and y),
    cuSPARSE on the tail alone and its plain version, and the test layer's
    forwards beside the default layer's and cuSPARSE on the whole weight;
+   for context beside the two panel descriptor SpMV kernels on the vocab
+   layer, plain torch sums reading the whole plan and the sectors those
+   kernels read of it (``time_panels_desc.py`` times them at other splits
+   and ring lengths);
 9. prints the ``{"kernels": [...]}`` line, then, last, the
    ``{"ok": true, "device": ...}`` line.
 
@@ -410,19 +420,44 @@ def check_auto_lowering(mat, device) -> None:
         raise SmokeFailure(f"lowering='auto' resolved to {entry}")
 
 
+def panel_desc_launches(plan):
+    """The launches the two panel descriptor SpMV wrappers make on the plan
+    (:func:`spc5_spmv_desc.panels_launch`): stages, blocks per stage, shared
+    memory and threads per CTA, the card's CTAs per SM, S and the grid. On
+    the CPU only the shared-memory plan (no card to ask for occupancy)."""
+    from repro_torch.kernels import spc5_spmv_desc as KD
+    out = {}
+    for name, stages in (("s1", 1), ("s2", KD.DB_STAGES)):
+        geom = dict(cb=plan.cb, r=plan.r, c=plan.c, vmax=plan.vmax,
+                    xw=plan.xw, pr=plan.pr,
+                    wv=plan.desc_vidx.element_size(),
+                    wx=plan.desc_xcol.element_size())
+        if plan.device.type == "cuda":
+            out[name] = KD.panels_launch(stages, plan.npanels, plan.nchunks,
+                                         device=plan.device, **geom)
+        else:
+            s, nb, smem = KD.panels_stages(stages, *geom.values())
+            out[name] = dict(stages=s, blocks_per_stage=nb, smem_bytes=smem)
+    return out
+
+
 def print_plan(name, plan) -> None:
     """Geometry, the kernels' dynamic shared memory per CTA (ptxas reports
     only static shared memory, which is 0) and, for a descriptor plan, the
-    tables' dtypes and bytes."""
+    tables' dtypes and bytes; for a panel descriptor plan the SpMV kernels'
+    launches (:func:`panel_desc_launches`: S, grid, CTAs per SM)."""
     g = {k: getattr(plan, k) for k in ("cb", "vmax", "pr", "xw", "npanels",
                                        "nchunks", "desc_lane_nbytes")
          if k in dict(plan.meta)}
     if plan.layout == "whole_vector":
         g["nchunks"] = int(plan.chunk_vbase.shape[0])
-    for stages in (1, 2):
-        g[f"smem_bytes_s{stages}"] = 4 * (
-            stages * (plan.vmax + plan.xw) + plan.pr
-            if plan.layout == "panels" else stages * plan.vmax)
+    if plan.layout == "panels" and plan.lowering == "descriptor":
+        g["spmv_launch"] = panel_desc_launches(plan)
+    else:
+        for stages in (1, 2):
+            g[f"smem_bytes_s{stages}"] = 4 * (
+                stages * (plan.vmax + plan.xw) + plan.pr
+                if plan.layout == "panels" else stages * plan.vmax)
     if plan.lowering == "descriptor":
         tables = [getattr(plan, f"desc_{t}")
                   for t in ("valid", "vidx", "xcol", "yrow")]
@@ -512,15 +547,19 @@ def cuda_time_ms(fn, device, reps=REPS):
 
 def needed_bytes(plan, whole_plan=False):
     """The bytes of the plan that the product must read: every array as
-    built, padding included, except that a descriptor plan's ``xcol`` and
-    ``yrow`` tables repeat each block's c columns over its r rows and its r
-    rows over its c columns, so the product needs only c ``xcol`` and r
-    ``yrow`` entries per block (``valid`` and ``vidx`` per lane).
-    ``whole_plan`` counts every byte of the plan instead."""
+    built, padding included, except that a descriptor plan's ``xcol`` table
+    repeats each block's c columns over its r rows, so the product needs
+    only c ``xcol`` entries per block (``valid`` and ``vidx`` per lane).
+    Its ``yrow`` table repeats each block's r rows over its c columns: r
+    entries per block; in the panel layout, where no block row is clipped,
+    the rows are the lane-0 entry plus k // c (pinned by
+    tests/test_torch_desc_panels.py), so one. ``whole_plan`` counts every
+    byte of the plan instead."""
     total = sum(a.numel() * a.element_size() for a in plan.arrays)
     if plan.lowering == "descriptor" and not whole_plan:
         rc = plan.r * plan.c
-        for table, kept in (("desc_xcol", plan.c), ("desc_yrow", plan.r)):
+        rows = 1 if plan.layout == "panels" else plan.r
+        for table, kept in (("desc_xcol", plan.c), ("desc_yrow", rows)):
             t = getattr(plan, table)
             total -= t.numel() * t.element_size() // rc * (rc - kept)
     return total
@@ -563,8 +602,9 @@ def sparse_csr(csr, device):
             size=csr.shape, device=device)
 
 
-def kernel_call(name, plan, x):
-    """A call of kernel ``name``'s wrapper on the plan's arrays and x."""
+def kernel_call(name, plan, x, **extra):
+    """A call of kernel ``name``'s wrapper on the plan's arrays and x
+    (``extra``: the wrapper's own keywords, e.g. ``split``)."""
     from repro_torch.kernels import spc5_spmm as KM
     from repro_torch.kernels import spc5_spmm_desc as KDM
     from repro_torch.kernels import spc5_spmv as K
@@ -584,7 +624,7 @@ def kernel_call(name, plan, x):
               nrows=plan.nrows)
     kw.update(dict(xw=plan.xw, pr=plan.pr, ncols_pad=plan.ncols_pad)
               if plan.layout == "panels" else dict(ncols=plan.ncols))
-    return lambda: fn(*args, **kw)
+    return lambda: fn(*args, **kw, **extra)
 
 
 def measure(plans, x, csr, launches, errs, timer=cuda_time_ms):
@@ -682,6 +722,8 @@ def print_spmm_plan(name, plan) -> None:
         g["tables"] = "/".join(str(t.dtype).replace("torch.", "")
                                for t in tables)
         g["table_bytes"] = sum(t.numel() * t.element_size() for t in tables)
+        if panels:
+            g["spmv_launch"] = panel_desc_launches(plan)
     g["plan_bytes"] = sum(a.numel() * a.element_size() for a in plan.arrays)
     print(f"  plan {name}: {g}, build {plan.trace[-1]['duration_s']:.1f} s")
 
@@ -736,8 +778,12 @@ def layer_key(name):
 
 VOCAB_SPMM = ("spmm_cuda_panels_desc_db", "spmm_cuda_panels_desc",
               "spmm_cuda_panels_db", "spmm_cuda_panels", "spmm_cuda")
-BATCH1 = {"spmv_cuda_panels_desc_db": ("panels", "descriptor"),
-          "spmv_cuda_panels_db": ("panels", "mask")}
+#: Batch 1 (one decode token) on the vocab layers: kernel -> (layer,
+#: double_buffer). The layer's forward runs the double-buffered kernel; the
+#: synchronous twin goes through ``ops.spmv(..., double_buffer=False)``.
+BATCH1 = {"spmv_cuda_panels_desc_db": (("panels", "descriptor"), True),
+          "spmv_cuda_panels_desc": (("panels", "descriptor"), False),
+          "spmv_cuda_panels_db": (("panels", "mask"), True)}
 
 
 def reset_all_launches():
@@ -771,7 +817,9 @@ def drive_vocab(layers, acts, device):
             panels.plan, a.t().contiguous(), double_buffer=False)
         ys["spmm_cuda", nvec] = whole(a).t()
     x1 = acts[SPMM_NVECS[0]][0]
-    y1 = {name: layers[key](x1) for name, key in BATCH1.items()}
+    y1 = {name: layers[key](x1) if db else ops.spmv(
+              layers[key].plan, x1, double_buffer=False)
+          for name, (key, db) in BATCH1.items()}
     if device.type == "cuda":
         torch.cuda.synchronize()
     return ys, y1, counts()
@@ -823,10 +871,69 @@ def check_vocab(layers, ys, y1, launches, acts, csr):
             errs[name] = max(errs.get(name, 0.0), err)
     x1 = acts[SPMM_NVECS[0]][0]
     y64 = a64 @ x1.cpu().double().numpy()
-    for name, key in BATCH1.items():
+    for name, (key, _) in BATCH1.items():
         errs[name] = check_y(name, y1[name], layers[key].plan, x1, y64,
                              launches, "SparseLinear path, batch 1")
     return errs
+
+
+def measure_batch1(layers, x1, csr, launches, errs, timer=cuda_time_ms):
+    """Rows 8 and 9 (the panel descriptor SpMV kernels) at batch 1 on the
+    default vocab layer: each beside its needed and whole-plan bounds, the
+    mask kernel on the mask layer, cuSPARSE ``torch.mv``, the plain
+    version and :func:`plan_read_ms`. Returns {kernel: numbers} for the
+    kernels' ``vocab_batch1``."""
+    import torch
+    device = x1.device
+    plan = layers["panels", "descriptor"].plan
+    mask_plan = layers["panels", "mask"].plan
+    csr_t = sparse_csr(csr, device)
+    print("  batch 1: timing cuSPARSE CSR (torch.mv on sparse_csr_tensor)")
+    library_ms = timer(lambda: torch.mv(csr_t, x1), device)
+    print("  batch 1: timing the plain version, panels descriptor")
+    plain_ms = timer(lambda: plain_y(plan, x1), device)
+    print("  batch 1: timing spmv_cuda_panels_db on the mask layer")
+    mask_ms = timer(kernel_call("spmv_cuda_panels_db", mask_plan, x1), device)
+    launch = panel_desc_launches(plan)
+    bound_ms, bound_by, nbytes = bound(plan, csr.nnz)
+    read_ms = plan_read_ms(plan, timer)
+    per = {}
+    for name, key in (("spmv_cuda_panels_desc_db", "s2"),
+                      ("spmv_cuda_panels_desc", "s1")):
+        print(f"  batch 1: timing {name}")
+        ms = timer(kernel_call(name, plan, x1), device)
+        print(f"time {name} (vocab, batch 1): {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, cuSPARSE CSR {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, "
+              f"{bound_ms / ms:.3f} of it), spmv_cuda_panels_db "
+              f"{mask_ms:.4f} ms; launch {launch[key]}")
+        per[name] = {"launches": launches[name], "max_abs_err": errs[name],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms,
+                     **desc_bounds(plan, mask_plan, csr.nnz),
+                     "mask_ms": mask_ms, **read_ms, "launch": launch[key]}
+    return per
+
+
+def plan_read_ms(plan, timer=cuda_time_ms):
+    """Context for a panel descriptor plan: how long plain torch sums (each
+    array viewed as float32) take to read (a) every byte of the plan and (b)
+    what the panel SpMV kernels read: every array whole but, of each
+    block's xcol and yrow rows, the first c entries and the first 4 bytes.
+    Reads at this card's reachable rate, beside the kernels' times."""
+    import torch
+    wx = plan.desc_xcol.element_size()
+    whole = [a.view(torch.float32) for a in plan.arrays]
+    kept = {id(plan.desc_xcol): plan.c * wx // 4, id(plan.desc_yrow): 1}
+    read = [a.view(torch.float32)[..., :kept[id(a)]] if id(a) in kept
+            else a.view(torch.float32) for a in plan.arrays]
+    out = {}
+    for key, arrays in (("plan_read_ms", whole), ("kernel_read_ms", read)):
+        nbytes = sum(4 * a.numel() for a in arrays)
+        print(f"  timing torch sums over {nbytes} bytes ({key})")
+        out[key] = timer(lambda t=arrays: [a.sum() for a in t], plan.device)
+        print(f"context: {key} {out[key]:.4f} ms for {nbytes} bytes")
+    return out
 
 
 def measure_vocab(layers, acts, csr, timer=cuda_time_ms):
@@ -1100,13 +1207,22 @@ def build_flat_test_plan(csr, device):
     return plan
 
 
+#: The panel descriptor SpMV kernels (rows 8 and 9) run alone on the test
+#: layer's multi sub-plan: kernel -> double_buffer.
+MULTI_SPMV = {"spmv_cuda_panels_desc_db": True,
+              "spmv_cuda_panels_desc": False}
+
+
 def drive_test(layer, flat, x1, acts, device):
-    """(a) the test layer's forward at batch 1 and at every SpMM batch;
+    """(a) the test layer's forward at batch 1 and at every SpMM batch, and
+    ``ops.spmv`` on its multi sub-plan alone with both buffer settings;
     (b) ``ops.spmv`` on the flat-tail plan. Launch counts of each run."""
     import torch
     from repro_torch.kernels import ops
     counts = reset_all_launches()
     ys = {1: layer(x1)}
+    for name, db in MULTI_SPMV.items():
+        ys[name] = ops.spmv(layer.plan.multi, x1, double_buffer=db)
     for nvec, a in acts.items():
         ys[nvec] = layer(a).t()
     if device.type == "cuda":
@@ -1146,6 +1262,12 @@ def check_test(layer, flat, ys, y_flat, launches_a, launches_b, x1, acts,
                    "test path (a)")
     check_y(flat_name, y_flat, flat, x1, y64, launches_b,
             "test path (b), with spmv_coo")
+    # the multi sub-plan alone: its f64 product is the whole weight's less
+    # the tail's
+    y64_multi = y64 - tail_parts(plan)[2] @ x1.cpu().double().numpy()
+    return {name: check_y(name, ys[name], plan.multi, x1, y64_multi,
+                          launches_a, "test path (a), multi sub-plan alone")
+            for name in MULTI_SPMV}
 
 
 def tail_parts(plan):
@@ -1190,11 +1312,13 @@ def check_tail(plan, x1):
 
 
 def measure_test(layer, flat, default, x1, acts, csr, tail, launches,
-                 abs_err, library, timer=cuda_time_ms):
+                 abs_err, library, multi_errs, timer=cuda_time_ms):
     """The tail kernel beside its bound, its plain version and cuSPARSE on
     the tail alone; the test layer's forwards beside the default layer's
-    and cuSPARSE on the whole weight; the parts of each forward; the
-    flat-tail plan's SpMV. Returns the kernel's JSON row."""
+    and cuSPARSE on the whole weight; the parts of each forward, the two
+    panel descriptor SpMV kernels on the multi sub-plan included; the
+    flat-tail plan's SpMV. Returns the tail kernel's JSON row and the
+    multi's numbers of those two kernels."""
     import torch
     from repro_torch.core import formats as F
     from repro_torch.kernels import ops
@@ -1239,6 +1363,7 @@ def measure_test(layer, flat, default, x1, acts, csr, tail, launches,
             f"multi_spmm_nvec{nvec}": kernel_call(
                 kernel_name(multi, spmm=True), multi, x),
             f"spmm_coo_nvec{nvec}": lambda x=x: tail_y(plan, x)})
+    parts["multi_spmv_s1"] = kernel_call("spmv_cuda_panels_desc", multi, x1)
     forwards = {}
     for key, fn in parts.items():
         print(f"  test: timing {key}")
@@ -1256,17 +1381,30 @@ def measure_test(layer, flat, default, x1, acts, csr, tail, launches,
               f"{forwards[f'spmm_coo_nvec{nvec}']:.4f}); default layer "
               f"{forwards[f'default_nvec{nvec}']:.4f} ms; cuSPARSE SpMM "
               f"{library[nvec]:.4f} ms")
+    multi_bound = bound(multi, plan.nnz - plan.n_single)
+    print(f"time {kernel_name(multi)} / spmv_cuda_panels_desc on the multi "
+          f"sub-plan, batch 1: {forwards['multi_spmv']:.4f} / "
+          f"{forwards['multi_spmv_s1']:.4f} ms, bound {multi_bound[0]:.4f} "
+          f"ms by {multi_bound[1]} ({multi_bound[2]} bytes); launch "
+          f"{panel_desc_launches(multi)}")
     print(f"time flat-tail plan (b), batch 1: {forwards['flat_spmv']:.4f} "
           f"ms ({kernel_name(flat.multi)} "
           f"{forwards['flat_multi_spmv']:.4f} + spmv_coo "
           f"{forwards['flat_spmv_coo']:.4f})")
-    return {"name": TAIL_KERNEL, "route": "cuda", "source": TAIL_SOURCE,
-            "replaces": TAIL_REPLACES, "launches": launches[TAIL_KERNEL],
-            "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "bound_bytes": nbytes,
-            "slots": slots, "n_single": plan.n_single,
-            "test_path_ms": forwards}
+    multi_rows = {name: {
+        "launches": launches[name], "max_abs_err": multi_errs[name],
+        "ms": forwards["multi_spmv" if db else "multi_spmv_s1"],
+        "bound_ms": multi_bound[0], "bound_by": multi_bound[1],
+        "plan_bound_ms": bound(multi, plan.nnz - plan.n_single,
+                               whole_plan=True)[0]}
+        for name, db in MULTI_SPMV.items()}
+    return multi_rows, {
+        "name": TAIL_KERNEL, "route": "cuda", "source": TAIL_SOURCE,
+        "replaces": TAIL_REPLACES, "launches": launches[TAIL_KERNEL],
+        "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms, "bound_bytes": nbytes, "slots": slots,
+        "n_single": plan.n_single, "test_path_ms": forwards}
 
 
 def main() -> int:
@@ -1309,6 +1447,8 @@ def main() -> int:
         verrs = check_vocab(layers, vys, y1, vlaunches, acts, vcsr)
         del vys, y1
         vper, library = measure_vocab(layers, acts, vcsr)
+        batch1 = measure_batch1(layers, acts[SPMM_NVECS[0]][0].contiguous(),
+                                vcsr, vlaunches, verrs)
         tplan = build_token_plan(vmat, device)
         del vmat
         x1 = acts[SPMM_NVECS[0]][0].contiguous()
@@ -1332,20 +1472,26 @@ def main() -> int:
         token = measure_token(tplan, layers["whole_vector", "mask"].plan, x1,
                               acts, vcsr, tlaunches, terrs, vper, library)
         for row in rows:
-            if row["name"] in token:
-                row["vocab_batch1"] = token[row["name"]]
+            for numbers in (token, batch1):
+                if row["name"] in numbers:
+                    row["vocab_batch1"] = numbers[row["name"]]
         rows += spmm_rows(VOCAB_SPMM, vper, vlaunches, verrs)
         rows += spmm_rows(("spmm_cuda_desc",), vper, tlaunches, terrs)
         del tplan
         flat = build_flat_test_plan(vcsr, device)
         ys, y_flat, la, lb = drive_test(test_layer, flat, x1, acts, device)
         print(f"launches on the test path: (a) {la}; (b) {lb}")
-        check_test(test_layer, flat, ys, y_flat, la, lb, x1, acts, vcsr)
+        multi_errs = check_test(test_layer, flat, ys, y_flat, la, lb, x1,
+                                acts, vcsr)
         del ys, y_flat
         tail_err, tail = check_tail(test_layer.plan, x1)
-        rows.append(measure_test(test_layer, flat,
-                                 layers["panels", "descriptor"], x1, acts,
-                                 vcsr, tail, la, tail_err, library))
+        multi, tail_row = measure_test(
+            test_layer, flat, layers["panels", "descriptor"], x1, acts, vcsr,
+            tail, la, tail_err, library, multi_errs)
+        for row in rows:
+            if row["name"] in multi:
+                row["test_multi_batch1"] = multi[row["name"]]
+        rows.append(tail_row)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

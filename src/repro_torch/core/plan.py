@@ -228,6 +228,10 @@ class SPC5Plan:
                              f"{name!r}")
 
     @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.nrows, self.ncols)
+
+    @property
     def device(self) -> torch.device:
         return self.arrays[0].device
 
@@ -253,6 +257,11 @@ class SPC5Plan:
     @property
     def trace(self) -> List[dict]:
         return json.loads(self.trace_json)
+
+    def apply(self, x: torch.Tensor, **kw) -> torch.Tensor:
+        """y = A @ x: :func:`execute_spmv` for a 1-D x, :func:`execute_spmm`
+        for a 2-D X, as in the reference."""
+        return (execute_spmv if x.dim() == 1 else execute_spmm)(self, x, **kw)
 
 
 # ----------------------------------------------------------------------------
@@ -372,8 +381,13 @@ def make_plan(mat: F.SPC5Matrix, *, device: Device, layout: str = "auto",
     multi sub-plan's layout (read only with ``layout="test"``). Values are
     stored as float32 ("" / "f32"), which is what the reference holds for
     the generators' float64 values too. ``dtype`` may only be None or
-    float32."""
+    float32, and not together with a ``vdtype`` other than "auto" (the
+    reference's ``ValueError``: the value-dtype axis owns the cast)."""
     vdtype = F.canonical_vdtype(vdtype)
+    if vdtype not in ("", "auto") and dtype is not None:
+        raise ValueError(
+            f"pass either dtype= (legacy passthrough) or vdtype={vdtype!r}, "
+            f"not both -- the value-dtype axis owns the cast")
     if vdtype not in ("", "auto", "f32"):
         raise _not_ported(f"vdtype={vdtype!r}", "item 5")
     if dtype is not None and not _is_f32(dtype):

@@ -74,7 +74,7 @@ class SparseLinear(nn.Module):
 
     @property
     def shape(self) -> Tuple[int, int]:
-        return (self.plan.nrows, self.plan.ncols)
+        return self.plan.shape
 
     @property
     def density(self) -> float:

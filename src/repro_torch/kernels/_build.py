@@ -47,8 +47,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "spc5_spmv_desc": {
         **{f"spc5_spmv_desc_whole_s{s}": [_P] * 8 + [_I] * 8 + [_P]
            for s in (1, 2)},
-        **{f"spc5_spmv_desc_panels_s{s}": [_P] * 9 + [_I] * 12 + [_P]
+        **{f"spc5_spmv_desc_panels_s{s}": [_P] * 9 + [_I] * 17 + [_P]
            for s in (1, 2)},
+        "spc5_spmv_desc_panels_occupancy": [_I] * 4 + [_P],
+        "spc5_spmv_desc_panels_smem": [_I] * 9,
     },
     "spc5_spmm": {
         "spc5_spmm_whole": [_P] * 8 + [_I] * 8 + [_P],

@@ -86,11 +86,13 @@ def _check_smem(nbytes: int, what: str) -> None:
             f"cb (or pr/xw)")
 
 
-def _aligned(named: Dict[str, torch.Tensor]) -> None:
-    """The kernels stage windows with 16-byte copies."""
+def _aligned(named: Dict[str, torch.Tensor], boundary: int = 16) -> None:
+    """The kernels stage windows with 16-byte copies (other arrays may
+    need less: ``boundary``)."""
     for name, t in named.items():
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary")
+        if t.data_ptr() % boundary:
+            raise ValueError(
+                f"{name} must start on a {boundary}-byte boundary")
 
 
 def _raise_on(err: int, fn: str) -> None:

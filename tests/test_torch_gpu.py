@@ -391,6 +391,191 @@ def test_desc_table_widths(cuda, kernel, table, width):
     plan = _run_desc(kernel, mat, x, cuda, **geom)
     assert getattr(plan, f"desc_{table}").dtype == getattr(
         torch, f"int{width}")
+    if layout == "panels":
+        # the split grid at every width too: one chunk per CTA
+        _check_panel_desc(kernel, plan, torch.from_numpy(x).to(cuda),
+                          split=plan.nchunks)
+        if table == "vidx" and width == 32:
+            # a whole chunk's int32 tables beside a 160 KB value window do
+            # not fit one CTA: the synchronous kernel stages slices of them
+            _, nb, _ = KD.panels_stages(1, plan.cb, plan.r, plan.c,
+                                        plan.vmax, plan.xw, plan.pr, 4,
+                                        plan.desc_xcol.element_size())
+            assert nb < plan.cb
+
+
+# ----------------------------------------------------------------------------
+# panel descriptor SpMV: the split grid and the staged tables
+# ----------------------------------------------------------------------------
+
+PANEL_DESC = ("spmv_cuda_panels_desc", "spmv_cuda_panels_desc_db")
+
+
+def _check_panel_desc(kernel, plan, x, **kw):
+    """One wrapper call on the plan's arrays (``split`` in kw; ``tables``
+    replaces the four descriptor tables), counted once and held against
+    ``spmv_panels_desc``."""
+    plain = R.spmv_panels_desc(plan.dev, x, pr=plan.pr, nrows=plan.nrows,
+                               ncols_pad=plan.ncols_pad)
+    before = KD.LAUNCHES[kernel]
+    tables = kw.pop("tables", (plan.desc_valid, plan.desc_vidx,
+                               plan.desc_xcol, plan.desc_yrow))
+    y = getattr(KD, kernel)(
+        plan.chunk_vbase, plan.chunk_xbase, *tables, plan.values, x,
+        r=plan.r, c=plan.c,
+        cb=plan.cb, vmax=plan.vmax, xw=plan.xw, pr=plan.pr, nrows=plan.nrows,
+        ncols_pad=plan.ncols_pad, **kw)
+    torch.cuda.synchronize()
+    assert KD.LAUNCHES[kernel] == before + 1
+    assert y.shape == (plan.nrows,) and torch.isfinite(y).all()
+    scale = float(plain.abs().max()) if plain.numel() else 0.0
+    err = float((y - plain).abs().max()) if y.numel() else 0.0
+    assert err <= RTOL * max(scale, 1.0), (err, scale, kw)
+
+
+def _split_plan(rc, device):
+    """302 rows in panels of 64 (nrows % pr != 0), cb=4: many chunks a
+    panel, so S can be 1, nchunks, or neither and not divide nchunks."""
+    mat = _matrix(rc, n=302, m=700, density=0.05)
+    plan = ops.prepare(mat, layout="panels", lowering="descriptor",
+                       tune=False, device=device, pr=64, xw=64, cb=4)
+    assert plan.nrows % plan.pr and plan.nchunks >= 5, plan.nchunks
+    return plan
+
+
+@pytest.mark.parametrize("split", ["one", "all", "ragged"])
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+@pytest.mark.parametrize("kernel", PANEL_DESC)
+def test_panel_desc_split(cuda, kernel, rc, split):
+    """S = 1 (plain stores), S = nchunks (one chunk a CTA) and an S that
+    does not divide nchunks, for every block shape."""
+    plan = _split_plan(rc, cuda)
+    n = plan.nchunks
+    s = {"one": 1, "all": n,
+         "ragged": next(k for k in range(3, n) if n % k)}[split]
+    x = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        plan.ncols).astype(np.float32)).to(cuda)
+    _check_panel_desc(kernel, plan, x, split=s)
+
+
+@pytest.mark.parametrize("ring", ["full", "shortened"])
+@pytest.mark.parametrize("rc", [(1, 4), (2, 4), (4, 8), (8, 4)])
+def test_panel_desc_db_ring_lengths(cuda, rc, ring):
+    """Both ring lengths of the staged-ahead kernel, at the wrapper's own
+    split and at S = nchunks (ranges shorter than the ring): DB_STAGES on
+    the split plan, and 2 where a chunk of 10,240 lanes of a dense matrix
+    (an 80 KB value window) leaves no room for DB_STAGES."""
+    if ring == "full":
+        plan = _split_plan(rc, cuda)
+    else:
+        cb = 10_240 // (rc[0] * rc[1])
+        mat = F.csr_to_spc5(F.csr_from_dense(_dense((64, 4_096), 1.0, 18)),
+                            *rc)
+        plan = ops.prepare(mat, layout="panels", lowering="descriptor",
+                           tune=False, device=cuda, pr=64, xw=1_024, cb=cb)
+        assert plan.nchunks >= 2
+    launch = KD.panels_launch(
+        KD.DB_STAGES, plan.npanels, plan.nchunks, cb=plan.cb, r=plan.r,
+        c=plan.c, vmax=plan.vmax, xw=plan.xw, pr=plan.pr,
+        wv=plan.desc_vidx.element_size(), wx=plan.desc_xcol.element_size(),
+        device=cuda)
+    assert launch["stages"] == (KD.DB_STAGES if ring == "full" else 2)
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        plan.ncols).astype(np.float32)).to(cuda)
+    for split in (None, plan.nchunks):
+        _check_panel_desc("spmv_cuda_panels_desc_db", plan, x, split=split)
+
+
+@pytest.mark.parametrize("rc", [(2, 4), (4, 8)])
+@pytest.mark.parametrize("kernel", PANEL_DESC)
+def test_panel_desc_tables_at_a_4_byte_offset(cuda, kernel, rc):
+    """Tables handed over as views 4 bytes past a 16-byte boundary (as
+    ``plan_from_arrays`` may get them) run, copied in 4-byte pieces."""
+    plan = _split_plan(rc, cuda)
+    views = []
+    for t in (plan.desc_valid, plan.desc_vidx, plan.desc_xcol,
+              plan.desc_yrow):
+        pad = 4 // t.element_size()
+        buf = torch.empty(t.numel() + pad, dtype=t.dtype, device=cuda)
+        v = buf[pad:].view(t.shape)
+        v.copy_(t)
+        assert v.data_ptr() % 16 and v.data_ptr() % 4 == 0
+        views.append(v)
+    x = torch.from_numpy(np.random.default_rng(19).standard_normal(
+        plan.ncols).astype(np.float32)).to(cuda)
+    for split in (None, 1):
+        _check_panel_desc(kernel, plan, x, split=split, tables=tuple(views))
+
+
+#: chip_smoke.py's panel descriptor plans: the default vocab layer, the test
+#: layer's multi sub-plan and the FEM matrix (cb, r, c, vmax, xw, pr, vidx
+#: and xcol bytes), and the ring-shortening geometry above.
+SMEM_GEOMETRIES = {
+    "vocab": (64, 4, 8, 312, 512, 512, 2, 2),
+    "test_multi": (64, 2, 4, 176, 512, 512, 2, 2),
+    "fem": (64, 4, 4, 1_024, 512, 512, 2, 2),
+    "shortened": (320, 4, 8, 10_240, 1_024, 64, 2, 2),
+}
+
+
+@pytest.mark.parametrize("stages", [1, 2, 3])
+@pytest.mark.parametrize("case", sorted(SMEM_GEOMETRIES))
+def test_panel_desc_smem_matches_the_kernel(cuda, case, stages):
+    """The wrapper's ``panels_smem_bytes`` is the figure the kernel's own
+    stage layout gives (a launch whose figure differs is refused)."""
+    from repro_torch.kernels import _build
+    geom = SMEM_GEOMETRIES[case]
+    lib = _build.load_library("spc5_spmv_desc")
+    assert lib.spc5_spmv_desc_panels_smem(stages, *geom) == \
+        KD.panels_smem_bytes(stages, *geom)
+
+
+@pytest.mark.parametrize("split", [None, 1, 3])
+@pytest.mark.parametrize("kernel", PANEL_DESC)
+def test_panel_desc_all_padding_panel(cuda, kernel, split):
+    """Panels 1 and 3 hold no nonzero, so every chunk of theirs is padding;
+    their rows come out 0 whatever the split."""
+    d = _dense((300, 400), 0.05, 13)
+    d[64:128] = 0.0
+    d[192:256] = 0.0
+    mat = F.csr_to_spc5(F.csr_from_dense(d), 2, 4)
+    plan = ops.prepare(mat, layout="panels", lowering="descriptor",
+                       tune=False, device=cuda, pr=64, xw=64, cb=8)
+    assert not bool(plan.desc_valid[1].any()) and plan.nchunks >= 3
+    x = torch.from_numpy(np.random.default_rng(14).standard_normal(
+        plan.ncols).astype(np.float32)).to(cuda)
+    _check_panel_desc(kernel, plan, x, split=split)
+
+
+def test_panel_desc_shared_memory_refusal(cuda):
+    """The formula of ``panels_smem_bytes`` decides: a ring of two 100 KB
+    value windows does not fit (the double-buffered kernel refuses and
+    launches nothing), one window with its tables in slices does, and a y
+    tile of 60,000 rows (240 KB) fits neither."""
+    d = _dense((64, 4_096), 1.0, 15)
+    mat = F.csr_to_spc5(F.csr_from_dense(d), 4, 8)
+    plan = ops.prepare(mat, layout="panels", lowering="descriptor",
+                       tune=False, device=cuda, pr=64, xw=1_024, cb=800)
+    widths = (plan.desc_vidx.element_size(), plan.desc_xcol.element_size())
+    geom = (plan.cb, plan.r, plan.c, plan.vmax, plan.xw, plan.pr, *widths)
+    assert KD.panels_smem_bytes(2, *geom) > K.MAX_SMEM_BYTES
+    x = torch.from_numpy(np.random.default_rng(16).standard_normal(
+        plan.ncols).astype(np.float32)).to(cuda)
+    before = dict(KD.LAUNCHES)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.spmv(plan, x)
+    assert KD.LAUNCHES == before
+    _check_panel_desc("spmv_cuda_panels_desc", plan, x)
+    tall = F.csr_to_spc5(F.csr_from_dense(_dense((60_000, 64), 1e-3, 17)),
+                         2, 4)
+    plan = ops.prepare(tall, layout="panels", lowering="descriptor",
+                       tune=False, device=cuda, pr=60_000, xw=64, cb=16)
+    x = torch.zeros(plan.ncols, device=cuda)
+    for db in (True, False):
+        with pytest.raises(ValueError, match="shared memory"):
+            ops.spmv(plan, x, double_buffer=db)
+    assert KD.LAUNCHES == dict(before, spmv_cuda_panels_desc=before[
+        "spmv_cuda_panels_desc"] + 1)
 
 
 # ----------------------------------------------------------------------------

@@ -16,7 +16,7 @@ FORBIDDEN = {"jax", "jaxlib", "ml_dtypes", "repro"}
 FILES = sorted(
     os.path.relpath(os.path.join(d, f), REPO)
     for d, _, fs in os.walk(PORT) for f in fs if f.endswith(".py")
-) + ["chip_smoke.py", "time_spmm_desc.py"]
+) + ["chip_smoke.py", "time_spmm_desc.py", "time_panels_desc.py"]
 
 
 def _imported_roots(path):
