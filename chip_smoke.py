@@ -33,9 +33,9 @@ phase that goes wrong:
    converted matrix (``ops.prepare(lowering="mask")``: auto layout, panels,
    and whole-vector), ``ops.spmm(..., double_buffer=False)`` on both panel
    layers at batches of 16 and 128, and batch 1 (one decode token): both
-   panel layers' forwards and ``ops.spmv(..., double_buffer=False)`` on the
-   default layer, so both panel descriptor SpMV kernels run on it (their
-   launches, S, grid and CTAs per SM are printed);
+   panel layers' forwards and ``ops.spmv(..., double_buffer=False)`` on
+   both panel layers, so all four panel SpMV kernels run (their launches,
+   S, grid, threads, shared bytes, CTAs per SM and registers are printed);
    then the whole-vector descriptor plan of the same weight:
    ``ops.prepare(mat)`` at nvec=1 (whole-vector + descriptor, the
    reference's pick for one decode token), ``ops.spmv`` with
@@ -72,10 +72,11 @@ phase that goes wrong:
    kernel beside its bound (its 12-byte slots, padding included, x and y),
    cuSPARSE on the tail alone and its plain version, and the test layer's
    forwards beside the default layer's and cuSPARSE on the whole weight;
-   for context beside the two panel descriptor SpMV kernels on the vocab
-   layer, plain torch sums reading the whole plan and the sectors those
-   kernels read of it (``time_panels_desc.py`` times them at other splits
-   and ring lengths);
+   the four panel SpMV kernels at batch 1 on the vocab layers, each beside
+   its twin of the other lowering, and for context plain torch sums reading
+   the whole descriptor plan and the sectors its panel kernels read of it
+   (``time_panels_desc.py`` times all four at other splits and ring
+   lengths);
 9. prints the ``{"kernels": [...]}`` line, then, last, the
    ``{"ok": true, "device": ...}`` line.
 
@@ -175,6 +176,10 @@ TEST_BLOCK = (2, 4)
 #: Itanium mangling of the kernels' vidx type parameter.
 INDEX_TYPE = {"a": "int8", "s": "int16", "i": "int32"}
 
+#: Registers per thread of each kernel, from the build's ``-Xptxas -v``
+#: report (``build_kernels``), by the label it prints.
+REGISTERS = {}
+
 
 class SmokeFailure(Exception):
     pass
@@ -211,6 +216,9 @@ def build_kernels() -> None:
                     kernel = line.split("'")[1]
             elif "Used" in line and kernel:
                 print(f"    {kernel}: {line.split(':', 1)[1].strip()}")
+                regs = re.search(r"Used (\d+) registers", line)
+                if regs:
+                    REGISTERS[kernel] = int(regs.group(1))
     if not _build.BUILD_LOG:
         print("  loaded from an earlier build")
 
@@ -271,7 +279,7 @@ SMALL_GEOM = {"whole_vector": dict(cb=16),
 
 
 def small_check(device) -> None:
-    """All fourteen kernels against their plain versions, every block
+    """All fifteen kernels against their plain versions, every block
     shape, several chunks and panels (302x260, cb=16, pr=xw=64); the SpMM
     kernels at nvec 3, 16 and 128; the descriptor kernels also on the
     :data:`WIDE_TALL` matrices, whose whole-vector xcol / yrow tables are
@@ -420,44 +428,60 @@ def check_auto_lowering(mat, device) -> None:
         raise SmokeFailure(f"lowering='auto' resolved to {entry}")
 
 
-def panel_desc_launches(plan):
-    """The launches the two panel descriptor SpMV wrappers make on the plan
-    (:func:`spc5_spmv_desc.panels_launch`): stages, blocks per stage, shared
-    memory and threads per CTA, the card's CTAs per SM, S and the grid. On
-    the CPU only the shared-memory plan (no card to ask for occupancy)."""
+def panel_launches(plan):
+    """The launches the two panel SpMV wrappers of the plan's lowering make
+    on it (``panels_launch`` of :mod:`spc5_spmv` or :mod:`spc5_spmv_desc`):
+    stages, shared memory and threads per CTA, the card's CTAs per SM, S,
+    the grid and the kernel's registers (for the descriptor kernels also
+    blocks per stage). On the CPU only the shared-memory plan (no card to
+    ask for occupancy)."""
+    from repro_torch.kernels import spc5_spmv as K
     from repro_torch.kernels import spc5_spmv_desc as KD
+    desc = plan.lowering == "descriptor"
+    mod = KD if desc else K
     out = {}
-    for name, stages in (("s1", 1), ("s2", KD.DB_STAGES)):
-        geom = dict(cb=plan.cb, r=plan.r, c=plan.c, vmax=plan.vmax,
-                    xw=plan.xw, pr=plan.pr,
-                    wv=plan.desc_vidx.element_size(),
-                    wx=plan.desc_xcol.element_size())
-        if plan.device.type == "cuda":
-            out[name] = KD.panels_launch(stages, plan.npanels, plan.nchunks,
-                                         device=plan.device, **geom)
+    for name, stages in (("s1", 1), ("s2", mod.DB_STAGES)):
+        if desc:
+            geom = dict(cb=plan.cb, r=plan.r, c=plan.c, vmax=plan.vmax,
+                        xw=plan.xw, pr=plan.pr,
+                        wv=plan.desc_vidx.element_size(),
+                        wx=plan.desc_xcol.element_size())
         else:
+            geom = dict(cb=plan.cb, r=plan.r, vmax=plan.vmax, pr=plan.pr)
+        if plan.device.type == "cuda":
+            out[name] = mod.panels_launch(stages, plan.npanels,
+                                          plan.nchunks, device=plan.device,
+                                          **geom)
+            kernel = ("spmv_desc_panels_kernel" if desc
+                      else "spmv_panels_kernel")
+            out[name]["registers"] = REGISTERS.get(
+                f"{kernel}<{out[name]['stages']}>")
+        elif desc:
             s, nb, smem = KD.panels_stages(stages, *geom.values())
             out[name] = dict(stages=s, blocks_per_stage=nb, smem_bytes=smem)
+        else:
+            s, smem = K.panels_stages(stages, plan.cb, plan.vmax, plan.pr)
+            out[name] = dict(stages=s, smem_bytes=smem,
+                             threads=K.panel_threads(plan.cb, plan.r))
     return out
 
 
 def print_plan(name, plan) -> None:
     """Geometry, the kernels' dynamic shared memory per CTA (ptxas reports
     only static shared memory, which is 0) and, for a descriptor plan, the
-    tables' dtypes and bytes; for a panel descriptor plan the SpMV kernels'
-    launches (:func:`panel_desc_launches`: S, grid, CTAs per SM)."""
-    g = {k: getattr(plan, k) for k in ("cb", "vmax", "pr", "xw", "npanels",
-                                       "nchunks", "desc_lane_nbytes")
+    tables' dtypes and bytes; for a panel plan the SpMV kernels' launches
+    (:func:`panel_launches`: S, grid, CTAs per SM, registers)."""
+    g = {k: getattr(plan, k) for k in ("cb", "vmax", "pr", "xw", "ncols_pad",
+                                       "npanels", "nchunks",
+                                       "desc_lane_nbytes")
          if k in dict(plan.meta)}
     if plan.layout == "whole_vector":
         g["nchunks"] = int(plan.chunk_vbase.shape[0])
-    if plan.layout == "panels" and plan.lowering == "descriptor":
-        g["spmv_launch"] = panel_desc_launches(plan)
+    if plan.layout == "panels":
+        g["spmv_launch"] = panel_launches(plan)
     else:
         for stages in (1, 2):
-            g[f"smem_bytes_s{stages}"] = 4 * (
-                stages * (plan.vmax + plan.xw) + plan.pr
-                if plan.layout == "panels" else stages * plan.vmax)
+            g[f"smem_bytes_s{stages}"] = 4 * stages * plan.vmax
     if plan.lowering == "descriptor":
         tables = [getattr(plan, f"desc_{t}")
                   for t in ("valid", "vidx", "xcol", "yrow")]
@@ -514,11 +538,34 @@ def check_y(name, y, plan, x, y64, launches, path):
     return abs_err
 
 
+#: The mask panel SpMV kernels, also held at S = 1 (:func:`check_split_one`).
+MASK_PANEL_SPMV = ("spmv_cuda_panels_db", "spmv_cuda_panels")
+
+
+def check_split_one(name, plan, x, y64, path):
+    """Kernel ``name`` at S = 1 (one CTA a panel, plain stores) against the
+    plain version and the f64 product, as :func:`check_y` holds the S its
+    wrapper picks. Not a launch of the path (its counts are already read)."""
+    import torch
+    y = kernel_call(name, plan, x, split=1)()
+    e_plain = rel_err(y, plain_y(plan, x))
+    e64 = rel_err(y, torch.from_numpy(y64))
+    print(f"check {name} at S = 1 ({path}): {e_plain:.3g} of max|y| from "
+          f"the plain version, {e64:.3g} from f64 scipy")
+    if not (e_plain <= TOL and e64 <= TOL):
+        raise SmokeFailure(f"{name} at S = 1 disagrees: {e_plain} / {e64} "
+                           f"> {TOL}")
+
+
 def check(plans, ys, launches, x, y64):
-    """Every kernel launched, and each y checked by :func:`check_y`."""
-    return {name: check_y(name, ys[name], plans[layout, lowering], x, y64,
+    """Every kernel launched, and each y checked by :func:`check_y` (the
+    mask panel kernels also at S = 1)."""
+    errs = {name: check_y(name, ys[name], plans[layout, lowering], x, y64,
                           launches, "SpMV path")
             for name, (layout, lowering, _, _) in KERNELS.items()}
+    for name in MASK_PANEL_SPMV:
+        check_split_one(name, plans["panels", "mask"], x, y64, "SpMV path")
+    return errs
 
 
 def cuda_time_ms(fn, device, reps=REPS):
@@ -654,6 +701,8 @@ def measure(plans, x, csr, launches, errs, timer=cuda_time_ms):
                "bound_by": bound_by, "library_ms": library_ms}
         if lowering == "descriptor":
             row.update(desc_bounds(plan, plans[layout, "mask"], csr.nnz))
+        if layout == "panels":
+            row["launch"] = panel_launches(plan)["s2" if db else "s1"]
         rows.append(row)
     return rows
 
@@ -722,8 +771,8 @@ def print_spmm_plan(name, plan) -> None:
         g["tables"] = "/".join(str(t.dtype).replace("torch.", "")
                                for t in tables)
         g["table_bytes"] = sum(t.numel() * t.element_size() for t in tables)
-        if panels:
-            g["spmv_launch"] = panel_desc_launches(plan)
+    if panels:
+        g["spmv_launch"] = panel_launches(plan)
     g["plan_bytes"] = sum(a.numel() * a.element_size() for a in plan.arrays)
     print(f"  plan {name}: {g}, build {plan.trace[-1]['duration_s']:.1f} s")
 
@@ -783,7 +832,13 @@ VOCAB_SPMM = ("spmm_cuda_panels_desc_db", "spmm_cuda_panels_desc",
 #: synchronous twin goes through ``ops.spmv(..., double_buffer=False)``.
 BATCH1 = {"spmv_cuda_panels_desc_db": (("panels", "descriptor"), True),
           "spmv_cuda_panels_desc": (("panels", "descriptor"), False),
-          "spmv_cuda_panels_db": (("panels", "mask"), True)}
+          "spmv_cuda_panels_db": (("panels", "mask"), True),
+          "spmv_cuda_panels": (("panels", "mask"), False)}
+#: Each batch-1 kernel's twin of the other lowering, timed beside it.
+BATCH1_TWIN = {"spmv_cuda_panels_desc_db": "spmv_cuda_panels_db",
+               "spmv_cuda_panels_desc": "spmv_cuda_panels",
+               "spmv_cuda_panels_db": "spmv_cuda_panels_desc_db",
+               "spmv_cuda_panels": "spmv_cuda_panels_desc"}
 
 
 def reset_all_launches():
@@ -853,9 +908,9 @@ def f64_matrix(csr):
 
 
 def check_vocab(layers, ys, y1, launches, acts, csr):
-    """Every SpMM kernel of the path and both batch-1 SpMV kernels
+    """Every SpMM kernel of the path and the four batch-1 SpMV kernels
     launched; each output is checked by :func:`check_spmm` (batch 1 by
-    :func:`check_y`)."""
+    :func:`check_y`, the mask kernels also at S = 1)."""
     for name in (*VOCAB_SPMM, *BATCH1):
         if launches.get(name, 0) <= 0:
             raise SmokeFailure(f"{name} was not launched on the SparseLinear "
@@ -874,44 +929,54 @@ def check_vocab(layers, ys, y1, launches, acts, csr):
     for name, (key, _) in BATCH1.items():
         errs[name] = check_y(name, y1[name], layers[key].plan, x1, y64,
                              launches, "SparseLinear path, batch 1")
+    for name in MASK_PANEL_SPMV:
+        check_split_one(name, layers["panels", "mask"].plan, x1, y64,
+                        "SparseLinear path, batch 1")
     return errs
 
 
 def measure_batch1(layers, x1, csr, launches, errs, timer=cuda_time_ms):
-    """Rows 8 and 9 (the panel descriptor SpMV kernels) at batch 1 on the
-    default vocab layer: each beside its needed and whole-plan bounds, the
-    mask kernel on the mask layer, cuSPARSE ``torch.mv``, the plain
-    version and :func:`plan_read_ms`. Returns {kernel: numbers} for the
-    kernels' ``vocab_batch1``."""
+    """The four panel SpMV kernels at batch 1 (rows 3-4 on the mask layer,
+    8-9 on the default descriptor layer): each beside its bound (for a
+    descriptor kernel also the whole-plan and mask-plan bounds), cuSPARSE
+    ``torch.mv``, its layer's plain version, its launch plan (S, grid,
+    threads, shared bytes, CTAs per SM, registers), its twin of the other
+    lowering and :func:`plan_read_ms` of the descriptor plan. Returns
+    {kernel: numbers} for the kernels' ``vocab_batch1``."""
     import torch
     device = x1.device
-    plan = layers["panels", "descriptor"].plan
-    mask_plan = layers["panels", "mask"].plan
     csr_t = sparse_csr(csr, device)
     print("  batch 1: timing cuSPARSE CSR (torch.mv on sparse_csr_tensor)")
     library_ms = timer(lambda: torch.mv(csr_t, x1), device)
-    print("  batch 1: timing the plain version, panels descriptor")
-    plain_ms = timer(lambda: plain_y(plan, x1), device)
-    print("  batch 1: timing spmv_cuda_panels_db on the mask layer")
-    mask_ms = timer(kernel_call("spmv_cuda_panels_db", mask_plan, x1), device)
-    launch = panel_desc_launches(plan)
-    bound_ms, bound_by, nbytes = bound(plan, csr.nnz)
-    read_ms = plan_read_ms(plan, timer)
-    per = {}
-    for name, key in (("spmv_cuda_panels_desc_db", "s2"),
-                      ("spmv_cuda_panels_desc", "s1")):
+    plain_ms, launch, ms = {}, {}, {}
+    for key in (("panels", "descriptor"), ("panels", "mask")):
+        plan = layers[key].plan
+        print(f"  batch 1: timing the plain version, {key[0]} {key[1]}")
+        plain_ms[key] = timer(lambda p=plan: plain_y(p, x1), device)
+        launch[key] = panel_launches(plan)
+    read_ms = plan_read_ms(layers["panels", "descriptor"].plan, timer)
+    for name, (key, _) in BATCH1.items():
         print(f"  batch 1: timing {name}")
-        ms = timer(kernel_call(name, plan, x1), device)
-        print(f"time {name} (vocab, batch 1): {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, cuSPARSE CSR {library_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, "
-              f"{bound_ms / ms:.3f} of it), spmv_cuda_panels_db "
-              f"{mask_ms:.4f} ms; launch {launch[key]}")
+        ms[name] = timer(kernel_call(name, layers[key].plan, x1), device)
+    per = {}
+    for name, (key, db) in BATCH1.items():
+        plan = layers[key].plan
+        bound_ms, bound_by, nbytes = bound(plan, csr.nnz)
+        twin = BATCH1_TWIN[name]
+        lplan = launch[key]["s2" if db else "s1"]
+        print(f"time {name} (vocab, batch 1): {ms[name]:.4f} ms, plain "
+              f"{plain_ms[key]:.4f} ms, cuSPARSE CSR {library_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, "
+              f"{bound_ms / ms[name]:.3f} of it), {twin} {ms[twin]:.4f} ms; "
+              f"launch {lplan}")
         per[name] = {"launches": launches[name], "max_abs_err": errs[name],
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms,
-                     **desc_bounds(plan, mask_plan, csr.nnz),
-                     "mask_ms": mask_ms, **read_ms, "launch": launch[key]}
+                     "ms": ms[name], "plain_ms": plain_ms[key],
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library_ms, "twin": twin,
+                     "twin_ms": ms[twin], "launch": lplan}
+        if key[1] == "descriptor":
+            per[name].update(desc_bounds(plan, layers["panels", "mask"].plan,
+                                         csr.nnz), **read_ms)
     return per
 
 
@@ -1386,7 +1451,7 @@ def measure_test(layer, flat, default, x1, acts, csr, tail, launches,
           f"sub-plan, batch 1: {forwards['multi_spmv']:.4f} / "
           f"{forwards['multi_spmv_s1']:.4f} ms, bound {multi_bound[0]:.4f} "
           f"ms by {multi_bound[1]} ({multi_bound[2]} bytes); launch "
-          f"{panel_desc_launches(multi)}")
+          f"{panel_launches(multi)}")
     print(f"time flat-tail plan (b), batch 1: {forwards['flat_spmv']:.4f} "
           f"ms ({kernel_name(flat.multi)} "
           f"{forwards['flat_multi_spmv']:.4f} + spmv_coo "

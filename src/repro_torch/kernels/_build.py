@@ -41,8 +41,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "spc5_spmv": {
         **{f"spc5_spmv_whole_s{s}": [_P] * 8 + [_I] * 7 + [_P]
            for s in (1, 2)},
-        **{f"spc5_spmv_panels_s{s}": [_P] * 9 + [_I] * 11 + [_P]
-           for s in (1, 2)},
+        "spc5_spmv_panels_s1": [_P] * 9 + [_I] * 12 + [_P],
+        "spc5_spmv_panels_s2": [_P] * 9 + [_I] * 13 + [_P],
+        "spc5_spmv_panels_occupancy": [_I] * 4 + [_P],
+        "spc5_spmv_panels_smem": [_I] * 4,
     },
     "spc5_spmv_desc": {
         **{f"spc5_spmv_desc_whole_s{s}": [_P] * 8 + [_I] * 8 + [_P]

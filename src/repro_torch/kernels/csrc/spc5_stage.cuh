@@ -1,5 +1,6 @@
 // Helpers shared by the SPC5 kernels of this directory: copies from global
-// into shared memory (plain loads, or cp.async for a double buffer), reads
+// into shared memory (plain loads, cp.async for a double buffer, or Hopper's
+// bulk copy completing on an mbarrier), reads
 // of the descriptor tables at their built width, the SpMM kernels' split of
 // a CTA into column groups, and the dynamic-shared-memory opt-in before a
 // launch.
@@ -27,6 +28,54 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Hopper's bulk copy, the one-dimensional form of the TMA: one thread copies
+// a contiguous run of bytes (both ends 16-byte aligned, a multiple of 16
+// long) into the CTA's shared memory, and the mbarrier at bar counts the
+// bytes as they land. The thread that issues the copies of a phase first
+// announces their total with mbar_expect_tx (its arrival, the barrier's
+// only one); every thread then waits for the phase with mbar_wait.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Makes the mbarrier_init of this thread visible to the async proxy; a
+// __syncthreads() after it makes it visible to the other threads.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Wait until the mbarrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 // Copy n floats (n a multiple of 4, both pointers 16-byte aligned) from

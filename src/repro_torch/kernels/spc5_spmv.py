@@ -12,6 +12,11 @@ arguments minus ``interpret``:
   ``spmv_cuda_panels_db`` spc5_spmv_panels_s2    ``spmv_pallas_panels_db``
   ======================  =====================  ===========================
 
+The panel kernels split each panel's chunks among S CTAs (chosen here
+from the card's occupancy, :func:`panels_launch`; ``split`` overrides it),
+stage each chunk's metadata in shared memory and decode a block row per
+thread.
+
 A CPU tensor goes to the plain PyTorch version (:mod:`repro_torch.core.
 ref_spmv`); a CUDA tensor goes to the kernel, or the wrapper raises. There
 is no fallback from one to the other. Each wrapper counts the launches of
@@ -19,7 +24,8 @@ its kernel in :data:`LAUNCHES` (CPU calls launch nothing and count nothing).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import ctypes
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,6 +41,23 @@ LAUNCHES: Dict[str, int] = {"spmv_cuda": 0, "spmv_cuda_db": 0,
 MAX_SMEM_BYTES = 227 * 1024
 
 _MAX_THREADS = 256          # the kernels' __launch_bounds__
+
+#: Stages in the ring of ``spmv_cuda_panels_db``: chunks staged ahead of the
+#: decode are DB_STAGES - 1. ``time_panels_desc.py`` times rings of 2 and 3;
+#: on the H100 a ring of 2 was the faster on both smoke plans (PERF.md,
+#: PR 17). A ring that does not fit a CTA shortens to 2
+#: (:func:`panels_stages`).
+DB_STAGES = 2
+
+#: Block rows of a chunk each panel-kernel thread decodes, one at a time
+#: (:func:`panel_threads`): two were faster than one or four on the H100
+#: (PERF.md, PR 17).
+ROWS_PER_THREAD = 2
+
+#: Waves of CTAs the split aims at (:func:`panels_split`): more, shorter
+#: chunk ranges keep every SM busy to the end. One rule for the mask and the
+#: descriptor panel SpMV kernels.
+SPLIT_WAVES = 4
 
 
 def reset_launches() -> None:
@@ -166,9 +189,92 @@ def spmv_cuda_db(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
 # panel layout
 # ----------------------------------------------------------------------------
 
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def panel_threads(cb: int, r: int) -> int:
+    """Threads of a panel-kernel CTA: one per :data:`ROWS_PER_THREAD` block
+    rows of a chunk (cb * r rows), in whole warps, 32..256."""
+    rows = -(-cb * r // ROWS_PER_THREAD)
+    return min(_MAX_THREADS, max(32, -(-rows // 32) * 32))
+
+
+def panels_smem_bytes(stages: int, cb: int, vmax: int, pr: int) -> int:
+    """Dynamic shared memory of one panel-kernel CTA: the (pr,) f32 y tile,
+    then ``stages`` stages, each the value window, the chunk's four
+    metadata rows (cb int32 entries each) and a 16-byte slot for the
+    chunk's x window start and the stage's mbarrier, every part 16-byte
+    aligned. The kernel's ``stage_layout`` (``csrc/spc5_spmv.cu``) refuses
+    a launch whose figure differs from its own."""
+    stage = _r16(4 * vmax) + 4 * _r16(4 * cb) + 16
+    return _r16(4 * pr) + stages * stage
+
+
+def panels_stages(stages: int, cb: int, vmax: int, pr: int,
+                  what: str = "panel kernel") -> Tuple[int, int]:
+    """(stages, shared bytes per CTA) of a panel launch: ``stages == 1`` is
+    the synchronous kernel; a ring that does not fit a CTA is shortened
+    (down to 2). Raises ``ValueError`` when even that does not fit."""
+    def nbytes(s):
+        return panels_smem_bytes(s, cb, vmax, pr)
+    while stages > 2 and nbytes(stages) > MAX_SMEM_BYTES:
+        stages -= 1
+    _check_smem(nbytes(stages), what)
+    return stages, nbytes(stages)
+
+
+def panels_split(npanels: int, nchunks: int, ctas_per_sm: int,
+                 sms: int) -> int:
+    """S, the CTAs among which each panel's chunk list is cut: enough CTAs
+    for :data:`SPLIT_WAVES` waves of the ``ctas_per_sm * sms`` the card
+    holds at once, at most one a chunk."""
+    slots = max(1, ctas_per_sm * sms)
+    return max(1, min(nchunks, -(-SPLIT_WAVES * slots // max(1, npanels))))
+
+
+_OCCUPANCY: Dict[Tuple[int, int, int, int], Tuple[int, int]] = {}
+
+
+def panels_occupancy(stages: int, threads: int, smem: int,
+                     device: torch.device) -> Tuple[int, int]:
+    """(CTAs one SM holds at once, SMs) for the panel kernel at ``stages``
+    (1: the synchronous one), as the CUDA runtime reports them."""
+    key = (stages, threads, smem, device.index or 0)
+    if key not in _OCCUPANCY:
+        lib = _build.load_library("spc5_spmv")
+        out = (ctypes.c_int * 2)()
+        err = lib.spc5_spmv_panels_occupancy(stages, threads, smem, key[3],
+                                             ctypes.addressof(out))
+        _raise_on(err, "spc5_spmv_panels_occupancy")
+        _OCCUPANCY[key] = (out[0], out[1])
+    return _OCCUPANCY[key]
+
+
+def panels_launch(stages: int, npanels: int, nchunks: int, *, cb: int,
+                  r: int, vmax: int, pr: int, device: torch.device,
+                  split: Optional[int] = None, what: str = "panel kernel"
+                  ) -> Dict[str, int]:
+    """The launch a panel wrapper makes on ``device`` (a card): ``stages``,
+    ``smem_bytes`` and ``threads`` per CTA, the card's ``ctas_per_sm`` and
+    ``sms``, ``split`` (S, from :func:`panels_split` unless given) and
+    ``grid`` (npanels * S)."""
+    stages, smem = panels_stages(stages, cb, vmax, pr, what)
+    threads = panel_threads(cb, r)
+    per_sm, sms = panels_occupancy(stages, threads, smem, device)
+    if split is None:
+        split = panels_split(npanels, nchunks, per_sm, sms)
+    if not 1 <= split <= nchunks:
+        raise ValueError(f"split must be in [1, {nchunks}] (the chunks of a "
+                         f"panel), got {split}")
+    return dict(stages=stages, smem_bytes=smem, threads=threads,
+                ctas_per_sm=per_sm, sms=sms, split=split,
+                grid=npanels * split)
+
+
 def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
             chunk_mask, chunk_voff, chunk_row, values, x, *, r, c, cb, vmax,
-            xw, pr, nrows, ncols_pad):
+            xw, pr, nrows, ncols_pad, split=None):
     npanels, nchunks = chunk_vbase.shape
     named = dict(chunk_vbase=chunk_vbase, chunk_xbase=chunk_xbase,
                  chunk_col=chunk_col, chunk_mask=chunk_mask,
@@ -190,20 +296,24 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
             r=r, c=c, pr=pr, nrows=nrows, ncols_pad=ncols_pad)
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
-    _check_smem(stages * (vmax + xw) * 4 + pr * 4, fn)
-    # every chunk stages an xw-wide window of x at chunk_xbase: pad x so the
-    # last window stays in bounds, as the Pallas wrappers do (ncols_pad can
-    # also be below ncols, when the last columns hold no nonzero)
-    xp = torch.nn.functional.pad(x, (0, max(0, ncols_pad - x.shape[0])))
-    _aligned({"values": values, "x": xp})
+    launch = panels_launch(stages, npanels, nchunks, cb=cb, r=r, vmax=vmax,
+                           pr=pr, device=values.device, split=split, what=fn)
+    # the kernels read x in place at the set lanes, all inside every chunk's
+    # window: x shorter than ncols_pad is padded as the Pallas wrappers pad it
+    xp = (x if x.shape[0] >= ncols_pad else
+          torch.nn.functional.pad(x, (0, ncols_pad - x.shape[0])))
+    _aligned({"values": values})
     lib = _build.load_library("spc5_spmv")
-    y = torch.empty(nrows, dtype=torch.float32, device=values.device)
-    err = getattr(lib, f"spc5_spmv_panels_s{stages}")(
+    # S > 1 CTAs add into each panel's rows, so y starts at 0
+    y = (torch.zeros if launch["split"] > 1 else torch.empty)(
+        nrows, dtype=torch.float32, device=values.device)
+    ring = () if stages == 1 else (launch["stages"],)
+    err = getattr(lib, f"spc5_spmv_panels_s{1 if stages == 1 else 2}")(
         chunk_vbase.data_ptr(), chunk_xbase.data_ptr(), chunk_col.data_ptr(),
         chunk_mask.data_ptr(), chunk_voff.data_ptr(), chunk_row.data_ptr(),
         values.data_ptr(), xp.data_ptr(), y.data_ptr(), npanels, nchunks, cb,
-        vmax, xw, pr, nrows, r, c, _threads(cb), values.device.index or 0,
-        _stream(values.device))
+        vmax, pr, nrows, r, c, launch["split"], *ring, launch["smem_bytes"],
+        launch["threads"], values.device.index or 0, _stream(values.device))
     _raise_on(err, fn)
     LAUNCHES[fn] += 1
     return y
@@ -214,14 +324,18 @@ def spmv_cuda_panels(chunk_vbase, chunk_xbase, chunk_col, chunk_mask,
                      col_map: Optional[torch.Tensor] = None,
                      value_scale: Optional[torch.Tensor] = None, *, r: int,
                      c: int, cb: int, vmax: int, xw: int, pr: int,
-                     nrows: int, ncols_pad: int) -> torch.Tensor:
-    """Row-panel SpMV, one CTA per panel with its (pr,) y tile in shared
-    memory (replaces ``spmv_pallas_panels``). x is (ncols,), padded here."""
+                     nrows: int, ncols_pad: int,
+                     split: Optional[int] = None) -> torch.Tensor:
+    """Row-panel SpMV, each panel's chunks split among S CTAs that copy one
+    chunk's value window and metadata at a time, waiting for it before the
+    decode, and sum into a (pr,) y tile in shared memory (replaces
+    ``spmv_pallas_panels``). x is (ncols,), read in place (padded where
+    shorter than ncols_pad)."""
     _unsupported(col_map, value_scale)
     return _panels("spmv_cuda_panels", 1, chunk_vbase, chunk_xbase,
                    chunk_col, chunk_mask, chunk_voff, chunk_row, values, x,
                    r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr, nrows=nrows,
-                   ncols_pad=ncols_pad)
+                   ncols_pad=ncols_pad, split=split)
 
 
 def spmv_cuda_panels_db(chunk_vbase, chunk_xbase, chunk_col, chunk_mask,
@@ -229,11 +343,13 @@ def spmv_cuda_panels_db(chunk_vbase, chunk_xbase, chunk_col, chunk_mask,
                         col_map: Optional[torch.Tensor] = None,
                         value_scale: Optional[torch.Tensor] = None, *,
                         r: int, c: int, cb: int, vmax: int, xw: int, pr: int,
-                        nrows: int, ncols_pad: int) -> torch.Tensor:
-    """Row-panel SpMV with the next chunk's value and x windows prefetched
-    by cp.async (replaces ``spmv_pallas_panels_db``)."""
+                        nrows: int, ncols_pad: int,
+                        split: Optional[int] = None) -> torch.Tensor:
+    """Row-panel SpMV with a ring of :data:`DB_STAGES` chunks (value
+    window and metadata) staged ahead by bulk copies (replaces
+    ``spmv_pallas_panels_db``)."""
     _unsupported(col_map, value_scale)
-    return _panels("spmv_cuda_panels_db", 2, chunk_vbase, chunk_xbase,
-                   chunk_col, chunk_mask, chunk_voff, chunk_row, values, x,
-                   r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr, nrows=nrows,
-                   ncols_pad=ncols_pad)
+    return _panels("spmv_cuda_panels_db", DB_STAGES, chunk_vbase,
+                   chunk_xbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
+                   values, x, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr,
+                   nrows=nrows, ncols_pad=ncols_pad, split=split)

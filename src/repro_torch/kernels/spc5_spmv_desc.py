@@ -42,6 +42,8 @@ from repro_torch.core import ref_spmv as R
 
 from . import _build
 from . import spc5_spmv as K
+# one split rule for both panel SpMV pairs (SPLIT_WAVES is re-exported)
+from .spc5_spmv import SPLIT_WAVES, _r16, panels_split  # noqa: F401
 
 #: Launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES: Dict[str, int] = {"spmv_cuda_desc": 0, "spmv_cuda_desc_db": 0,
@@ -152,14 +154,6 @@ def spmv_cuda_desc_db(chunk_vbase, desc_valid, desc_vidx, desc_xcol,
 #: 3). A ring that does not fit a CTA shortens to 2 (:func:`panels_stages`).
 DB_STAGES = 3
 
-#: Waves of CTAs the split aims at (:func:`panels_split`): more, shorter
-#: chunk ranges keep every SM busy to the end (chip_smoke.py's split sweep).
-SPLIT_WAVES = 4
-
-
-def _r16(n: int) -> int:
-    return -(-n // 16) * 16
-
 
 def panels_smem_bytes(stages: int, nb: int, r: int, c: int, vmax: int,
                       xw: int, pr: int, wv: int, wx: int) -> int:
@@ -195,15 +189,6 @@ def panels_stages(stages: int, cb: int, r: int, c: int, vmax: int, xw: int,
             stages -= 1
     K._check_smem(nbytes(stages, nb), what)
     return stages, nb, nbytes(stages, nb)
-
-
-def panels_split(npanels: int, nchunks: int, ctas_per_sm: int,
-                 sms: int) -> int:
-    """S, the CTAs among which each panel's chunk list is cut: enough CTAs
-    for :data:`SPLIT_WAVES` waves of the ``ctas_per_sm * sms`` the card
-    holds at once, at most one a chunk."""
-    slots = max(1, ctas_per_sm * sms)
-    return max(1, min(nchunks, -(-SPLIT_WAVES * slots // max(1, npanels))))
 
 
 _OCCUPANCY: Dict[Tuple[int, int, int, int], Tuple[int, int]] = {}

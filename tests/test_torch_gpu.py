@@ -144,6 +144,197 @@ def test_cuda_plan_rejects_cpu_x(cuda):
 
 
 # ----------------------------------------------------------------------------
+# mask panel SpMV: the split grid, the staged metadata, a block row a thread
+# ----------------------------------------------------------------------------
+
+PANEL_MASK = ("spmv_cuda_panels", "spmv_cuda_panels_db")
+
+
+def _check_panel_mask(kernel, plan, x, **kw):
+    """One wrapper call on the plan's arrays (``split`` in kw; the kernel
+    gets ``x_kernel`` where given, else x), counted once and held against
+    ``spmv_panels`` of x."""
+    plain = R.spmv_panels(plan.dev, x, r=plan.r, c=plan.c, pr=plan.pr,
+                          nrows=plan.nrows, ncols_pad=plan.ncols_pad)
+    before = K.LAUNCHES[kernel]
+    y = getattr(K, kernel)(
+        plan.chunk_vbase, plan.chunk_xbase, plan.chunk_col, plan.chunk_mask,
+        plan.chunk_voff, plan.chunk_row, plan.values, kw.pop("x_kernel", x),
+        r=plan.r, c=plan.c,
+        cb=plan.cb, vmax=plan.vmax, xw=plan.xw, pr=plan.pr, nrows=plan.nrows,
+        ncols_pad=plan.ncols_pad, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[kernel] == before + 1
+    assert y.shape == (plan.nrows,) and torch.isfinite(y).all()
+    scale = float(plain.abs().max()) if plain.numel() else 0.0
+    err = float((y - plain).abs().max()) if y.numel() else 0.0
+    assert err <= RTOL * max(scale, 1.0), (err, scale, kw)
+
+
+def _mask_split_plan(rc, device, n=302, cb=4):
+    """n rows in panels of 64 (302: nrows % pr != 0, and nrows % r != 0 for
+    r = 8), cb=4: many chunks a panel, so S can be 1, nchunks, or neither
+    and not divide nchunks."""
+    plan = ops.prepare(_matrix(rc, n=n, m=700, density=0.05),
+                       layout="panels", lowering="mask", tune=False,
+                       device=device, pr=64, xw=64, cb=cb)
+    assert plan.nrows % plan.pr and plan.nchunks >= 5, plan.nchunks
+    return plan
+
+
+def _x(plan, seed, device):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        plan.ncols).astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("split", ["one", "chosen", "all", "ragged"])
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+@pytest.mark.parametrize("kernel", PANEL_MASK)
+def test_panel_mask_split(cuda, kernel, rc, split):
+    """S = 1 (plain stores), the wrapper's S, S = nchunks (one chunk a CTA)
+    and an S that does not divide nchunks, for every block shape (beta(8,4)
+    with nrows % r != 0: its last block row reaches past nrows)."""
+    plan = _mask_split_plan(rc, cuda)
+    n = plan.nchunks
+    s = {"one": 1, "chosen": None, "all": n,
+         "ragged": next(k for k in range(3, n) if n % k)}[split]
+    _check_panel_mask(kernel, plan, _x(plan, 11, cuda), split=s)
+
+
+@pytest.mark.parametrize("rc", [(1, 8), (4, 8), (8, 4)])
+@pytest.mark.parametrize("kernel", PANEL_MASK)
+def test_panel_mask_x_in_place_or_padded(cuda, kernel, rc):
+    """An x of ncols_pad entries or more is read in place, where NaN entries
+    past the matrix's columns must not reach y; a shorter one (the matrix's
+    ncols, half of them, none) is padded with zeros to ncols_pad, as the
+    plain version and the Pallas wrappers pad it. At the wrapper's S and at
+    S = 1."""
+    plan = _mask_split_plan(rc, cuda)
+    assert plan.ncols < plan.ncols_pad
+    x = _x(plan, 12, cuda)
+    tail = torch.full((plan.ncols_pad,), float("nan"), device=cuda)
+    for split in (None, 1):
+        _check_panel_mask(kernel, plan, x, split=split,
+                          x_kernel=torch.cat([x, tail]))
+        for n in (plan.ncols, plan.ncols // 2, 0):
+            _check_panel_mask(kernel, plan, x[:n].clone(), split=split)
+
+
+@pytest.mark.parametrize("rc", [(1, 8), (2, 4), (4, 8), (8, 4)])
+@pytest.mark.parametrize("kernel", PANEL_MASK)
+def test_panel_mask_cb6_stages_4_byte_pieces(cuda, kernel, rc):
+    """cb = 6: a chunk's metadata rows are 24 bytes, so every other one
+    starts off a 16-byte boundary and the kernels copy them in 4-byte
+    pieces; 6 * r block rows are not whole warps."""
+    plan = _mask_split_plan(rc, cuda, cb=6)
+    assert K.panel_threads(6, rc[0]) == 32
+    for split in (None, 1, 3):
+        _check_panel_mask(kernel, plan, _x(plan, 13, cuda), split=split)
+
+
+@pytest.mark.parametrize("split", [None, 1, 3])
+@pytest.mark.parametrize("kernel", PANEL_MASK)
+def test_panel_mask_all_padding_panel(cuda, kernel, split):
+    """Panels 1 and 3 hold no nonzero, so every chunk of theirs is padding
+    (and some CTAs' whole ranges); their rows come out 0 whatever the
+    split."""
+    d = _dense((300, 400), 0.05, 13)
+    d[64:128] = 0.0
+    d[192:256] = 0.0
+    mat = F.csr_to_spc5(F.csr_from_dense(d), 2, 4)
+    plan = ops.prepare(mat, layout="panels", lowering="mask", tune=False,
+                       device=cuda, pr=64, xw=64, cb=8)
+    assert not bool(plan.chunk_mask[1].any()) and plan.nchunks >= 3
+    _check_panel_mask(kernel, plan, _x(plan, 14, cuda), split=split)
+
+
+@pytest.mark.parametrize("ring", [2, 3])
+@pytest.mark.parametrize("rc", [(1, 4), (4, 8), (8, 4)])
+def test_panel_mask_db_ring_lengths(cuda, rc, ring, monkeypatch):
+    """Rings of 2 (DB_STAGES) and 3 at the wrapper's split and at S =
+    nchunks (ranges shorter than the ring); and a dense chunk's 94 KB stage
+    (value window and metadata), where a ring of 3 does not fit and
+    shortens to 2."""
+    monkeypatch.setattr(K, "DB_STAGES", ring)
+    plan = _mask_split_plan(rc, cuda)
+    x = _x(plan, 15, cuda)
+    for split in (None, plan.nchunks):
+        _check_panel_mask("spmv_cuda_panels_db", plan, x, split=split)
+    cb = 96_000 // (4 * rc[0] * rc[1] + 16)
+    mat = F.csr_to_spc5(F.csr_from_dense(_dense((64, 4_096), 1.0, 18)),
+                        *rc)
+    plan = ops.prepare(mat, layout="panels", lowering="mask", tune=False,
+                       device=cuda, pr=64, xw=1_024, cb=cb)
+    launch = K.panels_launch(ring, plan.npanels, plan.nchunks, cb=plan.cb,
+                             r=plan.r, vmax=plan.vmax, pr=plan.pr,
+                             device=cuda)
+    assert launch["stages"] == 2 and plan.nchunks >= 2
+    x = _x(plan, 16, cuda)
+    for split in (None, plan.nchunks):
+        _check_panel_mask("spmv_cuda_panels_db", plan, x, split=split)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4, 8])
+@pytest.mark.parametrize("rc", [(1, 4), (4, 8), (8, 4)])
+@pytest.mark.parametrize("kernel", PANEL_MASK)
+def test_panel_mask_rows_per_thread(cuda, kernel, rc, rows, monkeypatch):
+    """One, two (ROWS_PER_THREAD), four and eight block rows a thread: other
+    thread counts, so other splits, and threads that loop over blocks."""
+    monkeypatch.setattr(K, "ROWS_PER_THREAD", rows)
+    plan = _mask_split_plan(rc, cuda, cb=16)
+    for split in (None, 1):
+        _check_panel_mask(kernel, plan, _x(plan, 18, cuda), split=split)
+
+
+#: chip_smoke.py's mask panel plans (cb, vmax, pr): the vocab mask layer and
+#: the FEM matrix, a cb = 6 plan, and a ring-shortening geometry.
+MASK_SMEM_GEOMETRIES = {
+    "vocab": (64, 312, 512),
+    "fem": (64, 1_024, 512),
+    "cb6": (6, 48, 64),
+    "shortened": (640, 20_480, 64),
+}
+
+
+@pytest.mark.parametrize("stages", [1, 2, 3])
+@pytest.mark.parametrize("case", sorted(MASK_SMEM_GEOMETRIES))
+def test_panel_mask_smem_matches_the_kernel(cuda, case, stages):
+    """The wrapper's ``panels_smem_bytes`` is the figure the kernel's own
+    stage layout gives (a launch whose figure differs is refused)."""
+    from repro_torch.kernels import _build
+    geom = MASK_SMEM_GEOMETRIES[case]
+    lib = _build.load_library("spc5_spmv")
+    assert lib.spc5_spmv_panels_smem(stages, *geom) == \
+        K.panels_smem_bytes(stages, *geom)
+
+
+def test_panel_mask_launch_refuses_a_wrong_smem_figure(cuda):
+    """A shared-memory figure other than the kernel's own layout, or a split
+    outside [1, nchunks], is refused with CUDA error 1 and launches
+    nothing."""
+    from repro_torch.kernels import _build
+    plan = _mask_split_plan((2, 4), cuda)
+    launch = K.panels_launch(1, plan.npanels, plan.nchunks, cb=plan.cb,
+                             r=plan.r, vmax=plan.vmax, pr=plan.pr,
+                             device=cuda)
+    lib = _build.load_library("spc5_spmv")
+    y = torch.full((plan.nrows,), 7.0, device=cuda)
+    ptrs = [t.data_ptr() for t in (
+        plan.chunk_vbase, plan.chunk_xbase, plan.chunk_col, plan.chunk_mask,
+        plan.chunk_voff, plan.chunk_row, plan.values, _x(plan, 17, cuda), y)]
+    geom = (plan.npanels, plan.nchunks, plan.cb, plan.vmax, plan.pr,
+            plan.nrows, plan.r, plan.c)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for split, smem in ((1, launch["smem_bytes"] + 16),
+                        (plan.nchunks + 1, launch["smem_bytes"])):
+        err = lib.spc5_spmv_panels_s1(*ptrs, *geom, split, smem,
+                                      launch["threads"], 0, stream)
+        assert err == 1, (split, smem)
+    torch.cuda.synchronize()
+    assert bool((y == 7.0).all())
+
+
+# ----------------------------------------------------------------------------
 # SpMM
 # ----------------------------------------------------------------------------
 

@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""Time the two panel descriptor SpMV kernels at other splits and rings.
+"""Time the four panel SpMV kernels at other splits, rings and thread counts.
 
-    python3 time_panels_desc.py [--label NAME] [--out FILE]
+    python3 time_panels_desc.py [--lowering mask|descriptor|both] [--cb N]
+                                [--label NAME] [--out FILE]
 
-A shorter run than ``chip_smoke.py`` for work on the panel kernels of
-``spc5_spmv_desc.cu``: it builds the kernels, prepares the two panel
-descriptor plans ``chip_smoke.py`` times at batch 1 (the default vocab
-layer's: yi-6b's 64,000 x 4,096 vocab weight at density 0.1 in beta(4,8),
-``ops.prepare(lowering="descriptor", nvec=128)``; and the FEM matrix's,
-pr=512, cb=64, xw=512), and on each times both kernels with CUDA events, L2
-flushed before every call: at S = 1 and at 1/2, 1, 2, 3 and 4 times the S
-the wrapper picks (capped at nchunks), and the double-buffered one with a
-ring of 2 as well as its ``DB_STAGES`` (replaced for the call). Every
-setting is first held against the plain version (within ``1e-5 *
-max|y|``). It prints the card's name and power limit, one line per plan,
-kernel and setting, and last one JSON object ``{"label": ..., "card": ...,
+A shorter run than ``chip_smoke.py`` for work on the panel SpMV kernels of
+``spc5_spmv.cu`` (mask) and ``spc5_spmv_desc.cu`` (descriptor): it builds
+the kernels, prepares the panel plans ``chip_smoke.py`` times at batch 1
+(yi-6b's 64,000 x 4,096 vocab weight at density 0.1 in beta(4,8),
+``ops.prepare(lowering=..., nvec=128)``; and the FEM matrix's, pr=512,
+cb=64, xw=512) in each asked lowering (``--cb``: both plans cut into
+chunks of N blocks instead, pr and xw as before), and on each times both
+kernels with CUDA events, L2 flushed before every call: at S = 1 and at
+1/2, 1, 2, 3 and 4 times the S the wrapper picks (capped at nchunks), the
+double-buffered one with rings of 2 and 3 (``DB_STAGES`` replaced for the
+call), and the mask kernels with 1, 2 and 4 block rows a thread
+(``ROWS_PER_THREAD``, which sets the CTA's threads and so S). Every setting
+is first held against the plain version (within ``1e-5 * max|y|``). It
+prints the card's name and power limit, one line per plan, kernel and
+setting, and last one JSON object ``{"label": ..., "card": ...,
 "launch": {plan: {"s1": ..., "s2": ...}}, "times": {"<plan> <kernel>
 <setting>": ms}}``, also written to ``--out``.
 """
@@ -29,26 +33,38 @@ import numpy as np
 
 import chip_smoke as S
 
-KERNELS = {"spmv_cuda_panels_desc_db": "s2", "spmv_cuda_panels_desc": "s1"}
+KERNELS = {"descriptor": {"spmv_cuda_panels_desc_db": "s2",
+                          "spmv_cuda_panels_desc": "s1"},
+           "mask": {"spmv_cuda_panels_db": "s2", "spmv_cuda_panels": "s1"}}
 
 
 def settings(plan, launch):
-    """(kernel, setting, ring length or None, split) to time on the plan."""
+    """(kernel, setting, module overrides, split) to time on the plan."""
+    from repro_torch.kernels import spc5_spmv as K
     from repro_torch.kernels import spc5_spmv_desc as KD
+    module = KD if plan.lowering == "descriptor" else K
     out = []
-    for name, key in KERNELS.items():
+    for name, key in KERNELS[plan.lowering].items():
         auto = launch[key]["split"]
         splits = {1, max(1, auto // 2)} | {min(plan.nchunks, m * auto)
                                            for m in (1, 2, 3, 4)}
-        out += [(name, f"split{s}", None, s) for s in sorted(splits)]
-    out += [("spmv_cuda_panels_desc_db", f"ring{s}", s, None)
-            for s in sorted({2, KD.DB_STAGES})]
+        out += [(name, f"split{s}", {}, s) for s in sorted(splits)]
+        if module is K:
+            out += [(name, f"rows{k}", {(K, "ROWS_PER_THREAD"): k}, None)
+                    for k in (1, 2, 4) if k != K.ROWS_PER_THREAD]
+    db = next(iter(KERNELS[plan.lowering]))
+    out += [(db, f"ring{s}", {(module, "DB_STAGES"): s}, None)
+            for s in (2, 3)]
     return out
 
 
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--lowering", default="both",
+                    choices=("mask", "descriptor", "both"))
+    ap.add_argument("--cb", type=int, default=0,
+                    help="chunk size of both plans (default: their own)")
     ap.add_argument("--label", default="")
     ap.add_argument("--out", default="")
     args = ap.parse_args()
@@ -56,7 +72,6 @@ def main() -> int:
         print("time_panels_desc: no CUDA device", file=sys.stderr)
         return 1
     from repro_torch.kernels import ops
-    from repro_torch.kernels import spc5_spmv_desc as KD
     device = torch.device("cuda")
     card = S.card_line()
     print(card)
@@ -64,28 +79,35 @@ def main() -> int:
     S.build_kernels()
     _, _, vocab = S.make_vocab()
     _, fem = S.make_matrix()
-    plans = {"vocab": ops.prepare(vocab, lowering="descriptor",
-                                  nvec=S.VOCAB["nvec"], device=device),
-             "fem": ops.prepare(fem, layout="panels", lowering="descriptor",
-                                tune=False, device=device,
-                                **S.GEOM["panels"])}
+    lowerings = (("mask", "descriptor") if args.lowering == "both"
+                 else (args.lowering,))
+    plans = {}
+    cut = dict(S.GEOM["panels"], **({"cb": args.cb} if args.cb else {}))
+    for lowering in lowerings:
+        vocab_cut = dict(layout="panels", tune=False, **cut) if args.cb \
+            else dict(nvec=S.VOCAB["nvec"])
+        plans[f"vocab {lowering}"] = ops.prepare(
+            vocab, lowering=lowering, device=device, **vocab_cut)
+        plans[f"fem {lowering}"] = ops.prepare(
+            fem, layout="panels", lowering=lowering, tune=False,
+            device=device, **cut)
     del vocab, fem
     rng = np.random.default_rng(1)
     times, launches = {}, {}
     for key, plan in plans.items():
-        if (plan.layout, plan.lowering) != ("panels", "descriptor"):
+        if plan.layout != "panels" or plan.lowering not in key:
             raise S.SmokeFailure(f"{key} plan came out {plan.layout} + "
                                  f"{plan.lowering}")
         S.print_plan(key, plan)
-        launches[key] = S.panel_desc_launches(plan)
+        launches[key] = S.panel_launches(plan)
         x = torch.from_numpy(rng.standard_normal(plan.ncols).astype(
             np.float32)).to(device)
         plain = S.plain_y(plan, x)
-        planned = KD.DB_STAGES
-        for name, setting, ring, split in settings(plan, launches[key]):
+        for name, setting, override, split in settings(plan, launches[key]):
             call = S.kernel_call(name, plan, x, split=split)
-            if ring is not None:
-                KD.DB_STAGES = ring
+            saved = {k: getattr(*k) for k in override}
+            for (module, attr), value in override.items():
+                setattr(module, attr, value)
             try:
                 err = S.rel_err(call(), plain)
                 if not err <= S.TOL:
@@ -93,7 +115,8 @@ def main() -> int:
                                          f"{S.TOL}")
                 ms = S.cuda_time_ms(call, device)
             finally:
-                KD.DB_STAGES = planned
+                for (module, attr), value in saved.items():
+                    setattr(module, attr, value)
             times[f"{key} {name} {setting}"] = ms
             print(f"time {key} {name} {setting}: {ms:.4f} ms (max|y - "
                   f"plain| {err:.3g} of max|y|)")
