@@ -22,7 +22,11 @@ phase that goes wrong:
    layouts (whole-vector, cb=256; panels, pr=512, cb=64, xw=512) and both
    lowerings (mask, descriptor), each with ``double_buffer`` True and
    False; checks that ``lowering="auto"`` resolves to the descriptor
-   lowering by the cost model, as in the reference;
+   lowering by the cost model, as in the reference; the mask panel SpMV
+   kernels are also held at S = 1 and the whole-vector descriptor pair at
+   one CTA for all chunks and at one chunk a CTA (each launch's grid,
+   chunks a CTA, threads, shared bytes, ring, CTAs per SM and registers
+   printed);
 5. SparseLinear path: the vocab projection of yi-6b (64,000 x 4,096, the
    weight ``serve.py``'s vocab bench draws: ``default_rng(0)``, standard
    normal, float32), magnitude-pruned to density 0.1 (beta(4,8) by eq. 4),
@@ -39,9 +43,9 @@ phase that goes wrong:
    then the whole-vector descriptor plan of the same weight:
    ``ops.prepare(mat)`` at nvec=1 (whole-vector + descriptor, the
    reference's pick for one decode token), ``ops.spmv`` with
-   ``double_buffer`` True and False and ``ops.spmm`` at batches of 16 and
-   128, printing the tables' bytes and the host time of
-   ``chunk_descriptors``;
+   ``double_buffer`` True and False (both kernels also at one chunk a CTA)
+   and ``ops.spmm`` at batches of 16 and 128, printing the tables' bytes,
+   the pair's launches and the host time of ``chunk_descriptors``;
 6. beta(r,c)_test path: the same weight in beta(2,4) (whose singleton
    blocks hold about 30 % of the nonzeros) as
    ``SparseLinear.from_dense(w, density=0.1, block=(2, 4), layout="test",
@@ -52,8 +56,10 @@ phase that goes wrong:
    also run on the multi sub-plan alone (``ops.spmv``), checked against its
    plain version and the f64 product less the tail's. Beside it the
    flat-tail plan ``ops.prepare(beta(2,4), layout="test")`` at nvec = 1:
-   whole-vector multi, tail through the plain ``spmv_coo``, no tail kernel.
-   Prints the host time of ``split_singletons``;
+   whole-vector multi, tail through the plain ``spmv_coo``, no tail kernel;
+   both whole-vector descriptor SpMV kernels also run on its multi
+   sub-plan alone, at the launch their wrappers pick and at one chunk a
+   CTA. Prints the host time of ``split_singletons``;
 7. in each path every launch counter is set to 0 just before and read just
    after, and every kernel of the path must have launched; every output is
    checked against the kernel's plain version on the card and against a
@@ -66,7 +72,7 @@ phase that goes wrong:
    bytes this run's product needs over 3.35 TB/s and its flops over 67
    TFLOP/s (for a descriptor kernel, whose ``xcol`` / ``yrow`` tables
    repeat each block's columns and rows, c ``xcol`` entries per block and
-   r ``yrow`` entries, one in the panel layout; beside
+   one ``yrow`` entry; beside
    it the bound on the whole plan's bytes, the mask plan's bound for the
    same product and the mask kernel's time on the mask plan); the tail
    kernel beside its bound (its 12-byte slots, padding included, x and y),
@@ -466,6 +472,36 @@ def panel_launches(plan):
     return out
 
 
+#: The whole-vector descriptor SpMV pair, also held at forced grids
+#: (:func:`check_whole_grids`): kernel -> its entry in
+#: :func:`whole_launches`.
+WHOLE_DESC_SPMV = {"spmv_cuda_desc_db": "s2", "spmv_cuda_desc": "s1"}
+
+
+def whole_launches(plan):
+    """The launches the whole-vector descriptor SpMV wrappers make on the
+    plan (``whole_launch`` of :mod:`spc5_spmv_desc`): grid, chunks a CTA,
+    threads, shared bytes, ring length (stages), blocks a stage, tile rows,
+    the card's CTAs per SM and the kernel's registers. On the CPU only the
+    shared-memory plan (no card to ask for occupancy)."""
+    from repro_torch.kernels import spc5_spmv_desc as KD
+    geom = dict(cb=plan.cb, r=plan.r, c=plan.c, vmax=plan.vmax,
+                wv=plan.desc_vidx.element_size(),
+                wx=plan.desc_xcol.element_size())
+    out = {}
+    for name, stages in (("s1", 1), ("s2", KD.WHOLE_DB_STAGES)):
+        if plan.device.type == "cuda":
+            out[name] = KD.whole_launch(stages, int(plan.chunk_vbase.shape[0]),
+                                        device=plan.device, **geom)
+            out[name]["registers"] = REGISTERS.get(
+                f"spmv_desc_whole_kernel<{out[name]['stages']}>")
+        else:
+            s, nb, smem = KD.whole_stages(stages, tile=KD.WHOLE_TILE_ROWS,
+                                          **geom)
+            out[name] = dict(stages=s, blocks_per_stage=nb, smem_bytes=smem)
+    return out
+
+
 def print_plan(name, plan) -> None:
     """Geometry, the kernels' dynamic shared memory per CTA (ptxas reports
     only static shared memory, which is 0) and, for a descriptor plan, the
@@ -479,6 +515,8 @@ def print_plan(name, plan) -> None:
         g["nchunks"] = int(plan.chunk_vbase.shape[0])
     if plan.layout == "panels":
         g["spmv_launch"] = panel_launches(plan)
+    elif plan.lowering == "descriptor":
+        g["spmv_launch"] = whole_launches(plan)
     else:
         for stages in (1, 2):
             g[f"smem_bytes_s{stages}"] = 4 * stages * plan.vmax
@@ -538,23 +576,40 @@ def check_y(name, y, plan, x, y64, launches, path):
     return abs_err
 
 
-#: The mask panel SpMV kernels, also held at S = 1 (:func:`check_split_one`).
+#: The mask panel SpMV kernels, also held at S = 1 (:func:`check_forced`).
 MASK_PANEL_SPMV = ("spmv_cuda_panels_db", "spmv_cuda_panels")
 
 
-def check_split_one(name, plan, x, y64, path):
-    """Kernel ``name`` at S = 1 (one CTA a panel, plain stores) against the
-    plain version and the f64 product, as :func:`check_y` holds the S its
-    wrapper picks. Not a launch of the path (its counts are already read)."""
+def check_forced(name, plan, x, y64, path, **kw):
+    """Kernel ``name`` with its wrapper's launch forced by ``kw`` (``split``
+    of a panel kernel, ``grid`` of a whole-vector one) against the plain
+    version and the f64 product, as :func:`check_y` holds the launch its
+    wrapper picks. Not a launch of the path (its counts are already
+    read)."""
     import torch
-    y = kernel_call(name, plan, x, split=1)()
+    y = kernel_call(name, plan, x, **kw)()
     e_plain = rel_err(y, plain_y(plan, x))
     e64 = rel_err(y, torch.from_numpy(y64))
-    print(f"check {name} at S = 1 ({path}): {e_plain:.3g} of max|y| from "
+    what = (", ".join(f"{k} = {v}" for k, v in kw.items())
+            or "its wrapper's launch")
+    print(f"check {name} at {what} ({path}): {e_plain:.3g} of max|y| from "
           f"the plain version, {e64:.3g} from f64 scipy")
-    if not (e_plain <= TOL and e64 <= TOL):
-        raise SmokeFailure(f"{name} at S = 1 disagrees: {e_plain} / {e64} "
+    if not (tuple(y.shape) == (plan.nrows,) and e_plain <= TOL
+            and e64 <= TOL):
+        raise SmokeFailure(f"{name} at {what} disagrees: {e_plain} / {e64} "
                            f"> {TOL}")
+
+
+def check_whole_grids(plan, x, y64, path, one_cta=False):
+    """Both whole-vector descriptor SpMV kernels at one chunk a CTA and,
+    where ``one_cta``, at one CTA for every chunk; prints the launches the
+    wrappers pick (:func:`whole_launches`)."""
+    nchunks = int(plan.chunk_vbase.shape[0])
+    launch = whole_launches(plan)
+    for name, key in WHOLE_DESC_SPMV.items():
+        print(f"launch {name} ({path}): {launch[key]}")
+        for grid in ((1, nchunks) if one_cta else (nchunks,)):
+            check_forced(name, plan, x, y64, path, grid=grid)
 
 
 def check(plans, ys, launches, x, y64):
@@ -564,7 +619,10 @@ def check(plans, ys, launches, x, y64):
                           launches, "SpMV path")
             for name, (layout, lowering, _, _) in KERNELS.items()}
     for name in MASK_PANEL_SPMV:
-        check_split_one(name, plans["panels", "mask"], x, y64, "SpMV path")
+        check_forced(name, plans["panels", "mask"], x, y64, "SpMV path",
+                     split=1)
+    check_whole_grids(plans["whole_vector", "descriptor"], x, y64,
+                      "SpMV path", one_cta=True)
     return errs
 
 
@@ -597,16 +655,16 @@ def needed_bytes(plan, whole_plan=False):
     built, padding included, except that a descriptor plan's ``xcol`` table
     repeats each block's c columns over its r rows, so the product needs
     only c ``xcol`` entries per block (``valid`` and ``vidx`` per lane).
-    Its ``yrow`` table repeats each block's r rows over its c columns: r
-    entries per block; in the panel layout, where no block row is clipped,
-    the rows are the lane-0 entry plus k // c (pinned by
-    tests/test_torch_desc_panels.py), so one. ``whole_plan`` counts every
-    byte of the plan instead."""
+    Its ``yrow`` table repeats each block's r rows over its c columns, and
+    on every valid lane the row is the lane-0 entry plus k // c (in both
+    layouts: the whole-vector layout clips lanes past nrows, and they are
+    invalid; pinned by tests/test_torch_desc_panels.py and
+    tests/test_torch_desc_whole.py), so one entry per block. ``whole_plan``
+    counts every byte of the plan instead."""
     total = sum(a.numel() * a.element_size() for a in plan.arrays)
     if plan.lowering == "descriptor" and not whole_plan:
         rc = plan.r * plan.c
-        rows = 1 if plan.layout == "panels" else plan.r
-        for table, kept in (("desc_xcol", plan.c), ("desc_yrow", rows)):
+        for table, kept in (("desc_xcol", plan.c), ("desc_yrow", 1)):
             t = getattr(plan, table)
             total -= t.numel() * t.element_size() // rc * (rc - kept)
     return total
@@ -703,6 +761,8 @@ def measure(plans, x, csr, launches, errs, timer=cuda_time_ms):
             row.update(desc_bounds(plan, plans[layout, "mask"], csr.nnz))
         if layout == "panels":
             row["launch"] = panel_launches(plan)["s2" if db else "s1"]
+        elif lowering == "descriptor":
+            row["launch"] = whole_launches(plan)[WHOLE_DESC_SPMV[name]]
         rows.append(row)
     return rows
 
@@ -930,8 +990,8 @@ def check_vocab(layers, ys, y1, launches, acts, csr):
         errs[name] = check_y(name, y1[name], layers[key].plan, x1, y64,
                              launches, "SparseLinear path, batch 1")
     for name in MASK_PANEL_SPMV:
-        check_split_one(name, layers["panels", "mask"].plan, x1, y64,
-                        "SparseLinear path, batch 1")
+        check_forced(name, layers["panels", "mask"].plan, x1, y64,
+                     "SparseLinear path, batch 1", split=1)
     return errs
 
 
@@ -1141,6 +1201,7 @@ def measure_token(plan, mask_plan, x1, acts, csr, launches, errs, vper,
     print("  token: timing the plain version")
     plain_ms = timer(lambda: plain_y(plan, x1), device)
     per = {}
+    launch = whole_launches(plan)
     for name in TOKEN_KERNELS:
         print(f"  token: timing {name}")
         ms = timer(kernel_call(name, plan, x1), device)
@@ -1156,7 +1217,8 @@ def measure_token(plan, mask_plan, x1, acts, csr, launches, errs, vper,
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": library_ms,
                      **desc_bounds(plan, mask_plan, csr.nnz),
-                     "mask_ms": mask_ms}
+                     "mask_ms": mask_ms,
+                     "launch": launch[WHOLE_DESC_SPMV[name]]}
     name = "spmm_cuda_desc"
     for nvec, act in acts.items():
         x = act.t().contiguous()
@@ -1266,9 +1328,11 @@ def build_flat_test_plan(csr, device):
     print(f"flat-tail plan (b): csr_to_spc5 {t1 - t0:.1f} s, prepare "
           f"{t2 - t1:.1f} s (host)")
     describe_test_plan("flat-tail plan (b)", plan)
-    if plan.multi.layout != "whole_vector" or plan.tail_pr:
+    if (plan.multi.layout, plan.multi.lowering) != (
+            "whole_vector", "descriptor") or plan.tail_pr:
         raise SmokeFailure(f"the flat-tail plan's multi is "
-                           f"{plan.multi.layout}, tail_pr {plan.tail_pr}")
+                           f"{plan.multi.layout} + {plan.multi.lowering}, "
+                           f"tail_pr {plan.tail_pr}")
     return plan
 
 
@@ -1327,6 +1391,18 @@ def check_test(layer, flat, ys, y_flat, launches_a, launches_b, x1, acts,
                    "test path (a)")
     check_y(flat_name, y_flat, flat, x1, y64, launches_b,
             "test path (b), with spmv_coo")
+    # (b)'s multi sub-plan alone: both whole-vector descriptor SpMV kernels
+    # at the launch their wrappers pick and at one chunk a CTA
+    import scipy.sparse
+    rows, cols, vals = (a.cpu().numpy() for a in (
+        flat.single_rows, flat.single_cols, flat.single_values))
+    flat_tail = scipy.sparse.csr_matrix(
+        (vals.astype(np.float64), (rows, cols)), shape=flat.shape)
+    y64_flat = y64 - flat_tail @ x1.cpu().double().numpy()
+    path = "test path (b), multi sub-plan alone"
+    for name in WHOLE_DESC_SPMV:
+        check_forced(name, flat.multi, x1, y64_flat, path)
+    check_whole_grids(flat.multi, x1, y64_flat, path)
     # the multi sub-plan alone: its f64 product is the whole weight's less
     # the tail's
     y64_multi = y64 - tail_parts(plan)[2] @ x1.cpu().double().numpy()
@@ -1418,6 +1494,8 @@ def measure_test(layer, flat, default, x1, acts, csr, tail, launches,
         "flat_spmv": lambda: ops.spmv(flat, x1),
         "flat_multi_spmv": kernel_call(kernel_name(flat.multi), flat.multi,
                                        x1),
+        "flat_multi_spmv_s1": kernel_call(
+            kernel_name(flat.multi, double_buffer=False), flat.multi, x1),
         "flat_spmv_coo": lambda: tail_y(flat, x1),
     }
     for nvec, act in acts.items():
@@ -1455,7 +1533,10 @@ def measure_test(layer, flat, default, x1, acts, csr, tail, launches,
     print(f"time flat-tail plan (b), batch 1: {forwards['flat_spmv']:.4f} "
           f"ms ({kernel_name(flat.multi)} "
           f"{forwards['flat_multi_spmv']:.4f} + spmv_coo "
-          f"{forwards['flat_spmv_coo']:.4f})")
+          f"{forwards['flat_spmv_coo']:.4f}); "
+          f"{kernel_name(flat.multi, double_buffer=False)} "
+          f"{forwards['flat_multi_spmv_s1']:.4f} ms; launch "
+          f"{whole_launches(flat.multi)}")
     multi_rows = {name: {
         "launches": launches[name], "max_abs_err": multi_errs[name],
         "ms": forwards["multi_spmv" if db else "multi_spmv_s1"],
@@ -1523,6 +1604,7 @@ def main() -> int:
         y64 = a64 @ x1.cpu().double().numpy()
         terrs = {name: check_y(name, tys[name], tplan, x1, y64, tlaunches,
                                "token path") for name in TOKEN_KERNELS}
+        check_whole_grids(tplan, x1, y64, "token path")
         if tlaunches["spmm_cuda_desc"] <= 0:
             raise SmokeFailure(f"spmm_cuda_desc was not launched on the "
                                f"whole-vector descriptor path ({tlaunches})")
@@ -1556,6 +1638,10 @@ def main() -> int:
         for row in rows:
             if row["name"] in multi:
                 row["test_multi_batch1"] = multi[row["name"]]
+            if row["name"] in WHOLE_DESC_SPMV:
+                row["flat_multi_batch1_ms"] = tail_row["test_path_ms"][
+                    "flat_multi_spmv" + ("" if row["name"].endswith("_db")
+                                         else "_s1")]
         rows.append(tail_row)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

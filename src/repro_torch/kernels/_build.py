@@ -47,8 +47,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "spc5_spmv_panels_smem": [_I] * 4,
     },
     "spc5_spmv_desc": {
-        **{f"spc5_spmv_desc_whole_s{s}": [_P] * 8 + [_I] * 8 + [_P]
-           for s in (1, 2)},
+        "spc5_spmv_desc_whole_s1": [_P] * 8 + [_I] * 14 + [_P],
+        "spc5_spmv_desc_whole_s2": [_P] * 8 + [_I] * 13 + [_P],
+        "spc5_spmv_desc_whole_occupancy": [_I] * 4 + [_P],
+        "spc5_spmv_desc_whole_smem": [_I] * 8,
         **{f"spc5_spmv_desc_panels_s{s}": [_P] * 9 + [_I] * 17 + [_P]
            for s in (1, 2)},
         "spc5_spmv_desc_panels_occupancy": [_I] * 4 + [_P],

@@ -12,9 +12,13 @@ with the same arguments minus ``interpret``:
   ``spmv_cuda_panels_desc_db``  spc5_spmv_desc_panels_s2  ``spmv_pallas_panels_desc_db``
   ============================  ========================  =================================
 
-The panel kernels split each panel's chunks among S CTAs (chosen here
-from the card's occupancy, :func:`panels_launch`) and stage the tables in
-shared memory (:func:`panels_stages`); ``split`` overrides the choice
+The whole-vector kernels cut the chunks into G contiguous ranges, one CTA
+each (chosen here from the card's occupancy by the panel kernels' split
+rule, :func:`whole_launch`; ``grid`` overrides it), stage the tables in
+shared memory (:func:`whole_stages`) and sum rows in a y tile of
+:data:`WHOLE_TILE_ROWS` rows. The panel kernels
+split each panel's chunks among S CTAs (:func:`panels_launch`) and stage
+the tables likewise (:func:`panels_stages`); ``split`` overrides the choice
 of S.
 
 The tables are taken as built (:func:`repro_torch.core.formats.
@@ -86,11 +90,136 @@ def _widths(vidx, xcol, yrow):
 
 
 # ----------------------------------------------------------------------------
+# launch planning shared by both layouts
+# ----------------------------------------------------------------------------
+
+def _fit_stages(stages: int, cb: int, nbytes, what: str
+                ) -> Tuple[int, int, int]:
+    """(stages, blocks per stage, shared bytes per CTA) from
+    ``nbytes(stages, blocks per stage)``: ``stages == 1`` stages whole chunks
+    cut into slices of fewer blocks (halved) while they do not fit a CTA;
+    a ring of ``stages`` whole chunks is shortened (down to 2) while it does
+    not fit. Raises ``ValueError`` when even that does not fit."""
+    nb = cb
+    if stages == 1:
+        while nb > 1 and nbytes(1, nb) > K.MAX_SMEM_BYTES:
+            nb = -(-nb // 2)
+    else:
+        while stages > 2 and nbytes(stages, nb) > K.MAX_SMEM_BYTES:
+            stages -= 1
+    K._check_smem(nbytes(stages, nb), what)
+    return stages, nb, nbytes(stages, nb)
+
+
+_OCCUPANCY: Dict[Tuple[str, int, int, int, int], Tuple[int, int]] = {}
+
+
+def _occupancy(layout: str, stages: int, threads: int, smem: int,
+               device: torch.device) -> Tuple[int, int]:
+    """(CTAs one SM holds at once, SMs) for the ``layout`` kernel ("whole"
+    or "panels") at ``stages`` (1: the synchronous one), as the CUDA runtime
+    reports them."""
+    key = (layout, stages, threads, smem, device.index or 0)
+    if key not in _OCCUPANCY:
+        lib = _build.load_library("spc5_spmv_desc")
+        out = (ctypes.c_int * 2)()
+        fn = f"spc5_spmv_desc_{layout}_occupancy"
+        err = getattr(lib, fn)(stages, threads, smem, key[4],
+                               ctypes.addressof(out))
+        K._raise_on(err, fn)
+        _OCCUPANCY[key] = (out[0], out[1])
+    return _OCCUPANCY[key]
+
+
+# ----------------------------------------------------------------------------
 # whole-vector layout
 # ----------------------------------------------------------------------------
 
+#: Stages in the ring of ``spmv_cuda_desc_db``, the only ring its kernel is
+#: built for: one chunk is staged ahead of the decode. A ring of 3 (two CTAs
+#: an SM on the token plan, against three) was slower on every smoke plan
+#: on the H100 (PERF.md §6). A ring that does not fit a CTA is refused.
+WHOLE_DB_STAGES = 2
+
+#: Rows of the y tile a whole-vector CTA sums into before it adds them into
+#: y, one global atomic a nonzero row. A chunk of the vocab token plan spans
+#: 4-8 rows, one of the FEM plan about 85; tiles of 64 and 4,096 rows were
+#: no faster on the H100 (PERF.md §6).
+WHOLE_TILE_ROWS = 512
+
+#: Lane quads of a stage each whole-vector thread decodes, and the most
+#: threads a CTA has: on the H100 one quad a thread was 1.5-1.7x slower on
+#: the flat-tail plan's β(2,4) chunks, four 1.1x slower on FEM's, and 256
+#: threads at most up to 1.14x slower (PERF.md §6).
+WHOLE_QUADS_PER_THREAD = 2
+WHOLE_THREADS = 512
+
+
+def whole_smem_bytes(stages: int, nb: int, r: int, c: int, vmax: int,
+                     tile: int, wv: int, wx: int) -> int:
+    """Dynamic shared memory of one whole-vector CTA: the (tile,) f32 y
+    tile, then ``stages`` stages, each the value window and ``nb`` blocks'
+    tables (valid and vidx per lane, the c xcol entries of each block's
+    first row, a 4-byte slot for its lane-0 yrow entry) and a 16-byte
+    mbarrier slot, every part 16-byte aligned. The kernel's
+    ``whole_layout`` (``csrc/spc5_spmv_desc.cu``) refuses a launch whose
+    figure differs from its own."""
+    rc = r * c
+    stage = (_r16(4 * vmax) + _r16(nb * rc) + _r16(nb * rc * wv)
+             + _r16(nb * c * wx) + _r16(4 * nb) + 16)
+    return _r16(4 * tile) + stages * stage
+
+
+def whole_stages(stages: int, cb: int, r: int, c: int, vmax: int, tile: int,
+                 wv: int, wx: int, what: str = "whole-vector kernel"
+                 ) -> Tuple[int, int, int]:
+    """(stages, blocks per stage, shared bytes per CTA) of a whole-vector
+    launch (:func:`_fit_stages`): ``stages`` is 1 (the synchronous kernel)
+    or :data:`WHOLE_DB_STAGES`, never shortened."""
+    if stages not in (1, WHOLE_DB_STAGES):
+        raise ValueError(f"the whole-vector kernels stage 1 or "
+                         f"{WHOLE_DB_STAGES} chunks, not {stages}")
+    return _fit_stages(stages, cb, lambda s, nb: whole_smem_bytes(
+        s, nb, r, c, vmax, tile, wv, wx), what)
+
+
+def chunk_ranges(nchunks: int, parts: int):
+    """The contiguous chunk range ``(first, count)`` of each of ``parts``
+    CTAs, as the kernels cut it (a panel's chunks, or all the whole-vector
+    chunks): part p starts at ``p * nchunks // parts``."""
+    return [(p * nchunks // parts,
+             (p + 1) * nchunks // parts - p * nchunks // parts)
+            for p in range(parts)]
+
+
+def whole_launch(stages: int, nchunks: int, *, cb: int, r: int, c: int,
+                 vmax: int, wv: int, wx: int, device: torch.device,
+                 grid: Optional[int] = None,
+                 what: str = "whole-vector kernel") -> Dict[str, int]:
+    """The launch a whole-vector wrapper makes on ``device`` (a card):
+    ``stages``, ``blocks_per_stage``, ``smem_bytes``, ``threads`` and
+    ``tile_rows`` per CTA, the card's ``ctas_per_sm`` and ``sms``, ``grid``
+    (G, from :func:`panels_split` over one "panel" of every chunk unless
+    given) and ``chunks_per_cta`` (the longest range)."""
+    tile = WHOLE_TILE_ROWS
+    stages, nb, smem = whole_stages(stages, cb, r, c, vmax, tile, wv, wx, what)
+    quads = nb * r * c // 4
+    threads = min(WHOLE_THREADS, max(64, -(-quads // (
+        32 * WHOLE_QUADS_PER_THREAD)) * 32))
+    per_sm, sms = _occupancy("whole", stages, threads, smem, device)
+    if grid is None:
+        grid = panels_split(1, nchunks, per_sm, sms)
+    if not 1 <= grid <= nchunks:
+        raise ValueError(f"grid must be in [1, {nchunks}] (the chunks), "
+                         f"got {grid}")
+    return dict(stages=stages, blocks_per_stage=nb, smem_bytes=smem,
+                threads=threads, tile_rows=tile, ctas_per_sm=per_sm, sms=sms,
+                grid=grid, chunks_per_cta=-(-nchunks // grid))
+
+
 def _whole(fn: str, stages: int, chunk_vbase, desc_valid, desc_vidx,
-           desc_xcol, desc_yrow, values, x, *, r, c, cb, vmax, nrows, ncols):
+           desc_xcol, desc_yrow, values, x, *, r, c, cb, vmax, nrows, ncols,
+           grid=None):
     nchunks = desc_valid.shape[0]
     K._check(dict(chunk_vbase=chunk_vbase, values=values, x=x),
              {"chunk_vbase": (nchunks,), "x": (ncols,)}, values.device)
@@ -105,16 +234,25 @@ def _whole(fn: str, stages: int, chunk_vbase, desc_valid, desc_vidx,
                                             chunk_vbase), x, nrows=nrows)
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
-    K._check_smem(stages * vmax * 4, fn)
+    if vmax % 4:
+        raise ValueError(f"vmax must be a multiple of 4 (whole 16-byte "
+                         f"value windows), got {vmax}")
+    wv, wx, wy = _widths(desc_vidx, desc_xcol, desc_yrow)
+    launch = whole_launch(stages, nchunks, cb=cb, r=r, c=c, vmax=vmax, wv=wv,
+                          wx=wx, device=values.device, grid=grid, what=fn)
     K._aligned({"values": values})
+    # the tables are copied in 4-byte pieces where 16-byte ones do not align
+    K._aligned(tables, 4)
     lib = _build.load_library("spc5_spmv_desc")
-    lanes = cb * r * c
+    # every CTA adds its rows into y
     y = torch.zeros(nrows, dtype=torch.float32, device=values.device)
     err = getattr(lib, f"spc5_spmv_desc_whole_s{stages}")(
         chunk_vbase.data_ptr(), desc_valid.data_ptr(), desc_vidx.data_ptr(),
         desc_xcol.data_ptr(), desc_yrow.data_ptr(), values.data_ptr(),
-        x.data_ptr(), y.data_ptr(), nchunks, lanes, vmax,
-        *_widths(desc_vidx, desc_xcol, desc_yrow), K._threads(lanes),
+        x.data_ptr(), y.data_ptr(), nchunks, cb, r, c, vmax, wv, wx, wy,
+        launch["grid"],
+        *([launch["blocks_per_stage"]] if stages == 1 else []),
+        launch["tile_rows"], launch["smem_bytes"], launch["threads"],
         values.device.index or 0, K._stream(values.device))
     K._raise_on(err, fn)
     LAUNCHES[fn] += 1
@@ -123,26 +261,32 @@ def _whole(fn: str, stages: int, chunk_vbase, desc_valid, desc_vidx,
 
 def spmv_cuda_desc(chunk_vbase, desc_valid, desc_vidx, desc_xcol, desc_yrow,
                    values, x, value_scale=None, *, r: int, c: int, cb: int,
-                   vmax: int, nrows: int, ncols: int) -> torch.Tensor:
-    """Whole-vector descriptor SpMV, one staged value window per chunk
+                   vmax: int, nrows: int, ncols: int,
+                   grid: Optional[int] = None) -> torch.Tensor:
+    """Whole-vector descriptor SpMV, the chunks cut into ``grid`` contiguous
+    ranges (one CTA each; default from the card's occupancy), each chunk's
+    stage copied and waited for before its decode, rows summed in a y tile
     (replaces ``spmv_pallas_desc``). A column permutation would already be
     folded into ``desc_xcol``, so there is no ``col_map``."""
     K._unsupported(None, value_scale)
     return _whole("spmv_cuda_desc", 1, chunk_vbase, desc_valid, desc_vidx,
                   desc_xcol, desc_yrow, values, x, r=r, c=c, cb=cb,
-                  vmax=vmax, nrows=nrows, ncols=ncols)
+                  vmax=vmax, nrows=nrows, ncols=ncols, grid=grid)
 
 
 def spmv_cuda_desc_db(chunk_vbase, desc_valid, desc_vidx, desc_xcol,
                       desc_yrow, values, x, value_scale=None, *, r: int,
-                      c: int, cb: int, vmax: int, nrows: int,
-                      ncols: int) -> torch.Tensor:
-    """Whole-vector descriptor SpMV with the next chunk's value window
-    prefetched by cp.async (replaces ``spmv_pallas_desc_db``)."""
+                      c: int, cb: int, vmax: int, nrows: int, ncols: int,
+                      grid: Optional[int] = None) -> torch.Tensor:
+    """Whole-vector descriptor SpMV with a ring of :data:`WHOLE_DB_STAGES`
+    chunks (tables and value window) staged ahead by bulk copies and
+    cp.async (replaces ``spmv_pallas_desc_db``); ``grid`` as in
+    :func:`spmv_cuda_desc`."""
     K._unsupported(None, value_scale)
-    return _whole("spmv_cuda_desc_db", 2, chunk_vbase, desc_valid,
-                  desc_vidx, desc_xcol, desc_yrow, values, x, r=r, c=c,
-                  cb=cb, vmax=vmax, nrows=nrows, ncols=ncols)
+    return _whole("spmv_cuda_desc_db", WHOLE_DB_STAGES, chunk_vbase,
+                  desc_valid, desc_vidx, desc_xcol, desc_yrow, values, x,
+                  r=r, c=c, cb=cb, vmax=vmax, nrows=nrows, ncols=ncols,
+                  grid=grid)
 
 
 # ----------------------------------------------------------------------------
@@ -172,41 +316,17 @@ def panels_smem_bytes(stages: int, nb: int, r: int, c: int, vmax: int,
 def panels_stages(stages: int, cb: int, r: int, c: int, vmax: int, xw: int,
                   pr: int, wv: int, wx: int,
                   what: str = "panel kernel") -> Tuple[int, int, int]:
-    """(stages, blocks per stage, shared bytes per CTA) of a panel launch.
-
-    ``stages == 1`` is the synchronous kernel: one stage of whole chunks,
-    cut into slices of fewer blocks (halved) while it does not fit a CTA.
-    Otherwise a ring of ``stages`` whole chunks, shortened (down to 2) while
-    it does not fit. Raises ``ValueError`` when even that does not fit."""
-    def nbytes(s, nb):
-        return panels_smem_bytes(s, nb, r, c, vmax, xw, pr, wv, wx)
-    nb = cb
-    if stages == 1:
-        while nb > 1 and nbytes(1, nb) > K.MAX_SMEM_BYTES:
-            nb = -(-nb // 2)
-    else:
-        while stages > 2 and nbytes(stages, nb) > K.MAX_SMEM_BYTES:
-            stages -= 1
-    K._check_smem(nbytes(stages, nb), what)
-    return stages, nb, nbytes(stages, nb)
-
-
-_OCCUPANCY: Dict[Tuple[int, int, int, int], Tuple[int, int]] = {}
+    """(stages, blocks per stage, shared bytes per CTA) of a panel launch
+    (:func:`_fit_stages`)."""
+    return _fit_stages(stages, cb, lambda s, nb: panels_smem_bytes(
+        s, nb, r, c, vmax, xw, pr, wv, wx), what)
 
 
 def panels_occupancy(stages: int, threads: int, smem: int,
                      device: torch.device) -> Tuple[int, int]:
     """(CTAs one SM holds at once, SMs) for the panel kernel at ``stages``
     (1: the synchronous one), as the CUDA runtime reports them."""
-    key = (stages, threads, smem, device.index or 0)
-    if key not in _OCCUPANCY:
-        lib = _build.load_library("spc5_spmv_desc")
-        out = (ctypes.c_int * 2)()
-        err = lib.spc5_spmv_desc_panels_occupancy(
-            stages, threads, smem, key[3], ctypes.addressof(out))
-        K._raise_on(err, "spc5_spmv_desc_panels_occupancy")
-        _OCCUPANCY[key] = (out[0], out[1])
-    return _OCCUPANCY[key]
+    return _occupancy("panels", stages, threads, smem, device)
 
 
 def panels_launch(stages: int, npanels: int, nchunks: int, *, cb: int,

@@ -596,6 +596,297 @@ def test_desc_table_widths(cuda, kernel, table, width):
 
 
 # ----------------------------------------------------------------------------
+# whole-vector descriptor SpMV: contiguous chunk ranges, staged tables, a y
+# tile
+# ----------------------------------------------------------------------------
+
+WHOLE_DESC = ("spmv_cuda_desc", "spmv_cuda_desc_db")
+
+
+def _check_whole_desc(kernel, dev, x, *, geom, x_plain=None, **kw):
+    """One wrapper call on the arrays of ``dev`` (an ``SPC5DescDevice``;
+    ``grid`` in kw), counted once and held against
+    ``spmv_desc`` (on ``x_plain`` where given)."""
+    plain = R.spmv_desc(dev, x if x_plain is None else x_plain,
+                        nrows=geom["nrows"])
+    before = KD.LAUNCHES[kernel]
+    y = getattr(KD, kernel)(dev.chunk_vbase, dev.desc_valid, dev.desc_vidx,
+                            dev.desc_xcol, dev.desc_yrow, dev.values, x,
+                            **geom, **kw)
+    torch.cuda.synchronize()
+    assert KD.LAUNCHES[kernel] == before + 1
+    assert y.shape == (geom["nrows"],) and torch.isfinite(y).all()
+    scale = float(plain.abs().max()) if plain.numel() else 0.0
+    err = float((y - plain).abs().max()) if y.numel() else 0.0
+    assert err <= RTOL * max(scale, 1.0), (err, scale, kw)
+
+
+def _chunks(plan):
+    return int(plan.chunk_vbase.shape[0])
+
+
+def _whole_geom(plan):
+    return dict(r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax,
+                nrows=plan.nrows, ncols=plan.ncols)
+
+
+def _whole_plan(rc, device, cb=4, **matrix):
+    """302 rows (nrows % r != 0) in chunks of cb = 4 blocks: many chunks,
+    so G can be 1, nchunks, or neither and not divide nchunks."""
+    mat = _matrix(rc, **{"n": 302, "m": 700, "density": 0.05, **matrix})
+    plan = ops.prepare(mat, layout="whole_vector", lowering="descriptor",
+                       tune=False, device=device, cb=cb)
+    assert _chunks(plan) >= 5, _chunks(plan)
+    return plan
+
+
+def _plan_x(plan, seed, device):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        plan.ncols).astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("grid", ["one", "chosen", "all", "ragged"])
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+@pytest.mark.parametrize("kernel", WHOLE_DESC)
+def test_whole_desc_grid(cuda, kernel, rc, grid):
+    """One CTA for every chunk, the wrapper's G, one chunk a CTA, and a G
+    that does not divide nchunks, for every block shape."""
+    plan = _whole_plan(rc, cuda)
+    n = _chunks(plan)
+    g = {"one": 1, "chosen": None, "all": n,
+         "ragged": next(k for k in range(3, n) if n % k)}[grid]
+    _check_whole_desc(kernel, plan.dev, _plan_x(plan, 21, cuda),
+                      geom=_whole_geom(plan), grid=g)
+
+
+def _dense_ring_cb(rc):
+    """The largest cb (a multiple of 32) whose dense chunks (vmax = cb * r *
+    c, int16 tables) still fit a ring of two stages."""
+    r, c = rc
+    fits = [cb for cb in range(64, 4_096, 32)
+            if KD.whole_smem_bytes(2, cb, r, c, cb * r * c, KD.WHOLE_TILE_ROWS,
+                                   2, 2) <= K.MAX_SMEM_BYTES]
+    return fits[-1]
+
+
+@pytest.mark.parametrize("chunks", ["sparse", "dense"])
+@pytest.mark.parametrize("rc", [(1, 4), (2, 4), (4, 8), (8, 4)])
+def test_whole_desc_db_rings(cuda, rc, chunks):
+    """The ring of two whole chunks on sparse chunks and on dense ones that
+    leave the CTA's shared memory all but full, each at the wrapper's G and
+    at one chunk a CTA (ranges shorter than the ring)."""
+    if chunks == "dense":
+        cb = _dense_ring_cb(rc)
+        mat = F.csr_to_spc5(F.csr_from_dense(_dense((64, 4_096), 1.0, 22)),
+                            *rc)
+        plan = ops.prepare(mat, layout="whole_vector", lowering="descriptor",
+                           tune=False, device=cuda, cb=cb)
+        assert _chunks(plan) >= 2 and plan.vmax == cb * rc[0] * rc[1]
+    else:
+        plan = _whole_plan(rc, cuda)
+    launch = KD.whole_launch(
+        KD.WHOLE_DB_STAGES, _chunks(plan), cb=plan.cb, r=plan.r, c=plan.c,
+        vmax=plan.vmax, wv=plan.desc_vidx.element_size(),
+        wx=plan.desc_xcol.element_size(), device=cuda)
+    assert launch["stages"] == 2 and launch["blocks_per_stage"] == plan.cb
+    for grid in (None, _chunks(plan)):
+        _check_whole_desc("spmv_cuda_desc_db", plan.dev,
+                          _plan_x(plan, 23, cuda), geom=_whole_geom(plan),
+                          grid=grid)
+
+
+def test_whole_desc_sliced_stages_and_refusal(cuda):
+    """A 160 KB value window (1,280 full beta(4,8) blocks a chunk, int32
+    vidx): the synchronous kernel stages the tables in slices of fewer
+    blocks (at its G, one CTA and one chunk a CTA); the double-buffered
+    kernel, which needs two windows, refuses and launches nothing."""
+    mat = F.csr_to_spc5(F.csr_from_dense(_dense((64, 4_096), 1.0, 24)), 4, 8)
+    plan = ops.prepare(mat, layout="whole_vector", lowering="descriptor",
+                       tune=False, device=cuda, cb=1_280)
+    assert plan.desc_vidx.dtype == torch.int32 and _chunks(plan) >= 2
+    launch = KD.whole_launch(1, _chunks(plan), cb=plan.cb, r=4, c=8,
+                             vmax=plan.vmax, wv=4, wx=2, device=cuda)
+    assert launch["blocks_per_stage"] < plan.cb
+    x = _plan_x(plan, 25, cuda)
+    for grid in (None, 1, _chunks(plan)):
+        _check_whole_desc("spmv_cuda_desc", plan.dev, x,
+                          geom=_whole_geom(plan), grid=grid)
+    before = dict(KD.LAUNCHES)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.spmv(plan, x)
+    assert KD.LAUNCHES == before
+
+
+@pytest.mark.parametrize("rc", [(1, 4), (1, 8), (2, 4)])
+@pytest.mark.parametrize("kernel", WHOLE_DESC)
+def test_whole_desc_odd_cb_copies_4_byte_pieces(cuda, kernel, rc):
+    """cb * r * c not a multiple of 16 (cb = 6 or 5): the valid and vidx
+    runs go by 4-byte cp.async instead of bulk copies."""
+    cb = 6 if rc[0] * rc[1] == 4 else 5
+    plan = _whole_plan(rc, cuda, cb=cb)
+    assert (cb * rc[0] * rc[1]) % 16
+    for grid in (None, 1, _chunks(plan)):
+        _check_whole_desc(kernel, plan.dev, _plan_x(plan, 26, cuda),
+                          geom=_whole_geom(plan), grid=grid)
+
+
+@pytest.mark.parametrize("rc", [(2, 4), (4, 8)])
+@pytest.mark.parametrize("kernel", WHOLE_DESC)
+def test_whole_desc_tables_at_a_4_byte_offset(cuda, kernel, rc):
+    """Tables handed over as views 4 bytes past a 16-byte boundary (as
+    ``plan_from_arrays`` may get them) run, copied in 4-byte pieces."""
+    plan = _whole_plan(rc, cuda)
+    views = []
+    for t in (plan.desc_valid, plan.desc_vidx, plan.desc_xcol,
+              plan.desc_yrow):
+        pad = 4 // t.element_size()
+        buf = torch.empty(t.numel() + pad, dtype=t.dtype, device=cuda)
+        v = buf[pad:].view(t.shape)
+        v.copy_(t)
+        assert v.data_ptr() % 16 and v.data_ptr() % 4 == 0
+        views.append(v)
+    dev = plan.dev._replace(desc_valid=views[0], desc_vidx=views[1],
+                            desc_xcol=views[2], desc_yrow=views[3])
+    for grid in (None, 1):
+        _check_whole_desc(kernel, dev, _plan_x(plan, 27, cuda),
+                          geom=_whole_geom(plan), grid=grid)
+
+
+def _permuted_dev(rc, device, seed):
+    """Whole-vector descriptor arrays of a 304 x 700 matrix whose block
+    rows are permuted (chunk_row takes block row p(i) for block row i): a
+    chunk's rows jump about, up and down, and neighbouring chunks share
+    none."""
+    r = rc[0]
+    mat = _matrix(rc, n=304, m=700, density=0.05, seed=seed)
+    ch = F.to_chunked(mat, cb=8)
+    perm = np.random.default_rng(seed).permutation(304 // r)
+    real = ch.chunk_mask != 0
+    row = np.where(real, perm[ch.chunk_row // r] * r, 0).astype(np.int32)
+    d = F.chunk_descriptors(ch.chunk_mask, ch.chunk_voff, ch.chunk_col, row,
+                            r=r, c=rc[1], vmax=ch.vmax, xmax=700, ymax=304)
+    first = d.yrow[..., 0][real].astype(np.int64)
+    assert (np.diff(first) < 0).any() and (np.diff(first) > 0).any()
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
+         for a in (ch.values, d.valid, d.vidx, d.xcol, d.yrow,
+                   ch.chunk_vbase)]
+    geom = dict(r=r, c=rc[1], cb=8, vmax=ch.vmax, nrows=304, ncols=700)
+    return R.SPC5DescDevice(*t), geom, ch.nchunks
+
+
+@pytest.mark.parametrize("tile", [1, 8, 512])
+@pytest.mark.parametrize("rc", [(1, 8), (2, 4), (4, 4), (8, 4)])
+@pytest.mark.parametrize("kernel", WHOLE_DESC)
+def test_whole_desc_permuted_rows_and_small_tiles(cuda, kernel, rc, tile,
+                                                  monkeypatch):
+    """Permuted, non-monotone block rows, and tiles of 1 and 8 rows that a
+    chunk's rows overrun (added into y directly), at the wrapper's G, one
+    CTA for every chunk (the tile moves many times) and one chunk a CTA."""
+    monkeypatch.setattr(KD, "WHOLE_TILE_ROWS", tile)
+    dev, geom, nchunks = _permuted_dev(rc, cuda, seed=30 + rc[0])
+    x = torch.from_numpy(np.random.default_rng(28).standard_normal(
+        700).astype(np.float32)).to(cuda)
+    for grid in (None, 1, nchunks):
+        _check_whole_desc(kernel, dev, x, geom=geom, grid=grid)
+
+
+@pytest.mark.parametrize("shape", [(300, 40_000), (40_000, 300)])
+@pytest.mark.parametrize("kernel", WHOLE_DESC)
+def test_whole_desc_wide_and_tall_tables(cuda, kernel, shape, monkeypatch):
+    """int32 xcol (40,000 columns) and int32 yrow (40,000 rows), at the
+    wrapper's G and tile, one CTA, and a tile of 8 rows."""
+    d = _dense(shape, 3e-3, 29)
+    plan = ops.prepare(F.csr_to_spc5(F.csr_from_dense(d), 2, 4),
+                       layout="whole_vector", lowering="descriptor",
+                       tune=False, device=cuda, cb=16)
+    table = "desc_xcol" if shape[1] > shape[0] else "desc_yrow"
+    assert getattr(plan, table).dtype == torch.int32
+    x = _plan_x(plan, 31, cuda)
+    for grid, tile in ((None, KD.WHOLE_TILE_ROWS), (1, KD.WHOLE_TILE_ROWS),
+                       (None, 8)):
+        monkeypatch.setattr(KD, "WHOLE_TILE_ROWS", tile)
+        _check_whole_desc(kernel, plan.dev, x, geom=_whole_geom(plan),
+                          grid=grid)
+
+
+@pytest.mark.parametrize("kernel", WHOLE_DESC)
+def test_whole_desc_empty_x_region(cuda, kernel):
+    """Columns 350.. hold no nonzero: the kernels read no x there (unset
+    lanes gather nothing), so NaN in that region leaves y finite and equal
+    to the plain version's on an x zeroed there."""
+    d = _dense((302, 700), 0.05, 32)
+    d[:, 350:] = 0.0
+    plan = ops.prepare(F.csr_to_spc5(F.csr_from_dense(d), 4, 8),
+                       layout="whole_vector", lowering="descriptor",
+                       tune=False, device=cuda, cb=8)
+    x = _plan_x(plan, 33, cuda)
+    x[350:] = 0.0
+    x_nan = x.clone()
+    x_nan[350:] = float("nan")
+    for grid in (None, 1):
+        _check_whole_desc(kernel, plan.dev, x_nan, geom=_whole_geom(plan),
+                          x_plain=x, grid=grid)
+
+
+#: chip_smoke.py's whole-vector descriptor plans (cb, r, c, vmax, tile, vidx
+#: and xcol bytes): the vocab token plan and the FEM matrix; and the sliced
+#: geometry above.
+WHOLE_SMEM_GEOMETRIES = {
+    "token": (256, 4, 8, 1_144, 512, 2, 2),
+    "fem": (256, 4, 4, 4_096, 512, 2, 4),
+    "sliced": (160, 4, 8, 40_960, 8, 4, 2),
+}
+
+
+@pytest.mark.parametrize("stages", [1, 2])
+@pytest.mark.parametrize("case", sorted(WHOLE_SMEM_GEOMETRIES))
+def test_whole_desc_smem_matches_the_kernel(cuda, case, stages):
+    """The wrapper's ``whole_smem_bytes`` is the figure the kernel's own
+    stage layout gives (a launch whose figure differs is refused)."""
+    from repro_torch.kernels import _build
+    geom = WHOLE_SMEM_GEOMETRIES[case]
+    lib = _build.load_library("spc5_spmv_desc")
+    assert lib.spc5_spmv_desc_whole_smem(stages, *geom) == \
+        KD.whole_smem_bytes(stages, *geom)
+
+
+def test_whole_desc_launch_refuses_a_wrong_smem_figure(cuda):
+    """A shared-memory figure other than the kernel's own layout, a grid
+    outside [1, nchunks], or (synchronous entry point) more blocks a stage
+    than a chunk holds is refused with CUDA error 1 and launches nothing."""
+    from repro_torch.kernels import _build
+    plan = _whole_plan((2, 4), cuda)
+    wv, wx, wy = (plan.desc_vidx.element_size(),
+                  plan.desc_xcol.element_size(),
+                  plan.desc_yrow.element_size())
+    lib = _build.load_library("spc5_spmv_desc")
+    y = torch.full((plan.nrows,), 7.0, device=cuda)
+    ptrs = [t.data_ptr() for t in (
+        plan.chunk_vbase, plan.desc_valid, plan.desc_vidx, plan.desc_xcol,
+        plan.desc_yrow, plan.values, _plan_x(plan, 34, cuda), y)]
+    geom = (_chunks(plan), plan.cb, plan.r, plan.c, plan.vmax, wv, wx, wy)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for stages in (1, 2):
+        launch = KD.whole_launch(stages, _chunks(plan), cb=plan.cb, r=plan.r,
+                                 c=plan.c, vmax=plan.vmax, wv=wv, wx=wx,
+                                 device=cuda)
+        entry = getattr(lib, f"spc5_spmv_desc_whole_s{stages}")
+        nb = launch["blocks_per_stage"]
+        cases = [(1, nb, launch["smem_bytes"] + 16),
+                 (_chunks(plan) + 1, nb, launch["smem_bytes"]),
+                 (0, nb, launch["smem_bytes"])]
+        if stages == 1:
+            cases.append((1, plan.cb + 1, launch["smem_bytes"]))
+        for grid, nb, smem in cases:
+            per_stage = (nb,) if stages == 1 else ()
+            err = entry(*ptrs, *geom, grid, *per_stage, launch["tile_rows"],
+                        smem, launch["threads"], 0, stream)
+            assert err == 1, (stages, grid, nb, smem)
+    torch.cuda.synchronize()
+    assert bool((y == 7.0).all())
+
+
+# ----------------------------------------------------------------------------
 # panel descriptor SpMV: the split grid and the staged tables
 # ----------------------------------------------------------------------------
 

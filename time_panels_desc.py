@@ -1,31 +1,59 @@
 #!/usr/bin/env python3
-"""Time the four panel SpMV kernels at other splits, rings and thread counts.
+"""Time the SpMV kernels of one layout at other launch settings.
 
-    python3 time_panels_desc.py [--lowering mask|descriptor|both] [--cb N]
+    python3 time_panels_desc.py [--layout panels|whole]
+                                [--lowering mask|descriptor|both] [--cb N]
                                 [--label NAME] [--out FILE]
 
-A shorter run than ``chip_smoke.py`` for work on the panel SpMV kernels of
-``spc5_spmv.cu`` (mask) and ``spc5_spmv_desc.cu`` (descriptor): it builds
-the kernels, prepares the panel plans ``chip_smoke.py`` times at batch 1
-(yi-6b's 64,000 x 4,096 vocab weight at density 0.1 in beta(4,8),
-``ops.prepare(lowering=..., nvec=128)``; and the FEM matrix's, pr=512,
-cb=64, xw=512) in each asked lowering (``--cb``: both plans cut into
-chunks of N blocks instead, pr and xw as before), and on each times both
-kernels with CUDA events, L2 flushed before every call: at S = 1 and at
-1/2, 1, 2, 3 and 4 times the S the wrapper picks (capped at nchunks), the
-double-buffered one with rings of 2 and 3 (``DB_STAGES`` replaced for the
-call), and the mask kernels with 1, 2 and 4 block rows a thread
-(``ROWS_PER_THREAD``, which sets the CTA's threads and so S). Every setting
-is first held against the plain version (within ``1e-5 * max|y|``). It
+A shorter run than ``chip_smoke.py`` for work on the SpMV kernels of
+``spc5_spmv.cu`` (mask) and ``spc5_spmv_desc.cu`` (descriptor). It builds
+the kernels and prepares the plans ``chip_smoke.py`` times at batch 1,
+yi-6b's 64,000 x 4,096 vocab weight at density 0.1 in beta(4,8) and the FEM
+matrix (``--cb``: those two plans cut into chunks of N blocks instead):
+
+* ``--layout panels`` (the default): the panel plans (the vocab weight
+  through ``ops.prepare(lowering=..., nvec=128)``; the FEM matrix at pr=512,
+  cb=64, xw=512) in each asked lowering. Both panel SpMV kernels of the
+  lowering at S = 1 and at 1/2, 1, 2, 3 and 4 times the S the wrapper picks
+  (capped at nchunks), the double-buffered one with rings of 2 and 3
+  (``DB_STAGES`` replaced for the call), and the mask kernels with 1, 2 and
+  4 block rows a thread (``ROWS_PER_THREAD``, which sets the CTA's threads
+  and so S).
+* ``--layout whole``: the whole-vector descriptor plans (the vocab weight's
+  token plan, ``ops.prepare`` at nvec 1; the FEM matrix at cb=256; the
+  flat-tail test plan's multi sub-plan, the same weight in beta(2,4)). Both
+  ``spmv_cuda_desc`` kernels at 1/2, 1 and 2 times the grid G the wrapper
+  picks and at one chunk a CTA; with y tiles of 64 and 4,096 rows
+  (``WHOLE_TILE_ROWS``), one and four lane quads a thread
+  (``WHOLE_QUADS_PER_THREAD``) and 256 threads a CTA at most
+  (``WHOLE_THREADS``), each replaced for the call; and with the card's L2
+  fetch granularity set to 32 bytes (``cuCtxSetLimit``, restored after the
+  setting; it asks L2 to fetch only the 32-byte sectors a kernel reads of
+  the repeated ``xcol`` / ``yrow`` entries). Beside them plain torch sums
+  reading each whole plan and the parts of it the kernels read
+  (``chip_smoke.plan_read_ms``), and the static SASS of the whole-vector
+  kernels (``cuobjdump -sass``: instructions per kernel and the counts of
+  the loads, atomics, shuffles and barriers among them; the listing is
+  written beside ``--out``).
+
+Every setting is first held against the plain version (within ``1e-5 *
+max|y|``) and timed with CUDA events, L2 flushed before every call. It
 prints the card's name and power limit, one line per plan, kernel and
-setting, and last one JSON object ``{"label": ..., "card": ...,
-"launch": {plan: {"s1": ..., "s2": ...}}, "times": {"<plan> <kernel>
-<setting>": ms}}``, also written to ``--out``.
+setting, and last one JSON object ``{"label": ..., "card": ..., "launch":
+{plan: {"s1": ..., "s2": ...}}, "times": {"<plan> <kernel> <setting>":
+ms}}`` (``--layout whole`` adds ``"read_ms"`` and ``"sass"``), also written
+to ``--out``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import json
+import os
+import re
+import shutil
+import subprocess
 import sys
 import time
 
@@ -35,11 +63,36 @@ import chip_smoke as S
 
 KERNELS = {"descriptor": {"spmv_cuda_panels_desc_db": "s2",
                           "spmv_cuda_panels_desc": "s1"},
-           "mask": {"spmv_cuda_panels_db": "s2", "spmv_cuda_panels": "s1"}}
+           "mask": {"spmv_cuda_panels_db": "s2", "spmv_cuda_panels": "s1"},
+           "whole": S.WHOLE_DESC_SPMV}
+
+#: CU_LIMIT_MAX_L2_FETCH_GRANULARITY of the CUDA driver API.
+_L2_FETCH_LIMIT = 5
 
 
-def settings(plan, launch):
-    """(kernel, setting, module overrides, split) to time on the plan."""
+@contextlib.contextmanager
+def l2_fetch_granularity(nbytes):
+    """The current context's L2 fetch granularity set to ``nbytes`` (a hint
+    to the card) for the block, then restored."""
+    if nbytes is None:
+        yield
+        return
+    cuda = ctypes.CDLL("libcuda.so.1")
+    old = ctypes.c_size_t(0)
+    if cuda.cuCtxGetLimit(ctypes.byref(old), _L2_FETCH_LIMIT) != 0:
+        raise S.SmokeFailure("cuCtxGetLimit(MAX_L2_FETCH_GRANULARITY) failed")
+    if cuda.cuCtxSetLimit(_L2_FETCH_LIMIT, ctypes.c_size_t(nbytes)) != 0:
+        raise S.SmokeFailure("cuCtxSetLimit(MAX_L2_FETCH_GRANULARITY) failed")
+    print(f"    L2 fetch granularity {nbytes} bytes (default {old.value})")
+    try:
+        yield
+    finally:
+        cuda.cuCtxSetLimit(_L2_FETCH_LIMIT, old)
+
+
+def panel_settings(plan, launch):
+    """(kernel, setting, module overrides, wrapper keywords, L2 fetch
+    bytes) to time on a panel plan."""
     from repro_torch.kernels import spc5_spmv as K
     from repro_torch.kernels import spc5_spmv_desc as KD
     module = KD if plan.lowering == "descriptor" else K
@@ -48,40 +101,110 @@ def settings(plan, launch):
         auto = launch[key]["split"]
         splits = {1, max(1, auto // 2)} | {min(plan.nchunks, m * auto)
                                            for m in (1, 2, 3, 4)}
-        out += [(name, f"split{s}", {}, s) for s in sorted(splits)]
+        out += [(name, f"split{s}", {}, {"split": s}, None)
+                for s in sorted(splits)]
         if module is K:
-            out += [(name, f"rows{k}", {(K, "ROWS_PER_THREAD"): k}, None)
+            out += [(name, f"rows{k}", {(K, "ROWS_PER_THREAD"): k}, {}, None)
                     for k in (1, 2, 4) if k != K.ROWS_PER_THREAD]
     db = next(iter(KERNELS[plan.lowering]))
-    out += [(db, f"ring{s}", {(module, "DB_STAGES"): s}, None)
+    out += [(db, f"ring{s}", {(module, "DB_STAGES"): s}, {}, None)
             for s in (2, 3)]
     return out
 
 
-def main() -> int:
-    import torch
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--lowering", default="both",
-                    choices=("mask", "descriptor", "both"))
-    ap.add_argument("--cb", type=int, default=0,
-                    help="chunk size of both plans (default: their own)")
-    ap.add_argument("--label", default="")
-    ap.add_argument("--out", default="")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("time_panels_desc: no CUDA device", file=sys.stderr)
-        return 1
+def whole_settings(plan, launch):
+    """The same for a whole-vector descriptor plan."""
+    from repro_torch.kernels import spc5_spmv_desc as KD
+    nchunks = int(plan.chunk_vbase.shape[0])
+    out = []
+    for name, key in KERNELS["whole"].items():
+        auto = launch[key]["grid"]
+        grids = {max(1, auto // 2), auto, min(nchunks, 2 * auto), nchunks}
+        out += [(name, f"grid{g}", {}, {"grid": g}, None)
+                for g in sorted(grids)]
+        out += [(name, f"tile{t}", {(KD, "WHOLE_TILE_ROWS"): t}, {}, None)
+                for t in (64, 4096)]
+        out += [(name, "fetch32", {}, {}, 32)]
+        out += [(name, f"quads{q}", {(KD, "WHOLE_QUADS_PER_THREAD"): q}, {},
+                 None) for q in (1, 4)]
+        out += [(name, "threads256", {(KD, "WHOLE_THREADS"): 256}, {}, None)]
+    return out
+
+
+def sass_counts(out_path):
+    """Static SASS of the whole-vector descriptor kernels from ``cuobjdump
+    -sass`` on the built library: {kernel: {"instructions": n, opcode
+    class: n, "decode_loop": n, "chunk_loop": n}}, the last two the
+    instructions of the innermost loop around the decode's shuffle and of
+    the outermost one around the stage wait (every width's path counted;
+    a thread runs one); the listing goes to ``out_path``."""
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(_build._lib_path(
+        "spc5_spmv_desc"))], capture_output=True, text=True, timeout=120,
+        check=True).stdout
+    with open(out_path, "w") as f:
+        f.write(text)
+    classes = {"LDS": r"LDS\b", "LDG": r"LDG\b", "ATOMS": r"ATOMS\b",
+               "RED/ATOMG": r"(RED|ATOMG)\b", "SHFL": r"SHFL\b",
+               "BAR": r"BAR\b", "LDGSTS (cp.async)": r"LDGSTS\b",
+               "UBLKCP (bulk copy)": r"UBLKCP\b", "SYNCS (mbarrier)":
+               r"SYNCS\b"}
+    counts, code, kernel = {}, {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"spmv_desc_whole_kernelILi(\d)E", m.group(1))
+            kernel = f"spmv_desc_whole_kernel<{k.group(1)}>" if k else None
+            if kernel:
+                counts[kernel] = {"instructions": 0, **{c: 0 for c in classes}}
+                code[kernel] = []
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                       r"([A-Z][\w.]*)(.*)", line)
+        if kernel and ins:
+            counts[kernel]["instructions"] += 1
+            code[kernel].append((int(ins.group(1), 16), ins.group(3),
+                                 ins.group(4)))
+            for c, pat in classes.items():
+                if re.match(pat, ins.group(3)):
+                    counts[kernel][c] += 1
+    for kernel, ins in code.items():
+        loops = []      # (first, last) address of each backward branch's loop
+        for addr, op, rest in ins:
+            t = re.match(r"\s*0x([0-9a-f]+)", rest)
+            if op.startswith("BRA") and t and int(t.group(1), 16) < addr:
+                loops.append((int(t.group(1), 16), addr))
+
+        def size(loop, ops):
+            body = [op for a, op, _ in ins if loop[0] <= a <= loop[1]]
+            return len(body) if any(o.startswith(ops) for o in body) else 0
+        decode = [size(lp, "SHFL") for lp in loops]
+        chunk = [size(lp, "SYNCS.PHASECHK") for lp in loops]
+        counts[kernel]["decode_loop"] = min([n for n in decode if n] or [0])
+        counts[kernel]["chunk_loop"] = max(chunk or [0])
+    print(f"SASS of the whole-vector kernels: {counts}")
+    return counts
+
+
+def build_plans(args, device):
+    """{name: plan} for ``--layout`` and ``--lowering``."""
     from repro_torch.kernels import ops
-    device = torch.device("cuda")
-    card = S.card_line()
-    print(card)
-    t0 = time.perf_counter()
-    S.build_kernels()
-    _, _, vocab = S.make_vocab()
+    _, vcsr, vocab = S.make_vocab()
     _, fem = S.make_matrix()
+    plans = {}
+    if args.layout == "whole":
+        cut = {"cb": args.cb} if args.cb else {}
+        plans["token"] = (ops.prepare(vocab, device=device, tune=False, **cut)
+                          if args.cb else ops.prepare(vocab, device=device))
+        plans["fem"] = ops.prepare(
+            fem, layout="whole_vector", lowering="descriptor", tune=False,
+            device=device, **dict(S.GEOM["whole_vector"], **cut))
+        plans["flat"] = S.build_flat_test_plan(vcsr, device).multi
+        return plans
     lowerings = (("mask", "descriptor") if args.lowering == "both"
                  else (args.lowering,))
-    plans = {}
     cut = dict(S.GEOM["panels"], **({"cb": args.cb} if args.cb else {}))
     for lowering in lowerings:
         vocab_cut = dict(layout="panels", tune=False, **cut) if args.cb \
@@ -91,29 +214,61 @@ def main() -> int:
         plans[f"fem {lowering}"] = ops.prepare(
             fem, layout="panels", lowering=lowering, tune=False,
             device=device, **cut)
-    del vocab, fem
+    return plans
+
+
+def main() -> int:
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--layout", default="panels", choices=("panels", "whole"))
+    ap.add_argument("--lowering", default="both",
+                    choices=("mask", "descriptor", "both"),
+                    help="panel plans' lowering (--layout panels)")
+    ap.add_argument("--cb", type=int, default=0,
+                    help="chunk size of both plans (default: their own)")
+    ap.add_argument("--label", default="")
+    ap.add_argument("--out", default="")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("time_panels_desc: no CUDA device", file=sys.stderr)
+        return 1
+    device = torch.device("cuda")
+    card = S.card_line()
+    print(card)
+    t0 = time.perf_counter()
+    S.build_kernels()
+    plans = build_plans(args, device)
+    whole = args.layout == "whole"
     rng = np.random.default_rng(1)
-    times, launches = {}, {}
+    times, launches, read_ms = {}, {}, {}
     for key, plan in plans.items():
-        if plan.layout != "panels" or plan.lowering not in key:
+        want = (("whole_vector", "descriptor") if whole
+                else ("panels", key.split()[1]))
+        if (plan.layout, plan.lowering) != want:
             raise S.SmokeFailure(f"{key} plan came out {plan.layout} + "
                                  f"{plan.lowering}")
         S.print_plan(key, plan)
-        launches[key] = S.panel_launches(plan)
+        launches[key] = (S.whole_launches(plan) if whole
+                         else S.panel_launches(plan))
+        if whole:
+            read_ms[key] = S.plan_read_ms(plan)
         x = torch.from_numpy(rng.standard_normal(plan.ncols).astype(
             np.float32)).to(device)
         plain = S.plain_y(plan, x)
-        for name, setting, override, split in settings(plan, launches[key]):
-            call = S.kernel_call(name, plan, x, split=split)
+        settings = (whole_settings if whole else panel_settings)(
+            plan, launches[key])
+        for name, setting, override, kw, fetch in settings:
+            call = S.kernel_call(name, plan, x, **kw)
             saved = {k: getattr(*k) for k in override}
             for (module, attr), value in override.items():
                 setattr(module, attr, value)
             try:
-                err = S.rel_err(call(), plain)
-                if not err <= S.TOL:
-                    raise S.SmokeFailure(f"{key} {name} {setting}: {err} > "
-                                         f"{S.TOL}")
-                ms = S.cuda_time_ms(call, device)
+                with l2_fetch_granularity(fetch):
+                    err = S.rel_err(call(), plain)
+                    if not err <= S.TOL:
+                        raise S.SmokeFailure(f"{key} {name} {setting}: "
+                                             f"{err} > {S.TOL}")
+                    ms = S.cuda_time_ms(call, device)
             finally:
                 for (module, attr), value in saved.items():
                     setattr(module, attr, value)
@@ -124,6 +279,11 @@ def main() -> int:
     print(f"total {time.perf_counter() - t0:.1f} s")
     result = {"label": args.label, "card": card, "launch": launches,
               "times": times}
+    if whole:
+        result["read_ms"] = read_ms
+        result["sass"] = sass_counts(
+            (os.path.splitext(args.out)[0] if args.out else "whole")
+            + ".sass.txt")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f)
