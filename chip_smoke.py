@@ -33,7 +33,9 @@ phase that goes wrong:
    through ``SparseLinear.from_dense(w, density=0.1, nvec=128)`` with every
    other argument at its default, the reference's default layer, whose
    layout pass must resolve to panels + descriptor (its forward runs
-   ``spmm_cuda_panels_desc_db``); beside it two mask layers on the same
+   ``spmm_cuda_panels_desc_db``; both panel descriptor SpMM kernels are
+   also held at S = 1, each launch printed); beside it two mask layers on
+   the same
    converted matrix (``ops.prepare(lowering="mask")``: auto layout, panels,
    and whole-vector), ``ops.spmm(..., double_buffer=False)`` on both panel
    layers at batches of 16 and 128, and batch 1 (one decode token): both
@@ -53,8 +55,9 @@ phase that goes wrong:
    the cost model, and its tail is bucketed by panel; batch 1 runs the
    multi SpMV kernel + ``spmv_tail_cuda``, batches of 16 and 128 the multi
    SpMM kernel + the plain ``spmm_coo``; both panel descriptor SpMV kernels
-   also run on the multi sub-plan alone (``ops.spmv``), checked against its
-   plain version and the f64 product less the tail's. Beside it the
+   also run on the multi sub-plan alone (``ops.spmv``), and both panel
+   descriptor SpMM kernels at S = 1 and one chunk a CTA, checked against
+   its plain version and the f64 product less the tail's. Beside it the
    flat-tail plan ``ops.prepare(beta(2,4), layout="test")`` at nvec = 1:
    whole-vector multi, tail through the plain ``spmv_coo``, no tail kernel;
    both whole-vector descriptor SpMV kernels also run on its multi
@@ -594,10 +597,33 @@ def check_forced(name, plan, x, y64, path, **kw):
             or "its wrapper's launch")
     print(f"check {name} at {what} ({path}): {e_plain:.3g} of max|y| from "
           f"the plain version, {e64:.3g} from f64 scipy")
-    if not (tuple(y.shape) == (plan.nrows,) and e_plain <= TOL
+    if not (tuple(y.shape) == (plan.nrows, *x.shape[1:]) and e_plain <= TOL
             and e64 <= TOL):
         raise SmokeFailure(f"{name} at {what} disagrees: {e_plain} / {e64} "
                            f"> {TOL}")
+
+
+#: The panel descriptor SpMM pair, also held at forced splits
+#: (:func:`check_panel_spmm`).
+PANEL_DESC_SPMM = ("spmm_cuda_panels_desc_db", "spmm_cuda_panels_desc")
+
+
+def check_panel_spmm(plan, x, y64, path, one_chunk=False):
+    """Both panel descriptor SpMM kernels at X's batch: prints the launch
+    each wrapper picks (:func:`spmm_panel_launches`) and holds each at it,
+    at S = 1 and, where ``one_chunk``, at one chunk a CTA, against the
+    plain version and the f64 product, each such launch printed too."""
+    nvec = x.shape[1]
+    splits = (None, 1) + ((plan.nchunks,) if one_chunk else ())
+    for split in splits:
+        launch = spmm_panel_launches(plan, nvec, split)
+        for name in PANEL_DESC_SPMM:
+            key = "s1" if name == "spmm_cuda_panels_desc" else "s2"
+            print(f"launch {name} nvec={nvec} ({path}"
+                  f"{'' if split is None else f', split = {split}'}): "
+                  f"{launch[key]}")
+            check_forced(name, plan, x, y64, path,
+                         **({} if split is None else {"split": split}))
 
 
 def check_whole_grids(plan, x, y64, path, one_cta=False):
@@ -795,10 +821,38 @@ def make_vocab():
     return w, csr, mat
 
 
+def spmm_panel_launches(plan, nvec, split=None):
+    """The launches the panel descriptor SpMM wrappers make on the plan at
+    batch nvec (``panels_launch`` of :mod:`spc5_spmm_desc`): S, grid,
+    column tile, columns a lane, row parts, threads, shared bytes, ring,
+    blocks a stage, CTAs per SM and the kernel's registers (``-Xptxas
+    -v``). On the CPU only the shared-memory plan (no card to ask for
+    occupancy)."""
+    from repro_torch.kernels import spc5_spmm_desc as KDM
+    vec = KDM.panels_vector(nvec)
+    geom = dict(cb=plan.cb, r=plan.r, c=plan.c, vmax=plan.vmax, pr=plan.pr,
+                nvec=nvec, vec=vec, wv=plan.desc_vidx.element_size(),
+                wx=plan.desc_xcol.element_size())
+    out = {}
+    for name, stages in (("s1", 1), ("s2", KDM.PANEL_DB_STAGES)):
+        if plan.device.type == "cuda":
+            out[name] = KDM.panels_launch(stages, plan.npanels, plan.nchunks,
+                                          device=plan.device, split=split,
+                                          **geom)
+            out[name]["registers"] = REGISTERS.get(
+                f"spmm_desc_panels_kernel<{plan.r},{plan.c},{vec},{stages}>")
+        else:
+            out[name] = dict(stages=stages, **KDM.panels_plan(stages,
+                                                              **geom))
+    return out
+
+
 def print_spmm_plan(name, plan) -> None:
-    """Geometry and each SpMM kernel's column tile, CTAs and dynamic shared
-    memory per CTA at every batch (for a descriptor plan also whether vidx
-    is staged, and the tables' dtypes and bytes)."""
+    """Geometry and each SpMM kernel's launch at every batch: for a panel
+    descriptor plan :func:`spmm_panel_launches`, else the column tile, CTAs
+    and dynamic shared memory per CTA (for the whole-vector descriptor plan
+    also whether vidx is staged), and a descriptor plan's tables' dtypes
+    and bytes."""
     from repro_torch.kernels import spc5_spmm as KM
     from repro_torch.kernels import spc5_spmm_desc as KDM
     g = {k: getattr(plan, k) for k in ("cb", "vmax", "pr", "xw", "npanels",
@@ -807,13 +861,15 @@ def print_spmm_plan(name, plan) -> None:
     panels = plan.layout == "panels"
     units = plan.npanels if panels else int(plan.chunk_vbase.shape[0])
     for nvec in SPMM_NVECS:
+        if panels and plan.lowering == "descriptor":
+            g[f"nvec{nvec}_launch"] = spmm_panel_launches(plan, nvec)
+            continue
         for stages in ((1, 2) if panels else (1,)):
             staged = None
             if plan.lowering == "descriptor":
                 tw, staged, nbytes = KDM.smem_plan(
-                    stages, plan.cb, plan.r, plan.c, plan.vmax,
-                    plan.desc_vidx.element_size(), nvec,
-                    pr=plan.pr if panels else 0)
+                    plan.cb, plan.r, plan.c, plan.vmax,
+                    plan.desc_vidx.element_size(), nvec)
             elif panels:
                 def smem(t, s=stages, p=plan):
                     return KM.panels_smem_bytes(s, p.cb, p.vmax, p.pr, t)
@@ -984,6 +1040,8 @@ def check_vocab(layers, ys, y1, launches, acts, csr):
             err = check_spmm(name, ys[name, nvec], layers[layer_key(name)].plan,
                              x, y64, "SparseLinear path")
             errs[name] = max(errs.get(name, 0.0), err)
+        check_panel_spmm(layers["panels", "descriptor"].plan, x, y64,
+                         "SparseLinear path")
     x1 = acts[SPMM_NVECS[0]][0]
     y64 = a64 @ x1.cpu().double().numpy()
     for name, (key, _) in BATCH1.items():
@@ -1100,6 +1158,8 @@ def measure_vocab(layers, acts, csr, timer=cuda_time_ms):
             if key[1] == "descriptor":
                 per[name, nvec].update(desc_bounds(
                     plan, layers[key[0], "mask"].plan, csr.nnz, nvec))
+                per[name, nvec]["launch"] = spmm_panel_launches(plan, nvec)[
+                    "s2" if name.endswith("_db") else "s1"]
     for name in VOCAB_SPMM:
         if name in MASK_TWIN:
             for nvec in acts:
@@ -1384,11 +1444,17 @@ def check_test(layer, flat, ys, y_flat, launches_a, launches_b, x1, acts,
     y64 = a64 @ x1.cpu().double().numpy()
     check_y(TAIL_KERNEL, ys[1], plan, x1, y64, launches_a,
             f"test path (a), batch 1, with {kernel_name(plan.multi)}")
+    tail = tail_parts(plan)[2]
     for nvec, act in acts.items():
         x = act.t().contiguous()
+        xh = x.cpu().double().numpy()
         check_spmm(f"{kernel_name(plan.multi, spmm=True)} + spmm_coo",
-                   ys[nvec], plan, x, a64 @ x.cpu().double().numpy(),
-                   "test path (a)")
+                   ys[nvec], plan, x, a64 @ xh, "test path (a)")
+        # the multi sub-plan alone: the whole weight's product less the
+        # tail's
+        check_panel_spmm(plan.multi, x, a64 @ xh - tail @ xh,
+                         "test path (a), multi sub-plan alone",
+                         one_chunk=True)
     check_y(flat_name, y_flat, flat, x1, y64, launches_b,
             "test path (b), with spmv_coo")
     # (b)'s multi sub-plan alone: both whole-vector descriptor SpMV kernels
@@ -1405,7 +1471,7 @@ def check_test(layer, flat, ys, y_flat, launches_a, launches_b, x1, acts,
     check_whole_grids(flat.multi, x1, y64_flat, path)
     # the multi sub-plan alone: its f64 product is the whole weight's less
     # the tail's
-    y64_multi = y64 - tail_parts(plan)[2] @ x1.cpu().double().numpy()
+    y64_multi = y64 - tail @ x1.cpu().double().numpy()
     return {name: check_y(name, ys[name], plan.multi, x1, y64_multi,
                           launches_a, "test path (a), multi sub-plan alone")
             for name in MULTI_SPMV}
@@ -1505,6 +1571,8 @@ def measure_test(layer, flat, default, x1, acts, csr, tail, launches,
             f"test_nvec{nvec}": lambda a=act: layer(a),
             f"multi_spmm_nvec{nvec}": kernel_call(
                 kernel_name(multi, spmm=True), multi, x),
+            f"multi_spmm_s1_nvec{nvec}": kernel_call(
+                "spmm_cuda_panels_desc", multi, x),
             f"spmm_coo_nvec{nvec}": lambda x=x: tail_y(plan, x)})
     parts["multi_spmv_s1"] = kernel_call("spmv_cuda_panels_desc", multi, x1)
     forwards = {}
@@ -1523,7 +1591,8 @@ def measure_test(layer, flat, default, x1, acts, csr, tail, launches,
               f"{forwards[f'multi_spmm_nvec{nvec}']:.4f} + spmm_coo "
               f"{forwards[f'spmm_coo_nvec{nvec}']:.4f}); default layer "
               f"{forwards[f'default_nvec{nvec}']:.4f} ms; cuSPARSE SpMM "
-              f"{library[nvec]:.4f} ms")
+              f"{library[nvec]:.4f} ms; spmm_cuda_panels_desc on the multi "
+              f"{forwards[f'multi_spmm_s1_nvec{nvec}']:.4f} ms")
     multi_bound = bound(multi, plan.nnz - plan.n_single)
     print(f"time {kernel_name(multi)} / spmv_cuda_panels_desc on the multi "
           f"sub-plan, batch 1: {forwards['multi_spmv']:.4f} / "

@@ -63,8 +63,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "spc5_spmm_desc": {
         "spc5_spmm_desc_whole": [_P] * 8 + [_I] * 13 + [_P],
-        **{f"spc5_spmm_desc_panels_s{s}": [_P] * 9 + [_I] * 16 + [_P]
-           for s in (1, 2)},
+        "spc5_spmm_desc_panels_s1": [_P] * 9 + [_I] * 23 + [_P],
+        "spc5_spmm_desc_panels_s2": [_P] * 9 + [_I] * 22 + [_P],
+        "spc5_spmm_desc_panels_occupancy": [_I] * 7 + [_P],
+        "spc5_spmm_desc_panels_smem": [_I] * 10,
     },
     "spc5_spmv_tail": {
         "spc5_spmv_tail": [_P] * 6 + [_I] * 7 + [_P],

@@ -1,9 +1,9 @@
 // Helpers shared by the SPC5 kernels of this directory: copies from global
-// into shared memory (plain loads, cp.async for a double buffer, or Hopper's
-// bulk copy completing on an mbarrier), reads
-// of the descriptor tables at their built width, the SpMM kernels' split of
-// a CTA into column groups, and the dynamic-shared-memory opt-in before a
-// launch.
+// into shared memory (plain loads, cp.async for a double buffer, Hopper's
+// bulk copy completing on an mbarrier, or strided runs of table entries by
+// cp.async or vector loads), reads of the descriptor tables at their built
+// width, the SpMM kernels' split of a CTA into column groups, and the
+// dynamic-shared-memory opt-in before a launch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -125,6 +125,62 @@ __device__ __forceinline__ void stage_bytes(char* dst, const char* src, int n) {
     stage_words<kAsync>(reinterpret_cast<int*>(dst), reinterpret_cast<const int*>(src), n >> 2);
   } else {
     for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = __ldg(src + i);
+  }
+}
+
+// Copy runs x run_bytes bytes, run j starting at src + j * stride, into dst
+// back to back, with all threads of the CTA: in 16-byte pieces where src,
+// run_bytes and stride allow, else in 4-byte pieces (every run here is a
+// multiple of 4 bytes at a 4-byte aligned address; dst is 16-byte aligned).
+// Where runs > 1, run_bytes is a power of two (c times a table's width, or
+// 4), and so are the pieces per run: a piece finds its run by a shift.
+// kAsync: cp.async, completed by the caller's wait. Otherwise vector loads,
+// up to four pieces in flight per thread before their stores.
+template <bool kAsync>
+__device__ __forceinline__ void copy_runs(unsigned char* dst, const char* src, int runs,
+                                          int run_bytes, int stride) {
+  const bool wide = ((reinterpret_cast<uintptr_t>(src) | run_bytes | stride) & 15) == 0;
+  const int lsz = wide ? 4 : 2;                               // log2 of the piece size
+  const int lq = runs == 1 ? 0 : __ffs(run_bytes >> lsz) - 1;  // log2 of the pieces per run
+  const int n = runs == 1 ? run_bytes >> lsz : runs << lq;
+  auto from = [&](int j) {
+    return runs == 1 ? src + ((size_t)j << lsz)
+                     : src + (size_t)(j >> lq) * stride + ((j & ((1 << lq) - 1)) << lsz);
+  };
+  if (kAsync) {
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {
+      if (wide) {
+        cp_async16(dst + (size_t)j * 16, from(j));
+      } else {
+        cp_async4(dst + (size_t)j * 4, from(j));
+      }
+    }
+    return;
+  }
+  for (int j0 = threadIdx.x; j0 < n; j0 += 4 * blockDim.x) {
+    int4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + u * blockDim.x;
+      if (j < n) {
+        if (wide) {
+          v[u] = __ldg(reinterpret_cast<const int4*>(from(j)));
+        } else {
+          v[u].x = __ldg(reinterpret_cast<const int*>(from(j)));
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + u * blockDim.x;
+      if (j < n) {
+        if (wide) {
+          reinterpret_cast<int4*>(dst)[j] = v[u];
+        } else {
+          reinterpret_cast<int*>(dst)[j] = v[u].x;
+        }
+      }
+    }
   }
 }
 

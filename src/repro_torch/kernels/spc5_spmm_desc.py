@@ -15,10 +15,13 @@ The reference has no double-buffered whole-vector descriptor SpMM, so
 neither has the port. X is (ncols, nvec) and Y (nrows, nvec), both
 row-major float32; ``nvt`` keeps the reference's rule (``nvec`` a multiple
 of ``min(nvt, nvec)``, else ``ValueError``) and the kernels cut the columns
-into their own tiles of at most 32, as the mask SpMM kernels do
-(:mod:`.spc5_spmm`). The tables are taken only in the dtypes
-:func:`repro_torch.core.formats.chunk_descriptors` builds for the geometry,
-never widened (:func:`.spc5_spmv_desc._check_tables`).
+into their own tiles: at most 32 for the whole-vector kernel, as the mask
+SpMM kernels do (:mod:`.spc5_spmm`; :func:`smem_plan`), and for the panel
+kernels a tile of up to 128 columns, with S CTAs per panel, row part and
+tile (:func:`panels_launch`; ``split`` overrides S). The tables are taken
+only in the dtypes :func:`repro_torch.core.formats.chunk_descriptors`
+builds for the geometry, never widened
+(:func:`.spc5_spmv_desc._check_tables`).
 
 A CPU tensor goes to the plain PyTorch version (:mod:`repro_torch.core.
 ref_spmv`); a CUDA tensor goes to the kernel, or the wrapper raises. Each
@@ -27,7 +30,8 @@ launch nothing and count nothing).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import ctypes
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -62,21 +66,15 @@ def stage_bytes(cb: int, r: int, c: int, vmax: int, vidx_width: int,
     return _round16(4 * vmax + vidx + 4 * cb * (c + r + 1))
 
 
-def smem_plan(stages: int, cb: int, r: int, c: int, vmax: int,
-              vidx_width: int, nvec: int, pr: int = 0
-              ) -> Tuple[int, bool, int]:
-    """The launch's column tile, whether vidx is staged, and the dynamic
-    shared memory per CTA: ``stages`` staged chunks plus, for panels, the
-    (pr, tw) Y tile. The column tile is halved while the CTA would not
-    fit; vidx is staged when the CTA fits with it at some tile, else it is
-    read through L1."""
-    def smem(tw: int, staged: bool) -> int:
-        return (stages * stage_bytes(cb, r, c, vmax, vidx_width, staged)
-                + 4 * pr * tw)
+def smem_plan(cb: int, r: int, c: int, vmax: int, vidx_width: int,
+              nvec: int) -> Tuple[int, bool, int]:
+    """The whole-vector launch's column tile, whether vidx is staged, and
+    the dynamic shared memory per CTA (one staged chunk). vidx is staged
+    when the chunk fits with it, else it is read through L1."""
     for staged in (True, False):
-        tw = KM.column_tile(nvec, lambda t: smem(t, staged))
-        if smem(tw, staged) <= K.MAX_SMEM_BYTES or not staged:
-            return tw, staged, smem(tw, staged)
+        nbytes = stage_bytes(cb, r, c, vmax, vidx_width, staged)
+        if nbytes <= K.MAX_SMEM_BYTES or not staged:
+            return KM.column_tile(nvec, lambda t: nbytes), staged, nbytes
 
 
 def _block(r: int, c: int) -> None:
@@ -128,7 +126,7 @@ def spmm_cuda_desc(chunk_vbase, desc_valid, desc_vidx, desc_xcol, desc_yrow,
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
     wv, wx, wy = _widths(desc_vidx, desc_xcol, desc_yrow)
-    tw, staged, smem = smem_plan(1, cb, r, c, vmax, wv, nvec)
+    tw, staged, smem = smem_plan(cb, r, c, vmax, wv, nvec)
     _launch_checks(fn, smem, r, c, values, desc_valid)
     KM._grid(nchunks, nvec, tw, fn)
     lib = _build.load_library("spc5_spmm_desc")
@@ -148,9 +146,186 @@ def spmm_cuda_desc(chunk_vbase, desc_valid, desc_vidx, desc_xcol, desc_yrow,
 # panel layout
 # ----------------------------------------------------------------------------
 
+#: Stages in the ring of ``spmm_cuda_panels_desc_db``: one stage is filled
+#: while the other is walked. The synchronous kernel holds one stage.
+PANEL_DB_STAGES = 2
+
+#: Threads of a panel CTA, a power of two. ``None`` (:func:`panels_plan`):
+#: 512 where a lane group is a whole warp (16 groups, whose walks wait on
+#: shared memory and L1), else 256 (more groups would outnumber a stage's
+#: blocks). ``time_spmm_desc.py`` sweeps it.
+PANEL_THREADS: Optional[int] = None
+
+#: The widest column tile a panel CTA takes: 32 lanes of four columns.
+#: ``time_spmm_desc.py`` sweeps 32 and 64.
+PANEL_TILE = 128
+
+#: The fewest row parts a panel is cut into (each part its own CTA with a
+#: Y tile of its rows); more until two CTAs fit an SM, or one does.
+#: ``time_spmm_desc.py`` sweeps 8.
+PANEL_ROW_PARTS = 1
+
+#: An H100 SM's shared memory, 1 KB of it reserved per CTA, and what one CTA
+#: may use when two share it.
+SM_SMEM_BYTES = 228 * 1024
+TWO_CTA_SMEM_BYTES = SM_SMEM_BYTES // 2 - 1024
+
+#: The most chunks a stage holds (each with its value window), so that a
+#: CTA orders and walks that many chunks' blocks between two barriers:
+#: taken where an SM then holds as many CTAs as with one (by shared memory,
+#: and by registers: the kernels take at most 64 a thread).
+#: ``time_spmm_desc.py`` sweeps 1 and 4.
+PANEL_STAGE_CHUNKS = 2
+_SM_REGISTERS = 65536
+_MAX_REGISTERS = 64
+
+
+def panels_vector(nvec: int, x: Optional[torch.Tensor] = None) -> int:
+    """The columns of X a panel-kernel lane owns: 4 (one 16-byte load) or 2
+    (8 bytes) where they divide nvec and X is so aligned, else 1."""
+    for vec in (4, 2):
+        if nvec % vec == 0 and (x is None or x.data_ptr() % (4 * vec) == 0):
+            return vec
+    return 1
+
+
+def panels_smem_bytes(stages: int, q: int, nb: int, r: int, c: int,
+                      vmax: int, prows: int, tw: int, wv: int, wx: int) -> int:
+    """Dynamic shared memory of one panel CTA: the (prows, tw) f32 Y tile
+    of its row part, then ``stages`` stages, each the value windows and x
+    window starts of its ``q`` chunks and ``nb`` blocks' tables (valid and
+    vidx per lane, the c xcol entries of each block's first row, a 4-byte
+    slot for its lane-0 yrow entry) and a 16-byte mbarrier slot, then the
+    walk's order of the nb blocks (16 bytes a block) and their sort keys (4
+    bytes a block), every part 16-byte aligned. The kernel's
+    ``panel_layout`` (``csrc/spc5_spmm_desc.cu``) refuses a launch whose
+    figure differs from its own."""
+    rc = r * c
+    stage = (q * _round16(4 * vmax) + _round16(4 * q) + _round16(nb * rc)
+             + _round16(nb * rc * wv) + _round16(nb * c * wx)
+             + _round16(4 * nb) + 16)
+    return (_round16(4 * prows * tw) + stages * stage
+            + 16 * nb + _round16(4 * nb))
+
+
+def panels_tiles(nvec: int, vec: int) -> List[int]:
+    """The column tiles a panel launch may take, widest first: a power of
+    two covering nvec, at most :data:`PANEL_TILE` and 32 lanes of ``vec``
+    columns, halved down to 1. A tile of tw columns has tw / min(vec, tw)
+    lanes a group."""
+    tw = min(PANEL_TILE, 32 * vec, 1 << max(0, nvec - 1).bit_length())
+    out = []
+    while tw >= 1:
+        out.append(tw)
+        tw //= 2
+    return out
+
+
+def panels_plan(stages: int, cb: int, r: int, c: int, vmax: int, pr: int,
+                nvec: int, vec: int, wv: int, wx: int,
+                what: str = "panel kernel") -> Dict[str, int]:
+    """The CTA of a panel launch: the widest tile of :func:`panels_tiles`,
+    cut among the fewest row parts (from :data:`PANEL_ROW_PARTS`, doubling,
+    each a multiple of r rows) at which two CTAs with stages of one whole
+    chunk fit an SM (:data:`TWO_CTA_SMEM_BYTES`), else at which one CTA
+    fits, the synchronous kernel (``stages == 1``) then cutting a chunk's
+    tables into slices of fewer blocks (halved) before it takes more parts;
+    the ring holds whole chunks. A stage holds :data:`PANEL_STAGE_CHUNKS`
+    chunks where that keeps the CTAs an SM holds. Returns
+    ``chunks_per_stage``, ``blocks_per_stage``, ``tile_columns``,
+    ``vector`` (columns a lane), ``lanes`` (of a group), ``threads``,
+    ``row_parts``, ``part_rows`` and ``smem_bytes``; raises ``ValueError``
+    when nothing fits."""
+    if stages not in (1, PANEL_DB_STAGES):
+        raise ValueError(f"the panel kernels stage 1 or {PANEL_DB_STAGES} "
+                         f"chunks, not {stages}")
+    for tw in panels_tiles(nvec, vec):
+        v = min(vec, tw)
+        threads = PANEL_THREADS or (512 if tw // v == 32 else 256)
+        for budget in (TWO_CTA_SMEM_BYTES, K.MAX_SMEM_BYTES):
+            parts = PANEL_ROW_PARTS
+            while True:
+                prows = -(-pr // (parts * r)) * r
+
+                def nbytes(q, nb, prows=prows, tw=tw):
+                    return panels_smem_bytes(stages, q, nb, r, c, vmax, prows,
+                                             tw, wv, wx)
+
+                def ctas(q):  # an SM's CTAs by shared memory and registers
+                    return min(SM_SMEM_BYTES // (nbytes(q, q * cb) + 1024),
+                               _SM_REGISTERS // (_MAX_REGISTERS * threads))
+                fits = [(q, q * cb) for q in (PANEL_STAGE_CHUNKS, 1)
+                        if nbytes(q, q * cb) <= budget and ctas(q) >= ctas(1)]
+                nb = cb
+                while (not fits and budget == K.MAX_SMEM_BYTES and stages == 1
+                       and nb > 1):
+                    nb = -(-nb // 2)
+                    if nbytes(1, nb) <= budget:
+                        fits = [(1, nb)]
+                if fits:
+                    q, nb = fits[0]
+                    return dict(chunks_per_stage=q, blocks_per_stage=nb,
+                                tile_columns=tw, vector=v, lanes=tw // v,
+                                threads=threads, row_parts=-(-pr // prows),
+                                part_rows=prows, smem_bytes=nbytes(q, nb))
+                if prows == r:
+                    break
+                parts *= 2
+    K._check_smem(nbytes(1, nb), what)
+
+
+_OCCUPANCY: Dict[Tuple[int, ...], Tuple[int, int]] = {}
+
+
+def panels_occupancy(stages: int, r: int, c: int, vec: int, threads: int,
+                     smem: int, device: torch.device) -> Tuple[int, int]:
+    """(CTAs one SM holds at once, SMs) for the panel kernel of block shape
+    (r, c), ``vec`` columns a lane and ``stages`` (1: the synchronous one),
+    as the CUDA runtime reports them."""
+    key = (stages, r, c, vec, threads, smem, device.index or 0)
+    if key not in _OCCUPANCY:
+        lib = _build.load_library("spc5_spmm_desc")
+        out = (ctypes.c_int * 2)()
+        err = lib.spc5_spmm_desc_panels_occupancy(*key, ctypes.addressof(out))
+        K._raise_on(err, "spc5_spmm_desc_panels_occupancy")
+        _OCCUPANCY[key] = (out[0], out[1])
+    return _OCCUPANCY[key]
+
+
+def panels_launch(stages: int, npanels: int, nchunks: int, *, cb: int,
+                  r: int, c: int, vmax: int, pr: int, nvec: int, vec: int,
+                  wv: int, wx: int, device: torch.device,
+                  split: Optional[int] = None,
+                  what: str = "panel kernel") -> Dict[str, int]:
+    """The launch a panel wrapper makes on ``device`` (a card) for lanes of
+    at most ``vec`` columns (:func:`panels_vector`): ``stages``, the CTA of
+    :func:`panels_plan`, ``ntiles``, the card's
+    ``ctas_per_sm`` and ``sms``, ``split`` (S, from
+    :func:`~.spc5_spmv.panels_split` over npanels x row parts x ntiles
+    units unless given), ``grid`` (npanels x S x row parts x ntiles) and
+    ``chunks_per_cta`` (the longest range)."""
+    cta = panels_plan(stages, cb, r, c, vmax, pr, nvec, vec, wv, wx, what)
+    per_sm, sms = panels_occupancy(stages, r, c, cta["vector"], cta["threads"],
+                                   cta["smem_bytes"], device)
+    ntiles = -(-nvec // cta["tile_columns"])
+    units = npanels * cta["row_parts"] * ntiles
+    if split is None:
+        split = K.panels_split(units, nchunks, per_sm, sms)
+    if not 1 <= split <= nchunks:
+        raise ValueError(f"split must be in [1, {nchunks}] (the chunks of a "
+                         f"panel), got {split}")
+    grid = units * split
+    if grid > KM._MAX_GRID:
+        raise ValueError(f"{what}: {grid} CTAs exceed the grid's "
+                         f"{KM._MAX_GRID}")
+    return dict(stages=stages, **cta, ntiles=ntiles,
+                ctas_per_sm=per_sm, sms=sms, split=split, grid=grid,
+                chunks_per_cta=-(-nchunks // split))
+
+
 def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, desc_valid,
             desc_vidx, desc_xcol, desc_yrow, values, x, *, r, c, cb, vmax,
-            xw, pr, nrows, ncols_pad, nvt):
+            xw, pr, nrows, ncols_pad, nvt, split=None):
     npanels, nchunks = chunk_vbase.shape
     K._check(dict(chunk_vbase=chunk_vbase, chunk_xbase=chunk_xbase,
                   values=values, x=x),
@@ -170,19 +345,36 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, desc_valid,
             pr=pr, nrows=nrows, ncols_pad=ncols_pad)
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
+    if vmax % 4:
+        raise ValueError(f"vmax must be a multiple of 4 (whole 16-byte "
+                         f"value windows), got {vmax}")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"X has {x.numel()} elements; the kernels index it "
+                         f"with 32-bit offsets")
+    _block(r, c)
     wv, wx, wy = _widths(desc_vidx, desc_xcol, desc_yrow)
-    tw, staged, smem = smem_plan(stages, cb, r, c, vmax, wv, nvec, pr)
-    _launch_checks(fn, smem, r, c, values, desc_valid)
-    KM._grid(npanels, nvec, tw, fn)
+    launch = panels_launch(stages, npanels, nchunks, cb=cb, r=r, c=c,
+                           vmax=vmax, pr=pr, nvec=nvec,
+                           vec=panels_vector(nvec, x), wv=wv, wx=wx,
+                           device=values.device, split=split, what=fn)
+    K._aligned({"values": values})
+    # the tables are copied in 4-byte pieces where 16-byte ones do not align
+    K._aligned(tables, 4)
     lib = _build.load_library("spc5_spmm_desc")
-    y = torch.empty((nrows, nvec), dtype=torch.float32, device=values.device)
+    # S > 1 CTAs add into each panel's rows, so Y starts at 0
+    y = (torch.zeros if launch["split"] > 1 else torch.empty)(
+        (nrows, nvec), dtype=torch.float32, device=values.device)
     # X is read in place: the kernels skip any column at or past its rows,
     # which is what the reference's zero padding up to ncols_pad adds
     err = getattr(lib, f"spc5_spmm_desc_panels_s{stages}")(
         chunk_vbase.data_ptr(), chunk_xbase.data_ptr(), desc_valid.data_ptr(),
         desc_vidx.data_ptr(), desc_xcol.data_ptr(), desc_yrow.data_ptr(),
         values.data_ptr(), x.data_ptr(), y.data_ptr(), npanels, nchunks, cb,
-        vmax, pr, nrows, x.shape[0], r, c, wv, wx, wy, nvec, tw, int(staged),
+        r, c, vmax, pr, nrows, x.shape[0], wv, wx, wy, nvec,
+        launch["tile_columns"], launch["vector"], launch["row_parts"],
+        launch["part_rows"], launch["split"], launch["chunks_per_stage"],
+        *([launch["blocks_per_stage"]] if stages == 1 else []),
+        launch["smem_bytes"], launch["threads"],
         values.device.index or 0, K._stream(values.device))
     K._raise_on(err, fn)
     LAUNCHES[fn] += 1
@@ -195,15 +387,18 @@ def spmm_cuda_panels_desc(chunk_vbase, chunk_xbase, desc_valid, desc_vidx,
                           value_scale: Optional[torch.Tensor] = None, *,
                           r: int, c: int, cb: int, vmax: int, xw: int,
                           pr: int, nrows: int, ncols_pad: int,
-                          nvt: int = 128) -> torch.Tensor:
-    """Row-panel descriptor SpMM, one CTA per (panel, column tile) with its
-    (pr, tw) Y tile in shared memory (replaces
-    ``spmm_pallas_panels_desc``). X is (ncols, nvec)."""
+                          nvt: int = 128,
+                          split: Optional[int] = None) -> torch.Tensor:
+    """Row-panel descriptor SpMM, each panel's chunks split among S CTAs a
+    column tile (``split``; default from the card's occupancy), each
+    chunk's stage copied and waited for before the walk, one lane group
+    adding each row of the Y tile (replaces ``spmm_pallas_panels_desc``).
+    X is (ncols, nvec)."""
     K._unsupported(col_map, value_scale)
     return _panels("spmm_cuda_panels_desc", 1, chunk_vbase, chunk_xbase,
                    desc_valid, desc_vidx, desc_xcol, desc_yrow, values, x,
                    r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr, nrows=nrows,
-                   ncols_pad=ncols_pad, nvt=nvt)
+                   ncols_pad=ncols_pad, nvt=nvt, split=split)
 
 
 def spmm_cuda_panels_desc_db(chunk_vbase, chunk_xbase, desc_valid,
@@ -212,12 +407,14 @@ def spmm_cuda_panels_desc_db(chunk_vbase, chunk_xbase, desc_valid,
                              value_scale: Optional[torch.Tensor] = None, *,
                              r: int, c: int, cb: int, vmax: int, xw: int,
                              pr: int, nrows: int, ncols_pad: int,
-                             nvt: int = 128) -> torch.Tensor:
-    """Row-panel descriptor SpMM with the next chunk's value window and
-    vidx table prefetched by cp.async (replaces
-    ``spmm_pallas_panels_desc_db``)."""
+                             nvt: int = 128,
+                             split: Optional[int] = None) -> torch.Tensor:
+    """Row-panel descriptor SpMM with a ring of :data:`PANEL_DB_STAGES`
+    chunks (tables and value window) staged ahead by bulk copies and
+    cp.async (replaces ``spmm_pallas_panels_desc_db``); ``split`` as in
+    :func:`spmm_cuda_panels_desc`."""
     K._unsupported(col_map, value_scale)
-    return _panels("spmm_cuda_panels_desc_db", 2, chunk_vbase, chunk_xbase,
-                   desc_valid, desc_vidx, desc_xcol, desc_yrow, values, x,
-                   r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr, nrows=nrows,
-                   ncols_pad=ncols_pad, nvt=nvt)
+    return _panels("spmm_cuda_panels_desc_db", PANEL_DB_STAGES, chunk_vbase,
+                   chunk_xbase, desc_valid, desc_vidx, desc_xcol, desc_yrow,
+                   values, x, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr,
+                   nrows=nrows, ncols_pad=ncols_pad, nvt=nvt, split=split)

@@ -1149,9 +1149,11 @@ def test_desc_spmm_short_x_is_read_in_place(cuda, kernel):
 @pytest.mark.parametrize("kernel", DESC_SPMM_KERNELS)
 def test_desc_spmm_table_widths(cuda, kernel, table, width):
     """Each index table at each width it can have, read as built. An int32
-    vidx needs a value window above 32,768 floats (128 KB): it is read
-    through L1 instead of staged, and the double-buffered kernel, which
-    holds two windows, refuses it for want of shared memory."""
+    vidx needs a value window above 32,768 floats (128 KB): the
+    whole-vector kernel reads vidx through L1 instead of staging it, the
+    synchronous panel kernel stages the tables in slices beside the
+    window, and the double-buffered kernel, which holds two windows,
+    refuses it for want of shared memory."""
     layout = "panels" if "panels" in kernel else "whole_vector"
     mat, geom = _width_case(table, width, layout)
     if width == 32 and table == "vidx" and kernel.endswith("_db"):
@@ -1180,20 +1182,29 @@ def test_desc_spmm_oversized_shared_memory_raises(cuda):
 @pytest.mark.parametrize("kernel", DESC_SPMM_KERNELS)
 def test_desc_spmm_smoke_geometry(cuda, kernel):
     """The geometry chip_smoke.py uses, on a 2,000 x 4,096 slice of the
-    density-0.1 vocab weight in beta(4,8) at nvec=128: the panel kernels
-    stage vidx beside a (512, 32) Y tile."""
+    density-0.1 vocab weight in beta(4,8) at nvec=128: the whole-vector
+    kernel stages vidx in 32-column tiles; the panel kernels stage two
+    whole chunks a stage beside a (128, 128) Y tile of a quarter panel, four
+    columns a lane."""
     w = np.random.default_rng(0).standard_normal((2_000, 4_096), np.float32)
     w = np.where(np.abs(w) >= np.quantile(np.abs(w), 0.9), w, 0.0)
     mat = F.csr_to_spc5(F.csr_from_dense(w.astype(np.float32)), 4, 8)
     geom = (dict(pr=512, xw=512, cb=64) if "panels" in kernel
             else dict(cb=256))
     plan = _run_desc_spmm(kernel, mat, 128, cuda, **geom)
-    stages = 2 if kernel.endswith("_db") else 1
-    tw, staged, _ = KDM.smem_plan(
-        stages, plan.cb, plan.r, plan.c, plan.vmax,
-        plan.desc_vidx.element_size(), 128,
-        pr=plan.pr if "panels" in kernel else 0)
-    assert (tw, staged) == (32, True)
+    if "panels" not in kernel:
+        tw, staged, _ = KDM.smem_plan(plan.cb, plan.r, plan.c, plan.vmax,
+                                      plan.desc_vidx.element_size(), 128)
+        assert (tw, staged) == (32, True)
+        return
+    launch = KDM.panels_launch(
+        KDM.PANEL_DB_STAGES if kernel.endswith("_db") else 1, plan.npanels,
+        plan.nchunks, cb=plan.cb, r=plan.r, c=plan.c, vmax=plan.vmax,
+        pr=plan.pr, nvec=128, vec=4, wv=plan.desc_vidx.element_size(),
+        wx=plan.desc_xcol.element_size(), device=cuda)
+    assert (launch["tile_columns"], launch["vector"], launch["row_parts"],
+            launch["chunks_per_stage"], launch["blocks_per_stage"]) == (
+        128, 4, 4, 2, 2 * plan.cb)
 
 
 def test_desc_spmm_cuda_plan_rejects_cpu_x(cuda):
@@ -1228,6 +1239,230 @@ def test_default_sparse_linear_on_the_card_matches_the_cpu_layer(cuda):
         ref = on_cpu(x)
         err = float((y.cpu() - ref).abs().max())
         assert err <= RTOL * float(ref.abs().max()), err
+
+
+# ----------------------------------------------------------------------------
+# panel descriptor SpMM pair: split grid, staged tables, one writer per
+# Y-tile row, wide lanes
+# ----------------------------------------------------------------------------
+
+PANEL_DESC_SPMM = ("spmm_cuda_panels_desc", "spmm_cuda_panels_desc_db")
+
+
+def _check_panel_spmm(kernel, plan, x, tables=None, **kw):
+    """One wrapper call on the plan's arrays (``tables`` replaces the four
+    descriptor tables; ``split`` in kw), counted once and held against
+    ``spmm_panels_desc`` on the same tables."""
+    tables = tables or (plan.desc_valid, plan.desc_vidx, plan.desc_xcol,
+                        plan.desc_yrow)
+    plain = R.spmm_panels_desc(
+        R.SPC5PanelDescDevice(plan.values, *tables, plan.chunk_vbase,
+                              plan.chunk_xbase), x, pr=plan.pr,
+        nrows=plan.nrows, ncols_pad=plan.ncols_pad)
+    before = KDM.LAUNCHES[kernel]
+    y = getattr(KDM, kernel)(
+        plan.chunk_vbase, plan.chunk_xbase, *tables, plan.values, x,
+        r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax, xw=plan.xw,
+        pr=plan.pr, nrows=plan.nrows, ncols_pad=plan.ncols_pad, **kw)
+    torch.cuda.synchronize()
+    assert KDM.LAUNCHES[kernel] == before + 1
+    assert y.shape == (plan.nrows, x.shape[1]) and torch.isfinite(y).all()
+    scale = float(plain.abs().max()) if plain.numel() else 0.0
+    err = float((y - plain).abs().max()) if y.numel() else 0.0
+    assert err <= RTOL * max(scale, 1.0), (err, scale, kw)
+
+
+def _spmm_split_plan(rc, device):
+    """302 rows in panels of 64 (nrows % pr != 0), 700 columns, cb=4: many
+    chunks a panel, so S can be 1, nchunks, or neither."""
+    mat = _matrix(rc, n=302, m=700, density=0.05)
+    plan = ops.prepare(mat, layout="panels", lowering="descriptor",
+                       tune=False, device=device, pr=64, xw=64, cb=4)
+    assert plan.nrows % plan.pr and plan.nchunks >= 5, plan.nchunks
+    return plan
+
+
+def _xmat(rows, nvec, seed, device):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (rows, nvec)).astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("nvec", [1, 3, 4, 16, 128, 256])
+@pytest.mark.parametrize("kernel", PANEL_DESC_SPMM)
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+def test_panel_spmm_widths(cuda, kernel, rc, nvec):
+    """Every block shape at one column a lane (nvec 1 and 3, a group of
+    four lanes with one idle) and four (nvec 4: 32 blocks a warp; 16; 128
+    and 256: 64-column tiles), at the wrapper's S."""
+    plan = _spmm_split_plan(rc, cuda)
+    _check_panel_spmm(kernel, plan, _xmat(plan.ncols, nvec, nvec, cuda))
+
+
+@pytest.mark.parametrize("split", ["one", "all", "ragged"])
+@pytest.mark.parametrize("kernel", PANEL_DESC_SPMM)
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+def test_panel_spmm_split(cuda, kernel, rc, split):
+    """S = 1 (plain stores), S = nchunks (one chunk a CTA) and an S that
+    does not divide nchunks, at nvec 16 and 128."""
+    plan = _spmm_split_plan(rc, cuda)
+    n = plan.nchunks
+    s = {"one": 1, "all": n,
+         "ragged": next(k for k in range(3, n) if n % k)}[split]
+    for nvec in (16, 128):
+        _check_panel_spmm(kernel, plan, _xmat(plan.ncols, nvec, 21, cuda),
+                          split=s)
+
+
+def _reordered(plan, order):
+    """The plan's tables with each chunk's blocks shuffled ("permuted") or
+    each chunk holding its first two blocks in turn ("repeated")."""
+    pick = (torch.from_numpy(np.random.default_rng(5).permutation(plan.cb))
+            if order == "permuted" else torch.arange(plan.cb) % 2)
+    pick = pick.to(plan.desc_valid.device)
+    return tuple(t[:, :, pick].contiguous() for t in (
+        plan.desc_valid, plan.desc_vidx, plan.desc_xcol, plan.desc_yrow))
+
+
+@pytest.mark.parametrize("order", ["permuted", "repeated"])
+@pytest.mark.parametrize("kernel", PANEL_DESC_SPMM)
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+def test_panel_spmm_block_rows_in_any_order(cuda, kernel, rc, order):
+    """Block rows shuffled within each chunk, or repeated in every block of
+    it (so one lane group walks every block of the stage's rows), at nvec
+    3, 4, 16 and 128, at the wrapper's S and at S = 1."""
+    plan = _spmm_split_plan(rc, cuda)
+    tables = _reordered(plan, order)
+    for nvec in (3, 4, 16, 128):
+        x = _xmat(plan.ncols, nvec, nvec + 1, cuda)
+        for split in (None, 1):
+            _check_panel_spmm(kernel, plan, x, tables=tables, split=split)
+
+
+@pytest.mark.parametrize("kernel", PANEL_DESC_SPMM)
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+def test_panel_spmm_reads_no_x_row_it_lacks(cuda, kernel, rc):
+    """X 37 rows short of ncols with Inf in its row 0, on a matrix whose
+    column 0 is empty: no lane reads X for a column past its rows, an unset
+    lane or an empty slot of a batch, so Y stays finite and matches the
+    plain version (which pads X with zeros), at nvec 3, 16 and 128, at the
+    wrapper's S and at S = 1."""
+    d = _dense((302, 700), 0.05, 15)
+    d[:, 0] = 0.0
+    mat = F.csr_to_spc5(F.csr_from_dense(d), *rc)
+    plan = ops.prepare(mat, layout="panels", lowering="descriptor",
+                       tune=False, device=cuda, pr=64, xw=64, cb=4)
+    for nvec in (3, 16, 128):
+        x = _xmat(plan.ncols - 37, nvec, 16, cuda)
+        x[0] = float("inf")
+        for split in (None, 1):
+            _check_panel_spmm(kernel, plan, x, split=split)
+
+
+@pytest.mark.parametrize("parts", [1, 2, 8])
+@pytest.mark.parametrize("tile", [4, 32, 128])
+@pytest.mark.parametrize("threads", [32, 128, 512])
+@pytest.mark.parametrize("kernel", PANEL_DESC_SPMM)
+def test_panel_spmm_tiles_parts_and_threads(cuda, kernel, threads, tile,
+                                            parts, monkeypatch):
+    """Narrower tiles (more tiles a panel, narrower lane groups, more
+    groups a warp), row parts of a panel (8: 8 rows each) and one to
+    sixteen warps a CTA, on repeated block rows."""
+    monkeypatch.setattr(KDM, "PANEL_TILE", tile)
+    monkeypatch.setattr(KDM, "PANEL_ROW_PARTS", parts)
+    monkeypatch.setattr(KDM, "PANEL_THREADS", threads)
+    plan = _spmm_split_plan((4, 8), cuda)
+    _check_panel_spmm(kernel, plan, _xmat(plan.ncols, 128, 4, cuda),
+                      tables=_reordered(plan, "repeated"))
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 3, 4])
+@pytest.mark.parametrize("kernel", PANEL_DESC_SPMM)
+@pytest.mark.parametrize("rc", [(2, 4), (4, 8), (8, 4)])
+def test_panel_spmm_chunks_a_stage(cuda, kernel, rc, chunks, monkeypatch):
+    """Stages of one to four chunks (the last round of a range short, or a
+    range shorter than a stage) at the wrapper's S, S = 1 and one chunk a
+    CTA, at nvec 16 and 128, on repeated block rows."""
+    monkeypatch.setattr(KDM, "PANEL_STAGE_CHUNKS", chunks)
+    plan = _spmm_split_plan(rc, cuda)
+    tables = _reordered(plan, "repeated")
+    for nvec in (16, 128):
+        x = _xmat(plan.ncols, nvec, 9, cuda)
+        for split in (None, 1, plan.nchunks):
+            _check_panel_spmm(kernel, plan, x, tables=tables, split=split)
+
+
+@pytest.mark.parametrize("split", [None, 1, 3])
+@pytest.mark.parametrize("kernel", PANEL_DESC_SPMM)
+def test_panel_spmm_all_padding_panels(cuda, kernel, split):
+    """Panels 1 and 3 hold no nonzero (300 rows, so the last is ragged);
+    their rows come out 0 whatever the split."""
+    d = _dense((300, 400), 0.05, 13)
+    d[64:128] = 0.0
+    d[192:256] = 0.0
+    mat = F.csr_to_spc5(F.csr_from_dense(d), 2, 4)
+    plan = ops.prepare(mat, layout="panels", lowering="descriptor",
+                       tune=False, device=cuda, pr=64, xw=64, cb=8)
+    assert not bool(plan.desc_valid[1].any()) and plan.nchunks >= 3
+    for nvec in (3, 16):
+        _check_panel_spmm(kernel, plan, _xmat(plan.ncols, nvec, 14, cuda),
+                          split=split)
+
+
+@pytest.mark.parametrize("kernel", PANEL_DESC_SPMM)
+def test_panel_spmm_x_in_place_and_misaligned(cuda, kernel):
+    """X short of ncols_pad is read in place (nothing past its rows); an X
+    that starts 4 bytes past a 16-byte boundary takes one column a lane."""
+    plan = _spmm_split_plan((2, 4), cuda)
+    x = _xmat(plan.ncols - 37, 16, 6, cuda)
+    assert x.shape[0] < plan.ncols_pad
+    _check_panel_spmm(kernel, plan, x)
+    buf = torch.zeros(plan.ncols * 16 + 1, device=cuda)
+    x = buf[1:].view(plan.ncols, 16)
+    x.copy_(_xmat(plan.ncols, 16, 7, cuda))
+    assert KDM.panels_vector(16, x) == 1
+    _check_panel_spmm(kernel, plan, x)
+
+
+#: (chunks a stage, blocks a stage, r, c, vmax, part rows, tw, vidx bytes,
+#: xcol bytes): chip_smoke.py's vocab layer and test multi at their tiles,
+#: a one-column-lane tile of three chunks a stage, and the sliced int32
+#: window of test_desc_spmm_table_widths.
+SPMM_SMEM_GEOMETRIES = {
+    "vocab": (2, 128, 4, 8, 312, 128, 128, 2, 2),
+    "test_multi": (1, 64, 2, 4, 176, 512, 16, 2, 2),
+    "narrow": (3, 12, 8, 4, 40, 64, 1, 1, 1),
+    "sliced": (1, 320, 4, 8, 40_960, 64, 16, 4, 2),
+}
+
+
+@pytest.mark.parametrize("stages", [1, 2])
+@pytest.mark.parametrize("case", sorted(SPMM_SMEM_GEOMETRIES))
+def test_panel_spmm_smem_matches_the_kernel(cuda, case, stages):
+    """The wrapper's ``panels_smem_bytes`` is the figure the kernel's own
+    layout gives (a launch whose figure differs is refused)."""
+    from repro_torch.kernels import _build
+    geom = SPMM_SMEM_GEOMETRIES[case]
+    lib = _build.load_library("spc5_spmm_desc")
+    assert lib.spc5_spmm_desc_panels_smem(stages, *geom) == \
+        KDM.panels_smem_bytes(stages, *geom)
+
+
+def test_panel_spmm_launch_refuses_a_wrong_smem_figure(cuda, monkeypatch):
+    """A launch handed a shared-memory figure 16 bytes off the kernel's is
+    refused (CUDA error 1) before it runs, and is not counted."""
+    plan = _spmm_split_plan((4, 8), cuda)
+    x = _xmat(plan.ncols, 16, 8, cuda)
+    real = KDM.panels_launch
+
+    def off(*args, **kw):
+        launch = real(*args, **kw)
+        return dict(launch, smem_bytes=launch["smem_bytes"] + 16)
+    monkeypatch.setattr(KDM, "panels_launch", off)
+    before = dict(KDM.LAUNCHES)
+    for kernel in PANEL_DESC_SPMM:
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            _check_panel_spmm(kernel, plan, x, split=1)
+    assert KDM.LAUNCHES == before
 
 
 # ----------------------------------------------------------------------------

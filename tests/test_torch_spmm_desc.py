@@ -272,21 +272,28 @@ def test_desc_spmm_wrapper_takes_tables_only_as_built(kernel):
 
 
 def test_desc_spmm_shared_memory_plan():
-    """The wrappers' reckoning of a CTA's shared memory: the vocab layer's
-    panel plan (pr=512, cb=64, beta(4,8), vmax 2,048, int16 vidx) stages
-    vidx and keeps 32-column tiles in two stages; an int32 vidx window
-    (vmax 40,960) is read through L1 single-buffered and refused
-    double-buffered."""
-    tw, staged, smem = KDM.smem_plan(2, 64, 4, 8, 2048, 2, 128, pr=512)
-    assert (tw, staged) == (32, True)
-    assert smem == 2 * KDM.stage_bytes(64, 4, 8, 2048, 2, True) + 512 * 32 * 4
-    assert 64 * 1024 < smem <= K.MAX_SMEM_BYTES
-    tw, staged, smem = KDM.smem_plan(1, 1280, 4, 8, 40960, 4, 16)
+    """The wrappers' reckoning of a CTA's shared memory. Panels (the launch
+    plan of ``panels_plan``): the vocab layer's shape (pr=512, cb=64,
+    beta(4,8), vmax 2,048, int16 vidx) at nvec 128 takes one 128-column
+    tile (four columns a lane) in four row parts, so that two CTAs with a
+    ring of two whole chunks fit an SM; an int32 vidx window (vmax 40,960)
+    fits the synchronous kernel with its tables in slices and is refused
+    double-buffered. Whole-vector (``smem_plan``): that window is read
+    through L1."""
+    cta = KDM.panels_plan(2, 64, 4, 8, 2048, 512, 128, 4, 2, 2)
+    assert (cta["blocks_per_stage"], cta["tile_columns"], cta["vector"],
+            cta["row_parts"]) == (64, 128, 4, 4)
+    smem = cta["smem_bytes"]
+    assert smem == KDM.panels_smem_bytes(2, 1, 64, 4, 8, 2048, 128, 128, 2,
+                                         2)
+    assert 64 * 1024 < smem <= KDM.TWO_CTA_SMEM_BYTES
+    tw, staged, smem = KDM.smem_plan(1280, 4, 8, 40960, 4, 16)
     assert not staged and smem <= K.MAX_SMEM_BYTES
-    tw, staged, smem = KDM.smem_plan(1, 1280, 4, 8, 40960, 4, 16, pr=64)
-    assert not staged and tw < 16 and smem <= K.MAX_SMEM_BYTES
-    _, _, smem = KDM.smem_plan(2, 1280, 4, 8, 40960, 4, 16, pr=64)
-    assert smem > K.MAX_SMEM_BYTES
+    cta = KDM.panels_plan(1, 1280, 4, 8, 40960, 64, 16, 4, 4, 2)
+    assert cta["blocks_per_stage"] < 1280 and cta["tile_columns"] == 16
+    assert cta["smem_bytes"] <= K.MAX_SMEM_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        KDM.panels_plan(2, 1280, 4, 8, 40960, 64, 16, 4, 4, 2)
     for rc in TF.SUPPORTED_BLOCKS:
         KDM._block(*rc)
     with pytest.raises(ValueError, match="beta"):
