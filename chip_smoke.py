@@ -33,11 +33,12 @@ phase that goes wrong:
    through ``SparseLinear.from_dense(w, density=0.1, nvec=128)`` with every
    other argument at its default, the reference's default layer, whose
    layout pass must resolve to panels + descriptor (its forward runs
-   ``spmm_cuda_panels_desc_db``; both panel descriptor SpMM kernels are
-   also held at S = 1, each launch printed); beside it two mask layers on
-   the same
+   ``spmm_cuda_panels_desc_db``); beside it two mask layers on the same
    converted matrix (``ops.prepare(lowering="mask")``: auto layout, panels,
-   and whole-vector), ``ops.spmm(..., double_buffer=False)`` on both panel
+   and whole-vector); both panel SpMM kernels of each lowering are also
+   held at S = 1, each launch printed (S, grid, row parts, tile, columns a
+   lane, threads, shared bytes, CTAs per SM, registers);
+   ``ops.spmm(..., double_buffer=False)`` on both panel
    layers at batches of 16 and 128, and batch 1 (one decode token): both
    panel layers' forwards and ``ops.spmv(..., double_buffer=False)`` on
    both panel layers, so all four panel SpMV kernels run (their launches,
@@ -603,22 +604,25 @@ def check_forced(name, plan, x, y64, path, **kw):
                            f"> {TOL}")
 
 
-#: The panel descriptor SpMM pair, also held at forced splits
+#: The panel SpMM pair of each lowering, also held at forced splits
 #: (:func:`check_panel_spmm`).
-PANEL_DESC_SPMM = ("spmm_cuda_panels_desc_db", "spmm_cuda_panels_desc")
+PANEL_SPMM = {"descriptor": ("spmm_cuda_panels_desc_db",
+                             "spmm_cuda_panels_desc"),
+              "mask": ("spmm_cuda_panels_db", "spmm_cuda_panels")}
 
 
 def check_panel_spmm(plan, x, y64, path, one_chunk=False):
-    """Both panel descriptor SpMM kernels at X's batch: prints the launch
-    each wrapper picks (:func:`spmm_panel_launches`) and holds each at it,
-    at S = 1 and, where ``one_chunk``, at one chunk a CTA, against the
-    plain version and the f64 product, each such launch printed too."""
+    """Both panel SpMM kernels of the plan's lowering at X's batch: prints
+    the launch each wrapper picks (:func:`spmm_panel_launches`) and holds
+    each at it, at S = 1 and, where ``one_chunk``, at one chunk a CTA,
+    against the plain version and the f64 product, each such launch printed
+    too."""
     nvec = x.shape[1]
     splits = (None, 1) + ((plan.nchunks,) if one_chunk else ())
     for split in splits:
         launch = spmm_panel_launches(plan, nvec, split)
-        for name in PANEL_DESC_SPMM:
-            key = "s1" if name == "spmm_cuda_panels_desc" else "s2"
+        for name in PANEL_SPMM[plan.lowering]:
+            key = "s2" if name.endswith("_db") else "s1"
             print(f"launch {name} nvec={nvec} ({path}"
                   f"{'' if split is None else f', split = {split}'}): "
                   f"{launch[key]}")
@@ -822,34 +826,40 @@ def make_vocab():
 
 
 def spmm_panel_launches(plan, nvec, split=None):
-    """The launches the panel descriptor SpMM wrappers make on the plan at
-    batch nvec (``panels_launch`` of :mod:`spc5_spmm_desc`): S, grid,
-    column tile, columns a lane, row parts, threads, shared bytes, ring,
-    blocks a stage, CTAs per SM and the kernel's registers (``-Xptxas
-    -v``). On the CPU only the shared-memory plan (no card to ask for
-    occupancy)."""
+    """The launches the panel SpMM wrappers of the plan's lowering make at
+    batch nvec (``panels_launch`` of :mod:`spc5_spmm` for a mask plan, of
+    :mod:`spc5_spmm_desc` for a descriptor plan): S, grid, column tile,
+    columns a lane, row parts, threads, shared bytes, ring, chunks (and,
+    descriptor, blocks) a stage, CTAs per SM and the kernel's registers
+    (``-Xptxas -v``). On the CPU only the shared-memory plan (no card to ask
+    for occupancy)."""
+    from repro_torch.kernels import spc5_spmm as KM
     from repro_torch.kernels import spc5_spmm_desc as KDM
-    vec = KDM.panels_vector(nvec)
+    vec = KM.panels_vector(nvec)
     geom = dict(cb=plan.cb, r=plan.r, c=plan.c, vmax=plan.vmax, pr=plan.pr,
-                nvec=nvec, vec=vec, wv=plan.desc_vidx.element_size(),
-                wx=plan.desc_xcol.element_size())
+                nvec=nvec, vec=vec)
+    if plan.lowering == "descriptor":
+        mod, kernel = KDM, f"spmm_desc_panels_kernel<{plan.r},{plan.c},{vec},"
+        geom.update(wv=plan.desc_vidx.element_size(),
+                    wx=plan.desc_xcol.element_size())
+    else:
+        mod, kernel = KM, f"spmm_panels_kernel<{plan.c},{vec},"
     out = {}
-    for name, stages in (("s1", 1), ("s2", KDM.PANEL_DB_STAGES)):
+    for name, stages in (("s1", 1), ("s2", mod.PANEL_DB_STAGES)):
         if plan.device.type == "cuda":
-            out[name] = KDM.panels_launch(stages, plan.npanels, plan.nchunks,
+            out[name] = mod.panels_launch(stages, plan.npanels, plan.nchunks,
                                           device=plan.device, split=split,
                                           **geom)
-            out[name]["registers"] = REGISTERS.get(
-                f"spmm_desc_panels_kernel<{plan.r},{plan.c},{vec},{stages}>")
+            out[name]["registers"] = REGISTERS.get(f"{kernel}{stages}>")
         else:
-            out[name] = dict(stages=stages, **KDM.panels_plan(stages,
+            out[name] = dict(stages=stages, **mod.panels_plan(stages,
                                                               **geom))
     return out
 
 
 def print_spmm_plan(name, plan) -> None:
     """Geometry and each SpMM kernel's launch at every batch: for a panel
-    descriptor plan :func:`spmm_panel_launches`, else the column tile, CTAs
+    plan :func:`spmm_panel_launches`, else the column tile, CTAs
     and dynamic shared memory per CTA (for the whole-vector descriptor plan
     also whether vidx is staged), and a descriptor plan's tables' dtypes
     and bytes."""
@@ -861,26 +871,20 @@ def print_spmm_plan(name, plan) -> None:
     panels = plan.layout == "panels"
     units = plan.npanels if panels else int(plan.chunk_vbase.shape[0])
     for nvec in SPMM_NVECS:
-        if panels and plan.lowering == "descriptor":
+        if panels:
             g[f"nvec{nvec}_launch"] = spmm_panel_launches(plan, nvec)
             continue
-        for stages in ((1, 2) if panels else (1,)):
-            staged = None
-            if plan.lowering == "descriptor":
-                tw, staged, nbytes = KDM.smem_plan(
-                    plan.cb, plan.r, plan.c, plan.vmax,
-                    plan.desc_vidx.element_size(), nvec)
-            elif panels:
-                def smem(t, s=stages, p=plan):
-                    return KM.panels_smem_bytes(s, p.cb, p.vmax, p.pr, t)
-                tw = KM.column_tile(nvec, smem)
-                nbytes = smem(tw)
-            else:
-                tw = KM.column_tile(nvec)
-                nbytes = KM.whole_smem_bytes(plan.cb, plan.vmax)
-            g[f"nvec{nvec}_s{stages}"] = dict(
-                tile=tw, ctas=units * -(-nvec // tw), smem_bytes=nbytes,
-                **({} if staged is None else {"vidx_staged": staged}))
+        staged = None
+        if plan.lowering == "descriptor":
+            tw, staged, nbytes = KDM.smem_plan(
+                plan.cb, plan.r, plan.c, plan.vmax,
+                plan.desc_vidx.element_size(), nvec)
+        else:
+            tw = KM.column_tile(nvec)
+            nbytes = KM.whole_smem_bytes(plan.cb, plan.vmax)
+        g[f"nvec{nvec}_s1"] = dict(
+            tile=tw, ctas=units * -(-nvec // tw), smem_bytes=nbytes,
+            **({} if staged is None else {"vidx_staged": staged}))
     if plan.lowering == "descriptor":
         tables = [getattr(plan, f"desc_{t}")
                   for t in ("valid", "vidx", "xcol", "yrow")]
@@ -1026,7 +1030,8 @@ def f64_matrix(csr):
 def check_vocab(layers, ys, y1, launches, acts, csr):
     """Every SpMM kernel of the path and the four batch-1 SpMV kernels
     launched; each output is checked by :func:`check_spmm` (batch 1 by
-    :func:`check_y`, the mask kernels also at S = 1)."""
+    :func:`check_y`), the panel kernels also at S = 1
+    (:func:`check_panel_spmm`, :func:`check_forced`)."""
     for name in (*VOCAB_SPMM, *BATCH1):
         if launches.get(name, 0) <= 0:
             raise SmokeFailure(f"{name} was not launched on the SparseLinear "
@@ -1040,8 +1045,9 @@ def check_vocab(layers, ys, y1, launches, acts, csr):
             err = check_spmm(name, ys[name, nvec], layers[layer_key(name)].plan,
                              x, y64, "SparseLinear path")
             errs[name] = max(errs.get(name, 0.0), err)
-        check_panel_spmm(layers["panels", "descriptor"].plan, x, y64,
-                         "SparseLinear path")
+        for lowering in PANEL_SPMM:
+            check_panel_spmm(layers["panels", lowering].plan, x, y64,
+                             "SparseLinear path")
     x1 = acts[SPMM_NVECS[0]][0]
     y64 = a64 @ x1.cpu().double().numpy()
     for name, (key, _) in BATCH1.items():
@@ -1158,6 +1164,7 @@ def measure_vocab(layers, acts, csr, timer=cuda_time_ms):
             if key[1] == "descriptor":
                 per[name, nvec].update(desc_bounds(
                     plan, layers[key[0], "mask"].plan, csr.nnz, nvec))
+            if key[0] == "panels":
                 per[name, nvec]["launch"] = spmm_panel_launches(plan, nvec)[
                     "s2" if name.endswith("_db") else "s1"]
     for name in VOCAB_SPMM:

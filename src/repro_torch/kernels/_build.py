@@ -58,8 +58,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "spc5_spmm": {
         "spc5_spmm_whole": [_P] * 8 + [_I] * 8 + [_P],
-        **{f"spc5_spmm_panels_s{s}": [_P] * 9 + [_I] * 11 + [_P]
+        **{f"spc5_spmm_panels_s{s}": [_P] * 9 + [_I] * 19 + [_P]
            for s in (1, 2)},
+        "spc5_spmm_panels_occupancy": [_I] * 6 + [_P],
+        "spc5_spmm_panels_smem": [_I] * 6,
     },
     "spc5_spmm_desc": {
         "spc5_spmm_desc_whole": [_P] * 8 + [_I] * 13 + [_P],

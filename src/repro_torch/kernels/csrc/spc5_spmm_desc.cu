@@ -72,10 +72,14 @@
 //     groups read them themselves), their X rows loaded together through
 //     L1, then multiplied in order. A lane whose column lies at or past X's
 //     rows reads nothing of X and adds nothing.
+// The Y-tile helpers (an X row's load, row adds, the groups' row-aligned
+// ranges, the tile's write) are shared with the mask panel SpMM kernels of
+// spc5_spmm.cu through spc5_spmm_panels.cuh.
 //
 // Each launcher runs on the caller's stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() (0 on success).
 
+#include "spc5_spmm_panels.cuh"
 #include "spc5_stage.cuh"
 
 namespace {
@@ -399,20 +403,7 @@ __device__ __align__(16) const float kNoX[4] = {0.f, 0.f, 0.f, 0.f};
 // never skipped, so a batch's loads issue together.
 template <int V>
 __device__ __forceinline__ void load_x(const float* p, int off, float (&out)[V]) {
-  p = off < 0 ? kNoX : p + off;
-  if constexpr (V == 4) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
-    out[0] = q.x;
-    out[1] = q.y;
-    out[2] = q.z;
-    out[3] = q.w;
-  } else if constexpr (V == 2) {
-    const float2 q = __ldg(reinterpret_cast<const float2*>(p));
-    out[0] = q.x;
-    out[1] = q.y;
-  } else {
-    out[0] = __ldg(p);
-  }
+  load_row<V>(off < 0 ? kNoX : p + off, out);
 }
 
 // Lane k of a staged block: its value and its column's offset in X (col *
@@ -436,31 +427,6 @@ __device__ __forceinline__ LaneEntry lane_entry(const float* vwin, const unsigne
     }
   }
   return e;
-}
-
-// Add a row run's sums into Y-tile row `row` of the CTA's row part (this
-// lane's V columns at jv), which this lane's group owns: a plain load and
-// store.
-template <int V>
-__device__ __forceinline__ void add_row(float* ytile, int row, int tw, int jv, int prows,
-                                        const float (&acc)[V]) {
-  if ((unsigned)row >= (unsigned)prows) return;  // never on tables chunk_descriptors builds
-  float* t = ytile + row * tw + jv;
-  if constexpr (V == 4) {
-    float4 q = *reinterpret_cast<float4*>(t);
-    q.x += acc[0];
-    q.y += acc[1];
-    q.z += acc[2];
-    q.w += acc[3];
-    *reinterpret_cast<float4*>(t) = q;
-  } else if constexpr (V == 2) {
-    float2 q = *reinterpret_cast<float2*>(t);
-    q.x += acc[0];
-    q.y += acc[1];
-    *reinterpret_cast<float2*>(t) = q;
-  } else {
-    t[0] += acc[0];
-  }
 }
 
 // Walk one block (b, mask bm, first tile row by) with this lane's group of
@@ -576,15 +542,12 @@ __device__ __forceinline__ void walk_stage(const unsigned char* st, const PanelL
   int* keys = scratch + 4 * nb;
   const int groups = (int)(blockDim.x >> lg), u = threadIdx.x >> lg;
   const int n = order_blocks<RC>(st, L, a, nb, row0, keys, info);  // the padding left out
-  int s = (int)((long long)u * n / groups), e = (int)((long long)(u + 1) * n / groups);
-  // a range starts after the last block of the row before it
-  while (s > 0 && s < n && info[s].z == info[s - 1].z) ++s;
-  while (e > 0 && e < n && info[e].z == info[e - 1].z) ++e;
+  const int2 range = row_range(info, n, groups, u);
   int cur = -1;
   float acc[V];
 #pragma unroll
   for (int w = 0; w < V; ++w) acc[w] = 0.f;
-  for (int i = s; i < e; ++i) {
+  for (int i = range.x; i < range.y; ++i) {
     const int4 w = info[i];
     const int b = w.x, by = w.z;
     const uint32_t bm = (uint32_t)w.y;
@@ -593,45 +556,6 @@ __device__ __forceinline__ void walk_stage(const unsigned char* st, const PanelL
                         xp, jv, lg, cur, acc);
   }
   if (cur >= 0) add_row<V>(ytile, cur, a.tw, jv, a.prows, acc);
-}
-
-// Add (S > 1) or store (S == 1) the Y tile's rows into Y: part h of panel p.
-template <int V>
-__device__ __forceinline__ void write_tile(const float* ytile, const PanelArgs& a, int p, int h,
-                                           int tile, int lg) {
-  const int row0 = p * a.pr + h * a.prows;  // the part's first row in Y
-  const int nout = min(min(a.prows, a.pr - h * a.prows), a.nrows - row0);
-  for (int i = threadIdx.x; i < (nout << lg); i += blockDim.x) {
-    const int rr = i >> lg, q = i & ((1 << lg) - 1);
-    const int col = tile * a.tw + q * V;
-    if (col >= a.nvec) continue;
-    const float* t = ytile + rr * a.tw + q * V;
-    float* out = a.y + (size_t)(row0 + rr) * a.nvec + col;
-    if constexpr (V == 4) {
-      const float4 v = *reinterpret_cast<const float4*>(t);
-      if (a.split == 1) {
-        *reinterpret_cast<float4*>(out) = v;
-      } else if (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f) {
-#if __CUDACC_VER_MAJOR__ * 100 + __CUDACC_VER_MINOR__ >= 1201
-        atomicAdd(reinterpret_cast<float4*>(out), v);  // one vector red.global.add
-#else
-        atomicAdd(out, v.x);
-        atomicAdd(out + 1, v.y);
-        atomicAdd(out + 2, v.z);
-        atomicAdd(out + 3, v.w);
-#endif
-      }
-    } else {
-#pragma unroll
-      for (int u = 0; u < V; ++u) {
-        if (a.split == 1) {
-          out[u] = t[u];
-        } else if (t[u] != 0.f) {
-          atomicAdd(out + u, t[u]);
-        }
-      }
-    }
-  }
 }
 
 template <int R, int C, int V, int kStages>

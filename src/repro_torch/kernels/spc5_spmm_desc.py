@@ -16,9 +16,10 @@ neither has the port. X is (ncols, nvec) and Y (nrows, nvec), both
 row-major float32; ``nvt`` keeps the reference's rule (``nvec`` a multiple
 of ``min(nvt, nvec)``, else ``ValueError``) and the kernels cut the columns
 into their own tiles: at most 32 for the whole-vector kernel, as the mask
-SpMM kernels do (:mod:`.spc5_spmm`; :func:`smem_plan`), and for the panel
-kernels a tile of up to 128 columns, with S CTAs per panel, row part and
-tile (:func:`panels_launch`; ``split`` overrides S). The tables are taken
+whole-vector kernel does (:mod:`.spc5_spmm`; :func:`smem_plan`), and for
+the panel kernels a tile of up to 128 columns, with S CTAs per panel, row
+part and tile (:func:`panels_launch`; ``split`` overrides S), as the mask
+panel pair does. The tables are taken
 only in the dtypes :func:`repro_torch.core.formats.chunk_descriptors`
 builds for the geometry, never widened
 (:func:`.spc5_spmv_desc._check_tables`).
@@ -165,10 +166,10 @@ PANEL_TILE = 128
 #: ``time_spmm_desc.py`` sweeps 8.
 PANEL_ROW_PARTS = 1
 
-#: An H100 SM's shared memory, 1 KB of it reserved per CTA, and what one CTA
-#: may use when two share it.
-SM_SMEM_BYTES = 228 * 1024
-TWO_CTA_SMEM_BYTES = SM_SMEM_BYTES // 2 - 1024
+#: An H100 SM's shared memory and what one CTA may use when two share it
+#: (:mod:`.spc5_spmm`, whose panel pair plans with the same card figures).
+SM_SMEM_BYTES = KM.SM_SMEM_BYTES
+TWO_CTA_SMEM_BYTES = KM.TWO_CTA_SMEM_BYTES
 
 #: The most chunks a stage holds (each with its value window), so that a
 #: CTA orders and walks that many chunks' blocks between two barriers:
@@ -176,17 +177,9 @@ TWO_CTA_SMEM_BYTES = SM_SMEM_BYTES // 2 - 1024
 #: and by registers: the kernels take at most 64 a thread).
 #: ``time_spmm_desc.py`` sweeps 1 and 4.
 PANEL_STAGE_CHUNKS = 2
-_SM_REGISTERS = 65536
-_MAX_REGISTERS = 64
 
-
-def panels_vector(nvec: int, x: Optional[torch.Tensor] = None) -> int:
-    """The columns of X a panel-kernel lane owns: 4 (one 16-byte load) or 2
-    (8 bytes) where they divide nvec and X is so aligned, else 1."""
-    for vec in (4, 2):
-        if nvec % vec == 0 and (x is None or x.data_ptr() % (4 * vec) == 0):
-            return vec
-    return 1
+#: The columns of X a panel-kernel lane owns, as the mask panel pair's.
+panels_vector = KM.panels_vector
 
 
 def panels_smem_bytes(stages: int, q: int, nb: int, r: int, c: int,
@@ -253,7 +246,7 @@ def panels_plan(stages: int, cb: int, r: int, c: int, vmax: int, pr: int,
 
                 def ctas(q):  # an SM's CTAs by shared memory and registers
                     return min(SM_SMEM_BYTES // (nbytes(q, q * cb) + 1024),
-                               _SM_REGISTERS // (_MAX_REGISTERS * threads))
+                               KM.SM_REGISTERS // (KM.MAX_REGISTERS * threads))
                 fits = [(q, q * cb) for q in (PANEL_STAGE_CHUNKS, 1)
                         if nbytes(q, q * cb) <= budget and ctas(q) >= ctas(1)]
                 nb = cb

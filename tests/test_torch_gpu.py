@@ -372,8 +372,9 @@ def _run_spmm(kernel, mat, nvec, device, nvt=128, seed=4, **geom):
 @pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
 def test_spmm_kernel_matches_plain(cuda, kernel, rc, nvec):
     """Several chunks and panels (pr=64, xw=64, cb=16), nrows % r != 0 for
-    r in (4, 8), bit-31 masks, and column tiles of 4 (nvec=3, one idle
-    lane), 16 and 32 (four tiles)."""
+    r in (4, 8), bit-31 masks; whole-vector column tiles of 4 (nvec=3, one
+    idle lane), 16 and 32 (four tiles), panel tiles of 4 (one column a
+    lane), 16 and 128 (four columns a lane)."""
     mat = _matrix(rc, n=302)
     geom = (dict(pr=64, xw=64, cb=16) if "panels" in kernel
             else dict(cb=16))
@@ -382,8 +383,9 @@ def test_spmm_kernel_matches_plain(cuda, kernel, rc, nvec):
 
 @pytest.mark.parametrize("kernel", SPMM_KERNELS)
 def test_spmm_partial_column_tile(cuda, kernel):
-    """nvec = 40 with nvt = 8: two column tiles of 32, the second with 24
-    idle lanes."""
+    """nvec = 40 with nvt = 8: two whole-vector column tiles of 32, the
+    second with 24 idle lanes; one panel tile of 64 columns, 16 lanes of
+    four, six of them idle."""
     _run_spmm(kernel, _matrix((2, 4), n=150, m=90), 40, cuda, nvt=8,
               **(dict(pr=32, xw=32, cb=8) if "panels" in kernel
                  else dict(cb=8)))
@@ -405,9 +407,9 @@ def test_spmm_edge_matrices(cuda, kernel, kind):
 @pytest.mark.parametrize("kernel", SPMM_KERNELS)
 def test_spmm_smoke_geometry(cuda, kernel):
     """The largest geometry chip_smoke.py uses: pr=512, cb=64, xw=512 for
-    panels (a (512, 32) Y tile beside two value windows), cb=256 for
-    whole-vector, at 4x8 and nvec=128, on a 2,000 x 4,096 slice of the
-    density-0.1 vocab weight."""
+    panels (a 128-column tile of 32 lanes of four, four row parts of 128
+    rows, 512 threads), cb=256 for whole-vector, at 4x8 and nvec=128, on a
+    2,000 x 4,096 slice of the density-0.1 vocab weight."""
     w = np.random.default_rng(0).standard_normal((2_000, 4_096), np.float32)
     w = np.where(np.abs(w) >= np.quantile(np.abs(w), 0.9), w, 0.0)
     mat = F.csr_to_spc5(F.csr_from_dense(w.astype(np.float32)), 4, 8)
@@ -415,10 +417,12 @@ def test_spmm_smoke_geometry(cuda, kernel):
             else dict(cb=256))
     plan = _run_spmm(kernel, mat, 128, cuda, **geom)
     if "panels" in kernel:
-        stages = 2 if kernel.endswith("_db") else 1
-        tw = KM.column_tile(128, lambda tw: KM.panels_smem_bytes(
-            stages, plan.cb, plan.vmax, plan.pr, tw))
-        assert tw == 32
+        stages = KM.PANEL_DB_STAGES if kernel.endswith("_db") else 1
+        launch = KM.panels_launch(stages, plan.npanels, plan.nchunks,
+                                  cb=plan.cb, r=4, c=8, vmax=plan.vmax,
+                                  pr=plan.pr, nvec=128, vec=4, device=cuda)
+        assert (launch["tile_columns"], launch["lanes"], launch["row_parts"],
+                launch["threads"]) == (128, 32, 4, 512)
 
 
 def test_spmm_oversized_shared_memory_raises(cuda):
@@ -1463,6 +1467,261 @@ def test_panel_spmm_launch_refuses_a_wrong_smem_figure(cuda, monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA error 1"):
             _check_panel_spmm(kernel, plan, x, split=1)
     assert KDM.LAUNCHES == before
+
+
+# ----------------------------------------------------------------------------
+# mask panel SpMM pair: split grid, staged chunks, one writer per Y-tile row,
+# wide lanes
+# ----------------------------------------------------------------------------
+
+PANEL_MASK_SPMM = ("spmm_cuda_panels", "spmm_cuda_panels_db")
+
+
+def _mask_arrays(plan, order="plan"):
+    """The plan's four metadata arrays (col, mask, voff, row) with each
+    chunk's blocks as planned, shuffled ("permuted"), or each block taking
+    the row of the chunk's first or second block in turn ("repeated", which
+    changes the product: every block row of a stage repeats, as in a chunk
+    that spans many block columns, and each chunk's nonzeros still fit its
+    window; on a plan of 312 rows, a multiple of every r, every borrowed
+    block row lies whole inside the matrix)."""
+    arrays = (plan.chunk_col, plan.chunk_mask, plan.chunk_voff,
+              plan.chunk_row)
+    if order == "plan":
+        return arrays
+    if order == "repeated":
+        pick = (torch.arange(plan.cb) % 2).to(plan.chunk_row.device)
+        return arrays[:3] + (plan.chunk_row[:, :, pick].contiguous(),)
+    pick = torch.from_numpy(np.random.default_rng(5).permutation(plan.cb))
+    pick = pick.to(plan.chunk_col.device)
+    return tuple(t[:, :, pick].contiguous() for t in arrays)
+
+
+def _check_mask_spmm(kernel, plan, x, arrays=None, **kw):
+    """One wrapper call on the plan's arrays (``arrays`` replaces the four
+    metadata arrays; ``split`` in kw), counted once and held against
+    ``spmm_panels`` on the same arrays with X padded with zero rows up to
+    the matrix's columns (what the reference's padding gives)."""
+    arrays = arrays or _mask_arrays(plan)
+    xz = torch.nn.functional.pad(x, (0, 0, 0, max(0, plan.ncols
+                                                  - x.shape[0])))
+    plain = R.spmm_panels(
+        R.SPC5PanelDevice(plan.values, *arrays, plan.chunk_vbase,
+                          plan.chunk_xbase), xz, r=plan.r, c=plan.c,
+        pr=plan.pr, nrows=plan.nrows, ncols_pad=plan.ncols_pad)
+    before = KM.LAUNCHES[kernel]
+    y = getattr(KM, kernel)(
+        plan.chunk_vbase, plan.chunk_xbase, *arrays, plan.values, x,
+        r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax, xw=plan.xw,
+        pr=plan.pr, nrows=plan.nrows, ncols_pad=plan.ncols_pad, **kw)
+    torch.cuda.synchronize()
+    assert KM.LAUNCHES[kernel] == before + 1
+    assert y.shape == (plan.nrows, x.shape[1]) and torch.isfinite(y).all()
+    scale = float(plain.abs().max()) if plain.numel() else 0.0
+    err = float((y - plain).abs().max()) if y.numel() else 0.0
+    assert err <= RTOL * max(scale, 1.0), (err, scale, kw)
+
+
+@pytest.mark.parametrize("nvec", [1, 3, 4, 16, 128, 256])
+@pytest.mark.parametrize("kernel", PANEL_MASK_SPMM)
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+def test_mask_panel_spmm_widths(cuda, kernel, rc, nvec):
+    """Every block shape at one column a lane (nvec 1 and 3, a group of
+    four lanes with one idle) and four (nvec 4: eight groups a warp; 16;
+    128 and 256: 128-column tiles of 32 lanes), at the wrapper's S."""
+    plan = _mask_split_plan(rc, cuda)
+    _check_mask_spmm(kernel, plan, _xmat(plan.ncols, nvec, nvec, cuda))
+
+
+@pytest.mark.parametrize("split", ["one", "all", "ragged"])
+@pytest.mark.parametrize("kernel", PANEL_MASK_SPMM)
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+def test_mask_panel_spmm_split(cuda, kernel, rc, split):
+    """S = 1 (plain stores), S = nchunks (one chunk a CTA) and an S that
+    does not divide nchunks, at nvec 3, 16 and 128."""
+    plan = _mask_split_plan(rc, cuda)
+    n = plan.nchunks
+    s = {"one": 1, "all": n,
+         "ragged": next(k for k in range(3, n) if n % k)}[split]
+    for nvec in (3, 16, 128):
+        _check_mask_spmm(kernel, plan, _xmat(plan.ncols, nvec, 21, cuda),
+                         split=s)
+
+
+@pytest.mark.parametrize("order", ["permuted", "repeated"])
+@pytest.mark.parametrize("kernel", PANEL_MASK_SPMM)
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+def test_mask_panel_spmm_block_rows_in_any_order(cuda, kernel, rc, order):
+    """Blocks shuffled within each chunk, or two block rows repeated over
+    all of its blocks (so one lane group walks every block of a row), at
+    nvec 3, 4, 16 and 128, at the wrapper's S and at S = 1."""
+    plan = _mask_split_plan(rc, cuda, n=312)
+    arrays = _mask_arrays(plan, order)
+    for nvec in (3, 4, 16, 128):
+        x = _xmat(plan.ncols, nvec, nvec + 1, cuda)
+        for split in (None, 1):
+            _check_mask_spmm(kernel, plan, x, arrays=arrays, split=split)
+
+
+@pytest.mark.parametrize("kernel", PANEL_MASK_SPMM)
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+def test_mask_panel_spmm_reads_no_x_row_it_lacks(cuda, kernel, rc):
+    """X 37 rows short of ncols (and of ncols_pad) with Inf in its row 0, on
+    a matrix whose column 0 is empty: no lane reads X for a column past its
+    rows, an unset lane or an empty slot of a batch, so Y stays finite and
+    matches the plain version on X padded with zeros, at nvec 3, 16 and
+    128, at the wrapper's S and at S = 1."""
+    d = _dense((302, 700), 0.05, 15)
+    d[:, 0] = 0.0
+    plan = ops.prepare(F.csr_to_spc5(F.csr_from_dense(d), *rc),
+                       layout="panels", lowering="mask", tune=False,
+                       device=cuda, pr=64, xw=64, cb=4)
+    for nvec in (3, 16, 128):
+        x = _xmat(plan.ncols - 37, nvec, 16, cuda)
+        x[0] = float("inf")
+        assert x.shape[0] < plan.ncols_pad
+        for split in (None, 1):
+            _check_mask_spmm(kernel, plan, x, split=split)
+
+
+@pytest.mark.parametrize("parts", [1, 2, 8])
+@pytest.mark.parametrize("tile", [4, 32, 128])
+@pytest.mark.parametrize("threads", [32, 128, 512])
+@pytest.mark.parametrize("kernel", PANEL_MASK_SPMM)
+def test_mask_panel_spmm_tiles_parts_and_threads(cuda, kernel, threads, tile,
+                                                 parts, monkeypatch):
+    """Narrower tiles (more tiles a panel, narrower lane groups, more
+    groups a warp), row parts of a panel (8: 8 rows each) and one to
+    sixteen warps a CTA, on repeated block rows, at the wrapper's S and S =
+    1."""
+    monkeypatch.setattr(KM, "PANEL_TILE", tile)
+    monkeypatch.setattr(KM, "PANEL_ROW_PARTS", parts)
+    monkeypatch.setattr(KM, "PANEL_THREADS", threads)
+    plan = _mask_split_plan((4, 8), cuda, n=312)
+    for split in (None, 1):
+        _check_mask_spmm(kernel, plan, _xmat(plan.ncols, 128, 4, cuda),
+                         arrays=_mask_arrays(plan, "repeated"), split=split)
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 3, 4])
+@pytest.mark.parametrize("kernel", PANEL_MASK_SPMM)
+@pytest.mark.parametrize("rc", [(1, 8), (2, 4), (4, 8), (8, 4)])
+def test_mask_panel_spmm_chunks_a_stage(cuda, kernel, rc, chunks,
+                                        monkeypatch):
+    """Stages of one to four chunks (the last round of a range short, or a
+    range shorter than a stage) at the wrapper's S, S = 1 and one chunk a
+    CTA, at nvec 16 and 128, on repeated block rows."""
+    monkeypatch.setattr(KM, "PANEL_STAGE_CHUNKS", chunks)
+    plan = _mask_split_plan(rc, cuda, n=312)
+    arrays = _mask_arrays(plan, "repeated")
+    for nvec in (16, 128):
+        x = _xmat(plan.ncols, nvec, 9, cuda)
+        for split in (None, 1, plan.nchunks):
+            _check_mask_spmm(kernel, plan, x, arrays=arrays, split=split)
+
+
+@pytest.mark.parametrize("cb", [5, 6])
+@pytest.mark.parametrize("kernel", PANEL_MASK_SPMM)
+def test_mask_panel_spmm_unaligned_metadata(cuda, kernel, cb):
+    """cb 5 and 6: a metadata row is not a multiple of 16 bytes, so it is
+    copied by cp.async in 4-byte pieces, not by a bulk copy; one or two
+    chunks a stage, at nvec 16 and 128, at the wrapper's S and S = 1."""
+    plan = _mask_split_plan((2, 4), cuda, cb=cb)
+    for nvec in (16, 128):
+        x = _xmat(plan.ncols, nvec, 10, cuda)
+        for split in (None, 1):
+            _check_mask_spmm(kernel, plan, x, split=split)
+
+
+@pytest.mark.parametrize("split", [None, 1, 3])
+@pytest.mark.parametrize("kernel", PANEL_MASK_SPMM)
+def test_mask_panel_spmm_all_padding_panels(cuda, kernel, split):
+    """Panels 1 and 3 hold no nonzero (300 rows, so the last is ragged);
+    their rows come out 0 whatever the split."""
+    d = _dense((300, 400), 0.05, 13)
+    d[64:128] = 0.0
+    d[192:256] = 0.0
+    mat = F.csr_to_spc5(F.csr_from_dense(d), 2, 4)
+    plan = ops.prepare(mat, layout="panels", lowering="mask", tune=False,
+                       device=cuda, pr=64, xw=64, cb=8)
+    assert not bool(plan.chunk_mask[1].any()) and plan.nchunks >= 3
+    for nvec in (3, 16, 128):
+        _check_mask_spmm(kernel, plan, _xmat(plan.ncols, nvec, 14, cuda),
+                         split=split)
+
+
+@pytest.mark.parametrize("kernel", PANEL_MASK_SPMM)
+def test_mask_panel_spmm_chunks_spanning_columns(cuda, kernel, monkeypatch):
+    """chip_smoke.py's geometry (pr 512, cb 64, xw 512) at density 0.1 on
+    1,030 rows: a chunk's blocks span several block columns, so block rows
+    repeat within a stage; at nvec 16 and 128, at the wrapper's S, S = 1
+    and with eight row parts forced."""
+    d = _dense((1_030, 700), 0.1, 17)
+    plan = ops.prepare(F.csr_to_spc5(F.csr_from_dense(d), 4, 8),
+                       layout="panels", lowering="mask", tune=False,
+                       device=cuda, pr=512, xw=512, cb=64)
+    for nvec in (16, 128):
+        x = _xmat(plan.ncols, nvec, 18, cuda)
+        for split in (None, 1):
+            _check_mask_spmm(kernel, plan, x, split=split)
+        monkeypatch.setattr(KM, "PANEL_ROW_PARTS", 8)
+        _check_mask_spmm(kernel, plan, x)
+        monkeypatch.setattr(KM, "PANEL_ROW_PARTS", 1)
+
+
+@pytest.mark.parametrize("kernel", PANEL_MASK_SPMM)
+def test_mask_panel_spmm_x_misaligned(cuda, kernel):
+    """An X that starts 4 bytes past a 16-byte boundary takes one column a
+    lane; 8 bytes past, two."""
+    plan = _mask_split_plan((2, 4), cuda)
+    for offset, vec in ((1, 1), (2, 2)):
+        buf = torch.zeros(plan.ncols * 16 + offset, device=cuda)
+        x = buf[offset:].view(plan.ncols, 16)
+        x.copy_(_xmat(plan.ncols, 16, 7, cuda))
+        assert KM.panels_vector(16, x) == vec
+        _check_mask_spmm(kernel, plan, x)
+
+
+#: (chunks a stage, cb, vmax, part rows, tw):
+#: chip_smoke.py's vocab mask layer at nvec 128 and 16, a one-column-lane
+#: tile of three chunks a stage, and cb = 5 (unaligned metadata rows).
+MASK_SPMM_SMEM_GEOMETRIES = {
+    "vocab128": (2, 64, 312, 128, 128),
+    "vocab16": (2, 64, 312, 512, 16),
+    "narrow": (3, 4, 40, 64, 1),
+    "odd": (1, 5, 24, 8, 4),
+}
+
+
+@pytest.mark.parametrize("stages", [1, 2])
+@pytest.mark.parametrize("case", sorted(MASK_SPMM_SMEM_GEOMETRIES))
+def test_mask_panel_spmm_smem_matches_the_kernel(cuda, case, stages):
+    """The wrapper's ``panels_smem_bytes`` is the figure the kernel's own
+    layout gives (a launch whose figure differs is refused)."""
+    from repro_torch.kernels import _build
+    geom = MASK_SPMM_SMEM_GEOMETRIES[case]
+    lib = _build.load_library("spc5_spmm")
+    assert lib.spc5_spmm_panels_smem(stages, *geom) == \
+        KM.panels_smem_bytes(stages, *geom)
+
+
+def test_mask_panel_spmm_launch_refuses_a_wrong_smem_figure(cuda,
+                                                            monkeypatch):
+    """A launch handed a shared-memory figure 16 bytes off the kernel's is
+    refused (CUDA error 1) before it runs, and is not counted."""
+    plan = _mask_split_plan((4, 8), cuda)
+    x = _xmat(plan.ncols, 16, 8, cuda)
+    real = KM.panels_launch
+
+    def off(*args, **kw):
+        launch = real(*args, **kw)
+        return dict(launch, smem_bytes=launch["smem_bytes"] + 16)
+    monkeypatch.setattr(KM, "panels_launch", off)
+    before = dict(KM.LAUNCHES)
+    for kernel in PANEL_MASK_SPMM:
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            _check_mask_spmm(kernel, plan, x, split=1)
+    assert KM.LAUNCHES == before
 
 
 # ----------------------------------------------------------------------------

@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
-"""Sweep the panel descriptor SpMM pair's knobs on the yi-6b vocab weight.
+"""Sweep a panel SpMM pair's knobs on the yi-6b vocab weight.
 
-    python3 time_spmm_desc.py [--label NAME] [--out FILE] [--nvec N ...]
+    python3 time_spmm_desc.py [--lowering descriptor|mask|both]
+                              [--label NAME] [--out FILE] [--nvec N ...]
                               [--variants NAME ...]
 
-A shorter run than ``chip_smoke.py`` for work on ``spc5_spmm_desc.cu``: it
-builds the kernels, converts the vocab weight as ``chip_smoke.py`` does
-(64,000 x 4,096 at density 0.1, beta(4,8)) and prepares the default layer's
-plan (panels + descriptor, through ``ops.prepare`` at nvec 128). At each
-batch (default 16 and 128) it times ``spmm_cuda_panels_desc_db`` at the
-launch its wrapper plans and at one knob changed at a time:
+A shorter run than ``chip_smoke.py`` for work on the panel SpMM kernels of
+``spc5_spmm_desc.cu`` (descriptor, the default) and ``spc5_spmm.cu``
+(``--lowering mask``): it builds the kernels, converts the vocab weight as
+``chip_smoke.py`` does (64,000 x 4,096 at density 0.1, beta(4,8)) and
+prepares the plan of each asked lowering (panels, through ``ops.prepare``
+at nvec 128: the default layer's descriptor plan, or the mask layer's
+plan). At each batch (default 16 and 128) it times the pair's
+double-buffered kernel (``spmm_cuda_panels_desc_db`` / ``spmm_cuda_panels_db``)
+at the launch its wrapper plans and at one knob changed at a time (the
+lowering's own module attributes):
 
   * ``waves1`` / ``waves2`` / ``waves8``: S from 1, 2 or 8 waves of CTAs
     (``spc5_spmv.SPLIT_WAVES``, 4 on the main path); ``split1``: S = 1;
@@ -18,8 +23,9 @@ launch its wrapper plans and at one knob changed at a time:
   * ``parts8``: at least eight row parts a panel (``PANEL_ROW_PARTS``;
     the main path takes the fewest at which two CTAs fit an SM);
     ``one_cta_an_sm``: the fewest at which one CTA fits;
-  * ``stage_chunks1`` / ``stage_chunks4``: chunks a stage holds
-    (``PANEL_STAGE_CHUNKS``, 2 on the main path, taken only where an SM
+  * ``stage_chunks1`` / ``stage_chunks2`` / ``stage_chunks4``: chunks a
+    stage holds (``PANEL_STAGE_CHUNKS``, on the main path 2 for the
+    descriptor pair and 4 for the mask pair, each taken only where an SM
     then holds as many CTAs as with one); ``stage_chunks4_one_cta`` and
     ``stage_chunks4_parts8``: four chunks with ``one_cta_an_sm`` or
     ``parts8``, where the plan can take them;
@@ -27,22 +33,26 @@ launch its wrapper plans and at one knob changed at a time:
     (``PANEL_THREADS``; the wrapper takes 512 where a lane group is a whole
     warp, else 256);
 
-and ``spmm_cuda_panels_desc`` at its planned launch (``--variants``: only
-those named, e.g. ``planned``). A variant whose launch lacks what it asks
-for (the plan refused it at this batch) is reported as refused and not
-timed. Every other variant is first checked against the plain version
-(within ``1e-5 * max|Y|``), then timed with CUDA events, L2 flushed before
-every call. It prints the card's name
-and power limit, each variant's launch and time, the static SASS of the
-main path's panel kernels (``cuobjdump -sass``: instructions, opcode
-classes, the walk's innermost loop; the listing goes beside ``--out``) and
-last one JSON object ``{"label": ..., "card": ..., "times": {"<kernel>
-nvec=<n> <variant>": ms}, "launches": {...}, "refused": {...}, "sass":
-{...}}``, also written to ``--out``.
+and the synchronous twin (``spmm_cuda_panels_desc`` / ``spmm_cuda_panels``)
+at its planned launch and at S = 1 (``--variants``: only those named, e.g.
+``planned``). A variant whose launch lacks what it asks for (the plan
+refused it at this batch) is reported as refused and not timed. Every other
+variant is first checked against the plain version (within ``1e-5 *
+max|Y|``), then timed with CUDA events, L2 flushed before every call. It
+prints the card's name and power limit, each variant's launch and time, the
+static SASS of the main path's panel kernels of each timed lowering
+(``cuobjdump -sass``: instructions, opcode classes, the walk's innermost
+loop; the listing goes beside ``--out``) and last one JSON object
+``{"label": ..., "card": ..., "times": {"<kernel> nvec=<n> <variant>":
+ms}, "launches": {...}, "refused": {...}, "sass": {...}}``, also written to
+``--out``.
 
 To compare two versions of the code, unpack one into a directory that
-``.gitignore`` lists (``git archive``) and run both trees in one call, in
-the order A, B, B, A.
+``.gitignore`` lists (``git archive``), copy this script into it, and run
+both trees in one call, in the order A, B, B, A. In a tree whose mask
+wrapper plans no launch (no ``panels_launch``), the mask pair is timed at
+its own launch, printed as ``None``, and every other mask variant is
+refused.
 """
 from __future__ import annotations
 
@@ -59,30 +69,39 @@ import numpy as np
 
 import chip_smoke as S
 
-DB = "spmm_cuda_panels_desc_db"
-SYNC = "spmm_cuda_panels_desc"
+#: (double-buffered kernel, synchronous twin) of each lowering's pair.
+PAIRS = {"descriptor": ("spmm_cuda_panels_desc_db", "spmm_cuda_panels_desc"),
+         "mask": ("spmm_cuda_panels_db", "spmm_cuda_panels")}
 
 
-def variants():
-    """(name, {(module, attribute): value}, {launch field: value it must
-    have}) of the sweep, the planned launch first."""
+def module(lowering):
+    """The wrapper module of the lowering's panel SpMM pair."""
+    from repro_torch.kernels import spc5_spmm as KM
     from repro_torch.kernels import spc5_spmm_desc as KDM
+    return KDM if lowering == "descriptor" else KM
+
+
+def variants(lowering):
+    """(name, {(module, attribute): value}, {launch field: value it must
+    have}) of the sweep of the lowering's ``_db`` kernel, the planned
+    launch first."""
     from repro_torch.kernels import spc5_spmv as K
-    one_cta = {(KDM, "TWO_CTA_SMEM_BYTES"): 0}
-    parts8 = {(KDM, "PANEL_ROW_PARTS"): 8}
+    M = module(lowering)
+    one_cta = {(M, "TWO_CTA_SMEM_BYTES"): 0}
+    parts8 = {(M, "PANEL_ROW_PARTS"): 8}
     return ([("planned", {}, {})]
             + [(f"waves{w}", {(K, "SPLIT_WAVES"): w}, {}) for w in (1, 2, 8)]
             + [("split1", {"split": 1}, {"split": 1})]
-            + [(f"tile{t}", {(KDM, "PANEL_TILE"): t}, {"tile_columns": t})
+            + [(f"tile{t}", {(M, "PANEL_TILE"): t}, {"tile_columns": t})
                for t in (32, 64)]
             + [("parts8", parts8, {"row_parts": 8})]
             + [("one_cta_an_sm", one_cta, {})]
-            + [(f"stage_chunks{q}", {(KDM, "PANEL_STAGE_CHUNKS"): q},
-                {"chunks_per_stage": q}) for q in (1, 4)]
-            + [(f"stage_chunks4_{name}", {(KDM, "PANEL_STAGE_CHUNKS"): 4,
+            + [(f"stage_chunks{q}", {(M, "PANEL_STAGE_CHUNKS"): q},
+                {"chunks_per_stage": q}) for q in (1, 2, 4)]
+            + [(f"stage_chunks4_{name}", {(M, "PANEL_STAGE_CHUNKS"): 4,
                                           **knob}, {"chunks_per_stage": 4})
                for name, knob in (("one_cta", one_cta), ("parts8", parts8))]
-            + [(f"threads{t}", {(KDM, "PANEL_THREADS"): t}, {"threads": t})
+            + [(f"threads{t}", {(M, "PANEL_THREADS"): t}, {"threads": t})
                for t in (128, 256, 512)])
 
 
@@ -100,28 +119,45 @@ def with_settings(settings, fn):
 
 
 def launch_of(name, plan, nvec, x, split=None):
-    from repro_torch.kernels import spc5_spmm_desc as KDM
-    stages = KDM.PANEL_DB_STAGES if name == DB else 1
-    return KDM.panels_launch(
-        stages, plan.npanels, plan.nchunks, cb=plan.cb, r=plan.r, c=plan.c,
-        vmax=plan.vmax, pr=plan.pr, nvec=nvec,
-        vec=KDM.panels_vector(nvec, x), wv=plan.desc_vidx.element_size(),
-        wx=plan.desc_xcol.element_size(), device=plan.device, split=split)
+    """The launch the wrapper of kernel ``name`` plans on the plan at batch
+    nvec; None for a mask kernel of a tree that plans none."""
+    M = module(plan.lowering)
+    if not hasattr(M, "panels_launch"):
+        return None
+    stages = M.PANEL_DB_STAGES if name.endswith("_db") else 1
+    geom = dict(cb=plan.cb, r=plan.r, c=plan.c, vmax=plan.vmax, pr=plan.pr,
+                nvec=nvec, vec=M.panels_vector(nvec, x))
+    if plan.lowering == "descriptor":
+        geom.update(wv=plan.desc_vidx.element_size(),
+                    wx=plan.desc_xcol.element_size())
+    return M.panels_launch(stages, plan.npanels, plan.nchunks,
+                           device=plan.device, split=split, **geom)
 
 
-def sass_counts(out_path):
-    """Static SASS of the panel kernels of beta(4,8), four columns a lane
-    (the vocab layer's), from ``cuobjdump -sass`` on the built library:
-    {kernel: {"instructions": n, opcode class: n, "walk_loop": n}}, the
-    last the instructions of the innermost loop around the block walk's
-    FMAs (one pass takes a batch of four set lanes); the listing goes to
-    ``out_path``."""
+#: Per lowering: the library of its panel SpMM pair and the mangled name
+#: of its vocab-layer kernels (beta(4,8), four columns a lane) with the
+#: ring's stages as group 1, and how to print that name.
+SASS = {"descriptor": ("spc5_spmm_desc",
+                       r"spmm_desc_panels_kernelILi4ELi8ELi4ELi(\d)E",
+                       "spmm_desc_panels_kernel<4,8,4,{}>"),
+        "mask": ("spc5_spmm", r"spmm_panels_kernelILi8ELi4ELi(\d)E",
+                 "spmm_panels_kernel<8,4,{}>")}
+
+
+def sass_counts(lowering, out_path):
+    """Static SASS of the lowering's panel kernels of beta(4,8), four
+    columns a lane (the vocab layer's), from ``cuobjdump -sass`` on the
+    built library: {kernel: {"instructions": n, opcode class: n,
+    "walk_loop": n}}, the last the instructions of the innermost loop
+    around the walk's FMAs (one pass takes a batch of four set lanes); the
+    listing goes to ``out_path``."""
     from repro_torch.kernels import _build
+    lib, pattern, label = SASS[lowering]
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    text = subprocess.run([tool, "-sass", str(_build._lib_path(
-        "spc5_spmm_desc"))], capture_output=True, text=True, timeout=120,
-        check=True).stdout
+    text = subprocess.run([tool, "-sass", str(_build._lib_path(lib))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
     with open(out_path, "w") as f:
         f.write(text)
     classes = {"LDS": r"LDS\b", "STS": r"STS\b", "LDG": r"LDG\b",
@@ -134,10 +170,8 @@ def sass_counts(out_path):
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            k = re.search(r"spmm_desc_panels_kernelILi4ELi8ELi4ELi(\d)E",
-                          m.group(1))
-            kernel = f"spmm_desc_panels_kernel<4,8,4,{k.group(1)}>" if k \
-                else None
+            k = re.search(pattern, m.group(1))
+            kernel = label.format(k.group(1)) if k else None
             if kernel:
                 counts[kernel] = {"instructions": 0, **{c: 0 for c in classes}}
                 code[kernel] = []
@@ -162,54 +196,37 @@ def sass_counts(out_path):
                  if any(op.startswith("FFMA") for a, op, _ in ins
                         if lp[0] <= a <= lp[1])]
         counts[kernel]["walk_loop"] = min(sizes or [0])
-    print(f"SASS of the vocab layer's panel kernels: {counts}")
+    print(f"SASS of the vocab layer's {lowering} panel kernels: {counts}")
     return counts
 
 
-def main() -> int:
+def sweep(plan, nvecs, names, device, rng):
+    """Time the plan's panel SpMM pair at each batch: the ``_db`` kernel at
+    every variant of :func:`variants`, the twin at its planned launch and S
+    = 1 (only the variants in ``names`` unless None). Returns times,
+    launches and refused variants, keyed "<kernel> nvec=<n> <variant>"."""
     import torch
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--label", default="")
-    ap.add_argument("--out", default="")
-    ap.add_argument("--nvec", type=int, nargs="+", default=list(S.SPMM_NVECS))
-    ap.add_argument("--variants", nargs="+", default=None)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("time_spmm_desc: no CUDA device", file=sys.stderr)
-        return 1
-    from repro_torch.kernels import ops
-    device = torch.device("cuda")
-    card = S.card_line()
-    print(card)
-    t0 = time.perf_counter()
-    S.build_kernels()
-    _, _, mat = S.make_vocab()
-    plan = ops.prepare(mat, lowering="descriptor", nvec=S.VOCAB["nvec"],
-                       device=device)
-    del mat
-    if plan.layout != "panels":
-        raise S.SmokeFailure(f"the vocab plan came out {plan.layout}")
-    S.print_spmm_plan("panels descriptor", plan)
-    rng = np.random.default_rng(1)
+    db, sync = PAIRS[plan.lowering]
     times, launches, refused = {}, {}, {}
-    for nvec in args.nvec:
+    for nvec in nvecs:
         x = torch.from_numpy(rng.standard_normal(
             (S.VOCAB["cols"], nvec)).astype(np.float32)).to(device)
         plain = S.plain_y(plan, x)
-        runs = ([(DB, *v) for v in variants()]
-                + [(SYNC, "planned", {}, {})])
-        runs = [run for run in runs
-                if args.variants is None or run[1] in args.variants]
+        runs = ([(db, *v) for v in variants(plan.lowering)]
+                + [(sync, "planned", {}, {}),
+                   (sync, "split1", {"split": 1}, {"split": 1})])
+        runs = [run for run in runs if names is None or run[1] in names]
         for name, variant, settings, want in runs:
             extra = {"split": settings["split"]} if "split" in settings \
                 else {}
             key = f"{name} nvec={nvec} {variant}"
             launch = with_settings(settings, lambda: launch_of(
                 name, plan, nvec, x, **extra))
-            if any(launch[k] != v for k, v in want.items()):
+            if (settings if launch is None
+                    else any(launch[k] != v for k, v in want.items())):
                 refused[key] = launch
                 print(f"refused {key}: the plan's launch {launch} lacks "
-                      f"{want}; not timed")
+                      f"{want or settings}; not timed")
                 continue
             call = S.kernel_call(name, plan, x, **extra)
 
@@ -225,9 +242,48 @@ def main() -> int:
             print(f"time {key}: {ms:.4f} ms (max|Y - plain| {err:.3g} of "
                   f"max|Y|); launch {launch}")
         del plain
-    sass = {}
-    if args.out:
-        sass = sass_counts(os.path.splitext(args.out)[0] + ".sass.txt")
+    return times, launches, refused
+
+
+def main() -> int:
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--lowering", default="descriptor",
+                    choices=("descriptor", "mask", "both"))
+    ap.add_argument("--label", default="")
+    ap.add_argument("--out", default="")
+    ap.add_argument("--nvec", type=int, nargs="+", default=list(S.SPMM_NVECS))
+    ap.add_argument("--variants", nargs="+", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("time_spmm_desc: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.kernels import ops
+    device = torch.device("cuda")
+    card = S.card_line()
+    print(card)
+    t0 = time.perf_counter()
+    S.build_kernels()
+    _, _, mat = S.make_vocab()
+    lowerings = (("mask", "descriptor") if args.lowering == "both"
+                 else (args.lowering,))
+    rng = np.random.default_rng(1)
+    times, launches, refused, sass = {}, {}, {}, {}
+    for lowering in lowerings:
+        plan = ops.prepare(mat, lowering=lowering, nvec=S.VOCAB["nvec"],
+                           device=device)
+        if plan.layout != "panels":
+            raise S.SmokeFailure(f"the vocab {lowering} plan came out "
+                                 f"{plan.layout}")
+        S.print_spmm_plan(f"panels {lowering}", plan)
+        for out, part in zip((times, launches, refused),
+                             sweep(plan, args.nvec, args.variants, device,
+                                   rng)):
+            out.update(part)
+        del plan
+        if args.out:
+            sass.update(sass_counts(lowering, os.path.splitext(args.out)[0]
+                                    + f".{lowering}.sass.txt"))
     print(f"total {time.perf_counter() - t0:.1f} s")
     result = {"label": args.label, "card": card, "times": times,
               "launches": launches, "refused": refused, "sass": sass}
