@@ -215,11 +215,13 @@ def build_kernels() -> None:
         for line in str(rec["log"]).splitlines():
             if "Compiling entry function" in line:
                 m = re.search(r"(sp(?:mv|mm)(?:_desc)?_(?:whole|panels)"
-                              r"_kernel)I((?:Li\d+E|[asi])+)E", line)
+                              r"_kernel)I(?:NS_\d+(\w+?)E)?"
+                              r"((?:Li\d+E|[asi])+)E", line)
                 if m:
                     targs = [n or INDEX_TYPE[t] for n, t in re.findall(
-                        r"Li(\d+)E|([asi])", m.group(2))]
-                    kernel = f"{m.group(1)}<{','.join(targs)}>"
+                        r"Li(\d+)E|([asi])", m.group(3))]
+                    kernel = (f"{m.group(1)}<"
+                              f"{','.join(([m.group(2)] if m.group(2) else []) + targs)}>")
                 elif "spmv_tail_kernel" in line:
                     kernel = "spmv_tail_kernel"
                 else:
@@ -642,6 +644,37 @@ def check_whole_grids(plan, x, y64, path, one_cta=False):
             check_forced(name, plan, x, y64, path, grid=grid)
 
 
+#: The whole-vector SpMM kernel of each lowering.
+WHOLE_SPMM = {"mask": "spmm_cuda", "descriptor": "spmm_cuda_desc"}
+
+
+def check_whole_spmm(plan, x, y64, path):
+    """The plan's whole-vector SpMM kernel at X's batch: at the launch its
+    wrapper picks, at G = 1 and at one chunk a CTA, each launch printed
+    (:func:`whole_spmm_launch`) and each Y held against the plain version
+    and the f64 product (:func:`check_forced`)."""
+    name = WHOLE_SPMM[plan.lowering]
+    nvec = x.shape[1]
+    for grid in (None, 1, int(plan.chunk_vbase.shape[0])):
+        launch = whole_spmm_launch(plan, nvec, grid, x)
+        print(f"launch {name} nvec={nvec} ({path}"
+              f"{'' if grid is None else f', grid = {grid}'}): {launch}")
+        check_forced(name, plan, x, y64, path,
+                     **({} if grid is None else {"grid": grid}))
+
+
+def check_fem_spmm(plans, csr, device, nvec=16):
+    """Both whole-vector SpMM kernels on the FEM matrix's whole-vector plans
+    (both lowerings) at batch ``nvec``, by :func:`check_whole_spmm`."""
+    import torch
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (csr.shape[1], nvec)).astype(np.float32)).to(device)
+    y64 = f64_matrix(csr) @ x.cpu().double().numpy()
+    for lowering in LOWERINGS:
+        check_whole_spmm(plans["whole_vector", lowering], x, y64,
+                         "FEM whole-vector plan")
+
+
 def check(plans, ys, launches, x, y64):
     """Every kernel launched, and each y checked by :func:`check_y` (the
     mask panel kernels also at S = 1)."""
@@ -857,34 +890,45 @@ def spmm_panel_launches(plan, nvec, split=None):
     return out
 
 
-def print_spmm_plan(name, plan) -> None:
-    """Geometry and each SpMM kernel's launch at every batch: for a panel
-    plan :func:`spmm_panel_launches`, else the column tile, CTAs
-    and dynamic shared memory per CTA (for the whole-vector descriptor plan
-    also whether vidx is staged), and a descriptor plan's tables' dtypes
-    and bytes."""
+def whole_spmm_launch(plan, nvec, grid=None, x=None):
+    """The launch the whole-vector SpMM wrapper of the plan's lowering makes
+    at batch nvec on X (``whole_launch`` of :mod:`spc5_spmm` for a mask
+    plan, of :mod:`spc5_spmm_desc` for a descriptor plan; ``grid`` forces
+    G): G, chunks a CTA, the ring's stages, chunks and blocks a stage, tile
+    columns, columns a lane, threads, Y-tile rows, shared bytes, CTAs per SM
+    and the kernel's registers (``-Xptxas -v``). On the CPU only the CTA
+    (no card to ask for occupancy)."""
     from repro_torch.kernels import spc5_spmm as KM
     from repro_torch.kernels import spc5_spmm_desc as KDM
+    geom = dict(cb=plan.cb, r=plan.r, c=plan.c, vmax=plan.vmax, nvec=nvec,
+                vec=KM.panels_vector(nvec, x))
+    if plan.lowering == "descriptor":
+        mod, policy = KDM, "DescWhole"
+        geom.update(wv=plan.desc_vidx.element_size(),
+                    wx=plan.desc_xcol.element_size())
+    else:
+        mod, policy = KM, "MaskWhole"
+    if plan.device.type != "cuda":
+        return mod.whole_cta(**geom)
+    out = mod.whole_launch(int(plan.chunk_vbase.shape[0]), device=plan.device,
+                           grid=grid, **geom)
+    out["registers"] = REGISTERS.get(
+        f"spmm_whole_kernel<{policy},{plan.r},{plan.c},{out['vector']}>")
+    return out
+
+
+def print_spmm_plan(name, plan) -> None:
+    """Geometry and each SpMM kernel's launch at every batch (a panel plan's
+    by :func:`spmm_panel_launches`, a whole-vector plan's by
+    :func:`whole_spmm_launch`), and a descriptor plan's tables' dtypes and
+    bytes."""
     g = {k: getattr(plan, k) for k in ("cb", "vmax", "pr", "xw", "npanels",
                                        "nchunks", "desc_lane_nbytes")
          if k in dict(plan.meta)}
     panels = plan.layout == "panels"
-    units = plan.npanels if panels else int(plan.chunk_vbase.shape[0])
     for nvec in SPMM_NVECS:
-        if panels:
-            g[f"nvec{nvec}_launch"] = spmm_panel_launches(plan, nvec)
-            continue
-        staged = None
-        if plan.lowering == "descriptor":
-            tw, staged, nbytes = KDM.smem_plan(
-                plan.cb, plan.r, plan.c, plan.vmax,
-                plan.desc_vidx.element_size(), nvec)
-        else:
-            tw = KM.column_tile(nvec)
-            nbytes = KM.whole_smem_bytes(plan.cb, plan.vmax)
-        g[f"nvec{nvec}_s1"] = dict(
-            tile=tw, ctas=units * -(-nvec // tw), smem_bytes=nbytes,
-            **({} if staged is None else {"vidx_staged": staged}))
+        g[f"nvec{nvec}_launch"] = (spmm_panel_launches(plan, nvec) if panels
+                                   else whole_spmm_launch(plan, nvec))
     if plan.lowering == "descriptor":
         tables = [getattr(plan, f"desc_{t}")
                   for t in ("valid", "vidx", "xcol", "yrow")]
@@ -1048,6 +1092,8 @@ def check_vocab(layers, ys, y1, launches, acts, csr):
         for lowering in PANEL_SPMM:
             check_panel_spmm(layers["panels", lowering].plan, x, y64,
                              "SparseLinear path")
+        check_whole_spmm(layers["whole_vector", "mask"].plan, x, y64,
+                         "SparseLinear path")
     x1 = acts[SPMM_NVECS[0]][0]
     y64 = a64 @ x1.cpu().double().numpy()
     for name, (key, _) in BATCH1.items():
@@ -1167,6 +1213,9 @@ def measure_vocab(layers, acts, csr, timer=cuda_time_ms):
             if key[0] == "panels":
                 per[name, nvec]["launch"] = spmm_panel_launches(plan, nvec)[
                     "s2" if name.endswith("_db") else "s1"]
+            else:
+                per[name, nvec]["launch"] = whole_spmm_launch(plan, nvec,
+                                                              x=x)
     for name in VOCAB_SPMM:
         if name in MASK_TWIN:
             for nvec in acts:
@@ -1304,7 +1353,8 @@ def measure_token(plan, mask_plan, x1, acts, csr, launches, errs, vper,
                             "bound_ms": bound_ms, "bound_by": bound_by,
                             "library_ms": library[nvec],
                             **desc_bounds(plan, mask_plan, csr.nnz, nvec),
-                            "mask_ms": mask_ms}
+                            "mask_ms": mask_ms,
+                            "launch": whole_spmm_launch(plan, nvec, x=x)}
     return per
 
 
@@ -1654,6 +1704,7 @@ def main() -> int:
         plans, ys, launches = drive(mat, x, device)
         print(f"launches on the SpMV path: {launches}")
         errs = check(plans, ys, launches, x, y64)
+        check_fem_spmm(plans, csr, device)
         rows = measure(plans, x, csr, launches, errs)
         del plans, ys
         w, vcsr, vmat = make_vocab()
@@ -1691,6 +1742,8 @@ def main() -> int:
                              "whole-vector descriptor path")
             terrs["spmm_cuda_desc"] = max(terrs.get("spmm_cuda_desc", 0.0),
                                           err)
+            check_whole_spmm(tplan, x, a64 @ x.cpu().double().numpy(),
+                             "whole-vector descriptor path")
         del tys
         token = measure_token(tplan, layers["whole_vector", "mask"].plan, x1,
                               acts, vcsr, tlaunches, terrs, vper, library)

@@ -63,6 +63,19 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to repro_torch yet (ROADMAP queue 1, {item})")
 
 
+def refuse_unported(reorder=None, store=None, verify=False) -> None:
+    """The reference's ``reorder``, ``store`` and ``verify`` keywords: their
+    defaults pass, any other value raises ``NotImplementedError`` naming
+    its ROADMAP item (reordering 5, the record store 6, the verifier 7)."""
+    if reorder is not None:
+        raise _not_ported("reordering", "item 5")
+    if store is not None:
+        raise _not_ported("a record store (selector-driven block choice and "
+                          "tuning)", "item 6")
+    if verify:
+        raise _not_ported("the static plan verifier", "item 7")
+
+
 def canonical_lowering(name: str) -> str:
     """Validate a lowering name ("auto"/"" pass through, like layouts)."""
     if name in _LOWERING_SENTINELS or name in _LOWERING_NAMES:
@@ -371,7 +384,8 @@ def make_plan(mat: F.SPC5Matrix, *, device: Device, layout: str = "auto",
               xw: Optional[int] = None, cb: Optional[int] = None,
               nvec: int = 1, align: int = 8, dtype=None,
               vdtype: str = "auto", tune: bool = True,
-              multi_layout: str = "auto") -> SPC5Plan:
+              multi_layout: str = "auto", store=None, reorder=None,
+              verify=False) -> SPC5Plan:
     """The plan pipeline: tune -> reorder -> layout -> build.
 
     ``nvec`` is the widest SpMM batch the plan will see; "auto" layout
@@ -382,7 +396,11 @@ def make_plan(mat: F.SPC5Matrix, *, device: Device, layout: str = "auto",
     stored as float32 ("" / "f32"), which is what the reference holds for
     the generators' float64 values too. ``dtype`` may only be None or
     float32, and not together with a ``vdtype`` other than "auto" (the
-    reference's ``ValueError``: the value-dtype axis owns the cast)."""
+    reference's ``ValueError``: the value-dtype axis owns the cast).
+    ``store``, ``reorder`` and ``verify`` take the reference's defaults
+    (None, None, False); any other value raises ``NotImplementedError``
+    (:func:`refuse_unported`)."""
+    refuse_unported(reorder, store, verify)
     vdtype = F.canonical_vdtype(vdtype)
     if vdtype not in ("", "auto") and dtype is not None:
         raise ValueError(
@@ -442,8 +460,30 @@ def _check_device(plan: SPC5Plan, x) -> None:
                          f"{plan.device}")
 
 
-def plan_from_arrays(layout: str, arrays, meta, *, device: Device,
-                     children=()) -> SPC5Plan:
+def _reordered(col_perm, row_iperm, rows_fused) -> bool:
+    return col_perm is not None or row_iperm is not None or bool(rows_fused)
+
+
+def plan_parts(plan):
+    """(layout, arrays, meta, children) of another package's plan, read by
+    attribute (``layout``, ``arrays``, ``meta``, ``children``), with no
+    import of that package. A plan that a reorder pass permuted
+    (``is_reordered``, or any of ``col_perm``, ``row_iperm``,
+    ``rows_fused`` set) raises ``NotImplementedError``: its permutation
+    lives outside its arrays and meta, and the port cannot apply it yet
+    (ROADMAP queue 1, item 5)."""
+    if getattr(plan, "is_reordered", False) or _reordered(
+            getattr(plan, "col_perm", None), getattr(plan, "row_iperm", None),
+            getattr(plan, "rows_fused", False)):
+        raise _not_ported("a reordered plan (col_perm / row_iperm / "
+                          "rows_fused)", "item 5")
+    return (plan.layout, plan.arrays, plan.meta,
+            tuple(getattr(plan, "children", ())))
+
+
+def plan_from_arrays(layout, arrays=None, meta=None, *, device: Device,
+                     children=(), col_perm=None, row_iperm=None,
+                     rows_fused: bool = False) -> SPC5Plan:
     """A port plan from another plan's host arrays and geometry.
 
     ``arrays`` are the layout's arrays in registry order for the lowering
@@ -452,9 +492,32 @@ def plan_from_arrays(layout: str, arrays, meta, *, device: Device,
     its ``(key, value)`` geometry, so the port computes with exactly the
     bytes the other package built. A test plan also takes its multi
     sub-plan as ``children=[(layout, arrays, meta)]`` (e.g. a JAX plan's
-    ``handle.multi.layout``, ``.arrays`` and ``.meta``)."""
+    ``handle.multi.layout``, ``.arrays`` and ``.meta``) or as that plan
+    whole.
+
+    ``layout`` may instead be the other package's plan whole (a JAX
+    ``SPC5Plan``, read by attribute: :func:`plan_parts`), with ``arrays``
+    and ``meta`` left out; its children are read the same way. Arrays and
+    meta alone cannot show a reordering, so a reordered plan must come
+    whole or with its ``col_perm``, ``row_iperm`` and ``rows_fused``: a
+    plan with any of them set, or whose ``is_reordered`` is true, raises
+    ``NotImplementedError`` (ROADMAP queue 1, item 5) rather than compute
+    another product."""
+    if _reordered(col_perm, row_iperm, rows_fused):
+        raise _not_ported("a reordered plan (col_perm / row_iperm / "
+                          "rows_fused)", "item 5")
+    if not isinstance(layout, str):
+        if arrays is not None or meta is not None or children:
+            raise ValueError("pass a plan whole, or its layout, arrays and "
+                             "meta, not both")
+        layout, arrays, meta, children = plan_parts(layout)
+    elif arrays is None or meta is None:
+        raise ValueError("plan_from_arrays needs arrays and meta with a "
+                         "layout name")
     spec = get_layout(layout)
     children = tuple(plan_from_arrays(*child, device=device)
+                     if isinstance(child, (tuple, list))
+                     else plan_from_arrays(child, device=device)
                      for child in children)
     want = 1 if spec.name == LAYOUT_TEST else 0
     if len(children) != want:

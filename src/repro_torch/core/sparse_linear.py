@@ -30,17 +30,10 @@ def prune_by_magnitude(w: np.ndarray, density: float) -> np.ndarray:
     return np.where(np.abs(w) >= thresh, w, 0.0)
 
 
-def _no_store(store) -> None:
-    if store is not None:
-        raise NotImplementedError(
-            "a record store (selector-driven block choice and tuning) is not "
-            "ported to repro_torch yet (ROADMAP queue 1, item 6)")
-
-
 def choose_block(csr: F.CSRMatrix, store=None) -> Tuple[int, int]:
     """The eq.-4 breakeven argmax: the (r, c) whose Avg(r,c) most exceeds
     the paper's breakeven filling. The selector path (``store``) raises."""
-    _no_store(store)
+    P.refuse_unported(store=store)
     best, best_score = (1, 8), -np.inf
     for (r, c) in F.SUPPORTED_BLOCKS:
         _, avg = F.block_stats(csr, r, c)
@@ -103,15 +96,7 @@ class SparseLinear(nn.Module):
         :func:`repro_torch.kernels.ops.prepare`. A ``store``, ``reorder``, a
         truthy ``verify`` and bf16/int8 values raise
         ``NotImplementedError`` naming their ROADMAP item."""
-        _no_store(store)
-        if reorder is not None:
-            raise NotImplementedError(
-                "reordering is not ported to repro_torch yet (ROADMAP queue "
-                "1, item 5)")
-        if verify:
-            raise NotImplementedError(
-                "the static plan verifier is not ported to repro_torch yet "
-                "(ROADMAP queue 1, item 7)")
+        P.refuse_unported(reorder, store, verify)
         w = prune_by_magnitude(np.asarray(w), density)
         csr = F.csr_from_dense(w)
         if block is None:
@@ -123,16 +108,23 @@ class SparseLinear(nn.Module):
         return cls(plan, _bias_tensor(bias, plan.device))
 
     @classmethod
-    def from_arrays(cls, layout: str, arrays, meta, bias=None, *,
-                    device: P.Device, children=()) -> "SparseLinear":
-        """A layer over another plan's host arrays and geometry (e.g. a JAX
-        ``SparseLinear``'s ``handle.arrays``, ``handle.meta`` and ``bias``;
-        for a test plan also ``children=[(handle.multi.layout,
-        handle.multi.arrays, handle.multi.meta)]``), so the port computes
-        with exactly the bytes the other package built
-        (:func:`repro_torch.core.plan.plan_from_arrays`)."""
+    def from_arrays(cls, layout, arrays=None, meta=None, bias=None, *,
+                    device: P.Device, children=(), col_perm=None,
+                    row_iperm=None, rows_fused: bool = False
+                    ) -> "SparseLinear":
+        """A layer over another plan's host arrays and geometry, so the port
+        computes with exactly the bytes the other package built
+        (:func:`repro_torch.core.plan.plan_from_arrays`): e.g. a JAX
+        ``SparseLinear``'s ``handle`` whole (``from_arrays(handle,
+        bias=bias)``), or its ``handle.layout``, ``handle.arrays``,
+        ``handle.meta`` with its ``col_perm``, ``row_iperm`` and
+        ``rows_fused`` (for a test plan also ``children=[handle.multi]``).
+        A reordered plan raises ``NotImplementedError`` (ROADMAP queue 1,
+        item 5): arrays and meta without the permutation would give another
+        product."""
         plan = P.plan_from_arrays(layout, arrays, meta, device=device,
-                                  children=children)
+                                  children=children, col_perm=col_perm,
+                                  row_iperm=row_iperm, rows_fused=rows_fused)
         return cls(plan, _bias_tensor(bias, plan.device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -57,14 +57,18 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "spc5_spmv_desc_panels_smem": [_I] * 9,
     },
     "spc5_spmm": {
-        "spc5_spmm_whole": [_P] * 8 + [_I] * 8 + [_P],
+        "spc5_spmm_whole": [_P] * 8 + [_I] * 18 + [_P],
+        "spc5_spmm_whole_occupancy": [_I] * 6 + [_P],
+        "spc5_spmm_whole_smem": [_I] * 10,
         **{f"spc5_spmm_panels_s{s}": [_P] * 9 + [_I] * 19 + [_P]
            for s in (1, 2)},
         "spc5_spmm_panels_occupancy": [_I] * 6 + [_P],
         "spc5_spmm_panels_smem": [_I] * 6,
     },
     "spc5_spmm_desc": {
-        "spc5_spmm_desc_whole": [_P] * 8 + [_I] * 13 + [_P],
+        "spc5_spmm_desc_whole": [_P] * 8 + [_I] * 21 + [_P],
+        "spc5_spmm_desc_whole_occupancy": [_I] * 6 + [_P],
+        "spc5_spmm_desc_whole_smem": [_I] * 12,
         "spc5_spmm_desc_panels_s1": [_P] * 9 + [_I] * 23 + [_P],
         "spc5_spmm_desc_panels_s2": [_P] * 9 + [_I] * 22 + [_P],
         "spc5_spmm_desc_panels_occupancy": [_I] * 7 + [_P],

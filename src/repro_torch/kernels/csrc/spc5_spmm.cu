@@ -19,16 +19,26 @@
 // against 227 KB, and a chunk of a sparse panel uses far fewer X rows than
 // the xw it would stage, so both kernels read X in place through L1.
 //
-// Whole-vector kernel (spmm_whole_kernel): one CTA per (chunk, column tile
-// of tw <= 32 columns), a warp cut into groups of tw lanes, lane l of a
-// group owning column tile * tw + l; the chunk's value window and metadata
-// are staged with plain loads and each group walks a contiguous run of its
-// blocks, decoding each block's mask once (uniform control flow in the
-// group) and applying each packed value to all tw columns. to_chunked
-// walks blocks in row-interval order, so each (row, column) is summed in
-// registers while the interval is unchanged and flushed with one global
-// atomicAdd when it changes (into a zeroed Y); the f32 sum order varies
-// from run to run.
+// Whole-vector kernel (spmm_whole_kernel<MaskWhole, R, C, V>), built for
+// the H100, not for the TPU's sequential grid: the skeleton of
+// spc5_spmm_whole.cuh, shared with the descriptor kernel of
+// spc5_spmm_desc.cu. On the vocab weight a chunk of cb = 256 beta(4,8)
+// blocks spans only 4-8 rows, so the kernel neither gives a CTA a chunk nor
+// cuts rows among lane groups: G CTAs each take a contiguous range of the
+// chunks (G from the card's occupancy), stage rounds of q chunks (value
+// windows and the four metadata rows) by bulk copies on an mbarrier, a ring
+// of two where an SM holds as many CTAs as with one stage; once a round the
+// CTA lists its nonzeros ordered by (row of the block, block, lane), each
+// the next value of the window in packed order (no rank) with its X row
+// offset and row, leaving out lanes whose column lies at or past X's rows;
+// the lane groups walk equal shares of the list four entries at a time with
+// 16-byte X loads (four columns a lane, tiles of up to 128 columns) and
+// combine row sums in a shared Y tile through per-group slots, in a fixed
+// order, with no shared float atomic. What bounds it: at nvec 16 the plan's
+// bytes and each round's fixed costs (its copies, barriers and the list's
+// scan); at nvec 128 the instructions each nonzero costs in the walk (an
+// entry, an X load, V FMAs), which the list keeps at the panel kernels'
+// count.
 //
 // Panel kernels (spmm_panels_kernel), built for the H100, not for the TPU's
 // sequential grid:
@@ -74,120 +84,12 @@
 // synchronise, and returns cudaGetLastError() (0 on success).
 
 #include "spc5_spmm_panels.cuh"
+#include "spc5_spmm_whole.cuh"
 #include "spc5_stage.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
 __host__ __device__ __forceinline__ int round16(int n) { return (n + 15) & ~15; }
-
-// Stage one chunk: its value window and its four metadata rows
-// (col, mask, voff, row; cb words each).
-template <bool kAsync>
-__device__ __forceinline__ void stage_chunk(float* vwin, int* meta, const float* values, int vbase,
-                                            const int* col, const uint32_t* mask, const int* voff,
-                                            const int* row, size_t slot0, int cb, int vmax) {
-  stage<kAsync>(vwin, values + vbase, vmax);
-  stage_words<kAsync>(meta, col + slot0, cb);
-  stage_words<kAsync>(meta + cb, reinterpret_cast<const int*>(mask) + slot0, cb);
-  stage_words<kAsync>(meta + 2 * cb, voff + slot0, cb);
-  stage_words<kAsync>(meta + 3 * cb, row + slot0, cb);
-}
-
-template <int R>
-__device__ __forceinline__ void flush_rows(float* out, int ldo, int row, const float (&acc)[R],
-                                           uint32_t touched, bool live) {
-  if (!live) return;
-#pragma unroll
-  for (int lr = 0; lr < R; ++lr) {
-    if ((touched >> lr) & 1u) atomicAdd(out + (size_t)(row + lr) * ldo, acc[lr]);
-  }
-}
-
-// Walk blocks [b0, b1) of a staged chunk for one column: x points at the
-// column in X's first row (the window's first row for panels), out at the
-// column in Y's (or the Y tile's) first row. Rows of one interval are summed
-// in acc and flushed when the interval changes; `touched` marks the rows
-// with a set bit, so rows past nrows are never written.
-template <int R>
-__device__ __forceinline__ void walk_blocks(const int* meta, const float* vwin,
-                                            const float* __restrict__ x, int ldx, int b0, int b1,
-                                            int cb, int c, float* out, int ldo, bool live) {
-  const int* s_col = meta;
-  const uint32_t* s_mask = reinterpret_cast<const uint32_t*>(meta + cb);
-  const int* s_voff = meta + 2 * cb;
-  const int* s_row = meta + 3 * cb;
-  // c <= 8 and R * c <= 32, so every shift below is in range
-  const uint32_t row_mask = (1u << c) - 1u;
-  float acc[R];
-  int cur = 0;
-  uint32_t touched = 0u;
-  for (int b = b0; b < b1; ++b) {
-    const uint32_t mask = s_mask[b];
-    if (mask == 0u) continue;  // padding block
-    const int row = s_row[b];
-    if (touched == 0u || row != cur) {
-      if (touched != 0u) flush_rows<R>(out, ldo, cur, acc, touched, live);
-      cur = row;
-      touched = 0u;
-#pragma unroll
-      for (int lr = 0; lr < R; ++lr) acc[lr] = 0.f;
-    }
-    const float* xb = x + (size_t)s_col[b] * ldx;
-    int v = s_voff[b];
-#pragma unroll
-    for (int lr = 0; lr < R; ++lr) {
-      uint32_t bits = (mask >> (lr * c)) & row_mask;
-      if (bits == 0u) continue;
-      touched |= 1u << lr;
-      float a = acc[lr];
-      do {
-        const int lc = __ffs(bits) - 1;
-        bits &= bits - 1u;
-        a = fmaf(vwin[v++], __ldg(xb + (size_t)lc * ldx), a);
-      } while (bits != 0u);
-      acc[lr] = a;
-    }
-  }
-  if (touched != 0u) flush_rows<R>(out, ldo, cur, acc, touched, live);
-}
-
-// ---------------------------------------------------------------------------
-// whole-vector layout: one CTA per (chunk, column tile), global atomics
-// ---------------------------------------------------------------------------
-template <int R>
-__global__ void __launch_bounds__(kThreads)
-spmm_whole_kernel(const int* __restrict__ chunk_vbase, const int* __restrict__ chunk_col,
-                  const uint32_t* __restrict__ chunk_mask, const int* __restrict__ chunk_voff,
-                  const int* __restrict__ chunk_row, const float* __restrict__ values,
-                  const float* __restrict__ x, float* __restrict__ y, int cb, int vmax, int c,
-                  int nvec, int tw, int ntiles) {
-  // layout: the value window (a multiple of 8 floats), then the metadata
-  extern __shared__ __align__(16) float smem[];
-  float* vwin = smem;
-  int* meta = reinterpret_cast<int*>(smem + vmax);
-  const int ch = blockIdx.x / ntiles;
-  const int tile = blockIdx.x - ch * ntiles;
-  stage_chunk<false>(vwin, meta, values, chunk_vbase[ch], chunk_col, chunk_mask, chunk_voff,
-                     chunk_row, (size_t)ch * cb, cb, vmax);
-  __syncthreads();
-  const Lanes t = lanes_of(tw, tile, nvec, cb);
-  walk_blocks<R>(meta, vwin, x + t.jc, nvec, t.b0, t.b1, cb, c, y + t.jc, nvec, t.live);
-}
-
-template <int R>
-int launch_whole(const int* vbase, const int* col, const uint32_t* mask, const int* voff,
-                 const int* row, const float* values, const float* x, float* y, int nchunks,
-                 int cb, int vmax, int c, int nvec, int tw, int device, void* stream) {
-  const size_t smem = ((size_t)vmax + 4 * (size_t)cb) * 4;
-  cudaError_t err = prepare_launch(spmm_whole_kernel<R>, device, smem, kThreads, nullptr);
-  if (err != cudaSuccess) return (int)err;
-  const int ntiles = (nvec + tw - 1) / tw;
-  spmm_whole_kernel<R><<<nchunks * ntiles, kThreads, smem, (cudaStream_t)stream>>>(
-      vbase, col, mask, voff, row, values, x, y, cb, vmax, c, nvec, tw, ntiles);
-  return (int)cudaGetLastError();
-}
 
 // ---------------------------------------------------------------------------
 // panel layout: S CTAs per (panel, row part, column tile), staged chunks,
@@ -576,24 +478,215 @@ int panels_entry(int stages, const int* vbase, const int* xbase, const int* col,
   return launch_panels(stages, a, npanels, smem, threads, device, stream);
 }
 
+// ---------------------------------------------------------------------------
+// whole-vector layout: the skeleton of spc5_spmm_whole.cuh, G contiguous
+// chunk ranges, a ring of staged rounds, a per-round nonzero list
+// ---------------------------------------------------------------------------
+
+// The mask kernel's part: a stage holds q value windows (vstride bytes
+// apart), the four metadata rows of its nb blocks (col, mask, voff, row;
+// meta_stride bytes apart) and a 16-byte mbarrier slot; a block's lanes are
+// its set bits, less those whose column lies at or past X's rows, each
+// listed with the next value of the window (the values are packed in lane
+// order: no rank).
+struct MaskWhole {
+  struct Args {
+    WholeGeom g;
+    const int* vbase;       // (nchunks,) value window starts
+    const int* col;         // (nchunks, cb) block columns
+    const uint32_t* mask;   // (nchunks, cb) r*c-bit masks, 0: padding
+    const int* voff;        // (nchunks, cb) first values in the window
+    const int* row;         // (nchunks, cb) first rows
+    const float* values;
+  };
+
+  __host__ __device__ static int vstride(const Args& a) { return wr16(4 * a.g.vmax); }
+  __host__ __device__ static int meta(const Args& a) { return a.g.q * vstride(a); }
+  __host__ __device__ static int meta_stride(const Args& a) { return wr16(4 * a.g.nb); }
+  __host__ __device__ static int bar_offset(const Args& a) {
+    return meta(a) + 4 * meta_stride(a);
+  }
+  __host__ __device__ static int stage_bytes(const Args& a) { return bar_offset(a) + 16; }
+
+  // Stage blocks [b0, b0 + nb) of global chunks g .. g + qn - 1 (contiguous:
+  // one row each of the four metadata arrays) and, where `window`, the qn
+  // value windows: thread 0 announces and issues the bulk copies (the
+  // windows; the metadata rows where 16-byte aligned), all completing on
+  // the stage's mbarrier, one phase per call; every thread issues its share
+  // of the rest by cp.async.
+  __device__ static void fill(unsigned char* st, const Args& a, size_t g, int b0, int nb, int qn,
+                              bool window) {
+    const size_t slot0 = g * a.g.cb + b0;
+    const int nbytes = 4 * nb;
+    const char* rows[4] = {reinterpret_cast<const char*>(a.col + slot0),
+                           reinterpret_cast<const char*>(a.mask + slot0),
+                           reinterpret_cast<const char*>(a.voff + slot0),
+                           reinterpret_cast<const char*>(a.row + slot0)};
+    const bool bulk = ((reinterpret_cast<uintptr_t>(rows[0]) | reinterpret_cast<uintptr_t>(rows[1]) |
+                        reinterpret_cast<uintptr_t>(rows[2]) | reinterpret_cast<uintptr_t>(rows[3]) |
+                        (uintptr_t)nbytes) & 15) == 0;
+    unsigned char* m = st + meta(a);
+    if (threadIdx.x == 0) {
+      uint64_t* bar = reinterpret_cast<uint64_t*>(st + bar_offset(a));
+      mbar_expect_tx(bar, (window ? 4 * a.g.vmax * qn : 0) + (bulk ? 4 * nbytes : 0));
+      for (int i = 0; window && i < qn; ++i) {
+        bulk_copy(st + vstride(a) * i, a.values + __ldg(a.vbase + g + i), 4 * a.g.vmax, bar);
+      }
+      if (bulk) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) bulk_copy(m + k * meta_stride(a), rows[k], nbytes, bar);
+      }
+    }
+    if (!bulk) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) copy_runs<true>(m + k * meta_stride(a), rows[k], 1, nbytes, 0);
+    }
+  }
+
+  __device__ static const int* meta_row(const unsigned char* st, const Args& a, int k) {
+    return reinterpret_cast<const int*>(st + meta(a) + k * meta_stride(a));
+  }
+
+  __device__ static int first_row(const unsigned char* st, const Args& a) {
+    return meta_row(st, a, 3)[0];
+  }
+
+  template <int R, int C>
+  __device__ static WholeBlock block(const unsigned char* st, const Args& a, int b) {
+    const uint32_t m = (uint32_t)meta_row(st, a, 1)[b];
+    const uint32_t kept = m != 0u ? m & lanes_below<C>(a.g.xrows - meta_row(st, a, 0)[b]) : 0u;
+    return WholeBlock{kept, meta_row(st, a, 3)[b]};
+  }
+
+  // The block's kept lanes row by row, lane order within a row, row lr's
+  // from list[pos[lr]] on.
+  template <int R, int C>
+  __device__ static void emit(const unsigned char* st, const Args& a, int b, uint32_t kept,
+                              const int (&pos)[R], int4* list, int room) {
+    constexpr uint32_t kRow = (1u << C) - 1u;
+    const int slot = a.g.q == 1 ? 0 : b / a.g.cb;  // the block's chunk in the stage
+    const float* vwin = reinterpret_cast<const float*>(st + slot * vstride(a));
+    const uint32_t full = (uint32_t)meta_row(st, a, 1)[b];
+    const int xc = meta_row(st, a, 0)[b], y = meta_row(st, a, 3)[b];
+    int vi = meta_row(st, a, 2)[b];
+#pragma unroll
+    for (int lr = 0; lr < R; ++lr) {
+      uint32_t fb = (full >> (lr * C)) & kRow;
+      const uint32_t kb = (kept >> (lr * C)) & kRow;
+      int p = pos[lr];
+      while (fb != 0u) {
+        const int lc = __ffs(fb) - 1;
+        fb &= fb - 1u;
+        if ((kb >> lc) & 1u) {
+          if (p < room) {
+            list[p] = make_int4(__float_as_int(vwin[vi]), (xc + lc) * a.g.nvec, y + lr, 0);
+          }
+          ++p;
+        }
+        ++vi;
+      }
+    }
+  }
+};
+
+using MaskWholeKernel = void (*)(MaskWhole::Args);
+
+template <int R, int C>
+MaskWholeKernel mask_whole_rc(int vec) {
+  switch (vec) {
+    case 1: return spmm_whole_kernel<MaskWhole, R, C, 1>;
+    case 2: return spmm_whole_kernel<MaskWhole, R, C, 2>;
+    case 4: return spmm_whole_kernel<MaskWhole, R, C, 4>;
+    default: return nullptr;
+  }
+}
+
+// The whole-vector kernel for block shape (r, c) (every shape of
+// formats.SUPPORTED_BLOCKS) and vec columns a lane; nullptr for any other.
+MaskWholeKernel mask_whole_kernel(int r, int c, int vec) {
+  switch (r * 16 + c) {
+    case 1 * 16 + 4: return mask_whole_rc<1, 4>(vec);
+    case 1 * 16 + 8: return mask_whole_rc<1, 8>(vec);
+    case 2 * 16 + 4: return mask_whole_rc<2, 4>(vec);
+    case 2 * 16 + 8: return mask_whole_rc<2, 8>(vec);
+    case 4 * 16 + 4: return mask_whole_rc<4, 4>(vec);
+    case 4 * 16 + 8: return mask_whole_rc<4, 8>(vec);
+    case 8 * 16 + 4: return mask_whole_rc<8, 4>(vec);
+    default: return nullptr;
+  }
+}
+
+MaskWhole::Args mask_whole_geom(int nchunks, int cb, int vmax, int nrows, int xrows, int r,
+                                int c, int nvec, int tw, int vec, int grid, int stages, int q,
+                                int nb, int tile_rows) {
+  MaskWhole::Args a{};
+  a.g = WholeGeom{nullptr, nullptr, nchunks, cb, r, c, vmax, nrows, xrows, nvec, tw, vec,
+                  tw > 0 ? (nvec + tw - 1) / tw : 0, grid, stages, q, nb, tile_rows};
+  return a;
+}
+
 }  // namespace
 
 extern "C" {
 
+// The whole-vector kernel (spc5_spmm_whole.cuh): Y = A @ X over all
+// nchunks chunks of cb blocks, X (xrows, nvec) read in place, Y (nrows,
+// nvec) zeroed by the caller. G = grid CTAs a column tile of tw columns, vec
+// columns a lane, rounds of q chunks (nb = q * cb blocks) in a ring of
+// `stages` (2, or 1 with nb < cb a slice of a chunk), a Y tile of tile_rows
+// rows, `threads` a power of two in [32, 512]. smem is the wrapper's figure
+// for the CTA's dynamic shared memory (checked).
 int spc5_spmm_whole(const int* vbase, const int* col, const uint32_t* mask, const int* voff,
                     const int* row, const float* values, const float* x, float* y, int nchunks,
-                    int cb, int vmax, int r, int c, int nvec, int tw, int device, void* stream) {
-#define SPC5_WHOLE(R) \
-  launch_whole<R>(vbase, col, mask, voff, row, values, x, y, nchunks, cb, vmax, c, nvec, tw, \
-                  device, stream)
-  switch (r) {
-    case 1: return SPC5_WHOLE(1);
-    case 2: return SPC5_WHOLE(2);
-    case 4: return SPC5_WHOLE(4);
-    case 8: return SPC5_WHOLE(8);
-    default: return (int)cudaErrorInvalidValue;
+                    int cb, int vmax, int nrows, int xrows, int r, int c, int nvec, int tw,
+                    int vec, int grid, int stages, int q, int nb, int tile_rows, int smem,
+                    int threads, int device, void* stream) {
+  MaskWhole::Args a = mask_whole_geom(nchunks, cb, vmax, nrows, xrows, r, c, nvec, tw, vec, grid,
+                                      stages, q, nb, tile_rows);
+  a.g.x = x;
+  a.g.y = y;
+  a.vbase = vbase;
+  a.col = col;
+  a.mask = mask;
+  a.voff = voff;
+  a.row = row;
+  a.values = values;
+  const MaskWholeKernel kernel = mask_whole_kernel(r, c, vec);
+  const size_t bytes = whole_layout(a.g, MaskWhole::stage_bytes(a), threads).bytes;
+  if (kernel == nullptr || !whole_geom_ok(a.g, threads) || bytes != (size_t)smem) {
+    return (int)cudaErrorInvalidValue;
   }
-#undef SPC5_WHOLE
+  cudaError_t err = prepare_launch(kernel, device, bytes, threads, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&a};
+  err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel),
+                         dim3((unsigned)(grid * a.g.ntiles)), dim3(threads), args, bytes,
+                         (cudaStream_t)stream);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The whole-vector kernel's occupancy for block shape (r, c), vec columns a
+// lane, `threads` and `smem` bytes of dynamic shared memory per CTA: out[0]
+// the CTAs one SM holds at once, out[1] the SMs of the device.
+int spc5_spmm_whole_occupancy(int r, int c, int vec, int threads, int smem, int device,
+                              int* out) {
+  const MaskWholeKernel kernel = mask_whole_kernel(r, c, vec);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare_launch(kernel, device, (size_t)smem, threads, nullptr);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, (size_t)smem);
+  }
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(out + 1, cudaDevAttrMultiProcessorCount, device);
+  return (int)err;
+}
+
+// The dynamic shared memory of one whole-vector CTA, as the launch computes
+// it (whole_layout with this kernel's stage).
+int spc5_spmm_whole_smem(int stages, int q, int nb, int r, int c, int vmax, int tw, int vec,
+                         int tile_rows, int threads) {
+  const MaskWhole::Args a =
+      mask_whole_geom(1, nb, vmax, 1, 0, r, c, 1, tw, vec, 1, stages, q, nb, tile_rows);
+  return whole_layout(a.g, MaskWhole::stage_bytes(a), threads).bytes;
 }
 
 // The synchronous panel kernel: S = split CTAs per (panel, row part, column

@@ -21,14 +21,23 @@
 // at small nvec, the f32 rate at nvec = 128, where what a nonzero costs in
 // instructions decides.
 //
-// Whole-vector kernel (spmm_desc_whole_kernel): one CTA per (chunk, column
-// tile of at most 32), the chunk staged with plain loads (its value window,
-// vidx where it fits, one word per block and column, row and block), each
-// (row, column) summed in a register while the block row's yrow entry is
-// unchanged and added into a zeroed Y with global atomicAdd (neighbouring
-// chunks share rows; the f32 sum order varies from run to run). X is read
-// through the read-only path; a column at or past X's rows (xrows) is
-// staged as -1 and skipped.
+// Whole-vector kernel (spmm_whole_kernel<DescWhole, R, C, V>), built for
+// the H100, not for the TPU's sequential grid: the skeleton of
+// spc5_spmm_whole.cuh (G contiguous chunk ranges, a ring of staged rounds
+// where it costs no CTAs an SM, a per-round list of nonzeros ordered by
+// row, lane groups walking equal shares of it four entries at a time with
+// 16-byte X loads, a deterministic combine in a shared Y tile, no shared
+// float atomic), shared with the mask kernel of spc5_spmm.cu. Its own
+// part: a stage holds what differs at the tables' built widths, the value
+// windows, the valid and vidx runs, the c xcol entries of each block's
+// first row and the 4-byte word of each block's lane-0 yrow entry (the
+// identities the panel kernels below rely on hold in this layout too;
+// tests/test_torch_desc_whole.py pins them); a block's entries are its
+// valid lanes in lane order, each window[vidx[k]] (no packed order is
+// assumed), less lanes whose column lies at or past X's rows. What bounds
+// it: at nvec 16 the tables' bytes (the plan is 9.5x the mask plan's) and
+// each round's fixed costs; at nvec 128 the walk's instructions, as for the
+// mask kernel.
 //
 // Panel kernels (spmm_desc_panels_kernel), built for the H100, not for the
 // TPU's sequential grid:
@@ -80,185 +89,17 @@
 // synchronise, and returns cudaGetLastError() (0 on success).
 
 #include "spc5_spmm_panels.cuh"
+#include "spc5_spmm_whole.cuh"
 #include "spc5_stage.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
 __host__ __device__ __forceinline__ int round16(int n) { return (n + 15) & ~15; }
-
-// ---------------------------------------------------------------------------
-// whole-vector layout: one CTA per (chunk, column tile), global atomics
-// ---------------------------------------------------------------------------
-
-// Byte offsets of one staged chunk's parts in shared memory; every part
-// starts 16-byte aligned (vmax is a multiple of 8 floats). The wrapper
-// reckons the same sizes (spc5_spmm_desc.py).
-struct Stage {
-  int vidx, bcol, brow, bmask, bytes;  // the value window is at 0
-};
-
-__host__ __device__ __forceinline__ Stage stage_layout(int cb, int r, int c, int vmax, int wv,
-                                                       bool stage_vidx) {
-  Stage s;
-  s.vidx = 4 * vmax;
-  s.bcol = s.vidx + (stage_vidx ? round16(cb * r * c * wv) : 0);
-  s.brow = s.bcol + 4 * cb * c;
-  s.bmask = s.brow + 4 * cb * r;
-  s.bytes = round16(s.bmask + 4 * cb);
-  return s;
-}
 
 // Bit i: byte i of w is not zero.
 __device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w) {
   const uint32_t t = __vcmpne4(w, 0u) & 0x01010101u;
   return (t * 0x01020408u) >> 24;
-}
-
-// The rc valid bytes of one block (rc in 4, 8, 16, 32; the block's bytes
-// start at a multiple of rc, the table at 16 bytes) as an rc-bit mask.
-__device__ __forceinline__ uint32_t block_mask(const signed char* v, int rc) {
-  if (rc == 4) return nonzero_bytes(__ldg(reinterpret_cast<const unsigned*>(v)));
-  if (rc == 8) {
-    const uint2 q = __ldg(reinterpret_cast<const uint2*>(v));
-    return nonzero_bytes(q.x) | nonzero_bytes(q.y) << 4;
-  }
-  const uint4 q = __ldg(reinterpret_cast<const uint4*>(v));
-  uint32_t m = nonzero_bytes(q.x) | nonzero_bytes(q.y) << 4 | nonzero_bytes(q.z) << 8 |
-               nonzero_bytes(q.w) << 12;
-  if (rc == 32) {
-    const uint4 h = __ldg(reinterpret_cast<const uint4*>(v) + 1);
-    m |= (nonzero_bytes(h.x) | nonzero_bytes(h.y) << 4 | nonzero_bytes(h.z) << 8 |
-          nonzero_bytes(h.w) << 12)
-         << 16;
-  }
-  return m;
-}
-
-// Stage one chunk (lanes lane0 .. lane0 + cb*r*c of the tables) into st.
-template <typename VT>
-__device__ __forceinline__ void stage_chunk(char* st, const Stage& L, const float* values,
-                                            int vbase, const signed char* valid, const VT* vidx,
-                                            const void* xcol, const void* yrow, size_t lane0,
-                                            int cb, int r, int c, int vmax, int wx, int wy,
-                                            int xrows, bool stage_vidx) {
-  const int rc = r * c;
-  stage<false>(reinterpret_cast<float*>(st), values + vbase, vmax);
-  if (stage_vidx) {
-    stage_bytes<false>(st + L.vidx, reinterpret_cast<const char*>(vidx + lane0),
-                       cb * rc * (int)sizeof(VT));
-  }
-  int* bcol = reinterpret_cast<int*>(st + L.bcol);
-  for (int i = threadIdx.x; i < cb * c; i += blockDim.x) {
-    const int b = i / c;
-    const int col = load_index(xcol, lane0 + (size_t)b * rc + (i - b * c), wx);
-    bcol[i] = col < xrows ? col : -1;
-  }
-  int* brow = reinterpret_cast<int*>(st + L.brow);
-  for (int i = threadIdx.x; i < cb * r; i += blockDim.x) {
-    const int b = i / r;
-    brow[i] = load_index(yrow, lane0 + (size_t)b * rc + (i - b * r) * c, wy);
-  }
-  uint32_t* bmask = reinterpret_cast<uint32_t*>(st + L.bmask);
-  for (int b = threadIdx.x; b < cb; b += blockDim.x) {
-    bmask[b] = block_mask(valid + lane0 + (size_t)b * rc, rc);
-  }
-}
-
-// Walk blocks [b0, b1) of a staged chunk for one column: x points at the
-// column in X's row 0, out at the column in Y's row 0, and gvidx at the
-// chunk's vidx table in global memory (read there when it is not staged).
-// acc[lr] sums the products of block row lr while its yrow entry stays
-// cur[lr] (-1: nothing summed yet).
-template <int R, typename VT>
-__device__ __forceinline__ void walk_blocks(const char* st, const Stage& L, const VT* gvidx,
-                                            bool stage_vidx, const float* __restrict__ x,
-                                            int ldx, int b0, int b1, int c, float* out, int ldo,
-                                            bool live) {
-  const float* vwin = reinterpret_cast<const float*>(st);
-  const VT* svidx = reinterpret_cast<const VT*>(st + L.vidx);
-  const int* bcol = reinterpret_cast<const int*>(st + L.bcol);
-  const int* brow = reinterpret_cast<const int*>(st + L.brow);
-  const uint32_t* bmask = reinterpret_cast<const uint32_t*>(st + L.bmask);
-  const int rc = R * c;
-  // c <= 8 and R * c <= 32, so every shift below is in range
-  const uint32_t row_mask = (1u << c) - 1u;
-  float acc[R];
-  int cur[R];
-#pragma unroll
-  for (int lr = 0; lr < R; ++lr) {
-    acc[lr] = 0.f;
-    cur[lr] = -1;
-  }
-  for (int b = b0; b < b1; ++b) {
-    const uint32_t mask = bmask[b];
-    if (mask == 0u) continue;  // padding block
-    const size_t k0 = (size_t)b * rc;
-#pragma unroll
-    for (int lr = 0; lr < R; ++lr) {
-      uint32_t bits = (mask >> (lr * c)) & row_mask;
-      if (bits == 0u) continue;
-      const int row = brow[b * R + lr];
-      if (row != cur[lr]) {
-        if (cur[lr] >= 0 && live) atomicAdd(out + (size_t)cur[lr] * ldo, acc[lr]);
-        cur[lr] = row;
-        acc[lr] = 0.f;
-      }
-      float a = acc[lr];
-      do {
-        const int lc = __ffs(bits) - 1;
-        bits &= bits - 1u;
-        const int col = bcol[b * c + lc];
-        if (col >= 0) {
-          const size_t k = k0 + lr * c + lc;
-          const int vi = stage_vidx ? (int)svidx[k] : (int)__ldg(gvidx + k);
-          a = fmaf(vwin[vi], __ldg(x + (size_t)col * ldx), a);
-        }
-      } while (bits != 0u);
-      acc[lr] = a;
-    }
-  }
-#pragma unroll
-  for (int lr = 0; lr < R; ++lr) {
-    if (cur[lr] >= 0 && live) atomicAdd(out + (size_t)cur[lr] * ldo, acc[lr]);
-  }
-}
-
-template <int R, typename VT>
-__global__ void __launch_bounds__(kThreads)
-spmm_desc_whole_kernel(const int* __restrict__ chunk_vbase, const signed char* __restrict__ valid,
-                       const VT* __restrict__ vidx, const void* __restrict__ xcol,
-                       const void* __restrict__ yrow, const float* __restrict__ values,
-                       const float* __restrict__ x, float* __restrict__ y, int cb, int c,
-                       int vmax, int wx, int wy, int ncols, int nvec, int tw, int ntiles,
-                       bool stage_vidx) {
-  extern __shared__ __align__(16) char smem[];
-  const Stage L = stage_layout(cb, R, c, vmax, (int)sizeof(VT), stage_vidx);
-  const int ch = blockIdx.x / ntiles;
-  const int tile = blockIdx.x - ch * ntiles;
-  const size_t lane0 = (size_t)ch * cb * R * c;
-  stage_chunk<VT>(smem, L, values, chunk_vbase[ch], valid, vidx, xcol, yrow, lane0, cb, R, c,
-                  vmax, wx, wy, ncols, stage_vidx);
-  __syncthreads();
-  const Lanes t = lanes_of(tw, tile, nvec, cb);
-  walk_blocks<R, VT>(smem, L, vidx + lane0, stage_vidx, x + t.jc, nvec, t.b0, t.b1, c, y + t.jc,
-                     nvec, t.live);
-}
-
-template <int R, typename VT>
-int launch_whole(const int* vbase, const signed char* valid, const void* vidx, const void* xcol,
-                 const void* yrow, const float* values, const float* x, float* y, int nchunks,
-                 int cb, int c, int vmax, int wx, int wy, int ncols, int nvec, int tw,
-                 bool stage_vidx, int device, void* stream) {
-  const size_t smem = stage_layout(cb, R, c, vmax, (int)sizeof(VT), stage_vidx).bytes;
-  cudaError_t err = prepare_launch(spmm_desc_whole_kernel<R, VT>, device, smem, kThreads, nullptr);
-  if (err != cudaSuccess) return (int)err;
-  const int ntiles = (nvec + tw - 1) / tw;
-  spmm_desc_whole_kernel<R, VT><<<nchunks * ntiles, kThreads, smem, (cudaStream_t)stream>>>(
-      vbase, valid, static_cast<const VT*>(vidx), xcol, yrow, values, x, y, cb, c, vmax, wx, wy,
-      ncols, nvec, tw, ntiles, stage_vidx);
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -705,41 +546,244 @@ PanelArgs panel_args(const int* vbase, const int* xbase, const signed char* vali
                    q,      nb};
 }
 
-// Dispatch on the block height r and the vidx width wv (1, 2 or 4 bytes).
-#define SPC5_DISPATCH(CALL)                         \
-  switch (r * 8 + wv) {                             \
-    case 1 * 8 + 1: return CALL(1, signed char);    \
-    case 1 * 8 + 2: return CALL(1, short);          \
-    case 1 * 8 + 4: return CALL(1, int);            \
-    case 2 * 8 + 1: return CALL(2, signed char);    \
-    case 2 * 8 + 2: return CALL(2, short);          \
-    case 2 * 8 + 4: return CALL(2, int);            \
-    case 4 * 8 + 1: return CALL(4, signed char);    \
-    case 4 * 8 + 2: return CALL(4, short);          \
-    case 4 * 8 + 4: return CALL(4, int);            \
-    case 8 * 8 + 1: return CALL(8, signed char);    \
-    case 8 * 8 + 2: return CALL(8, short);          \
-    case 8 * 8 + 4: return CALL(8, int);            \
-    default: return (int)cudaErrorInvalidValue;     \
+// ---------------------------------------------------------------------------
+// whole-vector layout: the skeleton of spc5_spmm_whole.cuh, G contiguous
+// chunk ranges, a ring of staged rounds, a per-round nonzero list
+// ---------------------------------------------------------------------------
+
+// The descriptor kernel's part. A stage holds what differs, at the tables'
+// built widths: q value windows (vstride bytes apart), for nb blocks the
+// valid and vidx runs, the c xcol entries of each block's first row
+// (xcol[k] == xcol[k % c]) and the 4-byte word holding each block's lane-0
+// yrow entry (on valid lanes yrow[k] == yrow[0] + k / c; lanes past nrows
+// or ncols are clipped, and invalid; tests/test_torch_desc_whole.py pins
+// both), then a 16-byte mbarrier slot. A block's lanes are its valid ones
+// whose column lies below X's rows, each listed with window[vidx[k]] (no
+// packed order is assumed).
+struct DescWhole {
+  struct Args {
+    WholeGeom g;
+    const int* vbase;  // (nchunks,) value window starts
+    const signed char* valid;
+    const char* vidx;  // the index tables, as bytes (entries wv, wx, wy wide)
+    const char* xcol;
+    const char* yrow;
+    const float* values;
+    int wv, wx, wy;
+  };
+
+  __host__ __device__ static int rc(const Args& a) { return a.g.r * a.g.c; }
+  __host__ __device__ static int vstride(const Args& a) { return round16(4 * a.g.vmax); }
+  __host__ __device__ static int valid_off(const Args& a) { return a.g.q * vstride(a); }
+  __host__ __device__ static int vidx_off(const Args& a) {
+    return valid_off(a) + round16(a.g.nb * rc(a));
   }
+  __host__ __device__ static int xcol_off(const Args& a) {
+    return vidx_off(a) + round16(a.g.nb * rc(a) * a.wv);
+  }
+  __host__ __device__ static int yrow_off(const Args& a) {
+    return xcol_off(a) + round16(a.g.nb * a.g.c * a.wx);
+  }
+  __host__ __device__ static int bar_offset(const Args& a) {
+    return yrow_off(a) + round16(4 * a.g.nb);
+  }
+  __host__ __device__ static int stage_bytes(const Args& a) { return bar_offset(a) + 16; }
+
+  // Stage blocks [b0, b0 + nb) of global chunks g .. g + qn - 1 and, where
+  // `window`, their value windows: thread 0 announces and issues the bulk
+  // copies (the windows; the valid and vidx runs where 16-byte aligned), all
+  // completing on the stage's mbarrier, one phase per call; every thread
+  // issues its share of the rest (the strided xcol and yrow runs) by
+  // cp.async.
+  __device__ static void fill(unsigned char* st, const Args& a, size_t g, int b0, int nb, int qn,
+                              bool window) {
+    const size_t lane0 = (g * a.g.cb + b0) * rc(a);
+    const char* valid = reinterpret_cast<const char*>(a.valid) + lane0;
+    const char* vidx = a.vidx + lane0 * a.wv;
+    const int nvalid = nb * rc(a), nvidx = nvalid * a.wv;
+    const bool bulk = ((reinterpret_cast<uintptr_t>(valid) | reinterpret_cast<uintptr_t>(vidx) |
+                        (uintptr_t)nvalid) & 15) == 0;
+    if (threadIdx.x == 0) {
+      uint64_t* bar = reinterpret_cast<uint64_t*>(st + bar_offset(a));
+      mbar_expect_tx(bar, (window ? 4 * a.g.vmax * qn : 0) + (bulk ? nvalid + nvidx : 0));
+      for (int i = 0; window && i < qn; ++i) {
+        bulk_copy(st + vstride(a) * i, a.values + __ldg(a.vbase + g + i), 4 * a.g.vmax, bar);
+      }
+      if (bulk) {
+        bulk_copy(st + valid_off(a), valid, nvalid, bar);
+        bulk_copy(st + vidx_off(a), vidx, nvidx, bar);
+      }
+    }
+    if (!bulk) {
+      copy_runs<true>(st + valid_off(a), valid, 1, nvalid, 0);
+      copy_runs<true>(st + vidx_off(a), vidx, 1, nvidx, 0);
+    }
+    copy_runs<true>(st + xcol_off(a), a.xcol + lane0 * a.wx, nb, a.g.c * a.wx, rc(a) * a.wx);
+    // the 4-byte word holding each block's lane-0 yrow entry (r*c >= 4, so the
+    // word is aligned and inside the block's entries)
+    copy_runs<true>(st + yrow_off(a), a.yrow + lane0 * a.wy, nb, 4, rc(a) * a.wy);
+  }
+
+  __device__ static int first_row(const unsigned char* st, const Args& a) {
+    return smem_entry(st + yrow_off(a), 0, a.wy);
+  }
+
+  template <int R, int C>
+  __device__ static WholeBlock block(const unsigned char* st, const Args& a, int b) {
+    constexpr int RC = R * C;
+    uint32_t m = smem_block_mask<RC>(st + valid_off(a) + b * RC);
+    // a block's columns grow from lane 0 on (those past ncols are clipped
+    // to its last): where the last lies below X's rows, so do all
+    if (m != 0u && smem_entry(st + xcol_off(a), b * C + C - 1, a.wx) >= a.g.xrows) {
+      uint32_t cols = 0u;  // the block's columns below X's rows
+#pragma unroll
+      for (int lc = 0; lc < C; ++lc) {
+        cols |= (uint32_t)(smem_entry(st + xcol_off(a), b * C + lc, a.wx) < a.g.xrows) << lc;
+      }
+      uint32_t lanes = 0u;
+#pragma unroll
+      for (int lr = 0; lr < R; ++lr) lanes |= cols << (lr * C);
+      m &= lanes;
+    }
+    return WholeBlock{m, smem_entry(st + yrow_off(a) + 4 * b, 0, a.wy)};
+  }
+
+  // The block's kept lanes row by row, lane order within a row, row lr's
+  // from list[pos[lr]] on.
+  template <int R, int C>
+  __device__ static void emit(const unsigned char* st, const Args& a, int b, uint32_t kept,
+                              const int (&pos)[R], int4* list, int room) {
+    constexpr uint32_t kRow = (1u << C) - 1u;
+    const int slot = a.g.q == 1 ? 0 : b / a.g.cb;  // the block's chunk in the stage
+    const float* vwin = reinterpret_cast<const float*>(st + slot * vstride(a));
+    const int y = smem_entry(st + yrow_off(a) + 4 * b, 0, a.wy);
+#pragma unroll
+    for (int lr = 0; lr < R; ++lr) {
+      uint32_t kb = (kept >> (lr * C)) & kRow;
+      int p = pos[lr];
+      while (kb != 0u) {
+        const int lc = __ffs(kb) - 1;
+        kb &= kb - 1u;
+        if (p < room) {
+          const float v = vwin[smem_entry(st + vidx_off(a), b * R * C + lr * C + lc, a.wv)];
+          const int col = smem_entry(st + xcol_off(a), b * C + lc, a.wx);
+          list[p] = make_int4(__float_as_int(v), col * a.g.nvec, y + lr, 0);
+        }
+        ++p;
+      }
+    }
+  }
+};
+
+using DescWholeKernel = void (*)(DescWhole::Args);
+
+template <int R, int C>
+DescWholeKernel desc_whole_rc(int vec) {
+  switch (vec) {
+    case 1: return spmm_whole_kernel<DescWhole, R, C, 1>;
+    case 2: return spmm_whole_kernel<DescWhole, R, C, 2>;
+    case 4: return spmm_whole_kernel<DescWhole, R, C, 4>;
+    default: return nullptr;
+  }
+}
+
+// The whole-vector kernel for block shape (r, c) (every shape of
+// formats.SUPPORTED_BLOCKS) and vec columns a lane; nullptr for any other.
+DescWholeKernel desc_whole_kernel(int r, int c, int vec) {
+  switch (r * 16 + c) {
+    case 1 * 16 + 4: return desc_whole_rc<1, 4>(vec);
+    case 1 * 16 + 8: return desc_whole_rc<1, 8>(vec);
+    case 2 * 16 + 4: return desc_whole_rc<2, 4>(vec);
+    case 2 * 16 + 8: return desc_whole_rc<2, 8>(vec);
+    case 4 * 16 + 4: return desc_whole_rc<4, 4>(vec);
+    case 4 * 16 + 8: return desc_whole_rc<4, 8>(vec);
+    case 8 * 16 + 4: return desc_whole_rc<8, 4>(vec);
+    default: return nullptr;
+  }
+}
+
+DescWhole::Args desc_whole_geom(int nchunks, int cb, int vmax, int nrows, int xrows, int r, int c,
+                                int wv, int wx, int wy, int nvec, int tw, int vec, int grid,
+                                int stages, int q, int nb, int tile_rows) {
+  DescWhole::Args a{};
+  a.g = WholeGeom{nullptr, nullptr, nchunks, cb, r, c, vmax, nrows, xrows, nvec, tw, vec,
+                  tw > 0 ? (nvec + tw - 1) / tw : 0, grid, stages, q, nb, tile_rows};
+  a.wv = wv;
+  a.wx = wx;
+  a.wy = wy;
+  return a;
+}
+
+bool widths_ok(int wv, int wx, int wy) {
+  auto ok = [](int w) { return w == 1 || w == 2 || w == 4; };
+  return ok(wv) && ok(wx) && ok(wy);
+}
 
 }  // namespace
 
 extern "C" {
 
+// The whole-vector kernel (spc5_spmm_whole.cuh): Y = A @ X over all
+// nchunks chunks of cb blocks, the tables at their built widths (wv, wx, wy
+// bytes), X (xrows, nvec) read in place, Y (nrows, nvec) zeroed by the
+// caller. G = grid CTAs a column tile of tw columns, vec columns a lane,
+// rounds of q chunks (nb = q * cb blocks) in a ring of `stages` (2, or 1 with
+// nb < cb a slice of a chunk), a Y tile of tile_rows rows, `threads` a power
+// of two in [32, 512]. smem is the wrapper's figure for the CTA's dynamic
+// shared memory (checked).
 int spc5_spmm_desc_whole(const int* vbase, const signed char* valid, const void* vidx,
                          const void* xcol, const void* yrow, const float* values, const float* x,
-                         float* y, int nchunks, int cb, int vmax, int r, int c, int wv, int wx,
-                         int wy, int ncols, int nvec, int tw, int stage_vidx, int device,
-                         void* stream) {
-#define SPC5_WHOLE(R, VT)                                                                     \
-  launch_whole<R, VT>(vbase, valid, vidx, xcol, yrow, values, x, y, nchunks, cb, c, vmax, wx, \
-                      wy, ncols, nvec, tw, stage_vidx != 0, device, stream)
-  if (r < 1 || r > 8 || c < 1 || c > 8 || 32 % (r * c) != 0 || r * c < 4) {
+                         float* y, int nchunks, int cb, int vmax, int nrows, int xrows, int r,
+                         int c, int wv, int wx, int wy, int nvec, int tw, int vec, int grid,
+                         int stages, int q, int nb, int tile_rows, int smem, int threads,
+                         int device, void* stream) {
+  DescWhole::Args a = desc_whole_geom(nchunks, cb, vmax, nrows, xrows, r, c, wv, wx, wy, nvec,
+                                      tw, vec, grid, stages, q, nb, tile_rows);
+  a.g.x = x;
+  a.g.y = y;
+  a.vbase = vbase;
+  a.valid = valid;
+  a.vidx = static_cast<const char*>(vidx);
+  a.xcol = static_cast<const char*>(xcol);
+  a.yrow = static_cast<const char*>(yrow);
+  a.values = values;
+  const DescWholeKernel kernel = desc_whole_kernel(r, c, vec);
+  const size_t bytes = whole_layout(a.g, DescWhole::stage_bytes(a), threads).bytes;
+  if (kernel == nullptr || !widths_ok(wv, wx, wy) || !whole_geom_ok(a.g, threads) ||
+      bytes != (size_t)smem) {
     return (int)cudaErrorInvalidValue;
   }
-  SPC5_DISPATCH(SPC5_WHOLE)
-#undef SPC5_WHOLE
+  cudaError_t err = prepare_launch(kernel, device, bytes, threads, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&a};
+  err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel),
+                         dim3((unsigned)(grid * a.g.ntiles)), dim3(threads), args, bytes,
+                         (cudaStream_t)stream);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The whole-vector kernel's occupancy for block shape (r, c), vec columns a
+// lane, `threads` and `smem` bytes of dynamic shared memory per CTA: out[0]
+// the CTAs one SM holds at once, out[1] the SMs of the device.
+int spc5_spmm_desc_whole_occupancy(int r, int c, int vec, int threads, int smem, int device,
+                                   int* out) {
+  const DescWholeKernel kernel = desc_whole_kernel(r, c, vec);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare_launch(kernel, device, (size_t)smem, threads, nullptr);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, (size_t)smem);
+  }
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(out + 1, cudaDevAttrMultiProcessorCount, device);
+  return (int)err;
+}
+
+// The dynamic shared memory of one whole-vector CTA, as the launch computes
+// it (whole_layout with this kernel's stage).
+int spc5_spmm_desc_whole_smem(int stages, int q, int nb, int r, int c, int vmax, int wv, int wx,
+                              int tw, int vec, int tile_rows, int threads) {
+  const DescWhole::Args a = desc_whole_geom(1, nb, vmax, 1, 0, r, c, wv, wx, 4, 1, tw, vec, 1,
+                                            stages, q, nb, tile_rows);
+  return whole_layout(a.g, DescWhole::stage_bytes(a), threads).bytes;
 }
 
 // The synchronous panel kernel: split CTAs per (panel, row part, column

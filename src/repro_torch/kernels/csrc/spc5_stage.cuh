@@ -1,9 +1,8 @@
 // Helpers shared by the SPC5 kernels of this directory: copies from global
 // into shared memory (plain loads, cp.async for a double buffer, Hopper's
 // bulk copy completing on an mbarrier, or strided runs of table entries by
-// cp.async or vector loads), reads of the descriptor tables at their built
-// width, the SpMM kernels' split of a CTA into column groups, and the
-// dynamic-shared-memory opt-in before a launch.
+// cp.async or vector loads) and the dynamic-shared-memory opt-in before a
+// launch.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -93,41 +92,6 @@ __device__ __forceinline__ void stage(float* dst, const float* src, int n) {
   }
 }
 
-// Copy n 32-bit words (any n, 4-byte aligned) with all threads of the CTA.
-template <bool kAsync>
-__device__ __forceinline__ void stage_words(int* dst, const int* src, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    if (kAsync) {
-      cp_async4(dst + i, src + i);
-    } else {
-      dst[i] = __ldg(src + i);
-    }
-  }
-}
-
-// Copy n bytes (dst 16-byte aligned, src and n of any alignment) with all
-// threads of the CTA: 16-byte pieces where src and n allow, else 4-byte
-// pieces, else single bytes. cp.async copies 4 or 16 bytes only, so the
-// single-byte path loads and stores even when kAsync is set; the caller's
-// barrier orders it like the asynchronous copies.
-template <bool kAsync>
-__device__ __forceinline__ void stage_bytes(char* dst, const char* src, int n) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
-  if ((a & 15) == 0 && (n & 15) == 0) {
-    for (int i = threadIdx.x; i < (n >> 4); i += blockDim.x) {
-      if (kAsync) {
-        cp_async16(dst + 16 * i, src + 16 * i);
-      } else {
-        reinterpret_cast<int4*>(dst)[i] = __ldg(reinterpret_cast<const int4*>(src) + i);
-      }
-    }
-  } else if ((a & 3) == 0 && (n & 3) == 0) {
-    stage_words<kAsync>(reinterpret_cast<int*>(dst), reinterpret_cast<const int*>(src), n >> 2);
-  } else {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = __ldg(src + i);
-  }
-}
-
 // Copy runs x run_bytes bytes, run j starting at src + j * stride, into dst
 // back to back, with all threads of the CTA: in 16-byte pieces where src,
 // run_bytes and stride allow, else in 4-byte pieces (every run here is a
@@ -182,37 +146,6 @@ __device__ __forceinline__ void copy_runs(unsigned char* dst, const char* src, i
       }
     }
   }
-}
-
-// Entry i of an index table stored as int8, int16 or int32 (width 1, 2, 4).
-__device__ __forceinline__ int load_index(const void* table, size_t i, int width) {
-  if (width == 1) return __ldg(static_cast<const signed char*>(table) + i);
-  if (width == 2) return __ldg(static_cast<const short*>(table) + i);
-  return __ldg(static_cast<const int*>(table) + i);
-}
-
-// The SpMM kernels' split of a CTA: groups of tw lanes (tw a power of two,
-// at most 32), lane l of a group owning column tile * tw + l. This thread's
-// group walks the run [b0, b1) of the chunk's cb blocks; its column is
-// clamped into [0, nvec) as jc, so an idle lane of the last tile reads valid
-// memory (it adds nothing).
-struct Lanes {
-  int b0, b1, lane, jc;
-  bool live;
-};
-
-__device__ __forceinline__ Lanes lanes_of(int tw, int tile, int nvec, int cb) {
-  Lanes t;
-  const int g = threadIdx.x / tw;
-  t.lane = threadIdx.x - g * tw;
-  const int ngroups = blockDim.x / tw;
-  const int seg = (cb + ngroups - 1) / ngroups;
-  t.b0 = min(cb, g * seg);
-  t.b1 = min(cb, t.b0 + seg);
-  const int j = tile * tw + t.lane;
-  t.live = j < nvec;
-  t.jc = t.live ? j : nvec - 1;
-  return t;
 }
 
 // Opt in to more than 48 KB of dynamic shared memory where needed, and,

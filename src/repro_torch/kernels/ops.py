@@ -31,10 +31,11 @@ def resolve_device(device: Optional[P.Device]) -> torch.device:
 
 
 def prepare(mat: F.SPC5Matrix, *, layout: str = "auto",
-            lowering: str = "auto", config=None, pr: Optional[int] = None,
-            xw: Optional[int] = None, cb: Optional[int] = None,
-            nvec: int = 1, align: int = 8, dtype=None, vdtype: str = "auto",
-            tune: bool = True, multi_layout: str = "auto",
+            lowering: str = "auto", reorder=None, config=None, verify=False,
+            pr: Optional[int] = None, xw: Optional[int] = None,
+            cb: Optional[int] = None, nvec: int = 1, align: int = 8,
+            dtype=None, vdtype: str = "auto", store=None, tune: bool = True,
+            multi_layout: str = "auto",
             device: Optional[P.Device] = None) -> P.SPC5Plan:
     """Build an execution plan for ``mat`` on ``device`` (default: the card).
 
@@ -57,8 +58,11 @@ def prepare(mat: F.SPC5Matrix, *, layout: str = "auto",
     ``lowering`` is "mask", "descriptor" (build-time gather tables) or
     "auto" (the default, as in the reference): its cost model
     (``plan.lowering_cost``).
-    Only f32 values are ported; bf16/int8 and reordering raise
-    ``NotImplementedError``."""
+    ``reorder``, ``verify`` and ``store`` take the reference's defaults
+    (None, False, None). Only f32 values are ported; bf16/int8, a
+    ``reorder``, a truthy ``verify`` and a ``store`` raise
+    ``NotImplementedError`` naming their ROADMAP item."""
+    P.refuse_unported(reorder, store, verify)
     if config is not None:
         if layout == "auto":
             layout = getattr(config, "layout", "") or "auto"
@@ -76,7 +80,8 @@ def prepare(mat: F.SPC5Matrix, *, layout: str = "auto",
     return P.make_plan(mat, device=resolve_device(device), layout=layout,
                        lowering=lowering, pr=pr, xw=xw, cb=cb, nvec=nvec,
                        align=align, dtype=dtype, vdtype=vdtype, tune=tune,
-                       multi_layout=multi_layout)
+                       multi_layout=multi_layout, store=store,
+                       reorder=reorder, verify=verify)
 
 
 def spmv(plan: P.SPC5Plan, x: torch.Tensor, *,

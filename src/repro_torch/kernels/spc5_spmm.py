@@ -14,13 +14,16 @@ with the same arguments minus ``interpret``:
 X is (ncols, nvec) and Y (nrows, nvec), both row-major float32, as in the
 reference. ``nvt`` keeps the reference's rule: ``nvec`` must be a multiple
 of ``min(nvt, nvec)``, else ``ValueError``. The kernels cut the columns into
-their own tiles, which changes nothing in the result: the whole-vector
-kernel tiles of at most 32 columns, one lane a column
-(:func:`column_tile`); the panel kernels tiles of up to 128 columns, four
-columns a lane, with S CTAs per panel, row part and tile
-(:func:`panels_launch`; ``split`` overrides S). The panel kernels read X in
+their own tiles, which changes nothing in the result: tiles of up to 128
+columns, four columns a lane where nvec and X's alignment allow
+(:func:`panels_vector`). The whole-vector kernel cuts all the chunks into G
+contiguous ranges a tile (:func:`whole_launch`; ``grid`` overrides G), the
+panel kernels each panel's chunks among S CTAs per row part and tile
+(:func:`panels_launch`; ``split`` overrides S). The kernels read X in
 place: a column at or past its rows adds nothing, which is what the
-reference's zero padding to ``ncols_pad`` gives.
+reference's zero padding to ``ncols_pad`` gives. The whole-vector launch
+planning (:func:`whole_plan`, :func:`whole_grid`) is shared with the
+descriptor kernel of :mod:`.spc5_spmm_desc`.
 
 A CPU tensor goes to the plain PyTorch version (:mod:`repro_torch.core.
 ref_spmv`); a CUDA tensor goes to the kernel, or the wrapper raises. Each
@@ -44,7 +47,6 @@ from .spc5_spmv import (MAX_SMEM_BYTES, _aligned, _check, _check_smem,
 LAUNCHES: Dict[str, int] = {"spmm_cuda": 0, "spmm_cuda_panels": 0,
                             "spmm_cuda_panels_db": 0}
 
-_MAX_TILE = 32               # whole-vector columns per lane group: one warp
 _MAX_GRID = 2 ** 31 - 1      # CTAs on the grid's x dimension
 
 
@@ -65,38 +67,240 @@ def _nvec(x: torch.Tensor, nvt: int) -> int:
     return nvec
 
 
-def column_tile(nvec: int,
-                smem_bytes: Callable[[int], int] = lambda tw: 0) -> int:
-    """The whole-vector kernels' column tile (``spmm_cuda``, and the
-    descriptor ``spmm_cuda_desc``): the smallest power of two covering nvec,
-    at most 32, halved while the CTA's shared memory (``smem_bytes(tw)``)
-    would not fit."""
-    tw = min(_MAX_TILE, 1 << max(0, nvec - 1).bit_length())
-    while tw > 1 and smem_bytes(tw) > MAX_SMEM_BYTES:
+#: An H100 SM's shared memory, 1 KB of it reserved per CTA, and what one CTA
+#: may use when two share it; its registers, and the most a thread of a
+#: panel or whole-vector SpMM kernel takes (``__launch_bounds__(512, 2)``).
+SM_SMEM_BYTES = 228 * 1024
+TWO_CTA_SMEM_BYTES = SM_SMEM_BYTES // 2 - 1024
+SM_REGISTERS = 65536
+MAX_REGISTERS = 64
+
+
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def panels_vector(nvec: int, x: Optional[torch.Tensor] = None) -> int:
+    """The columns of X a panel-kernel lane owns: 4 (one 16-byte load) or 2
+    (8 bytes) where they divide nvec and X is so aligned, else 1."""
+    for vec in (4, 2):
+        if nvec % vec == 0 and (x is None or x.data_ptr() % (4 * vec) == 0):
+            return vec
+    return 1
+
+
+# ----------------------------------------------------------------------------
+# whole-vector layout
+# ----------------------------------------------------------------------------
+
+#: Stages in the ring of a whole-vector CTA: one round of chunks is staged
+#: while the one before is listed and walked. :func:`whole_plan` takes a
+#: single stage instead where that lets an SM hold more CTAs (or a round
+#: does not fit a ring), and slices of a chunk where no whole chunk fits.
+WHOLE_DB_STAGES = 2
+
+#: Whether a whole-vector CTA stages rounds in a ring: ``None``
+#: (:func:`whole_plan`) where an SM then holds as many CTAs as with one
+#: stage; ``True`` / ``False`` force it (``time_spmm_desc.py --layout
+#: whole`` sweeps both).
+WHOLE_RING: Optional[bool] = None
+
+#: Threads of a whole-vector CTA, a power of two. ``None``
+#: (:func:`whole_plan`): 512 where a lane group is a whole warp, else 256.
+#: ``time_spmm_desc.py --layout whole`` sweeps it.
+WHOLE_THREADS: Optional[int] = None
+
+#: The widest column tile a whole-vector CTA takes: 32 lanes of four columns.
+WHOLE_TILE = 128
+
+#: Rows of a whole-vector CTA's Y tile. A chunk of the vocab token plan
+#: spans 4-8 rows, one of the FEM plan about 85 (its other rows go straight
+#: to Y); tiles of 32 and 64 rows were no faster on the H100 (PERF.md §6).
+#: ``time_spmm_desc.py --layout whole`` sweeps 16, 32 and 64.
+WHOLE_TILE_ROWS = 16
+
+#: The most chunks a whole-vector round stages; fewer where more would cost
+#: CTAs an SM (:func:`whole_plan`).
+WHOLE_STAGE_CHUNKS = 4
+
+#: 32-bit words of the whole-vector CTA's scan scratch (two areas of 16
+#: warps x 8 words).
+WHOLE_SCRATCH_WORDS = 2 * 16 * 8
+
+
+def whole_layout_bytes(stage: int, stages: int, q: int, nb: int, r: int,
+                       c: int, vmax: int, tw: int, vec: int, tile_rows: int,
+                       threads: int) -> int:
+    """Dynamic shared memory of one whole-vector CTA of either lowering
+    (``whole_layout`` in ``csrc/spc5_spmm_whole.cuh``) with stages of
+    ``stage`` bytes: the (tile_rows, tw) f32 Y tile, each lane group's A and
+    B slots (tw floats each) and its 16-byte header, the scan's scratch, the
+    list of a round's kept lanes (16 bytes each, at most min(q * vmax, nb *
+    r * c)), then ``stages`` stages, every part 16-byte aligned."""
+    groups = threads // (tw // vec)
+    room = min(q * vmax, nb * r * c)
+    return (_r16(4 * tile_rows * tw) + _r16(8 * groups * tw) + 16 * groups
+            + 4 * WHOLE_SCRATCH_WORDS + 16 * room + stages * stage)
+
+
+def whole_stage_bytes(q: int, nb: int, vmax: int) -> int:
+    """One stage of the mask kernel: q value windows, the four metadata rows
+    of nb blocks (col, mask, voff, row) and a 16-byte mbarrier slot."""
+    return q * _r16(4 * vmax) + 4 * _r16(4 * nb) + 16
+
+
+def whole_smem_bytes(stages: int, q: int, nb: int, r: int, c: int, vmax: int,
+                     tw: int, vec: int, tile_rows: int, threads: int) -> int:
+    """Dynamic shared memory of one whole-vector mask CTA
+    (:func:`whole_layout_bytes` with :func:`whole_stage_bytes`). The
+    kernel's launcher refuses a launch whose figure differs from its own
+    (``spc5_spmm_whole_smem`` exposes it)."""
+    return whole_layout_bytes(whole_stage_bytes(q, nb, vmax), stages, q, nb,
+                              r, c, vmax, tw, vec, tile_rows, threads)
+
+
+def whole_tiles(nvec: int, vec: int) -> List[int]:
+    """The column tiles a whole-vector launch may take, widest first: a power
+    of two covering nvec, at most :data:`WHOLE_TILE` and 32 lanes of ``vec``
+    columns, halved down to 1."""
+    tw = min(WHOLE_TILE, 32 * vec, 1 << max(0, nvec - 1).bit_length())
+    out = []
+    while tw >= 1:
+        out.append(tw)
         tw //= 2
-    return tw
+    return out
 
 
-def _grid(units: int, nvec: int, tw: int, fn: str) -> None:
-    if units * -(-nvec // tw) > _MAX_GRID:
-        raise ValueError(f"{fn}: {units} units x {-(-nvec // tw)} column "
-                         f"tiles exceed the grid's {_MAX_GRID} CTAs")
+def whole_plan(nbytes: Callable[..., int], cb: int, r: int, c: int,
+               vmax: int, nvec: int, vec: int,
+               what: str = "whole-vector kernel") -> Dict[str, int]:
+    """The CTA of a whole-vector launch of either lowering, given
+    ``nbytes(stages, q, nb, tw, v, tile_rows, threads)``, its shared memory,
+    with a Y tile of :data:`WHOLE_TILE_ROWS` rows: the widest tile of
+    :func:`whole_tiles`; then, of the rounds of whole chunks (a ring of
+    :data:`WHOLE_DB_STAGES` or one stage, as :data:`WHOLE_RING` allows, up
+    to :data:`WHOLE_STAGE_CHUNKS` chunks a round) that fit a CTA, the one at
+    which an SM holds the most CTAs (by shared memory and by registers, 64
+    a thread), then a ring, then the most chunks a round. Where no whole
+    chunk fits, one stage of a slice of a chunk (halved). Returns
+    ``stages``, ``chunks_per_stage``, ``blocks_per_stage``,
+    ``tile_columns``, ``vector`` (columns a lane), ``lanes`` (of a group),
+    ``threads``, ``tile_rows`` and ``smem_bytes``; raises ``ValueError``
+    when nothing fits."""
+    rings = {None: (WHOLE_DB_STAGES, 1), True: (WHOLE_DB_STAGES,),
+             False: (1,)}[WHOLE_RING]
+    rows = WHOLE_TILE_ROWS
+    least = None
+    for tw in whole_tiles(nvec, vec):
+        v = min(vec, tw)
+        lanes = tw // v
+        threads = WHOLE_THREADS or (512 if lanes == 32 else 256)
+        if threads < lanes:
+            continue
+
+        def ctas(n):  # an SM's CTAs by shared memory and registers
+            return min(SM_SMEM_BYTES // (n + 1024),
+                       SM_REGISTERS // (MAX_REGISTERS * threads))
+        rounds = [(stages, q, q * cb) for stages in rings
+                  for q in range(WHOLE_STAGE_CHUNKS, 0, -1)]
+        nb = cb
+        while nb > 1:  # slices of a chunk, where no whole chunk fits
+            nb = -(-nb // 2)
+            rounds.append((1, 1, nb))
+        best = None
+        for stages, q, nb in rounds:
+            n = nbytes(stages, q, nb, tw, v, rows, threads)
+            least = n if least is None else min(least, n)
+            if n > MAX_SMEM_BYTES:
+                continue
+            if nb < cb and best is not None:
+                break
+            key = (ctas(n), stages, q)
+            if best is None or key > best[0]:
+                best = (key, dict(stages=stages, chunks_per_stage=q,
+                                  blocks_per_stage=nb, tile_columns=tw,
+                                  vector=v, lanes=lanes, threads=threads,
+                                  tile_rows=rows, smem_bytes=n))
+        if best is not None:
+            return best[1]
+    _check_smem(least, what)
+    raise ValueError(f"{what}: no launch fits")
 
 
-def whole_smem_bytes(cb: int, vmax: int) -> int:
-    """Dynamic shared memory of one whole-vector CTA: the value window and
-    the chunk's metadata."""
-    return 4 * (vmax + 4 * cb)
+def whole_grid(plan: Dict[str, int], occupancy, nchunks: int, nvec: int,
+                 grid: Optional[int] = None,
+                 what: str = "whole-vector kernel") -> Dict[str, int]:
+    """The launch of a whole-vector CTA ``plan`` (:func:`whole_plan`) on
+    the card: ``ntiles``, the card's ``ctas_per_sm`` and ``sms`` (from
+    ``occupancy(threads, smem)``), ``grid`` (G, the CTAs of a column tile,
+    each a contiguous range of the chunks: from
+    :func:`~.spc5_spmv.panels_split` over the ntiles units unless given)
+    and ``chunks_per_cta`` (the longest range)."""
+    per_sm, sms = occupancy(plan["threads"], plan["smem_bytes"])
+    ntiles = -(-nvec // plan["tile_columns"])
+    if grid is None:
+        grid = panels_split(ntiles, nchunks, per_sm, sms)
+    if not 1 <= grid <= nchunks:
+        raise ValueError(f"grid must be in [1, {nchunks}] (the chunks), got "
+                         f"{grid}")
+    if grid * ntiles > _MAX_GRID:
+        raise ValueError(f"{what}: {grid * ntiles} CTAs exceed the grid's "
+                         f"{_MAX_GRID}")
+    return dict(**plan, ntiles=ntiles, ctas_per_sm=per_sm, sms=sms,
+                grid=grid, chunks_per_cta=-(-nchunks // grid))
+
+
+_WHOLE_OCCUPANCY: Dict[Tuple[int, ...], Tuple[int, int]] = {}
+
+
+def whole_occupancy(r: int, c: int, vec: int, threads: int, smem: int,
+                    device: torch.device) -> Tuple[int, int]:
+    """(CTAs one SM holds at once, SMs) for the whole-vector mask kernel of
+    block shape (r, c) and ``vec`` columns a lane, as the CUDA runtime
+    reports them."""
+    key = (r, c, vec, threads, smem, device.index or 0)
+    if key not in _WHOLE_OCCUPANCY:
+        lib = _build.load_library("spc5_spmm")
+        out = (ctypes.c_int * 2)()
+        err = lib.spc5_spmm_whole_occupancy(*key, ctypes.addressof(out))
+        _raise_on(err, "spc5_spmm_whole_occupancy")
+        _WHOLE_OCCUPANCY[key] = (out[0], out[1])
+    return _WHOLE_OCCUPANCY[key]
+
+
+def whole_cta(*, cb: int, r: int, c: int, vmax: int, nvec: int, vec: int,
+              what: str = "whole-vector kernel") -> Dict[str, int]:
+    """The CTA ``spmm_cuda`` plans for lanes of at most ``vec`` columns
+    (:func:`panels_vector`): :func:`whole_plan` with
+    :func:`whole_smem_bytes`."""
+    _panel_block(r, c, "whole-vector")
+    return whole_plan(lambda s, q, nb, tw, v, rows, t: whole_smem_bytes(
+        s, q, nb, r, c, vmax, tw, v, rows, t), cb, r, c, vmax, nvec, vec,
+        what)
+
+
+def whole_launch(nchunks: int, *, cb: int, r: int, c: int, vmax: int,
+                 nvec: int, vec: int, device: torch.device,
+                 grid: Optional[int] = None,
+                 what: str = "whole-vector kernel") -> Dict[str, int]:
+    """The launch ``spmm_cuda`` makes on ``device`` (a card): the CTA of
+    :func:`whole_cta`, then :func:`whole_grid`."""
+    cta = whole_cta(cb=cb, r=r, c=c, vmax=vmax, nvec=nvec, vec=vec,
+                    what=what)
+    return whole_grid(cta, lambda t, n: whole_occupancy(
+        r, c, cta["vector"], t, n, device), nchunks, nvec, grid, what)
 
 
 def spmm_cuda(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
               values, x, col_map=None, value_scale=None, *, r: int, c: int,
               cb: int, vmax: int, nrows: int, ncols: int,
-              nvt: int = 128) -> torch.Tensor:
-    """Whole-vector SpMM, one CTA per (chunk, column tile), rows summed in
-    registers across a row interval and added into a zeroed Y with global
-    atomics (replaces ``spmm_pallas``, which has no double-buffered twin).
-    ``chunk_mask`` is the int32 view of the uint32 masks."""
+              nvt: int = 128, grid: Optional[int] = None) -> torch.Tensor:
+    """Whole-vector SpMM: the chunks cut into ``grid`` contiguous ranges a
+    column tile (default from the card's occupancy), rounds of chunks staged
+    in a ring, each round's nonzeros listed by row and walked four at a time
+    by the lane groups, rows summed in a Y tile (replaces ``spmm_pallas``,
+    which has no double-buffered twin). ``chunk_mask`` is the int32 view of
+    the uint32 masks."""
     fn = "spmm_cuda"
     _unsupported(col_map, value_scale)
     nchunks = chunk_col.shape[0]
@@ -117,22 +321,30 @@ def spmm_cuda(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
                       r=r, c=c, nrows=nrows, ncols=ncols)
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
-    _check_smem(whole_smem_bytes(cb, vmax), fn)
-    tw = column_tile(nvec)
-    _grid(nchunks, nvec, tw, fn)
+    if vmax % 4:
+        raise ValueError(f"vmax must be a multiple of 4 (whole 16-byte "
+                         f"value windows), got {vmax}")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"X has {x.numel()} elements; the kernels index it "
+                         f"with 32-bit offsets")
+    launch = whole_launch(nchunks, cb=cb, r=r, c=c, vmax=vmax, nvec=nvec,
+                               vec=panels_vector(nvec, x),
+                               device=values.device, grid=grid, what=fn)
     _aligned({"values": values})
     lib = _build.load_library("spc5_spmm")
+    # every CTA adds into Y
     y = torch.zeros((nrows, nvec), dtype=torch.float32, device=values.device)
     err = lib.spc5_spmm_whole(
         chunk_vbase.data_ptr(), chunk_col.data_ptr(), chunk_mask.data_ptr(),
         chunk_voff.data_ptr(), chunk_row.data_ptr(), values.data_ptr(),
-        x.data_ptr(), y.data_ptr(), nchunks, cb, vmax, r, c, nvec, tw,
-        values.device.index or 0, _stream(values.device))
+        x.data_ptr(), y.data_ptr(), nchunks, cb, vmax, nrows, x.shape[0], r,
+        c, nvec, launch["tile_columns"], launch["vector"], launch["grid"],
+        launch["stages"], launch["chunks_per_stage"],
+        launch["blocks_per_stage"], launch["tile_rows"], launch["smem_bytes"],
+        launch["threads"], values.device.index or 0, _stream(values.device))
     _raise_on(err, fn)
     LAUNCHES[fn] += 1
     return y
-
-
 
 
 # ----------------------------------------------------------------------------
@@ -161,28 +373,6 @@ PANEL_ROW_PARTS = 1
 #: 64 a thread). Four were 2.1x faster than one at nvec 128 on the H100
 #: (PERF.md §6); ``time_spmm_desc.py --lowering mask`` sweeps 1, 2, 4.
 PANEL_STAGE_CHUNKS = 4
-
-#: An H100 SM's shared memory, 1 KB of it reserved per CTA, and what one CTA
-#: may use when two share it; its registers, and the most a panel-kernel
-#: thread takes (``__launch_bounds__(512, 2)``).
-SM_SMEM_BYTES = 228 * 1024
-TWO_CTA_SMEM_BYTES = SM_SMEM_BYTES // 2 - 1024
-SM_REGISTERS = 65536
-MAX_REGISTERS = 64
-
-
-def _r16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
-def panels_vector(nvec: int, x: Optional[torch.Tensor] = None) -> int:
-    """The columns of X a panel-kernel lane owns: 4 (one 16-byte load) or 2
-    (8 bytes) where they divide nvec and X is so aligned, else 1."""
-    for vec in (4, 2):
-        if nvec % vec == 0 and (x is None or x.data_ptr() % (4 * vec) == 0):
-            return vec
-    return 1
-
 
 def panels_smem_bytes(stages: int, q: int, cb: int, vmax: int, prows: int,
                       tw: int) -> int:
@@ -214,11 +404,12 @@ def panels_tiles(nvec: int, vec: int) -> List[int]:
     return out
 
 
-def _panel_block(r: int, c: int) -> None:
-    """The panel kernels walk blocks of c = 4 or 8 columns and r = 1, 2, 4
-    or 8 rows, r * c <= 32 (every shape of ``formats.SUPPORTED_BLOCKS``)."""
+def _panel_block(r: int, c: int, layout: str = "panel") -> None:
+    """The panel and whole-vector kernels walk blocks of c = 4 or 8 columns
+    and r = 1, 2, 4 or 8 rows, r * c <= 32 (every shape of
+    ``formats.SUPPORTED_BLOCKS``)."""
     if r not in (1, 2, 4, 8) or c not in (4, 8) or r * c > 32:
-        raise ValueError(f"no panel SpMM kernel for beta({r},{c})")
+        raise ValueError(f"no {layout} SpMM kernel for beta({r},{c})")
 
 
 def panels_plan(stages: int, cb: int, r: int, c: int, vmax: int, pr: int,

@@ -12,14 +12,15 @@ with the same arguments minus ``interpret``:
   ============================  ========================  =================================
 
 The reference has no double-buffered whole-vector descriptor SpMM, so
-neither has the port. X is (ncols, nvec) and Y (nrows, nvec), both
-row-major float32; ``nvt`` keeps the reference's rule (``nvec`` a multiple
-of ``min(nvt, nvec)``, else ``ValueError``) and the kernels cut the columns
-into their own tiles: at most 32 for the whole-vector kernel, as the mask
-whole-vector kernel does (:mod:`.spc5_spmm`; :func:`smem_plan`), and for
-the panel kernels a tile of up to 128 columns, with S CTAs per panel, row
-part and tile (:func:`panels_launch`; ``split`` overrides S), as the mask
-panel pair does. The tables are taken
+the port has no public twin either (its one kernel keeps a ring of staged
+rounds inside). X is (ncols, nvec) and Y (nrows, nvec), both row-major
+float32; ``nvt`` keeps the reference's rule (``nvec`` a multiple of
+``min(nvt, nvec)``, else ``ValueError``) and the kernels cut the columns
+into their own tiles of up to 128 columns, four a lane, as the mask kernels
+do (:mod:`.spc5_spmm`): the whole-vector kernel with G contiguous chunk
+ranges a tile (:func:`whole_launch`, the mask kernel's planning; ``grid``
+overrides G), the panel kernels with S CTAs per panel, row part and tile
+(:func:`panels_launch`; ``split`` overrides S). The tables are taken
 only in the dtypes :func:`repro_torch.core.formats.chunk_descriptors`
 builds for the geometry, never widened
 (:func:`.spc5_spmv_desc._check_tables`).
@@ -57,25 +58,8 @@ def _round16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def stage_bytes(cb: int, r: int, c: int, vmax: int, vidx_width: int,
-                stage_vidx: bool) -> int:
-    """Shared memory of one staged chunk: the value window, the chunk's
-    vidx table as built (when staged), and one 32-bit word per block and
-    column, per block and row and per block (the valid mask), rounded up to
-    16 bytes (``Stage`` in the source)."""
-    vidx = _round16(cb * r * c * vidx_width) if stage_vidx else 0
-    return _round16(4 * vmax + vidx + 4 * cb * (c + r + 1))
-
-
-def smem_plan(cb: int, r: int, c: int, vmax: int, vidx_width: int,
-              nvec: int) -> Tuple[int, bool, int]:
-    """The whole-vector launch's column tile, whether vidx is staged, and
-    the dynamic shared memory per CTA (one staged chunk). vidx is staged
-    when the chunk fits with it, else it is read through L1."""
-    for staged in (True, False):
-        nbytes = stage_bytes(cb, r, c, vmax, vidx_width, staged)
-        if nbytes <= K.MAX_SMEM_BYTES or not staged:
-            return KM.column_tile(nvec, lambda t: nbytes), staged, nbytes
+#: The columns of X a lane owns, as the mask kernels'.
+panels_vector = KM.panels_vector
 
 
 def _block(r: int, c: int) -> None:
@@ -86,26 +70,86 @@ def _block(r: int, c: int) -> None:
         raise ValueError(f"no descriptor SpMM kernel for beta({r},{c})")
 
 
-def _launch_checks(fn: str, smem: int, r: int, c: int, values, desc_valid):
-    K._check_smem(smem, fn)
-    _block(r, c)
-    # 16-byte value-window copies and vector loads of the valid bytes
-    K._aligned({"values": values, "desc_valid": desc_valid})
-
-
 # ----------------------------------------------------------------------------
 # whole-vector layout
 # ----------------------------------------------------------------------------
 
+def whole_stage_bytes(q: int, nb: int, r: int, c: int, vmax: int, wv: int,
+                      wx: int) -> int:
+    """One stage of the whole-vector descriptor kernel: q value windows, for
+    nb blocks the valid and vidx runs, the c xcol entries of each block's
+    first row and a 4-byte slot for its lane-0 yrow entry, and a 16-byte
+    mbarrier slot, every part 16-byte aligned."""
+    rc = r * c
+    return (q * _round16(4 * vmax) + _round16(nb * rc) + _round16(nb * rc * wv)
+            + _round16(nb * c * wx) + _round16(4 * nb) + 16)
+
+
+def whole_smem_bytes(stages: int, q: int, nb: int, r: int, c: int, vmax: int,
+                     wv: int, wx: int, tw: int, vec: int, tile_rows: int,
+                     threads: int) -> int:
+    """Dynamic shared memory of one whole-vector descriptor CTA
+    (:func:`.spc5_spmm.whole_layout_bytes` with :func:`whole_stage_bytes`).
+    The kernel's launcher refuses a launch whose figure differs from its own
+    (``spc5_spmm_desc_whole_smem`` exposes it)."""
+    return KM.whole_layout_bytes(whole_stage_bytes(q, nb, r, c, vmax, wv, wx),
+                                 stages, q, nb, r, c, vmax, tw, vec,
+                                 tile_rows, threads)
+
+
+_WHOLE_OCCUPANCY: Dict[Tuple[int, ...], Tuple[int, int]] = {}
+
+
+def whole_occupancy(r: int, c: int, vec: int, threads: int, smem: int,
+                    device: torch.device) -> Tuple[int, int]:
+    """(CTAs one SM holds at once, SMs) for the whole-vector descriptor
+    kernel of block shape (r, c) and ``vec`` columns a lane, as the CUDA
+    runtime reports them."""
+    key = (r, c, vec, threads, smem, device.index or 0)
+    if key not in _WHOLE_OCCUPANCY:
+        lib = _build.load_library("spc5_spmm_desc")
+        out = (ctypes.c_int * 2)()
+        err = lib.spc5_spmm_desc_whole_occupancy(*key, ctypes.addressof(out))
+        K._raise_on(err, "spc5_spmm_desc_whole_occupancy")
+        _WHOLE_OCCUPANCY[key] = (out[0], out[1])
+    return _WHOLE_OCCUPANCY[key]
+
+
+def whole_cta(*, cb: int, r: int, c: int, vmax: int, nvec: int, vec: int,
+              wv: int, wx: int,
+              what: str = "whole-vector kernel") -> Dict[str, int]:
+    """The CTA ``spmm_cuda_desc`` plans for lanes of at most ``vec`` columns
+    (:func:`panels_vector`) and vidx / xcol tables ``wv`` / ``wx`` bytes
+    wide: the mask kernel's planning (:func:`.spc5_spmm.whole_plan`) with
+    :func:`whole_smem_bytes`."""
+    KM._panel_block(r, c, "whole-vector")
+    return KM.whole_plan(lambda s, q, nb, tw, v, rows, t: whole_smem_bytes(
+        s, q, nb, r, c, vmax, wv, wx, tw, v, rows, t), cb, r, c, vmax, nvec,
+        vec, what)
+
+
+def whole_launch(nchunks: int, *, cb: int, r: int, c: int, vmax: int,
+                 nvec: int, vec: int, wv: int, wx: int, device: torch.device,
+                 grid: Optional[int] = None,
+                 what: str = "whole-vector kernel") -> Dict[str, int]:
+    """The launch ``spmm_cuda_desc`` makes on ``device`` (a card): the CTA
+    of :func:`whole_cta`, then :func:`.spc5_spmm.whole_grid`."""
+    cta = whole_cta(cb=cb, r=r, c=c, vmax=vmax, nvec=nvec, vec=vec, wv=wv,
+                    wx=wx, what=what)
+    return KM.whole_grid(cta, lambda t, n: whole_occupancy(
+        r, c, cta["vector"], t, n, device), nchunks, nvec, grid, what)
+
+
 def spmm_cuda_desc(chunk_vbase, desc_valid, desc_vidx, desc_xcol, desc_yrow,
                    values, x, value_scale=None, *, r: int, c: int, cb: int,
-                   vmax: int, nrows: int, ncols: int,
-                   nvt: int = 128) -> torch.Tensor:
-    """Whole-vector descriptor SpMM, one CTA per (chunk, column tile), each
-    (row, column) summed in a register across a run of blocks and added
-    into a zeroed Y with global atomics (replaces ``spmm_pallas_desc``). A
-    column permutation would already be folded into ``desc_xcol``, so there
-    is no ``col_map``."""
+                   vmax: int, nrows: int, ncols: int, nvt: int = 128,
+                   grid: Optional[int] = None) -> torch.Tensor:
+    """Whole-vector descriptor SpMM: the chunks cut into ``grid`` contiguous
+    ranges a column tile (default from the card's occupancy), rounds of
+    chunks' tables staged in a ring, each round's valid lanes listed by row
+    and walked four at a time by the lane groups, rows summed in a Y tile
+    (replaces ``spmm_pallas_desc``). A column permutation would already be
+    folded into ``desc_xcol``, so there is no ``col_map``."""
     fn = "spmm_cuda_desc"
     K._unsupported(None, value_scale)
     nchunks = desc_valid.shape[0]
@@ -126,18 +170,30 @@ def spmm_cuda_desc(chunk_vbase, desc_valid, desc_vidx, desc_xcol, desc_yrow,
                                             chunk_vbase), x, nrows=nrows)
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
+    if vmax % 4:
+        raise ValueError(f"vmax must be a multiple of 4 (whole 16-byte "
+                         f"value windows), got {vmax}")
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"X has {x.numel()} elements; the kernels index it "
+                         f"with 32-bit offsets")
     wv, wx, wy = _widths(desc_vidx, desc_xcol, desc_yrow)
-    tw, staged, smem = smem_plan(cb, r, c, vmax, wv, nvec)
-    _launch_checks(fn, smem, r, c, values, desc_valid)
-    KM._grid(nchunks, nvec, tw, fn)
+    launch = whole_launch(nchunks, cb=cb, r=r, c=c, vmax=vmax, nvec=nvec,
+                          vec=panels_vector(nvec, x), wv=wv, wx=wx,
+                          device=values.device, grid=grid, what=fn)
+    K._aligned({"values": values})
+    # the tables are copied in 4-byte pieces where 16-byte ones do not align
+    K._aligned(tables, 4)
     lib = _build.load_library("spc5_spmm_desc")
+    # every CTA adds into Y
     y = torch.zeros((nrows, nvec), dtype=torch.float32, device=values.device)
     err = lib.spc5_spmm_desc_whole(
         chunk_vbase.data_ptr(), desc_valid.data_ptr(), desc_vidx.data_ptr(),
         desc_xcol.data_ptr(), desc_yrow.data_ptr(), values.data_ptr(),
-        x.data_ptr(), y.data_ptr(), nchunks, cb, vmax, r, c, wv, wx, wy,
-        ncols, nvec, tw, int(staged), values.device.index or 0,
-        K._stream(values.device))
+        x.data_ptr(), y.data_ptr(), nchunks, cb, vmax, nrows, x.shape[0], r,
+        c, wv, wx, wy, nvec, launch["tile_columns"], launch["vector"],
+        launch["grid"], launch["stages"], launch["chunks_per_stage"],
+        launch["blocks_per_stage"], launch["tile_rows"], launch["smem_bytes"],
+        launch["threads"], values.device.index or 0, K._stream(values.device))
     K._raise_on(err, fn)
     LAUNCHES[fn] += 1
     return y
@@ -177,10 +233,6 @@ TWO_CTA_SMEM_BYTES = KM.TWO_CTA_SMEM_BYTES
 #: and by registers: the kernels take at most 64 a thread).
 #: ``time_spmm_desc.py`` sweeps 1 and 4.
 PANEL_STAGE_CHUNKS = 2
-
-#: The columns of X a panel-kernel lane owns, as the mask panel pair's.
-panels_vector = KM.panels_vector
-
 
 def panels_smem_bytes(stages: int, q: int, nb: int, r: int, c: int,
                       vmax: int, prows: int, tw: int, wv: int, wx: int) -> int:

@@ -372,9 +372,9 @@ def _run_spmm(kernel, mat, nvec, device, nvt=128, seed=4, **geom):
 @pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
 def test_spmm_kernel_matches_plain(cuda, kernel, rc, nvec):
     """Several chunks and panels (pr=64, xw=64, cb=16), nrows % r != 0 for
-    r in (4, 8), bit-31 masks; whole-vector column tiles of 4 (nvec=3, one
-    idle lane), 16 and 32 (four tiles), panel tiles of 4 (one column a
-    lane), 16 and 128 (four columns a lane)."""
+    r in (4, 8), bit-31 masks; column tiles of 4 (nvec=3: one column a
+    lane, one lane idle), 16 and 128 (four columns a lane), in both
+    layouts."""
     mat = _matrix(rc, n=302)
     geom = (dict(pr=64, xw=64, cb=16) if "panels" in kernel
             else dict(cb=16))
@@ -383,9 +383,8 @@ def test_spmm_kernel_matches_plain(cuda, kernel, rc, nvec):
 
 @pytest.mark.parametrize("kernel", SPMM_KERNELS)
 def test_spmm_partial_column_tile(cuda, kernel):
-    """nvec = 40 with nvt = 8: two whole-vector column tiles of 32, the
-    second with 24 idle lanes; one panel tile of 64 columns, 16 lanes of
-    four, six of them idle."""
+    """nvec = 40 with nvt = 8: one tile of 64 columns, 16 lanes of four, six
+    of them idle, in both layouts."""
     _run_spmm(kernel, _matrix((2, 4), n=150, m=90), 40, cuda, nvt=8,
               **(dict(pr=32, xw=32, cb=8) if "panels" in kernel
                  else dict(cb=8)))
@@ -408,8 +407,9 @@ def test_spmm_edge_matrices(cuda, kernel, kind):
 def test_spmm_smoke_geometry(cuda, kernel):
     """The largest geometry chip_smoke.py uses: pr=512, cb=64, xw=512 for
     panels (a 128-column tile of 32 lanes of four, four row parts of 128
-    rows, 512 threads), cb=256 for whole-vector, at 4x8 and nvec=128, on a
-    2,000 x 4,096 slice of the density-0.1 vocab weight."""
+    rows, 512 threads), cb=256 for whole-vector (a 128-column tile of 32
+    lanes of four, 512 threads, a ring of two rounds), at 4x8 and
+    nvec=128, on a 2,000 x 4,096 slice of the density-0.1 vocab weight."""
     w = np.random.default_rng(0).standard_normal((2_000, 4_096), np.float32)
     w = np.where(np.abs(w) >= np.quantile(np.abs(w), 0.9), w, 0.0)
     mat = F.csr_to_spc5(F.csr_from_dense(w.astype(np.float32)), 4, 8)
@@ -423,6 +423,12 @@ def test_spmm_smoke_geometry(cuda, kernel):
                                   pr=plan.pr, nvec=128, vec=4, device=cuda)
         assert (launch["tile_columns"], launch["lanes"], launch["row_parts"],
                 launch["threads"]) == (128, 32, 4, 512)
+    else:
+        launch = KM.whole_launch(int(plan.chunk_vbase.shape[0]), cb=plan.cb,
+                                 r=4, c=8, vmax=plan.vmax, nvec=128, vec=4,
+                                 device=cuda)
+        assert (launch["tile_columns"], launch["lanes"], launch["threads"],
+                launch["stages"]) == (128, 32, 512, 2)
 
 
 def test_spmm_oversized_shared_memory_raises(cuda):
@@ -1107,8 +1113,8 @@ def _run_desc_spmm(kernel, mat, nvec, device, nvt=128, seed=4, xrows=None,
 @pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
 def test_desc_spmm_kernel_matches_plain(cuda, kernel, rc, nvec):
     """Several chunks and panels (pr=64, xw=64, cb=16), nrows % r != 0 for
-    r in (4, 8), bit-31 masks, and column tiles of 4 (nvec=3, one idle
-    lane), 16 and 32 (four tiles)."""
+    r in (4, 8), bit-31 masks, and column tiles of 4 (nvec=3: one column a
+    lane, one lane idle), 16 and 128 (four columns a lane)."""
     mat = _matrix(rc, n=302)
     geom = (dict(pr=64, xw=64, cb=16) if "panels" in kernel
             else dict(cb=16))
@@ -1117,8 +1123,8 @@ def test_desc_spmm_kernel_matches_plain(cuda, kernel, rc, nvec):
 
 @pytest.mark.parametrize("kernel", DESC_SPMM_KERNELS)
 def test_desc_spmm_partial_column_tile(cuda, kernel):
-    """nvec = 40 with nvt = 8: two column tiles of 32, the second with 24
-    idle lanes."""
+    """nvec = 40 with nvt = 8: one tile of 64 columns, 16 lanes of four, six
+    of them idle."""
     _run_desc_spmm(kernel, _matrix((2, 4), n=150, m=90), 40, cuda, nvt=8,
                    **(dict(pr=32, xw=32, cb=8) if "panels" in kernel
                       else dict(cb=8)))
@@ -1154,10 +1160,9 @@ def test_desc_spmm_short_x_is_read_in_place(cuda, kernel):
 def test_desc_spmm_table_widths(cuda, kernel, table, width):
     """Each index table at each width it can have, read as built. An int32
     vidx needs a value window above 32,768 floats (128 KB): the
-    whole-vector kernel reads vidx through L1 instead of staging it, the
-    synchronous panel kernel stages the tables in slices beside the
-    window, and the double-buffered kernel, which holds two windows,
-    refuses it for want of shared memory."""
+    whole-vector kernel and the synchronous panel kernel stage the tables
+    in slices beside the window, and the double-buffered panel kernel,
+    which holds two windows, refuses it for want of shared memory."""
     layout = "panels" if "panels" in kernel else "whole_vector"
     mat, geom = _width_case(table, width, layout)
     if width == 32 and table == "vidx" and kernel.endswith("_db"):
@@ -1187,9 +1192,9 @@ def test_desc_spmm_oversized_shared_memory_raises(cuda):
 def test_desc_spmm_smoke_geometry(cuda, kernel):
     """The geometry chip_smoke.py uses, on a 2,000 x 4,096 slice of the
     density-0.1 vocab weight in beta(4,8) at nvec=128: the whole-vector
-    kernel stages vidx in 32-column tiles; the panel kernels stage two
-    whole chunks a stage beside a (128, 128) Y tile of a quarter panel, four
-    columns a lane."""
+    kernel stages a ring of rounds of one whole chunk beside a 128-column
+    Y tile; the panel kernels stage two whole chunks a stage beside a
+    (128, 128) Y tile of a quarter panel, four columns a lane."""
     w = np.random.default_rng(0).standard_normal((2_000, 4_096), np.float32)
     w = np.where(np.abs(w) >= np.quantile(np.abs(w), 0.9), w, 0.0)
     mat = F.csr_to_spc5(F.csr_from_dense(w.astype(np.float32)), 4, 8)
@@ -1197,9 +1202,14 @@ def test_desc_spmm_smoke_geometry(cuda, kernel):
             else dict(cb=256))
     plan = _run_desc_spmm(kernel, mat, 128, cuda, **geom)
     if "panels" not in kernel:
-        tw, staged, _ = KDM.smem_plan(plan.cb, plan.r, plan.c, plan.vmax,
-                                      plan.desc_vidx.element_size(), 128)
-        assert (tw, staged) == (32, True)
+        launch = KDM.whole_launch(
+            int(plan.chunk_vbase.shape[0]), cb=plan.cb, r=plan.r, c=plan.c,
+            vmax=plan.vmax, nvec=128, vec=4,
+            wv=plan.desc_vidx.element_size(),
+            wx=plan.desc_xcol.element_size(), device=cuda)
+        assert (launch["tile_columns"], launch["vector"], launch["stages"],
+                launch["chunks_per_stage"], launch["blocks_per_stage"]) == (
+            128, 4, 2, 1, plan.cb)
         return
     launch = KDM.panels_launch(
         KDM.PANEL_DB_STAGES if kernel.endswith("_db") else 1, plan.npanels,
@@ -1722,6 +1732,295 @@ def test_mask_panel_spmm_launch_refuses_a_wrong_smem_figure(cuda,
         with pytest.raises(RuntimeError, match="CUDA error 1"):
             _check_mask_spmm(kernel, plan, x, split=1)
     assert KM.LAUNCHES == before
+
+
+# ----------------------------------------------------------------------------
+# whole-vector SpMM pair: contiguous chunk ranges, a ring of staged rounds,
+# a per-round nonzero list, a Y tile (csrc/spc5_spmm_whole.cuh)
+# ----------------------------------------------------------------------------
+
+#: kernel -> (lowering, wrapper module)
+WHOLE_SPMM = {"spmm_cuda": ("mask", KM), "spmm_cuda_desc": ("descriptor", KDM)}
+
+
+def _wspmm_plan(kernel, rc, device, n=302, m=700, density=0.05, cb=8,
+                seed=0):
+    """A whole-vector plan of the kernel's lowering: 302 x 700 at cb 8, so
+    there are many chunks (G can be 1, nchunks or neither) and a chunk's
+    blocks span a few block rows."""
+    return ops.prepare(_matrix(rc, n=n, m=m, density=density, seed=seed),
+                       layout="whole_vector", lowering=WHOLE_SPMM[kernel][0],
+                       tune=False, device=device, cb=cb)
+
+
+def _wspmm_arrays(plan):
+    """The plan's arrays the wrapper takes between chunk_vbase and values."""
+    if plan.lowering == "descriptor":
+        return [plan.desc_valid, plan.desc_vidx, plan.desc_xcol,
+                plan.desc_yrow]
+    return [plan.chunk_col, plan.chunk_mask, plan.chunk_voff, plan.chunk_row]
+
+
+def _wspmm_check(kernel, plan, x, arrays=None, **kw):
+    """One launch of ``kernel`` on the plan's arrays (or ``arrays``, in
+    their place) held against the plain version on the same arrays, within
+    1e-5 of max|Y|; returns Y."""
+    lowering, mod = WHOLE_SPMM[kernel]
+    arrays = _wspmm_arrays(plan) if arrays is None else arrays
+    geom = dict(r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax,
+                nrows=plan.nrows, ncols=plan.ncols)
+    before = mod.LAUNCHES[kernel]
+    y = getattr(mod, kernel)(plan.chunk_vbase, *arrays, plan.values, x,
+                             **geom, **kw)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES[kernel] == before + 1
+    if lowering == "descriptor":
+        plain = R.spmm_desc(R.SPC5DescDevice(plan.values, *arrays,
+                                             plan.chunk_vbase), x,
+                            nrows=plan.nrows)
+    else:
+        plain = R.spmm(R.SPC5Device(plan.values, *arrays, plan.chunk_vbase),
+                       x, r=plan.r, c=plan.c, nrows=plan.nrows,
+                       ncols=plan.ncols)
+    assert y.shape == (plan.nrows, x.shape[1]) and y.dtype == torch.float32
+    assert torch.isfinite(y).all()
+    scale = float(plain.abs().max()) if plain.numel() else 0.0
+    err = float((y - plain).abs().max()) if y.numel() else 0.0
+    assert err <= RTOL * max(scale, 1.0), (err, scale)
+    return y
+
+
+def _wspmm_nchunks(plan):
+    return int(plan.chunk_vbase.shape[0])
+
+
+@pytest.mark.parametrize("nvec", [1, 3, 4, 16, 128, 256])
+@pytest.mark.parametrize("kernel", sorted(WHOLE_SPMM))
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+def test_whole_spmm_widths(cuda, kernel, rc, nvec):
+    """Every block shape at one column a lane (nvec 1; 3: a tile of four
+    lanes, one idle) and four (nvec 4, 16, 128; 256: two 128-column
+    tiles), at the wrapper's launch."""
+    plan = _wspmm_plan(kernel, rc, cuda)
+    _wspmm_check(kernel, plan, _xmat(plan.ncols, nvec, nvec, cuda))
+
+
+@pytest.mark.parametrize("grid", ["one", "planned", "all", "ragged"])
+@pytest.mark.parametrize("kernel", sorted(WHOLE_SPMM))
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+def test_whole_spmm_grid(cuda, kernel, rc, grid):
+    """G = 1 (one CTA walks every chunk), the planned G, one chunk a CTA and
+    a G that divides no range evenly, at nvec 16."""
+    plan = _wspmm_plan(kernel, rc, cuda)
+    n = _wspmm_nchunks(plan)
+    g = {"one": 1, "planned": None, "all": n, "ragged": max(1, n // 3 - 1)}
+    _wspmm_check(kernel, plan, _xmat(plan.ncols, 16, 3, cuda),
+                 grid=g[grid])
+
+
+def _wspmm_reordered(plan, order):
+    """The plan's metadata (mask) or tables (descriptor) with each chunk's
+    blocks shuffled ("shuffled": a chunk's rows no longer sorted), its
+    block rows permuted ("permuted": rows jump up and down, chunks share
+    none; nrows % r == 0, so every lane of a block row moves with it), or
+    each block taking the row of its chunk's first or second block
+    ("repeated")."""
+    r, cb = plan.r, plan.cb
+    arrays = [t.cpu().numpy() for t in _wspmm_arrays(plan)]
+    rows = arrays[3]  # chunk_row, or the yrow table
+    if order == "shuffled":
+        pick = np.random.default_rng(3).permutation(cb)
+        arrays = [t[:, pick] for t in arrays]
+    elif order == "repeated":
+        arrays[3] = rows[:, np.arange(cb) % 2]
+    else:
+        perm = np.random.default_rng(5).permutation(plan.nrows // r)
+        y = rows.astype(np.int64)
+        base = (y if y.ndim == 2 else y[..., :1]) // r  # a block's row / r
+        arrays[3] = (perm[base] * r + (y - base * r)).astype(rows.dtype)
+    return [torch.from_numpy(np.ascontiguousarray(t)).to(plan.device)
+            for t in arrays]
+
+
+@pytest.mark.parametrize("order", ["shuffled", "permuted", "repeated"])
+@pytest.mark.parametrize("kernel", sorted(WHOLE_SPMM))
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+def test_whole_spmm_rows_in_any_order(cuda, kernel, rc, order):
+    """Rows out of order or repeated: the list is no longer one segment a
+    row, so every run goes straight to Y; at the planned G and at G = 1,
+    nvec 16 and 128 (nrows a multiple of r, so permuted block rows stay
+    whole: the descriptor kernel reads a block's rows as yrow[0] + k / c,
+    the identity chunk_descriptors keeps)."""
+    n = 304 if rc[0] in (4, 8) else 302
+    assert n % rc[0] == 0
+    plan = _wspmm_plan(kernel, rc, cuda, n=n)
+    arrays = _wspmm_reordered(plan, order)
+    for nvec in (16, 128):
+        x = _xmat(plan.ncols, nvec, 11, cuda)
+        for grid in (None, 1):
+            _wspmm_check(kernel, plan, x, arrays, grid=grid)
+
+
+@pytest.mark.parametrize("tile", [16, 64])
+@pytest.mark.parametrize("kernel", sorted(WHOLE_SPMM))
+@pytest.mark.parametrize("rc", [(1, 8), (2, 4), (4, 4), (8, 4)])
+def test_whole_spmm_rows_past_the_tile(cuda, kernel, rc, tile, monkeypatch):
+    """A tall sparse matrix (3,000 x 60 at density 0.02, cb 64): a chunk
+    spans far more rows than a Y tile of 16 or 64 holds, so most of a
+    round's rows go straight to Y, and the tile is rebased round after
+    round; at G = 1 too."""
+    monkeypatch.setattr(KM, "WHOLE_TILE_ROWS", tile)
+    plan = _wspmm_plan(kernel, rc, cuda, n=3_000, m=60, density=0.02,
+                       cb=64)
+    for nvec in (4, 128):
+        x = _xmat(plan.ncols, nvec, 12, cuda)
+        for grid in (None, 1):
+            _wspmm_check(kernel, plan, x, grid=grid)
+
+
+@pytest.mark.parametrize("kernel", sorted(WHOLE_SPMM))
+def test_whole_spmm_x_misaligned_and_inf_where_no_lane_reads(cuda, kernel):
+    """An X that starts 4 or 8 bytes past a 16-byte boundary takes one or
+    two columns a lane (tiles of 32 or 64 columns at nvec 128); Inf in the
+    X rows of the matrix's empty columns reaches no output."""
+    d = _dense((302, 700), 0.05, 13)
+    d[:, 100:140] = 0.0
+    plan = ops.prepare(F.csr_to_spc5(F.csr_from_dense(d), 2, 4),
+                       layout="whole_vector", lowering=WHOLE_SPMM[kernel][0],
+                       tune=False, device=cuda, cb=8)
+    for offset, vec in ((1, 1), (2, 2)):
+        buf = torch.zeros(plan.ncols * 128 + offset, device=cuda)
+        x = buf[offset:].view(plan.ncols, 128)
+        x.copy_(_xmat(plan.ncols, 128, 7, cuda))
+        assert KM.panels_vector(128, x) == vec
+        _wspmm_check(kernel, plan, x)
+    x = _xmat(plan.ncols, 16, 8, cuda)
+    x[100:140] = float("inf")
+    y = _wspmm_check(kernel, plan, x.clone(), grid=1)
+    want = torch.from_numpy(d.astype(np.float64) @ np.nan_to_num(
+        x.cpu().double().numpy(), posinf=0.0)).to(cuda)
+    assert float((y.double() - want).abs().max()) <= RTOL * float(
+        want.abs().max())
+
+
+@pytest.mark.parametrize("grid", [None, 1, "all"])
+@pytest.mark.parametrize("kernel", sorted(WHOLE_SPMM))
+def test_whole_spmm_all_padding_chunks(cuda, kernel, grid):
+    """A matrix whose nonzeros all lie in its first rows, chunked with cb 4:
+    the last chunk is mostly padding; and a matrix with no nonzero (one
+    chunk, all padding), which leaves Y zero."""
+    d = np.zeros((200, 90), np.float32)
+    d[:3] = _dense((3, 90), 0.3, 14)[:3]
+    for dense in (d, np.zeros_like(d)):
+        plan = ops.prepare(F.csr_to_spc5(F.csr_from_dense(dense), 4, 8),
+                           layout="whole_vector",
+                           lowering=WHOLE_SPMM[kernel][0], tune=False,
+                           device=cuda, cb=4)
+        g = _wspmm_nchunks(plan) if grid == "all" else grid
+        y = _wspmm_check(kernel, plan, _xmat(90, 16, 15, cuda), grid=g)
+        if not dense.any():
+            assert not bool(y.any())
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("WHOLE_THREADS", 32), ("WHOLE_THREADS", 128), ("WHOLE_THREADS", 512),
+    ("WHOLE_STAGE_CHUNKS", 1), ("WHOLE_STAGE_CHUNKS", 3),
+    ("WHOLE_TILE", 32), ("WHOLE_DB_STAGES", 1)])
+@pytest.mark.parametrize("kernel", sorted(WHOLE_SPMM))
+@pytest.mark.parametrize("rc", [(2, 4), (4, 8), (8, 4)])
+def test_whole_spmm_knobs(cuda, kernel, rc, knob, value, monkeypatch):
+    """Threads (32: one warp, one group at nvec 128), chunks a round (three:
+    a last round of fewer), a 32-column tile at nvec 128 (four tiles), and
+    one stage a round (no ring), each at nvec 16 and 128."""
+    monkeypatch.setattr(KM, knob, value)
+    plan = _wspmm_plan(kernel, rc, cuda)
+    for nvec in (16, 128):
+        _wspmm_check(kernel, plan, _xmat(plan.ncols, nvec, 16, cuda))
+
+
+@pytest.mark.parametrize("cb", [5, 6])
+@pytest.mark.parametrize("kernel", sorted(WHOLE_SPMM))
+def test_whole_spmm_unaligned_runs(cuda, kernel, cb):
+    """cb 5 or 6: metadata rows and table runs that are not whole 16-byte
+    pieces go by cp.async in 4-byte pieces, also in rounds of several
+    chunks."""
+    plan = _wspmm_plan(kernel, (2, 4), cuda, cb=cb)
+    for nvec in (16, 128):
+        _wspmm_check(kernel, plan, _xmat(plan.ncols, nvec, 17, cuda))
+
+
+@pytest.mark.parametrize("kernel", sorted(WHOLE_SPMM))
+def test_whole_spmm_smoke_geometry(cuda, kernel):
+    """chip_smoke.py's geometry (cb 256, beta(4,8)) on a 2,000 x 4,096 slice
+    of the density-0.1 vocab weight: the planned launch at nvec 128 (one
+    128-column tile, 32 lanes of four, 512 threads, a ring of two rounds,
+    two CTAs an SM), at G = 1 and at one chunk a CTA."""
+    w = np.random.default_rng(0).standard_normal((2_000, 4_096), np.float32)
+    w = np.where(np.abs(w) >= np.quantile(np.abs(w), 0.9), w, 0.0)
+    plan = ops.prepare(F.csr_to_spc5(F.csr_from_dense(w.astype(np.float32)),
+                                     4, 8),
+                       layout="whole_vector", lowering=WHOLE_SPMM[kernel][0],
+                       tune=False, device=cuda, cb=256)
+    x = _xmat(plan.ncols, 128, 19, cuda)
+    for grid in (None, 1, _wspmm_nchunks(plan)):
+        _wspmm_check(kernel, plan, x, grid=grid)
+    geom = dict(cb=plan.cb, r=4, c=8, vmax=plan.vmax, nvec=128, vec=4,
+                device=cuda)
+    if plan.lowering == "descriptor":
+        geom.update(wv=plan.desc_vidx.element_size(),
+                    wx=plan.desc_xcol.element_size())
+    launch = WHOLE_SPMM[kernel][1].whole_launch(_wspmm_nchunks(plan), **geom)
+    assert (launch["tile_columns"], launch["vector"], launch["lanes"],
+            launch["threads"], launch["stages"]) == (128, 4, 32, 512, 2)
+    assert launch["ctas_per_sm"] >= 2
+
+
+#: (stages, q, nb, r, c, vmax, tw, vec, tile rows, threads): the token plan
+#: at nvec 128 and 16, FEM's one-stage round, a sliced int32 window, and a
+#: narrow one-column tile.
+WHOLE_SPMM_SMEM_GEOMETRIES = {
+    "token128": (2, 2, 512, 4, 8, 1144, 128, 4, 32, 512),
+    "token16": (2, 1, 256, 4, 8, 1144, 16, 4, 64, 256),
+    "fem": (1, 1, 256, 4, 4, 4096, 16, 4, 64, 256),
+    "sliced": (1, 1, 160, 4, 8, 40_960, 16, 4, 16, 256),
+    "narrow": (2, 3, 12, 8, 4, 40, 1, 1, 16, 32),
+}
+
+
+@pytest.mark.parametrize("widths", [(2, 2), (4, 1)])
+@pytest.mark.parametrize("case", sorted(WHOLE_SPMM_SMEM_GEOMETRIES))
+def test_whole_spmm_smem_matches_the_kernel(cuda, case, widths):
+    """Each wrapper's ``whole_smem_bytes`` is the figure its kernel's own
+    layout gives (``spc5_spmm_whole_smem``, ``spc5_spmm_desc_whole_smem``);
+    a launch whose figure differs is refused."""
+    from repro_torch.kernels import _build
+    stages, q, nb, r, c, vmax, tw, vec, rows, threads = \
+        WHOLE_SPMM_SMEM_GEOMETRIES[case]
+    head = (stages, q, nb, r, c, vmax)
+    tail = (tw, vec, rows, threads)
+    assert _build.load_library("spc5_spmm").spc5_spmm_whole_smem(
+        *head, *tail) == KM.whole_smem_bytes(*head, *tail)
+    assert _build.load_library("spc5_spmm_desc").spc5_spmm_desc_whole_smem(
+        *head, *widths, *tail) == KDM.whole_smem_bytes(*head, *widths, *tail)
+
+
+@pytest.mark.parametrize("kernel", sorted(WHOLE_SPMM))
+def test_whole_spmm_launch_refuses_a_wrong_smem_figure(cuda, kernel,
+                                                       monkeypatch):
+    """A launch handed a shared-memory figure 16 bytes off the kernel's is
+    refused (CUDA error 1) before it runs, and is not counted."""
+    mod = WHOLE_SPMM[kernel][1]
+    plan = _wspmm_plan(kernel, (4, 8), cuda)
+    real = mod.whole_launch
+
+    def off(*args, **kw):
+        launch = real(*args, **kw)
+        return dict(launch, smem_bytes=launch["smem_bytes"] + 16)
+    monkeypatch.setattr(mod, "whole_launch", off)
+    before = dict(mod.LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        _wspmm_check(kernel, plan, _xmat(plan.ncols, 16, 8, cuda), grid=1)
+    assert mod.LAUNCHES == before
 
 
 # ----------------------------------------------------------------------------

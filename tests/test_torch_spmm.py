@@ -199,24 +199,6 @@ def test_wrapper_keeps_the_reference_tile_rule(kernel):
         fn(*args, x, nvt=4, **kw)
 
 
-def test_column_tile():
-    """The whole-vector kernels' tile: the smallest power of two covering
-    nvec, at most 32, halved until the CTA's shared memory (here a staged
-    chunk beside a tile-wide buffer of 512 or 4,096 rows) fits."""
-    assert [KM.column_tile(n) for n in (1, 3, 16, 17, 128)] == [1, 4, 16,
-                                                               32, 32]
-    chunk = KM.whole_smem_bytes(64, 2048)
-
-    def smem(tw):
-        return chunk + 4 * 512 * tw
-    assert KM.column_tile(128, smem) == 32
-
-    def big(tw):
-        return chunk + 4 * 4096 * tw
-    tw = KM.column_tile(128, big)
-    assert big(tw) <= KM.MAX_SMEM_BYTES < big(2 * tw)
-
-
 # ----------------------------------------------------------------------------
 # the plan path: executor, auto layout with nvec
 # ----------------------------------------------------------------------------

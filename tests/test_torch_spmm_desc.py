@@ -278,8 +278,8 @@ def test_desc_spmm_shared_memory_plan():
     tile (four columns a lane) in four row parts, so that two CTAs with a
     ring of two whole chunks fit an SM; an int32 vidx window (vmax 40,960)
     fits the synchronous kernel with its tables in slices and is refused
-    double-buffered. Whole-vector (``smem_plan``): that window is read
-    through L1."""
+    double-buffered. (The whole-vector kernel's planning is pinned by
+    ``tests/test_torch_spmm_whole.py``.)"""
     cta = KDM.panels_plan(2, 64, 4, 8, 2048, 512, 128, 4, 2, 2)
     assert (cta["blocks_per_stage"], cta["tile_columns"], cta["vector"],
             cta["row_parts"]) == (64, 128, 4, 4)
@@ -287,8 +287,6 @@ def test_desc_spmm_shared_memory_plan():
     assert smem == KDM.panels_smem_bytes(2, 1, 64, 4, 8, 2048, 128, 128, 2,
                                          2)
     assert 64 * 1024 < smem <= KDM.TWO_CTA_SMEM_BYTES
-    tw, staged, smem = KDM.smem_plan(1280, 4, 8, 40960, 4, 16)
-    assert not staged and smem <= K.MAX_SMEM_BYTES
     cta = KDM.panels_plan(1, 1280, 4, 8, 40960, 64, 16, 4, 4, 2)
     assert cta["blocks_per_stage"] < 1280 and cta["tile_columns"] == 16
     assert cta["smem_bytes"] <= K.MAX_SMEM_BYTES

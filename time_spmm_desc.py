@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Sweep a panel SpMM pair's knobs on the yi-6b vocab weight.
+"""Sweep a panel SpMM pair's, or a whole-vector SpMM kernel's, knobs on the
+yi-6b vocab weight.
 
-    python3 time_spmm_desc.py [--lowering descriptor|mask|both]
+    python3 time_spmm_desc.py [--layout panels|whole]
+                              [--lowering descriptor|mask|both]
                               [--label NAME] [--out FILE] [--nvec N ...]
                               [--variants NAME ...]
 
@@ -42,10 +44,35 @@ max|Y|``), then timed with CUDA events, L2 flushed before every call. It
 prints the card's name and power limit, each variant's launch and time, the
 static SASS of the main path's panel kernels of each timed lowering
 (``cuobjdump -sass``: instructions, opcode classes, the walk's innermost
-loop; the listing goes beside ``--out``) and last one JSON object
+loop; the listing of those kernels goes beside ``--out``), one JSON object
 ``{"label": ..., "card": ..., "times": {"<kernel> nvec=<n> <variant>":
 ms}, "launches": {...}, "refused": {...}, "sass": {...}}``, also written to
-``--out``.
+``--out``, and last the label, card and times alone.
+
+``--layout whole`` sweeps the whole-vector kernel of each asked lowering
+instead: ``spmm_cuda_desc`` on the token plan (whole-vector + descriptor,
+cb 256, as ``ops.prepare`` builds it at nvec 1) and ``spmm_cuda`` on the
+whole-vector mask plan of the same weight, at the launch its wrapper plans
+and at one knob changed at a time (module attributes of ``spc5_spmm``,
+whose planning both lowerings share):
+
+  * ``grid1``: G = 1; ``one_chunk_a_cta``: G = nchunks; ``waves1`` /
+    ``waves2`` / ``waves8``: G from 1, 2 or 8 waves (4 on the main path);
+  * ``ring`` / ``one_stage``: rounds in a ring of two stages, or one stage
+    (``WHOLE_RING``; the main path takes the ring where an SM then holds as
+    many CTAs);
+  * ``stage_chunks1`` / ``stage_chunks2`` / ``stage_chunks4``: the most
+    chunks a round stages (``WHOLE_STAGE_CHUNKS``, 4 on the main path, taken
+    only where an SM still holds as many CTAs);
+  * ``tile_rows16`` / ``tile_rows32`` / ``tile_rows64``: rows of the Y tile
+    (``WHOLE_TILE_ROWS``, 16 on the main path);
+  * ``threads64`` / ``threads128`` / ``threads256`` / ``threads512``:
+    threads a CTA (``WHOLE_THREADS``); ``planned_again``: the planned launch once more,
+    last, for the spread;
+
+and the SASS counts of the whole-vector kernels of beta(4,8) (one per
+columns a lane), with ``ATOMS.CAST`` (a shared-memory float atomic's
+compare-and-swap loop) counted apart.
 
 To compare two versions of the code, unpack one into a directory that
 ``.gitignore`` lists (``git archive``), copy this script into it, and run
@@ -72,6 +99,8 @@ import chip_smoke as S
 #: (double-buffered kernel, synchronous twin) of each lowering's pair.
 PAIRS = {"descriptor": ("spmm_cuda_panels_desc_db", "spmm_cuda_panels_desc"),
          "mask": ("spmm_cuda_panels_db", "spmm_cuda_panels")}
+#: The whole-vector SpMM kernel of each lowering.
+WHOLE = {"descriptor": "spmm_cuda_desc", "mask": "spmm_cuda"}
 
 
 def module(lowering):
@@ -105,6 +134,26 @@ def variants(lowering):
                for t in (128, 256, 512)])
 
 
+def whole_variants():
+    """(name, settings, {launch field: value it must have}) of the sweep of
+    a whole-vector kernel, the planned launch first; a ``grid`` setting
+    goes to the wrapper (``"all"``: one chunk a CTA)."""
+    from repro_torch.kernels import spc5_spmm as KM
+    from repro_torch.kernels import spc5_spmv as K
+    return ([("planned", {}, {}), ("grid1", {"grid": 1}, {"grid": 1}),
+             ("one_chunk_a_cta", {"grid": "all"}, {}),
+             ("ring", {(KM, "WHOLE_RING"): True}, {"stages": 2}),
+             ("one_stage", {(KM, "WHOLE_RING"): False}, {"stages": 1})]
+            + [(f"waves{w}", {(K, "SPLIT_WAVES"): w}, {}) for w in (1, 2, 8)]
+            + [(f"stage_chunks{q}", {(KM, "WHOLE_STAGE_CHUNKS"): q},
+                {"chunks_per_stage": q}) for q in (1, 2, 4)]
+            + [(f"tile_rows{t}", {(KM, "WHOLE_TILE_ROWS"): t},
+                {"tile_rows": t}) for t in (16, 32, 64)]
+            + [(f"threads{t}", {(KM, "WHOLE_THREADS"): t}, {"threads": t})
+               for t in (64, 128, 256, 512)]
+            + [("planned_again", {}, {})])
+
+
 def with_settings(settings, fn):
     """Run fn() with the module attributes of ``settings`` replaced."""
     saved = {k: getattr(*k) for k in settings if isinstance(k, tuple)}
@@ -118,10 +167,20 @@ def with_settings(settings, fn):
             setattr(mod, attr, v)
 
 
-def launch_of(name, plan, nvec, x, split=None):
+def launch_of(name, plan, nvec, x, split=None, grid=None):
     """The launch the wrapper of kernel ``name`` plans on the plan at batch
-    nvec; None for a mask kernel of a tree that plans none."""
+    nvec; None for a kernel of a tree that plans none."""
     M = module(plan.lowering)
+    if plan.layout == "whole_vector":
+        if not hasattr(M, "whole_launch"):
+            return None
+        geom = dict(cb=plan.cb, r=plan.r, c=plan.c, vmax=plan.vmax,
+                    nvec=nvec, vec=M.panels_vector(nvec, x))
+        if plan.lowering == "descriptor":
+            geom.update(wv=plan.desc_vidx.element_size(),
+                        wx=plan.desc_xcol.element_size())
+        return M.whole_launch(int(plan.chunk_vbase.shape[0]),
+                              device=plan.device, grid=grid, **geom)
     if not hasattr(M, "panels_launch"):
         return None
     stages = M.PANEL_DB_STAGES if name.endswith("_db") else 1
@@ -134,39 +193,48 @@ def launch_of(name, plan, nvec, x, split=None):
                            device=plan.device, split=split, **geom)
 
 
-#: Per lowering: the library of its panel SpMM pair and the mangled name
-#: of its vocab-layer kernels (beta(4,8), four columns a lane) with the
-#: ring's stages as group 1, and how to print that name.
-SASS = {"descriptor": ("spc5_spmm_desc",
-                       r"spmm_desc_panels_kernelILi4ELi8ELi4ELi(\d)E",
-                       "spmm_desc_panels_kernel<4,8,4,{}>"),
-        "mask": ("spc5_spmm", r"spmm_panels_kernelILi8ELi4ELi(\d)E",
-                 "spmm_panels_kernel<8,4,{}>")}
+#: Per (layout, lowering): the library of its SpMM kernels and the mangled
+#: name of its vocab-layer kernels (beta(4,8); panels: four columns a lane,
+#: the ring's stages as group 1; whole-vector: the columns a lane as group
+#: 1), and how to print that name.
+SASS = {("panels", "descriptor"): (
+            "spc5_spmm_desc", r"spmm_desc_panels_kernelILi4ELi8ELi4ELi(\d)E",
+            "spmm_desc_panels_kernel<4,8,4,{}>"),
+        ("panels", "mask"): (
+            "spc5_spmm", r"spmm_panels_kernelILi8ELi4ELi(\d)E",
+            "spmm_panels_kernel<8,4,{}>"),
+        ("whole", "descriptor"): (
+            "spc5_spmm_desc",
+            r"spmm_whole_kernelINS_9DescWholeELi4ELi8ELi(\d)E",
+            "spmm_whole_kernel<DescWhole,4,8,{}>"),
+        ("whole", "mask"): (
+            "spc5_spmm", r"spmm_whole_kernelINS_9MaskWholeELi4ELi8ELi(\d)E",
+            "spmm_whole_kernel<MaskWhole,4,8,{}>")}
 
 
-def sass_counts(lowering, out_path):
-    """Static SASS of the lowering's panel kernels of beta(4,8), four
-    columns a lane (the vocab layer's), from ``cuobjdump -sass`` on the
-    built library: {kernel: {"instructions": n, opcode class: n,
-    "walk_loop": n}}, the last the instructions of the innermost loop
-    around the walk's FMAs (one pass takes a batch of four set lanes); the
-    listing goes to ``out_path``."""
+def sass_counts(lowering, out_path, layout="panels"):
+    """Static SASS of the layout's and lowering's kernels of beta(4,8) (the
+    vocab layer's), from ``cuobjdump -sass`` on the built library:
+    {kernel: {"instructions": n, opcode class: n, "walk_loop": n}}, the
+    last the instructions of the innermost loop around the walk's FMAs (one
+    pass takes a batch of four set lanes); ``ATOMS.CAST`` counts the
+    compare-and-swap loops of shared-memory float atomics. The listing goes
+    to ``out_path``."""
     from repro_torch.kernels import _build
-    lib, pattern, label = SASS[lowering]
+    lib, pattern, label = SASS[layout, lowering]
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     text = subprocess.run([tool, "-sass", str(_build._lib_path(lib))],
                           capture_output=True, text=True, timeout=120,
                           check=True).stdout
-    with open(out_path, "w") as f:
-        f.write(text)
     classes = {"LDS": r"LDS\b", "STS": r"STS\b", "LDG": r"LDG\b",
                "FFMA": r"FFMA\b", "ATOMS": r"ATOMS\b",
+               "ATOMS.CAST": r"ATOMS\.CAST",
                "RED/ATOMG": r"(RED|REDG|ATOMG)\b", "SHFL": r"SHFL\b",
                "MATCH": r"MATCH\b", "BAR": r"BAR\b",
                "LDGSTS (cp.async)": r"LDGSTS\b",
                "UBLKCP (bulk copy)": r"UBLKCP\b"}
-    counts, code, kernel = {}, {}, None
+    counts, code, kernel, listing = {}, {}, None, []
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
@@ -175,6 +243,9 @@ def sass_counts(lowering, out_path):
             if kernel:
                 counts[kernel] = {"instructions": 0, **{c: 0 for c in classes}}
                 code[kernel] = []
+        if kernel:
+            listing.append(line)
+        if m:
             continue
         ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
                        r"([A-Z][\w.]*)(.*)", line)
@@ -196,29 +267,39 @@ def sass_counts(lowering, out_path):
                  if any(op.startswith("FFMA") for a, op, _ in ins
                         if lp[0] <= a <= lp[1])]
         counts[kernel]["walk_loop"] = min(sizes or [0])
-    print(f"SASS of the vocab layer's {lowering} panel kernels: {counts}")
+    with open(out_path, "w") as f:  # the listing of these kernels only
+        f.write("\n".join(listing) + "\n")
+    print(f"SASS of the vocab layer's {lowering} {layout} kernels: "
+          f"{counts}")
     return counts
 
 
 def sweep(plan, nvecs, names, device, rng):
-    """Time the plan's panel SpMM pair at each batch: the ``_db`` kernel at
-    every variant of :func:`variants`, the twin at its planned launch and S
-    = 1 (only the variants in ``names`` unless None). Returns times,
-    launches and refused variants, keyed "<kernel> nvec=<n> <variant>"."""
+    """Time the plan's SpMM kernels at each batch: for a panel plan the
+    pair's ``_db`` kernel at every variant of :func:`variants` and the twin
+    at its planned launch and S = 1; for a whole-vector plan its kernel at
+    every variant of :func:`whole_variants` (only the variants in ``names``
+    unless None). Returns times, launches and refused variants, keyed
+    "<kernel> nvec=<n> <variant>"."""
     import torch
-    db, sync = PAIRS[plan.lowering]
     times, launches, refused = {}, {}, {}
     for nvec in nvecs:
         x = torch.from_numpy(rng.standard_normal(
             (S.VOCAB["cols"], nvec)).astype(np.float32)).to(device)
         plain = S.plain_y(plan, x)
-        runs = ([(db, *v) for v in variants(plan.lowering)]
-                + [(sync, "planned", {}, {}),
-                   (sync, "split1", {"split": 1}, {"split": 1})])
+        if plan.layout == "whole_vector":
+            runs = [(WHOLE[plan.lowering], *v) for v in whole_variants()]
+        else:
+            db, sync = PAIRS[plan.lowering]
+            runs = ([(db, *v) for v in variants(plan.lowering)]
+                    + [(sync, "planned", {}, {}),
+                       (sync, "split1", {"split": 1}, {"split": 1})])
         runs = [run for run in runs if names is None or run[1] in names]
         for name, variant, settings, want in runs:
-            extra = {"split": settings["split"]} if "split" in settings \
-                else {}
+            extra = {k: settings[k] for k in ("split", "grid")
+                     if k in settings}
+            if extra.get("grid") == "all":
+                extra["grid"] = int(plan.chunk_vbase.shape[0])
             key = f"{name} nvec={nvec} {variant}"
             launch = with_settings(settings, lambda: launch_of(
                 name, plan, nvec, x, **extra))
@@ -230,12 +311,15 @@ def sweep(plan, nvecs, names, device, rng):
                 continue
             call = S.kernel_call(name, plan, x, **extra)
 
-            def run(name=name, call=call, extra=extra):
+            # one CTA walks every chunk: a few calls take long enough
+            reps = 3 if extra.get("grid") == 1 else S.REPS
+
+            def run(name=name, call=call, extra=extra, reps=reps):
                 err = S.rel_err(call(), plain)
                 if not err <= S.TOL:
                     raise S.SmokeFailure(f"{name} nvec={nvec} {variant}: "
                                          f"{err} > {S.TOL}")
-                return (err, S.cuda_time_ms(call, device),
+                return (err, S.cuda_time_ms(call, device, reps),
                         launch_of(name, plan, nvec, x, **extra))
             err, ms, launch = with_settings(settings, run)
             times[key], launches[key] = ms, launch
@@ -248,6 +332,7 @@ def sweep(plan, nvecs, names, device, rng):
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--layout", default="panels", choices=("panels", "whole"))
     ap.add_argument("--lowering", default="descriptor",
                     choices=("descriptor", "mask", "both"))
     ap.add_argument("--label", default="")
@@ -270,20 +355,26 @@ def main() -> int:
     rng = np.random.default_rng(1)
     times, launches, refused, sass = {}, {}, {}, {}
     for lowering in lowerings:
-        plan = ops.prepare(mat, lowering=lowering, nvec=S.VOCAB["nvec"],
-                           device=device)
-        if plan.layout != "panels":
-            raise S.SmokeFailure(f"the vocab {lowering} plan came out "
-                                 f"{plan.layout}")
-        S.print_spmm_plan(f"panels {lowering}", plan)
+        if args.layout == "whole":
+            # the token plan (nvec 1) and the mask plan of the same chunks
+            plan = ops.prepare(mat, layout="whole_vector", lowering=lowering,
+                               device=device)
+        else:
+            plan = ops.prepare(mat, lowering=lowering, nvec=S.VOCAB["nvec"],
+                               device=device)
+            if plan.layout != "panels":
+                raise S.SmokeFailure(f"the vocab {lowering} plan came out "
+                                     f"{plan.layout}")
+        S.print_spmm_plan(f"{plan.layout} {lowering}", plan)
         for out, part in zip((times, launches, refused),
                              sweep(plan, args.nvec, args.variants, device,
                                    rng)):
             out.update(part)
         del plan
         if args.out:
-            sass.update(sass_counts(lowering, os.path.splitext(args.out)[0]
-                                    + f".{lowering}.sass.txt"))
+            sass.update(sass_counts(
+                lowering, os.path.splitext(args.out)[0]
+                + f".{args.layout}.{lowering}.sass.txt", args.layout))
     print(f"total {time.perf_counter() - t0:.1f} s")
     result = {"label": args.label, "card": card, "times": times,
               "launches": launches, "refused": refused, "sass": sass}
@@ -291,6 +382,8 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump(result, f)
     print(json.dumps(result))
+    # last, short enough to survive a cut of the output's head
+    print(json.dumps({"label": args.label, "card": card, "times": times}))
     return 0
 
 
