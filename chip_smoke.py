@@ -23,10 +23,10 @@ phase that goes wrong:
    lowerings (mask, descriptor), each with ``double_buffer`` True and
    False; checks that ``lowering="auto"`` resolves to the descriptor
    lowering by the cost model, as in the reference; the mask panel SpMV
-   kernels are also held at S = 1 and the whole-vector descriptor pair at
-   one CTA for all chunks and at one chunk a CTA (each launch's grid,
-   chunks a CTA, threads, shared bytes, ring, CTAs per SM and registers
-   printed);
+   kernels are also held at S = 1 and both whole-vector SpMV pairs (mask
+   and descriptor) at one CTA for all chunks and at one chunk a CTA (each
+   launch's grid, chunks a CTA, threads, shared bytes, ring, CTAs per SM
+   and registers printed);
 5. SparseLinear path: the vocab projection of yi-6b (64,000 x 4,096, the
    weight ``serve.py``'s vocab bench draws: ``default_rng(0)``, standard
    normal, float32), magnitude-pruned to density 0.1 (beta(4,8) by eq. 4),
@@ -39,10 +39,12 @@ phase that goes wrong:
    held at S = 1, each launch printed (S, grid, row parts, tile, columns a
    lane, threads, shared bytes, CTAs per SM, registers);
    ``ops.spmm(..., double_buffer=False)`` on both panel
-   layers at batches of 16 and 128, and batch 1 (one decode token): both
-   panel layers' forwards and ``ops.spmv(..., double_buffer=False)`` on
-   both panel layers, so all four panel SpMV kernels run (their launches,
-   S, grid, threads, shared bytes, CTAs per SM and registers are printed);
+   layers at batches of 16 and 128, and batch 1 (one decode token): the
+   three layers' forwards and ``ops.spmv(..., double_buffer=False)`` on
+   each, so all four panel SpMV kernels and the whole-vector mask pair run
+   (their launches, S or G, grid, threads, shared bytes, CTAs per SM and
+   registers are printed; the whole-vector mask pair also held at G = 1
+   and at one chunk a CTA);
    then the whole-vector descriptor plan of the same weight:
    ``ops.prepare(mat)`` at nvec=1 (whole-vector + descriptor, the
    reference's pick for one decode token), ``ops.spmv`` with
@@ -83,10 +85,12 @@ phase that goes wrong:
    cuSPARSE on the tail alone and its plain version, and the test layer's
    forwards beside the default layer's and cuSPARSE on the whole weight;
    the four panel SpMV kernels at batch 1 on the vocab layers, each beside
-   its twin of the other lowering, and for context plain torch sums reading
-   the whole descriptor plan and the sectors its panel kernels read of it
-   (``time_panels_desc.py`` times all four at other splits and ring
-   lengths);
+   its twin of the other lowering, the whole-vector mask pair at batch 1
+   on its layer beside the mask panel pair, and for context plain torch
+   sums reading the whole descriptor plan and the sectors its panel
+   kernels read of it (``time_panels_desc.py`` times the panel kernels at
+   other splits and ring lengths, the whole-vector pairs at other grids,
+   threads and tiles);
 9. prints the ``{"kernels": [...]}`` line, then, last, the
    ``{"ok": true, "device": ...}`` line.
 
@@ -478,33 +482,51 @@ def panel_launches(plan):
     return out
 
 
-#: The whole-vector descriptor SpMV pair, also held at forced grids
+#: The whole-vector SpMV pair of each lowering, also held at forced grids
 #: (:func:`check_whole_grids`): kernel -> its entry in
 #: :func:`whole_launches`.
 WHOLE_DESC_SPMV = {"spmv_cuda_desc_db": "s2", "spmv_cuda_desc": "s1"}
+WHOLE_MASK_SPMV = {"spmv_cuda_db": "s2", "spmv_cuda": "s1"}
+WHOLE_SPMV = {"descriptor": WHOLE_DESC_SPMV, "mask": WHOLE_MASK_SPMV}
 
 
 def whole_launches(plan):
-    """The launches the whole-vector descriptor SpMV wrappers make on the
-    plan (``whole_launch`` of :mod:`spc5_spmv_desc`): grid, chunks a CTA,
-    threads, shared bytes, ring length (stages), blocks a stage, tile rows,
-    the card's CTAs per SM and the kernel's registers. On the CPU only the
-    shared-memory plan (no card to ask for occupancy)."""
+    """The launches the whole-vector SpMV wrappers of the plan's lowering
+    make on it (``whole_launch`` of :mod:`spc5_spmv_desc` or
+    :mod:`spc5_spmv`): grid, chunks a CTA, threads, shared bytes, ring
+    length (stages), tile rows (for the descriptor kernels also blocks a
+    stage), the card's CTAs per SM and the kernel's registers. On the CPU
+    only the shared-memory plan (no card to ask for occupancy)."""
+    from repro_torch.kernels import spc5_spmv as K
     from repro_torch.kernels import spc5_spmv_desc as KD
-    geom = dict(cb=plan.cb, r=plan.r, c=plan.c, vmax=plan.vmax,
-                wv=plan.desc_vidx.element_size(),
-                wx=plan.desc_xcol.element_size())
+    nchunks = int(plan.chunk_vbase.shape[0])
+    desc = plan.lowering == "descriptor"
+    if desc:
+        mod, kernel = KD, "spmv_desc_whole_kernel"
+        geom = dict(cb=plan.cb, r=plan.r, c=plan.c, vmax=plan.vmax,
+                    wv=plan.desc_vidx.element_size(),
+                    wx=plan.desc_xcol.element_size())
+    else:
+        mod, kernel = K, "spmv_whole_kernel"
+        geom = dict(cb=plan.cb, r=plan.r, vmax=plan.vmax)
     out = {}
-    for name, stages in (("s1", 1), ("s2", KD.WHOLE_DB_STAGES)):
+    for name, stages in (("s1", 1), ("s2", mod.WHOLE_DB_STAGES)):
         if plan.device.type == "cuda":
-            out[name] = KD.whole_launch(stages, int(plan.chunk_vbase.shape[0]),
-                                        device=plan.device, **geom)
+            out[name] = mod.whole_launch(stages, nchunks, device=plan.device,
+                                         **geom)
             out[name]["registers"] = REGISTERS.get(
-                f"spmv_desc_whole_kernel<{out[name]['stages']}>")
-        else:
+                f"{kernel}<{out[name]['stages']}>")
+        elif desc:
             s, nb, smem = KD.whole_stages(stages, tile=KD.WHOLE_TILE_ROWS,
                                           **geom)
             out[name] = dict(stages=s, blocks_per_stage=nb, smem_bytes=smem)
+        else:
+            threads = K.whole_threads(plan.cb, plan.r, plan.vmax)
+            out[name] = dict(stages=stages, threads=threads,
+                             tile_rows=K.WHOLE_TILE_ROWS,
+                             smem_bytes=K.whole_smem_bytes(
+                                 stages, plan.cb, plan.vmax,
+                                 K.WHOLE_TILE_ROWS, threads))
     return out
 
 
@@ -519,13 +541,8 @@ def print_plan(name, plan) -> None:
          if k in dict(plan.meta)}
     if plan.layout == "whole_vector":
         g["nchunks"] = int(plan.chunk_vbase.shape[0])
-    if plan.layout == "panels":
-        g["spmv_launch"] = panel_launches(plan)
-    elif plan.lowering == "descriptor":
-        g["spmv_launch"] = whole_launches(plan)
-    else:
-        for stages in (1, 2):
-            g[f"smem_bytes_s{stages}"] = 4 * stages * plan.vmax
+    g["spmv_launch"] = (panel_launches(plan) if plan.layout == "panels"
+                        else whole_launches(plan))
     if plan.lowering == "descriptor":
         tables = [getattr(plan, f"desc_{t}")
                   for t in ("valid", "vidx", "xcol", "yrow")]
@@ -633,12 +650,12 @@ def check_panel_spmm(plan, x, y64, path, one_chunk=False):
 
 
 def check_whole_grids(plan, x, y64, path, one_cta=False):
-    """Both whole-vector descriptor SpMV kernels at one chunk a CTA and,
-    where ``one_cta``, at one CTA for every chunk; prints the launches the
-    wrappers pick (:func:`whole_launches`)."""
+    """Both whole-vector SpMV kernels of the plan's lowering at one chunk a
+    CTA and, where ``one_cta``, at one CTA for every chunk; prints the
+    launches the wrappers pick (:func:`whole_launches`)."""
     nchunks = int(plan.chunk_vbase.shape[0])
     launch = whole_launches(plan)
-    for name, key in WHOLE_DESC_SPMV.items():
+    for name, key in WHOLE_SPMV[plan.lowering].items():
         print(f"launch {name} ({path}): {launch[key]}")
         for grid in ((1, nchunks) if one_cta else (nchunks,)):
             check_forced(name, plan, x, y64, path, grid=grid)
@@ -677,15 +694,17 @@ def check_fem_spmm(plans, csr, device, nvec=16):
 
 def check(plans, ys, launches, x, y64):
     """Every kernel launched, and each y checked by :func:`check_y` (the
-    mask panel kernels also at S = 1)."""
+    mask panel kernels also at S = 1, both whole-vector pairs at G = 1 and
+    one chunk a CTA)."""
     errs = {name: check_y(name, ys[name], plans[layout, lowering], x, y64,
                           launches, "SpMV path")
             for name, (layout, lowering, _, _) in KERNELS.items()}
     for name in MASK_PANEL_SPMV:
         check_forced(name, plans["panels", "mask"], x, y64, "SpMV path",
                      split=1)
-    check_whole_grids(plans["whole_vector", "descriptor"], x, y64,
-                      "SpMV path", one_cta=True)
+    for lowering in LOWERINGS:
+        check_whole_grids(plans["whole_vector", lowering], x, y64,
+                          "SpMV path", one_cta=True)
     return errs
 
 
@@ -822,10 +841,8 @@ def measure(plans, x, csr, launches, errs, timer=cuda_time_ms):
                "bound_by": bound_by, "library_ms": library_ms}
         if lowering == "descriptor":
             row.update(desc_bounds(plan, plans[layout, "mask"], csr.nnz))
-        if layout == "panels":
-            row["launch"] = panel_launches(plan)["s2" if db else "s1"]
-        elif lowering == "descriptor":
-            row["launch"] = whole_launches(plan)[WHOLE_DESC_SPMV[name]]
+        row["launch"] = (panel_launches(plan) if layout == "panels"
+                         else whole_launches(plan))["s2" if db else "s1"]
         rows.append(row)
     return rows
 
@@ -997,12 +1014,18 @@ VOCAB_SPMM = ("spmm_cuda_panels_desc_db", "spmm_cuda_panels_desc",
 BATCH1 = {"spmv_cuda_panels_desc_db": (("panels", "descriptor"), True),
           "spmv_cuda_panels_desc": (("panels", "descriptor"), False),
           "spmv_cuda_panels_db": (("panels", "mask"), True),
-          "spmv_cuda_panels": (("panels", "mask"), False)}
-#: Each batch-1 kernel's twin of the other lowering, timed beside it.
+          "spmv_cuda_panels": (("panels", "mask"), False),
+          "spmv_cuda_db": (("whole_vector", "mask"), True),
+          "spmv_cuda": (("whole_vector", "mask"), False)}
+#: The kernel each batch-1 kernel is timed beside: a panel kernel's twin of
+#: the other lowering; for the whole-vector mask pair, the mask panel
+#: layer's kernel with the same buffering.
 BATCH1_TWIN = {"spmv_cuda_panels_desc_db": "spmv_cuda_panels_db",
                "spmv_cuda_panels_desc": "spmv_cuda_panels",
                "spmv_cuda_panels_db": "spmv_cuda_panels_desc_db",
-               "spmv_cuda_panels": "spmv_cuda_panels_desc"}
+               "spmv_cuda_panels": "spmv_cuda_panels_desc",
+               "spmv_cuda_db": "spmv_cuda_panels_db",
+               "spmv_cuda": "spmv_cuda_panels"}
 
 
 def reset_all_launches():
@@ -1018,7 +1041,8 @@ def reset_all_launches():
 def drive_vocab(layers, acts, device):
     """The SparseLinear path, through the entry points a user calls: every
     layer's forward on every batch, ``ops.spmm(..., double_buffer=False)``
-    on both panel layers, and a batch-1 forward of both panel layers.
+    on both panel layers, and at batch 1 every layer's forward and
+    ``ops.spmv(..., double_buffer=False)`` (:data:`BATCH1`).
     Returns each kernel's Y (rows, nvec) per batch, the batch-1 ys and this
     run's launch counts."""
     import torch
@@ -1072,10 +1096,11 @@ def f64_matrix(csr):
 
 
 def check_vocab(layers, ys, y1, launches, acts, csr):
-    """Every SpMM kernel of the path and the four batch-1 SpMV kernels
+    """Every SpMM kernel of the path and the six batch-1 SpMV kernels
     launched; each output is checked by :func:`check_spmm` (batch 1 by
     :func:`check_y`), the panel kernels also at S = 1
-    (:func:`check_panel_spmm`, :func:`check_forced`)."""
+    (:func:`check_panel_spmm`, :func:`check_forced`), the whole-vector mask
+    pair also at G = 1 and one chunk a CTA (:func:`check_whole_grids`)."""
     for name in (*VOCAB_SPMM, *BATCH1):
         if launches.get(name, 0) <= 0:
             raise SmokeFailure(f"{name} was not launched on the SparseLinear "
@@ -1102,28 +1127,32 @@ def check_vocab(layers, ys, y1, launches, acts, csr):
     for name in MASK_PANEL_SPMV:
         check_forced(name, layers["panels", "mask"].plan, x1, y64,
                      "SparseLinear path, batch 1", split=1)
+    check_whole_grids(layers["whole_vector", "mask"].plan, x1, y64,
+                      "SparseLinear path, batch 1", one_cta=True)
     return errs
 
 
 def measure_batch1(layers, x1, csr, launches, errs, timer=cuda_time_ms):
-    """The four panel SpMV kernels at batch 1 (rows 3-4 on the mask layer,
-    8-9 on the default descriptor layer): each beside its bound (for a
-    descriptor kernel also the whole-plan and mask-plan bounds), cuSPARSE
-    ``torch.mv``, its layer's plain version, its launch plan (S, grid,
-    threads, shared bytes, CTAs per SM, registers), its twin of the other
-    lowering and :func:`plan_read_ms` of the descriptor plan. Returns
-    {kernel: numbers} for the kernels' ``vocab_batch1``."""
+    """The six batch-1 SpMV kernels (rows 1-2 on the whole-vector mask
+    layer, 3-4 on the panel mask layer, 8-9 on the default descriptor
+    layer): each beside its bound (for a descriptor kernel also the
+    whole-plan and mask-plan bounds), cuSPARSE ``torch.mv``, its layer's
+    plain version, its launch plan (S or G, grid, threads, shared bytes,
+    CTAs per SM, registers), the kernel :data:`BATCH1_TWIN` names and
+    :func:`plan_read_ms` of the descriptor plan. Returns {kernel: numbers}
+    for the kernels' ``vocab_batch1``."""
     import torch
     device = x1.device
     csr_t = sparse_csr(csr, device)
     print("  batch 1: timing cuSPARSE CSR (torch.mv on sparse_csr_tensor)")
     library_ms = timer(lambda: torch.mv(csr_t, x1), device)
     plain_ms, launch, ms = {}, {}, {}
-    for key in (("panels", "descriptor"), ("panels", "mask")):
+    for key in dict.fromkeys(key for key, _ in BATCH1.values()):
         plan = layers[key].plan
         print(f"  batch 1: timing the plain version, {key[0]} {key[1]}")
         plain_ms[key] = timer(lambda p=plan: plain_y(p, x1), device)
-        launch[key] = panel_launches(plan)
+        launch[key] = (panel_launches(plan) if key[0] == "panels"
+                       else whole_launches(plan))
     read_ms = plan_read_ms(layers["panels", "descriptor"].plan, timer)
     for name, (key, _) in BATCH1.items():
         print(f"  batch 1: timing {name}")

@@ -39,8 +39,10 @@ _I = ctypes.c_int
 #: are ``c_void_p`` so 64-bit addresses are never truncated.
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "spc5_spmv": {
-        **{f"spc5_spmv_whole_s{s}": [_P] * 8 + [_I] * 7 + [_P]
+        **{f"spc5_spmv_whole_s{s}": [_P] * 8 + [_I] * 11 + [_P]
            for s in (1, 2)},
+        "spc5_spmv_whole_occupancy": [_I] * 4 + [_P],
+        "spc5_spmv_whole_smem": [_I] * 5,
         "spc5_spmv_panels_s1": [_P] * 9 + [_I] * 12 + [_P],
         "spc5_spmv_panels_s2": [_P] * 9 + [_I] * 13 + [_P],
         "spc5_spmv_panels_occupancy": [_I] * 4 + [_P],

@@ -7,8 +7,10 @@
 //   spc5_spmv_whole_s2   <- spmv_pallas_db        (_spmv_db_kernel)
 //   spc5_spmv_panels_s1  <- spmv_pallas_panels    (_spmv_panel_kernel)
 //   spc5_spmv_panels_s2  <- spmv_pallas_panels_db (_spmv_panel_db_kernel)
-// All four share one decode, the counterpart of _decode_chunk: mask bits ->
-// running rank -> value from the staged window -> times x -> add into y.
+// All four compute what _decode_chunk computes: mask bits -> exclusive rank
+// -> value from the staged window -> times x -> add into y; all four stage a
+// chunk's value window and metadata alike and decode a block row per thread,
+// the rank taken by one popcount.
 //
 // Bound: memory. One SpMV reads each packed f32 value once (4 B per nonzero)
 // plus 16 B of chunk metadata per block slot (col, mask, voff, row), x once
@@ -17,19 +19,49 @@
 // indices and multiply by 0 instead), so no x or y element outside the
 // matrix is touched and a lane costs nothing unless its bit is set.
 //
-// Whole-vector kernels (spmv_whole_kernel):
-//   * values are staged per chunk into shared memory with 16-byte copies
-//     (vbase and vmax are multiples of 8 values, so every window is
-//     16-byte aligned and whole float4s); kStages == 2 prefetches the next
-//     chunk's window with cp.async while the current one decodes, the
-//     counterpart of the Pallas double buffer;
-//   * block metadata is read once, one thread per block slot, so neighbouring
-//     threads read neighbouring words;
-//   * chunks are cut every cb blocks whatever the row interval, so
-//     neighbouring chunks can share y rows; CTAs walk chunks in a
-//     grid-stride loop and add into a zeroed y with one global atomicAdd per
-//     (block, row) that has a nonzero. The f32 sum order therefore varies
-//     from run to run.
+// Whole-vector kernels (spmv_whole_kernel), built for latency, not for the
+// TPU's sequential grid:
+//   * contiguous chunk ranges: the launch's G CTAs (the wrapper picks G from
+//     the card's occupancy with the panel kernels' split rule) each take a
+//     contiguous range of the nchunks chunks, so neighbouring chunks, which
+//     share rows (to_chunked cuts every cb blocks whatever the row), meet in
+//     one CTA;
+//   * staged chunk metadata, as in the panel kernels below: a stage holds the
+//     chunk's value window and its cb entries of chunk_col, chunk_mask,
+//     chunk_voff and chunk_row (16 B a block slot), copied by bulk copies on
+//     the stage's mbarrier (4-byte cp.async pieces for metadata rows that
+//     are not 16-byte aligned). kStages == 2 keeps a ring of two stages, one
+//     chunk ahead of the decode, with one CTA barrier per chunk (a launch
+//     whose every CTA takes one chunk holds one stage: there is nothing to
+//     stage ahead, and the second would only cost CTAs an SM); kStages == 1
+//     is the synchronous twin: one stage, copied and waited for before each
+//     decode. The decode reads no metadata from device memory; x is read in
+//     place through L1 at each set lane;
+//   * a block row per thread (the panel kernels' ThreadPlan): thread t takes
+//     row t % r of blocks t / r, t / r + blockDim / r, ..., finds the row's
+//     first packed value by one popcount and walks only the row's set bits;
+//   * row runs in registers: every lane of a warp decodes one block row a
+//     step, in steps the warp takes together, and adds its sum to a run
+//     kept while no lane's row changes. A thread keeps the same row of
+//     blocks that mostly share a block row (a chunk of the vocab weight spans
+//     one or two block rows), so its run often outlasts a chunk;
+//   * no same-address storm and no shared float atomic (a compare-and-swap
+//     loop on this card, ATOMS.CAST.SPIN): when a lane's row changes, the
+//     warp combines its runs. A warp holds 32 / r neighbouring blocks, the
+//     same row of each in every r-th lane, so on a plan whose block rows come
+//     sorted (every plan to_chunked builds) equal rows are neighbours in that
+//     subsequence; a segmented shuffle scan sums each row's runs into its
+//     last lane, which adds it into the warp's own y tile with a plain load
+//     and store. Rows that come out of order, or block rows not on a
+//     multiple of r, are added straight into y with a global atomic instead,
+//     so any chunk_row in [0, nrows) in any order is right;
+//   * per-warp y tiles, summed in warp order: each warp owns `tile` rows of
+//     shared memory based at a chunk's first row. When the next chunk's first
+//     row leaves the tiles' first half, and at the end, the CTA sums each
+//     tile row over the warps in a fixed order and adds it into a zeroed y
+//     with one global atomicAdd; a row outside the tiles goes straight into
+//     y. The f32 sum order is fixed within a CTA and varies from run to run
+//     only through the global atomics.
 //
 // Panel kernels (spmv_panels_kernel), built for latency, not for the TPU's
 // sequential grid:
@@ -74,70 +106,6 @@
 
 namespace {
 
-// Decode one block: for each local row with a set bit, the dot product of
-// its packed values with x, handed to add(row, sum). Bits are walked in
-// order, so the running rank v is the exclusive popcount of the bits below.
-template <typename XLoad, typename Add>
-__device__ __forceinline__ void decode_block(uint32_t mask, const float* vwin,
-                                             int voff, int r, int c,
-                                             XLoad xload, Add add) {
-  // c <= 8 and r * c <= 32, so every shift below is in range
-  const uint32_t row_mask = (1u << c) - 1u;
-  int v = voff;
-  for (int lr = 0; lr < r; ++lr) {
-    const uint32_t rowbits = (mask >> (lr * c)) & row_mask;
-    if (rowbits == 0u) continue;
-    float acc = 0.f;
-    for (int lc = 0; lc < c; ++lc) {
-      if ((rowbits >> lc) & 1u) acc = fmaf(vwin[v++], xload(lc), acc);
-    }
-    add(lr, acc);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// whole-vector layout: grid-stride over chunks, global atomics into y
-// ---------------------------------------------------------------------------
-template <int kStages>
-__global__ void __launch_bounds__(256)
-spmv_whole_kernel(const int* __restrict__ chunk_vbase, const int* __restrict__ chunk_col,
-                  const uint32_t* __restrict__ chunk_mask, const int* __restrict__ chunk_voff,
-                  const int* __restrict__ chunk_row, const float* __restrict__ values,
-                  const float* __restrict__ x, float* __restrict__ y, int nchunks, int cb,
-                  int vmax, int r, int c) {
-  extern __shared__ __align__(16) float smem[];
-  int ch = blockIdx.x;
-  if (ch >= nchunks) return;
-  if (kStages == 2) {
-    stage<true>(smem, values + chunk_vbase[ch], vmax);
-    cp_async_commit();
-  }
-  for (int it = 0; ch < nchunks; ch += gridDim.x, ++it) {
-    float* vwin = smem;
-    if (kStages == 2) {
-      vwin = smem + (it & 1) * vmax;
-      const int nxt = ch + gridDim.x;
-      if (nxt < nchunks) stage<true>(smem + ((it + 1) & 1) * vmax, values + chunk_vbase[nxt], vmax);
-      cp_async_commit();  // possibly empty: keeps the group count uniform
-      cp_async_wait<1>();  // everything but the prefetch just issued
-    } else {
-      stage<false>(vwin, values + chunk_vbase[ch], vmax);
-    }
-    __syncthreads();
-    for (int b = threadIdx.x; b < cb; b += blockDim.x) {
-      const size_t slot = (size_t)ch * cb + b;
-      const uint32_t mask = chunk_mask[slot];
-      if (mask == 0u) continue;  // padding block
-      const int col = chunk_col[slot];
-      const int row = chunk_row[slot];
-      decode_block(
-          mask, vwin, chunk_voff[slot], r, c, [&](int lc) { return __ldg(x + col + lc); },
-          [&](int lr, float s) { atomicAdd(y + row + lr, s); });
-    }
-    __syncthreads();  // the window is overwritten by the next stage
-  }
-}
-
 // ---------------------------------------------------------------------------
 // panel layout: S CTAs per panel, staged chunk metadata, a block row per
 // thread, (pr,) y tile per CTA
@@ -162,16 +130,19 @@ __host__ __device__ inline int round16(int n) { return (n + 15) & ~15; }
 // Byte offsets of one stage's parts, each 16-byte aligned: the value window,
 // the chunk's four metadata rows (col, mask, voff, row; meta_stride bytes
 // apart) and a 16-byte slot holding the chunk's x window start and, at byte
-// 8, the stage's mbarrier. The y tile (pr floats) comes before the first
-// stage. The wrapper plans with its copy (kernels/spc5_spmv.py:
-// panels_smem_bytes) and passes its figure in; a launch whose figure
-// differs is refused, and spc5_spmv_panels_smem exposes this one for the
-// wrapper's tests.
+// 8, the stage's mbarrier. Both layouts stage a chunk so (the whole-vector
+// kernels with an x window start of 0: their columns are absolute). The y
+// tile (pr floats; in the whole-vector layout the warps' tiles) comes before
+// the first stage. The wrappers plan with their copies (kernels/
+// spc5_spmv.py: panels_smem_bytes, whole_smem_bytes) and pass their figure
+// in; a launch whose figure differs is refused, and spc5_spmv_panels_smem /
+// spc5_spmv_whole_smem expose these for the wrapper's tests.
 struct StageLayout {
   int vwin, meta, meta_stride, xb, bytes;
 };
 
-__host__ __device__ inline StageLayout stage_layout(const PanelArgs& a) {
+template <typename A>
+__host__ __device__ inline StageLayout stage_layout(const A& a) {
   StageLayout L;
   L.vwin = 0;
   L.meta = round16(4 * a.vmax);
@@ -185,8 +156,8 @@ inline size_t panels_smem(const PanelArgs& a, int stages) {
   return (size_t)round16(4 * a.pr) + (size_t)stages * stage_layout(a).bytes;
 }
 
-// What each thread of a panel CTA does in every chunk, fixed for the whole
-// launch: its block rows (row lr = threadIdx % r of blocks threadIdx / r,
+// What each thread of a CTA (either layout) does in every chunk, fixed for
+// the whole launch: its block rows (row lr = threadIdx % r of blocks threadIdx / r,
 // + blockDim / r, ...; r divides 32, blockDim is a multiple of 32) and,
 // where the metadata rows are not 16-byte aligned, its share of their copy
 // (row m = threadIdx % 4, 4-byte pieces threadIdx / 4, + blockDim / 4, ...).
@@ -198,7 +169,8 @@ struct ThreadPlan {
   uint32_t below;    // the mask bits before its row
 };
 
-__device__ __forceinline__ ThreadPlan thread_plan(const PanelArgs& a, const StageLayout& L) {
+template <typename A>
+__device__ __forceinline__ ThreadPlan thread_plan(const A& a, const StageLayout& L) {
   ThreadPlan t;
   const int m = threadIdx.x & 3;
   const int* row = m == 0   ? a.col
@@ -227,8 +199,9 @@ __device__ __forceinline__ uint64_t* stage_bar(unsigned char* st, const StageLay
 // the stage's mbarrier; where not (cb % 4 != 0, or an array off a 16-byte
 // boundary), every thread copies its share of the metadata rows with 4-byte
 // cp.async, completed by the caller's cp.async wait.
+template <typename A>
 __device__ __forceinline__ void stage_chunk(unsigned char* st, const StageLayout& L,
-                                            const PanelArgs& a, const ThreadPlan& t, bool wide,
+                                            const A& a, const ThreadPlan& t, bool wide,
                                             size_t g, int vb, int xb) {
   const int nbytes = 4 * a.cb;  // a metadata row
   if (threadIdx.x == 0) {
@@ -368,18 +341,270 @@ __global__ void __launch_bounds__(256) spmv_panels_kernel(const PanelArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// whole-vector layout: contiguous chunk ranges, staged chunk metadata, a
+// block row per thread, row runs combined in the warp, per-warp y tiles
+// ---------------------------------------------------------------------------
+
+struct WholeArgs {
+  const int* vbase;  // (nchunks,) value window starts
+  const int* col;    // (nchunks, cb) block columns
+  const uint32_t* mask;
+  const int* voff;   // offsets of the blocks' first values in the window
+  const int* row;    // first rows of the blocks
+  const float* values;
+  const float* x;    // (ncols,), read in place
+  float* y;          // (nrows,), zeroed
+  int nchunks, cb, vmax, nrows, r, c;
+  int grid;  // G: CTAs, each a contiguous range of the chunks
+  int tile;  // rows of each warp's y tile
+};
+
+// The warps' y tiles, then `stages` stages (stage_layout).
+inline size_t whole_smem(const WholeArgs& a, int stages, int threads) {
+  return (size_t)round16(4 * a.tile * (threads / 32)) + (size_t)stages * stage_layout(a).bytes;
+}
+
+constexpr unsigned kFullWarp = 0xffffffffu;
+// The key of a lane with no block row: a padding block, or a block past cb.
+// Above every row, so it keeps a sorted subsequence sorted.
+constexpr int kNoRow = 0x7fffffff;
+
+// A lane's row run: the sum of its block rows since its key last changed.
+struct Run {
+  int key = kNoRow;
+  float sum = 0.f;
+};
+
+// Add every lane's run (key, v) of the warp into the warp's y tile wtile
+// (rows tbase .. tbase + tile) or into y. Lane l holds row l % r (t.lr) of
+// the warp's (l / r)-th block, so the lanes of one lr are a subsequence of
+// stride r. Where every such subsequence is sorted and every key lies on its
+// lr (key % r == lr: block rows on multiples of r, as to_chunked builds
+// them), equal keys are neighbours of one subsequence and no two
+// subsequences share a key: a segmented scan sums each key's runs into its
+// last lane, which alone adds the key, with a plain load and store into the
+// tile (the warp's own) or, outside it, a global atomic. Otherwise each
+// lane adds its own run into y with a global atomic.
+__device__ __forceinline__ void flush_runs(const WholeArgs& a, const ThreadPlan& t,
+                                           float* wtile, int tbase, int key, float v) {
+  const int lane = threadIdx.x & 31;
+  const int r = a.r;
+  const int before = __shfl_up_sync(kFullWarp, key, r);
+  const bool sorted = key == kNoRow || ((key & (r - 1)) == t.lr && (lane < r || before <= key));
+  if (__all_sync(kFullWarp, sorted)) {
+    for (int d = r; d < 32; d <<= 1) {
+      const float vd = __shfl_up_sync(kFullWarp, v, d);
+      const int kd = __shfl_up_sync(kFullWarp, key, d);
+      if (lane >= d && kd == key) v += vd;
+    }
+    const int after = __shfl_down_sync(kFullWarp, key, r);
+    __syncwarp();  // the warp's earlier tile adds are seen
+    if (key != kNoRow && (lane + r >= 32 || after != key) && v != 0.f) {
+      const unsigned i = (unsigned)(key - tbase);
+      if (i < (unsigned)a.tile) {
+        wtile[i] += v;
+      } else {
+        atomicAdd(a.y + key, v);
+      }
+    }
+  } else if (key != kNoRow && v != 0.f) {
+    atomicAdd(a.y + key, v);
+  }
+}
+
+// Add the staged chunk into the lanes' runs, a block row per thread
+// (ThreadPlan: row t.lr of blocks t.b0, t.b0 + t.bstep, ...), in `steps`
+// steps the warp takes together. A lane's key is its block row's row
+// (empty rows included, so every lane's key comes from the same step), or
+// kNoRow; a step whose keys all equal the runs' adds each row's sum into
+// its run, any other flushes the warp's runs (flush_runs) and starts them
+// again. The row's first value is voff + popc(mask bits before the row);
+// only the row's set bits are walked, each reading x in place.
+__device__ __forceinline__ void decode_whole(const unsigned char* st, const StageLayout& L,
+                                             const WholeArgs& a, const ThreadPlan& t, int steps,
+                                             float* wtile, int tbase, Run& run) {
+  const float* vwin = reinterpret_cast<const float*>(st + L.vwin);
+  const uint32_t row_mask = (1u << a.c) - 1u;
+  const int ms = L.meta_stride;
+  int b = t.b0;
+  for (int i = 0; i < steps; ++i, b += t.bstep) {
+    int key = kNoRow;
+    float acc = 0.f;
+    if (b < a.cb) {
+      const unsigned char* w = st + L.meta + 4 * b;  // the block's col word
+      const uint32_t mask = *reinterpret_cast<const uint32_t*>(w + ms);
+      if (mask != 0u) {  // else a padding block
+        key = *reinterpret_cast<const int*>(w + 3 * ms) + t.lr;
+        uint32_t bits = (mask >> t.shift) & row_mask;
+        if (bits != 0u) {
+          const float* v =
+              vwin + *reinterpret_cast<const int*>(w + 2 * ms) + __popc(mask & t.below);
+          const int xi = *reinterpret_cast<const int*>(w);
+          do {
+            acc = fmaf(*v++, __ldg(a.x + (xi + __ffs(bits) - 1)), acc);
+            bits &= bits - 1u;
+          } while (bits);
+        }
+      }
+    }
+    if (__all_sync(kFullWarp, key == run.key)) {
+      run.sum += acc;
+    } else {
+      flush_runs(a, t, wtile, tbase, run.key, run.sum);
+      run.key = key;
+      run.sum = acc;
+    }
+  }
+}
+
+// Add the warps' tiles (rows tbase, tbase + 1, ...) into y, each row summed
+// over the warps in warp order and added with one global atomic where
+// nonzero, and, where `clear`, zero them. Each thread reads and clears its
+// own rows.
+__device__ __forceinline__ void flush_tiles(float* ytile, const WholeArgs& a, int tbase,
+                                            bool clear) {
+  const int warps = blockDim.x >> 5;
+  for (int i = threadIdx.x; i < a.tile; i += blockDim.x) {
+    float s = 0.f;
+    for (int w = 0; w < warps; ++w) {
+      float* p = ytile + w * a.tile + i;
+      s += *p;
+      if (clear) *p = 0.f;
+    }
+    if (s != 0.f && tbase + i < a.nrows) atomicAdd(a.y + tbase + i, s);
+  }
+}
+
+// At the start of chunk j of a CTA's range, once its stage has landed (st)
+// and the previous chunk is decoded: the first chunk bases the tiles at its
+// first row; a later one whose first row leaves the tiles' first half
+// flushes them and bases them there. Uniform over the CTA.
+__device__ __forceinline__ void move_tiles(const unsigned char* st, const StageLayout& L,
+                                           const WholeArgs& a, int j, float* ytile, int& tbase) {
+  const int r0 = *reinterpret_cast<const int*>(st + L.meta + 3 * L.meta_stride);
+  if (j == 0) {
+    tbase = r0;
+  } else if ((unsigned)(r0 - tbase) >= (unsigned)((a.tile + 1) >> 1)) {
+    flush_tiles(ytile, a, tbase, true);
+    tbase = r0;
+    __syncthreads();  // the tiles are clear before the decode adds into them
+  }
+}
+
 template <int kStages>
-int launch_whole(const int* vbase, const int* col, const uint32_t* mask, const int* voff,
-                 const int* row, const float* values, const float* x, float* y, int nchunks,
-                 int cb, int vmax, int r, int c, int threads, int device, void* stream) {
-  const size_t smem = (size_t)kStages * vmax * sizeof(float);
-  int ctas = 0;
-  cudaError_t err = prepare_launch(spmv_whole_kernel<kStages>, device, smem, threads, &ctas);
+__global__ void __launch_bounds__(256) spmv_whole_kernel(const WholeArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const StageLayout L = stage_layout(a);
+  const ThreadPlan t = thread_plan(a, L);
+  const bool wide = ((reinterpret_cast<uintptr_t>(a.col) | reinterpret_cast<uintptr_t>(a.mask) |
+                      reinterpret_cast<uintptr_t>(a.voff) | reinterpret_cast<uintptr_t>(a.row) |
+                      (uintptr_t)(4 * a.cb)) & 15) == 0;
+  const int warps = blockDim.x >> 5;
+  float* ytile = smem;  // (warps, tile)
+  float* wtile = ytile + (threadIdx.x >> 5) * a.tile;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem) + round16(4 * a.tile * warps);
+  const int c0 = (int)((long long)blockIdx.x * a.nchunks / a.grid);
+  const int n = (int)((long long)(blockIdx.x + 1) * a.nchunks / a.grid) - c0;
+  const int* vbase = a.vbase + c0;
+  const int steps = (a.cb + t.bstep - 1) / t.bstep;  // the same for every thread
+  for (int i = threadIdx.x; i < a.tile * warps; i += blockDim.x) ytile[i] = 0.f;
+  if (threadIdx.x == 0) {
+    // only the stages this range uses: the launch holds no more than the
+    // longest range needs (whole_ring)
+    for (int s = 0; s < kStages && s < n; ++s) mbar_init(stage_bar(ring + s * L.bytes, L));
+    mbar_fence_init();
+  }
+  __syncthreads();  // the barriers are initialised and the tiles zeroed
+  int tbase = 0;
+  Run run;
+
+  if constexpr (kStages == 1) {
+    // one stage, copied and waited for before each decode (the next
+    // chunk's window start is loaded a chunk ahead)
+    int vb = n > 0 ? __ldg(vbase) : 0;
+    for (int j = 0; j < n; ++j) {
+      const int vj = vb;
+      if (j + 1 < n) vb = __ldg(vbase + j + 1);
+      if (j > 0) __syncthreads();  // the previous decode is done
+      stage_chunk(ring, L, a, t, wide, (size_t)c0 + j, vj, 0);
+      cp_async_commit();
+      cp_async_wait<0>();
+      mbar_wait(stage_bar(ring, L), j & 1);
+      __syncthreads();  // everyone's copies
+      move_tiles(ring, L, a, j, ytile, tbase);
+      decode_whole(ring, L, a, t, steps, wtile, tbase, run);
+    }
+  } else {
+    // the ring: chunk j lives in stage j % kStages; kStages - 1 chunks are
+    // in flight while one decodes
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < n) stage_chunk(ring + s * L.bytes, L, a, t, wide, (size_t)c0 + s, __ldg(vbase + s), 0);
+      cp_async_commit();
+    }
+    int vb = kStages - 1 < n ? __ldg(vbase + kStages - 1) : 0;  // the next chunk to stage
+    int dec = 0, fill = kStages - 1;  // the stages of chunks j and j + kStages - 1
+    uint32_t parity = 0;              // bit s: the parity of stage s's next phase
+    for (int j = 0; j < n; ++j) {
+      unsigned char* st = ring + dec * L.bytes;
+      cp_async_wait<kStages - 2>();  // chunk j's 4-byte copies of this thread
+      mbar_wait(stage_bar(st, L), (parity >> dec) & 1u);
+      parity ^= 1u << dec;
+      __syncthreads();  // ... everyone's; chunk j - 1's stage is free
+      move_tiles(st, L, a, j, ytile, tbase);
+      const int jn = j + kStages - 1;
+      if (jn < n) stage_chunk(ring + fill * L.bytes, L, a, t, wide, (size_t)c0 + jn, vb, 0);
+      cp_async_commit();  // possibly empty: keeps the group count uniform
+      if (jn + 1 < n) vb = __ldg(vbase + jn + 1);
+      decode_whole(st, L, a, t, steps, wtile, tbase, run);
+      dec = dec + 1 == kStages ? 0 : dec + 1;
+      fill = fill + 1 == kStages ? 0 : fill + 1;
+    }
+  }
+  flush_runs(a, t, wtile, tbase, run.key, run.sum);
+  __syncthreads();
+  flush_tiles(ytile, a, tbase, false);
+}
+
+using WholeKernel = void (*)(WholeArgs);
+
+// The whole-vector kernel of a ring of `stages`: 1 (the synchronous twin)
+// or 2; nullptr for any other.
+WholeKernel whole_kernel(int stages) {
+  switch (stages) {
+    case 1: return spmv_whole_kernel<1>;
+    case 2: return spmv_whole_kernel<2>;
+    default: return nullptr;
+  }
+}
+
+// The stages a launch of the `stages` kernel holds: a ring no longer than
+// the longest chunk range (ceil(nchunks / grid)), since a CTA uses no more
+// stages than it has chunks: where every CTA takes one chunk, one stage.
+int whole_ring(int stages, const WholeArgs& a) {
+  const int longest = (a.nchunks + a.grid - 1) / a.grid;
+  return stages < longest ? stages : longest;
+}
+
+// Launch the whole-vector kernel of `stages` with the wrapper's plan: a
+// grid, tile, shared-memory figure (whole_ring stages) or thread count it
+// did not plan (or the kernel cannot take) is refused with
+// cudaErrorInvalidValue, launching nothing.
+int launch_whole(int stages, const WholeArgs& a, int smem_planned, int threads, int device,
+                 void* stream) {
+  const WholeKernel kernel = whole_kernel(stages);
+  if (kernel == nullptr || a.grid < 1 || a.grid > a.nchunks || a.cb < 1 || a.tile < 1 ||
+      a.r < 1 || 32 % a.r != 0 || a.c < 1 || a.r * a.c > 32 || threads < 32 || threads > 256 ||
+      threads % 32 != 0 || whole_smem(a, whole_ring(stages, a), threads) != (size_t)smem_planned) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = (size_t)smem_planned;
+  cudaError_t err = prepare_launch(kernel, device, smem, threads, nullptr);
   if (err != cudaSuccess) return (int)err;
-  const int grid = nchunks < ctas ? nchunks : ctas;
-  spmv_whole_kernel<kStages><<<grid, threads, smem, (cudaStream_t)stream>>>(
-      vbase, col, mask, voff, row, values, x, y, nchunks, cb, vmax, r, c);
-  return (int)cudaGetLastError();
+  void* args[] = {const_cast<WholeArgs*>(&a)};
+  err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(a.grid), dim3(threads), args,
+                         smem, (cudaStream_t)stream);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 using PanelKernel = void (*)(PanelArgs);
@@ -421,20 +646,52 @@ int launch_panels(int stages, const int* vbase, const int* xbase, const int* col
 
 extern "C" {
 
+// The synchronous whole-vector kernel: `grid` CTAs, each a contiguous range
+// of the chunks, one stage; warps' tiles of `tile` rows. smem and threads
+// are the wrapper's plan (checked).
 int spc5_spmv_whole_s1(const int* vbase, const int* col, const uint32_t* mask, const int* voff,
                        const int* row, const float* values, const float* x, float* y,
-                       int nchunks, int cb, int vmax, int r, int c, int threads, int device,
-                       void* stream) {
-  return launch_whole<1>(vbase, col, mask, voff, row, values, x, y, nchunks, cb, vmax, r, c,
-                         threads, device, stream);
+                       int nchunks, int cb, int vmax, int nrows, int r, int c, int grid, int tile,
+                       int smem, int threads, int device, void* stream) {
+  const WholeArgs a{vbase, col, mask, voff, row, values, x, y, nchunks, cb, vmax, nrows, r, c,
+                    grid, tile};
+  return launch_whole(1, a, smem, threads, device, stream);
 }
 
+// The staged-ahead whole-vector kernel: a ring of two chunks (one stage
+// where every CTA takes one chunk).
 int spc5_spmv_whole_s2(const int* vbase, const int* col, const uint32_t* mask, const int* voff,
                        const int* row, const float* values, const float* x, float* y,
-                       int nchunks, int cb, int vmax, int r, int c, int threads, int device,
-                       void* stream) {
-  return launch_whole<2>(vbase, col, mask, voff, row, values, x, y, nchunks, cb, vmax, r, c,
-                         threads, device, stream);
+                       int nchunks, int cb, int vmax, int nrows, int r, int c, int grid, int tile,
+                       int smem, int threads, int device, void* stream) {
+  const WholeArgs a{vbase, col, mask, voff, row, values, x, y, nchunks, cb, vmax, nrows, r, c,
+                    grid, tile};
+  return launch_whole(2, a, smem, threads, device, stream);
+}
+
+// The whole-vector kernel's occupancy at `stages` (1: the synchronous
+// kernel, 2: the ring), `threads` and `smem` bytes of dynamic shared memory
+// per CTA: out[0] the CTAs one SM holds at once, out[1] the SMs of the device.
+int spc5_spmv_whole_occupancy(int stages, int threads, int smem, int device, int* out) {
+  const WholeKernel kernel = whole_kernel(stages);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare_launch(kernel, device, (size_t)smem, threads, nullptr);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, (size_t)smem);
+  }
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(out + 1, cudaDevAttrMultiProcessorCount, device);
+  return (int)err;
+}
+
+// The dynamic shared memory of one whole-vector CTA of `threads` threads
+// with `stages` stages and warps' tiles of `tile` rows, as the launch
+// computes it (whole_smem).
+int spc5_spmv_whole_smem(int stages, int cb, int vmax, int tile, int threads) {
+  WholeArgs a{};
+  a.cb = cb;
+  a.vmax = vmax;
+  a.tile = tile;
+  return (int)whole_smem(a, stages, threads);
 }
 
 // The synchronous panel kernel: split CTAs per panel. smem is the wrapper's

@@ -12,10 +12,12 @@ arguments minus ``interpret``:
   ``spmv_cuda_panels_db`` spc5_spmv_panels_s2    ``spmv_pallas_panels_db``
   ======================  =====================  ===========================
 
-The panel kernels split each panel's chunks among S CTAs (chosen here
-from the card's occupancy, :func:`panels_launch`; ``split`` overrides it),
-stage each chunk's metadata in shared memory and decode a block row per
-thread.
+The whole-vector kernels cut the chunks into G contiguous ranges, one CTA
+each (G chosen here from the card's occupancy by the panel kernels' split
+rule, :func:`whole_launch`; ``grid`` overrides it); the panel kernels split
+each panel's chunks among S CTAs (:func:`panels_launch`; ``split``
+overrides it). Both stage each chunk's value window and metadata in shared
+memory and decode a block row per thread.
 
 A CPU tensor goes to the plain PyTorch version (:mod:`repro_torch.core.
 ref_spmv`); a CUDA tensor goes to the kernel, or the wrapper raises. There
@@ -68,6 +70,10 @@ def reset_launches() -> None:
 def _threads(cb: int) -> int:
     """One thread per block slot, in whole warps, 64..256 per CTA."""
     return min(_MAX_THREADS, max(64, -(-cb // 32) * 32))
+
+
+def _r16(n: int) -> int:
+    return -(-n // 16) * 16
 
 
 def _unsupported(col_map, value_scale) -> None:
@@ -131,9 +137,118 @@ def _stream(device: torch.device) -> int:
 # whole-vector layout
 # ----------------------------------------------------------------------------
 
+#: Stages in the ring of ``spmv_cuda_db``, the only ring its kernel is built
+#: for: one chunk is staged ahead of the decode. A ring that does not fit a
+#: CTA is refused; a launch whose every CTA takes one chunk holds one stage
+#: (:func:`whole_launch`).
+WHOLE_DB_STAGES = 2
+
+#: Rows of each warp's y tile in a whole-vector CTA (rows past it are added
+#: into y directly). A chunk of the vocab weight spans 4-8 rows, one of the
+#: FEM matrix about 88; there each CTA takes one chunk, and 128-row tiles,
+#: zeroed and summed over the warps by every CTA, were 15 % slower than 32
+#: on the H100, 16 rows no faster (PERF.md, PR 22).
+WHOLE_TILE_ROWS = 32
+
+#: Block rows of a chunk each whole-vector thread decodes, one a step
+#: (:func:`whole_threads`): WHOLE_ROWS_PER_THREAD where a chunk's block rows
+#: hold more than WHOLE_SPARSE_ROW_NNZ nonzeros on average (by vmax), else
+#: WHOLE_SPARSE_ROWS_PER_THREAD. A block row with one nonzero is a short
+#: step; one with four waits on four x loads and wants more warps. On the
+#: H100, 4 were 11 % faster than 8 on the FEM matrix's full beta(4,4) blocks
+#: and 8 were 9 % faster than 4 on the vocab weight's (1.1 nonzeros a block
+#: row; PERF.md, PR 22).
+WHOLE_ROWS_PER_THREAD = 4
+WHOLE_SPARSE_ROWS_PER_THREAD = 8
+WHOLE_SPARSE_ROW_NNZ = 2
+
+
+def _stage_bytes(cb: int, vmax: int) -> int:
+    """One stage of either layout: the value window, the chunk's four
+    metadata rows (cb int32 entries each) and a 16-byte slot for the
+    chunk's x window start and the stage's mbarrier, each part 16-byte
+    aligned."""
+    return _r16(4 * vmax) + 4 * _r16(4 * cb) + 16
+
+
+def whole_threads(cb: int, r: int, vmax: int) -> int:
+    """Threads of a whole-vector CTA: one per :data:`WHOLE_ROWS_PER_THREAD`
+    block rows of a chunk (cb * r rows), or one per
+    :data:`WHOLE_SPARSE_ROWS_PER_THREAD` where the value window (vmax) holds
+    at most :data:`WHOLE_SPARSE_ROW_NNZ` nonzeros a block row; in whole
+    warps, 32..256."""
+    sparse = vmax <= WHOLE_SPARSE_ROW_NNZ * cb * r
+    per = WHOLE_SPARSE_ROWS_PER_THREAD if sparse else WHOLE_ROWS_PER_THREAD
+    rows = -(-cb * r // per)
+    return min(_MAX_THREADS, max(32, -(-rows // 32) * 32))
+
+
+def whole_smem_bytes(stages: int, cb: int, vmax: int, tile: int,
+                     threads: int) -> int:
+    """Dynamic shared memory of one whole-vector CTA: each warp's (tile,)
+    f32 y tile, then ``stages`` stages (:func:`_stage_bytes`). The kernel's
+    ``whole_smem`` (``csrc/spc5_spmv.cu``) refuses a launch whose figure
+    differs from its own."""
+    return _r16(4 * tile * (threads // 32)) + stages * _stage_bytes(cb, vmax)
+
+
+_WHOLE_OCCUPANCY: Dict[Tuple[int, int, int, int], Tuple[int, int]] = {}
+
+
+def whole_occupancy(stages: int, threads: int, smem: int,
+                    device: torch.device) -> Tuple[int, int]:
+    """(CTAs one SM holds at once, SMs) for the whole-vector kernel at
+    ``stages`` (1: the synchronous one), as the CUDA runtime reports them."""
+    key = (stages, threads, smem, device.index or 0)
+    if key not in _WHOLE_OCCUPANCY:
+        lib = _build.load_library("spc5_spmv")
+        out = (ctypes.c_int * 2)()
+        err = lib.spc5_spmv_whole_occupancy(stages, threads, smem, key[3],
+                                            ctypes.addressof(out))
+        _raise_on(err, "spc5_spmv_whole_occupancy")
+        _WHOLE_OCCUPANCY[key] = (out[0], out[1])
+    return _WHOLE_OCCUPANCY[key]
+
+
+def whole_launch(stages: int, nchunks: int, *, cb: int, r: int, vmax: int,
+                 device: torch.device, grid: Optional[int] = None,
+                 what: str = "whole-vector kernel") -> Dict[str, int]:
+    """The launch a whole-vector wrapper makes on ``device`` (a card) with
+    the kernel of ``stages`` (1, or :data:`WHOLE_DB_STAGES`): ``grid`` (G,
+    from :func:`panels_split` over one "panel" of every chunk at the
+    occupancy of the whole ring, unless given), ``chunks_per_cta`` (the
+    longest range), ``stages`` (the stages it holds: the ring, or one where
+    every CTA takes one chunk and there is nothing to stage ahead),
+    ``smem_bytes``, ``threads`` and ``tile_rows`` per CTA and the card's
+    ``ctas_per_sm`` and ``sms`` at that launch. Raises ``ValueError`` where
+    the kernel's stages do not fit a CTA (a ring is never shortened to
+    fit)."""
+    if stages not in (1, WHOLE_DB_STAGES):
+        raise ValueError(f"the whole-vector kernels stage 1 or "
+                         f"{WHOLE_DB_STAGES} chunks, not {stages}")
+    tile = WHOLE_TILE_ROWS
+    threads = whole_threads(cb, r, vmax)
+    smem = whole_smem_bytes(stages, cb, vmax, tile, threads)
+    _check_smem(smem, what)
+    per_sm, sms = whole_occupancy(stages, threads, smem, device)
+    if grid is None:
+        grid = panels_split(1, nchunks, per_sm, sms)
+    if not 1 <= grid <= nchunks:
+        raise ValueError(f"grid must be in [1, {nchunks}] (the chunks), "
+                         f"got {grid}")
+    longest = -(-nchunks // grid)
+    if longest < stages:
+        # the kernel's whole_ring: a CTA uses no more stages than chunks
+        smem = whole_smem_bytes(longest, cb, vmax, tile, threads)
+        per_sm, sms = whole_occupancy(stages, threads, smem, device)
+    return dict(stages=min(stages, longest), smem_bytes=smem,
+                threads=threads, tile_rows=tile, ctas_per_sm=per_sm,
+                sms=sms, grid=grid, chunks_per_cta=longest)
+
+
 def _whole(fn: str, stages: int, chunk_vbase, chunk_col, chunk_mask,
            chunk_voff, chunk_row, values, x, *, r, c, cb, vmax, nrows,
-           ncols):
+           ncols, grid=None):
     nchunks = chunk_col.shape[0]
     named = dict(chunk_vbase=chunk_vbase, chunk_col=chunk_col,
                  chunk_mask=chunk_mask, chunk_voff=chunk_voff,
@@ -148,15 +263,21 @@ def _whole(fn: str, stages: int, chunk_vbase, chunk_col, chunk_mask,
                       r=r, c=c, nrows=nrows, ncols=ncols)
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
-    _check_smem(stages * vmax * 4, fn)
+    if vmax % 4:
+        raise ValueError(f"vmax must be a multiple of 4 (whole 16-byte "
+                         f"value windows), got {vmax}")
+    launch = whole_launch(stages, nchunks, cb=cb, r=r, vmax=vmax,
+                          device=values.device, grid=grid, what=fn)
     _aligned({"values": values})
     lib = _build.load_library("spc5_spmv")
+    # every CTA adds its rows into y
     y = torch.zeros(nrows, dtype=torch.float32, device=values.device)
     err = getattr(lib, f"spc5_spmv_whole_s{stages}")(
         chunk_vbase.data_ptr(), chunk_col.data_ptr(), chunk_mask.data_ptr(),
         chunk_voff.data_ptr(), chunk_row.data_ptr(), values.data_ptr(),
-        x.data_ptr(), y.data_ptr(), nchunks, cb, vmax, r, c, _threads(cb),
-        values.device.index or 0, _stream(values.device))
+        x.data_ptr(), y.data_ptr(), nchunks, cb, vmax, nrows, r, c,
+        launch["grid"], launch["tile_rows"], launch["smem_bytes"],
+        launch["threads"], values.device.index or 0, _stream(values.device))
     _raise_on(err, fn)
     LAUNCHES[fn] += 1
     return y
@@ -164,34 +285,35 @@ def _whole(fn: str, stages: int, chunk_vbase, chunk_col, chunk_mask,
 
 def spmv_cuda(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
               values, x, col_map=None, value_scale=None, *, r: int, c: int,
-              cb: int, vmax: int, nrows: int, ncols: int) -> torch.Tensor:
-    """Whole-vector SpMV, one staged value window per chunk (replaces
-    ``spmv_pallas``). ``chunk_mask`` is the int32 view of the uint32 masks."""
+              cb: int, vmax: int, nrows: int, ncols: int,
+              grid: Optional[int] = None) -> torch.Tensor:
+    """Whole-vector SpMV, the chunks cut into ``grid`` contiguous ranges
+    (one CTA each; default from the card's occupancy), each chunk's value
+    window and metadata copied and waited for before its decode (replaces
+    ``spmv_pallas``). ``chunk_mask`` is the int32 view of the uint32
+    masks."""
     _unsupported(col_map, value_scale)
     return _whole("spmv_cuda", 1, chunk_vbase, chunk_col, chunk_mask,
                   chunk_voff, chunk_row, values, x, r=r, c=c, cb=cb,
-                  vmax=vmax, nrows=nrows, ncols=ncols)
+                  vmax=vmax, nrows=nrows, ncols=ncols, grid=grid)
 
 
 def spmv_cuda_db(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
                  values, x, col_map=None, value_scale=None, *, r: int,
-                 c: int, cb: int, vmax: int, nrows: int,
-                 ncols: int) -> torch.Tensor:
-    """Whole-vector SpMV with the next chunk's value window prefetched by
-    cp.async while the current one decodes (replaces ``spmv_pallas_db``)."""
+                 c: int, cb: int, vmax: int, nrows: int, ncols: int,
+                 grid: Optional[int] = None) -> torch.Tensor:
+    """Whole-vector SpMV with a ring of :data:`WHOLE_DB_STAGES` chunks
+    (value window and metadata) staged ahead by bulk copies (replaces
+    ``spmv_pallas_db``); ``grid`` as in :func:`spmv_cuda`."""
     _unsupported(col_map, value_scale)
-    return _whole("spmv_cuda_db", 2, chunk_vbase, chunk_col, chunk_mask,
-                  chunk_voff, chunk_row, values, x, r=r, c=c, cb=cb,
-                  vmax=vmax, nrows=nrows, ncols=ncols)
+    return _whole("spmv_cuda_db", WHOLE_DB_STAGES, chunk_vbase, chunk_col,
+                  chunk_mask, chunk_voff, chunk_row, values, x, r=r, c=c,
+                  cb=cb, vmax=vmax, nrows=nrows, ncols=ncols, grid=grid)
 
 
 # ----------------------------------------------------------------------------
 # panel layout
 # ----------------------------------------------------------------------------
-
-def _r16(n: int) -> int:
-    return -(-n // 16) * 16
-
 
 def panel_threads(cb: int, r: int) -> int:
     """Threads of a panel-kernel CTA: one per :data:`ROWS_PER_THREAD` block
@@ -207,8 +329,7 @@ def panels_smem_bytes(stages: int, cb: int, vmax: int, pr: int) -> int:
     chunk's x window start and the stage's mbarrier, every part 16-byte
     aligned. The kernel's ``stage_layout`` (``csrc/spc5_spmv.cu``) refuses
     a launch whose figure differs from its own."""
-    stage = _r16(4 * vmax) + 4 * _r16(4 * cb) + 16
-    return _r16(4 * pr) + stages * stage
+    return _r16(4 * pr) + stages * _stage_bytes(cb, vmax)
 
 
 def panels_stages(stages: int, cb: int, vmax: int, pr: int,
@@ -231,6 +352,15 @@ def panels_split(npanels: int, nchunks: int, ctas_per_sm: int,
     holds at once, at most one a chunk."""
     slots = max(1, ctas_per_sm * sms)
     return max(1, min(nchunks, -(-SPLIT_WAVES * slots // max(1, npanels))))
+
+
+def chunk_ranges(nchunks: int, parts: int):
+    """The contiguous chunk range ``(first, count)`` of each of ``parts``
+    CTAs, as the kernels cut it (a panel's chunks, or all the whole-vector
+    chunks): part p starts at ``p * nchunks // parts``."""
+    return [(p * nchunks // parts,
+             (p + 1) * nchunks // parts - p * nchunks // parts)
+            for p in range(parts)]
 
 
 _OCCUPANCY: Dict[Tuple[int, int, int, int], Tuple[int, int]] = {}

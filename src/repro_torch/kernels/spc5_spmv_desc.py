@@ -46,8 +46,10 @@ from repro_torch.core import ref_spmv as R
 
 from . import _build
 from . import spc5_spmv as K
-# one split rule for both panel SpMV pairs (SPLIT_WAVES is re-exported)
-from .spc5_spmv import SPLIT_WAVES, _r16, panels_split  # noqa: F401
+# one split rule and one cut into chunk ranges for every SpMV pair
+# (SPLIT_WAVES and chunk_ranges are re-exported)
+from .spc5_spmv import (SPLIT_WAVES, _r16, chunk_ranges,  # noqa: F401
+                        panels_split)
 
 #: Launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES: Dict[str, int] = {"spmv_cuda_desc": 0, "spmv_cuda_desc_db": 0,
@@ -181,15 +183,6 @@ def whole_stages(stages: int, cb: int, r: int, c: int, vmax: int, tile: int,
                          f"{WHOLE_DB_STAGES} chunks, not {stages}")
     return _fit_stages(stages, cb, lambda s, nb: whole_smem_bytes(
         s, nb, r, c, vmax, tile, wv, wx), what)
-
-
-def chunk_ranges(nchunks: int, parts: int):
-    """The contiguous chunk range ``(first, count)`` of each of ``parts``
-    CTAs, as the kernels cut it (a panel's chunks, or all the whole-vector
-    chunks): part p starts at ``p * nchunks // parts``."""
-    return [(p * nchunks // parts,
-             (p + 1) * nchunks // parts - p * nchunks // parts)
-            for p in range(parts)]
 
 
 def whole_launch(stages: int, nchunks: int, *, cb: int, r: int, c: int,

@@ -335,6 +335,314 @@ def test_panel_mask_launch_refuses_a_wrong_smem_figure(cuda):
 
 
 # ----------------------------------------------------------------------------
+# whole-vector mask SpMV: contiguous chunk ranges, staged metadata, row runs
+# combined in the warp, per-warp y tiles
+# ----------------------------------------------------------------------------
+
+WHOLE_MASK = ("spmv_cuda", "spmv_cuda_db")
+
+
+def _wmask_check(kernel, dev, x, *, geom, x_plain=None, **kw):
+    """One wrapper call on the arrays of ``dev`` (an ``SPC5Device``;
+    ``grid`` in kw), counted once and held against ``spmv`` (on
+    ``x_plain`` where given)."""
+    plain = R.spmv(dev, x if x_plain is None else x_plain, r=geom["r"],
+                   c=geom["c"], nrows=geom["nrows"], ncols=geom["ncols"])
+    before = K.LAUNCHES[kernel]
+    y = getattr(K, kernel)(dev.chunk_vbase, dev.chunk_col, dev.chunk_mask,
+                           dev.chunk_voff, dev.chunk_row, dev.values, x,
+                           **geom, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES[kernel] == before + 1
+    assert y.shape == (geom["nrows"],) and torch.isfinite(y).all()
+    scale = float(plain.abs().max()) if plain.numel() else 0.0
+    err = float((y - plain).abs().max()) if y.numel() else 0.0
+    assert err <= RTOL * max(scale, 1.0), (err, scale, kw)
+
+
+def _wmask_geom(plan):
+    return dict(r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax,
+                nrows=plan.nrows, ncols=plan.ncols)
+
+
+def _wmask_chunks(plan):
+    return int(plan.chunk_vbase.shape[0])
+
+
+def _wmask_plan(rc, device, cb=12, **matrix):
+    """302 rows (nrows % r != 0 for r = 4 and 8) in chunks of cb blocks:
+    many chunks, so G can be 1, nchunks, or neither and not divide
+    nchunks."""
+    mat = _matrix(rc, **{"n": 302, "m": 700, "density": 0.05, **matrix})
+    plan = ops.prepare(mat, layout="whole_vector", lowering="mask",
+                       tune=False, device=device, cb=cb)
+    assert _wmask_chunks(plan) >= 5, _wmask_chunks(plan)
+    return plan
+
+
+def _wmask_grids(plan):
+    """The wrapper's G, one CTA for every chunk and one chunk a CTA."""
+    return (None, 1, _wmask_chunks(plan))
+
+
+@pytest.mark.parametrize("grid", ["one", "chosen", "all", "ragged"])
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+@pytest.mark.parametrize("kernel", WHOLE_MASK)
+def test_whole_mask_grid(cuda, kernel, rc, grid):
+    """One CTA for every chunk, the wrapper's G, one chunk a CTA, and a G
+    that does not divide nchunks, for every block shape (nrows % r != 0 and
+    padding blocks in the last chunk)."""
+    plan = _wmask_plan(rc, cuda)
+    assert not bool(plan.chunk_mask[-1].all())    # padding blocks
+    n = _wmask_chunks(plan)
+    g = {"one": 1, "chosen": None, "all": n,
+         "ragged": next(k for k in range(3, n) if n % k)}[grid]
+    _wmask_check(kernel, plan.dev, _x(plan, 41, cuda),
+                 geom=_wmask_geom(plan), grid=g)
+
+
+@pytest.mark.parametrize("cb", [4, 16, 256, 512])
+@pytest.mark.parametrize("rc", [(1, 8), (2, 4), (4, 4), (4, 8), (8, 4)])
+@pytest.mark.parametrize("kernel", WHOLE_MASK)
+def test_whole_mask_chunk_sizes(cuda, kernel, rc, cb):
+    """cb of 4, 16, 256 and 512 blocks (a chunk longer than a step of the
+    CTA's block rows, and shorter), at the wrapper's G, G = 1 and one chunk
+    a CTA."""
+    mat = _matrix(rc, n=602, m=1_500, density=0.08)
+    plan = ops.prepare(mat, layout="whole_vector", lowering="mask",
+                       tune=False, device=cuda, cb=cb)
+    assert _wmask_chunks(plan) >= 2
+    x = _x(plan, 42, cuda)
+    for grid in _wmask_grids(plan):
+        _wmask_check(kernel, plan.dev, x, geom=_wmask_geom(plan), grid=grid)
+
+
+@pytest.mark.parametrize("span", ["one_row", "many_rows"])
+@pytest.mark.parametrize("kernel", WHOLE_MASK)
+def test_whole_mask_chunks_span_one_or_many_rows(cuda, kernel, span):
+    """Chunks inside one row (beta(1,8) over 4,096 dense columns: a row's 512
+    blocks make 32 chunks of 16) and chunks spanning 512 rows (beta(4,4)
+    over 8 columns: two blocks a block row), whose rows overrun the warps'
+    tiles and move them, at the wrapper's G, G = 1 and one chunk a CTA."""
+    if span == "one_row":
+        d, rc, cb = _dense((40, 4_096), 1.0, 43), (1, 8), 16
+    else:
+        d, rc, cb = _dense((2_000, 8), 0.6, 44), (4, 4), 256
+    plan = ops.prepare(F.csr_to_spc5(F.csr_from_dense(d), *rc),
+                       layout="whole_vector", lowering="mask", tune=False,
+                       device=cuda, cb=cb)
+    rows = plan.chunk_row.cpu().numpy()
+    real = plan.chunk_mask.cpu().numpy() != 0
+    spans = [int(np.ptp(rw[m])) + rc[0] for rw, m in zip(rows, real)
+             if m.any()]
+    if span == "one_row":
+        assert max(spans) == 1 and _wmask_chunks(plan) >= 32 * 40
+    else:
+        assert min(spans[:-1]) > 100 > K.WHOLE_TILE_ROWS // 2
+    x = _x(plan, 45, cuda)
+    for grid in _wmask_grids(plan):
+        _wmask_check(kernel, plan.dev, x, geom=_wmask_geom(plan), grid=grid)
+
+
+def _wmask_reordered(plan, order, seed):
+    """The plan's arrays with block rows moved: "permuted" takes block row
+    p(i) for block row i (rows jump up and down, neighbouring chunks share
+    none); "repeated" folds them onto five block rows, so equal rows come
+    back after others; "shifted" moves every block row one row down, off
+    the multiples of r (the matrix's last block row is empty, so every row
+    stays inside it). Padding blocks keep row 0."""
+    r = plan.r
+    row = plan.chunk_row.long()
+    real = plan.chunk_mask != 0
+    nblock_rows = -(-plan.nrows // r)
+    if order == "permuted":
+        perm = torch.from_numpy(np.random.default_rng(seed).permutation(
+            nblock_rows)).to(row.device)
+        moved = perm[row // r] * r
+    elif order == "repeated":
+        moved = (row // r) % 5 * r
+    else:
+        moved = row + 1
+    new = torch.where(real, moved, torch.zeros_like(moved)).int()
+    return plan.dev._replace(chunk_row=new.contiguous())
+
+
+@pytest.mark.parametrize("order", ["permuted", "repeated", "shifted"])
+@pytest.mark.parametrize("rc", [(1, 8), (2, 4), (4, 4), (4, 8), (8, 4)])
+@pytest.mark.parametrize("kernel", WHOLE_MASK)
+def test_whole_mask_rows_in_any_order(cuda, kernel, rc, order):
+    """Block rows out of order, repeated after others, or off the multiples
+    of r: warps whose rows are not sorted add straight into y, and the
+    result is the plain version's on the same arrays, at the wrapper's G,
+    G = 1 and one chunk a CTA."""
+    d = _dense((304, 700), 0.05, 46 + rc[0])
+    d[-8:] = 0.0
+    plan = ops.prepare(F.csr_to_spc5(F.csr_from_dense(d), *rc),
+                       layout="whole_vector", lowering="mask", tune=False,
+                       device=cuda, cb=8)
+    dev = _wmask_reordered(plan, order, seed=47)
+    if order == "permuted":
+        first = dev.chunk_row[:, 0][plan.chunk_mask[:, 0] != 0].cpu()
+        assert bool((first.diff() < 0).any())
+    x = _x(plan, 48, cuda)
+    for grid in _wmask_grids(plan):
+        _wmask_check(kernel, dev, x, geom=_wmask_geom(plan), grid=grid)
+
+
+@pytest.mark.parametrize("tile", [1, 8, 512])
+@pytest.mark.parametrize("rc", [(2, 4), (4, 8), (8, 4)])
+@pytest.mark.parametrize("kernel", WHOLE_MASK)
+def test_whole_mask_small_and_large_tiles(cuda, kernel, rc, tile,
+                                          monkeypatch):
+    """Warp tiles of 1 and 8 rows, which a chunk's rows overrun (added into
+    y directly, the tiles moving at every chunk), and of 512 rows."""
+    monkeypatch.setattr(K, "WHOLE_TILE_ROWS", tile)
+    plan = _wmask_plan(rc, cuda, cb=16)
+    x = _x(plan, 49, cuda)
+    for grid in _wmask_grids(plan):
+        _wmask_check(kernel, plan.dev, x, geom=_wmask_geom(plan), grid=grid)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 16])
+@pytest.mark.parametrize("rc", [(1, 4), (4, 8), (8, 4)])
+@pytest.mark.parametrize("kernel", WHOLE_MASK)
+def test_whole_mask_rows_per_thread(cuda, kernel, rc, rows, monkeypatch):
+    """One, two and sixteen block rows a thread (the wrapper takes 4 or 8):
+    other thread counts, threads that take several steps a chunk, and lanes
+    past cb."""
+    monkeypatch.setattr(K, "WHOLE_ROWS_PER_THREAD", rows)
+    monkeypatch.setattr(K, "WHOLE_SPARSE_ROWS_PER_THREAD", rows)
+    plan = _wmask_plan(rc, cuda, cb=64, n=602, m=1_500, density=0.08)
+    x = _x(plan, 50, cuda)
+    for grid in (None, 1):
+        _wmask_check(kernel, plan.dev, x, geom=_wmask_geom(plan), grid=grid)
+
+
+@pytest.mark.parametrize("rc", [(1, 8), (2, 4), (4, 8), (8, 4)])
+@pytest.mark.parametrize("kernel", WHOLE_MASK)
+def test_whole_mask_cb6_and_offset_metadata(cuda, kernel, rc):
+    """cb = 6 (metadata rows of 24 bytes, copied in 4-byte pieces) and, at
+    cb = 8, metadata handed over as views 4 bytes past a 16-byte boundary
+    (copied in 4-byte pieces too)."""
+    plan = _wmask_plan(rc, cuda, cb=6)
+    for grid in _wmask_grids(plan):
+        _wmask_check(kernel, plan.dev, _x(plan, 51, cuda),
+                     geom=_wmask_geom(plan), grid=grid)
+    plan = _wmask_plan(rc, cuda, cb=8)
+    views = []
+    for t in (plan.chunk_col, plan.chunk_mask, plan.chunk_voff,
+              plan.chunk_row):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        assert v.data_ptr() % 16 and v.data_ptr() % 4 == 0
+        views.append(v)
+    dev = plan.dev._replace(chunk_col=views[0], chunk_mask=views[1],
+                            chunk_voff=views[2], chunk_row=views[3])
+    for grid in (None, 1):
+        _wmask_check(kernel, dev, _x(plan, 52, cuda),
+                     geom=_wmask_geom(plan), grid=grid)
+
+
+@pytest.mark.parametrize("kernel", WHOLE_MASK)
+def test_whole_mask_empty_x_region(cuda, kernel):
+    """Columns 350.. hold no nonzero: the kernels read no x there (unset
+    lanes gather nothing), so NaN in that region leaves y finite and equal
+    to the plain version's on an x zeroed there."""
+    d = _dense((302, 700), 0.05, 53)
+    d[:, 350:] = 0.0
+    plan = ops.prepare(F.csr_to_spc5(F.csr_from_dense(d), 4, 8),
+                       layout="whole_vector", lowering="mask", tune=False,
+                       device=cuda, cb=8)
+    x = _x(plan, 54, cuda)
+    x[350:] = 0.0
+    x_nan = x.clone()
+    x_nan[350:] = float("nan")
+    for grid in (None, 1):
+        _wmask_check(kernel, plan.dev, x_nan, geom=_wmask_geom(plan),
+                     x_plain=x, grid=grid)
+
+
+def test_whole_mask_db_ring_that_does_not_fit(cuda):
+    """Dense beta(4,8) chunks of 1,024 blocks (a 128 KB value window): the
+    synchronous kernel runs (at its G, one CTA and one chunk a CTA); the
+    ring of two does not fit a CTA, so ``spmv_cuda_db`` refuses and
+    launches nothing."""
+    mat = F.csr_to_spc5(F.csr_from_dense(_dense((256, 4_096), 1.0, 55)),
+                        4, 8)
+    plan = ops.prepare(mat, layout="whole_vector", lowering="mask",
+                       tune=False, device=cuda, cb=1_024)
+    assert _wmask_chunks(plan) >= 2 and plan.vmax == 1_024 * 32
+    x = _x(plan, 56, cuda)
+    for grid in _wmask_grids(plan):
+        _wmask_check("spmv_cuda", plan.dev, x, geom=_wmask_geom(plan),
+                     grid=grid)
+    before = dict(K.LAUNCHES)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.spmv(plan, x)
+    assert K.LAUNCHES == before
+
+
+#: chip_smoke.py's whole-vector mask plans (cb, vmax, tile, threads): the
+#: vocab whole-vector mask layer and the FEM matrix; and a cb = 6 plan.
+WHOLE_MASK_SMEM_GEOMETRIES = {
+    "vocab": (256, 1_144, 32, 128),
+    "fem": (256, 4_096, 32, 256),
+    "cb6": (6, 48, 8, 32),
+}
+
+
+@pytest.mark.parametrize("stages", [1, 2])
+@pytest.mark.parametrize("case", sorted(WHOLE_MASK_SMEM_GEOMETRIES))
+def test_whole_mask_smem_matches_the_kernel(cuda, case, stages):
+    """The wrapper's ``whole_smem_bytes`` is the figure the kernel's own
+    layout gives (a launch whose figure differs is refused)."""
+    from repro_torch.kernels import _build
+    geom = WHOLE_MASK_SMEM_GEOMETRIES[case]
+    lib = _build.load_library("spc5_spmv")
+    assert lib.spc5_spmv_whole_smem(stages, *geom) == \
+        K.whole_smem_bytes(stages, *geom)
+
+
+def test_whole_mask_launch_refuses_what_was_not_planned(cuda):
+    """A shared-memory figure other than the kernel's own layout, another
+    thread count or tile (whose figure differs), a grid outside [1,
+    nchunks], threads the kernel cannot take, or two stages where every CTA
+    takes one chunk is refused with CUDA error 1 and launches nothing."""
+    from repro_torch.kernels import _build
+    plan = _wmask_plan((2, 4), cuda)
+    lib = _build.load_library("spc5_spmv")
+    y = torch.full((plan.nrows,), 7.0, device=cuda)
+    ptrs = [t.data_ptr() for t in (
+        plan.chunk_vbase, plan.chunk_col, plan.chunk_mask, plan.chunk_voff,
+        plan.chunk_row, plan.values, _x(plan, 57, cuda), y)]
+    n = _wmask_chunks(plan)
+    geom = (n, plan.cb, plan.vmax, plan.nrows, plan.r, plan.c)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for stages in (1, 2):
+        launch = K.whole_launch(stages, n, cb=plan.cb, r=plan.r,
+                                vmax=plan.vmax, device=cuda)
+        g, tile, smem, threads = (launch["grid"], launch["tile_rows"],
+                                  launch["smem_bytes"], launch["threads"])
+        cases = [(g, tile, smem + 16, threads), (g, tile, smem - 16, threads),
+                 (g, tile, smem, threads + 32), (g, tile + 1, smem, threads),
+                 (0, tile, smem, threads), (n + 1, tile, smem, threads)]
+        for t in (16, 288):
+            cases.append((g, tile, K.whole_smem_bytes(
+                stages, plan.cb, plan.vmax, tile, t), t))
+        # one chunk a CTA: the launch holds one stage, so the ring's figure
+        # is refused there
+        cases.append((n, tile, K.whole_smem_bytes(
+            2, plan.cb, plan.vmax, tile, threads), threads))
+        entry = getattr(lib, f"spc5_spmv_whole_s{stages}")
+        for case in cases:
+            err = entry(*ptrs, *geom, *case, 0, stream)
+            assert err == 1, (stages, case)
+    torch.cuda.synchronize()
+    assert bool((y == 7.0).all())
+
+
+# ----------------------------------------------------------------------------
 # SpMM
 # ----------------------------------------------------------------------------
 

@@ -19,22 +19,30 @@ matrix (``--cb``: those two plans cut into chunks of N blocks instead):
   (``DB_STAGES`` replaced for the call), and the mask kernels with 1, 2 and
   4 block rows a thread (``ROWS_PER_THREAD``, which sets the CTA's threads
   and so S).
-* ``--layout whole``: the whole-vector descriptor plans (the vocab weight's
-  token plan, ``ops.prepare`` at nvec 1; the FEM matrix at cb=256; the
-  flat-tail test plan's multi sub-plan, the same weight in beta(2,4)). Both
-  ``spmv_cuda_desc`` kernels at 1/2, 1 and 2 times the grid G the wrapper
-  picks and at one chunk a CTA; with y tiles of 64 and 4,096 rows
-  (``WHOLE_TILE_ROWS``), one and four lane quads a thread
-  (``WHOLE_QUADS_PER_THREAD``) and 256 threads a CTA at most
-  (``WHOLE_THREADS``), each replaced for the call; and with the card's L2
-  fetch granularity set to 32 bytes (``cuCtxSetLimit``, restored after the
-  setting; it asks L2 to fetch only the 32-byte sectors a kernel reads of
-  the repeated ``xcol`` / ``yrow`` entries). Beside them plain torch sums
-  reading each whole plan and the parts of it the kernels read
-  (``chip_smoke.plan_read_ms``), and the static SASS of the whole-vector
-  kernels (``cuobjdump -sass``: instructions per kernel and the counts of
-  the loads, atomics, shuffles and barriers among them; the listing is
-  written beside ``--out``).
+* ``--layout whole``: the whole-vector plans of each asked lowering.
+  Descriptor: the vocab weight's token plan (``ops.prepare`` at nvec 1),
+  the FEM matrix at cb=256 and the flat-tail test plan's multi sub-plan
+  (the same weight in beta(2,4)); both ``spmv_cuda_desc`` kernels at 1/2,
+  1 and 2 times the grid G the wrapper picks and at one chunk a CTA; with y
+  tiles of 64 and 4,096 rows (``WHOLE_TILE_ROWS``), one and four lane
+  quads a thread (``WHOLE_QUADS_PER_THREAD``) and 256 threads a CTA at
+  most (``WHOLE_THREADS``), each replaced for the call; and with the
+  card's L2 fetch granularity set to 32 bytes (``cuCtxSetLimit``, restored
+  after the setting; it asks L2 to fetch only the 32-byte sectors a kernel
+  reads of the repeated ``xcol`` / ``yrow`` entries); beside them plain
+  torch sums reading each whole plan and the parts of it the kernels read
+  (``chip_smoke.plan_read_ms``). Mask: the vocab weight's whole-vector
+  mask layer (``ops.prepare(layout="whole_vector", lowering="mask",
+  nvec=128)``, ``chip_smoke.py``'s) and the FEM matrix at cb=256; both
+  ``spmv_cuda`` kernels at 1/2, 1 and 2 times G and at one chunk a CTA,
+  and at each pair of 4, 8 and 16 block rows a thread
+  (``WHOLE_ROWS_PER_THREAD`` and ``WHOLE_SPARSE_ROWS_PER_THREAD``: 256,
+  128 and 64 threads on both plans) and warp tiles of 16, 32, 128 and 512
+  rows (``WHOLE_TILE_ROWS``), each replaced for the call. Then the static
+  SASS of the asked whole-vector kernels (``cuobjdump -sass``:
+  instructions per kernel and the counts of
+  the loads, atomics, shuffles, votes and barriers among them; the
+  listings are written beside ``--out``).
 
 Every setting is first held against the plain version (within ``1e-5 *
 max|y|``) and timed with CUDA events, L2 flushed before every call. It
@@ -63,8 +71,7 @@ import chip_smoke as S
 
 KERNELS = {"descriptor": {"spmv_cuda_panels_desc_db": "s2",
                           "spmv_cuda_panels_desc": "s1"},
-           "mask": {"spmv_cuda_panels_db": "s2", "spmv_cuda_panels": "s1"},
-           "whole": S.WHOLE_DESC_SPMV}
+           "mask": {"spmv_cuda_panels_db": "s2", "spmv_cuda_panels": "s1"}}
 
 #: CU_LIMIT_MAX_L2_FETCH_GRANULARITY of the CUDA driver API.
 _L2_FETCH_LIMIT = 5
@@ -112,51 +119,75 @@ def panel_settings(plan, launch):
     return out
 
 
+#: Block rows a thread and warp-tile rows the whole-vector mask kernels are
+#: timed at (for either kind of plan, dense or sparse block rows); the
+#: wrapper's own pair is among them, a second timing of its launch.
+MASK_ROWS = (4, 8, 16)
+MASK_TILES = (16, 32, 128, 512)
+
+
 def whole_settings(plan, launch):
-    """The same for a whole-vector descriptor plan."""
+    """The same for a whole-vector plan of either lowering."""
+    from repro_torch.kernels import spc5_spmv as K
     from repro_torch.kernels import spc5_spmv_desc as KD
     nchunks = int(plan.chunk_vbase.shape[0])
+    desc = plan.lowering == "descriptor"
     out = []
-    for name, key in KERNELS["whole"].items():
+    for name, key in S.WHOLE_SPMV[plan.lowering].items():
         auto = launch[key]["grid"]
         grids = {max(1, auto // 2), auto, min(nchunks, 2 * auto), nchunks}
         out += [(name, f"grid{g}", {}, {"grid": g}, None)
                 for g in sorted(grids)]
-        out += [(name, f"tile{t}", {(KD, "WHOLE_TILE_ROWS"): t}, {}, None)
-                for t in (64, 4096)]
-        out += [(name, "fetch32", {}, {}, 32)]
-        out += [(name, f"quads{q}", {(KD, "WHOLE_QUADS_PER_THREAD"): q}, {},
-                 None) for q in (1, 4)]
-        out += [(name, "threads256", {(KD, "WHOLE_THREADS"): 256}, {}, None)]
+        if desc:
+            out += [(name, f"tile{t}", {(KD, "WHOLE_TILE_ROWS"): t}, {},
+                     None) for t in (64, 4096)]
+            out += [(name, "fetch32", {}, {}, 32)]
+            out += [(name, f"quads{q}", {(KD, "WHOLE_QUADS_PER_THREAD"): q},
+                     {}, None) for q in (1, 4)]
+            out += [(name, "threads256", {(KD, "WHOLE_THREADS"): 256}, {},
+                     None)]
+        else:
+            out += [(name, f"rows{k}_tile{t}",
+                     {(K, "WHOLE_ROWS_PER_THREAD"): k,
+                      (K, "WHOLE_SPARSE_ROWS_PER_THREAD"): k,
+                      (K, "WHOLE_TILE_ROWS"): t}, {}, None)
+                    for k in MASK_ROWS for t in MASK_TILES]
     return out
 
 
-def sass_counts(out_path):
-    """Static SASS of the whole-vector descriptor kernels from ``cuobjdump
+#: The library and kernel whose SASS ``--layout whole`` counts, per lowering.
+WHOLE_SASS = {"descriptor": ("spc5_spmv_desc", "spmv_desc_whole_kernel"),
+              "mask": ("spc5_spmv", "spmv_whole_kernel")}
+
+
+def sass_counts(out_path, lowering):
+    """Static SASS of the lowering's whole-vector kernels from ``cuobjdump
     -sass`` on the built library: {kernel: {"instructions": n, opcode
     class: n, "decode_loop": n, "chunk_loop": n}}, the last two the
-    instructions of the innermost loop around the decode's shuffle and of
-    the outermost one around the stage wait (every width's path counted;
-    a thread runs one); the listing goes to ``out_path``."""
+    instructions of the innermost loop around a shuffle and of the
+    outermost one around the stage wait (every width's path counted; a
+    thread runs one); the listing goes to ``out_path``."""
     from repro_torch.kernels import _build
+    library, name = WHOLE_SASS[lowering]
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    text = subprocess.run([tool, "-sass", str(_build._lib_path(
-        "spc5_spmv_desc"))], capture_output=True, text=True, timeout=120,
-        check=True).stdout
+    text = subprocess.run([tool, "-sass", str(_build._lib_path(library))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
     with open(out_path, "w") as f:
         f.write(text)
     classes = {"LDS": r"LDS\b", "LDG": r"LDG\b", "ATOMS": r"ATOMS\b",
-               "RED/ATOMG": r"(RED|ATOMG)\b", "SHFL": r"SHFL\b",
-               "BAR": r"BAR\b", "LDGSTS (cp.async)": r"LDGSTS\b",
+               "RED/ATOMG": r"(REDG?|ATOMG)\b", "SHFL": r"SHFL\b",
+               "VOTE": r"VOTEU?\b", "BAR": r"BAR\b",
+               "LDGSTS (cp.async)": r"LDGSTS\b",
                "UBLKCP (bulk copy)": r"UBLKCP\b", "SYNCS (mbarrier)":
                r"SYNCS\b"}
     counts, code, kernel = {}, {}, None
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            k = re.search(r"spmv_desc_whole_kernelILi(\d)E", m.group(1))
-            kernel = f"spmv_desc_whole_kernel<{k.group(1)}>" if k else None
+            k = re.search(r"\d" + name + r"ILi(\d)E", m.group(1))
+            kernel = f"{name}<{k.group(1)}>" if k else None
             if kernel:
                 counts[kernel] = {"instructions": 0, **{c: 0 for c in classes}}
                 code[kernel] = []
@@ -184,7 +215,7 @@ def sass_counts(out_path):
         chunk = [size(lp, "SYNCS.PHASECHK") for lp in loops]
         counts[kernel]["decode_loop"] = min([n for n in decode if n] or [0])
         counts[kernel]["chunk_loop"] = max(chunk or [0])
-    print(f"SASS of the whole-vector kernels: {counts}")
+    print(f"SASS of the {lowering} whole-vector kernels: {counts}")
     return counts
 
 
@@ -194,17 +225,30 @@ def build_plans(args, device):
     _, vcsr, vocab = S.make_vocab()
     _, fem = S.make_matrix()
     plans = {}
-    if args.layout == "whole":
-        cut = {"cb": args.cb} if args.cb else {}
-        plans["token"] = (ops.prepare(vocab, device=device, tune=False, **cut)
-                          if args.cb else ops.prepare(vocab, device=device))
-        plans["fem"] = ops.prepare(
-            fem, layout="whole_vector", lowering="descriptor", tune=False,
-            device=device, **dict(S.GEOM["whole_vector"], **cut))
-        plans["flat"] = S.build_flat_test_plan(vcsr, device).multi
-        return plans
     lowerings = (("mask", "descriptor") if args.lowering == "both"
                  else (args.lowering,))
+    if args.layout == "whole":
+        cut = {"cb": args.cb} if args.cb else {}
+        fem_geom = dict(S.GEOM["whole_vector"], **cut)
+        if "mask" in lowerings:
+            vocab_cut = (dict(tune=False, **cut) if args.cb
+                         else dict(nvec=S.VOCAB["nvec"]))
+            plans["vocab mask"] = ops.prepare(
+                vocab, layout="whole_vector", lowering="mask",
+                device=device, **vocab_cut)
+            plans["fem mask"] = ops.prepare(
+                fem, layout="whole_vector", lowering="mask", tune=False,
+                device=device, **fem_geom)
+        if "descriptor" in lowerings:
+            plans["token"] = (ops.prepare(vocab, device=device, tune=False,
+                                          **cut)
+                              if args.cb else ops.prepare(vocab,
+                                                          device=device))
+            plans["fem"] = ops.prepare(
+                fem, layout="whole_vector", lowering="descriptor",
+                tune=False, device=device, **fem_geom)
+            plans["flat"] = S.build_flat_test_plan(vcsr, device).multi
+        return plans
     cut = dict(S.GEOM["panels"], **({"cb": args.cb} if args.cb else {}))
     for lowering in lowerings:
         vocab_cut = dict(layout="panels", tune=False, **cut) if args.cb \
@@ -223,7 +267,7 @@ def main() -> int:
     ap.add_argument("--layout", default="panels", choices=("panels", "whole"))
     ap.add_argument("--lowering", default="both",
                     choices=("mask", "descriptor", "both"),
-                    help="panel plans' lowering (--layout panels)")
+                    help="the plans' lowering")
     ap.add_argument("--cb", type=int, default=0,
                     help="chunk size of both plans (default: their own)")
     ap.add_argument("--label", default="")
@@ -242,15 +286,15 @@ def main() -> int:
     rng = np.random.default_rng(1)
     times, launches, read_ms = {}, {}, {}
     for key, plan in plans.items():
-        want = (("whole_vector", "descriptor") if whole
-                else ("panels", key.split()[1]))
+        want = (("whole_vector", "mask" if key.endswith("mask")
+                 else "descriptor") if whole else ("panels", key.split()[1]))
         if (plan.layout, plan.lowering) != want:
             raise S.SmokeFailure(f"{key} plan came out {plan.layout} + "
                                  f"{plan.lowering}")
         S.print_plan(key, plan)
         launches[key] = (S.whole_launches(plan) if whole
                          else S.panel_launches(plan))
-        if whole:
+        if whole and plan.lowering == "descriptor":
             read_ms[key] = S.plan_read_ms(plan)
         x = torch.from_numpy(rng.standard_normal(plan.ncols).astype(
             np.float32)).to(device)
@@ -281,9 +325,11 @@ def main() -> int:
               "times": times}
     if whole:
         result["read_ms"] = read_ms
-        result["sass"] = sass_counts(
-            (os.path.splitext(args.out)[0] if args.out else "whole")
-            + ".sass.txt")
+        base = os.path.splitext(args.out)[0] if args.out else "whole"
+        result["sass"] = {}
+        for lowering in sorted({p.lowering for p in plans.values()}):
+            result["sass"].update(sass_counts(
+                f"{base}.{WHOLE_SASS[lowering][0]}.sass.txt", lowering))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f)
