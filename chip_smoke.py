@@ -10,12 +10,14 @@ phase that goes wrong:
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
    for sm_90a, one nvcc per source, all started together, and prints the
    build time and each kernel's registers (``-Xptxas -v``);
-3. holds all fifteen kernels against their plain PyTorch versions on
+3. holds all sixteen kernels against their plain PyTorch versions on
    small matrices of every supported block shape (SpMM at nvec 3, 16 and
    128), the seven descriptor kernels also on a matrix wider and one
    taller than 32,767 (int32 ``xcol`` / ``yrow`` tables), and the test
-   split's tail kernel on three bucket geometries (the reference's tail
-   test, nrows % pr != 0, and a window wider than 12,288 columns);
+   split's two tail kernels (SpMV, and SpMM at nvec 3, 16 and 128) on
+   three bucket geometries (the reference's tail test, nrows % pr != 0,
+   and a window wider than 12,288 columns), each at its planned launch, at
+   S = 1 / G = 1 and at one group of 128 slots a CTA;
 4. SpMV path: builds ``matgen.fem_blocks(200_000, 4, 12, seed=5)``, the
    SET_A bone010 structure class at 200,000 rows (about 9.5 M nonzeros), in
    beta(4,4), and drives ``ops.prepare`` + ``ops.spmv`` through both
@@ -57,10 +59,13 @@ phase that goes wrong:
    nvec=128)``: its multi sub-plan is panels by the 2 MiB rule, lowered by
    the cost model, and its tail is bucketed by panel; batch 1 runs the
    multi SpMV kernel + ``spmv_tail_cuda``, batches of 16 and 128 the multi
-   SpMM kernel + the plain ``spmm_coo``; both panel descriptor SpMV kernels
-   also run on the multi sub-plan alone (``ops.spmv``), and both panel
-   descriptor SpMM kernels at S = 1 and one chunk a CTA, checked against
-   its plain version and the f64 product less the tail's. Beside it the
+   SpMM kernel + ``spmm_tail_cuda`` (whose launches are counted at each
+   batch); both panel descriptor SpMV kernels also run on the multi
+   sub-plan alone (``ops.spmv``), and both panel descriptor SpMM kernels at
+   S = 1 and one chunk a CTA, checked against its plain version and the
+   f64 product less the tail's; both tail kernels also alone on the tail,
+   at their planned launch, S = 1 / G = 1 and one group a CTA, against
+   their plain versions and the f64 product of the tail. Beside it the
    flat-tail plan ``ops.prepare(beta(2,4), layout="test")`` at nvec = 1:
    whole-vector multi, tail through the plain ``spmv_coo``, no tail kernel;
    both whole-vector descriptor SpMV kernels also run on its multi
@@ -80,10 +85,11 @@ phase that goes wrong:
    repeat each block's columns and rows, c ``xcol`` entries per block and
    one ``yrow`` entry; beside
    it the bound on the whole plan's bytes, the mask plan's bound for the
-   same product and the mask kernel's time on the mask plan); the tail
-   kernel beside its bound (its 12-byte slots, padding included, x and y),
-   cuSPARSE on the tail alone and its plain version, and the test layer's
-   forwards beside the default layer's and cuSPARSE on the whole weight;
+   same product and the mask kernel's time on the mask plan); both tail
+   kernels beside their bounds (the 12-byte slots, padding included, X and
+   Y), cuSPARSE on the tail alone and their plain versions, each launch
+   printed, and the test layer's forwards beside the default layer's and
+   cuSPARSE on the whole weight;
    the four panel SpMV kernels at batch 1 on the vocab layers, each beside
    its twin of the other lowering, the whole-vector mask pair at batch 1
    on its layer beside the mask panel pair, and for context plain torch
@@ -178,10 +184,14 @@ MASK_TWIN = {"spmm_cuda_panels_desc_db": "spmm_cuda_panels_db",
 #: Matrices whose whole-vector descriptor xcol (ncols) or yrow (nrows)
 #: bound needs int32 tables.
 WIDE_TALL = {"wide": (300, 40_000), "tall": (40_000, 300)}
-#: The test split's tail kernel.
+#: The test split's tail kernels: SpMV, and the bucketed SpMM tail, which
+#: replaces no TPU kernel (the reference computes it with jnp).
 TAIL_KERNEL = "spmv_tail_cuda"
+SPMM_TAIL_KERNEL = "spmm_tail_cuda"
 TAIL_SOURCE = "src/repro_torch/kernels/csrc/spc5_spmv_tail.cu"
 TAIL_REPLACES = "src/repro/kernels/spc5_spmv.py:558"
+SPMM_TAIL_REPLACES = ("no TPU kernel (the reference's jnp spmm_coo, "
+                      "src/repro/core/ref_spmv.py:352)")
 #: beta(2,4), one of the two shapes the reference's bench runs the paper's
 #: beta_test variants on (benchmarks/bench_spmv_seq.py:207-217).
 TEST_BLOCK = (2, 4)
@@ -228,6 +238,9 @@ def build_kernels() -> None:
                               f"{','.join(([m.group(2)] if m.group(2) else []) + targs)}>")
                 elif "spmv_tail_kernel" in line:
                     kernel = "spmv_tail_kernel"
+                elif re.search(r"spmm_tail_kernelILi\d", line):
+                    v = re.search(r"spmm_tail_kernelILi(\d)", line).group(1)
+                    kernel = f"spmm_tail_kernel<{v}>"
                 else:
                     kernel = line.split("'")[1]
             elif "Used" in line and kernel:
@@ -241,23 +254,42 @@ def build_kernels() -> None:
 
 def tail_y(plan, x):
     """A test plan's singleton tail times x (1-D) or X (2-D), in plain
-    PyTorch: ``spmv_coo_panels`` (the tail kernel's plain version) for
-    panel buckets, ``spmv_coo`` for a flat tail, ``spmm_coo`` for SpMM."""
-    import torch
+    PyTorch: for panel buckets ``spmv_coo_panels`` / ``spmm_coo_panels``
+    (the tail kernels' plain versions), for a flat tail ``spmv_coo`` /
+    ``spmm_coo``."""
     from repro_torch.core import ref_spmv as R
     rows, cols, vals = plan.single_rows, plan.single_cols, plan.single_values
-    if x.dim() == 1:
-        if plan.tail_pr:
-            return R.spmv_coo_panels(rows, cols, vals, x, pr=plan.tail_pr,
-                                     nrows=plan.nrows)
-        return R.spmv_coo(rows, cols, vals, x, nrows=plan.nrows)
-    if not plan.tail_pr:
-        return R.spmm_coo(rows, cols, vals, x, nrows=plan.nrows)
-    npanels = rows.shape[0]
-    grows = (torch.arange(npanels, dtype=rows.dtype, device=rows.device)
-             [:, None] * plan.tail_pr + rows)
-    return R.spmm_coo(grows.reshape(-1), cols.reshape(-1), vals.reshape(-1),
-                      x, nrows=npanels * plan.tail_pr)[:plan.nrows]
+    if plan.tail_pr:
+        fn = R.spmv_coo_panels if x.dim() == 1 else R.spmm_coo_panels
+        return fn(rows, cols, vals, x, pr=plan.tail_pr, nrows=plan.nrows)
+    fn = R.spmv_coo if x.dim() == 1 else R.spmm_coo
+    return fn(rows, cols, vals, x, nrows=plan.nrows)
+
+
+def tail_launch(plan, nvec=None, x=None, **forced):
+    """The launch a tail wrapper makes on the plan's buckets: the SpMV
+    kernel's (``nvec`` None: S, grid, threads, shared bytes, groups, CTAs
+    per SM) or the SpMM kernel's at batch nvec on X (G, grid, tile, columns
+    a lane, threads, Y-tile rows, shared bytes, CTAs per SM), each with the
+    kernel's registers (``-Xptxas -v``); ``forced``: ``split`` or ``grid``.
+    On the CPU only what needs no card."""
+    from repro_torch.kernels import spc5_spmm as KM
+    from repro_torch.kernels import spc5_spmv_tail as KT
+    npanels, smax = plan.single_rows.shape
+    if nvec is None:
+        if plan.device.type != "cuda":
+            return dict(threads=KT.TAIL_THREADS, smem_bytes=0,
+                        groups=KT.tail_groups(smax))
+        out = KT.tail_launch(npanels, smax, device=plan.device, **forced)
+        out["registers"] = REGISTERS.get("spmv_tail_kernel")
+        return out
+    vec = KM.panels_vector(nvec, x)
+    if plan.device.type != "cuda":
+        return KT.spmm_tail_cta(nvec, vec)
+    out = KT.spmm_tail_launch(npanels * smax, nvec, vec, device=plan.device,
+                              **forced)
+    out["registers"] = REGISTERS.get(f"spmm_tail_kernel<{out['vector']}>")
+    return out
 
 
 def plain_y(plan, x):
@@ -295,7 +327,7 @@ SMALL_GEOM = {"whole_vector": dict(cb=16),
 
 
 def small_check(device) -> None:
-    """All fifteen kernels against their plain versions, every block
+    """All sixteen kernels against their plain versions, every block
     shape, several chunks and panels (302x260, cb=16, pr=xw=64); the SpMM
     kernels at nvec 3, 16 and 128; the descriptor kernels also on the
     :data:`WIDE_TALL` matrices, whose whole-vector xcol / yrow tables are
@@ -347,13 +379,14 @@ def small_check(device) -> None:
                                    f"err {err}")
     worst = max(worst, small_check_tail(device))
     nkernels = (len(KERNELS) + len(SPMM_KERNELS) + len(DESC_SPMM_KERNELS)
-                + 1)
-    print(f"small check: {nkernels} kernels: {nkernels - 1} x "
+                + 2)
+    print(f"small check: {nkernels} kernels: {nkernels - 2} x "
           f"{len(F.SUPPORTED_BLOCKS)} block shapes (SpMM at nvec 3, 16, 128), "
           f"the 7 descriptor kernels on the {' and '.join(WIDE_TALL)} "
-          f"matrices (int32 xcol / yrow), {TAIL_KERNEL} on "
-          f"{len(TAIL_SMALL)} bucket geometries; all agree with the plain "
-          f"versions (worst {worst:.3g} of max|y|)")
+          f"matrices (int32 xcol / yrow), {TAIL_KERNEL} and "
+          f"{SPMM_TAIL_KERNEL} (nvec 3, 16, 128) on {len(TAIL_SMALL)} bucket "
+          f"geometries, each also at S = 1 / G = 1 and one group a CTA; all "
+          f"agree with the plain versions (worst {worst:.3g} of max|y|)")
 
 
 #: The tail kernel's small geometries: the reference's tail test
@@ -367,9 +400,12 @@ TAIL_SMALL = {
 
 
 def small_check_tail(device) -> float:
-    """``spmv_tail_cuda`` against ``spmv_coo_panels`` on each
-    :data:`TAIL_SMALL` geometry in beta(2,4), and the whole test plan's SpMV
-    against its plain version. Returns the worst error over max|y|."""
+    """``spmv_tail_cuda`` against ``spmv_coo_panels`` and ``spmm_tail_cuda``
+    against ``spmm_coo_panels`` (nvec 3, 16 and 128) on each
+    :data:`TAIL_SMALL` geometry in beta(2,4), each at its planned launch, at
+    S = 1 / G = 1 and at one group of slots a CTA, and the whole test
+    plan's SpMV and SpMM against their plain versions. Returns the worst
+    error over max|y|."""
     import torch
     from repro_torch.core import formats as F
     from repro_torch.core import matgen
@@ -388,28 +424,45 @@ def small_check_tail(device) -> float:
         plan = ops.prepare(F.csr_to_spc5(csr, *TEST_BLOCK), layout="test",
                            multi_layout="panels", lowering="mask",
                            tune=False, device=device, **geom)
+        smax = int(plan.single_rows.shape[1])
         shape = dict(nrows=plan.nrows, pr=plan.tail_pr, xw=plan.tail_xw,
-                     smax=int(plan.single_rows.shape[1]))
+                     smax=smax)
         if ((kind == "wide" and plan.tail_xw <= 12_288)
                 or (n == 330 and n % plan.tail_pr == 0)):
             raise SmokeFailure(f"small check: tail geometry {label} is "
                                f"{shape}")
-        x = torch.from_numpy(np.random.default_rng(5).standard_normal(
-            plan.ncols).astype(np.float32)).to(device)
-        y = KT.spmv_tail_cuda(plan.tail_xbase, plan.single_rows,
-                              plan.single_cols, plan.single_values, x,
-                              pr=plan.tail_pr, xw=plan.tail_xw,
-                              nrows=plan.nrows,
-                              ncols_pad=plan.tail_ncols_pad)
-        for what, got, want in (("tail", y, tail_y(plan, x)),
-                                ("plan", ops.spmv(plan, x),
-                                 plain_y(plan, x))):
+        rng = np.random.default_rng(5)
+        x = torch.from_numpy(rng.standard_normal(plan.ncols).astype(
+            np.float32)).to(device)
+        buckets = (plan.single_rows, plan.single_cols, plan.single_values)
+        kw = dict(pr=plan.tail_pr, xw=plan.tail_xw, nrows=plan.nrows,
+                  ncols_pad=plan.tail_ncols_pad)
+        runs = [(f"{TAIL_KERNEL} S={split}", KT.spmv_tail_cuda(
+                    plan.tail_xbase, *buckets, x, **kw,
+                    **({} if split is None else {"split": split})),
+                 tail_y(plan, x))
+                for split in (None, 1, KT.tail_groups(smax))]
+        runs.append(("plan SpMV", ops.spmv(plan, x), plain_y(plan, x)))
+        for nvec in (3, 16, 128):
+            xm = torch.from_numpy(rng.standard_normal(
+                (plan.ncols, nvec)).astype(np.float32)).to(device)
+            plain = tail_y(plan, xm)
+            runs += [(f"{SPMM_TAIL_KERNEL} nvec={nvec} G={grid}",
+                      KT.spmm_tail_cuda(
+                          *buckets, xm, pr=plan.tail_pr, nrows=plan.nrows,
+                          **({} if grid is None else {"grid": grid})), plain)
+                     for grid in (None, 1,
+                                  KT.tail_groups(plan.single_rows.numel()))]
+            runs.append((f"plan SpMM nvec={nvec}", ops.spmm(plan, xm),
+                         plain_y(plan, xm)))
+        for what, got, want in runs:
             err = rel_err(got, want)
             worst = max(worst, err)
-            if tuple(got.shape) != (plan.nrows,) or not err <= TOL:
-                raise SmokeFailure(f"small check: {TAIL_KERNEL} {what} "
-                                   f"{label} {shape}: rel err {err}")
-        print(f"  {TAIL_KERNEL} {label}: {shape}")
+            if tuple(got.shape) != tuple(want.shape) or not err <= TOL:
+                raise SmokeFailure(f"small check: {what} {label} {shape}: "
+                                   f"rel err {err}")
+        print(f"  tail kernels {label}: {shape}; launches "
+              f"{tail_launch(plan)}, nvec=16 {tail_launch(plan, 16)}")
     return worst
 
 
@@ -708,17 +761,23 @@ def check(plans, ys, launches, x, y64):
     return errs
 
 
-def cuda_time_ms(fn, device, reps=REPS):
+def cuda_time_ms(fn, device, reps=REPS, clean=False):
     """Median device time of ``fn`` in ms: CUDA events around each call,
     after warm-up, with the L2 cache flushed (a 512 MiB write) before
-    every call. Prints the spread (min and max of the calls)."""
+    every call. Prints the spread (min and max of the calls). ``clean``
+    flushes by reading the 512 MiB instead, so that L2 holds clean lines
+    and the call's reads evict nothing that must be written back (context:
+    the main path's numbers all use the write)."""
     import torch
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=device)
     for _ in range(3):
         fn()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        if clean:
+            flush.sum()
+        else:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -775,6 +834,13 @@ def desc_bounds(plan, mask_plan, nnz, nvec=1):
     print(f"    mask plan's bound {out['mask_bound_ms']:.4f} ms, bound on "
           f"the whole descriptor plan's bytes {out['plan_bound_ms']:.4f} ms")
     return out
+
+
+def scipy_csr(m, device):
+    """A scipy CSR (a tail's) as a ``torch.sparse_csr_tensor``."""
+    from repro_torch.core import formats as F
+    return sparse_csr(F.CSRMatrix(m.shape, m.indptr, m.indices, m.data),
+                      device)
 
 
 def sparse_csr(csr, device):
@@ -1491,18 +1557,24 @@ MULTI_SPMV = {"spmv_cuda_panels_desc_db": True,
 def drive_test(layer, flat, x1, acts, device):
     """(a) the test layer's forward at batch 1 and at every SpMM batch, and
     ``ops.spmv`` on its multi sub-plan alone with both buffer settings;
-    (b) ``ops.spmv`` on the flat-tail plan. Launch counts of each run."""
+    (b) ``ops.spmv`` on the flat-tail plan. Launch counts of each run; (a)'s
+    also holds the SpMM tail kernel's launches at each batch
+    (``"spmm_tail_cuda nvec=<n>"``)."""
     import torch
     from repro_torch.kernels import ops
     counts = reset_all_launches()
     ys = {1: layer(x1)}
     for name, db in MULTI_SPMV.items():
         ys[name] = ops.spmv(layer.plan.multi, x1, double_buffer=db)
+    per_nvec = {}
     for nvec, a in acts.items():
+        before = counts()[SPMM_TAIL_KERNEL]
         ys[nvec] = layer(a).t()
+        per_nvec[f"{SPMM_TAIL_KERNEL} nvec={nvec}"] = (
+            counts()[SPMM_TAIL_KERNEL] - before)
     if device.type == "cuda":
         torch.cuda.synchronize()
-    launches_a = counts()
+    launches_a = dict(counts(), **per_nvec)
     counts = reset_all_launches()
     y_flat = ops.spmv(flat, x1)
     if device.type == "cuda":
@@ -1512,18 +1584,21 @@ def drive_test(layer, flat, x1, acts, device):
 
 def check_test(layer, flat, ys, y_flat, launches_a, launches_b, x1, acts,
                csr):
-    """(a) launched the tail kernel and the multi SpMV and SpMM kernels,
-    (b) the multi SpMV kernel and no tail kernel; every output within
-    tolerance of the plain path on the card and of the f64 product."""
+    """(a) launched both tail kernels (the SpMM one at every batch) and the
+    multi SpMV and SpMM kernels, (b) the multi SpMV kernel and no tail
+    kernel; every output within tolerance of the plain path on the card and
+    of the f64 product."""
     plan = layer.plan
     for name in (TAIL_KERNEL, kernel_name(plan.multi),
-                 kernel_name(plan.multi, spmm=True)):
+                 kernel_name(plan.multi, spmm=True), SPMM_TAIL_KERNEL,
+                 *(f"{SPMM_TAIL_KERNEL} nvec={n}" for n in acts)):
         if launches_a.get(name, 0) <= 0:
             raise SmokeFailure(f"{name} was not launched on the test path "
                                f"(counts {launches_a})")
     flat_name = kernel_name(flat.multi)
-    if launches_b.get(TAIL_KERNEL, 0) != 0 or launches_b.get(flat_name,
-                                                             0) <= 0:
+    if (launches_b.get(TAIL_KERNEL, 0) != 0
+            or launches_b.get(SPMM_TAIL_KERNEL, 0) != 0
+            or launches_b.get(flat_name, 0) <= 0):
         raise SmokeFailure(f"the flat-tail plan's launches are "
                            f"{launches_b}")
     a64 = f64_matrix(csr)
@@ -1534,8 +1609,9 @@ def check_test(layer, flat, ys, y_flat, launches_a, launches_b, x1, acts,
     for nvec, act in acts.items():
         x = act.t().contiguous()
         xh = x.cpu().double().numpy()
-        check_spmm(f"{kernel_name(plan.multi, spmm=True)} + spmm_coo",
-                   ys[nvec], plan, x, a64 @ xh, "test path (a)")
+        check_spmm(f"{kernel_name(plan.multi, spmm=True)} + "
+                   f"{SPMM_TAIL_KERNEL}", ys[nvec], plan, x, a64 @ xh,
+                   "test path (a)")
         # the multi sub-plan alone: the whole weight's product less the
         # tail's
         check_panel_spmm(plan.multi, x, a64 @ xh - tail @ xh,
@@ -1585,60 +1661,89 @@ def tail_parts(plan):
     return args, kw, tail
 
 
-def check_tail(plan, x1):
-    """The tail kernel alone against its plain version on the card and the
-    f64 product of the tail. Returns max|y - plain| and the tail's CSR."""
+def check_tail(plan, x1, acts):
+    """Both tail kernels alone against their plain versions on the card and
+    the f64 product of the tail: ``spmv_tail_cuda`` at its planned launch,
+    S = 1 and one group a CTA; ``spmm_tail_cuda`` at every batch at its
+    planned launch, G = 1 and one group a CTA (each launch printed).
+    Returns max|y - plain| of each at its planned launch and the tail's
+    CSR."""
     import torch
     from repro_torch.kernels import spc5_spmv_tail as KT
     args, kw, tail = tail_parts(plan)
-    y = KT.spmv_tail_cuda(*args, x1, **kw)
-    plain = tail_y(plan, x1)
-    abs_err = float((y - plain).abs().max())
-    y64 = tail @ x1.cpu().double().numpy()
-    e_plain, e64 = rel_err(y, plain), rel_err(y, torch.from_numpy(y64))
-    print(f"check {TAIL_KERNEL} alone: max|y - plain| = {abs_err:.3g} "
-          f"({e_plain:.3g} of max|y|), vs f64 scipy {e64:.3g} of max|y|")
-    if not (e_plain <= TOL and e64 <= TOL):
-        raise SmokeFailure(f"{TAIL_KERNEL} disagrees: {e_plain} / {e64} > "
-                           f"{TOL}")
-    return abs_err, tail
+    npanels, smax = plan.single_rows.shape
+    runs = []
+    for split in (None, 1, KT.tail_groups(smax)):
+        forced = {} if split is None else {"split": split}
+        runs.append((TAIL_KERNEL, forced, x1, KT.spmv_tail_cuda(
+            *args, x1, **kw, **forced), tail_launch(plan, **forced)))
+    for nvec, act in acts.items():
+        x = act.t().contiguous()
+        for grid in (None, 1, KT.tail_groups(npanels * smax)):
+            forced = {} if grid is None else {"grid": grid}
+            runs.append((SPMM_TAIL_KERNEL, forced, x, KT.spmm_tail_cuda(
+                *args[1:], x, pr=plan.tail_pr, nrows=plan.nrows, **forced),
+                tail_launch(plan, nvec, x, **forced)))
+    abs_err = {}
+    for name, forced, x, y, launch in runs:
+        if y.is_cuda:
+            torch.cuda.synchronize()
+        plain = tail_y(plan, x)
+        y64 = tail @ x.cpu().double().numpy()
+        e_plain, e64 = rel_err(y, plain), rel_err(y, torch.from_numpy(y64))
+        what = f"{name}{'' if x.dim() == 1 else f' nvec={x.shape[1]}'}"
+        print(f"check {what} alone {forced or 'planned'}: max|y - plain| = "
+              f"{float((y - plain).abs().max()):.3g} ({e_plain:.3g} of "
+              f"max|y|), vs f64 scipy {e64:.3g} of max|y|; launch {launch}")
+        if not (e_plain <= TOL and e64 <= TOL and y.shape == plain.shape):
+            raise SmokeFailure(f"{what} {forced} disagrees: {e_plain} / "
+                               f"{e64} > {TOL}")
+        if not forced:
+            abs_err[name] = max(abs_err.get(name, 0.0),
+                                float((y - plain).abs().max()))
+    return abs_err[TAIL_KERNEL], abs_err[SPMM_TAIL_KERNEL], tail
+
+
+def tail_bound(plan, nvec=1, ops=None):
+    """The least time of a tail kernel: the buckets' bytes (12 a slot,
+    padding included, and for SpMV the window starts), X read once and Y
+    written once, over the HBM rate; 2 flops per slot and column (SpMV, which
+    multiplies the padding) or per singleton and column (SpMM, which skips
+    it; ``ops``) over the f32 rate. Returns (ms, "bytes" | "operations",
+    bytes)."""
+    slots = plan.single_rows.numel()
+    nbytes = 12 * slots + 4 * nvec * (plan.ncols + plan.nrows)
+    if nvec == 1:
+        nbytes += 4 * plan.tail_xbase.numel()
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * (slots if ops is None else ops) * nvec / F32_FLOP_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
 
 def measure_test(layer, flat, default, x1, acts, csr, tail, launches,
-                 abs_err, library, multi_errs, timer=cuda_time_ms):
-    """The tail kernel beside its bound, its plain version and cuSPARSE on
-    the tail alone; the test layer's forwards beside the default layer's
-    and cuSPARSE on the whole weight; the parts of each forward, the two
-    panel descriptor SpMV kernels on the multi sub-plan included; the
-    flat-tail plan's SpMV. Returns the tail kernel's JSON row and the
-    multi's numbers of those two kernels."""
+                 abs_err, spmm_abs_err, library, multi_errs,
+                 timer=cuda_time_ms):
+    """Both tail kernels beside their bounds, their plain versions and
+    cuSPARSE on the tail alone (SpMV at batch 1, SpMM at every batch); the
+    test layer's forwards beside the default layer's and cuSPARSE on the
+    whole weight; the parts of each forward, the two panel descriptor SpMV
+    kernels on the multi sub-plan included; the flat-tail plan's SpMV.
+    Returns the multi's numbers of those two kernels and the two tail
+    kernels' JSON rows."""
     import torch
-    from repro_torch.core import formats as F
     from repro_torch.kernels import ops
     from repro_torch.kernels import spc5_spmv_tail as KT
     device = x1.device
     plan = layer.plan
     args, kw, _ = tail_parts(plan)
-    print(f"  test: timing {TAIL_KERNEL}")
-    ms = timer(lambda: KT.spmv_tail_cuda(*args, x1, **kw), device)
-    print("  test: timing the plain version (spmv_coo_panels)")
-    plain_ms = timer(lambda: tail_y(plan, x1), device)
-    tail_t = sparse_csr(F.CSRMatrix(tail.shape, tail.indptr, tail.indices,
-                                    tail.data), device)
-    print("  test: timing cuSPARSE on the tail alone (torch.mv)")
-    library_ms = timer(lambda: torch.mv(tail_t, x1), device)
-    slots = plan.single_rows.numel()
-    nbytes = 12 * slots + 4 * (plan.tail_xbase.numel() + plan.ncols
-                               + plan.nrows)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * slots / F32_FLOP_PER_S
-    bound_ms = 1e3 * max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    print(f"time {TAIL_KERNEL}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"cuSPARSE on the tail {library_ms:.4f} ms, bound {bound_ms:.4f} "
-          f"ms by {bound_by} ({nbytes} bytes, {slots} slots)")
+    tail_t = scipy_csr(tail, device)
     csr_t = sparse_csr(csr, device)
     multi = plan.multi
     parts = {
+        "spmv_tail": lambda: KT.spmv_tail_cuda(*args, x1, **kw),
+        "spmv_coo_panels": lambda: tail_y(plan, x1),
+        "cusparse_tail_batch1": lambda: torch.mv(tail_t, x1),
         "cusparse_batch1": lambda: torch.mv(csr_t, x1),
         "default_batch1": lambda: default(x1),
         "test_batch1": lambda: layer(x1),
@@ -1659,26 +1764,51 @@ def measure_test(layer, flat, default, x1, acts, csr, tail, launches,
                 kernel_name(multi, spmm=True), multi, x),
             f"multi_spmm_s1_nvec{nvec}": kernel_call(
                 "spmm_cuda_panels_desc", multi, x),
-            f"spmm_coo_nvec{nvec}": lambda x=x: tail_y(plan, x)})
+            f"spmm_tail_nvec{nvec}": lambda x=x: KT.spmm_tail_cuda(
+                *args[1:], x, pr=plan.tail_pr, nrows=plan.nrows),
+            f"spmm_coo_panels_nvec{nvec}": lambda x=x: tail_y(plan, x),
+            f"cusparse_tail_nvec{nvec}": lambda x=x: tail_t @ x})
     parts["multi_spmv_s1"] = kernel_call("spmv_cuda_panels_desc", multi, x1)
     forwards = {}
     for key, fn in parts.items():
         print(f"  test: timing {key}")
         forwards[key] = timer(fn, device)
+    slots = plan.single_rows.numel()
+    b_ms, b_by, b_bytes = tail_bound(plan)
+    print(f"time {TAIL_KERNEL}: {forwards['spmv_tail']:.4f} ms, plain "
+          f"{forwards['spmv_coo_panels']:.4f} ms, cuSPARSE on the tail "
+          f"{forwards['cusparse_tail_batch1']:.4f} ms, bound {b_ms:.4f} ms "
+          f"by {b_by} ({b_bytes} bytes, {slots} slots); launch "
+          f"{tail_launch(plan)}")
+    spmm_per = {}
+    for nvec, act in acts.items():
+        sb = tail_bound(plan, nvec, ops=plan.n_single)
+        spmm_per[nvec] = {
+            "ms": forwards[f"spmm_tail_nvec{nvec}"],
+            "plain_ms": forwards[f"spmm_coo_panels_nvec{nvec}"],
+            "bound_ms": sb[0], "bound_by": sb[1], "bound_bytes": sb[2],
+            "library_ms": forwards[f"cusparse_tail_nvec{nvec}"],
+            "launch": tail_launch(plan, nvec, act.t().contiguous())}
+        print(f"time {SPMM_TAIL_KERNEL} nvec={nvec}: "
+              f"{spmm_per[nvec]['ms']:.4f} ms, plain "
+              f"{spmm_per[nvec]['plain_ms']:.4f} ms, cuSPARSE on the tail "
+              f"{spmm_per[nvec]['library_ms']:.4f} ms, bound {sb[0]:.4f} ms "
+              f"by {sb[1]} ({sb[2]} bytes); launch "
+              f"{spmm_per[nvec]['launch']}")
     print(f"time test layer (a), batch 1: {forwards['test_batch1']:.4f} ms "
           f"({kernel_name(multi)} {forwards['multi_spmv']:.4f} + "
-          f"{TAIL_KERNEL} {ms:.4f}); default layer "
+          f"{TAIL_KERNEL} {forwards['spmv_tail']:.4f}); default layer "
           f"{forwards['default_batch1']:.4f} ms; cuSPARSE on the whole "
           f"weight {forwards['cusparse_batch1']:.4f} ms")
     for nvec in acts:
         print(f"time test layer (a), nvec={nvec}: "
               f"{forwards[f'test_nvec{nvec}']:.4f} ms "
               f"({kernel_name(multi, spmm=True)} "
-              f"{forwards[f'multi_spmm_nvec{nvec}']:.4f} + spmm_coo "
-              f"{forwards[f'spmm_coo_nvec{nvec}']:.4f}); default layer "
-              f"{forwards[f'default_nvec{nvec}']:.4f} ms; cuSPARSE SpMM "
-              f"{library[nvec]:.4f} ms; spmm_cuda_panels_desc on the multi "
-              f"{forwards[f'multi_spmm_s1_nvec{nvec}']:.4f} ms")
+              f"{forwards[f'multi_spmm_nvec{nvec}']:.4f} + "
+              f"{SPMM_TAIL_KERNEL} {forwards[f'spmm_tail_nvec{nvec}']:.4f}); "
+              f"default layer {forwards[f'default_nvec{nvec}']:.4f} ms; "
+              f"cuSPARSE SpMM {library[nvec]:.4f} ms; spmm_cuda_panels_desc "
+              f"on the multi {forwards[f'multi_spmm_s1_nvec{nvec}']:.4f} ms")
     multi_bound = bound(multi, plan.nnz - plan.n_single)
     print(f"time {kernel_name(multi)} / spmv_cuda_panels_desc on the multi "
           f"sub-plan, batch 1: {forwards['multi_spmv']:.4f} / "
@@ -1699,13 +1829,24 @@ def measure_test(layer, flat, default, x1, acts, csr, tail, launches,
         "plan_bound_ms": bound(multi, plan.nnz - plan.n_single,
                                whole_plan=True)[0]}
         for name, db in MULTI_SPMV.items()}
+    big = VOCAB["nvec"]
+    spmm_row = {
+        "name": SPMM_TAIL_KERNEL, "route": "cuda", "source": TAIL_SOURCE,
+        "replaces": SPMM_TAIL_REPLACES,
+        "launches": launches[SPMM_TAIL_KERNEL],
+        "max_abs_err": spmm_abs_err,
+        **{k: v for k, v in spmm_per[big].items() if k != "launch"},
+        "nvec": big, **{f"nvec_{n}": spmm_per[n] for n in acts if n != big},
+        "launch": spmm_per[big]["launch"], "slots": slots,
+        "n_single": plan.n_single}
     return multi_rows, {
         "name": TAIL_KERNEL, "route": "cuda", "source": TAIL_SOURCE,
         "replaces": TAIL_REPLACES, "launches": launches[TAIL_KERNEL],
-        "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms, "bound_bytes": nbytes, "slots": slots,
-        "n_single": plan.n_single, "test_path_ms": forwards}
+        "max_abs_err": abs_err, "ms": forwards["spmv_tail"],
+        "plain_ms": forwards["spmv_coo_panels"], "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": forwards["cusparse_tail_batch1"],
+        "bound_bytes": b_bytes, "slots": slots, "n_single": plan.n_single,
+        "launch": tail_launch(plan), "test_path_ms": forwards}, spmm_row
 
 
 def main() -> int:
@@ -1789,10 +1930,11 @@ def main() -> int:
         multi_errs = check_test(test_layer, flat, ys, y_flat, la, lb, x1,
                                 acts, vcsr)
         del ys, y_flat
-        tail_err, tail = check_tail(test_layer.plan, x1)
-        multi, tail_row = measure_test(
+        tail_err, spmm_tail_err, tail = check_tail(test_layer.plan, x1,
+                                                   acts)
+        multi, tail_row, spmm_tail_row = measure_test(
             test_layer, flat, layers["panels", "descriptor"], x1, acts, vcsr,
-            tail, la, tail_err, library, multi_errs)
+            tail, la, tail_err, spmm_tail_err, library, multi_errs)
         for row in rows:
             if row["name"] in multi:
                 row["test_multi_batch1"] = multi[row["name"]]
@@ -1800,7 +1942,7 @@ def main() -> int:
                 row["flat_multi_batch1_ms"] = tail_row["test_path_ms"][
                     "flat_multi_spmv" + ("" if row["name"].endswith("_db")
                                          else "_s1")]
-        rows.append(tail_row)
+        rows += [tail_row, spmm_tail_row]
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

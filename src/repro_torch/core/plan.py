@@ -773,20 +773,18 @@ def _lower_spmv_test(plan: SPC5Plan, x, *, double_buffer):
 
 
 def _lower_spmm_test(plan: SPC5Plan, x, *, nvt, double_buffer):
-    """The multi sub-plan's SpMM plus the tail's, which is the plain
-    ``spmm_coo`` on every device (the reference has no kernel for it)."""
+    """The multi sub-plan's SpMM plus the tail's: the CUDA tail kernel (or,
+    for a plan on the CPU, its plain version ``spmm_coo_panels``) for panel
+    buckets; for a flat tail the plain ``spmm_coo`` on any device, as the
+    reference computes it outside any kernel."""
     y = execute_spmm(plan.multi, x, nvt=nvt, double_buffer=double_buffer)
     if plan.single_values.numel():
         rows, cols, vals = (plan.single_rows, plan.single_cols,
                             plan.single_values)
-        if plan.tail_pr:                # bucketed: panel-local -> global rows
-            npanels = rows.shape[0]
-            rows = (torch.arange(npanels, dtype=rows.dtype,
-                                 device=rows.device)[:, None]
-                    * plan.tail_pr + rows)
-            tail = R.spmm_coo(rows.reshape(-1), cols.reshape(-1),
-                              vals.reshape(-1), x,
-                              nrows=npanels * plan.tail_pr)[:plan.nrows]
+        if plan.tail_pr:
+            tail = spc5_spmv_tail.spmm_tail_cuda(
+                rows, cols, vals, x, pr=plan.tail_pr, nrows=plan.nrows,
+                nvt=nvt)
         else:
             tail = R.spmm_coo(rows, cols, vals, x, nrows=plan.nrows)
         y = y + tail

@@ -5,7 +5,9 @@ device-agnostic, mirroring the reference's jnp oracle
 (``repro.core.ref_spmv.spmv`` / ``spmv_panels`` / ``spmm`` /
 ``spmm_panels`` / ``spmv_desc`` / ``spmv_panels_desc`` / ``spmm_desc`` /
 ``spmm_panels_desc`` and the beta(r,c)_test tail's ``spmv_coo`` /
-``spmm_coo`` / ``spmv_coo_panels``) for f32 values.
+``spmm_coo`` / ``spmv_coo_panels``, with the bucketed SpMM tail that the
+reference's test layout computes inline as ``spmm_coo_panels``) for f32
+values.
 The CPU tests run them in place of the CUDA kernels, and ``chip_smoke.py``
 holds every kernel against them on the card. The mask decode is
 
@@ -385,3 +387,20 @@ def spmv_coo_panels(rows: torch.Tensor, cols: torch.Tensor,
     y = torch.zeros(npanels * pr, dtype=prod.dtype, device=prod.device)
     y.index_add_(0, grow.reshape(-1), prod.reshape(-1))
     return y[:nrows]
+
+
+def spmm_coo_panels(rows: torch.Tensor, cols: torch.Tensor,
+                    vals: torch.Tensor, x: torch.Tensor, *, pr: int,
+                    nrows: int) -> torch.Tensor:
+    """Y = the panel-bucketed singleton tail times X (ncols, nvec): the
+    (npanels, smax) buckets' panel-local rows made global (``p * pr +
+    row``), then :func:`spmm_coo` over the flattened slots and npanels * pr
+    rows, cut at nrows. Padding slots are multiplied like any other, as the
+    reference's test layout multiplies them (it computes this outside any
+    kernel, in ``_lower_spmm_test``). The plain version of
+    ``spmm_tail_cuda``."""
+    npanels = rows.shape[0]
+    grows = (torch.arange(npanels, dtype=rows.dtype, device=rows.device)
+             [:, None] * pr + rows)
+    return spmm_coo(grows.reshape(-1), cols.reshape(-1), vals.reshape(-1),
+                    x, nrows=npanels * pr)[:nrows]

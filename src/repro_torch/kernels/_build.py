@@ -77,7 +77,11 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "spc5_spmm_desc_panels_smem": [_I] * 10,
     },
     "spc5_spmv_tail": {
-        "spc5_spmv_tail": [_P] * 6 + [_I] * 7 + [_P],
+        "spc5_spmv_tail": [_P] * 6 + [_I] * 10 + [_P],
+        "spc5_spmv_tail_occupancy": [_I] * 2 + [_P],
+        "spc5_spmm_tail": [_P] * 5 + [_I] * 13 + [_P],
+        "spc5_spmm_tail_occupancy": [_I] * 4 + [_P],
+        "spc5_spmm_tail_smem": [_I] * 4,
     },
 }
 

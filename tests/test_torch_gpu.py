@@ -2423,8 +2423,9 @@ def test_tail_kernel_refuses_other_dtypes(cuda):
 def test_test_plan_on_the_card_matches_the_cpu_plan(cuda, multi_layout,
                                                     lowering):
     """SpMV (multi kernel + tail: the tail kernel for panel buckets,
-    spmv_coo for a flat tail) and SpMM (multi kernel + spmm_coo) of a test
-    plan on the card against the same plan on the CPU."""
+    spmv_coo for a flat tail) and SpMM (multi kernel + tail: the SpMM tail
+    kernel for panel buckets, spmm_coo for a flat tail) of a test plan on
+    the card against the same plan on the CPU."""
     mat = F.csr_to_spc5(matgen.powerlaw(2_000, 6, seed=9), 2, 4)
     kw = dict(layout="test", multi_layout=multi_layout, lowering=lowering,
               tune=False, pr=64, xw=64, cb=16)
@@ -2441,3 +2442,259 @@ def test_test_plan_on_the_card_matches_the_cpu_plan(cuda, multi_layout,
         err = float((y.cpu() - ref).abs().max())
         assert err <= RTOL * float(ref.abs().max()), err
     assert KT.LAUNCHES["spmv_tail_cuda"] == (multi_layout == "panels")
+    assert KT.LAUNCHES["spmm_tail_cuda"] == (multi_layout == "panels")
+
+
+# ----------------------------------------------------------------------------
+# both tail kernels (spmv_tail_cuda, spmm_tail_cuda): planned and forced
+# grids, permuted and misaligned buckets, NaN where no slot reads, refused
+# launches
+# ----------------------------------------------------------------------------
+
+_TTAIL_PLANS = {}
+
+#: Batches of the SpMM tail: 1 to 256 under the nvt rule (nvec a multiple of
+#: min(128, nvec)), four, two and one columns a lane.
+_TTAIL_NVECS = (1, 2, 3, 16, 100, 128, 256)
+
+
+def _ttail_plan(case, rc, cuda):
+    """The test plan of a TAIL_CASES geometry on the card, built once."""
+    key = (case, rc)
+    if key not in _TTAIL_PLANS:
+        _TTAIL_PLANS[key] = _tail_plan(case, rc, cuda)
+    plan = _TTAIL_PLANS[key]
+    if not plan.n_single:
+        pytest.skip(f"no singleton blocks in beta{rc} for {case}")
+    return plan
+
+
+def _ttail_spmv(plan, x, **kw):
+    """spmv_tail_cuda on the plan's buckets (one launch) and its plain
+    version."""
+    args, akw = _tail_args(plan)
+    before = KT.LAUNCHES["spmv_tail_cuda"]
+    y = KT.spmv_tail_cuda(*args, x, **akw, **kw)
+    torch.cuda.synchronize()
+    assert KT.LAUNCHES["spmv_tail_cuda"] == before + 1
+    return y, R.spmv_coo_panels(*args[1:], x, pr=plan.tail_pr,
+                                nrows=plan.nrows)
+
+
+def _ttail_spmm(plan, x, buckets=None, **kw):
+    """spmm_tail_cuda on the plan's buckets (or ``buckets``; one launch)
+    and its plain version."""
+    rows, cols, vals = buckets or (plan.single_rows, plan.single_cols,
+                                   plan.single_values)
+    before = KT.LAUNCHES["spmm_tail_cuda"]
+    y = KT.spmm_tail_cuda(rows, cols, vals, x, pr=plan.tail_pr,
+                          nrows=plan.nrows, **kw)
+    torch.cuda.synchronize()
+    assert KT.LAUNCHES["spmm_tail_cuda"] == before + 1
+    return y, R.spmm_coo_panels(rows, cols, vals, x, pr=plan.tail_pr,
+                                nrows=plan.nrows)
+
+
+def _ttail_close(y, plain):
+    assert y.shape == plain.shape and torch.isfinite(y).all()
+    err = float((y - plain).abs().max())
+    assert err <= RTOL * max(float(plain.abs().max()), 1.0), err
+
+
+def _ttail_x(shape, cuda, seed=5):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32)).to(cuda)
+
+
+@pytest.mark.parametrize("nvec", _TTAIL_NVECS)
+@pytest.mark.parametrize("case", TAIL_CASES)
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+def test_spmm_tail_kernel_matches_plain(cuda, rc, case, nvec):
+    plan = _ttail_plan(case, rc, cuda)
+    x = _ttail_x((plan.ncols, nvec), cuda)
+    _ttail_close(*_ttail_spmm(plan, x))
+
+
+@pytest.mark.parametrize("case", TAIL_CASES)
+def test_tail_kernels_at_forced_grids(cuda, case):
+    """S = 1 and one group a CTA (SpMV); G = 1 and one group a CTA (SpMM,
+    nvec 16 and 128); 128 and 512 SpMV threads, SpMM Y tiles of 16 and 64
+    rows."""
+    plan = _ttail_plan(case, (2, 4), cuda)
+    x = _ttail_x(plan.ncols, cuda)
+    smax = plan.single_rows.shape[1]
+    groups = KT.tail_groups(smax)
+    for split in (1, groups):
+        _ttail_close(*_ttail_spmv(plan, x, split=split))
+    for threads in (128, 512):
+        saved = KT.TAIL_THREADS
+        KT.TAIL_THREADS = threads
+        try:
+            _ttail_close(*_ttail_spmv(plan, x))
+        finally:
+            KT.TAIL_THREADS = saved
+    slots = plan.single_rows.numel()
+    for nvec in (16, 128):
+        xm = _ttail_x((plan.ncols, nvec), cuda)
+        for grid in (1, KT.tail_groups(slots)):
+            _ttail_close(*_ttail_spmm(plan, xm, grid=grid))
+        for rows in (16, 64):
+            saved = KT.SPMM_TAIL_TILE_ROWS
+            KT.SPMM_TAIL_TILE_ROWS = rows
+            try:
+                _ttail_close(*_ttail_spmm(plan, xm))
+            finally:
+                KT.SPMM_TAIL_TILE_ROWS = saved
+
+
+@pytest.mark.parametrize("case", TAIL_CASES)
+def test_tail_kernels_on_permuted_buckets(cuda, case):
+    """Any row order stays right: every bucket's slots (padding included)
+    permuted by hand, and the buckets themselves reversed."""
+    plan = _ttail_plan(case, (2, 4), cuda)
+    npanels, smax = plan.single_rows.shape
+    rng = np.random.default_rng(11)
+    perm = torch.from_numpy(np.stack([rng.permutation(smax)
+                                      for _ in range(npanels)])).to(cuda)
+    rows, cols, vals = (a.gather(1, perm).contiguous() for a in (
+        plan.single_rows, plan.single_cols, plan.single_values))
+    x = _ttail_x(plan.ncols, cuda)
+    args, kw = _tail_args(plan)
+    y = KT.spmv_tail_cuda(args[0], rows, cols, vals, x, **kw)
+    _ttail_close(y, R.spmv_coo_panels(rows, cols, vals, x, pr=plan.tail_pr,
+                                      nrows=plan.nrows))
+    for nvec in (3, 16, 128):
+        xm = _ttail_x((plan.ncols, nvec), cuda)
+        _ttail_close(*_ttail_spmm(plan, xm, buckets=(rows, cols, vals)))
+        # buckets in reverse order, each keeping its rows: the globalized
+        # rows then come down the flattened slots
+        rev = tuple(a.flip(0).contiguous() for a in (rows, cols, vals))
+        _ttail_close(*_ttail_spmm(plan, xm, buckets=rev))
+
+
+@pytest.mark.parametrize("case", TAIL_CASES)
+def test_tail_kernels_on_misaligned_buckets(cuda, case):
+    """Buckets that do not start on a 16-byte boundary take the 4-byte
+    loads (SpMV) and 4-byte cp.async pieces (SpMM)."""
+    plan = _ttail_plan(case, (2, 4), cuda)
+    shape = plan.single_rows.shape
+
+    def shifted(a):
+        out = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+        out[1:] = a.reshape(-1)
+        return out[1:].view(shape)
+    rows, cols, vals = (shifted(a) for a in (
+        plan.single_rows, plan.single_cols, plan.single_values))
+    assert rows.data_ptr() % 16 and vals.data_ptr() % 16
+    x = _ttail_x(plan.ncols, cuda)
+    args, kw = _tail_args(plan)
+    y = KT.spmv_tail_cuda(args[0], rows, cols, vals, x, **kw)
+    _ttail_close(y, R.spmv_coo_panels(rows, cols, vals, x, pr=plan.tail_pr,
+                                      nrows=plan.nrows))
+    for nvec in (1, 16, 128):
+        xm = _ttail_x((plan.ncols, nvec), cuda)
+        _ttail_close(*_ttail_spmm(plan, xm, buckets=(rows, cols, vals)))
+
+
+@pytest.mark.parametrize("case", TAIL_CASES)
+def test_tail_kernels_read_no_x_where_no_slot_reads(cuda, case):
+    """NaN in x / X wherever no slot reads (the padding's column 0 and each
+    bucket's window start excepted): both kernels stay finite and match
+    their plain versions."""
+    plan = _ttail_plan(case, (2, 4), cuda)
+    read = set(plan.single_cols.cpu().numpy().ravel().tolist())
+    read |= set(plan.tail_xbase.cpu().numpy().tolist()) | {0}
+    unread = torch.tensor(sorted(set(range(plan.ncols)) - read),
+                          dtype=torch.long, device=cuda)
+    assert unread.numel()
+    x = _ttail_x(plan.ncols, cuda)
+    x[unread] = float("nan")
+    _ttail_close(*_ttail_spmv(plan, x))
+    for nvec in (1, 16, 128):
+        xm = _ttail_x((plan.ncols, nvec), cuda)
+        xm[unread] = float("nan")
+        _ttail_close(*_ttail_spmm(plan, xm))
+
+
+def test_spmm_tail_kernel_skips_padding_and_columns_outside_x(cuda):
+    """The deliberate difference: slots of value 0 (the padding) and slots
+    whose column lies outside X are skipped, reading nothing of X. With
+    NaN in X's row 0, read only by the padding, the kernel's Y stays finite
+    where the plain version (which multiplies the padding, as the
+    reference's spmm_coo does) gives NaN; elsewhere the two agree."""
+    rows = torch.tensor([[0, 1, 1, 0], [2, 3, 0, 0]], dtype=torch.int32)
+    cols = torch.tensor([[2, 3, 4, 0], [5, 9, 0, 0]], dtype=torch.int32)
+    vals = torch.tensor([[1., 2., 3., 0.], [4., 5., 0., 0.]])
+    x = torch.arange(1, 13, dtype=torch.float32).reshape(6, 2)
+    x[0] = float("nan")
+    args = [a.to(cuda) for a in (rows, cols, vals, x)]
+    y = KT.spmm_tail_cuda(*args, pr=4, nrows=7).cpu()
+    # bucket 0: row 0 += 1 * X[2], row 1 += 2 * X[3] + 3 * X[4]; bucket 1:
+    # row 6 += 4 * X[5]; column 9 lies outside X (6 rows): skipped
+    want = torch.zeros(7, 2)
+    want[0] = x[2]
+    want[1] = 2 * x[3] + 3 * x[4]
+    want[6] = 4 * x[5]
+    assert torch.equal(y, want)
+    # the plain version gathers X at every column, so it gets the slot
+    # outside X as a padding slot; the padding of both buckets reads NaN
+    cols[1, 1], vals[1, 1] = 0, 0.
+    plain = R.spmm_coo_panels(rows, cols, vals, x, pr=4, nrows=7)
+    assert torch.isnan(plain[0]).all() and torch.isnan(plain[4]).all()
+    y = KT.spmm_tail_cuda(*[a.to(cuda) for a in (rows, cols, vals, x)],
+                          pr=4, nrows=7).cpu()
+    assert torch.equal(y, want)
+
+
+def test_tail_launchers_refuse_other_plans(cuda):
+    """Each launcher refuses a grid, thread count or shared-memory figure
+    other than its wrapper's plan (CUDA error 1, nothing launched)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    lib = _build.load_library("spc5_spmv_tail")
+    plan = _ttail_plan("powerlaw", (2, 4), cuda)
+    (xbase, rows, cols, vals), _ = _tail_args(plan)
+    npanels, smax = rows.shape
+    x = _ttail_x(plan.ncols, cuda)
+    y = torch.zeros(plan.nrows, device=cuda)
+    launch = KT.tail_launch(npanels, smax, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    dev = cuda.index or 0
+
+    def spmv(split, threads, smem):
+        return lib.spc5_spmv_tail(
+            xbase.data_ptr(), rows.data_ptr(), cols.data_ptr(),
+            vals.data_ptr(), x.data_ptr(), y.data_ptr(), npanels, smax,
+            plan.tail_pr, plan.tail_xw, plan.nrows, plan.ncols, split,
+            threads, smem, dev, stream)
+    assert spmv(launch["split"], launch["threads"], 0) == 0
+    for bad in ((launch["split"], launch["threads"], 16),
+                (0, launch["threads"], 0),
+                (launch["groups"] + 1, launch["threads"], 0),
+                (launch["split"], 48, 0), (launch["split"], 1024, 0)):
+        assert spmv(*bad) == 1, bad
+    xm = _ttail_x((plan.ncols, 16), cuda)
+    ym = torch.zeros(plan.nrows, 16, device=cuda)
+    m = KT.spmm_tail_launch(npanels * smax, 16, 4, device=cuda)
+    assert lib.spc5_spmm_tail_smem(m["tile_columns"], m["vector"],
+                                   m["tile_rows"], m["threads"]) == \
+        m["smem_bytes"] == KT.spmm_tail_smem_bytes(
+            m["tile_columns"], m["vector"], m["tile_rows"], m["threads"])
+
+    def spmm(grid, smem, threads=m["threads"]):
+        return lib.spc5_spmm_tail(
+            rows.data_ptr(), cols.data_ptr(), vals.data_ptr(), xm.data_ptr(),
+            ym.data_ptr(), npanels, smax, plan.tail_pr, plan.nrows,
+            plan.ncols, 16, m["tile_columns"], m["vector"], grid,
+            m["tile_rows"], threads, smem, dev, stream)
+    assert spmm(m["grid"], m["smem_bytes"]) == 0
+    for bad in ((m["grid"], m["smem_bytes"] + 16),
+                (m["grid"], m["smem_bytes"] - 16), (0, m["smem_bytes"]),
+                (m["groups"] + 1, m["smem_bytes"]),
+                (m["grid"], m["smem_bytes"], 384)):
+        assert spmm(*bad) == 1, bad
+    torch.cuda.synchronize()
+    out = (ctypes.c_int * 2)()
+    assert lib.spc5_spmm_tail_occupancy(3, 256, 1024, dev,
+                                        ctypes.addressof(out)) == 1

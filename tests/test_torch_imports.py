@@ -94,3 +94,21 @@ def test_ctypes_signatures_match_the_sources(source):
     for name, argtypes in _build.SIGNATURES[source].items():
         kinds = ["p" if t is ctypes.c_void_p else "i" for t in argtypes]
         assert kinds == _c_params(source, name), name
+
+
+@pytest.mark.parametrize("source", ["spc5_spmv", "spc5_spmv_desc",
+                                    "spc5_spmm", "spc5_spmm_desc",
+                                    "spc5_spmv_tail"])
+def test_every_c_entry_point_has_a_signature(source):
+    """Every function of a source's ``extern "C"`` block is bound in
+    ``_build.SIGNATURES`` (so the test above checks its argtypes), and
+    nothing bound is missing from the source."""
+    import re
+
+    from repro_torch.kernels import _build
+    path = os.path.join(PORT, "kernels", "csrc", f"{source}.cu")
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    block = text[text.index('extern "C" {'):]
+    entries = set(re.findall(r"^int\s+(\w+)\s*\(", block, re.M))
+    assert entries == set(_build.SIGNATURES[source])

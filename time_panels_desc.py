@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the SpMV kernels of one layout at other launch settings.
 
-    python3 time_panels_desc.py [--layout panels|whole]
+    python3 time_panels_desc.py [--layout panels|whole|tail]
                                 [--lowering mask|descriptor|both] [--cb N]
                                 [--label NAME] [--out FILE]
 
@@ -43,14 +43,26 @@ matrix (``--cb``: those two plans cut into chunks of N blocks instead):
   instructions per kernel and the counts of
   the loads, atomics, shuffles, votes and barriers among them; the
   listings are written beside ``--out``).
+* ``--layout tail``: the test split's SpMV tail kernel (``spmv_tail_cuda``)
+  on the vocab test layer's tail (the same weight in beta(2,4) through
+  ``SparseLinear.from_dense(layout="test")``, ``chip_smoke.py``'s test
+  layer (a): 125 buckets of about 64 K slots) at S = 1, 1/2, 1 and 2 times
+  the S the wrapper picks and one group of slots a CTA, and at the other
+  two of 128, 256 and 512 threads a CTA (``TAIL_THREADS``, replaced for the
+  call), each with the smoke's L2 flush (a 512 MiB write) and the planned
+  launch also with a clean one (a read, which leaves no dirty line for the
+  kernel's reads to write back), beside cuSPARSE on the tail alone and
+  plain torch sums reading the three bucket arrays, each with both
+  flushes; then the static SASS of both tail kernels (SpMV and SpMM:
+  ``ATOMS`` must be 0).
 
 Every setting is first held against the plain version (within ``1e-5 *
 max|y|``) and timed with CUDA events, L2 flushed before every call. It
 prints the card's name and power limit, one line per plan, kernel and
 setting, and last one JSON object ``{"label": ..., "card": ..., "launch":
 {plan: {"s1": ..., "s2": ...}}, "times": {"<plan> <kernel> <setting>":
-ms}}`` (``--layout whole`` adds ``"read_ms"`` and ``"sass"``), also written
-to ``--out``.
+ms}}`` (``--layout whole`` adds ``"read_ms"`` and ``"sass"``, ``--layout
+tail`` those and ``"library_ms"``), also written to ``--out``.
 """
 from __future__ import annotations
 
@@ -155,20 +167,26 @@ def whole_settings(plan, launch):
     return out
 
 
-#: The library and kernel whose SASS ``--layout whole`` counts, per lowering.
-WHOLE_SASS = {"descriptor": ("spc5_spmv_desc", "spmv_desc_whole_kernel"),
-              "mask": ("spc5_spmv", "spmv_whole_kernel")}
+#: The library whose SASS ``--layout whole`` (per lowering) or ``--layout
+#: tail`` counts, and the mangled names of its kernels counted (group 1 the
+#: kernel, group 2 a template argument where it has one).
+WHOLE_SASS = {"descriptor": ("spc5_spmv_desc",
+                             r"\d(spmv_desc_whole_kernel)ILi(\d)E"),
+              "mask": ("spc5_spmv", r"\d(spmv_whole_kernel)ILi(\d)E"),
+              "tail": ("spc5_spmv_tail",
+                       r"\d(sp(?:mv|mm)_tail_kernel)(?:ILi(\d)E)?")}
 
 
 def sass_counts(out_path, lowering):
-    """Static SASS of the lowering's whole-vector kernels from ``cuobjdump
-    -sass`` on the built library: {kernel: {"instructions": n, opcode
+    """Static SASS of the lowering's whole-vector kernels (or, for
+    ``"tail"``, both tail kernels) from ``cuobjdump -sass`` on the built
+    library: {kernel: {"instructions": n, opcode
     class: n, "decode_loop": n, "chunk_loop": n}}, the last two the
     instructions of the innermost loop around a shuffle and of the
     outermost one around the stage wait (every width's path counted; a
     thread runs one); the listing goes to ``out_path``."""
     from repro_torch.kernels import _build
-    library, name = WHOLE_SASS[lowering]
+    library, pattern = WHOLE_SASS[lowering]
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     text = subprocess.run([tool, "-sass", str(_build._lib_path(library))],
@@ -186,8 +204,9 @@ def sass_counts(out_path, lowering):
     for line in text.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            k = re.search(r"\d" + name + r"ILi(\d)E", m.group(1))
-            kernel = f"{name}<{k.group(1)}>" if k else None
+            k = re.search(pattern, m.group(1))
+            kernel = (None if not k else f"{k.group(1)}<{k.group(2)}>"
+                      if k.group(2) else k.group(1))
             if kernel:
                 counts[kernel] = {"instructions": 0, **{c: 0 for c in classes}}
                 code[kernel] = []
@@ -215,14 +234,37 @@ def sass_counts(out_path, lowering):
         chunk = [size(lp, "SYNCS.PHASECHK") for lp in loops]
         counts[kernel]["decode_loop"] = min([n for n in decode if n] or [0])
         counts[kernel]["chunk_loop"] = max(chunk or [0])
-    print(f"SASS of the {lowering} whole-vector kernels: {counts}")
+    print(f"SASS of the {lowering} kernels: {counts}")
     return counts
+
+
+def tail_settings(plan, launch):
+    """(kernel, setting, module overrides, wrapper keywords, L2 fetch
+    bytes) to time on a test plan's bucketed tail."""
+    from repro_torch.kernels import spc5_spmv_tail as KT
+    auto, groups = launch["split"], launch["groups"]
+    splits = sorted({1, max(1, auto // 2), auto, min(groups, 2 * auto),
+                     groups})
+    return ([(S.TAIL_KERNEL, f"split{s}", {}, {"split": s}, None)
+             for s in splits]
+            + [(S.TAIL_KERNEL, f"threads{t}", {(KT, "TAIL_THREADS"): t}, {},
+                None) for t in (128, 256, 512) if t != KT.TAIL_THREADS])
+
+
+def tail_call(plan, x, **kw):
+    """A call of ``spmv_tail_cuda`` on the plan's buckets."""
+    from repro_torch.kernels import spc5_spmv_tail as KT
+    args, akw, _ = S.tail_parts(plan)
+    return lambda: KT.spmv_tail_cuda(*args, x, **akw, **kw)
 
 
 def build_plans(args, device):
     """{name: plan} for ``--layout`` and ``--lowering``."""
     from repro_torch.kernels import ops
-    _, vcsr, vocab = S.make_vocab()
+    w, vcsr, vocab = S.make_vocab()
+    if args.layout == "tail":
+        return {"test tail": S.build_test_layer(w, device).plan}
+    del w
     _, fem = S.make_matrix()
     plans = {}
     lowerings = (("mask", "descriptor") if args.lowering == "both"
@@ -264,7 +306,8 @@ def build_plans(args, device):
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--layout", default="panels", choices=("panels", "whole"))
+    ap.add_argument("--layout", default="panels",
+                    choices=("panels", "whole", "tail"))
     ap.add_argument("--lowering", default="both",
                     choices=("mask", "descriptor", "both"),
                     help="the plans' lowering")
@@ -282,27 +325,53 @@ def main() -> int:
     t0 = time.perf_counter()
     S.build_kernels()
     plans = build_plans(args, device)
-    whole = args.layout == "whole"
+    whole, tail = args.layout == "whole", args.layout == "tail"
     rng = np.random.default_rng(1)
-    times, launches, read_ms = {}, {}, {}
+    times, launches, read_ms, library_ms = {}, {}, {}, {}
     for key, plan in plans.items():
-        want = (("whole_vector", "mask" if key.endswith("mask")
-                 else "descriptor") if whole else ("panels", key.split()[1]))
-        if (plan.layout, plan.lowering) != want:
-            raise S.SmokeFailure(f"{key} plan came out {plan.layout} + "
-                                 f"{plan.lowering}")
-        S.print_plan(key, plan)
-        launches[key] = (S.whole_launches(plan) if whole
-                         else S.panel_launches(plan))
-        if whole and plan.lowering == "descriptor":
-            read_ms[key] = S.plan_read_ms(plan)
         x = torch.from_numpy(rng.standard_normal(plan.ncols).astype(
             np.float32)).to(device)
-        plain = S.plain_y(plan, x)
-        settings = (whole_settings if whole else panel_settings)(
-            plan, launches[key])
+        if tail:
+            if not plan.tail_pr:
+                raise S.SmokeFailure(f"{key}: the tail is not bucketed")
+            launches[key] = S.tail_launch(plan)
+            print(f"plan {key}: buckets {tuple(plan.single_rows.shape)}, "
+                  f"pr {plan.tail_pr}, xw {plan.tail_xw}, n_single "
+                  f"{plan.n_single}; launch {launches[key]}")
+            plain = S.tail_y(plan, x)
+            tail_t = S.scipy_csr(S.tail_parts(plan)[2], device)
+            print("  timing cuSPARSE on the tail alone (torch.mv), and "
+                  "torch sums reading the buckets; then the kernel, each "
+                  "also with a clean L2 flush")
+            arrays = [a.view(torch.float32) for a in (
+                plan.single_rows, plan.single_cols, plan.single_values)]
+            for clean in (False, True):
+                tag = f"{key} {'clean' if clean else 'dirty'}"
+                library_ms[tag] = S.cuda_time_ms(
+                    lambda: torch.mv(tail_t, x), device, clean=clean)
+                read_ms[tag] = S.cuda_time_ms(
+                    lambda: [a.sum() for a in arrays], device, clean=clean)
+            times[f"{key} {S.TAIL_KERNEL} planned_clean"] = S.cuda_time_ms(
+                tail_call(plan, x), device, clean=True)
+            settings = tail_settings(plan, launches[key])
+        else:
+            want = (("whole_vector", "mask" if key.endswith("mask")
+                     else "descriptor") if whole
+                    else ("panels", key.split()[1]))
+            if (plan.layout, plan.lowering) != want:
+                raise S.SmokeFailure(f"{key} plan came out {plan.layout} + "
+                                     f"{plan.lowering}")
+            S.print_plan(key, plan)
+            launches[key] = (S.whole_launches(plan) if whole
+                             else S.panel_launches(plan))
+            if whole and plan.lowering == "descriptor":
+                read_ms[key] = S.plan_read_ms(plan)
+            plain = S.plain_y(plan, x)
+            settings = (whole_settings if whole else panel_settings)(
+                plan, launches[key])
         for name, setting, override, kw, fetch in settings:
-            call = S.kernel_call(name, plan, x, **kw)
+            call = (tail_call(plan, x, **kw) if tail
+                    else S.kernel_call(name, plan, x, **kw))
             saved = {k: getattr(*k) for k in override}
             for (module, attr), value in override.items():
                 setattr(module, attr, value)
@@ -323,13 +392,18 @@ def main() -> int:
     print(f"total {time.perf_counter() - t0:.1f} s")
     result = {"label": args.label, "card": card, "launch": launches,
               "times": times}
-    if whole:
-        result["read_ms"] = read_ms
-        base = os.path.splitext(args.out)[0] if args.out else "whole"
+    if whole or tail:
+        base = (os.path.splitext(args.out)[0] if args.out
+                else args.layout)
         result["sass"] = {}
-        for lowering in sorted({p.lowering for p in plans.values()}):
+        for lowering in (("tail",) if tail else
+                         sorted({p.lowering for p in plans.values()})):
             result["sass"].update(sass_counts(
                 f"{base}.{WHOLE_SASS[lowering][0]}.sass.txt", lowering))
+    if whole or tail:
+        result["read_ms"] = read_ms
+    if tail:
+        result["library_ms"] = library_ms
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f)

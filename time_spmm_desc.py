@@ -2,7 +2,7 @@
 """Sweep a panel SpMM pair's, or a whole-vector SpMM kernel's, knobs on the
 yi-6b vocab weight.
 
-    python3 time_spmm_desc.py [--layout panels|whole]
+    python3 time_spmm_desc.py [--layout panels|whole|tail]
                               [--lowering descriptor|mask|both]
                               [--label NAME] [--out FILE] [--nvec N ...]
                               [--variants NAME ...]
@@ -73,6 +73,23 @@ whose planning both lowerings share):
 and the SASS counts of the whole-vector kernels of beta(4,8) (one per
 columns a lane), with ``ATOMS.CAST`` (a shared-memory float atomic's
 compare-and-swap loop) counted apart.
+
+``--layout tail`` sweeps the test split's SpMM tail kernel
+(``spmm_tail_cuda``) on the vocab test layer's bucketed tail (the same
+weight in beta(2,4) through ``SparseLinear.from_dense(layout="test")``,
+``chip_smoke.py``'s test layer (a)) at the launch its wrapper plans and at
+one knob changed at a time (attributes of ``spc5_spmv_tail``):
+
+  * ``grid1``: G = 1; ``one_group_a_cta``: G = the groups of 128 slots;
+    ``waves2`` / ``waves8``: G from 2 or 8 waves (1/2 and 2 times the 4 of
+    the main path);
+  * ``tile_rows16`` / ``tile_rows32`` / ``tile_rows64``: rows of the Y tile
+    (``SPMM_TAIL_TILE_ROWS``);
+  * ``threads128`` / ``threads256`` / ``threads512``: threads a CTA
+    (``SPMM_TAIL_THREADS``); ``planned_again``;
+
+beside cuSPARSE on the tail alone (``"library_ms"``), and the SASS counts of
+its kernels (one per columns a lane; ``ATOMS`` must be 0).
 
 To compare two versions of the code, unpack one into a directory that
 ``.gitignore`` lists (``git archive``), copy this script into it, and run
@@ -154,6 +171,30 @@ def whole_variants():
             + [("planned_again", {}, {})])
 
 
+def tail_variants():
+    """(name, settings, {launch field: value it must have}) of the sweep of
+    the SpMM tail kernel, the planned launch first; a ``grid`` setting goes
+    to the wrapper (``"all"``: one group of slots a CTA)."""
+    from repro_torch.kernels import spc5_spmv as K
+    from repro_torch.kernels import spc5_spmv_tail as KT
+    return ([("planned", {}, {}), ("grid1", {"grid": 1}, {"grid": 1}),
+             ("one_group_a_cta", {"grid": "all"}, {})]
+            + [(f"waves{w}", {(K, "SPLIT_WAVES"): w}, {}) for w in (2, 8)]
+            + [(f"tile_rows{t}", {(KT, "SPMM_TAIL_TILE_ROWS"): t},
+                {"tile_rows": t}) for t in (16, 32, 64)]
+            + [(f"threads{t}", {(KT, "SPMM_TAIL_THREADS"): t},
+                {"threads": t}) for t in (128, 256, 512)]
+            + [("planned_again", {}, {})])
+
+
+def tail_call(plan, x, **kw):
+    """A call of ``spmm_tail_cuda`` on the test plan's buckets."""
+    from repro_torch.kernels import spc5_spmv_tail as KT
+    return lambda: KT.spmm_tail_cuda(
+        plan.single_rows, plan.single_cols, plan.single_values, x,
+        pr=plan.tail_pr, nrows=plan.nrows, **kw)
+
+
 def with_settings(settings, fn):
     """Run fn() with the module attributes of ``settings`` replaced."""
     saved = {k: getattr(*k) for k in settings if isinstance(k, tuple)}
@@ -170,6 +211,8 @@ def with_settings(settings, fn):
 def launch_of(name, plan, nvec, x, split=None, grid=None):
     """The launch the wrapper of kernel ``name`` plans on the plan at batch
     nvec; None for a kernel of a tree that plans none."""
+    if plan.layout == "test":
+        return S.tail_launch(plan, nvec, x, grid=grid)
     M = module(plan.lowering)
     if plan.layout == "whole_vector":
         if not hasattr(M, "whole_launch"):
@@ -209,7 +252,10 @@ SASS = {("panels", "descriptor"): (
             "spmm_whole_kernel<DescWhole,4,8,{}>"),
         ("whole", "mask"): (
             "spc5_spmm", r"spmm_whole_kernelINS_9MaskWholeELi4ELi8ELi(\d)E",
-            "spmm_whole_kernel<MaskWhole,4,8,{}>")}
+            "spmm_whole_kernel<MaskWhole,4,8,{}>"),
+        ("tail", "tail"): (
+            "spc5_spmv_tail", r"spmm_tail_kernelILi(\d)E",
+            "spmm_tail_kernel<{}>")}
 
 
 def sass_counts(lowering, out_path, layout="panels"):
@@ -279,17 +325,22 @@ def sweep(plan, nvecs, names, device, rng):
     pair's ``_db`` kernel at every variant of :func:`variants` and the twin
     at its planned launch and S = 1; for a whole-vector plan its kernel at
     every variant of :func:`whole_variants` (only the variants in ``names``
-    unless None). Returns times, launches and refused variants, keyed
-    "<kernel> nvec=<n> <variant>"."""
+    unless None); for a test plan its SpMM tail kernel at every variant of
+    :func:`tail_variants`. Returns times, launches and refused variants,
+    keyed "<kernel> nvec=<n> <variant>"."""
     import torch
     times, launches, refused = {}, {}, {}
     for nvec in nvecs:
         x = torch.from_numpy(rng.standard_normal(
             (S.VOCAB["cols"], nvec)).astype(np.float32)).to(device)
-        plain = S.plain_y(plan, x)
-        if plan.layout == "whole_vector":
+        if plan.layout == "test":
+            plain = S.tail_y(plan, x)
+            runs = [(S.SPMM_TAIL_KERNEL, *v) for v in tail_variants()]
+        elif plan.layout == "whole_vector":
+            plain = S.plain_y(plan, x)
             runs = [(WHOLE[plan.lowering], *v) for v in whole_variants()]
         else:
+            plain = S.plain_y(plan, x)
             db, sync = PAIRS[plan.lowering]
             runs = ([(db, *v) for v in variants(plan.lowering)]
                     + [(sync, "planned", {}, {}),
@@ -299,7 +350,10 @@ def sweep(plan, nvecs, names, device, rng):
             extra = {k: settings[k] for k in ("split", "grid")
                      if k in settings}
             if extra.get("grid") == "all":
-                extra["grid"] = int(plan.chunk_vbase.shape[0])
+                extra["grid"] = (
+                    -(-plan.single_rows.numel() // 128)
+                    if plan.layout == "test"
+                    else int(plan.chunk_vbase.shape[0]))
             key = f"{name} nvec={nvec} {variant}"
             launch = with_settings(settings, lambda: launch_of(
                 name, plan, nvec, x, **extra))
@@ -309,7 +363,8 @@ def sweep(plan, nvecs, names, device, rng):
                 print(f"refused {key}: the plan's launch {launch} lacks "
                       f"{want or settings}; not timed")
                 continue
-            call = S.kernel_call(name, plan, x, **extra)
+            call = (tail_call(plan, x, **extra) if plan.layout == "test"
+                    else S.kernel_call(name, plan, x, **extra))
 
             # one CTA walks every chunk: a few calls take long enough
             reps = 3 if extra.get("grid") == 1 else S.REPS
@@ -332,7 +387,8 @@ def sweep(plan, nvecs, names, device, rng):
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--layout", default="panels", choices=("panels", "whole"))
+    ap.add_argument("--layout", default="panels",
+                    choices=("panels", "whole", "tail"))
     ap.add_argument("--lowering", default="descriptor",
                     choices=("descriptor", "mask", "both"))
     ap.add_argument("--label", default="")
@@ -349,11 +405,29 @@ def main() -> int:
     print(card)
     t0 = time.perf_counter()
     S.build_kernels()
-    _, _, mat = S.make_vocab()
+    w, vcsr, mat = S.make_vocab()
     lowerings = (("mask", "descriptor") if args.lowering == "both"
                  else (args.lowering,))
     rng = np.random.default_rng(1)
     times, launches, refused, sass = {}, {}, {}, {}
+    library_ms = {}
+    if args.layout == "tail":
+        plan = S.build_test_layer(w, device).plan
+        lowerings = ()
+        tail_t = S.scipy_csr(S.tail_parts(plan)[2], device)
+        for nvec in args.nvec:
+            x = torch.from_numpy(rng.standard_normal(
+                (S.VOCAB["cols"], nvec)).astype(np.float32)).to(device)
+            print(f"timing cuSPARSE on the tail alone, nvec={nvec}")
+            library_ms[nvec] = S.cuda_time_ms(lambda: tail_t @ x, device)
+        for out, part in zip((times, launches, refused),
+                             sweep(plan, args.nvec, args.variants, device,
+                                   rng)):
+            out.update(part)
+        if args.out:
+            sass.update(sass_counts("tail", os.path.splitext(args.out)[0]
+                                    + ".tail.sass.txt", "tail"))
+    del w
     for lowering in lowerings:
         if args.layout == "whole":
             # the token plan (nvec 1) and the mask plan of the same chunks
@@ -377,7 +451,8 @@ def main() -> int:
                 + f".{args.layout}.{lowering}.sass.txt", args.layout))
     print(f"total {time.perf_counter() - t0:.1f} s")
     result = {"label": args.label, "card": card, "times": times,
-              "launches": launches, "refused": refused, "sass": sass}
+              "launches": launches, "refused": refused, "sass": sass,
+              "library_ms": library_ms}
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f)
