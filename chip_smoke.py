@@ -17,7 +17,11 @@ phase that goes wrong:
    split's two tail kernels (SpMV, and SpMM at nvec 3, 16 and 128) on
    three bucket geometries (the reference's tail test, nrows % pr != 0,
    and a window wider than 12,288 columns), each at its planned launch, at
-   S = 1 / G = 1 and at one group of 128 slots a CTA;
+   S = 1 / G = 1 and at one group of 128 slots a CTA; and the four panel
+   descriptor kernels at bf16 and int8 values on every block shape (SpMV
+   at its planned split, S = 1 and one chunk a CTA; SpMM at nvec 3, 16 and
+   128, planned split and S = 1), with all-zero chunks (scale 1.0) and int8
+   windows that start off a 16-byte boundary;
 4. SpMV path: builds ``matgen.fem_blocks(200_000, 4, 12, seed=5)``, the
    SET_A bone010 structure class at 200,000 rows (about 9.5 M nonzeros), in
    beta(4,4), and drives ``ops.prepare`` + ``ops.spmv`` through both
@@ -52,7 +56,19 @@ phase that goes wrong:
    reference's pick for one decode token), ``ops.spmv`` with
    ``double_buffer`` True and False (both kernels also at one chunk a CTA)
    and ``ops.spmm`` at batches of 16 and 128, printing the tables' bytes,
-   the pair's launches and the host time of ``chunk_descriptors``;
+   the pair's launches and the host time of ``chunk_descriptors``; and the
+   default layer at bf16 and int8 values: ``ops.prepare(mat, vdtype=...,
+   nvec=128)`` on the same converted matrix must resolve to panels +
+   descriptor in beta(4,8); its forward at batch 1 and at 16 and 128 and
+   ``ops.spmv`` / ``ops.spmm(..., double_buffer=False)`` run the four panel
+   descriptor kernels in their quantised instantiations (only this layer
+   runs between the counts' reset and reading), each output held against
+   its plain version, the f64 product of the dequantised values (the plain
+   version in float64) and, within ``tests/test_vdtype.py``'s bf16 / int8
+   pins, the f64 product of the f32 weight; each kernel is timed beside
+   the same kernel on the f32 layer in turns, its bound, its plain version
+   and cuSPARSE (on bf16 values where the card's torch takes them), and the
+   values' share of the needed bytes is printed at each width;
 6. beta(r,c)_test path: the same weight in beta(2,4) (whose singleton
    blocks hold about 30 % of the nonzeros) as
    ``SparseLinear.from_dense(w, density=0.1, block=(2, 4), layout="test",
@@ -197,8 +213,10 @@ SPMM_TAIL_REPLACES = ("no TPU kernel (the reference's jnp spmm_coo, "
 TEST_BLOCK = (2, 4)
 
 
-#: Itanium mangling of the kernels' vidx type parameter.
-INDEX_TYPE = {"a": "int8", "s": "int16", "i": "int32"}
+#: Itanium mangling of the kernels' vidx and value type parameters (int8
+#: is the same ``a`` in both).
+INDEX_TYPE = {"a": "int8", "s": "int16", "i": "int32", "f": "f32",
+              "13__nv_bfloat16": "bf16"}
 
 #: Registers per thread of each kernel, from the build's ``-Xptxas -v``
 #: report (``build_kernels``), by the label it prints.
@@ -230,10 +248,10 @@ def build_kernels() -> None:
             if "Compiling entry function" in line:
                 m = re.search(r"(sp(?:mv|mm)(?:_desc)?_(?:whole|panels)"
                               r"_kernel)I(?:NS_\d+(\w+?)E)?"
-                              r"((?:Li\d+E|[asi])+)E", line)
+                              r"((?:Li\d+E|[asif]|13__nv_bfloat16)+)E", line)
                 if m:
                     targs = [n or INDEX_TYPE[t] for n, t in re.findall(
-                        r"Li(\d+)E|([asi])", m.group(3))]
+                        r"Li(\d+)E|(13__nv_bfloat16|[asif])", m.group(3))]
                     kernel = (f"{m.group(1)}<"
                               f"{','.join(([m.group(2)] if m.group(2) else []) + targs)}>")
                 elif "spmv_tail_kernel" in line:
@@ -292,27 +310,43 @@ def tail_launch(plan, nvec=None, x=None, **forced):
     return out
 
 
-def plain_y(plan, x):
+def plain_y(plan, x, dtype=None):
     """The plain version of the plan's kernel: SpMV for a 1-D x, SpMM for a
-    2-D X (for a test plan: its multi sub-plan's plus its tail's)."""
+    2-D X (for a test plan: its multi sub-plan's plus its tail's), an int8
+    plan's ``value_scale`` applied. ``dtype`` (torch.float64): the same
+    product with the stored values (upcast, then scaled), the scales and x
+    in that dtype, e.g. the f64 product of a quantised plan's dequantised
+    values."""
     from repro_torch.core import ref_spmv as R
+    from repro_torch.core.plan import _plan_scale
     if plan.layout == "test":
-        y = plain_y(plan.multi, x)
+        y = plain_y(plan.multi, x, dtype)
         return y + tail_y(plan, x) if plan.n_single else y
+    dev, scale = plan.dev, _plan_scale(plan)
+    if dtype is not None:
+        dev = dev._replace(values=dev.values.to(dtype))
+        scale = None if scale is None else scale.to(dtype)
+        x = x.to(dtype)
     if plan.lowering == "descriptor":
         if plan.layout == "panels":
             fn = R.spmv_panels_desc if x.dim() == 1 else R.spmm_panels_desc
-            return fn(plan.dev, x, pr=plan.pr, nrows=plan.nrows,
+            return fn(dev, x, None, scale, pr=plan.pr, nrows=plan.nrows,
                       ncols_pad=plan.ncols_pad)
         fn = R.spmv_desc if x.dim() == 1 else R.spmm_desc
-        return fn(plan.dev, x, nrows=plan.nrows)
+        return fn(dev, x, scale, nrows=plan.nrows)
     if plan.layout == "panels":
         fn = R.spmv_panels if x.dim() == 1 else R.spmm_panels
-        return fn(plan.dev, x, r=plan.r, c=plan.c, pr=plan.pr,
+        return fn(dev, x, None, scale, r=plan.r, c=plan.c, pr=plan.pr,
                   nrows=plan.nrows, ncols_pad=plan.ncols_pad)
     fn = R.spmv if x.dim() == 1 else R.spmm
-    return fn(plan.dev, x, r=plan.r, c=plan.c, nrows=plan.nrows,
+    return fn(dev, x, scale, r=plan.r, c=plan.c, nrows=plan.nrows,
               ncols=plan.ncols)
+
+
+def value_label(plan) -> str:
+    """The plan's value store as the register labels name it: f32, bf16 or
+    int8."""
+    return {4: "f32", 2: "bf16", 1: "int8"}[plan.values.element_size()]
 
 
 def rel_err(y, y_ref) -> float:
@@ -378,6 +412,7 @@ def small_check(device) -> None:
                 raise SmokeFailure(f"small check: {name} {rc} {n}x{m} rel "
                                    f"err {err}")
     worst = max(worst, small_check_tail(device))
+    worst = max(worst, small_check_quantised(device))
     nkernels = (len(KERNELS) + len(SPMM_KERNELS) + len(DESC_SPMM_KERNELS)
                 + 2)
     print(f"small check: {nkernels} kernels: {nkernels - 2} x "
@@ -387,6 +422,74 @@ def small_check(device) -> None:
           f"{SPMM_TAIL_KERNEL} (nvec 3, 16, 128) on {len(TAIL_SMALL)} bucket "
           f"geometries, each also at S = 1 / G = 1 and one group a CTA; all "
           f"agree with the plain versions (worst {worst:.3g} of max|y|)")
+
+
+#: The four panel descriptor kernels, the ones that take quantised values
+#: (bf16, int8).
+QUANTISED = ("spmv_cuda_panels_desc_db", "spmv_cuda_panels_desc",
+             "spmm_cuda_panels_desc_db", "spmm_cuda_panels_desc")
+VDTYPES = ("bf16", "int8")
+
+
+def small_check_quantised(device) -> float:
+    """The four :data:`QUANTISED` kernels at bf16 and int8 against their
+    plain versions on every block shape (302x260, panels pr=xw=64, cb=16,
+    the descriptor lowering), the SpMV pair at its planned split, S = 1 and
+    one chunk a CTA, the SpMM pair at nvec 3, 16 and 128 at its planned
+    split and S = 1. The first 64 rows' values are zeros kept as nonzeros,
+    so their chunks are all zero and take scale 1.0; some int8 windows
+    start off a 16-byte boundary. Returns the worst error over max|y|."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import ops
+    worst, unaligned = 0.0, 0
+    for rc in F.SUPPORTED_BLOCKS:
+        rng = np.random.default_rng(7 * rc[0] + rc[1])
+        d = ((rng.random((302, 260)) < 0.08)
+             * rng.standard_normal((302, 260))).astype(np.float32)
+        csr = F.csr_from_dense(d)
+        csr.values[:csr.rowptr[64]] = 0.0       # all-zero chunks, kept
+        mat = F.csr_to_spc5(csr, *rc)
+        x = torch.from_numpy(rng.standard_normal(260).astype(
+            np.float32)).to(device)
+        xs = {n: torch.from_numpy(rng.standard_normal((260, n)).astype(
+            np.float32)).to(device) for n in (3, 16, 128)}
+        for vdtype in VDTYPES:
+            plan = ops.prepare(mat, layout="panels", lowering="descriptor",
+                               vdtype=vdtype, tune=False, device=device,
+                               **SMALL_GEOM["panels"])
+            if vdtype == "int8":
+                vbase = plan.chunk_vbase.cpu().numpy()
+                unaligned += int(np.count_nonzero(vbase % 16))
+                live = plan.desc_valid.reshape(
+                    plan.npanels, plan.nchunks, -1).sum(-1) > 0
+                if not bool(((plan.value_scale == 1.0) & live).any()):
+                    raise SmokeFailure(f"small check: {rc} int8 has no "
+                                       f"all-zero chunk of scale 1.0")
+            for name in QUANTISED:
+                spmm = name.startswith("spmm")
+                splits = (None, 1) if spmm else (None, 1, plan.nchunks)
+                for v in (xs.values() if spmm else (x,)):
+                    want = plain_y(plan, v)
+                    for split in splits:
+                        got = kernel_call(name, plan, v, **(
+                            {} if split is None else {"split": split}))()
+                        err = rel_err(got, want)
+                        worst = max(worst, err)
+                        if (tuple(got.shape) != tuple(want.shape)
+                                or not err <= TOL):
+                            raise SmokeFailure(
+                                f"small check: {name} {vdtype} {rc} "
+                                f"{tuple(v.shape)} S={split}: rel err {err}")
+    if not unaligned:
+        raise SmokeFailure("small check: no int8 window starts off a 16-byte "
+                           "boundary")
+    print(f"  quantised: the 4 panel descriptor kernels at bf16 and int8 x "
+          f"{len(F.SUPPORTED_BLOCKS)} block shapes (SpMV at S = planned, 1, "
+          f"one chunk a CTA; SpMM nvec 3, 16, 128 at S = planned, 1), "
+          f"all-zero chunks at scale 1.0, {unaligned} int8 windows off a "
+          f"16-byte boundary; worst {worst:.3g} of max|y|")
+    return worst
 
 
 #: The tail kernel's small geometries: the reference's tail test
@@ -509,6 +612,7 @@ def panel_launches(plan):
     desc = plan.lowering == "descriptor"
     mod = KD if desc else K
     out = {}
+    vsize = plan.values.element_size()
     for name, stages in (("s1", 1), ("s2", mod.DB_STAGES)):
         if desc:
             geom = dict(cb=plan.cb, r=plan.r, c=plan.c, vmax=plan.vmax,
@@ -518,15 +622,16 @@ def panel_launches(plan):
         else:
             geom = dict(cb=plan.cb, r=plan.r, vmax=plan.vmax, pr=plan.pr)
         if plan.device.type == "cuda":
-            out[name] = mod.panels_launch(stages, plan.npanels,
-                                          plan.nchunks, device=plan.device,
-                                          **geom)
-            kernel = ("spmv_desc_panels_kernel" if desc
-                      else "spmv_panels_kernel")
+            out[name] = mod.panels_launch(
+                stages, plan.npanels, plan.nchunks, device=plan.device,
+                **geom, **({"vsize": vsize} if desc else {}))
+            kernel = (f"spmv_desc_panels_kernel<{value_label(plan)}," if desc
+                      else "spmv_panels_kernel<")
             out[name]["registers"] = REGISTERS.get(
-                f"{kernel}<{out[name]['stages']}>")
+                f"{kernel}{out[name]['stages']}>")
         elif desc:
-            s, nb, smem = KD.panels_stages(stages, *geom.values())
+            s, nb, smem = KD.panels_stages(stages, *geom.values(),
+                                           vsize=vsize)
             out[name] = dict(stages=s, blocks_per_stage=nb, smem_bytes=smem)
         else:
             s, smem = K.panels_stages(stages, plan.cb, plan.vmax, plan.pr)
@@ -843,21 +948,26 @@ def scipy_csr(m, device):
                       device)
 
 
-def sparse_csr(csr, device):
-    """The CSR as a ``torch.sparse_csr_tensor`` (cuSPARSE, timed only)."""
+def sparse_csr(csr, device, values=None, dtype=np.float32):
+    """The CSR (or, with ``values``, its pattern with those values) as a
+    ``torch.sparse_csr_tensor`` of ``dtype``: cuSPARSE, timed only, and
+    the float64 products that checks compare with."""
     import torch
     with warnings.catch_warnings():     # "beta state" / invariant notices
         warnings.simplefilter("ignore", UserWarning)
         return torch.sparse_csr_tensor(
             torch.from_numpy(csr.rowptr.astype(np.int32)),
             torch.from_numpy(csr.colidx.astype(np.int32)),
-            torch.from_numpy(csr.values.astype(np.float32)),
+            torch.from_numpy((csr.values if values is None else values)
+                             .astype(dtype)),
             size=csr.shape, device=device)
 
 
 def kernel_call(name, plan, x, **extra):
-    """A call of kernel ``name``'s wrapper on the plan's arrays and x
-    (``extra``: the wrapper's own keywords, e.g. ``split``)."""
+    """A call of kernel ``name``'s wrapper on the plan's arrays (an int8
+    plan's ``value_scale`` too) and x (``extra``: the wrapper's own
+    keywords, e.g. ``split``)."""
+    from repro_torch.core.plan import _plan_scale
     from repro_torch.kernels import spc5_spmm as KM
     from repro_torch.kernels import spc5_spmm_desc as KDM
     from repro_torch.kernels import spc5_spmv as K
@@ -877,6 +987,8 @@ def kernel_call(name, plan, x, **extra):
               nrows=plan.nrows)
     kw.update(dict(xw=plan.xw, pr=plan.pr, ncols_pad=plan.ncols_pad)
               if plan.layout == "panels" else dict(ncols=plan.ncols))
+    if _plan_scale(plan) is not None:
+        kw["value_scale"] = _plan_scale(plan)
     return lambda: fn(*args, **kw, **extra)
 
 
@@ -955,9 +1067,12 @@ def spmm_panel_launches(plan, nvec, split=None):
     geom = dict(cb=plan.cb, r=plan.r, c=plan.c, vmax=plan.vmax, pr=plan.pr,
                 nvec=nvec, vec=vec)
     if plan.lowering == "descriptor":
-        mod, kernel = KDM, f"spmm_desc_panels_kernel<{plan.r},{plan.c},{vec},"
+        mod = KDM
+        kernel = (f"spmm_desc_panels_kernel<{value_label(plan)},{plan.r},"
+                  f"{plan.c},{vec},")
         geom.update(wv=plan.desc_vidx.element_size(),
-                    wx=plan.desc_xcol.element_size())
+                    wx=plan.desc_xcol.element_size(),
+                    vsize=plan.values.element_size())
     else:
         mod, kernel = KM, f"spmm_panels_kernel<{plan.c},{vec},"
     out = {}
@@ -1333,6 +1448,239 @@ def spmm_rows(names, per, launches, errs):
                      **{f"nvec_{n}": per[name, n] for n in SPMM_NVECS
                         if n != VOCAB["nvec"]}})
     return rows
+
+
+# ----------------------------------------------------------------------------
+# The default layer at bf16 and int8 (the value-dtype axis)
+# ----------------------------------------------------------------------------
+
+#: Each quantised kernel's aim: at most this many times the same kernel's
+#: f32 time on the f32 default layer, in the same run.
+QUANTISED_AIM = 1.05
+
+
+def build_quantised(mat, device):
+    """The default layer's plan at bf16 and int8: ``ops.prepare(mat,
+    vdtype=..., nvec=128)`` on the converted vocab matrix, every other
+    argument at its default; each layout pass must pick panels and the
+    descriptor lowering in beta(4,8), as for f32 (:func:`build_layers`).
+    Returns {vdtype: SparseLinear}."""
+    from repro_torch.core.sparse_linear import SparseLinear
+    from repro_torch.kernels import ops
+    layers = {}
+    for vdtype in VDTYPES:
+        t0 = time.perf_counter()
+        plan = ops.prepare(mat, vdtype=vdtype, nvec=VOCAB["nvec"],
+                           device=device)
+        entry = next(e for e in plan.trace if e["pass"] == "layout")
+        got = (plan.layout, plan.lowering, entry["reason"],
+               entry.get("lowering_reason"), (plan.r, plan.c), plan.vdtype,
+               str(plan.values.dtype))
+        want = ("panels", "descriptor", "vmem-fit", "cost-model",
+                VOCAB["block"], vdtype,
+                {"bf16": "torch.bfloat16", "int8": "torch.int8"}[vdtype])
+        if got != want:
+            raise SmokeFailure(f"prepare(vdtype={vdtype!r}) built {got}, not "
+                               f"{want}")
+        print(f"quantised layer {vdtype}: {entry['layout']} "
+              f"({entry['reason']}) + {entry['lowering']} "
+              f"({entry['lowering_reason']}), prepare "
+              f"{time.perf_counter() - t0:.1f} s")
+        print_spmm_plan(f"{vdtype} default", plan)
+        layers[vdtype] = SparseLinear(plan)
+    return layers
+
+
+def drive_quantised(layer, acts, device):
+    """One quantised layer through the entry points a user calls: the
+    forward at batch 1 (``spmv_cuda_panels_desc_db``) and at every batch
+    (``spmm_cuda_panels_desc_db``), ``ops.spmv`` / ``ops.spmm`` with
+    ``double_buffer=False`` (the twins). Only this layer runs between the
+    counts' reset and their reading, so each count is a launch of a
+    quantised instantiation. Returns {(kernel, batch): y} and the counts."""
+    import torch
+    from repro_torch.kernels import ops
+    counts = reset_all_launches()
+    x1 = acts[SPMM_NVECS[0]][0]
+    ys = {("spmv_cuda_panels_desc_db", 1): layer(x1),
+          ("spmv_cuda_panels_desc", 1): ops.spmv(layer.plan, x1,
+                                                 double_buffer=False)}
+    for nvec, a in acts.items():
+        ys["spmm_cuda_panels_desc_db", nvec] = layer(a).t()
+        ys["spmm_cuda_panels_desc", nvec] = ops.spmm(
+            layer.plan, a.t().contiguous(), double_buffer=False)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return ys, counts()
+
+
+def check_quantised(layers, ys, launches, acts, csr):
+    """For each width: the four kernels launched, in the counts and in
+    nothing else; each output finite, of its shape, within ``TOL`` of
+    max|y| of its plain version on the card and of the f64 product of the
+    dequantised values (the plain version in float64), and, elementwise,
+    within the pins of ``tests/test_vdtype.py`` of the f64 product of the
+    f32 weight: ``2**-7 * (|A| @ |x|)`` for bf16, ``smax / 2 * ((|A| > 0)
+    @ |x|)`` for int8 (smax = max|A| / 127, at least every chunk's scale),
+    each plus 1e-5. Returns {vdtype: {kernel: max|y - plain|}} and the
+    worst share of a pin used."""
+    import torch
+    device = next(iter(acts.values())).device
+    a64, absa, nza = (sparse_csr(csr, device, v, np.float64) for v in (
+        None, np.abs(csr.values), (csr.values != 0).astype(np.float64)))
+    smax = float(np.abs(csr.values).max()) / 127.0
+    xs = {1: acts[SPMM_NVECS[0]][0]}
+    xs.update({n: a.t().contiguous() for n, a in acts.items()})
+    refs = {}
+    for n, x in xs.items():
+        xd = x.double() if x.dim() == 2 else x.double()[:, None]
+        refs[n] = (a64 @ xd, absa @ xd.abs(), nza @ xd.abs())
+    errs, worst_pin = {}, {}
+    for vdtype, layer in layers.items():
+        want = {name: len(acts) if name.startswith("spmm") else 1
+                for name in QUANTISED}
+        got = {k: v for k, v in launches[vdtype].items() if v}
+        if got != want:
+            raise SmokeFailure(f"{vdtype} layer: launches {got}, expected "
+                               f"{want} (the quantised instantiations)")
+        plan = layer.plan
+        errs[vdtype], worst_pin[vdtype] = {}, 0.0
+        for (name, n), y in ys[vdtype].items():
+            x = xs[n]
+            shape = (plan.nrows,) if x.dim() == 1 else (plan.nrows, n)
+            if tuple(y.shape) != shape or not bool(torch.isfinite(y).all()):
+                raise SmokeFailure(f"{name} {vdtype}: bad output "
+                                   f"{tuple(y.shape)}")
+            plain = plain_y(plan, x)
+            abs_err = float((y - plain).abs().max())
+            e_plain = rel_err(y, plain)
+            del plain
+            e_deq = rel_err(y, plain_y(plan, x, torch.float64))
+            y64, absb, nzb = (r if x.dim() == 2 else r[:, 0]
+                              for r in refs[n])
+            pin = (2.0 ** -7 * absb if vdtype == "bf16"
+                   else 0.5 * smax * nzb) + 1e-5
+            used = float(((y.double() - y64).abs() / pin).max())
+            print(f"check {name} {vdtype} batch {n} (quantised default "
+                  f"layer): max|y - plain| = {abs_err:.3g} ({e_plain:.3g} "
+                  f"of max|y|), vs the f64 dequantised product {e_deq:.3g} "
+                  f"of max|y|, vs the f64 f32-weight product {used:.3g} of "
+                  f"its {vdtype} pin")
+            if not (e_plain <= TOL and e_deq <= TOL and used <= 1.0):
+                raise SmokeFailure(f"{name} {vdtype} batch {n} disagrees: "
+                                   f"{e_plain} / {e_deq} > {TOL} or pin "
+                                   f"share {used} > 1")
+            errs[vdtype][name] = max(errs[vdtype].get(name, 0.0), abs_err)
+            worst_pin[vdtype] = max(worst_pin[vdtype], used)
+    return errs, worst_pin
+
+
+def values_bytes(plan):
+    """The bytes of the plan's values and, for int8, their scales."""
+    from repro_torch.core.plan import _plan_scale
+    scale = _plan_scale(plan)
+    return (plan.values.numel() * plan.values.element_size()
+            + (0 if scale is None else scale.numel() * scale.element_size()))
+
+
+def csr_library_ms(csr, x, f32_ms, timer):
+    """cuSPARSE's time for the product on bf16 values and bf16 x where the
+    card's torch takes it (``torch.mv`` / ``@`` on a bf16
+    ``sparse_csr_tensor``), else the f32 figure ``f32_ms``: returns (ms,
+    which)."""
+    import torch
+    t = sparse_csr(csr, x.device)
+    tb = torch.sparse_csr_tensor(t.crow_indices(), t.col_indices(),
+                                 t.values().to(torch.bfloat16), size=t.shape)
+    xb = x.to(torch.bfloat16)
+    fn = ((lambda: torch.mv(tb, xb)) if x.dim() == 1 else (lambda: tb @ xb))
+    try:
+        fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"  cuSPARSE on bf16 values not taken by this torch "
+              f"({str(e).splitlines()[0][:120]}); the f32 figure is used")
+        return f32_ms, "f32"
+    print(f"  timing cuSPARSE on bf16 values and x ({tuple(x.shape)})")
+    return timer(fn, x.device), "bf16"
+
+
+def measure_quantised(layers, default, acts, csr, library, batch1,
+                      timer=cuda_time_ms):
+    """Each quantised kernel at batch 1 (SpMV pair) or 16 and 128 (SpMM
+    pair) beside the same kernel on the f32 default layer, timed in turns
+    (f32, bf16, int8, int8, bf16, f32; each width's two medians averaged),
+    its bound (the plan's arrays as built: values at their stored width,
+    int8 scales, checked against the f32 plan's figure), its plain version
+    and cuSPARSE (on bf16 values where the card takes it, else the f32
+    figure; which is printed and kept). Returns {kernel: {vdtype: {batch:
+    numbers}}}."""
+    fplan = default.plan
+    f32_vals = values_bytes(fplan)
+    for vdtype, layer in layers.items():
+        plan = layer.plan
+        q = values_bytes(plan)
+        if needed_bytes(plan) != needed_bytes(fplan) - f32_vals + q:
+            raise SmokeFailure(f"{vdtype}: needed bytes {needed_bytes(plan)} "
+                               f"are not the f32 plan's with its values at "
+                               f"{q} bytes")
+    for label, plan in (("f32", fplan), *((v, l.plan)
+                                          for v, l in layers.items())):
+        print(f"values' share of the needed bytes, {label}: "
+              f"{values_bytes(plan)} of {needed_bytes(plan)} bytes "
+              f"({values_bytes(plan) / needed_bytes(plan):.4f}, int8 scales "
+              f"included)")
+    xs = {1: acts[SPMM_NVECS[0]][0].contiguous()}
+    xs.update({n: a.t().contiguous() for n, a in acts.items()})
+    lib = {}
+    for n, x in xs.items():
+        f32_ms = (batch1["spmv_cuda_panels_desc_db"]["library_ms"] if n == 1
+                  else library[n])
+        lib[n] = csr_library_ms(csr, x, f32_ms, timer)
+    plain = {}
+    for vdtype, layer in layers.items():
+        for n, x in xs.items():
+            print(f"  {vdtype} batch {n}: timing the plain version")
+            plain[vdtype, n] = timer(lambda p=layer.plan, v=x: plain_y(p, v),
+                                     x.device)
+    out = {}
+    for name in QUANTISED:
+        spmm = name.startswith("spmm")
+        out[name] = {v: {} for v in layers}
+        for n in (SPMM_NVECS if spmm else (1,)):
+            x = xs[n]
+            plans = {"f32": fplan, **{v: l.plan for v, l in layers.items()}}
+            order = list(plans) + list(plans)[::-1]
+            times = {v: [] for v in plans}
+            for v in order:
+                print(f"  timing {name} {v} batch {n}")
+                times[v].append(timer(kernel_call(name, plans[v], x),
+                                      x.device))
+            f32_ms = float(np.mean(times["f32"]))
+            for vdtype in layers:
+                plan = plans[vdtype]
+                ms = float(np.mean(times[vdtype]))
+                bound_ms, bound_by, nbytes = bound(plan, csr.nnz, n)
+                ratio = ms / f32_ms
+                launch = (spmm_panel_launches(plan, n) if spmm
+                          else panel_launches(plan))[
+                    "s2" if name.endswith("_db") else "s1"]
+                print(f"time {name} {vdtype} batch {n}: {ms:.4f} ms ("
+                      f"{times[vdtype][0]:.4f} / {times[vdtype][1]:.4f}), "
+                      f"f32 {f32_ms:.4f} ms, {ratio:.3f}x f32 (aim <= "
+                      f"{QUANTISED_AIM}: "
+                      f"{'met' if ratio <= QUANTISED_AIM else 'MISSED'}), "
+                      f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes} "
+                      f"bytes, {bound_ms / ms:.3f} of it), plain "
+                      f"{plain[vdtype, n]:.4f} ms, cuSPARSE "
+                      f"({lib[n][1]}) {lib[n][0]:.4f} ms; launch {launch}")
+                out[name][vdtype][n] = {
+                    "ms": ms, "f32_ms": f32_ms, "ratio_to_f32": ratio,
+                    "aim_met": ratio <= QUANTISED_AIM, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "plain_ms": plain[vdtype, n],
+                    "library_ms": lib[n][0], "library_values": lib[n][1],
+                    "launch": launch}
+    return out
 
 
 # ----------------------------------------------------------------------------
@@ -1892,6 +2240,18 @@ def main() -> int:
         vper, library = measure_vocab(layers, acts, vcsr)
         batch1 = measure_batch1(layers, acts[SPMM_NVECS[0]][0].contiguous(),
                                 vcsr, vlaunches, verrs)
+        qlayers = build_quantised(vmat, device)
+        qys, qlaunches = {}, {}
+        for vdtype, layer in qlayers.items():
+            qys[vdtype], qlaunches[vdtype] = drive_quantised(layer, acts,
+                                                             device)
+            print(f"launches on the {vdtype} SparseLinear path: "
+                  f"{qlaunches[vdtype]}")
+        qerrs, qpin = check_quantised(qlayers, qys, qlaunches, acts, vcsr)
+        del qys
+        qper = measure_quantised(qlayers, layers["panels", "descriptor"],
+                                 acts, vcsr, library, batch1)
+        del qlayers
         tplan = build_token_plan(vmat, device)
         del vmat
         x1 = acts[SPMM_NVECS[0]][0].contiguous()
@@ -1943,6 +2303,16 @@ def main() -> int:
                     "flat_multi_spmv" + ("" if row["name"].endswith("_db")
                                          else "_s1")]
         rows += [tail_row, spmm_tail_row]
+        for row in rows:
+            if row["name"] in QUANTISED:
+                row["value_dtypes"] = ["f32", *VDTYPES]
+                row["quantised"] = {
+                    v: {"launches": qlaunches[v][row["name"]],
+                        "max_abs_err": qerrs[v][row["name"]],
+                        "worst_pin_share": qpin[v],
+                        **{f"batch_{n}": numbers
+                           for n, numbers in qper[row["name"]][v].items()}}
+                    for v in VDTYPES}
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

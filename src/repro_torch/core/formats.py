@@ -39,8 +39,8 @@ SUPPORTED_BLOCKS: Tuple[Tuple[int, int], ...] = (
     (1, 4), (1, 8), (2, 4), (2, 8), (4, 4), (4, 8), (8, 4),
 )
 
-#: Canonical value-storage dtypes of the reference. The port's kernels take
-#: f32 only so far; bf16/int8 are a later slice (ROADMAP queue 1, item 5).
+#: Canonical value-storage dtypes of the reference: f32, bf16 and int8 (with
+#: one f32 scale a chunk), every product accumulating in f32.
 VDTYPES: Tuple[str, ...] = ("f32", "bf16", "int8")
 
 _VDTYPE_ALIASES = {
@@ -60,6 +60,94 @@ def canonical_vdtype(name: str) -> str:
         raise ValueError(f"unknown vdtype {name!r}; expected one of "
                          f"{VDTYPES + ('auto', '')}")
     return _VDTYPE_ALIASES[key]
+
+
+#: The host store of bf16 values: their 16-bit patterns. numpy has no
+#: bfloat16 and the reference's ``ml_dtypes`` is not a dependency of the
+#: port, so bf16 arrays live on the host as ``uint16`` (no other array of
+#: the port is ``uint16``) and become ``torch.bfloat16`` on the device
+#: (:func:`repro_torch.core.ref_spmv.to_tensor`).
+BF16_HOST = np.dtype(np.uint16)
+
+
+def value_dtype(vdtype: str) -> np.dtype:
+    """The host dtype of a canonical vdtype's stored values: float32,
+    :data:`BF16_HOST` (bf16 bit patterns) or int8 (the reference's
+    ``value_dtype``, with ``ml_dtypes.bfloat16`` there)."""
+    vd = canonical_vdtype(vdtype)
+    if vd == "bf16":
+        return BF16_HOST
+    if vd == "int8":
+        return np.dtype(np.int8)
+    return np.dtype(np.float32)
+
+
+def value_itemsize(vdtype: str) -> int:
+    """Bytes per stored value for a canonical vdtype ('' -> f32's 4)."""
+    if vdtype in ("", "auto", "f32"):
+        return 4
+    return int(value_dtype(vdtype).itemsize)
+
+
+def bf16_bits(values: np.ndarray) -> np.ndarray:
+    """The bf16 bit patterns (``uint16``) of ``values``: cast to float32 by
+    numpy, then rounded to bfloat16 by torch (to nearest, ties to even), bit
+    for bit what ``values.astype(ml_dtypes.bfloat16)`` stores, which also
+    rounds a float64 through float32. A NaN keeps its sign and becomes the
+    quiet NaN 0x7fc0 (0xffc0 negative), whatever torch's cast makes of it
+    on the host at hand (``ml_dtypes`` keeps more of the payload)."""
+    import torch                        # the cast only; formats stays numpy
+    v32 = np.ascontiguousarray(np.asarray(values, dtype=np.float32))
+    bits = torch.from_numpy(v32).to(torch.bfloat16).view(torch.int16)
+    bits = bits.numpy().view(BF16_HOST).copy()
+    nan = np.isnan(v32)
+    bits[nan] = np.where(np.signbit(v32[nan]), 0xffc0, 0x7fc0)
+    return bits
+
+
+def quantize_chunk_values(values: np.ndarray, chunk_vbase: np.ndarray,
+                          chunk_mask: np.ndarray, vdtype: str
+                          ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Quantise a chunked or panelled packed values array to ``vdtype``.
+
+    Returns ``(qvalues, scales)``; ``scales`` is None except for int8, which
+    gets one symmetric f32 scale a chunk: ``absmax / 127`` (in float64, then
+    cast to float32) over the chunk's OWN nonzeros, ``values[vbase : vbase +
+    popcount(masks)]``, not its vmax window, which reaches into the next
+    chunk's values. A chunk with no values, or only zeros, gets scale 1.0.
+    Each value is divided by its chunk's scale in float32, rounded half to
+    even and clipped to [-127, 127]; values of no chunk (padding) stay 0.
+    Any leading chunk shape works (flat or panel-tiled): ``chunk_vbase`` and
+    the per-chunk mask rows are raveled in step, and ``scales`` has
+    ``chunk_vbase``'s shape. The reference's function
+    (``repro.core.formats``) with its per-chunk loop vectorised, byte for
+    byte, and bf16 as :func:`bf16_bits`."""
+    vd = canonical_vdtype(vdtype)
+    if vd in ("", "auto", "f32"):
+        return values.astype(np.float32), None
+    if vd == "bf16":
+        return bf16_bits(values), None
+    shape = np.asarray(chunk_vbase).shape
+    vbase = np.asarray(chunk_vbase).ravel().astype(np.int64)
+    nnz = popcount_u32(np.asarray(chunk_mask).reshape(vbase.shape[0], -1)
+                       ).sum(axis=1).astype(np.int64)
+    scales = np.ones(vbase.shape[0], dtype=np.float32)
+    q = np.zeros(values.shape[0], dtype=np.int8)
+    live = np.flatnonzero(nnz > 0)
+    if live.size:
+        lens = nnz[live]
+        first = np.cumsum(lens) - lens      # each live chunk's first element
+        chunk = np.repeat(live, lens)
+        pos = (np.repeat(vbase[live] - first, lens)
+               + np.arange(int(lens.sum()), dtype=np.int64))
+        v32 = values[pos].astype(np.float32)
+        absmax = np.maximum.reduceat(np.abs(v32), first)
+        big = absmax > 0.0                  # NaN: False, as in the reference
+        scales[live[big]] = (absmax[big].astype(np.float64)
+                             / 127.0).astype(np.float32)
+        q[pos] = np.clip(np.round(v32 / scales[chunk]), -127,
+                         127).astype(np.int8)
+    return q, scales.reshape(shape)
 
 
 @dataclasses.dataclass

@@ -20,8 +20,10 @@ slices ported so far:
   * **Executors** (:func:`execute_spmv`, :func:`execute_spmm`): the only
     place that dispatches on the layout key.
 
-Not ported yet (each raises ``NotImplementedError``): bf16/int8 values,
-reordering and the record-store tuner (ROADMAP queue 1).
+Values are stored as f32, bf16 or int8 (the value-dtype axis, ``vdtype``;
+int8 plans carry one f32 scale a chunk, ``value_scale``). Not ported yet
+(each raises ``NotImplementedError``): reordering and the record-store
+tuner (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -116,11 +118,18 @@ class LayoutSpec:
     desc_array_names: Optional[Tuple[str, ...]] = None
     desc_device_view: Optional[Callable] = None
 
-    def plan_array_names(self, lowering: str) -> Tuple[str, ...]:
-        """The tensor names of a plan of this layout under ``lowering``."""
-        if lowering == LOWERING_DESC and self.desc_array_names:
-            return self.desc_array_names
-        return self.array_names
+    def plan_array_names(self, lowering: str,
+                         vdtype: str = "f32") -> Tuple[str, ...]:
+        """The tensor names of a plan of this layout under ``lowering`` and
+        ``vdtype``: an int8 plan's per-chunk f32 ``value_scale`` trails the
+        layout's arrays (only layouts with a packed ``values`` array
+        quantise; the test layout's tail keeps its values)."""
+        names = (self.desc_array_names
+                 if lowering == LOWERING_DESC and self.desc_array_names
+                 else self.array_names)
+        if vdtype == "int8" and "values" in names:
+            names = names + ("value_scale",)
+        return names
 
 
 _REGISTRY: Dict[str, LayoutSpec] = {}
@@ -213,6 +222,15 @@ def _meta_lowering(meta) -> str:
     return LOWERING_MASK
 
 
+def _meta_vdtype(meta) -> str:
+    """The plan's resolved value dtype ("" = the legacy passthrough, f32
+    here)."""
+    for k, v in meta:
+        if k == "vdtype":
+            return v
+    return ""
+
+
 # ----------------------------------------------------------------------------
 # The plan
 # ----------------------------------------------------------------------------
@@ -234,7 +252,7 @@ class SPC5Plan:
             if k == name:
                 return v
         names = _REGISTRY[object.__getattribute__(self, "layout")] \
-            .plan_array_names(_meta_lowering(meta))
+            .plan_array_names(_meta_lowering(meta), _meta_vdtype(meta))
         if name in names:
             return object.__getattribute__(self, "arrays")[names.index(name)]
         raise AttributeError(f"SPC5Plan ({self.layout!r}) has no attribute "
@@ -251,14 +269,16 @@ class SPC5Plan:
     @property
     def dev(self):
         """The layout's tensor view for the plan's lowering
-        (``SPC5Device`` / ``SPC5PanelDevice``, or their descriptor twins)."""
+        (``SPC5Device`` / ``SPC5PanelDevice``, or their descriptor twins).
+        An int8 plan's trailing ``value_scale`` is not part of the view, as
+        in the reference: read it as ``plan.value_scale``."""
         spec = _REGISTRY[self.layout]
-        view = (spec.desc_device_view
-                if _meta_lowering(self.meta) == LOWERING_DESC
+        lowering = _meta_lowering(self.meta)
+        view = (spec.desc_device_view if lowering == LOWERING_DESC
                 else spec.device_view)
         if view is None:
             raise AttributeError(f"layout {self.layout!r} has no dev view")
-        return view(self.arrays)
+        return view(self.arrays[:len(spec.plan_array_names(lowering))])
 
     @property
     def multi(self) -> "SPC5Plan":
@@ -300,11 +320,12 @@ class PlanState:
 
     @property
     def itemsize(self) -> int:
-        """Bytes per value as the reference's "auto" rule counts them: 4 for
-        an explicit f32, else the requested ``dtype`` or the matrix's own
-        (8 for the generators' float64, though both packages store f32)."""
-        if self.vdtype == "f32":
-            return 4
+        """Bytes per stored value as the reference's "auto" rule counts
+        them: the vdtype's (4, 2 or 1) where one is in effect, else the
+        requested ``dtype`` or the matrix's own (8 for the generators'
+        float64, though both packages store f32)."""
+        if self.vdtype in F.VDTYPES:
+            return F.value_itemsize(self.vdtype)
         return np.dtype(self.dtype or self.mat.values.dtype).itemsize
 
 
@@ -392,11 +413,17 @@ def make_plan(mat: F.SPC5Matrix, *, device: Device, layout: str = "auto",
     budgets x and y at that width, as the reference does. ``lowering`` is
     "mask", "descriptor" or "auto" (the reference's :func:`lowering_cost`
     arbitration). ``multi_layout`` is the test split's request for its
-    multi sub-plan's layout (read only with ``layout="test"``). Values are
-    stored as float32 ("" / "f32"), which is what the reference holds for
-    the generators' float64 values too. ``dtype`` may only be None or
-    float32, and not together with a ``vdtype`` other than "auto" (the
-    reference's ``ValueError``: the value-dtype axis owns the cast).
+    multi sub-plan's layout (read only with ``layout="test"``).
+
+    ``vdtype`` is the value-dtype axis, as in the reference: "f32", "bf16"
+    or "int8" stores the values in that dtype (int8 with one f32 scale a
+    chunk, ``plan.value_scale``), and every product still accumulates and
+    returns f32; "auto" (no record store here) and "" keep float32, which
+    is what the reference holds for the generators' float64 values too.
+    The vdtype's width sizes "auto"'s budget and the lowering's cost.
+    ``dtype`` may only be None or float32, and not together with a
+    ``vdtype`` other than "auto" (the reference's ``ValueError``: the
+    value-dtype axis owns the cast).
     ``store``, ``reorder`` and ``verify`` take the reference's defaults
     (None, None, False); any other value raises ``NotImplementedError``
     (:func:`refuse_unported`)."""
@@ -406,8 +433,6 @@ def make_plan(mat: F.SPC5Matrix, *, device: Device, layout: str = "auto",
         raise ValueError(
             f"pass either dtype= (legacy passthrough) or vdtype={vdtype!r}, "
             f"not both -- the value-dtype axis owns the cast")
-    if vdtype not in ("", "auto", "f32"):
-        raise _not_ported(f"vdtype={vdtype!r}", "item 5")
     if dtype is not None and not _is_f32(dtype):
         raise _not_ported(f"dtype={dtype!r}", "item 5")
     st = PlanState(mat=mat, device=torch.device(device),
@@ -495,6 +520,10 @@ def plan_from_arrays(layout, arrays=None, meta=None, *, device: Device,
     ``handle.multi.layout``, ``.arrays`` and ``.meta``) or as that plan
     whole.
 
+    A quantised plan's values come as built: int8, or bf16 (the reference's
+    ``ml_dtypes.bfloat16``, or the port's ``uint16`` bit patterns), and an
+    int8 plan's ``value_scale`` trails its arrays.
+
     ``layout`` may instead be the other package's plan whole (a JAX
     ``SPC5Plan``, read by attribute: :func:`plan_parts`), with ``arrays``
     and ``meta`` left out; its children are read the same way. Arrays and
@@ -529,16 +558,42 @@ def plan_from_arrays(layout, arrays=None, meta=None, *, device: Device,
     if lowering not in spec.lowerings:
         raise ValueError(f"layout {spec.name!r} has no lowering "
                          f"{lowering!r}")
-    if m.get("vdtype", "") not in ("", "f32"):
-        raise _not_ported(f"vdtype={m['vdtype']!r}", "item 5")
     arrays = [np.asarray(a) for a in arrays]
-    names = spec.plan_array_names(lowering)
+    names = spec.plan_array_names(lowering, m.get("vdtype", ""))
     if len(arrays) != len(names):
         raise ValueError(f"layout {spec.name!r} ({lowering}) has arrays "
                          f"{names}, got {len(arrays)}")
     return SPC5Plan(layout=spec.name,
                     arrays=tuple(R.to_tensor(a, device) for a in arrays),
                     meta=meta, children=children)
+
+
+def _value_store(values: np.ndarray, chunk_vbase: np.ndarray,
+                 chunk_mask: np.ndarray, st: PlanState):
+    """The resolved value-dtype axis applied to a build's packed values:
+    the values as they are where no vdtype is in effect (float32 on the
+    device, :func:`repro_torch.core.ref_spmv.to_tensor`), else the formats
+    store (bf16 bits, or int8 with per-chunk f32 scales over each chunk's
+    own nonzeros). Returns ``(values, scales_or_None)``."""
+    if not st.vdtype:
+        return values, None
+    return F.quantize_chunk_values(values, chunk_vbase, chunk_mask,
+                                   st.vdtype)
+
+
+def _plan_scale(plan: SPC5Plan):
+    """The per-chunk dequantisation scales of an int8 plan (None otherwise),
+    which every lowering passes to its kernel or plain version."""
+    if _meta_vdtype(plan.meta) == "int8":
+        return plan.value_scale
+    return None
+
+
+def _with_scale(arrays, scales, device):
+    arrays = tuple(arrays)
+    if scales is None:
+        return arrays
+    return arrays + (R.to_tensor(scales, device),)
 
 
 # ----------------------------------------------------------------------------
@@ -551,28 +606,33 @@ def _build_whole(st: PlanState):
     geom = dict(r=ch.r, c=ch.c, cb=ch.cb, vmax=ch.vmax, nrows=ch.nrows,
                 ncols=ch.ncols, nnz=ch.nnz, nblocks=int(st.mat.nblocks),
                 lowering=st.lowering, vdtype=st.vdtype)
+    values, scales = _value_store(ch.values, ch.chunk_vbase, ch.chunk_mask,
+                                  st)
     if st.lowering == LOWERING_DESC:
         desc = F.chunk_descriptors(ch.chunk_mask, ch.chunk_voff,
                                    ch.chunk_col, ch.chunk_row, r=ch.r,
                                    c=ch.c, vmax=ch.vmax, xmax=ch.ncols,
                                    ymax=ch.nrows)
         geom["desc_lane_nbytes"] = desc.lane_nbytes
-        return tuple(R.device_put_desc(ch.values, desc, ch.chunk_vbase,
-                                       st.device)), geom
-    return tuple(R.device_put(ch, st.device)), geom
+        return _with_scale(R.device_put_desc(values, desc, ch.chunk_vbase,
+                                             st.device), scales,
+                           st.device), geom
+    ch = dataclasses.replace(ch, values=values)
+    return _with_scale(R.device_put(ch, st.device), scales, st.device), geom
 
 
 def _lower_spmv_whole(plan: SPC5Plan, x, *, double_buffer):
+    scale = _plan_scale(plan)
     if plan.lowering == LOWERING_DESC:
         fn = (spc5_spmv_desc.spmv_cuda_desc_db if double_buffer
               else spc5_spmv_desc.spmv_cuda_desc)
         return fn(plan.chunk_vbase, plan.desc_valid, plan.desc_vidx,
-                  plan.desc_xcol, plan.desc_yrow, plan.values, x, r=plan.r,
-                  c=plan.c, cb=plan.cb, vmax=plan.vmax, nrows=plan.nrows,
-                  ncols=plan.ncols)
+                  plan.desc_xcol, plan.desc_yrow, plan.values, x, scale,
+                  r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax,
+                  nrows=plan.nrows, ncols=plan.ncols)
     fn = spc5_spmv.spmv_cuda_db if double_buffer else spc5_spmv.spmv_cuda
     return fn(plan.chunk_vbase, plan.chunk_col, plan.chunk_mask,
-              plan.chunk_voff, plan.chunk_row, plan.values, x,
+              plan.chunk_voff, plan.chunk_row, plan.values, x, None, scale,
               r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax,
               nrows=plan.nrows, ncols=plan.ncols)
 
@@ -580,15 +640,18 @@ def _lower_spmv_whole(plan: SPC5Plan, x, *, double_buffer):
 def _lower_spmm_whole(plan: SPC5Plan, x, *, nvt, double_buffer):
     # the reference has one whole-vector SpMM kernel per lowering: no
     # double buffer
+    scale = _plan_scale(plan)
     if plan.lowering == LOWERING_DESC:
         return spc5_spmm_desc.spmm_cuda_desc(
             plan.chunk_vbase, plan.desc_valid, plan.desc_vidx, plan.desc_xcol,
-            plan.desc_yrow, plan.values, x, r=plan.r, c=plan.c, cb=plan.cb,
-            vmax=plan.vmax, nrows=plan.nrows, ncols=plan.ncols, nvt=nvt)
+            plan.desc_yrow, plan.values, x, scale, r=plan.r, c=plan.c,
+            cb=plan.cb, vmax=plan.vmax, nrows=plan.nrows, ncols=plan.ncols,
+            nvt=nvt)
     return spc5_spmm.spmm_cuda(
         plan.chunk_vbase, plan.chunk_col, plan.chunk_mask, plan.chunk_voff,
-        plan.chunk_row, plan.values, x, r=plan.r, c=plan.c, cb=plan.cb,
-        vmax=plan.vmax, nrows=plan.nrows, ncols=plan.ncols, nvt=nvt)
+        plan.chunk_row, plan.values, x, None, scale, r=plan.r, c=plan.c,
+        cb=plan.cb, vmax=plan.vmax, nrows=plan.nrows, ncols=plan.ncols,
+        nvt=nvt)
 
 
 register_layout(LayoutSpec(
@@ -618,6 +681,8 @@ def _build_panels(st: PlanState):
                 nrows=pan.nrows, ncols=pan.ncols, ncols_pad=pan.ncols_pad,
                 nnz=pan.nnz, nblocks=int(st.mat.nblocks),
                 lowering=st.lowering, vdtype=st.vdtype)
+    values, scales = _value_store(pan.values, pan.chunk_vbase,
+                                  pan.chunk_mask, st)
     if st.lowering == LOWERING_DESC:
         # window-relative xcol and panel-relative yrow tables
         desc = F.chunk_descriptors(pan.chunk_mask, pan.chunk_voff,
@@ -625,44 +690,50 @@ def _build_panels(st: PlanState):
                                    c=pan.c, vmax=pan.vmax, xmax=pan.xw,
                                    ymax=pan.pr)
         geom["desc_lane_nbytes"] = desc.lane_nbytes
-        return tuple(R.device_put_desc(pan.values, desc, pan.chunk_vbase,
-                                       st.device, pan.chunk_xbase)), geom
-    return tuple(R.device_put_panels(pan, st.device)), geom
+        return _with_scale(R.device_put_desc(values, desc, pan.chunk_vbase,
+                                             st.device, pan.chunk_xbase),
+                           scales, st.device), geom
+    pan = dataclasses.replace(pan, values=values)
+    return _with_scale(R.device_put_panels(pan, st.device), scales,
+                       st.device), geom
 
 
 def _lower_spmv_panels(plan: SPC5Plan, x, *, double_buffer):
+    scale = _plan_scale(plan)
     if plan.lowering == LOWERING_DESC:
         fn = (spc5_spmv_desc.spmv_cuda_panels_desc_db if double_buffer
               else spc5_spmv_desc.spmv_cuda_panels_desc)
         return fn(plan.chunk_vbase, plan.chunk_xbase, plan.desc_valid,
                   plan.desc_vidx, plan.desc_xcol, plan.desc_yrow,
-                  plan.values, x, r=plan.r, c=plan.c, cb=plan.cb,
-                  vmax=plan.vmax, xw=plan.xw, pr=plan.pr, nrows=plan.nrows,
-                  ncols_pad=plan.ncols_pad)
+                  plan.values, x, None, scale, r=plan.r, c=plan.c,
+                  cb=plan.cb, vmax=plan.vmax, xw=plan.xw, pr=plan.pr,
+                  nrows=plan.nrows, ncols_pad=plan.ncols_pad)
     fn = (spc5_spmv.spmv_cuda_panels_db if double_buffer
           else spc5_spmv.spmv_cuda_panels)
     return fn(plan.chunk_vbase, plan.chunk_xbase, plan.chunk_col,
               plan.chunk_mask, plan.chunk_voff, plan.chunk_row, plan.values,
-              x, r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax, xw=plan.xw,
-              pr=plan.pr, nrows=plan.nrows, ncols_pad=plan.ncols_pad)
+              x, None, scale, r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax,
+              xw=plan.xw, pr=plan.pr, nrows=plan.nrows,
+              ncols_pad=plan.ncols_pad)
 
 
 def _lower_spmm_panels(plan: SPC5Plan, x, *, nvt, double_buffer):
+    scale = _plan_scale(plan)
     if plan.lowering == LOWERING_DESC:
         fn = (spc5_spmm_desc.spmm_cuda_panels_desc_db if double_buffer
               else spc5_spmm_desc.spmm_cuda_panels_desc)
         return fn(plan.chunk_vbase, plan.chunk_xbase, plan.desc_valid,
                   plan.desc_vidx, plan.desc_xcol, plan.desc_yrow,
-                  plan.values, x, r=plan.r, c=plan.c, cb=plan.cb,
-                  vmax=plan.vmax, xw=plan.xw, pr=plan.pr, nrows=plan.nrows,
-                  ncols_pad=plan.ncols_pad, nvt=nvt)
+                  plan.values, x, None, scale, r=plan.r, c=plan.c,
+                  cb=plan.cb, vmax=plan.vmax, xw=plan.xw, pr=plan.pr,
+                  nrows=plan.nrows, ncols_pad=plan.ncols_pad, nvt=nvt)
     fn = (spc5_spmm.spmm_cuda_panels_db if double_buffer
           else spc5_spmm.spmm_cuda_panels)
     return fn(plan.chunk_vbase, plan.chunk_xbase, plan.chunk_col,
               plan.chunk_mask, plan.chunk_voff, plan.chunk_row, plan.values,
-              x, r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax, xw=plan.xw,
-              pr=plan.pr, nrows=plan.nrows, ncols_pad=plan.ncols_pad,
-              nvt=nvt)
+              x, None, scale, r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax,
+              xw=plan.xw, pr=plan.pr, nrows=plan.nrows,
+              ncols_pad=plan.ncols_pad, nvt=nvt)
 
 
 register_layout(LayoutSpec(
@@ -724,9 +795,20 @@ def _bucket_tail_by_panel(rows: np.ndarray, cols: np.ndarray,
 def _build_test(st: PlanState):
     """The split, the multi sub-plan through this pipeline (its own passes,
     no reordering) and the tail: bucketed by the sub-plan's panels when it
-    is a panel plan, else flat (zero-length arrays: no singletons)."""
+    is a panel plan, else flat (zero-length arrays: no singletons). As in
+    the reference, a bf16 tail stores bf16 (the tail paths upcast before
+    any multiply) and an int8 tail keeps f32 values: the tail has no chunks
+    to hang scales off, and its bytes are few."""
     split = F.split_singletons(st.mat)
-    dt = st.dtype or st.mat.values.dtype
+    if st.vdtype == "bf16":
+        dt = F.value_dtype("bf16")
+    elif st.vdtype == "int8":
+        dt = np.float32
+    else:
+        dt = st.dtype or st.mat.values.dtype
+
+    def store(vals):
+        return F.bf16_bits(vals) if dt == F.BF16_HOST else vals.astype(dt)
     multi = make_plan(split.multi, device=st.device, layout=st.multi_layout,
                       pr=st.pr, xw=st.xw, cb=st.cb, nvec=st.nvec,
                       align=st.align, dtype=st.dtype,
@@ -736,13 +818,13 @@ def _build_test(st: PlanState):
     if multi.layout == LAYOUT_PANELS and n_single:
         brows, bcols, bvals, xbase, tail_xw, tail_pad = \
             _bucket_tail_by_panel(split.single_rows, split.single_cols,
-                                  split.single_values.astype(dt), multi.pr,
+                                  store(split.single_values), multi.pr,
                                   multi.npanels, align=st.align)
         arrays = (brows, bcols, bvals, xbase)
         tail_pr = multi.pr
     else:
         arrays = (split.single_rows, split.single_cols,
-                  split.single_values.astype(dt), np.zeros((0,), np.int32))
+                  store(split.single_values), np.zeros((0,), np.int32))
         tail_pr, tail_xw, tail_pad = 0, 0, 0
     geom = dict(nrows=st.mat.nrows, ncols=st.mat.ncols, nnz=st.mat.nnz,
                 tail_pr=tail_pr, tail_xw=tail_xw, tail_ncols_pad=tail_pad,

@@ -6,8 +6,10 @@ device-agnostic, mirroring the reference's jnp oracle
 ``spmm_panels`` / ``spmv_desc`` / ``spmv_panels_desc`` / ``spmm_desc`` /
 ``spmm_panels_desc`` and the beta(r,c)_test tail's ``spmv_coo`` /
 ``spmm_coo`` / ``spmv_coo_panels``, with the bucketed SpMM tail that the
-reference's test layout computes inline as ``spmm_coo_panels``) for f32
-values.
+reference's test layout computes inline as ``spmm_coo_panels``). Values may
+be stored as f32, bf16 or int8 (with one f32 ``value_scale`` a chunk): every
+decode upcasts them to f32 and applies the scale before any multiply
+(:func:`_upcast`, the reference's contract), so products and sums are f32.
 The CPU tests run them in place of the CUDA kernels, and ``chip_smoke.py``
 holds every kernel against them on the card. The mask decode is
 
@@ -32,7 +34,7 @@ from typing import NamedTuple, Union
 import numpy as np
 import torch
 
-from .formats import ChunkDescriptors, SPC5Chunked, SPC5Panels
+from .formats import BF16_HOST, ChunkDescriptors, SPC5Chunked, SPC5Panels
 
 Device = Union[str, torch.device]
 
@@ -40,7 +42,7 @@ Device = Union[str, torch.device]
 class SPC5Device(NamedTuple):
     """Tensor view of :class:`SPC5Chunked` (static meta kept python-side)."""
 
-    values: torch.Tensor       # (nvals_padded,) float32
+    values: torch.Tensor       # (nvals_padded,) float32, bfloat16 or int8
     chunk_col: torch.Tensor    # (nchunks, cb) int32
     chunk_mask: torch.Tensor   # (nchunks, cb) int32 view of the uint32 masks
     chunk_voff: torch.Tensor   # (nchunks, cb) int32
@@ -51,7 +53,7 @@ class SPC5Device(NamedTuple):
 class SPC5PanelDevice(NamedTuple):
     """Tensor view of :class:`SPC5Panels` (static meta kept python-side)."""
 
-    values: torch.Tensor       # (nvals_padded,) float32
+    values: torch.Tensor       # (nvals_padded,) float32, bfloat16 or int8
     chunk_col: torch.Tensor    # (npanels, nchunks, cb) int32, window-relative
     chunk_mask: torch.Tensor   # (npanels, nchunks, cb) int32 view of uint32
     chunk_voff: torch.Tensor   # (npanels, nchunks, cb) int32
@@ -63,13 +65,21 @@ class SPC5PanelDevice(NamedTuple):
 def to_tensor(a: np.ndarray, device: Device) -> torch.Tensor:
     """One host array -> a contiguous tensor on ``device``.
 
-    ``uint32`` becomes its ``int32`` view (same bytes) and float values
-    become float32, which is what the reference stores too: its
-    ``jnp.asarray`` drops the generators' float64 to float32 because JAX
-    runs without x64."""
+    ``uint32`` becomes its ``int32`` view (same bytes); bf16 values, the
+    port's bit patterns (``formats.BF16_HOST``) or the reference's
+    ``ml_dtypes.bfloat16`` (known by its dtype name, with no import), become
+    ``torch.bfloat16`` with the same bits; other float values become
+    float32, which is what the reference stores too: its ``jnp.asarray``
+    drops the generators' float64 to float32 because JAX runs without
+    x64."""
     a = np.ascontiguousarray(a)
     if not a.flags.writeable:           # e.g. a JAX array's host view
         a = a.copy()
+    if a.dtype.name == "bfloat16":
+        a = a.view(BF16_HOST)
+    if a.dtype == BF16_HOST:
+        return torch.from_numpy(a.view(np.int16)).to(device).view(
+            torch.bfloat16)
     if a.dtype == np.uint32:
         a = a.view(np.int32)
     elif a.dtype.kind == "f":
@@ -87,29 +97,44 @@ def device_put_panels(panels: SPC5Panels, device: Device) -> SPC5PanelDevice:
                              for n in SPC5PanelDevice._fields))
 
 
-def _decode(values, chunk_mask, chunk_voff, chunk_vbase, r: int, c: int):
+def _upcast(vals: torch.Tensor, scale=None) -> torch.Tensor:
+    """The reference's f32-accumulation contract, shared by every decode:
+    int kinds and floats narrower than 4 bytes (int8, bf16) are upcast to
+    f32, then the optional per-chunk ``scale`` (the leading chunk dims,
+    broadcast over the trailing (cb, r*c) lane dims) is applied; f32 without
+    a scale passes through as it is."""
+    if not vals.is_floating_point() or vals.element_size() < 4:
+        vals = vals.float()
+    if scale is not None:
+        vals = vals * scale.to(vals.dtype)[..., None, None]
+    return vals
+
+
+def _decode(values, chunk_mask, chunk_voff, chunk_vbase, r: int, c: int,
+            scale=None):
     """Shared mask decode over any leading chunk shape: returns the expanded
-    values (set lanes only, others 0), the lane index k and the lane bits,
-    each with a trailing r*c axis."""
+    values (upcast and scaled, :func:`_upcast`; set lanes only, others 0),
+    the lane index k and the lane bits, each with a trailing r*c axis."""
     rc = r * c
     k = torch.arange(rc, dtype=torch.int32, device=values.device)
     bits = (chunk_mask[..., None] >> k) & 1
     ranks = torch.cumsum(bits, dim=-1, dtype=torch.int32) - bits
     vidx = chunk_vbase[..., None, None] + chunk_voff[..., None] + ranks
     vidx = vidx.clamp(0, values.shape[0] - 1).long()
-    vals = values[vidx] * bits.to(values.dtype)
-    return vals, k, bits
+    vals = _upcast(values[vidx], scale)
+    return vals * bits.to(vals.dtype), k, bits
 
 
-def spmv(dev: SPC5Device, x: torch.Tensor, *, r: int, c: int, nrows: int,
-         ncols: int) -> torch.Tensor:
-    """y = A @ x with A in chunked beta(r, c) (whole-vector layout).
+def spmv(dev: SPC5Device, x: torch.Tensor, value_scale=None, *, r: int,
+         c: int, nrows: int, ncols: int) -> torch.Tensor:
+    """y = A @ x with A in chunked beta(r, c) (whole-vector layout);
+    ``value_scale`` (nchunks,) dequantises int8 values (:func:`_upcast`).
 
     Unset lanes carry a zero value; their clamped gather/scatter indices
     stay in bounds and add nothing (the reference's jnp scatter drops
     out-of-range rows instead, with the same result)."""
     vals, k, _ = _decode(dev.values, dev.chunk_mask, dev.chunk_voff,
-                         dev.chunk_vbase, r, c)
+                         dev.chunk_vbase, r, c, value_scale)
     xcol = (dev.chunk_col[..., None] + k % c).clamp(0, ncols - 1).long()
     yrow = (dev.chunk_row[..., None] + k // c).clamp(0, nrows - 1).long()
     contrib = vals * x[xcol]
@@ -117,13 +142,17 @@ def spmv(dev: SPC5Device, x: torch.Tensor, *, r: int, c: int, nrows: int,
     return y.index_add_(0, yrow.reshape(-1), contrib.reshape(-1))
 
 
-def spmv_panels(dev: SPC5PanelDevice, x: torch.Tensor, *, r: int, c: int,
-                pr: int, nrows: int, ncols_pad: int) -> torch.Tensor:
-    """y = A @ x with A in the row-panel-tiled layout; x (ncols,)."""
+def spmv_panels(dev: SPC5PanelDevice, x: torch.Tensor, cmap=None,
+                value_scale=None, *, r: int, c: int, pr: int, nrows: int,
+                ncols_pad: int) -> torch.Tensor:
+    """y = A @ x with A in the row-panel-tiled layout; x (ncols,).
+    ``value_scale`` (npanels, nchunks) dequantises int8 values; ``cmap``
+    (a fused column permutation) is not ported."""
+    _refuse_cmap(cmap)
     npanels = dev.chunk_mask.shape[0]
     xp = torch.nn.functional.pad(x, (0, max(0, ncols_pad - x.shape[0])))
     vals, k, _ = _decode(dev.values, dev.chunk_mask, dev.chunk_voff,
-                         dev.chunk_vbase, r, c)
+                         dev.chunk_vbase, r, c, value_scale)
     xcol = (dev.chunk_xbase[..., None, None] + dev.chunk_col[..., None]
             + k % c).clamp(0, ncols_pad - 1).long()
     panel_row0 = (torch.arange(npanels, dtype=torch.int32, device=x.device)
@@ -170,26 +199,30 @@ def _spmm_scatter(vals, xcol, yrow, x: torch.Tensor,
     return y
 
 
-def spmm(dev: SPC5Device, x: torch.Tensor, *, r: int, c: int, nrows: int,
-         ncols: int) -> torch.Tensor:
+def spmm(dev: SPC5Device, x: torch.Tensor, value_scale=None, *, r: int,
+         c: int, nrows: int, ncols: int) -> torch.Tensor:
     """Y = A @ X with A in chunked beta(r, c) (whole-vector layout); X is
-    (ncols, nvec) and Y (nrows, nvec), both row-major."""
+    (ncols, nvec) and Y (nrows, nvec), both row-major; ``value_scale`` as
+    in :func:`spmv`."""
     vals, k, bits = _decode(dev.values, dev.chunk_mask, dev.chunk_voff,
-                            dev.chunk_vbase, r, c)
+                            dev.chunk_vbase, r, c, value_scale)
     xcol = dev.chunk_col[..., None] + k % c
     yrow = dev.chunk_row[..., None] + k // c
     return _spmm_set_lanes(vals, bits, xcol, yrow, x, nrows)
 
 
-def spmm_panels(dev: SPC5PanelDevice, x: torch.Tensor, *, r: int, c: int,
-                pr: int, nrows: int, ncols_pad: int) -> torch.Tensor:
-    """Y = A @ X with A in the row-panel-tiled layout; X (ncols, nvec).
+def spmm_panels(dev: SPC5PanelDevice, x: torch.Tensor, cmap=None,
+                value_scale=None, *, r: int, c: int, pr: int, nrows: int,
+                ncols_pad: int) -> torch.Tensor:
+    """Y = A @ X with A in the row-panel-tiled layout; X (ncols, nvec);
+    ``cmap`` and ``value_scale`` as in :func:`spmv_panels`.
 
     ``ncols_pad`` is kept for the reference's signature: set lanes never
     reach past the matrix's columns, so X is not padded here."""
+    _refuse_cmap(cmap)
     npanels = dev.chunk_mask.shape[0]
     vals, k, bits = _decode(dev.values, dev.chunk_mask, dev.chunk_voff,
-                            dev.chunk_vbase, r, c)
+                            dev.chunk_vbase, r, c, value_scale)
     xcol = (dev.chunk_xbase[..., None, None] + dev.chunk_col[..., None]
             + k % c)
     panel_row0 = (torch.arange(npanels, dtype=torch.int32, device=x.device)
@@ -207,7 +240,7 @@ class SPC5DescDevice(NamedTuple):
     field order). The index tables keep the narrowed dtypes they were built
     with (:func:`repro_torch.core.formats.chunk_descriptors`)."""
 
-    values: torch.Tensor       # (nvals_padded,) float32
+    values: torch.Tensor       # (nvals_padded,) float32, bfloat16 or int8
     desc_valid: torch.Tensor   # (nchunks, cb, r*c) int8, 0 => padding lane
     desc_vidx: torch.Tensor    # (nchunks, cb, r*c) int8/16/32, in window
     desc_xcol: torch.Tensor    # (nchunks, cb, r*c) int8/16/32, global x
@@ -219,7 +252,7 @@ class SPC5PanelDescDevice(NamedTuple):
     """Tensor view of the panel descriptor lowering (``desc_xcol``
     window-relative, ``desc_yrow`` panel-relative)."""
 
-    values: torch.Tensor       # (nvals_padded,) float32
+    values: torch.Tensor       # (nvals_padded,) float32, bfloat16 or int8
     desc_valid: torch.Tensor   # (npanels, nchunks, cb, r*c) int8
     desc_vidx: torch.Tensor    # (npanels, nchunks, cb, r*c) int8/16/32
     desc_xcol: torch.Tensor    # (npanels, nchunks, cb, r*c), window-rel
@@ -242,32 +275,29 @@ def device_put_desc(values: np.ndarray, desc: ChunkDescriptors,
                                  for a in arrays + (chunk_xbase,)))
 
 
-def _desc_unsupported(cmap, value_scale) -> None:
+def _refuse_cmap(cmap) -> None:
     if cmap is not None:
         raise NotImplementedError(
             "cmap (fused column permutation) is not ported yet: ROADMAP "
             "queue 1, item 5 (reorder pass)")
-    if value_scale is not None:
-        raise NotImplementedError(
-            "value_scale (int8 values) is not ported yet: ROADMAP queue 1, "
-            "item 5 (bf16/int8 values)")
 
 
-def _desc_vals(values, valid, vidx, vbase):
-    """The descriptor expand: one gather from the chunk's value window and
-    the valid mask (narrow tables promote to int64 for indexing)."""
+def _desc_vals(values, valid, vidx, vbase, scale=None):
+    """The descriptor expand: one gather from the chunk's value window
+    (upcast and scaled, :func:`_upcast`) and the valid mask (narrow tables
+    promote to int64 for indexing)."""
     gidx = vbase[..., None, None].long() + vidx.long()
-    vals = values[gidx.clamp(0, values.shape[0] - 1)]
+    vals = _upcast(values[gidx.clamp(0, values.shape[0] - 1)], scale)
     return vals * valid.to(vals.dtype)
 
 
 def spmv_desc(dev: SPC5DescDevice, x: torch.Tensor, value_scale=None, *,
               nrows: int) -> torch.Tensor:
-    """y = A @ x through the whole-vector descriptors. Unset lanes carry a
-    zero value and in-bounds (clipped) indices, as in the reference."""
-    _desc_unsupported(None, value_scale)
+    """y = A @ x through the whole-vector descriptors; ``value_scale``
+    (nchunks,) dequantises int8 values. Unset lanes carry a zero value and
+    in-bounds (clipped) indices, as in the reference."""
     vals = _desc_vals(dev.values, dev.desc_valid, dev.desc_vidx,
-                      dev.chunk_vbase)
+                      dev.chunk_vbase, value_scale)
     contrib = vals * x[dev.desc_xcol.long()]
     y = torch.zeros(nrows, dtype=contrib.dtype, device=contrib.device)
     return y.index_add_(0, dev.desc_yrow.reshape(-1).long(),
@@ -277,12 +307,13 @@ def spmv_desc(dev: SPC5DescDevice, x: torch.Tensor, value_scale=None, *,
 def spmv_panels_desc(dev: SPC5PanelDescDevice, x: torch.Tensor, cmap=None,
                      value_scale=None, *, pr: int, nrows: int,
                      ncols_pad: int) -> torch.Tensor:
-    """y = A @ x through the panel descriptors; x (ncols,)."""
-    _desc_unsupported(cmap, value_scale)
+    """y = A @ x through the panel descriptors; x (ncols,); ``value_scale``
+    (npanels, nchunks) dequantises int8 values, ``cmap`` is not ported."""
+    _refuse_cmap(cmap)
     npanels = dev.desc_valid.shape[0]
     xp = torch.nn.functional.pad(x, (0, max(0, ncols_pad - x.shape[0])))
     vals = _desc_vals(dev.values, dev.desc_valid, dev.desc_vidx,
-                      dev.chunk_vbase)
+                      dev.chunk_vbase, value_scale)
     xcol = (dev.chunk_xbase[..., None, None].long()
             + dev.desc_xcol.long()).clamp(0, ncols_pad - 1)
     panel_row0 = (torch.arange(npanels, device=x.device)
@@ -294,16 +325,18 @@ def spmv_panels_desc(dev: SPC5PanelDescDevice, x: torch.Tensor, cmap=None,
     return y[:nrows]
 
 
-def _desc_set_lanes(dev):
+def _desc_set_lanes(dev, scale=None):
     """The valid lanes of a descriptor view as flat int64 indices: each
-    lane's unit (chunk, or panel * nchunks + chunk), its value and its
-    table entries. A valid lane names a value in
-    its window and a row and column inside the matrix, so nothing is
-    clamped."""
+    lane's unit (chunk, or panel * nchunks + chunk), its value (upcast, and
+    times its unit's ``scale``) and its table entries. A valid lane names a
+    value in its window and a row and column inside the matrix, so nothing
+    is clamped."""
     lanes = torch.nonzero(dev.desc_valid.reshape(-1)).squeeze(1)
     unit = lanes // max(1, math.prod(dev.desc_valid.shape[-2:]))
-    vals = dev.values[dev.chunk_vbase.reshape(-1)[unit].long()
-                      + dev.desc_vidx.reshape(-1)[lanes].long()]
+    vals = _upcast(dev.values[dev.chunk_vbase.reshape(-1)[unit].long()
+                              + dev.desc_vidx.reshape(-1)[lanes].long()])
+    if scale is not None:
+        vals = vals * scale.reshape(-1)[unit].to(vals.dtype)
     xcol = dev.desc_xcol.reshape(-1)[lanes].long()
     yrow = dev.desc_yrow.reshape(-1)[lanes].long()
     return unit, vals, xcol, yrow
@@ -315,9 +348,9 @@ def spmm_desc(dev: SPC5DescDevice, x: torch.Tensor, value_scale=None, *,
 
     Only the valid lanes are multiplied (the reference multiplies every
     lane, unset ones by 0: about 27 G products for a 64,000 x 4,096 layer
-    in beta(4,8) at nvec = 128, which do not fit the card)."""
-    _desc_unsupported(None, value_scale)
-    _, vals, xcol, yrow = _desc_set_lanes(dev)
+    in beta(4,8) at nvec = 128, which do not fit the card). ``value_scale``
+    as in :func:`spmv_desc`."""
+    _, vals, xcol, yrow = _desc_set_lanes(dev, value_scale)
     return _spmm_scatter(vals, xcol, yrow, x, nrows)
 
 
@@ -328,10 +361,11 @@ def spmm_panels_desc(dev: SPC5PanelDescDevice, x: torch.Tensor, cmap=None,
 
     The reference pads X with zero rows up to ``ncols_pad``; a lane whose
     column is at or past X's rows is dropped here instead, which adds the
-    same nothing without a copy of X."""
-    _desc_unsupported(cmap, value_scale)
+    same nothing without a copy of X. ``cmap`` and ``value_scale`` as in
+    :func:`spmv_panels_desc`."""
+    _refuse_cmap(cmap)
     nchunks = dev.chunk_vbase.shape[1]
-    unit, vals, xcol, yrow = _desc_set_lanes(dev)
+    unit, vals, xcol, yrow = _desc_set_lanes(dev, value_scale)
     xcol = xcol + dev.chunk_xbase.reshape(-1)[unit].long()
     yrow = yrow + (unit // nchunks) * pr
     inside = xcol < x.shape[0]
@@ -341,14 +375,6 @@ def spmm_panels_desc(dev: SPC5PanelDescDevice, x: torch.Tensor, cmap=None,
 # ----------------------------------------------------------------------------
 # The beta(r,c)_test split's singleton tail (COO)
 # ----------------------------------------------------------------------------
-
-def _upcast(vals: torch.Tensor) -> torch.Tensor:
-    """The reference's f32-accumulation contract: values stored narrower
-    than f32 are upcast before any multiply; f32 passes through as it is."""
-    if vals.is_floating_point() and vals.element_size() < 4:
-        return vals.float()
-    return vals
-
 
 def spmv_coo(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
              x: torch.Tensor, *, nrows: int) -> torch.Tensor:

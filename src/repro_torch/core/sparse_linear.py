@@ -92,9 +92,10 @@ class SparseLinear(nn.Module):
         one full SpMM tile). ``layout="test"`` builds the beta(r,c)_test
         split (its multi sub-plan's layout by the "auto" rule).
         ``lowering`` ("mask" | "descriptor" | "auto", the default) picks
-        the kernel variant exactly as on
-        :func:`repro_torch.kernels.ops.prepare`. A ``store``, ``reorder``, a
-        truthy ``verify`` and bf16/int8 values raise
+        the kernel variant and ``vdtype`` ("f32" | "bf16" | "int8" |
+        "auto") the stored values exactly as on
+        :func:`repro_torch.kernels.ops.prepare` (the forward returns f32
+        either way). A ``store``, ``reorder`` and a truthy ``verify`` raise
         ``NotImplementedError`` naming their ROADMAP item."""
         P.refuse_unported(reorder, store, verify)
         w = prune_by_magnitude(np.asarray(w), density)

@@ -15,7 +15,9 @@
 // x window (global column xbase + xcol) and yrow to the panel.
 //
 // Bound. 2 flops per nonzero and column; the bytes the product needs are
-// 4 B per packed value, per block lane one int8 valid byte and a vidx entry
+// 4 B per packed value (the panel kernels also take bf16, 2 B, and int8,
+// 1 B and an f32 scale a chunk), per block lane one int8 valid byte and a
+// vidx entry
 // (set or not), per block c xcol entries and one yrow entry (the rest of
 // those tables repeats them), and X and Y once each: the per-lane bytes bind
 // at small nvec, the f32 rate at nvec = 128, where what a nonzero costs in
@@ -80,7 +82,16 @@
 //     lanes in order, four at a time: their entries by shuffle (narrower
 //     groups read them themselves), their X rows loaded together through
 //     L1, then multiplied in order. A lane whose column lies at or past X's
-//     rows reads nothing of X and adds nothing.
+//     rows reads nothing of X and adds nothing;
+//   * the value store is the kernels' template parameter T: float, bf16 or
+//     int8 (the quantised decode of the reference's _expand_vals: a lane's
+//     value upcast to f32, an int8 one then times its chunk's f32 scale,
+//     before its products with X, summed in f32). The bulk copy needs
+//     16-byte aligned ends, so a narrow window is staged as the aligned
+//     span that covers it (an int8 window starts on any multiple of 8
+//     bytes); thread 0 writes each staged chunk's offset into its span and
+//     its scale beside the chunk's x window start, and the walk reads them
+//     once a block, as it reads that start.
 // The Y-tile helpers (an X row's load, row adds, the groups' row-aligned
 // ranges, the tile's write) are shared with the mask panel SpMM kernels of
 // spc5_spmm.cu through spc5_spmm_panels.cuh.
@@ -114,10 +125,11 @@ struct PanelArgs {
   const char* vidx;  // the index tables, as bytes (entries wv, wx, wy wide)
   const char* xcol;
   const char* yrow;
-  const float* values;
+  const void* values;  // vsize bytes a value: float, __nv_bfloat16 or int8_t
+  const float* scale;  // (npanels, nchunks) int8 scales; unread otherwise
   const float* x;  // (xrows, nvec), read in place
   float* y;        // (nrows, nvec)
-  int nchunks, cb, r, c, vmax, pr, nrows, xrows, wv, wx, wy;
+  int nchunks, cb, r, c, vmax, pr, nrows, xrows, vsize, wv, wx, wy;
   int nvec;
   int tw;      // columns of a tile: vec times the lanes of a group (at most 32 lanes)
   int vec;     // columns a lane owns: 4 or 2 (one 16- or 8-byte X load) or 1
@@ -130,8 +142,10 @@ struct PanelArgs {
 };
 
 // Byte offsets of the Y tile's end (the first stage starts there) and of one
-// stage's parts, each 16-byte aligned: the value windows and x window starts
-// of its q chunks, for nb blocks the valid and vidx runs, the c xcol entries
+// stage's parts, each 16-byte aligned: the value windows (value_window bytes
+// each) and x window starts of its q chunks, for narrow values each chunk's
+// window offset and scale (8 bytes), for nb blocks the valid and vidx runs,
+// the c xcol entries
 // of each block's first row, each block's lane-0 yrow entry in a 4-byte
 // slot, and a 16-byte slot for the stage's mbarrier; after the stages, the
 // walk's order of nb blocks (16 bytes a block) and their sort keys (4 bytes
@@ -140,16 +154,17 @@ struct PanelArgs {
 // differs is refused, and spc5_spmm_desc_panels_smem exposes this one for
 // the wrapper's tests.
 struct PanelLayout {
-  int tile, vwin, xbase, valid, vidx, xcol, yrow, bar, stage, order;
+  int tile, vwin, xbase, wmeta, valid, vidx, xcol, yrow, bar, stage, order;
 };
 
 __host__ __device__ inline PanelLayout panel_layout(const PanelArgs& a) {
   const int rc = a.r * a.c;
   PanelLayout L;
   L.tile = round16(4 * a.prows * a.tw);
-  L.vwin = 0;  // q value windows of vmax floats (a multiple of 8)
-  L.xbase = a.q * 4 * a.vmax;
-  L.valid = L.xbase + round16(4 * a.q);
+  L.vwin = 0;  // q value windows of vmax values (vmax a multiple of 4)
+  L.xbase = a.q * value_window(a.vsize, a.vmax);
+  L.wmeta = L.xbase + round16(4 * a.q);
+  L.valid = L.wmeta + (a.vsize < 4 ? round16(8 * a.q) : 0);
   L.vidx = L.valid + round16(a.nb * rc);
   L.xcol = L.vidx + round16(a.nb * rc * a.wv);
   L.yrow = L.xcol + round16(a.nb * a.c * a.wx);
@@ -166,10 +181,13 @@ inline size_t panel_smem(const PanelArgs& a, int stages) {
 
 // Start staging nb blocks from block b0 of global chunk g on into stage st:
 // the qn chunks they span (one, or q whole ones) and, where `windows`,
-// those chunks' value windows. Thread 0 announces and issues the bulk
-// copies (the windows; the valid and vidx runs where `bulk`), all
-// completing on the stage's mbarrier, so the mbarrier completes one phase
-// per call; every thread issues its share of the other pieces by cp.async.
+// those chunks' value windows (a narrow one as the aligned span that covers
+// it, its offset in the span and its chunk's scale written beside). Thread 0
+// announces and issues the bulk copies (the windows; the valid and vidx
+// runs where `bulk`), all completing on the stage's mbarrier, so the
+// mbarrier completes one phase per call; every thread issues its share of
+// the other pieces by cp.async.
+template <typename T>
 __device__ __forceinline__ void fill_stage(unsigned char* st, const PanelLayout& L,
                                            const PanelArgs& a, size_t g, int b0, int nb, int qn,
                                            bool windows, bool bulk) {
@@ -180,10 +198,30 @@ __device__ __forceinline__ void fill_stage(unsigned char* st, const PanelLayout&
   const int nvalid = nb * rc, nvidx = nb * rc * a.wv;
   if (threadIdx.x == 0) {
     uint64_t* bar = reinterpret_cast<uint64_t*>(st + L.bar);
-    mbar_expect_tx(bar, (windows ? 4 * a.vmax * qn : 0) + (bulk ? nvalid + nvidx : 0));
-    for (int i = 0; windows && i < qn; ++i) {
-      bulk_copy(st + L.vwin + 4 * a.vmax * i, a.values + __ldg(a.vbase + g + i), 4 * a.vmax,
-                bar);
+    const T* values = static_cast<const T*>(a.values);
+    if constexpr (sizeof(T) == 4) {
+      mbar_expect_tx(bar, (windows ? 4 * a.vmax * qn : 0) + (bulk ? nvalid + nvidx : 0));
+      for (int i = 0; windows && i < qn; ++i) {
+        bulk_copy(st + L.vwin + 4 * a.vmax * i, values + __ldg(a.vbase + g + i), 4 * a.vmax, bar);
+      }
+    } else {
+      const int stride = value_window(a.vsize, a.vmax);
+      int2* meta = reinterpret_cast<int2*>(st + L.wmeta);
+      uint32_t wbytes = 0;
+      for (int i = 0; windows && i < qn; ++i) {
+        int bytes, off;
+        value_span(values, __ldg(a.vbase + g + i), a.vmax, bytes, off);
+        float sc = 1.f;
+        if constexpr (sizeof(T) == 1) sc = __ldg(a.scale + g + i);
+        meta[i] = make_int2(off, __float_as_int(sc));
+        wbytes += bytes;
+      }
+      mbar_expect_tx(bar, wbytes + (bulk ? nvalid + nvidx : 0));
+      for (int i = 0; windows && i < qn; ++i) {
+        int bytes, off;
+        const char* span = value_span(values, __ldg(a.vbase + g + i), a.vmax, bytes, off);
+        bulk_copy(st + L.vwin + stride * i, span, bytes, bar);
+      }
     }
     if (bulk) {
       bulk_copy(st + L.valid, valid, nvalid, bar);
@@ -255,15 +293,15 @@ struct LaneEntry {
   int off;
 };
 
-template <int C>
-__device__ __forceinline__ LaneEntry lane_entry(const float* vwin, const unsigned char* bvidx,
+template <typename T, int C>
+__device__ __forceinline__ LaneEntry lane_entry(const T* vwin, float s, const unsigned char* bvidx,
                                                 const unsigned char* bxcol, uint32_t bm, int k,
                                                 int xb, const PanelArgs& a) {
   LaneEntry e{0.f, -1};
   if ((bm >> k) & 1u) {
     const int col = xb + smem_entry(bxcol, k & (C - 1), a.wx);
     if (col < a.xrows) {
-      e.v = vwin[smem_entry(bvidx, k, a.wv)];
+      e.v = dequant(vwin[smem_entry(bvidx, k, a.wv)], s);
       e.off = col * a.nvec;
     }
   }
@@ -276,9 +314,10 @@ __device__ __forceinline__ LaneEntry lane_entry(const float* vwin, const unsigne
 // registers (acc) while the tile row (cur) stays, from block to block, and
 // added into the tile when it changes. A group of a whole warp first reads
 // lane k's entry into lane k and passes it on by shuffle; narrower groups
-// read each set lane's entry themselves.
-template <int R, int C, int V>
-__device__ __forceinline__ void walk_block(const float* vwin, const unsigned char* svidx,
+// read each set lane's entry themselves. The block's chunk's window starts at
+// vwin; s is its scale (int8 only).
+template <typename T, int R, int C, int V>
+__device__ __forceinline__ void walk_block(const T* vwin, float s, const unsigned char* svidx,
                                            const unsigned char* sxcol, int b, uint32_t bm,
                                            int by, int xb, const PanelArgs& a, float* ytile,
                                            const float* xp, int jv, int lg, int& cur,
@@ -291,7 +330,7 @@ __device__ __forceinline__ void walk_block(const float* vwin, const unsigned cha
   const bool pre = lg == 5;
   const int j = threadIdx.x & 31;
   LaneEntry e0{0.f, -1};
-  if (pre && j < RC) e0 = lane_entry<C>(vwin, bvidx, bxcol, bm, j, xb, a);
+  if (pre && j < RC) e0 = lane_entry<T, C>(vwin, s, bvidx, bxcol, bm, j, xb, a);
   uint32_t bits = bm;
   while (bits != 0u) {
     int k[kBatch];
@@ -304,7 +343,7 @@ __device__ __forceinline__ void walk_block(const float* vwin, const unsigned cha
         e[i].v = __shfl_sync(0xffffffffu, e0.v, max(k[i], 0));
         e[i].off = __shfl_sync(0xffffffffu, e0.off, max(k[i], 0));
       } else {
-        e[i] = lane_entry<C>(vwin, bvidx, bxcol, bm, max(k[i], 0), xb, a);
+        e[i] = lane_entry<T, C>(vwin, s, bvidx, bxcol, bm, max(k[i], 0), xb, a);
       }
       if (k[i] < 0) e[i].off = -1;
     }
@@ -370,13 +409,13 @@ __device__ __forceinline__ int order_blocks(const unsigned char* st, const Panel
 // equal length, each moved to a row boundary: so every row of the stage
 // belongs to one group, which adds into it with plain loads and stores and
 // sums a row run across blocks.
-template <int R, int C, int V>
+template <typename T, int R, int C, int V>
 __device__ __forceinline__ void walk_stage(const unsigned char* st, const PanelLayout& L,
                                            const PanelArgs& a, int nb, int row0, float* ytile,
                                            int* scratch, const float* xp, int jv, int lg) {
   constexpr int RC = R * C;
-  const float* vwins = reinterpret_cast<const float*>(st + L.vwin);
   const int* xbases = reinterpret_cast<const int*>(st + L.xbase);
+  const int2* wmeta = reinterpret_cast<const int2*>(st + L.wmeta);
   const unsigned char* svidx = st + L.vidx;
   const unsigned char* sxcol = st + L.xcol;
   int4* info = reinterpret_cast<int4*>(scratch);
@@ -393,13 +432,22 @@ __device__ __forceinline__ void walk_stage(const unsigned char* st, const PanelL
     const int b = w.x, by = w.z;
     const uint32_t bm = (uint32_t)w.y;
     const int slot = a.q == 1 ? 0 : b / a.cb;  // the block's chunk in the stage
-    walk_block<R, C, V>(vwins + slot * a.vmax, svidx, sxcol, b, bm, by, xbases[slot], a, ytile,
-                        xp, jv, lg, cur, acc);
+    const T* vwin;
+    float s = 1.f;
+    if constexpr (sizeof(T) == 4) {
+      vwin = reinterpret_cast<const T*>(st + L.vwin) + slot * a.vmax;
+    } else {
+      const int2 m = wmeta[slot];  // the window's offset in its span, the chunk's scale
+      vwin = reinterpret_cast<const T*>(st + L.vwin + slot * value_window(a.vsize, a.vmax)) + m.x;
+      s = __int_as_float(m.y);
+    }
+    walk_block<T, R, C, V>(vwin, s, svidx, sxcol, b, bm, by, xbases[slot], a, ytile, xp, jv, lg,
+                           cur, acc);
   }
   if (cur >= 0) add_row<V>(ytile, cur, a.tw, jv, a.prows, acc);
 }
 
-template <int R, int C, int V, int kStages>
+template <typename T, int R, int C, int V, int kStages>
 __global__ void __launch_bounds__(512, 2) spmm_desc_panels_kernel(const PanelArgs a) {
   extern __shared__ __align__(16) float psmem[];
   const PanelLayout L = panel_layout(a);
@@ -439,20 +487,20 @@ __global__ void __launch_bounds__(512, 2) spmm_desc_panels_kernel(const PanelArg
       for (int b0 = 0; b0 < span; b0 += a.nb) {
         const int nb = min(a.nb, span - b0);
         if (j > 0 || b0 > 0) __syncthreads();  // the previous walk is done
-        fill_stage(ring, L, a, g0 + j, b0, nb, qn, b0 == 0, bulk);
+        fill_stage<T>(ring, L, a, g0 + j, b0, nb, qn, b0 == 0, bulk);
         cp_async_commit();
         cp_async_wait<0>();
         mbar_wait(bar, phase & 1u);
         ++phase;
         __syncthreads();  // everyone's copies
-        walk_stage<R, C, V>(ring, L, a, nb, row0, ytile, scratch, xp, jv, lg);
+        walk_stage<T, R, C, V>(ring, L, a, nb, row0, ytile, scratch, xp, jv, lg);
       }
     }
   } else {
     // the ring: round k (chunks k q .. k q + q - 1) lives in stage k % 2,
     // round k + 1 is in flight while round k is walked
     const int rounds = (n + a.q - 1) / a.q;
-    if (n > 0) fill_stage(ring, L, a, g0, 0, min(a.q, n) * a.cb, min(a.q, n), true, bulk);
+    if (n > 0) fill_stage<T>(ring, L, a, g0, 0, min(a.q, n) * a.cb, min(a.q, n), true, bulk);
     cp_async_commit();
     uint32_t parity = 0;  // bit s: the parity of stage s's next phase
     for (int k = 0; k < rounds; ++k) {
@@ -465,11 +513,11 @@ __global__ void __launch_bounds__(512, 2) spmm_desc_panels_kernel(const PanelArg
       __syncthreads();  // ... everyone's; round k - 1's stage is free
       if (k + 1 < rounds) {
         const int qn1 = min(a.q, n - (k + 1) * a.q);
-        fill_stage(ring + (dec ^ 1) * L.stage, L, a, g0 + (k + 1) * a.q, 0, qn1 * a.cb, qn1, true,
-                   bulk);
+        fill_stage<T>(ring + (dec ^ 1) * L.stage, L, a, g0 + (k + 1) * a.q, 0, qn1 * a.cb, qn1,
+                      true, bulk);
       }
       cp_async_commit();
-      walk_stage<R, C, V>(st, L, a, qn * a.cb, row0, ytile, scratch, xp, jv, lg);
+      walk_stage<T, R, C, V>(st, L, a, qn * a.cb, row0, ytile, scratch, xp, jv, lg);
     }
   }
   __syncthreads();
@@ -478,40 +526,51 @@ __global__ void __launch_bounds__(512, 2) spmm_desc_panels_kernel(const PanelArg
 
 using PanelKernel = void (*)(PanelArgs);
 
-template <int R, int C, int V>
+template <typename T, int R, int C, int V>
 PanelKernel panel_kernel_v(int stages) {
-  return stages == 1 ? spmm_desc_panels_kernel<R, C, V, 1>
-                     : stages == 2 ? spmm_desc_panels_kernel<R, C, V, 2> : nullptr;
+  return stages == 1 ? spmm_desc_panels_kernel<T, R, C, V, 1>
+                     : stages == 2 ? spmm_desc_panels_kernel<T, R, C, V, 2> : nullptr;
 }
 
-template <int R, int C>
+template <typename T, int R, int C>
 PanelKernel panel_kernel_rc(int vec, int stages) {
   switch (vec) {
-    case 1: return panel_kernel_v<R, C, 1>(stages);
-    case 2: return panel_kernel_v<R, C, 2>(stages);
-    case 4: return panel_kernel_v<R, C, 4>(stages);
+    case 1: return panel_kernel_v<T, R, C, 1>(stages);
+    case 2: return panel_kernel_v<T, R, C, 2>(stages);
+    case 4: return panel_kernel_v<T, R, C, 4>(stages);
     default: return nullptr;
   }
 }
 
-// The panel kernel for block shape (r, c), vec columns a lane and a ring of
-// `stages` (1: the synchronous kernel); nullptr for any other.
-PanelKernel panel_kernel(int r, int c, int vec, int stages) {
+template <typename T>
+PanelKernel panel_kernel_t(int r, int c, int vec, int stages) {
   switch (r * 16 + c) {
-    case 1 * 16 + 4: return panel_kernel_rc<1, 4>(vec, stages);
-    case 1 * 16 + 8: return panel_kernel_rc<1, 8>(vec, stages);
-    case 2 * 16 + 4: return panel_kernel_rc<2, 4>(vec, stages);
-    case 2 * 16 + 8: return panel_kernel_rc<2, 8>(vec, stages);
-    case 4 * 16 + 4: return panel_kernel_rc<4, 4>(vec, stages);
-    case 4 * 16 + 8: return panel_kernel_rc<4, 8>(vec, stages);
-    case 8 * 16 + 4: return panel_kernel_rc<8, 4>(vec, stages);
+    case 1 * 16 + 4: return panel_kernel_rc<T, 1, 4>(vec, stages);
+    case 1 * 16 + 8: return panel_kernel_rc<T, 1, 8>(vec, stages);
+    case 2 * 16 + 4: return panel_kernel_rc<T, 2, 4>(vec, stages);
+    case 2 * 16 + 8: return panel_kernel_rc<T, 2, 8>(vec, stages);
+    case 4 * 16 + 4: return panel_kernel_rc<T, 4, 4>(vec, stages);
+    case 4 * 16 + 8: return panel_kernel_rc<T, 4, 8>(vec, stages);
+    case 8 * 16 + 4: return panel_kernel_rc<T, 8, 4>(vec, stages);
+    default: return nullptr;
+  }
+}
+
+// The panel kernel for vsize-byte values (4 float, 2 bf16, 1 int8), block
+// shape (r, c), vec columns a lane and a ring of `stages` (1: the
+// synchronous kernel); nullptr for any other.
+PanelKernel panel_kernel(int vsize, int r, int c, int vec, int stages) {
+  switch (vsize) {
+    case 4: return panel_kernel_t<float>(r, c, vec, stages);
+    case 2: return panel_kernel_t<__nv_bfloat16>(r, c, vec, stages);
+    case 1: return panel_kernel_t<int8_t>(r, c, vec, stages);
     default: return nullptr;
   }
 }
 
 int launch_panels(int stages, const PanelArgs& a, int npanels, int smem_planned, int threads,
                   int device, void* stream) {
-  const PanelKernel kernel = panel_kernel(a.r, a.c, a.vec, stages);
+  const PanelKernel kernel = panel_kernel(a.vsize, a.r, a.c, a.vec, stages);
   const size_t smem = panel_smem(a, stages);
   const int lanes = a.vec > 0 ? a.tw / a.vec : 0;
   const long long grid = (long long)npanels * a.split * a.parts * a.ntiles;
@@ -523,7 +582,8 @@ int launch_panels(int stages, const PanelArgs& a, int npanels, int smem_planned,
       lanes * a.vec != a.tw || (lanes & (lanes - 1)) != 0 || a.nvec % a.vec != 0 ||
       a.ntiles != (a.nvec + a.tw - 1) / a.tw || threads < 32 || threads > 512 ||
       (threads & (threads - 1)) != 0 || grid < 1 || grid > 0x7fffffffLL ||
-      (long long)(a.prows + 1) * a.nb > 0x7fffffffLL || smem != (size_t)smem_planned) {
+      (long long)(a.prows + 1) * a.nb > 0x7fffffffLL || (a.vsize == 1 && a.scale == nullptr) ||
+      smem != (size_t)smem_planned) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = prepare_launch(kernel, device, smem, threads, nullptr);
@@ -535,15 +595,16 @@ int launch_panels(int stages, const PanelArgs& a, int npanels, int smem_planned,
 }
 
 PanelArgs panel_args(const int* vbase, const int* xbase, const signed char* valid,
-                     const void* vidx, const void* xcol, const void* yrow, const float* values,
-                     const float* x, float* y, int nchunks, int cb, int r, int c, int vmax,
-                     int pr, int nrows, int xrows, int wv, int wx, int wy, int nvec, int tw,
-                     int vec, int parts, int prows, int split, int q, int nb) {
+                     const void* vidx, const void* xcol, const void* yrow, const void* values,
+                     const float* scale, const float* x, float* y, int nchunks, int cb, int r,
+                     int c, int vmax, int pr, int nrows, int xrows, int vsize, int wv, int wx,
+                     int wy, int nvec, int tw, int vec, int parts, int prows, int split, int q,
+                     int nb) {
   return PanelArgs{vbase,  xbase, valid, static_cast<const char*>(vidx),
                    static_cast<const char*>(xcol), static_cast<const char*>(yrow),
-                   values, x,     y,     nchunks, cb, r, c, vmax, pr, nrows, xrows, wv, wx, wy,
-                   nvec,   tw,    vec,   tw > 0 ? (nvec + tw - 1) / tw : 0, parts, prows, split,
-                   q,      nb};
+                   values, scale, x,     y,     nchunks, cb, r, c, vmax, pr, nrows, xrows, vsize,
+                   wv,     wx,    wy,    nvec,  tw,    vec,   tw > 0 ? (nvec + tw - 1) / tw : 0,
+                   parts,  prows, split, q,     nb};
 }
 
 // ---------------------------------------------------------------------------
@@ -790,42 +851,44 @@ int spc5_spmm_desc_whole_smem(int stages, int q, int nb, int r, int c, int vmax,
 // tile), q chunks a stage of nb blocks (nb == q * cb, or q == 1 and nb < cb
 // where a whole chunk's stage does not fit), `parts` row parts of prows
 // rows, tw columns a tile, vec columns a lane (4 or 2 need nvec a multiple
-// of it and X so aligned), `threads` a power of two in [32, 512]. smem is
-// the wrapper's figure for the CTA's dynamic shared memory (checked).
+// of it and X so aligned), `threads` a power of two in [32, 512], values of
+// vsize bytes (4 f32, 2 bf16, 1 int8 with its (npanels, nchunks) scales;
+// scale is unread otherwise). smem is the wrapper's figure for the CTA's
+// dynamic shared memory (checked).
 int spc5_spmm_desc_panels_s1(const int* vbase, const int* xbase, const signed char* valid,
                              const void* vidx, const void* xcol, const void* yrow,
-                             const float* values, const float* x, float* y, int npanels,
-                             int nchunks, int cb, int r, int c, int vmax, int pr, int nrows,
-                             int xrows, int wv, int wx, int wy, int nvec, int tw, int vec,
-                             int parts, int prows, int split, int q, int nb, int smem,
-                             int threads, int device, void* stream) {
-  const PanelArgs a = panel_args(vbase, xbase, valid, vidx, xcol, yrow, values, x, y, nchunks, cb,
-                                 r, c, vmax, pr, nrows, xrows, wv, wx, wy, nvec, tw, vec, parts,
-                                 prows, split, q, nb);
+                             const void* values, const float* scale, const float* x, float* y,
+                             int npanels, int nchunks, int cb, int r, int c, int vmax, int pr,
+                             int nrows, int xrows, int vsize, int wv, int wx, int wy, int nvec,
+                             int tw, int vec, int parts, int prows, int split, int q, int nb,
+                             int smem, int threads, int device, void* stream) {
+  const PanelArgs a = panel_args(vbase, xbase, valid, vidx, xcol, yrow, values, scale, x, y,
+                                 nchunks, cb, r, c, vmax, pr, nrows, xrows, vsize, wv, wx, wy,
+                                 nvec, tw, vec, parts, prows, split, q, nb);
   return launch_panels(1, a, npanels, smem, threads, device, stream);
 }
 
 // The staged-ahead panel kernel: a ring of two stages of q whole chunks.
 int spc5_spmm_desc_panels_s2(const int* vbase, const int* xbase, const signed char* valid,
                              const void* vidx, const void* xcol, const void* yrow,
-                             const float* values, const float* x, float* y, int npanels,
-                             int nchunks, int cb, int r, int c, int vmax, int pr, int nrows,
-                             int xrows, int wv, int wx, int wy, int nvec, int tw, int vec,
-                             int parts, int prows, int split, int q, int smem, int threads,
-                             int device, void* stream) {
-  const PanelArgs a = panel_args(vbase, xbase, valid, vidx, xcol, yrow, values, x, y, nchunks, cb,
-                                 r, c, vmax, pr, nrows, xrows, wv, wx, wy, nvec, tw, vec, parts,
-                                 prows, split, q, q * cb);
+                             const void* values, const float* scale, const float* x, float* y,
+                             int npanels, int nchunks, int cb, int r, int c, int vmax, int pr,
+                             int nrows, int xrows, int vsize, int wv, int wx, int wy, int nvec,
+                             int tw, int vec, int parts, int prows, int split, int q, int smem,
+                             int threads, int device, void* stream) {
+  const PanelArgs a = panel_args(vbase, xbase, valid, vidx, xcol, yrow, values, scale, x, y,
+                                 nchunks, cb, r, c, vmax, pr, nrows, xrows, vsize, wv, wx, wy,
+                                 nvec, tw, vec, parts, prows, split, q, q * cb);
   return launch_panels(2, a, npanels, smem, threads, device, stream);
 }
 
 // The panel kernel's occupancy at `stages` (1: the synchronous kernel, 2:
-// the ring), block shape (r, c), vec columns a lane, `threads` and `smem`
-// bytes of dynamic shared memory per CTA: out[0] the CTAs one SM holds at
-// once, out[1] the SMs of the device.
-int spc5_spmm_desc_panels_occupancy(int stages, int r, int c, int vec, int threads, int smem,
-                                    int device, int* out) {
-  const PanelKernel kernel = panel_kernel(r, c, vec, stages);
+// the ring), vsize-byte values, block shape (r, c), vec columns a lane,
+// `threads` and `smem` bytes of dynamic shared memory per CTA: out[0] the
+// CTAs one SM holds at once, out[1] the SMs of the device.
+int spc5_spmm_desc_panels_occupancy(int stages, int vsize, int r, int c, int vec, int threads,
+                                    int smem, int device, int* out) {
+  const PanelKernel kernel = panel_kernel(vsize, r, c, vec, stages);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = prepare_launch(kernel, device, (size_t)smem, threads, nullptr);
   if (err == cudaSuccess) {
@@ -836,11 +899,12 @@ int spc5_spmm_desc_panels_occupancy(int stages, int r, int c, int vec, int threa
 }
 
 // The dynamic shared memory of one panel CTA with `stages` stages of nb
-// blocks of q chunks each and a (prows, tw) Y tile, as the launch computes
-// it (panel_layout).
+// blocks of q chunks each, vsize-byte values and a (prows, tw) Y tile, as
+// the launch computes it (panel_layout).
 int spc5_spmm_desc_panels_smem(int stages, int q, int nb, int r, int c, int vmax, int prows,
-                               int tw, int wv, int wx) {
+                               int tw, int wv, int wx, int vsize) {
   PanelArgs a{};
+  a.vsize = vsize;
   a.q = q;
   a.nb = nb;
   a.r = r;

@@ -15,7 +15,9 @@
 // valid byte and three index entries, each int8, int16 or int32 as the
 // build narrowed it (1 + 3..12 bytes a lane), so the tables outweigh the
 // mask kernels' 16 bytes a block r*c-fold over; the packed values (4 B per
-// nonzero), x and y are read or written once. Two flops per nonzero.
+// nonzero in f32; the panel kernels also take bf16, 2 B, and int8, 1 B and
+// an f32 scale a chunk), x and y are read or written once. Two flops per
+// nonzero.
 //
 // Whole-vector kernels (spmv_desc_whole_kernel), built for latency, not for
 // the TPU's sequential grid:
@@ -85,7 +87,14 @@
 //     quad with no flag set (most of them: a block holds Avg of its r*c
 //     lanes) gathers nothing. A row's two quads (c = 8) are summed with one
 //     xor shuffle and the row adds once into the tile with a shared-memory
-//     atomic.
+//     atomic;
+//   * the value store is the kernels' template parameter V: float, bf16 or
+//     int8 (the quantised decode of the reference's _expand_vals: a value
+//     upcast to f32, an int8 one then times its chunk's f32 scale, before
+//     the product with x, summed in f32). A narrow window is staged as the
+//     16-byte aligned span that covers it (an int8 window starts on any
+//     multiple of 8 bytes), each thread finding the window's offset in it
+//     and the chunk's scale once a chunk, before the chunk's barrier.
 //
 // Each launcher runs on the caller's stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() (0 on success).
@@ -396,16 +405,18 @@ struct PanelArgs {
   const char* vidx;  // the index tables, as bytes (entries wv, wx, wy wide)
   const char* xcol;
   const char* yrow;
-  const float* values;
+  const void* values;  // vsize bytes a value: float, __nv_bfloat16 or int8_t
+  const float* scale;  // (npanels, nchunks) int8 scales; unread otherwise
   const float* xpad;
   float* y;
-  int nchunks, cb, r, c, vmax, xw, pr, nrows, wv, wx, wy;
+  int nchunks, cb, r, c, vmax, xw, pr, nrows, vsize, wv, wx, wy;
   int split;  // S: CTAs per panel, each a contiguous range of its chunks
   int nb;     // blocks whose tables one stage holds (cb, or a slice of it)
 };
 
-// Byte offsets of one stage's parts, each 16-byte aligned: the value window,
-// the x window, then for nb blocks the valid and vidx runs, the c xcol
+// Byte offsets of one stage's parts, each 16-byte aligned: the value window
+// (value_window bytes), the x window, then for nb blocks the valid and vidx
+// runs, the c xcol
 // entries of each block's first row and each block's lane-0 yrow entry in a
 // 4-byte slot. The y tile (pr floats) comes before the first stage. The
 // wrapper plans with its copy (kernels/spc5_spmv_desc.py: panels_smem_bytes)
@@ -419,7 +430,7 @@ __host__ __device__ inline StageLayout stage_layout(const PanelArgs& a) {
   const int rc = a.r * a.c;
   StageLayout L;
   L.vwin = 0;
-  L.xwin = L.vwin + round16(4 * a.vmax);
+  L.xwin = L.vwin + value_window(a.vsize, a.vmax);
   L.valid = L.xwin + round16(4 * a.xw);
   L.vidx = L.valid + round16(a.nb * rc);
   L.xcol = L.vidx + round16(a.nb * rc * a.wv);
@@ -433,15 +444,23 @@ inline size_t panels_smem(const PanelArgs& a, int stages) {
 }
 
 // Stage the tables of blocks [b0, b0 + nb) of global chunk g (and, where
-// windows is set, its value window at vb and its x window at xb).
-template <bool kAsync>
+// windows is set, its value window at vb, a narrow one as the aligned span
+// that covers it, and its x window at xb).
+template <bool kAsync, typename V>
 __device__ __forceinline__ void stage_chunk(unsigned char* st, const StageLayout& L,
                                             const PanelArgs& a, size_t g, int b0, int nb,
                                             bool windows, int vb, int xb) {
   const int rc = a.r * a.c;
   const size_t lane0 = (g * a.cb + b0) * rc;
   if (windows) {
-    copy_runs<kAsync>(st + L.vwin, reinterpret_cast<const char*>(a.values + vb), 1, 4 * a.vmax, 0);
+    const V* values = static_cast<const V*>(a.values);
+    if constexpr (sizeof(V) == 4) {
+      copy_runs<kAsync>(st + L.vwin, reinterpret_cast<const char*>(values + vb), 1, 4 * a.vmax, 0);
+    } else {
+      int bytes, off;
+      const char* span = value_span(values, vb, a.vmax, bytes, off);
+      copy_runs<kAsync>(st + L.vwin, span, 1, bytes, 0);
+    }
     copy_runs<kAsync>(st + L.xwin, reinterpret_cast<const char*>(a.xpad + xb), 1, 4 * a.xw, 0);
   }
   copy_runs<kAsync>(st + L.valid, reinterpret_cast<const char*>(a.valid) + lane0, 1, nb * rc, 0);
@@ -458,11 +477,14 @@ __device__ __forceinline__ void stage_chunk(unsigned char* st, const StageLayout
 // or 8), so one 4-byte word holds their valid flags and one load each their
 // vidx and xcol entries; a quad with no flag set gathers nothing. For c = 8
 // the two quads of a row (neighbouring threads) are summed with one xor
-// shuffle; the row's first quad adds it into the tile.
+// shuffle; the row's first quad adds it into the tile. The window's values
+// start at entry voff of the staged span (0 for f32); s is the chunk's
+// scale (int8 only).
+template <typename V>
 __device__ __forceinline__ void decode_stage(const unsigned char* st, const StageLayout& L,
                                              const PanelArgs& a, int nb, int lrc, int lc,
-                                             float* ytile) {
-  const float* vwin = reinterpret_cast<const float*>(st + L.vwin);
+                                             float* ytile, int voff, float s) {
+  const V* vwin = reinterpret_cast<const V*>(st + L.vwin) + voff;
   const float* xwin = reinterpret_cast<const float*>(st + L.xwin);
   const int* flags4 = reinterpret_cast<const int*>(st + L.valid);
   const int* yword = reinterpret_cast<const int*>(st + L.yrow);
@@ -480,7 +502,7 @@ __device__ __forceinline__ void decode_stage(const unsigned char* st, const Stag
       smem_index4(st + L.xcol, ((b << lc) + (k & (c - 1))) >> 2, a.wx, xc);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        if ((flags >> (8 * u)) & 0xff) v += vwin[vi[u]] * xwin[xc[u]];
+        if ((flags >> (8 * u)) & 0xff) v += dequant(vwin[vi[u]], s) * xwin[xc[u]];
       }
     }
     if (c == 8) v += __shfl_xor_sync(0xffffffffu, v, 1);
@@ -492,7 +514,28 @@ __device__ __forceinline__ void decode_stage(const unsigned char* st, const Stag
   }
 }
 
-template <int kStages>
+// The index of window [vb, vb + vmax) 's first value in the span value_span
+// stages (0 for f32, staged as it lies), and chunk g's scale (int8; 1 else).
+template <typename V>
+__device__ __forceinline__ int window_offset(const PanelArgs& a, int vb) {
+  if constexpr (sizeof(V) == 4) {
+    return 0;
+  } else {
+    const uintptr_t p = reinterpret_cast<uintptr_t>(static_cast<const V*>(a.values) + vb);
+    return (int)(p & 15) / (int)sizeof(V);
+  }
+}
+
+template <typename V>
+__device__ __forceinline__ float chunk_scale(const PanelArgs& a, size_t g) {
+  if constexpr (sizeof(V) == 1) {
+    return __ldg(a.scale + g);
+  } else {
+    return 1.f;
+  }
+}
+
+template <typename V, int kStages>
 __global__ void __launch_bounds__(256) spmv_desc_panels_kernel(const PanelArgs a) {
   extern __shared__ __align__(16) float smem[];  // one name and type per file
   const StageLayout L = stage_layout(a);
@@ -516,12 +559,14 @@ __global__ void __launch_bounds__(256) spmv_desc_panels_kernel(const PanelArgs a
         vb = __ldg(vbase + j + 1);
         xb = __ldg(xbase + j + 1);
       }
+      const int voff = window_offset<V>(a, vj);
+      const float s = chunk_scale<V>(a, g0 + j);
       for (int b0 = 0; b0 < a.cb; b0 += a.nb) {
         const int nb = min(a.nb, a.cb - b0);
         __syncthreads();  // the previous decode (or the tile's zeroing) is done
-        stage_chunk<false>(ring, L, a, g0 + j, b0, nb, b0 == 0, vj, xj);
+        stage_chunk<false, V>(ring, L, a, g0 + j, b0, nb, b0 == 0, vj, xj);
         __syncthreads();
-        decode_stage(ring, L, a, nb, lrc, lc, ytile);
+        decode_stage<V>(ring, L, a, nb, lrc, lc, ytile, voff, s);
       }
     }
   } else {
@@ -529,8 +574,8 @@ __global__ void __launch_bounds__(256) spmv_desc_panels_kernel(const PanelArgs a
     // in flight while one decodes
     for (int s = 0; s < kStages - 1; ++s) {
       if (s < n) {
-        stage_chunk<true>(ring + s * L.bytes, L, a, g0 + s, 0, a.cb, true, __ldg(vbase + s),
-                          __ldg(xbase + s));
+        stage_chunk<true, V>(ring + s * L.bytes, L, a, g0 + s, 0, a.cb, true, __ldg(vbase + s),
+                             __ldg(xbase + s));
       }
       cp_async_commit();
     }
@@ -540,18 +585,22 @@ __global__ void __launch_bounds__(256) spmv_desc_panels_kernel(const PanelArgs a
       xb = __ldg(xbase + kStages - 1);
     }
     for (int j = 0; j < n; ++j) {
+      // chunk j's window offset and scale, loaded before the wait
+      const int voff = sizeof(V) == 4 ? 0 : window_offset<V>(a, __ldg(vbase + j));
+      const float s = chunk_scale<V>(a, g0 + j);
       cp_async_wait<kStages - 2>();  // chunk j has landed (this thread's copies)
       __syncthreads();               // ... everyone's; chunk j - 1's stage is free
       const int jn = j + kStages - 1;
       if (jn < n) {
-        stage_chunk<true>(ring + (jn % kStages) * L.bytes, L, a, g0 + jn, 0, a.cb, true, vb, xb);
+        stage_chunk<true, V>(ring + (jn % kStages) * L.bytes, L, a, g0 + jn, 0, a.cb, true, vb,
+                             xb);
       }
       cp_async_commit();  // possibly empty: keeps the group count uniform
       if (jn + 1 < n) {
         vb = __ldg(vbase + jn + 1);
         xb = __ldg(xbase + jn + 1);
       }
-      decode_stage(ring + (j % kStages) * L.bytes, L, a, a.cb, lrc, lc, ytile);
+      decode_stage<V>(ring + (j % kStages) * L.bytes, L, a, a.cb, lrc, lc, ytile, voff, s);
     }
   }
   __syncthreads();
@@ -606,41 +655,55 @@ WholeArgs whole_args(const int* vbase, const signed char* valid, const void* vid
                    wv, wx, wy, grid, nb, tile};
 }
 
-template <int kStages>
-int launch_panels(const PanelArgs& a, int npanels, int smem_planned, int threads, int device,
-                  void* stream) {
-  const size_t smem = panels_smem(a, kStages);
-  if (a.split < 1 || a.nb < 1 || a.nb > a.cb || (long long)npanels * a.split > 0x7fffffffLL ||
-      smem != (size_t)smem_planned) {
-    return (int)cudaErrorInvalidValue;
+using PanelKernel = void (*)(PanelArgs);
+
+template <typename V>
+PanelKernel panel_kernel_v(int stages) {
+  switch (stages) {
+    case 1: return spmv_desc_panels_kernel<V, 1>;
+    case 2: return spmv_desc_panels_kernel<V, 2>;
+    case 3: return spmv_desc_panels_kernel<V, 3>;
+    default: return nullptr;
   }
-  cudaError_t err = prepare_launch(spmv_desc_panels_kernel<kStages>, device, smem, threads, nullptr);
-  if (err != cudaSuccess) return (int)err;
-  spmv_desc_panels_kernel<kStages>
-      <<<npanels * a.split, threads, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
 }
 
-template <int kStages>
-int panels_occupancy(int threads, int smem, int device, int* out) {
-  cudaError_t err =
-      prepare_launch(spmv_desc_panels_kernel<kStages>, device, (size_t)smem, threads, nullptr);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, spmv_desc_panels_kernel<kStages>,
-                                                        threads, (size_t)smem);
+// The panel kernel for vsize-byte values (4 float, 2 bf16, 1 int8) and a
+// ring of `stages` (1: the synchronous kernel); nullptr for any other.
+PanelKernel panel_kernel(int vsize, int stages) {
+  switch (vsize) {
+    case 4: return panel_kernel_v<float>(stages);
+    case 2: return panel_kernel_v<__nv_bfloat16>(stages);
+    case 1: return panel_kernel_v<int8_t>(stages);
+    default: return nullptr;
   }
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(out + 1, cudaDevAttrMultiProcessorCount, device);
-  return (int)err;
+}
+
+int launch_panels(int stages, const PanelArgs& a, int npanels, int smem_planned, int threads,
+                  int device, void* stream) {
+  const PanelKernel kernel = panel_kernel(a.vsize, stages);
+  const size_t smem = panels_smem(a, stages);
+  if (kernel == nullptr || a.split < 1 || a.nb < 1 || a.nb > a.cb ||
+      (stages > 1 && a.nb != a.cb) || (long long)npanels * a.split > 0x7fffffffLL ||
+      (a.vsize == 1 && a.scale == nullptr) || smem != (size_t)smem_planned) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = prepare_launch(kernel, device, smem, threads, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {const_cast<PanelArgs*>(&a)};
+  err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(npanels * a.split),
+                         dim3(threads), args, smem, (cudaStream_t)stream);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 PanelArgs panel_args(const int* vbase, const int* xbase, const signed char* valid,
-                     const void* vidx, const void* xcol, const void* yrow, const float* values,
-                     const float* xpad, float* y, int nchunks, int cb, int r, int c, int vmax,
-                     int xw, int pr, int nrows, int wv, int wx, int wy, int split, int nb) {
+                     const void* vidx, const void* xcol, const void* yrow, const void* values,
+                     const float* scale, const float* xpad, float* y, int nchunks, int cb, int r,
+                     int c, int vmax, int xw, int pr, int nrows, int vsize, int wv, int wx, int wy,
+                     int split, int nb) {
   return PanelArgs{vbase,  xbase, valid, static_cast<const char*>(vidx),
                    static_cast<const char*>(xcol), static_cast<const char*>(yrow),
-                   values, xpad,  y,     nchunks, cb, r, c, vmax, xw, pr, nrows, wv, wx, wy,
-                   split,  nb};
+                   values, scale, xpad,  y,     nchunks, cb, r, c, vmax, xw, pr, nrows, vsize,
+                   wv,     wx,    wy,    split, nb};
 }
 
 }  // namespace
@@ -703,52 +766,57 @@ int spc5_spmv_desc_whole_smem(int stages, int nb, int r, int c, int vmax, int ti
 }
 
 // The synchronous panel kernel: nb blocks' tables per stage (nb == cb
-// unless a whole chunk's tables do not fit), split CTAs per panel. smem is
-// the wrapper's figure for the CTA's dynamic shared memory (checked).
+// unless a whole chunk's tables do not fit), split CTAs per panel, values of
+// vsize bytes (4 f32, 2 bf16, 1 int8 with its (npanels, nchunks) scales;
+// scale is unread otherwise). smem is the wrapper's figure for the CTA's
+// dynamic shared memory (checked).
 int spc5_spmv_desc_panels_s1(const int* vbase, const int* xbase, const signed char* valid,
                              const void* vidx, const void* xcol, const void* yrow,
-                             const float* values, const float* xpad, float* y, int npanels,
-                             int nchunks, int cb, int r, int c, int vmax, int xw, int pr,
-                             int nrows, int wv, int wx, int wy, int split, int nb, int smem,
-                             int threads, int device, void* stream) {
-  const PanelArgs a = panel_args(vbase, xbase, valid, vidx, xcol, yrow, values, xpad, y, nchunks,
-                                 cb, r, c, vmax, xw, pr, nrows, wv, wx, wy, split, nb);
-  return launch_panels<1>(a, npanels, smem, threads, device, stream);
+                             const void* values, const float* scale, const float* xpad, float* y,
+                             int npanels, int nchunks, int cb, int r, int c, int vmax, int xw,
+                             int pr, int nrows, int vsize, int wv, int wx, int wy, int split,
+                             int nb, int smem, int threads, int device, void* stream) {
+  const PanelArgs a = panel_args(vbase, xbase, valid, vidx, xcol, yrow, values, scale, xpad, y,
+                                 nchunks, cb, r, c, vmax, xw, pr, nrows, vsize, wv, wx, wy, split,
+                                 nb);
+  return launch_panels(1, a, npanels, smem, threads, device, stream);
 }
 
 // The staged-ahead panel kernel: a ring of `stages` whole chunks, 3 or, where
 // three do not fit, 2.
 int spc5_spmv_desc_panels_s2(const int* vbase, const int* xbase, const signed char* valid,
                              const void* vidx, const void* xcol, const void* yrow,
-                             const float* values, const float* xpad, float* y, int npanels,
-                             int nchunks, int cb, int r, int c, int vmax, int xw, int pr,
-                             int nrows, int wv, int wx, int wy, int split, int stages, int smem,
-                             int threads, int device, void* stream) {
-  const PanelArgs a = panel_args(vbase, xbase, valid, vidx, xcol, yrow, values, xpad, y, nchunks,
-                                 cb, r, c, vmax, xw, pr, nrows, wv, wx, wy, split, cb);
-  switch (stages) {
-    case 2: return launch_panels<2>(a, npanels, smem, threads, device, stream);
-    case 3: return launch_panels<3>(a, npanels, smem, threads, device, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+                             const void* values, const float* scale, const float* xpad, float* y,
+                             int npanels, int nchunks, int cb, int r, int c, int vmax, int xw,
+                             int pr, int nrows, int vsize, int wv, int wx, int wy, int split,
+                             int stages, int smem, int threads, int device, void* stream) {
+  const PanelArgs a = panel_args(vbase, xbase, valid, vidx, xcol, yrow, values, scale, xpad, y,
+                                 nchunks, cb, r, c, vmax, xw, pr, nrows, vsize, wv, wx, wy, split,
+                                 cb);
+  if (stages != 2 && stages != 3) return (int)cudaErrorInvalidValue;
+  return launch_panels(stages, a, npanels, smem, threads, device, stream);
 }
 
 // The panel kernel's occupancy at `stages` (1: the synchronous kernel),
-// `threads` and `smem` bytes of dynamic shared memory per CTA: out[0] the
-// CTAs one SM holds at once, out[1] the SMs of the device.
-int spc5_spmv_desc_panels_occupancy(int stages, int threads, int smem, int device, int* out) {
-  switch (stages) {
-    case 1: return panels_occupancy<1>(threads, smem, device, out);
-    case 2: return panels_occupancy<2>(threads, smem, device, out);
-    case 3: return panels_occupancy<3>(threads, smem, device, out);
-    default: return (int)cudaErrorInvalidValue;
+// vsize-byte values, `threads` and `smem` bytes of dynamic shared memory per
+// CTA: out[0] the CTAs one SM holds at once, out[1] the SMs of the device.
+int spc5_spmv_desc_panels_occupancy(int stages, int vsize, int threads, int smem, int device,
+                                    int* out) {
+  const PanelKernel kernel = panel_kernel(vsize, stages);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare_launch(kernel, device, (size_t)smem, threads, nullptr);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, (size_t)smem);
   }
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(out + 1, cudaDevAttrMultiProcessorCount, device);
+  return (int)err;
 }
 
 // The dynamic shared memory of one panel-kernel CTA with `stages` stages of
-// nb blocks each, as the launch computes it (stage_layout).
+// nb blocks each and vsize-byte values, as the launch computes it
+// (stage_layout).
 int spc5_spmv_desc_panels_smem(int stages, int nb, int r, int c, int vmax, int xw, int pr,
-                               int wv, int wx) {
+                               int wv, int wx, int vsize) {
   PanelArgs a{};
   a.nb = nb;
   a.r = r;
@@ -758,6 +826,7 @@ int spc5_spmv_desc_panels_smem(int stages, int nb, int r, int c, int vmax, int x
   a.pr = pr;
   a.wv = wv;
   a.wx = wx;
+  a.vsize = vsize;
   return (int)panels_smem(a, stages);
 }
 

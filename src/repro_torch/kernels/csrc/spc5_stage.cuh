@@ -1,14 +1,46 @@
 // Helpers shared by the SPC5 kernels of this directory: copies from global
 // into shared memory (plain loads, cp.async for a double buffer, Hopper's
 // bulk copy completing on an mbarrier, or strided runs of table entries by
-// cp.async or vector loads) and the dynamic-shared-memory opt-in before a
-// launch.
+// cp.async or vector loads), the value stores' decode and staged windows,
+// and the dynamic-shared-memory opt-in before a launch.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// The value stores a kernel may stage: f32, or the value-dtype axis's
+// quantised stores, bf16 and int8 (one f32 scale a chunk). dequant is one
+// staged value as f32, what the reference's _expand_vals makes of it
+// before the product with x: bf16 upcast, int8 upcast then times its
+// chunk's scale, f32 as it is (the scale unread).
+__device__ __forceinline__ float dequant(float v, float) { return v; }
+__device__ __forceinline__ float dequant(__nv_bfloat16 v, float) { return __bfloat162float(v); }
+__device__ __forceinline__ float dequant(int8_t v, float scale) { return (float)v * scale; }
+
+// Shared memory of one staged window of vmax values of vsize bytes: an f32
+// window as it lies (16-byte aligned where vbase is a multiple of 4), a
+// narrow one as the 16-byte aligned span that covers it (value_span), 16
+// bytes more: an int8 window starts on any multiple of 8 bytes. The
+// wrappers' copy: kernels/spc5_spmv_desc.py: value_window_bytes.
+__host__ __device__ inline int value_window(int vsize, int vmax) {
+  return ((vsize * vmax + 15) & ~15) + (vsize < 4 ? 16 : 0);
+}
+
+// The 16-byte aligned span that covers the narrow window [vb, vb + vmax) of
+// values: returns its start; bytes is its length (a multiple of 16, at most
+// value_window) and off the index of the window's first value in it.
+template <typename V>
+__device__ __forceinline__ const char* value_span(const V* values, int vb, int vmax, int& bytes,
+                                                  int& off) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(values + vb);
+  const uintptr_t lo = p & ~(uintptr_t)15;
+  off = (int)(p - lo) / (int)sizeof(V);
+  bytes = (int)((p - lo + sizeof(V) * (uintptr_t)vmax + 15) & ~(uintptr_t)15);
+  return reinterpret_cast<const char*>(lo);
+}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));

@@ -58,10 +58,15 @@ def prepare(mat: F.SPC5Matrix, *, layout: str = "auto",
     ``lowering`` is "mask", "descriptor" (build-time gather tables) or
     "auto" (the default, as in the reference): its cost model
     (``plan.lowering_cost``).
-    ``reorder``, ``verify`` and ``store`` take the reference's defaults
-    (None, False, None). Only f32 values are ported; bf16/int8, a
-    ``reorder``, a truthy ``verify`` and a ``store`` raise
-    ``NotImplementedError`` naming their ROADMAP item."""
+    ``vdtype`` ("f32", "bf16", "int8" or "auto", also read from a config's
+    ``vdtype``) stores the values in that dtype, int8 with one f32 scale a
+    chunk; products accumulate and return f32. On the CPU every layout and
+    lowering takes it; on the card the panel descriptor kernels do, and any
+    other kernel raises ``NotImplementedError`` for bf16 or int8 values
+    (ROADMAP queue 2 A). ``reorder``, ``verify`` and ``store`` take the
+    reference's defaults (None, False, None); a ``reorder``, a truthy
+    ``verify`` and a ``store`` raise ``NotImplementedError`` naming their
+    ROADMAP item."""
     P.refuse_unported(reorder, store, verify)
     if config is not None:
         if layout == "auto":
@@ -86,7 +91,8 @@ def prepare(mat: F.SPC5Matrix, *, layout: str = "auto",
 
 def spmv(plan: P.SPC5Plan, x: torch.Tensor, *,
          double_buffer: bool = True) -> torch.Tensor:
-    """y = A @ x; ``x`` is a float32 (ncols,) tensor on the plan's device.
+    """y = A @ x; ``x`` is a float32 (ncols,) tensor on the plan's device
+    and y float32, whatever the plan's value dtype.
     ``double_buffer`` picks the kernel that prefetches the next chunk's
     windows (the default, as in the reference) or the single-buffered one."""
     return P.execute_spmv(plan, x, double_buffer=double_buffer)

@@ -41,7 +41,8 @@ from repro_torch.core import ref_spmv as R
 
 from . import _build
 from .spc5_spmv import (MAX_SMEM_BYTES, _aligned, _check, _check_smem,
-                        _raise_on, _stream, _unsupported, panels_split)
+                        _check_values, _raise_on, _stream, _unsupported,
+                        panels_split)
 
 #: Launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES: Dict[str, int] = {"spmm_cuda": 0, "spmm_cuda_panels": 0,
@@ -302,7 +303,7 @@ def spmm_cuda(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
     which has no double-buffered twin). ``chunk_mask`` is the int32 view of
     the uint32 masks."""
     fn = "spmm_cuda"
-    _unsupported(col_map, value_scale)
+    _unsupported(col_map)
     nchunks = chunk_col.shape[0]
     named = dict(chunk_vbase=chunk_vbase, chunk_col=chunk_col,
                  chunk_mask=chunk_mask, chunk_voff=chunk_voff,
@@ -311,13 +312,14 @@ def spmm_cuda(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
                    **{k: (nchunks, cb) for k in ("chunk_col", "chunk_mask",
                                                  "chunk_voff", "chunk_row")}},
            values.device)
+    _check_values(fn, values, value_scale, (nchunks,))
     nvec = _nvec(x, nvt)
     if x.shape[0] != ncols:
         raise ValueError(f"X has shape {tuple(x.shape)}, expected "
                          f"({ncols}, nvec)")
     if values.device.type == "cpu":
         return R.spmm(R.SPC5Device(values, chunk_col, chunk_mask, chunk_voff,
-                                   chunk_row, chunk_vbase), x,
+                                   chunk_row, chunk_vbase), x, value_scale,
                       r=r, c=c, nrows=nrows, ncols=ncols)
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
@@ -503,8 +505,8 @@ def panels_launch(stages: int, npanels: int, nchunks: int, *, cb: int,
 
 
 def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
-            chunk_mask, chunk_voff, chunk_row, values, x, *, r, c, cb, vmax,
-            xw, pr, nrows, ncols_pad, nvt, split=None):
+            chunk_mask, chunk_voff, chunk_row, values, x, value_scale, *, r,
+            c, cb, vmax, xw, pr, nrows, ncols_pad, nvt, split=None):
     npanels, nchunks = chunk_vbase.shape
     named = dict(chunk_vbase=chunk_vbase, chunk_xbase=chunk_xbase,
                  chunk_col=chunk_col, chunk_mask=chunk_mask,
@@ -514,6 +516,7 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
                    **{k: (npanels, nchunks, cb)
                       for k in ("chunk_col", "chunk_mask", "chunk_voff",
                                 "chunk_row")}}, values.device)
+    _check_values(fn, values, value_scale, (npanels, nchunks))
     nvec = _nvec(x, nvt)
     if npanels * pr < nrows:
         raise ValueError(f"{npanels} panels of {pr} rows cannot hold "
@@ -522,7 +525,8 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
         return R.spmm_panels(
             R.SPC5PanelDevice(values, chunk_col, chunk_mask, chunk_voff,
                               chunk_row, chunk_vbase, chunk_xbase), x,
-            r=r, c=c, pr=pr, nrows=nrows, ncols_pad=ncols_pad)
+            None, value_scale, r=r, c=c, pr=pr, nrows=nrows,
+            ncols_pad=ncols_pad)
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
     if vmax % 4:
@@ -568,10 +572,10 @@ def spmm_cuda_panels(chunk_vbase, chunk_xbase, chunk_col, chunk_mask,
     adding each row of the Y tile (replaces ``spmm_pallas_panels``). X is
     (ncols, nvec); ``xw`` is the layout's window, kept for the
     signature."""
-    _unsupported(col_map, value_scale)
+    _unsupported(col_map)
     return _panels("spmm_cuda_panels", 1, chunk_vbase, chunk_xbase,
                    chunk_col, chunk_mask, chunk_voff, chunk_row, values, x,
-                   r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr, nrows=nrows,
+                   value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr, nrows=nrows,
                    ncols_pad=ncols_pad, nvt=nvt, split=split)
 
 
@@ -586,8 +590,8 @@ def spmm_cuda_panels_db(chunk_vbase, chunk_xbase, chunk_col, chunk_mask,
     chunks (value windows and metadata) staged ahead by bulk copies
     (replaces ``spmm_pallas_panels_db``); ``split`` as in
     :func:`spmm_cuda_panels`."""
-    _unsupported(col_map, value_scale)
+    _unsupported(col_map)
     return _panels("spmm_cuda_panels_db", PANEL_DB_STAGES, chunk_vbase,
                    chunk_xbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
-                   values, x, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr,
+                   values, x, value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr,
                    nrows=nrows, ncols_pad=ncols_pad, nvt=nvt, split=split)

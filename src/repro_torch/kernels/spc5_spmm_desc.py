@@ -25,6 +25,12 @@ only in the dtypes :func:`repro_torch.core.formats.chunk_descriptors`
 builds for the geometry, never widened
 (:func:`.spc5_spmv_desc._check_tables`).
 
+Values are f32, bf16 or int8 (with ``value_scale``, one f32 scale a
+chunk): the panel kernels take all three, upcasting (and scaling) each
+value before its products with X, summed in f32; the whole-vector kernel
+takes f32 only and raises ``NotImplementedError`` on the card for a
+quantised store (ROADMAP queue 2 A).
+
 A CPU tensor goes to the plain PyTorch version (:mod:`repro_torch.core.
 ref_spmv`); a CUDA tensor goes to the kernel, or the wrapper raises. Each
 wrapper counts the launches of its kernel in :data:`LAUNCHES` (CPU calls
@@ -42,7 +48,7 @@ from repro_torch.core import ref_spmv as R
 from . import _build
 from . import spc5_spmm as KM
 from . import spc5_spmv as K
-from .spc5_spmv_desc import _check_tables, _widths
+from .spc5_spmv_desc import _check_tables, _widths, value_window_bytes
 
 #: Launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES: Dict[str, int] = {"spmm_cuda_desc": 0, "spmm_cuda_panels_desc": 0,
@@ -151,10 +157,10 @@ def spmm_cuda_desc(chunk_vbase, desc_valid, desc_vidx, desc_xcol, desc_yrow,
     (replaces ``spmm_pallas_desc``). A column permutation would already be
     folded into ``desc_xcol``, so there is no ``col_map``."""
     fn = "spmm_cuda_desc"
-    K._unsupported(None, value_scale)
     nchunks = desc_valid.shape[0]
     K._check(dict(chunk_vbase=chunk_vbase, values=values, x=x),
              {"chunk_vbase": (nchunks,)}, values.device)
+    K._check_values(fn, values, value_scale, (nchunks,))
     tables = dict(desc_valid=desc_valid, desc_vidx=desc_vidx,
                   desc_xcol=desc_xcol, desc_yrow=desc_yrow)
     _check_tables(tables, dict(desc_vidx=vmax, desc_xcol=ncols,
@@ -167,7 +173,8 @@ def spmm_cuda_desc(chunk_vbase, desc_valid, desc_vidx, desc_xcol, desc_yrow,
     if values.device.type == "cpu":
         return R.spmm_desc(R.SPC5DescDevice(values, desc_valid, desc_vidx,
                                             desc_xcol, desc_yrow,
-                                            chunk_vbase), x, nrows=nrows)
+                                            chunk_vbase), x, value_scale,
+                           nrows=nrows)
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
     if vmax % 4:
@@ -235,18 +242,22 @@ TWO_CTA_SMEM_BYTES = KM.TWO_CTA_SMEM_BYTES
 PANEL_STAGE_CHUNKS = 2
 
 def panels_smem_bytes(stages: int, q: int, nb: int, r: int, c: int,
-                      vmax: int, prows: int, tw: int, wv: int, wx: int) -> int:
+                      vmax: int, prows: int, tw: int, wv: int, wx: int,
+                      vsize: int = 4) -> int:
     """Dynamic shared memory of one panel CTA: the (prows, tw) f32 Y tile
-    of its row part, then ``stages`` stages, each the value windows and x
-    window starts of its ``q`` chunks and ``nb`` blocks' tables (valid and
-    vidx per lane, the c xcol entries of each block's first row, a 4-byte
-    slot for its lane-0 yrow entry) and a 16-byte mbarrier slot, then the
-    walk's order of the nb blocks (16 bytes a block) and their sort keys (4
-    bytes a block), every part 16-byte aligned. The kernel's
-    ``panel_layout`` (``csrc/spc5_spmm_desc.cu``) refuses a launch whose
-    figure differs from its own."""
+    of its row part, then ``stages`` stages, each the value windows
+    (:func:`~.spc5_spmv_desc.value_window_bytes` of ``vsize``-byte values)
+    and x window starts of its ``q`` chunks, for narrow values each chunk's
+    8-byte window offset and scale, ``nb`` blocks' tables (valid and vidx
+    per lane, the c xcol entries of each block's first row, a 4-byte slot
+    for its lane-0 yrow entry) and a 16-byte mbarrier slot, then the walk's
+    order of the nb blocks (16 bytes a block) and their sort keys (4 bytes
+    a block), every part 16-byte aligned. The kernel's ``panel_layout``
+    (``csrc/spc5_spmm_desc.cu``) refuses a launch whose figure differs from
+    its own."""
     rc = r * c
-    stage = (q * _round16(4 * vmax) + _round16(4 * q) + _round16(nb * rc)
+    stage = (q * value_window_bytes(vmax, vsize) + _round16(4 * q)
+             + (_round16(8 * q) if vsize < 4 else 0) + _round16(nb * rc)
              + _round16(nb * rc * wv) + _round16(nb * c * wx)
              + _round16(4 * nb) + 16)
     return (_round16(4 * prows * tw) + stages * stage
@@ -268,7 +279,7 @@ def panels_tiles(nvec: int, vec: int) -> List[int]:
 
 def panels_plan(stages: int, cb: int, r: int, c: int, vmax: int, pr: int,
                 nvec: int, vec: int, wv: int, wx: int,
-                what: str = "panel kernel") -> Dict[str, int]:
+                what: str = "panel kernel", vsize: int = 4) -> Dict[str, int]:
     """The CTA of a panel launch: the widest tile of :func:`panels_tiles`,
     cut among the fewest row parts (from :data:`PANEL_ROW_PARTS`, doubling,
     each a multiple of r rows) at which two CTAs with stages of one whole
@@ -280,7 +291,7 @@ def panels_plan(stages: int, cb: int, r: int, c: int, vmax: int, pr: int,
     ``chunks_per_stage``, ``blocks_per_stage``, ``tile_columns``,
     ``vector`` (columns a lane), ``lanes`` (of a group), ``threads``,
     ``row_parts``, ``part_rows`` and ``smem_bytes``; raises ``ValueError``
-    when nothing fits."""
+    when nothing fits. ``vsize`` is the values' bytes (4, 2 or 1)."""
     if stages not in (1, PANEL_DB_STAGES):
         raise ValueError(f"the panel kernels stage 1 or {PANEL_DB_STAGES} "
                          f"chunks, not {stages}")
@@ -294,7 +305,7 @@ def panels_plan(stages: int, cb: int, r: int, c: int, vmax: int, pr: int,
 
                 def nbytes(q, nb, prows=prows, tw=tw):
                     return panels_smem_bytes(stages, q, nb, r, c, vmax, prows,
-                                             tw, wv, wx)
+                                             tw, wv, wx, vsize)
 
                 def ctas(q):  # an SM's CTAs by shared memory and registers
                     return min(SM_SMEM_BYTES // (nbytes(q, q * cb) + 1024),
@@ -323,11 +334,12 @@ _OCCUPANCY: Dict[Tuple[int, ...], Tuple[int, int]] = {}
 
 
 def panels_occupancy(stages: int, r: int, c: int, vec: int, threads: int,
-                     smem: int, device: torch.device) -> Tuple[int, int]:
+                     smem: int, device: torch.device,
+                     vsize: int = 4) -> Tuple[int, int]:
     """(CTAs one SM holds at once, SMs) for the panel kernel of block shape
-    (r, c), ``vec`` columns a lane and ``stages`` (1: the synchronous one),
-    as the CUDA runtime reports them."""
-    key = (stages, r, c, vec, threads, smem, device.index or 0)
+    (r, c), ``vec`` columns a lane, ``vsize``-byte values and ``stages`` (1:
+    the synchronous one), as the CUDA runtime reports them."""
+    key = (stages, vsize, r, c, vec, threads, smem, device.index or 0)
     if key not in _OCCUPANCY:
         lib = _build.load_library("spc5_spmm_desc")
         out = (ctypes.c_int * 2)()
@@ -341,17 +353,20 @@ def panels_launch(stages: int, npanels: int, nchunks: int, *, cb: int,
                   r: int, c: int, vmax: int, pr: int, nvec: int, vec: int,
                   wv: int, wx: int, device: torch.device,
                   split: Optional[int] = None,
-                  what: str = "panel kernel") -> Dict[str, int]:
+                  what: str = "panel kernel", vsize: int = 4
+                  ) -> Dict[str, int]:
     """The launch a panel wrapper makes on ``device`` (a card) for lanes of
-    at most ``vec`` columns (:func:`panels_vector`): ``stages``, the CTA of
+    at most ``vec`` columns (:func:`panels_vector`) and ``vsize``-byte
+    values: ``stages``, the CTA of
     :func:`panels_plan`, ``ntiles``, the card's
     ``ctas_per_sm`` and ``sms``, ``split`` (S, from
     :func:`~.spc5_spmv.panels_split` over npanels x row parts x ntiles
     units unless given), ``grid`` (npanels x S x row parts x ntiles) and
     ``chunks_per_cta`` (the longest range)."""
-    cta = panels_plan(stages, cb, r, c, vmax, pr, nvec, vec, wv, wx, what)
+    cta = panels_plan(stages, cb, r, c, vmax, pr, nvec, vec, wv, wx, what,
+                      vsize)
     per_sm, sms = panels_occupancy(stages, r, c, cta["vector"], cta["threads"],
-                                   cta["smem_bytes"], device)
+                                   cta["smem_bytes"], device, vsize=vsize)
     ntiles = -(-nvec // cta["tile_columns"])
     units = npanels * cta["row_parts"] * ntiles
     if split is None:
@@ -369,12 +384,14 @@ def panels_launch(stages: int, npanels: int, nchunks: int, *, cb: int,
 
 
 def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, desc_valid,
-            desc_vidx, desc_xcol, desc_yrow, values, x, *, r, c, cb, vmax,
-            xw, pr, nrows, ncols_pad, nvt, split=None):
+            desc_vidx, desc_xcol, desc_yrow, values, x, value_scale, *, r, c,
+            cb, vmax, xw, pr, nrows, ncols_pad, nvt, split=None):
     npanels, nchunks = chunk_vbase.shape
     K._check(dict(chunk_vbase=chunk_vbase, chunk_xbase=chunk_xbase,
                   values=values, x=x),
              {"chunk_xbase": (npanels, nchunks)}, values.device)
+    K._check_values(fn, values, value_scale, (npanels, nchunks),
+                    kernel_takes_quantised=True)
     tables = dict(desc_valid=desc_valid, desc_vidx=desc_vidx,
                   desc_xcol=desc_xcol, desc_yrow=desc_yrow)
     _check_tables(tables, dict(desc_vidx=vmax, desc_xcol=xw, desc_yrow=pr),
@@ -387,7 +404,7 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, desc_valid,
         return R.spmm_panels_desc(
             R.SPC5PanelDescDevice(values, desc_valid, desc_vidx, desc_xcol,
                                   desc_yrow, chunk_vbase, chunk_xbase), x,
-            pr=pr, nrows=nrows, ncols_pad=ncols_pad)
+            None, value_scale, pr=pr, nrows=nrows, ncols_pad=ncols_pad)
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
     if vmax % 4:
@@ -398,10 +415,12 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, desc_valid,
                          f"with 32-bit offsets")
     _block(r, c)
     wv, wx, wy = _widths(desc_vidx, desc_xcol, desc_yrow)
+    vsize = values.element_size()
     launch = panels_launch(stages, npanels, nchunks, cb=cb, r=r, c=c,
                            vmax=vmax, pr=pr, nvec=nvec,
                            vec=panels_vector(nvec, x), wv=wv, wx=wx,
-                           device=values.device, split=split, what=fn)
+                           device=values.device, split=split, what=fn,
+                           vsize=vsize)
     K._aligned({"values": values})
     # the tables are copied in 4-byte pieces where 16-byte ones do not align
     K._aligned(tables, 4)
@@ -414,8 +433,10 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, desc_valid,
     err = getattr(lib, f"spc5_spmm_desc_panels_s{stages}")(
         chunk_vbase.data_ptr(), chunk_xbase.data_ptr(), desc_valid.data_ptr(),
         desc_vidx.data_ptr(), desc_xcol.data_ptr(), desc_yrow.data_ptr(),
-        values.data_ptr(), x.data_ptr(), y.data_ptr(), npanels, nchunks, cb,
-        r, c, vmax, pr, nrows, x.shape[0], wv, wx, wy, nvec,
+        values.data_ptr(),
+        0 if value_scale is None else value_scale.data_ptr(), x.data_ptr(),
+        y.data_ptr(), npanels, nchunks, cb, r, c, vmax, pr, nrows, x.shape[0],
+        vsize, wv, wx, wy, nvec,
         launch["tile_columns"], launch["vector"], launch["row_parts"],
         launch["part_rows"], launch["split"], launch["chunks_per_stage"],
         *([launch["blocks_per_stage"]] if stages == 1 else []),
@@ -438,11 +459,12 @@ def spmm_cuda_panels_desc(chunk_vbase, chunk_xbase, desc_valid, desc_vidx,
     column tile (``split``; default from the card's occupancy), each
     chunk's stage copied and waited for before the walk, one lane group
     adding each row of the Y tile (replaces ``spmm_pallas_panels_desc``).
-    X is (ncols, nvec)."""
-    K._unsupported(col_map, value_scale)
+    X is (ncols, nvec); ``values`` f32, bf16 or int8 (with ``value_scale``,
+    (npanels, nchunks) float32)."""
+    K._unsupported(col_map)
     return _panels("spmm_cuda_panels_desc", 1, chunk_vbase, chunk_xbase,
                    desc_valid, desc_vidx, desc_xcol, desc_yrow, values, x,
-                   r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr, nrows=nrows,
+                   value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr, nrows=nrows,
                    ncols_pad=ncols_pad, nvt=nvt, split=split)
 
 
@@ -456,10 +478,10 @@ def spmm_cuda_panels_desc_db(chunk_vbase, chunk_xbase, desc_valid,
                              split: Optional[int] = None) -> torch.Tensor:
     """Row-panel descriptor SpMM with a ring of :data:`PANEL_DB_STAGES`
     chunks (tables and value window) staged ahead by bulk copies and
-    cp.async (replaces ``spmm_pallas_panels_desc_db``); ``split`` as in
-    :func:`spmm_cuda_panels_desc`."""
-    K._unsupported(col_map, value_scale)
+    cp.async (replaces ``spmm_pallas_panels_desc_db``); ``split`` and
+    ``values`` as in :func:`spmm_cuda_panels_desc`."""
+    K._unsupported(col_map)
     return _panels("spmm_cuda_panels_desc_db", PANEL_DB_STAGES, chunk_vbase,
                    chunk_xbase, desc_valid, desc_vidx, desc_xcol, desc_yrow,
-                   values, x, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr,
+                   values, x, value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr,
                    nrows=nrows, ncols_pad=ncols_pad, nvt=nvt, split=split)

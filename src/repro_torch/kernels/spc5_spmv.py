@@ -76,30 +76,66 @@ def _r16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def _unsupported(col_map, value_scale) -> None:
+def _unsupported(col_map) -> None:
     if col_map is not None:
         raise NotImplementedError(
             "col_map (fused column permutation) is not ported yet: ROADMAP "
             "queue 1, item 5 (reorder pass)")
-    if value_scale is not None:
+
+
+#: The value stores a wrapper takes: f32, and the value-dtype axis's
+#: quantised stores, bf16 and int8 (int8 with one f32 scale a chunk).
+VALUE_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+
+
+def _check_values(fn: str, values: torch.Tensor, value_scale,
+                  scale_shape: Optional[Sequence[int]],
+                  kernel_takes_quantised: bool = False) -> None:
+    """The value store of a wrapper (its dtype already one of
+    :data:`VALUE_DTYPES`, :func:`_check`): ``value_scale`` comes with int8
+    values, and only with them, as a contiguous float32 tensor of
+    ``scale_shape`` (one scale a chunk; None: the kernel has no chunks and
+    takes no scale) on the values' device. On the card a quantised store
+    raises ``NotImplementedError`` before any launch unless the wrapper's
+    kernel takes it (``kernel_takes_quantised``); on the CPU every wrapper's
+    plain version takes it."""
+    if value_scale is not None and values.dtype != torch.int8:
         raise NotImplementedError(
-            "value_scale (int8 values) is not ported yet: ROADMAP queue 1, "
-            "item 5 (bf16/int8 values)")
+            f"{fn}: value_scale with {values.dtype} values is not ported: "
+            f"the port scales int8 values only")
+    if values.dtype == torch.int8:
+        if value_scale is None or scale_shape is None:
+            raise ValueError(f"{fn}: int8 values need their value_scale, one "
+                             f"float32 scale a chunk")
+        _check(dict(value_scale=value_scale), {"value_scale": scale_shape},
+               values.device)
+    if (values.dtype != torch.float32 and values.device.type == "cuda"
+            and not kernel_takes_quantised):
+        raise NotImplementedError(
+            f"{fn}: {values.dtype} values are not ported to its CUDA kernel "
+            f"yet (ROADMAP queue 2 A, quantised values in the decode); on the "
+            f"CPU the plain version takes them")
 
 
 def _check(named: Dict[str, torch.Tensor], shapes: Dict[str, Sequence[int]],
            device: torch.device) -> None:
-    """Device, dtype, shape and contiguity of every operand."""
+    """Device, dtype, shape and contiguity of every operand: ``values`` one
+    of :data:`VALUE_DTYPES`, ``x`` and ``value_scale`` float32, the rest
+    int32."""
     for name, t in named.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got {type(t)}")
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, values on {device}")
-        want = (torch.float32 if name in ("values", "x")
-                else torch.int32)
-        if t.dtype != want:
-            raise TypeError(f"{name} must be {want}, got {t.dtype} (only f32 "
-                            f"values and x are ported so far)")
+        if name == "values":
+            if t.dtype not in VALUE_DTYPES:
+                raise TypeError(f"values must be one of {VALUE_DTYPES}, got "
+                                f"{t.dtype}")
+        elif t.dtype != (torch.float32 if name in ("x", "value_scale")
+                         else torch.int32):
+            want = (torch.float32 if name in ("x", "value_scale")
+                    else torch.int32)
+            raise TypeError(f"{name} must be {want}, got {t.dtype}")
         if name in shapes and tuple(t.shape) != tuple(shapes[name]):
             raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                              f"expected {tuple(shapes[name])}")
@@ -247,8 +283,8 @@ def whole_launch(stages: int, nchunks: int, *, cb: int, r: int, vmax: int,
 
 
 def _whole(fn: str, stages: int, chunk_vbase, chunk_col, chunk_mask,
-           chunk_voff, chunk_row, values, x, *, r, c, cb, vmax, nrows,
-           ncols, grid=None):
+           chunk_voff, chunk_row, values, x, value_scale, *, r, c, cb, vmax,
+           nrows, ncols, grid=None):
     nchunks = chunk_col.shape[0]
     named = dict(chunk_vbase=chunk_vbase, chunk_col=chunk_col,
                  chunk_mask=chunk_mask, chunk_voff=chunk_voff,
@@ -257,9 +293,10 @@ def _whole(fn: str, stages: int, chunk_vbase, chunk_col, chunk_mask,
                    **{k: (nchunks, cb) for k in ("chunk_col", "chunk_mask",
                                                  "chunk_voff", "chunk_row")},
                    "x": (ncols,)}, values.device)
+    _check_values(fn, values, value_scale, (nchunks,))
     if values.device.type == "cpu":
         return R.spmv(R.SPC5Device(values, chunk_col, chunk_mask, chunk_voff,
-                                   chunk_row, chunk_vbase), x,
+                                   chunk_row, chunk_vbase), x, value_scale,
                       r=r, c=c, nrows=nrows, ncols=ncols)
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
@@ -292,9 +329,10 @@ def spmv_cuda(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
     window and metadata copied and waited for before its decode (replaces
     ``spmv_pallas``). ``chunk_mask`` is the int32 view of the uint32
     masks."""
-    _unsupported(col_map, value_scale)
+    _unsupported(col_map)
     return _whole("spmv_cuda", 1, chunk_vbase, chunk_col, chunk_mask,
-                  chunk_voff, chunk_row, values, x, r=r, c=c, cb=cb,
+                  chunk_voff, chunk_row, values, x, value_scale, r=r, c=c,
+                  cb=cb,
                   vmax=vmax, nrows=nrows, ncols=ncols, grid=grid)
 
 
@@ -305,10 +343,10 @@ def spmv_cuda_db(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
     """Whole-vector SpMV with a ring of :data:`WHOLE_DB_STAGES` chunks
     (value window and metadata) staged ahead by bulk copies (replaces
     ``spmv_pallas_db``); ``grid`` as in :func:`spmv_cuda`."""
-    _unsupported(col_map, value_scale)
+    _unsupported(col_map)
     return _whole("spmv_cuda_db", WHOLE_DB_STAGES, chunk_vbase, chunk_col,
-                  chunk_mask, chunk_voff, chunk_row, values, x, r=r, c=c,
-                  cb=cb, vmax=vmax, nrows=nrows, ncols=ncols, grid=grid)
+                  chunk_mask, chunk_voff, chunk_row, values, x, value_scale,
+                  r=r, c=c, cb=cb, vmax=vmax, nrows=nrows, ncols=ncols, grid=grid)
 
 
 # ----------------------------------------------------------------------------
@@ -403,8 +441,8 @@ def panels_launch(stages: int, npanels: int, nchunks: int, *, cb: int,
 
 
 def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
-            chunk_mask, chunk_voff, chunk_row, values, x, *, r, c, cb, vmax,
-            xw, pr, nrows, ncols_pad, split=None):
+            chunk_mask, chunk_voff, chunk_row, values, x, value_scale, *, r,
+            c, cb, vmax, xw, pr, nrows, ncols_pad, split=None):
     npanels, nchunks = chunk_vbase.shape
     named = dict(chunk_vbase=chunk_vbase, chunk_xbase=chunk_xbase,
                  chunk_col=chunk_col, chunk_mask=chunk_mask,
@@ -414,6 +452,7 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
                    **{k: (npanels, nchunks, cb)
                       for k in ("chunk_col", "chunk_mask", "chunk_voff",
                                 "chunk_row")}}, values.device)
+    _check_values(fn, values, value_scale, (npanels, nchunks))
     if x.dim() != 1:
         raise ValueError(f"x must be 1-D, got shape {tuple(x.shape)}")
     if npanels * pr < nrows:
@@ -423,7 +462,8 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
         return R.spmv_panels(
             R.SPC5PanelDevice(values, chunk_col, chunk_mask, chunk_voff,
                               chunk_row, chunk_vbase, chunk_xbase), x,
-            r=r, c=c, pr=pr, nrows=nrows, ncols_pad=ncols_pad)
+            None, value_scale, r=r, c=c, pr=pr, nrows=nrows,
+            ncols_pad=ncols_pad)
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
     launch = panels_launch(stages, npanels, nchunks, cb=cb, r=r, vmax=vmax,
@@ -461,10 +501,10 @@ def spmv_cuda_panels(chunk_vbase, chunk_xbase, chunk_col, chunk_mask,
     decode, and sum into a (pr,) y tile in shared memory (replaces
     ``spmv_pallas_panels``). x is (ncols,), read in place (padded where
     shorter than ncols_pad)."""
-    _unsupported(col_map, value_scale)
+    _unsupported(col_map)
     return _panels("spmv_cuda_panels", 1, chunk_vbase, chunk_xbase,
                    chunk_col, chunk_mask, chunk_voff, chunk_row, values, x,
-                   r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr, nrows=nrows,
+                   value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr, nrows=nrows,
                    ncols_pad=ncols_pad, split=split)
 
 
@@ -478,8 +518,8 @@ def spmv_cuda_panels_db(chunk_vbase, chunk_xbase, chunk_col, chunk_mask,
     """Row-panel SpMV with a ring of :data:`DB_STAGES` chunks (value
     window and metadata) staged ahead by bulk copies (replaces
     ``spmv_pallas_panels_db``)."""
-    _unsupported(col_map, value_scale)
+    _unsupported(col_map)
     return _panels("spmv_cuda_panels_db", DB_STAGES, chunk_vbase,
                    chunk_xbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
-                   values, x, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr,
+                   values, x, value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr,
                    nrows=nrows, ncols_pad=ncols_pad, split=split)

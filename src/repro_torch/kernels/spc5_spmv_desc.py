@@ -28,6 +28,13 @@ narrowest signed dtype its bound allows (``vidx`` by ``vmax``, ``xcol`` by
 dtype raises: the wrapper never widens one, which would add a copy and
 four times the bytes.
 
+Values are f32, bf16 or int8 (with ``value_scale``, one f32 scale a
+chunk). The panel kernels take all three: bf16 upcast in the decode, int8
+upcast and then multiplied by its chunk's scale, before the product with x,
+which is summed in f32. The whole-vector kernels take f32 only: on the
+card they raise ``NotImplementedError`` for a quantised store (ROADMAP
+queue 2 A).
+
 A CPU tensor goes to the plain PyTorch version (:mod:`repro_torch.core.
 ref_spmv`); a CUDA tensor goes to the kernel, or the wrapper raises. Each
 wrapper counts the launches of its kernel in :data:`LAUNCHES` (CPU calls
@@ -113,20 +120,23 @@ def _fit_stages(stages: int, cb: int, nbytes, what: str
     return stages, nb, nbytes(stages, nb)
 
 
-_OCCUPANCY: Dict[Tuple[str, int, int, int, int], Tuple[int, int]] = {}
+_OCCUPANCY: Dict[Tuple, Tuple[int, int]] = {}
 
 
 def _occupancy(layout: str, stages: int, threads: int, smem: int,
-               device: torch.device) -> Tuple[int, int]:
+               device: torch.device, vsize: Optional[int] = None
+               ) -> Tuple[int, int]:
     """(CTAs one SM holds at once, SMs) for the ``layout`` kernel ("whole"
-    or "panels") at ``stages`` (1: the synchronous one), as the CUDA runtime
-    reports them."""
-    key = (layout, stages, threads, smem, device.index or 0)
+    or "panels", whose kernels also differ by ``vsize``, the values' bytes)
+    at ``stages`` (1: the synchronous one), as the CUDA runtime reports
+    them."""
+    key = (layout, stages, vsize, threads, smem, device.index or 0)
     if key not in _OCCUPANCY:
         lib = _build.load_library("spc5_spmv_desc")
         out = (ctypes.c_int * 2)()
         fn = f"spc5_spmv_desc_{layout}_occupancy"
-        err = getattr(lib, fn)(stages, threads, smem, key[4],
+        lead = (stages,) if vsize is None else (stages, vsize)
+        err = getattr(lib, fn)(*lead, threads, smem, key[-1],
                                ctypes.addressof(out))
         K._raise_on(err, fn)
         _OCCUPANCY[key] = (out[0], out[1])
@@ -211,11 +221,12 @@ def whole_launch(stages: int, nchunks: int, *, cb: int, r: int, c: int,
 
 
 def _whole(fn: str, stages: int, chunk_vbase, desc_valid, desc_vidx,
-           desc_xcol, desc_yrow, values, x, *, r, c, cb, vmax, nrows, ncols,
-           grid=None):
+           desc_xcol, desc_yrow, values, x, value_scale, *, r, c, cb, vmax,
+           nrows, ncols, grid=None):
     nchunks = desc_valid.shape[0]
     K._check(dict(chunk_vbase=chunk_vbase, values=values, x=x),
              {"chunk_vbase": (nchunks,), "x": (ncols,)}, values.device)
+    K._check_values(fn, values, value_scale, (nchunks,))
     tables = dict(desc_valid=desc_valid, desc_vidx=desc_vidx,
                   desc_xcol=desc_xcol, desc_yrow=desc_yrow)
     _check_tables(tables, dict(desc_vidx=vmax, desc_xcol=ncols,
@@ -224,7 +235,8 @@ def _whole(fn: str, stages: int, chunk_vbase, desc_valid, desc_vidx,
     if values.device.type == "cpu":
         return R.spmv_desc(R.SPC5DescDevice(values, desc_valid, desc_vidx,
                                             desc_xcol, desc_yrow,
-                                            chunk_vbase), x, nrows=nrows)
+                                            chunk_vbase), x, value_scale,
+                           nrows=nrows)
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
     if vmax % 4:
@@ -261,9 +273,9 @@ def spmv_cuda_desc(chunk_vbase, desc_valid, desc_vidx, desc_xcol, desc_yrow,
     stage copied and waited for before its decode, rows summed in a y tile
     (replaces ``spmv_pallas_desc``). A column permutation would already be
     folded into ``desc_xcol``, so there is no ``col_map``."""
-    K._unsupported(None, value_scale)
     return _whole("spmv_cuda_desc", 1, chunk_vbase, desc_valid, desc_vidx,
-                  desc_xcol, desc_yrow, values, x, r=r, c=c, cb=cb,
+                  desc_xcol, desc_yrow, values, x, value_scale, r=r, c=c,
+                  cb=cb,
                   vmax=vmax, nrows=nrows, ncols=ncols, grid=grid)
 
 
@@ -275,10 +287,9 @@ def spmv_cuda_desc_db(chunk_vbase, desc_valid, desc_vidx, desc_xcol,
     chunks (tables and value window) staged ahead by bulk copies and
     cp.async (replaces ``spmv_pallas_desc_db``); ``grid`` as in
     :func:`spmv_cuda_desc`."""
-    K._unsupported(None, value_scale)
     return _whole("spmv_cuda_desc_db", WHOLE_DB_STAGES, chunk_vbase,
                   desc_valid, desc_vidx, desc_xcol, desc_yrow, values, x,
-                  r=r, c=c, cb=cb, vmax=vmax, nrows=nrows, ncols=ncols,
+                  value_scale, r=r, c=c, cb=cb, vmax=vmax, nrows=nrows, ncols=ncols,
                   grid=grid)
 
 
@@ -292,48 +303,65 @@ def spmv_cuda_desc_db(chunk_vbase, desc_valid, desc_vidx, desc_xcol,
 DB_STAGES = 3
 
 
+def value_window_bytes(vmax: int, vsize: int = 4) -> int:
+    """Shared memory of one staged value window of ``vmax`` values of
+    ``vsize`` bytes (4 f32, 2 bf16, 1 int8), as the panel descriptor
+    kernels stage it: an f32 window as it lies (its start 16-byte aligned
+    where vbase is a multiple of 4), a narrow one as the 16-byte aligned
+    span that covers it, which needs 16 bytes more (an int8 window starts
+    on any multiple of 8 bytes); ``value_window`` in
+    ``csrc/spc5_stage.cuh``."""
+    return _r16(vsize * vmax) + (16 if vsize < 4 else 0)
+
+
 def panels_smem_bytes(stages: int, nb: int, r: int, c: int, vmax: int,
-                      xw: int, pr: int, wv: int, wx: int) -> int:
+                      xw: int, pr: int, wv: int, wx: int,
+                      vsize: int = 4) -> int:
     """Dynamic shared memory of one panel-kernel CTA: the (pr,) f32 y tile,
-    then ``stages`` stages, each the value and x windows and ``nb`` blocks'
-    tables (valid and vidx per lane, the c xcol entries of each block's
-    first row, a 4-byte slot for its lane-0 yrow entry), every part 16-byte
-    aligned. The kernel's ``stage_layout`` (``csrc/spc5_spmv_desc.cu``)
-    refuses a launch whose figure differs from its own."""
+    then ``stages`` stages, each the value window (:func:`value_window_bytes`
+    of ``vsize``-byte values) and x window and ``nb`` blocks' tables (valid
+    and vidx per lane, the c xcol entries of each block's first row, a
+    4-byte slot for its lane-0 yrow entry), every part 16-byte aligned. The
+    kernel's ``stage_layout`` (``csrc/spc5_spmv_desc.cu``) refuses a launch
+    whose figure differs from its own."""
     rc = r * c
-    stage = (_r16(4 * vmax) + _r16(4 * xw) + _r16(nb * rc)
+    stage = (value_window_bytes(vmax, vsize) + _r16(4 * xw) + _r16(nb * rc)
              + _r16(nb * rc * wv) + _r16(nb * c * wx) + _r16(4 * nb))
     return _r16(4 * pr) + stages * stage
 
 
 def panels_stages(stages: int, cb: int, r: int, c: int, vmax: int, xw: int,
                   pr: int, wv: int, wx: int,
-                  what: str = "panel kernel") -> Tuple[int, int, int]:
+                  what: str = "panel kernel",
+                  vsize: int = 4) -> Tuple[int, int, int]:
     """(stages, blocks per stage, shared bytes per CTA) of a panel launch
     (:func:`_fit_stages`)."""
     return _fit_stages(stages, cb, lambda s, nb: panels_smem_bytes(
-        s, nb, r, c, vmax, xw, pr, wv, wx), what)
+        s, nb, r, c, vmax, xw, pr, wv, wx, vsize), what)
 
 
 def panels_occupancy(stages: int, threads: int, smem: int,
-                     device: torch.device) -> Tuple[int, int]:
-    """(CTAs one SM holds at once, SMs) for the panel kernel at ``stages``
-    (1: the synchronous one), as the CUDA runtime reports them."""
-    return _occupancy("panels", stages, threads, smem, device)
+                     device: torch.device, vsize: int = 4) -> Tuple[int, int]:
+    """(CTAs one SM holds at once, SMs) for the panel kernel of
+    ``vsize``-byte values at ``stages`` (1: the synchronous one), as the
+    CUDA runtime reports them."""
+    return _occupancy("panels", stages, threads, smem, device, vsize)
 
 
 def panels_launch(stages: int, npanels: int, nchunks: int, *, cb: int,
                   r: int, c: int, vmax: int, xw: int, pr: int, wv: int,
                   wx: int, device: torch.device, split: Optional[int] = None,
-                  what: str = "panel kernel") -> Dict[str, int]:
-    """The launch a panel wrapper makes on ``device`` (a card): ``stages``,
-    ``blocks_per_stage``, ``smem_bytes`` and ``threads`` per CTA, the card's
-    ``ctas_per_sm`` and ``sms``, ``split`` (S, from :func:`panels_split`
-    unless given) and ``grid`` (npanels * S)."""
+                  what: str = "panel kernel", vsize: int = 4
+                  ) -> Dict[str, int]:
+    """The launch a panel wrapper makes on ``device`` (a card) for
+    ``vsize``-byte values: ``stages``, ``blocks_per_stage``, ``smem_bytes``
+    and ``threads`` per CTA, the card's ``ctas_per_sm`` and ``sms``,
+    ``split`` (S, from :func:`panels_split` unless given) and ``grid``
+    (npanels * S)."""
     stages, nb, smem = panels_stages(stages, cb, r, c, vmax, xw, pr, wv, wx,
-                                     what)
+                                     what, vsize)
     threads = K._threads(nb * r * c // 4)       # a thread per lane quad
-    per_sm, sms = panels_occupancy(stages, threads, smem, device)
+    per_sm, sms = panels_occupancy(stages, threads, smem, device, vsize)
     if split is None:
         split = panels_split(npanels, nchunks, per_sm, sms)
     if not 1 <= split <= nchunks:
@@ -345,12 +373,14 @@ def panels_launch(stages: int, npanels: int, nchunks: int, *, cb: int,
 
 
 def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, desc_valid,
-            desc_vidx, desc_xcol, desc_yrow, values, x, *, r, c, cb, vmax,
-            xw, pr, nrows, ncols_pad, split=None):
+            desc_vidx, desc_xcol, desc_yrow, values, x, value_scale, *, r, c,
+            cb, vmax, xw, pr, nrows, ncols_pad, split=None):
     npanels, nchunks = chunk_vbase.shape
     K._check(dict(chunk_vbase=chunk_vbase, chunk_xbase=chunk_xbase,
                   values=values, x=x),
              {"chunk_xbase": (npanels, nchunks)}, values.device)
+    K._check_values(fn, values, value_scale, (npanels, nchunks),
+                    kernel_takes_quantised=True)
     tables = dict(desc_valid=desc_valid, desc_vidx=desc_vidx,
                   desc_xcol=desc_xcol, desc_yrow=desc_yrow)
     _check_tables(tables, dict(desc_vidx=vmax, desc_xcol=xw, desc_yrow=pr),
@@ -364,13 +394,15 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, desc_valid,
         return R.spmv_panels_desc(
             R.SPC5PanelDescDevice(values, desc_valid, desc_vidx, desc_xcol,
                                   desc_yrow, chunk_vbase, chunk_xbase), x,
-            pr=pr, nrows=nrows, ncols_pad=ncols_pad)
+            None, value_scale, pr=pr, nrows=nrows, ncols_pad=ncols_pad)
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
     wv, wx, wy = _widths(desc_vidx, desc_xcol, desc_yrow)
+    vsize = values.element_size()
     launch = panels_launch(stages, npanels, nchunks, cb=cb, r=r, c=c,
                            vmax=vmax, xw=xw, pr=pr, wv=wv, wx=wx,
-                           device=values.device, split=split, what=fn)
+                           device=values.device, split=split, what=fn,
+                           vsize=vsize)
     # every chunk stages an xw-wide window of x at chunk_xbase: pad x so the
     # last window stays in bounds, as the Pallas wrappers do
     xp = torch.nn.functional.pad(x, (0, max(0, ncols_pad - x.shape[0])))
@@ -386,8 +418,10 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, desc_valid,
     err = getattr(lib, entry)(
         chunk_vbase.data_ptr(), chunk_xbase.data_ptr(), desc_valid.data_ptr(),
         desc_vidx.data_ptr(), desc_xcol.data_ptr(), desc_yrow.data_ptr(),
-        values.data_ptr(), xp.data_ptr(), y.data_ptr(), npanels, nchunks, cb,
-        r, c, vmax, xw, pr, nrows, wv, wx, wy, launch["split"],
+        values.data_ptr(),
+        0 if value_scale is None else value_scale.data_ptr(), xp.data_ptr(),
+        y.data_ptr(), npanels, nchunks, cb, r, c, vmax, xw, pr, nrows, vsize,
+        wv, wx, wy, launch["split"],
         launch["blocks_per_stage"] if stages == 1 else launch["stages"],
         launch["smem_bytes"], launch["threads"], values.device.index or 0,
         K._stream(values.device))
@@ -406,11 +440,12 @@ def spmv_cuda_panels_desc(chunk_vbase, chunk_xbase, desc_valid, desc_vidx,
     """Row-panel descriptor SpMV, each panel's chunks split among S CTAs
     that stage one chunk's tables at a time with vector loads and sum into
     a (pr,) y tile in shared memory (replaces ``spmv_pallas_panels_desc``).
-    x is (ncols,), padded here."""
-    K._unsupported(col_map, value_scale)
+    x is (ncols,), padded here. ``values`` f32, bf16 or int8 (with
+    ``value_scale``, (npanels, nchunks) float32)."""
+    K._unsupported(col_map)
     return _panels("spmv_cuda_panels_desc", 1, chunk_vbase, chunk_xbase,
                    desc_valid, desc_vidx, desc_xcol, desc_yrow, values, x,
-                   r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr, nrows=nrows,
+                   value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr, nrows=nrows,
                    ncols_pad=ncols_pad, split=split)
 
 
@@ -423,10 +458,11 @@ def spmv_cuda_panels_desc_db(chunk_vbase, chunk_xbase, desc_valid,
                              split: Optional[int] = None) -> torch.Tensor:
     """Row-panel descriptor SpMV with a ring of :data:`DB_STAGES` chunks
     staged ahead by cp.async, tables, value and x windows alike (replaces
-    ``spmv_pallas_panels_desc_db``)."""
-    K._unsupported(col_map, value_scale)
+    ``spmv_pallas_panels_desc_db``); ``values`` as in
+    :func:`spmv_cuda_panels_desc`."""
+    K._unsupported(col_map)
     return _panels("spmv_cuda_panels_desc_db", DB_STAGES,
                    chunk_vbase, chunk_xbase, desc_valid, desc_vidx,
-                   desc_xcol, desc_yrow, values, x, r=r, c=c, cb=cb,
+                   desc_xcol, desc_yrow, values, x, value_scale, r=r, c=c, cb=cb,
                    vmax=vmax, xw=xw, pr=pr, nrows=nrows,
                    ncols_pad=ncols_pad, split=split)

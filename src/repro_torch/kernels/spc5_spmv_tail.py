@@ -40,8 +40,8 @@ from repro_torch.core import ref_spmv as R
 
 from . import _build
 from .spc5_spmm import _MAX_GRID, _nvec, panels_vector, whole_tiles
-from .spc5_spmv import (_check, _check_smem, _raise_on, _stream,
-                        panels_split)
+from .spc5_spmv import (_check, _check_smem, _check_values, _raise_on,
+                        _stream, panels_split)
 
 #: Launches since the last :func:`reset_launches`.
 LAUNCHES: Dict[str, int] = {"spmv_tail_cuda": 0, "spmm_tail_cuda": 0}
@@ -160,6 +160,7 @@ def spmv_tail_cuda(tail_xbase, rows, cols, vals, x, *, pr: int, xw: int,
     npanels, smax = _check_buckets(rows, cols, vals, x, pr, nrows)
     _check(dict(tail_xbase=tail_xbase), {"tail_xbase": (npanels,)},
            vals.device)
+    _check_values("spmv_tail_cuda", vals, None, None)
     if x.dim() != 1:
         raise ValueError(f"x must be 1-D, got shape {tuple(x.shape)}")
     if xw < 1:
@@ -285,6 +286,7 @@ def spmm_tail_cuda(rows, cols, vals, x, *, pr: int, nrows: int,
     holds inf or NaN at such a column."""
     fn = "spmm_tail_cuda"
     npanels, smax = _check_buckets(rows, cols, vals, x, pr, nrows)
+    _check_values(fn, vals, None, None)
     nvec = _nvec(x, nvt)
     if vals.device.type == "cpu":
         return R.spmm_coo_panels(rows, cols, vals, x, pr=pr, nrows=nrows)

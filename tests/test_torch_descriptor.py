@@ -47,6 +47,8 @@ def assert_arrays_byte_equal(tplan, jplan):
     assert len(tplan.arrays) == len(jplan.arrays)
     for t, j in zip(tplan.arrays, jplan.arrays):
         j = np.asarray(j)
+        if t.dtype == torch.bfloat16:     # bf16 as bit patterns, both sides
+            t, j = t.view(torch.int16), j.view(np.int16)
         t = t.cpu().numpy()
         if j.dtype == np.uint32:          # masks travel as an int32 view
             t = t.view(np.uint32)
@@ -277,8 +279,8 @@ def test_spmm_on_a_descriptor_plan_matches_reference(layout):
 @pytest.mark.parametrize("lowering", ["descriptor", "auto"])
 def test_sparse_linear_descriptor_matches_reference(lowering):
     """A descriptor (or auto) layer builds and runs, batch 1 and wider, as
-    the reference's does; with bf16 or int8 values it raises, naming the
-    ROADMAP item those wait for."""
+    the reference's does, with f32, bf16 and int8 values (byte-equal plans,
+    int8 scales included)."""
     w = np.random.default_rng(0).standard_normal((40, 32)).astype(np.float32)
     kw = dict(density=0.5, block=(2, 4), lowering=lowering, tune=False)
     layer = SparseLinear.from_dense(w, device="cpu", **kw)
@@ -290,8 +292,14 @@ def test_sparse_linear_descriptor_matches_reference(lowering):
         assert_close(layer(torch.from_numpy(xb)).numpy(),
                      ref(jnp.asarray(xb), use_pallas=False))
     for vdtype in ("bf16", "int8"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-            SparseLinear.from_dense(w, device="cpu", vdtype=vdtype, **kw)
+        layer = SparseLinear.from_dense(w, device="cpu", vdtype=vdtype, **kw)
+        ref = JL.SparseLinear.from_dense(w, vdtype=vdtype, **kw)
+        assert layer.plan.vdtype == ref.handle.vdtype == vdtype
+        assert_arrays_byte_equal(layer.plan, ref.handle)
+        for xb in (x, x[0]):
+            y = layer(torch.from_numpy(xb))
+            assert y.dtype == torch.float32
+            assert_close(y.numpy(), ref(jnp.asarray(xb), use_pallas=False))
 
 
 # ----------------------------------------------------------------------------

@@ -1326,7 +1326,7 @@ def test_panel_desc_smem_matches_the_kernel(cuda, case, stages):
     from repro_torch.kernels import _build
     geom = SMEM_GEOMETRIES[case]
     lib = _build.load_library("spc5_spmv_desc")
-    assert lib.spc5_spmv_desc_panels_smem(stages, *geom) == \
+    assert lib.spc5_spmv_desc_panels_smem(stages, *geom, 4) == \
         KD.panels_smem_bytes(stages, *geom)
 
 
@@ -1765,7 +1765,7 @@ def test_panel_spmm_smem_matches_the_kernel(cuda, case, stages):
     from repro_torch.kernels import _build
     geom = SPMM_SMEM_GEOMETRIES[case]
     lib = _build.load_library("spc5_spmm_desc")
-    assert lib.spc5_spmm_desc_panels_smem(stages, *geom) == \
+    assert lib.spc5_spmm_desc_panels_smem(stages, *geom, 4) == \
         KDM.panels_smem_bytes(stages, *geom)
 
 
@@ -2698,3 +2698,254 @@ def test_tail_launchers_refuse_other_plans(cuda):
     out = (ctypes.c_int * 2)()
     assert lib.spc5_spmm_tail_occupancy(3, 256, 1024, dev,
                                         ctypes.addressof(out)) == 1
+
+
+# ----------------------------------------------------------------------------
+# quantised values (bf16, int8) in the four panel descriptor kernels, and
+# the refusal of every other kernel
+# ----------------------------------------------------------------------------
+
+QUANT_KERNELS = ("spmv_cuda_panels_desc", "spmv_cuda_panels_desc_db",
+                 "spmm_cuda_panels_desc", "spmm_cuda_panels_desc_db")
+QUANT_VDTYPES = ("bf16", "int8")
+
+
+def _q_plan(rc, vdtype, device, align=8, n=302, m=700, density=0.05, cb=4):
+    """A panel descriptor plan at ``vdtype`` (302 rows in panels of 64, cb
+    4: many chunks a panel) on ``device``."""
+    mat = _matrix(rc, n=n, m=m, density=density)
+    return ops.prepare(mat, layout="panels", lowering="descriptor",
+                       vdtype=vdtype, tune=False, device=device, pr=64,
+                       xw=64, cb=cb, align=align)
+
+
+def _q_check(kernel, plan, x, **kw):
+    """One call of a quantised panel wrapper, counted once and held
+    against its plain version (upcast, then the int8 scale) on the card."""
+    spmm = kernel.startswith("spmm")
+    mod = KDM if spmm else KD
+    scale = plan.value_scale if plan.vdtype == "int8" else None
+    fn = R.spmm_panels_desc if spmm else R.spmv_panels_desc
+    plain = fn(plan.dev, x, None, scale, pr=plan.pr, nrows=plan.nrows,
+               ncols_pad=plan.ncols_pad)
+    before = mod.LAUNCHES[kernel]
+    y = getattr(mod, kernel)(
+        plan.chunk_vbase, plan.chunk_xbase, plan.desc_valid, plan.desc_vidx,
+        plan.desc_xcol, plan.desc_yrow, plan.values, x, None, scale,
+        r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax, xw=plan.xw,
+        pr=plan.pr, nrows=plan.nrows, ncols_pad=plan.ncols_pad, **kw)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES[kernel] == before + 1
+    assert y.dtype == torch.float32 and y.shape == plain.shape
+    assert torch.isfinite(y).all()
+    ref = float(plain.abs().max()) if plain.numel() else 0.0
+    err = float((y - plain).abs().max()) if y.numel() else 0.0
+    assert err <= RTOL * max(ref, 1.0), (err, ref, kw)
+
+
+def _q_x(kernel, plan, device, nvec=16, seed=21):
+    if kernel.startswith("spmm"):
+        return _xmat(plan.ncols, nvec, seed, device)
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        plan.ncols).astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("rc", [(1, 8), (2, 4), (4, 4), (4, 8), (8, 4)])
+@pytest.mark.parametrize("vdtype", QUANT_VDTYPES)
+@pytest.mark.parametrize("kernel", QUANT_KERNELS)
+def test_quantised_panel_desc_block_shapes(cuda, kernel, vdtype, rc):
+    """Each of the four kernels at bf16 and int8 on five block shapes, at
+    the split its wrapper picks."""
+    plan = _q_plan(rc, vdtype, cuda)
+    assert plan.values.dtype == {"bf16": torch.bfloat16,
+                                 "int8": torch.int8}[vdtype]
+    _q_check(kernel, plan, _q_x(kernel, plan, cuda))
+
+
+@pytest.mark.parametrize("align", [4, 8])
+@pytest.mark.parametrize("vdtype", QUANT_VDTYPES)
+@pytest.mark.parametrize("kernel", QUANT_KERNELS)
+def test_quantised_windows_off_16_bytes(cuda, kernel, vdtype, align):
+    """Value windows that start off a 16-byte boundary (int8 at align 8
+    and 4, bf16 at align 4; bf16 windows at align 8 all start on one): the
+    kernels stage the aligned span that covers a window and index into
+    it."""
+    plan = _q_plan((2, 4), vdtype, cuda, align=align)
+    itemsize = plan.values.element_size()
+    off = bool(((plan.chunk_vbase * itemsize) % 16 != 0).any())
+    assert off == (vdtype == "int8" or align == 4)
+    _q_check(kernel, plan, _q_x(kernel, plan, cuda))
+
+
+@pytest.mark.parametrize("split", ["one", "each_chunk"])
+@pytest.mark.parametrize("vdtype", QUANT_VDTYPES)
+@pytest.mark.parametrize("kernel", QUANT_KERNELS)
+def test_quantised_forced_grids(cuda, kernel, vdtype, split):
+    """S = 1 and one chunk a CTA (S = nchunks)."""
+    plan = _q_plan((4, 8), vdtype, cuda)
+    s = 1 if split == "one" else plan.nchunks
+    _q_check(kernel, plan, _q_x(kernel, plan, cuda), split=s)
+
+
+@pytest.mark.parametrize("nvec", [1, 2, 3, 5, 16, 100, 128, 256])
+@pytest.mark.parametrize("vdtype", QUANT_VDTYPES)
+@pytest.mark.parametrize("kernel", QUANT_KERNELS[2:])
+def test_quantised_spmm_widths(cuda, kernel, vdtype, nvec):
+    """The SpMM pair at nvec 1 to 256 (each a multiple of min(nvt, nvec),
+    the reference's rule at nvt = 128)."""
+    plan = _q_plan((4, 8), vdtype, cuda)
+    _q_check(kernel, plan, _q_x(kernel, plan, cuda, nvec=nvec))
+
+
+def test_quantised_all_zero_chunks_take_scale_one(cuda):
+    """Rows whose values are all zero (kept as nonzeros) make chunks of
+    scale 1.0; their rows come out 0 from every kernel."""
+    d = _dense((302, 700), 0.05, 23)
+    csr = F.csr_from_dense(d)
+    csr.values[:csr.rowptr[64]] = 0.0
+    mat = F.csr_to_spc5(csr, 2, 4)
+    plan = ops.prepare(mat, layout="panels", lowering="descriptor",
+                       vdtype="int8", tune=False, device=cuda, pr=64, xw=64,
+                       cb=4)
+    live = plan.desc_valid[0].reshape(plan.nchunks, -1).any(-1)
+    assert bool(live.any()) and bool((plan.value_scale[0][live] == 1.0).all())
+    for kernel in QUANT_KERNELS:
+        _q_check(kernel, plan, _q_x(kernel, plan, cuda))
+
+
+@pytest.mark.parametrize("vsize", [4, 2, 1])
+@pytest.mark.parametrize("stages", [1, 2, 3])
+@pytest.mark.parametrize("case", sorted(SMEM_GEOMETRIES))
+def test_quantised_panel_desc_smem_matches_the_kernel(cuda, case, stages,
+                                                      vsize):
+    """The SpMV pair's ``panels_smem_bytes`` at 4-, 2- and 1-byte values is
+    the kernel's own figure."""
+    from repro_torch.kernels import _build
+    geom = SMEM_GEOMETRIES[case]
+    lib = _build.load_library("spc5_spmv_desc")
+    assert lib.spc5_spmv_desc_panels_smem(stages, *geom, vsize) == \
+        KD.panels_smem_bytes(stages, *geom, vsize)
+
+
+@pytest.mark.parametrize("vsize", [4, 2, 1])
+@pytest.mark.parametrize("stages", [1, 2])
+@pytest.mark.parametrize("case", sorted(SPMM_SMEM_GEOMETRIES))
+def test_quantised_panel_spmm_smem_matches_the_kernel(cuda, case, stages,
+                                                      vsize):
+    """The SpMM pair's ``panels_smem_bytes`` at 4-, 2- and 1-byte values is
+    the kernel's own figure."""
+    from repro_torch.kernels import _build
+    geom = SPMM_SMEM_GEOMETRIES[case]
+    lib = _build.load_library("spc5_spmm_desc")
+    assert lib.spc5_spmm_desc_panels_smem(stages, *geom, vsize) == \
+        KDM.panels_smem_bytes(stages, *geom, vsize)
+
+
+@pytest.mark.parametrize("vdtype", ["f32", *QUANT_VDTYPES])
+@pytest.mark.parametrize("kernel", QUANT_KERNELS)
+def test_quantised_launch_refuses_a_wrong_smem_figure(cuda, monkeypatch,
+                                                      kernel, vdtype):
+    """At every value width, a launch handed a shared-memory figure 16
+    bytes off the kernel's is refused (CUDA error 1) and not counted."""
+    mod = KDM if kernel.startswith("spmm") else KD
+    plan = _q_plan((4, 8), vdtype, cuda)
+    real = mod.panels_launch
+
+    def off(*args, **kw):
+        launch = real(*args, **kw)
+        return dict(launch, smem_bytes=launch["smem_bytes"] + 16)
+    monkeypatch.setattr(mod, "panels_launch", off)
+    before = dict(mod.LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        _q_check(kernel, plan, _q_x(kernel, plan, cuda))
+    assert mod.LAUNCHES == before
+
+
+#: The wrappers outside the quantised slice, as a plan's entry points reach
+#: them: (layout, lowering, SpMM, double_buffer) -> wrapper.
+_Q_REFUSING = {
+    ("whole_vector", "mask", False, True): "spmv_cuda_db",
+    ("whole_vector", "mask", False, False): "spmv_cuda",
+    ("panels", "mask", False, True): "spmv_cuda_panels_db",
+    ("panels", "mask", False, False): "spmv_cuda_panels",
+    ("whole_vector", "descriptor", False, True): "spmv_cuda_desc_db",
+    ("whole_vector", "descriptor", False, False): "spmv_cuda_desc",
+    ("whole_vector", "mask", True, True): "spmm_cuda",
+    ("panels", "mask", True, True): "spmm_cuda_panels_db",
+    ("panels", "mask", True, False): "spmm_cuda_panels",
+    ("whole_vector", "descriptor", True, True): "spmm_cuda_desc",
+}
+
+
+def _q_launches():
+    return {**K.LAUNCHES, **KD.LAUNCHES, **KM.LAUNCHES, **KDM.LAUNCHES,
+            **KT.LAUNCHES}
+
+
+@pytest.mark.parametrize("vdtype", QUANT_VDTYPES)
+@pytest.mark.parametrize("case", sorted(_Q_REFUSING, key=str))
+def test_quantised_values_raise_outside_the_slice(cuda, case, vdtype):
+    """A quantised plan that reaches any other kernel raises
+    ``NotImplementedError`` naming ROADMAP queue 2 A before any launch, and
+    never runs a plain version on the card."""
+    layout, lowering, spmm, db = case
+    mat = _matrix((4, 8))
+    plan = ops.prepare(mat, layout=layout, lowering=lowering, vdtype=vdtype,
+                       tune=False, device=cuda, **(
+                           {"cb": 16} if layout == "whole_vector"
+                           else {"pr": 64, "xw": 64, "cb": 16}))
+    x = (_xmat(plan.ncols, 16, 3, cuda) if spmm else
+         torch.zeros(plan.ncols, device=cuda))
+    before = _q_launches()
+    with pytest.raises(NotImplementedError, match="queue 2 A") as err:
+        (ops.spmm if spmm else ops.spmv)(plan, x, double_buffer=db)
+    assert _Q_REFUSING[case] in str(err.value)
+    assert _q_launches() == before
+
+
+@pytest.mark.parametrize("kernel", ["spmv_tail_cuda", "spmm_tail_cuda"])
+def test_quantised_tail_values_raise(cuda, kernel):
+    """A bf16 tail (the test layout's, as the reference stores it) on the
+    card raises in both tail wrappers; an int8 plan's tail keeps f32."""
+    mat = F.csr_to_spc5(matgen.powerlaw(320, 5, seed=17), 2, 4)
+    geom = dict(layout="test", multi_layout="panels", lowering="descriptor",
+                tune=False, pr=16, xw=32, cb=8)
+    plan = ops.prepare(mat, vdtype="bf16", device=cuda, **geom)
+    assert plan.single_values.dtype == torch.bfloat16 and plan.tail_pr
+    assert ops.prepare(mat, vdtype="int8", device=cuda, **geom) \
+        .single_values.dtype == torch.float32
+    rows, cols, vals = (plan.single_rows, plan.single_cols,
+                        plan.single_values)
+    before = _q_launches()
+    with pytest.raises(NotImplementedError, match="queue 2 A"):
+        if kernel == "spmv_tail_cuda":
+            KT.spmv_tail_cuda(plan.tail_xbase, rows, cols, vals,
+                              torch.zeros(plan.ncols, device=cuda),
+                              pr=plan.tail_pr, xw=plan.tail_xw,
+                              nrows=plan.nrows, ncols_pad=plan.tail_ncols_pad)
+        else:
+            KT.spmm_tail_cuda(rows, cols, vals, _xmat(plan.ncols, 16, 4, cuda),
+                              pr=plan.tail_pr, nrows=plan.nrows)
+    assert _q_launches() == before
+
+
+@pytest.mark.parametrize("vdtype", QUANT_VDTYPES)
+def test_quantised_layer_on_the_card_matches_the_cpu_layer(cuda, vdtype):
+    """``SparseLinear`` at a quantised vdtype on the card (panels +
+    descriptor: the four kernels) against the same layer on the CPU (the
+    plain versions), batch 1 and 16, bit-equal plans."""
+    w = np.random.default_rng(5).standard_normal((600, 300)).astype(
+        np.float32)
+    kw = dict(density=0.2, block=(4, 8), vdtype=vdtype, layout="panels",
+              lowering="descriptor", pr=64, xw=64, cb=8, tune=False)
+    gpu = SparseLinear.from_dense(w, device=cuda, **kw)
+    cpu = SparseLinear.from_dense(w, device="cpu", **kw)
+    for a, b in zip(gpu.plan.arrays, cpu.plan.arrays):
+        assert torch.equal(a.cpu(), b)
+    x = np.random.default_rng(6).standard_normal((16, 300)).astype(np.float32)
+    for xb in (x[:1], x):
+        y = gpu(torch.from_numpy(xb).to(cuda)).cpu()
+        y_ref = cpu(torch.from_numpy(xb))
+        assert y.dtype == torch.float32
+        err = float((y - y_ref).abs().max())
+        assert err <= RTOL * max(float(y_ref.abs().max()), 1.0)

@@ -17,6 +17,7 @@ import torch
 from repro.core import formats as JF
 from repro.core import matgen as JM
 from repro.core import selector as JS
+from repro.core import sparse_linear as JL
 from repro.kernels import ops as jops
 from repro_torch.core import formats as TF
 from repro_torch.core import matgen as TM
@@ -162,33 +163,71 @@ def test_prepare_without_device_needs_a_card():
 
 
 @pytest.mark.parametrize("kw", [
+    dict(dtype=np.float64),
+    dict(config=JS.PanelConfig(layout="panels", reorder="rcm")),
+])
+def test_unported_axes_raise(kw):
+    """A float64 store and a reordering config stay refusals."""
+    _, tmat = _pair((1, 8))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tops.prepare(tmat, device="cpu", **kw)
+
+
+def assert_plans_byte_equal(tplan, jplan):
+    """Arrays (bf16 as bit patterns), meta and, for a test plan, the multi
+    sub-plan's, byte for byte."""
+    assert len(tplan.arrays) == len(jplan.arrays)
+    for t, j in zip(tplan.arrays, jplan.arrays):
+        j = np.asarray(j)
+        if t.dtype == torch.bfloat16:
+            t, j = t.view(torch.int16), j.view(np.int16)
+        t = t.numpy()
+        if j.dtype == np.uint32:
+            t = t.view(np.uint32)
+        assert t.dtype == j.dtype and t.tobytes() == j.tobytes()
+    assert tuple(tplan.meta) == tuple(jplan.meta)
+    for tc, jc in zip(tplan.children, jplan.children):
+        assert_plans_byte_equal(tc, jc)
+
+
+@pytest.mark.parametrize("kw", [
     dict(entry="from_dense", vdtype="bf16"),
     dict(entry="from_dense", lowering="descriptor", vdtype="int8"),
     dict(vdtype="bf16"),
     dict(vdtype="int8"), dict(layout="test", vdtype="bf16"),
-    dict(dtype=np.float64),
-    dict(config=JS.PanelConfig(layout="panels", reorder="rcm")),
     dict(config=JS.PanelConfig(layout="panels", lowering="descriptor",
                                vdtype="bf16")),
     dict(layout="test", vdtype="int8"),
 ])
-def test_unported_axes_raise(kw):
-    """``entry`` names the call under test: ``ops.prepare`` (default) or
-    ``SparseLinear.from_dense`` with the other keywords. kw0 and kw1 reach
-    the bf16 / int8 refusal through ``from_dense`` (at its default lowering
-    and at ``descriptor``), an entry point that kw2 and kw3 do not take;
-    kw4 and kw8 reach it on the ``test`` layout, whose tail and multi
-    sub-plan would both store the values."""
-    _, tmat = _pair((1, 8))
-    kw = dict(kw)
+def test_quantised_axes_build_like_the_reference(kw):
+    """The bf16 / int8 cases that raised before the value-dtype axis was
+    ported now build the reference's plan byte for byte and compute its
+    product. ``entry`` names the call under test: ``ops.prepare``
+    (default) or ``SparseLinear.from_dense``, at its default lowering and
+    at ``descriptor``; the ``test`` layout stores the values in its multi
+    sub-plan (quantised) and its tail (bf16, or f32 for int8); a
+    ``PanelConfig`` passes its vdtype."""
+    jmat, tmat = _pair((1, 8))
+    kw = dict(kw, tune=False)
     entry = kw.pop("entry", "prepare")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if entry == "from_dense":
-            w = np.random.default_rng(0).standard_normal((16, 24))
-            SparseLinear.from_dense(w.astype(np.float32), block=(1, 8),
-                                    device="cpu", **kw)
-        else:
-            tops.prepare(tmat, device="cpu", **kw)
+    if entry == "from_dense":
+        w = np.random.default_rng(0).standard_normal((16, 24)).astype(
+            np.float32)
+        tlayer = SparseLinear.from_dense(w, block=(1, 8), device="cpu", **kw)
+        jlayer = JL.SparseLinear.from_dense(w, block=(1, 8), **kw)
+        assert_plans_byte_equal(tlayer.plan, jlayer.handle)
+        x = np.random.default_rng(1).standard_normal((3, 24)).astype(
+            np.float32)
+        assert_close(tlayer(torch.from_numpy(x)),
+                     jlayer(jnp.asarray(x), use_pallas=False))
+        return
+    tplan = tops.prepare(tmat, device="cpu", **kw)
+    jplan = jops.prepare(jmat, **kw)
+    assert_plans_byte_equal(tplan, jplan)
+    x = _x(tmat.ncols)
+    y = tops.spmv(tplan, torch.from_numpy(x))
+    assert y.dtype == torch.float32
+    assert_close(y, jops.spmv(jplan, jnp.asarray(x), use_pallas=False))
 
 
 def test_spmv_wants_x_on_the_plans_device():

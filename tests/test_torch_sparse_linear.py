@@ -38,6 +38,8 @@ def assert_arrays_byte_equal(tplan, jplan):
     assert len(tplan.arrays) == len(jplan.arrays)
     for t, j in zip(tplan.arrays, jplan.arrays):
         j = np.asarray(j)
+        if t.dtype == torch.bfloat16:     # bf16 as bit patterns, both sides
+            t, j = t.view(torch.int16), j.view(np.int16)
         t = t.cpu().numpy()
         if j.dtype == np.uint32:          # masks travel as an int32 view
             t = t.view(np.uint32)
@@ -192,12 +194,29 @@ def test_from_arrays_reproduces_a_jax_layer(layout):
 
 @pytest.mark.parametrize("kw", [
     dict(store=JS.RecordStore([])), dict(reorder="rcm"), dict(verify=True),
-    dict(vdtype="bf16"), dict(vdtype="int8"),
 ])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TL.SparseLinear.from_dense(_weight()[0], density=0.2, block=(2, 4),
                                    device="cpu", **kw)
+
+
+@pytest.mark.parametrize("vdtype", ["bf16", "int8"])
+def test_quantised_layer_matches_reference(vdtype):
+    """``from_dense(vdtype=...)`` builds the reference's quantised plan
+    byte for byte (int8 scales included) and its forward matches the
+    reference's, batch 1 and wider, in f32."""
+    w = _weight()[0]
+    kw = dict(density=0.2, block=(2, 4), vdtype=vdtype, tune=False)
+    tl = TL.SparseLinear.from_dense(w, device="cpu", **kw)
+    jl = JL.SparseLinear.from_dense(w, **kw)
+    assert tl.plan.vdtype == vdtype
+    assert_arrays_byte_equal(tl.plan, jl.handle)
+    x = np.random.default_rng(9).standard_normal((4, 200)).astype(np.float32)
+    for xb in (x, x[0]):
+        y = tl(torch.from_numpy(xb))
+        assert y.dtype == torch.float32
+        assert_close(y.numpy(), jl(jnp.asarray(xb), use_pallas=False))
 
 
 def test_choose_block_with_a_store_raises():

@@ -179,12 +179,16 @@ def test_plain_desc_spmm_slices_wide_batches(layout, monkeypatch):
 
 
 def test_plain_desc_spmm_rejects_unported_operands():
+    """A fused column permutation (``cmap``) is still refused; a per-chunk
+    ``value_scale`` is now taken, as in the reference (each chunk's values
+    times its scale)."""
     d = _dense((60, 50), 0.2, 1)
     _, whole = _plans(d, (2, 4), "whole_vector", GEOM["whole_vector"])
     _, pan = _plans(d, (2, 4), "panels", GEOM["panels"])
     x = torch.from_numpy(_x(50, 2))
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        TR.spmm_desc(whole.dev, x, torch.ones(1), nrows=60)
+    twice = torch.full((whole.chunk_vbase.shape[0],), 2.0)
+    assert torch.allclose(TR.spmm_desc(whole.dev, x, twice, nrows=60),
+                          2 * TR.spmm_desc(whole.dev, x, nrows=60))
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         TR.spmm_panels_desc(pan.dev, x, torch.arange(50), pr=pan.pr,
                             nrows=60, ncols_pad=pan.ncols_pad)

@@ -117,8 +117,8 @@ def _ctas_per_sm(smem, threads):
 def fake_card(monkeypatch):
     """``panels_occupancy`` as an H100 of 132 SMs would answer it."""
     monkeypatch.setattr(KDM, "panels_occupancy",
-                        lambda stages, r, c, vec, threads, smem, device:
-                        (_ctas_per_sm(smem, threads), 132))
+                        lambda stages, r, c, vec, threads, smem, device,
+                        vsize=4: (_ctas_per_sm(smem, threads), 132))
 
 
 def _launch(case, stages, nvec, **kw):

@@ -241,8 +241,8 @@ def launch_of(name, plan, nvec, x, split=None, grid=None):
 #: the ring's stages as group 1; whole-vector: the columns a lane as group
 #: 1), and how to print that name.
 SASS = {("panels", "descriptor"): (
-            "spc5_spmm_desc", r"spmm_desc_panels_kernelILi4ELi8ELi4ELi(\d)E",
-            "spmm_desc_panels_kernel<4,8,4,{}>"),
+            "spc5_spmm_desc", r"spmm_desc_panels_kernelIfLi4ELi8ELi4ELi(\d)E",
+            "spmm_desc_panels_kernel<f32,4,8,4,{}>"),
         ("panels", "mask"): (
             "spc5_spmm", r"spmm_panels_kernelILi8ELi4ELi(\d)E",
             "spmm_panels_kernel<8,4,{}>"),
