@@ -17,11 +17,14 @@ phase that goes wrong:
    split's two tail kernels (SpMV, and SpMM at nvec 3, 16 and 128) on
    three bucket geometries (the reference's tail test, nrows % pr != 0,
    and a window wider than 12,288 columns), each at its planned launch, at
-   S = 1 / G = 1 and at one group of 128 slots a CTA; and the four panel
-   descriptor kernels at bf16 and int8 values on every block shape (SpMV
-   at its planned split, S = 1 and one chunk a CTA; SpMM at nvec 3, 16 and
-   128, planned split and S = 1), with all-zero chunks (scale 1.0) and int8
-   windows that start off a 16-byte boundary;
+   S = 1 / G = 1 and at one group of 128 slots a CTA; and the eleven
+   kernels that take quantised values (the four panel descriptor kernels
+   and the seven mask kernels) at bf16 and int8 values on every block
+   shape (SpMV at its planned launch, S / G = 1 and one chunk a CTA; SpMM
+   at nvec 3, 16 and 128, planned launch and S / G = 1), with all-zero
+   chunks (scale 1.0), int8 windows that start off a 16-byte boundary and
+   int8 plans whose last window's 16-byte aligned span would reach past
+   their values (the kernels copy it short of that);
 4. SpMV path: builds ``matgen.fem_blocks(200_000, 4, 12, seed=5)``, the
    SET_A bone010 structure class at 200,000 rows (about 9.5 M nonzeros), in
    beta(4,4), and drives ``ops.prepare`` + ``ops.spmv`` through both
@@ -57,18 +60,21 @@ phase that goes wrong:
    ``double_buffer`` True and False (both kernels also at one chunk a CTA)
    and ``ops.spmm`` at batches of 16 and 128, printing the tables' bytes,
    the pair's launches and the host time of ``chunk_descriptors``; and the
-   default layer at bf16 and int8 values: ``ops.prepare(mat, vdtype=...,
-   nvec=128)`` on the same converted matrix must resolve to panels +
-   descriptor in beta(4,8); its forward at batch 1 and at 16 and 128 and
-   ``ops.spmv`` / ``ops.spmm(..., double_buffer=False)`` run the four panel
-   descriptor kernels in their quantised instantiations (only this layer
-   runs between the counts' reset and reading), each output held against
-   its plain version, the f64 product of the dequantised values (the plain
-   version in float64) and, within ``tests/test_vdtype.py``'s bf16 / int8
-   pins, the f64 product of the f32 weight; each kernel is timed beside
-   the same kernel on the f32 layer in turns, its bound, its plain version
-   and cuSPARSE (on bf16 values where the card's torch takes them), and the
-   values' share of the needed bytes is printed at each width;
+   default layer and both mask layers at bf16 and int8 values:
+   ``ops.prepare(mat, vdtype=..., nvec=128)`` on the same converted matrix
+   must resolve to panels + descriptor in beta(4,8), ``ops.prepare(mat,
+   lowering="mask", vdtype=..., nvec=128)`` to panels, beside
+   ``ops.prepare(mat, layout="whole_vector", lowering="mask", ...)``; their
+   forwards at batch 1 and at 16 and 128 and ``ops.spmv`` / ``ops.spmm(...,
+   double_buffer=False)`` run the eleven quantised kernels in their
+   quantised instantiations (only these layers run between the counts'
+   reset and reading), each output held against its plain version, the
+   f64 product of the dequantised values (the plain version in float64)
+   and, within ``tests/test_vdtype.py``'s bf16 / int8 pins, the f64
+   product of the f32 weight; each kernel is timed beside the same kernel
+   on the f32 layer in turns, its bound, its plain version and cuSPARSE
+   (on bf16 values where the card's torch takes them), and the values'
+   share of the needed bytes is printed for each layer at each width;
 6. beta(r,c)_test path: the same weight in beta(2,4) (whose singleton
    blocks hold about 30 % of the nonzeros) as
    ``SparseLinear.from_dense(w, density=0.1, block=(2, 4), layout="test",
@@ -252,8 +258,13 @@ def build_kernels() -> None:
                 if m:
                     targs = [n or INDEX_TYPE[t] for n, t in re.findall(
                         r"Li(\d+)E|(13__nv_bfloat16|[asif])", m.group(3))]
+                    policy = m.group(2)
+                    if policy:  # a policy of the value store: MaskWhole<T>
+                        policy = re.sub(
+                            r"I(13__nv_bfloat16|[asif])E$",
+                            lambda t: f"<{INDEX_TYPE[t.group(1)]}>", policy)
                     kernel = (f"{m.group(1)}<"
-                              f"{','.join(([m.group(2)] if m.group(2) else []) + targs)}>")
+                              f"{','.join(([policy] if policy else []) + targs)}>")
                 elif "spmv_tail_kernel" in line:
                     kernel = "spmv_tail_kernel"
                 elif re.search(r"spmm_tail_kernelILi\d", line):
@@ -424,25 +435,58 @@ def small_check(device) -> None:
           f"agree with the plain versions (worst {worst:.3g} of max|y|)")
 
 
-#: The four panel descriptor kernels, the ones that take quantised values
-#: (bf16, int8).
-QUANTISED = ("spmv_cuda_panels_desc_db", "spmv_cuda_panels_desc",
-             "spmm_cuda_panels_desc_db", "spmm_cuda_panels_desc")
+#: The kernels that take quantised values (bf16, int8), each with the layer
+#: (layout, lowering) it runs on: the four panel descriptor kernels and the
+#: seven mask kernels.
+QUANTISED = {
+    "spmv_cuda_panels_desc_db": ("panels", "descriptor"),
+    "spmv_cuda_panels_desc": ("panels", "descriptor"),
+    "spmm_cuda_panels_desc_db": ("panels", "descriptor"),
+    "spmm_cuda_panels_desc": ("panels", "descriptor"),
+    "spmv_cuda_panels_db": ("panels", "mask"),
+    "spmv_cuda_panels": ("panels", "mask"),
+    "spmm_cuda_panels_db": ("panels", "mask"),
+    "spmm_cuda_panels": ("panels", "mask"),
+    "spmv_cuda_db": ("whole_vector", "mask"),
+    "spmv_cuda": ("whole_vector", "mask"),
+    "spmm_cuda": ("whole_vector", "mask"),
+}
 VDTYPES = ("bf16", "int8")
 
 
+def live_chunks(plan):
+    """Which chunks hold a block (a set mask bit or valid lane)."""
+    t = plan.desc_valid if plan.lowering == "descriptor" else plan.chunk_mask
+    return t.reshape(*plan.chunk_vbase.shape, -1).ne(0).any(-1)
+
+
+def spans_past_values(plan):
+    """Whether a narrow window's 16-byte aligned span reaches past the
+    plan's values (``spc5_spmv.value_span``; the kernels copy such a span
+    without its last 8 bytes)."""
+    from repro_torch.kernels import spc5_spmv as K
+    vsize, nvalues = plan.values.element_size(), plan.values.numel()
+    return any(K.value_span(vb, plan.vmax, vsize, nvalues)[2]
+               > nvalues * vsize
+               for vb in plan.chunk_vbase.flatten().tolist())
+
+
 def small_check_quantised(device) -> float:
-    """The four :data:`QUANTISED` kernels at bf16 and int8 against their
-    plain versions on every block shape (302x260, panels pr=xw=64, cb=16,
-    the descriptor lowering), the SpMV pair at its planned split, S = 1 and
-    one chunk a CTA, the SpMM pair at nvec 3, 16 and 128 at its planned
-    split and S = 1. The first 64 rows' values are zeros kept as nonzeros,
-    so their chunks are all zero and take scale 1.0; some int8 windows
-    start off a 16-byte boundary. Returns the worst error over max|y|."""
+    """The eleven :data:`QUANTISED` kernels at bf16 and int8 against their
+    plain versions on every block shape (302x260, :data:`SMALL_GEOM`: the
+    panel descriptor, panel mask and whole-vector mask plans), the SpMV
+    kernels at their planned launch, S = 1 / G = 1 and one chunk a CTA, the
+    SpMM kernels at nvec 3, 16 and 128 at their planned launch and S = 1 /
+    G = 1. The first 64 rows' values are zeros kept as nonzeros, so their
+    chunks are all zero and take scale 1.0; some int8 windows start off a
+    16-byte boundary, and some int8 plans' last span would reach past their
+    values (the kernels cut it short). Returns the worst error over
+    max|y|."""
     import torch
     from repro_torch.core import formats as F
     from repro_torch.kernels import ops
-    worst, unaligned = 0.0, 0
+    worst, unaligned, reaching = 0.0, 0, 0
+    layers = sorted(set(QUANTISED.values()))
     for rc in F.SUPPORTED_BLOCKS:
         rng = np.random.default_rng(7 * rc[0] + rc[1])
         d = ((rng.random((302, 260)) < 0.08)
@@ -455,40 +499,52 @@ def small_check_quantised(device) -> float:
         xs = {n: torch.from_numpy(rng.standard_normal((260, n)).astype(
             np.float32)).to(device) for n in (3, 16, 128)}
         for vdtype in VDTYPES:
-            plan = ops.prepare(mat, layout="panels", lowering="descriptor",
-                               vdtype=vdtype, tune=False, device=device,
-                               **SMALL_GEOM["panels"])
-            if vdtype == "int8":
+            plans = {(layout, lowering): ops.prepare(
+                        mat, layout=layout, lowering=lowering, vdtype=vdtype,
+                        tune=False, device=device, **SMALL_GEOM[layout])
+                     for layout, lowering in layers}
+            for key, plan in plans.items():
+                if vdtype != "int8":
+                    continue
                 vbase = plan.chunk_vbase.cpu().numpy()
                 unaligned += int(np.count_nonzero(vbase % 16))
-                live = plan.desc_valid.reshape(
-                    plan.npanels, plan.nchunks, -1).sum(-1) > 0
-                if not bool(((plan.value_scale == 1.0) & live).any()):
-                    raise SmokeFailure(f"small check: {rc} int8 has no "
+                reaching += spans_past_values(plan)
+                if not bool(((plan.value_scale == 1.0)
+                             & live_chunks(plan)).any()):
+                    raise SmokeFailure(f"small check: {rc} int8 {key} has no "
                                        f"all-zero chunk of scale 1.0")
-            for name in QUANTISED:
+            for name, key in QUANTISED.items():
+                plan = plans[key]
                 spmm = name.startswith("spmm")
-                splits = (None, 1) if spmm else (None, 1, plan.nchunks)
+                n = int(plan.chunk_vbase.shape[-1])
+                force = "grid" if key[0] == "whole_vector" else "split"
+                forced = (None, 1) if spmm else (None, 1, n)
                 for v in (xs.values() if spmm else (x,)):
                     want = plain_y(plan, v)
-                    for split in splits:
+                    for f in forced:
                         got = kernel_call(name, plan, v, **(
-                            {} if split is None else {"split": split}))()
+                            {} if f is None else {force: f}))()
                         err = rel_err(got, want)
                         worst = max(worst, err)
                         if (tuple(got.shape) != tuple(want.shape)
                                 or not err <= TOL):
                             raise SmokeFailure(
                                 f"small check: {name} {vdtype} {rc} "
-                                f"{tuple(v.shape)} S={split}: rel err {err}")
+                                f"{tuple(v.shape)} {force}={f}: rel err "
+                                f"{err}")
     if not unaligned:
         raise SmokeFailure("small check: no int8 window starts off a 16-byte "
                            "boundary")
-    print(f"  quantised: the 4 panel descriptor kernels at bf16 and int8 x "
-          f"{len(F.SUPPORTED_BLOCKS)} block shapes (SpMV at S = planned, 1, "
-          f"one chunk a CTA; SpMM nvec 3, 16, 128 at S = planned, 1), "
+    if not reaching:
+        raise SmokeFailure("small check: no int8 plan's last span reaches "
+                           "past its values")
+    print(f"  quantised: the {len(QUANTISED)} quantised kernels (4 panel "
+          f"descriptor, 7 mask) at bf16 and int8 x {len(F.SUPPORTED_BLOCKS)} "
+          f"block shapes (SpMV at the planned launch, S / G = 1, one chunk a "
+          f"CTA; SpMM nvec 3, 16, 128 at the planned launch, S / G = 1), "
           f"all-zero chunks at scale 1.0, {unaligned} int8 windows off a "
-          f"16-byte boundary; worst {worst:.3g} of max|y|")
+          f"16-byte boundary, {reaching} int8 plans whose last span would "
+          f"reach past their values; worst {worst:.3g} of max|y|")
     return worst
 
 
@@ -624,9 +680,9 @@ def panel_launches(plan):
         if plan.device.type == "cuda":
             out[name] = mod.panels_launch(
                 stages, plan.npanels, plan.nchunks, device=plan.device,
-                **geom, **({"vsize": vsize} if desc else {}))
+                **geom, vsize=vsize)
             kernel = (f"spmv_desc_panels_kernel<{value_label(plan)}," if desc
-                      else "spmv_panels_kernel<")
+                      else f"spmv_panels_kernel<{value_label(plan)},")
             out[name]["registers"] = REGISTERS.get(
                 f"{kernel}{out[name]['stages']}>")
         elif desc:
@@ -634,7 +690,8 @@ def panel_launches(plan):
                                            vsize=vsize)
             out[name] = dict(stages=s, blocks_per_stage=nb, smem_bytes=smem)
         else:
-            s, smem = K.panels_stages(stages, plan.cb, plan.vmax, plan.pr)
+            s, smem = K.panels_stages(stages, plan.cb, plan.vmax, plan.pr,
+                                      vsize=vsize)
             out[name] = dict(stages=s, smem_bytes=smem,
                              threads=K.panel_threads(plan.cb, plan.r))
     return out
@@ -659,21 +716,22 @@ def whole_launches(plan):
     from repro_torch.kernels import spc5_spmv_desc as KD
     nchunks = int(plan.chunk_vbase.shape[0])
     desc = plan.lowering == "descriptor"
+    vsize = plan.values.element_size()
     if desc:
-        mod, kernel = KD, "spmv_desc_whole_kernel"
+        mod, kernel = KD, "spmv_desc_whole_kernel<"
         geom = dict(cb=plan.cb, r=plan.r, c=plan.c, vmax=plan.vmax,
                     wv=plan.desc_vidx.element_size(),
                     wx=plan.desc_xcol.element_size())
     else:
-        mod, kernel = K, "spmv_whole_kernel"
-        geom = dict(cb=plan.cb, r=plan.r, vmax=plan.vmax)
+        mod, kernel = K, f"spmv_whole_kernel<{value_label(plan)},"
+        geom = dict(cb=plan.cb, r=plan.r, vmax=plan.vmax, vsize=vsize)
     out = {}
     for name, stages in (("s1", 1), ("s2", mod.WHOLE_DB_STAGES)):
         if plan.device.type == "cuda":
             out[name] = mod.whole_launch(stages, nchunks, device=plan.device,
                                          **geom)
             out[name]["registers"] = REGISTERS.get(
-                f"{kernel}<{out[name]['stages']}>")
+                f"{kernel}{out[name]['stages']}>")
         elif desc:
             s, nb, smem = KD.whole_stages(stages, tile=KD.WHOLE_TILE_ROWS,
                                           **geom)
@@ -684,7 +742,7 @@ def whole_launches(plan):
                              tile_rows=K.WHOLE_TILE_ROWS,
                              smem_bytes=K.whole_smem_bytes(
                                  stages, plan.cb, plan.vmax,
-                                 K.WHOLE_TILE_ROWS, threads))
+                                 K.WHOLE_TILE_ROWS, threads, vsize))
     return out
 
 
@@ -1065,16 +1123,16 @@ def spmm_panel_launches(plan, nvec, split=None):
     from repro_torch.kernels import spc5_spmm_desc as KDM
     vec = KM.panels_vector(nvec)
     geom = dict(cb=plan.cb, r=plan.r, c=plan.c, vmax=plan.vmax, pr=plan.pr,
-                nvec=nvec, vec=vec)
+                nvec=nvec, vec=vec, vsize=plan.values.element_size())
     if plan.lowering == "descriptor":
         mod = KDM
         kernel = (f"spmm_desc_panels_kernel<{value_label(plan)},{plan.r},"
                   f"{plan.c},{vec},")
         geom.update(wv=plan.desc_vidx.element_size(),
-                    wx=plan.desc_xcol.element_size(),
-                    vsize=plan.values.element_size())
+                    wx=plan.desc_xcol.element_size())
     else:
-        mod, kernel = KM, f"spmm_panels_kernel<{plan.c},{vec},"
+        mod = KM
+        kernel = f"spmm_panels_kernel<{value_label(plan)},{plan.c},{vec},"
     out = {}
     for name, stages in (("s1", 1), ("s2", mod.PANEL_DB_STAGES)):
         if plan.device.type == "cuda":
@@ -1105,7 +1163,8 @@ def whole_spmm_launch(plan, nvec, grid=None, x=None):
         geom.update(wv=plan.desc_vidx.element_size(),
                     wx=plan.desc_xcol.element_size())
     else:
-        mod, policy = KM, "MaskWhole"
+        mod, policy = KM, f"MaskWhole<{value_label(plan)}>"
+        geom.update(vsize=plan.values.element_size())
     if plan.device.type != "cuda":
         return mod.whole_cta(**geom)
     out = mod.whole_launch(int(plan.chunk_vbase.shape[0]), device=plan.device,
@@ -1451,79 +1510,114 @@ def spmm_rows(names, per, launches, errs):
 
 
 # ----------------------------------------------------------------------------
-# The default layer at bf16 and int8 (the value-dtype axis)
+# The vocab layers at bf16 and int8 (the value-dtype axis): the default layer
+# and both mask layers
 # ----------------------------------------------------------------------------
 
 #: Each quantised kernel's aim: at most this many times the same kernel's
-#: f32 time on the f32 default layer, in the same run.
+#: f32 time on the f32 layer of its lowering and layout, in the same run.
 QUANTISED_AIM = 1.05
+
+#: Calls a quantised layer's plain version is timed over (its median): the
+#: plain versions take 10-120 ms a call on the vocab layers.
+QUANTISED_PLAIN_REPS = 10
+
+#: What a quantised layer runs, through the entry points a user calls:
+#: layer -> (the forward's SpMV kernel, ``ops.spmv(double_buffer=False)``'s,
+#: the forward's SpMM kernel, ``ops.spmm(double_buffer=False)``'s or None
+#: where the layout has no twin).
+QUANTISED_LAYERS = {
+    ("panels", "descriptor"): ("spmv_cuda_panels_desc_db",
+                               "spmv_cuda_panels_desc",
+                               "spmm_cuda_panels_desc_db",
+                               "spmm_cuda_panels_desc"),
+    ("panels", "mask"): ("spmv_cuda_panels_db", "spmv_cuda_panels",
+                         "spmm_cuda_panels_db", "spmm_cuda_panels"),
+    ("whole_vector", "mask"): ("spmv_cuda_db", "spmv_cuda", "spmm_cuda",
+                               None),
+}
 
 
 def build_quantised(mat, device):
-    """The default layer's plan at bf16 and int8: ``ops.prepare(mat,
-    vdtype=..., nvec=128)`` on the converted vocab matrix, every other
-    argument at its default; each layout pass must pick panels and the
-    descriptor lowering in beta(4,8), as for f32 (:func:`build_layers`).
-    Returns {vdtype: SparseLinear}."""
+    """The vocab layers at bf16 and int8 on the converted vocab matrix, every
+    other argument at its default: the default layer, ``ops.prepare(mat,
+    vdtype=..., nvec=128)``, whose layout pass must pick panels and the
+    descriptor lowering in beta(4,8), as for f32 (:func:`build_layers`);
+    the mask layer ``ops.prepare(mat, lowering="mask", vdtype=...,
+    nvec=128)``, which must resolve to panels ((64,000 + 4,096) * 4 * 128
+    bytes is far above the 2 MiB rule at any width); and the whole-vector
+    mask layer ``ops.prepare(mat, layout="whole_vector", lowering="mask",
+    vdtype=..., nvec=128)``. Returns {vdtype: {(layout, lowering):
+    SparseLinear}}."""
     from repro_torch.core.sparse_linear import SparseLinear
     from repro_torch.kernels import ops
+    dtype = {"bf16": "torch.bfloat16", "int8": "torch.int8"}
     layers = {}
     for vdtype in VDTYPES:
-        t0 = time.perf_counter()
-        plan = ops.prepare(mat, vdtype=vdtype, nvec=VOCAB["nvec"],
-                           device=device)
-        entry = next(e for e in plan.trace if e["pass"] == "layout")
-        got = (plan.layout, plan.lowering, entry["reason"],
-               entry.get("lowering_reason"), (plan.r, plan.c), plan.vdtype,
-               str(plan.values.dtype))
-        want = ("panels", "descriptor", "vmem-fit", "cost-model",
-                VOCAB["block"], vdtype,
-                {"bf16": "torch.bfloat16", "int8": "torch.int8"}[vdtype])
-        if got != want:
-            raise SmokeFailure(f"prepare(vdtype={vdtype!r}) built {got}, not "
-                               f"{want}")
-        print(f"quantised layer {vdtype}: {entry['layout']} "
-              f"({entry['reason']}) + {entry['lowering']} "
-              f"({entry['lowering_reason']}), prepare "
-              f"{time.perf_counter() - t0:.1f} s")
-        print_spmm_plan(f"{vdtype} default", plan)
-        layers[vdtype] = SparseLinear(plan)
+        layers[vdtype] = {}
+        for key, kw in ((("panels", "descriptor"), {}),
+                        (("panels", "mask"), dict(lowering="mask")),
+                        (("whole_vector", "mask"),
+                         dict(layout="whole_vector", lowering="mask"))):
+            t0 = time.perf_counter()
+            plan = ops.prepare(mat, vdtype=vdtype, nvec=VOCAB["nvec"],
+                               device=device, **kw)
+            entry = next((e for e in plan.trace if e["pass"] == "layout"),
+                         {})
+            got = ((plan.layout, plan.lowering), (plan.r, plan.c),
+                   plan.vdtype, str(plan.values.dtype))
+            want = (key, VOCAB["block"], vdtype, dtype[vdtype])
+            if key == ("panels", "descriptor"):
+                got += (entry.get("reason"), entry.get("lowering_reason"))
+                want += ("vmem-fit", "cost-model")
+            if got != want:
+                raise SmokeFailure(f"prepare(vdtype={vdtype!r}, {kw}) built "
+                                   f"{got}, not {want}")
+            print(f"quantised layer {vdtype} {key[0]} {key[1]}: "
+                  f"{plan.layout} ({entry.get('reason')}) + "
+                  f"{plan.lowering} ({entry.get('lowering_reason')}), "
+                  f"prepare {time.perf_counter() - t0:.1f} s")
+            print_spmm_plan(f"{vdtype} {key[0]} {key[1]}", plan)
+            layers[vdtype][key] = SparseLinear(plan)
     return layers
 
 
-def drive_quantised(layer, acts, device):
-    """One quantised layer through the entry points a user calls: the
-    forward at batch 1 (``spmv_cuda_panels_desc_db``) and at every batch
-    (``spmm_cuda_panels_desc_db``), ``ops.spmv`` / ``ops.spmm`` with
-    ``double_buffer=False`` (the twins). Only this layer runs between the
-    counts' reset and their reading, so each count is a launch of a
-    quantised instantiation. Returns {(kernel, batch): y} and the counts."""
+def drive_quantised(layers, acts, device):
+    """One width's three quantised layers through the entry points a user
+    calls (:data:`QUANTISED_LAYERS`): each forward at batch 1 and at every
+    batch, ``ops.spmv`` / ``ops.spmm`` with ``double_buffer=False`` (the
+    twins). Only these layers run between the counts' reset and their
+    reading, so each count is a launch of a quantised instantiation.
+    Returns {(kernel, batch): y} and the counts."""
     import torch
     from repro_torch.kernels import ops
     counts = reset_all_launches()
     x1 = acts[SPMM_NVECS[0]][0]
-    ys = {("spmv_cuda_panels_desc_db", 1): layer(x1),
-          ("spmv_cuda_panels_desc", 1): ops.spmv(layer.plan, x1,
-                                                 double_buffer=False)}
-    for nvec, a in acts.items():
-        ys["spmm_cuda_panels_desc_db", nvec] = layer(a).t()
-        ys["spmm_cuda_panels_desc", nvec] = ops.spmm(
-            layer.plan, a.t().contiguous(), double_buffer=False)
+    ys = {}
+    for key, layer in layers.items():
+        spmv, spmv_twin, spmm, spmm_twin = QUANTISED_LAYERS[key]
+        ys[spmv, 1] = layer(x1)
+        ys[spmv_twin, 1] = ops.spmv(layer.plan, x1, double_buffer=False)
+        for nvec, a in acts.items():
+            ys[spmm, nvec] = layer(a).t()
+            if spmm_twin is not None:
+                ys[spmm_twin, nvec] = ops.spmm(
+                    layer.plan, a.t().contiguous(), double_buffer=False)
     if device.type == "cuda":
         torch.cuda.synchronize()
     return ys, counts()
 
 
 def check_quantised(layers, ys, launches, acts, csr):
-    """For each width: the four kernels launched, in the counts and in
-    nothing else; each output finite, of its shape, within ``TOL`` of
-    max|y| of its plain version on the card and of the f64 product of the
-    dequantised values (the plain version in float64), and, elementwise,
-    within the pins of ``tests/test_vdtype.py`` of the f64 product of the
-    f32 weight: ``2**-7 * (|A| @ |x|)`` for bf16, ``smax / 2 * ((|A| > 0)
-    @ |x|)`` for int8 (smax = max|A| / 127, at least every chunk's scale),
-    each plus 1e-5. Returns {vdtype: {kernel: max|y - plain|}} and the
-    worst share of a pin used."""
+    """For each width: the eleven quantised kernels launched, in the counts
+    and in nothing else; each output finite, of its shape, within ``TOL``
+    of max|y| of its plain version on the card and of the f64 product of
+    the dequantised values (the plain version in float64), and,
+    elementwise, within the pins of ``tests/test_vdtype.py`` of the f64
+    product of the f32 weight: ``2**-7 * (|A| @ |x|)`` for bf16, ``smax / 2
+    * ((|A| > 0) @ |x|)`` for int8 (smax = max|A| / 127, at least every
+    chunk's scale), each plus 1e-5. Returns {vdtype: {kernel: max|y -
+    plain|}} and the worst share of a pin used."""
     import torch
     device = next(iter(acts.values())).device
     a64, absa, nza = (sparse_csr(csr, device, v, np.float64) for v in (
@@ -1536,16 +1630,16 @@ def check_quantised(layers, ys, launches, acts, csr):
         xd = x.double() if x.dim() == 2 else x.double()[:, None]
         refs[n] = (a64 @ xd, absa @ xd.abs(), nza @ xd.abs())
     errs, worst_pin = {}, {}
-    for vdtype, layer in layers.items():
+    for vdtype, width in layers.items():
         want = {name: len(acts) if name.startswith("spmm") else 1
                 for name in QUANTISED}
         got = {k: v for k, v in launches[vdtype].items() if v}
         if got != want:
-            raise SmokeFailure(f"{vdtype} layer: launches {got}, expected "
+            raise SmokeFailure(f"{vdtype} layers: launches {got}, expected "
                                f"{want} (the quantised instantiations)")
-        plan = layer.plan
         errs[vdtype], worst_pin[vdtype] = {}, 0.0
         for (name, n), y in ys[vdtype].items():
+            plan = width[QUANTISED[name]].plan
             x = xs[n]
             shape = (plan.nrows,) if x.dim() == 1 else (plan.nrows, n)
             if tuple(y.shape) != shape or not bool(torch.isfinite(y).all()):
@@ -1561,11 +1655,11 @@ def check_quantised(layers, ys, launches, acts, csr):
             pin = (2.0 ** -7 * absb if vdtype == "bf16"
                    else 0.5 * smax * nzb) + 1e-5
             used = float(((y.double() - y64).abs() / pin).max())
-            print(f"check {name} {vdtype} batch {n} (quantised default "
-                  f"layer): max|y - plain| = {abs_err:.3g} ({e_plain:.3g} "
-                  f"of max|y|), vs the f64 dequantised product {e_deq:.3g} "
-                  f"of max|y|, vs the f64 f32-weight product {used:.3g} of "
-                  f"its {vdtype} pin")
+            print(f"check {name} {vdtype} batch {n} (quantised "
+                  f"{plan.layout} {plan.lowering} layer): max|y - plain| = "
+                  f"{abs_err:.3g} ({e_plain:.3g} of max|y|), vs the f64 "
+                  f"dequantised product {e_deq:.3g} of max|y|, vs the f64 "
+                  f"f32-weight product {used:.3g} of its {vdtype} pin")
             if not (e_plain <= TOL and e_deq <= TOL and used <= 1.0):
                 raise SmokeFailure(f"{name} {vdtype} batch {n} disagrees: "
                                    f"{e_plain} / {e_deq} > {TOL} or pin "
@@ -1605,31 +1699,48 @@ def csr_library_ms(csr, x, f32_ms, timer):
     return timer(fn, x.device), "bf16"
 
 
-def measure_quantised(layers, default, acts, csr, library, batch1,
+def quantised_launch(name, plan, nvec):
+    """The launch kernel ``name``'s wrapper makes on the plan at batch nvec
+    (:func:`panel_launches`, :func:`whole_launches`,
+    :func:`spmm_panel_launches` or :func:`whole_spmm_launch`)."""
+    ring = "s2" if name.endswith("_db") else "s1"
+    if name == "spmm_cuda":
+        return whole_spmm_launch(plan, nvec)
+    if name.startswith("spmm"):
+        return spmm_panel_launches(plan, nvec)[ring]
+    if plan.layout == "whole_vector":
+        return whole_launches(plan)[ring]
+    return panel_launches(plan)[ring]
+
+
+def measure_quantised(layers, f32_layers, acts, csr, library, batch1,
                       timer=cuda_time_ms):
-    """Each quantised kernel at batch 1 (SpMV pair) or 16 and 128 (SpMM
-    pair) beside the same kernel on the f32 default layer, timed in turns
-    (f32, bf16, int8, int8, bf16, f32; each width's two medians averaged),
-    its bound (the plan's arrays as built: values at their stored width,
-    int8 scales, checked against the f32 plan's figure), its plain version
-    and cuSPARSE (on bf16 values where the card takes it, else the f32
-    figure; which is printed and kept). Returns {kernel: {vdtype: {batch:
+    """Each quantised kernel at batch 1 (SpMV) or 16 and 128 (SpMM) beside
+    the same kernel on the f32 layer of its layout and lowering, timed in
+    turns (f32, bf16, int8, int8, bf16, f32; each width's two medians
+    averaged), its bound (the plan's arrays as built: values at their
+    stored width, int8 scales, checked against the f32 plan's figure), its
+    plain version (median of :data:`QUANTISED_PLAIN_REPS` calls) and
+    cuSPARSE (on bf16 values where the card takes it, else the f32 figure;
+    which is printed and kept). Returns {kernel: {vdtype: {batch:
     numbers}}}."""
-    fplan = default.plan
-    f32_vals = values_bytes(fplan)
-    for vdtype, layer in layers.items():
-        plan = layer.plan
-        q = values_bytes(plan)
-        if needed_bytes(plan) != needed_bytes(fplan) - f32_vals + q:
-            raise SmokeFailure(f"{vdtype}: needed bytes {needed_bytes(plan)} "
-                               f"are not the f32 plan's with its values at "
-                               f"{q} bytes")
-    for label, plan in (("f32", fplan), *((v, l.plan)
-                                          for v, l in layers.items())):
-        print(f"values' share of the needed bytes, {label}: "
-              f"{values_bytes(plan)} of {needed_bytes(plan)} bytes "
-              f"({values_bytes(plan) / needed_bytes(plan):.4f}, int8 scales "
-              f"included)")
+    for key, f32_layer in f32_layers.items():
+        fplan = f32_layer.plan
+        f32_vals = values_bytes(fplan)
+        shares = [("f32", fplan)]
+        for vdtype, width in layers.items():
+            plan = width[key].plan
+            q = values_bytes(plan)
+            if needed_bytes(plan) != needed_bytes(fplan) - f32_vals + q:
+                raise SmokeFailure(f"{vdtype} {key}: needed bytes "
+                                   f"{needed_bytes(plan)} are not the f32 "
+                                   f"plan's with its values at {q} bytes")
+            shares.append((vdtype, plan))
+        for label, plan in shares:
+            print(f"values' share of the needed bytes, {key[0]} {key[1]} "
+                  f"{label}: {values_bytes(plan)} of {needed_bytes(plan)} "
+                  f"bytes ({values_bytes(plan) / needed_bytes(plan):.4f}, "
+                  f"int8 scales included)")
     xs = {1: acts[SPMM_NVECS[0]][0].contiguous()}
     xs.update({n: a.t().contiguous() for n, a in acts.items()})
     lib = {}
@@ -1638,18 +1749,22 @@ def measure_quantised(layers, default, acts, csr, library, batch1,
                   else library[n])
         lib[n] = csr_library_ms(csr, x, f32_ms, timer)
     plain = {}
-    for vdtype, layer in layers.items():
-        for n, x in xs.items():
-            print(f"  {vdtype} batch {n}: timing the plain version")
-            plain[vdtype, n] = timer(lambda p=layer.plan, v=x: plain_y(p, v),
-                                     x.device)
+    for vdtype, width in layers.items():
+        for key, layer in width.items():
+            for n, x in xs.items():
+                print(f"  {vdtype} {key[0]} {key[1]} batch {n}: timing the "
+                      f"plain version")
+                plain[vdtype, key, n] = timer(
+                    lambda p=layer.plan, v=x: plain_y(p, v), x.device,
+                    reps=QUANTISED_PLAIN_REPS)
     out = {}
-    for name in QUANTISED:
+    for name, key in QUANTISED.items():
         spmm = name.startswith("spmm")
         out[name] = {v: {} for v in layers}
+        plans = {"f32": f32_layers[key].plan,
+                 **{v: width[key].plan for v, width in layers.items()}}
         for n in (SPMM_NVECS if spmm else (1,)):
             x = xs[n]
-            plans = {"f32": fplan, **{v: l.plan for v, l in layers.items()}}
             order = list(plans) + list(plans)[::-1]
             times = {v: [] for v in plans}
             for v in order:
@@ -1657,27 +1772,30 @@ def measure_quantised(layers, default, acts, csr, library, batch1,
                 times[v].append(timer(kernel_call(name, plans[v], x),
                                       x.device))
             f32_ms = float(np.mean(times["f32"]))
+            f32_launch = quantised_launch(name, plans["f32"], n)
             for vdtype in layers:
                 plan = plans[vdtype]
                 ms = float(np.mean(times[vdtype]))
                 bound_ms, bound_by, nbytes = bound(plan, csr.nnz, n)
+                f32_bound = bound(plans["f32"], csr.nnz, n)[0]
                 ratio = ms / f32_ms
-                launch = (spmm_panel_launches(plan, n) if spmm
-                          else panel_launches(plan))[
-                    "s2" if name.endswith("_db") else "s1"]
+                launch = quantised_launch(name, plan, n)
                 print(f"time {name} {vdtype} batch {n}: {ms:.4f} ms ("
                       f"{times[vdtype][0]:.4f} / {times[vdtype][1]:.4f}), "
                       f"f32 {f32_ms:.4f} ms, {ratio:.3f}x f32 (aim <= "
                       f"{QUANTISED_AIM}: "
                       f"{'met' if ratio <= QUANTISED_AIM else 'MISSED'}), "
                       f"bound {bound_ms:.4f} ms by {bound_by} ({nbytes} "
-                      f"bytes, {bound_ms / ms:.3f} of it), plain "
-                      f"{plain[vdtype, n]:.4f} ms, cuSPARSE "
-                      f"({lib[n][1]}) {lib[n][0]:.4f} ms; launch {launch}")
+                      f"bytes, {bound_ms / ms:.3f} of it; f32 "
+                      f"{f32_bound:.4f} ms), plain "
+                      f"{plain[vdtype, key, n]:.4f} ms, cuSPARSE "
+                      f"({lib[n][1]}) {lib[n][0]:.4f} ms; launch {launch}; "
+                      f"f32 launch {f32_launch}")
                 out[name][vdtype][n] = {
                     "ms": ms, "f32_ms": f32_ms, "ratio_to_f32": ratio,
                     "aim_met": ratio <= QUANTISED_AIM, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "plain_ms": plain[vdtype, n],
+                    "bound_by": bound_by, "f32_bound_ms": f32_bound,
+                    "plain_ms": plain[vdtype, key, n],
                     "library_ms": lib[n][0], "library_values": lib[n][1],
                     "launch": launch}
     return out
@@ -2242,15 +2360,15 @@ def main() -> int:
                                 vcsr, vlaunches, verrs)
         qlayers = build_quantised(vmat, device)
         qys, qlaunches = {}, {}
-        for vdtype, layer in qlayers.items():
-            qys[vdtype], qlaunches[vdtype] = drive_quantised(layer, acts,
+        for vdtype, width in qlayers.items():
+            qys[vdtype], qlaunches[vdtype] = drive_quantised(width, acts,
                                                              device)
             print(f"launches on the {vdtype} SparseLinear path: "
                   f"{qlaunches[vdtype]}")
         qerrs, qpin = check_quantised(qlayers, qys, qlaunches, acts, vcsr)
         del qys
-        qper = measure_quantised(qlayers, layers["panels", "descriptor"],
-                                 acts, vcsr, library, batch1)
+        qper = measure_quantised(qlayers, layers, acts, vcsr, library,
+                                 batch1)
         del qlayers
         tplan = build_token_plan(vmat, device)
         del vmat

@@ -10,8 +10,9 @@
 //   spc5_spmm_panels_s2  <- spmm_pallas_panels_db  (_spmm_panel_db_kernel)
 //
 // Bound. The work is 2 flops per nonzero and column, and the bytes are the
-// plan's (4 B per packed value, 16 B of metadata per block slot) plus X and
-// Y once each: at small nvec the bytes bind, at nvec = 128 the f32 rate. In
+// plan's (4 B per packed value in f32, 2 in bf16, 1 in int8 plus an f32
+// scale a chunk, 16 B of metadata per block slot) plus X and Y once each:
+// at small nvec the bytes bind, at nvec = 128 the f32 rate. In
 // practice each nonzero also reads its columns of X through L1/L2, and what
 // a nonzero costs in instructions decides. The Pallas kernels keep X
 // resident (whole-vector) or stage an (xw, nvt) slab per chunk (panels); at
@@ -80,6 +81,18 @@
 // The Y-tile helpers are shared with the descriptor panel SpMM kernels
 // (spc5_spmm_panels.cuh).
 //
+// Values (all three kernels): the value store is a template parameter T,
+// float, __nv_bfloat16 or int8_t. Both layouts put a nonzero's value into
+// their list as f32, so the decode happens once, where the list is built,
+// as the reference's _expand_vals does it (spc5_stage.cuh: dequant): upcast,
+// an int8 value then times its chunk's f32 scale; the walk, its products
+// with X and its f32 sums never see the width, and the f32 kernels keep
+// their registers and instructions. A narrow window starts on any multiple of 8 bytes, and
+// bulk copies need 16-byte aligned ends: it is staged as the 16-byte aligned
+// span that covers it, kept inside values (value_span, copy_span), and
+// thread 0, which issues the copies, writes each chunk's offset in its span
+// and its scale beside the stage's x window starts (8 bytes a chunk).
+//
 // Each launcher runs on the caller's stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() (0 on success).
 
@@ -103,7 +116,7 @@ struct PanelArgs {
   const uint32_t* mask;   // (npanels, nchunks, cb) r*c-bit masks, 0: padding
   const int* voff;        // (npanels, nchunks, cb) first values in the window
   const int* row;         // (npanels, nchunks, cb) panel-relative first rows
-  const float* values;
+  const void* values;     // vsize bytes a value: float, __nv_bfloat16 or int8_t
   const float* x;  // (xrows, nvec), read in place
   float* y;        // (nrows, nvec)
   int nchunks, cb, r, c, vmax, pr, nrows, xrows, nvec;
@@ -114,11 +127,17 @@ struct PanelArgs {
   int prows;
   int split;   // S: CTAs per (panel, part, tile), each a contiguous range of the panel's chunks
   int q;       // chunks a stage holds
+  // last, so the other fields keep the offsets the f32 kernels had:
+  const float* scale;  // (npanels, nchunks) int8 scales; unread otherwise
+  int vsize;    // the values' bytes: 4, 2 or 1
+  int nvalues;  // values' length: no staged span reaches past it
 };
 
 // Byte offsets of the Y tile's end (the first stage starts there) and of one
-// stage's parts, each 16-byte aligned: q value windows of vmax floats
-// (vstride bytes apart), the q chunks' x window starts, the four metadata
+// stage's parts, each 16-byte aligned: q value windows of vmax values
+// (vstride = value_window bytes apart: a narrow one as its aligned span),
+// the q chunks' x window starts, for narrow values each chunk's window
+// offset and scale (8 bytes), the four metadata
 // rows of their nb = q * cb blocks (col, mask, voff, row; meta_stride bytes
 // apart) and a 16-byte slot holding the stage's mbarrier and, at byte 8,
 // two counters (the stage's blocks and nonzeros in the CTA's row part);
@@ -129,16 +148,17 @@ struct PanelArgs {
 // launch whose figure differs is refused, and spc5_spmm_panels_smem exposes
 // this one for the wrapper's tests.
 struct PanelLayout {
-  int tile, vstride, xbase, meta, meta_stride, bar, stage, keys, order;
+  int tile, vstride, xbase, wmeta, meta, meta_stride, bar, stage, keys, order;
 };
 
-__host__ __device__ inline PanelLayout panel_layout(const PanelArgs& a) {
+__host__ __device__ inline PanelLayout panel_layout(const PanelArgs& a, int vsize) {
   const int nb = a.q * a.cb;
   PanelLayout L;
   L.tile = round16(4 * a.prows * a.tw);
-  L.vstride = round16(4 * a.vmax);
+  L.vstride = value_window(vsize, a.vmax);
   L.xbase = a.q * L.vstride;
-  L.meta = L.xbase + round16(4 * a.q);
+  L.wmeta = L.xbase + round16(4 * a.q);
+  L.meta = L.wmeta + (vsize < 4 ? round16(8 * a.q) : 0);
   L.meta_stride = round16(4 * nb);
   L.bar = L.meta + 4 * L.meta_stride;
   L.stage = L.bar + 16;
@@ -148,17 +168,20 @@ __host__ __device__ inline PanelLayout panel_layout(const PanelArgs& a) {
 }
 
 inline size_t panel_smem(const PanelArgs& a, int stages) {
-  const PanelLayout L = panel_layout(a);
+  const PanelLayout L = panel_layout(a, a.vsize);
   return (size_t)L.tile + (size_t)stages * L.stage + L.order;
 }
 
 // Start staging the qn chunks from global chunk g on into stage st: thread
 // 0 zeroes the stage's counters, announces and issues the bulk copies of
-// the chunks' value windows and, where `bulk`, of their four metadata rows
-// (contiguous: the chunks are neighbours in one panel), all completing on
-// the stage's mbarrier, so the mbarrier completes one phase per call;
-// every thread issues its share of the other pieces (the metadata rows
-// where not `bulk`, the x window starts) by cp.async.
+// the chunks' value windows (a narrow one as its span, its offset in it and
+// its chunk's scale written beside) and, where `bulk`, of their four
+// metadata rows (contiguous: the chunks are neighbours in one panel), all
+// completing on the stage's mbarrier, so the mbarrier completes one phase
+// per call; every thread issues its share of the other pieces (the
+// metadata rows where not `bulk`, the x window starts; a span's last 8-byte
+// piece is thread 0's) by cp.async.
+template <typename T>
 __device__ __forceinline__ void fill_stage(unsigned char* st, const PanelLayout& L,
                                            const PanelArgs& a, size_t g, int qn, bool bulk) {
   const int nbytes = 4 * qn * a.cb;  // one metadata row of the qn chunks
@@ -170,9 +193,28 @@ __device__ __forceinline__ void fill_stage(unsigned char* st, const PanelLayout&
   if (threadIdx.x == 0) {
     uint64_t* bar = reinterpret_cast<uint64_t*>(st + L.bar);
     *reinterpret_cast<int2*>(st + L.bar + 8) = make_int2(0, 0);  // the counters
-    mbar_expect_tx(bar, 4 * a.vmax * qn + (bulk ? 4 * nbytes : 0));
-    for (int i = 0; i < qn; ++i) {
-      bulk_copy(st + L.vstride * i, a.values + __ldg(a.vbase + g + i), 4 * a.vmax, bar);
+    const T* values = static_cast<const T*>(a.values);
+    if constexpr (sizeof(T) == 4) {
+      mbar_expect_tx(bar, 4 * a.vmax * qn + (bulk ? 4 * nbytes : 0));
+      for (int i = 0; i < qn; ++i) {
+        bulk_copy(st + L.vstride * i, values + __ldg(a.vbase + g + i), 4 * a.vmax, bar);
+      }
+    } else {
+      int2* wmeta = reinterpret_cast<int2*>(st + L.wmeta);
+      uint32_t wbytes = 0;
+      for (int i = 0; i < qn; ++i) {
+        int bytes, off;
+        value_span(values, __ldg(a.vbase + g + i), a.vmax, a.nvalues, bytes, off);
+        wmeta[i] = make_int2(off, __float_as_int(value_scale<T>(a.scale, g + i)));
+        wbytes += span_bulk_bytes(bytes);
+      }
+      mbar_expect_tx(bar, wbytes + (bulk ? 4 * nbytes : 0));
+      for (int i = 0; i < qn; ++i) {
+        int bytes, off;
+        const char* span =
+            value_span(values, __ldg(a.vbase + g + i), a.vmax, a.nvalues, bytes, off);
+        copy_span(st + L.vstride * i, span, bytes, bar);
+      }
     }
     if (bulk) {
 #pragma unroll
@@ -201,14 +243,15 @@ __device__ __forceinline__ uint32_t lanes_below(int lim) {
 // block row, row; tile rows): the block's set lanes in the order their
 // values are packed (lane k: the next value of the window, row + k / C,
 // column + k % C), less those whose column lies at or past X's rows (which
-// the reference reads as zero: nothing of X is read for them). Pass 1: each
+// the reference reads as zero: nothing of X is read for them), each value
+// decoded to f32 (dequant with its chunk's scale). Pass 1: each
 // block of the part gets the key (row * nb + b) << 6 | its nonzeros,
 // appended to a compact list by a warp ballot, and the nonzeros are
 // counted; pass 2: each listed block finds where its nonzeros go by summing
 // those of the keys below its own (the blocks before it in the order) and
 // writes them. Returns the nonzeros listed. Barriers: one after each pass;
 // the caller's next barrier frees the lists.
-template <int C>
+template <typename T, int C>
 __device__ __forceinline__ int expand_stage(unsigned char* st, const PanelLayout& L,
                                             const PanelArgs& a, int nb, int row0,
                                             unsigned* keys, int4* nz) {
@@ -219,7 +262,7 @@ __device__ __forceinline__ int expand_stage(unsigned char* st, const PanelLayout
   const int* s_voff = reinterpret_cast<const int*>(meta + 2 * L.meta_stride);
   const int* s_row = reinterpret_cast<const int*>(meta + 3 * L.meta_stride);
   const int* s_xbase = reinterpret_cast<const int*>(st + L.xbase);
-  const float* vwins = reinterpret_cast<const float*>(st);
+  const T* vwins = reinterpret_cast<const T*>(st);
   int* counts = reinterpret_cast<int*>(st + L.bar + 8);
   const int lane = threadIdx.x & 31;
   // the list's room: every plan to_panels builds packs a chunk's nonzeros
@@ -267,13 +310,23 @@ __device__ __forceinline__ int expand_stage(unsigned char* st, const PanelLayout
     const int slot = a.q == 1 ? 0 : b / a.cb;
     const int xc = s_xbase[slot] + s_col[b];
     const int lim = a.xrows - xc;
-    int vi = slot * (L.vstride >> 2) + s_voff[b];
+    const T* vwin = vwins;
+    float sc = 1.f;
+    int vi;
+    if constexpr (sizeof(T) == 4) {
+      vi = slot * (L.vstride >> 2) + s_voff[b];
+    } else {
+      const int2 m = reinterpret_cast<const int2*>(st + L.wmeta)[slot];  // offset, scale
+      vwin = reinterpret_cast<const T*>(st + slot * L.vstride) + m.x;
+      sc = __int_as_float(m.y);
+      vi = s_voff[b];
+    }
     for (uint32_t bits = s_mask[b]; bits != 0u; bits &= bits - 1u, ++vi) {
       const int k = __ffs(bits) - 1;
       const int lc = k & (C - 1);
       if (lc < lim) {
         if (pos < cap) {
-          nz[pos] = make_int4(__float_as_int(vwins[vi]), (xc + lc) * a.nvec, by,
+          nz[pos] = make_int4(__float_as_int(dequant(vwin[vi], sc)), (xc + lc) * a.nvec, by,
                               by + (k >> kColShift));
         }
         ++pos;
@@ -327,22 +380,22 @@ __device__ __forceinline__ void walk_nonzeros(const int4* nz, int i, int e, cons
 // and cut into one range per lane group of 1 << lg lanes, each moved to a
 // block-row boundary (row_range), so that every row of the stage has one
 // writer and the groups take about as many nonzeros each.
-template <int C, int V>
+template <typename T, int C, int V>
 __device__ __forceinline__ void walk_stage(unsigned char* st, const PanelLayout& L,
                                            const PanelArgs& a, int nb, int row0, float* ytile,
                                            unsigned char* scratch, const float* xp, int jv,
                                            int lg) {
   unsigned* keys = reinterpret_cast<unsigned*>(scratch);
   int4* nz = reinterpret_cast<int4*>(scratch + L.keys);
-  const int e = expand_stage<C>(st, L, a, nb, row0, keys, nz);
+  const int e = expand_stage<T, C>(st, L, a, nb, row0, keys, nz);
   const int2 range = row_range(nz, e, (int)(blockDim.x >> lg), (int)(threadIdx.x >> lg));
   walk_nonzeros<V>(nz, range.x, range.y, a, ytile, xp, jv);
 }
 
-template <int C, int V, int kStages>
+template <typename T, int C, int V, int kStages>
 __global__ void __launch_bounds__(512, 2) spmm_panels_kernel(const PanelArgs a) {
   extern __shared__ __align__(16) float psmem[];
-  const PanelLayout L = panel_layout(a);
+  const PanelLayout L = panel_layout(a, (int)sizeof(T));
   float* ytile = psmem;
   unsigned char* ring = reinterpret_cast<unsigned char*>(psmem) + L.tile;
   unsigned char* scratch = ring + kStages * L.stage;
@@ -380,17 +433,17 @@ __global__ void __launch_bounds__(512, 2) spmm_panels_kernel(const PanelArgs a) 
     for (int k = 0; k < rounds; ++k) {
       const int qn = round_chunks(k);
       if (k > 0) __syncthreads();  // the previous walk is done
-      fill_stage(ring, L, a, g0 + (size_t)k * a.q, qn, bulk);
+      fill_stage<T>(ring, L, a, g0 + (size_t)k * a.q, qn, bulk);
       cp_async_commit();
       cp_async_wait<0>();
       mbar_wait(bar, k & 1);
       __syncthreads();  // everyone's copies
-      walk_stage<C, V>(ring, L, a, qn * a.cb, row0, ytile, scratch, xp, jv, lg);
+      walk_stage<T, C, V>(ring, L, a, qn * a.cb, row0, ytile, scratch, xp, jv, lg);
     }
   } else {
     // the ring: round k lives in stage k % 2, round k + 1 is in flight
     // while round k is walked
-    fill_stage(ring, L, a, g0, round_chunks(0), bulk);  // n >= 1: split <= nchunks
+    fill_stage<T>(ring, L, a, g0, round_chunks(0), bulk);  // n >= 1: split <= nchunks
     cp_async_commit();
     uint32_t parity = 0;  // bit s: the parity of stage s's next phase
     for (int k = 0; k < rounds; ++k) {
@@ -401,11 +454,11 @@ __global__ void __launch_bounds__(512, 2) spmm_panels_kernel(const PanelArgs a) 
       parity ^= 1u << dec;
       __syncthreads();  // ... everyone's; round k - 1's stage is free
       if (k + 1 < rounds) {
-        fill_stage(ring + (dec ^ 1) * L.stage, L, a, g0 + (size_t)(k + 1) * a.q,
-                   round_chunks(k + 1), bulk);
+        fill_stage<T>(ring + (dec ^ 1) * L.stage, L, a, g0 + (size_t)(k + 1) * a.q,
+                      round_chunks(k + 1), bulk);
       }
       cp_async_commit();
-      walk_stage<C, V>(st, L, a, round_chunks(k) * a.cb, row0, ytile, scratch, xp, jv, lg);
+      walk_stage<T, C, V>(st, L, a, round_chunks(k) * a.cb, row0, ytile, scratch, xp, jv, lg);
     }
   }
   __syncthreads();
@@ -414,36 +467,47 @@ __global__ void __launch_bounds__(512, 2) spmm_panels_kernel(const PanelArgs a) 
 
 using PanelKernel = void (*)(PanelArgs);
 
-template <int C, int V>
+template <typename T, int C, int V>
 PanelKernel panel_kernel_v(int stages) {
-  return stages == 1 ? spmm_panels_kernel<C, V, 1>
-                     : stages == 2 ? spmm_panels_kernel<C, V, 2> : nullptr;
+  return stages == 1 ? spmm_panels_kernel<T, C, V, 1>
+                     : stages == 2 ? spmm_panels_kernel<T, C, V, 2> : nullptr;
 }
 
-template <int C>
+template <typename T, int C>
 PanelKernel panel_kernel_c(int vec, int stages) {
   switch (vec) {
-    case 1: return panel_kernel_v<C, 1>(stages);
-    case 2: return panel_kernel_v<C, 2>(stages);
-    case 4: return panel_kernel_v<C, 4>(stages);
+    case 1: return panel_kernel_v<T, C, 1>(stages);
+    case 2: return panel_kernel_v<T, C, 2>(stages);
+    case 4: return panel_kernel_v<T, C, 4>(stages);
     default: return nullptr;
   }
 }
 
-// The panel kernel for block width c (4 or 8; the kernel walks a block's
-// set lanes whatever its height), vec columns a lane and a ring of
-// `stages` (1: the synchronous kernel); nullptr for any other.
-PanelKernel panel_kernel(int c, int vec, int stages) {
+template <typename T>
+PanelKernel panel_kernel_t(int c, int vec, int stages) {
   switch (c) {
-    case 4: return panel_kernel_c<4>(vec, stages);
-    case 8: return panel_kernel_c<8>(vec, stages);
+    case 4: return panel_kernel_c<T, 4>(vec, stages);
+    case 8: return panel_kernel_c<T, 8>(vec, stages);
+    default: return nullptr;
+  }
+}
+
+// The panel kernel for vsize-byte values (4 float, 2 bf16, 1 int8), block
+// width c (4 or 8; the kernel walks a block's set lanes whatever its
+// height), vec columns a lane and a ring of `stages` (1: the synchronous
+// kernel); nullptr for any other.
+PanelKernel panel_kernel(int vsize, int c, int vec, int stages) {
+  switch (vsize) {
+    case 4: return panel_kernel_t<float>(c, vec, stages);
+    case 2: return panel_kernel_t<__nv_bfloat16>(c, vec, stages);
+    case 1: return panel_kernel_t<int8_t>(c, vec, stages);
     default: return nullptr;
   }
 }
 
 int launch_panels(int stages, const PanelArgs& a, int npanels, int smem_planned, int threads,
                   int device, void* stream) {
-  const PanelKernel kernel = panel_kernel(a.c, a.vec, stages);
+  const PanelKernel kernel = panel_kernel(a.vsize, a.c, a.vec, stages);
   const size_t smem = panel_smem(a, stages);
   const int lanes = a.vec > 0 ? a.tw / a.vec : 0;
   const long long grid = (long long)npanels * a.split * a.parts * a.ntiles;
@@ -456,7 +520,8 @@ int launch_panels(int stages, const PanelArgs& a, int npanels, int smem_planned,
       lanes * a.vec != a.tw || (lanes & (lanes - 1)) != 0 || a.nvec % a.vec != 0 ||
       a.ntiles != (a.nvec + a.tw - 1) / a.tw || threads < 32 || threads > 512 ||
       (threads & (threads - 1)) != 0 || grid < 1 || grid > 0x7fffffffLL ||
-      (a.prows + 1) * nb > (1LL << 26) || smem != (size_t)smem_planned) {
+      (a.prows + 1) * nb > (1LL << 26) || (a.vsize == 1 && a.scale == nullptr) ||
+      smem != (size_t)smem_planned) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = prepare_launch(kernel, device, smem, threads, nullptr);
@@ -468,14 +533,27 @@ int launch_panels(int stages, const PanelArgs& a, int npanels, int smem_planned,
 }
 
 int panels_entry(int stages, const int* vbase, const int* xbase, const int* col,
-                 const uint32_t* mask, const int* voff, const int* row, const float* values,
-                 const float* x, float* y, int npanels, int nchunks, int cb, int vmax, int pr,
-                 int nrows, int xrows, int r, int c, int nvec, int tw, int vec, int parts,
-                 int prows, int split, int q, int smem, int threads, int device, void* stream) {
+                 const uint32_t* mask, const int* voff, const int* row, const void* values,
+                 const float* scale, const float* x, float* y, int npanels, int nchunks, int cb,
+                 int vmax, int pr, int nrows, int xrows, int r, int c, int vsize, int nvalues,
+                 int nvec, int tw, int vec, int parts, int prows, int split, int q, int smem,
+                 int threads, int device, void* stream) {
   const PanelArgs a{vbase, xbase, col,   mask,  voff,  row,   values, x,     y,
                     nchunks, cb, r, c, vmax, pr, nrows, xrows, nvec, tw, vec,
-                    tw > 0 ? (nvec + tw - 1) / tw : 0, parts, prows, split, q};
+                    tw > 0 ? (nvec + tw - 1) / tw : 0, parts, prows, split, q, scale, vsize,
+                    nvalues};
   return launch_panels(stages, a, npanels, smem, threads, device, stream);
+}
+
+template <typename Kernel>
+int occupancy(Kernel kernel, int threads, int smem, int device, int* out) {
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare_launch(kernel, device, (size_t)smem, threads, nullptr);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, (size_t)smem);
+  }
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(out + 1, cudaDevAttrMultiProcessorCount, device);
+  return (int)err;
 }
 
 // ---------------------------------------------------------------------------
@@ -483,25 +561,54 @@ int panels_entry(int stages, const int* vbase, const int* xbase, const int* col,
 // chunk ranges, a ring of staged rounds, a per-round nonzero list
 // ---------------------------------------------------------------------------
 
-// The mask kernel's part: a stage holds q value windows (vstride bytes
-// apart), the four metadata rows of its nb blocks (col, mask, voff, row;
+// The mask kernel's part, for values of type T: a stage holds q value
+// windows (vstride bytes apart: value_window, a narrow one as its aligned
+// span), for narrow values each chunk's window offset and scale (8 bytes),
+// the four metadata rows of its nb blocks (col, mask, voff, row;
 // meta_stride bytes apart) and a 16-byte mbarrier slot; a block's lanes are
 // its set bits, less those whose column lies at or past X's rows, each
-// listed with the next value of the window (the values are packed in lane
-// order: no rank).
-struct MaskWhole {
-  struct Args {
-    WholeGeom g;
-    const int* vbase;       // (nchunks,) value window starts
-    const int* col;         // (nchunks, cb) block columns
-    const uint32_t* mask;   // (nchunks, cb) r*c-bit masks, 0: padding
-    const int* voff;        // (nchunks, cb) first values in the window
-    const int* row;         // (nchunks, cb) first rows
-    const float* values;
-  };
+// listed with the next value of the window decoded to f32 (the values are
+// packed in lane order: no rank).
+template <typename T>
+struct MaskWholeArgs {
+  WholeGeom g;
+  const int* vbase;       // (nchunks,) value window starts
+  const int* col;         // (nchunks, cb) block columns
+  const uint32_t* mask;   // (nchunks, cb) r*c-bit masks, 0: padding
+  const int* voff;        // (nchunks, cb) first values in the window
+  const int* row;         // (nchunks, cb) first rows
+  const T* values;
+  const float* scale;     // (nchunks,) int8 scales; unread otherwise
+  int nvalues;            // values' length: no staged span reaches past it
+};
 
-  __host__ __device__ static int vstride(const Args& a) { return wr16(4 * a.g.vmax); }
-  __host__ __device__ static int meta(const Args& a) { return a.g.q * vstride(a); }
+// f32 values take no scale and no span: their arguments are the ones the
+// kernel had before the narrow stores (a larger parameter block changed the
+// f32 kernels' registers and spills).
+template <>
+struct MaskWholeArgs<float> {
+  WholeGeom g;
+  const int* vbase;
+  const int* col;
+  const uint32_t* mask;
+  const int* voff;
+  const int* row;
+  const float* values;
+};
+
+template <typename T>
+struct MaskWhole {
+  using Args = MaskWholeArgs<T>;
+
+  static constexpr bool kNarrow = sizeof(T) < 4;
+
+  __host__ __device__ static int vstride(const Args& a) {
+    return value_window((int)sizeof(T), a.g.vmax);
+  }
+  __host__ __device__ static int wmeta(const Args& a) { return a.g.q * vstride(a); }
+  __host__ __device__ static int meta(const Args& a) {
+    return wmeta(a) + (kNarrow ? wr16(8 * a.g.q) : 0);
+  }
   __host__ __device__ static int meta_stride(const Args& a) { return wr16(4 * a.g.nb); }
   __host__ __device__ static int bar_offset(const Args& a) {
     return meta(a) + 4 * meta_stride(a);
@@ -510,10 +617,12 @@ struct MaskWhole {
 
   // Stage blocks [b0, b0 + nb) of global chunks g .. g + qn - 1 (contiguous:
   // one row each of the four metadata arrays) and, where `window`, the qn
-  // value windows: thread 0 announces and issues the bulk copies (the
-  // windows; the metadata rows where 16-byte aligned), all completing on
-  // the stage's mbarrier, one phase per call; every thread issues its share
-  // of the rest by cp.async.
+  // value windows (a narrow one as its span, its offset in it and its
+  // chunk's scale written beside): thread 0 announces and issues the bulk
+  // copies (the windows; the metadata rows where 16-byte aligned), all
+  // completing on the stage's mbarrier, one phase per call; every thread
+  // issues its share of the rest by cp.async (a span's last 8-byte piece is
+  // thread 0's).
   __device__ static void fill(unsigned char* st, const Args& a, size_t g, int b0, int nb, int qn,
                               bool window) {
     const size_t slot0 = g * a.g.cb + b0;
@@ -528,9 +637,27 @@ struct MaskWhole {
     unsigned char* m = st + meta(a);
     if (threadIdx.x == 0) {
       uint64_t* bar = reinterpret_cast<uint64_t*>(st + bar_offset(a));
-      mbar_expect_tx(bar, (window ? 4 * a.g.vmax * qn : 0) + (bulk ? 4 * nbytes : 0));
-      for (int i = 0; window && i < qn; ++i) {
-        bulk_copy(st + vstride(a) * i, a.values + __ldg(a.vbase + g + i), 4 * a.g.vmax, bar);
+      if constexpr (!kNarrow) {
+        mbar_expect_tx(bar, (window ? 4 * a.g.vmax * qn : 0) + (bulk ? 4 * nbytes : 0));
+        for (int i = 0; window && i < qn; ++i) {
+          bulk_copy(st + vstride(a) * i, a.values + __ldg(a.vbase + g + i), 4 * a.g.vmax, bar);
+        }
+      } else {
+        int2* wm = reinterpret_cast<int2*>(st + wmeta(a));
+        uint32_t wbytes = 0;
+        for (int i = 0; window && i < qn; ++i) {
+          int bytes, off;
+          value_span(a.values, __ldg(a.vbase + g + i), a.g.vmax, a.nvalues, bytes, off);
+          wm[i] = make_int2(off, __float_as_int(value_scale<T>(a.scale, g + i)));
+          wbytes += span_bulk_bytes(bytes);
+        }
+        mbar_expect_tx(bar, wbytes + (bulk ? 4 * nbytes : 0));
+        for (int i = 0; window && i < qn; ++i) {
+          int bytes, off;
+          const char* span =
+              value_span(a.values, __ldg(a.vbase + g + i), a.g.vmax, a.nvalues, bytes, off);
+          copy_span(st + vstride(a) * i, span, bytes, bar);
+        }
       }
       if (bulk) {
 #pragma unroll
@@ -559,13 +686,19 @@ struct MaskWhole {
   }
 
   // The block's kept lanes row by row, lane order within a row, row lr's
-  // from list[pos[lr]] on.
+  // from list[pos[lr]] on, each value decoded to f32.
   template <int R, int C>
   __device__ static void emit(const unsigned char* st, const Args& a, int b, uint32_t kept,
                               const int (&pos)[R], int4* list, int room) {
     constexpr uint32_t kRow = (1u << C) - 1u;
     const int slot = a.g.q == 1 ? 0 : b / a.g.cb;  // the block's chunk in the stage
-    const float* vwin = reinterpret_cast<const float*>(st + slot * vstride(a));
+    const T* vwin = reinterpret_cast<const T*>(st + slot * vstride(a));
+    float sc = 1.f;
+    if constexpr (kNarrow) {
+      const int2 w = reinterpret_cast<const int2*>(st + wmeta(a))[slot];  // offset, scale
+      vwin += w.x;
+      sc = __int_as_float(w.y);
+    }
     const uint32_t full = (uint32_t)meta_row(st, a, 1)[b];
     const int xc = meta_row(st, a, 0)[b], y = meta_row(st, a, 3)[b];
     int vi = meta_row(st, a, 2)[b];
@@ -579,7 +712,8 @@ struct MaskWhole {
         fb &= fb - 1u;
         if ((kb >> lc) & 1u) {
           if (p < room) {
-            list[p] = make_int4(__float_as_int(vwin[vi]), (xc + lc) * a.g.nvec, y + lr, 0);
+            list[p] = make_int4(__float_as_int(dequant(vwin[vi], sc)), (xc + lc) * a.g.nvec,
+                                y + lr, 0);
           }
           ++p;
         }
@@ -589,40 +723,89 @@ struct MaskWhole {
   }
 };
 
-using MaskWholeKernel = void (*)(MaskWhole::Args);
+template <typename T>
+using MaskWholeKernel = void (*)(typename MaskWhole<T>::Args);
 
-template <int R, int C>
-MaskWholeKernel mask_whole_rc(int vec) {
+template <typename T, int R, int C>
+MaskWholeKernel<T> mask_whole_rc(int vec) {
   switch (vec) {
-    case 1: return spmm_whole_kernel<MaskWhole, R, C, 1>;
-    case 2: return spmm_whole_kernel<MaskWhole, R, C, 2>;
-    case 4: return spmm_whole_kernel<MaskWhole, R, C, 4>;
+    case 1: return spmm_whole_kernel<MaskWhole<T>, R, C, 1>;
+    case 2: return spmm_whole_kernel<MaskWhole<T>, R, C, 2>;
+    case 4: return spmm_whole_kernel<MaskWhole<T>, R, C, 4>;
     default: return nullptr;
   }
 }
 
-// The whole-vector kernel for block shape (r, c) (every shape of
-// formats.SUPPORTED_BLOCKS) and vec columns a lane; nullptr for any other.
-MaskWholeKernel mask_whole_kernel(int r, int c, int vec) {
+// The whole-vector kernel for values of type T, block shape (r, c) (every
+// shape of formats.SUPPORTED_BLOCKS) and vec columns a lane; nullptr for
+// any other.
+template <typename T>
+MaskWholeKernel<T> mask_whole_kernel(int r, int c, int vec) {
   switch (r * 16 + c) {
-    case 1 * 16 + 4: return mask_whole_rc<1, 4>(vec);
-    case 1 * 16 + 8: return mask_whole_rc<1, 8>(vec);
-    case 2 * 16 + 4: return mask_whole_rc<2, 4>(vec);
-    case 2 * 16 + 8: return mask_whole_rc<2, 8>(vec);
-    case 4 * 16 + 4: return mask_whole_rc<4, 4>(vec);
-    case 4 * 16 + 8: return mask_whole_rc<4, 8>(vec);
-    case 8 * 16 + 4: return mask_whole_rc<8, 4>(vec);
+    case 1 * 16 + 4: return mask_whole_rc<T, 1, 4>(vec);
+    case 1 * 16 + 8: return mask_whole_rc<T, 1, 8>(vec);
+    case 2 * 16 + 4: return mask_whole_rc<T, 2, 4>(vec);
+    case 2 * 16 + 8: return mask_whole_rc<T, 2, 8>(vec);
+    case 4 * 16 + 4: return mask_whole_rc<T, 4, 4>(vec);
+    case 4 * 16 + 8: return mask_whole_rc<T, 4, 8>(vec);
+    case 8 * 16 + 4: return mask_whole_rc<T, 8, 4>(vec);
     default: return nullptr;
   }
 }
 
-MaskWhole::Args mask_whole_geom(int nchunks, int cb, int vmax, int nrows, int xrows, int r,
-                                int c, int nvec, int tw, int vec, int grid, int stages, int q,
-                                int nb, int tile_rows) {
-  MaskWhole::Args a{};
-  a.g = WholeGeom{nullptr, nullptr, nchunks, cb, r, c, vmax, nrows, xrows, nvec, tw, vec,
-                  tw > 0 ? (nvec + tw - 1) / tw : 0, grid, stages, q, nb, tile_rows};
-  return a;
+WholeGeom mask_whole_geom(int nchunks, int cb, int vmax, int nrows, int xrows, int r, int c,
+                          int nvec, int tw, int vec, int grid, int stages, int q, int nb,
+                          int tile_rows) {
+  return WholeGeom{nullptr, nullptr, nchunks, cb, r, c, vmax, nrows, xrows, nvec, tw, vec,
+                   tw > 0 ? (nvec + tw - 1) / tw : 0, grid, stages, q, nb, tile_rows};
+}
+
+// The CTA's dynamic shared memory of the kernel for T values at geometry g.
+template <typename T>
+int mask_whole_bytes(const WholeGeom& g, int threads) {
+  typename MaskWhole<T>::Args a{};
+  a.g = g;
+  return whole_layout(g, MaskWhole<T>::stage_bytes(a), threads).bytes;
+}
+
+int mask_whole_smem(int vsize, const WholeGeom& g, int threads) {
+  switch (vsize) {
+    case 4: return mask_whole_bytes<float>(g, threads);
+    case 2: return mask_whole_bytes<__nv_bfloat16>(g, threads);
+    case 1: return mask_whole_bytes<int8_t>(g, threads);
+    default: return -1;
+  }
+}
+
+template <typename T>
+int launch_mask_whole(const WholeGeom& g, const int* vbase, const int* col, const uint32_t* mask,
+                      const int* voff, const int* row, const void* values, const float* scale,
+                      int nvalues, int smem, int threads, int device, void* stream) {
+  typename MaskWhole<T>::Args a{};
+  a.g = g;
+  a.vbase = vbase;
+  a.col = col;
+  a.mask = mask;
+  a.voff = voff;
+  a.row = row;
+  a.values = static_cast<const T*>(values);
+  if constexpr (sizeof(T) < 4) {
+    a.scale = scale;
+    a.nvalues = nvalues;
+  }
+  const MaskWholeKernel<T> kernel = mask_whole_kernel<T>(g.r, g.c, g.vec);
+  const size_t bytes = whole_layout(g, MaskWhole<T>::stage_bytes(a), threads).bytes;
+  if (kernel == nullptr || !whole_geom_ok(g, threads) || bytes != (size_t)smem ||
+      (sizeof(T) == 1 && scale == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err = prepare_launch(kernel, device, bytes, threads, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&a};
+  err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel),
+                         dim3((unsigned)(g.grid * g.ntiles)), dim3(threads), args, bytes,
+                         (cudaStream_t)stream);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace
@@ -631,62 +814,59 @@ extern "C" {
 
 // The whole-vector kernel (spc5_spmm_whole.cuh): Y = A @ X over all
 // nchunks chunks of cb blocks, X (xrows, nvec) read in place, Y (nrows,
-// nvec) zeroed by the caller. G = grid CTAs a column tile of tw columns, vec
-// columns a lane, rounds of q chunks (nb = q * cb blocks) in a ring of
-// `stages` (2, or 1 with nb < cb a slice of a chunk), a Y tile of tile_rows
-// rows, `threads` a power of two in [32, 512]. smem is the wrapper's figure
-// for the CTA's dynamic shared memory (checked).
+// nvec) zeroed by the caller, values of vsize bytes (4 f32, 2 bf16, 1 int8
+// with its (nchunks,) scales; scale is unread otherwise), nvalues of them.
+// G = grid CTAs a column tile of tw columns, vec columns a lane, rounds of q
+// chunks (nb = q * cb blocks) in a ring of `stages` (2, or 1 with nb < cb a
+// slice of a chunk), a Y tile of tile_rows rows, `threads` a power of two in
+// [32, 512]. smem is the wrapper's figure for the CTA's dynamic shared
+// memory (checked).
 int spc5_spmm_whole(const int* vbase, const int* col, const uint32_t* mask, const int* voff,
-                    const int* row, const float* values, const float* x, float* y, int nchunks,
-                    int cb, int vmax, int nrows, int xrows, int r, int c, int nvec, int tw,
-                    int vec, int grid, int stages, int q, int nb, int tile_rows, int smem,
-                    int threads, int device, void* stream) {
-  MaskWhole::Args a = mask_whole_geom(nchunks, cb, vmax, nrows, xrows, r, c, nvec, tw, vec, grid,
-                                      stages, q, nb, tile_rows);
-  a.g.x = x;
-  a.g.y = y;
-  a.vbase = vbase;
-  a.col = col;
-  a.mask = mask;
-  a.voff = voff;
-  a.row = row;
-  a.values = values;
-  const MaskWholeKernel kernel = mask_whole_kernel(r, c, vec);
-  const size_t bytes = whole_layout(a.g, MaskWhole::stage_bytes(a), threads).bytes;
-  if (kernel == nullptr || !whole_geom_ok(a.g, threads) || bytes != (size_t)smem) {
-    return (int)cudaErrorInvalidValue;
+                    const int* row, const void* values, const float* scale, const float* x,
+                    float* y, int nchunks, int cb, int vmax, int nrows, int xrows, int r, int c,
+                    int vsize, int nvalues, int nvec, int tw, int vec, int grid, int stages,
+                    int q, int nb, int tile_rows, int smem, int threads, int device,
+                    void* stream) {
+  WholeGeom g = mask_whole_geom(nchunks, cb, vmax, nrows, xrows, r, c, nvec, tw, vec, grid,
+                                stages, q, nb, tile_rows);
+  g.x = x;
+  g.y = y;
+  switch (vsize) {
+    case 4:
+      return launch_mask_whole<float>(g, vbase, col, mask, voff, row, values, scale, nvalues,
+                                      smem, threads, device, stream);
+    case 2:
+      return launch_mask_whole<__nv_bfloat16>(g, vbase, col, mask, voff, row, values, scale,
+                                              nvalues, smem, threads, device, stream);
+    case 1:
+      return launch_mask_whole<int8_t>(g, vbase, col, mask, voff, row, values, scale, nvalues,
+                                       smem, threads, device, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = prepare_launch(kernel, device, bytes, threads, nullptr);
-  if (err != cudaSuccess) return (int)err;
-  void* args[] = {&a};
-  err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel),
-                         dim3((unsigned)(grid * a.g.ntiles)), dim3(threads), args, bytes,
-                         (cudaStream_t)stream);
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// The whole-vector kernel's occupancy for block shape (r, c), vec columns a
-// lane, `threads` and `smem` bytes of dynamic shared memory per CTA: out[0]
-// the CTAs one SM holds at once, out[1] the SMs of the device.
-int spc5_spmm_whole_occupancy(int r, int c, int vec, int threads, int smem, int device,
+// The whole-vector kernel's occupancy for vsize-byte values, block shape
+// (r, c), vec columns a lane, `threads` and `smem` bytes of dynamic shared
+// memory per CTA: out[0] the CTAs one SM holds at once, out[1] the SMs of
+// the device.
+int spc5_spmm_whole_occupancy(int vsize, int r, int c, int vec, int threads, int smem, int device,
                               int* out) {
-  const MaskWholeKernel kernel = mask_whole_kernel(r, c, vec);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare_launch(kernel, device, (size_t)smem, threads, nullptr);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, (size_t)smem);
+  switch (vsize) {
+    case 4: return occupancy(mask_whole_kernel<float>(r, c, vec), threads, smem, device, out);
+    case 2:
+      return occupancy(mask_whole_kernel<__nv_bfloat16>(r, c, vec), threads, smem, device, out);
+    case 1: return occupancy(mask_whole_kernel<int8_t>(r, c, vec), threads, smem, device, out);
+    default: return (int)cudaErrorInvalidValue;
   }
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(out + 1, cudaDevAttrMultiProcessorCount, device);
-  return (int)err;
 }
 
-// The dynamic shared memory of one whole-vector CTA, as the launch computes
-// it (whole_layout with this kernel's stage).
+// The dynamic shared memory of one whole-vector CTA for vsize-byte values,
+// as the launch computes it (whole_layout with this kernel's stage).
 int spc5_spmm_whole_smem(int stages, int q, int nb, int r, int c, int vmax, int tw, int vec,
-                         int tile_rows, int threads) {
-  const MaskWhole::Args a =
-      mask_whole_geom(1, nb, vmax, 1, 0, r, c, 1, tw, vec, 1, stages, q, nb, tile_rows);
-  return whole_layout(a.g, MaskWhole::stage_bytes(a), threads).bytes;
+                         int tile_rows, int threads, int vsize) {
+  return mask_whole_smem(
+      vsize, mask_whole_geom(1, nb, vmax, 1, 0, r, c, 1, tw, vec, 1, stages, q, nb, tile_rows),
+      threads);
 }
 
 // The synchronous panel kernel: S = split CTAs per (panel, row part, column
@@ -694,56 +874,54 @@ int spc5_spmm_whole_smem(int stages, int q, int nb, int r, int c, int vmax, int 
 // copied and waited for before the walk; `parts` row parts of prows rows,
 // tw columns a tile, vec columns a lane (4 or 2 need nvec a multiple of it
 // and X so aligned), `threads` a power of two in [32, 512]; X is (xrows,
-// nvec), read in place. smem is the wrapper's figure for the CTA's dynamic
-// shared memory (checked).
+// nvec), read in place; values of vsize bytes (4 f32, 2 bf16, 1 int8 with
+// its (npanels, nchunks) scales; scale is unread otherwise), nvalues of
+// them. smem is the wrapper's figure for the CTA's dynamic shared memory
+// (checked).
 int spc5_spmm_panels_s1(const int* vbase, const int* xbase, const int* col, const uint32_t* mask,
-                        const int* voff, const int* row, const float* values, const float* x,
-                        float* y, int npanels, int nchunks, int cb, int vmax, int pr, int nrows,
-                        int xrows, int r, int c, int nvec, int tw, int vec, int parts, int prows,
-                        int split, int q, int smem, int threads, int device, void* stream) {
-  return panels_entry(1, vbase, xbase, col, mask, voff, row, values, x, y, npanels, nchunks, cb,
-                      vmax, pr, nrows, xrows, r, c, nvec, tw, vec, parts, prows, split, q, smem,
-                      threads, device, stream);
+                        const int* voff, const int* row, const void* values, const float* scale,
+                        const float* x, float* y, int npanels, int nchunks, int cb, int vmax,
+                        int pr, int nrows, int xrows, int r, int c, int vsize, int nvalues,
+                        int nvec, int tw, int vec, int parts, int prows, int split, int q,
+                        int smem, int threads, int device, void* stream) {
+  return panels_entry(1, vbase, xbase, col, mask, voff, row, values, scale, x, y, npanels,
+                      nchunks, cb, vmax, pr, nrows, xrows, r, c, vsize, nvalues, nvec, tw, vec,
+                      parts, prows, split, q, smem, threads, device, stream);
 }
 
 // The staged-ahead panel kernel: a ring of two stages of q chunks, one
 // round ahead of the walk.
 int spc5_spmm_panels_s2(const int* vbase, const int* xbase, const int* col, const uint32_t* mask,
-                        const int* voff, const int* row, const float* values, const float* x,
-                        float* y, int npanels, int nchunks, int cb, int vmax, int pr, int nrows,
-                        int xrows, int r, int c, int nvec, int tw, int vec, int parts, int prows,
-                        int split, int q, int smem, int threads, int device, void* stream) {
-  return panels_entry(2, vbase, xbase, col, mask, voff, row, values, x, y, npanels, nchunks, cb,
-                      vmax, pr, nrows, xrows, r, c, nvec, tw, vec, parts, prows, split, q, smem,
-                      threads, device, stream);
+                        const int* voff, const int* row, const void* values, const float* scale,
+                        const float* x, float* y, int npanels, int nchunks, int cb, int vmax,
+                        int pr, int nrows, int xrows, int r, int c, int vsize, int nvalues,
+                        int nvec, int tw, int vec, int parts, int prows, int split, int q,
+                        int smem, int threads, int device, void* stream) {
+  return panels_entry(2, vbase, xbase, col, mask, voff, row, values, scale, x, y, npanels,
+                      nchunks, cb, vmax, pr, nrows, xrows, r, c, vsize, nvalues, nvec, tw, vec,
+                      parts, prows, split, q, smem, threads, device, stream);
 }
 
 // The panel kernel's occupancy at `stages` (1: the synchronous kernel, 2:
-// the ring), block width c, vec columns a lane, `threads` and `smem` bytes
-// of dynamic shared memory per CTA: out[0] the CTAs one SM holds at once,
-// out[1] the SMs of the device.
-int spc5_spmm_panels_occupancy(int stages, int c, int vec, int threads, int smem, int device,
-                               int* out) {
-  const PanelKernel kernel = panel_kernel(c, vec, stages);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare_launch(kernel, device, (size_t)smem, threads, nullptr);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, (size_t)smem);
-  }
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(out + 1, cudaDevAttrMultiProcessorCount, device);
-  return (int)err;
+// the ring), vsize-byte values, block width c, vec columns a lane,
+// `threads` and `smem` bytes of dynamic shared memory per CTA: out[0] the
+// CTAs one SM holds at once, out[1] the SMs of the device.
+int spc5_spmm_panels_occupancy(int stages, int vsize, int c, int vec, int threads, int smem,
+                               int device, int* out) {
+  return occupancy(panel_kernel(vsize, c, vec, stages), threads, smem, device, out);
 }
 
 // The dynamic shared memory of one panel CTA with `stages` stages of q
-// chunks of cb blocks and a (prows, tw) Y tile, as the launch computes it
-// (panel_layout).
-int spc5_spmm_panels_smem(int stages, int q, int cb, int vmax, int prows, int tw) {
+// chunks of cb blocks, a (prows, tw) Y tile and vsize-byte values, as the
+// launch computes it (panel_layout).
+int spc5_spmm_panels_smem(int stages, int q, int cb, int vmax, int prows, int tw, int vsize) {
   PanelArgs a{};
   a.q = q;
   a.cb = cb;
   a.vmax = vmax;
   a.prows = prows;
   a.tw = tw;
+  a.vsize = vsize;
   return (int)panel_smem(a, stages);
 }
 

@@ -139,6 +139,8 @@ struct PanelArgs {
   int split;   // S: CTAs per (panel, part, tile), each a contiguous range of the panel's chunks
   int q;       // chunks a stage holds (1 where a stage holds a slice of one)
   int nb;      // blocks whose tables one stage holds (q * cb, or a slice of a chunk)
+  int nvalues;  // values' length: no staged span reaches past it (last, so
+                // the other fields keep the offsets the f32 kernels had)
 };
 
 // Byte offsets of the Y tile's end (the first stage starts there) and of one
@@ -182,7 +184,8 @@ inline size_t panel_smem(const PanelArgs& a, int stages) {
 // Start staging nb blocks from block b0 of global chunk g on into stage st:
 // the qn chunks they span (one, or q whole ones) and, where `windows`,
 // those chunks' value windows (a narrow one as the aligned span that covers
-// it, its offset in the span and its chunk's scale written beside). Thread 0
+// it, kept inside values (copy_span), its offset in the span and its
+// chunk's scale written beside). Thread 0
 // announces and issues the bulk copies (the windows; the valid and vidx
 // runs where `bulk`), all completing on the stage's mbarrier, so the
 // mbarrier completes one phase per call; every thread issues its share of
@@ -210,17 +213,18 @@ __device__ __forceinline__ void fill_stage(unsigned char* st, const PanelLayout&
       uint32_t wbytes = 0;
       for (int i = 0; windows && i < qn; ++i) {
         int bytes, off;
-        value_span(values, __ldg(a.vbase + g + i), a.vmax, bytes, off);
+        value_span(values, __ldg(a.vbase + g + i), a.vmax, a.nvalues, bytes, off);
         float sc = 1.f;
         if constexpr (sizeof(T) == 1) sc = __ldg(a.scale + g + i);
         meta[i] = make_int2(off, __float_as_int(sc));
-        wbytes += bytes;
+        wbytes += span_bulk_bytes(bytes);
       }
       mbar_expect_tx(bar, wbytes + (bulk ? nvalid + nvidx : 0));
       for (int i = 0; windows && i < qn; ++i) {
         int bytes, off;
-        const char* span = value_span(values, __ldg(a.vbase + g + i), a.vmax, bytes, off);
-        bulk_copy(st + L.vwin + stride * i, span, bytes, bar);
+        const char* span =
+            value_span(values, __ldg(a.vbase + g + i), a.vmax, a.nvalues, bytes, off);
+        copy_span(st + L.vwin + stride * i, span, bytes, bar);
       }
     }
     if (bulk) {
@@ -597,14 +601,14 @@ int launch_panels(int stages, const PanelArgs& a, int npanels, int smem_planned,
 PanelArgs panel_args(const int* vbase, const int* xbase, const signed char* valid,
                      const void* vidx, const void* xcol, const void* yrow, const void* values,
                      const float* scale, const float* x, float* y, int nchunks, int cb, int r,
-                     int c, int vmax, int pr, int nrows, int xrows, int vsize, int wv, int wx,
-                     int wy, int nvec, int tw, int vec, int parts, int prows, int split, int q,
-                     int nb) {
+                     int c, int vmax, int pr, int nrows, int xrows, int vsize, int nvalues,
+                     int wv, int wx, int wy, int nvec, int tw, int vec, int parts, int prows,
+                     int split, int q, int nb) {
   return PanelArgs{vbase,  xbase, valid, static_cast<const char*>(vidx),
                    static_cast<const char*>(xcol), static_cast<const char*>(yrow),
                    values, scale, x,     y,     nchunks, cb, r, c, vmax, pr, nrows, xrows, vsize,
                    wv,     wx,    wy,    nvec,  tw,    vec,   tw > 0 ? (nvec + tw - 1) / tw : 0,
-                   parts,  prows, split, q,     nb};
+                   parts,  prows, split, q,     nb,    nvalues};
 }
 
 // ---------------------------------------------------------------------------
@@ -859,12 +863,12 @@ int spc5_spmm_desc_panels_s1(const int* vbase, const int* xbase, const signed ch
                              const void* vidx, const void* xcol, const void* yrow,
                              const void* values, const float* scale, const float* x, float* y,
                              int npanels, int nchunks, int cb, int r, int c, int vmax, int pr,
-                             int nrows, int xrows, int vsize, int wv, int wx, int wy, int nvec,
-                             int tw, int vec, int parts, int prows, int split, int q, int nb,
-                             int smem, int threads, int device, void* stream) {
+                             int nrows, int xrows, int vsize, int nvalues, int wv, int wx, int wy,
+                             int nvec, int tw, int vec, int parts, int prows, int split, int q,
+                             int nb, int smem, int threads, int device, void* stream) {
   const PanelArgs a = panel_args(vbase, xbase, valid, vidx, xcol, yrow, values, scale, x, y,
-                                 nchunks, cb, r, c, vmax, pr, nrows, xrows, vsize, wv, wx, wy,
-                                 nvec, tw, vec, parts, prows, split, q, nb);
+                                 nchunks, cb, r, c, vmax, pr, nrows, xrows, vsize, nvalues, wv,
+                                 wx, wy, nvec, tw, vec, parts, prows, split, q, nb);
   return launch_panels(1, a, npanels, smem, threads, device, stream);
 }
 
@@ -873,12 +877,12 @@ int spc5_spmm_desc_panels_s2(const int* vbase, const int* xbase, const signed ch
                              const void* vidx, const void* xcol, const void* yrow,
                              const void* values, const float* scale, const float* x, float* y,
                              int npanels, int nchunks, int cb, int r, int c, int vmax, int pr,
-                             int nrows, int xrows, int vsize, int wv, int wx, int wy, int nvec,
-                             int tw, int vec, int parts, int prows, int split, int q, int smem,
-                             int threads, int device, void* stream) {
+                             int nrows, int xrows, int vsize, int nvalues, int wv, int wx, int wy,
+                             int nvec, int tw, int vec, int parts, int prows, int split, int q,
+                             int smem, int threads, int device, void* stream) {
   const PanelArgs a = panel_args(vbase, xbase, valid, vidx, xcol, yrow, values, scale, x, y,
-                                 nchunks, cb, r, c, vmax, pr, nrows, xrows, vsize, wv, wx, wy,
-                                 nvec, tw, vec, parts, prows, split, q, q * cb);
+                                 nchunks, cb, r, c, vmax, pr, nrows, xrows, vsize, nvalues, wv,
+                                 wx, wy, nvec, tw, vec, parts, prows, split, q, q * cb);
   return launch_panels(2, a, npanels, smem, threads, device, stream);
 }
 

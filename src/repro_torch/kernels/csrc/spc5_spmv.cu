@@ -12,12 +12,13 @@
 // chunk's value window and metadata alike and decode a block row per thread,
 // the rank taken by one popcount.
 //
-// Bound: memory. One SpMV reads each packed f32 value once (4 B per nonzero)
-// plus 16 B of chunk metadata per block slot (col, mask, voff, row), x once
-// and writes y once; it does 2 flops per nonzero, far below the card's
-// f32 rate per byte. Unset lanes are skipped (the Pallas kernels clip their
-// indices and multiply by 0 instead), so no x or y element outside the
-// matrix is touched and a lane costs nothing unless its bit is set.
+// Bound: memory. One SpMV reads each packed value once (4 B per nonzero in
+// f32, 2 in bf16, 1 in int8 plus an f32 scale a chunk) plus 16 B of chunk
+// metadata per block slot (col, mask, voff, row), x once and writes y once;
+// it does 2 flops per nonzero, far below the card's f32 rate per byte.
+// Unset lanes are skipped (the Pallas kernels clip their indices and
+// multiply by 0 instead), so no x or y element outside the matrix is
+// touched and a lane costs nothing unless its bit is set.
 //
 // Whole-vector kernels (spmv_whole_kernel), built for latency, not for the
 // TPU's sequential grid:
@@ -99,6 +100,18 @@
 //     decode is bound by its instructions). The wrapper pads an x shorter
 //     than ncols_pad, as the Pallas wrappers do.
 //
+// Values (both layouts): the value store is the kernels' template parameter
+// V, float, __nv_bfloat16 or int8_t, decoded as the reference's _expand_vals
+// does (spc5_stage.cuh: dequant): upcast to f32, an int8 value then times its
+// chunk's f32 scale, before the product with x, summed in f32; the f32
+// kernels are the code they were. A narrow window starts on any multiple of
+// 8 bytes, and bulk copies need 16-byte aligned ends: it is staged as the
+// 16-byte aligned span that covers it, kept inside values (value_span,
+// copy_span: a last 8-byte piece by cp.async), and thread 0 writes the
+// window's offset in its span into the stage's slot beside the x window
+// start; each thread loads the chunk's scale (int8) before waiting for the
+// chunk's stage.
+//
 // Each launcher runs on the caller's stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() (0 on success).
 
@@ -118,19 +131,25 @@ struct PanelArgs {
   const uint32_t* mask;
   const int* voff;   // offsets of the blocks' first values in the window
   const int* row;    // panel-relative first rows
-  const float* values;
+  const void* values;  // vsize bytes a value: float, __nv_bfloat16 or int8_t
   const float* x;    // at least ncols_pad entries
   float* y;
   int nchunks, cb, vmax, pr, nrows, r, c;
   int split;  // S: CTAs per panel, each a contiguous range of its chunks
+  // last, so the other fields keep the offsets the f32 kernels had:
+  const float* scale;  // (npanels, nchunks) int8 scales; unread otherwise
+  int vsize;    // the values' bytes: 4, 2 or 1
+  int nvalues;  // values' length: no staged span reaches past it
 };
 
 __host__ __device__ inline int round16(int n) { return (n + 15) & ~15; }
 
-// Byte offsets of one stage's parts, each 16-byte aligned: the value window,
-// the chunk's four metadata rows (col, mask, voff, row; meta_stride bytes
-// apart) and a 16-byte slot holding the chunk's x window start and, at byte
-// 8, the stage's mbarrier. Both layouts stage a chunk so (the whole-vector
+// Byte offsets of one stage's parts, each 16-byte aligned: the value window
+// (value_window bytes of vsize-byte values: a narrow one as its aligned
+// span), the chunk's four metadata rows (col, mask, voff, row; meta_stride
+// bytes apart) and a 16-byte slot holding the chunk's x window start, at
+// byte 4 (narrow values) the window's offset in its span and, at byte 8,
+// the stage's mbarrier. Both layouts stage a chunk so (the whole-vector
 // kernels with an x window start of 0: their columns are absolute). The y
 // tile (pr floats; in the whole-vector layout the warps' tiles) comes before
 // the first stage. The wrappers plan with their copies (kernels/
@@ -142,10 +161,10 @@ struct StageLayout {
 };
 
 template <typename A>
-__host__ __device__ inline StageLayout stage_layout(const A& a) {
+__host__ __device__ inline StageLayout stage_layout(const A& a, int vsize) {
   StageLayout L;
   L.vwin = 0;
-  L.meta = round16(4 * a.vmax);
+  L.meta = value_window(vsize, a.vmax);
   L.meta_stride = round16(4 * a.cb);
   L.xb = L.meta + 4 * L.meta_stride;
   L.bytes = L.xb + 16;
@@ -153,7 +172,7 @@ __host__ __device__ inline StageLayout stage_layout(const A& a) {
 }
 
 inline size_t panels_smem(const PanelArgs& a, int stages) {
-  return (size_t)round16(4 * a.pr) + (size_t)stages * stage_layout(a).bytes;
+  return (size_t)round16(4 * a.pr) + (size_t)stages * stage_layout(a, a.vsize).bytes;
 }
 
 // What each thread of a CTA (either layout) does in every chunk, fixed for
@@ -195,20 +214,31 @@ __device__ __forceinline__ uint64_t* stage_bar(unsigned char* st, const StageLay
 
 // Start the copy of chunk g's stage: thread 0 writes the chunk's x window
 // start xb into the stage's slot and issues bulk copies of the value window
-// at vb and, where `wide`, the chunk's four metadata rows, all completing on
-// the stage's mbarrier; where not (cb % 4 != 0, or an array off a 16-byte
-// boundary), every thread copies its share of the metadata rows with 4-byte
-// cp.async, completed by the caller's cp.async wait.
-template <typename A>
+// at vb (a narrow one as its span, value_span / copy_span, the window's
+// offset in it written into the slot beside xb) and, where `wide`, the
+// chunk's four metadata rows, all completing on the stage's mbarrier; where
+// not (cb % 4 != 0, or an array off a 16-byte boundary), every thread
+// copies its share of the metadata rows with 4-byte cp.async, completed by
+// the caller's cp.async wait (as is a span's last 8-byte piece).
+template <typename V, typename A>
 __device__ __forceinline__ void stage_chunk(unsigned char* st, const StageLayout& L,
                                             const A& a, const ThreadPlan& t, bool wide,
                                             size_t g, int vb, int xb) {
   const int nbytes = 4 * a.cb;  // a metadata row
   if (threadIdx.x == 0) {
-    *reinterpret_cast<int*>(st + L.xb) = xb;
+    const V* values = static_cast<const V*>(a.values);
     uint64_t* bar = stage_bar(st, L);
-    mbar_expect_tx(bar, 4 * a.vmax + (wide ? 4 * nbytes : 0));
-    bulk_copy(st + L.vwin, a.values + vb, 4 * a.vmax, bar);
+    if constexpr (sizeof(V) == 4) {
+      *reinterpret_cast<int*>(st + L.xb) = xb;
+      mbar_expect_tx(bar, 4 * a.vmax + (wide ? 4 * nbytes : 0));
+      bulk_copy(st + L.vwin, values + vb, 4 * a.vmax, bar);
+    } else {
+      int bytes, off;
+      const char* span = value_span(values, vb, a.vmax, a.nvalues, bytes, off);
+      *reinterpret_cast<int2*>(st + L.xb) = make_int2(xb, off);
+      mbar_expect_tx(bar, span_bulk_bytes(bytes) + (wide ? 4 * nbytes : 0));
+      copy_span(st + L.vwin, span, bytes, bar);
+    }
     if (wide) {
       bulk_copy(st + L.meta, a.col + g * a.cb, nbytes, bar);
       bulk_copy(st + L.meta + L.meta_stride, a.mask + g * a.cb, nbytes, bar);
@@ -224,15 +254,25 @@ __device__ __forceinline__ void stage_chunk(unsigned char* st, const StageLayout
   }
 }
 
+// The staged window's first value: at the stage's start, or (narrow values)
+// at the offset in its span that stage_chunk wrote into the slot.
+template <typename V>
+__device__ __forceinline__ const V* staged_window(const unsigned char* st, const StageLayout& L) {
+  const V* vwin = reinterpret_cast<const V*>(st + L.vwin);
+  if constexpr (sizeof(V) < 4) vwin += *reinterpret_cast<const int*>(st + L.xb + 4);
+  return vwin;
+}
+
 // Add the staged chunk into the y tile, a block row per thread (ThreadPlan).
 // The row's first value is voff + popc(mask bits before the row); only the
 // row's set bits are walked, each reading x in place (the wrapper makes x
 // long enough for every chunk's window), and the row adds into the tile
-// once, if a bit is set.
+// once, if a bit is set. s is the chunk's scale (int8 only).
+template <typename V>
 __device__ __forceinline__ void decode_stage(const unsigned char* st, const StageLayout& L,
                                              const PanelArgs& a, const ThreadPlan& t,
-                                             float* ytile) {
-  const float* vwin = reinterpret_cast<const float*>(st + L.vwin);
+                                             float* ytile, float s) {
+  const V* vwin = staged_window<V>(st, L);
   const int xb = *reinterpret_cast<const int*>(st + L.xb);  // the chunk's x window start
   const uint32_t row_mask = (1u << a.c) - 1u;
   const int ms = L.meta_stride;
@@ -241,21 +281,21 @@ __device__ __forceinline__ void decode_stage(const unsigned char* st, const Stag
     const uint32_t mask = *reinterpret_cast<const uint32_t*>(w + ms);
     uint32_t bits = (mask >> t.shift) & row_mask;
     if (bits == 0u) continue;  // an empty row, a padding block or chunk
-    const float* v = vwin + *reinterpret_cast<const int*>(w + 2 * ms) + __popc(mask & t.below);
+    const V* v = vwin + *reinterpret_cast<const int*>(w + 2 * ms) + __popc(mask & t.below);
     const int xi = xb + *reinterpret_cast<const int*>(w);
     float acc = 0.f;
     do {
-      acc = fmaf(*v++, __ldg(a.x + (xi + __ffs(bits) - 1)), acc);
+      acc = fmaf(dequant(*v++, s), __ldg(a.x + (xi + __ffs(bits) - 1)), acc);
       bits &= bits - 1u;
     } while (bits);
     atomicAdd(ytile + *reinterpret_cast<const int*>(w + 3 * ms) + t.lr, acc);
   }
 }
 
-template <int kStages>
+template <typename V, int kStages>
 __global__ void __launch_bounds__(256) spmv_panels_kernel(const PanelArgs a) {
   extern __shared__ __align__(16) float smem[];
-  const StageLayout L = stage_layout(a);
+  const StageLayout L = stage_layout(a, (int)sizeof(V));
   const ThreadPlan t = thread_plan(a, L);
   const bool wide = ((reinterpret_cast<uintptr_t>(a.col) | reinterpret_cast<uintptr_t>(a.mask) |
                       reinterpret_cast<uintptr_t>(a.voff) | reinterpret_cast<uintptr_t>(a.row) |
@@ -286,20 +326,22 @@ __global__ void __launch_bounds__(256) spmv_panels_kernel(const PanelArgs a) {
         vb = __ldg(vbase + j + 1);
         xb = __ldg(xbase + j + 1);
       }
+      const float s = value_scale<V>(a.scale, g0 + j);
       if (j > 0) __syncthreads();  // the previous decode is done
-      stage_chunk(ring, L, a, t, wide, g0 + j, vj, xj);
+      stage_chunk<V>(ring, L, a, t, wide, g0 + j, vj, xj);
       cp_async_commit();
       cp_async_wait<0>();
       mbar_wait(stage_bar(ring, L), j & 1);
       __syncthreads();  // everyone's copies, and the slot's xb
-      decode_stage(ring, L, a, t, ytile);
+      decode_stage<V>(ring, L, a, t, ytile, s);
     }
   } else {
     // the ring: chunk j lives in stage j % kStages; kStages - 1 chunks are
     // in flight while one decodes
     for (int s = 0; s < kStages - 1; ++s) {
       if (s < n) {
-        stage_chunk(ring + s * L.bytes, L, a, t, wide, g0 + s, __ldg(vbase + s), __ldg(xbase + s));
+        stage_chunk<V>(ring + s * L.bytes, L, a, t, wide, g0 + s, __ldg(vbase + s),
+                       __ldg(xbase + s));
       }
       cp_async_commit();
     }
@@ -312,18 +354,19 @@ __global__ void __launch_bounds__(256) spmv_panels_kernel(const PanelArgs a) {
     uint32_t parity = 0;              // bit s: the parity of stage s's next phase
     for (int j = 0; j < n; ++j) {
       unsigned char* st = ring + dec * L.bytes;
+      const float s = value_scale<V>(a.scale, g0 + j);  // loaded before the wait
       cp_async_wait<kStages - 2>();  // chunk j's 4-byte copies of this thread
       mbar_wait(stage_bar(st, L), (parity >> dec) & 1u);
       parity ^= 1u << dec;
       __syncthreads();  // ... everyone's; chunk j - 1's stage is free
       const int jn = j + kStages - 1;
-      if (jn < n) stage_chunk(ring + fill * L.bytes, L, a, t, wide, g0 + jn, vb, xb);
+      if (jn < n) stage_chunk<V>(ring + fill * L.bytes, L, a, t, wide, g0 + jn, vb, xb);
       cp_async_commit();  // possibly empty: keeps the group count uniform
       if (jn + 1 < n) {
         vb = __ldg(vbase + jn + 1);
         xb = __ldg(xbase + jn + 1);
       }
-      decode_stage(st, L, a, t, ytile);
+      decode_stage<V>(st, L, a, t, ytile, s);
       dec = dec + 1 == kStages ? 0 : dec + 1;
       fill = fill + 1 == kStages ? 0 : fill + 1;
     }
@@ -352,17 +395,22 @@ struct WholeArgs {
   const uint32_t* mask;
   const int* voff;   // offsets of the blocks' first values in the window
   const int* row;    // first rows of the blocks
-  const float* values;
+  const void* values;  // vsize bytes a value: float, __nv_bfloat16 or int8_t
   const float* x;    // (ncols,), read in place
   float* y;          // (nrows,), zeroed
   int nchunks, cb, vmax, nrows, r, c;
   int grid;  // G: CTAs, each a contiguous range of the chunks
   int tile;  // rows of each warp's y tile
+  // last, so the other fields keep the offsets the f32 kernels had:
+  const float* scale;  // (nchunks,) int8 scales; unread otherwise
+  int vsize;    // the values' bytes: 4, 2 or 1
+  int nvalues;  // values' length: no staged span reaches past it
 };
 
 // The warps' y tiles, then `stages` stages (stage_layout).
 inline size_t whole_smem(const WholeArgs& a, int stages, int threads) {
-  return (size_t)round16(4 * a.tile * (threads / 32)) + (size_t)stages * stage_layout(a).bytes;
+  return (size_t)round16(4 * a.tile * (threads / 32)) +
+         (size_t)stages * stage_layout(a, a.vsize).bytes;
 }
 
 constexpr unsigned kFullWarp = 0xffffffffu;
@@ -420,11 +468,13 @@ __device__ __forceinline__ void flush_runs(const WholeArgs& a, const ThreadPlan&
 // kNoRow; a step whose keys all equal the runs' adds each row's sum into
 // its run, any other flushes the warp's runs (flush_runs) and starts them
 // again. The row's first value is voff + popc(mask bits before the row);
-// only the row's set bits are walked, each reading x in place.
+// only the row's set bits are walked, each reading x in place. s is the
+// chunk's scale (int8 only).
+template <typename V>
 __device__ __forceinline__ void decode_whole(const unsigned char* st, const StageLayout& L,
                                              const WholeArgs& a, const ThreadPlan& t, int steps,
-                                             float* wtile, int tbase, Run& run) {
-  const float* vwin = reinterpret_cast<const float*>(st + L.vwin);
+                                             float* wtile, int tbase, Run& run, float s) {
+  const V* vwin = staged_window<V>(st, L);
   const uint32_t row_mask = (1u << a.c) - 1u;
   const int ms = L.meta_stride;
   int b = t.b0;
@@ -438,11 +488,11 @@ __device__ __forceinline__ void decode_whole(const unsigned char* st, const Stag
         key = *reinterpret_cast<const int*>(w + 3 * ms) + t.lr;
         uint32_t bits = (mask >> t.shift) & row_mask;
         if (bits != 0u) {
-          const float* v =
+          const V* v =
               vwin + *reinterpret_cast<const int*>(w + 2 * ms) + __popc(mask & t.below);
           const int xi = *reinterpret_cast<const int*>(w);
           do {
-            acc = fmaf(*v++, __ldg(a.x + (xi + __ffs(bits) - 1)), acc);
+            acc = fmaf(dequant(*v++, s), __ldg(a.x + (xi + __ffs(bits) - 1)), acc);
             bits &= bits - 1u;
           } while (bits);
         }
@@ -492,10 +542,10 @@ __device__ __forceinline__ void move_tiles(const unsigned char* st, const StageL
   }
 }
 
-template <int kStages>
+template <typename V, int kStages>
 __global__ void __launch_bounds__(256) spmv_whole_kernel(const WholeArgs a) {
   extern __shared__ __align__(16) float smem[];
-  const StageLayout L = stage_layout(a);
+  const StageLayout L = stage_layout(a, (int)sizeof(V));
   const ThreadPlan t = thread_plan(a, L);
   const bool wide = ((reinterpret_cast<uintptr_t>(a.col) | reinterpret_cast<uintptr_t>(a.mask) |
                       reinterpret_cast<uintptr_t>(a.voff) | reinterpret_cast<uintptr_t>(a.row) |
@@ -526,20 +576,23 @@ __global__ void __launch_bounds__(256) spmv_whole_kernel(const WholeArgs a) {
     for (int j = 0; j < n; ++j) {
       const int vj = vb;
       if (j + 1 < n) vb = __ldg(vbase + j + 1);
+      const float s = value_scale<V>(a.scale, (size_t)c0 + j);
       if (j > 0) __syncthreads();  // the previous decode is done
-      stage_chunk(ring, L, a, t, wide, (size_t)c0 + j, vj, 0);
+      stage_chunk<V>(ring, L, a, t, wide, (size_t)c0 + j, vj, 0);
       cp_async_commit();
       cp_async_wait<0>();
       mbar_wait(stage_bar(ring, L), j & 1);
       __syncthreads();  // everyone's copies
       move_tiles(ring, L, a, j, ytile, tbase);
-      decode_whole(ring, L, a, t, steps, wtile, tbase, run);
+      decode_whole<V>(ring, L, a, t, steps, wtile, tbase, run, s);
     }
   } else {
     // the ring: chunk j lives in stage j % kStages; kStages - 1 chunks are
     // in flight while one decodes
     for (int s = 0; s < kStages - 1; ++s) {
-      if (s < n) stage_chunk(ring + s * L.bytes, L, a, t, wide, (size_t)c0 + s, __ldg(vbase + s), 0);
+      if (s < n) {
+        stage_chunk<V>(ring + s * L.bytes, L, a, t, wide, (size_t)c0 + s, __ldg(vbase + s), 0);
+      }
       cp_async_commit();
     }
     int vb = kStages - 1 < n ? __ldg(vbase + kStages - 1) : 0;  // the next chunk to stage
@@ -547,16 +600,17 @@ __global__ void __launch_bounds__(256) spmv_whole_kernel(const WholeArgs a) {
     uint32_t parity = 0;              // bit s: the parity of stage s's next phase
     for (int j = 0; j < n; ++j) {
       unsigned char* st = ring + dec * L.bytes;
+      const float s = value_scale<V>(a.scale, (size_t)c0 + j);  // loaded before the wait
       cp_async_wait<kStages - 2>();  // chunk j's 4-byte copies of this thread
       mbar_wait(stage_bar(st, L), (parity >> dec) & 1u);
       parity ^= 1u << dec;
       __syncthreads();  // ... everyone's; chunk j - 1's stage is free
       move_tiles(st, L, a, j, ytile, tbase);
       const int jn = j + kStages - 1;
-      if (jn < n) stage_chunk(ring + fill * L.bytes, L, a, t, wide, (size_t)c0 + jn, vb, 0);
+      if (jn < n) stage_chunk<V>(ring + fill * L.bytes, L, a, t, wide, (size_t)c0 + jn, vb, 0);
       cp_async_commit();  // possibly empty: keeps the group count uniform
       if (jn + 1 < n) vb = __ldg(vbase + jn + 1);
-      decode_whole(st, L, a, t, steps, wtile, tbase, run);
+      decode_whole<V>(st, L, a, t, steps, wtile, tbase, run, s);
       dec = dec + 1 == kStages ? 0 : dec + 1;
       fill = fill + 1 == kStages ? 0 : fill + 1;
     }
@@ -568,12 +622,23 @@ __global__ void __launch_bounds__(256) spmv_whole_kernel(const WholeArgs a) {
 
 using WholeKernel = void (*)(WholeArgs);
 
-// The whole-vector kernel of a ring of `stages`: 1 (the synchronous twin)
-// or 2; nullptr for any other.
-WholeKernel whole_kernel(int stages) {
+template <typename V>
+WholeKernel whole_kernel_v(int stages) {
   switch (stages) {
-    case 1: return spmv_whole_kernel<1>;
-    case 2: return spmv_whole_kernel<2>;
+    case 1: return spmv_whole_kernel<V, 1>;
+    case 2: return spmv_whole_kernel<V, 2>;
+    default: return nullptr;
+  }
+}
+
+// The whole-vector kernel for vsize-byte values (4 float, 2 bf16, 1 int8)
+// and a ring of `stages`: 1 (the synchronous twin) or 2; nullptr for any
+// other.
+WholeKernel whole_kernel(int vsize, int stages) {
+  switch (vsize) {
+    case 4: return whole_kernel_v<float>(stages);
+    case 2: return whole_kernel_v<__nv_bfloat16>(stages);
+    case 1: return whole_kernel_v<int8_t>(stages);
     default: return nullptr;
   }
 }
@@ -588,14 +653,15 @@ int whole_ring(int stages, const WholeArgs& a) {
 
 // Launch the whole-vector kernel of `stages` with the wrapper's plan: a
 // grid, tile, shared-memory figure (whole_ring stages) or thread count it
-// did not plan (or the kernel cannot take) is refused with
-// cudaErrorInvalidValue, launching nothing.
+// did not plan (or the kernel cannot take), or int8 values without their
+// scales, is refused with cudaErrorInvalidValue, launching nothing.
 int launch_whole(int stages, const WholeArgs& a, int smem_planned, int threads, int device,
                  void* stream) {
-  const WholeKernel kernel = whole_kernel(stages);
+  const WholeKernel kernel = whole_kernel(a.vsize, stages);
   if (kernel == nullptr || a.grid < 1 || a.grid > a.nchunks || a.cb < 1 || a.tile < 1 ||
       a.r < 1 || 32 % a.r != 0 || a.c < 1 || a.r * a.c > 32 || threads < 32 || threads > 256 ||
-      threads % 32 != 0 || whole_smem(a, whole_ring(stages, a), threads) != (size_t)smem_planned) {
+      threads % 32 != 0 || (a.vsize == 1 && a.scale == nullptr) ||
+      whole_smem(a, whole_ring(stages, a), threads) != (size_t)smem_planned) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = (size_t)smem_planned;
@@ -609,29 +675,39 @@ int launch_whole(int stages, const WholeArgs& a, int smem_planned, int threads, 
 
 using PanelKernel = void (*)(PanelArgs);
 
-// The panel kernel of a ring of `stages` (1: the synchronous twin); nullptr
-// for any other ring.
-PanelKernel panels_kernel(int stages) {
+template <typename V>
+PanelKernel panels_kernel_v(int stages) {
   switch (stages) {
-    case 1: return spmv_panels_kernel<1>;
-    case 2: return spmv_panels_kernel<2>;
-    case 3: return spmv_panels_kernel<3>;
+    case 1: return spmv_panels_kernel<V, 1>;
+    case 2: return spmv_panels_kernel<V, 2>;
+    case 3: return spmv_panels_kernel<V, 3>;
+    default: return nullptr;
+  }
+}
+
+// The panel kernel for vsize-byte values (4 float, 2 bf16, 1 int8) and a
+// ring of `stages` (1: the synchronous twin); nullptr for any other.
+PanelKernel panels_kernel(int vsize, int stages) {
+  switch (vsize) {
+    case 4: return panels_kernel_v<float>(stages);
+    case 2: return panels_kernel_v<__nv_bfloat16>(stages);
+    case 1: return panels_kernel_v<int8_t>(stages);
     default: return nullptr;
   }
 }
 
 int launch_panels(int stages, const int* vbase, const int* xbase, const int* col,
-                  const uint32_t* mask, const int* voff, const int* row, const float* values,
-                  const float* x, float* y, int npanels, int nchunks, int cb, int vmax, int pr,
-                  int nrows, int r, int c, int split, int smem_planned, int threads, int device,
-                  void* stream) {
-  const PanelArgs a{vbase, xbase, col, mask, voff, row, values, x, y,
-                    nchunks, cb, vmax, pr, nrows, r, c, split};
-  const PanelKernel kernel = panels_kernel(stages);
+                  const uint32_t* mask, const int* voff, const int* row, const void* values,
+                  const float* scale, const float* x, float* y, int npanels, int nchunks, int cb,
+                  int vmax, int pr, int nrows, int r, int c, int vsize, int nvalues, int split,
+                  int smem_planned, int threads, int device, void* stream) {
+  const PanelArgs a{vbase, xbase, col,   mask,  voff, row,   values, x,     y,
+                    nchunks, cb, vmax, pr, nrows, r, c, split, scale, vsize, nvalues};
+  const PanelKernel kernel = panels_kernel(vsize, stages);
   const size_t smem = panels_smem(a, stages);
   if (kernel == nullptr || split < 1 || split > nchunks ||
       (long long)npanels * split > 0x7fffffffLL || smem != (size_t)smem_planned ||
-      threads < 32 || threads > 256 || threads % 32 != 0) {
+      threads < 32 || threads > 256 || threads % 32 != 0 || (vsize == 1 && scale == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = prepare_launch(kernel, device, smem, threads, nullptr);
@@ -642,100 +718,111 @@ int launch_panels(int stages, const int* vbase, const int* xbase, const int* col
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
+template <typename Kernel>
+int occupancy(Kernel kernel, int threads, int smem, int device, int* out) {
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare_launch(kernel, device, (size_t)smem, threads, nullptr);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, (size_t)smem);
+  }
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(out + 1, cudaDevAttrMultiProcessorCount, device);
+  return (int)err;
+}
+
 }  // namespace
 
 extern "C" {
 
 // The synchronous whole-vector kernel: `grid` CTAs, each a contiguous range
-// of the chunks, one stage; warps' tiles of `tile` rows. smem and threads
-// are the wrapper's plan (checked).
+// of the chunks, one stage; warps' tiles of `tile` rows; values of vsize
+// bytes (4 f32, 2 bf16, 1 int8 with its (nchunks,) scales; scale is unread
+// otherwise), nvalues of them. smem and threads are the wrapper's plan
+// (checked).
 int spc5_spmv_whole_s1(const int* vbase, const int* col, const uint32_t* mask, const int* voff,
-                       const int* row, const float* values, const float* x, float* y,
-                       int nchunks, int cb, int vmax, int nrows, int r, int c, int grid, int tile,
-                       int smem, int threads, int device, void* stream) {
-  const WholeArgs a{vbase, col, mask, voff, row, values, x, y, nchunks, cb, vmax, nrows, r, c,
-                    grid, tile};
+                       const int* row, const void* values, const float* scale, const float* x,
+                       float* y, int nchunks, int cb, int vmax, int nrows, int r, int c, int vsize,
+                       int nvalues, int grid, int tile, int smem, int threads, int device,
+                       void* stream) {
+  const WholeArgs a{vbase, col,  mask, voff,  row,   values, x,       y,     nchunks, cb,
+                    vmax,  nrows, r,   c,    grid,  tile,  scale,  vsize, nvalues};
   return launch_whole(1, a, smem, threads, device, stream);
 }
 
 // The staged-ahead whole-vector kernel: a ring of two chunks (one stage
 // where every CTA takes one chunk).
 int spc5_spmv_whole_s2(const int* vbase, const int* col, const uint32_t* mask, const int* voff,
-                       const int* row, const float* values, const float* x, float* y,
-                       int nchunks, int cb, int vmax, int nrows, int r, int c, int grid, int tile,
-                       int smem, int threads, int device, void* stream) {
-  const WholeArgs a{vbase, col, mask, voff, row, values, x, y, nchunks, cb, vmax, nrows, r, c,
-                    grid, tile};
+                       const int* row, const void* values, const float* scale, const float* x,
+                       float* y, int nchunks, int cb, int vmax, int nrows, int r, int c, int vsize,
+                       int nvalues, int grid, int tile, int smem, int threads, int device,
+                       void* stream) {
+  const WholeArgs a{vbase, col,  mask, voff,  row,   values, x,       y,     nchunks, cb,
+                    vmax,  nrows, r,   c,    grid,  tile,  scale,  vsize, nvalues};
   return launch_whole(2, a, smem, threads, device, stream);
 }
 
 // The whole-vector kernel's occupancy at `stages` (1: the synchronous
-// kernel, 2: the ring), `threads` and `smem` bytes of dynamic shared memory
-// per CTA: out[0] the CTAs one SM holds at once, out[1] the SMs of the device.
-int spc5_spmv_whole_occupancy(int stages, int threads, int smem, int device, int* out) {
-  const WholeKernel kernel = whole_kernel(stages);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare_launch(kernel, device, (size_t)smem, threads, nullptr);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, (size_t)smem);
-  }
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(out + 1, cudaDevAttrMultiProcessorCount, device);
-  return (int)err;
+// kernel, 2: the ring), vsize-byte values, `threads` and `smem` bytes of
+// dynamic shared memory per CTA: out[0] the CTAs one SM holds at once,
+// out[1] the SMs of the device.
+int spc5_spmv_whole_occupancy(int stages, int vsize, int threads, int smem, int device, int* out) {
+  return occupancy(whole_kernel(vsize, stages), threads, smem, device, out);
 }
 
 // The dynamic shared memory of one whole-vector CTA of `threads` threads
-// with `stages` stages and warps' tiles of `tile` rows, as the launch
-// computes it (whole_smem).
-int spc5_spmv_whole_smem(int stages, int cb, int vmax, int tile, int threads) {
+// with `stages` stages, warps' tiles of `tile` rows and vsize-byte values,
+// as the launch computes it (whole_smem).
+int spc5_spmv_whole_smem(int stages, int cb, int vmax, int tile, int threads, int vsize) {
   WholeArgs a{};
   a.cb = cb;
   a.vmax = vmax;
   a.tile = tile;
+  a.vsize = vsize;
   return (int)whole_smem(a, stages, threads);
 }
 
-// The synchronous panel kernel: split CTAs per panel. smem is the wrapper's
-// figure for the CTA's dynamic shared memory (checked).
+// The synchronous panel kernel: split CTAs per panel, values of vsize bytes
+// (4 f32, 2 bf16, 1 int8 with its (npanels, nchunks) scales; scale is
+// unread otherwise), nvalues of them. smem is the wrapper's figure for the
+// CTA's dynamic shared memory (checked).
 int spc5_spmv_panels_s1(const int* vbase, const int* xbase, const int* col, const uint32_t* mask,
-                        const int* voff, const int* row, const float* values, const float* x,
-                        float* y, int npanels, int nchunks, int cb, int vmax, int pr, int nrows,
-                        int r, int c, int split, int smem, int threads, int device, void* stream) {
-  return launch_panels(1, vbase, xbase, col, mask, voff, row, values, x, y, npanels, nchunks, cb,
-                       vmax, pr, nrows, r, c, split, smem, threads, device, stream);
+                        const int* voff, const int* row, const void* values, const float* scale,
+                        const float* x, float* y, int npanels, int nchunks, int cb, int vmax,
+                        int pr, int nrows, int r, int c, int vsize, int nvalues, int split,
+                        int smem, int threads, int device, void* stream) {
+  return launch_panels(1, vbase, xbase, col, mask, voff, row, values, scale, x, y, npanels,
+                       nchunks, cb, vmax, pr, nrows, r, c, vsize, nvalues, split, smem, threads,
+                       device, stream);
 }
 
 // The staged-ahead panel kernel: a ring of `stages` chunks, 2 or 3.
 int spc5_spmv_panels_s2(const int* vbase, const int* xbase, const int* col, const uint32_t* mask,
-                        const int* voff, const int* row, const float* values, const float* x,
-                        float* y, int npanels, int nchunks, int cb, int vmax, int pr, int nrows,
-                        int r, int c, int split, int stages, int smem, int threads, int device,
-                        void* stream) {
+                        const int* voff, const int* row, const void* values, const float* scale,
+                        const float* x, float* y, int npanels, int nchunks, int cb, int vmax,
+                        int pr, int nrows, int r, int c, int vsize, int nvalues, int split,
+                        int stages, int smem, int threads, int device, void* stream) {
   if (stages < 2) return (int)cudaErrorInvalidValue;
-  return launch_panels(stages, vbase, xbase, col, mask, voff, row, values, x, y, npanels,
-                       nchunks, cb, vmax, pr, nrows, r, c, split, smem, threads, device, stream);
+  return launch_panels(stages, vbase, xbase, col, mask, voff, row, values, scale, x, y, npanels,
+                       nchunks, cb, vmax, pr, nrows, r, c, vsize, nvalues, split, smem, threads,
+                       device, stream);
 }
 
 // The panel kernel's occupancy at `stages` (1: the synchronous kernel),
-// `threads` and `smem` bytes of dynamic shared memory per CTA: out[0] the
-// CTAs one SM holds at once, out[1] the SMs of the device.
-int spc5_spmv_panels_occupancy(int stages, int threads, int smem, int device, int* out) {
-  const PanelKernel kernel = panels_kernel(stages);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare_launch(kernel, device, (size_t)smem, threads, nullptr);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, (size_t)smem);
-  }
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(out + 1, cudaDevAttrMultiProcessorCount, device);
-  return (int)err;
+// vsize-byte values, `threads` and `smem` bytes of dynamic shared memory
+// per CTA: out[0] the CTAs one SM holds at once, out[1] the SMs of the
+// device.
+int spc5_spmv_panels_occupancy(int stages, int vsize, int threads, int smem, int device,
+                               int* out) {
+  return occupancy(panels_kernel(vsize, stages), threads, smem, device, out);
 }
 
-// The dynamic shared memory of one panel-kernel CTA with `stages` stages, as
-// the launch computes it (stage_layout).
-int spc5_spmv_panels_smem(int stages, int cb, int vmax, int pr) {
+// The dynamic shared memory of one panel-kernel CTA with `stages` stages
+// and vsize-byte values, as the launch computes it (stage_layout).
+int spc5_spmv_panels_smem(int stages, int cb, int vmax, int pr, int vsize) {
   PanelArgs a{};
   a.cb = cb;
   a.vmax = vmax;
   a.pr = pr;
+  a.vsize = vsize;
   return (int)panels_smem(a, stages);
 }
 

@@ -412,6 +412,8 @@ struct PanelArgs {
   int nchunks, cb, r, c, vmax, xw, pr, nrows, vsize, wv, wx, wy;
   int split;  // S: CTAs per panel, each a contiguous range of its chunks
   int nb;     // blocks whose tables one stage holds (cb, or a slice of it)
+  int nvalues;  // values' length: no staged span reaches past it (last, so
+                // the other fields keep the offsets the f32 kernels had)
 };
 
 // Byte offsets of one stage's parts, each 16-byte aligned: the value window
@@ -445,7 +447,8 @@ inline size_t panels_smem(const PanelArgs& a, int stages) {
 
 // Stage the tables of blocks [b0, b0 + nb) of global chunk g (and, where
 // windows is set, its value window at vb, a narrow one as the aligned span
-// that covers it, and its x window at xb).
+// that covers it, kept inside values (copy_span_runs), and its x window at
+// xb).
 template <bool kAsync, typename V>
 __device__ __forceinline__ void stage_chunk(unsigned char* st, const StageLayout& L,
                                             const PanelArgs& a, size_t g, int b0, int nb,
@@ -458,8 +461,8 @@ __device__ __forceinline__ void stage_chunk(unsigned char* st, const StageLayout
       copy_runs<kAsync>(st + L.vwin, reinterpret_cast<const char*>(values + vb), 1, 4 * a.vmax, 0);
     } else {
       int bytes, off;
-      const char* span = value_span(values, vb, a.vmax, bytes, off);
-      copy_runs<kAsync>(st + L.vwin, span, 1, bytes, 0);
+      const char* span = value_span(values, vb, a.vmax, a.nvalues, bytes, off);
+      copy_span_runs<kAsync>(st + L.vwin, span, bytes);
     }
     copy_runs<kAsync>(st + L.xwin, reinterpret_cast<const char*>(a.xpad + xb), 1, 4 * a.xw, 0);
   }
@@ -698,12 +701,12 @@ int launch_panels(int stages, const PanelArgs& a, int npanels, int smem_planned,
 PanelArgs panel_args(const int* vbase, const int* xbase, const signed char* valid,
                      const void* vidx, const void* xcol, const void* yrow, const void* values,
                      const float* scale, const float* xpad, float* y, int nchunks, int cb, int r,
-                     int c, int vmax, int xw, int pr, int nrows, int vsize, int wv, int wx, int wy,
-                     int split, int nb) {
+                     int c, int vmax, int xw, int pr, int nrows, int vsize, int nvalues, int wv,
+                     int wx, int wy, int split, int nb) {
   return PanelArgs{vbase,  xbase, valid, static_cast<const char*>(vidx),
                    static_cast<const char*>(xcol), static_cast<const char*>(yrow),
                    values, scale, xpad,  y,     nchunks, cb, r, c, vmax, xw, pr, nrows, vsize,
-                   wv,     wx,    wy,    split, nb};
+                   wv,     wx,    wy,    split, nb, nvalues};
 }
 
 }  // namespace
@@ -774,11 +777,11 @@ int spc5_spmv_desc_panels_s1(const int* vbase, const int* xbase, const signed ch
                              const void* vidx, const void* xcol, const void* yrow,
                              const void* values, const float* scale, const float* xpad, float* y,
                              int npanels, int nchunks, int cb, int r, int c, int vmax, int xw,
-                             int pr, int nrows, int vsize, int wv, int wx, int wy, int split,
-                             int nb, int smem, int threads, int device, void* stream) {
+                             int pr, int nrows, int vsize, int nvalues, int wv, int wx, int wy,
+                             int split, int nb, int smem, int threads, int device, void* stream) {
   const PanelArgs a = panel_args(vbase, xbase, valid, vidx, xcol, yrow, values, scale, xpad, y,
-                                 nchunks, cb, r, c, vmax, xw, pr, nrows, vsize, wv, wx, wy, split,
-                                 nb);
+                                 nchunks, cb, r, c, vmax, xw, pr, nrows, vsize, nvalues, wv, wx,
+                                 wy, split, nb);
   return launch_panels(1, a, npanels, smem, threads, device, stream);
 }
 
@@ -788,11 +791,12 @@ int spc5_spmv_desc_panels_s2(const int* vbase, const int* xbase, const signed ch
                              const void* vidx, const void* xcol, const void* yrow,
                              const void* values, const float* scale, const float* xpad, float* y,
                              int npanels, int nchunks, int cb, int r, int c, int vmax, int xw,
-                             int pr, int nrows, int vsize, int wv, int wx, int wy, int split,
-                             int stages, int smem, int threads, int device, void* stream) {
+                             int pr, int nrows, int vsize, int nvalues, int wv, int wx, int wy,
+                             int split, int stages, int smem, int threads, int device,
+                             void* stream) {
   const PanelArgs a = panel_args(vbase, xbase, valid, vidx, xcol, yrow, values, scale, xpad, y,
-                                 nchunks, cb, r, c, vmax, xw, pr, nrows, vsize, wv, wx, wy, split,
-                                 cb);
+                                 nchunks, cb, r, c, vmax, xw, pr, nrows, vsize, nvalues, wv, wx,
+                                 wy, split, cb);
   if (stages != 2 && stages != 3) return (int)cudaErrorInvalidValue;
   return launch_panels(stages, a, npanels, smem, threads, device, stream);
 }

@@ -20,6 +20,17 @@ __device__ __forceinline__ float dequant(float v, float) { return v; }
 __device__ __forceinline__ float dequant(__nv_bfloat16 v, float) { return __bfloat162float(v); }
 __device__ __forceinline__ float dequant(int8_t v, float scale) { return (float)v * scale; }
 
+// Chunk g's scale for values of type V: an int8 store's, from its chunk
+// scales; 1 (unread) for the others.
+template <typename V>
+__device__ __forceinline__ float value_scale(const float* scale, size_t g) {
+  if constexpr (sizeof(V) == 1) {
+    return __ldg(scale + g);
+  } else {
+    return 1.f;
+  }
+}
+
 // Shared memory of one staged window of vmax values of vsize bytes: an f32
 // window as it lies (16-byte aligned where vbase is a multiple of 4), a
 // narrow one as the 16-byte aligned span that covers it (value_span), 16
@@ -30,15 +41,26 @@ __host__ __device__ inline int value_window(int vsize, int vmax) {
 }
 
 // The 16-byte aligned span that covers the narrow window [vb, vb + vmax) of
-// values: returns its start; bytes is its length (a multiple of 16, at most
-// value_window) and off the index of the window's first value in it.
+// values (16-byte aligned, as the wrappers check), kept inside the nvalues
+// values there are: returns its start; off is the index of the window's
+// first value in it and bytes what to copy, a multiple of 16 (at most
+// value_window) unless the span's last 16-byte piece would reach past
+// values' end. A window starts and ends on a multiple of 8 bytes, inside
+// values, so that happens exactly where it ends past values' last 16-byte
+// boundary; its last piece then holds the window's last 8 bytes and 8 bytes
+// past values, and bytes leaves those 8 out. (Integer compares on value
+// indices only: a pointer compare cost the synchronous panel descriptor
+// SpMV kernels registers.) The wrappers' copy: kernels/spc5_spmv.py:
+// value_span.
 template <typename V>
-__device__ __forceinline__ const char* value_span(const V* values, int vb, int vmax, int& bytes,
-                                                  int& off) {
+__device__ __forceinline__ const char* value_span(const V* values, int vb, int vmax, int nvalues,
+                                                  int& bytes, int& off) {
+  constexpr int kPerPiece = 16 / (int)sizeof(V);  // values a 16-byte piece holds
   const uintptr_t p = reinterpret_cast<uintptr_t>(values + vb);
   const uintptr_t lo = p & ~(uintptr_t)15;
   off = (int)(p - lo) / (int)sizeof(V);
   bytes = (int)((p - lo + sizeof(V) * (uintptr_t)vmax + 15) & ~(uintptr_t)15);
+  if (vb + vmax > (nvalues & ~(kPerPiece - 1))) bytes -= 8;
   return reinterpret_cast<const char*>(lo);
 }
 
@@ -50,6 +72,11 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -94,6 +121,20 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
           "r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// Copy bytes of a span value_span returned into shared memory at dst (16-byte
+// aligned), as the thread that issues a stage's bulk copies: its whole
+// 16-byte pieces by one bulk copy on bar, and where value_span left the last
+// piece's 8 bytes past values out, the 8 before them by cp.async, completed
+// by the caller's cp.async wait. The barrier expects span_bulk_bytes(bytes).
+__device__ __forceinline__ uint32_t span_bulk_bytes(int bytes) { return (uint32_t)(bytes & ~15); }
+
+__device__ __forceinline__ void copy_span(unsigned char* dst, const char* span, int bytes,
+                                          uint64_t* bar) {
+  const int whole = bytes & ~15;
+  if (whole > 0) bulk_copy(dst, span, (uint32_t)whole, bar);
+  if (bytes & 8) cp_async8(dst + whole, span + whole);
 }
 
 // Wait until the mbarrier's phase of parity `parity` has completed.
@@ -176,6 +217,25 @@ __device__ __forceinline__ void copy_runs(unsigned char* dst, const char* src, i
           reinterpret_cast<int*>(dst)[j] = v[u].x;
         }
       }
+    }
+  }
+}
+
+// Copy bytes of a span value_span returned into dst (16-byte aligned) with
+// all threads of the CTA: its whole 16-byte pieces by copy_runs (always in
+// 16-byte pieces: the span starts on a 16-byte boundary), and where
+// value_span left the last piece's 8 bytes past values out, the 8 before
+// them by the last thread (cp.async, completed by the caller's wait, or a
+// vector load).
+template <bool kAsync>
+__device__ __forceinline__ void copy_span_runs(unsigned char* dst, const char* span, int bytes) {
+  const int whole = bytes & ~15;
+  copy_runs<kAsync>(dst, span, 1, whole, 0);
+  if ((bytes & 8) && threadIdx.x == blockDim.x - 1) {
+    if (kAsync) {
+      cp_async8(dst + whole, span + whole);
+    } else {
+      *reinterpret_cast<uint2*>(dst + whole) = __ldg(reinterpret_cast<const uint2*>(span + whole));
     }
   }
 }

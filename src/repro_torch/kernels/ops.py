@@ -61,9 +61,9 @@ def prepare(mat: F.SPC5Matrix, *, layout: str = "auto",
     ``vdtype`` ("f32", "bf16", "int8" or "auto", also read from a config's
     ``vdtype``) stores the values in that dtype, int8 with one f32 scale a
     chunk; products accumulate and return f32. On the CPU every layout and
-    lowering takes it; on the card the panel descriptor kernels do, and any
-    other kernel raises ``NotImplementedError`` for bf16 or int8 values
-    (ROADMAP queue 2 A). ``reorder``, ``verify`` and ``store`` take the
+    lowering takes it; on the card the mask and panel descriptor kernels
+    do, and the whole-vector descriptor and tail kernels raise
+    ``NotImplementedError`` for bf16 or int8 values (ROADMAP queue 2 A). ``reorder``, ``verify`` and ``store`` take the
     reference's defaults (None, False, None); a ``reorder``, a truthy
     ``verify`` and a ``store`` raise ``NotImplementedError`` naming their
     ROADMAP item."""

@@ -25,6 +25,14 @@ reference's zero padding to ``ncols_pad`` gives. The whole-vector launch
 planning (:func:`whole_plan`, :func:`whole_grid`) is shared with the
 descriptor kernel of :mod:`.spc5_spmm_desc`.
 
+Values are f32, bf16 or int8 (with ``value_scale``, one f32 scale a
+chunk): each kernel is built for the three, and decodes a value once, as
+it lists the nonzeros, the way the reference's ``_expand_vals`` does (bf16
+upcast, int8 upcast and then multiplied by its chunk's scale); the walk
+and its f32 sums never see the width. A narrow window is staged as the
+16-byte aligned span that covers it, kept inside ``values``
+(:func:`~.spc5_spmv.value_span`).
+
 A CPU tensor goes to the plain PyTorch version (:mod:`repro_torch.core.
 ref_spmv`); a CUDA tensor goes to the kernel, or the wrapper raises. Each
 wrapper counts the launches of its kernel in :data:`LAUNCHES` (CPU calls
@@ -41,8 +49,8 @@ from repro_torch.core import ref_spmv as R
 
 from . import _build
 from .spc5_spmv import (MAX_SMEM_BYTES, _aligned, _check, _check_smem,
-                        _check_values, _raise_on, _stream, _unsupported,
-                        panels_split)
+                        _check_values, _raise_on, _scale_ptr, _stream,
+                        _unsupported, panels_split, value_window_bytes)
 
 #: Launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES: Dict[str, int] = {"spmm_cuda": 0, "spmm_cuda_panels": 0,
@@ -144,20 +152,31 @@ def whole_layout_bytes(stage: int, stages: int, q: int, nb: int, r: int,
             + 4 * WHOLE_SCRATCH_WORDS + 16 * room + stages * stage)
 
 
-def whole_stage_bytes(q: int, nb: int, vmax: int) -> int:
-    """One stage of the mask kernel: q value windows, the four metadata rows
-    of nb blocks (col, mask, voff, row) and a 16-byte mbarrier slot."""
-    return q * _r16(4 * vmax) + 4 * _r16(4 * nb) + 16
+def _window_meta_bytes(q: int, vsize: int) -> int:
+    """Each chunk's window offset and scale (8 bytes) where values are
+    narrow: a stage's ``wmeta`` part."""
+    return _r16(8 * q) if vsize < 4 else 0
+
+
+def whole_stage_bytes(q: int, nb: int, vmax: int, vsize: int = 4) -> int:
+    """One stage of the mask kernel: q value windows
+    (:func:`~.spc5_spmv.value_window_bytes` of ``vsize``-byte values), for
+    narrow values each chunk's window offset and scale, the four metadata
+    rows of nb blocks (col, mask, voff, row) and a 16-byte mbarrier
+    slot."""
+    return (q * value_window_bytes(vmax, vsize) + _window_meta_bytes(q, vsize)
+            + 4 * _r16(4 * nb) + 16)
 
 
 def whole_smem_bytes(stages: int, q: int, nb: int, r: int, c: int, vmax: int,
-                     tw: int, vec: int, tile_rows: int, threads: int) -> int:
+                     tw: int, vec: int, tile_rows: int, threads: int,
+                     vsize: int = 4) -> int:
     """Dynamic shared memory of one whole-vector mask CTA
-    (:func:`whole_layout_bytes` with :func:`whole_stage_bytes`). The
-    kernel's launcher refuses a launch whose figure differs from its own
-    (``spc5_spmm_whole_smem`` exposes it)."""
-    return whole_layout_bytes(whole_stage_bytes(q, nb, vmax), stages, q, nb,
-                              r, c, vmax, tw, vec, tile_rows, threads)
+    (:func:`whole_layout_bytes` with :func:`whole_stage_bytes` of
+    ``vsize``-byte values). The kernel's launcher refuses a launch whose
+    figure differs from its own (``spc5_spmm_whole_smem`` exposes it)."""
+    return whole_layout_bytes(whole_stage_bytes(q, nb, vmax, vsize), stages,
+                              q, nb, r, c, vmax, tw, vec, tile_rows, threads)
 
 
 def whole_tiles(nvec: int, vec: int) -> List[int]:
@@ -255,11 +274,11 @@ _WHOLE_OCCUPANCY: Dict[Tuple[int, ...], Tuple[int, int]] = {}
 
 
 def whole_occupancy(r: int, c: int, vec: int, threads: int, smem: int,
-                    device: torch.device) -> Tuple[int, int]:
+                    device: torch.device, vsize: int = 4) -> Tuple[int, int]:
     """(CTAs one SM holds at once, SMs) for the whole-vector mask kernel of
-    block shape (r, c) and ``vec`` columns a lane, as the CUDA runtime
-    reports them."""
-    key = (r, c, vec, threads, smem, device.index or 0)
+    ``vsize``-byte values, block shape (r, c) and ``vec`` columns a lane,
+    as the CUDA runtime reports them."""
+    key = (vsize, r, c, vec, threads, smem, device.index or 0)
     if key not in _WHOLE_OCCUPANCY:
         lib = _build.load_library("spc5_spmm")
         out = (ctypes.c_int * 2)()
@@ -270,26 +289,30 @@ def whole_occupancy(r: int, c: int, vec: int, threads: int, smem: int,
 
 
 def whole_cta(*, cb: int, r: int, c: int, vmax: int, nvec: int, vec: int,
-              what: str = "whole-vector kernel") -> Dict[str, int]:
+              what: str = "whole-vector kernel",
+              vsize: int = 4) -> Dict[str, int]:
     """The CTA ``spmm_cuda`` plans for lanes of at most ``vec`` columns
-    (:func:`panels_vector`): :func:`whole_plan` with
-    :func:`whole_smem_bytes`."""
+    (:func:`panels_vector`) and ``vsize``-byte values: :func:`whole_plan`
+    with :func:`whole_smem_bytes`."""
     _panel_block(r, c, "whole-vector")
     return whole_plan(lambda s, q, nb, tw, v, rows, t: whole_smem_bytes(
-        s, q, nb, r, c, vmax, tw, v, rows, t), cb, r, c, vmax, nvec, vec,
-        what)
+        s, q, nb, r, c, vmax, tw, v, rows, t, vsize), cb, r, c, vmax, nvec,
+        vec, what)
 
 
 def whole_launch(nchunks: int, *, cb: int, r: int, c: int, vmax: int,
                  nvec: int, vec: int, device: torch.device,
                  grid: Optional[int] = None,
-                 what: str = "whole-vector kernel") -> Dict[str, int]:
-    """The launch ``spmm_cuda`` makes on ``device`` (a card): the CTA of
-    :func:`whole_cta`, then :func:`whole_grid`."""
+                 what: str = "whole-vector kernel",
+                 vsize: int = 4) -> Dict[str, int]:
+    """The launch ``spmm_cuda`` makes on ``device`` (a card) for
+    ``vsize``-byte values: the CTA of :func:`whole_cta`, then
+    :func:`whole_grid`."""
     cta = whole_cta(cb=cb, r=r, c=c, vmax=vmax, nvec=nvec, vec=vec,
-                    what=what)
+                    what=what, vsize=vsize)
     return whole_grid(cta, lambda t, n: whole_occupancy(
-        r, c, cta["vector"], t, n, device), nchunks, nvec, grid, what)
+        r, c, cta["vector"], t, n, device, vsize), nchunks, nvec, grid,
+        what)
 
 
 def spmm_cuda(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
@@ -301,7 +324,8 @@ def spmm_cuda(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
     in a ring, each round's nonzeros listed by row and walked four at a time
     by the lane groups, rows summed in a Y tile (replaces ``spmm_pallas``,
     which has no double-buffered twin). ``chunk_mask`` is the int32 view of
-    the uint32 masks."""
+    the uint32 masks; ``values`` f32, bf16 or int8 (with ``value_scale``,
+    (nchunks,) float32)."""
     fn = "spmm_cuda"
     _unsupported(col_map)
     nchunks = chunk_col.shape[0]
@@ -312,7 +336,8 @@ def spmm_cuda(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
                    **{k: (nchunks, cb) for k in ("chunk_col", "chunk_mask",
                                                  "chunk_voff", "chunk_row")}},
            values.device)
-    _check_values(fn, values, value_scale, (nchunks,))
+    _check_values(fn, values, value_scale, (nchunks,),
+                  kernel_takes_quantised=True)
     nvec = _nvec(x, nvt)
     if x.shape[0] != ncols:
         raise ValueError(f"X has shape {tuple(x.shape)}, expected "
@@ -329,9 +354,10 @@ def spmm_cuda(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
     if x.numel() >= 2 ** 31:
         raise ValueError(f"X has {x.numel()} elements; the kernels index it "
                          f"with 32-bit offsets")
+    vsize = values.element_size()
     launch = whole_launch(nchunks, cb=cb, r=r, c=c, vmax=vmax, nvec=nvec,
-                               vec=panels_vector(nvec, x),
-                               device=values.device, grid=grid, what=fn)
+                          vec=panels_vector(nvec, x), device=values.device,
+                          grid=grid, what=fn, vsize=vsize)
     _aligned({"values": values})
     lib = _build.load_library("spc5_spmm")
     # every CTA adds into Y
@@ -339,8 +365,9 @@ def spmm_cuda(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
     err = lib.spc5_spmm_whole(
         chunk_vbase.data_ptr(), chunk_col.data_ptr(), chunk_mask.data_ptr(),
         chunk_voff.data_ptr(), chunk_row.data_ptr(), values.data_ptr(),
-        x.data_ptr(), y.data_ptr(), nchunks, cb, vmax, nrows, x.shape[0], r,
-        c, nvec, launch["tile_columns"], launch["vector"], launch["grid"],
+        _scale_ptr(value_scale), x.data_ptr(), y.data_ptr(), nchunks, cb,
+        vmax, nrows, x.shape[0], r, c, vsize, values.numel(), nvec,
+        launch["tile_columns"], launch["vector"], launch["grid"],
         launch["stages"], launch["chunks_per_stage"],
         launch["blocks_per_stage"], launch["tile_rows"], launch["smem_bytes"],
         launch["threads"], values.device.index or 0, _stream(values.device))
@@ -377,10 +404,12 @@ PANEL_ROW_PARTS = 1
 PANEL_STAGE_CHUNKS = 4
 
 def panels_smem_bytes(stages: int, q: int, cb: int, vmax: int, prows: int,
-                      tw: int) -> int:
+                      tw: int, vsize: int = 4) -> int:
     """Dynamic shared memory of one panel CTA: the (prows, tw) f32 Y tile
-    of its row part, then ``stages`` stages, each the value windows and x
-    window starts of its ``q`` chunks, the four metadata rows of their q *
+    of its row part, then ``stages`` stages, each the value windows
+    (:func:`~.spc5_spmv.value_window_bytes` of ``vsize``-byte values) and x
+    window starts of its ``q`` chunks, for narrow values each chunk's window
+    offset and scale (8 bytes), the four metadata rows of their q *
     cb blocks (col, mask, voff, row) and a 16-byte slot for the mbarrier and
     two counters, then the sort keys of the q * cb blocks (4 bytes a block)
     and the walk's list of the stage's nonzeros (16 bytes each, at most q *
@@ -388,7 +417,8 @@ def panels_smem_bytes(stages: int, q: int, cb: int, vmax: int, prows: int,
     (``csrc/spc5_spmm.cu``) refuses a launch whose figure differs from its
     own."""
     nb = q * cb
-    stage = q * _r16(4 * vmax) + _r16(4 * q) + 4 * _r16(4 * nb) + 16
+    stage = (q * value_window_bytes(vmax, vsize) + _r16(4 * q)
+             + _window_meta_bytes(q, vsize) + 4 * _r16(4 * nb) + 16)
     return (_r16(4 * prows * tw) + stages * stage + _r16(4 * nb)
             + 16 * q * vmax)
 
@@ -415,9 +445,10 @@ def _panel_block(r: int, c: int, layout: str = "panel") -> None:
 
 
 def panels_plan(stages: int, cb: int, r: int, c: int, vmax: int, pr: int,
-                nvec: int, vec: int,
-                what: str = "panel kernel") -> Dict[str, int]:
-    """The CTA of a panel launch: the widest tile of :func:`panels_tiles`,
+                nvec: int, vec: int, what: str = "panel kernel",
+                vsize: int = 4) -> Dict[str, int]:
+    """The CTA of a panel launch for ``vsize``-byte values: the widest tile
+    of :func:`panels_tiles`,
     cut among the fewest row parts (from :data:`PANEL_ROW_PARTS`, doubling,
     each a multiple of r rows) at which two CTAs fit an SM
     (:data:`TWO_CTA_SMEM_BYTES`), else at which one CTA fits; a stage holds
@@ -439,7 +470,8 @@ def panels_plan(stages: int, cb: int, r: int, c: int, vmax: int, pr: int,
                 prows = -(-pr // (parts * r)) * r
 
                 def nbytes(q, prows=prows, tw=tw):
-                    return panels_smem_bytes(stages, q, cb, vmax, prows, tw)
+                    return panels_smem_bytes(stages, q, cb, vmax, prows, tw,
+                                             vsize)
 
                 def ctas(q):  # an SM's CTAs by shared memory and registers
                     return min(SM_SMEM_BYTES // (nbytes(q) + 1024),
@@ -461,11 +493,12 @@ _OCCUPANCY: Dict[Tuple[int, ...], Tuple[int, int]] = {}
 
 
 def panels_occupancy(stages: int, c: int, vec: int, threads: int, smem: int,
-                     device: torch.device) -> Tuple[int, int]:
-    """(CTAs one SM holds at once, SMs) for the panel kernel of block width
-    c, ``vec`` columns a lane and ``stages`` (1: the synchronous one), as
-    the CUDA runtime reports them."""
-    key = (stages, c, vec, threads, smem, device.index or 0)
+                     device: torch.device, vsize: int = 4) -> Tuple[int, int]:
+    """(CTAs one SM holds at once, SMs) for the panel kernel of
+    ``vsize``-byte values, block width c, ``vec`` columns a lane and
+    ``stages`` (1: the synchronous one), as the CUDA runtime reports
+    them."""
+    key = (stages, vsize, c, vec, threads, smem, device.index or 0)
     if key not in _OCCUPANCY:
         lib = _build.load_library("spc5_spmm")
         out = (ctypes.c_int * 2)()
@@ -478,16 +511,18 @@ def panels_occupancy(stages: int, c: int, vec: int, threads: int, smem: int,
 def panels_launch(stages: int, npanels: int, nchunks: int, *, cb: int,
                   r: int, c: int, vmax: int, pr: int, nvec: int, vec: int,
                   device: torch.device, split: Optional[int] = None,
-                  what: str = "panel kernel") -> Dict[str, int]:
+                  what: str = "panel kernel",
+                  vsize: int = 4) -> Dict[str, int]:
     """The launch a panel wrapper makes on ``device`` (a card) for lanes of
-    at most ``vec`` columns (:func:`panels_vector`): ``stages``, the CTA of
+    at most ``vec`` columns (:func:`panels_vector`) and ``vsize``-byte
+    values: ``stages``, the CTA of
     :func:`panels_plan`, ``ntiles``, the card's ``ctas_per_sm`` and ``sms``,
     ``split`` (S, from :func:`~.spc5_spmv.panels_split` over npanels x row
     parts x ntiles units unless given), ``grid`` (npanels x S x row parts x
     ntiles) and ``chunks_per_cta`` (the longest range)."""
-    cta = panels_plan(stages, cb, r, c, vmax, pr, nvec, vec, what)
+    cta = panels_plan(stages, cb, r, c, vmax, pr, nvec, vec, what, vsize)
     per_sm, sms = panels_occupancy(stages, c, cta["vector"], cta["threads"],
-                                   cta["smem_bytes"], device)
+                                   cta["smem_bytes"], device, vsize)
     ntiles = -(-nvec // cta["tile_columns"])
     units = npanels * cta["row_parts"] * ntiles
     if split is None:
@@ -516,7 +551,8 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
                    **{k: (npanels, nchunks, cb)
                       for k in ("chunk_col", "chunk_mask", "chunk_voff",
                                 "chunk_row")}}, values.device)
-    _check_values(fn, values, value_scale, (npanels, nchunks))
+    _check_values(fn, values, value_scale, (npanels, nchunks),
+                  kernel_takes_quantised=True)
     nvec = _nvec(x, nvt)
     if npanels * pr < nrows:
         raise ValueError(f"{npanels} panels of {pr} rows cannot hold "
@@ -535,10 +571,11 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
     if x.numel() >= 2 ** 31:
         raise ValueError(f"X has {x.numel()} elements; the kernels index it "
                          f"with 32-bit offsets")
+    vsize = values.element_size()
     launch = panels_launch(stages, npanels, nchunks, cb=cb, r=r, c=c,
                            vmax=vmax, pr=pr, nvec=nvec,
                            vec=panels_vector(nvec, x), device=values.device,
-                           split=split, what=fn)
+                           split=split, what=fn, vsize=vsize)
     _aligned({"values": values})
     lib = _build.load_library("spc5_spmm")
     # S > 1 CTAs add into each panel's rows, so Y starts at 0
@@ -549,8 +586,9 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
     err = getattr(lib, f"spc5_spmm_panels_s{stages}")(
         chunk_vbase.data_ptr(), chunk_xbase.data_ptr(), chunk_col.data_ptr(),
         chunk_mask.data_ptr(), chunk_voff.data_ptr(), chunk_row.data_ptr(),
-        values.data_ptr(), x.data_ptr(), y.data_ptr(), npanels, nchunks, cb,
-        vmax, pr, nrows, x.shape[0], r, c, nvec, launch["tile_columns"],
+        values.data_ptr(), _scale_ptr(value_scale), x.data_ptr(),
+        y.data_ptr(), npanels, nchunks, cb, vmax, pr, nrows, x.shape[0], r, c,
+        vsize, values.numel(), nvec, launch["tile_columns"],
         launch["vector"], launch["row_parts"], launch["part_rows"],
         launch["split"], launch["chunks_per_stage"], launch["smem_bytes"],
         launch["threads"], values.device.index or 0, _stream(values.device))
@@ -571,7 +609,8 @@ def spmm_cuda_panels(chunk_vbase, chunk_xbase, chunk_col, chunk_mask,
     stage of chunks copied and waited for before the walk, one lane group
     adding each row of the Y tile (replaces ``spmm_pallas_panels``). X is
     (ncols, nvec); ``xw`` is the layout's window, kept for the
-    signature."""
+    signature; ``values`` f32, bf16 or int8 (with ``value_scale``,
+    (npanels, nchunks) float32)."""
     _unsupported(col_map)
     return _panels("spmm_cuda_panels", 1, chunk_vbase, chunk_xbase,
                    chunk_col, chunk_mask, chunk_voff, chunk_row, values, x,
@@ -588,7 +627,7 @@ def spmm_cuda_panels_db(chunk_vbase, chunk_xbase, chunk_col, chunk_mask,
                         split: Optional[int] = None) -> torch.Tensor:
     """Row-panel SpMM with a ring of :data:`PANEL_DB_STAGES` stages of
     chunks (value windows and metadata) staged ahead by bulk copies
-    (replaces ``spmm_pallas_panels_db``); ``split`` as in
+    (replaces ``spmm_pallas_panels_db``); ``split`` and ``values`` as in
     :func:`spmm_cuda_panels`."""
     _unsupported(col_map)
     return _panels("spmm_cuda_panels_db", PANEL_DB_STAGES, chunk_vbase,

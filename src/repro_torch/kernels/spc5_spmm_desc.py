@@ -434,9 +434,9 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, desc_valid,
         chunk_vbase.data_ptr(), chunk_xbase.data_ptr(), desc_valid.data_ptr(),
         desc_vidx.data_ptr(), desc_xcol.data_ptr(), desc_yrow.data_ptr(),
         values.data_ptr(),
-        0 if value_scale is None else value_scale.data_ptr(), x.data_ptr(),
+        K._scale_ptr(value_scale), x.data_ptr(),
         y.data_ptr(), npanels, nchunks, cb, r, c, vmax, pr, nrows, x.shape[0],
-        vsize, wv, wx, wy, nvec,
+        vsize, values.numel(), wv, wx, wy, nvec,
         launch["tile_columns"], launch["vector"], launch["row_parts"],
         launch["part_rows"], launch["split"], launch["chunks_per_stage"],
         *([launch["blocks_per_stage"]] if stages == 1 else []),

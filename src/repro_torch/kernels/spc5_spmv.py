@@ -19,6 +19,13 @@ each panel's chunks among S CTAs (:func:`panels_launch`; ``split``
 overrides it). Both stage each chunk's value window and metadata in shared
 memory and decode a block row per thread.
 
+Values are f32, bf16 or int8 (with ``value_scale``, one f32 scale a chunk):
+each kernel is built for the three (its template parameter), decoding as
+the reference's ``_expand_vals`` does: bf16 upcast, int8 upcast and then
+multiplied by its chunk's scale, before the product with x, summed in f32.
+A narrow window is staged as the 16-byte aligned span that covers it, kept
+inside ``values`` (:func:`value_span`).
+
 A CPU tensor goes to the plain PyTorch version (:mod:`repro_torch.core.
 ref_spmv`); a CUDA tensor goes to the kernel, or the wrapper raises. There
 is no fallback from one to the other. Each wrapper counts the launches of
@@ -86,6 +93,37 @@ def _unsupported(col_map) -> None:
 #: The value stores a wrapper takes: f32, and the value-dtype axis's
 #: quantised stores, bf16 and int8 (int8 with one f32 scale a chunk).
 VALUE_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
+
+
+def value_window_bytes(vmax: int, vsize: int = 4) -> int:
+    """Shared memory of one staged value window of ``vmax`` values of
+    ``vsize`` bytes (4 f32, 2 bf16, 1 int8), as every kernel that takes
+    narrow values stages it: an f32 window as it lies (its start 16-byte
+    aligned where vbase is a multiple of 4), a narrow one as the 16-byte
+    aligned span that covers it (:func:`value_span`), which needs 16 bytes
+    more (an int8 window starts on any multiple of 8 bytes);
+    ``value_window`` in ``csrc/spc5_stage.cuh``."""
+    return _r16(vsize * vmax) + (16 if vsize < 4 else 0)
+
+
+def value_span(vb: int, vmax: int, vsize: int,
+               nvalues: int) -> Tuple[int, int, int]:
+    """What a kernel copies of the narrow window [vb, vb + vmax) of
+    ``vsize``-byte values (2 bf16, 1 int8) out of a ``values`` of
+    ``nvalues`` values that starts on a 16-byte boundary (the wrappers
+    check it), as ``value_span`` in ``csrc/spc5_stage.cuh`` does:
+    ``(start, nbytes, end)``, in bytes from ``values``' start. The 16-byte
+    aligned span that covers the window runs from ``start`` to ``end``; a
+    window that ends past values' last 16-byte boundary (the last window of
+    a plan whose values end 8 bytes past one) has its span's last 8 bytes
+    left out, so ``start + nbytes`` stays inside ``values``. A window
+    starts and ends on a multiple of 8 bytes, so what is copied still
+    covers it."""
+    p = vb * vsize
+    start, end = p & ~15, _r16(p + vsize * vmax)
+    per_piece = 16 // vsize
+    stop = end - 8 if vb + vmax > nvalues // per_piece * per_piece else end
+    return start, stop - start, end
 
 
 def _check_values(fn: str, values: torch.Tensor, value_scale,
@@ -160,6 +198,12 @@ def _aligned(named: Dict[str, torch.Tensor], boundary: int = 16) -> None:
                 f"{name} must start on a {boundary}-byte boundary")
 
 
+def _scale_ptr(value_scale: Optional[torch.Tensor]) -> int:
+    """The address a launcher takes for an int8 store's scales (0, unread,
+    for the other stores)."""
+    return 0 if value_scale is None else value_scale.data_ptr()
+
+
 def _raise_on(err: int, fn: str) -> None:
     if err != 0:
         raise RuntimeError(f"{fn} failed to launch: CUDA error {err}")
@@ -199,12 +243,13 @@ WHOLE_SPARSE_ROWS_PER_THREAD = 8
 WHOLE_SPARSE_ROW_NNZ = 2
 
 
-def _stage_bytes(cb: int, vmax: int) -> int:
-    """One stage of either layout: the value window, the chunk's four
+def _stage_bytes(cb: int, vmax: int, vsize: int = 4) -> int:
+    """One stage of either layout: the value window
+    (:func:`value_window_bytes` of ``vsize``-byte values), the chunk's four
     metadata rows (cb int32 entries each) and a 16-byte slot for the
-    chunk's x window start and the stage's mbarrier, each part 16-byte
-    aligned."""
-    return _r16(4 * vmax) + 4 * _r16(4 * cb) + 16
+    chunk's x window start, a narrow window's offset in its span and the
+    stage's mbarrier, each part 16-byte aligned."""
+    return value_window_bytes(vmax, vsize) + 4 * _r16(4 * cb) + 16
 
 
 def whole_threads(cb: int, r: int, vmax: int) -> int:
@@ -220,27 +265,29 @@ def whole_threads(cb: int, r: int, vmax: int) -> int:
 
 
 def whole_smem_bytes(stages: int, cb: int, vmax: int, tile: int,
-                     threads: int) -> int:
+                     threads: int, vsize: int = 4) -> int:
     """Dynamic shared memory of one whole-vector CTA: each warp's (tile,)
-    f32 y tile, then ``stages`` stages (:func:`_stage_bytes`). The kernel's
-    ``whole_smem`` (``csrc/spc5_spmv.cu``) refuses a launch whose figure
-    differs from its own."""
-    return _r16(4 * tile * (threads // 32)) + stages * _stage_bytes(cb, vmax)
+    f32 y tile, then ``stages`` stages (:func:`_stage_bytes` of
+    ``vsize``-byte values). The kernel's ``whole_smem``
+    (``csrc/spc5_spmv.cu``) refuses a launch whose figure differs from its
+    own."""
+    return (_r16(4 * tile * (threads // 32))
+            + stages * _stage_bytes(cb, vmax, vsize))
 
 
-_WHOLE_OCCUPANCY: Dict[Tuple[int, int, int, int], Tuple[int, int]] = {}
+_WHOLE_OCCUPANCY: Dict[Tuple[int, ...], Tuple[int, int]] = {}
 
 
 def whole_occupancy(stages: int, threads: int, smem: int,
-                    device: torch.device) -> Tuple[int, int]:
-    """(CTAs one SM holds at once, SMs) for the whole-vector kernel at
-    ``stages`` (1: the synchronous one), as the CUDA runtime reports them."""
-    key = (stages, threads, smem, device.index or 0)
+                    device: torch.device, vsize: int = 4) -> Tuple[int, int]:
+    """(CTAs one SM holds at once, SMs) for the whole-vector kernel of
+    ``vsize``-byte values at ``stages`` (1: the synchronous one), as the
+    CUDA runtime reports them."""
+    key = (stages, vsize, threads, smem, device.index or 0)
     if key not in _WHOLE_OCCUPANCY:
         lib = _build.load_library("spc5_spmv")
         out = (ctypes.c_int * 2)()
-        err = lib.spc5_spmv_whole_occupancy(stages, threads, smem, key[3],
-                                            ctypes.addressof(out))
+        err = lib.spc5_spmv_whole_occupancy(*key, ctypes.addressof(out))
         _raise_on(err, "spc5_spmv_whole_occupancy")
         _WHOLE_OCCUPANCY[key] = (out[0], out[1])
     return _WHOLE_OCCUPANCY[key]
@@ -248,9 +295,11 @@ def whole_occupancy(stages: int, threads: int, smem: int,
 
 def whole_launch(stages: int, nchunks: int, *, cb: int, r: int, vmax: int,
                  device: torch.device, grid: Optional[int] = None,
-                 what: str = "whole-vector kernel") -> Dict[str, int]:
+                 what: str = "whole-vector kernel",
+                 vsize: int = 4) -> Dict[str, int]:
     """The launch a whole-vector wrapper makes on ``device`` (a card) with
-    the kernel of ``stages`` (1, or :data:`WHOLE_DB_STAGES`): ``grid`` (G,
+    the kernel of ``stages`` (1, or :data:`WHOLE_DB_STAGES`) for
+    ``vsize``-byte values: ``grid`` (G,
     from :func:`panels_split` over one "panel" of every chunk at the
     occupancy of the whole ring, unless given), ``chunks_per_cta`` (the
     longest range), ``stages`` (the stages it holds: the ring, or one where
@@ -264,9 +313,9 @@ def whole_launch(stages: int, nchunks: int, *, cb: int, r: int, vmax: int,
                          f"{WHOLE_DB_STAGES} chunks, not {stages}")
     tile = WHOLE_TILE_ROWS
     threads = whole_threads(cb, r, vmax)
-    smem = whole_smem_bytes(stages, cb, vmax, tile, threads)
+    smem = whole_smem_bytes(stages, cb, vmax, tile, threads, vsize)
     _check_smem(smem, what)
-    per_sm, sms = whole_occupancy(stages, threads, smem, device)
+    per_sm, sms = whole_occupancy(stages, threads, smem, device, vsize)
     if grid is None:
         grid = panels_split(1, nchunks, per_sm, sms)
     if not 1 <= grid <= nchunks:
@@ -275,8 +324,8 @@ def whole_launch(stages: int, nchunks: int, *, cb: int, r: int, vmax: int,
     longest = -(-nchunks // grid)
     if longest < stages:
         # the kernel's whole_ring: a CTA uses no more stages than chunks
-        smem = whole_smem_bytes(longest, cb, vmax, tile, threads)
-        per_sm, sms = whole_occupancy(stages, threads, smem, device)
+        smem = whole_smem_bytes(longest, cb, vmax, tile, threads, vsize)
+        per_sm, sms = whole_occupancy(stages, threads, smem, device, vsize)
     return dict(stages=min(stages, longest), smem_bytes=smem,
                 threads=threads, tile_rows=tile, ctas_per_sm=per_sm,
                 sms=sms, grid=grid, chunks_per_cta=longest)
@@ -293,7 +342,8 @@ def _whole(fn: str, stages: int, chunk_vbase, chunk_col, chunk_mask,
                    **{k: (nchunks, cb) for k in ("chunk_col", "chunk_mask",
                                                  "chunk_voff", "chunk_row")},
                    "x": (ncols,)}, values.device)
-    _check_values(fn, values, value_scale, (nchunks,))
+    _check_values(fn, values, value_scale, (nchunks,),
+                  kernel_takes_quantised=True)
     if values.device.type == "cpu":
         return R.spmv(R.SPC5Device(values, chunk_col, chunk_mask, chunk_voff,
                                    chunk_row, chunk_vbase), x, value_scale,
@@ -303,8 +353,10 @@ def _whole(fn: str, stages: int, chunk_vbase, chunk_col, chunk_mask,
     if vmax % 4:
         raise ValueError(f"vmax must be a multiple of 4 (whole 16-byte "
                          f"value windows), got {vmax}")
+    vsize = values.element_size()
     launch = whole_launch(stages, nchunks, cb=cb, r=r, vmax=vmax,
-                          device=values.device, grid=grid, what=fn)
+                          device=values.device, grid=grid, what=fn,
+                          vsize=vsize)
     _aligned({"values": values})
     lib = _build.load_library("spc5_spmv")
     # every CTA adds its rows into y
@@ -312,7 +364,8 @@ def _whole(fn: str, stages: int, chunk_vbase, chunk_col, chunk_mask,
     err = getattr(lib, f"spc5_spmv_whole_s{stages}")(
         chunk_vbase.data_ptr(), chunk_col.data_ptr(), chunk_mask.data_ptr(),
         chunk_voff.data_ptr(), chunk_row.data_ptr(), values.data_ptr(),
-        x.data_ptr(), y.data_ptr(), nchunks, cb, vmax, nrows, r, c,
+        _scale_ptr(value_scale), x.data_ptr(), y.data_ptr(), nchunks, cb,
+        vmax, nrows, r, c, vsize, values.numel(),
         launch["grid"], launch["tile_rows"], launch["smem_bytes"],
         launch["threads"], values.device.index or 0, _stream(values.device))
     _raise_on(err, fn)
@@ -328,7 +381,8 @@ def spmv_cuda(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
     (one CTA each; default from the card's occupancy), each chunk's value
     window and metadata copied and waited for before its decode (replaces
     ``spmv_pallas``). ``chunk_mask`` is the int32 view of the uint32
-    masks."""
+    masks; ``values`` f32, bf16 or int8 (with ``value_scale``, (nchunks,)
+    float32)."""
     _unsupported(col_map)
     return _whole("spmv_cuda", 1, chunk_vbase, chunk_col, chunk_mask,
                   chunk_voff, chunk_row, values, x, value_scale, r=r, c=c,
@@ -342,7 +396,7 @@ def spmv_cuda_db(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
                  grid: Optional[int] = None) -> torch.Tensor:
     """Whole-vector SpMV with a ring of :data:`WHOLE_DB_STAGES` chunks
     (value window and metadata) staged ahead by bulk copies (replaces
-    ``spmv_pallas_db``); ``grid`` as in :func:`spmv_cuda`."""
+    ``spmv_pallas_db``); ``grid`` and ``values`` as in :func:`spmv_cuda`."""
     _unsupported(col_map)
     return _whole("spmv_cuda_db", WHOLE_DB_STAGES, chunk_vbase, chunk_col,
                   chunk_mask, chunk_voff, chunk_row, values, x, value_scale,
@@ -360,23 +414,24 @@ def panel_threads(cb: int, r: int) -> int:
     return min(_MAX_THREADS, max(32, -(-rows // 32) * 32))
 
 
-def panels_smem_bytes(stages: int, cb: int, vmax: int, pr: int) -> int:
+def panels_smem_bytes(stages: int, cb: int, vmax: int, pr: int,
+                      vsize: int = 4) -> int:
     """Dynamic shared memory of one panel-kernel CTA: the (pr,) f32 y tile,
-    then ``stages`` stages, each the value window, the chunk's four
-    metadata rows (cb int32 entries each) and a 16-byte slot for the
-    chunk's x window start and the stage's mbarrier, every part 16-byte
-    aligned. The kernel's ``stage_layout`` (``csrc/spc5_spmv.cu``) refuses
-    a launch whose figure differs from its own."""
-    return _r16(4 * pr) + stages * _stage_bytes(cb, vmax)
+    then ``stages`` stages (:func:`_stage_bytes` of ``vsize``-byte values),
+    every part 16-byte aligned. The kernel's ``stage_layout``
+    (``csrc/spc5_spmv.cu``) refuses a launch whose figure differs from its
+    own."""
+    return _r16(4 * pr) + stages * _stage_bytes(cb, vmax, vsize)
 
 
 def panels_stages(stages: int, cb: int, vmax: int, pr: int,
-                  what: str = "panel kernel") -> Tuple[int, int]:
+                  what: str = "panel kernel",
+                  vsize: int = 4) -> Tuple[int, int]:
     """(stages, shared bytes per CTA) of a panel launch: ``stages == 1`` is
     the synchronous kernel; a ring that does not fit a CTA is shortened
     (down to 2). Raises ``ValueError`` when even that does not fit."""
     def nbytes(s):
-        return panels_smem_bytes(s, cb, vmax, pr)
+        return panels_smem_bytes(s, cb, vmax, pr, vsize)
     while stages > 2 and nbytes(stages) > MAX_SMEM_BYTES:
         stages -= 1
     _check_smem(nbytes(stages), what)
@@ -401,19 +456,19 @@ def chunk_ranges(nchunks: int, parts: int):
             for p in range(parts)]
 
 
-_OCCUPANCY: Dict[Tuple[int, int, int, int], Tuple[int, int]] = {}
+_OCCUPANCY: Dict[Tuple[int, ...], Tuple[int, int]] = {}
 
 
 def panels_occupancy(stages: int, threads: int, smem: int,
-                     device: torch.device) -> Tuple[int, int]:
-    """(CTAs one SM holds at once, SMs) for the panel kernel at ``stages``
-    (1: the synchronous one), as the CUDA runtime reports them."""
-    key = (stages, threads, smem, device.index or 0)
+                     device: torch.device, vsize: int = 4) -> Tuple[int, int]:
+    """(CTAs one SM holds at once, SMs) for the panel kernel of
+    ``vsize``-byte values at ``stages`` (1: the synchronous one), as the
+    CUDA runtime reports them."""
+    key = (stages, vsize, threads, smem, device.index or 0)
     if key not in _OCCUPANCY:
         lib = _build.load_library("spc5_spmv")
         out = (ctypes.c_int * 2)()
-        err = lib.spc5_spmv_panels_occupancy(stages, threads, smem, key[3],
-                                             ctypes.addressof(out))
+        err = lib.spc5_spmv_panels_occupancy(*key, ctypes.addressof(out))
         _raise_on(err, "spc5_spmv_panels_occupancy")
         _OCCUPANCY[key] = (out[0], out[1])
     return _OCCUPANCY[key]
@@ -421,15 +476,16 @@ def panels_occupancy(stages: int, threads: int, smem: int,
 
 def panels_launch(stages: int, npanels: int, nchunks: int, *, cb: int,
                   r: int, vmax: int, pr: int, device: torch.device,
-                  split: Optional[int] = None, what: str = "panel kernel"
-                  ) -> Dict[str, int]:
-    """The launch a panel wrapper makes on ``device`` (a card): ``stages``,
+                  split: Optional[int] = None, what: str = "panel kernel",
+                  vsize: int = 4) -> Dict[str, int]:
+    """The launch a panel wrapper makes on ``device`` (a card) for
+    ``vsize``-byte values: ``stages``,
     ``smem_bytes`` and ``threads`` per CTA, the card's ``ctas_per_sm`` and
     ``sms``, ``split`` (S, from :func:`panels_split` unless given) and
     ``grid`` (npanels * S)."""
-    stages, smem = panels_stages(stages, cb, vmax, pr, what)
+    stages, smem = panels_stages(stages, cb, vmax, pr, what, vsize)
     threads = panel_threads(cb, r)
-    per_sm, sms = panels_occupancy(stages, threads, smem, device)
+    per_sm, sms = panels_occupancy(stages, threads, smem, device, vsize)
     if split is None:
         split = panels_split(npanels, nchunks, per_sm, sms)
     if not 1 <= split <= nchunks:
@@ -452,7 +508,8 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
                    **{k: (npanels, nchunks, cb)
                       for k in ("chunk_col", "chunk_mask", "chunk_voff",
                                 "chunk_row")}}, values.device)
-    _check_values(fn, values, value_scale, (npanels, nchunks))
+    _check_values(fn, values, value_scale, (npanels, nchunks),
+                  kernel_takes_quantised=True)
     if x.dim() != 1:
         raise ValueError(f"x must be 1-D, got shape {tuple(x.shape)}")
     if npanels * pr < nrows:
@@ -466,8 +523,10 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
             ncols_pad=ncols_pad)
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
+    vsize = values.element_size()
     launch = panels_launch(stages, npanels, nchunks, cb=cb, r=r, vmax=vmax,
-                           pr=pr, device=values.device, split=split, what=fn)
+                           pr=pr, device=values.device, split=split, what=fn,
+                           vsize=vsize)
     # the kernels read x in place at the set lanes, all inside every chunk's
     # window: x shorter than ncols_pad is padded as the Pallas wrappers pad it
     xp = (x if x.shape[0] >= ncols_pad else
@@ -481,8 +540,9 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
     err = getattr(lib, f"spc5_spmv_panels_s{1 if stages == 1 else 2}")(
         chunk_vbase.data_ptr(), chunk_xbase.data_ptr(), chunk_col.data_ptr(),
         chunk_mask.data_ptr(), chunk_voff.data_ptr(), chunk_row.data_ptr(),
-        values.data_ptr(), xp.data_ptr(), y.data_ptr(), npanels, nchunks, cb,
-        vmax, pr, nrows, r, c, launch["split"], *ring, launch["smem_bytes"],
+        values.data_ptr(), _scale_ptr(value_scale), xp.data_ptr(),
+        y.data_ptr(), npanels, nchunks, cb, vmax, pr, nrows, r, c, vsize,
+        values.numel(), launch["split"], *ring, launch["smem_bytes"],
         launch["threads"], values.device.index or 0, _stream(values.device))
     _raise_on(err, fn)
     LAUNCHES[fn] += 1
@@ -500,7 +560,8 @@ def spmv_cuda_panels(chunk_vbase, chunk_xbase, chunk_col, chunk_mask,
     chunk's value window and metadata at a time, waiting for it before the
     decode, and sum into a (pr,) y tile in shared memory (replaces
     ``spmv_pallas_panels``). x is (ncols,), read in place (padded where
-    shorter than ncols_pad)."""
+    shorter than ncols_pad); ``values`` f32, bf16 or int8 (with
+    ``value_scale``, (npanels, nchunks) float32)."""
     _unsupported(col_map)
     return _panels("spmv_cuda_panels", 1, chunk_vbase, chunk_xbase,
                    chunk_col, chunk_mask, chunk_voff, chunk_row, values, x,
@@ -517,7 +578,7 @@ def spmv_cuda_panels_db(chunk_vbase, chunk_xbase, chunk_col, chunk_mask,
                         split: Optional[int] = None) -> torch.Tensor:
     """Row-panel SpMV with a ring of :data:`DB_STAGES` chunks (value
     window and metadata) staged ahead by bulk copies (replaces
-    ``spmv_pallas_panels_db``)."""
+    ``spmv_pallas_panels_db``); ``values`` as in :func:`spmv_cuda_panels`."""
     _unsupported(col_map)
     return _panels("spmv_cuda_panels_db", DB_STAGES, chunk_vbase,
                    chunk_xbase, chunk_col, chunk_mask, chunk_voff, chunk_row,

@@ -53,10 +53,11 @@ from repro_torch.core import ref_spmv as R
 
 from . import _build
 from . import spc5_spmv as K
-# one split rule and one cut into chunk ranges for every SpMV pair
-# (SPLIT_WAVES and chunk_ranges are re-exported)
+# one split rule and one cut into chunk ranges for every SpMV pair, and one
+# value window for every kernel that takes narrow values (SPLIT_WAVES and
+# chunk_ranges are re-exported)
 from .spc5_spmv import (SPLIT_WAVES, _r16, chunk_ranges,  # noqa: F401
-                        panels_split)
+                        panels_split, value_window_bytes)
 
 #: Launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES: Dict[str, int] = {"spmv_cuda_desc": 0, "spmv_cuda_desc_db": 0,
@@ -303,17 +304,6 @@ def spmv_cuda_desc_db(chunk_vbase, desc_valid, desc_vidx, desc_xcol,
 DB_STAGES = 3
 
 
-def value_window_bytes(vmax: int, vsize: int = 4) -> int:
-    """Shared memory of one staged value window of ``vmax`` values of
-    ``vsize`` bytes (4 f32, 2 bf16, 1 int8), as the panel descriptor
-    kernels stage it: an f32 window as it lies (its start 16-byte aligned
-    where vbase is a multiple of 4), a narrow one as the 16-byte aligned
-    span that covers it, which needs 16 bytes more (an int8 window starts
-    on any multiple of 8 bytes); ``value_window`` in
-    ``csrc/spc5_stage.cuh``."""
-    return _r16(vsize * vmax) + (16 if vsize < 4 else 0)
-
-
 def panels_smem_bytes(stages: int, nb: int, r: int, c: int, vmax: int,
                       xw: int, pr: int, wv: int, wx: int,
                       vsize: int = 4) -> int:
@@ -419,9 +409,9 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, desc_valid,
         chunk_vbase.data_ptr(), chunk_xbase.data_ptr(), desc_valid.data_ptr(),
         desc_vidx.data_ptr(), desc_xcol.data_ptr(), desc_yrow.data_ptr(),
         values.data_ptr(),
-        0 if value_scale is None else value_scale.data_ptr(), xp.data_ptr(),
+        K._scale_ptr(value_scale), xp.data_ptr(),
         y.data_ptr(), npanels, nchunks, cb, r, c, vmax, xw, pr, nrows, vsize,
-        wv, wx, wy, launch["split"],
+        values.numel(), wv, wx, wy, launch["split"],
         launch["blocks_per_stage"] if stages == 1 else launch["stages"],
         launch["smem_bytes"], launch["threads"], values.device.index or 0,
         K._stream(values.device))

@@ -304,7 +304,7 @@ def test_panel_mask_smem_matches_the_kernel(cuda, case, stages):
     from repro_torch.kernels import _build
     geom = MASK_SMEM_GEOMETRIES[case]
     lib = _build.load_library("spc5_spmv")
-    assert lib.spc5_spmv_panels_smem(stages, *geom) == \
+    assert lib.spc5_spmv_panels_smem(stages, *geom, 4) == \
         K.panels_smem_bytes(stages, *geom)
 
 
@@ -321,9 +321,10 @@ def test_panel_mask_launch_refuses_a_wrong_smem_figure(cuda):
     y = torch.full((plan.nrows,), 7.0, device=cuda)
     ptrs = [t.data_ptr() for t in (
         plan.chunk_vbase, plan.chunk_xbase, plan.chunk_col, plan.chunk_mask,
-        plan.chunk_voff, plan.chunk_row, plan.values, _x(plan, 17, cuda), y)]
+        plan.chunk_voff, plan.chunk_row, plan.values)]
+    ptrs += [0] + [t.data_ptr() for t in (_x(plan, 17, cuda), y)]  # no scale
     geom = (plan.npanels, plan.nchunks, plan.cb, plan.vmax, plan.pr,
-            plan.nrows, plan.r, plan.c)
+            plan.nrows, plan.r, plan.c, 4, plan.values.numel())
     stream = torch.cuda.current_stream(cuda).cuda_stream
     for split, smem in ((1, launch["smem_bytes"] + 16),
                         (plan.nchunks + 1, launch["smem_bytes"])):
@@ -600,7 +601,7 @@ def test_whole_mask_smem_matches_the_kernel(cuda, case, stages):
     from repro_torch.kernels import _build
     geom = WHOLE_MASK_SMEM_GEOMETRIES[case]
     lib = _build.load_library("spc5_spmv")
-    assert lib.spc5_spmv_whole_smem(stages, *geom) == \
+    assert lib.spc5_spmv_whole_smem(stages, *geom, 4) == \
         K.whole_smem_bytes(stages, *geom)
 
 
@@ -615,9 +616,11 @@ def test_whole_mask_launch_refuses_what_was_not_planned(cuda):
     y = torch.full((plan.nrows,), 7.0, device=cuda)
     ptrs = [t.data_ptr() for t in (
         plan.chunk_vbase, plan.chunk_col, plan.chunk_mask, plan.chunk_voff,
-        plan.chunk_row, plan.values, _x(plan, 57, cuda), y)]
+        plan.chunk_row, plan.values)]
+    ptrs += [0] + [t.data_ptr() for t in (_x(plan, 57, cuda), y)]  # no scale
     n = _wmask_chunks(plan)
-    geom = (n, plan.cb, plan.vmax, plan.nrows, plan.r, plan.c)
+    geom = (n, plan.cb, plan.vmax, plan.nrows, plan.r, plan.c, 4,
+            plan.values.numel())
     stream = torch.cuda.current_stream(cuda).cuda_stream
     for stages in (1, 2):
         launch = K.whole_launch(stages, n, cb=plan.cb, r=plan.r,
@@ -2019,7 +2022,7 @@ def test_mask_panel_spmm_smem_matches_the_kernel(cuda, case, stages):
     from repro_torch.kernels import _build
     geom = MASK_SPMM_SMEM_GEOMETRIES[case]
     lib = _build.load_library("spc5_spmm")
-    assert lib.spc5_spmm_panels_smem(stages, *geom) == \
+    assert lib.spc5_spmm_panels_smem(stages, *geom, 4) == \
         KM.panels_smem_bytes(stages, *geom)
 
 
@@ -2307,7 +2310,7 @@ def test_whole_spmm_smem_matches_the_kernel(cuda, case, widths):
     head = (stages, q, nb, r, c, vmax)
     tail = (tw, vec, rows, threads)
     assert _build.load_library("spc5_spmm").spc5_spmm_whole_smem(
-        *head, *tail) == KM.whole_smem_bytes(*head, *tail)
+        *head, *tail, 4) == KM.whole_smem_bytes(*head, *tail)
     assert _build.load_library("spc5_spmm_desc").spc5_spmm_desc_whole_smem(
         *head, *widths, *tail) == KDM.whole_smem_bytes(*head, *widths, *tail)
 
@@ -2862,17 +2865,11 @@ def test_quantised_launch_refuses_a_wrong_smem_figure(cuda, monkeypatch,
 
 
 #: The wrappers outside the quantised slice, as a plan's entry points reach
-#: them: (layout, lowering, SpMM, double_buffer) -> wrapper.
+#: them: (layout, lowering, SpMM, double_buffer) -> wrapper. The seven mask
+#: wrappers take quantised values since (``_QM_ENTRY``).
 _Q_REFUSING = {
-    ("whole_vector", "mask", False, True): "spmv_cuda_db",
-    ("whole_vector", "mask", False, False): "spmv_cuda",
-    ("panels", "mask", False, True): "spmv_cuda_panels_db",
-    ("panels", "mask", False, False): "spmv_cuda_panels",
     ("whole_vector", "descriptor", False, True): "spmv_cuda_desc_db",
     ("whole_vector", "descriptor", False, False): "spmv_cuda_desc",
-    ("whole_vector", "mask", True, True): "spmm_cuda",
-    ("panels", "mask", True, True): "spmm_cuda_panels_db",
-    ("panels", "mask", True, False): "spmm_cuda_panels",
     ("whole_vector", "descriptor", True, True): "spmm_cuda_desc",
 }
 
@@ -2949,3 +2946,336 @@ def test_quantised_layer_on_the_card_matches_the_cpu_layer(cuda, vdtype):
         assert y.dtype == torch.float32
         err = float((y - y_ref).abs().max())
         assert err <= RTOL * max(float(y_ref.abs().max()), 1.0)
+
+
+# ----------------------------------------------------------------------------
+# quantised values (bf16, int8) in the seven mask kernels, and every narrow
+# window's copy kept inside values
+# ----------------------------------------------------------------------------
+
+#: The mask wrappers that take quantised values: wrapper -> (module, layout).
+QM_KERNELS = {"spmv_cuda": (K, "whole_vector"),
+              "spmv_cuda_db": (K, "whole_vector"),
+              "spmv_cuda_panels": (K, "panels"),
+              "spmv_cuda_panels_db": (K, "panels"),
+              "spmm_cuda": (KM, "whole_vector"),
+              "spmm_cuda_panels": (KM, "panels"),
+              "spmm_cuda_panels_db": (KM, "panels")}
+QM_SPMM = ("spmm_cuda", "spmm_cuda_panels", "spmm_cuda_panels_db")
+
+
+def _qm_plan(rc, vdtype, layout, device, lowering="mask", align=8, n=302,
+             m=260, density=0.08, cb=8, mat=None):
+    """A mask (or descriptor) plan at ``vdtype``: whole-vector cb 8, or
+    panels of 64 rows (many chunks a panel)."""
+    mat = _matrix(rc, n=n, m=m, density=density) if mat is None else mat
+    geom = (dict(cb=cb) if layout == "whole_vector"
+            else dict(pr=64, xw=64, cb=cb))
+    return ops.prepare(mat, layout=layout, lowering=lowering, vdtype=vdtype,
+                       tune=False, device=device, align=align, **geom)
+
+
+def _qm_scale(plan):
+    return plan.value_scale if plan.vdtype == "int8" else None
+
+
+def _qm_plain(plan, x):
+    """The plain version of the plan's product (upcast, then the int8
+    scale) on the card."""
+    scale, dev = _qm_scale(plan), plan.dev
+    spmm = x.dim() == 2
+    if plan.lowering == "descriptor":
+        fn = R.spmm_panels_desc if spmm else R.spmv_panels_desc
+        return fn(dev, x, None, scale, pr=plan.pr, nrows=plan.nrows,
+                  ncols_pad=plan.ncols_pad)
+    if plan.layout == "panels":
+        fn = R.spmm_panels if spmm else R.spmv_panels
+        return fn(dev, x, None, scale, r=plan.r, c=plan.c, pr=plan.pr,
+                  nrows=plan.nrows, ncols_pad=plan.ncols_pad)
+    fn = R.spmm if spmm else R.spmv
+    return fn(dev, x, scale, r=plan.r, c=plan.c, nrows=plan.nrows,
+              ncols=plan.ncols)
+
+
+def _qm_call(kernel, plan, x, values=None, **kw):
+    """One call of wrapper ``kernel`` on the plan's arrays (``values`` in
+    place of the plan's where given), counted once and held against the
+    plain version."""
+    mod = {**{k: v[0] for k, v in QM_KERNELS.items()},
+           "spmv_cuda_panels_desc": KD, "spmv_cuda_panels_desc_db": KD,
+           "spmm_cuda_panels_desc": KDM,
+           "spmm_cuda_panels_desc_db": KDM}[kernel]
+    vals = plan.values if values is None else values
+    args = ((plan.chunk_vbase, plan.chunk_xbase) if plan.layout == "panels"
+            else (plan.chunk_vbase,))
+    if plan.lowering == "descriptor":
+        args += (plan.desc_valid, plan.desc_vidx, plan.desc_xcol,
+                 plan.desc_yrow)
+    else:
+        args += (plan.chunk_col, plan.chunk_mask, plan.chunk_voff,
+                 plan.chunk_row)
+    geom = dict(r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax,
+                nrows=plan.nrows)
+    geom.update(dict(xw=plan.xw, pr=plan.pr, ncols_pad=plan.ncols_pad)
+                if plan.layout == "panels" else dict(ncols=plan.ncols))
+    plain = _qm_plain(plan, x)
+    before = mod.LAUNCHES[kernel]
+    y = getattr(mod, kernel)(*args, vals, x, None, _qm_scale(plan), **geom,
+                             **kw)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES[kernel] == before + 1
+    assert y.dtype == torch.float32 and y.shape == plain.shape
+    assert torch.isfinite(y).all()
+    ref = float(plain.abs().max()) if plain.numel() else 0.0
+    err = float((y - plain).abs().max()) if y.numel() else 0.0
+    assert err <= RTOL * max(ref, 1.0), (err, ref, kw)
+
+
+def _qm_x(kernel, plan, device, nvec=16, seed=31):
+    if kernel.startswith("spmm"):
+        return _xmat(plan.ncols, nvec, seed, device)
+    return _x(plan, seed, device)
+
+
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+@pytest.mark.parametrize("vdtype", QUANT_VDTYPES)
+@pytest.mark.parametrize("kernel", sorted(QM_KERNELS))
+def test_quantised_mask_block_shapes(cuda, kernel, vdtype, rc):
+    """Each of the seven mask kernels at bf16 and int8 on every block shape,
+    at the launch its wrapper plans (SpMM at nvec 16)."""
+    plan = _qm_plan(rc, vdtype, QM_KERNELS[kernel][1], cuda)
+    assert plan.values.dtype == {"bf16": torch.bfloat16,
+                                 "int8": torch.int8}[vdtype]
+    _qm_call(kernel, plan, _qm_x(kernel, plan, cuda))
+
+
+@pytest.mark.parametrize("force", ["one", "each_chunk"])
+@pytest.mark.parametrize("vdtype", QUANT_VDTYPES)
+@pytest.mark.parametrize("kernel", sorted(QM_KERNELS))
+def test_quantised_mask_forced_grids(cuda, kernel, vdtype, force):
+    """G = 1 or S = 1, and one chunk a CTA (a whole-vector grid of every
+    chunk, a panel split of every chunk of a panel)."""
+    layout = QM_KERNELS[kernel][1]
+    plan = _qm_plan((4, 8), vdtype, layout, cuda)
+    n = int(plan.chunk_vbase.shape[-1])
+    key = "grid" if layout == "whole_vector" else "split"
+    _qm_call(kernel, plan, _qm_x(kernel, plan, cuda),
+             **{key: 1 if force == "one" else n})
+
+
+@pytest.mark.parametrize("nvec", [1, 2, 3, 5, 16, 100, 128, 256])
+@pytest.mark.parametrize("vdtype", QUANT_VDTYPES)
+@pytest.mark.parametrize("kernel", QM_SPMM)
+def test_quantised_mask_spmm_widths(cuda, kernel, vdtype, nvec):
+    """The three mask SpMM kernels at nvec 1 to 256 (each a multiple of
+    min(nvt, nvec), the reference's rule at nvt = 128)."""
+    plan = _qm_plan((2, 4), vdtype, QM_KERNELS[kernel][1], cuda)
+    _qm_call(kernel, plan, _qm_x(kernel, plan, cuda, nvec=nvec))
+
+
+@pytest.mark.parametrize("align", [4, 8])
+@pytest.mark.parametrize("vdtype", QUANT_VDTYPES)
+@pytest.mark.parametrize("kernel", sorted(QM_KERNELS))
+def test_quantised_mask_windows_off_16_bytes(cuda, kernel, vdtype, align):
+    """Value windows that start off a 16-byte boundary (int8 at align 8
+    and 4, bf16 at align 4): the kernels stage the aligned span that covers
+    a window and index into it."""
+    plan = _qm_plan((2, 4), vdtype, QM_KERNELS[kernel][1], cuda, align=align)
+    itemsize = plan.values.element_size()
+    off = bool(((plan.chunk_vbase * itemsize) % 16 != 0).any())
+    assert off == (vdtype == "int8" or align == 4)
+    _qm_call(kernel, plan, _qm_x(kernel, plan, cuda))
+
+
+def test_quantised_mask_all_zero_chunks_take_scale_one(cuda):
+    """Rows whose values are all zero (kept as nonzeros) make chunks of
+    scale 1.0 in both layouts; every mask kernel gives their rows 0."""
+    d = _dense((302, 260), 0.08, 29)
+    csr = F.csr_from_dense(d)
+    csr.values[:csr.rowptr[64]] = 0.0
+    mat = F.csr_to_spc5(csr, 2, 4)
+    for layout in ("whole_vector", "panels"):
+        plan = _qm_plan((2, 4), "int8", layout, cuda, mat=mat)
+        assert bool((plan.value_scale == 1.0).any())
+        for kernel, (_, lay) in QM_KERNELS.items():
+            if lay == layout:
+                _qm_call(kernel, plan, _qm_x(kernel, plan, cuda))
+
+
+#: Every kernel that stages narrow windows: (layout, lowering).
+QM_NARROW = {**{k: (v[1], "mask") for k, v in QM_KERNELS.items()},
+             **{k: ("panels", "descriptor") for k in QUANT_KERNELS}}
+
+
+def _qm_reaching_plan(vdtype, layout, lowering, device):
+    """A plan (powerlaw, beta(4,8); bf16 at align 4) whose last window's
+    16-byte aligned span reaches past ``values``, and that span's end."""
+    vsize = 2 if vdtype == "bf16" else 1
+    for seed in range(40):
+        mat = F.csr_to_spc5(matgen.powerlaw(200 + 10 * seed, 5, seed=seed),
+                            4, 8)
+        plan = _qm_plan((4, 8), vdtype, layout, device, lowering=lowering,
+                        align=4 if vdtype == "bf16" else 8, mat=mat)
+        nvalues = plan.values.numel()
+        ends = [K.value_span(vb, plan.vmax, vsize, nvalues)[2]
+                for vb in plan.chunk_vbase.flatten().tolist()]
+        if max(ends) > nvalues * vsize:
+            return plan
+    raise AssertionError("no plan's last span reaches past its values")
+
+
+@pytest.mark.parametrize("vdtype", QUANT_VDTYPES)
+@pytest.mark.parametrize("kernel", sorted(QM_NARROW))
+def test_narrow_span_at_the_end_of_exact_length_values(cuda, kernel, vdtype):
+    """A plan whose last window's aligned span would reach 8 bytes past
+    ``values``, its values copied into a tensor of exactly their length:
+    each of the eleven kernels that stage narrow windows (the seven mask
+    kernels and the four panel descriptor kernels) copies that window
+    without its span's last 8 bytes and agrees with the plain version."""
+    layout, lowering = QM_NARROW[kernel]
+    plan = _qm_reaching_plan(vdtype, layout, lowering, cuda)
+    exact = torch.empty(plan.values.numel(), dtype=plan.values.dtype,
+                        device=cuda)
+    exact.copy_(plan.values)
+    _qm_call(kernel, plan, _qm_x(kernel, plan, cuda), values=exact)
+
+
+def _qm_launch_name(kernel):
+    """The module attribute a mask wrapper plans its launch with."""
+    layout = QM_KERNELS[kernel][1]
+    return "panels_launch" if layout == "panels" else "whole_launch"
+
+
+@pytest.mark.parametrize("vdtype", ["f32", *QUANT_VDTYPES])
+@pytest.mark.parametrize("kernel", sorted(QM_KERNELS))
+def test_quantised_mask_launch_refuses_a_wrong_smem_figure(cuda, monkeypatch,
+                                                           kernel, vdtype):
+    """At every value width, a launch handed a shared-memory figure 16
+    bytes off the kernel's is refused (CUDA error 1) and not counted."""
+    mod, layout = QM_KERNELS[kernel]
+    plan = _qm_plan((4, 8), vdtype, layout, cuda)
+    name = _qm_launch_name(kernel)
+    real = getattr(mod, name)
+
+    def off(*args, **kw):
+        launch = real(*args, **kw)
+        return dict(launch, smem_bytes=launch["smem_bytes"] + 16)
+    monkeypatch.setattr(mod, name, off)
+    before = dict(mod.LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        _qm_call(kernel, plan, _qm_x(kernel, plan, cuda))
+    assert mod.LAUNCHES == before
+
+
+@pytest.mark.parametrize("kernel", sorted(QM_KERNELS))
+def test_int8_mask_launch_refuses_no_scales(cuda, monkeypatch, kernel):
+    """An int8 launch handed no scale pointer is refused by the launcher
+    (CUDA error 1) and not counted."""
+    mod, layout = QM_KERNELS[kernel]
+    plan = _qm_plan((4, 8), "int8", layout, cuda)
+    monkeypatch.setattr(mod, "_scale_ptr", lambda scale: 0)
+    before = dict(mod.LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        _qm_call(kernel, plan, _qm_x(kernel, plan, cuda))
+    assert mod.LAUNCHES == before
+
+
+@pytest.mark.parametrize("vsize", [4, 2, 1])
+@pytest.mark.parametrize("layout", ["spmv_panels", "spmv_whole",
+                                    "spmm_panels", "spmm_whole"])
+def test_quantised_mask_smem_matches_the_kernel(cuda, layout, vsize):
+    """Each mask wrapper's shared-memory formula at 4-, 2- and 1-byte values
+    is the figure its kernel's own layout gives, on the geometries of the
+    f32 tests above."""
+    from repro_torch.kernels import _build
+    spmv = _build.load_library("spc5_spmv")
+    spmm = _build.load_library("spc5_spmm")
+    if layout == "spmv_panels":
+        for geom in MASK_SMEM_GEOMETRIES.values():
+            for stages in (1, 2, 3):
+                assert spmv.spc5_spmv_panels_smem(stages, *geom, vsize) == \
+                    K.panels_smem_bytes(stages, *geom, vsize)
+    elif layout == "spmv_whole":
+        for geom in WHOLE_MASK_SMEM_GEOMETRIES.values():
+            for stages in (1, 2):
+                assert spmv.spc5_spmv_whole_smem(stages, *geom, vsize) == \
+                    K.whole_smem_bytes(stages, *geom, vsize)
+    elif layout == "spmm_panels":
+        for geom in MASK_SPMM_SMEM_GEOMETRIES.values():
+            for stages in (1, 2):
+                assert spmm.spc5_spmm_panels_smem(stages, *geom, vsize) == \
+                    KM.panels_smem_bytes(stages, *geom, vsize)
+    else:
+        for geom in WHOLE_SPMM_SMEM_GEOMETRIES.values():
+            assert spmm.spc5_spmm_whole_smem(*geom, vsize) == \
+                KM.whole_smem_bytes(*geom, vsize)
+
+
+#: The mask wrappers as a plan's entry points reach them, each with a
+#: quantised plan: (layout, SpMM, double_buffer) -> wrapper.
+_QM_ENTRY = {
+    ("whole_vector", False, True): "spmv_cuda_db",
+    ("whole_vector", False, False): "spmv_cuda",
+    ("panels", False, True): "spmv_cuda_panels_db",
+    ("panels", False, False): "spmv_cuda_panels",
+    ("whole_vector", True, True): "spmm_cuda",
+    ("panels", True, True): "spmm_cuda_panels_db",
+    ("panels", True, False): "spmm_cuda_panels",
+}
+
+
+@pytest.mark.parametrize("vdtype", QUANT_VDTYPES)
+@pytest.mark.parametrize("case", sorted(_QM_ENTRY, key=str))
+def test_quantised_mask_plans_run_their_kernels(cuda, case, vdtype):
+    """A quantised mask plan through ``ops.spmv`` / ``ops.spmm`` launches
+    its kernel once, and nothing else, and agrees with the plain version
+    (these entry points raised "queue 2 A" before the mask kernels took
+    quantised values)."""
+    layout, spmm, db = case
+    plan = ops.prepare(_matrix((4, 8)), layout=layout, lowering="mask",
+                       vdtype=vdtype, tune=False, device=cuda, **(
+                           {"cb": 16} if layout == "whole_vector"
+                           else {"pr": 64, "xw": 64, "cb": 16}))
+    x = _xmat(plan.ncols, 16, 3, cuda) if spmm else _x(plan, 3, cuda)
+    plain = _qm_plain(plan, x)
+    before = _q_launches()
+    y = (ops.spmm if spmm else ops.spmv)(plan, x, double_buffer=db)
+    torch.cuda.synchronize()
+    after = _q_launches()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {_QM_ENTRY[case]: 1}
+    err = float((y - plain).abs().max())
+    assert err <= RTOL * max(float(plain.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("layout", ["whole_vector", "panels"])
+@pytest.mark.parametrize("vdtype", QUANT_VDTYPES)
+def test_quantised_mask_layer_on_the_card_matches_the_cpu_layer(cuda, vdtype,
+                                                                layout):
+    """``SparseLinear`` at a quantised vdtype with the mask lowering on the
+    card (whole-vector: ``spmv_cuda_db`` / ``spmm_cuda``; panels:
+    ``spmv_cuda_panels_db`` / ``spmm_cuda_panels_db``) against the same
+    layer on the CPU (the plain versions), batch 1 and 16, bit-equal
+    plans."""
+    w = np.random.default_rng(7).standard_normal((600, 300)).astype(
+        np.float32)
+    geom = dict(cb=8) if layout == "whole_vector" else dict(pr=64, xw=64,
+                                                            cb=8)
+    kw = dict(density=0.2, block=(4, 8), vdtype=vdtype, layout=layout,
+              lowering="mask", tune=False, **geom)
+    gpu = SparseLinear.from_dense(w, device=cuda, **kw)
+    cpu = SparseLinear.from_dense(w, device="cpu", **kw)
+    for a, b in zip(gpu.plan.arrays, cpu.plan.arrays):
+        assert torch.equal(a.cpu(), b)
+    x = np.random.default_rng(8).standard_normal((16, 300)).astype(np.float32)
+    before = _q_launches()
+    for xb in (x[:1], x):
+        y = gpu(torch.from_numpy(xb).to(cuda)).cpu()
+        y_ref = cpu(torch.from_numpy(xb))
+        assert y.dtype == torch.float32
+        err = float((y - y_ref).abs().max())
+        assert err <= RTOL * max(float(y_ref.abs().max()), 1.0)
+    after = _q_launches()
+    ran = {k for k in after if after[k] != before[k]}
+    assert ran == ({"spmv_cuda_db", "spmm_cuda"} if layout == "whole_vector"
+                   else {"spmv_cuda_panels_db", "spmm_cuda_panels_db"})

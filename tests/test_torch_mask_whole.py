@@ -137,7 +137,7 @@ def fake_card(monkeypatch):
     wrapper asks the CUDA runtime there)."""
     asked = []
 
-    def occupancy(stages, threads, smem, device):
+    def occupancy(stages, threads, smem, device, vsize=4):
         asked.append((stages, threads, smem))
         return _ctas_per_sm(smem, threads), 132
     monkeypatch.setattr(K, "whole_occupancy", occupancy)

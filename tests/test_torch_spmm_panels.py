@@ -71,7 +71,7 @@ def _ctas_per_sm(smem, threads):
 def fake_card(monkeypatch):
     """``panels_occupancy`` as an H100 of 132 SMs would answer it."""
     monkeypatch.setattr(KM, "panels_occupancy",
-                        lambda stages, c, vec, threads, smem, device:
+                        lambda stages, c, vec, threads, smem, device, vsize=4:
                         (_ctas_per_sm(smem, threads), 132))
 
 

@@ -125,7 +125,7 @@ def _ctas_per_sm(smem, threads):
 @pytest.fixture
 def fake_card(monkeypatch):
     """Both kernels' occupancy as an H100 of 132 SMs would answer it."""
-    def occ(r, c, vec, threads, smem, device):
+    def occ(r, c, vec, threads, smem, device, vsize=4):
         return _ctas_per_sm(smem, threads), 132
     monkeypatch.setattr(KM, "whole_occupancy", occ)
     monkeypatch.setattr(KDM, "whole_occupancy", occ)

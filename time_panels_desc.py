@@ -172,7 +172,7 @@ def whole_settings(plan, launch):
 #: kernel, group 2 a template argument where it has one).
 WHOLE_SASS = {"descriptor": ("spc5_spmv_desc",
                              r"\d(spmv_desc_whole_kernel)ILi(\d)E"),
-              "mask": ("spc5_spmv", r"\d(spmv_whole_kernel)ILi(\d)E"),
+              "mask": ("spc5_spmv", r"\d(spmv_whole_kernel)IfLi(\d)E"),
               "tail": ("spc5_spmv_tail",
                        r"\d(sp(?:mv|mm)_tail_kernel)(?:ILi(\d)E)?")}
 

@@ -244,15 +244,16 @@ SASS = {("panels", "descriptor"): (
             "spc5_spmm_desc", r"spmm_desc_panels_kernelIfLi4ELi8ELi4ELi(\d)E",
             "spmm_desc_panels_kernel<f32,4,8,4,{}>"),
         ("panels", "mask"): (
-            "spc5_spmm", r"spmm_panels_kernelILi8ELi4ELi(\d)E",
-            "spmm_panels_kernel<8,4,{}>"),
+            "spc5_spmm", r"spmm_panels_kernelIfLi8ELi4ELi(\d)E",
+            "spmm_panels_kernel<f32,8,4,{}>"),
         ("whole", "descriptor"): (
             "spc5_spmm_desc",
             r"spmm_whole_kernelINS_9DescWholeELi4ELi8ELi(\d)E",
             "spmm_whole_kernel<DescWhole,4,8,{}>"),
         ("whole", "mask"): (
-            "spc5_spmm", r"spmm_whole_kernelINS_9MaskWholeELi4ELi8ELi(\d)E",
-            "spmm_whole_kernel<MaskWhole,4,8,{}>"),
+            "spc5_spmm",
+            r"spmm_whole_kernelINS_9MaskWholeIfEELi4ELi8ELi(\d)E",
+            "spmm_whole_kernel<MaskWhole<f32>,4,8,{}>"),
         ("tail", "tail"): (
             "spc5_spmv_tail", r"spmm_tail_kernelILi(\d)E",
             "spmm_tail_kernel<{}>")}
