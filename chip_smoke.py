@@ -17,14 +17,15 @@ phase that goes wrong:
    split's two tail kernels (SpMV, and SpMM at nvec 3, 16 and 128) on
    three bucket geometries (the reference's tail test, nrows % pr != 0,
    and a window wider than 12,288 columns), each at its planned launch, at
-   S = 1 / G = 1 and at one group of 128 slots a CTA; and the eleven
-   kernels that take quantised values (the four panel descriptor kernels
-   and the seven mask kernels) at bf16 and int8 values on every block
-   shape (SpMV at its planned launch, S / G = 1 and one chunk a CTA; SpMM
-   at nvec 3, 16 and 128, planned launch and S / G = 1), with all-zero
-   chunks (scale 1.0), int8 windows that start off a 16-byte boundary and
-   int8 plans whose last window's 16-byte aligned span would reach past
-   their values (the kernels copy it short of that);
+   S = 1 / G = 1 and at one group of 128 slots a CTA, at f32 and at bf16
+   (the test layout keeps a bf16 plan's tail in bf16); and the fourteen
+   kernels that take bf16 and int8 values (the seven descriptor kernels
+   and the seven mask kernels) at both widths on every block shape (SpMV
+   at its planned launch, S / G = 1 and one chunk a CTA; SpMM at nvec 3,
+   16 and 128, planned launch and S / G = 1), with all-zero chunks (scale
+   1.0), int8 windows that start off a 16-byte boundary and int8 plans
+   whose last window's 16-byte aligned span would reach past their values
+   (the kernels copy it short of that);
 4. SpMV path: builds ``matgen.fem_blocks(200_000, 4, 12, seed=5)``, the
    SET_A bone010 structure class at 200,000 rows (about 9.5 M nonzeros), in
    beta(4,4), and drives ``ops.prepare`` + ``ops.spmv`` through both
@@ -59,7 +60,14 @@ phase that goes wrong:
    reference's pick for one decode token), ``ops.spmv`` with
    ``double_buffer`` True and False (both kernels also at one chunk a CTA)
    and ``ops.spmm`` at batches of 16 and 128, printing the tables' bytes,
-   the pair's launches and the host time of ``chunk_descriptors``; and the
+   the pair's launches and the host time of ``chunk_descriptors``; the
+   same token plan at bf16 and int8 (``ops.prepare(mat, vdtype=...)``,
+   which must resolve to whole-vector + descriptor by the cost model at
+   every width; about 1.9 GB each, freed after the phase) through
+   ``ops.spmv`` with both buffer settings and ``ops.spmm`` at 16 and 128,
+   each width's counts holding ``spmv_cuda_desc[_db]`` / ``spmm_cuda_desc``
+   and nothing else, each output checked as the quantised layers' below and
+   each kernel timed in turns with the f32 token plan; and the
    default layer and both mask layers at bf16 and int8 values:
    ``ops.prepare(mat, vdtype=..., nvec=128)`` on the same converted matrix
    must resolve to panels + descriptor in beta(4,8), ``ops.prepare(mat,
@@ -92,7 +100,15 @@ phase that goes wrong:
    whole-vector multi, tail through the plain ``spmv_coo``, no tail kernel;
    both whole-vector descriptor SpMV kernels also run on its multi
    sub-plan alone, at the launch their wrappers pick and at one chunk a
-   CTA. Prints the host time of ``split_singletons``;
+   CTA. Prints the host time of ``split_singletons``. Then the same path at
+   bf16: layer (a) as ``ops.prepare(beta(2,4), layout="test", vdtype="bf16",
+   nvec=128)`` (panels multi, bf16 buckets: both tail kernels run their
+   bf16 instantiations) and the flat-tail plan (b) at bf16 (its
+   whole-vector multi runs ``spmv_cuda_desc_db`` on bf16 values), driven
+   and counted as at f32, every output held against its plain version, the
+   f64 product of the dequantised values and the bf16 pin, both tail kernels
+   also alone, then each tail kernel timed in turns on the same buckets at
+   f32 and bf16 (and the flat plan's multi, bf16 against f32);
 7. in each path every launch counter is set to 0 just before and read just
    after, and every kernel of the path must have launched; every output is
    checked against the kernel's plain version on the card and against a
@@ -119,8 +135,10 @@ phase that goes wrong:
    kernels read of it (``time_panels_desc.py`` times the panel kernels at
    other splits and ring lengths, the whole-vector pairs at other grids,
    threads and tiles);
-9. prints the ``{"kernels": [...]}`` line, then, last, the
-   ``{"ok": true, "device": ...}`` line.
+9. prints its total time, the ``{"kernels": [...]}`` line (each kernel's
+   ``value_dtypes``, the widths it launched at on the main path, and at
+   bf16 / int8 its launches, errors and times in turns under
+   ``quantised``), then, last, the ``{"ok": true, "device": ...}`` line.
 
 It needs the repository beside it (``src/repro_torch``) and a CUDA device;
 it never runs on the CPU.
@@ -252,24 +270,19 @@ def build_kernels() -> None:
         kernel = ""
         for line in str(rec["log"]).splitlines():
             if "Compiling entry function" in line:
-                m = re.search(r"(sp(?:mv|mm)(?:_desc)?_(?:whole|panels)"
-                              r"_kernel)I(?:NS_\d+(\w+?)E)?"
+                m = re.search(r"(sp(?:mv|mm)(?:(?:_desc)?_(?:whole|panels)|"
+                              r"_tail)_kernel)I(?:NS_\d+(\w+?)E)?"
                               r"((?:Li\d+E|[asif]|13__nv_bfloat16)+)E", line)
                 if m:
                     targs = [n or INDEX_TYPE[t] for n, t in re.findall(
                         r"Li(\d+)E|(13__nv_bfloat16|[asif])", m.group(3))]
                     policy = m.group(2)
-                    if policy:  # a policy of the value store: MaskWhole<T>
+                    if policy:  # a policy of the value store: *Whole<T>
                         policy = re.sub(
                             r"I(13__nv_bfloat16|[asif])E$",
                             lambda t: f"<{INDEX_TYPE[t.group(1)]}>", policy)
                     kernel = (f"{m.group(1)}<"
                               f"{','.join(([policy] if policy else []) + targs)}>")
-                elif "spmv_tail_kernel" in line:
-                    kernel = "spmv_tail_kernel"
-                elif re.search(r"spmm_tail_kernelILi\d", line):
-                    v = re.search(r"spmm_tail_kernelILi(\d)", line).group(1)
-                    kernel = f"spmm_tail_kernel<{v}>"
                 else:
                     kernel = line.split("'")[1]
             elif "Used" in line and kernel:
@@ -285,9 +298,11 @@ def tail_y(plan, x):
     """A test plan's singleton tail times x (1-D) or X (2-D), in plain
     PyTorch: for panel buckets ``spmv_coo_panels`` / ``spmm_coo_panels``
     (the tail kernels' plain versions), for a flat tail ``spmv_coo`` /
-    ``spmm_coo``."""
+    ``spmm_coo``. For an f64 x the values are upcast to f64 first."""
     from repro_torch.core import ref_spmv as R
     rows, cols, vals = plan.single_rows, plan.single_cols, plan.single_values
+    if x.dtype != vals.dtype and x.element_size() > 4:
+        vals = vals.to(x.dtype)  # an f64 product: the values upcast, exactly
     if plan.tail_pr:
         fn = R.spmv_coo_panels if x.dim() == 1 else R.spmm_coo_panels
         return fn(rows, cols, vals, x, pr=plan.tail_pr, nrows=plan.nrows)
@@ -305,19 +320,23 @@ def tail_launch(plan, nvec=None, x=None, **forced):
     from repro_torch.kernels import spc5_spmm as KM
     from repro_torch.kernels import spc5_spmv_tail as KT
     npanels, smax = plan.single_rows.shape
+    vsize = plan.single_values.element_size()
+    label = {4: "f32", 2: "bf16"}[vsize]
     if nvec is None:
         if plan.device.type != "cuda":
             return dict(threads=KT.TAIL_THREADS, smem_bytes=0,
                         groups=KT.tail_groups(smax))
-        out = KT.tail_launch(npanels, smax, device=plan.device, **forced)
-        out["registers"] = REGISTERS.get("spmv_tail_kernel")
+        out = KT.tail_launch(npanels, smax, device=plan.device, vsize=vsize,
+                             **forced)
+        out["registers"] = REGISTERS.get(f"spmv_tail_kernel<{label}>")
         return out
     vec = KM.panels_vector(nvec, x)
     if plan.device.type != "cuda":
-        return KT.spmm_tail_cta(nvec, vec)
+        return KT.spmm_tail_cta(nvec, vec, vsize)
     out = KT.spmm_tail_launch(npanels * smax, nvec, vec, device=plan.device,
-                              **forced)
-    out["registers"] = REGISTERS.get(f"spmm_tail_kernel<{out['vector']}>")
+                              vsize=vsize, **forced)
+    out["registers"] = REGISTERS.get(
+        f"spmm_tail_kernel<{label},{out['vector']}>")
     return out
 
 
@@ -332,7 +351,8 @@ def plain_y(plan, x, dtype=None):
     from repro_torch.core.plan import _plan_scale
     if plan.layout == "test":
         y = plain_y(plan.multi, x, dtype)
-        return y + tail_y(plan, x) if plan.n_single else y
+        xt = x if dtype is None else x.to(dtype)
+        return y + tail_y(plan, xt) if plan.n_single else y
     dev, scale = plan.dev, _plan_scale(plan)
     if dtype is not None:
         dev = dev._replace(values=dev.values.to(dtype))
@@ -431,11 +451,12 @@ def small_check(device) -> None:
           f"the 7 descriptor kernels on the {' and '.join(WIDE_TALL)} "
           f"matrices (int32 xcol / yrow), {TAIL_KERNEL} and "
           f"{SPMM_TAIL_KERNEL} (nvec 3, 16, 128) on {len(TAIL_SMALL)} bucket "
-          f"geometries, each also at S = 1 / G = 1 and one group a CTA; all "
-          f"agree with the plain versions (worst {worst:.3g} of max|y|)")
+          f"geometries at f32 and bf16, each also at S = 1 / G = 1 and one "
+          f"group a CTA; all agree with the plain versions (worst "
+          f"{worst:.3g} of max|y|)")
 
 
-#: The kernels that take quantised values (bf16, int8), each with the layer
+#: The kernels the vocab layers run at bf16 and int8, each with the layer
 #: (layout, lowering) it runs on: the four panel descriptor kernels and the
 #: seven mask kernels.
 QUANTISED = {
@@ -451,7 +472,20 @@ QUANTISED = {
     "spmv_cuda": ("whole_vector", "mask"),
     "spmm_cuda": ("whole_vector", "mask"),
 }
+#: The whole-vector descriptor kernels, which the token plan runs at bf16 and
+#: int8 (:func:`build_token_plan`).
+TOKEN_QUANTISED = {
+    "spmv_cuda_desc_db": ("whole_vector", "descriptor"),
+    "spmv_cuda_desc": ("whole_vector", "descriptor"),
+    "spmm_cuda_desc": ("whole_vector", "descriptor"),
+}
+#: Every kernel that takes int8 values, and bf16: the small check's.
+SMALL_QUANTISED = {**QUANTISED, **TOKEN_QUANTISED}
 VDTYPES = ("bf16", "int8")
+#: The widths each tail kernel takes: the test layout keeps a bf16 plan's
+#: tail in bf16 and an int8 plan's in f32 (the reference's rule: a tail has
+#: no scale).
+TAIL_VDTYPES = ("bf16",)
 
 
 def live_chunks(plan):
@@ -463,7 +497,7 @@ def live_chunks(plan):
 def spans_past_values(plan):
     """Whether a narrow window's 16-byte aligned span reaches past the
     plan's values (``spc5_spmv.value_span``; the kernels copy such a span
-    without its last 8 bytes)."""
+    up to the values' end)."""
     from repro_torch.kernels import spc5_spmv as K
     vsize, nvalues = plan.values.element_size(), plan.values.numel()
     return any(K.value_span(vb, plan.vmax, vsize, nvalues)[2]
@@ -472,9 +506,9 @@ def spans_past_values(plan):
 
 
 def small_check_quantised(device) -> float:
-    """The eleven :data:`QUANTISED` kernels at bf16 and int8 against their
-    plain versions on every block shape (302x260, :data:`SMALL_GEOM`: the
-    panel descriptor, panel mask and whole-vector mask plans), the SpMV
+    """The fourteen :data:`SMALL_QUANTISED` kernels at bf16 and int8 against
+    their plain versions on every block shape (302x260, :data:`SMALL_GEOM`:
+    the panel and whole-vector plans of both lowerings), the SpMV
     kernels at their planned launch, S = 1 / G = 1 and one chunk a CTA, the
     SpMM kernels at nvec 3, 16 and 128 at their planned launch and S = 1 /
     G = 1. The first 64 rows' values are zeros kept as nonzeros, so their
@@ -486,7 +520,7 @@ def small_check_quantised(device) -> float:
     from repro_torch.core import formats as F
     from repro_torch.kernels import ops
     worst, unaligned, reaching = 0.0, 0, 0
-    layers = sorted(set(QUANTISED.values()))
+    layers = sorted(set(SMALL_QUANTISED.values()))
     for rc in F.SUPPORTED_BLOCKS:
         rng = np.random.default_rng(7 * rc[0] + rc[1])
         d = ((rng.random((302, 260)) < 0.08)
@@ -513,7 +547,7 @@ def small_check_quantised(device) -> float:
                              & live_chunks(plan)).any()):
                     raise SmokeFailure(f"small check: {rc} int8 {key} has no "
                                        f"all-zero chunk of scale 1.0")
-            for name, key in QUANTISED.items():
+            for name, key in SMALL_QUANTISED.items():
                 plan = plans[key]
                 spmm = name.startswith("spmm")
                 n = int(plan.chunk_vbase.shape[-1])
@@ -538,7 +572,7 @@ def small_check_quantised(device) -> float:
     if not reaching:
         raise SmokeFailure("small check: no int8 plan's last span reaches "
                            "past its values")
-    print(f"  quantised: the {len(QUANTISED)} quantised kernels (4 panel "
+    print(f"  quantised: the {len(SMALL_QUANTISED)} quantised kernels (7 "
           f"descriptor, 7 mask) at bf16 and int8 x {len(F.SUPPORTED_BLOCKS)} "
           f"block shapes (SpMV at the planned launch, S / G = 1, one chunk a "
           f"CTA; SpMM nvec 3, 16, 128 at the planned launch, S / G = 1), "
@@ -561,8 +595,9 @@ TAIL_SMALL = {
 def small_check_tail(device) -> float:
     """``spmv_tail_cuda`` against ``spmv_coo_panels`` and ``spmm_tail_cuda``
     against ``spmm_coo_panels`` (nvec 3, 16 and 128) on each
-    :data:`TAIL_SMALL` geometry in beta(2,4), each at its planned launch, at
-    S = 1 / G = 1 and at one group of slots a CTA, and the whole test
+    :data:`TAIL_SMALL` geometry in beta(2,4), f32 and bf16 (the test plan
+    built at ``vdtype="bf16"``: bf16 buckets), each at its planned launch,
+    at S = 1 / G = 1 and at one group of slots a CTA, and the whole test
     plan's SpMV and SpMM against their plain versions. Returns the worst
     error over max|y|."""
     import torch
@@ -571,7 +606,9 @@ def small_check_tail(device) -> float:
     from repro_torch.kernels import ops
     from repro_torch.kernels import spc5_spmv_tail as KT
     worst = 0.0
-    for label, (kind, n, geom) in TAIL_SMALL.items():
+    for (label, (kind, n, geom)), vdtype in (
+            (case, v) for case in TAIL_SMALL.items()
+            for v in ("f32", *TAIL_VDTYPES)):
         if kind == "powerlaw":
             csr = matgen.powerlaw(n, 5, seed=17)
         else:
@@ -582,7 +619,11 @@ def small_check_tail(device) -> float:
                                    .astype(np.float32))
         plan = ops.prepare(F.csr_to_spc5(csr, *TEST_BLOCK), layout="test",
                            multi_layout="panels", lowering="mask",
-                           tune=False, device=device, **geom)
+                           tune=False, device=device, vdtype=vdtype, **geom)
+        if plan.single_values.dtype != (torch.bfloat16 if vdtype == "bf16"
+                                        else torch.float32):
+            raise SmokeFailure(f"small check: {label} {vdtype} tail is "
+                               f"{plan.single_values.dtype}")
         smax = int(plan.single_rows.shape[1])
         shape = dict(nrows=plan.nrows, pr=plan.tail_pr, xw=plan.tail_xw,
                      smax=smax)
@@ -618,9 +659,9 @@ def small_check_tail(device) -> float:
             err = rel_err(got, want)
             worst = max(worst, err)
             if tuple(got.shape) != tuple(want.shape) or not err <= TOL:
-                raise SmokeFailure(f"small check: {what} {label} {shape}: "
-                                   f"rel err {err}")
-        print(f"  tail kernels {label}: {shape}; launches "
+                raise SmokeFailure(f"small check: {what} {label} {vdtype} "
+                                   f"{shape}: rel err {err}")
+        print(f"  tail kernels {label} {vdtype}: {shape}; launches "
               f"{tail_launch(plan)}, nvec=16 {tail_launch(plan, 16)}")
     return worst
 
@@ -718,10 +759,10 @@ def whole_launches(plan):
     desc = plan.lowering == "descriptor"
     vsize = plan.values.element_size()
     if desc:
-        mod, kernel = KD, "spmv_desc_whole_kernel<"
+        mod, kernel = KD, f"spmv_desc_whole_kernel<{value_label(plan)},"
         geom = dict(cb=plan.cb, r=plan.r, c=plan.c, vmax=plan.vmax,
                     wv=plan.desc_vidx.element_size(),
-                    wx=plan.desc_xcol.element_size())
+                    wx=plan.desc_xcol.element_size(), vsize=vsize)
     else:
         mod, kernel = K, f"spmv_whole_kernel<{value_label(plan)},"
         geom = dict(cb=plan.cb, r=plan.r, vmax=plan.vmax, vsize=vsize)
@@ -1159,12 +1200,12 @@ def whole_spmm_launch(plan, nvec, grid=None, x=None):
     geom = dict(cb=plan.cb, r=plan.r, c=plan.c, vmax=plan.vmax, nvec=nvec,
                 vec=KM.panels_vector(nvec, x))
     if plan.lowering == "descriptor":
-        mod, policy = KDM, "DescWhole"
+        mod, policy = KDM, f"DescWhole<{value_label(plan)}>"
         geom.update(wv=plan.desc_vidx.element_size(),
                     wx=plan.desc_xcol.element_size())
     else:
         mod, policy = KM, f"MaskWhole<{value_label(plan)}>"
-        geom.update(vsize=plan.values.element_size())
+    geom.update(vsize=plan.values.element_size())
     if plan.device.type != "cuda":
         return mod.whole_cta(**geom)
     out = mod.whole_launch(int(plan.chunk_vbase.shape[0]), device=plan.device,
@@ -1608,27 +1649,60 @@ def drive_quantised(layers, acts, device):
     return ys, counts()
 
 
-def check_quantised(layers, ys, launches, acts, csr):
-    """For each width: the eleven quantised kernels launched, in the counts
-    and in nothing else; each output finite, of its shape, within ``TOL``
-    of max|y| of its plain version on the card and of the f64 product of
-    the dequantised values (the plain version in float64), and,
-    elementwise, within the pins of ``tests/test_vdtype.py`` of the f64
-    product of the f32 weight: ``2**-7 * (|A| @ |x|)`` for bf16, ``smax / 2
-    * ((|A| > 0) @ |x|)`` for int8 (smax = max|A| / 127, at least every
-    chunk's scale), each plus 1e-5. Returns {vdtype: {kernel: max|y -
-    plain|}} and the worst share of a pin used."""
-    import torch
+def quantised_refs(csr, acts):
+    """The f64 products a quantised output is pinned to: for x (batch 1) and
+    each batch's X, (A @ x, |A| @ |x|, (|A| > 0) @ |x|) of the f32 weight
+    ``csr``, on the card; and smax = max|A| / 127 (at least every chunk's
+    int8 scale). Returns ({batch: x}, {batch: refs}, smax)."""
     device = next(iter(acts.values())).device
     a64, absa, nza = (sparse_csr(csr, device, v, np.float64) for v in (
         None, np.abs(csr.values), (csr.values != 0).astype(np.float64)))
-    smax = float(np.abs(csr.values).max()) / 127.0
     xs = {1: acts[SPMM_NVECS[0]][0]}
     xs.update({n: a.t().contiguous() for n, a in acts.items()})
     refs = {}
     for n, x in xs.items():
         xd = x.double() if x.dim() == 2 else x.double()[:, None]
         refs[n] = (a64 @ xd, absa @ xd.abs(), nza @ xd.abs())
+    return xs, refs, float(np.abs(csr.values).max()) / 127.0
+
+
+def check_quantised_y(name, vdtype, plan, y, x, ref, smax, what):
+    """One quantised output: finite, of its shape, within ``TOL`` of max|y|
+    of its plain version on the card and of the f64 product of the
+    dequantised values (the plain version in float64), and, elementwise,
+    within the pins of ``tests/test_vdtype.py`` of the f64 product of the f32
+    weight (``ref``, :func:`quantised_refs`): ``2**-7 * (|A| @ |x|)`` for
+    bf16, ``smax / 2 * ((|A| > 0) @ |x|)`` for int8, each plus 1e-5. Returns
+    max|y - plain| and the share of the pin used."""
+    import torch
+    n = 1 if x.dim() == 1 else x.shape[1]
+    shape = (plan.nrows,) if x.dim() == 1 else (plan.nrows, n)
+    if tuple(y.shape) != shape or not bool(torch.isfinite(y).all()):
+        raise SmokeFailure(f"{name} {vdtype}: bad output {tuple(y.shape)}")
+    plain = plain_y(plan, x)
+    abs_err = float((y - plain).abs().max())
+    e_plain = rel_err(y, plain)
+    del plain
+    e_deq = rel_err(y, plain_y(plan, x, torch.float64))
+    y64, absb, nzb = (r if x.dim() == 2 else r[:, 0] for r in ref)
+    pin = (2.0 ** -7 * absb if vdtype == "bf16" else 0.5 * smax * nzb) + 1e-5
+    used = float(((y.double() - y64).abs() / pin).max())
+    print(f"check {name} {vdtype} batch {n} ({what}): max|y - plain| = "
+          f"{abs_err:.3g} ({e_plain:.3g} of max|y|), vs the f64 dequantised "
+          f"product {e_deq:.3g} of max|y|, vs the f64 f32-weight product "
+          f"{used:.3g} of its {vdtype} pin")
+    if not (e_plain <= TOL and e_deq <= TOL and used <= 1.0):
+        raise SmokeFailure(f"{name} {vdtype} batch {n} disagrees: {e_plain} "
+                           f"/ {e_deq} > {TOL} or pin share {used} > 1")
+    return abs_err, used
+
+
+def check_quantised(layers, ys, launches, acts, csr):
+    """For each width: the eleven quantised kernels launched, in the counts
+    and in nothing else; each output checked by :func:`check_quantised_y`.
+    Returns {vdtype: {kernel: max|y - plain|}} and the worst share of a pin
+    used."""
+    xs, refs, smax = quantised_refs(csr, acts)
     errs, worst_pin = {}, {}
     for vdtype, width in layers.items():
         want = {name: len(acts) if name.startswith("spmm") else 1
@@ -1640,30 +1714,9 @@ def check_quantised(layers, ys, launches, acts, csr):
         errs[vdtype], worst_pin[vdtype] = {}, 0.0
         for (name, n), y in ys[vdtype].items():
             plan = width[QUANTISED[name]].plan
-            x = xs[n]
-            shape = (plan.nrows,) if x.dim() == 1 else (plan.nrows, n)
-            if tuple(y.shape) != shape or not bool(torch.isfinite(y).all()):
-                raise SmokeFailure(f"{name} {vdtype}: bad output "
-                                   f"{tuple(y.shape)}")
-            plain = plain_y(plan, x)
-            abs_err = float((y - plain).abs().max())
-            e_plain = rel_err(y, plain)
-            del plain
-            e_deq = rel_err(y, plain_y(plan, x, torch.float64))
-            y64, absb, nzb = (r if x.dim() == 2 else r[:, 0]
-                              for r in refs[n])
-            pin = (2.0 ** -7 * absb if vdtype == "bf16"
-                   else 0.5 * smax * nzb) + 1e-5
-            used = float(((y.double() - y64).abs() / pin).max())
-            print(f"check {name} {vdtype} batch {n} (quantised "
-                  f"{plan.layout} {plan.lowering} layer): max|y - plain| = "
-                  f"{abs_err:.3g} ({e_plain:.3g} of max|y|), vs the f64 "
-                  f"dequantised product {e_deq:.3g} of max|y|, vs the f64 "
-                  f"f32-weight product {used:.3g} of its {vdtype} pin")
-            if not (e_plain <= TOL and e_deq <= TOL and used <= 1.0):
-                raise SmokeFailure(f"{name} {vdtype} batch {n} disagrees: "
-                                   f"{e_plain} / {e_deq} > {TOL} or pin "
-                                   f"share {used} > 1")
+            abs_err, used = check_quantised_y(
+                name, vdtype, plan, y, xs[n], refs[n], smax,
+                f"quantised {plan.layout} {plan.lowering} layer")
             errs[vdtype][name] = max(errs[vdtype].get(name, 0.0), abs_err)
             worst_pin[vdtype] = max(worst_pin[vdtype], used)
     return errs, worst_pin
@@ -1677,13 +1730,13 @@ def values_bytes(plan):
             + (0 if scale is None else scale.numel() * scale.element_size()))
 
 
-def csr_library_ms(csr, x, f32_ms, timer):
+def csr_library_ms(csr, x, f32_ms, timer, t=None):
     """cuSPARSE's time for the product on bf16 values and bf16 x where the
     card's torch takes it (``torch.mv`` / ``@`` on a bf16
     ``sparse_csr_tensor``), else the f32 figure ``f32_ms``: returns (ms,
-    which)."""
+    which). ``t``: the f32 ``sparse_csr_tensor`` in place of ``csr``'s."""
     import torch
-    t = sparse_csr(csr, x.device)
+    t = sparse_csr(csr, x.device) if t is None else t
     tb = torch.sparse_csr_tensor(t.crow_indices(), t.col_indices(),
                                  t.values().to(torch.bfloat16), size=t.shape)
     xb = x.to(torch.bfloat16)
@@ -1704,7 +1757,7 @@ def quantised_launch(name, plan, nvec):
     (:func:`panel_launches`, :func:`whole_launches`,
     :func:`spmm_panel_launches` or :func:`whole_spmm_launch`)."""
     ring = "s2" if name.endswith("_db") else "s1"
-    if name == "spmm_cuda":
+    if name.startswith("spmm") and plan.layout == "whole_vector":
         return whole_spmm_launch(plan, nvec)
     if name.startswith("spmm"):
         return spmm_panel_launches(plan, nvec)[ring]
@@ -1713,16 +1766,26 @@ def quantised_launch(name, plan, nvec):
     return panel_launches(plan)[ring]
 
 
-def measure_quantised(layers, f32_layers, acts, csr, library, batch1,
+def quantised_library(csr, acts, f32_library, timer=cuda_time_ms):
+    """cuSPARSE on the weight at batch 1 and every SpMM batch, on bf16
+    values where the card takes it (:func:`csr_library_ms`; ``f32_library``
+    {batch: ms} the f32 figures otherwise): {batch: (ms, which)}."""
+    xs = {1: acts[SPMM_NVECS[0]][0].contiguous()}
+    xs.update({n: a.t().contiguous() for n, a in acts.items()})
+    return {n: csr_library_ms(csr, x, f32_library[n], timer)
+            for n, x in xs.items()}
+
+
+def measure_quantised(layers, f32_layers, acts, csr, lib, kernels=QUANTISED,
                       timer=cuda_time_ms):
-    """Each quantised kernel at batch 1 (SpMV) or 16 and 128 (SpMM) beside
-    the same kernel on the f32 layer of its layout and lowering, timed in
-    turns (f32, bf16, int8, int8, bf16, f32; each width's two medians
-    averaged), its bound (the plan's arrays as built: values at their
-    stored width, int8 scales, checked against the f32 plan's figure), its
-    plain version (median of :data:`QUANTISED_PLAIN_REPS` calls) and
-    cuSPARSE (on bf16 values where the card takes it, else the f32 figure;
-    which is printed and kept). Returns {kernel: {vdtype: {batch:
+    """Each quantised kernel of ``kernels`` (name -> layer key) at batch 1
+    (SpMV) or 16 and 128 (SpMM) beside the same kernel on the f32 layer of
+    its layout and lowering, timed in turns (f32, bf16, int8, int8, bf16,
+    f32; each width's two medians averaged), its bound (the plan's arrays
+    as built: values at their stored width, int8 scales, checked against
+    the f32 plan's figure), its plain version (median of
+    :data:`QUANTISED_PLAIN_REPS` calls) and cuSPARSE (``lib``,
+    :func:`quantised_library`). Returns {kernel: {vdtype: {batch:
     numbers}}}."""
     for key, f32_layer in f32_layers.items():
         fplan = f32_layer.plan
@@ -1743,11 +1806,6 @@ def measure_quantised(layers, f32_layers, acts, csr, library, batch1,
                   f"int8 scales included)")
     xs = {1: acts[SPMM_NVECS[0]][0].contiguous()}
     xs.update({n: a.t().contiguous() for n, a in acts.items()})
-    lib = {}
-    for n, x in xs.items():
-        f32_ms = (batch1["spmv_cuda_panels_desc_db"]["library_ms"] if n == 1
-                  else library[n])
-        lib[n] = csr_library_ms(csr, x, f32_ms, timer)
     plain = {}
     for vdtype, width in layers.items():
         for key, layer in width.items():
@@ -1758,7 +1816,7 @@ def measure_quantised(layers, f32_layers, acts, csr, library, batch1,
                     lambda p=layer.plan, v=x: plain_y(p, v), x.device,
                     reps=QUANTISED_PLAIN_REPS)
     out = {}
-    for name, key in QUANTISED.items():
+    for name, key in kernels.items():
         spmm = name.startswith("spmm")
         out[name] = {v: {} for v in layers}
         plans = {"f32": f32_layers[key].plan,
@@ -1809,10 +1867,11 @@ def measure_quantised(layers, f32_layers, acts, csr, library, batch1,
 TOKEN_KERNELS = ("spmv_cuda_desc_db", "spmv_cuda_desc")
 
 
-def build_token_plan(mat, device):
+def build_token_plan(mat, device, vdtype=None):
     """``ops.prepare(mat)`` at nvec=1 with the lowering left at its default,
-    as a batch-1 caller builds it: the layout pass must pick whole-vector
-    and the descriptor lowering (the reference's choice). The host time of
+    as a batch-1 caller builds it (at ``vdtype`` where given: bf16 or
+    int8): the layout pass must pick whole-vector and the descriptor
+    lowering (the reference's choice, at every width). The host time of
     ``formats.chunk_descriptors`` inside the build is taken by wrapping it
     for this one call."""
     from repro_torch.core import formats as F
@@ -1829,20 +1888,24 @@ def build_token_plan(mat, device):
     F.chunk_descriptors = timed
     try:
         t0 = time.perf_counter()
-        plan = ops.prepare(mat, device=device)
+        plan = ops.prepare(mat, device=device, **(
+            {} if vdtype is None else {"vdtype": vdtype}))
         total = time.perf_counter() - t0
     finally:
         F.chunk_descriptors = expand
     entry = next(e for e in plan.trace if e["pass"] == "layout")
-    print(f"token plan: layout pass {json.dumps(entry, sort_keys=True)}; "
-          f"prepare {total:.1f} s, of which chunk_descriptors "
-          f"{sum(seconds):.1f} s (host)")
-    if (plan.layout, plan.lowering, entry.get("lowering_reason")) != (
-            "whole_vector", "descriptor", "cost-model"):
-        raise SmokeFailure(f"the batch-1 plan is {plan.layout} / "
-                           f"{plan.lowering}: {entry}")
-    print_plan("vocab whole_vector descriptor", plan)
-    print_spmm_plan("vocab whole_vector descriptor", plan)
+    label = value_label(plan)
+    print(f"token plan {label}: layout pass "
+          f"{json.dumps(entry, sort_keys=True)}; prepare {total:.1f} s, of "
+          f"which chunk_descriptors {sum(seconds):.1f} s (host); "
+          f"{needed_bytes(plan, whole_plan=True)} bytes")
+    if (plan.layout, plan.lowering, entry.get("lowering_reason"),
+            label) != ("whole_vector", "descriptor", "cost-model",
+                       vdtype or "f32"):
+        raise SmokeFailure(f"the batch-1 plan at {vdtype} is {plan.layout} "
+                           f"/ {plan.lowering} ({label} values): {entry}")
+    print_plan(f"vocab whole_vector descriptor {label}", plan)
+    print_spmm_plan(f"vocab whole_vector descriptor {label}", plan)
     return plan
 
 
@@ -1919,6 +1982,51 @@ def measure_token(plan, mask_plan, x1, acts, csr, launches, errs, vper,
     return per
 
 
+def token_quantised(mat, tplan, acts, csr, lib, timer=cuda_time_ms):
+    """The token plan at bf16 and int8 (:func:`build_token_plan`: each must
+    resolve to whole-vector + descriptor by the cost model): ``ops.spmv``
+    with both buffer settings and ``ops.spmm`` at every batch
+    (:func:`drive_token`, each width's counts holding its three kernels and
+    nothing else), every output checked by :func:`check_quantised_y`, then
+    each kernel timed in turns with the f32 token plan ``tplan``
+    (:func:`measure_quantised`). Both plans are freed before it returns.
+    Returns ({vdtype: counts}, {vdtype: {kernel: max|y - plain|}},
+    {vdtype: worst pin share}, the timings)."""
+    from repro_torch.core.sparse_linear import SparseLinear
+    device = tplan.device
+    x1 = acts[SPMM_NVECS[0]][0].contiguous()
+    xs, refs, smax = quantised_refs(csr, acts)
+    key = ("whole_vector", "descriptor")
+    plans, launches, errs, pins = {}, {}, {}, {}
+    for vdtype in VDTYPES:
+        plan = build_token_plan(mat, device, vdtype)
+        ys, launches[vdtype] = drive_token(plan, x1, acts, device)
+        print(f"launches on the {vdtype} whole-vector descriptor path: "
+              f"{launches[vdtype]}")
+        want = {"spmv_cuda_desc_db": 1, "spmv_cuda_desc": 1,
+                "spmm_cuda_desc": len(acts)}
+        got = {k: v for k, v in launches[vdtype].items() if v}
+        if got != want:
+            raise SmokeFailure(f"{vdtype} token plan: launches {got}, "
+                               f"expected {want}")
+        errs[vdtype], pins[vdtype] = {}, 0.0
+        for k, y in ys.items():
+            name, n = (k, 1) if isinstance(k, str) else k
+            abs_err, used = check_quantised_y(
+                name, vdtype, plan, y, xs[n], refs[n], smax,
+                "quantised token plan")
+            errs[vdtype][name] = max(errs[vdtype].get(name, 0.0), abs_err)
+            pins[vdtype] = max(pins[vdtype], used)
+        del ys
+        plans[vdtype] = plan
+    per = measure_quantised(
+        {v: {key: SparseLinear(p)} for v, p in plans.items()},
+        {key: SparseLinear(tplan)}, acts, csr, lib, kernels=TOKEN_QUANTISED,
+        timer=timer)
+    plans.clear()
+    return launches, errs, pins, per
+
+
 # ----------------------------------------------------------------------------
 # beta(r,c)_test path: the vocab weight in beta(2,4), singleton blocks split
 # off into a COO tail
@@ -1993,25 +2101,61 @@ def build_test_layer(w, device):
     return layer
 
 
-def build_flat_test_plan(csr, device):
-    """(b) ``ops.prepare(beta(2,4), layout="test")`` at nvec = 1: the multi
-    sub-plan must be whole-vector, so the tail stays flat."""
+def convert_test_block(csr):
+    """The vocab weight's CSR in beta(2,4) (:data:`TEST_BLOCK`)."""
     from repro_torch.core import formats as F
-    from repro_torch.kernels import ops
     t0 = time.perf_counter()
     mat = F.csr_to_spc5(csr, *TEST_BLOCK)
-    t1 = time.perf_counter()
-    plan = ops.prepare(mat, layout="test", device=device)
-    t2 = time.perf_counter()
-    print(f"flat-tail plan (b): csr_to_spc5 {t1 - t0:.1f} s, prepare "
-          f"{t2 - t1:.1f} s (host)")
-    describe_test_plan("flat-tail plan (b)", plan)
-    if (plan.multi.layout, plan.multi.lowering) != (
-            "whole_vector", "descriptor") or plan.tail_pr:
+    print(f"beta{TEST_BLOCK}: csr_to_spc5 {time.perf_counter() - t0:.1f} s "
+          f"(host)")
+    return mat
+
+
+def build_flat_test_plan(mat, device, vdtype=None):
+    """(b) ``ops.prepare(beta(2,4), layout="test")`` at nvec = 1 (at
+    ``vdtype`` where given): the multi sub-plan must be whole-vector, so the
+    tail stays flat."""
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    plan = ops.prepare(mat, layout="test", device=device, **(
+        {} if vdtype is None else {"vdtype": vdtype}))
+    label = value_label(plan.multi)
+    print(f"flat-tail plan (b) {label}: prepare "
+          f"{time.perf_counter() - t0:.1f} s (host)")
+    describe_test_plan(f"flat-tail plan (b) {label}", plan)
+    if ((plan.multi.layout, plan.multi.lowering, label) != (
+            "whole_vector", "descriptor", vdtype or "f32")
+            or plan.tail_pr):
         raise SmokeFailure(f"the flat-tail plan's multi is "
-                           f"{plan.multi.layout} + {plan.multi.lowering}, "
-                           f"tail_pr {plan.tail_pr}")
+                           f"{plan.multi.layout} + {plan.multi.lowering} "
+                           f"({label}), tail_pr {plan.tail_pr}")
     return plan
+
+
+def build_test_layer_q(mat, device, vdtype):
+    """(a) at ``vdtype`` (bf16: the tail stays bf16) from the same beta(2,4)
+    matrix, ``ops.prepare(mat, layout="test", vdtype=vdtype, nvec=128)``,
+    as a ``SparseLinear``: the multi sub-plan must be panels by the 2 MiB
+    rule (lowered by the cost model) and the tail bucketed by its panels,
+    both at that width."""
+    from repro_torch.core.sparse_linear import SparseLinear
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    plan = ops.prepare(mat, layout="test", vdtype=vdtype, nvec=VOCAB["nvec"],
+                       device=device)
+    print(f"test layer (a) {vdtype}: prepare {time.perf_counter() - t0:.1f} "
+          f"s (host)")
+    describe_test_plan(f"test layer (a) {vdtype}", plan)
+    entry = next(e for e in plan.multi.trace if e["pass"] == "layout")
+    got = (plan.multi.layout, entry["reason"], entry.get("lowering_reason"),
+           (plan.multi.r, plan.multi.c), value_label(plan.multi),
+           {2: "bf16", 4: "f32"}[plan.single_values.element_size()])
+    if (got != ("panels", "vmem-fit", "cost-model", TEST_BLOCK, vdtype,
+                vdtype) or plan.tail_pr != plan.multi.pr
+            or not plan.n_single):
+        raise SmokeFailure(f"the {vdtype} test layer is {got}, tail_pr "
+                           f"{plan.tail_pr}")
+    return SparseLinear(plan)
 
 
 #: The panel descriptor SpMV kernels (rows 8 and 9) run alone on the test
@@ -2048,25 +2192,31 @@ def drive_test(layer, flat, x1, acts, device):
     return ys, y_flat, launches_a, counts()
 
 
-def check_test(layer, flat, ys, y_flat, launches_a, launches_b, x1, acts,
-               csr):
+def check_test_launches(plan, flat, launches_a, launches_b, acts, path):
     """(a) launched both tail kernels (the SpMM one at every batch) and the
     multi SpMV and SpMM kernels, (b) the multi SpMV kernel and no tail
-    kernel; every output within tolerance of the plain path on the card and
-    of the f64 product."""
-    plan = layer.plan
+    kernel."""
     for name in (TAIL_KERNEL, kernel_name(plan.multi),
                  kernel_name(plan.multi, spmm=True), SPMM_TAIL_KERNEL,
                  *(f"{SPMM_TAIL_KERNEL} nvec={n}" for n in acts)):
         if launches_a.get(name, 0) <= 0:
-            raise SmokeFailure(f"{name} was not launched on the test path "
+            raise SmokeFailure(f"{name} was not launched on the {path} "
                                f"(counts {launches_a})")
-    flat_name = kernel_name(flat.multi)
     if (launches_b.get(TAIL_KERNEL, 0) != 0
             or launches_b.get(SPMM_TAIL_KERNEL, 0) != 0
-            or launches_b.get(flat_name, 0) <= 0):
-        raise SmokeFailure(f"the flat-tail plan's launches are "
+            or launches_b.get(kernel_name(flat.multi), 0) <= 0):
+        raise SmokeFailure(f"the flat-tail plan's launches on the {path} are "
                            f"{launches_b}")
+
+
+def check_test(layer, flat, ys, y_flat, launches_a, launches_b, x1, acts,
+               csr):
+    """The test path's launches (:func:`check_test_launches`) and every
+    output within tolerance of the plain path on the card and of the f64
+    product."""
+    plan = layer.plan
+    check_test_launches(plan, flat, launches_a, launches_b, acts, "test path")
+    flat_name = kernel_name(flat.multi)
     a64 = f64_matrix(csr)
     y64 = a64 @ x1.cpu().double().numpy()
     check_y(TAIL_KERNEL, ys[1], plan, x1, y64, launches_a,
@@ -2107,7 +2257,8 @@ def check_test(layer, flat, ys, y_flat, launches_a, launches_b, x1, acts,
 
 def tail_parts(plan):
     """The tail kernel's arguments, and the tail as a host scipy CSR in
-    float64 (the padding slots dropped: a singleton's value is never 0)."""
+    float64 (the padding slots dropped: a singleton's value is never 0; bf16
+    values upcast, exactly)."""
     import scipy.sparse
     args = (plan.tail_xbase, plan.single_rows, plan.single_cols,
             plan.single_values)
@@ -2115,7 +2266,7 @@ def tail_parts(plan):
               ncols_pad=plan.tail_ncols_pad)
     rows = plan.single_rows.cpu().numpy().astype(np.int64)
     rows += np.arange(rows.shape[0], dtype=np.int64)[:, None] * plan.tail_pr
-    vals = plan.single_values.cpu().numpy()
+    vals = plan.single_values.float().cpu().numpy()
     keep = vals != 0
     tail = scipy.sparse.csr_matrix(
         (vals[keep].astype(np.float64),
@@ -2170,15 +2321,17 @@ def check_tail(plan, x1, acts):
     return abs_err[TAIL_KERNEL], abs_err[SPMM_TAIL_KERNEL], tail
 
 
-def tail_bound(plan, nvec=1, ops=None):
-    """The least time of a tail kernel: the buckets' bytes (12 a slot,
-    padding included, and for SpMV the window starts), X read once and Y
-    written once, over the HBM rate; 2 flops per slot and column (SpMV, which
+def tail_bound(plan, nvec=1, ops=None, vsize=None):
+    """The least time of a tail kernel: the buckets' bytes (8 a slot and
+    its value's, 4 f32 or 2 bf16 (``vsize``, default the plan's), padding
+    included, and for SpMV the window starts), X read once and Y written
+    once, over the HBM rate; 2 flops per slot and column (SpMV, which
     multiplies the padding) or per singleton and column (SpMM, which skips
     it; ``ops``) over the f32 rate. Returns (ms, "bytes" | "operations",
     bytes)."""
     slots = plan.single_rows.numel()
-    nbytes = 12 * slots + 4 * nvec * (plan.ncols + plan.nrows)
+    vsize = plan.single_values.element_size() if vsize is None else vsize
+    nbytes = (8 + vsize) * slots + 4 * nvec * (plan.ncols + plan.nrows)
     if nvec == 1:
         nbytes += 4 * plan.tail_xbase.numel()
     t_bytes = nbytes / HBM_BYTES_PER_S
@@ -2315,6 +2468,141 @@ def measure_test(layer, flat, default, x1, acts, csr, tail, launches,
         "launch": tail_launch(plan), "test_path_ms": forwards}, spmm_row
 
 
+def test_quantised(f32_layer, f32_flat, mat, acts, csr, lib,
+                   timer=cuda_time_ms):
+    """The test path at bf16: layer (a) (:func:`build_test_layer_q`, so both
+    tail kernels run on bf16 buckets) and the flat-tail plan (b)
+    (:func:`build_flat_test_plan`, whose bf16 whole-vector multi runs
+    ``spmv_cuda_desc_db``), driven as at f32 (:func:`drive_test`), every
+    output checked by :func:`check_quantised_y` (the multi sub-plan alone
+    against its plain version and its f64 dequantised product), both tail
+    kernels alone by :func:`check_tail`, then timed in turns with f32
+    (:func:`measure_test_quantised`). Both plans are freed before it
+    returns. Returns the counts of (a) and (b), the tails' max|y - plain|
+    and worst pin share, and the timings."""
+    import torch
+    device = f32_flat.device
+    x1 = acts[SPMM_NVECS[0]][0].contiguous()
+    layer = build_test_layer_q(mat, device, "bf16")
+    flat = build_flat_test_plan(mat, device, "bf16")
+    plan, fplan = layer.plan, f32_layer.plan
+    same = all(torch.equal(getattr(plan, a), getattr(fplan, a))
+               for a in ("single_rows", "single_cols", "tail_xbase"))
+    print(f"bf16 test layer (a): buckets {tuple(plan.single_rows.shape)}, "
+          f"the f32 layer's rows and columns: {same}")
+    ys, y_flat, la, lb = drive_test(layer, flat, x1, acts, device)
+    print(f"launches on the bf16 test path: (a) {la}; (b) {lb}")
+    check_test_launches(plan, flat, la, lb, acts, "bf16 test path")
+    flat_name = kernel_name(flat.multi)
+    xs, refs, smax = quantised_refs(csr, acts)
+    pins = [check_quantised_y(
+        TAIL_KERNEL, "bf16", plan, ys[1], x1, refs[1], smax,
+        f"bf16 test layer (a) with {kernel_name(plan.multi)}")[1]]
+    for n in acts:
+        pins.append(check_quantised_y(
+            SPMM_TAIL_KERNEL, "bf16", plan, ys[n], xs[n], refs[n], smax,
+            f"bf16 test layer (a) with {kernel_name(plan.multi, spmm=True)}"
+        )[1])
+    pins.append(check_quantised_y(
+        flat_name, "bf16", flat, y_flat, x1, refs[1], smax,
+        "bf16 flat-tail plan (b), with spmv_coo")[1])
+    for name in MULTI_SPMV:
+        y = ys[name]
+        e_plain = rel_err(y, plain_y(plan.multi, x1))
+        e_deq = rel_err(y, plain_y(plan.multi, x1, torch.float64))
+        print(f"check {name} bf16 (bf16 test layer (a), multi sub-plan "
+              f"alone): {e_plain:.3g} of max|y| from the plain version, "
+              f"{e_deq:.3g} from the f64 dequantised product")
+        if not (e_plain <= TOL and e_deq <= TOL):
+            raise SmokeFailure(f"{name} bf16 multi disagrees: {e_plain} / "
+                               f"{e_deq} > {TOL}")
+    del ys, y_flat
+    tail_err, spmm_tail_err, _ = check_tail(plan, x1, acts)
+    per = measure_test_quantised(plan, flat, f32_flat, x1, acts, lib, timer)
+    del layer, flat, plan
+    return la, lb, {TAIL_KERNEL: tail_err, SPMM_TAIL_KERNEL: spmm_tail_err}, \
+        max(pins), per
+
+
+def measure_test_quantised(plan, flat, f32_flat, x1, acts, lib,
+                           timer=cuda_time_ms):
+    """Both tail kernels on the bf16 test layer's buckets beside the same
+    buckets with their values upcast to f32 (the same rows and columns),
+    timed in turns (f32, bf16, bf16, f32; each width's two medians
+    averaged), with each width's bound (:func:`tail_bound`: 10 or 12 bytes
+    a slot), the plain version at bf16 and cuSPARSE on the tail (on bf16
+    values where the card takes it, else ``lib``'s f32 figure); and the flat
+    plan's whole-vector multi at bf16 beside the f32 flat plan's, both
+    whole-vector descriptor SpMV kernels in turns. Returns {kernel: {batch:
+    numbers}} and {kernel: flat-multi numbers}."""
+    from repro_torch.kernels import spc5_spmv_tail as KT
+    device = x1.device
+    args, kw, tail = tail_parts(plan)
+    vals32 = plan.single_values.float()
+    tail_t = scipy_csr(tail, device)
+    xs = {1: x1}
+    xs.update({n: a.t().contiguous() for n, a in acts.items()})
+    out = {TAIL_KERNEL: {}, SPMM_TAIL_KERNEL: {}}
+    for name, n in ((TAIL_KERNEL, 1),
+                    *((SPMM_TAIL_KERNEL, n) for n in acts)):
+        x = xs[n]
+
+        def call(vals, x=x, n=n):
+            if n == 1:
+                return lambda: KT.spmv_tail_cuda(*args[:3], vals, x, **kw)
+            return lambda: KT.spmm_tail_cuda(*args[1:3], vals, x,
+                                             pr=plan.tail_pr,
+                                             nrows=plan.nrows)
+        fns = {"f32": call(vals32), "bf16": call(plan.single_values)}
+        times = {v: [] for v in fns}
+        for v in ("f32", "bf16", "bf16", "f32"):
+            print(f"  timing {name} {v} batch {n} (bf16 test layer's "
+                  f"buckets)")
+            times[v].append(timer(fns[v], device))
+        f32_ms, ms = (float(np.mean(times[v])) for v in ("f32", "bf16"))
+        ops = None if n == 1 else plan.n_single
+        b = tail_bound(plan, n, ops)
+        f32_bound = tail_bound(plan, n, ops, vsize=4)[0]
+        print(f"  bf16 tail batch {n}: timing the plain version")
+        plain_ms = timer(lambda x=x: tail_y(plan, x), device,
+                         reps=QUANTISED_PLAIN_REPS)
+        library = csr_library_ms(None, x, lib[n], timer, t=tail_t)
+        launch = tail_launch(plan, None if n == 1 else n, x)
+        ratio = ms / f32_ms
+        print(f"time {name} bf16 batch {n}: {ms:.4f} ms ("
+              f"{times['bf16'][0]:.4f} / {times['bf16'][1]:.4f}), f32 "
+              f"{f32_ms:.4f} ms, {ratio:.3f}x f32 (aim <= {QUANTISED_AIM}: "
+              f"{'met' if ratio <= QUANTISED_AIM else 'MISSED'}), bound "
+              f"{b[0]:.4f} ms by {b[1]} ({b[2]} bytes, {b[0] / ms:.3f} of "
+              f"it; f32 {f32_bound:.4f} ms), plain {plain_ms:.4f} ms, "
+              f"cuSPARSE on the tail ({library[1]}) {library[0]:.4f} ms; "
+              f"launch {launch}")
+        out[name][n] = {
+            "ms": ms, "f32_ms": f32_ms, "ratio_to_f32": ratio,
+            "aim_met": ratio <= QUANTISED_AIM, "bound_ms": b[0],
+            "bound_by": b[1], "f32_bound_ms": f32_bound,
+            "plain_ms": plain_ms, "library_ms": library[0],
+            "library_values": library[1], "launch": launch}
+    multi = {}
+    nnz = flat.nnz - flat.n_single
+    for name in WHOLE_DESC_SPMV:
+        fns = {"f32": kernel_call(name, f32_flat.multi, x1),
+               "bf16": kernel_call(name, flat.multi, x1)}
+        times = {v: [] for v in fns}
+        for v in ("f32", "bf16", "bf16", "f32"):
+            print(f"  timing {name} {v} on the flat plan's multi")
+            times[v].append(timer(fns[v], device))
+        f32_ms, ms = (float(np.mean(times[v])) for v in ("f32", "bf16"))
+        b, fb = bound(flat.multi, nnz), bound(f32_flat.multi, nnz)
+        print(f"time {name} bf16 (flat plan's multi), batch 1: {ms:.4f} ms, "
+              f"f32 {f32_ms:.4f} ms, {ms / f32_ms:.3f}x f32, bound "
+              f"{b[0]:.4f} ms by {b[1]} (f32 {fb[0]:.4f} ms)")
+        multi[name] = {"ms": ms, "f32_ms": f32_ms,
+                       "ratio_to_f32": ms / f32_ms, "bound_ms": b[0],
+                       "bound_by": b[1], "f32_bound_ms": fb[0]}
+    return out, multi
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2367,11 +2655,11 @@ def main() -> int:
                   f"{qlaunches[vdtype]}")
         qerrs, qpin = check_quantised(qlayers, qys, qlaunches, acts, vcsr)
         del qys
-        qper = measure_quantised(qlayers, layers, acts, vcsr, library,
-                                 batch1)
+        qlib = quantised_library(vcsr, acts, {
+            1: batch1["spmv_cuda_panels_desc_db"]["library_ms"], **library})
+        qper = measure_quantised(qlayers, layers, acts, vcsr, qlib)
         del qlayers
         tplan = build_token_plan(vmat, device)
-        del vmat
         x1 = acts[SPMM_NVECS[0]][0].contiguous()
         tys, tlaunches = drive_token(tplan, x1, acts, device)
         print(f"launches on the whole-vector descriptor path: {tlaunches}")
@@ -2395,6 +2683,9 @@ def main() -> int:
         del tys
         token = measure_token(tplan, layers["whole_vector", "mask"].plan, x1,
                               acts, vcsr, tlaunches, terrs, vper, library)
+        tq_launches, tq_errs, tq_pins, tq_per = token_quantised(
+            vmat, tplan, acts, vcsr, qlib)
+        del vmat
         for row in rows:
             for numbers in (token, batch1):
                 if row["name"] in numbers:
@@ -2402,7 +2693,8 @@ def main() -> int:
         rows += spmm_rows(VOCAB_SPMM, vper, vlaunches, verrs)
         rows += spmm_rows(("spmm_cuda_desc",), vper, tlaunches, terrs)
         del tplan
-        flat = build_flat_test_plan(vcsr, device)
+        mat24 = convert_test_block(vcsr)
+        flat = build_flat_test_plan(mat24, device)
         ys, y_flat, la, lb = drive_test(test_layer, flat, x1, acts, device)
         print(f"launches on the test path: (a) {la}; (b) {lb}")
         multi_errs = check_test(test_layer, flat, ys, y_flat, la, lb, x1,
@@ -2421,16 +2713,37 @@ def main() -> int:
                     "flat_multi_spmv" + ("" if row["name"].endswith("_db")
                                          else "_s1")]
         rows += [tail_row, spmm_tail_row]
+        tail_lib = {1: tail_row["library_ms"],
+                    **{n: (spmm_tail_row if n == VOCAB["nvec"]
+                           else spmm_tail_row[f"nvec_{n}"])["library_ms"]
+                       for n in acts}}
+        la_q, _, tq_tail_errs, tq_tail_pin, (tq_tail_per, tq_flat) = \
+            test_quantised(test_layer, flat, mat24, acts, vcsr, tail_lib)
+        del mat24
         for row in rows:
-            if row["name"] in QUANTISED:
+            name = row["name"]
+            if name in SMALL_QUANTISED:
+                launches, errs, pins, per = (
+                    (qlaunches, qerrs, qpin, qper) if name in QUANTISED
+                    else (tq_launches, tq_errs, tq_pins, tq_per))
                 row["value_dtypes"] = ["f32", *VDTYPES]
                 row["quantised"] = {
-                    v: {"launches": qlaunches[v][row["name"]],
-                        "max_abs_err": qerrs[v][row["name"]],
-                        "worst_pin_share": qpin[v],
+                    v: {"launches": launches[v][name],
+                        "max_abs_err": errs[v][name],
+                        "worst_pin_share": pins[v],
                         **{f"batch_{n}": numbers
-                           for n, numbers in qper[row["name"]][v].items()}}
+                           for n, numbers in per[name][v].items()}}
                     for v in VDTYPES}
+                if name in tq_flat:
+                    row["quantised"]["bf16"]["flat_multi_batch1"] = \
+                        tq_flat[name]
+            elif name in (TAIL_KERNEL, SPMM_TAIL_KERNEL):
+                row["value_dtypes"] = ["f32", *TAIL_VDTYPES]
+                row["quantised"] = {"bf16": {
+                    "launches": la_q[name], "max_abs_err": tq_tail_errs[name],
+                    "worst_pin_share": tq_tail_pin,
+                    **{f"batch_{n}": numbers
+                       for n, numbers in tq_tail_per[name].items()}}}
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

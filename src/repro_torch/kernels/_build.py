@@ -49,10 +49,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "spc5_spmv_panels_smem": [_I] * 5,
     },
     "spc5_spmv_desc": {
-        "spc5_spmv_desc_whole_s1": [_P] * 8 + [_I] * 14 + [_P],
-        "spc5_spmv_desc_whole_s2": [_P] * 8 + [_I] * 13 + [_P],
-        "spc5_spmv_desc_whole_occupancy": [_I] * 4 + [_P],
-        "spc5_spmv_desc_whole_smem": [_I] * 8,
+        "spc5_spmv_desc_whole_s1": [_P] * 9 + [_I] * 16 + [_P],
+        "spc5_spmv_desc_whole_s2": [_P] * 9 + [_I] * 15 + [_P],
+        "spc5_spmv_desc_whole_occupancy": [_I] * 5 + [_P],
+        "spc5_spmv_desc_whole_smem": [_I] * 9,
         **{f"spc5_spmv_desc_panels_s{s}": [_P] * 10 + [_I] * 19 + [_P]
            for s in (1, 2)},
         "spc5_spmv_desc_panels_occupancy": [_I] * 5 + [_P],
@@ -68,20 +68,20 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "spc5_spmm_panels_smem": [_I] * 7,
     },
     "spc5_spmm_desc": {
-        "spc5_spmm_desc_whole": [_P] * 8 + [_I] * 21 + [_P],
-        "spc5_spmm_desc_whole_occupancy": [_I] * 6 + [_P],
-        "spc5_spmm_desc_whole_smem": [_I] * 12,
+        "spc5_spmm_desc_whole": [_P] * 9 + [_I] * 23 + [_P],
+        "spc5_spmm_desc_whole_occupancy": [_I] * 7 + [_P],
+        "spc5_spmm_desc_whole_smem": [_I] * 13,
         "spc5_spmm_desc_panels_s1": [_P] * 10 + [_I] * 25 + [_P],
         "spc5_spmm_desc_panels_s2": [_P] * 10 + [_I] * 24 + [_P],
         "spc5_spmm_desc_panels_occupancy": [_I] * 8 + [_P],
         "spc5_spmm_desc_panels_smem": [_I] * 11,
     },
     "spc5_spmv_tail": {
-        "spc5_spmv_tail": [_P] * 6 + [_I] * 10 + [_P],
-        "spc5_spmv_tail_occupancy": [_I] * 2 + [_P],
-        "spc5_spmm_tail": [_P] * 5 + [_I] * 13 + [_P],
-        "spc5_spmm_tail_occupancy": [_I] * 4 + [_P],
-        "spc5_spmm_tail_smem": [_I] * 4,
+        "spc5_spmv_tail": [_P] * 6 + [_I] * 11 + [_P],
+        "spc5_spmv_tail_occupancy": [_I] * 3 + [_P],
+        "spc5_spmm_tail": [_P] * 5 + [_I] * 14 + [_P],
+        "spc5_spmm_tail_occupancy": [_I] * 5 + [_P],
+        "spc5_spmm_tail_smem": [_I] * 5,
     },
 }
 

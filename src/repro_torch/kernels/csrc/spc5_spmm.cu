@@ -179,8 +179,8 @@ inline size_t panel_smem(const PanelArgs& a, int stages) {
 // metadata rows (contiguous: the chunks are neighbours in one panel), all
 // completing on the stage's mbarrier, so the mbarrier completes one phase
 // per call; every thread issues its share of the other pieces (the
-// metadata rows where not `bulk`, the x window starts; a span's last 8-byte
-// piece is thread 0's) by cp.async.
+// metadata rows where not `bulk`, the x window starts; a span's last 4 to
+// 12 bytes are thread 0's) by cp.async.
 template <typename T>
 __device__ __forceinline__ void fill_stage(unsigned char* st, const PanelLayout& L,
                                            const PanelArgs& a, size_t g, int qn, bool bulk) {
@@ -621,8 +621,8 @@ struct MaskWhole {
   // chunk's scale written beside): thread 0 announces and issues the bulk
   // copies (the windows; the metadata rows where 16-byte aligned), all
   // completing on the stage's mbarrier, one phase per call; every thread
-  // issues its share of the rest by cp.async (a span's last 8-byte piece is
-  // thread 0's).
+  // issues its share of the rest by cp.async (a span's last 4 to 12 bytes
+  // are thread 0's).
   __device__ static void fill(unsigned char* st, const Args& a, size_t g, int b0, int nb, int qn,
                               bool window) {
     const size_t slot0 = g * a.g.cb + b0;

@@ -107,7 +107,7 @@
 // kernels are the code they were. A narrow window starts on any multiple of
 // 8 bytes, and bulk copies need 16-byte aligned ends: it is staged as the
 // 16-byte aligned span that covers it, kept inside values (value_span,
-// copy_span: a last 8-byte piece by cp.async), and thread 0 writes the
+// copy_span: its last 4 to 12 bytes by cp.async), and thread 0 writes the
 // window's offset in its span into the stage's slot beside the x window
 // start; each thread loads the chunk's scale (int8) before waiting for the
 // chunk's stage.
@@ -219,7 +219,7 @@ __device__ __forceinline__ uint64_t* stage_bar(unsigned char* st, const StageLay
 // chunk's four metadata rows, all completing on the stage's mbarrier; where
 // not (cb % 4 != 0, or an array off a 16-byte boundary), every thread
 // copies its share of the metadata rows with 4-byte cp.async, completed by
-// the caller's cp.async wait (as is a span's last 8-byte piece).
+// the caller's cp.async wait (as are a span's last 4 to 12 bytes).
 template <typename V, typename A>
 __device__ __forceinline__ void stage_chunk(unsigned char* st, const StageLayout& L,
                                             const A& a, const ThreadPlan& t, bool wide,

@@ -15,9 +15,8 @@
 // valid byte and three index entries, each int8, int16 or int32 as the
 // build narrowed it (1 + 3..12 bytes a lane), so the tables outweigh the
 // mask kernels' 16 bytes a block r*c-fold over; the packed values (4 B per
-// nonzero in f32; the panel kernels also take bf16, 2 B, and int8, 1 B and
-// an f32 scale a chunk), x and y are read or written once. Two flops per
-// nonzero.
+// nonzero in f32, 2 B in bf16, 1 B and an f32 scale a chunk in int8), x and
+// y are read or written once. Two flops per nonzero.
 //
 // Whole-vector kernels (spmv_desc_whole_kernel), built for latency, not for
 // the TPU's sequential grid:
@@ -45,6 +44,15 @@
 //     kernels below (decode_whole); the wrapper gives a CTA a thread for
 //     every two lane quads of a stage, 64 to 512 (one quad a thread was
 //     up to 1.7x slower on the H100, at most 256 threads up to 1.14x);
+//   * the value store is the kernels' template parameter V, as in the panel
+//     kernels below: a narrow window is staged as its 16-byte aligned span
+//     (value_span, copy_span: whole pieces by the bulk copy, its last 4 to
+//     12 bytes by cp.async, the mbarrier expecting only the bulk bytes), and
+//     thread 0 writes the window's offset in the span into the stage's
+//     mbarrier slot; every thread loads the chunk's int8 scale before the
+//     chunk's wait. The synchronous twin stages a chunk's window with its
+//     first slice only, so the offset and the scale are a chunk's, kept for
+//     its later slices;
 //   * row sums in registers: a thread keeps the same lane quad of every
 //     (threads / quads-a-block)-th block, so the same row of blocks that
 //     mostly share a block row (to_chunked keeps a block row's blocks
@@ -145,7 +153,7 @@ struct WholeArgs {
   const char* vidx;  // the index tables, as bytes (entries wv, wx, wy wide)
   const char* xcol;
   const char* yrow;
-  const float* values;
+  const float* values;  // f32 (QWholeArgs' kernels read it as their own type)
   const float* x;
   float* y;
   int nchunks, cb, r, c, vmax, wv, wx, wy;
@@ -154,23 +162,45 @@ struct WholeArgs {
   int tile;  // rows of the y tile
 };
 
-// Byte offsets of one stage's parts, each 16-byte aligned: the value window,
-// then for nb blocks the valid and vidx runs, the c xcol entries of each
-// block's first row, each block's lane-0 yrow entry in a 4-byte slot, and a
-// 16-byte slot for the stage's mbarrier. The y tile (tile floats) comes
-// before the first stage. The wrapper plans with its copy (kernels/
-// spc5_spmv_desc.py: whole_smem_bytes) and passes its figure in; a launch
-// whose figure differs is refused, and spc5_spmv_desc_whole_smem exposes
-// this one for the wrapper's tests.
+// The narrow stores' arguments (bf16, int8): the f32 ones, values' address
+// in `values` (read as its own type), then the chunks' scales and values'
+// length. The f32 kernels take WholeArgs as it was before the narrow stores
+// (a larger parameter block changed f32 code, spc5_spmm.cu: MaskWholeArgs).
+struct QWholeArgs : WholeArgs {
+  const float* scale;  // (nchunks,) int8 scales; unread for bf16
+  int nvalues;         // values' length: no staged span reaches past it
+};
+
+template <typename V>
+struct WholeArgsFor {
+  using type = QWholeArgs;
+};
+template <>
+struct WholeArgsFor<float> {
+  using type = WholeArgs;
+};
+
+// Byte offsets of one stage's parts, each 16-byte aligned: the value window
+// (value_window bytes of vsize-byte values: a narrow one as its aligned
+// span), then for nb blocks the valid and vidx runs, the c xcol entries of
+// each block's first row, each block's lane-0 yrow entry in a 4-byte slot,
+// and a 16-byte slot for the stage's mbarrier (and, at byte 8, a narrow
+// window's offset in its span). The y tile (tile floats) comes before the
+// first stage. The wrapper plans with its copy (kernels/spc5_spmv_desc.py:
+// whole_smem_bytes) and passes its figure in; a launch whose figure differs
+// is refused, and spc5_spmv_desc_whole_smem exposes this one for the
+// wrapper's tests.
 struct WholeLayout {
   int vwin, valid, vidx, xcol, yrow, bar, bytes;
 };
 
-__host__ __device__ inline WholeLayout whole_layout(const WholeArgs& a) {
+__host__ __device__ inline WholeLayout whole_layout(const WholeArgs& a, int vsize) {
   const int rc = a.r * a.c;
   WholeLayout L;
   L.vwin = 0;
-  L.valid = round16(4 * a.vmax);
+  // (an f32 window's bytes as the f32 kernels computed them before the
+  // narrow stores: the same value, and the same f32 code)
+  L.valid = vsize == 4 ? round16(4 * a.vmax) : value_window(vsize, a.vmax);
   L.vidx = L.valid + round16(a.nb * rc);
   L.xcol = L.vidx + round16(a.nb * rc * a.wv);
   L.yrow = L.xcol + round16(a.nb * a.c * a.wx);
@@ -179,19 +209,22 @@ __host__ __device__ inline WholeLayout whole_layout(const WholeArgs& a) {
   return L;
 }
 
-inline size_t whole_smem(const WholeArgs& a, int stages) {
-  return (size_t)round16(4 * a.tile) + (size_t)stages * whole_layout(a).bytes;
+inline size_t whole_smem(const WholeArgs& a, int stages, int vsize) {
+  return (size_t)round16(4 * a.tile) + (size_t)stages * whole_layout(a, vsize).bytes;
 }
 
 // Start staging blocks [b0, b0 + nb) of chunk g into stage st (and, where
-// `window`, the chunk's value window, which starts at vb): thread 0
-// announces and issues the bulk copies (the window; the valid and vidx runs
-// where `bulk`), all completing on the stage's mbarrier, so the mbarrier
-// completes one phase per call; every thread issues its share of the other
-// pieces by cp.async.
-__device__ __forceinline__ void fill_stage(unsigned char* st, const WholeLayout& L,
-                                           const WholeArgs& a, size_t g, int b0, int nb,
-                                           bool window, int vb, bool bulk) {
+// `window`, the chunk's value window, which starts at vb; a narrow one as
+// its span, value_span / copy_span, the window's offset in it written into
+// the mbarrier slot's second half): thread 0 announces and issues the bulk
+// copies (the window; the valid and vidx runs where `bulk`), all completing
+// on the stage's mbarrier, so the mbarrier completes one phase per call;
+// every thread issues its share of the other pieces by cp.async (a span's
+// last 4 to 12 bytes are thread 0's).
+template <typename V, typename A>
+__device__ __forceinline__ void fill_stage(unsigned char* st, const WholeLayout& L, const A& a,
+                                           size_t g, int b0, int nb, bool window, int vb,
+                                           bool bulk) {
   const int rc = a.r * a.c;
   const size_t lane0 = (g * a.cb + b0) * rc;
   const char* valid = reinterpret_cast<const char*>(a.valid) + lane0;
@@ -199,8 +232,20 @@ __device__ __forceinline__ void fill_stage(unsigned char* st, const WholeLayout&
   const int nvalid = nb * rc, nvidx = nb * rc * a.wv;
   if (threadIdx.x == 0) {
     uint64_t* bar = reinterpret_cast<uint64_t*>(st + L.bar);
-    mbar_expect_tx(bar, (window ? 4 * a.vmax : 0) + (bulk ? nvalid + nvidx : 0));
-    if (window) bulk_copy(st + L.vwin, a.values + vb, 4 * a.vmax, bar);
+    const V* values = reinterpret_cast<const V*>(a.values);
+    if constexpr (sizeof(V) == 4) {
+      mbar_expect_tx(bar, (window ? 4 * a.vmax : 0) + (bulk ? nvalid + nvidx : 0));
+      if (window) bulk_copy(st + L.vwin, values + vb, 4 * a.vmax, bar);
+    } else {
+      int bytes = 0, off = 0;
+      const char* span = nullptr;
+      if (window) {
+        span = value_span(values, vb, a.vmax, a.nvalues, bytes, off);
+        *reinterpret_cast<int*>(st + L.bar + 8) = off;
+      }
+      mbar_expect_tx(bar, span_bulk_bytes(bytes) + (bulk ? nvalid + nvidx : 0));
+      if (window) copy_span(st + L.vwin, span, bytes, bar);
+    }
     if (bulk) {
       bulk_copy(st + L.valid, valid, nvalid, bar);
       bulk_copy(st + L.vidx, vidx, nvidx, bar);
@@ -242,16 +287,43 @@ __device__ __forceinline__ void flush_row(const WholeArgs& a, float* ytile, int 
   rs.sum = 0.f;
 }
 
+// Chunk g's scale: an int8 store's (either layout's arguments: QWholeArgs,
+// PanelArgs), 1 (unread) for the others.
+template <typename V, typename A>
+__device__ __forceinline__ float chunk_scale(const A& a, size_t g) {
+  if constexpr (sizeof(V) == 1) {
+    return __ldg(a.scale + g);
+  } else {
+    return 1.f;
+  }
+}
+
+// The index of the staged window's first value in the stage: 0 for f32,
+// staged as it lies; for a narrow window its offset in its span, which
+// fill_stage wrote into the mbarrier slot.
+template <typename V>
+__device__ __forceinline__ int staged_offset(const unsigned char* st, const WholeLayout& L) {
+  if constexpr (sizeof(V) == 4) {
+    return 0;
+  } else {
+    return *reinterpret_cast<const int*>(st + L.bar + 8);
+  }
+}
+
 // Add the nb staged blocks into the threads' row sums, four lanes a thread
 // as decode_stage below does (one 4-byte word of valid flags, one load each
 // of vidx and xcol, nothing gathered for a quad with no flag set, one xor
 // shuffle joining a row's two quads for c = 8), x read in place through
 // L1. Thread t keeps quad t % (r*c/4) of every (blockDim / (r*c/4))-th
-// block: the same row of each, and a warp reads neighbouring words.
+// block: the same row of each, and a warp reads neighbouring words. The
+// window's values start at entry voff of the stage (staged_offset); s is
+// the chunk's scale (int8 only).
+template <typename V>
 __device__ __forceinline__ void decode_whole(const unsigned char* st, const WholeLayout& L,
                                              const WholeArgs& a, int nb, int lrc, int lc,
-                                             float* ytile, int tbase, RowSum& rs) {
-  const float* vwin = reinterpret_cast<const float*>(st + L.vwin);
+                                             float* ytile, int tbase, RowSum& rs, int voff,
+                                             float s) {
+  const V* vwin = reinterpret_cast<const V*>(st + L.vwin) + voff;
   const int* flags4 = reinterpret_cast<const int*>(st + L.valid);
   const int* yword = reinterpret_cast<const int*>(st + L.yrow);
   const int c = 1 << lc;
@@ -272,7 +344,7 @@ __device__ __forceinline__ void decode_whole(const unsigned char* st, const Whol
       smem_index4(st + L.xcol, ((b << lc) + (k & (c - 1))) >> 2, a.wx, xc);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        if ((flags >> (8 * u)) & 0xff) v += vwin[vi[u]] * __ldg(a.x + xc[u]);
+        if ((flags >> (8 * u)) & 0xff) v += dequant(vwin[vi[u]], s) * __ldg(a.x + xc[u]);
       }
     }
     if (c == 8) v += __shfl_xor_sync(0xffffffffu, v, 1);
@@ -316,10 +388,11 @@ __device__ __forceinline__ void move_tile(const unsigned char* st, const WholeLa
   }
 }
 
-template <int kStages>
-__global__ void __launch_bounds__(512) spmv_desc_whole_kernel(const WholeArgs a) {
+template <typename V, int kStages>
+__global__ void __launch_bounds__(512)
+    spmv_desc_whole_kernel(const typename WholeArgsFor<V>::type a) {
   extern __shared__ __align__(16) float smem[];  // one name and type per file
-  const WholeLayout L = whole_layout(a);
+  const WholeLayout L = whole_layout(a, (int)sizeof(V));
   float* ytile = smem;
   unsigned char* ring = reinterpret_cast<unsigned char*>(smem) + round16(4 * a.tile);
   const int rc = a.r * a.c;
@@ -347,17 +420,19 @@ __global__ void __launch_bounds__(512) spmv_desc_whole_kernel(const WholeArgs a)
     for (int j = 0; j < n; ++j) {
       const int vj = vb;
       if (threadIdx.x == 0 && j + 1 < n) vb = __ldg(vbase + j + 1);
+      // the chunk's scale, for all its slices (the window is staged once)
+      const float s = chunk_scale<V>(a, (size_t)c0 + j);
       for (int b0 = 0; b0 < a.cb; b0 += a.nb) {
         const int nb = min(a.nb, a.cb - b0);
         if (j > 0 || b0 > 0) __syncthreads();  // the previous decode is done
-        fill_stage(ring, L, a, (size_t)c0 + j, b0, nb, b0 == 0, vj, bulk);
+        fill_stage<V>(ring, L, a, (size_t)c0 + j, b0, nb, b0 == 0, vj, bulk);
         cp_async_commit();
         cp_async_wait<0>();
         mbar_wait(bar, phase & 1u);
         ++phase;
-        __syncthreads();  // everyone's copies
+        __syncthreads();  // everyone's copies, and the window's offset
         if (b0 == 0) move_tile(ring, L, a, j, ytile, tbase);
-        decode_whole(ring, L, a, nb, lrc, lc, ytile, tbase, rs);
+        decode_whole<V>(ring, L, a, nb, lrc, lc, ytile, tbase, rs, staged_offset<V>(ring, L), s);
       }
     }
   } else {
@@ -365,8 +440,8 @@ __global__ void __launch_bounds__(512) spmv_desc_whole_kernel(const WholeArgs a)
     // in flight while one decodes
     for (int s = 0; s < kStages - 1; ++s) {
       if (s < n) {
-        fill_stage(ring + s * L.bytes, L, a, (size_t)c0 + s, 0, a.cb, true,
-                   threadIdx.x == 0 ? __ldg(vbase + s) : 0, bulk);
+        fill_stage<V>(ring + s * L.bytes, L, a, (size_t)c0 + s, 0, a.cb, true,
+                      threadIdx.x == 0 ? __ldg(vbase + s) : 0, bulk);
       }
       cp_async_commit();
     }
@@ -375,16 +450,19 @@ __global__ void __launch_bounds__(512) spmv_desc_whole_kernel(const WholeArgs a)
     uint32_t parity = 0;              // bit s: the parity of stage s's next phase
     for (int j = 0; j < n; ++j) {
       unsigned char* st = ring + dec * L.bytes;
+      const float s = chunk_scale<V>(a, (size_t)c0 + j);  // loaded before the wait
       cp_async_wait<kStages - 2>();  // chunk j's cp.async pieces of this thread
       mbar_wait(reinterpret_cast<uint64_t*>(st + L.bar), (parity >> dec) & 1u);
       parity ^= 1u << dec;
       __syncthreads();  // ... everyone's; chunk j - 1's stage is free
       move_tile(st, L, a, j, ytile, tbase);
       const int jn = j + kStages - 1;
-      if (jn < n) fill_stage(ring + fill * L.bytes, L, a, (size_t)c0 + jn, 0, a.cb, true, vb, bulk);
+      if (jn < n) {
+        fill_stage<V>(ring + fill * L.bytes, L, a, (size_t)c0 + jn, 0, a.cb, true, vb, bulk);
+      }
       cp_async_commit();  // possibly empty: keeps the group count uniform
       if (threadIdx.x == 0 && jn + 1 < n) vb = __ldg(vbase + jn + 1);
-      decode_whole(st, L, a, a.cb, lrc, lc, ytile, tbase, rs);
+      decode_whole<V>(st, L, a, a.cb, lrc, lc, ytile, tbase, rs, staged_offset<V>(st, L), s);
       dec = dec + 1 == kStages ? 0 : dec + 1;
       fill = fill + 1 == kStages ? 0 : fill + 1;
     }
@@ -518,7 +596,7 @@ __device__ __forceinline__ void decode_stage(const unsigned char* st, const Stag
 }
 
 // The index of window [vb, vb + vmax) 's first value in the span value_span
-// stages (0 for f32, staged as it lies), and chunk g's scale (int8; 1 else).
+// stages (0 for f32, staged as it lies).
 template <typename V>
 __device__ __forceinline__ int window_offset(const PanelArgs& a, int vb) {
   if constexpr (sizeof(V) == 4) {
@@ -526,15 +604,6 @@ __device__ __forceinline__ int window_offset(const PanelArgs& a, int vb) {
   } else {
     const uintptr_t p = reinterpret_cast<uintptr_t>(static_cast<const V*>(a.values) + vb);
     return (int)(p & 15) / (int)sizeof(V);
-  }
-}
-
-template <typename V>
-__device__ __forceinline__ float chunk_scale(const PanelArgs& a, size_t g) {
-  if constexpr (sizeof(V) == 1) {
-    return __ldg(a.scale + g);
-  } else {
-    return 1.f;
   }
 }
 
@@ -619,43 +688,80 @@ __global__ void __launch_bounds__(256) spmv_desc_panels_kernel(const PanelArgs a
   }
 }
 
-using WholeKernel = void (*)(WholeArgs);
+template <typename V>
+using WholeKernel = void (*)(typename WholeArgsFor<V>::type);
 
-// The whole-vector kernel of a ring of `stages`: 1 (the synchronous twin)
-// or 2 (a ring of 3 was slower on the H100: fewer CTAs an SM); nullptr for
-// any other.
-WholeKernel whole_kernel(int stages) {
+// The whole-vector kernel for values of type V and a ring of `stages`: 1
+// (the synchronous twin) or 2 (a ring of 3 was slower on the H100: fewer
+// CTAs an SM); nullptr for any other.
+template <typename V>
+WholeKernel<V> whole_kernel(int stages) {
   switch (stages) {
-    case 1: return spmv_desc_whole_kernel<1>;
-    case 2: return spmv_desc_whole_kernel<2>;
+    case 1: return spmv_desc_whole_kernel<V, 1>;
+    case 2: return spmv_desc_whole_kernel<V, 2>;
     default: return nullptr;
   }
 }
 
-int launch_whole(int stages, const WholeArgs& a, int smem_planned, int threads, int device,
-                 void* stream) {
-  const WholeKernel kernel = whole_kernel(stages);
-  const size_t smem = whole_smem(a, stages);
+// Launch the whole-vector kernel of `stages` for values of type V with the
+// wrapper's plan: a grid, slice, tile, shared-memory figure or thread count
+// it did not plan (or the kernel cannot take), or int8 values without their
+// scales, is refused with cudaErrorInvalidValue, launching nothing.
+template <typename V>
+int launch_whole(int stages, const typename WholeArgsFor<V>::type& a, int smem_planned,
+                 int threads, int device, void* stream) {
+  const WholeKernel<V> kernel = whole_kernel<V>(stages);
+  const size_t smem = whole_smem(a, stages, (int)sizeof(V));
+  bool no_scale = false;
+  if constexpr (sizeof(V) == 1) no_scale = a.scale == nullptr;
   if (kernel == nullptr || a.grid < 1 || a.grid > a.nchunks || a.nb < 1 || a.nb > a.cb ||
       (stages > 1 && a.nb != a.cb) || a.tile < 1 || (a.c != 4 && a.c != 8) ||
-      smem != (size_t)smem_planned || threads < 32 || threads > 512 || threads % 32 != 0) {
+      smem != (size_t)smem_planned || threads < 32 || threads > 512 || threads % 32 != 0 ||
+      no_scale) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = prepare_launch(kernel, device, smem, threads, nullptr);
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {const_cast<WholeArgs*>(&a)};
+  void* args[] = {const_cast<typename WholeArgsFor<V>::type*>(&a)};
   err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(a.grid), dim3(threads), args,
                          smem, (cudaStream_t)stream);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 WholeArgs whole_args(const int* vbase, const signed char* valid, const void* vidx,
-                     const void* xcol, const void* yrow, const float* values, const float* x,
+                     const void* xcol, const void* yrow, const void* values, const float* x,
                      float* y, int nchunks, int cb, int r, int c, int vmax, int wv, int wx,
                      int wy, int grid, int nb, int tile) {
   return WholeArgs{vbase, valid, static_cast<const char*>(vidx), static_cast<const char*>(xcol),
-                   static_cast<const char*>(yrow), values, x, y, nchunks, cb, r, c, vmax,
-                   wv, wx, wy, grid, nb, tile};
+                   static_cast<const char*>(yrow), static_cast<const float*>(values), x, y,
+                   nchunks, cb, r, c, vmax, wv, wx, wy, grid, nb, tile};
+}
+
+// Launch the whole-vector kernel for vsize-byte values (4 f32, 2 bf16, 1
+// int8 with its scales), nvalues of them.
+int launch_whole_values(int stages, int vsize, const WholeArgs& a, const float* scale,
+                        int nvalues, int smem, int threads, int device, void* stream) {
+  QWholeArgs q{};
+  static_cast<WholeArgs&>(q) = a;
+  q.scale = scale;
+  q.nvalues = nvalues;
+  switch (vsize) {
+    case 4: return launch_whole<float>(stages, a, smem, threads, device, stream);
+    case 2: return launch_whole<__nv_bfloat16>(stages, q, smem, threads, device, stream);
+    case 1: return launch_whole<int8_t>(stages, q, smem, threads, device, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename Kernel>
+int whole_occupancy(Kernel kernel, int threads, int smem, int device, int* out) {
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare_launch(kernel, device, (size_t)smem, threads, nullptr);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, (size_t)smem);
+  }
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(out + 1, cudaDevAttrMultiProcessorCount, device);
+  return (int)err;
 }
 
 using PanelKernel = void (*)(PanelArgs);
@@ -715,48 +821,53 @@ extern "C" {
 
 // The synchronous whole-vector kernel: `grid` CTAs, each a contiguous range
 // of the chunks; nb blocks' tables per stage (nb == cb unless a whole
-// chunk's stage does not fit); a y tile of `tile` rows. smem is the
-// wrapper's figure for the CTA's dynamic shared memory (checked).
+// chunk's stage does not fit); a y tile of `tile` rows; values of vsize
+// bytes (4 f32, 2 bf16, 1 int8 with its (nchunks,) scales; scale is unread
+// otherwise), nvalues of them. smem is the wrapper's figure for the CTA's
+// dynamic shared memory (checked).
 int spc5_spmv_desc_whole_s1(const int* vbase, const signed char* valid, const void* vidx,
-                            const void* xcol, const void* yrow, const float* values,
-                            const float* x, float* y, int nchunks, int cb, int r, int c,
-                            int vmax, int wv, int wx, int wy, int grid, int nb, int tile,
-                            int smem, int threads, int device, void* stream) {
+                            const void* xcol, const void* yrow, const void* values,
+                            const float* scale, const float* x, float* y, int nchunks, int cb,
+                            int r, int c, int vmax, int vsize, int nvalues, int wv, int wx,
+                            int wy, int grid, int nb, int tile, int smem, int threads,
+                            int device, void* stream) {
   const WholeArgs a = whole_args(vbase, valid, vidx, xcol, yrow, values, x, y, nchunks, cb, r, c,
                                  vmax, wv, wx, wy, grid, nb, tile);
-  return launch_whole(1, a, smem, threads, device, stream);
+  return launch_whole_values(1, vsize, a, scale, nvalues, smem, threads, device, stream);
 }
 
 // The staged-ahead whole-vector kernel: a ring of two whole chunks.
 int spc5_spmv_desc_whole_s2(const int* vbase, const signed char* valid, const void* vidx,
-                            const void* xcol, const void* yrow, const float* values,
-                            const float* x, float* y, int nchunks, int cb, int r, int c,
-                            int vmax, int wv, int wx, int wy, int grid, int tile, int smem,
-                            int threads, int device, void* stream) {
+                            const void* xcol, const void* yrow, const void* values,
+                            const float* scale, const float* x, float* y, int nchunks, int cb,
+                            int r, int c, int vmax, int vsize, int nvalues, int wv, int wx,
+                            int wy, int grid, int tile, int smem, int threads, int device,
+                            void* stream) {
   const WholeArgs a = whole_args(vbase, valid, vidx, xcol, yrow, values, x, y, nchunks, cb, r, c,
                                  vmax, wv, wx, wy, grid, cb, tile);
-  return launch_whole(2, a, smem, threads, device, stream);
+  return launch_whole_values(2, vsize, a, scale, nvalues, smem, threads, device, stream);
 }
 
 // The whole-vector kernel's occupancy at `stages` (1: the synchronous
-// kernel, 2: the ring), `threads` and `smem` bytes of dynamic shared memory per CTA:
-// out[0] the CTAs one SM holds at once, out[1] the SMs of the device.
-int spc5_spmv_desc_whole_occupancy(int stages, int threads, int smem, int device, int* out) {
-  const WholeKernel kernel = whole_kernel(stages);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare_launch(kernel, device, (size_t)smem, threads, nullptr);
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, (size_t)smem);
+// kernel, 2: the ring), vsize-byte values, `threads` and `smem` bytes of
+// dynamic shared memory per CTA: out[0] the CTAs one SM holds at once,
+// out[1] the SMs of the device.
+int spc5_spmv_desc_whole_occupancy(int stages, int vsize, int threads, int smem, int device,
+                                   int* out) {
+  switch (vsize) {
+    case 4: return whole_occupancy(whole_kernel<float>(stages), threads, smem, device, out);
+    case 2:
+      return whole_occupancy(whole_kernel<__nv_bfloat16>(stages), threads, smem, device, out);
+    case 1: return whole_occupancy(whole_kernel<int8_t>(stages), threads, smem, device, out);
+    default: return (int)cudaErrorInvalidValue;
   }
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(out + 1, cudaDevAttrMultiProcessorCount, device);
-  return (int)err;
 }
 
 // The dynamic shared memory of one whole-vector CTA with `stages` stages of
-// nb blocks each and a y tile of `tile` rows, as the launch computes it
-// (whole_layout).
+// nb blocks each, a y tile of `tile` rows and vsize-byte values, as the
+// launch computes it (whole_layout).
 int spc5_spmv_desc_whole_smem(int stages, int nb, int r, int c, int vmax, int tile, int wv,
-                              int wx) {
+                              int wx, int vsize) {
   WholeArgs a{};
   a.nb = nb;
   a.r = r;
@@ -765,7 +876,7 @@ int spc5_spmv_desc_whole_smem(int stages, int nb, int r, int c, int vmax, int ti
   a.tile = tile;
   a.wv = wv;
   a.wx = wx;
-  return (int)whole_smem(a, stages);
+  return (int)whole_smem(a, stages, vsize);
 }
 
 // The synchronous panel kernel: nb blocks' tables per stage (nb == cb

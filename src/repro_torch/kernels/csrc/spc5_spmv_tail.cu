@@ -17,8 +17,9 @@
 // each bucket p and each of its smax slots, y[p*pr + clip(row, 0, pr-1)] +=
 // val * x[xbase[p] + clip(col - xbase[p], 0, xw-1)], x zero past its end, y
 // cut at nrows. Padding slots are multiplied like any other, as the
-// reference multiplies them. Bound: memory, 12 bytes a slot read once and 2
-// flops; x (4,096 floats on the vocab layer) stays in L1. The design:
+// reference multiplies them. Bound: memory, 12 bytes a slot read once (10 at
+// bf16 values) and 2 flops; x (4,096 floats on the vocab layer) stays in L1.
+// The design:
 //   * split buckets: each bucket's slots are cut into S contiguous ranges of
 //     whole groups of kGroup slots, one CTA each (S from the card's
 //     occupancy, chosen by the wrapper); a bucket sorted by (row, column)
@@ -28,7 +29,8 @@
 //     contiguous bytes of each array per load; a CTA's ranges start anywhere
 //     (a bucket starts at p*smax), so the steps run on the arrays' own
 //     16-byte quads and slots outside the range are masked (4-byte loads
-//     where an array is not 16-byte aligned). The loads are marked
+//     where an array is not 16-byte aligned; a bf16 quad is one 8-byte load,
+//     or four 2-byte ones). The loads are marked
 //     evict-first (ld.global.cs), and a warp takes one step at a time at
 //     32 registers, so that an SM holds 64 warps; on the H100 the read-only
 //     path, two or four steps loaded together, and the next step's loads
@@ -47,6 +49,13 @@
 // The f32 sum of a row is taken in another order than the reference's, and
 // through global atomics in an order that varies from run to run.
 //
+// Values (both kernels): f32, or bf16, the test layout's tail of a bf16
+// plan (the reference keeps an int8 plan's tail in f32: there is no scale
+// for it). The value store is the kernels' template parameter T; a bf16
+// value is upcast to f32 (its bits moved to the top half of a float, as
+// the reference's upcast does) before its product, summed in f32; the f32
+// kernels are the code they were.
+//
 // SpMM (spmm_tail_kernel<V>) computes what the test layout's SpMM computes
 // for a bucketed tail: Y[p*pr + row, :] += val * X[col, :] over every slot,
 // no column clip and no x window (the reference's jnp path), Y cut at nrows.
@@ -62,10 +71,11 @@
 //     kGroup slots, G from the card's occupancy) times column tiles of up to
 //     128 columns; the tiles of one range take neighbouring blockIdx values;
 //   * rounds of 4 * blockDim slots: every thread stages its own quad of each
-//     array with cp.async (16 bytes, or 4-byte pieces where not aligned), a
+//     array with cp.async (16 bytes, or 4-byte pieces where not aligned; a
+//     bf16 quad of values as 8 bytes, or four 2-byte loads and stores), a
 //     round ahead of its use, into a slot of shared memory only it reads;
 //   * the list: each thread turns its kept slots into the skeleton's entries
-//     (value, X offset col * nvec, global row), placed by a CTA-wide scan of
+//     (f32 value, X offset col * nvec, global row), placed by a CTA-wide scan of
 //     the counts, and checks with a running maximum of the rows that the
 //     round's entries come sorted ("segmented", else every run goes to Y by
 //     global atomics);
@@ -130,6 +140,43 @@ __device__ __forceinline__ void load_quad(const float* p, int q, bool wide, int 
   }
 }
 
+// bf16 values upcast to f32: a bf16 value's 16 bits are an f32's top half.
+__device__ __forceinline__ float bf16_lo(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+
+// A quad of bf16 values, upcast: one 8-byte load where the quad is so
+// aligned (wide), else the slots of [lo, hi) one by one, the others 0.
+__device__ __forceinline__ void load_quad(const __nv_bfloat16* p, int q, bool wide, int lo,
+                                          int hi, float (&out)[4]) {
+  if (wide) {
+    const uint2 v = __ldcs(reinterpret_cast<const uint2*>(p) + q);
+    out[0] = bf16_lo(v.x);
+    out[1] = bf16_hi(v.x);
+    out[2] = bf16_lo(v.y);
+    out[3] = bf16_hi(v.y);
+  } else {
+    const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      out[j] = 4 * q + j >= lo && 4 * q + j < hi ? bf16_lo(__ldcs(h + 4 * q + j)) : 0.f;
+    }
+  }
+}
+
+// The quad's alignment test: a bf16 quad of values is 8 bytes, so the
+// values need only 8-byte alignment (the rows and columns 16).
+template <typename T>
+__device__ __forceinline__ bool quads_aligned(const int* rows, const int* cols,
+                                              const float* vals) {
+  if constexpr (sizeof(T) == 4) {
+    return ((reinterpret_cast<uintptr_t>(rows) | reinterpret_cast<uintptr_t>(cols) |
+             reinterpret_cast<uintptr_t>(vals)) & 15) == 0;
+  } else {
+    return ((reinterpret_cast<uintptr_t>(rows) | reinterpret_cast<uintptr_t>(cols) |
+             (reinterpret_cast<uintptr_t>(vals) << 1)) & 15) == 0;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // SpMV: S CTAs a bucket, four slots a lane, rows combined in the warp
 // ---------------------------------------------------------------------------
@@ -138,7 +185,7 @@ struct TailArgs {
   const int* xbase;  // (npanels,) each bucket's x window start
   const int* rows;   // (npanels, smax) panel-local rows
   const int* cols;   // (npanels, smax) columns
-  const float* vals;
+  const float* vals;  // (npanels, smax) values: f32, or bf16 read as its own type
   const float* x;    // (ncols,), read in place
   float* y;          // (nrows,), zeroed
   int npanels, smax, pr, xw, nrows, ncols;
@@ -204,6 +251,7 @@ __device__ __forceinline__ void combine_step(const int (&k)[4], const float (&v)
 }
 
 // 32 registers a thread, so that an SM holds 2,048 threads
+template <typename T>
 __global__ void __launch_bounds__(512, 4) spmv_tail_kernel(const TailArgs a) {
   const int p = (int)(blockIdx.x / a.split), part = (int)(blockIdx.x % a.split);
   const int ngroups = tail_groups(a.smax);
@@ -215,8 +263,7 @@ __global__ void __launch_bounds__(512, 4) spmv_tail_kernel(const TailArgs a) {
   const int hi = base + min(g1 * kGroup, a.smax);
   const int q0 = lo >> 2, q1 = (hi + 3) >> 2;  // the quads holding [lo, hi)
   const int nsteps = (q1 - q0 + 31) >> 5;
-  const bool wide = ((reinterpret_cast<uintptr_t>(a.rows) | reinterpret_cast<uintptr_t>(a.cols) |
-                      reinterpret_cast<uintptr_t>(a.vals)) & 15) == 0;
+  const bool wide = quads_aligned<T>(a.rows, a.cols, a.vals);
   const int xb = __ldg(a.xbase + p);
   float* yp = a.y + (size_t)p * a.pr;
   const int nout = min(a.pr, a.nrows - p * a.pr);
@@ -229,7 +276,7 @@ __global__ void __launch_bounds__(512, 4) spmv_tail_kernel(const TailArgs a) {
     if (q < q1) {
       load_quad(a.rows, q, wide, lo, hi, row);
       load_quad(a.cols, q, wide, lo, hi, col);
-      load_quad(a.vals, q, wide, lo, hi, val);
+      load_quad(reinterpret_cast<const T*>(a.vals), q, wide, lo, hi, val);
     }
     int key[4];
     float prod[4];
@@ -253,19 +300,34 @@ __global__ void __launch_bounds__(512, 4) spmv_tail_kernel(const TailArgs a) {
   }
 }
 
-// The SpMV tail launch's checks: the wrapper's S (1 .. the groups of a
-// bucket), threads (whole warps, 32 .. 512) and shared memory (none).
-int launch_spmv_tail(const TailArgs& a, int threads, int smem, int device, void* stream) {
-  if (a.npanels < 1 || a.smax < 1 || a.pr < 1 || a.xw < 1 || a.nrows < 0 || a.ncols < 0 ||
-      (long long)a.npanels * a.smax > 0x7fffffffLL - 4 * kGroup || a.split < 1 ||
+using SpmvTailKernel = void (*)(TailArgs);
+
+// The SpMV tail kernel for vsize-byte values (4 float, 2 bf16); nullptr for
+// any other (an int8 tail has no scale: the reference keeps it f32).
+SpmvTailKernel spmv_tail_kernel_of(int vsize) {
+  switch (vsize) {
+    case 4: return spmv_tail_kernel<float>;
+    case 2: return spmv_tail_kernel<__nv_bfloat16>;
+    default: return nullptr;
+  }
+}
+
+// The SpMV tail launch's checks: the values' width, the wrapper's S (1 ..
+// the groups of a bucket), threads (whole warps, 32 .. 512) and shared
+// memory (none).
+int launch_spmv_tail(const TailArgs& a, int vsize, int threads, int smem, int device,
+                     void* stream) {
+  const SpmvTailKernel kernel = spmv_tail_kernel_of(vsize);
+  if (kernel == nullptr || a.npanels < 1 || a.smax < 1 || a.pr < 1 || a.xw < 1 || a.nrows < 0 ||
+      a.ncols < 0 || (long long)a.npanels * a.smax > 0x7fffffffLL - 4 * kGroup || a.split < 1 ||
       a.split > tail_groups(a.smax) ||
       (long long)a.npanels * a.split > 0x7fffffffLL || threads < 32 || threads > 512 ||
       threads % 32 != 0 || smem != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = prepare_launch(spmv_tail_kernel, device, 0, threads, nullptr);
+  cudaError_t err = prepare_launch(kernel, device, 0, threads, nullptr);
   if (err != cudaSuccess) return (int)err;
-  spmv_tail_kernel<<<a.npanels * a.split, threads, 0, (cudaStream_t)stream>>>(a);
+  kernel<<<a.npanels * a.split, threads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -278,7 +340,7 @@ struct SpmmTailArgs {
   WholeGeom g;  // x, y, nrows, xrows, nvec, tw, vec, ntiles, grid (G), tile; the rest unused
   const int* rows;  // (npanels, smax) panel-local rows
   const int* cols;  // (npanels, smax) columns (rows of X)
-  const float* vals;
+  const float* vals;  // (npanels, smax) values: f32, or bf16 read as its own type
   int npanels, smax, pr;
 };
 
@@ -286,13 +348,15 @@ struct SpmmTailArgs {
 // tw) Y tile at 0, the groups' A and B slots (tw floats each) and headers
 // (an int4 a group), the warps' scan totals (an int4 a warp), the list (an
 // entry of 16 bytes for each of a round's 4 * threads slots), then each
-// thread's staged quad of rows, columns and values (48 bytes a thread). The
-// wrapper reckons the same (kernels/spc5_spmv_tail.py: spmm_tail_smem_bytes).
+// thread's staged quad of rows, columns and vsize-byte values (32 + 4 *
+// vsize bytes a thread: 48 at f32, 40 at bf16). The wrapper reckons the same
+// (kernels/spc5_spmv_tail.py: spmm_tail_smem_bytes).
 struct TailLayout {
   int slots, heads, scratch, list, stage, bytes;
 };
 
-__host__ __device__ inline TailLayout tail_layout(int tw, int vec, int tile, int threads) {
+__host__ __device__ inline TailLayout tail_layout(int tw, int vec, int tile, int threads,
+                                                  int vsize) {
   const int lanes = vec > 0 ? tw / vec : 1;
   const int groups = lanes > 0 ? threads / lanes : 0;
   TailLayout L;
@@ -301,18 +365,22 @@ __host__ __device__ inline TailLayout tail_layout(int tw, int vec, int tile, int
   L.scratch = L.heads + 16 * groups;
   L.list = L.scratch + 16 * (threads / 32);
   L.stage = L.list + 64 * threads;
-  L.bytes = L.stage + 48 * threads;
+  L.bytes = L.stage + (32 + 4 * vsize) * threads;
   return L;
 }
 
 // Stage this thread's quad q of each array (slots outside the arrays are
-// not copied) into its own 16 bytes of rows, columns and values.
+// not copied) into its own 16 bytes of rows and of columns and 4 * T bytes
+// of values (bf16: 8 bytes by cp.async where aligned, else 2-byte loads and
+// stores, which cp.async does not take).
+template <typename T>
 __device__ __forceinline__ void stage_quad(int4* stage, const SpmmTailArgs& a, int q, int nslots,
                                            bool wide) {
   const int t = threadIdx.x, n = blockDim.x;
+  constexpr int kArrays = sizeof(T) == 4 ? 3 : 2;  // the arrays staged as int4 quads
   const void* src[3] = {a.rows, a.cols, a.vals};
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
+  for (int k = 0; k < kArrays; ++k) {
     int4* dst = stage + k * n + t;
     if (wide) {
       cp_async16(dst, reinterpret_cast<const int4*>(src[k]) + q);
@@ -326,15 +394,46 @@ __device__ __forceinline__ void stage_quad(int4* stage, const SpmmTailArgs& a, i
       }
     }
   }
+  if constexpr (sizeof(T) == 2) {
+    uint2* dst = reinterpret_cast<uint2*>(stage + 2 * n) + t;
+    if (wide) {
+      cp_async8(dst, reinterpret_cast<const uint2*>(a.vals) + q);
+    } else {
+      const unsigned short* v = reinterpret_cast<const unsigned short*>(a.vals);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (4 * q + j < nslots) reinterpret_cast<unsigned short*>(dst)[j] = __ldg(v + 4 * q + j);
+      }
+    }
+  }
+}
+
+// This thread's staged quad of values as the f32 bits the list holds (bf16
+// upcast).
+template <typename T>
+__device__ __forceinline__ void staged_vals(const int4* stage, int n, int t, int (&vv)[4]) {
+  if constexpr (sizeof(T) == 4) {
+    const int4 v4 = stage[2 * n + t];
+    vv[0] = v4.x;
+    vv[1] = v4.y;
+    vv[2] = v4.z;
+    vv[3] = v4.w;
+  } else {
+    const uint2 h = reinterpret_cast<const uint2*>(stage + 2 * n)[t];
+    vv[0] = __float_as_int(bf16_lo(h.x));
+    vv[1] = __float_as_int(bf16_hi(h.x));
+    vv[2] = __float_as_int(bf16_lo(h.y));
+    vv[3] = __float_as_int(bf16_hi(h.y));
+  }
 }
 
 // The kernel. blockIdx.x = range * ntiles + column tile.
-template <int V>
+template <typename T, int V>
 __global__ void __launch_bounds__(512, 2) spmm_tail_kernel(const SpmmTailArgs a) {
   extern __shared__ __align__(16) unsigned char tsmem[];
   const WholeGeom& g = a.g;
   const int nthreads = (int)blockDim.x, t = (int)threadIdx.x;
-  const TailLayout L = tail_layout(g.tw, g.vec, g.tile, nthreads);
+  const TailLayout L = tail_layout(g.tw, g.vec, g.tile, nthreads, (int)sizeof(T));
   float* ytile = reinterpret_cast<float*>(tsmem);
   float* slots = reinterpret_cast<float*>(tsmem + L.slots);
   int4* heads = reinterpret_cast<int4*>(tsmem + L.heads);
@@ -350,8 +449,7 @@ __global__ void __launch_bounds__(512, 2) spmm_tail_kernel(const SpmmTailArgs a)
   const int hi = min((int)((long long)(range + 1) * ngroups / g.grid) * kGroup, nslots);
   const int q0 = lo >> 2, q1 = (hi + 3) >> 2;
   const int rounds = (q1 - q0 + nthreads - 1) / nthreads;
-  const bool wide = ((reinterpret_cast<uintptr_t>(a.rows) | reinterpret_cast<uintptr_t>(a.cols) |
-                      reinterpret_cast<uintptr_t>(a.vals)) & 15) == 0;
+  const bool wide = quads_aligned<T>(a.rows, a.cols, a.vals);
 
   const int lg = __ffs(g.tw / V) - 1;  // log2 of the lanes of a group
   const int grp = t >> lg, groups = nthreads >> lg;
@@ -373,7 +471,7 @@ __global__ void __launch_bounds__(512, 2) spmm_tail_kernel(const SpmmTailArgs a)
   for (int i = t; i < L.slots / 16; i += nthreads) {
     reinterpret_cast<float4*>(ytile)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  if (q0 + t < q1) stage_quad(stage, a, q0 + t, nslots, wide);
+  if (q0 + t < q1) stage_quad<T>(stage, a, q0 + t, nslots, wide);
   cp_async_commit();
   // (the first round's B1 barrier orders the tile's zeroing before its use)
 
@@ -385,10 +483,11 @@ __global__ void __launch_bounds__(512, 2) spmm_tail_kernel(const SpmmTailArgs a)
     int cnt = 0, fk = kAfter, lk = kBefore;
     bool ok = true;
     if (q < q1) {
-      const int4 r4 = stage[t], c4 = stage[nthreads + t], v4 = stage[2 * nthreads + t];
+      const int4 r4 = stage[t], c4 = stage[nthreads + t];
       const int rr[4] = {r4.x, r4.y, r4.z, r4.w};
       const int cc[4] = {c4.x, c4.y, c4.z, c4.w};
-      const int vv[4] = {v4.x, v4.y, v4.z, v4.w};
+      int vv[4];
+      staged_vals<T>(stage, nthreads, t, vv);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int s = 4 * q + j;
@@ -436,10 +535,11 @@ __global__ void __launch_bounds__(512, 2) spmm_tail_kernel(const SpmmTailArgs a)
     }
     // pass 2: the kept slots' entries, read from the staged quad again
     if (cnt > 0) {
-      const int4 r4 = stage[t], c4 = stage[nthreads + t], v4 = stage[2 * nthreads + t];
+      const int4 r4 = stage[t], c4 = stage[nthreads + t];
       const int rr[4] = {r4.x, r4.y, r4.z, r4.w};
       const int cc[4] = {c4.x, c4.y, c4.z, c4.w};
-      const int vv[4] = {v4.x, v4.y, v4.z, v4.w};
+      int vv[4];
+      staged_vals<T>(stage, nthreads, t, vv);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int s = 4 * q + j;
@@ -452,7 +552,7 @@ __global__ void __launch_bounds__(512, 2) spmm_tail_kernel(const SpmmTailArgs a)
     // the quad's values are stored: its slot takes the next round's (the
     // stores above wait on the loads; the asm keeps the compiler's order)
     asm volatile("" ::: "memory");
-    if (k + 1 < rounds && q + nthreads < q1) stage_quad(stage, a, q + nthreads, nslots, wide);
+    if (k + 1 < rounds && q + nthreads < q1) stage_quad<T>(stage, a, q + nthreads, nslots, wide);
     cp_async_commit();
     const bool fast = __syncthreads_and(ok) != 0;  // B2: the list
     o.fast = fast;
@@ -468,20 +568,33 @@ __global__ void __launch_bounds__(512, 2) spmm_tail_kernel(const SpmmTailArgs a)
 
 using SpmmTailKernel = void (*)(SpmmTailArgs);
 
-SpmmTailKernel spmm_tail_kernel_of(int vec) {
+template <typename T>
+SpmmTailKernel spmm_tail_kernel_v(int vec) {
   switch (vec) {
-    case 1: return spmm_tail_kernel<1>;
-    case 2: return spmm_tail_kernel<2>;
-    case 4: return spmm_tail_kernel<4>;
+    case 1: return spmm_tail_kernel<T, 1>;
+    case 2: return spmm_tail_kernel<T, 2>;
+    case 4: return spmm_tail_kernel<T, 4>;
     default: return nullptr;
   }
 }
 
-// The SpMM tail launch's checks: the geometry the kernel takes, the
-// wrapper's G (1 .. the groups of all slots), threads and shared memory.
-int launch_spmm_tail(const SpmmTailArgs& a, int threads, int smem, int device, void* stream) {
+// The SpMM tail kernel for vsize-byte values (4 float, 2 bf16) and vec
+// columns a lane; nullptr for any other.
+SpmmTailKernel spmm_tail_kernel_of(int vsize, int vec) {
+  switch (vsize) {
+    case 4: return spmm_tail_kernel_v<float>(vec);
+    case 2: return spmm_tail_kernel_v<__nv_bfloat16>(vec);
+    default: return nullptr;
+  }
+}
+
+// The SpMM tail launch's checks: the values' width, the geometry the kernel
+// takes, the wrapper's G (1 .. the groups of all slots), threads and shared
+// memory.
+int launch_spmm_tail(const SpmmTailArgs& a, int vsize, int threads, int smem, int device,
+                     void* stream) {
   const WholeGeom& g = a.g;
-  const SpmmTailKernel kernel = spmm_tail_kernel_of(g.vec);
+  const SpmmTailKernel kernel = spmm_tail_kernel_of(vsize, g.vec);
   const int lanes = g.vec > 0 ? g.tw / g.vec : 0;
   const long long nslots = (long long)a.npanels * a.smax;
   if (kernel == nullptr || a.npanels < 1 || a.smax < 1 || a.pr < 1 || nslots > 0x7fffffffLL - 4 * kGroup ||
@@ -490,7 +603,7 @@ int launch_spmm_tail(const SpmmTailArgs& a, int threads, int smem, int device, v
       g.ntiles != (g.nvec + g.tw - 1) / g.tw || g.grid < 1 || g.grid > tail_groups(nslots) ||
       (long long)g.grid * g.ntiles > 0x7fffffffLL || g.tile < 1 || threads < 32 ||
       threads > 512 || (threads & (threads - 1)) != 0 || threads < lanes ||
-      tail_layout(g.tw, g.vec, g.tile, threads).bytes != smem) {
+      tail_layout(g.tw, g.vec, g.tile, threads, vsize).bytes != smem) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = prepare_launch(kernel, device, (size_t)smem, threads, nullptr);
@@ -517,49 +630,57 @@ int occupancy(Kernel kernel, int threads, int smem, int device, int* out) {
 extern "C" {
 
 // The SpMV tail: npanels * split CTAs of `threads`, each a contiguous
-// range of one bucket's groups; smem must be 0 (the kernel uses none).
-int spc5_spmv_tail(const int* xbase, const int* rows, const int* cols, const float* vals,
+// range of one bucket's groups; values of vsize bytes (4 f32, 2 bf16);
+// smem must be 0 (the kernel uses none).
+int spc5_spmv_tail(const int* xbase, const int* rows, const int* cols, const void* vals,
                    const float* x, float* y, int npanels, int smax, int pr, int xw, int nrows,
-                   int ncols, int split, int threads, int smem, int device, void* stream) {
-  const TailArgs a{xbase, rows, cols, vals, x, y, npanels, smax, pr, xw, nrows, ncols, split};
-  return launch_spmv_tail(a, threads, smem, device, stream);
+                   int ncols, int vsize, int split, int threads, int smem, int device,
+                   void* stream) {
+  const float* v = static_cast<const float*>(vals);  // bf16 values are read as bf16
+  const TailArgs a{xbase, rows, cols, v, x, y, npanels, smax, pr, xw, nrows, ncols, split};
+  return launch_spmv_tail(a, vsize, threads, smem, device, stream);
 }
 
-// The SpMV tail kernel's occupancy at `threads`: out[0] the CTAs one SM
-// holds at once, out[1] the SMs of the device.
-int spc5_spmv_tail_occupancy(int threads, int device, int* out) {
-  return occupancy(spmv_tail_kernel, threads, 0, device, out);
+// The SpMV tail kernel's occupancy for vsize-byte values at `threads`:
+// out[0] the CTAs one SM holds at once, out[1] the SMs of the device.
+int spc5_spmv_tail_occupancy(int vsize, int threads, int device, int* out) {
+  const SpmvTailKernel kernel = spmv_tail_kernel_of(vsize);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  return occupancy(kernel, threads, 0, device, out);
 }
 
 // The SpMM tail: grid * ntiles CTAs of `threads`; tiles of tw columns, vec
-// a lane; a Y tile of tile_rows rows. smem is the wrapper's figure (checked).
-int spc5_spmm_tail(const int* rows, const int* cols, const float* vals, const float* x, float* y,
+// a lane; values of vsize bytes (4 f32, 2 bf16); a Y tile of tile_rows rows.
+// smem is the wrapper's figure (checked).
+int spc5_spmm_tail(const int* rows, const int* cols, const void* vals, const float* x, float* y,
                    int npanels, int smax, int pr, int nrows, int xrows, int nvec, int tw, int vec,
-                   int grid, int tile_rows, int threads, int smem, int device, void* stream) {
+                   int vsize, int grid, int tile_rows, int threads, int smem, int device,
+                   void* stream) {
   SpmmTailArgs a{};
   a.g = WholeGeom{x, y, 0, 0, 1, 1, 4, nrows, xrows, nvec, tw, vec,
                   tw > 0 ? (nvec + tw - 1) / tw : 0, grid, 1, 1, 1, tile_rows};
   a.rows = rows;
   a.cols = cols;
-  a.vals = vals;
+  a.vals = static_cast<const float*>(vals);
   a.npanels = npanels;
   a.smax = smax;
   a.pr = pr;
-  return launch_spmm_tail(a, threads, smem, device, stream);
+  return launch_spmm_tail(a, vsize, threads, smem, device, stream);
 }
 
-// The SpMM tail kernel's occupancy for `vec` columns a lane at `threads`
-// and `smem` bytes: out[0] the CTAs one SM holds at once, out[1] the SMs.
-int spc5_spmm_tail_occupancy(int vec, int threads, int smem, int device, int* out) {
-  const SpmmTailKernel kernel = spmm_tail_kernel_of(vec);
+// The SpMM tail kernel's occupancy for vsize-byte values and `vec` columns
+// a lane at `threads` and `smem` bytes: out[0] the CTAs one SM holds at
+// once, out[1] the SMs.
+int spc5_spmm_tail_occupancy(int vsize, int vec, int threads, int smem, int device, int* out) {
+  const SpmmTailKernel kernel = spmm_tail_kernel_of(vsize, vec);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   return occupancy(kernel, threads, smem, device, out);
 }
 
-// The dynamic shared memory of one SpMM tail CTA, as the launch computes it
-// (tail_layout).
-int spc5_spmm_tail_smem(int tw, int vec, int tile_rows, int threads) {
-  return tail_layout(tw, vec, tile_rows, threads).bytes;
+// The dynamic shared memory of one SpMM tail CTA for vsize-byte values, as
+// the launch computes it (tail_layout).
+int spc5_spmm_tail_smem(int tw, int vec, int tile_rows, int threads, int vsize) {
+  return tail_layout(tw, vec, tile_rows, threads, vsize).bytes;
 }
 
 }  // extern "C"

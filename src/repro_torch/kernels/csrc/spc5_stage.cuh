@@ -45,13 +45,15 @@ __host__ __device__ inline int value_window(int vsize, int vmax) {
 // values there are: returns its start; off is the index of the window's
 // first value in it and bytes what to copy, a multiple of 16 (at most
 // value_window) unless the span's last 16-byte piece would reach past
-// values' end. A window starts and ends on a multiple of 8 bytes, inside
-// values, so that happens exactly where it ends past values' last 16-byte
-// boundary; its last piece then holds the window's last 8 bytes and 8 bytes
-// past values, and bytes leaves those 8 out. (Integer compares on value
-// indices only: a pointer compare cost the synchronous panel descriptor
-// SpMV kernels registers.) The wrappers' copy: kernels/spc5_spmv.py:
-// value_span.
+// values' end. A window starts and ends on a multiple of 4 bytes (8 for
+// bf16, and for int8 at the default alignment of 8 values), inside values,
+// whose length is a multiple of 4 bytes, so that happens exactly where the
+// window ends past values' last 16-byte boundary; bytes then stops at
+// values' end, 4, 8 or 12 bytes into the last piece (8 past a bf16 or an
+// int8 plan aligned to 8 values, 4 or 12 past an int8 plan aligned to 4).
+// (Integer compares on value indices only: a pointer compare cost the
+// synchronous panel descriptor SpMV kernels registers.) The wrappers' copy:
+// kernels/spc5_spmv.py: value_span.
 template <typename V>
 __device__ __forceinline__ const char* value_span(const V* values, int vb, int vmax, int nvalues,
                                                   int& bytes, int& off) {
@@ -60,7 +62,9 @@ __device__ __forceinline__ const char* value_span(const V* values, int vb, int v
   const uintptr_t lo = p & ~(uintptr_t)15;
   off = (int)(p - lo) / (int)sizeof(V);
   bytes = (int)((p - lo + sizeof(V) * (uintptr_t)vmax + 15) & ~(uintptr_t)15);
-  if (vb + vmax > (nvalues & ~(kPerPiece - 1))) bytes -= 8;
+  // the span then ends on the 16-byte boundary after values' end: stop at
+  // values' end, (nvalues * sizeof(V)) % 16 bytes into the last piece
+  if (vb + vmax > (nvalues & ~(kPerPiece - 1))) bytes += ((nvalues * (int)sizeof(V)) & 15) - 16;
   return reinterpret_cast<const char*>(lo);
 }
 
@@ -125,16 +129,20 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
 
 // Copy bytes of a span value_span returned into shared memory at dst (16-byte
 // aligned), as the thread that issues a stage's bulk copies: its whole
-// 16-byte pieces by one bulk copy on bar, and where value_span left the last
-// piece's 8 bytes past values out, the 8 before them by cp.async, completed
-// by the caller's cp.async wait. The barrier expects span_bulk_bytes(bytes).
+// 16-byte pieces by one bulk copy on bar, and where value_span stopped the
+// span at values' end inside its last piece, the 4, 8 or 12 bytes before it
+// by cp.async, completed by the caller's cp.async wait. The barrier expects
+// span_bulk_bytes(bytes).
 __device__ __forceinline__ uint32_t span_bulk_bytes(int bytes) { return (uint32_t)(bytes & ~15); }
 
 __device__ __forceinline__ void copy_span(unsigned char* dst, const char* span, int bytes,
                                           uint64_t* bar) {
   const int whole = bytes & ~15;
   if (whole > 0) bulk_copy(dst, span, (uint32_t)whole, bar);
-  if (bytes & 8) cp_async8(dst + whole, span + whole);
+  if (bytes & 12) {  // a span stopped at values' end: rare, one test
+    if (bytes & 8) cp_async8(dst + whole, span + whole);
+    if (bytes & 4) cp_async4(dst + (bytes & ~7), span + (bytes & ~7));
+  }
 }
 
 // Wait until the mbarrier's phase of parity `parity` has completed.
@@ -224,18 +232,26 @@ __device__ __forceinline__ void copy_runs(unsigned char* dst, const char* src, i
 // Copy bytes of a span value_span returned into dst (16-byte aligned) with
 // all threads of the CTA: its whole 16-byte pieces by copy_runs (always in
 // 16-byte pieces: the span starts on a 16-byte boundary), and where
-// value_span left the last piece's 8 bytes past values out, the 8 before
-// them by the last thread (cp.async, completed by the caller's wait, or a
-// vector load).
+// value_span stopped the span at values' end inside its last piece, the 4,
+// 8 or 12 bytes before it by the last thread (cp.async, completed by the
+// caller's wait, or vector loads).
 template <bool kAsync>
 __device__ __forceinline__ void copy_span_runs(unsigned char* dst, const char* span, int bytes) {
   const int whole = bytes & ~15;
   copy_runs<kAsync>(dst, span, 1, whole, 0);
-  if ((bytes & 8) && threadIdx.x == blockDim.x - 1) {
+  if ((bytes & 12) && threadIdx.x == blockDim.x - 1) {
+    const int tail = bytes & ~7;  // where a last 4-byte piece starts
     if (kAsync) {
-      cp_async8(dst + whole, span + whole);
+      if (bytes & 8) cp_async8(dst + whole, span + whole);
+      if (bytes & 4) cp_async4(dst + tail, span + tail);
     } else {
-      *reinterpret_cast<uint2*>(dst + whole) = __ldg(reinterpret_cast<const uint2*>(span + whole));
+      if (bytes & 8) {
+        *reinterpret_cast<uint2*>(dst + whole) = __ldg(reinterpret_cast<const uint2*>(span + whole));
+      }
+      if (bytes & 4) {
+        *reinterpret_cast<unsigned*>(dst + tail) =
+            __ldg(reinterpret_cast<const unsigned*>(span + tail));
+      }
     }
   }
 }

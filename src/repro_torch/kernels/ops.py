@@ -60,11 +60,11 @@ def prepare(mat: F.SPC5Matrix, *, layout: str = "auto",
     (``plan.lowering_cost``).
     ``vdtype`` ("f32", "bf16", "int8" or "auto", also read from a config's
     ``vdtype``) stores the values in that dtype, int8 with one f32 scale a
-    chunk; products accumulate and return f32. On the CPU every layout and
-    lowering takes it; on the card the mask and panel descriptor kernels
-    do, and the whole-vector descriptor and tail kernels raise
-    ``NotImplementedError`` for bf16 or int8 values (ROADMAP queue 2 A). ``reorder``, ``verify`` and ``store`` take the
-    reference's defaults (None, False, None); a ``reorder``, a truthy
+    chunk; products accumulate and return f32. Every layout and lowering
+    takes it, on the CPU (the plain versions) and on the card (every
+    kernel); a ``layout="test"`` plan keeps its singleton tail in bf16 at
+    bf16 and in f32 at int8, as the reference does. ``reorder``, ``verify``
+    and ``store`` take the reference's defaults (None, False, None); a ``reorder``, a truthy
     ``verify`` and a ``store`` raise ``NotImplementedError`` naming their
     ROADMAP item."""
     P.refuse_unported(reorder, store, verify)

@@ -336,8 +336,7 @@ def spmm_cuda(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
                    **{k: (nchunks, cb) for k in ("chunk_col", "chunk_mask",
                                                  "chunk_voff", "chunk_row")}},
            values.device)
-    _check_values(fn, values, value_scale, (nchunks,),
-                  kernel_takes_quantised=True)
+    _check_values(fn, values, value_scale, (nchunks,))
     nvec = _nvec(x, nvt)
     if x.shape[0] != ncols:
         raise ValueError(f"X has shape {tuple(x.shape)}, expected "
@@ -551,8 +550,7 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
                    **{k: (npanels, nchunks, cb)
                       for k in ("chunk_col", "chunk_mask", "chunk_voff",
                                 "chunk_row")}}, values.device)
-    _check_values(fn, values, value_scale, (npanels, nchunks),
-                  kernel_takes_quantised=True)
+    _check_values(fn, values, value_scale, (npanels, nchunks))
     nvec = _nvec(x, nvt)
     if npanels * pr < nrows:
         raise ValueError(f"{npanels} panels of {pr} rows cannot hold "

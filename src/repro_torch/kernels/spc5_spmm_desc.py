@@ -26,10 +26,9 @@ builds for the geometry, never widened
 (:func:`.spc5_spmv_desc._check_tables`).
 
 Values are f32, bf16 or int8 (with ``value_scale``, one f32 scale a
-chunk): the panel kernels take all three, upcasting (and scaling) each
-value before its products with X, summed in f32; the whole-vector kernel
-takes f32 only and raises ``NotImplementedError`` on the card for a
-quantised store (ROADMAP queue 2 A).
+chunk): all three kernels take all three, upcasting (and scaling) each
+value before its products with X, summed in f32; a narrow window is staged
+as the 16-byte aligned span that covers it, kept inside ``values``.
 
 A CPU tensor goes to the plain PyTorch version (:mod:`repro_torch.core.
 ref_spmv`); a CUDA tensor goes to the kernel, or the wrapper raises. Each
@@ -81,37 +80,42 @@ def _block(r: int, c: int) -> None:
 # ----------------------------------------------------------------------------
 
 def whole_stage_bytes(q: int, nb: int, r: int, c: int, vmax: int, wv: int,
-                      wx: int) -> int:
-    """One stage of the whole-vector descriptor kernel: q value windows, for
+                      wx: int, vsize: int = 4) -> int:
+    """One stage of the whole-vector descriptor kernel: q value windows
+    (:func:`~.spc5_spmv_desc.value_window_bytes` of ``vsize``-byte values),
+    for narrow values each chunk's window offset and scale (8 bytes), for
     nb blocks the valid and vidx runs, the c xcol entries of each block's
     first row and a 4-byte slot for its lane-0 yrow entry, and a 16-byte
     mbarrier slot, every part 16-byte aligned."""
     rc = r * c
-    return (q * _round16(4 * vmax) + _round16(nb * rc) + _round16(nb * rc * wv)
+    return (q * value_window_bytes(vmax, vsize)
+            + KM._window_meta_bytes(q, vsize)
+            + _round16(nb * rc) + _round16(nb * rc * wv)
             + _round16(nb * c * wx) + _round16(4 * nb) + 16)
 
 
 def whole_smem_bytes(stages: int, q: int, nb: int, r: int, c: int, vmax: int,
                      wv: int, wx: int, tw: int, vec: int, tile_rows: int,
-                     threads: int) -> int:
+                     threads: int, vsize: int = 4) -> int:
     """Dynamic shared memory of one whole-vector descriptor CTA
-    (:func:`.spc5_spmm.whole_layout_bytes` with :func:`whole_stage_bytes`).
-    The kernel's launcher refuses a launch whose figure differs from its own
-    (``spc5_spmm_desc_whole_smem`` exposes it)."""
-    return KM.whole_layout_bytes(whole_stage_bytes(q, nb, r, c, vmax, wv, wx),
-                                 stages, q, nb, r, c, vmax, tw, vec,
-                                 tile_rows, threads)
+    (:func:`.spc5_spmm.whole_layout_bytes` with :func:`whole_stage_bytes`
+    of ``vsize``-byte values). The kernel's launcher refuses a launch whose
+    figure differs from its own (``spc5_spmm_desc_whole_smem`` exposes
+    it)."""
+    return KM.whole_layout_bytes(
+        whole_stage_bytes(q, nb, r, c, vmax, wv, wx, vsize), stages, q, nb, r,
+        c, vmax, tw, vec, tile_rows, threads)
 
 
 _WHOLE_OCCUPANCY: Dict[Tuple[int, ...], Tuple[int, int]] = {}
 
 
 def whole_occupancy(r: int, c: int, vec: int, threads: int, smem: int,
-                    device: torch.device) -> Tuple[int, int]:
+                    device: torch.device, vsize: int = 4) -> Tuple[int, int]:
     """(CTAs one SM holds at once, SMs) for the whole-vector descriptor
-    kernel of block shape (r, c) and ``vec`` columns a lane, as the CUDA
-    runtime reports them."""
-    key = (r, c, vec, threads, smem, device.index or 0)
+    kernel of ``vsize``-byte values, block shape (r, c) and ``vec`` columns
+    a lane, as the CUDA runtime reports them."""
+    key = (vsize, r, c, vec, threads, smem, device.index or 0)
     if key not in _WHOLE_OCCUPANCY:
         lib = _build.load_library("spc5_spmm_desc")
         out = (ctypes.c_int * 2)()
@@ -122,28 +126,30 @@ def whole_occupancy(r: int, c: int, vec: int, threads: int, smem: int,
 
 
 def whole_cta(*, cb: int, r: int, c: int, vmax: int, nvec: int, vec: int,
-              wv: int, wx: int,
-              what: str = "whole-vector kernel") -> Dict[str, int]:
+              wv: int, wx: int, what: str = "whole-vector kernel",
+              vsize: int = 4) -> Dict[str, int]:
     """The CTA ``spmm_cuda_desc`` plans for lanes of at most ``vec`` columns
-    (:func:`panels_vector`) and vidx / xcol tables ``wv`` / ``wx`` bytes
-    wide: the mask kernel's planning (:func:`.spc5_spmm.whole_plan`) with
-    :func:`whole_smem_bytes`."""
+    (:func:`panels_vector`), vidx / xcol tables ``wv`` / ``wx`` bytes wide
+    and ``vsize``-byte values: the mask kernel's planning
+    (:func:`.spc5_spmm.whole_plan`) with :func:`whole_smem_bytes`."""
     KM._panel_block(r, c, "whole-vector")
     return KM.whole_plan(lambda s, q, nb, tw, v, rows, t: whole_smem_bytes(
-        s, q, nb, r, c, vmax, wv, wx, tw, v, rows, t), cb, r, c, vmax, nvec,
-        vec, what)
+        s, q, nb, r, c, vmax, wv, wx, tw, v, rows, t, vsize), cb, r, c, vmax,
+        nvec, vec, what)
 
 
 def whole_launch(nchunks: int, *, cb: int, r: int, c: int, vmax: int,
                  nvec: int, vec: int, wv: int, wx: int, device: torch.device,
                  grid: Optional[int] = None,
-                 what: str = "whole-vector kernel") -> Dict[str, int]:
-    """The launch ``spmm_cuda_desc`` makes on ``device`` (a card): the CTA
-    of :func:`whole_cta`, then :func:`.spc5_spmm.whole_grid`."""
+                 what: str = "whole-vector kernel",
+                 vsize: int = 4) -> Dict[str, int]:
+    """The launch ``spmm_cuda_desc`` makes on ``device`` (a card) for
+    ``vsize``-byte values: the CTA of :func:`whole_cta`, then
+    :func:`.spc5_spmm.whole_grid`."""
     cta = whole_cta(cb=cb, r=r, c=c, vmax=vmax, nvec=nvec, vec=vec, wv=wv,
-                    wx=wx, what=what)
+                    wx=wx, what=what, vsize=vsize)
     return KM.whole_grid(cta, lambda t, n: whole_occupancy(
-        r, c, cta["vector"], t, n, device), nchunks, nvec, grid, what)
+        r, c, cta["vector"], t, n, device, vsize), nchunks, nvec, grid, what)
 
 
 def spmm_cuda_desc(chunk_vbase, desc_valid, desc_vidx, desc_xcol, desc_yrow,
@@ -155,7 +161,8 @@ def spmm_cuda_desc(chunk_vbase, desc_valid, desc_vidx, desc_xcol, desc_yrow,
     chunks' tables staged in a ring, each round's valid lanes listed by row
     and walked four at a time by the lane groups, rows summed in a Y tile
     (replaces ``spmm_pallas_desc``). A column permutation would already be
-    folded into ``desc_xcol``, so there is no ``col_map``."""
+    folded into ``desc_xcol``, so there is no ``col_map``. ``values`` f32,
+    bf16 or int8 (with ``value_scale``, (nchunks,) float32)."""
     fn = "spmm_cuda_desc"
     nchunks = desc_valid.shape[0]
     K._check(dict(chunk_vbase=chunk_vbase, values=values, x=x),
@@ -184,9 +191,11 @@ def spmm_cuda_desc(chunk_vbase, desc_valid, desc_vidx, desc_xcol, desc_yrow,
         raise ValueError(f"X has {x.numel()} elements; the kernels index it "
                          f"with 32-bit offsets")
     wv, wx, wy = _widths(desc_vidx, desc_xcol, desc_yrow)
+    vsize = values.element_size()
     launch = whole_launch(nchunks, cb=cb, r=r, c=c, vmax=vmax, nvec=nvec,
                           vec=panels_vector(nvec, x), wv=wv, wx=wx,
-                          device=values.device, grid=grid, what=fn)
+                          device=values.device, grid=grid, what=fn,
+                          vsize=vsize)
     K._aligned({"values": values})
     # the tables are copied in 4-byte pieces where 16-byte ones do not align
     K._aligned(tables, 4)
@@ -196,8 +205,9 @@ def spmm_cuda_desc(chunk_vbase, desc_valid, desc_vidx, desc_xcol, desc_yrow,
     err = lib.spc5_spmm_desc_whole(
         chunk_vbase.data_ptr(), desc_valid.data_ptr(), desc_vidx.data_ptr(),
         desc_xcol.data_ptr(), desc_yrow.data_ptr(), values.data_ptr(),
-        x.data_ptr(), y.data_ptr(), nchunks, cb, vmax, nrows, x.shape[0], r,
-        c, wv, wx, wy, nvec, launch["tile_columns"], launch["vector"],
+        K._scale_ptr(value_scale), x.data_ptr(), y.data_ptr(), nchunks, cb,
+        vmax, nrows, x.shape[0], r, c, vsize, values.numel(), wv, wx, wy,
+        nvec, launch["tile_columns"], launch["vector"],
         launch["grid"], launch["stages"], launch["chunks_per_stage"],
         launch["blocks_per_stage"], launch["tile_rows"], launch["smem_bytes"],
         launch["threads"], values.device.index or 0, K._stream(values.device))
@@ -390,8 +400,7 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, desc_valid,
     K._check(dict(chunk_vbase=chunk_vbase, chunk_xbase=chunk_xbase,
                   values=values, x=x),
              {"chunk_xbase": (npanels, nchunks)}, values.device)
-    K._check_values(fn, values, value_scale, (npanels, nchunks),
-                    kernel_takes_quantised=True)
+    K._check_values(fn, values, value_scale, (npanels, nchunks))
     tables = dict(desc_valid=desc_valid, desc_vidx=desc_vidx,
                   desc_xcol=desc_xcol, desc_yrow=desc_yrow)
     _check_tables(tables, dict(desc_vidx=vmax, desc_xcol=xw, desc_yrow=pr),

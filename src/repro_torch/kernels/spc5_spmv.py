@@ -115,28 +115,24 @@ def value_span(vb: int, vmax: int, vsize: int,
     ``(start, nbytes, end)``, in bytes from ``values``' start. The 16-byte
     aligned span that covers the window runs from ``start`` to ``end``; a
     window that ends past values' last 16-byte boundary (the last window of
-    a plan whose values end 8 bytes past one) has its span's last 8 bytes
-    left out, so ``start + nbytes`` stays inside ``values``. A window
-    starts and ends on a multiple of 8 bytes, so what is copied still
-    covers it."""
+    a plan whose values end 4, 8 or 12 bytes past one) has its span stopped
+    at values' end, so ``start + nbytes`` stays inside ``values``; what is
+    copied still covers the window, which lies inside ``values``."""
     p = vb * vsize
     start, end = p & ~15, _r16(p + vsize * vmax)
     per_piece = 16 // vsize
-    stop = end - 8 if vb + vmax > nvalues // per_piece * per_piece else end
+    stop = (nvalues * vsize if vb + vmax > nvalues // per_piece * per_piece
+            else end)
     return start, stop - start, end
 
 
 def _check_values(fn: str, values: torch.Tensor, value_scale,
-                  scale_shape: Optional[Sequence[int]],
-                  kernel_takes_quantised: bool = False) -> None:
+                  scale_shape: Optional[Sequence[int]]) -> None:
     """The value store of a wrapper (its dtype already one of
     :data:`VALUE_DTYPES`, :func:`_check`): ``value_scale`` comes with int8
     values, and only with them, as a contiguous float32 tensor of
     ``scale_shape`` (one scale a chunk; None: the kernel has no chunks and
-    takes no scale) on the values' device. On the card a quantised store
-    raises ``NotImplementedError`` before any launch unless the wrapper's
-    kernel takes it (``kernel_takes_quantised``); on the CPU every wrapper's
-    plain version takes it."""
+    takes no scale, so int8 values raise) on the values' device."""
     if value_scale is not None and values.dtype != torch.int8:
         raise NotImplementedError(
             f"{fn}: value_scale with {values.dtype} values is not ported: "
@@ -147,12 +143,6 @@ def _check_values(fn: str, values: torch.Tensor, value_scale,
                              f"float32 scale a chunk")
         _check(dict(value_scale=value_scale), {"value_scale": scale_shape},
                values.device)
-    if (values.dtype != torch.float32 and values.device.type == "cuda"
-            and not kernel_takes_quantised):
-        raise NotImplementedError(
-            f"{fn}: {values.dtype} values are not ported to its CUDA kernel "
-            f"yet (ROADMAP queue 2 A, quantised values in the decode); on the "
-            f"CPU the plain version takes them")
 
 
 def _check(named: Dict[str, torch.Tensor], shapes: Dict[str, Sequence[int]],
@@ -342,8 +332,7 @@ def _whole(fn: str, stages: int, chunk_vbase, chunk_col, chunk_mask,
                    **{k: (nchunks, cb) for k in ("chunk_col", "chunk_mask",
                                                  "chunk_voff", "chunk_row")},
                    "x": (ncols,)}, values.device)
-    _check_values(fn, values, value_scale, (nchunks,),
-                  kernel_takes_quantised=True)
+    _check_values(fn, values, value_scale, (nchunks,))
     if values.device.type == "cpu":
         return R.spmv(R.SPC5Device(values, chunk_col, chunk_mask, chunk_voff,
                                    chunk_row, chunk_vbase), x, value_scale,
@@ -508,8 +497,7 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
                    **{k: (npanels, nchunks, cb)
                       for k in ("chunk_col", "chunk_mask", "chunk_voff",
                                 "chunk_row")}}, values.device)
-    _check_values(fn, values, value_scale, (npanels, nchunks),
-                  kernel_takes_quantised=True)
+    _check_values(fn, values, value_scale, (npanels, nchunks))
     if x.dim() != 1:
         raise ValueError(f"x must be 1-D, got shape {tuple(x.shape)}")
     if npanels * pr < nrows:

@@ -29,11 +29,11 @@ dtype raises: the wrapper never widens one, which would add a copy and
 four times the bytes.
 
 Values are f32, bf16 or int8 (with ``value_scale``, one f32 scale a
-chunk). The panel kernels take all three: bf16 upcast in the decode, int8
+chunk). All four kernels take all three: bf16 upcast in the decode, int8
 upcast and then multiplied by its chunk's scale, before the product with x,
-which is summed in f32. The whole-vector kernels take f32 only: on the
-card they raise ``NotImplementedError`` for a quantised store (ROADMAP
-queue 2 A).
+which is summed in f32. A narrow window is staged as the 16-byte aligned
+span that covers it, kept inside ``values`` (:func:`~.spc5_spmv.
+value_span`).
 
 A CPU tensor goes to the plain PyTorch version (:mod:`repro_torch.core.
 ref_spmv`); a CUDA tensor goes to the kernel, or the wrapper raises. Each
@@ -125,19 +125,16 @@ _OCCUPANCY: Dict[Tuple, Tuple[int, int]] = {}
 
 
 def _occupancy(layout: str, stages: int, threads: int, smem: int,
-               device: torch.device, vsize: Optional[int] = None
-               ) -> Tuple[int, int]:
+               device: torch.device, vsize: int = 4) -> Tuple[int, int]:
     """(CTAs one SM holds at once, SMs) for the ``layout`` kernel ("whole"
-    or "panels", whose kernels also differ by ``vsize``, the values' bytes)
-    at ``stages`` (1: the synchronous one), as the CUDA runtime reports
-    them."""
+    or "panels") of ``vsize``-byte values at ``stages`` (1: the synchronous
+    one), as the CUDA runtime reports them."""
     key = (layout, stages, vsize, threads, smem, device.index or 0)
     if key not in _OCCUPANCY:
         lib = _build.load_library("spc5_spmv_desc")
         out = (ctypes.c_int * 2)()
         fn = f"spc5_spmv_desc_{layout}_occupancy"
-        lead = (stages,) if vsize is None else (stages, vsize)
-        err = getattr(lib, fn)(*lead, threads, smem, key[-1],
+        err = getattr(lib, fn)(stages, vsize, threads, smem, key[-1],
                                ctypes.addressof(out))
         K._raise_on(err, fn)
         _OCCUPANCY[key] = (out[0], out[1])
@@ -169,48 +166,54 @@ WHOLE_THREADS = 512
 
 
 def whole_smem_bytes(stages: int, nb: int, r: int, c: int, vmax: int,
-                     tile: int, wv: int, wx: int) -> int:
+                     tile: int, wv: int, wx: int, vsize: int = 4) -> int:
     """Dynamic shared memory of one whole-vector CTA: the (tile,) f32 y
-    tile, then ``stages`` stages, each the value window and ``nb`` blocks'
+    tile, then ``stages`` stages, each the value window
+    (:func:`value_window_bytes` of ``vsize``-byte values) and ``nb`` blocks'
     tables (valid and vidx per lane, the c xcol entries of each block's
     first row, a 4-byte slot for its lane-0 yrow entry) and a 16-byte
-    mbarrier slot, every part 16-byte aligned. The kernel's
-    ``whole_layout`` (``csrc/spc5_spmv_desc.cu``) refuses a launch whose
-    figure differs from its own."""
+    mbarrier slot (which also holds a narrow window's offset in its span),
+    every part 16-byte aligned. The kernel's ``whole_layout``
+    (``csrc/spc5_spmv_desc.cu``) refuses a launch whose figure differs from
+    its own."""
     rc = r * c
-    stage = (_r16(4 * vmax) + _r16(nb * rc) + _r16(nb * rc * wv)
-             + _r16(nb * c * wx) + _r16(4 * nb) + 16)
+    stage = (value_window_bytes(vmax, vsize) + _r16(nb * rc)
+             + _r16(nb * rc * wv) + _r16(nb * c * wx) + _r16(4 * nb) + 16)
     return _r16(4 * tile) + stages * stage
 
 
 def whole_stages(stages: int, cb: int, r: int, c: int, vmax: int, tile: int,
-                 wv: int, wx: int, what: str = "whole-vector kernel"
-                 ) -> Tuple[int, int, int]:
+                 wv: int, wx: int, what: str = "whole-vector kernel",
+                 vsize: int = 4) -> Tuple[int, int, int]:
     """(stages, blocks per stage, shared bytes per CTA) of a whole-vector
-    launch (:func:`_fit_stages`): ``stages`` is 1 (the synchronous kernel)
-    or :data:`WHOLE_DB_STAGES`, never shortened."""
+    launch (:func:`_fit_stages`) for ``vsize``-byte values: ``stages`` is 1
+    (the synchronous kernel) or :data:`WHOLE_DB_STAGES`, never
+    shortened."""
     if stages not in (1, WHOLE_DB_STAGES):
         raise ValueError(f"the whole-vector kernels stage 1 or "
                          f"{WHOLE_DB_STAGES} chunks, not {stages}")
     return _fit_stages(stages, cb, lambda s, nb: whole_smem_bytes(
-        s, nb, r, c, vmax, tile, wv, wx), what)
+        s, nb, r, c, vmax, tile, wv, wx, vsize), what)
 
 
 def whole_launch(stages: int, nchunks: int, *, cb: int, r: int, c: int,
                  vmax: int, wv: int, wx: int, device: torch.device,
                  grid: Optional[int] = None,
-                 what: str = "whole-vector kernel") -> Dict[str, int]:
-    """The launch a whole-vector wrapper makes on ``device`` (a card):
-    ``stages``, ``blocks_per_stage``, ``smem_bytes``, ``threads`` and
-    ``tile_rows`` per CTA, the card's ``ctas_per_sm`` and ``sms``, ``grid``
-    (G, from :func:`panels_split` over one "panel" of every chunk unless
-    given) and ``chunks_per_cta`` (the longest range)."""
+                 what: str = "whole-vector kernel",
+                 vsize: int = 4) -> Dict[str, int]:
+    """The launch a whole-vector wrapper makes on ``device`` (a card) for
+    ``vsize``-byte values: ``stages``, ``blocks_per_stage``,
+    ``smem_bytes``, ``threads`` and ``tile_rows`` per CTA, the card's
+    ``ctas_per_sm`` and ``sms``, ``grid`` (G, from :func:`panels_split`
+    over one "panel" of every chunk unless given) and ``chunks_per_cta``
+    (the longest range)."""
     tile = WHOLE_TILE_ROWS
-    stages, nb, smem = whole_stages(stages, cb, r, c, vmax, tile, wv, wx, what)
+    stages, nb, smem = whole_stages(stages, cb, r, c, vmax, tile, wv, wx,
+                                    what, vsize)
     quads = nb * r * c // 4
     threads = min(WHOLE_THREADS, max(64, -(-quads // (
         32 * WHOLE_QUADS_PER_THREAD)) * 32))
-    per_sm, sms = _occupancy("whole", stages, threads, smem, device)
+    per_sm, sms = _occupancy("whole", stages, threads, smem, device, vsize)
     if grid is None:
         grid = panels_split(1, nchunks, per_sm, sms)
     if not 1 <= grid <= nchunks:
@@ -244,8 +247,10 @@ def _whole(fn: str, stages: int, chunk_vbase, desc_valid, desc_vidx,
         raise ValueError(f"vmax must be a multiple of 4 (whole 16-byte "
                          f"value windows), got {vmax}")
     wv, wx, wy = _widths(desc_vidx, desc_xcol, desc_yrow)
+    vsize = values.element_size()
     launch = whole_launch(stages, nchunks, cb=cb, r=r, c=c, vmax=vmax, wv=wv,
-                          wx=wx, device=values.device, grid=grid, what=fn)
+                          wx=wx, device=values.device, grid=grid, what=fn,
+                          vsize=vsize)
     K._aligned({"values": values})
     # the tables are copied in 4-byte pieces where 16-byte ones do not align
     K._aligned(tables, 4)
@@ -255,8 +260,8 @@ def _whole(fn: str, stages: int, chunk_vbase, desc_valid, desc_vidx,
     err = getattr(lib, f"spc5_spmv_desc_whole_s{stages}")(
         chunk_vbase.data_ptr(), desc_valid.data_ptr(), desc_vidx.data_ptr(),
         desc_xcol.data_ptr(), desc_yrow.data_ptr(), values.data_ptr(),
-        x.data_ptr(), y.data_ptr(), nchunks, cb, r, c, vmax, wv, wx, wy,
-        launch["grid"],
+        K._scale_ptr(value_scale), x.data_ptr(), y.data_ptr(), nchunks, cb,
+        r, c, vmax, vsize, values.numel(), wv, wx, wy, launch["grid"],
         *([launch["blocks_per_stage"]] if stages == 1 else []),
         launch["tile_rows"], launch["smem_bytes"], launch["threads"],
         values.device.index or 0, K._stream(values.device))
@@ -273,7 +278,8 @@ def spmv_cuda_desc(chunk_vbase, desc_valid, desc_vidx, desc_xcol, desc_yrow,
     ranges (one CTA each; default from the card's occupancy), each chunk's
     stage copied and waited for before its decode, rows summed in a y tile
     (replaces ``spmv_pallas_desc``). A column permutation would already be
-    folded into ``desc_xcol``, so there is no ``col_map``."""
+    folded into ``desc_xcol``, so there is no ``col_map``. ``values`` f32,
+    bf16 or int8 (with ``value_scale``, (nchunks,) float32)."""
     return _whole("spmv_cuda_desc", 1, chunk_vbase, desc_valid, desc_vidx,
                   desc_xcol, desc_yrow, values, x, value_scale, r=r, c=c,
                   cb=cb,
@@ -286,8 +292,8 @@ def spmv_cuda_desc_db(chunk_vbase, desc_valid, desc_vidx, desc_xcol,
                       grid: Optional[int] = None) -> torch.Tensor:
     """Whole-vector descriptor SpMV with a ring of :data:`WHOLE_DB_STAGES`
     chunks (tables and value window) staged ahead by bulk copies and
-    cp.async (replaces ``spmv_pallas_desc_db``); ``grid`` as in
-    :func:`spmv_cuda_desc`."""
+    cp.async (replaces ``spmv_pallas_desc_db``); ``grid`` and ``values`` as
+    in :func:`spmv_cuda_desc`."""
     return _whole("spmv_cuda_desc_db", WHOLE_DB_STAGES, chunk_vbase,
                   desc_valid, desc_vidx, desc_xcol, desc_yrow, values, x,
                   value_scale, r=r, c=c, cb=cb, vmax=vmax, nrows=nrows, ncols=ncols,
@@ -369,8 +375,7 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, desc_valid,
     K._check(dict(chunk_vbase=chunk_vbase, chunk_xbase=chunk_xbase,
                   values=values, x=x),
              {"chunk_xbase": (npanels, nchunks)}, values.device)
-    K._check_values(fn, values, value_scale, (npanels, nchunks),
-                    kernel_takes_quantised=True)
+    K._check_values(fn, values, value_scale, (npanels, nchunks))
     tables = dict(desc_valid=desc_valid, desc_vidx=desc_vidx,
                   desc_xcol=desc_xcol, desc_yrow=desc_yrow)
     _check_tables(tables, dict(desc_vidx=vmax, desc_xcol=xw, desc_yrow=pr),

@@ -24,6 +24,12 @@ groups into G contiguous ranges a column tile (:func:`spmm_tail_launch`;
 ``grid`` overrides G), S and G from the card's occupancy by the panel
 kernels' split rule (:func:`~.spc5_spmv.panels_split`).
 
+Values are f32 or bf16 (the test layout keeps a bf16 plan's tail in bf16
+and an int8 plan's in f32, as the reference does: there is no scale for a
+tail); each kernel is built for both (its template parameter), a bf16
+value upcast to f32 before its product, summed in f32. int8 values raise
+``ValueError`` (they would need a scale).
+
 A CPU tensor goes to the plain PyTorch version (``ref_spmv.
 spmv_coo_panels`` / ``spmm_coo_panels``); a CUDA tensor goes to the kernel,
 or the wrapper raises. There is no fallback from one to the other. Each
@@ -100,26 +106,29 @@ def _check_buckets(rows, cols, vals, x, pr: int, nrows: int):
 # SpMV
 # ----------------------------------------------------------------------------
 
-_OCCUPANCY: Dict[Tuple[int, int], Tuple[int, int]] = {}
+_OCCUPANCY: Dict[Tuple[int, int, int], Tuple[int, int]] = {}
 
 
-def tail_occupancy(threads: int, device: torch.device) -> Tuple[int, int]:
-    """(CTAs one SM holds at once, SMs) for the SpMV tail kernel at
-    ``threads``, as the CUDA runtime reports them."""
-    key = (threads, device.index or 0)
+def tail_occupancy(threads: int, device: torch.device,
+                   vsize: int = 4) -> Tuple[int, int]:
+    """(CTAs one SM holds at once, SMs) for the SpMV tail kernel of
+    ``vsize``-byte values at ``threads``, as the CUDA runtime reports
+    them."""
+    key = (vsize, threads, device.index or 0)
     if key not in _OCCUPANCY:
         lib = _build.load_library("spc5_spmv_tail")
         out = (ctypes.c_int * 2)()
-        err = lib.spc5_spmv_tail_occupancy(threads, key[1],
-                                           ctypes.addressof(out))
+        err = lib.spc5_spmv_tail_occupancy(*key, ctypes.addressof(out))
         _raise_on(err, "spc5_spmv_tail_occupancy")
         _OCCUPANCY[key] = (out[0], out[1])
     return _OCCUPANCY[key]
 
 
 def tail_launch(npanels: int, smax: int, *, device: torch.device,
-                split: Optional[int] = None) -> Dict[str, int]:
-    """The launch ``spmv_tail_cuda`` makes on ``device`` (a card):
+                split: Optional[int] = None,
+                vsize: int = 4) -> Dict[str, int]:
+    """The launch ``spmv_tail_cuda`` makes on ``device`` (a card) for
+    ``vsize``-byte values:
     :data:`TAIL_THREADS` threads and no shared memory a CTA, the card's
     ``ctas_per_sm`` and ``sms``, ``split`` (S, the CTAs of a bucket: from
     :func:`~.spc5_spmv.panels_split` over a bucket's groups unless given),
@@ -130,7 +139,7 @@ def tail_launch(npanels: int, smax: int, *, device: torch.device,
         raise ValueError(f"TAIL_THREADS must be whole warps, 32..512, got "
                          f"{threads}")
     groups = tail_groups(smax)
-    per_sm, sms = tail_occupancy(threads, device)
+    per_sm, sms = tail_occupancy(threads, device, vsize)
     if split is None:
         split = panels_split(npanels, groups, per_sm, sms)
     if not 1 <= split <= groups:
@@ -153,6 +162,7 @@ def spmv_tail_cuda(tail_xbase, rows, cols, vals, x, *, pr: int, xw: int,
     window start, ``xw`` the window width, x (ncols,). Each bucket's slots
     are cut among S CTAs (``split``; default from the card's occupancy),
     which add each row's sums into a zeroed y; returns y (nrows,).
+    ``vals`` f32 or bf16.
 
     ``ncols_pad`` is kept for the reference's signature: the reference pads
     x with zeros up to it, the kernel reads x in place and a column at or
@@ -173,12 +183,14 @@ def spmv_tail_cuda(tail_xbase, rows, cols, vals, x, *, pr: int, xw: int,
     y = torch.zeros(nrows, dtype=torch.float32, device=vals.device)
     if nrows == 0 or smax == 0:
         return y
-    launch = tail_launch(npanels, smax, device=vals.device, split=split)
+    vsize = vals.element_size()
+    launch = tail_launch(npanels, smax, device=vals.device, split=split,
+                         vsize=vsize)
     lib = _build.load_library("spc5_spmv_tail")
     err = lib.spc5_spmv_tail(
         tail_xbase.data_ptr(), rows.data_ptr(), cols.data_ptr(),
         vals.data_ptr(), x.data_ptr(), y.data_ptr(), npanels, smax, pr, xw,
-        nrows, x.shape[0], launch["split"], launch["threads"],
+        nrows, x.shape[0], vsize, launch["split"], launch["threads"],
         launch["smem_bytes"], vals.device.index or 0, _stream(vals.device))
     _raise_on(err, "spmv_tail_cuda")
     LAUNCHES["spmv_tail_cuda"] += 1
@@ -189,28 +201,29 @@ def spmv_tail_cuda(tail_xbase, rows, cols, vals, x, *, pr: int, xw: int,
 # SpMM
 # ----------------------------------------------------------------------------
 
-def spmm_tail_smem_bytes(tw: int, vec: int, tile_rows: int,
-                         threads: int) -> int:
+def spmm_tail_smem_bytes(tw: int, vec: int, tile_rows: int, threads: int,
+                         vsize: int = 4) -> int:
     """Dynamic shared memory of one SpMM tail CTA (``tail_layout`` in the
     source): the (tile_rows, tw) f32 Y tile, each lane group's A and B
     slots (tw floats each) and its 16-byte header, a 16-byte scan total a
     warp, the list (16 bytes for each of a round's 4 * threads slots) and
-    each thread's staged quad of rows, columns and values (48 bytes), every
-    part 16-byte aligned. The launcher refuses a launch whose figure
-    differs (``spc5_spmm_tail_smem`` exposes its own)."""
+    each thread's staged quad of rows, columns and ``vsize``-byte values
+    (32 + 4 * vsize bytes: 48 at f32, 40 at bf16), every part 16-byte
+    aligned. The launcher refuses a launch whose figure differs
+    (``spc5_spmm_tail_smem`` exposes its own)."""
     groups = threads // (tw // vec)
     return (-(-4 * tile_rows * tw // 16) * 16 + -(-8 * groups * tw // 16) * 16
             + 16 * groups + 16 * (threads // 32) + 64 * threads
-            + 48 * threads)
+            + (32 + 4 * vsize) * threads)
 
 
-def spmm_tail_cta(nvec: int, vec: int) -> Dict[str, int]:
+def spmm_tail_cta(nvec: int, vec: int, vsize: int = 4) -> Dict[str, int]:
     """The CTA ``spmm_tail_cuda`` plans for lanes of at most ``vec``
     columns (:func:`~.spc5_spmm.panels_vector`): the widest column tile of
     :func:`~.spc5_spmm.whole_tiles`, its lanes, :data:`SPMM_TAIL_THREADS`
     threads (by default 512 for a whole warp of lanes, else 128),
-    :data:`SPMM_TAIL_TILE_ROWS` and the shared memory. Raises
-    ``ValueError`` where it does not fit a CTA."""
+    :data:`SPMM_TAIL_TILE_ROWS` and the shared memory (``vsize``-byte
+    values). Raises ``ValueError`` where it does not fit a CTA."""
     tw = whole_tiles(nvec, vec)[0]
     v = min(vec, tw)
     lanes = tw // v
@@ -219,7 +232,7 @@ def spmm_tail_cta(nvec: int, vec: int) -> Dict[str, int]:
         raise ValueError(f"SpMM tail threads must be a power of two in "
                          f"[{max(32, lanes)}, 512], got {threads}")
     rows = SPMM_TAIL_TILE_ROWS
-    smem = spmm_tail_smem_bytes(tw, v, rows, threads)
+    smem = spmm_tail_smem_bytes(tw, v, rows, threads, vsize)
     _check_smem(smem, "spmm_tail_cuda")
     return dict(tile_columns=tw, vector=v, lanes=lanes, threads=threads,
                 tile_rows=rows, smem_bytes=smem)
@@ -229,10 +242,12 @@ _SPMM_OCCUPANCY: Dict[Tuple[int, ...], Tuple[int, int]] = {}
 
 
 def spmm_tail_occupancy(vec: int, threads: int, smem: int,
-                        device: torch.device) -> Tuple[int, int]:
-    """(CTAs one SM holds at once, SMs) for the SpMM tail kernel of ``vec``
-    columns a lane, as the CUDA runtime reports them."""
-    key = (vec, threads, smem, device.index or 0)
+                        device: torch.device,
+                        vsize: int = 4) -> Tuple[int, int]:
+    """(CTAs one SM holds at once, SMs) for the SpMM tail kernel of
+    ``vsize``-byte values and ``vec`` columns a lane, as the CUDA runtime
+    reports them."""
+    key = (vsize, vec, threads, smem, device.index or 0)
     if key not in _SPMM_OCCUPANCY:
         lib = _build.load_library("spc5_spmv_tail")
         out = (ctypes.c_int * 2)()
@@ -243,17 +258,18 @@ def spmm_tail_occupancy(vec: int, threads: int, smem: int,
 
 
 def spmm_tail_launch(slots: int, nvec: int, vec: int, *,
-                     device: torch.device,
-                     grid: Optional[int] = None) -> Dict[str, int]:
+                     device: torch.device, grid: Optional[int] = None,
+                     vsize: int = 4) -> Dict[str, int]:
     """The launch ``spmm_tail_cuda`` makes on ``device`` (a card) for
-    ``slots`` bucket slots: the CTA of :func:`spmm_tail_cta`, ``ntiles``,
+    ``slots`` bucket slots of ``vsize``-byte values: the CTA of
+    :func:`spmm_tail_cta`, ``ntiles``,
     the card's ``ctas_per_sm`` and ``sms``, ``grid`` (G, the CTAs of a
     column tile, each a contiguous range of the groups: from
     :func:`~.spc5_spmv.panels_split` over the ntiles units unless given),
     ``groups`` and ``groups_per_cta`` (the longest range)."""
-    cta = spmm_tail_cta(nvec, vec)
+    cta = spmm_tail_cta(nvec, vec, vsize)
     per_sm, sms = spmm_tail_occupancy(cta["vector"], cta["threads"],
-                                      cta["smem_bytes"], device)
+                                      cta["smem_bytes"], device, vsize)
     ntiles = -(-nvec // cta["tile_columns"])
     groups = tail_groups(slots)
     if grid is None:
@@ -283,7 +299,7 @@ def spmm_tail_cuda(rows, cols, vals, x, *, pr: int, nrows: int,
     The kernel skips slots of value 0 (the buckets' padding) and slots whose
     column lies outside X, reading nothing of X for them; the plain version
     multiplies them, as ``spmm_coo`` does, so the two differ only where X
-    holds inf or NaN at such a column."""
+    holds inf or NaN at such a column. ``vals`` f32 or bf16."""
     fn = "spmm_tail_cuda"
     npanels, smax = _check_buckets(rows, cols, vals, x, pr, nrows)
     _check_values(fn, vals, None, None)
@@ -299,13 +315,14 @@ def spmm_tail_cuda(rows, cols, vals, x, *, pr: int, nrows: int,
     y = torch.zeros((nrows, nvec), dtype=torch.float32, device=vals.device)
     if nrows == 0 or smax == 0:
         return y
+    vsize = vals.element_size()
     launch = spmm_tail_launch(npanels * smax, nvec, panels_vector(nvec, x),
-                              device=vals.device, grid=grid)
+                              device=vals.device, grid=grid, vsize=vsize)
     lib = _build.load_library("spc5_spmv_tail")
     err = lib.spc5_spmm_tail(
         rows.data_ptr(), cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
         y.data_ptr(), npanels, smax, pr, nrows, x.shape[0], nvec,
-        launch["tile_columns"], launch["vector"], launch["grid"],
+        launch["tile_columns"], launch["vector"], vsize, launch["grid"],
         launch["tile_rows"], launch["threads"], launch["smem_bytes"],
         vals.device.index or 0, _stream(vals.device))
     _raise_on(err, fn)

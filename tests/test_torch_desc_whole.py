@@ -249,7 +249,7 @@ def fake_card(monkeypatch):
     wrapper asks the CUDA runtime there)."""
     asked = []
 
-    def occupancy(layout, stages, threads, smem, device):
+    def occupancy(layout, stages, threads, smem, device, vsize=4):
         asked.append((layout, stages, threads, smem))
         return _ctas_per_sm(smem, threads), 132
     monkeypatch.setattr(KD, "_occupancy", occupancy)

@@ -1167,7 +1167,7 @@ def test_whole_desc_smem_matches_the_kernel(cuda, case, stages):
     from repro_torch.kernels import _build
     geom = WHOLE_SMEM_GEOMETRIES[case]
     lib = _build.load_library("spc5_spmv_desc")
-    assert lib.spc5_spmv_desc_whole_smem(stages, *geom) == \
+    assert lib.spc5_spmv_desc_whole_smem(stages, *geom, 4) == \
         KD.whole_smem_bytes(stages, *geom)
 
 
@@ -1182,10 +1182,12 @@ def test_whole_desc_launch_refuses_a_wrong_smem_figure(cuda):
                   plan.desc_yrow.element_size())
     lib = _build.load_library("spc5_spmv_desc")
     y = torch.full((plan.nrows,), 7.0, device=cuda)
+    x = _plan_x(plan, 34, cuda)
     ptrs = [t.data_ptr() for t in (
         plan.chunk_vbase, plan.desc_valid, plan.desc_vidx, plan.desc_xcol,
-        plan.desc_yrow, plan.values, _plan_x(plan, 34, cuda), y)]
-    geom = (_chunks(plan), plan.cb, plan.r, plan.c, plan.vmax, wv, wx, wy)
+        plan.desc_yrow, plan.values)] + [0, x.data_ptr(), y.data_ptr()]
+    geom = (_chunks(plan), plan.cb, plan.r, plan.c, plan.vmax, 4,
+            plan.values.numel(), wv, wx, wy)
     stream = torch.cuda.current_stream(cuda).cuda_stream
     for stages in (1, 2):
         launch = KD.whole_launch(stages, _chunks(plan), cb=plan.cb, r=plan.r,
@@ -2312,7 +2314,8 @@ def test_whole_spmm_smem_matches_the_kernel(cuda, case, widths):
     assert _build.load_library("spc5_spmm").spc5_spmm_whole_smem(
         *head, *tail, 4) == KM.whole_smem_bytes(*head, *tail)
     assert _build.load_library("spc5_spmm_desc").spc5_spmm_desc_whole_smem(
-        *head, *widths, *tail) == KDM.whole_smem_bytes(*head, *widths, *tail)
+        *head, *widths, *tail, 4) == KDM.whole_smem_bytes(*head, *widths,
+                                                          *tail)
 
 
 @pytest.mark.parametrize("kernel", sorted(WHOLE_SPMM))
@@ -2669,7 +2672,7 @@ def test_tail_launchers_refuse_other_plans(cuda):
         return lib.spc5_spmv_tail(
             xbase.data_ptr(), rows.data_ptr(), cols.data_ptr(),
             vals.data_ptr(), x.data_ptr(), y.data_ptr(), npanels, smax,
-            plan.tail_pr, plan.tail_xw, plan.nrows, plan.ncols, split,
+            plan.tail_pr, plan.tail_xw, plan.nrows, plan.ncols, 4, split,
             threads, smem, dev, stream)
     assert spmv(launch["split"], launch["threads"], 0) == 0
     for bad in ((launch["split"], launch["threads"], 16),
@@ -2681,7 +2684,7 @@ def test_tail_launchers_refuse_other_plans(cuda):
     ym = torch.zeros(plan.nrows, 16, device=cuda)
     m = KT.spmm_tail_launch(npanels * smax, 16, 4, device=cuda)
     assert lib.spc5_spmm_tail_smem(m["tile_columns"], m["vector"],
-                                   m["tile_rows"], m["threads"]) == \
+                                   m["tile_rows"], m["threads"], 4) == \
         m["smem_bytes"] == KT.spmm_tail_smem_bytes(
             m["tile_columns"], m["vector"], m["tile_rows"], m["threads"])
 
@@ -2689,7 +2692,7 @@ def test_tail_launchers_refuse_other_plans(cuda):
         return lib.spc5_spmm_tail(
             rows.data_ptr(), cols.data_ptr(), vals.data_ptr(), xm.data_ptr(),
             ym.data_ptr(), npanels, smax, plan.tail_pr, plan.nrows,
-            plan.ncols, 16, m["tile_columns"], m["vector"], grid,
+            plan.ncols, 16, m["tile_columns"], m["vector"], 4, grid,
             m["tile_rows"], threads, smem, dev, stream)
     assert spmm(m["grid"], m["smem_bytes"]) == 0
     for bad in ((m["grid"], m["smem_bytes"] + 16),
@@ -2699,7 +2702,7 @@ def test_tail_launchers_refuse_other_plans(cuda):
         assert spmm(*bad) == 1, bad
     torch.cuda.synchronize()
     out = (ctypes.c_int * 2)()
-    assert lib.spc5_spmm_tail_occupancy(3, 256, 1024, dev,
+    assert lib.spc5_spmm_tail_occupancy(4, 3, 256, 1024, dev,
                                         ctypes.addressof(out)) == 1
 
 
@@ -2864,13 +2867,13 @@ def test_quantised_launch_refuses_a_wrong_smem_figure(cuda, monkeypatch,
     assert mod.LAUNCHES == before
 
 
-#: The wrappers outside the quantised slice, as a plan's entry points reach
-#: them: (layout, lowering, SpMM, double_buffer) -> wrapper. The seven mask
-#: wrappers take quantised values since (``_QM_ENTRY``).
-_Q_REFUSING = {
-    ("whole_vector", "descriptor", False, True): "spmv_cuda_desc_db",
-    ("whole_vector", "descriptor", False, False): "spmv_cuda_desc",
-    ("whole_vector", "descriptor", True, True): "spmm_cuda_desc",
+#: The whole-vector descriptor wrappers as a plan's entry points reach them:
+#: (SpMM, double_buffer) -> wrapper. They raised "queue 2 A" for a quantised
+#: store before their kernels took one.
+_Q_WHOLE_ENTRY = {
+    (False, True): "spmv_cuda_desc_db",
+    (False, False): "spmv_cuda_desc",
+    (True, True): "spmm_cuda_desc",
 }
 
 
@@ -2880,30 +2883,34 @@ def _q_launches():
 
 
 @pytest.mark.parametrize("vdtype", QUANT_VDTYPES)
-@pytest.mark.parametrize("case", sorted(_Q_REFUSING, key=str))
-def test_quantised_values_raise_outside_the_slice(cuda, case, vdtype):
-    """A quantised plan that reaches any other kernel raises
-    ``NotImplementedError`` naming ROADMAP queue 2 A before any launch, and
-    never runs a plain version on the card."""
-    layout, lowering, spmm, db = case
-    mat = _matrix((4, 8))
-    plan = ops.prepare(mat, layout=layout, lowering=lowering, vdtype=vdtype,
-                       tune=False, device=cuda, **(
-                           {"cb": 16} if layout == "whole_vector"
-                           else {"pr": 64, "xw": 64, "cb": 16}))
+@pytest.mark.parametrize("case", sorted(_Q_WHOLE_ENTRY, key=str))
+def test_quantised_whole_desc_plans_run_their_kernels(cuda, case, vdtype):
+    """A quantised whole-vector descriptor plan through ``ops.spmv`` /
+    ``ops.spmm`` launches its kernel once, and nothing else, and agrees
+    with the plain version on the card."""
+    spmm, db = case
+    plan = ops.prepare(_matrix((4, 8)), layout="whole_vector",
+                       lowering="descriptor", vdtype=vdtype, tune=False,
+                       device=cuda, cb=16)
     x = (_xmat(plan.ncols, 16, 3, cuda) if spmm else
-         torch.zeros(plan.ncols, device=cuda))
+         _plan_x(plan, 3, cuda))
+    plain = _qm_plain(plan, x)
     before = _q_launches()
-    with pytest.raises(NotImplementedError, match="queue 2 A") as err:
-        (ops.spmm if spmm else ops.spmv)(plan, x, double_buffer=db)
-    assert _Q_REFUSING[case] in str(err.value)
-    assert _q_launches() == before
+    y = (ops.spmm if spmm else ops.spmv)(plan, x, double_buffer=db)
+    torch.cuda.synchronize()
+    after = _q_launches()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {_Q_WHOLE_ENTRY[case]: 1}
+    err = float((y - plain).abs().max())
+    assert err <= RTOL * max(float(plain.abs().max()), 1.0)
 
 
 @pytest.mark.parametrize("kernel", ["spmv_tail_cuda", "spmm_tail_cuda"])
-def test_quantised_tail_values_raise(cuda, kernel):
+def test_bf16_tail_buckets_run_the_tail_kernels(cuda, kernel):
     """A bf16 tail (the test layout's, as the reference stores it) on the
-    card raises in both tail wrappers; an int8 plan's tail keeps f32."""
+    card launches each tail kernel once and agrees with its plain version;
+    an int8 plan's tail keeps f32, and int8 buckets are refused before any
+    launch (a tail has no scale)."""
     mat = F.csr_to_spc5(matgen.powerlaw(320, 5, seed=17), 2, 4)
     geom = dict(layout="test", multi_layout="panels", lowering="descriptor",
                 tune=False, pr=16, xw=32, cb=8)
@@ -2913,17 +2920,29 @@ def test_quantised_tail_values_raise(cuda, kernel):
         .single_values.dtype == torch.float32
     rows, cols, vals = (plan.single_rows, plan.single_cols,
                         plan.single_values)
-    before = _q_launches()
-    with pytest.raises(NotImplementedError, match="queue 2 A"):
+
+    def run(v):
         if kernel == "spmv_tail_cuda":
-            KT.spmv_tail_cuda(plan.tail_xbase, rows, cols, vals,
-                              torch.zeros(plan.ncols, device=cuda),
-                              pr=plan.tail_pr, xw=plan.tail_xw,
-                              nrows=plan.nrows, ncols_pad=plan.tail_ncols_pad)
-        else:
-            KT.spmm_tail_cuda(rows, cols, vals, _xmat(plan.ncols, 16, 4, cuda),
-                              pr=plan.tail_pr, nrows=plan.nrows)
-    assert _q_launches() == before
+            x = _ttail_x(plan.ncols, cuda)
+            return KT.spmv_tail_cuda(
+                plan.tail_xbase, rows, cols, v, x, pr=plan.tail_pr,
+                xw=plan.tail_xw, nrows=plan.nrows,
+                ncols_pad=plan.tail_ncols_pad), R.spmv_coo_panels(
+                rows, cols, v, x, pr=plan.tail_pr, nrows=plan.nrows)
+        x = _ttail_x((plan.ncols, 16), cuda)
+        return KT.spmm_tail_cuda(rows, cols, v, x, pr=plan.tail_pr,
+                                 nrows=plan.nrows), R.spmm_coo_panels(
+            rows, cols, v, x, pr=plan.tail_pr, nrows=plan.nrows)
+    before = _q_launches()
+    y, plain = run(vals)
+    torch.cuda.synchronize()
+    after = _q_launches()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {kernel: 1}
+    _ttail_close(y, plain)
+    with pytest.raises(ValueError, match="value_scale"):
+        run(vals.float().round().to(torch.int8))
+    assert _q_launches() == after
 
 
 @pytest.mark.parametrize("vdtype", QUANT_VDTYPES)
@@ -2984,10 +3003,13 @@ def _qm_plain(plan, x):
     scale) on the card."""
     scale, dev = _qm_scale(plan), plan.dev
     spmm = x.dim() == 2
-    if plan.lowering == "descriptor":
+    if plan.lowering == "descriptor" and plan.layout == "panels":
         fn = R.spmm_panels_desc if spmm else R.spmv_panels_desc
         return fn(dev, x, None, scale, pr=plan.pr, nrows=plan.nrows,
                   ncols_pad=plan.ncols_pad)
+    if plan.lowering == "descriptor":
+        fn = R.spmm_desc if spmm else R.spmv_desc
+        return fn(dev, x, scale, nrows=plan.nrows)
     if plan.layout == "panels":
         fn = R.spmm_panels if spmm else R.spmv_panels
         return fn(dev, x, None, scale, r=plan.r, c=plan.c, pr=plan.pr,
@@ -3004,7 +3026,8 @@ def _qm_call(kernel, plan, x, values=None, **kw):
     mod = {**{k: v[0] for k, v in QM_KERNELS.items()},
            "spmv_cuda_panels_desc": KD, "spmv_cuda_panels_desc_db": KD,
            "spmm_cuda_panels_desc": KDM,
-           "spmm_cuda_panels_desc_db": KDM}[kernel]
+           "spmm_cuda_panels_desc_db": KDM, "spmv_cuda_desc": KD,
+           "spmv_cuda_desc_db": KD, "spmm_cuda_desc": KDM}[kernel]
     vals = plan.values if values is None else values
     args = ((plan.chunk_vbase, plan.chunk_xbase) if plan.layout == "panels"
             else (plan.chunk_vbase,))
@@ -3020,8 +3043,11 @@ def _qm_call(kernel, plan, x, values=None, **kw):
                 if plan.layout == "panels" else dict(ncols=plan.ncols))
     plain = _qm_plain(plan, x)
     before = mod.LAUNCHES[kernel]
-    y = getattr(mod, kernel)(*args, vals, x, None, _qm_scale(plan), **geom,
-                             **kw)
+    # the whole-vector descriptor wrappers take no col_map
+    col_map = () if (plan.lowering, plan.layout) == (
+        "descriptor", "whole_vector") else (None,)
+    y = getattr(mod, kernel)(*args, vals, x, *col_map, _qm_scale(plan),
+                             **geom, **kw)
     torch.cuda.synchronize()
     assert mod.LAUNCHES[kernel] == before + 1
     assert y.dtype == torch.float32 and y.shape == plain.shape
@@ -3104,7 +3130,9 @@ def test_quantised_mask_all_zero_chunks_take_scale_one(cuda):
 
 #: Every kernel that stages narrow windows: (layout, lowering).
 QM_NARROW = {**{k: (v[1], "mask") for k, v in QM_KERNELS.items()},
-             **{k: ("panels", "descriptor") for k in QUANT_KERNELS}}
+             **{k: ("panels", "descriptor") for k in QUANT_KERNELS},
+             **{k: ("whole_vector", "descriptor") for k in (
+                 "spmv_cuda_desc", "spmv_cuda_desc_db", "spmm_cuda_desc")}}
 
 
 def _qm_reaching_plan(vdtype, layout, lowering, device):
@@ -3129,11 +3157,44 @@ def _qm_reaching_plan(vdtype, layout, lowering, device):
 def test_narrow_span_at_the_end_of_exact_length_values(cuda, kernel, vdtype):
     """A plan whose last window's aligned span would reach 8 bytes past
     ``values``, its values copied into a tensor of exactly their length:
-    each of the eleven kernels that stage narrow windows (the seven mask
-    kernels and the four panel descriptor kernels) copies that window
-    without its span's last 8 bytes and agrees with the plain version."""
+    each of the fourteen kernels that stage narrow windows (the seven mask
+    kernels and the seven descriptor kernels) copies that window without
+    its span's last 8 bytes and agrees with the plain version."""
     layout, lowering = QM_NARROW[kernel]
     plan = _qm_reaching_plan(vdtype, layout, lowering, cuda)
+    exact = torch.empty(plan.values.numel(), dtype=plan.values.dtype,
+                        device=cuda)
+    exact.copy_(plan.values)
+    _qm_call(kernel, plan, _qm_x(kernel, plan, cuda), values=exact)
+
+
+def _qm_align4_plan(layout, lowering, device):
+    """An int8 plan aligned to 4 values (powerlaw, beta(4,8)) whose values
+    end 4 or 12 bytes past a 16-byte boundary and whose last window's span
+    reaches past them."""
+    for seed in range(40):
+        mat = F.csr_to_spc5(matgen.powerlaw(200 + 10 * seed, 5, seed=seed),
+                            4, 8)
+        plan = _qm_plan((4, 8), "int8", layout, device, lowering=lowering,
+                        align=4, mat=mat)
+        nvalues = plan.values.numel()
+        if nvalues % 8 and any(
+                K.value_span(vb, plan.vmax, 1, nvalues)[2] > nvalues
+                for vb in plan.chunk_vbase.flatten().tolist()):
+            return plan
+    raise AssertionError("no int8 align-4 plan's span reaches past values")
+
+
+@pytest.mark.parametrize("kernel", sorted(QM_NARROW))
+def test_int8_align4_span_at_the_end_of_exact_length_values(cuda, kernel):
+    """An int8 plan aligned to 4 values whose last window's span would
+    reach past ``values``, which end 4 or 12 bytes past a 16-byte boundary,
+    its values copied into a tensor of exactly their length: each of the
+    fourteen narrow-window kernels copies that window up to values' end (a
+    4-byte piece after any 8-byte one) and agrees with the plain
+    version."""
+    layout, lowering = QM_NARROW[kernel]
+    plan = _qm_align4_plan(layout, lowering, cuda)
     exact = torch.empty(plan.values.numel(), dtype=plan.values.dtype,
                         device=cuda)
     exact.copy_(plan.values)
@@ -3279,3 +3340,339 @@ def test_quantised_mask_layer_on_the_card_matches_the_cpu_layer(cuda, vdtype,
     ran = {k for k in after if after[k] != before[k]}
     assert ran == ({"spmv_cuda_db", "spmm_cuda"} if layout == "whole_vector"
                    else {"spmv_cuda_panels_db", "spmm_cuda_panels_db"})
+
+
+# ----------------------------------------------------------------------------
+# quantised values (bf16, int8) in the three whole-vector descriptor kernels
+# and bf16 values in both tail kernels
+# ----------------------------------------------------------------------------
+
+#: The whole-vector descriptor wrappers: wrapper -> module.
+QW_KERNELS = {"spmv_cuda_desc": KD, "spmv_cuda_desc_db": KD,
+              "spmm_cuda_desc": KDM}
+
+
+def _qw_plan(rc, vdtype, device, **kw):
+    """A whole-vector descriptor plan at ``vdtype`` (302 x 260, cb 8: many
+    chunks)."""
+    return _qm_plan(rc, vdtype, "whole_vector", device, lowering="descriptor",
+                    **kw)
+
+
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+@pytest.mark.parametrize("vdtype", QUANT_VDTYPES)
+@pytest.mark.parametrize("kernel", sorted(QW_KERNELS))
+def test_quantised_whole_desc_block_shapes(cuda, kernel, vdtype, rc):
+    """Each whole-vector descriptor kernel at bf16 and int8 on every block
+    shape, at the launch its wrapper plans (SpMM at nvec 16)."""
+    plan = _qw_plan(rc, vdtype, cuda)
+    assert plan.values.dtype == {"bf16": torch.bfloat16,
+                                 "int8": torch.int8}[vdtype]
+    _qm_call(kernel, plan, _qm_x(kernel, plan, cuda))
+
+
+@pytest.mark.parametrize("force", ["one", "each_chunk", "ragged"])
+@pytest.mark.parametrize("vdtype", QUANT_VDTYPES)
+@pytest.mark.parametrize("kernel", sorted(QW_KERNELS))
+def test_quantised_whole_desc_forced_grids(cuda, kernel, vdtype, force):
+    """G = 1, one chunk a CTA, and a G that does not divide the chunks."""
+    plan = _qw_plan((4, 8), vdtype, cuda)
+    n = int(plan.chunk_vbase.shape[0])
+    grid = {"one": 1, "each_chunk": n, "ragged": max(2, n // 3 + 1)}[force]
+    _qm_call(kernel, plan, _qm_x(kernel, plan, cuda), grid=grid)
+
+
+@pytest.mark.parametrize("nvec", [1, 2, 3, 5, 16, 100, 128, 256])
+@pytest.mark.parametrize("vdtype", QUANT_VDTYPES)
+def test_quantised_whole_desc_spmm_widths(cuda, vdtype, nvec):
+    """``spmm_cuda_desc`` at nvec 1 to 256 (each a multiple of min(nvt,
+    nvec), the reference's rule at nvt = 128)."""
+    plan = _qw_plan((2, 4), vdtype, cuda)
+    _qm_call("spmm_cuda_desc", plan, _qm_x("spmm_cuda_desc", plan, cuda,
+                                           nvec=nvec))
+
+
+@pytest.mark.parametrize("align", [4, 8])
+@pytest.mark.parametrize("vdtype", QUANT_VDTYPES)
+@pytest.mark.parametrize("kernel", sorted(QW_KERNELS))
+def test_quantised_whole_desc_windows_off_16_bytes(cuda, kernel, vdtype,
+                                                   align):
+    """Value windows that start off a 16-byte boundary (int8 at align 8
+    and 4, bf16 at align 4): the kernels stage the aligned span that covers
+    a window and index into it, at G = 1 and at the planned G."""
+    plan = _qw_plan((2, 4), vdtype, cuda, align=align)
+    itemsize = plan.values.element_size()
+    off = bool(((plan.chunk_vbase * itemsize) % 16 != 0).any())
+    assert off == (vdtype == "int8" or align == 4)
+    x = _qm_x(kernel, plan, cuda)
+    for grid in (None, 1):
+        _qm_call(kernel, plan, x, **({} if grid is None else {"grid": grid}))
+
+
+@pytest.mark.parametrize("vdtype", QUANT_VDTYPES)
+def test_quantised_whole_desc_sliced_stages(cuda, vdtype):
+    """Chunks whose stage does not fit a CTA at any width (1,280 full
+    beta(4,8) blocks, int32 vidx): the synchronous SpMV kernel stages the
+    tables in slices of fewer blocks with the window (and its offset and
+    scale) staged once a chunk, at its G, one CTA and one chunk a CTA; the
+    SpMM kernel rounds of slices; the ring refuses and launches nothing."""
+    mat = F.csr_to_spc5(F.csr_from_dense(_dense((64, 4_096), 1.0, 24)), 4, 8)
+    plan = ops.prepare(mat, layout="whole_vector", lowering="descriptor",
+                       vdtype=vdtype, tune=False, device=cuda, cb=1_280,
+                       align=4 if vdtype == "bf16" else 8)
+    assert plan.desc_vidx.dtype == torch.int32 and _chunks(plan) >= 2
+    launch = KD.whole_launch(1, _chunks(plan), cb=plan.cb, r=4, c=8,
+                             vmax=plan.vmax, wv=4, wx=2, device=cuda,
+                             vsize=plan.values.element_size())
+    assert launch["blocks_per_stage"] < plan.cb
+    x = _plan_x(plan, 25, cuda)
+    for grid in (None, 1, _chunks(plan)):
+        _qm_call("spmv_cuda_desc", plan, x, **(
+            {} if grid is None else {"grid": grid}))
+    _qm_call("spmm_cuda_desc", plan, _xmat(plan.ncols, 16, 26, cuda))
+    before = dict(KD.LAUNCHES)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.spmv(plan, x)
+    assert KD.LAUNCHES == before
+
+
+def test_quantised_whole_desc_all_zero_chunks_take_scale_one(cuda):
+    """Rows whose values are all zero (kept as nonzeros) make chunks of
+    scale 1.0; every whole-vector descriptor kernel gives their rows 0."""
+    d = _dense((302, 260), 0.08, 29)
+    csr = F.csr_from_dense(d)
+    csr.values[:csr.rowptr[64]] = 0.0
+    plan = _qw_plan((2, 4), "int8", cuda, mat=F.csr_to_spc5(csr, 2, 4))
+    live = plan.desc_valid.reshape(_chunks(plan), -1).any(-1)
+    assert bool(((plan.value_scale == 1.0) & live).any())
+    for kernel in QW_KERNELS:
+        _qm_call(kernel, plan, _qm_x(kernel, plan, cuda))
+
+
+@pytest.mark.parametrize("vdtype", ["f32", *QUANT_VDTYPES])
+@pytest.mark.parametrize("kernel", sorted(QW_KERNELS))
+def test_quantised_whole_desc_launch_refuses_a_wrong_smem_figure(
+        cuda, monkeypatch, kernel, vdtype):
+    """At every value width, a launch handed a shared-memory figure 16
+    bytes off the kernel's is refused (CUDA error 1) and not counted."""
+    mod = QW_KERNELS[kernel]
+    plan = _qw_plan((4, 8), vdtype, cuda)
+    real = mod.whole_launch
+
+    def off(*args, **kw):
+        launch = real(*args, **kw)
+        return dict(launch, smem_bytes=launch["smem_bytes"] + 16)
+    monkeypatch.setattr(mod, "whole_launch", off)
+    before = dict(mod.LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        _qm_call(kernel, plan, _qm_x(kernel, plan, cuda))
+    assert mod.LAUNCHES == before
+
+
+@pytest.mark.parametrize("kernel", sorted(QW_KERNELS))
+def test_int8_whole_desc_launch_refuses_no_scales(cuda, monkeypatch, kernel):
+    """An int8 launch handed no scale pointer is refused by the launcher
+    (CUDA error 1) and not counted."""
+    mod = QW_KERNELS[kernel]
+    plan = _qw_plan((4, 8), "int8", cuda)
+    monkeypatch.setattr(K, "_scale_ptr", lambda scale: 0)
+    before = dict(mod.LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        _qm_call(kernel, plan, _qm_x(kernel, plan, cuda))
+    assert mod.LAUNCHES == before
+
+
+@pytest.mark.parametrize("vsize", [4, 2, 1])
+def test_quantised_whole_desc_smem_matches_the_kernel(cuda, vsize):
+    """Both whole-vector descriptor wrappers' shared-memory formulas at 4-,
+    2- and 1-byte values are the figures their kernels' own layouts give,
+    on the geometries of the f32 tests above."""
+    from repro_torch.kernels import _build
+    spmv = _build.load_library("spc5_spmv_desc")
+    spmm = _build.load_library("spc5_spmm_desc")
+    for geom in WHOLE_SMEM_GEOMETRIES.values():
+        for stages in (1, 2):
+            assert spmv.spc5_spmv_desc_whole_smem(stages, *geom, vsize) == \
+                KD.whole_smem_bytes(stages, *geom, vsize)
+    for geom in WHOLE_SPMM_SMEM_GEOMETRIES.values():
+        head, tail = geom[:6], geom[6:]
+        for widths in ((2, 2), (4, 1)):
+            assert spmm.spc5_spmm_desc_whole_smem(*head, *widths, *tail,
+                                                  vsize) == \
+                KDM.whole_smem_bytes(*head, *widths, *tail, vsize)
+
+
+@pytest.mark.parametrize("vdtype", QUANT_VDTYPES)
+def test_quantised_token_layer_on_the_card_matches_the_cpu_layer(cuda,
+                                                                 vdtype):
+    """A whole-vector descriptor ``SparseLinear`` at a quantised vdtype on
+    the card (``spmv_cuda_desc_db`` / ``spmm_cuda_desc``) against the same
+    layer on the CPU (the plain versions), batch 1 and 16, bit-equal
+    plans."""
+    w = np.random.default_rng(9).standard_normal((600, 300)).astype(
+        np.float32)
+    kw = dict(density=0.2, block=(4, 8), vdtype=vdtype, layout="whole_vector",
+              lowering="descriptor", cb=8, tune=False)
+    gpu = SparseLinear.from_dense(w, device=cuda, **kw)
+    cpu = SparseLinear.from_dense(w, device="cpu", **kw)
+    for a, b in zip(gpu.plan.arrays, cpu.plan.arrays):
+        assert torch.equal(a.cpu(), b)
+    x = np.random.default_rng(10).standard_normal((16, 300)).astype(
+        np.float32)
+    before = _q_launches()
+    for xb in (x[:1], x):
+        y = gpu(torch.from_numpy(xb).to(cuda)).cpu()
+        y_ref = cpu(torch.from_numpy(xb))
+        assert y.dtype == torch.float32
+        err = float((y - y_ref).abs().max())
+        assert err <= RTOL * max(float(y_ref.abs().max()), 1.0)
+    after = _q_launches()
+    assert {k for k in after if after[k] != before[k]} == {
+        "spmv_cuda_desc_db", "spmm_cuda_desc"}
+
+
+def _qt_plan(case, rc, cuda):
+    """The bf16 test plan of a TAIL_CASES geometry on the card."""
+    csr, geom = TAIL_CASES[case]
+    plan = ops.prepare(F.csr_to_spc5(csr(), *rc), layout="test",
+                       multi_layout="panels", lowering="mask", tune=False,
+                       vdtype="bf16", device=cuda, **geom)
+    if not plan.n_single:
+        pytest.skip(f"no singleton blocks in beta{rc} for {case}")
+    assert plan.single_values.dtype == torch.bfloat16
+    return plan
+
+
+@pytest.mark.parametrize("case", TAIL_CASES)
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+def test_bf16_tail_kernels_match_plain(cuda, rc, case):
+    """Both tail kernels on bf16 buckets of every block shape and bucket
+    geometry, at their planned launch (SpMM at nvec 1, 3, 16 and 128)."""
+    plan = _qt_plan(case, rc, cuda)
+    _ttail_close(*_ttail_spmv(plan, _ttail_x(plan.ncols, cuda)))
+    for nvec in (1, 3, 16, 128):
+        _ttail_close(*_ttail_spmm(plan, _ttail_x((plan.ncols, nvec), cuda)))
+
+
+@pytest.mark.parametrize("case", TAIL_CASES)
+def test_bf16_tail_kernels_at_forced_grids(cuda, case):
+    """S = 1 and one group a CTA (SpMV); G = 1 and one group a CTA (SpMM,
+    nvec 16 and 128), on bf16 buckets."""
+    plan = _qt_plan(case, (2, 4), cuda)
+    x = _ttail_x(plan.ncols, cuda)
+    for split in (1, KT.tail_groups(plan.single_rows.shape[1])):
+        _ttail_close(*_ttail_spmv(plan, x, split=split))
+    for nvec in (16, 128):
+        xm = _ttail_x((plan.ncols, nvec), cuda)
+        for grid in (1, KT.tail_groups(plan.single_rows.numel())):
+            _ttail_close(*_ttail_spmm(plan, xm, grid=grid))
+
+
+@pytest.mark.parametrize("shift", [1, 4])
+@pytest.mark.parametrize("case", TAIL_CASES)
+def test_bf16_tail_kernels_on_misaligned_buckets(cuda, case, shift):
+    """bf16 buckets one slot off (2-byte values: 2-byte loads and staging)
+    and four slots off (the rows and columns 16-byte aligned, the values
+    only 8: the 8-byte paths), and permuted buckets."""
+    plan = _qt_plan(case, (2, 4), cuda)
+    shape = plan.single_rows.shape
+
+    def shifted(a):
+        out = torch.empty(a.numel() + shift, dtype=a.dtype, device=a.device)
+        out[shift:] = a.reshape(-1)
+        return out[shift:].view(shape)
+    rows, cols, vals = (shifted(a) for a in (
+        plan.single_rows, plan.single_cols, plan.single_values))
+    assert (vals.data_ptr() % 8 == 0) == (shift == 4)
+    x = _ttail_x(plan.ncols, cuda)
+    args, kw = _tail_args(plan)
+    y = KT.spmv_tail_cuda(args[0], rows, cols, vals, x, **kw)
+    _ttail_close(y, R.spmv_coo_panels(rows, cols, vals, x, pr=plan.tail_pr,
+                                      nrows=plan.nrows))
+    perm = torch.from_numpy(np.stack([
+        np.random.default_rng(12 + p).permutation(shape[1])
+        for p in range(shape[0])])).to(cuda)
+    moved = tuple(a.gather(1, perm).contiguous() for a in (rows, cols, vals))
+    for nvec in (1, 16, 128):
+        xm = _ttail_x((plan.ncols, nvec), cuda)
+        _ttail_close(*_ttail_spmm(plan, xm, buckets=(rows, cols, vals)))
+        _ttail_close(*_ttail_spmm(plan, xm, buckets=moved))
+
+
+def test_bf16_tail_launchers_refuse_other_plans(cuda):
+    """At bf16 each tail launcher refuses another shared-memory figure (the
+    SpMV kernel any but 0, the SpMM kernel the f32 CTA's), and both refuse
+    a value width they are not built for (int8)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    lib = _build.load_library("spc5_spmv_tail")
+    plan = _qt_plan("powerlaw", (2, 4), cuda)
+    (xbase, rows, cols, vals), _ = _tail_args(plan)
+    npanels, smax = rows.shape
+    x = _ttail_x(plan.ncols, cuda)
+    y = torch.zeros(plan.nrows, device=cuda)
+    launch = KT.tail_launch(npanels, smax, device=cuda, vsize=2)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    dev = cuda.index or 0
+
+    def spmv(vsize, smem):
+        return lib.spc5_spmv_tail(
+            xbase.data_ptr(), rows.data_ptr(), cols.data_ptr(),
+            vals.data_ptr(), x.data_ptr(), y.data_ptr(), npanels, smax,
+            plan.tail_pr, plan.tail_xw, plan.nrows, plan.ncols, vsize,
+            launch["split"], launch["threads"], smem, dev, stream)
+    assert spmv(2, 0) == 0
+    assert spmv(2, 16) == 1 and spmv(1, 0) == 1
+    xm = _ttail_x((plan.ncols, 16), cuda)
+    ym = torch.zeros(plan.nrows, 16, device=cuda)
+    m = KT.spmm_tail_launch(npanels * smax, 16, 4, device=cuda, vsize=2)
+    f32 = KT.spmm_tail_smem_bytes(m["tile_columns"], m["vector"],
+                                  m["tile_rows"], m["threads"])
+    assert lib.spc5_spmm_tail_smem(m["tile_columns"], m["vector"],
+                                   m["tile_rows"], m["threads"], 2) == \
+        m["smem_bytes"] == f32 - 8 * m["threads"]
+
+    def spmm(vsize, smem):
+        return lib.spc5_spmm_tail(
+            rows.data_ptr(), cols.data_ptr(), vals.data_ptr(), xm.data_ptr(),
+            ym.data_ptr(), npanels, smax, plan.tail_pr, plan.nrows,
+            plan.ncols, 16, m["tile_columns"], m["vector"], vsize, m["grid"],
+            m["tile_rows"], m["threads"], smem, dev, stream)
+    assert spmm(2, m["smem_bytes"]) == 0
+    assert spmm(2, f32) == 1 and spmm(1, m["smem_bytes"]) == 1
+    torch.cuda.synchronize()
+    out = (ctypes.c_int * 2)()
+    assert lib.spc5_spmv_tail_occupancy(1, 256, dev,
+                                        ctypes.addressof(out)) == 1
+    assert lib.spc5_spmm_tail_occupancy(1, 4, 256, 1024, dev,
+                                        ctypes.addressof(out)) == 1
+    assert lib.spc5_spmm_tail_occupancy(2, 4, 256, m["smem_bytes"], dev,
+                                        ctypes.addressof(out)) == 0
+
+
+@pytest.mark.parametrize("lowering", ["mask", "descriptor"])
+@pytest.mark.parametrize("multi_layout", ["whole_vector", "panels"])
+def test_bf16_test_plan_on_the_card_matches_the_cpu_plan(cuda, multi_layout,
+                                                         lowering):
+    """A bf16 test plan (bf16 multi and tail) on the card against the same
+    plan on the CPU, SpMV and SpMM: a panel multi runs both tail kernels on
+    its bf16 buckets, a whole-vector multi the plain flat tail."""
+    mat = F.csr_to_spc5(matgen.powerlaw(2_000, 6, seed=9), 2, 4)
+    kw = dict(layout="test", multi_layout=multi_layout, lowering=lowering,
+              vdtype="bf16", tune=False, pr=64, xw=64, cb=16)
+    card = ops.prepare(mat, device=cuda, **kw)
+    cpu = ops.prepare(mat, device="cpu", **kw)
+    assert card.single_values.dtype == torch.bfloat16
+    rng = np.random.default_rng(6)
+    KT.reset_launches()
+    for shape in ((2_000,), (2_000, 16)):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        fn = ops.spmv if len(shape) == 1 else ops.spmm
+        y = fn(card, x.to(cuda))
+        torch.cuda.synchronize()
+        ref = fn(cpu, x)
+        err = float((y.cpu() - ref).abs().max())
+        assert err <= RTOL * float(ref.abs().max()), err
+    assert KT.LAUNCHES["spmv_tail_cuda"] == (multi_layout == "panels")
+    assert KT.LAUNCHES["spmm_tail_cuda"] == (multi_layout == "panels")

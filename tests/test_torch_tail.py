@@ -50,7 +50,7 @@ def assert_close(y, y_ref):
 
 #: A copy of the source's tail_layout (csrc/spc5_spmv_tail.cu), kept apart
 #: from the wrapper's formula so that a change to one shows here.
-def _tail_layout_copy(tw, vec, tile, threads):
+def _tail_layout_copy(tw, vec, tile, threads, vsize=4):
     def r16(n):
         return (n + 15) & ~15
     groups = threads // (tw // vec)
@@ -59,7 +59,7 @@ def _tail_layout_copy(tw, vec, tile, threads):
     scratch = heads + 16 * groups
     lst = scratch + 16 * (threads // 32)
     stage = lst + 64 * threads
-    return stage + 48 * threads
+    return stage + (32 + 4 * vsize) * threads
 
 
 @pytest.mark.parametrize("tw,vec,tile,threads", [
@@ -86,11 +86,11 @@ def fake_card(monkeypatch):
     the CUDA runtime on the card); records what was asked."""
     asked = []
 
-    def spmv(threads, device):
+    def spmv(threads, device, vsize=4):
         asked.append(("spmv", threads))
         return _ctas_per_sm(threads, 0, 40), 132
 
-    def spmm(vec, threads, smem, device):
+    def spmm(vec, threads, smem, device, vsize=4):
         asked.append(("spmm", vec, threads, smem))
         return _ctas_per_sm(threads, smem), 132
     monkeypatch.setattr(KT, "tail_occupancy", spmv)

@@ -24,7 +24,9 @@ narrow windows.
   covers the window, starts on a 16-byte boundary, fits the staged window
   and ends inside ``values``; the 16-byte aligned span it was cut from
   reaches past ``values`` on some of the plans (so the cut is needed and
-  this test can fail).
+  this test can fail). int8 plans aligned to 4 values end 4 or 12 bytes
+  past a 16-byte boundary: their copies stop at ``values``' exact end,
+  where cutting 8 bytes off the span copied past it.
 
 The products themselves (every layout and lowering at bf16 and int8, on
 the CPU through the wrappers' plain versions, against the reference's
@@ -383,3 +385,57 @@ def test_span_rule_cases():
     assert K.value_span(4, 12, 2, 16) == (0, 32, 32)
     # bf16 window [8, 20) = bytes [16, 40) of 20 values: span to 48, cut
     assert K.value_span(8, 12, 2, 20) == (16, 24, 48)
+
+
+def _old_stop(vb, vmax, vsize, nvalues):
+    """Where the span rule before the int8 align-4 repair stopped a copy:
+    8 bytes short of the span's end wherever it was cut."""
+    start, _, end = K.value_span(vb, vmax, vsize, nvalues)
+    per_piece = 16 // vsize
+    return end - 8 if vb + vmax > nvalues // per_piece * per_piece else end
+
+
+@pytest.mark.parametrize("lowering", ["mask", "descriptor"])
+@pytest.mark.parametrize("layout", sorted(SPAN_GEOM))
+@pytest.mark.parametrize("package", ["port", "reference"])
+def test_int8_spans_at_align_4_stay_inside_values(package, layout, lowering):
+    """int8 plans aligned to 4 values (windows on 4-byte boundaries, values
+    4 or 12 bytes past a 16-byte one) of both packages: every window's copy
+    covers it and ends inside ``values`` (stopping 4, 8 or 12 bytes into its
+    last piece), and on some plans the rule that cut 8 bytes off the span
+    (the kernels' before this repair) copied past ``values``."""
+    over = 0
+    for seed in range(SPAN_MATRICES):
+        n = 200 + 10 * seed
+        kw = dict(layout=layout, lowering=lowering, vdtype="int8",
+                  tune=False, align=4, **SPAN_GEOM[layout])
+        if package == "port":
+            plan = tops.prepare(TF.csr_to_spc5(TM.powerlaw(n, 5, seed=seed),
+                                               4, 8), device="cpu", **kw)
+            vbase, nvalues = plan.chunk_vbase.numpy(), plan.values.numel()
+        else:
+            plan = jops.prepare(JF.csr_to_spc5(JM.powerlaw(n, 5, seed=seed),
+                                               4, 8), **kw)
+            vbase = np.asarray(plan.chunk_vbase)
+            nvalues = np.asarray(plan.values).size
+        for vb in vbase.ravel().tolist():
+            start, nbytes, end = K.value_span(vb, plan.vmax, 1, nvalues)
+            assert start % 16 == 0 and nbytes % 4 == 0
+            assert start <= vb and start + nbytes >= vb + plan.vmax
+            assert start + nbytes <= nvalues
+            assert nbytes <= K.value_window_bytes(plan.vmax, 1)
+            over += _old_stop(vb, plan.vmax, 1, nvalues) > nvalues
+    assert over > 0
+
+
+def test_span_rule_stops_at_values_end():
+    """The rule at values' exact end: int8 values 4 and 12 bytes past a
+    16-byte boundary (align 4) keep 4 and 12 bytes of the last piece."""
+    # window [16, 20) of 20 int8 values: the span [16, 32) stops at 20
+    assert K.value_span(16, 4, 1, 20) == (16, 4, 32)
+    # window [4, 28) of 28 values: [0, 32) stops at 28 (12 bytes in)
+    assert K.value_span(4, 24, 1, 28) == (0, 28, 32)
+    # window [12, 20) of 20 values: [0, 32) stops at 20
+    assert K.value_span(12, 8, 1, 20) == (0, 20, 32)
+    # and nothing is cut inside values
+    assert K.value_span(12, 8, 1, 36) == (0, 32, 32)

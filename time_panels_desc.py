@@ -4,6 +4,7 @@
     python3 time_panels_desc.py [--layout panels|whole|tail]
                                 [--lowering mask|descriptor|both] [--cb N]
                                 [--label NAME] [--out FILE]
+    python3 time_panels_desc.py --against DIR [--out FILE]
 
 A shorter run than ``chip_smoke.py`` for work on the SpMV kernels of
 ``spc5_spmv.cu`` (mask) and ``spc5_spmv_desc.cu`` (descriptor). It builds
@@ -56,6 +57,19 @@ matrix (``--cb``: those two plans cut into chunks of N blocks instead):
   flushes; then the static SASS of both tail kernels (SpMV and SpMM:
   ``ATOMS`` must be 0).
 
+``--against DIR`` compares this tree with another checkout of the
+repository unpacked in DIR (the parent commit's ``git archive``, say)
+instead: (1) the static SASS of every f32 kernel of the five CUDA sources,
+both trees' compiled by nvcc into cubins side by side (``cuobjdump
+-sass``, the names demangled, each f32 instantiation matched by name and
+template arguments): the kernels whose opcode sequences differ, with their
+instruction counts and ``-Xptxas -v`` registers, and the registers and
+stack of every narrow one; (2) the f32 whole-vector descriptor SpMV pair
+on the vocab token plan and the four mask SpMV kernels at bf16 and int8 on
+the vocab mask layers, each timed in a subprocess of each tree with that
+tree's own wrappers and kernels, in turns (DIR, this, this, DIR), on the
+same seeded inputs.
+
 Every setting is first held against the plain version (within ``1e-5 *
 max|y|``) and timed with CUDA events, L2 flushed before every call. It
 prints the card's name and power limit, one line per plan, kernel and
@@ -75,6 +89,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -171,10 +186,10 @@ def whole_settings(plan, launch):
 #: tail`` counts, and the mangled names of its kernels counted (group 1 the
 #: kernel, group 2 a template argument where it has one).
 WHOLE_SASS = {"descriptor": ("spc5_spmv_desc",
-                             r"\d(spmv_desc_whole_kernel)ILi(\d)E"),
+                             r"\d(spmv_desc_whole_kernel)IfLi(\d)E"),
               "mask": ("spc5_spmv", r"\d(spmv_whole_kernel)IfLi(\d)E"),
               "tail": ("spc5_spmv_tail",
-                       r"\d(sp(?:mv|mm)_tail_kernel)(?:ILi(\d)E)?")}
+                       r"\d(sp(?:mv|mm)_tail_kernel)If(?:Li(\d)E)?E")}
 
 
 def sass_counts(out_path, lowering):
@@ -303,6 +318,197 @@ def build_plans(args, device):
     return plans
 
 
+#: The CUDA sources whose f32 kernels ``--against`` compares.
+AGAINST_SOURCES = ("spc5_spmv", "spc5_spmm", "spc5_spmv_desc",
+                   "spc5_spmm_desc", "spc5_spmv_tail")
+
+#: What ``--against`` times in both trees: (plan, value store, kernel).
+AGAINST_TIMES = (("token", "f32", "spmv_cuda_desc_db"),
+                 ("token", "f32", "spmv_cuda_desc"),
+                 *((plan, vdtype, name) for vdtype in ("bf16", "int8")
+                   for plan, name in (("whole_mask", "spmv_cuda_db"),
+                                      ("whole_mask", "spmv_cuda"),
+                                      ("panel_mask", "spmv_cuda_panels_db"),
+                                      ("panel_mask", "spmv_cuda_panels"))))
+
+#: A subprocess of one tree (its root the working directory): builds the
+#: vocab plans ``chip_smoke.py`` builds, holds each kernel against its plain
+#: version, times it and prints {"<plan> <vdtype> <kernel>": ms} last.
+_AGAINST_CHILD = r"""
+import json, sys
+sys.path[:0] = ["src", "."]
+import numpy as np, torch
+import chip_smoke as S
+from repro_torch.kernels import ops
+dev = torch.device("cuda")
+_, _, mat = S.make_vocab()
+x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+    mat.ncols).astype(np.float32)).to(dev)
+kw = {"token": {}, "whole_mask": dict(layout="whole_vector", lowering="mask",
+                                      nvec=128),
+      "panel_mask": dict(layout="panels", lowering="mask", nvec=128)}
+plans, out = {}, {}
+for plan, vdtype, name in json.loads(sys.argv[1]):
+    if (plan, vdtype) not in plans:
+        extra = {} if vdtype == "f32" else {"vdtype": vdtype}
+        plans[plan, vdtype] = ops.prepare(mat, device=dev, **kw[plan], **extra)
+    p = plans[plan, vdtype]
+    call = S.kernel_call(name, p, x)
+    err = S.rel_err(call(), S.plain_y(p, x))
+    if not err <= S.TOL:
+        raise SystemExit(f"{plan} {vdtype} {name}: {err}")
+    out[f"{plan} {vdtype} {name}"] = S.cuda_time_ms(call, dev)
+print(json.dumps(out))
+"""
+
+
+def _compile_cubins(csrc, out_dir, tag):
+    """nvcc (``_build.NVCC_FLAGS``, to a cubin) started on every
+    :data:`AGAINST_SOURCES` file of ``csrc``: {source: (cubin, process)}."""
+    from repro_torch.kernels import _build
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler",
+                                                       "-fPIC")]
+    out = {}
+    for name in AGAINST_SOURCES:
+        cubin = os.path.join(out_dir, f"{tag}.{name}.cubin")
+        out[name] = (cubin, subprocess.Popen(
+            [_build.nvcc_path(), *flags, "-cubin", "-o", cubin,
+             os.path.join(csrc, f"{name}.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    return out
+
+
+def _sass_opcodes(cubin):
+    """{mangled kernel: [opcode, ...]} of a cubin (predicates dropped)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", cubin], capture_output=True,
+                          text=True, timeout=600, check=True).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
+        if m and cur is not None:
+            ins = re.sub(r"^@!?U?P\w+\s+", "", m.group(1).strip())
+            cur.append(ins.split()[0] if ins else "")
+    return out
+
+
+def _f32_key(mangled, demangled):
+    """The kernel's name and template arguments with its f32 value type
+    left out (the parent may not have had that parameter); None for a
+    narrow instantiation (bf16, int8)."""
+    if "bfloat16" in demangled or "signed char" in demangled:
+        return None
+    k = demangled[5:] if demangled.startswith("void ") else demangled
+    k = re.sub(r"\(anonymous namespace\)::|<unnamed>::", "", k)
+    k = re.sub(r"\((?:int|unsigned int|bool)\)", "", k).split("(")[0]
+    return k.replace("<float>", "").replace("float, ", "").strip()
+
+
+def _ptxas(log):
+    """{mangled: registers line, mangled + "#stack": stack line} of an
+    ``-Xptxas -v`` log."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+        elif cur and "Used" in line:
+            out[cur] = line.split(":", 1)[1].strip()
+        elif cur and "bytes stack frame" in line:
+            out[cur + "#stack"] = line.strip()
+    return out
+
+
+def against(other):
+    """``--against DIR``: the SASS comparison and the timings in turns (see
+    the module docstring), the cubins in a temporary directory. Returns the
+    result."""
+    with tempfile.TemporaryDirectory() as work:
+        return _against(os.path.abspath(other), work)
+
+
+def _against(other, work):
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    runs = {"this": _compile_cubins(str(_build.CSRC), work, "this"),
+            "other": _compile_cubins(os.path.join(
+                other, "src", "repro_torch", "kernels", "csrc"), work,
+                "other")}
+    built = {}
+    for tag, procs in runs.items():
+        for name, (cubin, proc) in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode:
+                raise S.SmokeFailure(f"{tag} {name}: nvcc failed\n{log}")
+            built[tag, name] = (cubin, log)
+    print(f"against: both trees' cubins built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    filt = (shutil.which("cu++filt") or shutil.which("c++filt")
+            or os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                            "bin", "cu++filt"))
+    sass = {}
+    for name in AGAINST_SOURCES:
+        ops_, keys, regs = {}, {}, {}
+        for tag in runs:
+            ops_[tag] = _sass_opcodes(built[tag, name][0])
+            dem = subprocess.run([filt], input="\n".join(ops_[tag]),
+                                 capture_output=True, text=True,
+                                 check=True).stdout.splitlines()
+            keys[tag] = {m: d for m, d in zip(ops_[tag], dem)}
+            regs[tag] = _ptxas(built[tag, name][1])
+        f32 = {tag: {_f32_key(m, d): m for m, d in keys[tag].items()
+                     if _f32_key(m, d) is not None} for tag in runs}
+        same = [k for k, m in f32["other"].items()
+                if k in f32["this"] and ops_["this"][f32["this"][k]]
+                == ops_["other"][m]]
+        differ = {k: {"instructions": [len(ops_["other"][m]),
+                                       len(ops_["this"][f32["this"][k]])],
+                      "registers": [regs["other"].get(m),
+                                    regs["this"].get(f32["this"][k])]}
+                  for k, m in f32["other"].items()
+                  if k in f32["this"] and k not in same}
+        missing = sorted(k for k in f32["other"] if k not in f32["this"])
+        narrow = {d: [regs["this"].get(m), regs["this"].get(m + "#stack")]
+                  for m, d in keys["this"].items()
+                  if _f32_key(m, d) is None}
+        sass[name] = {"f32_kernels": len(f32["other"]), "same": len(same),
+                      "differ": differ, "missing": missing,
+                      "narrow": narrow}
+        print(f"SASS {name}: {len(f32['other'])} f32 kernels in {other}, "
+              f"{len(same)} with the same opcodes here, {len(differ)} "
+              f"differ, {len(missing)} missing; {len(narrow)} narrow ones")
+        for k, d in differ.items():
+            print(f"  differs: {k}: {d['instructions'][0]} -> "
+                  f"{d['instructions'][1]} instructions; registers "
+                  f"{d['registers'][0]} -> {d['registers'][1]}")
+    times = {"other": [], "this": []}
+    for tag in ("other", "this", "this", "other"):
+        root = other if tag == "other" else S.HERE
+        print(f"against: timing in {tag} ({root})")
+        proc = subprocess.run(
+            [sys.executable, "-c", _AGAINST_CHILD,
+             json.dumps(AGAINST_TIMES)], cwd=root, capture_output=True,
+            text=True, timeout=1200)
+        if proc.returncode:
+            raise S.SmokeFailure(f"{tag}: {proc.stderr[-2000:]}")
+        times[tag].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    result = {"card": S.card_line(), "other": other, "sass": sass,
+              "times": {}}
+    for plan, vdtype, name in AGAINST_TIMES:
+        key = f"{plan} {vdtype} {name}"
+        t = {tag: [run[key] for run in runs_] for tag, runs_ in times.items()}
+        ratio = np.mean(t["this"]) / np.mean(t["other"])
+        result["times"][key] = dict(t, ratio=ratio)
+        print(f"time {key}: {other} {t['other']}, this {t['this']} ms; "
+              f"{ratio:.4f}x")
+    return result
+
+
 def main() -> int:
     import torch
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -315,6 +521,8 @@ def main() -> int:
                     help="chunk size of both plans (default: their own)")
     ap.add_argument("--label", default="")
     ap.add_argument("--out", default="")
+    ap.add_argument("--against", default="",
+                    help="compare with the tree in this directory instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_panels_desc: no CUDA device", file=sys.stderr)
@@ -322,6 +530,13 @@ def main() -> int:
     device = torch.device("cuda")
     card = S.card_line()
     print(card)
+    if args.against:
+        result = against(args.against)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(result, f)
+        print(json.dumps({k: v for k, v in result.items() if k != "sass"}))
+        return 0
     t0 = time.perf_counter()
     S.build_kernels()
     plans = build_plans(args, device)

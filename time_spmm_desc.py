@@ -248,15 +248,15 @@ SASS = {("panels", "descriptor"): (
             "spmm_panels_kernel<f32,8,4,{}>"),
         ("whole", "descriptor"): (
             "spc5_spmm_desc",
-            r"spmm_whole_kernelINS_9DescWholeELi4ELi8ELi(\d)E",
-            "spmm_whole_kernel<DescWhole,4,8,{}>"),
+            r"spmm_whole_kernelINS_9DescWholeIfEELi4ELi8ELi(\d)E",
+            "spmm_whole_kernel<DescWhole<f32>,4,8,{}>"),
         ("whole", "mask"): (
             "spc5_spmm",
             r"spmm_whole_kernelINS_9MaskWholeIfEELi4ELi8ELi(\d)E",
             "spmm_whole_kernel<MaskWhole<f32>,4,8,{}>"),
         ("tail", "tail"): (
-            "spc5_spmv_tail", r"spmm_tail_kernelILi(\d)E",
-            "spmm_tail_kernel<{}>")}
+            "spc5_spmv_tail", r"spmm_tail_kernelIfLi(\d)E",
+            "spmm_tail_kernel<f32,{}>")}
 
 
 def sass_counts(lowering, out_path, layout="panels"):
