@@ -25,7 +25,15 @@ phase that goes wrong:
    16 and 128, planned launch and S / G = 1), with all-zero chunks (scale
    1.0), int8 windows that start off a 16-byte boundary and int8 plans
    whose last window's 16-byte aligned span would reach past their values
-   (the kernels copy it short of that);
+   (the kernels copy it short of that); and the four panel descriptor
+   kernels with a column map (a reordered plan's column permutation, each
+   counted under its own name, ``spmv_cuda_panels_desc_cmap`` and so on)
+   at f32, bf16 and int8 on every block shape with a random permutation,
+   windows reaching columns at or past ncols, and an int8 plan whose last
+   span would reach past its exact-length values (SpMV at the planned
+   launch, S = 1 and one chunk a CTA; SpMM at nvec 3, 16 and 128, planned
+   launch and S = 1), while each of the seven mask wrappers must refuse a
+   map on the card naming its ROADMAP queue 2 B item, before any launch;
 4. SpMV path: builds ``matgen.fem_blocks(200_000, 4, 12, seed=5)``, the
    SET_A bone010 structure class at 200,000 rows (about 9.5 M nonzeros), in
    beta(4,4), and drives ``ops.prepare`` + ``ops.spmv`` through both
@@ -37,6 +45,22 @@ phase that goes wrong:
    and descriptor) at one CTA for all chunks and at one chunk a CTA (each
    launch's grid, chunks a CTA, threads, shared bytes, ring, CTAs per SM
    and registers printed);
+4b. reorder path: ``matgen.scrambled_banded(1_000_000, 8, 1.0, seed=42)``
+   (the reference bench's reorder matrix class, about 6.5 M nonzeros) in
+   beta(1,8) through ``ops.prepare(layout="panels", pr=256, xw=512, cb=64,
+   tune=False, reorder="rcm")``, which must be panels + descriptor with
+   ``col_perm`` and ``row_iperm`` kept and fewer chunks than the original
+   order (both printed, with the host seconds of the reorder pass); beside
+   it the unreordered plan, whole-vector + descriptor (the original order's
+   panel plan would pad every panel to the largest panel's chunk count,
+   each chunk about one block: far past the card); ``ops.spmv`` with both
+   buffer settings and ``ops.spmm`` at 16 and 128 with both run the four
+   map kernels and nothing else, each output held against the unreordered
+   plan's and the float64 CSR product; each map kernel timed in turns with
+   the same kernel on the same arrays against x[col_perm] with no map (the
+   map's cost), beside its bound (the map's 4 * ncols bytes counted once),
+   its plain version and cuSPARSE on the same CSR, and the reordered and
+   unreordered SpMV through ``ops`` beside cuSPARSE;
 5. SparseLinear path: the vocab projection of yi-6b (64,000 x 4,096, the
    weight ``serve.py``'s vocab bench draws: ``default_rng(0)``, standard
    normal, float32), magnitude-pruned to density 0.1 (beta(4,8) by eq. 4),
@@ -83,6 +107,21 @@ phase that goes wrong:
    on the f32 layer in turns, its bound, its plain version and cuSPARSE
    (on bf16 values where the card's torch takes them), and the values'
    share of the needed bytes is printed for each layer at each width;
+   then the reordered vocab layer: (3a) ``SparseLinear.from_dense(w,
+   density=0.1, nvec=128, reorder="auto")`` (the host pass tries sigma,
+   RCM and column-window clustering and keeps the best or declines; its
+   trace entry is printed and checked for consistency), every forward held
+   against the unreordered default layer's; (3b) the same call with a
+   prebuilt Reordering (the 125 row panels in a random order, the columns
+   by ``default_rng(7)``), which must be panels + descriptor with the rows
+   fused and ``col_perm`` kept, and the same Reordering through
+   ``ops.prepare(mat, vdtype=..., nvec=128, reorder=...)`` at bf16 and
+   int8: forwards at batch 1, 16 and 128 and their
+   ``double_buffer=False`` twins run the four map kernels at every width
+   and nothing else, each output held against its plain version, the f64
+   (dequantised) product, the unreordered layer of its width (f32, bf16;
+   int8's chunk scales change with the chunks) and the bf16 / int8 pins;
+   each map kernel timed in turns against its twin on x[col_perm];
 6. beta(r,c)_test path: the same weight in beta(2,4) (whose singleton
    blocks hold about 30 % of the nonzeros) as
    ``SparseLinear.from_dense(w, density=0.1, block=(2, 4), layout="test",
@@ -270,8 +309,8 @@ def build_kernels() -> None:
         kernel = ""
         for line in str(rec["log"]).splitlines():
             if "Compiling entry function" in line:
-                m = re.search(r"(sp(?:mv|mm)(?:(?:_desc)?_(?:whole|panels)|"
-                              r"_tail)_kernel)I(?:NS_\d+(\w+?)E)?"
+                m = re.search(r"(sp(?:mv|mm)(?:(?:_desc)?_(?:whole|panels)"
+                              r"(?:_cmap)?|_tail)_kernel)I(?:NS_\d+(\w+?)E)?"
                               r"((?:Li\d+E|[asif]|13__nv_bfloat16)+)E", line)
                 if m:
                     targs = [n or INDEX_TYPE[t] for n, t in re.findall(
@@ -346,9 +385,15 @@ def plain_y(plan, x, dtype=None):
     plan's ``value_scale`` applied. ``dtype`` (torch.float64): the same
     product with the stored values (upcast, then scaled), the scales and x
     in that dtype, e.g. the f64 product of a quantised plan's dequantised
-    values."""
+    values. A reordered plan's kept ``col_perm`` maps the columns as its
+    lowering does (the panel kernels' column map; x gathered first for the
+    others); y stays in the kernels' row order (``row_iperm`` is the
+    executor's, not a kernel's)."""
     from repro_torch.core import ref_spmv as R
     from repro_torch.core.plan import _plan_scale
+    cmap = plan.col_perm
+    if cmap is not None and plan.layout != "panels":
+        x, cmap = x.index_select(0, cmap), None
     if plan.layout == "test":
         y = plain_y(plan.multi, x, dtype)
         xt = x if dtype is None else x.to(dtype)
@@ -361,13 +406,13 @@ def plain_y(plan, x, dtype=None):
     if plan.lowering == "descriptor":
         if plan.layout == "panels":
             fn = R.spmv_panels_desc if x.dim() == 1 else R.spmm_panels_desc
-            return fn(dev, x, None, scale, pr=plan.pr, nrows=plan.nrows,
+            return fn(dev, x, cmap, scale, pr=plan.pr, nrows=plan.nrows,
                       ncols_pad=plan.ncols_pad)
         fn = R.spmv_desc if x.dim() == 1 else R.spmm_desc
         return fn(dev, x, scale, nrows=plan.nrows)
     if plan.layout == "panels":
         fn = R.spmv_panels if x.dim() == 1 else R.spmm_panels
-        return fn(dev, x, None, scale, r=plan.r, c=plan.c, pr=plan.pr,
+        return fn(dev, x, cmap, scale, r=plan.r, c=plan.c, pr=plan.pr,
                   nrows=plan.nrows, ncols_pad=plan.ncols_pad)
     fn = R.spmv if x.dim() == 1 else R.spmm
     return fn(dev, x, scale, r=plan.r, c=plan.c, nrows=plan.nrows,
@@ -444,6 +489,7 @@ def small_check(device) -> None:
                                    f"err {err}")
     worst = max(worst, small_check_tail(device))
     worst = max(worst, small_check_quantised(device))
+    worst = max(worst, small_check_cmap(device))
     nkernels = (len(KERNELS) + len(SPMM_KERNELS) + len(DESC_SPMM_KERNELS)
                 + 2)
     print(f"small check: {nkernels} kernels: {nkernels - 2} x "
@@ -1062,10 +1108,11 @@ def sparse_csr(csr, device, values=None, dtype=np.float32):
             size=csr.shape, device=device)
 
 
-def kernel_call(name, plan, x, **extra):
+def kernel_call(name, plan, x, values=None, **extra):
     """A call of kernel ``name``'s wrapper on the plan's arrays (an int8
-    plan's ``value_scale`` too) and x (``extra``: the wrapper's own
-    keywords, e.g. ``split``)."""
+    plan's ``value_scale`` too; ``values`` in place of the plan's where
+    given) and x (``extra``: the wrapper's own keywords, e.g. ``split`` or
+    ``col_map``)."""
     from repro_torch.core.plan import _plan_scale
     from repro_torch.kernels import spc5_spmm as KM
     from repro_torch.kernels import spc5_spmm_desc as KDM
@@ -1076,12 +1123,13 @@ def kernel_call(name, plan, x, **extra):
     fn = getattr(module, name)
     args = ((plan.chunk_vbase, plan.chunk_xbase) if plan.layout == "panels"
             else (plan.chunk_vbase,))
+    vals = plan.values if values is None else values
     if plan.lowering == "descriptor":
         args += (plan.desc_valid, plan.desc_vidx, plan.desc_xcol,
-                 plan.desc_yrow, plan.values, x)
+                 plan.desc_yrow, vals, x)
     else:
         args += (plan.chunk_col, plan.chunk_mask, plan.chunk_voff,
-                 plan.chunk_row, plan.values, x)
+                 plan.chunk_row, vals, x)
     kw = dict(r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax,
               nrows=plan.nrows)
     kw.update(dict(xw=plan.xw, pr=plan.pr, ncols_pad=plan.ncols_pad)
@@ -2603,6 +2651,657 @@ def measure_test_quantised(plan, flat, f32_flat, x1, acts, lib,
     return out, multi
 
 
+# ----------------------------------------------------------------------------
+# The reorder pass: a reordered plan's column permutation in the four panel
+# descriptor kernels (column maps), on the reference's reorder matrix and on
+# the vocab layer
+# ----------------------------------------------------------------------------
+
+#: The four kernels with a column map, by the name their wrappers count
+#: their launches under: the twin without a map (the same wrapper, called
+#: without ``col_map``) and the Pallas function whose ``col_map`` path they
+#: replace.
+CMAP_KERNELS = {
+    "spmv_cuda_panels_desc_db_cmap": ("spmv_cuda_panels_desc_db",
+                                      "src/repro/kernels/spc5_spmv.py:925"),
+    "spmv_cuda_panels_desc_cmap": ("spmv_cuda_panels_desc",
+                                   "src/repro/kernels/spc5_spmv.py:824"),
+    "spmm_cuda_panels_desc_db_cmap": ("spmm_cuda_panels_desc_db",
+                                      "src/repro/kernels/spc5_spmm.py:768"),
+    "spmm_cuda_panels_desc_cmap": ("spmm_cuda_panels_desc",
+                                   "src/repro/kernels/spc5_spmm.py:654"),
+}
+CMAP_SOURCE = {"spmv": "src/repro_torch/kernels/csrc/spc5_spmv_desc.cu",
+               "spmm": "src/repro_torch/kernels/csrc/spc5_spmm_desc_cmap.cu"}
+#: Each mask wrapper and the ROADMAP queue 2 B item that ports its map: on
+#: the card a map raises before any launch.
+MASK_MAP_ITEMS = {"spmv_cuda": 1, "spmv_cuda_db": 1, "spmv_cuda_panels": 2,
+                  "spmv_cuda_panels_db": 2, "spmm_cuda": 4,
+                  "spmm_cuda_panels": 4, "spmm_cuda_panels_db": 4}
+#: The reference bench's reorder matrix class (benchmarks/bench_spmv_seq.py:
+#: 79-97, a band under a random symmetric permutation) at atmosmodd scale
+#: (about 6.5 M nonzeros), in beta(1,8), and the bench's first panel
+#: geometry.
+REORDER = dict(dim=1_000_000, band=8, fill=1.0, seed=42, block=(1, 8),
+               pr=256, xw=512, cb=64)
+#: The map kernels' aim: at most this many times the same kernel run on the
+#: same arrays against x[col_perm] with no map, timed in turns.
+CMAP_AIM = 1.10
+
+
+def cmap_check(plan, cmap, x, xs, values=None):
+    """The four map kernels on ``plan`` with map ``cmap`` against their
+    plain version: SpMV at the planned launch, S = 1 and one chunk a CTA;
+    SpMM on each X of ``xs`` at the planned launch and S = 1. Returns
+    (worst error over max|y|, calls per kernel)."""
+    from repro_torch.core import ref_spmv as R
+    from repro_torch.core.plan import _plan_scale
+    dev = plan.dev if values is None else plan.dev._replace(values=values)
+    scale = _plan_scale(plan)
+    worst, calls = 0.0, {}
+    for name, (twin, _) in CMAP_KERNELS.items():
+        spmm = name.startswith("spmm")
+        fn = R.spmm_panels_desc if spmm else R.spmv_panels_desc
+        forced = (None, 1) if spmm else (None, 1, plan.nchunks)
+        for v in (xs.values() if spmm else (x,)):
+            want = fn(dev, v, cmap, scale, pr=plan.pr, nrows=plan.nrows,
+                      ncols_pad=plan.ncols_pad)
+            for f in forced:
+                got = kernel_call(twin, plan, v, values=values, col_map=cmap,
+                                  **({} if f is None else {"split": f}))()
+                err = rel_err(got, want)
+                worst = max(worst, err)
+                calls[name] = calls.get(name, 0) + 1
+                if tuple(got.shape) != tuple(want.shape) or not err <= TOL:
+                    raise SmokeFailure(
+                        f"small check: {name} {value_label(plan)} "
+                        f"{(plan.r, plan.c)} {tuple(v.shape)} split={f}: rel "
+                        f"err {err}")
+    return worst, calls
+
+
+def reaching_int8_plan(device):
+    """An int8 panel descriptor plan (powerlaw, beta(4,8), pr = xw = 64,
+    cb 4) whose last window's 16-byte aligned span would reach past its
+    values."""
+    from repro_torch.core import formats as F
+    from repro_torch.core import matgen
+    from repro_torch.kernels import ops
+    for seed in range(40):
+        mat = F.csr_to_spc5(matgen.powerlaw(200 + 10 * seed, 5, seed=seed),
+                            4, 8)
+        plan = ops.prepare(mat, layout="panels", lowering="descriptor",
+                           vdtype="int8", tune=False, device=device, pr=64,
+                           xw=64, cb=4)
+        if spans_past_values(plan):
+            return plan
+    raise SmokeFailure("small check: no int8 plan's last span reaches past "
+                       "its values")
+
+
+def small_check_cmap(device) -> float:
+    """The four map kernels at f32, bf16 and int8 on every block shape
+    (302 x 700 in panels of 64 rows and windows of 64 columns, cb 4: 700 %
+    64 != 0, so the last windows reach columns at or past ncols), each with
+    a random permutation as its map: SpMV at its planned launch, S = 1 and
+    one chunk a CTA, SpMM at nvec 3, 16 and 128 at its planned launch and S
+    = 1; an int8 plan whose last span would reach past its values, copied
+    into a tensor of exactly their length; each counted once a call under
+    its own name. Then each of the seven mask wrappers must refuse a map on
+    the card, naming its ROADMAP queue 2 B item, before any launch. Returns
+    the worst error over max|y|."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import ops
+    counts = reset_all_launches()
+    worst, calls = 0.0, {}
+    for rc in F.SUPPORTED_BLOCKS:
+        rng = np.random.default_rng(5 * rc[0] + rc[1])
+        d = ((rng.random((302, 700)) < 0.05)
+             * rng.standard_normal((302, 700))).astype(np.float32)
+        mat = F.csr_to_spc5(F.csr_from_dense(d), *rc)
+        cmap = torch.from_numpy(rng.permutation(700).astype(np.int32)).to(
+            device)
+        x = torch.from_numpy(rng.standard_normal(700).astype(
+            np.float32)).to(device)
+        xs = {n: torch.from_numpy(rng.standard_normal((700, n)).astype(
+            np.float32)).to(device) for n in (3, 16, 128)}
+        for vdtype in ("f32", *VDTYPES):
+            plan = ops.prepare(mat, layout="panels", lowering="descriptor",
+                               vdtype=vdtype, tune=False, device=device,
+                               pr=64, xw=64, cb=4)
+            if plan.ncols % plan.xw == 0 or plan.ncols_pad <= plan.ncols:
+                raise SmokeFailure(f"small check: {rc} windows stay inside "
+                                   f"ncols ({plan.ncols}, {plan.xw})")
+            err, n = cmap_check(plan, cmap, x, xs)
+            worst = max(worst, err)
+            for k, v in n.items():
+                calls[k] = calls.get(k, 0) + v
+    plan = reaching_int8_plan(device)
+    rng = np.random.default_rng(3)
+    exact = torch.empty(plan.values.numel(), dtype=plan.values.dtype,
+                        device=device)
+    exact.copy_(plan.values)
+    cmap = torch.from_numpy(rng.permutation(plan.ncols).astype(
+        np.int32)).to(device)
+    x = torch.from_numpy(rng.standard_normal(plan.ncols).astype(
+        np.float32)).to(device)
+    xs = {16: torch.from_numpy(rng.standard_normal((plan.ncols, 16)).astype(
+        np.float32)).to(device)}
+    err, n = cmap_check(plan, cmap, x, xs, values=exact)
+    worst = max(worst, err)
+    for k, v in n.items():
+        calls[k] = calls.get(k, 0) + v
+    launches = counts()
+    for name in CMAP_KERNELS:
+        if launches[name] != calls[name]:
+            raise SmokeFailure(f"small check: {name} counted "
+                               f"{launches[name]} launches for {calls[name]} "
+                               f"calls")
+    others = {k: v for k, v in launches.items() if v and k not in calls}
+    if others:
+        raise SmokeFailure(f"small check: the map calls counted {others}")
+    check_mask_map_refusals(device)
+    print(f"  column maps: the {len(CMAP_KERNELS)} map kernels at f32, bf16 "
+          f"and int8 x {len(F.SUPPORTED_BLOCKS)} block shapes (SpMV at the "
+          f"planned launch, S = 1, one chunk a CTA; SpMM nvec 3, 16, 128 at "
+          f"the planned launch and S = 1), windows past ncols, an int8 plan "
+          f"whose last span would reach past its exact-length values; "
+          f"launches {calls}; the {len(MASK_MAP_ITEMS)} mask wrappers refuse "
+          f"a map on the card; worst {worst:.3g} of max|y|")
+    return worst
+
+
+def check_mask_map_refusals(device) -> None:
+    """Each mask wrapper, given a map on the card, raises
+    ``NotImplementedError`` naming its ROADMAP queue 2 B item, and counts no
+    launch."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(9)
+    d = ((rng.random((302, 260)) < 0.08)
+         * rng.standard_normal((302, 260))).astype(np.float32)
+    mat = F.csr_to_spc5(F.csr_from_dense(d), 2, 4)
+    cmap = torch.from_numpy(rng.permutation(260).astype(np.int32)).to(device)
+    counts = reset_all_launches()
+    for name, item in MASK_MAP_ITEMS.items():
+        layout = "panels" if "panels" in name else "whole_vector"
+        plan = ops.prepare(mat, layout=layout, lowering="mask", tune=False,
+                           device=device, **SMALL_GEOM[layout])
+        shape = (260, 16) if name.startswith("spmm") else (260,)
+        x = torch.zeros(shape, dtype=torch.float32, device=device)
+        try:
+            kernel_call(name, plan, x, col_map=cmap)()
+        except NotImplementedError as e:
+            if f"ROADMAP queue 2 B, item {item}" not in str(e):
+                raise SmokeFailure(f"{name}: a map raised {e!r}, naming no "
+                                   f"queue 2 B item {item}") from None
+        else:
+            raise SmokeFailure(f"{name} took a column map on the card")
+    launched = {k: v for k, v in counts().items() if v}
+    if launched:
+        raise SmokeFailure(f"the mask wrappers' refusals launched {launched}")
+
+
+def map_bound(plan, nnz, nvec=1):
+    """A map kernel's bound: :func:`bound`'s bytes with the map's 4 * ncols
+    bytes counted once. Returns (ms, "bytes" | "operations", bytes)."""
+    _, _, nbytes = bound(plan, nnz, nvec)
+    nbytes += 4 * plan.ncols
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * nnz * nvec / F32_FLOP_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def in_turns(plan, name, v, timer=cuda_time_ms):
+    """Map kernel ``name`` on ``plan`` (its kept col_perm as the map) and
+    its twin on the same arrays against x[col_perm] with no map, timed in
+    turns (map, no map, no map, map): the same arithmetic, so the ratio is
+    the map's cost. Returns {"ms", "no_map_ms", "ratio"}."""
+    twin = CMAP_KERNELS[name][0]
+    cmap = plan.col_perm
+    xg = v.index_select(0, cmap).contiguous()
+    t = {"map": [], "none": []}
+    for which in ("map", "none", "none", "map"):
+        print(f"  timing {name} ({'map' if which == 'map' else 'no map, '
+                                 'x[col_perm]'})")
+        fn = (kernel_call(twin, plan, v, col_map=cmap) if which == "map"
+              else kernel_call(twin, plan, xg))
+        t[which].append(timer(fn, v.device))
+    ms, none_ms = float(np.mean(t["map"])), float(np.mean(t["none"]))
+    return {"ms": ms, "no_map_ms": none_ms, "ratio": ms / none_ms}
+
+
+def make_band():
+    """:data:`REORDER`'s matrix and its beta(1,8) conversion."""
+    from repro_torch.core import formats as F
+    from repro_torch.core import matgen
+    t0 = time.perf_counter()
+    csr = matgen.scrambled_banded(REORDER["dim"], REORDER["band"],
+                                  REORDER["fill"], seed=REORDER["seed"])
+    t1 = time.perf_counter()
+    mat = F.csr_to_spc5(csr, *REORDER["block"])
+    print(f"reorder matrix: scrambled_banded({REORDER['dim']}, "
+          f"{REORDER['band']}, {REORDER['fill']}, seed={REORDER['seed']}): "
+          f"{csr.nnz} nnz -> beta{REORDER['block']}, {mat.nblocks} blocks "
+          f"(host: generate {t1 - t0:.1f} s, csr_to_spc5 "
+          f"{time.perf_counter() - t1:.1f} s)")
+    return csr, mat
+
+
+def build_band_plans(mat, device):
+    """The reordered plan ``ops.prepare(mat, layout="panels", pr=256,
+    xw=512, cb=64, tune=False, reorder="rcm")``, which must be panels +
+    descriptor with col_perm and row_iperm kept and fewer chunks than the
+    original order, and the unreordered plan beside it: whole-vector +
+    descriptor (the original order's panel plan at this geometry pads every
+    panel to the largest panel's count of chunks, each about one block in
+    this scattered structure: far past the card; the stats say how many)."""
+    from repro_torch.kernels import ops
+    geom = {k: REORDER[k] for k in ("pr", "xw", "cb")}
+    t0 = time.perf_counter()
+    plan = ops.prepare(mat, layout="panels", tune=False, reorder="rcm",
+                       device=device, **geom)
+    t1 = time.perf_counter()
+    trace = {e["pass"]: e for e in plan.trace}
+    print(f"reordered plan: prepare {t1 - t0:.1f} s (host reorder pass "
+          f"{trace['reorder']['duration_s']:.1f} s, build "
+          f"{trace['build']['duration_s']:.1f} s); reorder entry "
+          f"{json.dumps(trace['reorder'], sort_keys=True)}")
+    if plan.lowering != "descriptor":
+        print(f"  the reordered plan resolved to {plan.layout} + "
+              f"{plan.lowering}; rebuilt with lowering='descriptor'")
+        plan = ops.prepare(mat, layout="panels", lowering="descriptor",
+                           tune=False, reorder="rcm", device=device, **geom)
+    stats = plan.stats
+    got = (plan.layout, plan.lowering, plan.strategy,
+           plan.col_perm is not None, plan.row_iperm is not None,
+           plan.rows_fused)
+    if got != ("panels", "descriptor", "rcm", True, True, False):
+        raise SmokeFailure(f"the reordered plan is {got}")
+    if not stats["nchunks_post"] < stats["nchunks_pre"]:
+        raise SmokeFailure(f"RCM did not cut the chunks: {stats}")
+    npanels = plan.npanels
+    print(f"  chunks: {stats['nchunks_pre']:.0f} in the original order "
+          f"({stats['nchunks_pre'] / npanels:.1f} a panel over {npanels} "
+          f"panels), {stats['nchunks_post']:.0f} after RCM "
+          f"({stats['nchunks_post'] / npanels:.1f} a panel; the plan pads "
+          f"to {plan.nchunks}); bandwidth {stats['bw_pre']:.1f} -> "
+          f"{stats['bw_post']:.1f}")
+    print_spmm_plan("reordered band panels descriptor", plan)
+    t2 = time.perf_counter()
+    base = ops.prepare(mat, layout="whole_vector", lowering="descriptor",
+                       tune=False, device=device)
+    print(f"unreordered plan: whole_vector + descriptor, prepare "
+          f"{time.perf_counter() - t2:.1f} s, "
+          f"{sum(a.numel() * a.element_size() for a in base.arrays)} bytes")
+    return plan, base, t1 - t0
+
+
+def drive_band(plan, base, device, nvecs=SPMM_NVECS):
+    """The reordered plan through ``ops``: ``ops.spmv`` with
+    ``double_buffer`` True and False, ``ops.spmm`` at each batch with both;
+    the four map kernels must have run and nothing else. Then (uncounted)
+    the unreordered plan on the same inputs. Returns the inputs, both
+    plans' outputs and the counts."""
+    import torch
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(2)
+    n = plan.ncols
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(
+        device)
+    xs = {m: torch.from_numpy(rng.standard_normal((n, m)).astype(
+        np.float32)).to(device) for m in nvecs}
+    counts = reset_all_launches()
+    ys = {("spmv", True): ops.spmv(plan, x),
+          ("spmv", False): ops.spmv(plan, x, double_buffer=False)}
+    for m, xm in xs.items():
+        for db in (True, False):
+            ys["spmm", db, m] = ops.spmm(plan, xm, double_buffer=db)
+    torch.cuda.synchronize()
+    launches = counts()
+    for name in CMAP_KERNELS:
+        if launches[name] <= 0:
+            raise SmokeFailure(f"{name} was not launched on the reordered "
+                               f"band (counts {launches})")
+    others = {k: v for k, v in launches.items()
+              if v and k not in CMAP_KERNELS}
+    if others:
+        raise SmokeFailure(f"the reordered band ran other kernels: {others}")
+    base_ys = {"spmv": ops.spmv(base, x),
+               **{("spmm", m): ops.spmm(base, xm) for m, xm in xs.items()}}
+    return x, xs, ys, base_ys, launches
+
+
+def check_band(plan, base, csr, x, xs, ys, base_ys):
+    """Every output of the reordered plan within ``TOL`` of max|y| of the
+    unreordered plan's and of the float64 CSR product (x and y in the
+    original order); each map kernel's own output (its launch uncounted)
+    against its plain version. Returns each map kernel's max|y - plain|."""
+    import torch
+    a64 = f64_matrix(csr)
+    errs = {}
+    for key, y in ys.items():
+        v = x if key[0] == "spmv" else xs[key[2]]
+        ref = base_ys["spmv" if key[0] == "spmv" else ("spmm", key[2])]
+        y64 = torch.from_numpy(a64 @ v.cpu().double().numpy())
+        e_base, e64 = rel_err(y, ref), rel_err(y, y64)
+        print(f"check reordered band {key}: vs the unreordered plan "
+              f"{e_base:.3g}, vs f64 scipy {e64:.3g} of max|y|")
+        if not (e_base <= TOL and e64 <= TOL):
+            raise SmokeFailure(f"reordered band {key} disagrees: {e_base} / "
+                               f"{e64} > {TOL}")
+    for name, (twin, _) in CMAP_KERNELS.items():
+        for v in ((x,) if name.startswith("spmv") else xs.values()):
+            got = kernel_call(twin, plan, v, col_map=plan.col_perm)()
+            plain = plain_y(plan, v)
+            err = rel_err(got, plain)
+            errs[name] = max(errs.get(name, 0.0),
+                             float((got - plain).abs().max()))
+            del plain
+            if not err <= TOL:
+                raise SmokeFailure(f"{name} on the reordered band: {err}")
+    print(f"  map kernels against their plain versions on the reordered "
+          f"band: max|y - plain| {errs}")
+    return errs
+
+
+def measure_band(plan, base, csr, x, xs, timer=cuda_time_ms):
+    """Each map kernel on the reordered band: in turns with its twin on
+    x[col_perm] (:func:`in_turns`), its bound (:func:`map_bound`), its plain
+    version and cuSPARSE on the same CSR; and the reordered and unreordered
+    SpMV through ``ops`` beside cuSPARSE. Returns {kernel: {batch:
+    numbers}} and the SpMV path's numbers."""
+    import torch
+    from repro_torch.kernels import ops
+    t = sparse_csr(csr, x.device)
+    lib = {1: timer(lambda: torch.mv(t, x), x.device)}
+    print(f"  cuSPARSE on the band, batch 1: {lib[1]:.4f} ms")
+    for m, xm in xs.items():
+        lib[m] = timer(lambda xm=xm: t @ xm, x.device)
+    out = {}
+    for name in CMAP_KERNELS:
+        for m, v in (((1, x),) if name.startswith("spmv") else xs.items()):
+            row = in_turns(plan, name, v, timer)
+            row["plain_ms"] = timer(lambda v=v: plain_y(plan, v), x.device,
+                                    reps=QUANTISED_PLAIN_REPS)
+            row["bound_ms"], row["bound_by"], row["bytes"] = map_bound(
+                plan, csr.nnz, m)
+            row["library_ms"] = lib[m]
+            print(f"time {name} band batch {m}: {row['ms']:.4f} ms, no map "
+                  f"on x[col_perm] {row['no_map_ms']:.4f} ms "
+                  f"({row['ratio']:.3f}x, aim <= {CMAP_AIM}), plain "
+                  f"{row['plain_ms']:.4f} ms, cuSPARSE {lib[m]:.4f} ms, "
+                  f"bound {row['bound_ms']:.4f} ms ({row['bytes']} bytes)")
+            out.setdefault(name, {})[m] = row
+    spmv = {"reordered_ms": timer(lambda: ops.spmv(plan, x), x.device),
+            "unreordered_ms": timer(lambda: ops.spmv(base, x), x.device),
+            "library_ms": lib[1]}
+    print(f"time band SpMV through ops: reordered (map kernel + row gather) "
+          f"{spmv['reordered_ms']:.4f} ms, unreordered whole-vector "
+          f"descriptor {spmv['unreordered_ms']:.4f} ms, cuSPARSE "
+          f"{lib[1]:.4f} ms")
+    return out, spmv
+
+
+def reorder_band(device, timer=cuda_time_ms):
+    """Phase: the reordered SpMV and SpMM on :data:`REORDER`'s matrix."""
+    csr, mat = make_band()
+    plan, base, prepare_s = build_band_plans(mat, device)
+    del mat
+    x, xs, ys, base_ys, launches = drive_band(plan, base, device)
+    print(f"launches on the reordered band: {launches}")
+    errs = check_band(plan, base, csr, x, xs, ys, base_ys)
+    del ys, base_ys
+    per, spmv = measure_band(plan, base, csr, x, xs, timer)
+    return {"launches": launches, "errs": errs, "per": per, "spmv": spmv,
+            "stats": plan.stats, "prepare_s": prepare_s}
+
+
+def panel_rows_reordering(seed=7):
+    """(3b)'s prebuilt Reordering of the vocab weight: its 125 row panels of
+    512 rows in a random order (whole panels, so the panel layout fuses the
+    rows) and a random column permutation from ``default_rng(7)``."""
+    from repro_torch.core import reorder as RE
+    rng = np.random.default_rng(seed)
+    cols = rng.permutation(VOCAB["cols"]).astype(np.int64)
+    panels = rng.permutation(VOCAB["rows"] // 512)
+    rows = (panels[:, None] * 512 + np.arange(512)).reshape(-1)
+    return RE.Reordering(rows.astype(np.int64), cols, "custom")
+
+
+def build_vocab_reordered(w, mat, device):
+    """(3a) ``SparseLinear.from_dense(w, density=0.1, nvec=128,
+    reorder="auto")``: the host reorder pass tries the three strategies on
+    the pruned weight and keeps the best, or declines; (3b) the same call
+    with :func:`panel_rows_reordering`, which must be panels + descriptor
+    with the rows fused and col_perm kept, and the same Reordering through
+    ``ops.prepare(mat, vdtype=..., nvec=128, reorder=...)`` at bf16 and
+    int8. Returns (layer a, {vdtype: layer b}, host seconds)."""
+    from repro_torch.core.sparse_linear import SparseLinear
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    auto = SparseLinear.from_dense(w, density=VOCAB["density"],
+                                   nvec=VOCAB["nvec"], reorder="auto")
+    t1 = time.perf_counter()
+    entry = next(e for e in auto.plan.trace if e["pass"] == "reorder")
+    print(f"vocab (3a) reorder='auto': from_dense {t1 - t0:.1f} s (host "
+          f"reorder pass {entry['duration_s']:.1f} s); reorder entry "
+          f"{json.dumps(entry, sort_keys=True)}; plan {auto.plan.layout} + "
+          f"{auto.plan.lowering}, col_perm kept "
+          f"{auto.plan.col_perm is not None}, row_iperm kept "
+          f"{auto.plan.row_iperm is not None}, rows_fused "
+          f"{auto.plan.rows_fused}")
+    stats = entry.get("stats", {})
+    better = ((stats.get("nchunks_post"), stats.get("bw_post"))
+              < (stats.get("nchunks_pre"), stats.get("bw_pre")))
+    if (entry["applied"] != bool(stats.get("applied"))
+            or entry["applied"] != better
+            or (entry["strategy"] == "auto") == entry["applied"]):
+        raise SmokeFailure(f"(3a)'s reorder entry is inconsistent: {entry}")
+    reo = panel_rows_reordering()
+    t2 = time.perf_counter()
+    layers = {"f32": SparseLinear.from_dense(w, density=VOCAB["density"],
+                                             nvec=VOCAB["nvec"],
+                                             reorder=reo)}
+    t3 = time.perf_counter()
+    for vdtype in VDTYPES:
+        layers[vdtype] = SparseLinear(ops.prepare(
+            mat, vdtype=vdtype, nvec=VOCAB["nvec"], reorder=reo,
+            device=device))
+    t4 = time.perf_counter()
+    for vdtype, layer in layers.items():
+        p = layer.plan
+        got = (p.layout, p.lowering, p.rows_fused, p.col_perm is not None,
+               p.row_iperm is None, p.strategy, value_label(p))
+        if got != ("panels", "descriptor", True, True, True, "custom",
+                   vdtype):
+            raise SmokeFailure(f"(3b) {vdtype} plan is {got}")
+    print(f"vocab (3b) prebuilt Reordering (whole 512-row panels, columns by "
+          f"default_rng(7)): from_dense {t3 - t2:.1f} s, bf16 and int8 "
+          f"prepare {t4 - t3:.1f} s; panels + descriptor, rows fused, "
+          f"col_perm kept")
+    print_spmm_plan("vocab (3b) f32", layers["f32"].plan)
+    return auto, layers, {"a_s": t1 - t0, "b_s": t4 - t2,
+                          "a_reorder_s": entry["duration_s"]}
+
+
+def drive_vocab_reordered(auto, layers, acts, device):
+    """(3a)'s forwards at batch 1, 16 and 128 (counted alone), then (3b)'s
+    at every width: the forward at each batch and ``ops.spmv`` /
+    ``ops.spmm(double_buffer=False)``, so all four map kernels run at each
+    width; (3b)'s counts hold the map kernels and nothing else. Returns
+    (3a)'s outputs and counts, (3b)'s outputs and counts."""
+    import torch
+    from repro_torch.kernels import ops
+    x1 = acts[SPMM_NVECS[0]][0].contiguous()
+    counts = reset_all_launches()
+    ya = {1: auto(x1), **{n: auto(a).t() for n, a in acts.items()}}
+    torch.cuda.synchronize()
+    la = counts()
+    counts = reset_all_launches()
+    yb = {}
+    for vdtype, layer in layers.items():
+        yb[vdtype, "spmv_cuda_panels_desc_db_cmap", 1] = layer(x1)
+        yb[vdtype, "spmv_cuda_panels_desc_cmap", 1] = ops.spmv(
+            layer.plan, x1, double_buffer=False)
+        for n, a in acts.items():
+            yb[vdtype, "spmm_cuda_panels_desc_db_cmap", n] = layer(a).t()
+            yb[vdtype, "spmm_cuda_panels_desc_cmap", n] = ops.spmm(
+                layer.plan, a.t().contiguous(), double_buffer=False)
+    torch.cuda.synchronize()
+    lb = counts()
+    for name in CMAP_KERNELS:
+        # each width: one SpMV a kernel, one SpMM a kernel and batch
+        want = len(layers) * (len(acts) if name.startswith("spmm") else 1)
+        if lb[name] != want:
+            raise SmokeFailure(f"(3b) launched {name} {lb[name]} times, not "
+                               f"{want} ({lb})")
+    others = {k: v for k, v in lb.items() if v and k not in CMAP_KERNELS}
+    if others:
+        raise SmokeFailure(f"(3b) ran other kernels: {others}")
+    return ya, la, yb, lb
+
+
+def check_vocab_reordered(auto, layers, ya, yb, default, qlayers, acts, csr):
+    """(3a): every output within ``TOL`` of max|y| of the unreordered
+    default layer's. (3b): f32 and bf16 outputs within ``TOL`` of the
+    unreordered layer of the same width (bf16 values do not depend on the
+    chunking; int8 scales do, one a chunk, and the column permutation
+    regroups the chunks, so int8 is held to the pins only), every width
+    against its plain version, the f64 dequantised product and, at bf16 /
+    int8, ``tests/test_vdtype.py``'s pins of the f32 weight's f64 product
+    (:func:`check_quantised_y`); f32 also against the f64 product. Returns
+    each map kernel's max|y - plain| by width and the pins used."""
+    import torch
+    x1 = acts[SPMM_NVECS[0]][0].contiguous()
+    xs = {1: x1, **{n: a.t().contiguous() for n, a in acts.items()}}
+    refs = {}
+    for n, y in ya.items():
+        ref = default(x1) if n == 1 else default(acts[n]).t()
+        err = rel_err(y, ref)
+        refs["f32", n] = ref
+        print(f"check (3a) batch {n}: vs the unreordered default layer "
+              f"{err:.3g} of max|y|")
+        if not err <= TOL:
+            raise SmokeFailure(f"(3a) batch {n} disagrees with the default "
+                               f"layer: {err}")
+    _, qrefs, smax = quantised_refs(csr, acts)
+    a64 = f64_matrix(csr)
+    errs, pins = {}, {}
+    for (vdtype, name, n), y in yb.items():
+        plan = layers[vdtype].plan
+        x = xs[n]
+        if vdtype == "f32":
+            base = refs.get(("f32", n))
+        else:
+            q = qlayers[vdtype]["panels", "descriptor"]
+            base = q(x1) if n == 1 else q(acts[n]).t()
+        e_base = rel_err(y, base)
+        if vdtype == "f32":
+            plain = plain_y(plan, x)
+            err = float((y - plain).abs().max())
+            e_plain = rel_err(y, plain)
+            del plain
+            e64 = rel_err(y, torch.from_numpy(a64 @ x.cpu().double()
+                                              .numpy()))
+            print(f"check {name} f32 batch {n} (vocab (3b)): max|y - plain| "
+                  f"= {err:.3g} ({e_plain:.3g} of max|y|), vs f64 scipy "
+                  f"{e64:.3g} of max|y|")
+            if not (e_plain <= TOL and e64 <= TOL):
+                raise SmokeFailure(f"(3b) {name} f32 batch {n} disagrees: "
+                                   f"{e_plain} / {e64} > {TOL}")
+            used = 0.0
+        else:
+            err, used = check_quantised_y(name, vdtype, plan, y, x, qrefs[n],
+                                          smax, "vocab (3b)")
+        print(f"  (3b) {name} {vdtype} batch {n}: vs the unreordered "
+              f"{vdtype} layer {e_base:.3g} of max|y|")
+        if vdtype != "int8" and not e_base <= TOL:
+            raise SmokeFailure(f"(3b) {name} {vdtype} batch {n} disagrees "
+                               f"with the unreordered layer: {e_base}")
+        errs.setdefault(name, {})[vdtype] = max(
+            errs.get(name, {}).get(vdtype, 0.0), err)
+        pins[vdtype] = max(pins.get(vdtype, 0.0), used)
+    return errs, pins
+
+
+def measure_vocab_reordered(layers, acts, csr, library, timer=cuda_time_ms):
+    """Each map kernel on (3b) at every width, in turns with its twin on
+    x[col_perm] with no map (:func:`in_turns`), beside its bound
+    (:func:`map_bound`), its plain version (f32) and cuSPARSE on the f32
+    weight (``library``, {batch: ms}). Returns {kernel: {vdtype: {batch:
+    numbers}}}."""
+    x1 = acts[SPMM_NVECS[0]][0].contiguous()
+    xs = {1: x1, **{n: a.t().contiguous() for n, a in acts.items()}}
+    out = {}
+    for name in CMAP_KERNELS:
+        spmm = name.startswith("spmm")
+        for vdtype, layer in layers.items():
+            plan = layer.plan
+            for n, v in xs.items():
+                if (n > 1) != spmm:
+                    continue
+                row = in_turns(plan, name, v, timer)
+                if vdtype == "f32":
+                    row["plain_ms"] = timer(lambda v=v: plain_y(plan, v),
+                                            v.device,
+                                            reps=QUANTISED_PLAIN_REPS)
+                row["bound_ms"], row["bound_by"], row["bytes"] = map_bound(
+                    plan, csr.nnz, n)
+                row["library_ms"] = library[n]
+                print(f"time {name} vocab (3b) {vdtype} batch {n}: "
+                      f"{row['ms']:.4f} ms, no map on x[col_perm] "
+                      f"{row['no_map_ms']:.4f} ms ({row['ratio']:.3f}x, aim "
+                      f"<= {CMAP_AIM}), bound {row['bound_ms']:.4f} ms")
+                out.setdefault(name, {}).setdefault(vdtype, {})[n] = row
+    return out
+
+
+def vocab_reordered(w, mat, default, qlayers, acts, csr, library, device,
+                    timer=cuda_time_ms):
+    """Phase: the vocab layer reordered, (3a) and (3b)."""
+    auto, layers, host = build_vocab_reordered(w, mat, device)
+    ya, la, yb, lb = drive_vocab_reordered(auto, layers, acts, device)
+    print(f"launches on the vocab (3a) path: "
+          f"{ {k: v for k, v in la.items() if v} }; (3b): "
+          f"{ {k: v for k, v in lb.items() if v} }")
+    errs, pins = check_vocab_reordered(auto, layers, ya, yb, default,
+                                       qlayers, acts, csr)
+    del ya, yb, auto
+    per = measure_vocab_reordered(layers, acts, csr, library, timer)
+    return {"launches": lb, "launches_a": la, "errs": errs, "pins": pins,
+            "per": per, "host": host}
+
+
+def cmap_rows(band, vocab):
+    """The four map kernels' rows of the ``kernels`` line: the band's
+    numbers in the main keys (SpMV batch 1, SpMM nvec 128), every batch of
+    the band and of (3b) at f32 / bf16 / int8 beside."""
+    rows = []
+    for name, (twin, replaces) in CMAP_KERNELS.items():
+        spmm = name.startswith("spmm")
+        main = band["per"][name][VOCAB["nvec"] if spmm else 1]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": CMAP_SOURCE["spmm" if spmm else "spmv"],
+            "replaces": replaces,
+            "launches": band["launches"][name] + vocab["launches"][name],
+            "max_abs_err": max([band["errs"][name],
+                                *vocab["errs"][name].values()]),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "twin": twin,
+            "no_map_ms": main["no_map_ms"], "vs_no_map": main["ratio"],
+            "value_dtypes": ["f32", *VDTYPES],
+            "band": {f"batch_{n}": r for n, r in band["per"][name].items()},
+            "vocab_3b": {v: {f"batch_{n}": r for n, r in per.items()}
+                         for v, per in vocab["per"][name].items()}})
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2631,10 +3330,12 @@ def main() -> int:
         check_fem_spmm(plans, csr, device)
         rows = measure(plans, x, csr, launches, errs)
         del plans, ys
+        t_band = time.perf_counter()
+        band = reorder_band(device)
+        print(f"phase reordered band: {time.perf_counter() - t_band:.1f} s")
         w, vcsr, vmat = make_vocab()
         layers = build_layers(w, vmat, device)
         test_layer = build_test_layer(w, device)
-        del w
         rng = np.random.default_rng(1)
         acts = {n: torch.from_numpy(rng.standard_normal(
             (n, VOCAB["cols"])).astype(np.float32)).to(device)
@@ -2658,7 +3359,14 @@ def main() -> int:
         qlib = quantised_library(vcsr, acts, {
             1: batch1["spmv_cuda_panels_desc_db"]["library_ms"], **library})
         qper = measure_quantised(qlayers, layers, acts, vcsr, qlib)
-        del qlayers
+        t_vreo = time.perf_counter()
+        vreo = vocab_reordered(
+            w, vmat, layers["panels", "descriptor"], qlayers, acts, vcsr,
+            {1: batch1["spmv_cuda_panels_desc_db"]["library_ms"], **library},
+            device)
+        print(f"phase reordered vocab layer: "
+              f"{time.perf_counter() - t_vreo:.1f} s")
+        del qlayers, w
         tplan = build_token_plan(vmat, device)
         x1 = acts[SPMM_NVECS[0]][0].contiguous()
         tys, tlaunches = drive_token(tplan, x1, acts, device)
@@ -2713,6 +3421,7 @@ def main() -> int:
                     "flat_multi_spmv" + ("" if row["name"].endswith("_db")
                                          else "_s1")]
         rows += [tail_row, spmm_tail_row]
+        rows += cmap_rows(band, vreo)
         tail_lib = {1: tail_row["library_ms"],
                     **{n: (spmm_tail_row if n == VOCAB["nvec"]
                            else spmm_tail_row[f"nvec_{n}"])["library_ms"]

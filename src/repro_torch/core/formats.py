@@ -2,7 +2,9 @@
 
 A numpy copy of the reference package's ``repro.core.formats``, cut to what
 the port's paths use: CSR, the beta(r,c) format, the CSR -> beta(r,c)
-conversion, the two chunked device layouts, the descriptor lowering's
+conversion and its inverse (:func:`spc5_to_coo`, :func:`spc5_to_csr`), the
+two chunked device layouts and the panel layout's chunk count the reorder
+pass scores with (:func:`count_panel_chunks`), the descriptor lowering's
 byte models and tables (:func:`chunk_descriptors`) and the beta(r,c)_test
 split (:func:`split_singletons`). The builders are
 kept line for line, so both packages produce the same bytes from the same
@@ -238,12 +240,17 @@ def csr_from_coo(shape: Tuple[int, int], rows: np.ndarray, cols: np.ndarray,
     nrows, ncols = shape
     order = np.lexsort((cols, rows))
     rows, cols, vals = rows[order], cols[order], vals[order]
-    # collapse duplicates
+    # collapse duplicates (the keys are sorted: a neighbour comparison finds
+    # them, as np.unique would, without its cost on the chip's host)
     if rows.shape[0]:
         key = rows.astype(np.int64) * ncols + cols.astype(np.int64)
-        uniq, inv = np.unique(key, return_inverse=True)
-        summed = np.zeros(uniq.shape[0], dtype=vals.dtype)
-        np.add.at(summed, inv, vals)
+        uniq, inv = _sorted_unique(key, return_inverse=True)
+        if uniq.shape[0] == key.shape[0]:
+            # no duplicates: the sum into zeros, which turns -0.0 into 0.0
+            summed = vals + vals.dtype.type(0)
+        else:
+            summed = np.zeros(uniq.shape[0], dtype=vals.dtype)
+            np.add.at(summed, inv, vals)
         rows = (uniq // ncols).astype(np.int64)
         cols = (uniq % ncols).astype(np.int32)
         vals = summed
@@ -313,12 +320,23 @@ def csr_to_spc5(csr: CSRMatrix, r: int, c: int) -> SPC5Matrix:
     converted at once (:func:`_greedy_opens`); the bytes are those of the
     reference's interval-by-interval loop.
     """
+    rows, cols, _, _ = _interval_keys(csr, r, c)
+    return coo_to_spc5(csr.shape, rows, cols, csr.values[:rows.shape[0]], r,
+                       c)
+
+
+def coo_to_spc5(shape: Tuple[int, int], rows: np.ndarray, cols: np.ndarray,
+                vals: np.ndarray, r: int, c: int) -> SPC5Matrix:
+    """beta(r, c) of the distinct nonzeros at (rows, cols) (int64, in any
+    order) holding ``vals``: what :func:`csr_to_spc5` makes of their CSR,
+    without building it (the blocks, their masks and the values' order
+    depend only on the positions)."""
     if r * c > 32:
         raise ValueError(f"mask must fit uint32, got r*c={r*c}")
-    nrows, ncols = csr.shape
+    nrows, ncols = shape
     n_intervals = -(-nrows // r)
-    rows, cols, keys, span = _interval_keys(csr, r, c)
-    vals = csr.values[:rows.shape[0]]
+    span = ncols + c
+    keys = (rows // r) * span + cols
     ukeys, inv = _sorted_unique(keys, return_inverse=True)
     opens = _greedy_opens(ukeys, c, span)
     starts = ukeys[opens]                      # block keys, in block order
@@ -342,6 +360,39 @@ def csr_to_spc5(csr: CSRMatrix, r: int, c: int) -> SPC5Matrix:
                else np.zeros(0, np.int64))
     return SPC5Matrix((nrows, ncols), r, c, rowptr, start_col.astype(np.int32),
                       masks, voffset.astype(np.int64), vals[order])
+
+
+def spc5_to_coo(mat: SPC5Matrix) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Decode beta(r,c) back to COO triplets (int64 rows and columns, a copy
+    of the values), vectorised: values lie in block order, row-major inside
+    each block, which is ``np.nonzero``'s order over the (nblocks, r*c) bit
+    matrix, so ``mat.values`` maps one to one onto the decoded pairs."""
+    r, c = mat.r, mat.c
+    if mat.nblocks == 0:
+        return (np.zeros(0, np.int64), np.zeros(0, np.int64),
+                np.zeros(0, mat.values.dtype))
+    n_intervals = mat.block_rowptr.shape[0] - 1
+    interval_of_block = np.repeat(
+        np.arange(n_intervals, dtype=np.int64), np.diff(mat.block_rowptr))
+    k = np.arange(r * c, dtype=np.uint32)
+    bits = ((mat.block_masks[:, None] >> k[None, :]) & np.uint32(1)) != 0
+    b_idx, k_idx = np.nonzero(bits)          # block-major, bit-ascending
+    rows = interval_of_block[b_idx] * r + k_idx // c
+    cols = mat.block_colidx[b_idx].astype(np.int64) + k_idx % c
+    return rows, cols, mat.values.copy()
+
+
+def spc5_to_csr(mat: SPC5Matrix) -> CSRMatrix:
+    """The exact inverse of :func:`csr_to_spc5`, through
+    :func:`spc5_to_coo`."""
+    rows, cols, vals = spc5_to_coo(mat)
+    return csr_from_coo(mat.shape, rows, cols, vals)
+
+
+def as_csr(m) -> CSRMatrix:
+    """A CSRMatrix or an SPC5Matrix as CSR (the structure and reorder
+    modules take either)."""
+    return spc5_to_csr(m) if isinstance(m, SPC5Matrix) else m
 
 
 def beta_breakeven_avg(r: int, c: int, s_int: int = 4) -> float:
@@ -649,6 +700,17 @@ def _panel_chunk_plan(mat: SPC5Matrix, pr: int, cb: int, xw: int,
         panels.append((order, np.asarray(starts, dtype=np.int64),
                        np.asarray(xbases, dtype=np.int64), nb))
     return panels, pr, xw, npanels
+
+
+def count_panel_chunks(mat: SPC5Matrix, pr: int = 512, cb: int = 64,
+                       xw: int = 512, align: int = 8) -> np.ndarray:
+    """Chunks of each panel of the (pr, cb, xw) panel layout, int64
+    (npanels,): pass 1 of :func:`to_panels` only, so the reorder strategies
+    can score a permutation by it (each chunk is one value window and one x
+    window to stage)."""
+    panels, _, _, npanels = _panel_chunk_plan(mat, pr, cb, xw, align)
+    return np.asarray([0 if pp is None else len(pp[1]) for pp in panels],
+                      dtype=np.int64)
 
 
 def to_panels(mat: SPC5Matrix, pr: int = 512, cb: int = 64, xw: int = 512,

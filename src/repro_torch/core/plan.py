@@ -12,18 +12,24 @@ slices ported so far:
     time).
   * **Plan** (:class:`SPC5Plan`): a frozen dataclass holding the layout's
     tensors (all on one device), its sub-plans (the ``test`` split's
-    multi-block plan), the geometry as ``meta`` and the pass ``trace``.
-    Geometry keys and array names (per lowering) resolve as attributes.
+    multi-block plan), the permutations a reorder pass left on it
+    (``col_perm``, ``row_iperm``, ``rows_fused``), the geometry as ``meta``
+    and the pass ``trace``. Geometry keys and array names (per lowering)
+    resolve as attributes.
   * **Passes** (:func:`make_plan`): tune -> reorder -> layout -> build, each
     appending a ``duration_s``-stamped entry to ``plan.trace`` with the
-    reference's keys.
+    reference's keys. The reorder pass (:mod:`repro_torch.core.reorder`)
+    permutes the matrix before the layout is built; the builds fold what
+    they can of the permutations into their index arrays.
   * **Executors** (:func:`execute_spmv`, :func:`execute_spmm`): the only
-    place that dispatches on the layout key.
+    place that dispatches on the layout key. x and y are in the original
+    order: a lowering gathers x by ``col_perm`` (or passes it to the kernel
+    as its column map) and the executor gathers y by ``row_iperm``.
 
 Values are stored as f32, bf16 or int8 (the value-dtype axis, ``vdtype``;
 int8 plans carry one f32 scale a chunk, ``value_scale``). Not ported yet
-(each raises ``NotImplementedError``): reordering and the record-store
-tuner (ROADMAP queue 1).
+(each raises ``NotImplementedError``): the record-store tuner and the
+static plan verifier (ROADMAP queue 1, items 6 and 7).
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ from repro_torch.kernels import (spc5_spmm, spc5_spmm_desc, spc5_spmv,
 
 from . import formats as F
 from . import ref_spmv as R
+from . import reorder as RE
 
 LAYOUT_WHOLE = "whole_vector"
 LAYOUT_PANELS = "panels"
@@ -65,12 +72,10 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported to repro_torch yet (ROADMAP queue 1, {item})")
 
 
-def refuse_unported(reorder=None, store=None, verify=False) -> None:
-    """The reference's ``reorder``, ``store`` and ``verify`` keywords: their
-    defaults pass, any other value raises ``NotImplementedError`` naming
-    its ROADMAP item (reordering 5, the record store 6, the verifier 7)."""
-    if reorder is not None:
-        raise _not_ported("reordering", "item 5")
+def refuse_unported(store=None, verify=False) -> None:
+    """The reference's ``store`` and ``verify`` keywords: their defaults
+    pass, any other value raises ``NotImplementedError`` naming its ROADMAP
+    item (the record store 6, the verifier 7)."""
     if store is not None:
         raise _not_ported("a record store (selector-driven block choice and "
                           "tuning)", "item 6")
@@ -238,12 +243,21 @@ def _meta_vdtype(meta) -> str:
 @dataclasses.dataclass(frozen=True)
 class SPC5Plan:
     """Layout key + the layout's tensors (one device) + geometry + the
-    sub-plans (``children``) + trace."""
+    sub-plans (``children``) + the permutations of a reordered plan + trace.
+
+    ``col_perm`` (int32, (ncols,)) is the column permutation the lowering
+    gathers x by, None where there is none or the build folded it into its
+    tables; ``row_iperm`` (int32, (nrows,)) the inverse row permutation the
+    executor gathers y by, None where there is none or the build folded it
+    into its scatter indices (``rows_fused``)."""
 
     layout: str
     arrays: Tuple[torch.Tensor, ...]
     meta: Tuple[Tuple[str, Any], ...]
     children: Tuple["SPC5Plan", ...] = ()
+    col_perm: Optional[torch.Tensor] = None
+    row_iperm: Optional[torch.Tensor] = None
+    rows_fused: bool = False
     trace_json: str = "[]"
 
     def __getattr__(self, name):
@@ -291,6 +305,28 @@ class SPC5Plan:
     def trace(self) -> List[dict]:
         return json.loads(self.trace_json)
 
+    @property
+    def is_reordered(self) -> bool:
+        """True where a reorder pass permuted this plan."""
+        return (self.col_perm is not None or self.row_iperm is not None
+                or self.rows_fused)
+
+    @property
+    def strategy(self) -> str:
+        """The reorder strategy applied ("" where none was)."""
+        for e in self.trace:
+            if e.get("pass") == "reorder" and e.get("applied"):
+                return e.get("strategy", "")
+        return ""
+
+    @property
+    def stats(self) -> dict:
+        """The reorder pass's scalar evidence ({} without one)."""
+        for e in self.trace:
+            if e.get("pass") == "reorder" and "stats" in e:
+                return e["stats"]
+        return {}
+
     def apply(self, x: torch.Tensor, **kw) -> torch.Tensor:
         """y = A @ x: :func:`execute_spmv` for a 1-D x, :func:`execute_spmm`
         for a 2-D X, as in the reference."""
@@ -316,6 +352,9 @@ class PlanState:
     vdtype: str = "auto"
     tune: bool = True
     dtype: Any = None
+    reorder: Any = None             # strategy name or Reordering (request)
+    reo: Optional[RE.Reordering] = None     # the applied reordering
+    rows_fusible: bool = False
     trace: List[dict] = dataclasses.field(default_factory=list)
 
     @property
@@ -341,8 +380,53 @@ def _tune_pass(st: PlanState) -> None:
     st.trace.append({"pass": "tune", "source": source})
 
 
+def _scalar_stats(stats: dict) -> dict:
+    return {k: v for k, v in stats.items()
+            if isinstance(v, (int, float, str, bool))}
+
+
+def as_reordering(reo) -> RE.Reordering:
+    """The port's :class:`~repro_torch.core.reorder.Reordering`, or another
+    package's read by attribute (``row_perm``, ``col_perm``, ``strategy``,
+    ``stats``), e.g. the reference's, with no import of that package."""
+    if isinstance(reo, RE.Reordering):
+        return reo
+    return RE.Reordering(np.asarray(reo.row_perm, dtype=np.int64),
+                         np.asarray(reo.col_perm, dtype=np.int64),
+                         strategy=str(getattr(reo, "strategy", "none")),
+                         stats=dict(getattr(reo, "stats", {}) or {}))
+
+
 def _reorder_pass(st: PlanState) -> None:
-    st.trace.append({"pass": "reorder", "strategy": "", "applied": False})
+    """The permutation transform, as in the reference: resolve the
+    ``reorder`` request (a strategy name is built and scored at the
+    geometry in effect, and may decline; a Reordering is taken as it is),
+    permute the matrix and record whether the whole-vector build can fold
+    the inverse row permutation into ``chunk_row`` (``rows_fusible``)."""
+    entry: dict = {"pass": "reorder", "strategy": "", "applied": False}
+    reo = st.reorder
+    if reo is not None and not isinstance(reo, str):
+        reo = as_reordering(reo)
+        if (reo.nrows, reo.ncols) != st.mat.shape:
+            raise ValueError(
+                f"reordering is for shape {(reo.nrows, reo.ncols)}, "
+                f"matrix is {st.mat.shape}")
+    elif reo is not None:
+        reo = RE.reorder(st.mat, str(reo), r=st.mat.r, c=st.mat.c,
+                         pr=512 if st.pr is None else st.pr,
+                         xw=512 if st.xw is None else st.xw,
+                         cb=st.cb if st.cb else 64, align=st.align)
+    if reo is not None and not reo.is_identity:
+        st.mat = reo.permute_spc5(st.mat)
+        st.reo = reo
+        st.rows_fusible = (not reo.identity_rows
+                           and reo.rows_interval_contiguous(st.mat.r))
+        entry.update(strategy=reo.strategy, applied=True,
+                     rows_fusible=st.rows_fusible,
+                     stats=_scalar_stats(reo.stats))
+    elif reo is not None:               # declined, or an explicit identity
+        entry.update(strategy=reo.strategy, stats=_scalar_stats(reo.stats))
+    st.trace.append(entry)
 
 
 def _layout_pass(st: PlanState) -> None:
@@ -385,18 +469,37 @@ def _layout_pass(st: PlanState) -> None:
     st.trace.append(entry)
 
 
+def _perm_tensor(perm, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(perm, dtype=np.int32)).to(device)
+
+
 def _build_pass(st: PlanState) -> SPC5Plan:
+    """The layout's build, then the permutations attached, as in the
+    reference: ``extra["cols_fused"]`` (the whole-vector descriptor build
+    folded ``col_perm`` into ``xcol``) drops the column permutation,
+    ``extra["rows_fused"]`` the inverse row permutation."""
     spec = _REGISTRY[st.layout]
     t0 = time.perf_counter()
     arrays, geom, *extra = spec.build(st)
-    children = tuple(extra[0].get("children", ())) if extra else ()
+    extra = extra[0] if extra else {}
+    rows_fused = bool(extra.get("rows_fused", False))
+    cols_fused = bool(extra.get("cols_fused", False))
+    col_perm = row_iperm = None
+    if st.reo is not None:
+        if not (cols_fused or st.reo.identity_cols):
+            col_perm = _perm_tensor(st.reo.col_perm, st.device)
+        if not (rows_fused or st.reo.identity_rows):
+            row_iperm = _perm_tensor(st.reo.row_iperm, st.device)
     st.trace.append({"pass": "build", "layout": st.layout,
                      "duration_s": time.perf_counter() - t0,
-                     "rows_fused": False,
+                     "rows_fused": rows_fused,
                      **{k: v for k, v in sorted(geom.items())
                         if isinstance(v, (int, float, str, bool))}})
     return SPC5Plan(layout=st.layout, arrays=tuple(arrays),
-                    meta=tuple(sorted(geom.items())), children=children,
+                    meta=tuple(sorted(geom.items())),
+                    children=tuple(extra.get("children", ())),
+                    col_perm=col_perm, row_iperm=row_iperm,
+                    rows_fused=rows_fused,
                     trace_json=json.dumps(st.trace, sort_keys=True))
 
 
@@ -424,10 +527,16 @@ def make_plan(mat: F.SPC5Matrix, *, device: Device, layout: str = "auto",
     ``dtype`` may only be None or float32, and not together with a
     ``vdtype`` other than "auto" (the reference's ``ValueError``: the
     value-dtype axis owns the cast).
-    ``store``, ``reorder`` and ``verify`` take the reference's defaults
-    (None, None, False); any other value raises ``NotImplementedError``
-    (:func:`refuse_unported`)."""
-    refuse_unported(reorder, store, verify)
+    ``reorder`` is a strategy name ("sigma", "rcm", "colwindow", their
+    aliases, "auto" or "none"; :func:`repro_torch.core.reorder.reorder`,
+    scored at the geometry in effect and free to decline) or a prebuilt
+    Reordering (the port's, or another package's read by attribute:
+    :func:`as_reordering`); the plan keeps what its build could not fold
+    of the permutations (``col_perm``, ``row_iperm``), and x and y stay in
+    the original order. ``store`` and ``verify`` take the reference's
+    defaults (None, False); any other value raises
+    ``NotImplementedError`` (:func:`refuse_unported`)."""
+    refuse_unported(store, verify)
     vdtype = F.canonical_vdtype(vdtype)
     if vdtype not in ("", "auto") and dtype is not None:
         raise ValueError(
@@ -440,7 +549,8 @@ def make_plan(mat: F.SPC5Matrix, *, device: Device, layout: str = "auto",
                    multi_layout=canonical_layout(multi_layout),
                    lowering=canonical_lowering(lowering), pr=pr,
                    xw=xw, cb=cb, nvec=nvec, align=align, vdtype=vdtype,
-                   tune=tune, dtype=None if dtype is None else np.float32)
+                   tune=tune, dtype=None if dtype is None else np.float32,
+                   reorder=reorder)
     for pass_fn in (_tune_pass, _reorder_pass, _layout_pass):
         t0 = time.perf_counter()
         pass_fn(st)
@@ -464,8 +574,9 @@ def execute_spmv(plan: SPC5Plan, x: torch.Tensor, *,
     device: the CUDA kernels for a plan on the card, the plain PyTorch
     version for a plan on the CPU. ``x`` must be float32 on that device."""
     _check_device(plan, x)
-    return _REGISTRY[plan.layout].lower_spmv(plan, x,
-                                             double_buffer=double_buffer)
+    y = _REGISTRY[plan.layout].lower_spmv(plan, x,
+                                          double_buffer=double_buffer)
+    return _unpermuted(plan, y)
 
 
 def execute_spmm(plan: SPC5Plan, x: torch.Tensor, *, nvt: int = 128,
@@ -475,8 +586,9 @@ def execute_spmm(plan: SPC5Plan, x: torch.Tensor, *, nvt: int = 128,
     the plain PyTorch version on the CPU). ``nvt`` is the reference's
     column tile: nvec must be a multiple of min(nvt, nvec)."""
     _check_device(plan, x)
-    return _REGISTRY[plan.layout].lower_spmm(plan, x, nvt=nvt,
-                                             double_buffer=double_buffer)
+    y = _REGISTRY[plan.layout].lower_spmm(plan, x, nvt=nvt,
+                                          double_buffer=double_buffer)
+    return _unpermuted(plan, y)
 
 
 def _check_device(plan: SPC5Plan, x) -> None:
@@ -485,25 +597,41 @@ def _check_device(plan: SPC5Plan, x) -> None:
                          f"{plan.device}")
 
 
-def _reordered(col_perm, row_iperm, rows_fused) -> bool:
-    return col_perm is not None or row_iperm is not None or bool(rows_fused)
+def _unpermuted(plan: SPC5Plan, y: torch.Tensor) -> torch.Tensor:
+    """y in the original row order: gathered by ``row_iperm``, a plain
+    ``index_select`` outside every kernel (the reference's ``jnp.take``),
+    unless the build fused the inverse row permutation."""
+    return y if plan.row_iperm is None else y.index_select(0,
+                                                           plan.row_iperm)
+
+
+def _gathered_x(plan: SPC5Plan, x: torch.Tensor) -> torch.Tensor:
+    """x in the permuted column order (``x[col_perm]``), where the lowering
+    has no kernel that maps columns itself."""
+    return x if plan.col_perm is None else x.index_select(0, plan.col_perm)
 
 
 def plan_parts(plan):
-    """(layout, arrays, meta, children) of another package's plan, read by
-    attribute (``layout``, ``arrays``, ``meta``, ``children``), with no
-    import of that package. A plan that a reorder pass permuted
-    (``is_reordered``, or any of ``col_perm``, ``row_iperm``,
-    ``rows_fused`` set) raises ``NotImplementedError``: its permutation
-    lives outside its arrays and meta, and the port cannot apply it yet
-    (ROADMAP queue 1, item 5)."""
-    if getattr(plan, "is_reordered", False) or _reordered(
-            getattr(plan, "col_perm", None), getattr(plan, "row_iperm", None),
-            getattr(plan, "rows_fused", False)):
-        raise _not_ported("a reordered plan (col_perm / row_iperm / "
-                          "rows_fused)", "item 5")
+    """(layout, arrays, meta, children, permutations) of another package's
+    plan, read by attribute (``layout``, ``arrays``, ``meta``,
+    ``children``; ``col_perm``, ``row_iperm``, ``rows_fused`` and
+    ``trace_json`` where it has them), with no import of that package."""
+    perms = dict(col_perm=getattr(plan, "col_perm", None),
+                 row_iperm=getattr(plan, "row_iperm", None),
+                 rows_fused=bool(getattr(plan, "rows_fused", False)),
+                 trace_json=getattr(plan, "trace_json", "[]"))
     return (plan.layout, plan.arrays, plan.meta,
-            tuple(getattr(plan, "children", ())))
+            tuple(getattr(plan, "children", ())), perms)
+
+
+def _perm_operand(perm, n: int, what: str, device):
+    if perm is None:
+        return None
+    perm = np.asarray(perm)
+    if perm.shape != (n,) or perm.dtype.kind not in "iu":
+        raise ValueError(f"{what} must be ({n},) integers, got "
+                         f"{perm.dtype} {perm.shape}")
+    return _perm_tensor(perm, device)
 
 
 def plan_from_arrays(layout, arrays=None, meta=None, *, device: Device,
@@ -524,22 +652,26 @@ def plan_from_arrays(layout, arrays=None, meta=None, *, device: Device,
     ``ml_dtypes.bfloat16``, or the port's ``uint16`` bit patterns), and an
     int8 plan's ``value_scale`` trails its arrays.
 
+    A reordered plan carries its permutations outside its arrays and meta:
+    ``col_perm`` ((ncols,) integers, the columns x is gathered by),
+    ``row_iperm`` ((nrows,), the rows y is gathered by) and ``rows_fused``,
+    taken as the reference's plan holds them (None where its build folded
+    them).
+
     ``layout`` may instead be the other package's plan whole (a JAX
-    ``SPC5Plan``, read by attribute: :func:`plan_parts`), with ``arrays``
-    and ``meta`` left out; its children are read the same way. Arrays and
-    meta alone cannot show a reordering, so a reordered plan must come
-    whole or with its ``col_perm``, ``row_iperm`` and ``rows_fused``: a
-    plan with any of them set, or whose ``is_reordered`` is true, raises
-    ``NotImplementedError`` (ROADMAP queue 1, item 5) rather than compute
-    another product."""
-    if _reordered(col_perm, row_iperm, rows_fused):
-        raise _not_ported("a reordered plan (col_perm / row_iperm / "
-                          "rows_fused)", "item 5")
+    ``SPC5Plan``, read by attribute: :func:`plan_parts`), with ``arrays``,
+    ``meta`` and the permutations left out; its permutations and trace
+    come with it, and its children are read the same way."""
+    trace_json = "[]"
     if not isinstance(layout, str):
-        if arrays is not None or meta is not None or children:
+        if (arrays is not None or meta is not None or children
+                or col_perm is not None or row_iperm is not None
+                or rows_fused):
             raise ValueError("pass a plan whole, or its layout, arrays and "
                              "meta, not both")
-        layout, arrays, meta, children = plan_parts(layout)
+        layout, arrays, meta, children, perms = plan_parts(layout)
+        col_perm, row_iperm = perms["col_perm"], perms["row_iperm"]
+        rows_fused, trace_json = perms["rows_fused"], perms["trace_json"]
     elif arrays is None or meta is None:
         raise ValueError("plan_from_arrays needs arrays and meta with a "
                          "layout name")
@@ -565,7 +697,13 @@ def plan_from_arrays(layout, arrays=None, meta=None, *, device: Device,
                          f"{names}, got {len(arrays)}")
     return SPC5Plan(layout=spec.name,
                     arrays=tuple(R.to_tensor(a, device) for a in arrays),
-                    meta=meta, children=children)
+                    meta=meta, children=children,
+                    col_perm=_perm_operand(col_perm, m["ncols"], "col_perm",
+                                           device),
+                    row_iperm=_perm_operand(row_iperm, m["nrows"],
+                                            "row_iperm", device),
+                    rows_fused=bool(rows_fused),
+                    trace_json=str(trace_json))
 
 
 def _value_store(values: np.ndarray, chunk_vbase: np.ndarray,
@@ -603,22 +741,36 @@ def _with_scale(arrays, scales, device):
 def _build_whole(st: PlanState):
     ch = F.to_chunked(st.mat, cb=256 if st.cb is None else st.cb,
                       align=st.align)
+    rows_fused = False
+    if st.reo is not None and st.rows_fusible:
+        # each block's r permuted rows are r consecutive original rows:
+        # chunk_row points at the original base row, and y needs no gather
+        ch = dataclasses.replace(
+            ch, chunk_row=st.reo.row_perm[ch.chunk_row].astype(np.int32))
+        rows_fused = True
     geom = dict(r=ch.r, c=ch.c, cb=ch.cb, vmax=ch.vmax, nrows=ch.nrows,
                 ncols=ch.ncols, nnz=ch.nnz, nblocks=int(st.mat.nblocks),
                 lowering=st.lowering, vdtype=st.vdtype)
     values, scales = _value_store(ch.values, ch.chunk_vbase, ch.chunk_mask,
                                   st)
     if st.lowering == LOWERING_DESC:
+        # a column permutation folds into the static xcol table, so the
+        # plan keeps no col_perm and the kernels take no column map
+        cmap = None
+        if st.reo is not None and not st.reo.identity_cols:
+            cmap = st.reo.col_perm
         desc = F.chunk_descriptors(ch.chunk_mask, ch.chunk_voff,
                                    ch.chunk_col, ch.chunk_row, r=ch.r,
                                    c=ch.c, vmax=ch.vmax, xmax=ch.ncols,
-                                   ymax=ch.nrows)
+                                   ymax=ch.nrows, col_map=cmap)
         geom["desc_lane_nbytes"] = desc.lane_nbytes
-        return _with_scale(R.device_put_desc(values, desc, ch.chunk_vbase,
-                                             st.device), scales,
-                           st.device), geom
+        return (_with_scale(R.device_put_desc(values, desc, ch.chunk_vbase,
+                                              st.device), scales, st.device),
+                geom, {"rows_fused": rows_fused,
+                       "cols_fused": cmap is not None})
     ch = dataclasses.replace(ch, values=values)
-    return _with_scale(R.device_put(ch, st.device), scales, st.device), geom
+    return (_with_scale(R.device_put(ch, st.device), scales, st.device),
+            geom, {"rows_fused": rows_fused})
 
 
 def _lower_spmv_whole(plan: SPC5Plan, x, *, double_buffer):
@@ -630,9 +782,11 @@ def _lower_spmv_whole(plan: SPC5Plan, x, *, double_buffer):
                   plan.desc_xcol, plan.desc_yrow, plan.values, x, scale,
                   r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax,
                   nrows=plan.nrows, ncols=plan.ncols)
+    # the mask kernels take the column map, as the reference's do
     fn = spc5_spmv.spmv_cuda_db if double_buffer else spc5_spmv.spmv_cuda
     return fn(plan.chunk_vbase, plan.chunk_col, plan.chunk_mask,
-              plan.chunk_voff, plan.chunk_row, plan.values, x, None, scale,
+              plan.chunk_voff, plan.chunk_row, plan.values, x, plan.col_perm,
+              scale,
               r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax,
               nrows=plan.nrows, ncols=plan.ncols)
 
@@ -649,7 +803,8 @@ def _lower_spmm_whole(plan: SPC5Plan, x, *, nvt, double_buffer):
             nvt=nvt)
     return spc5_spmm.spmm_cuda(
         plan.chunk_vbase, plan.chunk_col, plan.chunk_mask, plan.chunk_voff,
-        plan.chunk_row, plan.values, x, None, scale, r=plan.r, c=plan.c,
+        plan.chunk_row, plan.values, x, plan.col_perm, scale, r=plan.r,
+        c=plan.c,
         cb=plan.cb, vmax=plan.vmax, nrows=plan.nrows, ncols=plan.ncols,
         nvt=nvt)
 
@@ -672,10 +827,55 @@ register_layout(LayoutSpec(
 # panels layout
 # ----------------------------------------------------------------------------
 
+def _panel_row_permutation(reo: RE.Reordering, pr: int, nrows: int,
+                           npanels: int) -> Optional[np.ndarray]:
+    """The panel layout's row fusion, as in the reference: where every
+    pr-row panel of the permuted matrix is one pr-aligned ascending slab of
+    original rows, the row permutation is a permutation of whole panels,
+    ``pperm[p]`` the original panel of permuted panel p; None where it is
+    not (a partial panel must stay last)."""
+    if reo.identity_rows:
+        return None
+    rp = reo.row_perm
+    pperm = np.empty(npanels, dtype=np.int64)
+    for p in range(npanels):
+        lo, hi = p * pr, min((p + 1) * pr, nrows)
+        if lo >= hi:
+            pperm[p] = p
+            continue
+        s = int(rp[lo])
+        if s % pr:
+            return None
+        if not np.array_equal(rp[lo:hi], np.arange(s, s + hi - lo)):
+            return None
+        if hi - lo < pr and s != (npanels - 1) * pr:
+            return None
+        pperm[p] = s // pr
+    return pperm
+
+
 def _build_panels(st: PlanState):
     pan = F.to_panels(st.mat, pr=512 if st.pr is None else st.pr,
                       cb=64 if st.cb is None else st.cb,
                       xw=512 if st.xw is None else st.xw, align=st.align)
+    rows_fused = False
+    if st.reo is not None:
+        pperm = _panel_row_permutation(st.reo, pan.pr, pan.nrows,
+                                       pan.npanels)
+        if pperm is not None:
+            # permuted panel p's arrays go to grid position pperm[p], so
+            # output panel q is original rows [q pr, (q + 1) pr) and no row
+            # gather remains (chunk_vbase indexes values absolutely)
+            inv = np.empty_like(pperm)
+            inv[pperm] = np.arange(pperm.shape[0])
+            pan = dataclasses.replace(
+                pan, chunk_col=pan.chunk_col[inv],
+                chunk_mask=pan.chunk_mask[inv],
+                chunk_voff=pan.chunk_voff[inv],
+                chunk_row=pan.chunk_row[inv],
+                chunk_vbase=pan.chunk_vbase[inv],
+                chunk_xbase=pan.chunk_xbase[inv])
+            rows_fused = True
     geom = dict(r=pan.r, c=pan.c, pr=pan.pr, cb=pan.cb, xw=pan.xw,
                 vmax=pan.vmax, npanels=pan.npanels, nchunks=pan.nchunks,
                 nrows=pan.nrows, ncols=pan.ncols, ncols_pad=pan.ncols_pad,
@@ -684,35 +884,42 @@ def _build_panels(st: PlanState):
     values, scales = _value_store(pan.values, pan.chunk_vbase,
                                   pan.chunk_mask, st)
     if st.lowering == LOWERING_DESC:
-        # window-relative xcol and panel-relative yrow tables
+        # window-relative xcol and panel-relative yrow tables; a column
+        # permutation cannot fold in (the windows lie in permuted column
+        # space), so the plan keeps col_perm and the kernels map columns
         desc = F.chunk_descriptors(pan.chunk_mask, pan.chunk_voff,
                                    pan.chunk_col, pan.chunk_row, r=pan.r,
                                    c=pan.c, vmax=pan.vmax, xmax=pan.xw,
                                    ymax=pan.pr)
         geom["desc_lane_nbytes"] = desc.lane_nbytes
-        return _with_scale(R.device_put_desc(values, desc, pan.chunk_vbase,
-                                             st.device, pan.chunk_xbase),
-                           scales, st.device), geom
+        return (_with_scale(R.device_put_desc(values, desc, pan.chunk_vbase,
+                                              st.device, pan.chunk_xbase),
+                            scales, st.device), geom,
+                {"rows_fused": rows_fused})
     pan = dataclasses.replace(pan, values=values)
-    return _with_scale(R.device_put_panels(pan, st.device), scales,
-                       st.device), geom
+    return (_with_scale(R.device_put_panels(pan, st.device), scales,
+                        st.device), geom, {"rows_fused": rows_fused})
 
 
 def _lower_spmv_panels(plan: SPC5Plan, x, *, double_buffer):
+    # a kept col_perm goes to every panel kernel as its column map, at any
+    # width: the reference materialises x[col_perm] past its 2 MiB VMEM
+    # budget (_panel_fused_x), a TPU guard the H100 kernels, which keep no
+    # whole x on chip, do not need (ROADMAP, deliberate differences)
     scale = _plan_scale(plan)
     if plan.lowering == LOWERING_DESC:
         fn = (spc5_spmv_desc.spmv_cuda_panels_desc_db if double_buffer
               else spc5_spmv_desc.spmv_cuda_panels_desc)
         return fn(plan.chunk_vbase, plan.chunk_xbase, plan.desc_valid,
                   plan.desc_vidx, plan.desc_xcol, plan.desc_yrow,
-                  plan.values, x, None, scale, r=plan.r, c=plan.c,
+                  plan.values, x, plan.col_perm, scale, r=plan.r, c=plan.c,
                   cb=plan.cb, vmax=plan.vmax, xw=plan.xw, pr=plan.pr,
                   nrows=plan.nrows, ncols_pad=plan.ncols_pad)
     fn = (spc5_spmv.spmv_cuda_panels_db if double_buffer
           else spc5_spmv.spmv_cuda_panels)
     return fn(plan.chunk_vbase, plan.chunk_xbase, plan.chunk_col,
               plan.chunk_mask, plan.chunk_voff, plan.chunk_row, plan.values,
-              x, None, scale, r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax,
+              x, plan.col_perm, scale, r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax,
               xw=plan.xw, pr=plan.pr, nrows=plan.nrows,
               ncols_pad=plan.ncols_pad)
 
@@ -724,14 +931,14 @@ def _lower_spmm_panels(plan: SPC5Plan, x, *, nvt, double_buffer):
               else spc5_spmm_desc.spmm_cuda_panels_desc)
         return fn(plan.chunk_vbase, plan.chunk_xbase, plan.desc_valid,
                   plan.desc_vidx, plan.desc_xcol, plan.desc_yrow,
-                  plan.values, x, None, scale, r=plan.r, c=plan.c,
+                  plan.values, x, plan.col_perm, scale, r=plan.r, c=plan.c,
                   cb=plan.cb, vmax=plan.vmax, xw=plan.xw, pr=plan.pr,
                   nrows=plan.nrows, ncols_pad=plan.ncols_pad, nvt=nvt)
     fn = (spc5_spmm.spmm_cuda_panels_db if double_buffer
           else spc5_spmm.spmm_cuda_panels)
     return fn(plan.chunk_vbase, plan.chunk_xbase, plan.chunk_col,
               plan.chunk_mask, plan.chunk_voff, plan.chunk_row, plan.values,
-              x, None, scale, r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax,
+              x, plan.col_perm, scale, r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax,
               xw=plan.xw, pr=plan.pr, nrows=plan.nrows,
               ncols_pad=plan.ncols_pad, nvt=nvt)
 
@@ -848,9 +1055,10 @@ def _tail_spmv(plan: SPC5Plan, x):
 
 
 def _lower_spmv_test(plan: SPC5Plan, x, *, double_buffer):
-    y = execute_spmv(plan.multi, x, double_buffer=double_buffer)
+    xg = _gathered_x(plan, x)
+    y = execute_spmv(plan.multi, xg, double_buffer=double_buffer)
     if plan.single_values.numel():
-        y = y + _tail_spmv(plan, x)
+        y = y + _tail_spmv(plan, xg)
     return y
 
 
@@ -859,16 +1067,17 @@ def _lower_spmm_test(plan: SPC5Plan, x, *, nvt, double_buffer):
     for a plan on the CPU, its plain version ``spmm_coo_panels``) for panel
     buckets; for a flat tail the plain ``spmm_coo`` on any device, as the
     reference computes it outside any kernel."""
-    y = execute_spmm(plan.multi, x, nvt=nvt, double_buffer=double_buffer)
+    xg = _gathered_x(plan, x)
+    y = execute_spmm(plan.multi, xg, nvt=nvt, double_buffer=double_buffer)
     if plan.single_values.numel():
         rows, cols, vals = (plan.single_rows, plan.single_cols,
                             plan.single_values)
         if plan.tail_pr:
             tail = spc5_spmv_tail.spmm_tail_cuda(
-                rows, cols, vals, x, pr=plan.tail_pr, nrows=plan.nrows,
+                rows, cols, vals, xg, pr=plan.tail_pr, nrows=plan.nrows,
                 nvt=nvt)
         else:
-            tail = R.spmm_coo(rows, cols, vals, x, nrows=plan.nrows)
+            tail = R.spmm_coo(rows, cols, vals, xg, nrows=plan.nrows)
         y = y + tail
     return y
 

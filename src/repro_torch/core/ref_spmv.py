@@ -142,19 +142,41 @@ def spmv(dev: SPC5Device, x: torch.Tensor, value_scale=None, *, r: int,
     return y.index_add_(0, yrow.reshape(-1), contrib.reshape(-1))
 
 
+def pad_cmap(cmap: torch.Tensor, ncols_pad: int) -> torch.Tensor:
+    """A column map of ncols entries extended to the layout's padded width:
+    entry j >= ncols is j itself, so a column at or past ncols reads x's
+    zero padding. (The reference pads with 0, so such a column, which only
+    an unset lane ever names, reads x[0] times a zero value: the same sum
+    unless x[0] is inf or NaN.)"""
+    n = cmap.shape[0]
+    if ncols_pad <= n:
+        return cmap
+    return torch.cat([cmap, torch.arange(n, ncols_pad, dtype=cmap.dtype,
+                                         device=cmap.device)])
+
+
+def _mapped(xcol: torch.Tensor, cmap, ncols_pad: int) -> torch.Tensor:
+    """Window columns (in [0, ncols_pad)) through the column map ``cmap``
+    (None: unmapped), as int64 indices into x padded to ncols_pad."""
+    if cmap is None:
+        return xcol.long()
+    return pad_cmap(cmap.long(), ncols_pad)[xcol.long()]
+
+
 def spmv_panels(dev: SPC5PanelDevice, x: torch.Tensor, cmap=None,
                 value_scale=None, *, r: int, c: int, pr: int, nrows: int,
                 ncols_pad: int) -> torch.Tensor:
     """y = A @ x with A in the row-panel-tiled layout; x (ncols,).
-    ``value_scale`` (npanels, nchunks) dequantises int8 values; ``cmap``
-    (a fused column permutation) is not ported."""
-    _refuse_cmap(cmap)
+    ``value_scale`` (npanels, nchunks) dequantises int8 values. ``cmap``
+    ((ncols,) integers) is a fused column permutation: block columns are
+    contiguous in the permuted column space, and the decode reads x, kept
+    in the original order, at ``cmap[column]`` (:func:`pad_cmap`)."""
     npanels = dev.chunk_mask.shape[0]
     xp = torch.nn.functional.pad(x, (0, max(0, ncols_pad - x.shape[0])))
     vals, k, _ = _decode(dev.values, dev.chunk_mask, dev.chunk_voff,
                          dev.chunk_vbase, r, c, value_scale)
-    xcol = (dev.chunk_xbase[..., None, None] + dev.chunk_col[..., None]
-            + k % c).clamp(0, ncols_pad - 1).long()
+    xcol = _mapped((dev.chunk_xbase[..., None, None] + dev.chunk_col[..., None]
+                    + k % c).clamp(0, ncols_pad - 1), cmap, ncols_pad)
     panel_row0 = (torch.arange(npanels, dtype=torch.int32, device=x.device)
                   * pr)[:, None, None, None]
     yrow = (panel_row0 + dev.chunk_row[..., None]
@@ -219,12 +241,14 @@ def spmm_panels(dev: SPC5PanelDevice, x: torch.Tensor, cmap=None,
 
     ``ncols_pad`` is kept for the reference's signature: set lanes never
     reach past the matrix's columns, so X is not padded here."""
-    _refuse_cmap(cmap)
     npanels = dev.chunk_mask.shape[0]
     vals, k, bits = _decode(dev.values, dev.chunk_mask, dev.chunk_voff,
                             dev.chunk_vbase, r, c, value_scale)
     xcol = (dev.chunk_xbase[..., None, None] + dev.chunk_col[..., None]
             + k % c)
+    if cmap is not None:
+        # a set lane's column lies below ncols; unset lanes are dropped
+        xcol = _mapped(xcol.clamp(0, ncols_pad - 1), cmap, ncols_pad)
     panel_row0 = (torch.arange(npanels, dtype=torch.int32, device=x.device)
                   * pr)[:, None, None, None]
     yrow = panel_row0 + dev.chunk_row[..., None] + k // c
@@ -275,13 +299,6 @@ def device_put_desc(values: np.ndarray, desc: ChunkDescriptors,
                                  for a in arrays + (chunk_xbase,)))
 
 
-def _refuse_cmap(cmap) -> None:
-    if cmap is not None:
-        raise NotImplementedError(
-            "cmap (fused column permutation) is not ported yet: ROADMAP "
-            "queue 1, item 5 (reorder pass)")
-
-
 def _desc_vals(values, valid, vidx, vbase, scale=None):
     """The descriptor expand: one gather from the chunk's value window
     (upcast and scaled, :func:`_upcast`) and the valid mask (narrow tables
@@ -308,14 +325,15 @@ def spmv_panels_desc(dev: SPC5PanelDescDevice, x: torch.Tensor, cmap=None,
                      value_scale=None, *, pr: int, nrows: int,
                      ncols_pad: int) -> torch.Tensor:
     """y = A @ x through the panel descriptors; x (ncols,); ``value_scale``
-    (npanels, nchunks) dequantises int8 values, ``cmap`` is not ported."""
-    _refuse_cmap(cmap)
+    (npanels, nchunks) dequantises int8 values, ``cmap`` maps columns as in
+    :func:`spmv_panels`."""
     npanels = dev.desc_valid.shape[0]
     xp = torch.nn.functional.pad(x, (0, max(0, ncols_pad - x.shape[0])))
     vals = _desc_vals(dev.values, dev.desc_valid, dev.desc_vidx,
                       dev.chunk_vbase, value_scale)
-    xcol = (dev.chunk_xbase[..., None, None].long()
-            + dev.desc_xcol.long()).clamp(0, ncols_pad - 1)
+    xcol = _mapped((dev.chunk_xbase[..., None, None].long()
+                    + dev.desc_xcol.long()).clamp(0, ncols_pad - 1), cmap,
+                   ncols_pad)
     panel_row0 = (torch.arange(npanels, device=x.device)
                   * pr)[:, None, None, None]
     yrow = panel_row0 + dev.desc_yrow.long()
@@ -362,14 +380,16 @@ def spmm_panels_desc(dev: SPC5PanelDescDevice, x: torch.Tensor, cmap=None,
     The reference pads X with zero rows up to ``ncols_pad``; a lane whose
     column is at or past X's rows is dropped here instead, which adds the
     same nothing without a copy of X. ``cmap`` and ``value_scale`` as in
-    :func:`spmv_panels_desc`."""
-    _refuse_cmap(cmap)
+    :func:`spmv_panels_desc` (with a map, X has as many rows as the map)."""
     nchunks = dev.chunk_vbase.shape[1]
     unit, vals, xcol, yrow = _desc_set_lanes(dev, value_scale)
     xcol = xcol + dev.chunk_xbase.reshape(-1)[unit].long()
     yrow = yrow + (unit // nchunks) * pr
     inside = xcol < x.shape[0]
-    return _spmm_scatter(vals[inside], xcol[inside], yrow[inside], x, nrows)
+    vals, xcol, yrow = vals[inside], xcol[inside], yrow[inside]
+    if cmap is not None:
+        xcol = cmap.long()[xcol]
+    return _spmm_scatter(vals, xcol, yrow, x, nrows)
 
 
 # ----------------------------------------------------------------------------

@@ -95,9 +95,12 @@ class SparseLinear(nn.Module):
         the kernel variant and ``vdtype`` ("f32" | "bf16" | "int8" |
         "auto") the stored values exactly as on
         :func:`repro_torch.kernels.ops.prepare` (the forward returns f32
-        either way). A ``store``, ``reorder`` and a truthy ``verify`` raise
+        either way). ``reorder`` (a strategy name, or a Reordering: the
+        port's or the reference's) permutes the pruned weight before the
+        layout is built; activations go in and come out in the original
+        feature order. A ``store`` and a truthy ``verify`` raise
         ``NotImplementedError`` naming their ROADMAP item."""
-        P.refuse_unported(reorder, store, verify)
+        P.refuse_unported(store, verify)
         w = prune_by_magnitude(np.asarray(w), density)
         csr = F.csr_from_dense(w)
         if block is None:
@@ -105,7 +108,7 @@ class SparseLinear(nn.Module):
         mat = F.csr_to_spc5(csr, *block)
         plan = ops.prepare(mat, cb=cb, dtype=dtype, vdtype=vdtype,
                            layout=layout, pr=pr, xw=xw, nvec=nvec, tune=tune,
-                           lowering=lowering, device=device)
+                           reorder=reorder, lowering=lowering, device=device)
         return cls(plan, _bias_tensor(bias, plan.device))
 
     @classmethod
@@ -119,10 +122,9 @@ class SparseLinear(nn.Module):
         ``SparseLinear``'s ``handle`` whole (``from_arrays(handle,
         bias=bias)``), or its ``handle.layout``, ``handle.arrays``,
         ``handle.meta`` with its ``col_perm``, ``row_iperm`` and
-        ``rows_fused`` (for a test plan also ``children=[handle.multi]``).
-        A reordered plan raises ``NotImplementedError`` (ROADMAP queue 1,
-        item 5): arrays and meta without the permutation would give another
-        product."""
+        ``rows_fused`` (for a test plan also ``children=[handle.multi]``):
+        a reordered layer computes the reference's product only with its
+        permutations, which come with the plan whole."""
         plan = P.plan_from_arrays(layout, arrays, meta, device=device,
                                   children=children, col_perm=col_perm,
                                   row_iperm=row_iperm, rows_fused=rows_fused)

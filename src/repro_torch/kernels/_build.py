@@ -57,6 +57,10 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
            for s in (1, 2)},
         "spc5_spmv_desc_panels_occupancy": [_I] * 5 + [_P],
         "spc5_spmv_desc_panels_smem": [_I] * 10,
+        # the column-map twins: the same arguments, then cmap and ncols
+        **{f"spc5_spmv_desc_panels_cmap_s{s}": [_P] * 10 + [_I] * 19
+           + [_P, _P, _I] for s in (1, 2)},
+        "spc5_spmv_desc_panels_cmap_occupancy": [_I] * 5 + [_P],
     },
     "spc5_spmm": {
         "spc5_spmm_whole": [_P] * 9 + [_I] * 20 + [_P],
@@ -75,6 +79,13 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "spc5_spmm_desc_panels_s2": [_P] * 10 + [_I] * 24 + [_P],
         "spc5_spmm_desc_panels_occupancy": [_I] * 8 + [_P],
         "spc5_spmm_desc_panels_smem": [_I] * 11,
+    },
+    # the panel descriptor SpMM kernels with a column map: the arguments of
+    # their twins in spc5_spmm_desc, then cmap
+    "spc5_spmm_desc_cmap": {
+        "spc5_spmm_desc_panels_cmap_s1": [_P] * 10 + [_I] * 25 + [_P, _P],
+        "spc5_spmm_desc_panels_cmap_s2": [_P] * 10 + [_I] * 24 + [_P, _P],
+        "spc5_spmm_desc_panels_cmap_occupancy": [_I] * 8 + [_P],
     },
     "spc5_spmv_tail": {
         "spc5_spmv_tail": [_P] * 6 + [_I] * 11 + [_P],

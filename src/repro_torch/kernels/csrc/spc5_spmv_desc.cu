@@ -102,7 +102,22 @@
 //     the product with x, summed in f32). A narrow window is staged as the
 //     16-byte aligned span that covers it (an int8 window starts on any
 //     multiple of 8 bytes), each thread finding the window's offset in it
-//     and the chunk's scale once a chunk, before the chunk's barrier.
+//     and the chunk's scale once a chunk, before the chunk's barrier;
+//   * a column map (spmv_desc_panels_cmap_kernel, the reference's col_map:
+//     a reordered plan's fused column permutation): x stays in the original
+//     column order and unpadded. The synchronous twin gathers a stage's x
+//     window instead of copying it, window entry j being x[cmap[xb + j]],
+//     or 0 at or past ncols (so a padding lane never reads x), and decodes
+//     as without a map. The ring stages no x window: its decode reads each
+//     set lane's x[cmap[xb + xcol]] through L1 (the map entries of a quad
+//     loaded together, then their x entries). A window gathered into the
+//     ring by 4-byte cp.async, each piece waiting for its map entry, made
+//     the ring 2.3x slower than the same kernel on x[col_perm] on the
+//     reordered band (its map loads stall the prefetch; 512 random x reads
+//     a chunk for about 160 nonzeros), and the lane lookup in the
+//     synchronous twin made it slower on the vocab layer than the window
+//     (PERF.md, PR 27). The map is the kernel's own launch argument
+//     (CmapPanelArgs), so the kernels without one keep their code.
 //
 // Each launcher runs on the caller's stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() (0 on success).
@@ -494,6 +509,18 @@ struct PanelArgs {
                 // the other fields keep the offsets the f32 kernels had)
 };
 
+// A launch with a column map: PanelArgs' fields as they are, then the map.
+// xpad is then x itself, (ncols,) in the original column order.
+struct CmapPanelArgs : PanelArgs {
+  const int* cmap;  // (ncols,): the column of x each permuted column reads
+  int ncols;
+};
+
+template <typename A>
+constexpr bool kMapped = false;
+template <>
+constexpr bool kMapped<CmapPanelArgs> = true;
+
 // Byte offsets of one stage's parts, each 16-byte aligned: the value window
 // (value_window bytes), the x window, then for nb blocks the valid and vidx
 // runs, the c xcol
@@ -523,13 +550,38 @@ inline size_t panels_smem(const PanelArgs& a, int stages) {
   return (size_t)round16(4 * a.pr) + (size_t)stages * stage_layout(a).bytes;
 }
 
+// Gather the x window at xb of a mapped launch into dst with all threads of
+// the CTA, with loads: entry j is x[cmap[xb + j]], 0 at or past ncols. Up
+// to four entries a thread are in flight: their map entries loaded
+// together, then their x entries, then the stores.
+__device__ __forceinline__ void gather_window(float* dst, const CmapPanelArgs& a, int xb) {
+  for (int j0 = threadIdx.x; j0 < a.xw; j0 += 4 * blockDim.x) {
+    int src[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + u * blockDim.x, col = xb + j;
+      src[u] = j < a.xw && col < a.ncols ? __ldg(a.cmap + col) : -1;
+    }
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = src[u] >= 0 ? __ldg(a.xpad + src[u]) : 0.f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = j0 + u * blockDim.x;
+      if (j < a.xw) dst[j] = v[u];
+    }
+  }
+}
+
 // Stage the tables of blocks [b0, b0 + nb) of global chunk g (and, where
 // windows is set, its value window at vb, a narrow one as the aligned span
 // that covers it, kept inside values (copy_span_runs), and its x window at
-// xb).
-template <bool kAsync, typename V>
+// xb: copied, or for a mapped launch gathered through the map by the
+// synchronous twin and not staged at all by the ring, which reads x at each
+// set lane).
+template <bool kAsync, typename V, typename A>
 __device__ __forceinline__ void stage_chunk(unsigned char* st, const StageLayout& L,
-                                            const PanelArgs& a, size_t g, int b0, int nb,
+                                            const A& a, size_t g, int b0, int nb,
                                             bool windows, int vb, int xb) {
   const int rc = a.r * a.c;
   const size_t lane0 = (g * a.cb + b0) * rc;
@@ -542,7 +594,11 @@ __device__ __forceinline__ void stage_chunk(unsigned char* st, const StageLayout
       const char* span = value_span(values, vb, a.vmax, a.nvalues, bytes, off);
       copy_span_runs<kAsync>(st + L.vwin, span, bytes);
     }
-    copy_runs<kAsync>(st + L.xwin, reinterpret_cast<const char*>(a.xpad + xb), 1, 4 * a.xw, 0);
+    if constexpr (kMapped<A>) {
+      if constexpr (!kAsync) gather_window(reinterpret_cast<float*>(st + L.xwin), a, xb);
+    } else {
+      copy_runs<kAsync>(st + L.xwin, reinterpret_cast<const char*>(a.xpad + xb), 1, 4 * a.xw, 0);
+    }
   }
   copy_runs<kAsync>(st + L.valid, reinterpret_cast<const char*>(a.valid) + lane0, 1, nb * rc, 0);
   copy_runs<kAsync>(st + L.vidx, a.vidx + lane0 * a.wv, 1, nb * rc * a.wv, 0);
@@ -560,11 +616,12 @@ __device__ __forceinline__ void stage_chunk(unsigned char* st, const StageLayout
 // the two quads of a row (neighbouring threads) are summed with one xor
 // shuffle; the row's first quad adds it into the tile. The window's values
 // start at entry voff of the staged span (0 for f32); s is the chunk's
-// scale (int8 only).
-template <typename V>
+// scale (int8 only). kLaneMap (a mapped ring): no x window is staged, and
+// a set lane of window column xc reads x[cmap[xb + xc]].
+template <typename V, bool kLaneMap, typename A>
 __device__ __forceinline__ void decode_stage(const unsigned char* st, const StageLayout& L,
-                                             const PanelArgs& a, int nb, int lrc, int lc,
-                                             float* ytile, int voff, float s) {
+                                             const A& a, int nb, int lrc, int lc,
+                                             float* ytile, int voff, float s, int xb) {
   const V* vwin = reinterpret_cast<const V*>(st + L.vwin) + voff;
   const float* xwin = reinterpret_cast<const float*>(st + L.xwin);
   const int* flags4 = reinterpret_cast<const int*>(st + L.valid);
@@ -581,9 +638,21 @@ __device__ __forceinline__ void decode_stage(const unsigned char* st, const Stag
       int vi[4], xc[4];
       smem_index4(st + L.vidx, q, a.wv, vi);
       smem_index4(st + L.xcol, ((b << lc) + (k & (c - 1))) >> 2, a.wx, xc);
+      if constexpr (kLaneMap) {
+        int src[4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if ((flags >> (8 * u)) & 0xff) v += dequant(vwin[vi[u]], s) * xwin[xc[u]];
+        for (int u = 0; u < 4; ++u) {
+          src[u] = ((flags >> (8 * u)) & 0xff) ? __ldg(a.cmap + xb + xc[u]) : -1;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (src[u] >= 0) v += dequant(vwin[vi[u]], s) * __ldg(a.xpad + src[u]);
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if ((flags >> (8 * u)) & 0xff) v += dequant(vwin[vi[u]], s) * xwin[xc[u]];
+        }
       }
     }
     if (c == 8) v += __shfl_xor_sync(0xffffffffu, v, 1);
@@ -607,8 +676,10 @@ __device__ __forceinline__ int window_offset(const PanelArgs& a, int vb) {
   }
 }
 
-template <typename V, int kStages>
-__global__ void __launch_bounds__(256) spmv_desc_panels_kernel(const PanelArgs a) {
+// The panel kernels' body, for launch arguments A (PanelArgs, or
+// CmapPanelArgs with a column map).
+template <typename V, int kStages, typename A>
+__device__ __forceinline__ void panels_body(const A& a) {
   extern __shared__ __align__(16) float smem[];  // one name and type per file
   const StageLayout L = stage_layout(a);
   float* ytile = smem;
@@ -638,7 +709,7 @@ __global__ void __launch_bounds__(256) spmv_desc_panels_kernel(const PanelArgs a
         __syncthreads();  // the previous decode (or the tile's zeroing) is done
         stage_chunk<false, V>(ring, L, a, g0 + j, b0, nb, b0 == 0, vj, xj);
         __syncthreads();
-        decode_stage<V>(ring, L, a, nb, lrc, lc, ytile, voff, s);
+        decode_stage<V, false>(ring, L, a, nb, lrc, lc, ytile, voff, s, 0);
       }
     }
   } else {
@@ -672,7 +743,8 @@ __global__ void __launch_bounds__(256) spmv_desc_panels_kernel(const PanelArgs a
         vb = __ldg(vbase + jn + 1);
         xb = __ldg(xbase + jn + 1);
       }
-      decode_stage<V>(ring + (j % kStages) * L.bytes, L, a, a.cb, lrc, lc, ytile, voff, s);
+      decode_stage<V, kMapped<A>>(ring + (j % kStages) * L.bytes, L, a, a.cb, lrc, lc, ytile,
+                                  voff, s, kMapped<A> ? __ldg(xbase + j) : 0);
     }
   }
   __syncthreads();
@@ -686,6 +758,16 @@ __global__ void __launch_bounds__(256) spmv_desc_panels_kernel(const PanelArgs a
       atomicAdd(a.y + row0 + i, t);
     }
   }
+}
+
+template <typename V, int kStages>
+__global__ void __launch_bounds__(256) spmv_desc_panels_kernel(const PanelArgs a) {
+  panels_body<V, kStages>(a);
+}
+
+template <typename V, int kStages>
+__global__ void __launch_bounds__(256) spmv_desc_panels_cmap_kernel(const CmapPanelArgs a) {
+  panels_body<V, kStages>(a);
 }
 
 template <typename V>
@@ -765,6 +847,7 @@ int whole_occupancy(Kernel kernel, int threads, int smem, int device, int* out) 
 }
 
 using PanelKernel = void (*)(PanelArgs);
+using CmapPanelKernel = void (*)(CmapPanelArgs);
 
 template <typename V>
 PanelKernel panel_kernel_v(int stages) {
@@ -776,29 +859,53 @@ PanelKernel panel_kernel_v(int stages) {
   }
 }
 
-// The panel kernel for vsize-byte values (4 float, 2 bf16, 1 int8) and a
-// ring of `stages` (1: the synchronous kernel); nullptr for any other.
-PanelKernel panel_kernel(int vsize, int stages) {
-  switch (vsize) {
-    case 4: return panel_kernel_v<float>(stages);
-    case 2: return panel_kernel_v<__nv_bfloat16>(stages);
-    case 1: return panel_kernel_v<int8_t>(stages);
+template <typename V>
+CmapPanelKernel cmap_panel_kernel_v(int stages) {
+  switch (stages) {
+    case 1: return spmv_desc_panels_cmap_kernel<V, 1>;
+    case 2: return spmv_desc_panels_cmap_kernel<V, 2>;
+    case 3: return spmv_desc_panels_cmap_kernel<V, 3>;
     default: return nullptr;
   }
 }
 
-int launch_panels(int stages, const PanelArgs& a, int npanels, int smem_planned, int threads,
+// The panel kernel for vsize-byte values (4 float, 2 bf16, 1 int8), a ring
+// of `stages` (1: the synchronous kernel) and launch arguments A (with a
+// column map for CmapPanelArgs); nullptr for any other.
+template <typename A>
+void (*panel_kernel(int vsize, int stages))(A) {
+  if constexpr (kMapped<A>) {
+    switch (vsize) {
+      case 4: return cmap_panel_kernel_v<float>(stages);
+      case 2: return cmap_panel_kernel_v<__nv_bfloat16>(stages);
+      case 1: return cmap_panel_kernel_v<int8_t>(stages);
+      default: return nullptr;
+    }
+  } else {
+    switch (vsize) {
+      case 4: return panel_kernel_v<float>(stages);
+      case 2: return panel_kernel_v<__nv_bfloat16>(stages);
+      case 1: return panel_kernel_v<int8_t>(stages);
+      default: return nullptr;
+    }
+  }
+}
+
+template <typename A>
+int launch_panels(int stages, const A& a, int npanels, int smem_planned, int threads,
                   int device, void* stream) {
-  const PanelKernel kernel = panel_kernel(a.vsize, stages);
+  const auto kernel = panel_kernel<A>(a.vsize, stages);
   const size_t smem = panels_smem(a, stages);
+  bool bad_map = false;
+  if constexpr (kMapped<A>) bad_map = a.cmap == nullptr || a.ncols < 1;
   if (kernel == nullptr || a.split < 1 || a.nb < 1 || a.nb > a.cb ||
       (stages > 1 && a.nb != a.cb) || (long long)npanels * a.split > 0x7fffffffLL ||
-      (a.vsize == 1 && a.scale == nullptr) || smem != (size_t)smem_planned) {
+      (a.vsize == 1 && a.scale == nullptr) || smem != (size_t)smem_planned || bad_map) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = prepare_launch(kernel, device, smem, threads, nullptr);
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {const_cast<PanelArgs*>(&a)};
+  void* args[] = {const_cast<A*>(&a)};
   err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(npanels * a.split),
                          dim3(threads), args, smem, (cudaStream_t)stream);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
@@ -912,12 +1019,66 @@ int spc5_spmv_desc_panels_s2(const int* vbase, const int* xbase, const signed ch
   return launch_panels(stages, a, npanels, smem, threads, device, stream);
 }
 
+// The panel kernels with a column map: the arguments of their twins above,
+// then cmap ((ncols,) int32, the column of x each permuted column reads);
+// xpad is x itself, (ncols,) in the original column order.
+int spc5_spmv_desc_panels_cmap_s1(const int* vbase, const int* xbase, const signed char* valid,
+                                  const void* vidx, const void* xcol, const void* yrow,
+                                  const void* values, const float* scale, const float* x,
+                                  float* y, int npanels, int nchunks, int cb, int r, int c,
+                                  int vmax, int xw, int pr, int nrows, int vsize, int nvalues,
+                                  int wv, int wx, int wy, int split, int nb, int smem,
+                                  int threads, int device, void* stream, const int* cmap,
+                                  int ncols) {
+  CmapPanelArgs a{};
+  static_cast<PanelArgs&>(a) =
+      panel_args(vbase, xbase, valid, vidx, xcol, yrow, values, scale, x, y, nchunks, cb, r, c,
+                 vmax, xw, pr, nrows, vsize, nvalues, wv, wx, wy, split, nb);
+  a.cmap = cmap;
+  a.ncols = ncols;
+  return launch_panels(1, a, npanels, smem, threads, device, stream);
+}
+
+int spc5_spmv_desc_panels_cmap_s2(const int* vbase, const int* xbase, const signed char* valid,
+                                  const void* vidx, const void* xcol, const void* yrow,
+                                  const void* values, const float* scale, const float* x,
+                                  float* y, int npanels, int nchunks, int cb, int r, int c,
+                                  int vmax, int xw, int pr, int nrows, int vsize, int nvalues,
+                                  int wv, int wx, int wy, int split, int stages, int smem,
+                                  int threads, int device, void* stream, const int* cmap,
+                                  int ncols) {
+  CmapPanelArgs a{};
+  static_cast<PanelArgs&>(a) =
+      panel_args(vbase, xbase, valid, vidx, xcol, yrow, values, scale, x, y, nchunks, cb, r, c,
+                 vmax, xw, pr, nrows, vsize, nvalues, wv, wx, wy, split, cb);
+  a.cmap = cmap;
+  a.ncols = ncols;
+  if (stages != 2 && stages != 3) return (int)cudaErrorInvalidValue;
+  return launch_panels(stages, a, npanels, smem, threads, device, stream);
+}
+
+// The panel kernel's occupancy at `stages` (1: the synchronous kernel),
+// vsize-byte values, `threads` and `smem` bytes of dynamic shared memory per
+// CTA, of the kernel with a column map: out[0] the CTAs one SM holds at
+// once, out[1] the SMs of the device.
+int spc5_spmv_desc_panels_cmap_occupancy(int stages, int vsize, int threads, int smem,
+                                         int device, int* out) {
+  const CmapPanelKernel kernel = panel_kernel<CmapPanelArgs>(vsize, stages);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare_launch(kernel, device, (size_t)smem, threads, nullptr);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, (size_t)smem);
+  }
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(out + 1, cudaDevAttrMultiProcessorCount, device);
+  return (int)err;
+}
+
 // The panel kernel's occupancy at `stages` (1: the synchronous kernel),
 // vsize-byte values, `threads` and `smem` bytes of dynamic shared memory per
 // CTA: out[0] the CTAs one SM holds at once, out[1] the SMs of the device.
 int spc5_spmv_desc_panels_occupancy(int stages, int vsize, int threads, int smem, int device,
                                     int* out) {
-  const PanelKernel kernel = panel_kernel(vsize, stages);
+  const PanelKernel kernel = panel_kernel<PanelArgs>(vsize, stages);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = prepare_launch(kernel, device, (size_t)smem, threads, nullptr);
   if (err == cudaSuccess) {

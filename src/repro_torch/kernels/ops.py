@@ -49,7 +49,7 @@ def prepare(mat: F.SPC5Matrix, *, layout: str = "auto",
     ``pr``/``xw`` default to 512 and
     ``cb`` to 256 (whole-vector) or 64 (panels). ``config`` takes a
     ``PanelConfig``-like object (``layout``, ``pr``, ``xw``, ``cb``,
-    ``lowering``, ``vdtype`` attributes) whole, filling every
+    ``lowering``, ``reorder``, ``vdtype`` attributes) whole, filling every
     axis the caller left at its default, as the reference does (so an
     explicit ``lowering`` wins over the config's). Pass
     ``nvec``, the widest SpMM batch the plan will see, so that "auto"
@@ -63,11 +63,18 @@ def prepare(mat: F.SPC5Matrix, *, layout: str = "auto",
     chunk; products accumulate and return f32. Every layout and lowering
     takes it, on the CPU (the plain versions) and on the card (every
     kernel); a ``layout="test"`` plan keeps its singleton tail in bf16 at
-    bf16 and in f32 at int8, as the reference does. ``reorder``, ``verify``
-    and ``store`` take the reference's defaults (None, False, None); a ``reorder``, a truthy
+    bf16 and in f32 at int8, as the reference does.
+
+    ``reorder`` (also read from a config's ``reorder``) is a strategy name
+    ("sigma", "rcm", "colwindow", "auto", "none" or an alias; scored at the
+    geometry in effect, and free to decline) or a prebuilt Reordering (the
+    port's, or the reference's read by attribute), as in the reference:
+    the matrix is permuted before the layout is built, x and y stay in the
+    original order, and ``plan.trace`` records the decision. ``verify``
+    and ``store`` take the reference's defaults (False, None); a truthy
     ``verify`` and a ``store`` raise ``NotImplementedError`` naming their
     ROADMAP item."""
-    P.refuse_unported(reorder, store, verify)
+    P.refuse_unported(store, verify)
     if config is not None:
         if layout == "auto":
             layout = getattr(config, "layout", "") or "auto"
@@ -76,10 +83,8 @@ def prepare(mat: F.SPC5Matrix, *, layout: str = "auto",
         cb = cb if cb is not None else (getattr(config, "cb", 0) or None)
         if lowering == "auto":
             lowering = getattr(config, "lowering", "") or lowering
-        if getattr(config, "reorder", ""):
-            raise NotImplementedError(
-                "reordering is not ported to repro_torch yet (ROADMAP queue "
-                "1, item 5)")
+        if reorder is None and getattr(config, "reorder", ""):
+            reorder = config.reorder
         if vdtype == "auto" and getattr(config, "vdtype", "") not in ("", "f32"):
             vdtype = config.vdtype
     return P.make_plan(mat, device=resolve_device(device), layout=layout,

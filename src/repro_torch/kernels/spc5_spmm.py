@@ -49,8 +49,9 @@ from repro_torch.core import ref_spmv as R
 
 from . import _build
 from .spc5_spmv import (MAX_SMEM_BYTES, _aligned, _check, _check_smem,
-                        _check_values, _raise_on, _scale_ptr, _stream,
-                        _unsupported, panels_split, value_window_bytes)
+                        _check_map, _check_values, _raise_on,
+                        _refuse_map_on_card, _scale_ptr, _stream,
+                        panels_split, value_window_bytes)
 
 #: Launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES: Dict[str, int] = {"spmm_cuda": 0, "spmm_cuda_panels": 0,
@@ -325,9 +326,10 @@ def spmm_cuda(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
     by the lane groups, rows summed in a Y tile (replaces ``spmm_pallas``,
     which has no double-buffered twin). ``chunk_mask`` is the int32 view of
     the uint32 masks; ``values`` f32, bf16 or int8 (with ``value_scale``,
-    (nchunks,) float32)."""
+    (nchunks,) float32). ``col_map`` (int32, (ncols,)) is taken on the CPU
+    (the plain version reads ``X[col_map]``); on the card it raises
+    (ROADMAP queue 2 B, item 4)."""
     fn = "spmm_cuda"
-    _unsupported(col_map)
     nchunks = chunk_col.shape[0]
     named = dict(chunk_vbase=chunk_vbase, chunk_col=chunk_col,
                  chunk_mask=chunk_mask, chunk_voff=chunk_voff,
@@ -341,7 +343,11 @@ def spmm_cuda(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
     if x.shape[0] != ncols:
         raise ValueError(f"X has shape {tuple(x.shape)}, expected "
                          f"({ncols}, nvec)")
+    _check_map(col_map, ncols, values.device)
+    _refuse_map_on_card(fn, col_map, values.device, 4)
     if values.device.type == "cpu":
+        if col_map is not None:
+            x = x.index_select(0, col_map)
         return R.spmm(R.SPC5Device(values, chunk_col, chunk_mask, chunk_voff,
                                    chunk_row, chunk_vbase), x, value_scale,
                       r=r, c=c, nrows=nrows, ncols=ncols)
@@ -539,8 +545,9 @@ def panels_launch(stages: int, npanels: int, nchunks: int, *, cb: int,
 
 
 def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
-            chunk_mask, chunk_voff, chunk_row, values, x, value_scale, *, r,
-            c, cb, vmax, xw, pr, nrows, ncols_pad, nvt, split=None):
+            chunk_mask, chunk_voff, chunk_row, values, x, col_map,
+            value_scale, *, r, c, cb, vmax, xw, pr, nrows, ncols_pad, nvt,
+            split=None):
     npanels, nchunks = chunk_vbase.shape
     named = dict(chunk_vbase=chunk_vbase, chunk_xbase=chunk_xbase,
                  chunk_col=chunk_col, chunk_mask=chunk_mask,
@@ -555,11 +562,13 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
     if npanels * pr < nrows:
         raise ValueError(f"{npanels} panels of {pr} rows cannot hold "
                          f"{nrows} rows")
+    _check_map(col_map, x.shape[0], values.device)
+    _refuse_map_on_card(fn, col_map, values.device, 4)
     if values.device.type == "cpu":
         return R.spmm_panels(
             R.SPC5PanelDevice(values, chunk_col, chunk_mask, chunk_voff,
                               chunk_row, chunk_vbase, chunk_xbase), x,
-            None, value_scale, r=r, c=c, pr=pr, nrows=nrows,
+            col_map, value_scale, r=r, c=c, pr=pr, nrows=nrows,
             ncols_pad=ncols_pad)
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
@@ -608,11 +617,12 @@ def spmm_cuda_panels(chunk_vbase, chunk_xbase, chunk_col, chunk_mask,
     adding each row of the Y tile (replaces ``spmm_pallas_panels``). X is
     (ncols, nvec); ``xw`` is the layout's window, kept for the
     signature; ``values`` f32, bf16 or int8 (with ``value_scale``,
-    (npanels, nchunks) float32)."""
-    _unsupported(col_map)
+    (npanels, nchunks) float32). ``col_map`` (int32, one entry a row of X)
+    is taken on the CPU; on the card it raises (ROADMAP queue 2 B, item
+    4)."""
     return _panels("spmm_cuda_panels", 1, chunk_vbase, chunk_xbase,
                    chunk_col, chunk_mask, chunk_voff, chunk_row, values, x,
-                   value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr, nrows=nrows,
+                   col_map, value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr, nrows=nrows,
                    ncols_pad=ncols_pad, nvt=nvt, split=split)
 
 
@@ -626,9 +636,8 @@ def spmm_cuda_panels_db(chunk_vbase, chunk_xbase, chunk_col, chunk_mask,
     """Row-panel SpMM with a ring of :data:`PANEL_DB_STAGES` stages of
     chunks (value windows and metadata) staged ahead by bulk copies
     (replaces ``spmm_pallas_panels_db``); ``split`` and ``values`` as in
-    :func:`spmm_cuda_panels`."""
-    _unsupported(col_map)
+    :func:`spmm_cuda_panels`; ``col_map`` too."""
     return _panels("spmm_cuda_panels_db", PANEL_DB_STAGES, chunk_vbase,
                    chunk_xbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
-                   values, x, value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr,
+                   values, x, col_map, value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr,
                    nrows=nrows, ncols_pad=ncols_pad, nvt=nvt, split=split)

@@ -11,6 +11,13 @@ with the same arguments minus ``interpret``:
   ``spmm_cuda_panels_desc_db``  spc5_spmm_desc_panels_s2  ``spmm_pallas_panels_desc_db``
   ============================  ========================  =================================
 
+The panel wrappers also take ``col_map``, a reordered plan's column
+permutation (the Pallas kernels' ``col_map``): with it they launch the
+column-map twins of ``csrc/spc5_spmm_desc_cmap.cu`` (a library of its own,
+``spc5_spmm_desc_panels_cmap_s1`` / ``_s2``), which read X's row
+``col_map[col]`` for a lane of permuted column col, and count the launch as
+``spmm_cuda_panels_desc_cmap`` / ``spmm_cuda_panels_desc_db_cmap``.
+
 The reference has no double-buffered whole-vector descriptor SpMM, so
 the port has no public twin either (its one kernel keeps a ring of staged
 rounds inside). X is (ncols, nvec) and Y (nrows, nvec), both row-major
@@ -51,7 +58,9 @@ from .spc5_spmv_desc import _check_tables, _widths, value_window_bytes
 
 #: Launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES: Dict[str, int] = {"spmm_cuda_desc": 0, "spmm_cuda_panels_desc": 0,
-                            "spmm_cuda_panels_desc_db": 0}
+                            "spmm_cuda_panels_desc_db": 0,
+                            "spmm_cuda_panels_desc_cmap": 0,
+                            "spmm_cuda_panels_desc_db_cmap": 0}
 
 
 def reset_launches() -> None:
@@ -343,28 +352,35 @@ def panels_plan(stages: int, cb: int, r: int, c: int, vmax: int, pr: int,
 _OCCUPANCY: Dict[Tuple[int, ...], Tuple[int, int]] = {}
 
 
+def _library(mapped: bool) -> str:
+    """The library of the panel kernels with (or without) a column map."""
+    return "spc5_spmm_desc_cmap" if mapped else "spc5_spmm_desc"
+
+
 def panels_occupancy(stages: int, r: int, c: int, vec: int, threads: int,
                      smem: int, device: torch.device,
-                     vsize: int = 4) -> Tuple[int, int]:
+                     vsize: int = 4, mapped: bool = False) -> Tuple[int, int]:
     """(CTAs one SM holds at once, SMs) for the panel kernel of block shape
     (r, c), ``vec`` columns a lane, ``vsize``-byte values and ``stages`` (1:
-    the synchronous one), as the CUDA runtime reports them."""
+    the synchronous one), with a column map where ``mapped``, as the CUDA
+    runtime reports them."""
     key = (stages, vsize, r, c, vec, threads, smem, device.index or 0)
-    if key not in _OCCUPANCY:
-        lib = _build.load_library("spc5_spmm_desc")
+    if (mapped,) + key not in _OCCUPANCY:
+        fn = f"spc5_spmm_desc_panels{'_cmap' if mapped else ''}_occupancy"
+        lib = _build.load_library(_library(mapped))
         out = (ctypes.c_int * 2)()
-        err = lib.spc5_spmm_desc_panels_occupancy(*key, ctypes.addressof(out))
-        K._raise_on(err, "spc5_spmm_desc_panels_occupancy")
-        _OCCUPANCY[key] = (out[0], out[1])
-    return _OCCUPANCY[key]
+        err = getattr(lib, fn)(*key, ctypes.addressof(out))
+        K._raise_on(err, fn)
+        _OCCUPANCY[(mapped,) + key] = (out[0], out[1])
+    return _OCCUPANCY[(mapped,) + key]
 
 
 def panels_launch(stages: int, npanels: int, nchunks: int, *, cb: int,
                   r: int, c: int, vmax: int, pr: int, nvec: int, vec: int,
                   wv: int, wx: int, device: torch.device,
                   split: Optional[int] = None,
-                  what: str = "panel kernel", vsize: int = 4
-                  ) -> Dict[str, int]:
+                  what: str = "panel kernel", vsize: int = 4,
+                  mapped: bool = False) -> Dict[str, int]:
     """The launch a panel wrapper makes on ``device`` (a card) for lanes of
     at most ``vec`` columns (:func:`panels_vector`) and ``vsize``-byte
     values: ``stages``, the CTA of
@@ -372,11 +388,13 @@ def panels_launch(stages: int, npanels: int, nchunks: int, *, cb: int,
     ``ctas_per_sm`` and ``sms``, ``split`` (S, from
     :func:`~.spc5_spmv.panels_split` over npanels x row parts x ntiles
     units unless given), ``grid`` (npanels x S x row parts x ntiles) and
-    ``chunks_per_cta`` (the longest range)."""
+    ``chunks_per_cta`` (the longest range). ``mapped``: the launch of the
+    kernel with a column map (the same CTA, its own occupancy)."""
     cta = panels_plan(stages, cb, r, c, vmax, pr, nvec, vec, wv, wx, what,
                       vsize)
     per_sm, sms = panels_occupancy(stages, r, c, cta["vector"], cta["threads"],
-                                   cta["smem_bytes"], device, vsize=vsize)
+                                   cta["smem_bytes"], device, vsize=vsize,
+                                   **({"mapped": True} if mapped else {}))
     ntiles = -(-nvec // cta["tile_columns"])
     units = npanels * cta["row_parts"] * ntiles
     if split is None:
@@ -394,8 +412,8 @@ def panels_launch(stages: int, npanels: int, nchunks: int, *, cb: int,
 
 
 def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, desc_valid,
-            desc_vidx, desc_xcol, desc_yrow, values, x, value_scale, *, r, c,
-            cb, vmax, xw, pr, nrows, ncols_pad, nvt, split=None):
+            desc_vidx, desc_xcol, desc_yrow, values, x, col_map, value_scale,
+            *, r, c, cb, vmax, xw, pr, nrows, ncols_pad, nvt, split=None):
     npanels, nchunks = chunk_vbase.shape
     K._check(dict(chunk_vbase=chunk_vbase, chunk_xbase=chunk_xbase,
                   values=values, x=x),
@@ -409,11 +427,12 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, desc_valid,
     if npanels * pr < nrows:
         raise ValueError(f"{npanels} panels of {pr} rows cannot hold "
                          f"{nrows} rows")
+    K._check_map(col_map, x.shape[0], values.device)
     if values.device.type == "cpu":
         return R.spmm_panels_desc(
             R.SPC5PanelDescDevice(values, desc_valid, desc_vidx, desc_xcol,
                                   desc_yrow, chunk_vbase, chunk_xbase), x,
-            None, value_scale, pr=pr, nrows=nrows, ncols_pad=ncols_pad)
+            col_map, value_scale, pr=pr, nrows=nrows, ncols_pad=ncols_pad)
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
     if vmax % 4:
@@ -425,21 +444,24 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, desc_valid,
     _block(r, c)
     wv, wx, wy = _widths(desc_vidx, desc_xcol, desc_yrow)
     vsize = values.element_size()
+    mapped = col_map is not None
     launch = panels_launch(stages, npanels, nchunks, cb=cb, r=r, c=c,
                            vmax=vmax, pr=pr, nvec=nvec,
                            vec=panels_vector(nvec, x), wv=wv, wx=wx,
                            device=values.device, split=split, what=fn,
-                           vsize=vsize)
+                           vsize=vsize, mapped=mapped)
     K._aligned({"values": values})
     # the tables are copied in 4-byte pieces where 16-byte ones do not align
     K._aligned(tables, 4)
-    lib = _build.load_library("spc5_spmm_desc")
+    lib = _build.load_library(_library(mapped))
     # S > 1 CTAs add into each panel's rows, so Y starts at 0
     y = (torch.zeros if launch["split"] > 1 else torch.empty)(
         (nrows, nvec), dtype=torch.float32, device=values.device)
     # X is read in place: the kernels skip any column at or past its rows,
-    # which is what the reference's zero padding up to ncols_pad adds
-    err = getattr(lib, f"spc5_spmm_desc_panels_s{stages}")(
+    # which is what the reference's zero padding up to ncols_pad adds (with
+    # a map, a lane of column col < X's rows reads X's row col_map[col])
+    err = getattr(lib, f"spc5_spmm_desc_panels{'_cmap' if mapped else ''}"
+                       f"_s{stages}")(
         chunk_vbase.data_ptr(), chunk_xbase.data_ptr(), desc_valid.data_ptr(),
         desc_vidx.data_ptr(), desc_xcol.data_ptr(), desc_yrow.data_ptr(),
         values.data_ptr(),
@@ -450,7 +472,9 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, desc_valid,
         launch["part_rows"], launch["split"], launch["chunks_per_stage"],
         *([launch["blocks_per_stage"]] if stages == 1 else []),
         launch["smem_bytes"], launch["threads"],
-        values.device.index or 0, K._stream(values.device))
+        values.device.index or 0, K._stream(values.device),
+        *((col_map.data_ptr(),) if mapped else ()))
+    fn = f"{fn}_cmap" if mapped else fn
     K._raise_on(err, fn)
     LAUNCHES[fn] += 1
     return y
@@ -469,11 +493,13 @@ def spmm_cuda_panels_desc(chunk_vbase, chunk_xbase, desc_valid, desc_vidx,
     chunk's stage copied and waited for before the walk, one lane group
     adding each row of the Y tile (replaces ``spmm_pallas_panels_desc``).
     X is (ncols, nvec); ``values`` f32, bf16 or int8 (with ``value_scale``,
-    (npanels, nchunks) float32)."""
-    K._unsupported(col_map)
+    (npanels, nchunks) float32). ``col_map`` (int32, one entry a row of X:
+    a reordered plan's column permutation) launches the column-map twin,
+    which reads X's row ``col_map[col]`` for a lane of permuted column col
+    (counted as ``spmm_cuda_panels_desc_cmap``)."""
     return _panels("spmm_cuda_panels_desc", 1, chunk_vbase, chunk_xbase,
                    desc_valid, desc_vidx, desc_xcol, desc_yrow, values, x,
-                   value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr, nrows=nrows,
+                   col_map, value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr, nrows=nrows,
                    ncols_pad=ncols_pad, nvt=nvt, split=split)
 
 
@@ -488,9 +514,9 @@ def spmm_cuda_panels_desc_db(chunk_vbase, chunk_xbase, desc_valid,
     """Row-panel descriptor SpMM with a ring of :data:`PANEL_DB_STAGES`
     chunks (tables and value window) staged ahead by bulk copies and
     cp.async (replaces ``spmm_pallas_panels_desc_db``); ``split`` and
-    ``values`` as in :func:`spmm_cuda_panels_desc`."""
-    K._unsupported(col_map)
+    ``values`` and ``col_map`` as in :func:`spmm_cuda_panels_desc`
+    (counted as ``spmm_cuda_panels_desc_db_cmap`` with a map)."""
     return _panels("spmm_cuda_panels_desc_db", PANEL_DB_STAGES, chunk_vbase,
                    chunk_xbase, desc_valid, desc_vidx, desc_xcol, desc_yrow,
-                   values, x, value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr,
+                   values, x, col_map, value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr,
                    nrows=nrows, ncols_pad=ncols_pad, nvt=nvt, split=split)

@@ -83,11 +83,22 @@ def _r16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def _unsupported(col_map) -> None:
+def _check_map(col_map, ncols: int, device: torch.device) -> None:
+    """A column map (a fused column permutation: the decode reads x, kept in
+    the original order, at ``col_map[column]``): a contiguous int32
+    (ncols,) tensor on the values' device."""
     if col_map is not None:
+        _check(dict(col_map=col_map), {"col_map": (ncols,)}, device)
+
+
+def _refuse_map_on_card(fn: str, col_map, device: torch.device,
+                        item: int) -> None:
+    """The mask kernels take no column map yet: a map with CUDA tensors
+    raises before any launch (on the CPU the plain version takes it)."""
+    if col_map is not None and device.type != "cpu":
         raise NotImplementedError(
-            "col_map (fused column permutation) is not ported yet: ROADMAP "
-            "queue 1, item 5 (reorder pass)")
+            f"{fn}: a column map (col_map) on the card is not ported yet: "
+            f"ROADMAP queue 2 B, item {item}")
 
 
 #: The value stores a wrapper takes: f32, and the value-dtype axis's
@@ -322,8 +333,8 @@ def whole_launch(stages: int, nchunks: int, *, cb: int, r: int, vmax: int,
 
 
 def _whole(fn: str, stages: int, chunk_vbase, chunk_col, chunk_mask,
-           chunk_voff, chunk_row, values, x, value_scale, *, r, c, cb, vmax,
-           nrows, ncols, grid=None):
+           chunk_voff, chunk_row, values, x, col_map, value_scale, *, r, c,
+           cb, vmax, nrows, ncols, grid=None):
     nchunks = chunk_col.shape[0]
     named = dict(chunk_vbase=chunk_vbase, chunk_col=chunk_col,
                  chunk_mask=chunk_mask, chunk_voff=chunk_voff,
@@ -333,9 +344,12 @@ def _whole(fn: str, stages: int, chunk_vbase, chunk_col, chunk_mask,
                                                  "chunk_voff", "chunk_row")},
                    "x": (ncols,)}, values.device)
     _check_values(fn, values, value_scale, (nchunks,))
+    _check_map(col_map, ncols, values.device)
+    _refuse_map_on_card(fn, col_map, values.device, 1)
     if values.device.type == "cpu":
+        xg = x if col_map is None else x.index_select(0, col_map)
         return R.spmv(R.SPC5Device(values, chunk_col, chunk_mask, chunk_voff,
-                                   chunk_row, chunk_vbase), x, value_scale,
+                                   chunk_row, chunk_vbase), xg, value_scale,
                       r=r, c=c, nrows=nrows, ncols=ncols)
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
@@ -371,10 +385,12 @@ def spmv_cuda(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
     window and metadata copied and waited for before its decode (replaces
     ``spmv_pallas``). ``chunk_mask`` is the int32 view of the uint32
     masks; ``values`` f32, bf16 or int8 (with ``value_scale``, (nchunks,)
-    float32)."""
-    _unsupported(col_map)
+    float32). ``col_map`` (int32, (ncols,)) is taken on the CPU (the plain
+    version reads ``x[col_map]``); on the card it raises (ROADMAP queue 2
+    B, item 1)."""
     return _whole("spmv_cuda", 1, chunk_vbase, chunk_col, chunk_mask,
-                  chunk_voff, chunk_row, values, x, value_scale, r=r, c=c,
+                  chunk_voff, chunk_row, values, x, col_map, value_scale, r=r,
+                  c=c,
                   cb=cb,
                   vmax=vmax, nrows=nrows, ncols=ncols, grid=grid)
 
@@ -385,10 +401,11 @@ def spmv_cuda_db(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
                  grid: Optional[int] = None) -> torch.Tensor:
     """Whole-vector SpMV with a ring of :data:`WHOLE_DB_STAGES` chunks
     (value window and metadata) staged ahead by bulk copies (replaces
-    ``spmv_pallas_db``); ``grid`` and ``values`` as in :func:`spmv_cuda`."""
-    _unsupported(col_map)
+    ``spmv_pallas_db``); ``grid``, ``values`` and ``col_map`` as in
+    :func:`spmv_cuda`."""
     return _whole("spmv_cuda_db", WHOLE_DB_STAGES, chunk_vbase, chunk_col,
-                  chunk_mask, chunk_voff, chunk_row, values, x, value_scale,
+                  chunk_mask, chunk_voff, chunk_row, values, x, col_map,
+                  value_scale,
                   r=r, c=c, cb=cb, vmax=vmax, nrows=nrows, ncols=ncols, grid=grid)
 
 
@@ -486,8 +503,9 @@ def panels_launch(stages: int, npanels: int, nchunks: int, *, cb: int,
 
 
 def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
-            chunk_mask, chunk_voff, chunk_row, values, x, value_scale, *, r,
-            c, cb, vmax, xw, pr, nrows, ncols_pad, split=None):
+            chunk_mask, chunk_voff, chunk_row, values, x, col_map,
+            value_scale, *, r, c, cb, vmax, xw, pr, nrows, ncols_pad,
+            split=None):
     npanels, nchunks = chunk_vbase.shape
     named = dict(chunk_vbase=chunk_vbase, chunk_xbase=chunk_xbase,
                  chunk_col=chunk_col, chunk_mask=chunk_mask,
@@ -503,11 +521,13 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
     if npanels * pr < nrows:
         raise ValueError(f"{npanels} panels of {pr} rows cannot hold "
                          f"{nrows} rows")
+    _check_map(col_map, x.shape[0], values.device)
+    _refuse_map_on_card(fn, col_map, values.device, 2)
     if values.device.type == "cpu":
         return R.spmv_panels(
             R.SPC5PanelDevice(values, chunk_col, chunk_mask, chunk_voff,
                               chunk_row, chunk_vbase, chunk_xbase), x,
-            None, value_scale, r=r, c=c, pr=pr, nrows=nrows,
+            col_map, value_scale, r=r, c=c, pr=pr, nrows=nrows,
             ncols_pad=ncols_pad)
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
@@ -549,11 +569,12 @@ def spmv_cuda_panels(chunk_vbase, chunk_xbase, chunk_col, chunk_mask,
     decode, and sum into a (pr,) y tile in shared memory (replaces
     ``spmv_pallas_panels``). x is (ncols,), read in place (padded where
     shorter than ncols_pad); ``values`` f32, bf16 or int8 (with
-    ``value_scale``, (npanels, nchunks) float32)."""
-    _unsupported(col_map)
+    ``value_scale``, (npanels, nchunks) float32). ``col_map`` (int32, as
+    long as x) is taken on the CPU (the plain version maps each column
+    through it); on the card it raises (ROADMAP queue 2 B, item 2)."""
     return _panels("spmv_cuda_panels", 1, chunk_vbase, chunk_xbase,
                    chunk_col, chunk_mask, chunk_voff, chunk_row, values, x,
-                   value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr, nrows=nrows,
+                   col_map, value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr, nrows=nrows,
                    ncols_pad=ncols_pad, split=split)
 
 
@@ -566,9 +587,9 @@ def spmv_cuda_panels_db(chunk_vbase, chunk_xbase, chunk_col, chunk_mask,
                         split: Optional[int] = None) -> torch.Tensor:
     """Row-panel SpMV with a ring of :data:`DB_STAGES` chunks (value
     window and metadata) staged ahead by bulk copies (replaces
-    ``spmv_pallas_panels_db``); ``values`` as in :func:`spmv_cuda_panels`."""
-    _unsupported(col_map)
+    ``spmv_pallas_panels_db``); ``values`` and ``col_map`` as in
+    :func:`spmv_cuda_panels`."""
     return _panels("spmv_cuda_panels_db", DB_STAGES, chunk_vbase,
                    chunk_xbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
-                   values, x, value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr,
+                   values, x, col_map, value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr,
                    nrows=nrows, ncols_pad=ncols_pad, split=split)

@@ -12,6 +12,14 @@ with the same arguments minus ``interpret``:
   ``spmv_cuda_panels_desc_db``  spc5_spmv_desc_panels_s2  ``spmv_pallas_panels_desc_db``
   ============================  ========================  =================================
 
+The panel wrappers also take ``col_map``, a reordered plan's column
+permutation (the Pallas kernels' ``col_map``): with it they launch the
+column-map twins ``spc5_spmv_desc_panels_cmap_s1`` / ``_s2`` on x in the
+original order (the synchronous one gathers each chunk's x window through
+the map, the ring reads x through it at each set lane), and count the
+launch as ``spmv_cuda_panels_desc_cmap`` /
+``spmv_cuda_panels_desc_db_cmap``.
+
 The whole-vector kernels cut the chunks into G contiguous ranges, one CTA
 each (chosen here from the card's occupancy by the panel kernels' split
 rule, :func:`whole_launch`; ``grid`` overrides it), stage the tables in
@@ -62,7 +70,9 @@ from .spc5_spmv import (SPLIT_WAVES, _r16, chunk_ranges,  # noqa: F401
 #: Launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES: Dict[str, int] = {"spmv_cuda_desc": 0, "spmv_cuda_desc_db": 0,
                             "spmv_cuda_panels_desc": 0,
-                            "spmv_cuda_panels_desc_db": 0}
+                            "spmv_cuda_panels_desc_db": 0,
+                            "spmv_cuda_panels_desc_cmap": 0,
+                            "spmv_cuda_panels_desc_db_cmap": 0}
 
 _TORCH_INT = {np.dtype(np.int8): torch.int8, np.dtype(np.int16): torch.int16,
               np.dtype(np.int32): torch.int32}
@@ -126,9 +136,10 @@ _OCCUPANCY: Dict[Tuple, Tuple[int, int]] = {}
 
 def _occupancy(layout: str, stages: int, threads: int, smem: int,
                device: torch.device, vsize: int = 4) -> Tuple[int, int]:
-    """(CTAs one SM holds at once, SMs) for the ``layout`` kernel ("whole"
-    or "panels") of ``vsize``-byte values at ``stages`` (1: the synchronous
-    one), as the CUDA runtime reports them."""
+    """(CTAs one SM holds at once, SMs) for the ``layout`` kernel ("whole",
+    "panels" or "panels_cmap", the panel kernel with a column map) of
+    ``vsize``-byte values at ``stages`` (1: the synchronous one), as the
+    CUDA runtime reports them."""
     key = (layout, stages, vsize, threads, smem, device.index or 0)
     if key not in _OCCUPANCY:
         lib = _build.load_library("spc5_spmv_desc")
@@ -337,27 +348,31 @@ def panels_stages(stages: int, cb: int, r: int, c: int, vmax: int, xw: int,
 
 
 def panels_occupancy(stages: int, threads: int, smem: int,
-                     device: torch.device, vsize: int = 4) -> Tuple[int, int]:
+                     device: torch.device, vsize: int = 4,
+                     mapped: bool = False) -> Tuple[int, int]:
     """(CTAs one SM holds at once, SMs) for the panel kernel of
-    ``vsize``-byte values at ``stages`` (1: the synchronous one), as the
-    CUDA runtime reports them."""
-    return _occupancy("panels", stages, threads, smem, device, vsize)
+    ``vsize``-byte values at ``stages`` (1: the synchronous one), with a
+    column map where ``mapped``, as the CUDA runtime reports them."""
+    return _occupancy("panels_cmap" if mapped else "panels", stages, threads,
+                      smem, device, vsize)
 
 
 def panels_launch(stages: int, npanels: int, nchunks: int, *, cb: int,
                   r: int, c: int, vmax: int, xw: int, pr: int, wv: int,
                   wx: int, device: torch.device, split: Optional[int] = None,
-                  what: str = "panel kernel", vsize: int = 4
-                  ) -> Dict[str, int]:
+                  what: str = "panel kernel", vsize: int = 4,
+                  mapped: bool = False) -> Dict[str, int]:
     """The launch a panel wrapper makes on ``device`` (a card) for
-    ``vsize``-byte values: ``stages``, ``blocks_per_stage``, ``smem_bytes``
-    and ``threads`` per CTA, the card's ``ctas_per_sm`` and ``sms``,
-    ``split`` (S, from :func:`panels_split` unless given) and ``grid``
-    (npanels * S)."""
+    ``vsize``-byte values, with a column map where ``mapped`` (the same
+    stages; the occupancy is the map kernel's): ``stages``,
+    ``blocks_per_stage``, ``smem_bytes`` and ``threads`` per CTA, the
+    card's ``ctas_per_sm`` and ``sms``, ``split`` (S, from
+    :func:`panels_split` unless given) and ``grid`` (npanels * S)."""
     stages, nb, smem = panels_stages(stages, cb, r, c, vmax, xw, pr, wv, wx,
                                      what, vsize)
     threads = K._threads(nb * r * c // 4)       # a thread per lane quad
-    per_sm, sms = panels_occupancy(stages, threads, smem, device, vsize)
+    per_sm, sms = panels_occupancy(stages, threads, smem, device, vsize,
+                                   **({"mapped": True} if mapped else {}))
     if split is None:
         split = panels_split(npanels, nchunks, per_sm, sms)
     if not 1 <= split <= nchunks:
@@ -369,8 +384,8 @@ def panels_launch(stages: int, npanels: int, nchunks: int, *, cb: int,
 
 
 def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, desc_valid,
-            desc_vidx, desc_xcol, desc_yrow, values, x, value_scale, *, r, c,
-            cb, vmax, xw, pr, nrows, ncols_pad, split=None):
+            desc_vidx, desc_xcol, desc_yrow, values, x, col_map, value_scale,
+            *, r, c, cb, vmax, xw, pr, nrows, ncols_pad, split=None):
     npanels, nchunks = chunk_vbase.shape
     K._check(dict(chunk_vbase=chunk_vbase, chunk_xbase=chunk_xbase,
                   values=values, x=x),
@@ -385,31 +400,39 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, desc_valid,
     if npanels * pr < nrows:
         raise ValueError(f"{npanels} panels of {pr} rows cannot hold "
                          f"{nrows} rows")
+    K._check_map(col_map, x.shape[0], values.device)
     if values.device.type == "cpu":
         return R.spmv_panels_desc(
             R.SPC5PanelDescDevice(values, desc_valid, desc_vidx, desc_xcol,
                                   desc_yrow, chunk_vbase, chunk_xbase), x,
-            None, value_scale, pr=pr, nrows=nrows, ncols_pad=ncols_pad)
+            col_map, value_scale, pr=pr, nrows=nrows, ncols_pad=ncols_pad)
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
+    mapped = col_map is not None
     wv, wx, wy = _widths(desc_vidx, desc_xcol, desc_yrow)
     vsize = values.element_size()
     launch = panels_launch(stages, npanels, nchunks, cb=cb, r=r, c=c,
                            vmax=vmax, xw=xw, pr=pr, wv=wv, wx=wx,
                            device=values.device, split=split, what=fn,
-                           vsize=vsize)
-    # every chunk stages an xw-wide window of x at chunk_xbase: pad x so the
-    # last window stays in bounds, as the Pallas wrappers do
-    xp = torch.nn.functional.pad(x, (0, max(0, ncols_pad - x.shape[0])))
-    K._aligned({"values": values, "x": xp})
+                           vsize=vsize, mapped=mapped)
+    if mapped:
+        # x is read in place through the map, 4 bytes at a time, never at
+        # or past ncols
+        xp = x
+        K._aligned({"values": values})
+    else:
+        # every chunk stages an xw-wide window of x at chunk_xbase: pad x so
+        # the last window stays in bounds, as the Pallas wrappers do
+        xp = torch.nn.functional.pad(x, (0, max(0, ncols_pad - x.shape[0])))
+        K._aligned({"values": values, "x": xp})
     # the tables are copied in 4-byte pieces where 16-byte ones do not align
     K._aligned(tables, 4)
     lib = _build.load_library("spc5_spmv_desc")
     # S > 1 CTAs add into each panel's rows, so y starts at 0
     y = (torch.zeros if launch["split"] > 1 else torch.empty)(
         nrows, dtype=torch.float32, device=values.device)
-    entry = "spc5_spmv_desc_panels_s1" if stages == 1 else \
-        "spc5_spmv_desc_panels_s2"
+    entry = (f"spc5_spmv_desc_panels{'_cmap' if mapped else ''}_s"
+             f"{1 if stages == 1 else 2}")
     err = getattr(lib, entry)(
         chunk_vbase.data_ptr(), chunk_xbase.data_ptr(), desc_valid.data_ptr(),
         desc_vidx.data_ptr(), desc_xcol.data_ptr(), desc_yrow.data_ptr(),
@@ -419,7 +442,9 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, desc_valid,
         values.numel(), wv, wx, wy, launch["split"],
         launch["blocks_per_stage"] if stages == 1 else launch["stages"],
         launch["smem_bytes"], launch["threads"], values.device.index or 0,
-        K._stream(values.device))
+        K._stream(values.device),
+        *((col_map.data_ptr(), x.shape[0]) if mapped else ()))
+    fn = f"{fn}_cmap" if mapped else fn
     K._raise_on(err, fn)
     LAUNCHES[fn] += 1
     return y
@@ -436,11 +461,14 @@ def spmv_cuda_panels_desc(chunk_vbase, chunk_xbase, desc_valid, desc_vidx,
     that stage one chunk's tables at a time with vector loads and sum into
     a (pr,) y tile in shared memory (replaces ``spmv_pallas_panels_desc``).
     x is (ncols,), padded here. ``values`` f32, bf16 or int8 (with
-    ``value_scale``, (npanels, nchunks) float32)."""
-    K._unsupported(col_map)
+    ``value_scale``, (npanels, nchunks) float32). ``col_map`` (int32, as
+    long as x: a reordered plan's column permutation) launches the
+    column-map twin, which gathers each x window through it from x in the
+    original order (counted as ``spmv_cuda_panels_desc_cmap``); the ring's
+    twin reads x through it at each set lane."""
     return _panels("spmv_cuda_panels_desc", 1, chunk_vbase, chunk_xbase,
                    desc_valid, desc_vidx, desc_xcol, desc_yrow, values, x,
-                   value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr, nrows=nrows,
+                   col_map, value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr, nrows=nrows,
                    ncols_pad=ncols_pad, split=split)
 
 
@@ -453,11 +481,11 @@ def spmv_cuda_panels_desc_db(chunk_vbase, chunk_xbase, desc_valid,
                              split: Optional[int] = None) -> torch.Tensor:
     """Row-panel descriptor SpMV with a ring of :data:`DB_STAGES` chunks
     staged ahead by cp.async, tables, value and x windows alike (replaces
-    ``spmv_pallas_panels_desc_db``); ``values`` as in
-    :func:`spmv_cuda_panels_desc`."""
-    K._unsupported(col_map)
+    ``spmv_pallas_panels_desc_db``); ``values`` and ``col_map`` as in
+    :func:`spmv_cuda_panels_desc` (counted as
+    ``spmv_cuda_panels_desc_db_cmap`` with a map)."""
     return _panels("spmv_cuda_panels_desc_db", DB_STAGES,
                    chunk_vbase, chunk_xbase, desc_valid, desc_vidx,
-                   desc_xcol, desc_yrow, values, x, value_scale, r=r, c=c, cb=cb,
+                   desc_xcol, desc_yrow, values, x, col_map, value_scale, r=r, c=c, cb=cb,
                    vmax=vmax, xw=xw, pr=pr, nrows=nrows,
                    ncols_pad=ncols_pad, split=split)

@@ -390,8 +390,12 @@ def test_desc_wrapper_rejects_unported_operands(kernel):
     with pytest.raises(NotImplementedError, match="int8"):
         fn(*args, x, value_scale=torch.ones(1), **kw)
     if "panels" in kernel:
-        with pytest.raises(NotImplementedError, match="col_map"):
-            fn(*args, x, torch.arange(x.shape[0], dtype=torch.int32), **kw)
+        # a column map, once refused, is taken on the CPU: the plain version
+        # reads x[col_map[column]], what the unmapped call reads of
+        # x[col_map]
+        cmap = torch.arange(x.shape[0] - 1, -1, -1, dtype=torch.int32)
+        assert torch.equal(fn(*args, x, cmap, **kw),
+                           fn(*args, x[cmap.long()].contiguous(), **kw))
 
 
 @pytest.mark.parametrize("kernel", KERNELS)

@@ -3676,3 +3676,196 @@ def test_bf16_test_plan_on_the_card_matches_the_cpu_plan(cuda, multi_layout,
         assert err <= RTOL * float(ref.abs().max()), err
     assert KT.LAUNCHES["spmv_tail_cuda"] == (multi_layout == "panels")
     assert KT.LAUNCHES["spmm_tail_cuda"] == (multi_layout == "panels")
+
+
+# ----------------------------------------------------------------------------
+# column maps (a reordered plan's fused column permutation) in the four
+# panel descriptor kernels, and the mask wrappers' refusal of a map
+# ----------------------------------------------------------------------------
+
+CM_KERNELS = QUANT_KERNELS
+CM_VDTYPES = ("f32", *QUANT_VDTYPES)
+
+
+def _cm_plan(rc, vdtype, device, align=8, n=302, m=700, density=0.05, cb=4):
+    """A panel descriptor plan (panels of 64 rows, windows of 64 columns,
+    cb 4) at ``vdtype`` whose 700 columns are not a multiple of the window:
+    the last chunks' windows reach columns at or past ncols."""
+    plan = _q_plan(rc, vdtype, device, align=align, n=n, m=m,
+                   density=density, cb=cb)
+    assert plan.ncols % plan.xw != 0 and plan.ncols_pad > plan.ncols
+    return plan
+
+
+def _cm_map(ncols, device, seed=41):
+    return torch.from_numpy(np.random.default_rng(seed).permutation(
+        ncols).astype(np.int32)).to(device)
+
+
+def _cm_call(kernel, plan, x, cmap, values=None, **kw):
+    """One call of a panel descriptor wrapper with a column map: counted
+    once as ``<kernel>_cmap`` (its no-map count unchanged) and held against
+    the plain version with the same map."""
+    spmm = kernel.startswith("spmm")
+    mod = KDM if spmm else KD
+    scale = plan.value_scale if plan.vdtype == "int8" else None
+    vals = plan.values if values is None else values
+    fn = R.spmm_panels_desc if spmm else R.spmv_panels_desc
+    plain = fn(plan.dev, x, cmap, scale, pr=plan.pr, nrows=plan.nrows,
+               ncols_pad=plan.ncols_pad)
+    before = dict(mod.LAUNCHES)
+    y = getattr(mod, kernel)(
+        plan.chunk_vbase, plan.chunk_xbase, plan.desc_valid, plan.desc_vidx,
+        plan.desc_xcol, plan.desc_yrow, vals, x, cmap, scale, r=plan.r,
+        c=plan.c, cb=plan.cb, vmax=plan.vmax, xw=plan.xw, pr=plan.pr,
+        nrows=plan.nrows, ncols_pad=plan.ncols_pad, **kw)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES == {**before, f"{kernel}_cmap":
+                            before[f"{kernel}_cmap"] + 1}
+    assert y.dtype == torch.float32 and y.shape == plain.shape
+    assert torch.isfinite(y).all()
+    ref = float(plain.abs().max()) if plain.numel() else 0.0
+    err = float((y - plain).abs().max()) if y.numel() else 0.0
+    assert err <= RTOL * max(ref, 1.0), (err, ref, kw)
+    return y
+
+
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+@pytest.mark.parametrize("vdtype", CM_VDTYPES)
+@pytest.mark.parametrize("kernel", CM_KERNELS)
+def test_cmap_panel_desc_block_shapes(cuda, kernel, vdtype, rc):
+    """Each of the four map kernels at f32, bf16 and int8 on every block
+    shape, at the split its wrapper picks (SpMM at nvec 16), with a random
+    permutation as the map."""
+    plan = _cm_plan(rc, vdtype, cuda)
+    _cm_call(kernel, plan, _q_x(kernel, plan, cuda), _cm_map(plan.ncols, cuda))
+
+
+@pytest.mark.parametrize("split", ["one", "each_chunk"])
+@pytest.mark.parametrize("vdtype", CM_VDTYPES)
+@pytest.mark.parametrize("kernel", CM_KERNELS)
+def test_cmap_forced_grids(cuda, kernel, vdtype, split):
+    """S = 1 and one chunk a CTA (S = nchunks)."""
+    plan = _cm_plan((4, 8), vdtype, cuda)
+    s = 1 if split == "one" else plan.nchunks
+    _cm_call(kernel, plan, _q_x(kernel, plan, cuda),
+             _cm_map(plan.ncols, cuda), split=s)
+
+
+@pytest.mark.parametrize("nvec", [3, 16, 128])
+@pytest.mark.parametrize("vdtype", CM_VDTYPES)
+@pytest.mark.parametrize("kernel", CM_KERNELS[2:])
+def test_cmap_spmm_widths(cuda, kernel, vdtype, nvec):
+    plan = _cm_plan((2, 4), vdtype, cuda)
+    _cm_call(kernel, plan, _q_x(kernel, plan, cuda, nvec=nvec),
+             _cm_map(plan.ncols, cuda))
+
+
+@pytest.mark.parametrize("kernel", CM_KERNELS)
+def test_cmap_identity_map_matches_the_kernel_without_one(cuda, kernel):
+    """With the identity as the map, a map kernel computes what its twin
+    without a map computes (x padded by the wrapper there, read in place
+    here)."""
+    plan = _cm_plan((2, 4), "f32", cuda)
+    x = _q_x(kernel, plan, cuda)
+    ident = torch.arange(plan.ncols, dtype=torch.int32, device=cuda)
+    y = _cm_call(kernel, plan, x, ident)
+    mod = KDM if kernel.startswith("spmm") else KD
+    y0 = getattr(mod, kernel)(
+        plan.chunk_vbase, plan.chunk_xbase, plan.desc_valid, plan.desc_vidx,
+        plan.desc_xcol, plan.desc_yrow, plan.values, x, r=plan.r, c=plan.c,
+        cb=plan.cb, vmax=plan.vmax, xw=plan.xw, pr=plan.pr, nrows=plan.nrows,
+        ncols_pad=plan.ncols_pad)
+    assert float((y - y0).abs().max()) <= RTOL * float(y0.abs().max())
+
+
+@pytest.mark.parametrize("kernel", CM_KERNELS)
+def test_cmap_int8_span_at_the_end_of_exact_length_values(cuda, kernel):
+    """An int8 plan aligned to 4 values whose last window's span would
+    reach past its values (copied into a tensor of exactly their length),
+    with a map."""
+    plan = _qm_align4_plan("panels", "descriptor", cuda)
+    exact = torch.empty(plan.values.numel(), dtype=plan.values.dtype,
+                        device=cuda)
+    exact.copy_(plan.values)
+    _cm_call(kernel, plan, _q_x(kernel, plan, cuda),
+             _cm_map(plan.ncols, cuda), values=exact)
+
+
+#: Each mask wrapper and the queue 2 B item that ports its map.
+CM_MASK_ITEMS = {"spmv_cuda": 1, "spmv_cuda_db": 1, "spmv_cuda_panels": 2,
+                 "spmv_cuda_panels_db": 2, "spmm_cuda": 4,
+                 "spmm_cuda_panels": 4, "spmm_cuda_panels_db": 4}
+
+
+@pytest.mark.parametrize("kernel", sorted(CM_MASK_ITEMS))
+def test_mask_wrappers_refuse_a_map_on_the_card(cuda, kernel):
+    """A map with CUDA tensors raises naming its queue 2 B item before any
+    launch; without one the same call runs."""
+    mod, layout = QM_KERNELS[kernel]
+    plan = _qm_plan((2, 4), "f32", layout, cuda)
+    x = _qm_x(kernel, plan, cuda)
+    args = ((plan.chunk_vbase, plan.chunk_xbase) if layout == "panels"
+            else (plan.chunk_vbase,)) + (plan.chunk_col, plan.chunk_mask,
+                                         plan.chunk_voff, plan.chunk_row,
+                                         plan.values, x)
+    geom = dict(r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax,
+                nrows=plan.nrows)
+    geom.update(dict(xw=plan.xw, pr=plan.pr, ncols_pad=plan.ncols_pad)
+                if layout == "panels" else dict(ncols=plan.ncols))
+    before = dict(mod.LAUNCHES)
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP queue 2 B, item "
+                             f"{CM_MASK_ITEMS[kernel]}"):
+        getattr(mod, kernel)(*args, _cm_map(plan.ncols, cuda), **geom)
+    assert mod.LAUNCHES == before
+    getattr(mod, kernel)(*args, **geom)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES[kernel] == before[kernel] + 1
+
+
+@pytest.mark.parametrize("layout,lowering,reorder", [
+    ("panels", "descriptor", "rcm"), ("panels", "descriptor", "colwindow"),
+    ("whole_vector", "descriptor", "rcm"), ("test", "descriptor", "rcm"),
+    ("panels", "mask", "panel_rows")])
+def test_reordered_plans_on_the_card_match_the_cpu_plans(cuda, layout,
+                                                         lowering, reorder):
+    """Reordered plans through ``ops`` on the card against the same plans on
+    the CPU (SpMV with both buffer settings, SpMM at 16): a kept col_perm
+    runs the map kernels, a folded one (whole-vector descriptor) none, and
+    a permutation of whole panels (a prebuilt Reordering, rows only) is
+    fused into the mask plan, whose kernels run with no map."""
+    from repro_torch.core import reorder as RE
+    mat = F.csr_to_spc5(matgen.scrambled_banded(3_000, 8, 1.0, seed=42),
+                        1, 8)
+    if reorder == "panel_rows":
+        panels = np.random.default_rng(3).permutation(11)
+        rows = np.concatenate([np.arange(p * 256, (p + 1) * 256)
+                               for p in panels] + [np.arange(2816, 3000)])
+        reorder = RE.Reordering(rows.astype(np.int64),
+                                np.arange(3_000, dtype=np.int64), "custom")
+    kw = dict(layout=layout, lowering=lowering, tune=False, reorder=reorder,
+              pr=256, xw=512, cb=64)
+    if layout == "test":
+        kw["multi_layout"] = "panels"
+    card = ops.prepare(mat, device=cuda, **kw)
+    cpu = ops.prepare(mat, device="cpu", **kw)
+    assert card.is_reordered
+    assert card.rows_fused == (layout != "test" and lowering == "mask"
+                               or layout == "whole_vector")
+    mapped = card.col_perm is not None and layout == "panels"
+    rng = np.random.default_rng(8)
+    KD.reset_launches()
+    KDM.reset_launches()
+    for shape, db in (((3_000,), True), ((3_000,), False),
+                      ((3_000, 16), True)):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        fn = ops.spmv if len(shape) == 1 else ops.spmm
+        y = fn(card, x.to(cuda), double_buffer=db)
+        torch.cuda.synchronize()
+        ref = fn(cpu, x)
+        err = float((y.cpu() - ref).abs().max())
+        assert err <= RTOL * float(ref.abs().max()), err
+    maps = sum(v for k, v in {**KD.LAUNCHES, **KDM.LAUNCHES}.items()
+               if k.endswith("_cmap"))
+    assert maps == (3 if mapped else 0)

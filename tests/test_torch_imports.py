@@ -43,9 +43,12 @@ def test_port_modules_cover_the_slice():
             "core/plan.py", "core/sparse_linear.py", "kernels/_build.py",
             "kernels/spc5_spmv.py", "kernels/spc5_spmm.py",
             "kernels/spc5_spmv_desc.py", "kernels/spc5_spmm_desc.py",
-            "kernels/spc5_spmv_tail.py", "kernels/ops.py"} <= names
+            "kernels/spc5_spmv_tail.py", "kernels/ops.py",
+            "core/reorder.py", "core/structure.py"} <= names
     for src in ("spc5_spmv.cu", "spc5_spmm.cu", "spc5_spmv_desc.cu",
-                "spc5_spmm_desc.cu", "spc5_spmv_tail.cu", "spc5_stage.cuh"):
+                "spc5_spmm_desc.cu", "spc5_spmm_desc_cmap.cu",
+                "spc5_spmv_tail.cu", "spc5_stage.cuh",
+                "spc5_spmm_desc_panels.cuh"):
         assert os.path.isfile(os.path.join(PORT, "kernels", "csrc", src))
 
 
@@ -83,6 +86,7 @@ def _c_params(source, name):
 
 @pytest.mark.parametrize("source", ["spc5_spmv", "spc5_spmv_desc",
                                     "spc5_spmm", "spc5_spmm_desc",
+                                    "spc5_spmm_desc_cmap",
                                     "spc5_spmv_tail"])
 def test_ctypes_signatures_match_the_sources(source):
     """Each entry point's argtypes in ``_build.SIGNATURES`` have the count
@@ -98,6 +102,7 @@ def test_ctypes_signatures_match_the_sources(source):
 
 @pytest.mark.parametrize("source", ["spc5_spmv", "spc5_spmv_desc",
                                     "spc5_spmm", "spc5_spmm_desc",
+                                    "spc5_spmm_desc_cmap",
                                     "spc5_spmv_tail"])
 def test_every_c_entry_point_has_a_signature(source):
     """Every function of a source's ``extern "C"`` block is bound in

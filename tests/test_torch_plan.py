@@ -167,10 +167,21 @@ def test_prepare_without_device_needs_a_card():
     dict(config=JS.PanelConfig(layout="panels", reorder="rcm")),
 ])
 def test_unported_axes_raise(kw):
-    """A float64 store and a reordering config stay refusals."""
-    _, tmat = _pair((1, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.prepare(tmat, device="cpu", **kw)
+    """A float64 store stays a refusal. A config's reorder, once refused,
+    is taken (ROADMAP queue 1, item 5b): the reference's plan, byte for
+    byte, with its reorder strategy."""
+    jmat, tmat = _pair((1, 8))
+    if "config" not in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tops.prepare(tmat, device="cpu", **kw)
+        return
+    tplan = tops.prepare(tmat, device="cpu", **kw)
+    jplan = jops.prepare(jmat, **kw)
+    assert tplan.strategy == jplan.strategy
+    assert tplan.stats == jplan.stats
+    assert tplan.is_reordered == jplan.is_reordered
+    for t, j in zip(tplan.arrays, jplan.arrays):
+        assert t.numpy().tobytes() == np.asarray(j).tobytes()
 
 
 def assert_plans_byte_equal(tplan, jplan):

@@ -196,9 +196,24 @@ def test_from_arrays_reproduces_a_jax_layer(layout):
     dict(store=JS.RecordStore([])), dict(reorder="rcm"), dict(verify=True),
 ])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.SparseLinear.from_dense(_weight()[0], density=0.2, block=(2, 4),
-                                   device="cpu", **kw)
+    """A store and ``verify`` stay refusals. ``reorder`` (once refused)
+    builds the reference's layer, whose forward the port's matches."""
+    w = _weight()[0]
+    if "reorder" not in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TL.SparseLinear.from_dense(w, density=0.2, block=(2, 4),
+                                       device="cpu", **kw)
+        return
+    tl = TL.SparseLinear.from_dense(w, density=0.2, block=(2, 4),
+                                    device="cpu", tune=False, **kw)
+    jl = JL.SparseLinear.from_dense(w, density=0.2, block=(2, 4),
+                                    tune=False, **kw)
+    assert tl.plan.strategy == jl.handle.strategy
+    assert tl.plan.is_reordered == jl.handle.is_reordered
+    assert_arrays_byte_equal(tl.plan, jl.handle)
+    x = np.random.default_rng(8).standard_normal((4, 200)).astype(np.float32)
+    assert_close(tl(torch.from_numpy(x)).numpy(),
+                 jl(jnp.asarray(x), use_pallas=False))
 
 
 @pytest.mark.parametrize("vdtype", ["bf16", "int8"])

@@ -179,9 +179,10 @@ def test_plain_desc_spmm_slices_wide_batches(layout, monkeypatch):
 
 
 def test_plain_desc_spmm_rejects_unported_operands():
-    """A fused column permutation (``cmap``) is still refused; a per-chunk
-    ``value_scale`` is now taken, as in the reference (each chunk's values
-    times its scale)."""
+    """A per-chunk ``value_scale`` is taken, as in the reference (each
+    chunk's values times its scale); so is a fused column permutation
+    (``cmap``, once refused): the panel product reads X's row cmap[col] at
+    permuted column col."""
     d = _dense((60, 50), 0.2, 1)
     _, whole = _plans(d, (2, 4), "whole_vector", GEOM["whole_vector"])
     _, pan = _plans(d, (2, 4), "panels", GEOM["panels"])
@@ -189,9 +190,12 @@ def test_plain_desc_spmm_rejects_unported_operands():
     twice = torch.full((whole.chunk_vbase.shape[0],), 2.0)
     assert torch.allclose(TR.spmm_desc(whole.dev, x, twice, nrows=60),
                           2 * TR.spmm_desc(whole.dev, x, nrows=60))
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        TR.spmm_panels_desc(pan.dev, x, torch.arange(50), pr=pan.pr,
-                            nrows=60, ncols_pad=pan.ncols_pad)
+    cmap = torch.from_numpy(np.random.default_rng(5).permutation(50))
+    assert torch.allclose(
+        TR.spmm_panels_desc(pan.dev, x, cmap, pr=pan.pr, nrows=60,
+                            ncols_pad=pan.ncols_pad),
+        torch.from_numpy(d.astype(np.float64) @ x.numpy()[cmap.numpy()]
+                         .astype(np.float64)).float(), rtol=1e-5, atol=1e-5)
 
 
 # ----------------------------------------------------------------------------
@@ -248,8 +252,12 @@ def test_desc_spmm_wrapper_rejects_unported_operands(kernel):
     with pytest.raises(NotImplementedError, match="int8"):
         fn(*args, x, value_scale=torch.ones(1), **kw)
     if "panels" in kernel:
-        with pytest.raises(NotImplementedError, match="col_map"):
-            fn(*args, x, torch.arange(x.shape[0], dtype=torch.int32), **kw)
+        # a column map, once refused, is taken on the CPU: the plain version
+        # reads x[col_map[column]], what the unmapped call reads of
+        # x[col_map]
+        cmap = torch.arange(x.shape[0] - 1, -1, -1, dtype=torch.int32)
+        assert torch.equal(fn(*args, x, cmap, **kw),
+                           fn(*args, x[cmap.long()].contiguous(), **kw))
 
 
 @pytest.mark.parametrize("kernel", KERNELS)

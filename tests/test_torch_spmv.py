@@ -121,8 +121,11 @@ def test_wrapper_on_cpu_runs_plain_version_and_launches_nothing(kernel):
 def test_wrapper_rejects_unported_operands(kernel):
     args, x, kw, _ = _wrapper_args(kernel)
     fn = getattr(K, kernel)
-    with pytest.raises(NotImplementedError, match="col_map"):
-        fn(*args, x, torch.arange(x.shape[0], dtype=torch.int32), **kw)
+    # a column map, once refused, is taken on the CPU: the plain version
+    # reads x[col_map[column]], what the unmapped call reads of x[col_map]
+    cmap = torch.arange(x.shape[0] - 1, -1, -1, dtype=torch.int32)
+    assert torch.equal(fn(*args, x, cmap, **kw),
+                       fn(*args, x[cmap.long()].contiguous(), **kw))
     with pytest.raises(NotImplementedError, match="int8"):
         fn(*args, x, None, torch.ones(1), **kw)
 

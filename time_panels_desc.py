@@ -4,7 +4,7 @@
     python3 time_panels_desc.py [--layout panels|whole|tail]
                                 [--lowering mask|descriptor|both] [--cb N]
                                 [--label NAME] [--out FILE]
-    python3 time_panels_desc.py --against DIR [--out FILE]
+    python3 time_panels_desc.py --against DIR [--sass-only] [--out FILE]
 
 A shorter run than ``chip_smoke.py`` for work on the SpMV kernels of
 ``spc5_spmv.cu`` (mask) and ``spc5_spmv_desc.cu`` (descriptor). It builds
@@ -59,14 +59,17 @@ matrix (``--cb``: those two plans cut into chunks of N blocks instead):
 
 ``--against DIR`` compares this tree with another checkout of the
 repository unpacked in DIR (the parent commit's ``git archive``, say)
-instead: (1) the static SASS of every f32 kernel of the five CUDA sources,
+instead: (1) the static SASS of every kernel of the five CUDA sources,
 both trees' compiled by nvcc into cubins side by side (``cuobjdump
--sass``, the names demangled, each f32 instantiation matched by name and
+-sass``, the names demangled, each instantiation matched by name and
 template arguments): the kernels whose opcode sequences differ, with their
-instruction counts and ``-Xptxas -v`` registers, and the registers and
-stack of every narrow one; (2) the f32 whole-vector descriptor SpMV pair
-on the vocab token plan and the four mask SpMV kernels at bf16 and int8 on
-the vocab mask layers, each timed in a subprocess of each tree with that
+instruction counts and ``-Xptxas -v`` registers, counted for the f32
+instantiations (matched without their value type, which older trees lack)
+and for every instantiation DIR has, narrow ones too (kernels only this
+tree has, such as the column-map kernels, are new, not compared); (2)
+unless ``--sass-only``, the f32 whole-vector descriptor SpMV pair on the
+vocab token plan and the four mask SpMV kernels at bf16 and int8 on the
+vocab mask layers, each timed in a subprocess of each tree with that
 tree's own wrappers and kernels, in turns (DIR, this, this, DIR), on the
 same seeded inputs.
 
@@ -409,6 +412,13 @@ def _f32_key(mangled, demangled):
     return k.replace("<float>", "").replace("float, ", "").strip()
 
 
+def _kernel_key(demangled):
+    """The kernel's name and template arguments, every value type kept."""
+    k = demangled[5:] if demangled.startswith("void ") else demangled
+    k = re.sub(r"\(anonymous namespace\)::|<unnamed>::", "", k)
+    return re.sub(r"\((?:int|unsigned int|bool)\)", "", k).split("(")[0]
+
+
 def _ptxas(log):
     """{mangled: registers line, mangled + "#stack": stack line} of an
     ``-Xptxas -v`` log."""
@@ -424,15 +434,15 @@ def _ptxas(log):
     return out
 
 
-def against(other):
-    """``--against DIR``: the SASS comparison and the timings in turns (see
-    the module docstring), the cubins in a temporary directory. Returns the
-    result."""
+def against(other, sass_only=False):
+    """``--against DIR``: the SASS comparison and (unless ``sass_only``) the
+    timings in turns (see the module docstring), the cubins in a temporary
+    directory. Returns the result."""
     with tempfile.TemporaryDirectory() as work:
-        return _against(os.path.abspath(other), work)
+        return _against(os.path.abspath(other), work, sass_only)
 
 
-def _against(other, work):
+def _against(other, work, sass_only=False):
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     runs = {"this": _compile_cubins(str(_build.CSRC), work, "this"),
@@ -476,18 +486,34 @@ def _against(other, work):
         narrow = {d: [regs["this"].get(m), regs["this"].get(m + "#stack")]
                   for m, d in keys["this"].items()
                   if _f32_key(m, d) is None}
+        every = {tag: {_kernel_key(d): m for m, d in keys[tag].items()}
+                 for tag in runs}
+        all_same = [k for k, m in every["other"].items()
+                    if k in every["this"]
+                    and ops_["this"][every["this"][k]] == ops_["other"][m]]
+        all_differ = sorted(k for k in every["other"]
+                            if k in every["this"] and k not in all_same)
+        new = sorted(k for k in every["this"] if k not in every["other"])
         sass[name] = {"f32_kernels": len(f32["other"]), "same": len(same),
                       "differ": differ, "missing": missing,
-                      "narrow": narrow}
+                      "narrow": narrow,
+                      "all_kernels": len(every["other"]),
+                      "all_same": len(all_same), "all_differ": all_differ,
+                      "new": new}
         print(f"SASS {name}: {len(f32['other'])} f32 kernels in {other}, "
               f"{len(same)} with the same opcodes here, {len(differ)} "
-              f"differ, {len(missing)} missing; {len(narrow)} narrow ones")
+              f"differ, {len(missing)} missing; {len(narrow)} narrow ones; "
+              f"every instantiation: {len(every['other'])} in {other}, "
+              f"{len(all_same)} the same here, {len(all_differ)} differ, "
+              f"{len(new)} new here")
+        for k in all_differ:
+            print(f"  differs (any width): {k}")
         for k, d in differ.items():
             print(f"  differs: {k}: {d['instructions'][0]} -> "
                   f"{d['instructions'][1]} instructions; registers "
                   f"{d['registers'][0]} -> {d['registers'][1]}")
     times = {"other": [], "this": []}
-    for tag in ("other", "this", "this", "other"):
+    for tag in (() if sass_only else ("other", "this", "this", "other")):
         root = other if tag == "other" else S.HERE
         print(f"against: timing in {tag} ({root})")
         proc = subprocess.run(
@@ -499,7 +525,7 @@ def _against(other, work):
         times[tag].append(json.loads(proc.stdout.strip().splitlines()[-1]))
     result = {"card": S.card_line(), "other": other, "sass": sass,
               "times": {}}
-    for plan, vdtype, name in AGAINST_TIMES:
+    for plan, vdtype, name in (() if sass_only else AGAINST_TIMES):
         key = f"{plan} {vdtype} {name}"
         t = {tag: [run[key] for run in runs_] for tag, runs_ in times.items()}
         ratio = np.mean(t["this"]) / np.mean(t["other"])
@@ -523,6 +549,8 @@ def main() -> int:
     ap.add_argument("--out", default="")
     ap.add_argument("--against", default="",
                     help="compare with the tree in this directory instead")
+    ap.add_argument("--sass-only", action="store_true",
+                    help="with --against: compare the SASS, time nothing")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_panels_desc: no CUDA device", file=sys.stderr)
@@ -531,7 +559,7 @@ def main() -> int:
     card = S.card_line()
     print(card)
     if args.against:
-        result = against(args.against)
+        result = against(args.against, args.sass_only)
         if args.out:
             with open(args.out, "w") as f:
                 json.dump(result, f)
