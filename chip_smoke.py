@@ -9,7 +9,9 @@ phase that goes wrong:
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
    for sm_90a, one nvcc per source, all started together, and prints the
-   build time and each kernel's registers (``-Xptxas -v``);
+   build time and each kernel's registers (``-Xptxas -v``); meanwhile it
+   makes the host-only inputs of the later phases (the FEM matrix, the
+   band and its RCM reordering, the vocab weight);
 3. holds all sixteen kernels against their plain PyTorch versions on
    small matrices of every supported block shape (SpMM at nvec 3, 16 and
    128), the seven descriptor kernels also on a matrix wider and one
@@ -25,15 +27,17 @@ phase that goes wrong:
    16 and 128, planned launch and S / G = 1), with all-zero chunks (scale
    1.0), int8 windows that start off a 16-byte boundary and int8 plans
    whose last window's 16-byte aligned span would reach past their values
-   (the kernels copy it short of that); and the four panel descriptor
-   kernels with a column map (a reordered plan's column permutation, each
-   counted under its own name, ``spmv_cuda_panels_desc_cmap`` and so on)
-   at f32, bf16 and int8 on every block shape with a random permutation,
-   windows reaching columns at or past ncols, and an int8 plan whose last
+   (the kernels copy it short of that); and the eleven kernels with a
+   column map (a reordered plan's column permutation, each counted under
+   its own name, ``spmv_cuda_panels_desc_cmap``, ``spmv_cuda_cmap`` and so
+   on: the four panel descriptor twins and the seven mask twins) at f32,
+   bf16 and int8 on every block shape with a random permutation, on panel
+   plans whose windows reach columns at or past ncols and on whole-vector
+   mask plans (also with their chunks in a random order: block rows out
+   of order), and on an int8 plan of each layout and lowering whose last
    span would reach past its exact-length values (SpMV at the planned
-   launch, S = 1 and one chunk a CTA; SpMM at nvec 3, 16 and 128, planned
-   launch and S = 1), while each of the seven mask wrappers must refuse a
-   map on the card naming its ROADMAP queue 2 B item, before any launch;
+   launch, S / G = 1 and one chunk a CTA; SpMM at nvec 3, 16 and 128,
+   planned launch and S / G = 1);
 4. SpMV path: builds ``matgen.fem_blocks(200_000, 4, 12, seed=5)``, the
    SET_A bone010 structure class at 200,000 rows (about 9.5 M nonzeros), in
    beta(4,4), and drives ``ops.prepare`` + ``ops.spmv`` through both
@@ -47,20 +51,25 @@ phase that goes wrong:
    and registers printed);
 4b. reorder path: ``matgen.scrambled_banded(1_000_000, 8, 1.0, seed=42)``
    (the reference bench's reorder matrix class, about 6.5 M nonzeros) in
-   beta(1,8) through ``ops.prepare(layout="panels", pr=256, xw=512, cb=64,
-   tune=False, reorder="rcm")``, which must be panels + descriptor with
-   ``col_perm`` and ``row_iperm`` kept and fewer chunks than the original
-   order (both printed, with the host seconds of the reorder pass); beside
-   it the unreordered plan, whole-vector + descriptor (the original order's
-   panel plan would pad every panel to the largest panel's chunk count,
-   each chunk about one block: far past the card); ``ops.spmv`` with both
-   buffer settings and ``ops.spmm`` at 16 and 128 with both run the four
-   map kernels and nothing else, each output held against the unreordered
-   plan's and the float64 CSR product; each map kernel timed in turns with
+   beta(1,8): its RCM ``Reordering`` built once on the host
+   (``reorder.reorder(mat, "rcm")`` at pr=256, xw=512, cb=64, its seconds
+   printed) and handed to ``ops.prepare(layout="panels", pr=256, xw=512,
+   cb=64, tune=False, reorder=reo)``, which must be panels + descriptor
+   with ``col_perm`` and ``row_iperm`` kept and fewer chunks than the
+   original order, and to two mask plans, ``layout="panels",
+   lowering="mask"`` (same geometry) and ``layout="whole_vector",
+   lowering="mask"``, each with ``col_perm`` kept; beside them the
+   unreordered plans, whole-vector + descriptor and whole-vector + mask
+   (the original order's panel plan would pad every panel to the largest
+   panel's chunk count, each chunk about one block: far past the card);
+   on each reordered plan ``ops.spmv`` with both buffer settings and
+   ``ops.spmm`` at 16 and 128 with both run its map kernels and nothing
+   else, each output held against the unreordered plan of its lowering and
+   the float64 CSR product; each map kernel timed in turns with
    the same kernel on the same arrays against x[col_perm] with no map (the
    map's cost), beside its bound (the map's 4 * ncols bytes counted once),
-   its plain version and cuSPARSE on the same CSR, and the reordered and
-   unreordered SpMV through ``ops`` beside cuSPARSE;
+   its plain version and cuSPARSE on the same CSR, and the SpMV of all five
+   band plans through ``ops`` beside cuSPARSE;
 5. SparseLinear path: the vocab projection of yi-6b (64,000 x 4,096, the
    weight ``serve.py``'s vocab bench draws: ``default_rng(0)``, standard
    normal, float32), magnitude-pruned to density 0.1 (beta(4,8) by eq. 4),
@@ -116,12 +125,15 @@ phase that goes wrong:
    by ``default_rng(7)``), which must be panels + descriptor with the rows
    fused and ``col_perm`` kept, and the same Reordering through
    ``ops.prepare(mat, vdtype=..., nvec=128, reorder=...)`` at bf16 and
-   int8: forwards at batch 1, 16 and 128 and their
-   ``double_buffer=False`` twins run the four map kernels at every width
-   and nothing else, each output held against its plain version, the f64
-   (dequantised) product, the unreordered layer of its width (f32, bf16;
-   int8's chunk scales change with the chunks) and the bf16 / int8 pins;
-   each map kernel timed in turns against its twin on x[col_perm];
+   int8 and through the two mask layers (``lowering="mask"``, auto layout
+   panels, and ``layout="whole_vector", lowering="mask"``) at f32, bf16
+   and int8, rows fused and ``col_perm`` kept: forwards at batch 1, 16 and
+   128 and their ``double_buffer=False`` twins run the eleven map kernels
+   at every width and nothing else, each output held against its plain
+   version, the f64 (dequantised) product, the unreordered layer of its
+   layout, lowering and width (f32, bf16; int8's chunk scales change with
+   the chunks) and the bf16 / int8 pins; each map kernel timed in turns
+   against its twin on x[col_perm];
 6. beta(r,c)_test path: the same weight in beta(2,4) (whose singleton
    blocks hold about 30 % of the nonzeros) as
    ``SparseLinear.from_dense(w, density=0.1, block=(2, 4), layout="test",
@@ -189,6 +201,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -298,12 +311,42 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def build_kernels() -> None:
+def start_build():
+    """Start building every kernel (``_build.build_all``: one nvcc process a
+    source, all together) in a thread, so that host work goes on beside it.
+    Returns a function that waits for the build, raises what it raised and
+    prints its report (:func:`build_kernels`)."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc "
-          f"{' '.join(_build.NVCC_FLAGS)})")
+    done = {}
+
+    def run():
+        try:
+            _build.build_all()
+        except BaseException as e:  # re-raised by the caller's wait
+            done["error"] = e
+        done["seconds"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "error" in done:
+            raise done["error"]
+        report_build(done["seconds"])
+    return wait
+
+
+def build_kernels() -> None:
+    start_build()()
+
+
+def report_build(seconds) -> None:
+    """Print the build's time and each kernel's registers (``-Xptxas -v``),
+    keeping them in :data:`REGISTERS`."""
+    from repro_torch.kernels import _build
+    print(f"build: {seconds:.2f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
     for name, rec in _build.BUILD_LOG.items():
         print(f"  {name}: nvcc {rec['seconds']:.2f} s")
         kernel = ""
@@ -2652,15 +2695,15 @@ def measure_test_quantised(plan, flat, f32_flat, x1, acts, lib,
 
 
 # ----------------------------------------------------------------------------
-# The reorder pass: a reordered plan's column permutation in the four panel
-# descriptor kernels (column maps), on the reference's reorder matrix and on
-# the vocab layer
+# The reorder pass: a reordered plan's column permutation (column maps) in
+# the four panel descriptor kernels and the seven mask kernels, on the
+# reference's reorder matrix and on the vocab layer
 # ----------------------------------------------------------------------------
 
-#: The four kernels with a column map, by the name their wrappers count
-#: their launches under: the twin without a map (the same wrapper, called
+#: The eleven kernels with a column map, by the name their wrappers count
+#: their launches under: the kernel without a map (the same wrapper, called
 #: without ``col_map``) and the Pallas function whose ``col_map`` path they
-#: replace.
+#: replace. The four panel descriptor twins, then the seven mask twins.
 CMAP_KERNELS = {
     "spmv_cuda_panels_desc_db_cmap": ("spmv_cuda_panels_desc_db",
                                       "src/repro/kernels/spc5_spmv.py:925"),
@@ -2670,14 +2713,25 @@ CMAP_KERNELS = {
                                       "src/repro/kernels/spc5_spmm.py:768"),
     "spmm_cuda_panels_desc_cmap": ("spmm_cuda_panels_desc",
                                    "src/repro/kernels/spc5_spmm.py:654"),
+    "spmv_cuda_db_cmap": ("spmv_cuda_db",
+                          "src/repro/kernels/spc5_spmv.py:1000"),
+    "spmv_cuda_cmap": ("spmv_cuda", "src/repro/kernels/spc5_spmv.py:223"),
+    "spmv_cuda_panels_db_cmap": ("spmv_cuda_panels_db",
+                                 "src/repro/kernels/spc5_spmv.py:490"),
+    "spmv_cuda_panels_cmap": ("spmv_cuda_panels",
+                              "src/repro/kernels/spc5_spmv.py:376"),
+    "spmm_cuda_cmap": ("spmm_cuda", "src/repro/kernels/spc5_spmm.py:140"),
+    "spmm_cuda_panels_db_cmap": ("spmm_cuda_panels_db",
+                                 "src/repro/kernels/spc5_spmm.py:449"),
+    "spmm_cuda_panels_cmap": ("spmm_cuda_panels",
+                              "src/repro/kernels/spc5_spmm.py:309"),
 }
-CMAP_SOURCE = {"spmv": "src/repro_torch/kernels/csrc/spc5_spmv_desc.cu",
-               "spmm": "src/repro_torch/kernels/csrc/spc5_spmm_desc_cmap.cu"}
-#: Each mask wrapper and the ROADMAP queue 2 B item that ports its map: on
-#: the card a map raises before any launch.
-MASK_MAP_ITEMS = {"spmv_cuda": 1, "spmv_cuda_db": 1, "spmv_cuda_panels": 2,
-                  "spmv_cuda_panels_db": 2, "spmm_cuda": 4,
-                  "spmm_cuda_panels": 4, "spmm_cuda_panels_db": 4}
+#: Each map kernel's source, by (SpMM, descriptor).
+CMAP_SOURCE = {
+    (False, True): "src/repro_torch/kernels/csrc/spc5_spmv_desc.cu",
+    (True, True): "src/repro_torch/kernels/csrc/spc5_spmm_desc_cmap.cu",
+    (False, False): "src/repro_torch/kernels/csrc/spc5_spmv.cu",
+    (True, False): "src/repro_torch/kernels/csrc/spc5_spmm_cmap.cu"}
 #: The reference bench's reorder matrix class (benchmarks/bench_spmv_seq.py:
 #: 79-97, a band under a random symmetric permutation) at atmosmodd scale
 #: (about 6.5 M nonzeros), in beta(1,8), and the bench's first panel
@@ -2687,111 +2741,171 @@ REORDER = dict(dim=1_000_000, band=8, fill=1.0, seed=42, block=(1, 8),
 #: The map kernels' aim: at most this many times the same kernel run on the
 #: same arrays against x[col_perm] with no map, timed in turns.
 CMAP_AIM = 1.10
+#: The plans the small check holds the map kernels on: (layout, lowering,
+#: geometry).
+SMALL_CMAP_PLANS = (("panels", "descriptor", dict(pr=64, xw=64, cb=4)),
+                    ("panels", "mask", dict(pr=64, xw=64, cb=4)),
+                    ("whole_vector", "mask", dict(cb=16)))
+
+
+def cmap_plan_key(name):
+    """The plan (layout, lowering) map kernel ``name`` runs on."""
+    if "desc" in name:
+        return "panels", "descriptor"
+    return ("panels" if "panels" in name else "whole_vector"), "mask"
+
+
+def plan_kernels(plan):
+    """The map kernels that run on ``plan``'s layout and lowering."""
+    return [k for k in CMAP_KERNELS
+            if cmap_plan_key(k) == (plan.layout, plan.lowering)]
+
+
+def mapped_plain(plan, dev, scale, v, cmap):
+    """The plain version of ``plan``'s product (its tensors ``dev``) with
+    column map ``cmap``: the panel layouts map each column through it, the
+    whole-vector one reads ``x[cmap]``."""
+    from repro_torch.core import ref_spmv as R
+    spmm = v.dim() == 2
+    if plan.lowering == "descriptor":
+        fn = R.spmm_panels_desc if spmm else R.spmv_panels_desc
+        return fn(dev, v, cmap, scale, pr=plan.pr, nrows=plan.nrows,
+                  ncols_pad=plan.ncols_pad)
+    if plan.layout == "panels":
+        fn = R.spmm_panels if spmm else R.spmv_panels
+        return fn(dev, v, cmap, scale, r=plan.r, c=plan.c, pr=plan.pr,
+                  nrows=plan.nrows, ncols_pad=plan.ncols_pad)
+    fn = R.spmm if spmm else R.spmv
+    return fn(dev, v.index_select(0, cmap), scale, r=plan.r, c=plan.c,
+              nrows=plan.nrows, ncols=plan.ncols)
 
 
 def cmap_check(plan, cmap, x, xs, values=None):
-    """The four map kernels on ``plan`` with map ``cmap`` against their
-    plain version: SpMV at the planned launch, S = 1 and one chunk a CTA;
-    SpMM on each X of ``xs`` at the planned launch and S = 1. Returns
-    (worst error over max|y|, calls per kernel)."""
-    from repro_torch.core import ref_spmv as R
+    """The map kernels of ``plan``'s layout and lowering with map ``cmap``
+    against their plain version: SpMV at the planned launch, S = 1 / G = 1
+    and one chunk a CTA; SpMM on each X of ``xs`` at the planned launch and
+    S = 1 / G = 1. Returns (worst error over max|y|, calls per kernel)."""
     from repro_torch.core.plan import _plan_scale
     dev = plan.dev if values is None else plan.dev._replace(values=values)
     scale = _plan_scale(plan)
+    key = "split" if plan.layout == "panels" else "grid"
+    nchunks = int(plan.chunk_vbase.shape[-1])
     worst, calls = 0.0, {}
-    for name, (twin, _) in CMAP_KERNELS.items():
+    for name in plan_kernels(plan):
+        twin = CMAP_KERNELS[name][0]
         spmm = name.startswith("spmm")
-        fn = R.spmm_panels_desc if spmm else R.spmv_panels_desc
-        forced = (None, 1) if spmm else (None, 1, plan.nchunks)
+        forced = (None, 1) if spmm else (None, 1, nchunks)
         for v in (xs.values() if spmm else (x,)):
-            want = fn(dev, v, cmap, scale, pr=plan.pr, nrows=plan.nrows,
-                      ncols_pad=plan.ncols_pad)
+            want = mapped_plain(plan, dev, scale, v, cmap)
             for f in forced:
                 got = kernel_call(twin, plan, v, values=values, col_map=cmap,
-                                  **({} if f is None else {"split": f}))()
+                                  **({} if f is None else {key: f}))()
                 err = rel_err(got, want)
                 worst = max(worst, err)
                 calls[name] = calls.get(name, 0) + 1
                 if tuple(got.shape) != tuple(want.shape) or not err <= TOL:
                     raise SmokeFailure(
                         f"small check: {name} {value_label(plan)} "
-                        f"{(plan.r, plan.c)} {tuple(v.shape)} split={f}: rel "
+                        f"{(plan.r, plan.c)} {tuple(v.shape)} {key}={f}: rel "
                         f"err {err}")
     return worst, calls
 
 
-def reaching_int8_plan(device):
-    """An int8 panel descriptor plan (powerlaw, beta(4,8), pr = xw = 64,
-    cb 4) whose last window's 16-byte aligned span would reach past its
-    values."""
+def reaching_int8_plan(device, layout="panels", lowering="descriptor",
+                       geom=None):
+    """An int8 plan (powerlaw, beta(4,8); panels of 64 rows, windows of 64
+    columns, cb 4, unless ``geom``) whose last window's 16-byte aligned
+    span would reach past its values."""
     from repro_torch.core import formats as F
     from repro_torch.core import matgen
     from repro_torch.kernels import ops
+    geom = dict(pr=64, xw=64, cb=4) if geom is None else geom
     for seed in range(40):
         mat = F.csr_to_spc5(matgen.powerlaw(200 + 10 * seed, 5, seed=seed),
                             4, 8)
-        plan = ops.prepare(mat, layout="panels", lowering="descriptor",
-                           vdtype="int8", tune=False, device=device, pr=64,
-                           xw=64, cb=4)
+        plan = ops.prepare(mat, layout=layout, lowering=lowering,
+                           vdtype="int8", tune=False, device=device, **geom)
         if spans_past_values(plan):
             return plan
-    raise SmokeFailure("small check: no int8 plan's last span reaches past "
-                       "its values")
+    raise SmokeFailure(f"small check: no int8 {layout} {lowering} plan's "
+                       f"last span reaches past its values")
+
+
+def shuffled_chunks(plan, seed):
+    """``plan`` with its chunks in a random order (the values stay where
+    they lie, each chunk's window start goes with it): the whole-vector
+    kernels then meet block rows out of order."""
+    import dataclasses
+    import torch
+    n = int(plan.chunk_vbase.shape[0])
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(n)).to(
+        plan.values.device)
+    arrays = tuple(a if a is plan.values else a.index_select(0, perm)
+                   for a in plan.arrays)
+    return dataclasses.replace(plan, arrays=arrays)
 
 
 def small_check_cmap(device) -> float:
-    """The four map kernels at f32, bf16 and int8 on every block shape
-    (302 x 700 in panels of 64 rows and windows of 64 columns, cb 4: 700 %
-    64 != 0, so the last windows reach columns at or past ncols), each with
-    a random permutation as its map: SpMV at its planned launch, S = 1 and
-    one chunk a CTA, SpMM at nvec 3, 16 and 128 at its planned launch and S
-    = 1; an int8 plan whose last span would reach past its values, copied
-    into a tensor of exactly their length; each counted once a call under
-    its own name. Then each of the seven mask wrappers must refuse a map on
-    the card, naming its ROADMAP queue 2 B item, before any launch. Returns
-    the worst error over max|y|."""
+    """The eleven map kernels at f32, bf16 and int8 on every block shape
+    (302 x 700; the panel plans in panels of 64 rows and windows of 64
+    columns, cb 4: 700 % 64 != 0, so the last windows reach columns at or
+    past ncols; the whole-vector mask plan at cb 16), each with a random
+    permutation as its map: SpMV at its planned launch, S = 1 / G = 1 and
+    one chunk a CTA, SpMM at nvec 3, 16 and 128 at its planned launch and
+    S = 1 / G = 1; the whole-vector mask twins also on a plan whose chunks
+    come in a random order (block rows out of order); an int8 plan of each
+    layout and lowering whose last span would reach past its values,
+    copied into a tensor of exactly their length; each counted once a call
+    under its own name. Returns the worst error over max|y|."""
     import torch
     from repro_torch.core import formats as F
     from repro_torch.kernels import ops
     counts = reset_all_launches()
     worst, calls = 0.0, {}
+
+    def run(plan, cmap, x, xs, values=None):
+        nonlocal worst
+        err, n = cmap_check(plan, cmap, x, xs, values)
+        worst = max(worst, err)
+        for k, v in n.items():
+            calls[k] = calls.get(k, 0) + v
+
+    def inputs(rng, ncols, nvecs):
+        cmap = torch.from_numpy(rng.permutation(ncols).astype(
+            np.int32)).to(device)
+        x = torch.from_numpy(rng.standard_normal(ncols).astype(
+            np.float32)).to(device)
+        xs = {n: torch.from_numpy(rng.standard_normal((ncols, n)).astype(
+            np.float32)).to(device) for n in nvecs}
+        return cmap, x, xs
+
     for rc in F.SUPPORTED_BLOCKS:
         rng = np.random.default_rng(5 * rc[0] + rc[1])
         d = ((rng.random((302, 700)) < 0.05)
              * rng.standard_normal((302, 700))).astype(np.float32)
         mat = F.csr_to_spc5(F.csr_from_dense(d), *rc)
-        cmap = torch.from_numpy(rng.permutation(700).astype(np.int32)).to(
-            device)
-        x = torch.from_numpy(rng.standard_normal(700).astype(
-            np.float32)).to(device)
-        xs = {n: torch.from_numpy(rng.standard_normal((700, n)).astype(
-            np.float32)).to(device) for n in (3, 16, 128)}
+        cmap, x, xs = inputs(rng, 700, (3, 16, 128))
         for vdtype in ("f32", *VDTYPES):
-            plan = ops.prepare(mat, layout="panels", lowering="descriptor",
-                               vdtype=vdtype, tune=False, device=device,
-                               pr=64, xw=64, cb=4)
-            if plan.ncols % plan.xw == 0 or plan.ncols_pad <= plan.ncols:
-                raise SmokeFailure(f"small check: {rc} windows stay inside "
-                                   f"ncols ({plan.ncols}, {plan.xw})")
-            err, n = cmap_check(plan, cmap, x, xs)
-            worst = max(worst, err)
-            for k, v in n.items():
-                calls[k] = calls.get(k, 0) + v
-    plan = reaching_int8_plan(device)
-    rng = np.random.default_rng(3)
-    exact = torch.empty(plan.values.numel(), dtype=plan.values.dtype,
-                        device=device)
-    exact.copy_(plan.values)
-    cmap = torch.from_numpy(rng.permutation(plan.ncols).astype(
-        np.int32)).to(device)
-    x = torch.from_numpy(rng.standard_normal(plan.ncols).astype(
-        np.float32)).to(device)
-    xs = {16: torch.from_numpy(rng.standard_normal((plan.ncols, 16)).astype(
-        np.float32)).to(device)}
-    err, n = cmap_check(plan, cmap, x, xs, values=exact)
-    worst = max(worst, err)
-    for k, v in n.items():
-        calls[k] = calls.get(k, 0) + v
+            for layout, lowering, geom in SMALL_CMAP_PLANS:
+                plan = ops.prepare(mat, layout=layout, lowering=lowering,
+                                   vdtype=vdtype, tune=False, device=device,
+                                   **geom)
+                if layout == "panels" and (plan.ncols % plan.xw == 0
+                                           or plan.ncols_pad <= plan.ncols):
+                    raise SmokeFailure(f"small check: {rc} windows stay "
+                                       f"inside ncols ({plan.ncols}, "
+                                       f"{plan.xw})")
+                run(plan, cmap, x, xs)
+                if layout == "whole_vector" and vdtype == "f32":
+                    run(shuffled_chunks(plan, 5), cmap, x, xs)
+    for seed, (layout, lowering, geom) in enumerate(SMALL_CMAP_PLANS):
+        plan = reaching_int8_plan(device, layout, lowering, geom)
+        exact = torch.empty(plan.values.numel(), dtype=plan.values.dtype,
+                            device=device)
+        exact.copy_(plan.values)
+        cmap, x, xs = inputs(np.random.default_rng(3 + seed), plan.ncols,
+                             (16,))
+        run(plan, cmap, x, xs, values=exact)
     launches = counts()
     for name in CMAP_KERNELS:
         if launches[name] != calls[name]:
@@ -2801,47 +2915,15 @@ def small_check_cmap(device) -> float:
     others = {k: v for k, v in launches.items() if v and k not in calls}
     if others:
         raise SmokeFailure(f"small check: the map calls counted {others}")
-    check_mask_map_refusals(device)
     print(f"  column maps: the {len(CMAP_KERNELS)} map kernels at f32, bf16 "
-          f"and int8 x {len(F.SUPPORTED_BLOCKS)} block shapes (SpMV at the "
-          f"planned launch, S = 1, one chunk a CTA; SpMM nvec 3, 16, 128 at "
-          f"the planned launch and S = 1), windows past ncols, an int8 plan "
-          f"whose last span would reach past its exact-length values; "
-          f"launches {calls}; the {len(MASK_MAP_ITEMS)} mask wrappers refuse "
-          f"a map on the card; worst {worst:.3g} of max|y|")
+          f"and int8 x {len(F.SUPPORTED_BLOCKS)} block shapes on panel "
+          f"descriptor, panel mask and whole-vector mask plans (SpMV at the "
+          f"planned launch, S / G = 1, one chunk a CTA; SpMM nvec 3, 16, 128 "
+          f"at the planned launch and S / G = 1), windows past ncols, "
+          f"whole-vector chunks out of order, int8 plans whose last span "
+          f"would reach past their exact-length values; launches {calls}; "
+          f"worst {worst:.3g} of max|y|")
     return worst
-
-
-def check_mask_map_refusals(device) -> None:
-    """Each mask wrapper, given a map on the card, raises
-    ``NotImplementedError`` naming its ROADMAP queue 2 B item, and counts no
-    launch."""
-    import torch
-    from repro_torch.core import formats as F
-    from repro_torch.kernels import ops
-    rng = np.random.default_rng(9)
-    d = ((rng.random((302, 260)) < 0.08)
-         * rng.standard_normal((302, 260))).astype(np.float32)
-    mat = F.csr_to_spc5(F.csr_from_dense(d), 2, 4)
-    cmap = torch.from_numpy(rng.permutation(260).astype(np.int32)).to(device)
-    counts = reset_all_launches()
-    for name, item in MASK_MAP_ITEMS.items():
-        layout = "panels" if "panels" in name else "whole_vector"
-        plan = ops.prepare(mat, layout=layout, lowering="mask", tune=False,
-                           device=device, **SMALL_GEOM[layout])
-        shape = (260, 16) if name.startswith("spmm") else (260,)
-        x = torch.zeros(shape, dtype=torch.float32, device=device)
-        try:
-            kernel_call(name, plan, x, col_map=cmap)()
-        except NotImplementedError as e:
-            if f"ROADMAP queue 2 B, item {item}" not in str(e):
-                raise SmokeFailure(f"{name}: a map raised {e!r}, naming no "
-                                   f"queue 2 B item {item}") from None
-        else:
-            raise SmokeFailure(f"{name} took a column map on the card")
-    launched = {k: v for k, v in counts().items() if v}
-    if launched:
-        raise SmokeFailure(f"the mask wrappers' refusals launched {launched}")
 
 
 def map_bound(plan, nnz, nvec=1):
@@ -2891,69 +2973,114 @@ def make_band():
     return csr, mat
 
 
-def build_band_plans(mat, device):
-    """The reordered plan ``ops.prepare(mat, layout="panels", pr=256,
-    xw=512, cb=64, tune=False, reorder="rcm")``, which must be panels +
-    descriptor with col_perm and row_iperm kept and fewer chunks than the
-    original order, and the unreordered plan beside it: whole-vector +
-    descriptor (the original order's panel plan at this geometry pads every
-    panel to the largest panel's count of chunks, each about one block in
-    this scattered structure: far past the card; the stats say how many)."""
-    from repro_torch.kernels import ops
+def band_reordering(mat):
+    """The band's RCM Reordering, built once on the host
+    (``reorder.reorder(mat, "rcm")`` at the panel geometry: what
+    ``ops.prepare(reorder="rcm")`` builds there). Returns it and its host
+    seconds."""
+    from repro_torch.core import reorder as RE
     geom = {k: REORDER[k] for k in ("pr", "xw", "cb")}
     t0 = time.perf_counter()
-    plan = ops.prepare(mat, layout="panels", tune=False, reorder="rcm",
-                       device=device, **geom)
+    reo = RE.reorder(mat, "rcm", r=mat.r, c=mat.c, **geom)
+    seconds = time.perf_counter() - t0
+    print(f"band RCM reordering: reorder() {seconds:.1f} s of host, stats "
+          f"{json.dumps(reo.stats, sort_keys=True)}")
+    return reo, seconds
+
+
+def build_band_plans(mat, reo, device):
+    """The plans the band's Reordering ``reo`` (:func:`band_reordering`)
+    goes to:
+    ``ops.prepare(mat, layout="panels", pr=256, xw=512, cb=64, tune=False,
+    reorder=reo)``, which must be panels + descriptor (the cost model's
+    pick) with col_perm and row_iperm kept and fewer chunks than the
+    original order; the mask plans ``layout="panels", lowering="mask"`` at
+    the same geometry (col_perm and row_iperm kept) and ``layout=
+    "whole_vector", lowering="mask"`` (col_perm kept, the rows fused). Beside
+    them the unreordered plans, whole-vector + descriptor and whole-vector +
+    mask (the original order's panel plan at this geometry pads every panel
+    to the largest panel's count of chunks, each about one block in this
+    scattered structure: far past the card; the stats say how many).
+    Returns {name: plan}."""
+    from repro_torch.kernels import ops
+    geom = {k: REORDER[k] for k in ("pr", "xw", "cb")}
     t1 = time.perf_counter()
-    trace = {e["pass"]: e for e in plan.trace}
-    print(f"reordered plan: prepare {t1 - t0:.1f} s (host reorder pass "
-          f"{trace['reorder']['duration_s']:.1f} s, build "
-          f"{trace['build']['duration_s']:.1f} s); reorder entry "
-          f"{json.dumps(trace['reorder'], sort_keys=True)}")
+    plan = ops.prepare(mat, layout="panels", tune=False, reorder=reo,
+                       device=device, **geom)
     if plan.lowering != "descriptor":
         print(f"  the reordered plan resolved to {plan.layout} + "
               f"{plan.lowering}; rebuilt with lowering='descriptor'")
         plan = ops.prepare(mat, layout="panels", lowering="descriptor",
-                           tune=False, reorder="rcm", device=device, **geom)
+                           tune=False, reorder=reo, device=device, **geom)
+    plans = {"descriptor": plan}
+    plans["mask_panels"] = ops.prepare(mat, layout="panels", lowering="mask",
+                                       tune=False, reorder=reo, device=device,
+                                       **geom)
+    plans["mask_whole"] = ops.prepare(mat, layout="whole_vector",
+                                      lowering="mask", tune=False,
+                                      reorder=reo, device=device)
+    t2 = time.perf_counter()
+    print(f"reordered plans: prepare {t2 - t1:.1f} s for the three")
+    for name, (layout, lowering) in (
+            ("descriptor", ("panels", "descriptor")),
+            ("mask_panels", ("panels", "mask")),
+            ("mask_whole", ("whole_vector", "mask"))):
+        p = plans[name]
+        whole = layout == "whole_vector"
+        got = (p.layout, p.lowering, p.strategy, p.col_perm is not None,
+               p.row_iperm is None, p.rows_fused)
+        if got != (layout, lowering, "rcm", True, whole, whole):
+            raise SmokeFailure(f"the reordered {name} plan is {got}")
     stats = plan.stats
-    got = (plan.layout, plan.lowering, plan.strategy,
-           plan.col_perm is not None, plan.row_iperm is not None,
-           plan.rows_fused)
-    if got != ("panels", "descriptor", "rcm", True, True, False):
-        raise SmokeFailure(f"the reordered plan is {got}")
     if not stats["nchunks_post"] < stats["nchunks_pre"]:
         raise SmokeFailure(f"RCM did not cut the chunks: {stats}")
     npanels = plan.npanels
     print(f"  chunks: {stats['nchunks_pre']:.0f} in the original order "
           f"({stats['nchunks_pre'] / npanels:.1f} a panel over {npanels} "
           f"panels), {stats['nchunks_post']:.0f} after RCM "
-          f"({stats['nchunks_post'] / npanels:.1f} a panel; the plan pads "
-          f"to {plan.nchunks}); bandwidth {stats['bw_pre']:.1f} -> "
-          f"{stats['bw_post']:.1f}")
+          f"({stats['nchunks_post'] / npanels:.1f} a panel; the descriptor "
+          f"plan pads to {plan.nchunks}, the mask plan to "
+          f"{plans['mask_panels'].nchunks}); bandwidth {stats['bw_pre']:.1f} "
+          f"-> {stats['bw_post']:.1f}")
     print_spmm_plan("reordered band panels descriptor", plan)
-    t2 = time.perf_counter()
-    base = ops.prepare(mat, layout="whole_vector", lowering="descriptor",
-                       tune=False, device=device)
-    print(f"unreordered plan: whole_vector + descriptor, prepare "
-          f"{time.perf_counter() - t2:.1f} s, "
-          f"{sum(a.numel() * a.element_size() for a in base.arrays)} bytes")
-    return plan, base, t1 - t0
+    print_spmm_plan("reordered band panels mask", plans["mask_panels"])
+    print_spmm_plan("reordered band whole-vector mask", plans["mask_whole"])
+    for name, lowering in (("base", "descriptor"), ("base_mask", "mask")):
+        t3 = time.perf_counter()
+        plans[name] = ops.prepare(mat, layout="whole_vector",
+                                  lowering=lowering, tune=False,
+                                  device=device)
+        print(f"unreordered plan: whole_vector + {lowering}, prepare "
+              f"{time.perf_counter() - t3:.1f} s, "
+              f"{sum(a.numel() * a.element_size() for a in plans[name].arrays)}"
+              f" bytes")
+    for name in ("descriptor", "mask_panels", "mask_whole", "base_mask"):
+        p = plans[name]
+        print(f"  band {name}: {sum(a.numel() * a.element_size() for a in p.arrays)} "
+              f"bytes of plan, needed {needed_bytes(p)}")
+    return plans
 
 
-def drive_band(plan, base, device, nvecs=SPMM_NVECS):
-    """The reordered plan through ``ops``: ``ops.spmv`` with
-    ``double_buffer`` True and False, ``ops.spmm`` at each batch with both;
-    the four map kernels must have run and nothing else. Then (uncounted)
-    the unreordered plan on the same inputs. Returns the inputs, both
-    plans' outputs and the counts."""
+def band_inputs(n, device, nvecs=SPMM_NVECS):
+    """x and each X of ``nvecs`` columns for the band, from
+    ``default_rng(2)``."""
     import torch
-    from repro_torch.kernels import ops
     rng = np.random.default_rng(2)
-    n = plan.ncols
     x = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(
         device)
     xs = {m: torch.from_numpy(rng.standard_normal((n, m)).astype(
         np.float32)).to(device) for m in nvecs}
+    return x, xs
+
+
+def drive_band(plan, x, xs):
+    """A reordered band plan through ``ops``: ``ops.spmv`` with
+    ``double_buffer`` True and False, ``ops.spmm`` at each batch with both;
+    the map kernels of its layout and lowering must have run and nothing
+    else. Returns the outputs and the counts."""
+    import torch
+    from repro_torch.kernels import ops
+    kernels = plan_kernels(plan)
     counts = reset_all_launches()
     ys = {("spmv", True): ops.spmv(plan, x),
           ("spmv", False): ops.spmv(plan, x, double_buffer=False)}
@@ -2962,57 +3089,59 @@ def drive_band(plan, base, device, nvecs=SPMM_NVECS):
             ys["spmm", db, m] = ops.spmm(plan, xm, double_buffer=db)
     torch.cuda.synchronize()
     launches = counts()
-    for name in CMAP_KERNELS:
+    for name in kernels:
         if launches[name] <= 0:
             raise SmokeFailure(f"{name} was not launched on the reordered "
                                f"band (counts {launches})")
-    others = {k: v for k, v in launches.items()
-              if v and k not in CMAP_KERNELS}
+    others = {k: v for k, v in launches.items() if v and k not in kernels}
     if others:
         raise SmokeFailure(f"the reordered band ran other kernels: {others}")
-    base_ys = {"spmv": ops.spmv(base, x),
-               **{("spmm", m): ops.spmm(base, xm) for m, xm in xs.items()}}
-    return x, xs, ys, base_ys, launches
+    return ys, launches
 
 
-def check_band(plan, base, csr, x, xs, ys, base_ys):
-    """Every output of the reordered plan within ``TOL`` of max|y| of the
-    unreordered plan's and of the float64 CSR product (x and y in the
-    original order); each map kernel's own output (its launch uncounted)
-    against its plain version. Returns each map kernel's max|y - plain|."""
-    import torch
-    a64 = f64_matrix(csr)
+def base_outputs(plan, x, xs):
+    """An unreordered plan's SpMV and SpMM outputs (uncounted)."""
+    from repro_torch.kernels import ops
+    return {"spmv": ops.spmv(plan, x),
+            **{("spmm", m): ops.spmm(plan, xm) for m, xm in xs.items()}}
+
+
+def check_band(name, plan, base_ys, y64s, x, xs, ys):
+    """Every output of reordered plan ``name`` within ``TOL`` of max|y| of
+    its unreordered plan's (``base_ys``) and of the float64 CSR product
+    (``y64s``; x and y in the original order); each map kernel's own output
+    (its launch uncounted) against its plain version. Returns each map
+    kernel's max|y - plain|."""
     errs = {}
     for key, y in ys.items():
-        v = x if key[0] == "spmv" else xs[key[2]]
-        ref = base_ys["spmv" if key[0] == "spmv" else ("spmm", key[2])]
-        y64 = torch.from_numpy(a64 @ v.cpu().double().numpy())
-        e_base, e64 = rel_err(y, ref), rel_err(y, y64)
-        print(f"check reordered band {key}: vs the unreordered plan "
+        ref_key = "spmv" if key[0] == "spmv" else ("spmm", key[2])
+        e_base, e64 = rel_err(y, base_ys[ref_key]), rel_err(y, y64s[ref_key])
+        print(f"check reordered band {name} {key}: vs the unreordered plan "
               f"{e_base:.3g}, vs f64 scipy {e64:.3g} of max|y|")
         if not (e_base <= TOL and e64 <= TOL):
-            raise SmokeFailure(f"reordered band {key} disagrees: {e_base} / "
-                               f"{e64} > {TOL}")
-    for name, (twin, _) in CMAP_KERNELS.items():
-        for v in ((x,) if name.startswith("spmv") else xs.values()):
+            raise SmokeFailure(f"reordered band {name} {key} disagrees: "
+                               f"{e_base} / {e64} > {TOL}")
+    for kernel in plan_kernels(plan):
+        twin = CMAP_KERNELS[kernel][0]
+        for v in ((x,) if kernel.startswith("spmv") else xs.values()):
             got = kernel_call(twin, plan, v, col_map=plan.col_perm)()
             plain = plain_y(plan, v)
             err = rel_err(got, plain)
-            errs[name] = max(errs.get(name, 0.0),
-                             float((got - plain).abs().max()))
+            errs[kernel] = max(errs.get(kernel, 0.0),
+                               float((got - plain).abs().max()))
             del plain
             if not err <= TOL:
-                raise SmokeFailure(f"{name} on the reordered band: {err}")
+                raise SmokeFailure(f"{kernel} on the reordered band: {err}")
     print(f"  map kernels against their plain versions on the reordered "
-          f"band: max|y - plain| {errs}")
+          f"band ({name}): max|y - plain| {errs}")
     return errs
 
 
-def measure_band(plan, base, csr, x, xs, timer=cuda_time_ms):
-    """Each map kernel on the reordered band: in turns with its twin on
-    x[col_perm] (:func:`in_turns`), its bound (:func:`map_bound`), its plain
-    version and cuSPARSE on the same CSR; and the reordered and unreordered
-    SpMV through ``ops`` beside cuSPARSE. Returns {kernel: {batch:
+def measure_band(plans, csr, x, xs, timer=cuda_time_ms):
+    """Each map kernel on its reordered band plan: in turns with its twin
+    on x[col_perm] (:func:`in_turns`), its bound (:func:`map_bound`), its
+    plain version and cuSPARSE on the same CSR; and the SpMV of every band
+    plan through ``ops`` beside cuSPARSE. Returns {kernel: {batch:
     numbers}} and the SpMV path's numbers."""
     import torch
     from repro_torch.kernels import ops
@@ -3022,42 +3151,66 @@ def measure_band(plan, base, csr, x, xs, timer=cuda_time_ms):
     for m, xm in xs.items():
         lib[m] = timer(lambda xm=xm: t @ xm, x.device)
     out = {}
-    for name in CMAP_KERNELS:
-        for m, v in (((1, x),) if name.startswith("spmv") else xs.items()):
-            row = in_turns(plan, name, v, timer)
-            row["plain_ms"] = timer(lambda v=v: plain_y(plan, v), x.device,
-                                    reps=QUANTISED_PLAIN_REPS)
-            row["bound_ms"], row["bound_by"], row["bytes"] = map_bound(
-                plan, csr.nnz, m)
-            row["library_ms"] = lib[m]
-            print(f"time {name} band batch {m}: {row['ms']:.4f} ms, no map "
-                  f"on x[col_perm] {row['no_map_ms']:.4f} ms "
-                  f"({row['ratio']:.3f}x, aim <= {CMAP_AIM}), plain "
-                  f"{row['plain_ms']:.4f} ms, cuSPARSE {lib[m]:.4f} ms, "
-                  f"bound {row['bound_ms']:.4f} ms ({row['bytes']} bytes)")
-            out.setdefault(name, {})[m] = row
-    spmv = {"reordered_ms": timer(lambda: ops.spmv(plan, x), x.device),
-            "unreordered_ms": timer(lambda: ops.spmv(base, x), x.device),
-            "library_ms": lib[1]}
-    print(f"time band SpMV through ops: reordered (map kernel + row gather) "
-          f"{spmv['reordered_ms']:.4f} ms, unreordered whole-vector "
-          f"descriptor {spmv['unreordered_ms']:.4f} ms, cuSPARSE "
-          f"{lib[1]:.4f} ms")
+    for name in ("descriptor", "mask_panels", "mask_whole"):
+        plan = plans[name]
+        for kernel in plan_kernels(plan):
+            for m, v in (((1, x),) if kernel.startswith("spmv")
+                         else xs.items()):
+                row = in_turns(plan, kernel, v, timer)
+                row["plain_ms"] = timer(lambda v=v: plain_y(plan, v),
+                                        x.device, reps=QUANTISED_PLAIN_REPS)
+                row["bound_ms"], row["bound_by"], row["bytes"] = map_bound(
+                    plan, csr.nnz, m)
+                row["library_ms"] = lib[m]
+                print(f"time {kernel} band batch {m}: {row['ms']:.4f} ms, no "
+                      f"map on x[col_perm] {row['no_map_ms']:.4f} ms "
+                      f"({row['ratio']:.3f}x, aim <= {CMAP_AIM}), plain "
+                      f"{row['plain_ms']:.4f} ms, cuSPARSE {lib[m]:.4f} ms, "
+                      f"bound {row['bound_ms']:.4f} ms ({row['bytes']} "
+                      f"bytes)")
+                out.setdefault(kernel, {})[m] = row
+    spmv = {f"{name}_ms": timer(lambda p=p: ops.spmv(p, x), x.device)
+            for name, p in plans.items()}
+    spmv["library_ms"] = lib[1]
+    print(f"time band SpMV through ops (the default double buffer): "
+          f"reordered panels descriptor (map kernel + row gather) "
+          f"{spmv['descriptor_ms']:.4f} ms, reordered panels mask (map "
+          f"kernel + row gather) {spmv['mask_panels_ms']:.4f} ms, reordered "
+          f"whole-vector mask (map kernel, rows fused) "
+          f"{spmv['mask_whole_ms']:.4f} ms, unreordered whole-vector "
+          f"descriptor {spmv['base_ms']:.4f} ms, unreordered whole-vector "
+          f"mask {spmv['base_mask_ms']:.4f} ms, cuSPARSE {lib[1]:.4f} ms")
     return out, spmv
 
 
-def reorder_band(device, timer=cuda_time_ms):
-    """Phase: the reordered SpMV and SpMM on :data:`REORDER`'s matrix."""
-    csr, mat = make_band()
-    plan, base, prepare_s = build_band_plans(mat, device)
+def reorder_band(csr, mat, reo, device, timer=cuda_time_ms):
+    """Phase: the reordered SpMV and SpMM on :data:`REORDER`'s matrix
+    (``csr``, ``mat``: :func:`make_band`; ``reo``: :func:`band_reordering`),
+    the panel descriptor plan and both mask plans."""
+    plans = build_band_plans(mat, reo, device)
     del mat
-    x, xs, ys, base_ys, launches = drive_band(plan, base, device)
-    print(f"launches on the reordered band: {launches}")
-    errs = check_band(plan, base, csr, x, xs, ys, base_ys)
-    del ys, base_ys
-    per, spmv = measure_band(plan, base, csr, x, xs, timer)
+    x, xs = band_inputs(plans["base"].ncols, device)
+    a64 = f64_matrix(csr)
+    y64s = {"spmv": a64 @ x.cpu().double().numpy(),
+            **{("spmm", m): a64 @ xm.cpu().double().numpy()
+               for m, xm in xs.items()}}
+    bases = {lowering: base_outputs(plans[name], x, xs)
+             for name, lowering in (("base", "descriptor"),
+                                    ("base_mask", "mask"))}
+    launches, errs = {}, {}
+    for name in ("descriptor", "mask_panels", "mask_whole"):
+        plan = plans[name]
+        ys, counted = drive_band(plan, x, xs)
+        print(f"launches on the reordered band ({name}): "
+              f"{ {k: v for k, v in counted.items() if v} }")
+        launches.update({k: counted[k] for k in plan_kernels(plan)})
+        errs.update(check_band(name, plan, bases[plan.lowering], y64s, x, xs,
+                               ys))
+        del ys
+    del bases, y64s
+    per, spmv = measure_band(plans, csr, x, xs, timer)
     return {"launches": launches, "errs": errs, "per": per, "spmv": spmv,
-            "stats": plan.stats, "prepare_s": prepare_s}
+            "stats": plans["descriptor"].stats}
 
 
 def panel_rows_reordering(seed=7):
@@ -3072,6 +3225,19 @@ def panel_rows_reordering(seed=7):
     return RE.Reordering(rows.astype(np.int64), cols, "custom")
 
 
+#: (3b)'s layers: (layout, lowering) -> the ``ops.prepare`` keywords that
+#: build it beside ``nvec=128`` and the Reordering, and its value widths.
+#: The whole-vector mask layer runs at f32 only: each reordered prepare of
+#: the weight re-blocks 26 M nonzeros on the host (about 18 s), and the
+#: smoke's time is capped; the small check holds its twins at bf16 and int8.
+VOCAB_REORDERED = {
+    ("panels", "descriptor"): ({}, ("f32", *VDTYPES)),
+    ("panels", "mask"): (dict(lowering="mask"), ("f32", *VDTYPES)),
+    ("whole_vector", "mask"): (dict(layout="whole_vector", lowering="mask"),
+                               ("f32",)),
+}
+
+
 def build_vocab_reordered(w, mat, device):
     """(3a) ``SparseLinear.from_dense(w, density=0.1, nvec=128,
     reorder="auto")``: the host reorder pass tries the three strategies on
@@ -3079,7 +3245,11 @@ def build_vocab_reordered(w, mat, device):
     with :func:`panel_rows_reordering`, which must be panels + descriptor
     with the rows fused and col_perm kept, and the same Reordering through
     ``ops.prepare(mat, vdtype=..., nvec=128, reorder=...)`` at bf16 and
-    int8. Returns (layer a, {vdtype: layer b}, host seconds)."""
+    int8, and through the two mask layers of :data:`VOCAB_REORDERED`
+    (``lowering="mask"``, whose auto layout must be panels, at f32, bf16
+    and int8, and ``layout="whole_vector", lowering="mask"`` at f32), each
+    with the rows fused and col_perm kept. Returns (layer a, {(vdtype,
+    (layout, lowering)): layer b}, host seconds)."""
     from repro_torch.core.sparse_linear import SparseLinear
     from repro_torch.kernels import ops
     t0 = time.perf_counter()
@@ -3103,37 +3273,47 @@ def build_vocab_reordered(w, mat, device):
         raise SmokeFailure(f"(3a)'s reorder entry is inconsistent: {entry}")
     reo = panel_rows_reordering()
     t2 = time.perf_counter()
-    layers = {"f32": SparseLinear.from_dense(w, density=VOCAB["density"],
-                                             nvec=VOCAB["nvec"],
-                                             reorder=reo)}
+    desc = ("panels", "descriptor")
+    layers = {("f32", desc): SparseLinear.from_dense(
+        w, density=VOCAB["density"], nvec=VOCAB["nvec"], reorder=reo)}
     t3 = time.perf_counter()
-    for vdtype in VDTYPES:
-        layers[vdtype] = SparseLinear(ops.prepare(
-            mat, vdtype=vdtype, nvec=VOCAB["nvec"], reorder=reo,
-            device=device))
+    host = {}
+    for key, (kw, vdtypes) in VOCAB_REORDERED.items():
+        for vdtype in vdtypes:
+            if (vdtype, key) in layers:
+                continue
+            t = time.perf_counter()
+            layers[vdtype, key] = SparseLinear(ops.prepare(
+                mat, nvec=VOCAB["nvec"], reorder=reo, device=device,
+                **({} if vdtype == "f32" else {"vdtype": vdtype}), **kw))
+            host[f"{vdtype} {key[0]} {key[1]}"] = time.perf_counter() - t
     t4 = time.perf_counter()
-    for vdtype, layer in layers.items():
+    for (vdtype, key), layer in layers.items():
         p = layer.plan
         got = (p.layout, p.lowering, p.rows_fused, p.col_perm is not None,
                p.row_iperm is None, p.strategy, value_label(p))
-        if got != ("panels", "descriptor", True, True, True, "custom",
-                   vdtype):
-            raise SmokeFailure(f"(3b) {vdtype} plan is {got}")
+        if got != (*key, True, True, True, "custom", vdtype):
+            raise SmokeFailure(f"(3b) {vdtype} {key} plan is {got}")
     print(f"vocab (3b) prebuilt Reordering (whole 512-row panels, columns by "
-          f"default_rng(7)): from_dense {t3 - t2:.1f} s, bf16 and int8 "
-          f"prepare {t4 - t3:.1f} s; panels + descriptor, rows fused, "
-          f"col_perm kept")
-    print_spmm_plan("vocab (3b) f32", layers["f32"].plan)
+          f"default_rng(7)): from_dense {t3 - t2:.1f} s, the other layers' "
+          f"prepare {t4 - t3:.1f} s ({ {k: round(v, 1) for k, v in host.items()} }); "
+          f"each rows fused, col_perm kept")
+    for key in VOCAB_REORDERED:
+        print_spmm_plan(f"vocab (3b) f32 {key[0]} {key[1]}",
+                        layers["f32", key].plan)
     return auto, layers, {"a_s": t1 - t0, "b_s": t4 - t2,
                           "a_reorder_s": entry["duration_s"]}
 
 
 def drive_vocab_reordered(auto, layers, acts, device):
     """(3a)'s forwards at batch 1, 16 and 128 (counted alone), then (3b)'s
-    at every width: the forward at each batch and ``ops.spmv`` /
-    ``ops.spmm(double_buffer=False)``, so all four map kernels run at each
-    width; (3b)'s counts hold the map kernels and nothing else. Returns
-    (3a)'s outputs and counts, (3b)'s outputs and counts."""
+    layers at every width through the entry points a user calls, as the
+    quantised layers run (:data:`QUANTISED_LAYERS`): the forward at each
+    batch and ``ops.spmv`` / ``ops.spmm(double_buffer=False)``, so all
+    eleven map kernels run at each width; (3b)'s counts hold the map
+    kernels, each as often as its calls, and nothing else. Returns (3a)'s
+    outputs and counts, (3b)'s outputs ({(vdtype, layer, kernel, batch):
+    y}) and counts."""
     import torch
     from repro_torch.kernels import ops
     x1 = acts[SPMM_NVECS[0]][0].contiguous()
@@ -3142,47 +3322,52 @@ def drive_vocab_reordered(auto, layers, acts, device):
     torch.cuda.synchronize()
     la = counts()
     counts = reset_all_launches()
-    yb = {}
-    for vdtype, layer in layers.items():
-        yb[vdtype, "spmv_cuda_panels_desc_db_cmap", 1] = layer(x1)
-        yb[vdtype, "spmv_cuda_panels_desc_cmap", 1] = ops.spmv(
-            layer.plan, x1, double_buffer=False)
+    yb, want = {}, dict.fromkeys(CMAP_KERNELS, 0)
+    for (vdtype, key), layer in layers.items():
+        fwd1, twin1, fwdm, twinm = (None if k is None else f"{k}_cmap"
+                                    for k in QUANTISED_LAYERS[key])
+        yb[vdtype, key, fwd1, 1] = layer(x1)
+        yb[vdtype, key, twin1, 1] = ops.spmv(layer.plan, x1,
+                                             double_buffer=False)
+        want[fwd1] += 1
+        want[twin1] += 1
         for n, a in acts.items():
-            yb[vdtype, "spmm_cuda_panels_desc_db_cmap", n] = layer(a).t()
-            yb[vdtype, "spmm_cuda_panels_desc_cmap", n] = ops.spmm(
-                layer.plan, a.t().contiguous(), double_buffer=False)
+            yb[vdtype, key, fwdm, n] = layer(a).t()
+            want[fwdm] += 1
+            if twinm is not None:
+                yb[vdtype, key, twinm, n] = ops.spmm(
+                    layer.plan, a.t().contiguous(), double_buffer=False)
+                want[twinm] += 1
     torch.cuda.synchronize()
     lb = counts()
     for name in CMAP_KERNELS:
-        # each width: one SpMV a kernel, one SpMM a kernel and batch
-        want = len(layers) * (len(acts) if name.startswith("spmm") else 1)
-        if lb[name] != want:
+        if lb[name] != want[name] or not want[name]:
             raise SmokeFailure(f"(3b) launched {name} {lb[name]} times, not "
-                               f"{want} ({lb})")
+                               f"{want[name]} ({lb})")
     others = {k: v for k, v in lb.items() if v and k not in CMAP_KERNELS}
     if others:
         raise SmokeFailure(f"(3b) ran other kernels: {others}")
     return ya, la, yb, lb
 
 
-def check_vocab_reordered(auto, layers, ya, yb, default, qlayers, acts, csr):
+def check_vocab_reordered(layers, ya, yb, f32_layers, qlayers, acts, csr):
     """(3a): every output within ``TOL`` of max|y| of the unreordered
     default layer's. (3b): f32 and bf16 outputs within ``TOL`` of the
-    unreordered layer of the same width (bf16 values do not depend on the
-    chunking; int8 scales do, one a chunk, and the column permutation
-    regroups the chunks, so int8 is held to the pins only), every width
-    against its plain version, the f64 dequantised product and, at bf16 /
-    int8, ``tests/test_vdtype.py``'s pins of the f32 weight's f64 product
-    (:func:`check_quantised_y`); f32 also against the f64 product. Returns
-    each map kernel's max|y - plain| by width and the pins used."""
+    unreordered layer of the same layout, lowering and width (bf16 values
+    do not depend on the chunking; int8 scales do, one a chunk, and the
+    column permutation regroups the chunks, so int8 is held to the pins
+    only), every width against its plain version, the f64 dequantised
+    product and, at bf16 / int8, ``tests/test_vdtype.py``'s pins of the f32
+    weight's f64 product (:func:`check_quantised_y`); f32 also against the
+    f64 product. Returns each map kernel's max|y - plain| by width and the
+    pins used."""
     import torch
     x1 = acts[SPMM_NVECS[0]][0].contiguous()
     xs = {1: x1, **{n: a.t().contiguous() for n, a in acts.items()}}
-    refs = {}
+    default = f32_layers["panels", "descriptor"]
     for n, y in ya.items():
         ref = default(x1) if n == 1 else default(acts[n]).t()
         err = rel_err(y, ref)
-        refs["f32", n] = ref
         print(f"check (3a) batch {n}: vs the unreordered default layer "
               f"{err:.3g} of max|y|")
         if not err <= TOL:
@@ -3190,16 +3375,14 @@ def check_vocab_reordered(auto, layers, ya, yb, default, qlayers, acts, csr):
                                f"layer: {err}")
     _, qrefs, smax = quantised_refs(csr, acts)
     a64 = f64_matrix(csr)
-    errs, pins = {}, {}
-    for (vdtype, name, n), y in yb.items():
-        plan = layers[vdtype].plan
+    errs, pins, bases = {}, {}, {}
+    for (vdtype, key, name, n), y in yb.items():
+        plan = layers[vdtype, key].plan
         x = xs[n]
-        if vdtype == "f32":
-            base = refs.get(("f32", n))
-        else:
-            q = qlayers[vdtype]["panels", "descriptor"]
-            base = q(x1) if n == 1 else q(acts[n]).t()
-        e_base = rel_err(y, base)
+        if (vdtype, key, n) not in bases:
+            base = (f32_layers if vdtype == "f32" else qlayers[vdtype])[key]
+            bases[vdtype, key, n] = base(x1) if n == 1 else base(acts[n]).t()
+        e_base = rel_err(y, bases[vdtype, key, n])
         if vdtype == "f32":
             plain = plain_y(plan, x)
             err = float((y - plain).abs().max())
@@ -3207,18 +3390,18 @@ def check_vocab_reordered(auto, layers, ya, yb, default, qlayers, acts, csr):
             del plain
             e64 = rel_err(y, torch.from_numpy(a64 @ x.cpu().double()
                                               .numpy()))
-            print(f"check {name} f32 batch {n} (vocab (3b)): max|y - plain| "
-                  f"= {err:.3g} ({e_plain:.3g} of max|y|), vs f64 scipy "
-                  f"{e64:.3g} of max|y|")
+            print(f"check {name} f32 batch {n} (vocab (3b) {key}): max|y - "
+                  f"plain| = {err:.3g} ({e_plain:.3g} of max|y|), vs f64 "
+                  f"scipy {e64:.3g} of max|y|")
             if not (e_plain <= TOL and e64 <= TOL):
                 raise SmokeFailure(f"(3b) {name} f32 batch {n} disagrees: "
                                    f"{e_plain} / {e64} > {TOL}")
             used = 0.0
         else:
             err, used = check_quantised_y(name, vdtype, plan, y, x, qrefs[n],
-                                          smax, "vocab (3b)")
+                                          smax, f"vocab (3b) {key}")
         print(f"  (3b) {name} {vdtype} batch {n}: vs the unreordered "
-              f"{vdtype} layer {e_base:.3g} of max|y|")
+              f"{vdtype} {key[0]} {key[1]} layer {e_base:.3g} of max|y|")
         if vdtype != "int8" and not e_base <= TOL:
             raise SmokeFailure(f"(3b) {name} {vdtype} batch {n} disagrees "
                                f"with the unreordered layer: {e_base}")
@@ -3229,17 +3412,19 @@ def check_vocab_reordered(auto, layers, ya, yb, default, qlayers, acts, csr):
 
 
 def measure_vocab_reordered(layers, acts, csr, library, timer=cuda_time_ms):
-    """Each map kernel on (3b) at every width, in turns with its twin on
-    x[col_perm] with no map (:func:`in_turns`), beside its bound
-    (:func:`map_bound`), its plain version (f32) and cuSPARSE on the f32
-    weight (``library``, {batch: ms}). Returns {kernel: {vdtype: {batch:
-    numbers}}}."""
+    """Each map kernel on (3b)'s layer of its layout and lowering at every
+    width, in turns with its twin on x[col_perm] with no map
+    (:func:`in_turns`), beside its bound (:func:`map_bound`), its plain
+    version (f32) and cuSPARSE on the f32 weight (``library``, {batch:
+    ms}). Returns {kernel: {vdtype: {batch: numbers}}}."""
     x1 = acts[SPMM_NVECS[0]][0].contiguous()
     xs = {1: x1, **{n: a.t().contiguous() for n, a in acts.items()}}
     out = {}
     for name in CMAP_KERNELS:
         spmm = name.startswith("spmm")
-        for vdtype, layer in layers.items():
+        for (vdtype, key), layer in layers.items():
+            if key != cmap_plan_key(name):
+                continue
             plan = layer.plan
             for n, v in xs.items():
                 if (n > 1) != spmm:
@@ -3260,7 +3445,7 @@ def measure_vocab_reordered(layers, acts, csr, library, timer=cuda_time_ms):
     return out
 
 
-def vocab_reordered(w, mat, default, qlayers, acts, csr, library, device,
+def vocab_reordered(w, mat, f32_layers, qlayers, acts, csr, library, device,
                     timer=cuda_time_ms):
     """Phase: the vocab layer reordered, (3a) and (3b)."""
     auto, layers, host = build_vocab_reordered(w, mat, device)
@@ -3268,16 +3453,17 @@ def vocab_reordered(w, mat, default, qlayers, acts, csr, library, device,
     print(f"launches on the vocab (3a) path: "
           f"{ {k: v for k, v in la.items() if v} }; (3b): "
           f"{ {k: v for k, v in lb.items() if v} }")
-    errs, pins = check_vocab_reordered(auto, layers, ya, yb, default,
-                                       qlayers, acts, csr)
-    del ya, yb, auto
+    del auto
+    errs, pins = check_vocab_reordered(layers, ya, yb, f32_layers, qlayers,
+                                       acts, csr)
+    del ya, yb
     per = measure_vocab_reordered(layers, acts, csr, library, timer)
     return {"launches": lb, "launches_a": la, "errs": errs, "pins": pins,
             "per": per, "host": host}
 
 
 def cmap_rows(band, vocab):
-    """The four map kernels' rows of the ``kernels`` line: the band's
+    """The eleven map kernels' rows of the ``kernels`` line: the band's
     numbers in the main keys (SpMV batch 1, SpMM nvec 128), every batch of
     the band and of (3b) at f32 / bf16 / int8 beside."""
     rows = []
@@ -3286,7 +3472,7 @@ def cmap_rows(band, vocab):
         main = band["per"][name][VOCAB["nvec"] if spmm else 1]
         rows.append({
             "name": name, "route": "cuda",
-            "source": CMAP_SOURCE["spmm" if spmm else "spmv"],
+            "source": CMAP_SOURCE[spmm, "desc" in name],
             "replaces": replaces,
             "launches": band["launches"][name] + vocab["launches"][name],
             "max_abs_err": max([band["errs"][name],
@@ -3316,9 +3502,20 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     try:
-        build_kernels()
-        small_check(device)
+        # the host-only inputs are made while nvcc builds the kernels
+        wait_build = start_build()
+        t_host = time.perf_counter()
         csr, mat = make_matrix()
+        bcsr, bmat = make_band()
+        breo, _ = band_reordering(bmat)
+        w, vcsr, vmat = make_vocab()
+        print(f"host inputs made beside the build: "
+              f"{time.perf_counter() - t_host:.1f} s")
+        wait_build()
+        t_phase = time.perf_counter()
+        small_check(device)
+        print(f"phase small check: {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
         x_host = np.random.default_rng(0).standard_normal(
             mat.ncols).astype(np.float32)
         y64 = f64_matrix(csr) @ x_host.astype(np.float64)
@@ -3330,10 +3527,12 @@ def main() -> int:
         check_fem_spmm(plans, csr, device)
         rows = measure(plans, x, csr, launches, errs)
         del plans, ys
+        print(f"phase SpMV path: {time.perf_counter() - t_phase:.1f} s")
         t_band = time.perf_counter()
-        band = reorder_band(device)
+        band = reorder_band(bcsr, bmat, breo, device)
+        del bcsr, bmat
         print(f"phase reordered band: {time.perf_counter() - t_band:.1f} s")
-        w, vcsr, vmat = make_vocab()
+        t_phase = time.perf_counter()
         layers = build_layers(w, vmat, device)
         test_layer = build_test_layer(w, device)
         rng = np.random.default_rng(1)
@@ -3359,9 +3558,11 @@ def main() -> int:
         qlib = quantised_library(vcsr, acts, {
             1: batch1["spmv_cuda_panels_desc_db"]["library_ms"], **library})
         qper = measure_quantised(qlayers, layers, acts, vcsr, qlib)
+        print(f"phase SparseLinear path at f32, bf16 and int8: "
+              f"{time.perf_counter() - t_phase:.1f} s")
         t_vreo = time.perf_counter()
         vreo = vocab_reordered(
-            w, vmat, layers["panels", "descriptor"], qlayers, acts, vcsr,
+            w, vmat, layers, qlayers, acts, vcsr,
             {1: batch1["spmv_cuda_panels_desc_db"]["library_ms"], **library},
             device)
         print(f"phase reordered vocab layer: "

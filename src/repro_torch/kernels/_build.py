@@ -47,6 +47,13 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "spc5_spmv_panels_s2": [_P] * 10 + [_I] * 15 + [_P],
         "spc5_spmv_panels_occupancy": [_I] * 5 + [_P],
         "spc5_spmv_panels_smem": [_I] * 5,
+        # the column-map twins: the same arguments, then cmap
+        **{f"spc5_spmv_whole_cmap_s{s}": [_P] * 9 + [_I] * 13 + [_P, _P]
+           for s in (1, 2)},
+        "spc5_spmv_whole_cmap_occupancy": [_I] * 5 + [_P],
+        "spc5_spmv_panels_cmap_s1": [_P] * 10 + [_I] * 14 + [_P, _P],
+        "spc5_spmv_panels_cmap_s2": [_P] * 10 + [_I] * 15 + [_P, _P],
+        "spc5_spmv_panels_cmap_occupancy": [_I] * 5 + [_P],
     },
     "spc5_spmv_desc": {
         "spc5_spmv_desc_whole_s1": [_P] * 9 + [_I] * 16 + [_P],
@@ -70,6 +77,15 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
            for s in (1, 2)},
         "spc5_spmm_panels_occupancy": [_I] * 7 + [_P],
         "spc5_spmm_panels_smem": [_I] * 7,
+    },
+    # the mask SpMM kernels with a column map: the arguments of their twins
+    # in spc5_spmm, then cmap
+    "spc5_spmm_cmap": {
+        "spc5_spmm_whole_cmap": [_P] * 9 + [_I] * 20 + [_P, _P],
+        "spc5_spmm_whole_cmap_occupancy": [_I] * 7 + [_P],
+        **{f"spc5_spmm_panels_cmap_s{s}": [_P] * 10 + [_I] * 21 + [_P, _P]
+           for s in (1, 2)},
+        "spc5_spmm_panels_cmap_occupancy": [_I] * 7 + [_P],
     },
     "spc5_spmm_desc": {
         "spc5_spmm_desc_whole": [_P] * 9 + [_I] * 23 + [_P],

@@ -112,6 +112,20 @@
 // start; each thread loads the chunk's scale (int8) before waiting for the
 // chunk's stage.
 //
+// Column maps (both layouts; spc5_spmv_whole_cmap_s1 / _s2 and
+// spc5_spmv_panels_cmap_s1 / _s2, the col_map path of the same four Pallas
+// kernels: a reordered plan's fused column permutation). x stays in the
+// original column order and unpadded, and a set lane of permuted column j
+// reads x[cmap[j]]: the map entry, then x, both through L1, one dependent
+// load more a nonzero and no shared memory more (the whole-vector twins ask
+// for a smaller shared-memory carve-out, so that L1 holds x and the map:
+// kCmapWholeCarveout). A set lane always lies at
+// a real column (j < ncols), so neither the map nor x is read out of
+// bounds; unset lanes read nothing. Each twin is its own kernel
+// (spmv_whole_cmap_kernel, spmv_panels_cmap_kernel) over the same body, its
+// map a field of a derived argument struct (CmapWholeArgs,
+// CmapPanelArgs), so the kernels without one keep their code.
+//
 // Each launcher runs on the caller's stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() (0 on success).
 
@@ -141,6 +155,28 @@ struct PanelArgs {
   int vsize;    // the values' bytes: 4, 2 or 1
   int nvalues;  // values' length: no staged span reaches past it
 };
+
+// A panel launch with a column map: PanelArgs' fields as they are, then
+// the map. x is then (ncols,), in the original column order.
+struct CmapPanelArgs : PanelArgs {
+  const int* cmap;  // (ncols,): the column of x each permuted column reads
+};
+
+template <typename A>
+constexpr bool kMapped = false;
+template <>
+constexpr bool kMapped<CmapPanelArgs> = true;
+
+// The x entry a set lane of (permuted) column j reads: x[j], or with a
+// column map x[cmap[j]], the map entry loaded first.
+template <typename A>
+__device__ __forceinline__ float x_at(const A& a, int j) {
+  if constexpr (kMapped<A>) {
+    return __ldg(a.x + __ldg(a.cmap + j));
+  } else {
+    return __ldg(a.x + j);
+  }
+}
 
 __host__ __device__ inline int round16(int n) { return (n + 15) & ~15; }
 
@@ -265,12 +301,13 @@ __device__ __forceinline__ const V* staged_window(const unsigned char* st, const
 
 // Add the staged chunk into the y tile, a block row per thread (ThreadPlan).
 // The row's first value is voff + popc(mask bits before the row); only the
-// row's set bits are walked, each reading x in place (the wrapper makes x
-// long enough for every chunk's window), and the row adds into the tile
-// once, if a bit is set. s is the chunk's scale (int8 only).
-template <typename V>
+// row's set bits are walked, each reading x in place (x_at: the wrapper
+// makes x long enough for every chunk's window, or a set lane's mapped
+// column is a real one), and the row adds into the tile once, if a bit is
+// set. s is the chunk's scale (int8 only).
+template <typename V, typename A>
 __device__ __forceinline__ void decode_stage(const unsigned char* st, const StageLayout& L,
-                                             const PanelArgs& a, const ThreadPlan& t,
+                                             const A& a, const ThreadPlan& t,
                                              float* ytile, float s) {
   const V* vwin = staged_window<V>(st, L);
   const int xb = *reinterpret_cast<const int*>(st + L.xb);  // the chunk's x window start
@@ -285,15 +322,17 @@ __device__ __forceinline__ void decode_stage(const unsigned char* st, const Stag
     const int xi = xb + *reinterpret_cast<const int*>(w);
     float acc = 0.f;
     do {
-      acc = fmaf(dequant(*v++, s), __ldg(a.x + (xi + __ffs(bits) - 1)), acc);
+      acc = fmaf(dequant(*v++, s), x_at(a, xi + __ffs(bits) - 1), acc);
       bits &= bits - 1u;
     } while (bits);
     atomicAdd(ytile + *reinterpret_cast<const int*>(w + 3 * ms) + t.lr, acc);
   }
 }
 
-template <typename V, int kStages>
-__global__ void __launch_bounds__(256) spmv_panels_kernel(const PanelArgs a) {
+// The panel kernels' body, for launch arguments A (PanelArgs, or
+// CmapPanelArgs with a column map).
+template <typename V, int kStages, typename A>
+__device__ __forceinline__ void panels_body(const A& a) {
   extern __shared__ __align__(16) float smem[];
   const StageLayout L = stage_layout(a, (int)sizeof(V));
   const ThreadPlan t = thread_plan(a, L);
@@ -384,6 +423,16 @@ __global__ void __launch_bounds__(256) spmv_panels_kernel(const PanelArgs a) {
   }
 }
 
+template <typename V, int kStages>
+__global__ void __launch_bounds__(256) spmv_panels_kernel(const PanelArgs a) {
+  panels_body<V, kStages>(a);
+}
+
+template <typename V, int kStages>
+__global__ void __launch_bounds__(256) spmv_panels_cmap_kernel(const CmapPanelArgs a) {
+  panels_body<V, kStages>(a);
+}
+
 // ---------------------------------------------------------------------------
 // whole-vector layout: contiguous chunk ranges, staged chunk metadata, a
 // block row per thread, row runs combined in the warp, per-warp y tiles
@@ -406,6 +455,15 @@ struct WholeArgs {
   int vsize;    // the values' bytes: 4, 2 or 1
   int nvalues;  // values' length: no staged span reaches past it
 };
+
+// A whole-vector launch with a column map: WholeArgs' fields as they are,
+// then the map. x is (ncols,), in the original column order.
+struct CmapWholeArgs : WholeArgs {
+  const int* cmap;  // (ncols,): the column of x each permuted column reads
+};
+
+template <>
+constexpr bool kMapped<CmapWholeArgs> = true;
 
 // The warps' y tiles, then `stages` stages (stage_layout).
 inline size_t whole_smem(const WholeArgs& a, int stages, int threads) {
@@ -468,11 +526,11 @@ __device__ __forceinline__ void flush_runs(const WholeArgs& a, const ThreadPlan&
 // kNoRow; a step whose keys all equal the runs' adds each row's sum into
 // its run, any other flushes the warp's runs (flush_runs) and starts them
 // again. The row's first value is voff + popc(mask bits before the row);
-// only the row's set bits are walked, each reading x in place. s is the
-// chunk's scale (int8 only).
-template <typename V>
+// only the row's set bits are walked, each reading x in place (x_at). s is
+// the chunk's scale (int8 only).
+template <typename V, typename A>
 __device__ __forceinline__ void decode_whole(const unsigned char* st, const StageLayout& L,
-                                             const WholeArgs& a, const ThreadPlan& t, int steps,
+                                             const A& a, const ThreadPlan& t, int steps,
                                              float* wtile, int tbase, Run& run, float s) {
   const V* vwin = staged_window<V>(st, L);
   const uint32_t row_mask = (1u << a.c) - 1u;
@@ -492,7 +550,7 @@ __device__ __forceinline__ void decode_whole(const unsigned char* st, const Stag
               vwin + *reinterpret_cast<const int*>(w + 2 * ms) + __popc(mask & t.below);
           const int xi = *reinterpret_cast<const int*>(w);
           do {
-            acc = fmaf(dequant(*v++, s), __ldg(a.x + (xi + __ffs(bits) - 1)), acc);
+            acc = fmaf(dequant(*v++, s), x_at(a, xi + __ffs(bits) - 1), acc);
             bits &= bits - 1u;
           } while (bits);
         }
@@ -542,8 +600,11 @@ __device__ __forceinline__ void move_tiles(const unsigned char* st, const StageL
   }
 }
 
-template <typename V, int kStages>
-__global__ void __launch_bounds__(256) spmv_whole_kernel(const WholeArgs a) {
+// The whole-vector kernels' body, for launch arguments A (WholeArgs, or
+// CmapWholeArgs with a column map). Taken by value: by reference, the
+// kernels without a map compiled to other SASS than before the twins.
+template <typename V, int kStages, typename A>
+__device__ __forceinline__ void whole_body(const A a) {
   extern __shared__ __align__(16) float smem[];
   const StageLayout L = stage_layout(a, (int)sizeof(V));
   const ThreadPlan t = thread_plan(a, L);
@@ -620,28 +681,54 @@ __global__ void __launch_bounds__(256) spmv_whole_kernel(const WholeArgs a) {
   flush_tiles(ytile, a, tbase, false);
 }
 
-using WholeKernel = void (*)(WholeArgs);
+template <typename V, int kStages>
+__global__ void __launch_bounds__(256) spmv_whole_kernel(const WholeArgs a) {
+  whole_body<V, kStages>(a);
+}
 
-template <typename V>
-WholeKernel whole_kernel_v(int stages) {
-  switch (stages) {
-    case 1: return spmv_whole_kernel<V, 1>;
-    case 2: return spmv_whole_kernel<V, 2>;
-    default: return nullptr;
+template <typename V, int kStages>
+__global__ void __launch_bounds__(256) spmv_whole_cmap_kernel(const CmapWholeArgs a) {
+  whole_body<V, kStages>(a);
+}
+
+template <typename V, typename A>
+void (*whole_kernel_v(int stages))(A) {
+  if constexpr (kMapped<A>) {
+    switch (stages) {
+      case 1: return spmv_whole_cmap_kernel<V, 1>;
+      case 2: return spmv_whole_cmap_kernel<V, 2>;
+      default: return nullptr;
+    }
+  } else {
+    switch (stages) {
+      case 1: return spmv_whole_kernel<V, 1>;
+      case 2: return spmv_whole_kernel<V, 2>;
+      default: return nullptr;
+    }
   }
 }
 
-// The whole-vector kernel for vsize-byte values (4 float, 2 bf16, 1 int8)
-// and a ring of `stages`: 1 (the synchronous twin) or 2; nullptr for any
-// other.
-WholeKernel whole_kernel(int vsize, int stages) {
+// The whole-vector kernel for vsize-byte values (4 float, 2 bf16, 1 int8),
+// a ring of `stages` (1: the synchronous twin, or 2) and launch arguments A
+// (with a column map for CmapWholeArgs); nullptr for any other.
+template <typename A>
+void (*whole_kernel(int vsize, int stages))(A) {
   switch (vsize) {
-    case 4: return whole_kernel_v<float>(stages);
-    case 2: return whole_kernel_v<__nv_bfloat16>(stages);
-    case 1: return whole_kernel_v<int8_t>(stages);
+    case 4: return whole_kernel_v<float, A>(stages);
+    case 2: return whole_kernel_v<__nv_bfloat16, A>(stages);
+    case 1: return whole_kernel_v<int8_t, A>(stages);
     default: return nullptr;
   }
 }
+
+// The shared-memory carve-out the whole-vector column-map twins ask for, in
+// percent of the most an SM gives (228 KB): 164 KB, so that L1 keeps 92 KB
+// for x and the map, which every set lane reads through it. Left to the
+// CUDA runtime, the vocab layer's ring twin got 228 KB (12 CTAs of 17.6 KB)
+// and L1 28 KB, too little for x and the map (16 KB each): the twin took
+// 2.37x its kernel on x[col_perm], 1.13x at this carve-out, which also cut
+// the band's ring twin from 1.69x to 1.45x (PERF.md §6).
+constexpr int kCmapWholeCarveout = 72;
 
 // The stages a launch of the `stages` kernel holds: a ring no longer than
 // the longest chunk range (ceil(nchunks / grid)), since a CTA uses no more
@@ -654,11 +741,15 @@ int whole_ring(int stages, const WholeArgs& a) {
 // Launch the whole-vector kernel of `stages` with the wrapper's plan: a
 // grid, tile, shared-memory figure (whole_ring stages) or thread count it
 // did not plan (or the kernel cannot take), or int8 values without their
-// scales, is refused with cudaErrorInvalidValue, launching nothing.
-int launch_whole(int stages, const WholeArgs& a, int smem_planned, int threads, int device,
+// scales, is refused with cudaErrorInvalidValue, launching nothing (as is a
+// column map launch without its map).
+template <typename A>
+int launch_whole(int stages, const A& a, int smem_planned, int threads, int device,
                  void* stream) {
-  const WholeKernel kernel = whole_kernel(a.vsize, stages);
-  if (kernel == nullptr || a.grid < 1 || a.grid > a.nchunks || a.cb < 1 || a.tile < 1 ||
+  const auto kernel = whole_kernel<A>(a.vsize, stages);
+  bool bad_map = false;
+  if constexpr (kMapped<A>) bad_map = a.cmap == nullptr;
+  if (kernel == nullptr || bad_map || a.grid < 1 || a.grid > a.nchunks || a.cb < 1 || a.tile < 1 ||
       a.r < 1 || 32 % a.r != 0 || a.c < 1 || a.r * a.c > 32 || threads < 32 || threads > 256 ||
       threads % 32 != 0 || (a.vsize == 1 && a.scale == nullptr) ||
       whole_smem(a, whole_ring(stages, a), threads) != (size_t)smem_planned) {
@@ -666,54 +757,80 @@ int launch_whole(int stages, const WholeArgs& a, int smem_planned, int threads, 
   }
   const size_t smem = (size_t)smem_planned;
   cudaError_t err = prepare_launch(kernel, device, smem, threads, nullptr);
+  if constexpr (kMapped<A>) {
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 kCmapWholeCarveout);
+    }
+  }
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {const_cast<WholeArgs*>(&a)};
+  void* args[] = {const_cast<A*>(&a)};
   err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(a.grid), dim3(threads), args,
                          smem, (cudaStream_t)stream);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-using PanelKernel = void (*)(PanelArgs);
-
-template <typename V>
-PanelKernel panels_kernel_v(int stages) {
-  switch (stages) {
-    case 1: return spmv_panels_kernel<V, 1>;
-    case 2: return spmv_panels_kernel<V, 2>;
-    case 3: return spmv_panels_kernel<V, 3>;
-    default: return nullptr;
+template <typename V, typename A>
+void (*panels_kernel_v(int stages))(A) {
+  if constexpr (kMapped<A>) {
+    switch (stages) {
+      case 1: return spmv_panels_cmap_kernel<V, 1>;
+      case 2: return spmv_panels_cmap_kernel<V, 2>;
+      case 3: return spmv_panels_cmap_kernel<V, 3>;
+      default: return nullptr;
+    }
+  } else {
+    switch (stages) {
+      case 1: return spmv_panels_kernel<V, 1>;
+      case 2: return spmv_panels_kernel<V, 2>;
+      case 3: return spmv_panels_kernel<V, 3>;
+      default: return nullptr;
+    }
   }
 }
 
-// The panel kernel for vsize-byte values (4 float, 2 bf16, 1 int8) and a
-// ring of `stages` (1: the synchronous twin); nullptr for any other.
-PanelKernel panels_kernel(int vsize, int stages) {
+// The panel kernel for vsize-byte values (4 float, 2 bf16, 1 int8), a ring
+// of `stages` (1: the synchronous twin) and launch arguments A (with a
+// column map for CmapPanelArgs); nullptr for any other.
+template <typename A>
+void (*panels_kernel(int vsize, int stages))(A) {
   switch (vsize) {
-    case 4: return panels_kernel_v<float>(stages);
-    case 2: return panels_kernel_v<__nv_bfloat16>(stages);
-    case 1: return panels_kernel_v<int8_t>(stages);
+    case 4: return panels_kernel_v<float, A>(stages);
+    case 2: return panels_kernel_v<__nv_bfloat16, A>(stages);
+    case 1: return panels_kernel_v<int8_t, A>(stages);
     default: return nullptr;
   }
 }
 
-int launch_panels(int stages, const int* vbase, const int* xbase, const int* col,
-                  const uint32_t* mask, const int* voff, const int* row, const void* values,
-                  const float* scale, const float* x, float* y, int npanels, int nchunks, int cb,
-                  int vmax, int pr, int nrows, int r, int c, int vsize, int nvalues, int split,
-                  int smem_planned, int threads, int device, void* stream) {
-  const PanelArgs a{vbase, xbase, col,   mask,  voff, row,   values, x,     y,
-                    nchunks, cb, vmax, pr, nrows, r, c, split, scale, vsize, nvalues};
-  const PanelKernel kernel = panels_kernel(vsize, stages);
+PanelArgs panel_args(const int* vbase, const int* xbase, const int* col, const uint32_t* mask,
+                     const int* voff, const int* row, const void* values, const float* scale,
+                     const float* x, float* y, int nchunks, int cb, int vmax, int pr, int nrows,
+                     int r, int c, int vsize, int nvalues, int split) {
+  return PanelArgs{vbase, xbase, col,   mask,  voff, row,   values, x,     y,
+                   nchunks, cb, vmax, pr, nrows, r, c, split, scale, vsize, nvalues};
+}
+
+// Launch the panel kernel of `stages` over npanels panels with the
+// wrapper's plan: a split, shared-memory figure or thread count it did not
+// plan (or the kernel cannot take), int8 values without their scales, or a
+// column map launch without its map, is refused with cudaErrorInvalidValue,
+// launching nothing.
+template <typename A>
+int launch_panels(int stages, const A& a, int npanels, int smem_planned, int threads, int device,
+                  void* stream) {
+  const auto kernel = panels_kernel<A>(a.vsize, stages);
   const size_t smem = panels_smem(a, stages);
-  if (kernel == nullptr || split < 1 || split > nchunks ||
-      (long long)npanels * split > 0x7fffffffLL || smem != (size_t)smem_planned ||
-      threads < 32 || threads > 256 || threads % 32 != 0 || (vsize == 1 && scale == nullptr)) {
+  bool bad_map = false;
+  if constexpr (kMapped<A>) bad_map = a.cmap == nullptr;
+  if (kernel == nullptr || bad_map || a.split < 1 || a.split > a.nchunks ||
+      (long long)npanels * a.split > 0x7fffffffLL || smem != (size_t)smem_planned ||
+      threads < 32 || threads > 256 || threads % 32 != 0 || (a.vsize == 1 && a.scale == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = prepare_launch(kernel, device, smem, threads, nullptr);
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {const_cast<PanelArgs*>(&a)};
-  err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(npanels * split),
+  void* args[] = {const_cast<A*>(&a)};
+  err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(npanels * a.split),
                          dim3(threads), args, smem, (cudaStream_t)stream);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
@@ -765,7 +882,56 @@ int spc5_spmv_whole_s2(const int* vbase, const int* col, const uint32_t* mask, c
 // dynamic shared memory per CTA: out[0] the CTAs one SM holds at once,
 // out[1] the SMs of the device.
 int spc5_spmv_whole_occupancy(int stages, int vsize, int threads, int smem, int device, int* out) {
-  return occupancy(whole_kernel(vsize, stages), threads, smem, device, out);
+  return occupancy(whole_kernel<WholeArgs>(vsize, stages), threads, smem, device, out);
+}
+
+// The synchronous whole-vector kernel with a column map: the arguments of
+// spc5_spmv_whole_s1, then cmap ((ncols,) int32, the column of x each
+// permuted column reads); x is (ncols,) in the original column order.
+int spc5_spmv_whole_cmap_s1(const int* vbase, const int* col, const uint32_t* mask,
+                            const int* voff, const int* row, const void* values,
+                            const float* scale, const float* x, float* y, int nchunks, int cb,
+                            int vmax, int nrows, int r, int c, int vsize, int nvalues, int grid,
+                            int tile, int smem, int threads, int device, void* stream,
+                            const int* cmap) {
+  CmapWholeArgs a{};
+  static_cast<WholeArgs&>(a) = WholeArgs{vbase, col,  mask, voff,  row,   values, x,
+                                         y,     nchunks, cb, vmax,  nrows, r,      c,
+                                         grid,  tile,  scale, vsize, nvalues};
+  a.cmap = cmap;
+  return launch_whole(1, a, smem, threads, device, stream);
+}
+
+// The staged-ahead whole-vector kernel with a column map: the arguments of
+// spc5_spmv_whole_s2, then cmap.
+int spc5_spmv_whole_cmap_s2(const int* vbase, const int* col, const uint32_t* mask,
+                            const int* voff, const int* row, const void* values,
+                            const float* scale, const float* x, float* y, int nchunks, int cb,
+                            int vmax, int nrows, int r, int c, int vsize, int nvalues, int grid,
+                            int tile, int smem, int threads, int device, void* stream,
+                            const int* cmap) {
+  CmapWholeArgs a{};
+  static_cast<WholeArgs&>(a) = WholeArgs{vbase, col,  mask, voff,  row,   values, x,
+                                         y,     nchunks, cb, vmax,  nrows, r,      c,
+                                         grid,  tile,  scale, vsize, nvalues};
+  a.cmap = cmap;
+  return launch_whole(2, a, smem, threads, device, stream);
+}
+
+// The occupancy of the whole-vector kernel with a column map, as
+// spc5_spmv_whole_occupancy reports its twin's, at the twin's carve-out.
+int spc5_spmv_whole_cmap_occupancy(int stages, int vsize, int threads, int smem, int device,
+                                   int* out) {
+  const auto kernel = whole_kernel<CmapWholeArgs>(vsize, stages);
+  if (kernel != nullptr) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 kCmapWholeCarveout);
+    }
+    if (err != cudaSuccess) return (int)err;
+  }
+  return occupancy(kernel, threads, smem, device, out);
 }
 
 // The dynamic shared memory of one whole-vector CTA of `threads` threads
@@ -789,9 +955,10 @@ int spc5_spmv_panels_s1(const int* vbase, const int* xbase, const int* col, cons
                         const float* x, float* y, int npanels, int nchunks, int cb, int vmax,
                         int pr, int nrows, int r, int c, int vsize, int nvalues, int split,
                         int smem, int threads, int device, void* stream) {
-  return launch_panels(1, vbase, xbase, col, mask, voff, row, values, scale, x, y, npanels,
-                       nchunks, cb, vmax, pr, nrows, r, c, vsize, nvalues, split, smem, threads,
-                       device, stream);
+  return launch_panels(1,
+                       panel_args(vbase, xbase, col, mask, voff, row, values, scale, x, y,
+                                  nchunks, cb, vmax, pr, nrows, r, c, vsize, nvalues, split),
+                       npanels, smem, threads, device, stream);
 }
 
 // The staged-ahead panel kernel: a ring of `stages` chunks, 2 or 3.
@@ -801,9 +968,10 @@ int spc5_spmv_panels_s2(const int* vbase, const int* xbase, const int* col, cons
                         int pr, int nrows, int r, int c, int vsize, int nvalues, int split,
                         int stages, int smem, int threads, int device, void* stream) {
   if (stages < 2) return (int)cudaErrorInvalidValue;
-  return launch_panels(stages, vbase, xbase, col, mask, voff, row, values, scale, x, y, npanels,
-                       nchunks, cb, vmax, pr, nrows, r, c, vsize, nvalues, split, smem, threads,
-                       device, stream);
+  return launch_panels(stages,
+                       panel_args(vbase, xbase, col, mask, voff, row, values, scale, x, y,
+                                  nchunks, cb, vmax, pr, nrows, r, c, vsize, nvalues, split),
+                       npanels, smem, threads, device, stream);
 }
 
 // The panel kernel's occupancy at `stages` (1: the synchronous kernel),
@@ -812,7 +980,49 @@ int spc5_spmv_panels_s2(const int* vbase, const int* xbase, const int* col, cons
 // device.
 int spc5_spmv_panels_occupancy(int stages, int vsize, int threads, int smem, int device,
                                int* out) {
-  return occupancy(panels_kernel(vsize, stages), threads, smem, device, out);
+  return occupancy(panels_kernel<PanelArgs>(vsize, stages), threads, smem, device, out);
+}
+
+// The synchronous panel kernel with a column map: the arguments of
+// spc5_spmv_panels_s1, then cmap ((ncols,) int32, the column of x each
+// permuted column reads); x is (ncols,) in the original column order,
+// unpadded.
+int spc5_spmv_panels_cmap_s1(const int* vbase, const int* xbase, const int* col,
+                             const uint32_t* mask, const int* voff, const int* row,
+                             const void* values, const float* scale, const float* x, float* y,
+                             int npanels, int nchunks, int cb, int vmax, int pr, int nrows, int r,
+                             int c, int vsize, int nvalues, int split, int smem, int threads,
+                             int device, void* stream, const int* cmap) {
+  CmapPanelArgs a{};
+  static_cast<PanelArgs&>(a) = panel_args(vbase, xbase, col, mask, voff, row, values, scale, x,
+                                          y, nchunks, cb, vmax, pr, nrows, r, c, vsize, nvalues,
+                                          split);
+  a.cmap = cmap;
+  return launch_panels(1, a, npanels, smem, threads, device, stream);
+}
+
+// The staged-ahead panel kernel with a column map: the arguments of
+// spc5_spmv_panels_s2, then cmap.
+int spc5_spmv_panels_cmap_s2(const int* vbase, const int* xbase, const int* col,
+                             const uint32_t* mask, const int* voff, const int* row,
+                             const void* values, const float* scale, const float* x, float* y,
+                             int npanels, int nchunks, int cb, int vmax, int pr, int nrows, int r,
+                             int c, int vsize, int nvalues, int split, int stages, int smem,
+                             int threads, int device, void* stream, const int* cmap) {
+  if (stages < 2) return (int)cudaErrorInvalidValue;
+  CmapPanelArgs a{};
+  static_cast<PanelArgs&>(a) = panel_args(vbase, xbase, col, mask, voff, row, values, scale, x,
+                                          y, nchunks, cb, vmax, pr, nrows, r, c, vsize, nvalues,
+                                          split);
+  a.cmap = cmap;
+  return launch_panels(stages, a, npanels, smem, threads, device, stream);
+}
+
+// The occupancy of the panel kernel with a column map, as
+// spc5_spmv_panels_occupancy reports its twin's.
+int spc5_spmv_panels_cmap_occupancy(int stages, int vsize, int threads, int smem, int device,
+                                    int* out) {
+  return occupancy(panels_kernel<CmapPanelArgs>(vsize, stages), threads, smem, device, out);
 }
 
 // The dynamic shared memory of one panel-kernel CTA with `stages` stages

@@ -1,4 +1,5 @@
-"""Wrappers of the CUDA mask-decode SpMM kernels (``csrc/spc5_spmm.cu``).
+"""Wrappers of the CUDA mask-decode SpMM kernels (``csrc/spc5_spmm.cu``,
+the kernels themselves in ``csrc/spc5_spmm_mask.cuh``).
 
 One wrapper per Pallas mask-SpMM kernel of ``repro.kernels.spc5_spmm``,
 with the same arguments minus ``interpret``:
@@ -10,6 +11,13 @@ with the same arguments minus ``interpret``:
   ``spmm_cuda_panels``     spc5_spmm_panels_s1   ``spmm_pallas_panels``
   ``spmm_cuda_panels_db``  spc5_spmm_panels_s2   ``spmm_pallas_panels_db``
   =======================  ====================  ==========================
+
+Each wrapper also takes ``col_map``, a reordered plan's column permutation
+(the Pallas kernels' ``col_map``): with it, on the card, it launches its
+column-map twin from ``csrc/spc5_spmm_cmap.cu`` (a library of its own,
+``spc5_spmm_whole_cmap``, ``spc5_spmm_panels_cmap_s1`` / ``_s2``), which
+reads X, in the original row order, at row ``col_map[j]`` for each nonzero
+of permuted column j, and counts the launch as ``<wrapper>_cmap``.
 
 X is (ncols, nvec) and Y (nrows, nvec), both row-major float32, as in the
 reference. ``nvt`` keeps the reference's rule: ``nvec`` must be a multiple
@@ -49,13 +57,14 @@ from repro_torch.core import ref_spmv as R
 
 from . import _build
 from .spc5_spmv import (MAX_SMEM_BYTES, _aligned, _check, _check_smem,
-                        _check_map, _check_values, _raise_on,
-                        _refuse_map_on_card, _scale_ptr, _stream,
-                        panels_split, value_window_bytes)
+                        _check_map, _check_values, _raise_on, _scale_ptr,
+                        _stream, panels_split, value_window_bytes)
 
 #: Launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES: Dict[str, int] = {"spmm_cuda": 0, "spmm_cuda_panels": 0,
-                            "spmm_cuda_panels_db": 0}
+                            "spmm_cuda_panels_db": 0, "spmm_cuda_cmap": 0,
+                            "spmm_cuda_panels_cmap": 0,
+                            "spmm_cuda_panels_db_cmap": 0}
 
 _MAX_GRID = 2 ** 31 - 1      # CTAs on the grid's x dimension
 
@@ -63,6 +72,11 @@ _MAX_GRID = 2 ** 31 - 1      # CTAs on the grid's x dimension
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _library(mapped: bool) -> str:
+    """The library holding the kernels, or their column-map twins."""
+    return "spc5_spmm_cmap" if mapped else "spc5_spmm"
 
 
 def _nvec(x: torch.Tensor, nvt: int) -> int:
@@ -275,18 +289,21 @@ _WHOLE_OCCUPANCY: Dict[Tuple[int, ...], Tuple[int, int]] = {}
 
 
 def whole_occupancy(r: int, c: int, vec: int, threads: int, smem: int,
-                    device: torch.device, vsize: int = 4) -> Tuple[int, int]:
+                    device: torch.device, vsize: int = 4,
+                    mapped: bool = False) -> Tuple[int, int]:
     """(CTAs one SM holds at once, SMs) for the whole-vector mask kernel of
     ``vsize``-byte values, block shape (r, c) and ``vec`` columns a lane,
-    as the CUDA runtime reports them."""
+    its column-map twin where ``mapped``, as the CUDA runtime reports
+    them."""
     key = (vsize, r, c, vec, threads, smem, device.index or 0)
-    if key not in _WHOLE_OCCUPANCY:
-        lib = _build.load_library("spc5_spmm")
+    if (mapped,) + key not in _WHOLE_OCCUPANCY:
+        fn = f"spc5_spmm_whole{'_cmap' if mapped else ''}_occupancy"
+        lib = _build.load_library(_library(mapped))
         out = (ctypes.c_int * 2)()
-        err = lib.spc5_spmm_whole_occupancy(*key, ctypes.addressof(out))
-        _raise_on(err, "spc5_spmm_whole_occupancy")
-        _WHOLE_OCCUPANCY[key] = (out[0], out[1])
-    return _WHOLE_OCCUPANCY[key]
+        err = getattr(lib, fn)(*key, ctypes.addressof(out))
+        _raise_on(err, fn)
+        _WHOLE_OCCUPANCY[(mapped,) + key] = (out[0], out[1])
+    return _WHOLE_OCCUPANCY[(mapped,) + key]
 
 
 def whole_cta(*, cb: int, r: int, c: int, vmax: int, nvec: int, vec: int,
@@ -305,15 +322,16 @@ def whole_launch(nchunks: int, *, cb: int, r: int, c: int, vmax: int,
                  nvec: int, vec: int, device: torch.device,
                  grid: Optional[int] = None,
                  what: str = "whole-vector kernel",
-                 vsize: int = 4) -> Dict[str, int]:
+                 vsize: int = 4, mapped: bool = False) -> Dict[str, int]:
     """The launch ``spmm_cuda`` makes on ``device`` (a card) for
     ``vsize``-byte values: the CTA of :func:`whole_cta`, then
-    :func:`whole_grid`."""
+    :func:`whole_grid` (at the column-map twin's occupancy where
+    ``mapped``)."""
     cta = whole_cta(cb=cb, r=r, c=c, vmax=vmax, nvec=nvec, vec=vec,
                     what=what, vsize=vsize)
     return whole_grid(cta, lambda t, n: whole_occupancy(
-        r, c, cta["vector"], t, n, device, vsize), nchunks, nvec, grid,
-        what)
+        r, c, cta["vector"], t, n, device, vsize,
+        **({"mapped": True} if mapped else {})), nchunks, nvec, grid, what)
 
 
 def spmm_cuda(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
@@ -326,9 +344,11 @@ def spmm_cuda(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
     by the lane groups, rows summed in a Y tile (replaces ``spmm_pallas``,
     which has no double-buffered twin). ``chunk_mask`` is the int32 view of
     the uint32 masks; ``values`` f32, bf16 or int8 (with ``value_scale``,
-    (nchunks,) float32). ``col_map`` (int32, (ncols,)) is taken on the CPU
-    (the plain version reads ``X[col_map]``); on the card it raises
-    (ROADMAP queue 2 B, item 4)."""
+    (nchunks,) float32). ``col_map`` (int32, (ncols,)), a fused column
+    permutation: on the card the column-map twin reads X's row
+    ``col_map[j]`` for each nonzero of permuted column j (counted as
+    ``spmm_cuda_cmap``), on the CPU the plain version reads
+    ``X[col_map]``."""
     fn = "spmm_cuda"
     nchunks = chunk_col.shape[0]
     named = dict(chunk_vbase=chunk_vbase, chunk_col=chunk_col,
@@ -344,7 +364,6 @@ def spmm_cuda(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
         raise ValueError(f"X has shape {tuple(x.shape)}, expected "
                          f"({ncols}, nvec)")
     _check_map(col_map, ncols, values.device)
-    _refuse_map_on_card(fn, col_map, values.device, 4)
     if values.device.type == "cpu":
         if col_map is not None:
             x = x.index_select(0, col_map)
@@ -360,14 +379,15 @@ def spmm_cuda(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
         raise ValueError(f"X has {x.numel()} elements; the kernels index it "
                          f"with 32-bit offsets")
     vsize = values.element_size()
+    mapped = col_map is not None
     launch = whole_launch(nchunks, cb=cb, r=r, c=c, vmax=vmax, nvec=nvec,
                           vec=panels_vector(nvec, x), device=values.device,
-                          grid=grid, what=fn, vsize=vsize)
+                          grid=grid, what=fn, vsize=vsize, mapped=mapped)
     _aligned({"values": values})
-    lib = _build.load_library("spc5_spmm")
+    lib = _build.load_library(_library(mapped))
     # every CTA adds into Y
     y = torch.zeros((nrows, nvec), dtype=torch.float32, device=values.device)
-    err = lib.spc5_spmm_whole(
+    err = getattr(lib, f"spc5_spmm_whole{'_cmap' if mapped else ''}")(
         chunk_vbase.data_ptr(), chunk_col.data_ptr(), chunk_mask.data_ptr(),
         chunk_voff.data_ptr(), chunk_row.data_ptr(), values.data_ptr(),
         _scale_ptr(value_scale), x.data_ptr(), y.data_ptr(), nchunks, cb,
@@ -375,7 +395,9 @@ def spmm_cuda(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
         launch["tile_columns"], launch["vector"], launch["grid"],
         launch["stages"], launch["chunks_per_stage"],
         launch["blocks_per_stage"], launch["tile_rows"], launch["smem_bytes"],
-        launch["threads"], values.device.index or 0, _stream(values.device))
+        launch["threads"], values.device.index or 0, _stream(values.device),
+        *((col_map.data_ptr(),) if mapped else ()))
+    fn = f"{fn}_cmap" if mapped else fn
     _raise_on(err, fn)
     LAUNCHES[fn] += 1
     return y
@@ -498,36 +520,40 @@ _OCCUPANCY: Dict[Tuple[int, ...], Tuple[int, int]] = {}
 
 
 def panels_occupancy(stages: int, c: int, vec: int, threads: int, smem: int,
-                     device: torch.device, vsize: int = 4) -> Tuple[int, int]:
+                     device: torch.device, vsize: int = 4,
+                     mapped: bool = False) -> Tuple[int, int]:
     """(CTAs one SM holds at once, SMs) for the panel kernel of
     ``vsize``-byte values, block width c, ``vec`` columns a lane and
-    ``stages`` (1: the synchronous one), as the CUDA runtime reports
-    them."""
+    ``stages`` (1: the synchronous one), its column-map twin where
+    ``mapped``, as the CUDA runtime reports them."""
     key = (stages, vsize, c, vec, threads, smem, device.index or 0)
-    if key not in _OCCUPANCY:
-        lib = _build.load_library("spc5_spmm")
+    if (mapped,) + key not in _OCCUPANCY:
+        fn = f"spc5_spmm_panels{'_cmap' if mapped else ''}_occupancy"
+        lib = _build.load_library(_library(mapped))
         out = (ctypes.c_int * 2)()
-        err = lib.spc5_spmm_panels_occupancy(*key, ctypes.addressof(out))
-        _raise_on(err, "spc5_spmm_panels_occupancy")
-        _OCCUPANCY[key] = (out[0], out[1])
-    return _OCCUPANCY[key]
+        err = getattr(lib, fn)(*key, ctypes.addressof(out))
+        _raise_on(err, fn)
+        _OCCUPANCY[(mapped,) + key] = (out[0], out[1])
+    return _OCCUPANCY[(mapped,) + key]
 
 
 def panels_launch(stages: int, npanels: int, nchunks: int, *, cb: int,
                   r: int, c: int, vmax: int, pr: int, nvec: int, vec: int,
                   device: torch.device, split: Optional[int] = None,
                   what: str = "panel kernel",
-                  vsize: int = 4) -> Dict[str, int]:
+                  vsize: int = 4, mapped: bool = False) -> Dict[str, int]:
     """The launch a panel wrapper makes on ``device`` (a card) for lanes of
     at most ``vec`` columns (:func:`panels_vector`) and ``vsize``-byte
-    values: ``stages``, the CTA of
+    values (its column-map twin where ``mapped``: the same CTA at the
+    twin's occupancy): ``stages``, the CTA of
     :func:`panels_plan`, ``ntiles``, the card's ``ctas_per_sm`` and ``sms``,
     ``split`` (S, from :func:`~.spc5_spmv.panels_split` over npanels x row
     parts x ntiles units unless given), ``grid`` (npanels x S x row parts x
     ntiles) and ``chunks_per_cta`` (the longest range)."""
     cta = panels_plan(stages, cb, r, c, vmax, pr, nvec, vec, what, vsize)
     per_sm, sms = panels_occupancy(stages, c, cta["vector"], cta["threads"],
-                                   cta["smem_bytes"], device, vsize)
+                                   cta["smem_bytes"], device, vsize,
+                                   **({"mapped": True} if mapped else {}))
     ntiles = -(-nvec // cta["tile_columns"])
     units = npanels * cta["row_parts"] * ntiles
     if split is None:
@@ -563,7 +589,6 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
         raise ValueError(f"{npanels} panels of {pr} rows cannot hold "
                          f"{nrows} rows")
     _check_map(col_map, x.shape[0], values.device)
-    _refuse_map_on_card(fn, col_map, values.device, 4)
     if values.device.type == "cpu":
         return R.spmm_panels(
             R.SPC5PanelDevice(values, chunk_col, chunk_mask, chunk_voff,
@@ -579,18 +604,21 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
         raise ValueError(f"X has {x.numel()} elements; the kernels index it "
                          f"with 32-bit offsets")
     vsize = values.element_size()
+    mapped = col_map is not None
     launch = panels_launch(stages, npanels, nchunks, cb=cb, r=r, c=c,
                            vmax=vmax, pr=pr, nvec=nvec,
                            vec=panels_vector(nvec, x), device=values.device,
-                           split=split, what=fn, vsize=vsize)
+                           split=split, what=fn, vsize=vsize, mapped=mapped)
     _aligned({"values": values})
-    lib = _build.load_library("spc5_spmm")
+    lib = _build.load_library(_library(mapped))
     # S > 1 CTAs add into each panel's rows, so Y starts at 0
     y = (torch.zeros if launch["split"] > 1 else torch.empty)(
         (nrows, nvec), dtype=torch.float32, device=values.device)
     # X is read in place: the kernels skip any column at or past its rows,
-    # which is what the reference's zero padding up to ncols_pad adds
-    err = getattr(lib, f"spc5_spmm_panels_s{stages}")(
+    # which is what the reference's zero padding up to ncols_pad adds (with
+    # a map: its padding lanes, at columns at or past ncols, are unset)
+    err = getattr(lib, f"spc5_spmm_panels{'_cmap' if mapped else ''}_s"
+                       f"{stages}")(
         chunk_vbase.data_ptr(), chunk_xbase.data_ptr(), chunk_col.data_ptr(),
         chunk_mask.data_ptr(), chunk_voff.data_ptr(), chunk_row.data_ptr(),
         values.data_ptr(), _scale_ptr(value_scale), x.data_ptr(),
@@ -598,7 +626,9 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
         vsize, values.numel(), nvec, launch["tile_columns"],
         launch["vector"], launch["row_parts"], launch["part_rows"],
         launch["split"], launch["chunks_per_stage"], launch["smem_bytes"],
-        launch["threads"], values.device.index or 0, _stream(values.device))
+        launch["threads"], values.device.index or 0, _stream(values.device),
+        *((col_map.data_ptr(),) if mapped else ()))
+    fn = f"{fn}_cmap" if mapped else fn
     _raise_on(err, fn)
     LAUNCHES[fn] += 1
     return y
@@ -617,9 +647,11 @@ def spmm_cuda_panels(chunk_vbase, chunk_xbase, chunk_col, chunk_mask,
     adding each row of the Y tile (replaces ``spmm_pallas_panels``). X is
     (ncols, nvec); ``xw`` is the layout's window, kept for the
     signature; ``values`` f32, bf16 or int8 (with ``value_scale``,
-    (npanels, nchunks) float32). ``col_map`` (int32, one entry a row of X)
-    is taken on the CPU; on the card it raises (ROADMAP queue 2 B, item
-    4)."""
+    (npanels, nchunks) float32). ``col_map`` (int32, one entry a row of
+    X), a fused column permutation: the column-map twin reads X's row
+    ``col_map[j]`` for each nonzero of permuted column j (counted as
+    ``spmm_cuda_panels_cmap``); the plain version maps each column through
+    it."""
     return _panels("spmm_cuda_panels", 1, chunk_vbase, chunk_xbase,
                    chunk_col, chunk_mask, chunk_voff, chunk_row, values, x,
                    col_map, value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr, nrows=nrows,
@@ -636,7 +668,8 @@ def spmm_cuda_panels_db(chunk_vbase, chunk_xbase, chunk_col, chunk_mask,
     """Row-panel SpMM with a ring of :data:`PANEL_DB_STAGES` stages of
     chunks (value windows and metadata) staged ahead by bulk copies
     (replaces ``spmm_pallas_panels_db``); ``split`` and ``values`` as in
-    :func:`spmm_cuda_panels`; ``col_map`` too."""
+    :func:`spmm_cuda_panels`; ``col_map`` too (counted as
+    ``spmm_cuda_panels_db_cmap`` with a map)."""
     return _panels("spmm_cuda_panels_db", PANEL_DB_STAGES, chunk_vbase,
                    chunk_xbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
                    values, x, col_map, value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr,

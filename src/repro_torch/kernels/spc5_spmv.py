@@ -12,6 +12,13 @@ arguments minus ``interpret``:
   ``spmv_cuda_panels_db`` spc5_spmv_panels_s2    ``spmv_pallas_panels_db``
   ======================  =====================  ===========================
 
+Each wrapper also takes ``col_map``, a reordered plan's column permutation
+(the Pallas kernels' ``col_map``): with it, on the card, it launches its
+column-map twin (``spc5_spmv_whole_cmap_s1`` / ``_s2``,
+``spc5_spmv_panels_cmap_s1`` / ``_s2``) on x in the original column order,
+unpadded, each set lane of permuted column j reading ``x[col_map[j]]``, and
+counts the launch as ``<wrapper>_cmap`` (``spmv_cuda_cmap`` and so on).
+
 The whole-vector kernels cut the chunks into G contiguous ranges, one CTA
 each (G chosen here from the card's occupancy by the panel kernels' split
 rule, :func:`whole_launch`; ``grid`` overrides it); the panel kernels split
@@ -44,7 +51,10 @@ from . import _build
 
 #: Launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES: Dict[str, int] = {"spmv_cuda": 0, "spmv_cuda_db": 0,
-                            "spmv_cuda_panels": 0, "spmv_cuda_panels_db": 0}
+                            "spmv_cuda_panels": 0, "spmv_cuda_panels_db": 0,
+                            "spmv_cuda_cmap": 0, "spmv_cuda_db_cmap": 0,
+                            "spmv_cuda_panels_cmap": 0,
+                            "spmv_cuda_panels_db_cmap": 0}
 
 #: Dynamic shared memory one CTA may use on Hopper (232,448 bytes).
 MAX_SMEM_BYTES = 227 * 1024
@@ -89,16 +99,6 @@ def _check_map(col_map, ncols: int, device: torch.device) -> None:
     (ncols,) tensor on the values' device."""
     if col_map is not None:
         _check(dict(col_map=col_map), {"col_map": (ncols,)}, device)
-
-
-def _refuse_map_on_card(fn: str, col_map, device: torch.device,
-                        item: int) -> None:
-    """The mask kernels take no column map yet: a map with CUDA tensors
-    raises before any launch (on the CPU the plain version takes it)."""
-    if col_map is not None and device.type != "cpu":
-        raise NotImplementedError(
-            f"{fn}: a column map (col_map) on the card is not ported yet: "
-            f"ROADMAP queue 2 B, item {item}")
 
 
 #: The value stores a wrapper takes: f32, and the value-dtype axis's
@@ -280,27 +280,30 @@ _WHOLE_OCCUPANCY: Dict[Tuple[int, ...], Tuple[int, int]] = {}
 
 
 def whole_occupancy(stages: int, threads: int, smem: int,
-                    device: torch.device, vsize: int = 4) -> Tuple[int, int]:
+                    device: torch.device, vsize: int = 4,
+                    mapped: bool = False) -> Tuple[int, int]:
     """(CTAs one SM holds at once, SMs) for the whole-vector kernel of
-    ``vsize``-byte values at ``stages`` (1: the synchronous one), as the
-    CUDA runtime reports them."""
+    ``vsize``-byte values at ``stages`` (1: the synchronous one), its
+    column-map twin where ``mapped``, as the CUDA runtime reports them."""
     key = (stages, vsize, threads, smem, device.index or 0)
-    if key not in _WHOLE_OCCUPANCY:
+    if (mapped,) + key not in _WHOLE_OCCUPANCY:
+        fn = f"spc5_spmv_whole{'_cmap' if mapped else ''}_occupancy"
         lib = _build.load_library("spc5_spmv")
         out = (ctypes.c_int * 2)()
-        err = lib.spc5_spmv_whole_occupancy(*key, ctypes.addressof(out))
-        _raise_on(err, "spc5_spmv_whole_occupancy")
-        _WHOLE_OCCUPANCY[key] = (out[0], out[1])
-    return _WHOLE_OCCUPANCY[key]
+        err = getattr(lib, fn)(*key, ctypes.addressof(out))
+        _raise_on(err, fn)
+        _WHOLE_OCCUPANCY[(mapped,) + key] = (out[0], out[1])
+    return _WHOLE_OCCUPANCY[(mapped,) + key]
 
 
 def whole_launch(stages: int, nchunks: int, *, cb: int, r: int, vmax: int,
                  device: torch.device, grid: Optional[int] = None,
                  what: str = "whole-vector kernel",
-                 vsize: int = 4) -> Dict[str, int]:
+                 vsize: int = 4, mapped: bool = False) -> Dict[str, int]:
     """The launch a whole-vector wrapper makes on ``device`` (a card) with
     the kernel of ``stages`` (1, or :data:`WHOLE_DB_STAGES`) for
-    ``vsize``-byte values: ``grid`` (G,
+    ``vsize``-byte values (its column-map twin where ``mapped``: the same
+    plan at the twin's occupancy): ``grid`` (G,
     from :func:`panels_split` over one "panel" of every chunk at the
     occupancy of the whole ring, unless given), ``chunks_per_cta`` (the
     longest range), ``stages`` (the stages it holds: the ring, or one where
@@ -316,7 +319,8 @@ def whole_launch(stages: int, nchunks: int, *, cb: int, r: int, vmax: int,
     threads = whole_threads(cb, r, vmax)
     smem = whole_smem_bytes(stages, cb, vmax, tile, threads, vsize)
     _check_smem(smem, what)
-    per_sm, sms = whole_occupancy(stages, threads, smem, device, vsize)
+    per_sm, sms = whole_occupancy(stages, threads, smem, device, vsize,
+                                  **({"mapped": True} if mapped else {}))
     if grid is None:
         grid = panels_split(1, nchunks, per_sm, sms)
     if not 1 <= grid <= nchunks:
@@ -326,7 +330,8 @@ def whole_launch(stages: int, nchunks: int, *, cb: int, r: int, vmax: int,
     if longest < stages:
         # the kernel's whole_ring: a CTA uses no more stages than chunks
         smem = whole_smem_bytes(longest, cb, vmax, tile, threads, vsize)
-        per_sm, sms = whole_occupancy(stages, threads, smem, device, vsize)
+        per_sm, sms = whole_occupancy(stages, threads, smem, device, vsize,
+                                      **({"mapped": True} if mapped else {}))
     return dict(stages=min(stages, longest), smem_bytes=smem,
                 threads=threads, tile_rows=tile, ctas_per_sm=per_sm,
                 sms=sms, grid=grid, chunks_per_cta=longest)
@@ -345,7 +350,6 @@ def _whole(fn: str, stages: int, chunk_vbase, chunk_col, chunk_mask,
                    "x": (ncols,)}, values.device)
     _check_values(fn, values, value_scale, (nchunks,))
     _check_map(col_map, ncols, values.device)
-    _refuse_map_on_card(fn, col_map, values.device, 1)
     if values.device.type == "cpu":
         xg = x if col_map is None else x.index_select(0, col_map)
         return R.spmv(R.SPC5Device(values, chunk_col, chunk_mask, chunk_voff,
@@ -357,20 +361,24 @@ def _whole(fn: str, stages: int, chunk_vbase, chunk_col, chunk_mask,
         raise ValueError(f"vmax must be a multiple of 4 (whole 16-byte "
                          f"value windows), got {vmax}")
     vsize = values.element_size()
+    mapped = col_map is not None
     launch = whole_launch(stages, nchunks, cb=cb, r=r, vmax=vmax,
                           device=values.device, grid=grid, what=fn,
-                          vsize=vsize)
+                          vsize=vsize, mapped=mapped)
     _aligned({"values": values})
     lib = _build.load_library("spc5_spmv")
     # every CTA adds its rows into y
     y = torch.zeros(nrows, dtype=torch.float32, device=values.device)
-    err = getattr(lib, f"spc5_spmv_whole_s{stages}")(
+    err = getattr(lib, f"spc5_spmv_whole{'_cmap' if mapped else ''}_s"
+                       f"{stages}")(
         chunk_vbase.data_ptr(), chunk_col.data_ptr(), chunk_mask.data_ptr(),
         chunk_voff.data_ptr(), chunk_row.data_ptr(), values.data_ptr(),
         _scale_ptr(value_scale), x.data_ptr(), y.data_ptr(), nchunks, cb,
         vmax, nrows, r, c, vsize, values.numel(),
         launch["grid"], launch["tile_rows"], launch["smem_bytes"],
-        launch["threads"], values.device.index or 0, _stream(values.device))
+        launch["threads"], values.device.index or 0, _stream(values.device),
+        *((col_map.data_ptr(),) if mapped else ()))
+    fn = f"{fn}_cmap" if mapped else fn
     _raise_on(err, fn)
     LAUNCHES[fn] += 1
     return y
@@ -385,9 +393,10 @@ def spmv_cuda(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
     window and metadata copied and waited for before its decode (replaces
     ``spmv_pallas``). ``chunk_mask`` is the int32 view of the uint32
     masks; ``values`` f32, bf16 or int8 (with ``value_scale``, (nchunks,)
-    float32). ``col_map`` (int32, (ncols,)) is taken on the CPU (the plain
-    version reads ``x[col_map]``); on the card it raises (ROADMAP queue 2
-    B, item 1)."""
+    float32). ``col_map`` (int32, (ncols,)), a fused column permutation:
+    on the card the column-map twin reads ``x[col_map[j]]`` at each set
+    lane of permuted column j (counted as ``spmv_cuda_cmap``), on the CPU
+    the plain version reads ``x[col_map]``."""
     return _whole("spmv_cuda", 1, chunk_vbase, chunk_col, chunk_mask,
                   chunk_voff, chunk_row, values, x, col_map, value_scale, r=r,
                   c=c,
@@ -402,7 +411,7 @@ def spmv_cuda_db(chunk_vbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
     """Whole-vector SpMV with a ring of :data:`WHOLE_DB_STAGES` chunks
     (value window and metadata) staged ahead by bulk copies (replaces
     ``spmv_pallas_db``); ``grid``, ``values`` and ``col_map`` as in
-    :func:`spmv_cuda`."""
+    :func:`spmv_cuda` (counted as ``spmv_cuda_db_cmap`` with a map)."""
     return _whole("spmv_cuda_db", WHOLE_DB_STAGES, chunk_vbase, chunk_col,
                   chunk_mask, chunk_voff, chunk_row, values, x, col_map,
                   value_scale,
@@ -466,32 +475,36 @@ _OCCUPANCY: Dict[Tuple[int, ...], Tuple[int, int]] = {}
 
 
 def panels_occupancy(stages: int, threads: int, smem: int,
-                     device: torch.device, vsize: int = 4) -> Tuple[int, int]:
+                     device: torch.device, vsize: int = 4,
+                     mapped: bool = False) -> Tuple[int, int]:
     """(CTAs one SM holds at once, SMs) for the panel kernel of
-    ``vsize``-byte values at ``stages`` (1: the synchronous one), as the
-    CUDA runtime reports them."""
+    ``vsize``-byte values at ``stages`` (1: the synchronous one), its
+    column-map twin where ``mapped``, as the CUDA runtime reports them."""
     key = (stages, vsize, threads, smem, device.index or 0)
-    if key not in _OCCUPANCY:
+    if (mapped,) + key not in _OCCUPANCY:
+        fn = f"spc5_spmv_panels{'_cmap' if mapped else ''}_occupancy"
         lib = _build.load_library("spc5_spmv")
         out = (ctypes.c_int * 2)()
-        err = lib.spc5_spmv_panels_occupancy(*key, ctypes.addressof(out))
-        _raise_on(err, "spc5_spmv_panels_occupancy")
-        _OCCUPANCY[key] = (out[0], out[1])
-    return _OCCUPANCY[key]
+        err = getattr(lib, fn)(*key, ctypes.addressof(out))
+        _raise_on(err, fn)
+        _OCCUPANCY[(mapped,) + key] = (out[0], out[1])
+    return _OCCUPANCY[(mapped,) + key]
 
 
 def panels_launch(stages: int, npanels: int, nchunks: int, *, cb: int,
                   r: int, vmax: int, pr: int, device: torch.device,
                   split: Optional[int] = None, what: str = "panel kernel",
-                  vsize: int = 4) -> Dict[str, int]:
+                  vsize: int = 4, mapped: bool = False) -> Dict[str, int]:
     """The launch a panel wrapper makes on ``device`` (a card) for
-    ``vsize``-byte values: ``stages``,
+    ``vsize``-byte values (its column-map twin where ``mapped``: the same
+    plan at the twin's occupancy): ``stages``,
     ``smem_bytes`` and ``threads`` per CTA, the card's ``ctas_per_sm`` and
     ``sms``, ``split`` (S, from :func:`panels_split` unless given) and
     ``grid`` (npanels * S)."""
     stages, smem = panels_stages(stages, cb, vmax, pr, what, vsize)
     threads = panel_threads(cb, r)
-    per_sm, sms = panels_occupancy(stages, threads, smem, device, vsize)
+    per_sm, sms = panels_occupancy(stages, threads, smem, device, vsize,
+                                   **({"mapped": True} if mapped else {}))
     if split is None:
         split = panels_split(npanels, nchunks, per_sm, sms)
     if not 1 <= split <= nchunks:
@@ -500,6 +513,19 @@ def panels_launch(stages: int, npanels: int, nchunks: int, *, cb: int,
     return dict(stages=stages, smem_bytes=smem, threads=threads,
                 ctas_per_sm=per_sm, sms=sms, split=split,
                 grid=npanels * split)
+
+
+def panel_x(x: torch.Tensor, ncols_pad: int, mapped: bool) -> torch.Tensor:
+    """The x a panel kernel reads in place at its set lanes: without a map
+    every lane lies inside its chunk's window, so an x shorter than
+    ncols_pad is padded with zeros as the Pallas wrappers pad it; with a
+    map x is read at ``col_map[j]`` for set lanes of permuted column j <
+    ncols only, so it goes as it is (no copy). Lanes at or past ncols are
+    unset: they read nothing, where the reference reads ``x[0]`` times a
+    zero value (its ``pad_cmap`` pads the map with column 0)."""
+    if mapped or x.shape[0] >= ncols_pad:
+        return x
+    return torch.nn.functional.pad(x, (0, ncols_pad - x.shape[0]))
 
 
 def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
@@ -522,7 +548,6 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
         raise ValueError(f"{npanels} panels of {pr} rows cannot hold "
                          f"{nrows} rows")
     _check_map(col_map, x.shape[0], values.device)
-    _refuse_map_on_card(fn, col_map, values.device, 2)
     if values.device.type == "cpu":
         return R.spmv_panels(
             R.SPC5PanelDevice(values, chunk_col, chunk_mask, chunk_voff,
@@ -532,26 +557,27 @@ def _panels(fn: str, stages: int, chunk_vbase, chunk_xbase, chunk_col,
     if values.device.type != "cuda":
         raise ValueError(f"no kernel for device {values.device}")
     vsize = values.element_size()
+    mapped = col_map is not None
     launch = panels_launch(stages, npanels, nchunks, cb=cb, r=r, vmax=vmax,
                            pr=pr, device=values.device, split=split, what=fn,
-                           vsize=vsize)
-    # the kernels read x in place at the set lanes, all inside every chunk's
-    # window: x shorter than ncols_pad is padded as the Pallas wrappers pad it
-    xp = (x if x.shape[0] >= ncols_pad else
-          torch.nn.functional.pad(x, (0, ncols_pad - x.shape[0])))
+                           vsize=vsize, mapped=mapped)
+    xp = panel_x(x, ncols_pad, mapped)
     _aligned({"values": values})
     lib = _build.load_library("spc5_spmv")
     # S > 1 CTAs add into each panel's rows, so y starts at 0
     y = (torch.zeros if launch["split"] > 1 else torch.empty)(
         nrows, dtype=torch.float32, device=values.device)
     ring = () if stages == 1 else (launch["stages"],)
-    err = getattr(lib, f"spc5_spmv_panels_s{1 if stages == 1 else 2}")(
+    err = getattr(lib, f"spc5_spmv_panels{'_cmap' if mapped else ''}_s"
+                       f"{1 if stages == 1 else 2}")(
         chunk_vbase.data_ptr(), chunk_xbase.data_ptr(), chunk_col.data_ptr(),
         chunk_mask.data_ptr(), chunk_voff.data_ptr(), chunk_row.data_ptr(),
         values.data_ptr(), _scale_ptr(value_scale), xp.data_ptr(),
         y.data_ptr(), npanels, nchunks, cb, vmax, pr, nrows, r, c, vsize,
         values.numel(), launch["split"], *ring, launch["smem_bytes"],
-        launch["threads"], values.device.index or 0, _stream(values.device))
+        launch["threads"], values.device.index or 0, _stream(values.device),
+        *((col_map.data_ptr(),) if mapped else ()))
+    fn = f"{fn}_cmap" if mapped else fn
     _raise_on(err, fn)
     LAUNCHES[fn] += 1
     return y
@@ -570,8 +596,11 @@ def spmv_cuda_panels(chunk_vbase, chunk_xbase, chunk_col, chunk_mask,
     ``spmv_pallas_panels``). x is (ncols,), read in place (padded where
     shorter than ncols_pad); ``values`` f32, bf16 or int8 (with
     ``value_scale``, (npanels, nchunks) float32). ``col_map`` (int32, as
-    long as x) is taken on the CPU (the plain version maps each column
-    through it); on the card it raises (ROADMAP queue 2 B, item 2)."""
+    long as x, which then holds every column of the plan), a fused column
+    permutation: the column-map twin reads x, unpadded, at
+    ``col_map[j]`` for each set lane of permuted column j (counted as
+    ``spmv_cuda_panels_cmap``); the plain version maps each column through
+    it (:func:`panel_x`)."""
     return _panels("spmv_cuda_panels", 1, chunk_vbase, chunk_xbase,
                    chunk_col, chunk_mask, chunk_voff, chunk_row, values, x,
                    col_map, value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr, nrows=nrows,
@@ -588,7 +617,8 @@ def spmv_cuda_panels_db(chunk_vbase, chunk_xbase, chunk_col, chunk_mask,
     """Row-panel SpMV with a ring of :data:`DB_STAGES` chunks (value
     window and metadata) staged ahead by bulk copies (replaces
     ``spmv_pallas_panels_db``); ``values`` and ``col_map`` as in
-    :func:`spmv_cuda_panels`."""
+    :func:`spmv_cuda_panels` (counted as ``spmv_cuda_panels_db_cmap`` with
+    a map)."""
     return _panels("spmv_cuda_panels_db", DB_STAGES, chunk_vbase,
                    chunk_xbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
                    values, x, col_map, value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr,

@@ -3055,6 +3055,7 @@ def _qm_call(kernel, plan, x, values=None, **kw):
     ref = float(plain.abs().max()) if plain.numel() else 0.0
     err = float((y - plain).abs().max()) if y.numel() else 0.0
     assert err <= RTOL * max(ref, 1.0), (err, ref, kw)
+    return y
 
 
 def _qm_x(kernel, plan, device, nvec=16, seed=31):
@@ -3792,53 +3793,299 @@ def test_cmap_int8_span_at_the_end_of_exact_length_values(cuda, kernel):
              _cm_map(plan.ncols, cuda), values=exact)
 
 
-#: Each mask wrapper and the queue 2 B item that ports its map.
-CM_MASK_ITEMS = {"spmv_cuda": 1, "spmv_cuda_db": 1, "spmv_cuda_panels": 2,
-                 "spmv_cuda_panels_db": 2, "spmm_cuda": 4,
-                 "spmm_cuda_panels": 4, "spmm_cuda_panels_db": 4}
+# ----------------------------------------------------------------------------
+# column maps in the seven mask kernels: each wrapper given a map on the card
+# launches its twin (counted as <wrapper>_cmap), which reads x / X in the
+# original column order at col_map[j] for a set lane of permuted column j
+# ----------------------------------------------------------------------------
+
+MCM_KERNELS = sorted(QM_KERNELS)
+MCM_VDTYPES = ("f32", *QUANT_VDTYPES)
 
 
-@pytest.mark.parametrize("kernel", sorted(CM_MASK_ITEMS))
-def test_mask_wrappers_refuse_a_map_on_the_card(cuda, kernel):
-    """A map with CUDA tensors raises naming its queue 2 B item before any
-    launch; without one the same call runs."""
+def _mcm_plain(plan, x, cmap):
+    """The plain version of a mask plan's product with column map ``cmap``
+    (the panel layout maps each column through it, :func:`R.pad_cmap`; the
+    whole-vector one reads ``x[cmap]``)."""
+    scale, dev = _qm_scale(plan), plan.dev
+    spmm = x.dim() == 2
+    if plan.layout == "panels":
+        fn = R.spmm_panels if spmm else R.spmv_panels
+        return fn(dev, x, cmap, scale, r=plan.r, c=plan.c, pr=plan.pr,
+                  nrows=plan.nrows, ncols_pad=plan.ncols_pad)
+    fn = R.spmm if spmm else R.spmv
+    return fn(dev, x.index_select(0, cmap), scale, r=plan.r, c=plan.c,
+              nrows=plan.nrows, ncols=plan.ncols)
+
+
+def _mcm_call(kernel, plan, x, cmap, values=None, **kw):
+    """One call of mask wrapper ``kernel`` with a column map: counted once
+    as ``<kernel>_cmap`` (every other count unchanged) and held against the
+    plain version with the same map."""
     mod, layout = QM_KERNELS[kernel]
-    plan = _qm_plan((2, 4), "f32", layout, cuda)
-    x = _qm_x(kernel, plan, cuda)
+    vals = plan.values if values is None else values
     args = ((plan.chunk_vbase, plan.chunk_xbase) if layout == "panels"
             else (plan.chunk_vbase,)) + (plan.chunk_col, plan.chunk_mask,
-                                         plan.chunk_voff, plan.chunk_row,
-                                         plan.values, x)
+                                         plan.chunk_voff, plan.chunk_row)
     geom = dict(r=plan.r, c=plan.c, cb=plan.cb, vmax=plan.vmax,
                 nrows=plan.nrows)
     geom.update(dict(xw=plan.xw, pr=plan.pr, ncols_pad=plan.ncols_pad)
                 if layout == "panels" else dict(ncols=plan.ncols))
+    plain = _mcm_plain(plan, x, cmap)
     before = dict(mod.LAUNCHES)
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue 2 B, item "
-                             f"{CM_MASK_ITEMS[kernel]}"):
-        getattr(mod, kernel)(*args, _cm_map(plan.ncols, cuda), **geom)
-    assert mod.LAUNCHES == before
-    getattr(mod, kernel)(*args, **geom)
+    y = getattr(mod, kernel)(*args, vals, x, cmap, _qm_scale(plan), **geom,
+                             **kw)
     torch.cuda.synchronize()
-    assert mod.LAUNCHES[kernel] == before[kernel] + 1
+    assert mod.LAUNCHES == {**before, f"{kernel}_cmap":
+                            before[f"{kernel}_cmap"] + 1}
+    assert y.dtype == torch.float32 and y.shape == plain.shape
+    assert torch.isfinite(y).all()
+    ref = float(plain.abs().max()) if plain.numel() else 0.0
+    err = float((y - plain).abs().max()) if y.numel() else 0.0
+    assert err <= RTOL * max(ref, 1.0), (err, ref, kw)
+    return y
+
+
+def _mcm_plan(rc, vdtype, kernel, device, **kw):
+    """A mask plan of the kernel's layout at ``vdtype`` (302 x 260; panels
+    of 64 rows and windows of 64 columns, so the last windows reach columns
+    at or past ncols)."""
+    plan = _qm_plan(rc, vdtype, QM_KERNELS[kernel][1], device, **kw)
+    if plan.layout == "panels":
+        assert plan.ncols % plan.xw != 0 and plan.ncols_pad > plan.ncols
+    return plan
+
+
+@pytest.mark.parametrize("rc", F.SUPPORTED_BLOCKS)
+@pytest.mark.parametrize("vdtype", MCM_VDTYPES)
+@pytest.mark.parametrize("kernel", MCM_KERNELS)
+def test_mask_cmap_block_shapes(cuda, kernel, vdtype, rc):
+    """Each of the seven mask twins at f32, bf16 and int8 on every block
+    shape, at the launch its wrapper plans (SpMM at nvec 16), with a random
+    permutation as the map."""
+    plan = _mcm_plan(rc, vdtype, kernel, cuda)
+    _mcm_call(kernel, plan, _qm_x(kernel, plan, cuda),
+              _cm_map(plan.ncols, cuda))
+
+
+@pytest.mark.parametrize("force", ["one", "each_chunk", "ragged"])
+@pytest.mark.parametrize("vdtype", MCM_VDTYPES)
+@pytest.mark.parametrize("kernel", MCM_KERNELS)
+def test_mask_cmap_forced_grids(cuda, kernel, vdtype, force):
+    """G = 1 or S = 1, one chunk a CTA, and a grid that cuts the chunks
+    into ranges of unequal length."""
+    plan = _mcm_plan((4, 8), vdtype, kernel, cuda)
+    n = int(plan.chunk_vbase.shape[-1])
+    key = "grid" if plan.layout == "whole_vector" else "split"
+    g = {"one": 1, "each_chunk": n, "ragged": max(1, n // 2 - 1)}[force]
+    _mcm_call(kernel, plan, _qm_x(kernel, plan, cuda),
+              _cm_map(plan.ncols, cuda), **{key: g})
+
+
+@pytest.mark.parametrize("nvec", [1, 2, 3, 16, 100, 128, 256])
+@pytest.mark.parametrize("vdtype", MCM_VDTYPES)
+@pytest.mark.parametrize("kernel", QM_SPMM)
+def test_mask_cmap_spmm_widths(cuda, kernel, vdtype, nvec):
+    """The three mask SpMM twins at nvec 1 to 256."""
+    plan = _mcm_plan((2, 4), vdtype, kernel, cuda)
+    _mcm_call(kernel, plan, _qm_x(kernel, plan, cuda, nvec=nvec),
+              _cm_map(plan.ncols, cuda))
+
+
+@pytest.mark.parametrize("align", [4, 8])
+@pytest.mark.parametrize("vdtype", QUANT_VDTYPES)
+@pytest.mark.parametrize("kernel", MCM_KERNELS)
+def test_mask_cmap_windows_off_16_bytes(cuda, kernel, vdtype, align):
+    """Narrow value windows that start off a 16-byte boundary, with a
+    map."""
+    plan = _mcm_plan((2, 4), vdtype, kernel, cuda, align=align)
+    itemsize = plan.values.element_size()
+    assert bool(((plan.chunk_vbase * itemsize) % 16 != 0).any()) == (
+        vdtype == "int8" or align == 4)
+    _mcm_call(kernel, plan, _qm_x(kernel, plan, cuda),
+              _cm_map(plan.ncols, cuda))
+
+
+@pytest.mark.parametrize("kernel", MCM_KERNELS)
+def test_mask_cmap_int8_span_at_the_end_of_exact_length_values(cuda, kernel):
+    """An int8 plan aligned to 4 values whose last window's span would
+    reach past its values (copied into a tensor of exactly their length),
+    with a map."""
+    plan = _qm_align4_plan(QM_KERNELS[kernel][1], "mask", cuda)
+    exact = torch.empty(plan.values.numel(), dtype=plan.values.dtype,
+                        device=cuda)
+    exact.copy_(plan.values)
+    _mcm_call(kernel, plan, _qm_x(kernel, plan, cuda),
+              _cm_map(plan.ncols, cuda), values=exact)
+
+
+def test_mask_cmap_all_zero_chunks(cuda):
+    """Rows whose values are all zero (int8 chunks of scale 1.0) through
+    every mask twin, in both layouts."""
+    d = _dense((302, 260), 0.08, 29)
+    csr = F.csr_from_dense(d)
+    csr.values[:csr.rowptr[64]] = 0.0
+    mat = F.csr_to_spc5(csr, 2, 4)
+    for kernel in MCM_KERNELS:
+        plan = _mcm_plan((2, 4), "int8", kernel, cuda, mat=mat)
+        assert bool((plan.value_scale == 1.0).any())
+        _mcm_call(kernel, plan, _qm_x(kernel, plan, cuda),
+                  _cm_map(plan.ncols, cuda))
+
+
+@pytest.mark.parametrize("kernel", MCM_KERNELS)
+def test_mask_cmap_identity_map_matches_the_kernel_without_one(cuda, kernel):
+    """With the identity as the map, a twin computes what its kernel
+    without a map computes (x padded by the panel wrappers there, read in
+    place here)."""
+    plan = _mcm_plan((2, 4), "f32", kernel, cuda)
+    x = _qm_x(kernel, plan, cuda)
+    ident = torch.arange(plan.ncols, dtype=torch.int32, device=cuda)
+    y = _mcm_call(kernel, plan, x, ident)
+    y0 = _qm_call(kernel, plan, x)
+    assert float((y - y0).abs().max()) <= RTOL * float(y0.abs().max())
+
+
+@pytest.mark.parametrize("vdtype", MCM_VDTYPES)
+@pytest.mark.parametrize("kernel", MCM_KERNELS)
+def test_mask_cmap_launch_refuses_a_wrong_smem_figure(cuda, monkeypatch,
+                                                      kernel, vdtype):
+    """A twin's launch handed a shared-memory figure 16 bytes off its
+    kernel's is refused (CUDA error 1) and not counted."""
+    mod, _ = QM_KERNELS[kernel]
+    plan = _mcm_plan((4, 8), vdtype, kernel, cuda)
+    name = _qm_launch_name(kernel)
+    real = getattr(mod, name)
+
+    def off(*args, **kw):
+        assert kw.get("mapped"), kw
+        launch = real(*args, **kw)
+        return dict(launch, smem_bytes=launch["smem_bytes"] + 16)
+    monkeypatch.setattr(mod, name, off)
+    before = dict(mod.LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        _mcm_call(kernel, plan, _qm_x(kernel, plan, cuda),
+                  _cm_map(plan.ncols, cuda))
+    assert mod.LAUNCHES == before
+
+
+@pytest.mark.parametrize("kernel", MCM_KERNELS)
+def test_mask_cmap_launchers_refuse_no_map(cuda, kernel):
+    """A twin's C entry handed a null map is refused (CUDA error 1) and
+    writes nothing."""
+    from repro_torch.kernels import _build
+    mod, layout = QM_KERNELS[kernel]
+    plan = _mcm_plan((2, 4), "f32", kernel, cuda)
+    x = _qm_x(kernel, plan, cuda)
+    spmm = kernel.startswith("spmm")
+    nchunks = int(plan.chunk_vbase.shape[-1])
+    y = torch.full((plan.nrows, x.shape[1]) if spmm else (plan.nrows,), 7.0,
+                   device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    dev_ptrs = [t.data_ptr() for t in (
+        (plan.chunk_vbase, plan.chunk_xbase) if layout == "panels"
+        else (plan.chunk_vbase,))] + [t.data_ptr() for t in (
+            plan.chunk_col, plan.chunk_mask, plan.chunk_voff, plan.chunk_row,
+            plan.values)] + [0, x.data_ptr(), y.data_ptr()]
+    if spmm:
+        lib = _build.load_library("spc5_spmm_cmap")
+        vec = KM.panels_vector(x.shape[1], x)
+        if layout == "panels":
+            st = 1 if kernel == "spmm_cuda_panels" else 2
+            ln = KM.panels_launch(st, plan.npanels, plan.nchunks, cb=plan.cb,
+                                  r=plan.r, c=plan.c, vmax=plan.vmax,
+                                  pr=plan.pr, nvec=x.shape[1], vec=vec,
+                                  device=cuda, mapped=True)
+            err = getattr(lib, f"spc5_spmm_panels_cmap_s{st}")(
+                *dev_ptrs, plan.npanels, plan.nchunks, plan.cb, plan.vmax,
+                plan.pr, plan.nrows, x.shape[0], plan.r, plan.c, 4,
+                plan.values.numel(), x.shape[1], ln["tile_columns"],
+                ln["vector"], ln["row_parts"], ln["part_rows"], ln["split"],
+                ln["chunks_per_stage"], ln["smem_bytes"], ln["threads"], 0,
+                stream, 0)
+        else:
+            ln = KM.whole_launch(nchunks, cb=plan.cb, r=plan.r, c=plan.c,
+                                 vmax=plan.vmax, nvec=x.shape[1], vec=vec,
+                                 device=cuda, mapped=True)
+            err = lib.spc5_spmm_whole_cmap(
+                *dev_ptrs, nchunks, plan.cb, plan.vmax, plan.nrows,
+                x.shape[0], plan.r, plan.c, 4, plan.values.numel(),
+                x.shape[1], ln["tile_columns"], ln["vector"], ln["grid"],
+                ln["stages"], ln["chunks_per_stage"], ln["blocks_per_stage"],
+                ln["tile_rows"], ln["smem_bytes"], ln["threads"], 0, stream,
+                0)
+    else:
+        lib = _build.load_library("spc5_spmv")
+        st = 1 if kernel in ("spmv_cuda", "spmv_cuda_panels") else 2
+        if layout == "panels":
+            ln = K.panels_launch(st if st == 1 else K.DB_STAGES, plan.npanels,
+                                 plan.nchunks, cb=plan.cb, r=plan.r,
+                                 vmax=plan.vmax, pr=plan.pr, device=cuda,
+                                 mapped=True)
+            ring = () if st == 1 else (ln["stages"],)
+            err = getattr(lib, f"spc5_spmv_panels_cmap_s{st}")(
+                *dev_ptrs, plan.npanels, plan.nchunks, plan.cb, plan.vmax,
+                plan.pr, plan.nrows, plan.r, plan.c, 4, plan.values.numel(),
+                ln["split"], *ring, ln["smem_bytes"], ln["threads"], 0,
+                stream, 0)
+        else:
+            ln = K.whole_launch(st, nchunks, cb=plan.cb, r=plan.r,
+                                vmax=plan.vmax, device=cuda, mapped=True)
+            err = getattr(lib, f"spc5_spmv_whole_cmap_s{st}")(
+                *dev_ptrs, nchunks, plan.cb, plan.vmax, plan.nrows,
+                plan.r, plan.c, 4, plan.values.numel(), ln["grid"],
+                ln["tile_rows"], ln["smem_bytes"], ln["threads"], 0, stream,
+                0)
+    assert err == 1
+    torch.cuda.synchronize()
+    assert bool((y == 7.0).all())
+
+
+@pytest.mark.parametrize("stages", [1, K.WHOLE_DB_STAGES])
+def test_whole_cmap_twins_leave_l1_room(cuda, stages):
+    """The whole-vector SpMV twins ask for a smaller shared-memory
+    carve-out than the CUDA runtime would pick (L1 then holds x and the
+    map): at a CTA of 17.6 KB (the vocab layer's ring) an SM holds fewer of
+    them than of their kernels, and at least one."""
+    for vsize in (4, 2, 1):
+        kernel = K.whole_occupancy(stages, 128, 17_632, cuda, vsize)
+        twin = K.whole_occupancy(stages, 128, 17_632, cuda, vsize,
+                                 mapped=True)
+        assert 1 <= twin[0] < kernel[0] and twin[1] == kernel[1]
+
+
+@pytest.mark.parametrize("kernel", MCM_KERNELS)
+def test_mask_wrappers_launch_their_twin_with_a_map_on_the_card(cuda, kernel):
+    """Each mask wrapper given a map with CUDA tensors launches its twin
+    once (``<kernel>_cmap``) and matches its plain version; without a map
+    the same call launches the kernel without one."""
+    mod, _ = QM_KERNELS[kernel]
+    plan = _mcm_plan((2, 4), "f32", kernel, cuda)
+    x = _qm_x(kernel, plan, cuda)
+    _mcm_call(kernel, plan, x, _cm_map(plan.ncols, cuda))
+    before = dict(mod.LAUNCHES)
+    _qm_call(kernel, plan, x)
+    assert mod.LAUNCHES == {**before, kernel: before[kernel] + 1}
 
 
 @pytest.mark.parametrize("layout,lowering,reorder", [
     ("panels", "descriptor", "rcm"), ("panels", "descriptor", "colwindow"),
     ("whole_vector", "descriptor", "rcm"), ("test", "descriptor", "rcm"),
-    ("panels", "mask", "panel_rows")])
+    ("panels", "mask", "panel_rows"), ("panels", "mask", "rcm"),
+    ("whole_vector", "mask", "rcm")])
 def test_reordered_plans_on_the_card_match_the_cpu_plans(cuda, layout,
                                                          lowering, reorder):
     """Reordered plans through ``ops`` on the card against the same plans on
     the CPU (SpMV with both buffer settings, SpMM at 16): a kept col_perm
-    runs the map kernels, a folded one (whole-vector descriptor) none, and
-    a permutation of whole panels (a prebuilt Reordering, rows only) is
-    fused into the mask plan, whose kernels run with no map."""
+    runs the map kernels (the panel descriptor twins, and the mask twins of
+    both layouts), a folded one (whole-vector descriptor) none, and a
+    permutation of whole panels (a prebuilt Reordering, rows only) is fused
+    into the mask plan, whose kernels run with no map."""
     from repro_torch.core import reorder as RE
     mat = F.csr_to_spc5(matgen.scrambled_banded(3_000, 8, 1.0, seed=42),
                         1, 8)
-    if reorder == "panel_rows":
+    rows_only = reorder == "panel_rows"
+    if rows_only:
         panels = np.random.default_rng(3).permutation(11)
         rows = np.concatenate([np.arange(p * 256, (p + 1) * 256)
                                for p in panels] + [np.arange(2816, 3000)])
@@ -3851,12 +4098,15 @@ def test_reordered_plans_on_the_card_match_the_cpu_plans(cuda, layout,
     card = ops.prepare(mat, device=cuda, **kw)
     cpu = ops.prepare(mat, device="cpu", **kw)
     assert card.is_reordered
-    assert card.rows_fused == (layout != "test" and lowering == "mask"
-                               or layout == "whole_vector")
-    mapped = card.col_perm is not None and layout == "panels"
+    assert card.rows_fused == (rows_only or layout == "whole_vector")
+    mapped = card.col_perm is not None and (layout == "panels"
+                                            or lowering == "mask")
+    assert mapped == (not rows_only
+                      and (layout, lowering) != ("whole_vector", "descriptor")
+                      and layout != "test")
     rng = np.random.default_rng(8)
-    KD.reset_launches()
-    KDM.reset_launches()
+    for mod in (K, KD, KM, KDM):
+        mod.reset_launches()
     for shape, db in (((3_000,), True), ((3_000,), False),
                       ((3_000, 16), True)):
         x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
@@ -3866,6 +4116,6 @@ def test_reordered_plans_on_the_card_match_the_cpu_plans(cuda, layout,
         ref = fn(cpu, x)
         err = float((y.cpu() - ref).abs().max())
         assert err <= RTOL * float(ref.abs().max()), err
-    maps = sum(v for k, v in {**KD.LAUNCHES, **KDM.LAUNCHES}.items()
+    maps = sum(v for mod in (K, KD, KM, KDM) for k, v in mod.LAUNCHES.items()
                if k.endswith("_cmap"))
     assert maps == (3 if mapped else 0)

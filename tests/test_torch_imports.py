@@ -85,7 +85,8 @@ def _c_params(source, name):
 
 
 @pytest.mark.parametrize("source", ["spc5_spmv", "spc5_spmv_desc",
-                                    "spc5_spmm", "spc5_spmm_desc",
+                                    "spc5_spmm", "spc5_spmm_cmap",
+                                    "spc5_spmm_desc",
                                     "spc5_spmm_desc_cmap",
                                     "spc5_spmv_tail"])
 def test_ctypes_signatures_match_the_sources(source):
@@ -101,7 +102,8 @@ def test_ctypes_signatures_match_the_sources(source):
 
 
 @pytest.mark.parametrize("source", ["spc5_spmv", "spc5_spmv_desc",
-                                    "spc5_spmm", "spc5_spmm_desc",
+                                    "spc5_spmm", "spc5_spmm_cmap",
+                                    "spc5_spmm_desc",
                                     "spc5_spmm_desc_cmap",
                                     "spc5_spmv_tail"])
 def test_every_c_entry_point_has_a_signature(source):

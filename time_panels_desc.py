@@ -59,7 +59,7 @@ matrix (``--cb``: those two plans cut into chunks of N blocks instead):
 
 ``--against DIR`` compares this tree with another checkout of the
 repository unpacked in DIR (the parent commit's ``git archive``, say)
-instead: (1) the static SASS of every kernel of the five CUDA sources,
+instead: (1) the static SASS of every kernel of the seven CUDA sources,
 both trees' compiled by nvcc into cubins side by side (``cuobjdump
 -sass``, the names demangled, each instantiation matched by name and
 template arguments): the kernels whose opcode sequences differ, with their
@@ -321,9 +321,11 @@ def build_plans(args, device):
     return plans
 
 
-#: The CUDA sources whose f32 kernels ``--against`` compares.
+#: The CUDA sources whose kernels ``--against`` compares (a source the
+#: other tree lacks is compiled here only: all its kernels are new).
 AGAINST_SOURCES = ("spc5_spmv", "spc5_spmm", "spc5_spmv_desc",
-                   "spc5_spmm_desc", "spc5_spmv_tail")
+                   "spc5_spmm_desc", "spc5_spmv_tail", "spc5_spmm_desc_cmap",
+                   "spc5_spmm_cmap")
 
 #: What ``--against`` times in both trees: (plan, value store, kernel).
 AGAINST_TIMES = (("token", "f32", "spmv_cuda_desc_db"),
@@ -373,6 +375,8 @@ def _compile_cubins(csrc, out_dir, tag):
                                                        "-fPIC")]
     out = {}
     for name in AGAINST_SOURCES:
+        if not os.path.exists(os.path.join(csrc, f"{name}.cu")):
+            continue
         cubin = os.path.join(out_dir, f"{tag}.{name}.cubin")
         out[name] = (cubin, subprocess.Popen(
             [_build.nvcc_path(), *flags, "-cubin", "-o", cubin,
@@ -465,6 +469,9 @@ def _against(other, work, sass_only=False):
     for name in AGAINST_SOURCES:
         ops_, keys, regs = {}, {}, {}
         for tag in runs:
+            if (tag, name) not in built:  # a source new in this tree
+                ops_[tag], keys[tag], regs[tag] = {}, {}, {}
+                continue
             ops_[tag] = _sass_opcodes(built[tag, name][0])
             dem = subprocess.run([filt], input="\n".join(ops_[tag]),
                                  capture_output=True, text=True,
