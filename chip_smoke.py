@@ -49,6 +49,23 @@ phase that goes wrong:
    and descriptor) at one CTA for all chunks and at one chunk a CTA (each
    launch's grid, chunks a CTA, threads, shared bytes, ring, CTAs per SM
    and registers printed);
+4a. tune and verify on the card: the FEM matrix's four plans of 4's
+   beta(4,4) and four of each of beta(2,4) and beta(4,8) (built with
+   ``verify=True``) timed at batch 1 through ``ops.spmv`` (each output held
+   against its plain version and the f64 product), each time a selector
+   ``Record`` of the card's backend (``"cuda:<card name>"``, gflops = 2 nnz
+   / t) in a store written with ``save_jsonl``, read back with
+   ``load_records`` and held to ``verify_records``; then
+   ``ops.prepare(fem, store=store, verify=True)`` with the matrix's values
+   in float32 must be tuned from the store to the config measured fastest
+   (its SpMV checked, its launch counted, timed beside the untuned plan
+   and beside the plan tuned from the generator's float64 values, whose
+   whole-vector pick the reference's 2 MiB rule demotes to panels),
+   ``choose_block(csr, store)`` must pick the shape measured fastest, and
+   ``SparseLinear.from_dense`` on the vocab weight's first 4,096 rows with
+   the store and ``verify=True`` runs its forward (batch 1 and 16) on the
+   card against ``use_pallas=False``; ``verify_plan``'s host seconds and
+   ``plan_nbytes`` are printed for the FEM plans;
 4b. reorder path: ``matgen.scrambled_banded(1_000_000, 8, 1.0, seed=42)``
    (the reference bench's reorder matrix class, about 6.5 M nonzeros) in
    beta(1,8): its RCM ``Reordering`` built once on the host
@@ -196,6 +213,7 @@ it never runs on the CPU.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -1218,6 +1236,230 @@ def measure(plans, x, csr, launches, errs, timer=cuda_time_ms):
 # ----------------------------------------------------------------------------
 # SparseLinear path: the yi-6b vocab projection
 # ----------------------------------------------------------------------------
+
+#: The block shapes of the FEM matrix the tune phase measures beside
+#: MATRIX["rc"] (whose plans the SpMV path built), and the rows of the vocab
+#: weight its layer takes.
+TUNE_SHAPES = ((2, 4), (4, 8))
+TUNE_LAYER_ROWS = 4_096
+
+
+def tune_and_verify(csr, mat, plans, x, y64, w, device, timer=cuda_time_ms):
+    """Phase: tune and verify on the card. Every FEM plan of
+    ``MATRIX["rc"]`` (the SpMV path's, both layouts and lowerings) and of
+    :data:`TUNE_SHAPES` (built here with ``verify=True``) is timed at batch
+    1 through ``ops.spmv`` (L2 flushed, median of 30), its output held
+    against its plain version and the f64 product; each time becomes a
+    ``Record`` of the card's backend (gflops = 2 nnz / t, the matrix's
+    features, the plan's config), written with ``save_jsonl`` into a
+    temporary directory, read back with ``load_records`` and held to
+    ``verify_records``. Then ``ops.prepare(mat32, store=..., verify=True)``,
+    ``mat32`` the matrix with its values in float32 (what every plan
+    stores), must be tuned from the store ("store") to the config measured
+    fastest on ``MATRIX["rc"]`` (the exact feature match returns its
+    mean), its SpMV within ``TOL`` of the plain version, timed beside the
+    untuned plan (``tune=False``: the reference's rules) and the plan tuned
+    from the generator's float64 matrix: the tune pass budgets a
+    whole-vector pick by the matrix's value dtype (the reference's 2 MiB
+    TPU rule, kept for parity), and 200,000 float64 rows and columns take
+    3.2 MB, so that pick must come back demoted to panels + mask at the
+    panel defaults, traced ("vmem-budget");
+    ``choose_block(csr, store)`` must pick the shape whose whole-vector
+    records measured fastest (their mean: what the sequential predictor
+    returns at the matrix's own Avg); and ``SparseLinear.from_dense`` on the
+    first :data:`TUNE_LAYER_ROWS` rows of the vocab weight with the store
+    and ``verify=True`` builds a layer whose forward (batch 1 and 16) runs
+    its kernels on the card, held against ``use_pallas=False`` (the plain
+    versions on the card). Prints ``verify_plan``'s host seconds and
+    ``plan_nbytes`` of the FEM plans. Returns the phase's numbers."""
+    import tempfile
+    import torch
+    from repro_torch.analysis import verify as V
+    from repro_torch.core import formats as F
+    from repro_torch.core import plan as P
+    from repro_torch.core import selector as S
+    from repro_torch.core.sparse_linear import SparseLinear, choose_block
+    from repro_torch.kernels import ops
+    backend = S.backend_of(device)
+    shapes = {MATRIX["rc"]: (mat, plans)}
+    host = {}
+    for rc in TUNE_SHAPES:
+        t = time.perf_counter()
+        m = F.csr_to_spc5(csr, *rc)
+        shapes[rc] = (m, {(layout, lowering): ops.prepare(
+            m, layout=layout, lowering=lowering, tune=False, verify=True,
+            device=device, **geom)
+            for layout, geom in GEOM.items() for lowering in LOWERINGS})
+        host[f"{rc[0]}x{rc[1]} convert + 4 prepares (verify=True)"] = \
+            time.perf_counter() - t
+    verify_s = {}
+    for (layout, lowering), plan in plans.items():
+        t = time.perf_counter()
+        report = V.verify_plan(plan)
+        verify_s[f"{layout} {lowering}"] = time.perf_counter() - t
+        print(f"verify_plan fem {MATRIX['rc']} {layout} {lowering}: "
+              f"{report.summary()}, {verify_s[f'{layout} {lowering}']:.3f} s "
+              f"host; plan_nbytes {P.plan_nbytes(plan)}")
+        if not report.ok:
+            raise SmokeFailure(f"the SpMV path's {layout} {lowering} plan "
+                               f"does not verify: {report.summary()}")
+    store, times = S.RecordStore(), {}
+    for rc, (m, ps) in shapes.items():
+        kernel = f"{rc[0]}x{rc[1]}"
+        feats = S.spc5_features(m)
+        for (layout, lowering), plan in ps.items():
+            y = ops.spmv(plan, x)
+            e_plain, e64 = (rel_err(y, plain_y(plan, x)),
+                            rel_err(y, torch.from_numpy(y64)))
+            if not (e_plain <= TOL and e64 <= TOL):
+                raise SmokeFailure(f"fem {kernel} {layout} {lowering}: "
+                                   f"{e_plain} / {e64} > {TOL}")
+            print(f"time ops.spmv fem beta({kernel}) {layout} {lowering} "
+                  f"({e_plain:.3g} of max|y| from plain, {e64:.3g} from "
+                  f"f64):")
+            ms = timer(lambda plan=plan: ops.spmv(plan, x), device)
+            times[kernel, layout, lowering] = ms
+            geom = GEOM[layout]
+            cfg = S.PanelConfig(layout=layout, pr=geom.get("pr", 0),
+                                xw=geom.get("xw", 0), cb=geom["cb"],
+                                lowering=lowering, vdtype="f32")
+            store.add_measurement(kernel, feats, cfg, 1,
+                                  2 * m.nnz / (ms * 1e6),
+                                  matrix="fem_blocks", backend=backend)
+    del shapes
+    with tempfile.TemporaryDirectory() as tmp:
+        store.save_jsonl(os.path.join(tmp, "fem_card.jsonl"))
+        loaded = S.load_records(tmp)
+    report = V.verify_records(loaded)
+    print(f"card store: {len(loaded.records)} records, backend "
+          f"{sorted({r.backend for r in loaded.records})}, verify_records "
+          f"{report.summary()}")
+    if loaded.records != store.records or not report.ok:
+        raise SmokeFailure(f"the card store did not round-trip clean: "
+                           f"{report.summary()}")
+    for rec in loaded.records:
+        print(f"  record {rec.kernel} {rec.layout} {rec.lowering}: "
+              f"{rec.gflops:.2f} GFLOP/s (avg {rec.avg:.3f})")
+    kernel = f"{MATRIX['rc'][0]}x{MATRIX['rc'][1]}"
+    fastest = max((r for r in loaded.records if r.kernel == kernel),
+                  key=lambda r: r.gflops)
+
+    def config(plan):
+        return (plan.layout, plan.lowering, plan.cb,
+                plan.pr if plan.layout == "panels" else 0)
+    mat32 = dataclasses.replace(mat, values=mat.values.astype(np.float32))
+    t = time.perf_counter()
+    tuned = ops.prepare(mat32, store=loaded, verify=True, device=device)
+    host["tuned prepare (verify=True)"] = time.perf_counter() - t
+    entry = tuned.trace[0]
+    got = config(tuned)
+    want = (fastest.layout, fastest.lowering, fastest.cb, fastest.pr)
+    print(f"tuned plan (f32 values): tune entry "
+          f"{json.dumps(entry, sort_keys=True)}; plan {got}, fastest "
+          f"record {want}")
+    if entry["source"] != "store" or got != want:
+        raise SmokeFailure(f"prepare(store=...) tuned to {got} ({entry}), "
+                           f"not the fastest measured {want}")
+    tuned64 = ops.prepare(mat, store=loaded, verify=True, device=device)
+    entry64 = tuned64.trace[0]
+    print(f"tuned plan (float64 values): tune entry "
+          f"{json.dumps(entry64, sort_keys=True)}; plan {config(tuned64)}")
+    demote = (fastest.layout == "whole_vector" and not P.fits_whole_vector(
+        *mat.shape, mat.values.dtype.itemsize))
+    if (entry64["source"] != "store" or entry64["demoted"] != demote
+            or (demote and config(tuned64)[:3] != ("panels", "mask", 64))):
+        raise SmokeFailure(f"the float64 matrix's tune entry is {entry64}")
+    untuned = ops.prepare(mat, tune=False, device=device)
+    print(f"untuned plan (tune=False): {config(untuned)}")
+    t = time.perf_counter()
+    report = V.verify_plan(tuned)
+    verify_s["tuned"] = time.perf_counter() - t
+    print(f"verify_plan tuned: {verify_s['tuned']:.3f} s host; plan_nbytes "
+          f"{P.plan_nbytes(tuned)}")
+    wl = w[:TUNE_LAYER_ROWS]
+    t = time.perf_counter()
+    with warnings.catch_warnings():
+        # the sequential predictor fits its records of one Avg (one point
+        # per kernel's layout): numpy warns, the fit returns their mean
+        warnings.filterwarnings("ignore", message="Polyfit may be poorly")
+        block = choose_block(csr, loaded)
+        layer = SparseLinear.from_dense(wl, density=VOCAB["density"],
+                                        store=loaded, verify=True)
+    host["choose_block + from_dense (verify=True)"] = time.perf_counter() - t
+    means = {}
+    for r in loaded.records:
+        if r.pr == 0:
+            means.setdefault(r.kernel, []).append(r.gflops)
+    best = max(means, key=lambda k: float(np.mean(means[k])))
+    print(f"choose_block(fem, store): {block}; whole-vector means "
+          f"{ {k: round(float(np.mean(v)), 2) for k, v in means.items()} }")
+    if block != S.kernel_block(best):
+        raise SmokeFailure(f"choose_block picked {block}, the store's "
+                           f"fastest shape is {best}")
+    lp = layer.plan
+    print(f"layer from_dense(w[:{TUNE_LAYER_ROWS}], store, verify=True): "
+          f"beta({lp.r},{lp.c}) {lp.layout} + {lp.lowering}, tune entry "
+          f"{json.dumps(lp.trace[0], sort_keys=True)}")
+    if (lp.r, lp.c) != block or lp.trace[0]["source"] != "store":
+        raise SmokeFailure(f"the layer is beta({lp.r},{lp.c}), tuned by "
+                           f"{lp.trace[0]}")
+    rng = np.random.default_rng(2)
+    a16 = torch.from_numpy(rng.standard_normal(
+        (SPMM_NVECS[0], wl.shape[1])).astype(np.float32)).to(device)
+    counts = reset_all_launches()
+    y1 = ops.spmv(tuned, x)
+    y64t = ops.spmv(tuned64, x)
+    l1 = layer(a16[0])
+    l16 = layer(a16)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in counts().items() if v}
+    want = {}
+    for name in (kernel_name(tuned), kernel_name(tuned64), kernel_name(lp),
+                 kernel_name(lp, spmm=True)):
+        want[name] = want.get(name, 0) + 1
+    print(f"launches on the tune path: {launches}")
+    if launches != want:
+        raise SmokeFailure(f"the tune path launched {launches}, not {want}")
+    errs = {"tuned": rel_err(y1, plain_y(tuned, x)),
+            "tuned_f64": rel_err(y1, torch.from_numpy(y64)),
+            "tuned_float64_matrix": rel_err(y64t, plain_y(tuned64, x)),
+            "layer_1": rel_err(l1, layer(a16[0], use_pallas=False)),
+            "layer_16": rel_err(l16, layer(a16, use_pallas=False))}
+    print(f"check the tune path: {errs} (of max|y|)")
+    if not all(e <= TOL for e in errs.values()):
+        raise SmokeFailure(f"the tune path disagrees: {errs} > {TOL}")
+    # in turns (untuned, from float64, tuned, then back), each figure the
+    # mean of its two medians: the card's spread between timings a few
+    # seconds apart is larger than the gaps measured
+    turns = {"untuned": untuned, "tuned from float64": tuned64,
+             "tuned": tuned}
+    ms = {k: [] for k in turns}
+    for names in (list(turns), list(turns)[::-1]):
+        for name in names:
+            plan = turns[name]
+            print(f"time ops.spmv, {name} FEM plan {config(plan)}:")
+            ms[name].append(timer(lambda plan=plan: ops.spmv(plan, x),
+                                  device))
+    untuned_ms, tuned64_ms, tuned_ms = (float(np.mean(ms[k])) for k in turns)
+    print(f"{card_line()}: FEM SpMV in turns, untuned {config(untuned)} "
+          f"{untuned_ms:.4f} ms, tuned {config(tuned)} {tuned_ms:.4f} ms "
+          f"({untuned_ms / tuned_ms:.2f}x), tuned from float64 values "
+          f"({'' if demote else 'not '}demoted) {tuned64_ms:.4f} ms "
+          f"(medians {ms})")
+    out = {"records": [{"kernel": r.kernel, "layout": r.layout,
+                        "lowering": r.lowering, "gflops": r.gflops,
+                        "ms": times[r.kernel, r.layout, r.lowering]}
+                       for r in loaded.records],
+           "backend": backend, "tuned": list(got),
+           "tuned_float64_matrix": list(config(tuned64)),
+           "untuned": list(config(untuned)), "choose_block": block,
+           "untuned_ms": untuned_ms, "tuned_ms": tuned_ms,
+           "tuned_float64_matrix_ms": tuned64_ms,
+           "verify_s": verify_s, "host_s": host, "launches": launches,
+           "errs": errs}
+    print(json.dumps({"tune_verify": out}))
+    return out
+
 
 def make_vocab():
     """The vocab weight as serve.py's vocab bench draws it (float64 normal
@@ -3526,8 +3768,11 @@ def main() -> int:
         errs = check(plans, ys, launches, x, y64)
         check_fem_spmm(plans, csr, device)
         rows = measure(plans, x, csr, launches, errs)
-        del plans, ys
         print(f"phase SpMV path: {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        tune_and_verify(csr, mat, plans, x, y64, w, device)
+        del plans, ys
+        print(f"phase tune and verify: {time.perf_counter() - t_phase:.1f} s")
         t_band = time.perf_counter()
         band = reorder_band(bcsr, bmat, breo, device)
         del bcsr, bmat

@@ -215,6 +215,11 @@ class SPC5Matrix:
         """Avg(r, c) = NNZ / N_blocks(r, c) -- the paper's selection feature."""
         return self.nnz / max(self.nblocks, 1)
 
+    @property
+    def fill_ratio(self) -> float:
+        """Average block fill in [0, 1] (paper tables 1-2 percentages)."""
+        return self.avg_nnz_per_block / (self.r * self.c)
+
 
 # ----------------------------------------------------------------------------
 # Construction / conversion

@@ -18,23 +18,28 @@ slices ported so far:
     resolve as attributes.
   * **Passes** (:func:`make_plan`): tune -> reorder -> layout -> build, each
     appending a ``duration_s``-stamped entry to ``plan.trace`` with the
-    reference's keys. The reorder pass (:mod:`repro_torch.core.reorder`)
+    reference's keys. The tune pass consults a record store
+    (:mod:`repro_torch.core.selector`) for the records of the plan's
+    device only; the reorder pass (:mod:`repro_torch.core.reorder`)
     permutes the matrix before the layout is built; the builds fold what
-    they can of the permutations into their index arrays.
+    they can of the permutations into their index arrays. ``verify=``
+    proves the finished plan (:mod:`repro_torch.analysis.verify`).
   * **Executors** (:func:`execute_spmv`, :func:`execute_spmm`): the only
     place that dispatches on the layout key. x and y are in the original
     order: a lowering gathers x by ``col_perm`` (or passes it to the kernel
     as its column map) and the executor gathers y by ``row_iperm``.
+  * **Cache substrate** (:func:`matrix_fingerprint`, :func:`plan_cache_key`,
+    :func:`append_trace_entries`, :func:`plan_nbytes`): the reference's
+    digests, digit for digit, and its footprint figure.
 
 Values are stored as f32, bf16 or int8 (the value-dtype axis, ``vdtype``;
-int8 plans carry one f32 scale a chunk, ``value_scale``). Not ported yet
-(each raises ``NotImplementedError``): the record-store tuner and the
-static plan verifier (ROADMAP queue 1, items 6 and 7).
+int8 plans carry one f32 scale a chunk, ``value_scale``).
 """
 from __future__ import annotations
 
 import dataclasses
 import difflib
+import hashlib
 import json
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -48,6 +53,7 @@ from repro_torch.kernels import (spc5_spmm, spc5_spmm_desc, spc5_spmv,
 from . import formats as F
 from . import ref_spmv as R
 from . import reorder as RE
+from . import selector as S
 
 LAYOUT_WHOLE = "whole_vector"
 LAYOUT_PANELS = "panels"
@@ -65,22 +71,6 @@ _LAYOUT_ALIASES: Dict[str, str] = {"whole": LAYOUT_WHOLE}
 _LAYOUT_SENTINELS = ("auto", "")
 
 Device = R.Device
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1, {item})")
-
-
-def refuse_unported(store=None, verify=False) -> None:
-    """The reference's ``store`` and ``verify`` keywords: their defaults
-    pass, any other value raises ``NotImplementedError`` naming its ROADMAP
-    item (the record store 6, the verifier 7)."""
-    if store is not None:
-        raise _not_ported("a record store (selector-driven block choice and "
-                          "tuning)", "item 6")
-    if verify:
-        raise _not_ported("the static plan verifier", "item 7")
 
 
 def canonical_lowering(name: str) -> str:
@@ -109,7 +99,9 @@ class LayoutSpec:
     ``lowerings`` lists the lowerings the layout registers ("mask" first,
     the tie-break winner of the cost arbitration); a descriptor plan's
     tensors are named by ``desc_array_names`` and viewed by
-    ``desc_device_view``."""
+    ``desc_device_view``. ``plain_spmv`` / ``plain_spmm`` compute the same
+    products with the plain PyTorch versions on the plan's device (the
+    executors' ``use_pallas=False``)."""
 
     name: str
     array_names: Tuple[str, ...]
@@ -117,6 +109,8 @@ class LayoutSpec:
     lower_spmv: Callable
     lower_spmm: Callable
     cost: Callable
+    plain_spmv: Callable
+    plain_spmm: Callable
     device_view: Optional[Callable] = None
     auto_eligible: bool = True
     lowerings: Tuple[str, ...] = (LOWERING_MASK,)
@@ -352,6 +346,7 @@ class PlanState:
     vdtype: str = "auto"
     tune: bool = True
     dtype: Any = None
+    store: Optional[S.RecordStore] = None
     reorder: Any = None             # strategy name or Reordering (request)
     reo: Optional[RE.Reordering] = None     # the applied reordering
     rows_fusible: bool = False
@@ -369,15 +364,75 @@ class PlanState:
 
 
 def _tune_pass(st: PlanState) -> None:
-    """The port has no record store yet: the pass records why it did not
-    consult one, with the reference's sources for that ("delegated": the
-    test split's multi sub-plan runs its own passes)."""
+    """Selector consult, as in the reference: fill (layout, pr, xw, cb,
+    lowering, vdtype, reorder) from a record store when the caller requested
+    nothing explicit ("delegated": the test split's multi sub-plan runs its
+    own passes). Only the records of the plan's device
+    (:func:`~repro_torch.core.selector.backend_of`) are consulted: a store
+    without one is "no-store", so records of another device, the
+    reference's among them, never tune a port plan."""
+    entry: dict = {"pass": "tune"}
     explicit = (st.layout != "auto" or st.pr is not None
                 or st.xw is not None or st.cb is not None)
-    source = ("delegated" if st.layout == LAYOUT_TEST else
-              "disabled" if not st.tune else
-              "explicit" if explicit else "no-store")
-    st.trace.append({"pass": "tune", "source": source})
+    if st.layout == LAYOUT_TEST:
+        entry["source"] = "delegated"
+    elif not st.tune:
+        entry["source"] = "disabled"
+    elif explicit:
+        entry["source"] = "explicit"
+    else:
+        tstore = st.store if st.store is not None else S.get_default_store()
+        backend = S.backend_of(st.device)
+        if S.has_backend(tstore, backend):
+            _apply_store(st, tstore, backend, entry)
+        else:
+            entry["source"] = "no-store"
+    st.trace.append(entry)
+
+
+def _apply_store(st: PlanState, store: S.RecordStore, backend: str,
+                 entry: dict) -> None:
+    """The tune pass's store branch (the reference's, with ``backend``):
+    the tuned config, clamped to the matrix, fills every axis the caller
+    left at its default, and ``entry`` records it."""
+    mat = st.mat
+    tuned = S.tune(S.spc5_features(mat), store=store,
+                   kernel=f"{mat.r}x{mat.c}", backend=backend)
+    cfg = S.clamp_config(tuned, nrows=mat.nrows, ncols=mat.ncols, r=mat.r,
+                         c=mat.c, nblocks=mat.nblocks, align=st.align)
+    # clamp_config demotes a lowering the layout did not register to
+    # "mask"; the demotion is traced
+    lowering_demoted = tuned.lowering != cfg.lowering
+    demoted = False
+    if (cfg.layout == LAYOUT_WHOLE
+            and not fits_whole_vector(*mat.shape, st.itemsize,
+                                      nvec=st.nvec)):
+        # the reference's TPU budget (kept for parity): a tuned whole-vector
+        # pick past it becomes panels at the panel layout's own defaults,
+        # not the whole layout's cb
+        cfg = S.PanelConfig(layout=LAYOUT_PANELS)
+        demoted = True
+    st.layout = cfg.layout
+    st.pr = cfg.pr or None
+    st.xw = cfg.xw or None
+    st.cb = cfg.cb
+    if st.lowering == "auto" and cfg.lowering:
+        st.lowering = cfg.lowering
+    # only a quantised pick flips the value-dtype axis: a tuned "f32"
+    # leaves the plan byte-equal to an untuned one
+    if st.vdtype == "auto" and cfg.vdtype in ("bf16", "int8"):
+        st.vdtype = cfg.vdtype
+    if st.reorder is None and cfg.reorder:
+        st.reorder = cfg.reorder
+    entry.update(source="store", layout=cfg.layout, pr=int(cfg.pr or 0),
+                 xw=int(cfg.xw or 0), cb=int(cfg.cb or 0),
+                 reorder=cfg.reorder, lowering=cfg.lowering,
+                 vdtype=cfg.vdtype, demoted=demoted)
+    if demoted:
+        entry["demoted_reason"] = "vmem-budget"
+    if lowering_demoted:
+        entry["lowering_demoted"] = True
+        entry["lowering_demoted_reason"] = "unregistered-lowering"
 
 
 def _scalar_stats(stats: dict) -> dict:
@@ -521,41 +576,64 @@ def make_plan(mat: F.SPC5Matrix, *, device: Device, layout: str = "auto",
     ``vdtype`` is the value-dtype axis, as in the reference: "f32", "bf16"
     or "int8" stores the values in that dtype (int8 with one f32 scale a
     chunk, ``plan.value_scale``), and every product still accumulates and
-    returns f32; "auto" (no record store here) and "" keep float32, which
-    is what the reference holds for the generators' float64 values too.
-    The vdtype's width sizes "auto"'s budget and the lowering's cost.
-    ``dtype`` may only be None or float32, and not together with a
-    ``vdtype`` other than "auto" (the reference's ``ValueError``: the
-    value-dtype axis owns the cast).
+    returns f32; "auto" takes a quantised tuned pick where the store has
+    one, else, like "", keeps float32, which is what the reference holds
+    for the generators' float64 values too. The vdtype's width sizes
+    "auto"'s budget and the lowering's cost. ``dtype`` may only be None or
+    float32 (no kernel of the port takes another value store than
+    ``vdtype``'s: any other ``dtype`` raises ``NotImplementedError``, a
+    deliberate difference), and not together with a ``vdtype`` other than
+    "auto" (the reference's ``ValueError``: the value-dtype axis owns the
+    cast).
     ``reorder`` is a strategy name ("sigma", "rcm", "colwindow", their
     aliases, "auto" or "none"; :func:`repro_torch.core.reorder.reorder`,
     scored at the geometry in effect and free to decline) or a prebuilt
     Reordering (the port's, or another package's read by attribute:
     :func:`as_reordering`); the plan keeps what its build could not fold
     of the permutations (``col_perm``, ``row_iperm``), and x and y stay in
-    the original order. ``store`` and ``verify`` take the reference's
-    defaults (None, False); any other value raises
-    ``NotImplementedError`` (:func:`refuse_unported`)."""
-    refuse_unported(store, verify)
+    the original order.
+
+    ``store`` (a :class:`~repro_torch.core.selector.RecordStore`; None: the
+    default store, ``selector.set_default_store`` or ``$SPC5_RECORDS``)
+    tunes the plan when nothing explicit was requested, as in the
+    reference, from the records of the plan's device only
+    (``selector.backend_of``): a store without one leaves the plan untuned
+    ("no-store" in its trace).
+
+    ``verify`` is the static verifier's hook, as in the reference: True
+    runs :func:`repro_torch.analysis.verify.verify_plan` on the finished
+    plan (at ``nvec``) and raises its ``PlanVerificationError`` on any
+    violation; a callable receives the report instead."""
     vdtype = F.canonical_vdtype(vdtype)
     if vdtype not in ("", "auto") and dtype is not None:
         raise ValueError(
             f"pass either dtype= (legacy passthrough) or vdtype={vdtype!r}, "
             f"not both -- the value-dtype axis owns the cast")
     if dtype is not None and not _is_f32(dtype):
-        raise _not_ported(f"dtype={dtype!r}", "item 5")
+        raise NotImplementedError(
+            f"dtype={dtype!r}: the port stores values as float32, or as "
+            f"vdtype='bf16' / 'int8'; no kernel takes another value store "
+            f"(ROADMAP §3, deliberate differences)")
     st = PlanState(mat=mat, device=torch.device(device),
                    layout=canonical_layout(layout),
                    multi_layout=canonical_layout(multi_layout),
                    lowering=canonical_lowering(lowering), pr=pr,
                    xw=xw, cb=cb, nvec=nvec, align=align, vdtype=vdtype,
                    tune=tune, dtype=None if dtype is None else np.float32,
-                   reorder=reorder)
+                   store=store, reorder=reorder)
     for pass_fn in (_tune_pass, _reorder_pass, _layout_pass):
         t0 = time.perf_counter()
         pass_fn(st)
         st.trace[-1]["duration_s"] = time.perf_counter() - t0
-    return _build_pass(st)
+    plan = _build_pass(st)
+    if verify:
+        from repro_torch.analysis.verify import verify_plan
+        report = verify_plan(plan, nvec=nvec)
+        if callable(verify):
+            verify(report)
+        else:
+            report.raise_if_failed()
+    return plan
 
 
 def _is_f32(dtype) -> bool:
@@ -569,32 +647,53 @@ def _is_f32(dtype) -> bool:
 # ----------------------------------------------------------------------------
 
 def execute_spmv(plan: SPC5Plan, x: torch.Tensor, *,
-                 double_buffer: bool = True) -> torch.Tensor:
+                 use_pallas: Optional[bool] = None,
+                 double_buffer: bool = True,
+                 interpret: Optional[bool] = None) -> torch.Tensor:
     """y = A @ x through the plan's registered lowering, on the plan's
     device: the CUDA kernels for a plan on the card, the plain PyTorch
-    version for a plan on the CPU. ``x`` must be float32 on that device."""
-    _check_device(plan, x)
-    y = _REGISTRY[plan.layout].lower_spmv(plan, x,
-                                          double_buffer=double_buffer)
+    version for a plan on the CPU. ``x`` must be float32 on that device.
+
+    ``use_pallas`` keeps the reference's keyword: None and True run as
+    above; False runs the plain PyTorch version on the plan's device (an
+    explicit request, not a fallback; ``double_buffer`` then changes
+    nothing). ``interpret`` changes nothing on a CPU plan; True on a card
+    plan raises ``ValueError``: the port has no kernel interpreter."""
+    spec = _executor(plan, x, interpret)
+    if use_pallas is False:
+        y = spec.plain_spmv(plan, x)
+    else:
+        y = spec.lower_spmv(plan, x, double_buffer=double_buffer)
     return _unpermuted(plan, y)
 
 
-def execute_spmm(plan: SPC5Plan, x: torch.Tensor, *, nvt: int = 128,
-                 double_buffer: bool = True) -> torch.Tensor:
+def execute_spmm(plan: SPC5Plan, x: torch.Tensor, *,
+                 use_pallas: Optional[bool] = None, nvt: int = 128,
+                 double_buffer: bool = True,
+                 interpret: Optional[bool] = None) -> torch.Tensor:
     """Y = A @ X, X of shape (ncols, nvec) float32 on the plan's device,
     through the plan's registered lowering (the CUDA kernels on the card,
     the plain PyTorch version on the CPU). ``nvt`` is the reference's
-    column tile: nvec must be a multiple of min(nvt, nvec)."""
-    _check_device(plan, x)
-    y = _REGISTRY[plan.layout].lower_spmm(plan, x, nvt=nvt,
-                                          double_buffer=double_buffer)
+    column tile: nvec must be a multiple of min(nvt, nvec).
+    ``use_pallas`` and ``interpret`` as in :func:`execute_spmv`."""
+    spec = _executor(plan, x, interpret)
+    if use_pallas is False:
+        y = spec.plain_spmm(plan, x)
+    else:
+        y = spec.lower_spmm(plan, x, nvt=nvt, double_buffer=double_buffer)
     return _unpermuted(plan, y)
 
 
-def _check_device(plan: SPC5Plan, x) -> None:
+def _executor(plan: SPC5Plan, x, interpret: Optional[bool]) -> LayoutSpec:
+    """The plan's layout, once x and ``interpret`` are checked."""
     if not isinstance(x, torch.Tensor) or x.device != plan.device:
         raise ValueError(f"x must be a tensor on the plan's device "
                          f"{plan.device}")
+    if interpret and plan.device.type != "cpu":
+        raise ValueError("interpret=True: the port has no kernel "
+                         "interpreter; a plan on the CPU runs the plain "
+                         "versions, use_pallas=False runs them on the card")
+    return _REGISTRY[plan.layout]
 
 
 def _unpermuted(plan: SPC5Plan, y: torch.Tensor) -> torch.Tensor:
@@ -735,6 +834,75 @@ def _with_scale(arrays, scales, device):
 
 
 # ----------------------------------------------------------------------------
+# Fingerprints + plan footprint (the serving tier's cache substrate)
+# ----------------------------------------------------------------------------
+
+def matrix_fingerprint(mat: F.SPC5Matrix) -> str:
+    """Content hash of a beta(r,c) matrix: structure (block geometry,
+    row/col/mask/voffset arrays) + values + value dtype, the reference's
+    digest byte for byte (both packages hash the same host arrays).
+
+    Two matrices with identical content hash identically however their
+    arrays were produced; one flipped mask bit or one edited value changes
+    the digest. The build-once half of :func:`plan_cache_key`."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(np.asarray([mat.shape[0], mat.shape[1], mat.r, mat.c],
+                        dtype=np.int64).tobytes())
+    h.update(str(np.dtype(mat.values.dtype)).encode())
+    for a in (mat.block_rowptr, mat.block_colidx, mat.block_masks,
+              mat.block_voffset, mat.values):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def plan_cache_key(mat: F.SPC5Matrix, **request) -> str:
+    """The plan cache's key: :func:`matrix_fingerprint` + the prepare
+    request (layout / lowering / reorder / geometry / dtype / nvec / ...),
+    as in the reference.
+
+    Every decision that changes the built plan is part of the key;
+    omitted / None / "auto" / "" / False knobs normalise away, so spelling
+    a default explicitly does not split the cache."""
+    norm = {}
+    for k in sorted(request):
+        v = request[k]
+        if v is None or v == "auto" or v == "" or v is False:
+            continue                    # defaults don't split the cache
+        if k == "dtype":           # a torch dtype keys as its numpy twin
+            v = (str(v).removeprefix("torch.") if isinstance(v, torch.dtype)
+                 else str(np.dtype(v)))
+        elif not isinstance(v, (bool, int, float, str)):
+            v = str(v)                  # PanelConfig / Reordering reprs
+        norm[k] = v
+    h = hashlib.blake2b(digest_size=16)
+    h.update(matrix_fingerprint(mat).encode())
+    h.update(json.dumps(norm, sort_keys=True).encode())
+    return h.hexdigest()
+
+
+def append_trace_entries(plan: SPC5Plan, entries: List[dict]) -> SPC5Plan:
+    """A copy of ``plan`` with ``entries`` appended to its pass trace (the
+    degradation ladder's ``{"pass": "degrade", ...}`` entries, which the
+    verifier's trace-schema rule admits after ``build``)."""
+    return dataclasses.replace(
+        plan, trace_json=json.dumps(plan.trace + list(entries),
+                                    sort_keys=True))
+
+
+def plan_nbytes(plan: SPC5Plan) -> int:
+    """The bytes of a plan's tensors (``numel() * element_size()``), its
+    sub-plans and permutations included: the plan cache's currency, equal
+    to the reference's figure on byte-equal plans."""
+    n = sum(a.numel() * a.element_size() for a in plan.arrays)
+    for child in plan.children:
+        n += plan_nbytes(child)
+    for p in (plan.col_perm, plan.row_iperm):
+        if p is not None:
+            n += p.numel() * p.element_size()
+    return n
+
+
+# ----------------------------------------------------------------------------
 # whole_vector layout
 # ----------------------------------------------------------------------------
 
@@ -809,6 +977,16 @@ def _lower_spmm_whole(plan: SPC5Plan, x, *, nvt, double_buffer):
         nvt=nvt)
 
 
+def _plain_whole(plan: SPC5Plan, x, spmm: bool):
+    scale = _plan_scale(plan)
+    if plan.lowering == LOWERING_DESC:
+        fn = R.spmm_desc if spmm else R.spmv_desc
+        return fn(plan.dev, x, scale, nrows=plan.nrows)
+    fn = R.spmm if spmm else R.spmv
+    return fn(plan.dev, _gathered_x(plan, x), scale, r=plan.r, c=plan.c,
+              nrows=plan.nrows, ncols=plan.ncols)
+
+
 register_layout(LayoutSpec(
     name=LAYOUT_WHOLE,
     array_names=R.SPC5Device._fields,
@@ -816,6 +994,8 @@ register_layout(LayoutSpec(
     lower_spmv=_lower_spmv_whole,
     lower_spmm=_lower_spmm_whole,
     cost=_cost_whole,
+    plain_spmv=lambda plan, x: _plain_whole(plan, x, False),
+    plain_spmm=lambda plan, x: _plain_whole(plan, x, True),
     device_view=lambda arrays: R.SPC5Device(*arrays),
     lowerings=_LOWERING_NAMES,
     desc_array_names=R.SPC5DescDevice._fields,
@@ -943,6 +1123,17 @@ def _lower_spmm_panels(plan: SPC5Plan, x, *, nvt, double_buffer):
               ncols_pad=plan.ncols_pad, nvt=nvt)
 
 
+def _plain_panels(plan: SPC5Plan, x, spmm: bool):
+    scale = _plan_scale(plan)
+    geom = dict(pr=plan.pr, nrows=plan.nrows, ncols_pad=plan.ncols_pad)
+    if plan.lowering == LOWERING_DESC:
+        fn = R.spmm_panels_desc if spmm else R.spmv_panels_desc
+    else:
+        fn = R.spmm_panels if spmm else R.spmv_panels
+        geom.update(r=plan.r, c=plan.c)
+    return fn(plan.dev, x, plan.col_perm, scale, **geom)
+
+
 register_layout(LayoutSpec(
     name=LAYOUT_PANELS,
     array_names=R.SPC5PanelDevice._fields,
@@ -950,6 +1141,8 @@ register_layout(LayoutSpec(
     lower_spmv=_lower_spmv_panels,
     lower_spmm=_lower_spmm_panels,
     cost=_cost_panels,
+    plain_spmv=lambda plan, x: _plain_panels(plan, x, False),
+    plain_spmm=lambda plan, x: _plain_panels(plan, x, True),
     device_view=lambda arrays: R.SPC5PanelDevice(*arrays),
     lowerings=_LOWERING_NAMES,
     desc_array_names=R.SPC5PanelDescDevice._fields,
@@ -1019,8 +1212,8 @@ def _build_test(st: PlanState):
     multi = make_plan(split.multi, device=st.device, layout=st.multi_layout,
                       pr=st.pr, xw=st.xw, cb=st.cb, nvec=st.nvec,
                       align=st.align, dtype=st.dtype,
-                      vdtype=st.vdtype or "auto", tune=st.tune,
-                      lowering=st.lowering)
+                      vdtype=st.vdtype or "auto", store=st.store,
+                      tune=st.tune, lowering=st.lowering)
     n_single = int(split.single_values.shape[0])
     if multi.layout == LAYOUT_PANELS and n_single:
         brows, bcols, bvals, xbase, tail_xw, tail_pad = \
@@ -1082,6 +1275,22 @@ def _lower_spmm_test(plan: SPC5Plan, x, *, nvt, double_buffer):
     return y
 
 
+def _plain_test(plan: SPC5Plan, x, spmm: bool):
+    xg = _gathered_x(plan, x)
+    y = (execute_spmm if spmm else execute_spmv)(plan.multi, xg,
+                                                 use_pallas=False)
+    if plan.single_values.numel():
+        rows, cols, vals, _ = plan.arrays
+        if plan.tail_pr:
+            fn = R.spmm_coo_panels if spmm else R.spmv_coo_panels
+            y = y + fn(rows, cols, vals, xg, pr=plan.tail_pr,
+                       nrows=plan.nrows)
+        else:
+            fn = R.spmm_coo if spmm else R.spmv_coo
+            y = y + fn(rows, cols, vals, xg, nrows=plan.nrows)
+    return y
+
+
 register_layout(LayoutSpec(
     name=LAYOUT_TEST,
     array_names=_TEST_ARRAYS,
@@ -1089,6 +1298,8 @@ register_layout(LayoutSpec(
     lower_spmv=_lower_spmv_test,
     lower_spmm=_lower_spmm_test,
     cost=lambda nrows, ncols, itemsize, nvec: 0,
+    plain_spmv=lambda plan, x: _plain_test(plan, x, False),
+    plain_spmm=lambda plan, x: _plain_test(plan, x, True),
     auto_eligible=False,
     # the lowering is the multi sub-plan's; the tail's arrays do not
     # depend on it

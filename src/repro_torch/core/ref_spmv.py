@@ -396,6 +396,12 @@ def spmm_panels_desc(dev: SPC5PanelDescDevice, x: torch.Tensor, cmap=None,
 # The beta(r,c)_test split's singleton tail (COO)
 # ----------------------------------------------------------------------------
 
+def spmv_dense_oracle(dense: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """Ground-truth product for tests (numpy, f64 accumulate), as in the
+    reference."""
+    return dense.astype(np.float64) @ x.astype(np.float64)
+
+
 def spmv_coo(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
              x: torch.Tensor, *, nrows: int) -> torch.Tensor:
     """y = the singleton tail times x, the tail as flat COO (n_single,):

@@ -2,9 +2,9 @@
 
 The port's counterpart of ``repro.core.sparse_linear``: ``y = W_sparse @ x``
 over batched activations is the paper's SpMM, batch-1 decode its SpMV. The
-block geometry comes from the paper's eq.-4 breakeven (the record-store
-selector is not ported yet). The layer runs forward only: the reference
-defines no gradient for it.
+block geometry comes from the paper's selector where a record store holds
+measurements of the layer's device, else from the eq.-4 breakeven. The
+layer runs forward only: the reference defines no gradient for it.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from repro_torch.kernels import ops
 from . import formats as F
 from . import plan as P
 from . import ref_spmv as R
+from . import selector as S
 
 
 def prune_by_magnitude(w: np.ndarray, density: float) -> np.ndarray:
@@ -30,10 +31,21 @@ def prune_by_magnitude(w: np.ndarray, density: float) -> np.ndarray:
     return np.where(np.abs(w) >= thresh, w, 0.0)
 
 
-def choose_block(csr: F.CSRMatrix, store=None) -> Tuple[int, int]:
-    """The eq.-4 breakeven argmax: the (r, c) whose Avg(r,c) most exceeds
-    the paper's breakeven filling. The selector path (``store``) raises."""
-    P.refuse_unported(store=store)
+def choose_block(csr: F.CSRMatrix, store: Optional[S.RecordStore] = None,
+                 workers: int = 1, *,
+                 device: Optional[P.Device] = None) -> Tuple[int, int]:
+    """Selector-driven (r, c) choice, as in the reference: the kernel
+    ``selector.select_kernel`` predicts fastest from ``store``'s records of
+    ``device``'s backend (resolved as ``ops.resolve_device`` does, and read
+    only for its backend); without such a record (no store, an empty one,
+    or one of other devices), the eq.-4 breakeven argmax: the (r, c) whose
+    Avg(r,c) most exceeds the paper's breakeven filling."""
+    if store is not None and store.records:
+        backend = S.backend_of(ops.resolve_device(device))
+        if S.has_backend(store, backend):
+            kernel, _, _ = S.select_kernel(csr, store, workers=workers,
+                                           backend=backend)
+            return S.kernel_block(kernel)
     best, best_score = (1, 8), -np.inf
     for (r, c) in F.SUPPORTED_BLOCKS:
         _, avg = F.block_stats(csr, r, c)
@@ -98,17 +110,19 @@ class SparseLinear(nn.Module):
         either way). ``reorder`` (a strategy name, or a Reordering: the
         port's or the reference's) permutes the pruned weight before the
         layout is built; activations go in and come out in the original
-        feature order. A ``store`` and a truthy ``verify`` raise
-        ``NotImplementedError`` naming their ROADMAP item."""
-        P.refuse_unported(store, verify)
+        feature order. The record ``store`` drives the block choice
+        (:func:`choose_block`) and the plan's tuning (``ops.prepare``), from
+        its records of ``device``'s backend only; ``verify`` is the static
+        verifier's hook, as on ``ops.prepare``."""
         w = prune_by_magnitude(np.asarray(w), density)
         csr = F.csr_from_dense(w)
         if block is None:
-            block = choose_block(csr)
+            block = choose_block(csr, store, device=device)
         mat = F.csr_to_spc5(csr, *block)
         plan = ops.prepare(mat, cb=cb, dtype=dtype, vdtype=vdtype,
-                           layout=layout, pr=pr, xw=xw, nvec=nvec, tune=tune,
-                           reorder=reorder, lowering=lowering, device=device)
+                           layout=layout, pr=pr, xw=xw, nvec=nvec,
+                           store=store, tune=tune, reorder=reorder,
+                           lowering=lowering, verify=verify, device=device)
         return cls(plan, _bias_tensor(bias, plan.device))
 
     @classmethod
@@ -130,16 +144,20 @@ class SparseLinear(nn.Module):
                                   row_iperm=row_iperm, rows_fused=rows_fused)
         return cls(plan, _bias_tensor(bias, plan.device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, use_pallas: Optional[bool] = None,
+                interpret: Optional[bool] = None) -> torch.Tensor:
         """x: (..., d_in) -> (..., d_out). A batch of one goes to SpMV, a
-        wider batch to SpMM on a contiguous (d_in, batch) copy of x."""
+        wider batch to SpMM on a contiguous (d_in, batch) copy of x.
+        ``use_pallas=False`` runs the plain PyTorch versions on the plan's
+        device; ``interpret`` as on ``ops.spmv``."""
         d_in = self.plan.ncols
         lead = x.shape[:-1]
         xf = x.reshape(-1, d_in)                        # (batch, d_in)
+        kw = dict(use_pallas=use_pallas, interpret=interpret)
         if xf.shape[0] == 1:
-            y = ops.spmv(self.plan, xf[0].contiguous())[None, :]
+            y = ops.spmv(self.plan, xf[0].contiguous(), **kw)[None, :]
         else:
-            y = ops.spmm(self.plan, xf.t().contiguous()).t()
+            y = ops.spmm(self.plan, xf.t().contiguous(), **kw).t()
         y = y.reshape(*lead, self.plan.nrows)
         if self.bias is not None:
             y = y + self.bias

@@ -1,4 +1,4 @@
-"""Structure analysis: the one report the reorder pass scores permutations by.
+"""Structure analysis: one cheap report driving reordering and tuning.
 
 The port's copy of ``repro.core.structure``. SPC5's block kernels (Bramas &
 Kus, arXiv:1801.01134) win where nonzeros cluster into r x c blocks, and the
@@ -6,12 +6,10 @@ panel layout's cost is the number of distinct x windows (chunks) each row
 panel touches: both are properties of the matrix's ordering.
 :func:`profile` measures them in one pass, so that the reorder strategies
 (:mod:`repro_torch.core.reorder`) can accept or decline a candidate on the
-metrics the layout pays for. Everything is computed from CSR (or a
-converted beta(r,c) matrix) without a dense array.
-
-The reference's ``StructureProfile.features`` (the selector's interpolation
-coordinates) is left out: the port has no selector yet (ROADMAP queue 1,
-item 6).
+metrics the layout pays for, and ``selector.tune`` can read them as its
+interpolation coordinates (:meth:`StructureProfile.features`). Everything
+is computed from CSR (or a converted beta(r,c) matrix) without a dense
+array.
 """
 from __future__ import annotations
 
@@ -21,6 +19,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from . import formats as F
+from . import selector as S
 
 #: Block geometries :func:`profile` measures by default: short-wide, square
 #: and tall shapes of the paper's SUPPORTED_BLOCKS.
@@ -57,6 +56,21 @@ class StructureProfile:
     pr: int
     xw: int
     cb: int
+
+    def features(self, kernel: Optional[str] = None) -> S.MatrixFeatures:
+        """This profile as the selector's interpolation coordinates.
+
+        ``kernel`` ("rxc") picks which profiled block geometry supplies
+        Avg/fill; defaults to the geometry the panel metrics used.
+        """
+        kernel = kernel or f"{self.r}x{self.c}"
+        if kernel not in self.block_fill:
+            raise KeyError(f"{kernel!r} not profiled; have "
+                           f"{sorted(self.block_fill)}")
+        _, avg, fill = self.block_fill[kernel]
+        return S.MatrixFeatures(self.nrows, self.ncols, self.nnz,
+                                self.nnz / max(self.nrows, 1),
+                                self.bandwidth_mean, avg, fill)
 
     def summary(self) -> str:
         """One line for logs."""

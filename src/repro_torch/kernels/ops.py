@@ -1,21 +1,42 @@
 """Public entry points of the port: :func:`prepare`, :func:`spmv`,
 :func:`spmm` and :func:`spmv_test`.
 
-The counterpart of ``repro.kernels.ops`` for the SpMV and SpMM slices.
-:func:`prepare` runs the plan passes (``repro_torch.core.plan``) and puts
-the plan's tensors on a device: the card unless the caller asks for the
-CPU. :func:`spmv` and :func:`spmm` multiply through the plan executors,
-which run the CUDA kernels for a plan on the card and the plain PyTorch
-version for a plan on the CPU.
+The counterpart of ``repro.kernels.ops``. :func:`prepare` runs the plan
+passes (``repro_torch.core.plan``) and puts the plan's tensors on a device:
+the card unless the caller asks for the CPU. :func:`spmv` and :func:`spmm`
+multiply through the plan executors, which run the CUDA kernels for a plan
+on the card and the plain PyTorch version for a plan on the CPU (or, with
+``use_pallas=False``, on the plan's device).
+
+:func:`prepare_panels` and :func:`prepare_test` remain as the reference's
+deprecation shims over :func:`prepare` (``DeprecationWarning``). The
+reference's legacy handle names are aliases of ``SPC5Plan``; inspect
+``plan.layout`` or ``plan.trace`` to tell plans apart.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import torch
 
 from repro_torch.core import formats as F
 from repro_torch.core import plan as P
+
+# Canonical layout keys (re-exported for call sites and tests).
+LAYOUT_WHOLE = P.LAYOUT_WHOLE
+LAYOUT_PANELS = P.LAYOUT_PANELS
+LAYOUT_TEST = P.LAYOUT_TEST
+
+# The reference's four pre-plan handle classes, all one plan class.
+SPC5Plan = P.SPC5Plan
+SPC5Handle = P.SPC5Plan
+SPC5PanelHandle = P.SPC5Plan
+SPC5ReorderedHandle = P.SPC5Plan
+SPC5TestHandle = P.SPC5Plan
+
+VMEM_WHOLE_VECTOR_BUDGET = P.VMEM_WHOLE_VECTOR_BUDGET
+fits_whole_vector = P.fits_whole_vector
 
 
 def resolve_device(device: Optional[P.Device]) -> torch.device:
@@ -70,11 +91,17 @@ def prepare(mat: F.SPC5Matrix, *, layout: str = "auto",
     geometry in effect, and free to decline) or a prebuilt Reordering (the
     port's, or the reference's read by attribute), as in the reference:
     the matrix is permuted before the layout is built, x and y stay in the
-    original order, and ``plan.trace`` records the decision. ``verify``
-    and ``store`` take the reference's defaults (False, None); a truthy
-    ``verify`` and a ``store`` raise ``NotImplementedError`` naming their
-    ROADMAP item."""
-    P.refuse_unported(store, verify)
+    original order, and ``plan.trace`` records the decision.
+
+    ``store`` (a ``selector.RecordStore``; None: the store installed by
+    ``selector.set_default_store`` or named by ``$SPC5_RECORDS``) tunes the
+    plan when nothing explicit was requested (``layout="auto"``, no
+    ``pr`` / ``xw`` / ``cb``, no ``config``, ``tune=True``), from the
+    records of the plan's device only (``selector.backend_of``: "cpu", or
+    "cuda:<card name>"): records of another device, and every record of
+    the reference's stores, leave the plan untuned. ``verify=True`` proves
+    the finished plan (``repro_torch.analysis.verify.verify_plan``) and
+    raises on any violation; a callable receives the report instead."""
     if config is not None:
         if layout == "auto":
             layout = getattr(config, "layout", "") or "auto"
@@ -94,21 +121,66 @@ def prepare(mat: F.SPC5Matrix, *, layout: str = "auto",
                        reorder=reorder, verify=verify)
 
 
+def prepare_panels(mat: F.SPC5Matrix, pr: int = 512, cb: int = 64,
+                   xw: int = 512, align: int = 8, dtype=None,
+                   lowering: str = "mask", verify=False, *,
+                   device: Optional[P.Device] = None) -> P.SPC5Plan:
+    """Deprecated, as in the reference: use ``prepare(mat, layout="panels",
+    pr=..., cb=..., xw=..., tune=False)`` (explicit geometry, no tuning,
+    the mask lowering unless requested otherwise)."""
+    warnings.warn(
+        "ops.prepare_panels is deprecated; use ops.prepare(mat, "
+        "layout='panels', pr=..., cb=..., xw=..., tune=False)",
+        DeprecationWarning, stacklevel=2)
+    return prepare(mat, layout=P.LAYOUT_PANELS, pr=pr, cb=cb, xw=xw,
+                   align=align, dtype=dtype, tune=False, lowering=lowering,
+                   verify=verify, device=device)
+
+
+def prepare_test(mat: F.SPC5Matrix, cb: Optional[int] = None, align: int = 8,
+                 dtype=None, layout: str = "auto", pr: Optional[int] = None,
+                 xw: Optional[int] = None, nvec: int = 1, store=None,
+                 tune: bool = True, reorder=None, lowering: str = "auto",
+                 verify=False, *,
+                 device: Optional[P.Device] = None) -> P.SPC5Plan:
+    """Deprecated, as in the reference: use ``prepare(mat, layout="test",
+    multi_layout=...)`` (its ``layout`` is the multi sub-plan's layout
+    request)."""
+    warnings.warn(
+        "ops.prepare_test is deprecated; use ops.prepare(mat, "
+        "layout='test', multi_layout=...)",
+        DeprecationWarning, stacklevel=2)
+    return prepare(mat, layout=P.LAYOUT_TEST, multi_layout=layout, pr=pr,
+                   xw=xw, cb=cb, nvec=nvec, align=align, dtype=dtype,
+                   store=store, tune=tune, reorder=reorder,
+                   lowering=lowering, verify=verify, device=device)
+
+
 def spmv(plan: P.SPC5Plan, x: torch.Tensor, *,
-         double_buffer: bool = True) -> torch.Tensor:
+         use_pallas: Optional[bool] = None, double_buffer: bool = True,
+         interpret: Optional[bool] = None) -> torch.Tensor:
     """y = A @ x; ``x`` is a float32 (ncols,) tensor on the plan's device
     and y float32, whatever the plan's value dtype.
     ``double_buffer`` picks the kernel that prefetches the next chunk's
-    windows (the default, as in the reference) or the single-buffered one."""
-    return P.execute_spmv(plan, x, double_buffer=double_buffer)
+    windows (the default, as in the reference) or the single-buffered one.
+    ``use_pallas=False`` runs the plain PyTorch version on the plan's
+    device; ``interpret=True`` raises for a plan on the card (the port has
+    no kernel interpreter) and changes nothing on the CPU
+    (:func:`repro_torch.core.plan.execute_spmv`)."""
+    return P.execute_spmv(plan, x, use_pallas=use_pallas,
+                          double_buffer=double_buffer, interpret=interpret)
 
 
-def spmm(plan: P.SPC5Plan, x: torch.Tensor, *, nvt: int = 128,
-         double_buffer: bool = True) -> torch.Tensor:
+def spmm(plan: P.SPC5Plan, x: torch.Tensor, *,
+         use_pallas: Optional[bool] = None, nvt: int = 128,
+         double_buffer: bool = True,
+         interpret: Optional[bool] = None) -> torch.Tensor:
     """Y = A @ X; ``x`` is a contiguous float32 (ncols, nvec) tensor on the
     plan's device and Y is (nrows, nvec). ``nvt`` and ``double_buffer`` as
-    in the reference (the whole-vector layout has one SpMM kernel)."""
-    return P.execute_spmm(plan, x, nvt=nvt, double_buffer=double_buffer)
+    in the reference (the whole-vector layout has one SpMM kernel);
+    ``use_pallas`` and ``interpret`` as in :func:`spmv`."""
+    return P.execute_spmm(plan, x, use_pallas=use_pallas, nvt=nvt,
+                          double_buffer=double_buffer, interpret=interpret)
 
 
 def spmv_test(plan: P.SPC5Plan, x: torch.Tensor, **kw) -> torch.Tensor:

@@ -674,3 +674,35 @@ def spmm_cuda_panels_db(chunk_vbase, chunk_xbase, chunk_col, chunk_mask,
                    chunk_xbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
                    values, x, col_map, value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr,
                    nrows=nrows, ncols_pad=ncols_pad, nvt=nvt, split=split)
+
+
+# ----------------------------------------------------------------------------
+# shared-memory contracts (the static verifier's vmem-budget rule)
+# ----------------------------------------------------------------------------
+
+def whole_contract(geom, vsize: int = 4, nvec: int = 1) -> int:
+    """Shared memory of the CTA ``spmm_cuda`` plans (:func:`whole_cta`, whose
+    ring may be one stage) for a plan of geometry ``geom``, ``vsize``-byte
+    values and X of ``nvec`` columns, 16-byte aligned; computed on the
+    host, without a card. Raises ``ValueError`` where no launch fits."""
+    return whole_cta(cb=geom["cb"], r=geom["r"], c=geom["c"],
+                     vmax=geom["vmax"], nvec=nvec, vec=panels_vector(nvec),
+                     vsize=vsize)["smem_bytes"]
+
+
+def panels_contract(geom, vsize: int = 4, nvec: int = 1) -> int:
+    """The same for the synchronous panel SpMM kernel (:func:`panels_plan`
+    at one stage, the fewest its launcher takes)."""
+    return panels_plan(1, geom["cb"], geom["r"], geom["c"], geom["vmax"],
+                       geom["pr"], nvec, panels_vector(nvec),
+                       vsize=vsize)["smem_bytes"]
+
+
+#: (layout, lowering) -> ``contract(geom, vsize, nvec)``: the shared memory
+#: of the SpMM kernels a plan of that layout and lowering launches, which
+#: ``repro_torch.analysis.verify`` holds to :data:`MAX_SMEM_BYTES` (with
+#: :data:`.spc5_spmm_desc.SMEM_CONTRACTS`, the descriptor lowering's).
+SMEM_CONTRACTS = {
+    ("whole_vector", "mask"): whole_contract,
+    ("panels", "mask"): panels_contract,
+}

@@ -54,7 +54,8 @@ from repro_torch.core import ref_spmv as R
 from . import _build
 from . import spc5_spmm as KM
 from . import spc5_spmv as K
-from .spc5_spmv_desc import _check_tables, _widths, value_window_bytes
+from .spc5_spmv_desc import (_check_tables, _widths, table_widths,
+                             value_window_bytes)
 
 #: Launches per wrapper since the last :func:`reset_launches`.
 LAUNCHES: Dict[str, int] = {"spmm_cuda_desc": 0, "spmm_cuda_panels_desc": 0,
@@ -520,3 +521,36 @@ def spmm_cuda_panels_desc_db(chunk_vbase, chunk_xbase, desc_valid,
                    chunk_xbase, desc_valid, desc_vidx, desc_xcol, desc_yrow,
                    values, x, col_map, value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr,
                    nrows=nrows, ncols_pad=ncols_pad, nvt=nvt, split=split)
+
+
+# ----------------------------------------------------------------------------
+# shared-memory contracts (the static verifier's vmem-budget rule)
+# ----------------------------------------------------------------------------
+
+def whole_contract(geom, vsize: int = 4, nvec: int = 1) -> int:
+    """Shared memory of the CTA ``spmm_cuda_desc`` plans (:func:`whole_cta`)
+    for a plan of geometry ``geom``, its tables as the build narrows them,
+    ``vsize``-byte values and X of ``nvec`` columns; computed on the host,
+    without a card. Raises ``ValueError`` where no launch fits."""
+    wv, wx = table_widths(geom, "whole_vector")
+    return whole_cta(cb=geom["cb"], r=geom["r"], c=geom["c"],
+                     vmax=geom["vmax"], nvec=nvec,
+                     vec=KM.panels_vector(nvec), wv=wv, wx=wx,
+                     vsize=vsize)["smem_bytes"]
+
+
+def panels_contract(geom, vsize: int = 4, nvec: int = 1) -> int:
+    """The same for the synchronous panel descriptor SpMM kernel
+    (:func:`panels_plan` at one stage, the fewest its launcher takes)."""
+    wv, wx = table_widths(geom, "panels")
+    return panels_plan(1, geom["cb"], geom["r"], geom["c"], geom["vmax"],
+                       geom["pr"], nvec, KM.panels_vector(nvec), wv, wx,
+                       vsize=vsize)["smem_bytes"]
+
+
+#: The descriptor lowering's SpMM contracts (:data:`.spc5_spmm.
+#: SMEM_CONTRACTS`).
+SMEM_CONTRACTS = {
+    ("whole_vector", "descriptor"): whole_contract,
+    ("panels", "descriptor"): panels_contract,
+}

@@ -623,3 +623,33 @@ def spmv_cuda_panels_db(chunk_vbase, chunk_xbase, chunk_col, chunk_mask,
                    chunk_xbase, chunk_col, chunk_mask, chunk_voff, chunk_row,
                    values, x, col_map, value_scale, r=r, c=c, cb=cb, vmax=vmax, xw=xw, pr=pr,
                    nrows=nrows, ncols_pad=ncols_pad, split=split)
+
+
+# ----------------------------------------------------------------------------
+# shared-memory contracts (the static verifier's vmem-budget rule)
+# ----------------------------------------------------------------------------
+
+def whole_contract(geom, vsize: int = 4, nvec: int = 1) -> int:
+    """Shared memory a CTA of the whole-vector SpMV kernels asks for at one
+    stage, the fewest their launcher (:func:`whole_launch`) takes, for a
+    plan of geometry ``geom`` and ``vsize``-byte values; computed on the
+    host, without a card."""
+    cb, vmax = geom["cb"], geom["vmax"]
+    return whole_smem_bytes(1, cb, vmax, WHOLE_TILE_ROWS,
+                            whole_threads(cb, geom["r"], vmax), vsize)
+
+
+def panels_contract(geom, vsize: int = 4, nvec: int = 1) -> int:
+    """Shared memory a CTA of the panel SpMV kernels asks for at one stage
+    (:func:`panels_stages`), as :func:`whole_contract`."""
+    return panels_smem_bytes(1, geom["cb"], geom["vmax"], geom["pr"], vsize)
+
+
+#: (layout, lowering) -> ``contract(geom, vsize, nvec)``: the shared memory
+#: of the SpMV kernels a plan of that layout and lowering launches, which
+#: ``repro_torch.analysis.verify`` holds to :data:`MAX_SMEM_BYTES` (with
+#: :data:`.spc5_spmv_desc.SMEM_CONTRACTS`, the descriptor lowering's).
+SMEM_CONTRACTS = {
+    ("whole_vector", "mask"): whole_contract,
+    ("panels", "mask"): panels_contract,
+}

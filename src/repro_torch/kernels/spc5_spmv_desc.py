@@ -113,13 +113,12 @@ def _widths(vidx, xcol, yrow):
 # launch planning shared by both layouts
 # ----------------------------------------------------------------------------
 
-def _fit_stages(stages: int, cb: int, nbytes, what: str
-                ) -> Tuple[int, int, int]:
+def _fit(stages: int, cb: int, nbytes) -> Tuple[int, int, int]:
     """(stages, blocks per stage, shared bytes per CTA) from
     ``nbytes(stages, blocks per stage)``: ``stages == 1`` stages whole chunks
     cut into slices of fewer blocks (halved) while they do not fit a CTA;
     a ring of ``stages`` whole chunks is shortened (down to 2) while it does
-    not fit. Raises ``ValueError`` when even that does not fit."""
+    not fit. The bytes may still be more than a CTA has."""
     nb = cb
     if stages == 1:
         while nb > 1 and nbytes(1, nb) > K.MAX_SMEM_BYTES:
@@ -127,8 +126,15 @@ def _fit_stages(stages: int, cb: int, nbytes, what: str
     else:
         while stages > 2 and nbytes(stages, nb) > K.MAX_SMEM_BYTES:
             stages -= 1
-    K._check_smem(nbytes(stages, nb), what)
     return stages, nb, nbytes(stages, nb)
+
+
+def _fit_stages(stages: int, cb: int, nbytes, what: str
+                ) -> Tuple[int, int, int]:
+    """:func:`_fit`, raising ``ValueError`` when even that does not fit."""
+    stages, nb, smem = _fit(stages, cb, nbytes)
+    K._check_smem(smem, what)
+    return stages, nb, smem
 
 
 _OCCUPANCY: Dict[Tuple, Tuple[int, int]] = {}
@@ -489,3 +495,45 @@ def spmv_cuda_panels_desc_db(chunk_vbase, chunk_xbase, desc_valid,
                    desc_xcol, desc_yrow, values, x, col_map, value_scale, r=r, c=c, cb=cb,
                    vmax=vmax, xw=xw, pr=pr, nrows=nrows,
                    ncols_pad=ncols_pad, split=split)
+
+
+# ----------------------------------------------------------------------------
+# shared-memory contracts (the static verifier's vmem-budget rule)
+# ----------------------------------------------------------------------------
+
+def table_widths(geom, layout: str) -> Tuple[int, int]:
+    """(vidx, xcol) bytes of a descriptor plan's tables, as the build
+    narrows them (:func:`repro_torch.core.formats.chunk_descriptors`) from
+    the geometry: vidx under vmax, xcol under ncols (whole-vector) or xw
+    (panels)."""
+    xmax = geom["ncols"] if layout == "whole_vector" else geom["xw"]
+    return (F.narrow_index_dtype(max(geom["vmax"] - 1, 0)).itemsize,
+            F.narrow_index_dtype(max(xmax - 1, 0)).itemsize)
+
+
+def whole_contract(geom, vsize: int = 4, nvec: int = 1) -> int:
+    """Shared memory a CTA of the whole-vector descriptor SpMV kernels asks
+    for at one stage, the fewest their launcher (:func:`whole_stages`)
+    takes, for a plan of geometry ``geom`` and ``vsize``-byte values;
+    computed on the host, without a card."""
+    r, c, vmax = geom["r"], geom["c"], geom["vmax"]
+    wv, wx = table_widths(geom, "whole_vector")
+    return _fit(1, geom["cb"], lambda s, nb: whole_smem_bytes(
+        s, nb, r, c, vmax, WHOLE_TILE_ROWS, wv, wx, vsize))[2]
+
+
+def panels_contract(geom, vsize: int = 4, nvec: int = 1) -> int:
+    """The same for the panel descriptor SpMV kernels
+    (:func:`panels_stages`)."""
+    r, c, vmax = geom["r"], geom["c"], geom["vmax"]
+    wv, wx = table_widths(geom, "panels")
+    return _fit(1, geom["cb"], lambda s, nb: panels_smem_bytes(
+        s, nb, r, c, vmax, geom["xw"], geom["pr"], wv, wx, vsize))[2]
+
+
+#: The descriptor lowering's SpMV contracts (:data:`.spc5_spmv.
+#: SMEM_CONTRACTS`).
+SMEM_CONTRACTS = {
+    ("whole_vector", "descriptor"): whole_contract,
+    ("panels", "descriptor"): panels_contract,
+}

@@ -9,9 +9,9 @@ both packages.
   parent), and compute the reference's product. A plan whose reorder pass
   declined computes as the reference does too.
 * ``ops.prepare`` and ``plan.make_plan`` take the reference's ``reorder``,
-  ``store`` and ``verify`` keywords: ``reorder`` builds the reference's
-  plan; the defaults of the other two pass, any other value raises naming
-  its ROADMAP item (6 and 7).
+  ``store`` and ``verify`` keywords: each builds the reference's plan
+  (``reorder`` since ROADMAP queue 1 item 5b, ``store`` and ``verify``
+  since items 6 and 7; a store's records carry the port's backend).
 
 The matrix is a 96 x 96 band of half-width 3 with its rows and columns
 shuffled, in beta(2,4) with the mask lowering: a reordering has something
@@ -264,20 +264,50 @@ def test_prepare_takes_the_reference_defaults():
     ("verify", print, "item 7")])
 def test_non_default_keywords_raise_naming_their_item(entry, keyword, value,
                                                       item):
-    """``store`` and ``verify`` still raise naming their items; ``reorder``
-    (item 5b, once refused) now builds the reference's plan: rcm permutes
-    this matrix, sigma declines on it."""
+    """Each keyword, once refused naming the ROADMAP item that ported it,
+    now builds the reference's plan: rcm permutes this matrix, sigma
+    declines on it; a store (the reference's records, the port's with
+    ``backend="cpu"``) tunes both plans alike; ``verify`` proves the plan
+    (True) or hands the report to the callable."""
+    from repro.core import selector as JS
+    from repro_torch.core import selector as TS
     jmat, tmat = _mats()
-    kw = dict(layout="panels", lowering="mask", tune=False,
-              **GEOM["panels"], **{keyword: value})
+    kw = dict(layout="panels", lowering="mask", tune=False, **GEOM["panels"])
+    jkw, tkw = dict(kw), dict(kw)
+    if keyword == "store":
+        best = dict(layout="whole_vector", cb=16, lowering="descriptor")
+        jkw, tkw = {}, {}
+        jkw["store"], tkw["store"] = JS.RecordStore(), TS.RecordStore()
+        for S, st, extra in ((JS, jkw["store"], {}),
+                             (TS, tkw["store"], {"backend": "cpu"})):
+            f = S.spc5_features(jmat)
+            st.add_measurement("2x4", f, S.PanelConfig(**best), 1, 5.0,
+                               **extra)
+            st.add_measurement("2x4", f, S.PanelConfig(**GEOM["panels"],
+                                                       layout="panels"),
+                               1, 1.0, **extra)
+    elif keyword == "verify":
+        seen = []
+        jkw["verify"] = tkw["verify"] = (
+            value if value is True else lambda rep: seen.append(rep))
+    else:
+        jkw[keyword] = tkw[keyword] = value
     fn = tops.prepare if entry == "prepare" else TP.make_plan
-    if keyword != "reorder":
-        with pytest.raises(NotImplementedError, match=f"queue 1, {item}"):
-            fn(tmat, device="cpu", **kw)
-        return
-    tplan = fn(tmat, device="cpu", **kw)
-    jplan = jops.prepare(jmat, **kw)
-    assert tplan.is_reordered == jplan.is_reordered == (value == "rcm")
-    assert tplan.stats == jplan.stats and tplan.strategy == jplan.strategy
+    tplan = fn(tmat, device="cpu", **tkw)
+    jplan = jops.prepare(jmat, **jkw)
+    if keyword == "reorder":
+        assert tplan.is_reordered == jplan.is_reordered == (value == "rcm")
+        assert tplan.stats == jplan.stats and tplan.strategy == jplan.strategy
+    elif keyword == "store":
+        assert tplan.trace[0]["source"] == jplan.trace[0]["source"] == "store"
+        assert (tplan.layout, tplan.lowering) == ("whole_vector",
+                                                  "descriptor")
+        strip = [{k: v for k, v in e.items() if k != "duration_s"}
+                 for e in tplan.trace]
+        assert strip == [{k: v for k, v in e.items() if k != "duration_s"}
+                         for e in jplan.trace]
+    elif value is not True:
+        assert len(seen) == 2 and all(rep.ok for rep in seen)
+    assert len(tplan.arrays) == len(jplan.arrays)
     for t, j in zip(tplan.arrays, jplan.arrays):
         assert t.numpy().tobytes() == np.asarray(j).tobytes()

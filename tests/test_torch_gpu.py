@@ -4119,3 +4119,131 @@ def test_reordered_plans_on_the_card_match_the_cpu_plans(cuda, layout,
     maps = sum(v for mod in (K, KD, KM, KDM) for k, v in mod.LAUNCHES.items()
                if k.endswith("_cmap"))
     assert maps == (3 if mapped else 0)
+
+
+# ----------------------------------------------------------------------------
+# the record store, the verifier and use_pallas= / interpret= on the card
+# ----------------------------------------------------------------------------
+
+def _card_store(device, best, worse, kernel="2x4"):
+    """A store of the card's backend where ``best`` measured faster."""
+    from repro_torch.core import selector as S
+    store = S.RecordStore()
+    r, c = S.kernel_block(kernel)
+    for avg in (1.0, 3.0, 6.0):
+        f = S.MatrixFeatures(0, 0, 0, 5.0, 2.0, avg, avg / (r * c))
+        store.add_measurement(kernel, f, S.PanelConfig(**best), 1, 2.0 + avg,
+                              backend=S.backend_of(device))
+        store.add_measurement(kernel, f, S.PanelConfig(**worse), 1, 1.0,
+                              backend=S.backend_of(device))
+    return store
+
+
+def test_card_records_tune_a_card_plan(cuda):
+    """Records of the card's backend tune a plan on the card (and its
+    kernels compute it); the same records relabelled "cpu" leave it
+    untuned, and tune the CPU plan to the same config instead."""
+    from repro_torch.analysis import verify as V
+    mat = _matrix((2, 4), n=600, m=500)
+    best = dict(layout="panels", pr=64, xw=64, cb=8, lowering="descriptor")
+    worse = dict(layout="whole_vector", cb=64)
+    store = _card_store(cuda, best, worse)
+    plan = ops.prepare(mat, store=store, verify=True, device=cuda)
+    assert plan.trace[0]["source"] == "store"
+    assert (plan.layout, plan.lowering, plan.pr, plan.cb) == (
+        "panels", "descriptor", 64, 8)
+    assert V.verify_plan(plan).ok
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        500).astype(np.float32))
+    KD.reset_launches()
+    y = ops.spmv(plan, x.to(cuda))
+    torch.cuda.synchronize()
+    assert KD.LAUNCHES["spmv_cuda_panels_desc_db"] == 1
+    ref = ops.spmv(plan, x.to(cuda), use_pallas=False)
+    assert float((y - ref).abs().max()) <= RTOL * float(ref.abs().max())
+    for r in store.records:
+        r.backend = "cpu"
+    assert ops.prepare(mat, store=store, device=cuda).trace[0]["source"] \
+        == "no-store"
+    cpu = ops.prepare(mat, store=store, device="cpu")
+    assert (cpu.layout, cpu.lowering, cpu.pr) == ("panels", "descriptor", 64)
+
+
+def test_choose_block_and_from_dense_read_the_cards_records(cuda):
+    from repro_torch.core import selector as S
+    from repro_torch.core.sparse_linear import choose_block
+    store = S.RecordStore()
+    for k in S.DEFAULT_KERNELS:
+        for avg in (1.0, 4.0, 12.0):
+            store.add(k, avg, 1, avg / 10.0 + (2.0 if k == "1x8" else 1.0),
+                      layout="whole_vector", cb=64,
+                      backend=S.backend_of(cuda))
+    w = np.random.default_rng(3).standard_normal((300, 200)).astype(
+        np.float32)
+    csr = F.csr_from_dense(w)
+    assert choose_block(csr, store) == choose_block(csr, store,
+                                                    device=cuda) == (1, 8)
+    assert choose_block(csr, store, device="cpu") == choose_block(csr)
+    layer = SparseLinear.from_dense(w, density=0.2, store=store,
+                                    verify=True)
+    assert (layer.plan.r, layer.plan.c) == (1, 8)
+    assert layer.plan.device.type == "cuda"
+    assert layer.plan.trace[0]["source"] == "store"
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (4, 200)).astype(np.float32)).to(cuda)
+    y, ref = layer(x), layer(x, use_pallas=False)
+    assert float((y - ref).abs().max()) <= RTOL * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("vdtype", ["auto", "bf16", "int8"])
+@pytest.mark.parametrize("lowering", ["mask", "descriptor"])
+@pytest.mark.parametrize("layout", ["whole_vector", "panels", "test"])
+def test_verify_reports_are_the_same_on_both_devices(cuda, layout, lowering,
+                                                     vdtype):
+    """The verifier reads a plan's tensors on the host and no card: a plan
+    on the card and the same plan on the CPU get the same report."""
+    from repro_torch.analysis import verify as V
+    mat = _matrix((2, 4))
+    kw = dict(layout=layout, lowering=lowering, vdtype=vdtype, tune=False,
+              cb=8, **({} if layout == "whole_vector" else dict(pr=64,
+                                                                xw=64)))
+    card = ops.prepare(mat, device=cuda, verify=True, **kw)
+    cpu = ops.prepare(mat, device="cpu", **kw)
+    for nvec in (1, 128):
+        rc, rh = V.verify_plan(card, nvec=nvec), V.verify_plan(cpu,
+                                                               nvec=nvec)
+        assert rc.violations == rh.violations and rc.checked == rh.checked
+
+
+@pytest.mark.parametrize("layout", ["whole_vector", "panels", "test"])
+def test_use_pallas_false_runs_the_plain_version_on_the_card(cuda, layout):
+    """``use_pallas=False`` on a card plan: the plain versions on the card,
+    no kernel launched, within RTOL of the kernels' output; ``interpret=True``
+    raises there."""
+    mat = _matrix((2, 4))
+    plan = ops.prepare(mat, device=cuda, layout=layout, lowering="mask",
+                       tune=False, cb=8,
+                       **({} if layout == "whole_vector" else dict(pr=64,
+                                                                   xw=64)))
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal(260).astype(np.float32)).to(
+        cuda)
+    xs = torch.from_numpy(rng.standard_normal((260, 16)).astype(
+        np.float32)).to(cuda)
+    y, ys = ops.spmv(plan, x), ops.spmm(plan, xs)
+    for mod in (K, KD, KM, KDM, KT):
+        mod.reset_launches()
+    p, ps = ops.spmv(plan, x, use_pallas=False), ops.spmm(plan, xs,
+                                                          use_pallas=False)
+    torch.cuda.synchronize()
+    assert not any(v for mod in (K, KD, KM, KDM, KT)
+                   for v in mod.LAUNCHES.values())
+    assert p.device.type == ps.device.type == "cuda"
+    for a, b in ((y, p), (ys, ps)):
+        assert float((a - b).abs().max()) <= RTOL * float(b.abs().max())
+    with pytest.raises(ValueError, match="interpret"):
+        ops.spmv(plan, x, interpret=True)
+    with pytest.raises(ValueError, match="interpret"):
+        ops.spmm(plan, xs, interpret=True)
+    assert torch.equal(ops.spmv(plan, x, interpret=False).cpu().isfinite(),
+                       torch.ones(mat.nrows, dtype=torch.bool))

@@ -44,12 +44,28 @@ def test_port_modules_cover_the_slice():
             "kernels/spc5_spmv.py", "kernels/spc5_spmm.py",
             "kernels/spc5_spmv_desc.py", "kernels/spc5_spmm_desc.py",
             "kernels/spc5_spmv_tail.py", "kernels/ops.py",
-            "core/reorder.py", "core/structure.py"} <= names
+            "core/reorder.py", "core/structure.py", "core/selector.py",
+            "core/partition.py", "kernels/ref.py", "analysis/__init__.py",
+            "analysis/verify.py"} <= names
     for src in ("spc5_spmv.cu", "spc5_spmm.cu", "spc5_spmv_desc.cu",
                 "spc5_spmm_desc.cu", "spc5_spmm_desc_cmap.cu",
                 "spc5_spmv_tail.cu", "spc5_stage.cuh",
                 "spc5_spmm_desc_panels.cuh"):
         assert os.path.isfile(os.path.join(PORT, "kernels", "csrc", src))
+
+
+def test_analysis_package_holds_the_verifier_only():
+    """The port's ``analysis`` package imports its verifier and nothing of
+    the reference's XLA-HLO analysis (``hlo``)."""
+    path = os.path.join("src", "repro_torch", "analysis", "__init__.py")
+    roots = {m for m, _ in _imported_roots(path)}
+    assert not roots & FORBIDDEN
+    with open(os.path.join(REPO, path), encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    imported = {(node.module, node.level) for node in ast.walk(tree)
+                if isinstance(node, ast.ImportFrom)}
+    assert imported == {("verify", 1)}
+    assert not os.path.exists(os.path.join(PORT, "analysis", "hlo.py"))
 
 
 def test_importing_the_port_loads_no_jax_and_builds_nothing():
@@ -60,6 +76,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import repro_torch.kernels.spc5_spmv_desc\n"
         "import repro_torch.kernels.spc5_spmm_desc\n"
         "import repro_torch.kernels.spc5_spmv_tail\n"
+        "import repro_torch.analysis, repro_torch.core.selector\n"
+        "import repro_torch.core.partition, repro_torch.kernels.ref\n"
         "from repro_torch.kernels import _build\n"
         "assert not any(m.split('.')[0] in {'jax', 'ml_dtypes', 'repro'} "
         "for m in sys.modules), sorted(m for m in sys.modules if 'jax' in m)\n"

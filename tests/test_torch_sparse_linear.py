@@ -196,16 +196,17 @@ def test_from_arrays_reproduces_a_jax_layer(layout):
     dict(store=JS.RecordStore([])), dict(reorder="rcm"), dict(verify=True),
 ])
 def test_unported_options_raise(kw):
-    """A store and ``verify`` stay refusals. ``reorder`` (once refused)
-    builds the reference's layer, whose forward the port's matches."""
+    """Each option, once refused, builds the reference's layer, whose
+    forward the port's matches: an empty store (the port's own, for the
+    port) falls back to eq. 4's block and an untuned plan in both,
+    ``reorder`` permutes the weight, ``verify`` proves the plan."""
     w = _weight()[0]
-    if "reorder" not in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TL.SparseLinear.from_dense(w, density=0.2, block=(2, 4),
-                                       device="cpu", **kw)
-        return
+    tkw = dict(kw)
+    if "store" in kw:
+        from repro_torch.core import selector as TS
+        tkw["store"] = TS.RecordStore()
     tl = TL.SparseLinear.from_dense(w, density=0.2, block=(2, 4),
-                                    device="cpu", tune=False, **kw)
+                                    device="cpu", tune=False, **tkw)
     jl = JL.SparseLinear.from_dense(w, density=0.2, block=(2, 4),
                                     tune=False, **kw)
     assert tl.plan.strategy == jl.handle.strategy
@@ -214,6 +215,13 @@ def test_unported_options_raise(kw):
     x = np.random.default_rng(8).standard_normal((4, 200)).astype(np.float32)
     assert_close(tl(torch.from_numpy(x)).numpy(),
                  jl(jnp.asarray(x), use_pallas=False))
+    if "store" in kw:
+        # the block too: eq. 4 with an empty store, in both
+        tl = TL.SparseLinear.from_dense(w, density=0.2, device="cpu", **tkw)
+        jl = JL.SparseLinear.from_dense(w, density=0.2, **kw)
+        assert (tl.plan.r, tl.plan.c) == (jl.handle.r, jl.handle.c)
+        assert tl.plan.trace[0]["source"] == "no-store"
+        assert_arrays_byte_equal(tl.plan, jl.handle)
 
 
 @pytest.mark.parametrize("vdtype", ["bf16", "int8"])
@@ -235,9 +243,24 @@ def test_quantised_layer_matches_reference(vdtype):
 
 
 def test_choose_block_with_a_store_raises():
-    csr = TF.csr_from_dense(TL.prune_by_magnitude(_weight()[0], 0.2))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-        TL.choose_block(csr, JS.RecordStore([]))
+    """Once a refusal, ``choose_block(csr, store)`` is the reference's
+    selector: on the same records (the port's with ``backend="cpu"``) the
+    same block, which differs from eq. 4's here; an empty store gives eq.
+    4's, as in the reference."""
+    from repro_torch.core import selector as TS
+    w = TL.prune_by_magnitude(_weight()[0], 0.2)
+    tcsr, jcsr = TF.csr_from_dense(w), JF.csr_from_dense(w)
+    js, ts = JS.RecordStore(), TS.RecordStore()
+    for k in JS.DEFAULT_KERNELS:
+        for avg in (1.0, 4.0, 12.0):
+            g = avg / 10.0 + (2.0 if k == "1x8" else 1.0)
+            js.add(k, avg, 1, g)
+            ts.add(k, avg, 1, g, backend="cpu")
+    got = TL.choose_block(tcsr, ts, device="cpu")
+    assert got == JL.choose_block(jcsr, js) == (1, 8)
+    assert got != TL.choose_block(tcsr)
+    assert (TL.choose_block(tcsr, TS.RecordStore(), device="cpu")
+            == JL.choose_block(jcsr, JS.RecordStore([])))
 
 
 def test_from_dense_without_device_needs_a_card():
