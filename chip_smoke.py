@@ -140,17 +140,40 @@ phase that goes wrong:
    against the unreordered default layer's; (3b) the same call with a
    prebuilt Reordering (the 125 row panels in a random order, the columns
    by ``default_rng(7)``), which must be panels + descriptor with the rows
-   fused and ``col_perm`` kept, and the same Reordering through
-   ``ops.prepare(mat, vdtype=..., nvec=128, reorder=...)`` at bf16 and
-   int8 and through the two mask layers (``lowering="mask"``, auto layout
-   panels, and ``layout="whole_vector", lowering="mask"``) at f32, bf16
-   and int8, rows fused and ``col_perm`` kept: forwards at batch 1, 16 and
-   128 and their ``double_buffer=False`` twins run the eleven map kernels
-   at every width and nothing else, each output held against its plain
-   version, the f64 (dequantised) product, the unreordered layer of its
-   layout, lowering and width (f32, bf16; int8's chunk scales change with
-   the chunks) and the bf16 / int8 pins; each map kernel timed in turns
-   against its twin on x[col_perm];
+   fused and ``col_perm`` kept, and the same Reordering through the two
+   mask layers (``lowering="mask"``, auto layout panels, and
+   ``layout="whole_vector", lowering="mask"``), rows fused and
+   ``col_perm`` kept, at f32, the default layer also at bf16 and the mask
+   panel layer also at int8 (the other narrow (3b) layers were cut for
+   the serving phase's time; the small check holds every map kernel at
+   both widths): forwards at batch 1, 16 and 128 and their
+   ``double_buffer=False`` twins run the eleven map kernels at every width
+   and nothing else, each output held against its plain version, the f64
+   product and the unreordered layer of its layout and lowering; each map
+   kernel timed in turns against its twin on x[col_perm];
+5a. serving tier (``repro_torch.launch.server``) on the same vocab matrix:
+   two tiers, ``server.start(ServeConfig(vocab_spmv=0.1, verify=True,
+   cache_mb=4096), mat=vocab)`` (the token plan, whole-vector +
+   descriptor: ``spmv_cuda_desc_db`` / ``spmm_cuda_desc``) and the same
+   with ``lowering="mask"`` (whole-vector + mask: ``spmv_cuda_db`` /
+   ``spmm_cuda``), each plan's size, build and ``verify_plan`` seconds
+   printed and a second ``get_or_build`` a cache hit; on each, 64 vectors
+   submitted at once plus one alone, every y within ``1e-5 * max|y|`` of
+   the f64 product and a lone ``ops.spmv``, no batch degraded, the SpMV
+   kernel counting exactly the width-1 batches and the SpMM kernel every
+   wider one, no other kernel launched; ``saturation_sweep`` (from 1,000
+   QPS, doubling, up to six points of 0.5 s) with each point's achieved
+   QPS, p50 / p99, batches, mean batch and ``PlanExecStats``, the
+   ``serve.submit`` / ``serve.batch`` span times, against the ceilings of
+   the kernel times alone; the mask tier under ``exec.spmv``,
+   ``exec.spmm``, ``serve.gather`` and ``serve.exec`` at 10 % (fixed
+   seeds) for one ``open_loop``: every request correct or failed with a
+   typed error, some batches degraded and some workers restarted; a fresh
+   ``PlanCache`` with ``plan.build:1`` armed on the weight's first 4,096
+   rows lands on the ``reference`` rung and its SpMV runs on the card;
+   ``python -m repro_torch.launch.serve --vocab-spmv 0.1 --qps 500
+   --metrics`` once, its Prometheus file parsed and its Chrome trace
+   holding a ``serve.batch`` span under a ``serve.submit`` span;
 6. beta(r,c)_test path: the same weight in beta(2,4) (whose singleton
    blocks hold about 30 % of the nonzeros) as
    ``SparseLinear.from_dense(w, density=0.1, block=(2, 4), layout="test",
@@ -206,7 +229,9 @@ phase that goes wrong:
 9. prints its total time, the ``{"kernels": [...]}`` line (each kernel's
    ``value_dtypes``, the widths it launched at on the main path, and at
    bf16 / int8 its launches, errors and times in turns under
-   ``quantised``), then, last, the ``{"ok": true, "device": ...}`` line.
+   ``quantised``, and its launches in the serving phase under
+   ``serve_launches``), then, last, the ``{"ok": true, "device": ...}``
+   line.
 
 It needs the repository beside it (``src/repro_torch``) and a CUDA device;
 it never runs on the CPU.
@@ -3458,23 +3483,46 @@ def reorder_band(csr, mat, reo, device, timer=cuda_time_ms):
 def panel_rows_reordering(seed=7):
     """(3b)'s prebuilt Reordering of the vocab weight: its 125 row panels of
     512 rows in a random order (whole panels, so the panel layout fuses the
-    rows) and a random column permutation from ``default_rng(7)``."""
+    rows) and a random column permutation from ``default_rng(7)``.
+
+    Its ``permute_spc5`` re-blocks the matrix it was last given once and
+    hands the same permuted matrix to every later prepare of that matrix
+    (26 M nonzeros re-blocked on the host each time otherwise); the
+    plan pipeline reads the matrix and never writes it, as every prepare
+    of the unpermuted weight shares it. ``reblocked`` counts the
+    re-blockings and their seconds."""
     from repro_torch.core import reorder as RE
+
+    class ReblockOnce(RE.Reordering):
+        def permute_spc5(self, mat):
+            memo = self.__dict__.get("_memo")
+            if memo is None or memo[0] is not mat:
+                t = time.perf_counter()
+                memo = (mat, super().permute_spc5(mat))
+                object.__setattr__(self, "_memo", memo)
+                self.reblocked.append(time.perf_counter() - t)
+            return memo[1]
+
     rng = np.random.default_rng(seed)
     cols = rng.permutation(VOCAB["cols"]).astype(np.int64)
     panels = rng.permutation(VOCAB["rows"] // 512)
     rows = (panels[:, None] * 512 + np.arange(512)).reshape(-1)
-    return RE.Reordering(rows.astype(np.int64), cols, "custom")
+    reo = ReblockOnce(rows.astype(np.int64), cols, "custom")
+    object.__setattr__(reo, "reblocked", [])
+    return reo
 
 
 #: (3b)'s layers: (layout, lowering) -> the ``ops.prepare`` keywords that
 #: build it beside ``nvec=128`` and the Reordering, and its value widths.
-#: The whole-vector mask layer runs at f32 only: each reordered prepare of
-#: the weight re-blocks 26 M nonzeros on the host (about 18 s), and the
-#: smoke's time is capped; the small check holds its twins at bf16 and int8.
+#: Every layer runs at f32, the default layer also at bf16 and the mask
+#: panel layer also at int8, so the reordered quantised path runs at vocab
+#: width at both narrow widths: each reordered prepare of the weight
+#: re-blocks 26 M nonzeros on the host (16-31 s), and the smoke's time is
+#: capped (the serving phase took the room of the other narrow layers); the
+#: small check holds the eleven map kernels at bf16 and int8.
 VOCAB_REORDERED = {
-    ("panels", "descriptor"): ({}, ("f32", *VDTYPES)),
-    ("panels", "mask"): (dict(lowering="mask"), ("f32", *VDTYPES)),
+    ("panels", "descriptor"): ({}, ("f32", "bf16")),
+    ("panels", "mask"): (dict(lowering="mask"), ("f32", "int8")),
     ("whole_vector", "mask"): (dict(layout="whole_vector", lowering="mask"),
                                ("f32",)),
 }
@@ -3486,11 +3534,10 @@ def build_vocab_reordered(w, mat, device):
     the pruned weight and keeps the best, or declines; (3b) the same call
     with :func:`panel_rows_reordering`, which must be panels + descriptor
     with the rows fused and col_perm kept, and the same Reordering through
-    ``ops.prepare(mat, vdtype=..., nvec=128, reorder=...)`` at bf16 and
-    int8, and through the two mask layers of :data:`VOCAB_REORDERED`
-    (``lowering="mask"``, whose auto layout must be panels, at f32, bf16
-    and int8, and ``layout="whole_vector", lowering="mask"`` at f32), each
-    with the rows fused and col_perm kept. Returns (layer a, {(vdtype,
+    the two mask layers of :data:`VOCAB_REORDERED` (``lowering="mask"``,
+    whose auto layout must be panels, and ``layout="whole_vector",
+    lowering="mask"``), each with the rows fused and col_perm kept, at the
+    value widths :data:`VOCAB_REORDERED` names. Returns (layer a, {(vdtype,
     (layout, lowering)): layer b}, host seconds)."""
     from repro_torch.core.sparse_linear import SparseLinear
     from repro_torch.kernels import ops
@@ -3530,6 +3577,7 @@ def build_vocab_reordered(w, mat, device):
                 **({} if vdtype == "f32" else {"vdtype": vdtype}), **kw))
             host[f"{vdtype} {key[0]} {key[1]}"] = time.perf_counter() - t
     t4 = time.perf_counter()
+    object.__setattr__(reo, "_memo", None)
     for (vdtype, key), layer in layers.items():
         p = layer.plan
         got = (p.layout, p.lowering, p.rows_fused, p.col_perm is not None,
@@ -3538,8 +3586,10 @@ def build_vocab_reordered(w, mat, device):
             raise SmokeFailure(f"(3b) {vdtype} {key} plan is {got}")
     print(f"vocab (3b) prebuilt Reordering (whole 512-row panels, columns by "
           f"default_rng(7)): from_dense {t3 - t2:.1f} s, the other layers' "
-          f"prepare {t4 - t3:.1f} s ({ {k: round(v, 1) for k, v in host.items()} }); "
-          f"each rows fused, col_perm kept")
+          f"prepare {t4 - t3:.1f} s ({ {k: round(v, 1) for k, v in host.items()} }; "
+          f"re-blocked {len(reo.reblocked)} times, "
+          f"{[round(v, 1) for v in reo.reblocked]} s); each rows fused, "
+          f"col_perm kept")
     for key in VOCAB_REORDERED:
         print_spmm_plan(f"vocab (3b) f32 {key[0]} {key[1]}",
                         layers["f32", key].plan)
@@ -3730,6 +3780,482 @@ def cmap_rows(band, vocab):
     return rows
 
 
+# ----------------------------------------------------------------------------
+# The serving tier (repro_torch.launch.server / serve) on the vocab weight
+# ----------------------------------------------------------------------------
+
+#: The serving phase: two tiers on the vocab weight (phase 5's host matrix),
+#: each ``server.start(ServeConfig(vocab_spmv=0.1, verify=True, ...),
+#: mat=vocab)`` on the card, with a cache that holds the token plan (2.0 GB;
+#: the reference admits a plan past the capacity only after evicting
+#: everything). tier: (ServeConfig keywords, (layout, lowering) it must
+#: build, its SpMV kernel, its SpMM kernel).
+SERVE_TIERS = {
+    "token": ({}, ("whole_vector", "descriptor"), "spmv_cuda_desc_db",
+              "spmm_cuda_desc"),
+    "mask": (dict(lowering="mask"), ("whole_vector", "mask"),
+             "spmv_cuda_db", "spmm_cuda"),
+}
+SERVE = dict(cache_mb=4096, requests=64, qps0=1000.0, factor=2.0,
+             max_points=6, duration_s=0.5, chaos_qps=2000.0,
+             chaos="exec.spmv:0.1:11,exec.spmm:0.1:12,serve.gather:0.1:13,"
+                   "serve.exec:0.1:14", ladder_rows=4_096, cli_qps=500)
+#: Per-request ceilings from the kernel times alone (PERF.md §5, H100 80GB
+#: HBM3, 700.00 W): (batch-1 SpMV ms, width-128 SpMM ms) of each tier.
+SERVE_KERNEL_MS = {"token": (0.5962, 2.3403), "mask": (0.1384, 1.6862)}
+
+
+def _serve_counts(section, fn, total, allowed):
+    """Run ``fn`` between a launch-count reset and a read; the counts must
+    name only ``allowed`` kernels. Adds them into ``total`` (the serving
+    phase's launches in the kernels line) and returns (fn's result,
+    counts)."""
+    import torch
+    counts = reset_all_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    got = {k: v for k, v in counts().items() if v}
+    others = {k: v for k, v in got.items() if k not in allowed}
+    if others:
+        raise SmokeFailure(f"serving tier, {section}: other kernels "
+                           f"launched: {others} (allowed {sorted(allowed)})")
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+    return out, got
+
+
+def _tie_launches(section, got, before, after, spmv_names, spmm_names):
+    """With nothing armed, every batch between two stats snapshots
+    (``before`` / ``after``: ``requests``, ``coalesced``, ``batches``,
+    ``degraded``) ran on its kernel: none degraded, and the SpMV kernels'
+    launches ``got`` equal the width-1 batches, the SpMM kernels' every
+    wider batch."""
+    d = {k: after[k] - before[k]
+         for k in ("requests", "coalesced", "batches", "degraded")}
+    ones = d["requests"] - d["coalesced"]
+    want = (ones, d["batches"] - ones)
+    have = (sum(got.get(k, 0) for k in spmv_names),
+            sum(got.get(k, 0) for k in spmm_names))
+    print(f"  {section}: {d['batches']} batches ({want[0]} of width 1), "
+          f"degraded {d['degraded']}; SpMV / SpMM launches {have}")
+    if d["degraded"] or have != want:
+        raise SmokeFailure(f"serving tier, {section}: degraded "
+                           f"{d['degraded']}, SpMV / SpMM launches {have} "
+                           f"for {want} width-1 / wider batches")
+
+
+def _span_ms(registry, name, last=None):
+    """Mean and count of the last ``last`` finished spans called ``name``
+    (the span buffer keeps the newest 4,096), in ms."""
+    d = [e.duration_s for e in registry.spans() if e.name == name]
+    d = d[-last:] if last else d
+    return (1e3 * float(np.mean(d)) if d else 0.0), len(d)
+
+
+class _PerPoint:
+    """Passes ``saturation_sweep``'s calls to a server and snapshots its
+    stats at each ``open_loop``'s first warm-up call, so each point's
+    batches are read (each point starts with two synchronous warm-up
+    requests, one batch each, which are taken off)."""
+
+    def __init__(self, srv):
+        self.srv = srv
+        self.marks = []
+        self._fresh = True
+
+    def spmv(self, x, timeout=None):
+        if self._fresh:
+            self.marks.append(self.srv.stats())
+            self._fresh = False
+        return self.srv.spmv(x, timeout)
+
+    def submit(self, x, **kw):
+        self._fresh = True
+        return self.srv.submit(x, **kw)
+
+    def points(self, warmup=2):
+        marks = self.marks + [self.srv.stats()]
+        out = []
+        for a, b in zip(marks, marks[1:]):
+            batches = b["batches"] - a["batches"] - warmup
+            requests = b["requests"] - a["requests"] - warmup
+            out.append({"batches": batches, "requests": requests,
+                        "mean_batch": requests / batches if batches else 0.0,
+                        "widest_batch": b["widest_batch"],
+                        "plan": b["plan"]})
+        return out
+
+
+class _Recorded:
+    """Passes ``open_loop``'s calls to a server and keeps every submitted
+    request's vector index and outcome (its future, or the error submit
+    raised), so the chaos run can check each one."""
+
+    def __init__(self, srv, xs):
+        self.srv = srv
+        self.index = {id(x): i for i, x in enumerate(xs)}
+        self.calls = []
+
+    def spmv(self, x, timeout=None):
+        return self.submit(x).result(timeout)
+
+    def submit(self, x, **kw):
+        i = self.index[id(x)]
+        try:
+            fut = self.srv.submit(x, **kw)
+        except Exception as e:      # noqa: BLE001 -- checked below
+            self.calls.append((i, e))
+            raise
+        self.calls.append((i, fut))
+        return fut
+
+
+def build_serve_tier(name, mat, device):
+    """``server.start`` for one tier; prints its plan, build and verify
+    seconds, and checks that a second ``get_or_build`` is a hit."""
+    from repro_torch.core import plan as P
+    from repro_torch.launch import server as SV
+    kw, want, _, _ = SERVE_TIERS[name]
+    cfg = SV.ServeConfig(vocab_spmv=VOCAB["density"], verify=True,
+                         cache_mb=SERVE["cache_mb"], **kw)
+    t0 = time.perf_counter()
+    srv = SV.start(cfg, mat=mat)
+    t1 = time.perf_counter()
+    plan = srv.plan
+    build_ms, _ = _span_ms(srv.registry, "cache.build")
+    verify_ms, _ = _span_ms(srv.registry, "cache.verify")
+    got = (plan.layout, plan.lowering)
+    print(f"serve tier {name}: ServeConfig({kw}) -> {got[0]} + {got[1]}, "
+          f"{P.plan_nbytes(plan) / 1e6:.1f} MB, max_batch {srv.max_batch}; "
+          f"start {t1 - t0:.1f} s (cache.build {build_ms / 1e3:.2f} s, "
+          f"of it verify_plan {verify_ms / 1e3:.2f} s)")
+    if got != want or plan.device.type != device.type:
+        srv.close()
+        raise SmokeFailure(f"serve tier {name} built {got} on "
+                           f"{plan.device}, not {want} on {device}")
+    t2 = time.perf_counter()
+    again = srv.cache.get_or_build(mat, **SV.plan_request(cfg))
+    hits = srv.cache.stats()["hits"]
+    print(f"  second get_or_build: hit {again is plan} ({hits} hit, "
+          f"{time.perf_counter() - t2:.2f} s: the key hashes the matrix)")
+    if again is not plan or hits != 1:
+        srv.close()
+        raise SmokeFailure(f"serve tier {name}: the second get_or_build "
+                           f"was not a cache hit")
+    return srv, {"start_s": t1 - t0, "build_s": build_ms / 1e3,
+                 "verify_s": verify_ms / 1e3,
+                 "plan_mb": P.plan_nbytes(plan) / 1e6}
+
+
+def check_serve_tier(name, srv, xs, y64, total):
+    """Submit ``SERVE["requests"]`` vectors at once plus one alone (host
+    numpy arrays, as a client sends them); the tier's SpMV kernel must
+    count exactly the width-1 batches and its SpMM kernel every wider one,
+    no other kernel may launch, no batch may degrade, and every y must be
+    within TOL of max|y| of the f64 product and of a lone ``ops.spmv``."""
+    import torch
+    from repro_torch.kernels import ops
+    _, _, spmv_name, spmm_name = SERVE_TIERS[name]
+    n = SERVE["requests"]
+
+    def drive():
+        futs = [srv.submit(x) for x in xs[:n]]
+        ys = [f.result(timeout=120) for f in futs]
+        return ys + [srv.spmv(xs[n], timeout=120)]
+
+    ys, got = _serve_counts(f"tier {name}", drive, total,
+                            {spmv_name, spmm_name})
+    widths = [e.attrs["n"] for e in srv.registry.spans()
+              if e.name == "serve.batch"]
+    st = srv.stats()
+    want = {spmv_name: sum(w == 1 for w in widths),
+            spmm_name: sum(w > 1 for w in widths)}
+    print(f"  tier {name}: {n} + 1 requests in {st['batches']} batches of "
+          f"{widths}; launches {got}; degraded {st['degraded']}")
+    if ({k: v for k, v in want.items() if v} != got
+            or st["widest_batch"] <= 1 or st["degraded"]):
+        raise SmokeFailure(f"serve tier {name}: launches {got} for batch "
+                           f"widths {widths} (want {want}), widest "
+                           f"{st['widest_batch']}, degraded {st['degraded']}")
+    worst = (0.0, 0.0)
+    for i, (x, y) in enumerate(zip(xs, ys)):
+        lone = ops.spmv(srv.plan, torch.from_numpy(x).to(srv.plan.device))
+        e_lone = rel_err(y, lone)
+        e64 = rel_err(y, torch.from_numpy(
+            np.ascontiguousarray(y64[:, i])))
+        worst = (max(worst[0], e_lone), max(worst[1], e64))
+        if not (e_lone <= TOL and e64 <= TOL):
+            raise SmokeFailure(f"serve tier {name} request {i}: {e_lone} "
+                               f"of a lone ops.spmv, {e64} of the f64 "
+                               f"product (> {TOL})")
+    print(f"  tier {name}: every y within {worst[0]:.3g} of max|y| of a "
+          f"lone ops.spmv and {worst[1]:.3g} of the f64 product")
+    return {"launches": got, "widths": widths, "err_lone": worst[0],
+            "err_f64": worst[1]}
+
+
+def sweep_serve_tier(name, srv, xs_dev, total):
+    """``saturation_sweep`` on the tier; prints each point against the
+    kernel-time ceilings and where the time went (the ``serve.submit`` and
+    ``serve.batch`` spans)."""
+    from repro_torch.launch import server as SV
+    _, _, spmv_name, spmm_name = SERVE_TIERS[name]
+    per = _PerPoint(srv)
+    before = srv.stats()
+    pts, got = _serve_counts(
+        f"sweep {name}", lambda: SV.saturation_sweep(
+            per, xs_dev, qps0=SERVE["qps0"], factor=SERVE["factor"],
+            max_points=SERVE["max_points"], duration_s=SERVE["duration_s"]),
+        total, {spmv_name, spmm_name})
+    _tie_launches(f"sweep {name}", got, before, srv.stats(), {spmv_name},
+                  {spmm_name})
+    spmv_ms, spmm_ms = SERVE_KERNEL_MS[name]
+    print(f"  tier {name} ceilings from the kernel times alone: "
+          f"{1e3 / spmv_ms:.0f} requests/s at batch 1, "
+          f"{128e3 / spmm_ms:.0f}/s at width 128")
+    rows = []
+    for p, b in zip(pts, per.points()):
+        row = dict(p, **b)
+        rows.append(row)
+        print(f"  tier {name} offered {p['qps_offered']:.0f} qps: achieved "
+              f"{p['qps_achieved']:.1f}, p50 {p['p50_us']:.1f} us, p99 "
+              f"{p['p99_us']:.1f} us, shed {p['shed']}, errors "
+              f"{p['errors']}; batches {b['batches']}, mean_batch "
+              f"{b['mean_batch']:.2f}; plan {json.dumps(b['plan'])}")
+    submit_ms, nsub = _span_ms(srv.registry, "serve.submit", 4096)
+    batch_ms, nbat = _span_ms(srv.registry, "serve.batch", 4096)
+    hist = srv.registry.histogram("spc5_server_batch_seconds")
+    print(f"  tier {name} spans (newest of the last point): serve.submit "
+          f"{submit_ms:.4f} ms mean over {nsub}; serve.batch {batch_ms:.4f} "
+          f"ms mean over {nbat}, all batches p50 {hist.percentile(50) * 1e3:.4f}"
+          f" / p99 {hist.percentile(99) * 1e3:.4f} ms")
+    return {"points": rows, "submit_ms": submit_ms, "batch_ms": batch_ms,
+            "batch_p50_ms": hist.percentile(50) * 1e3,
+            "ceiling_rps": [1e3 / spmv_ms, 128e3 / spmm_ms]}
+
+
+def serve_host_costs(srv, xs_dev, reps=50):
+    """Host-clock costs of the tier's per-request and per-batch work on an
+    idle tier (nothing queued on the card), through the server's own
+    steps: ``_validate`` (the finiteness check ends in a device sync),
+    ``_stack`` (the (ncols, width) operand with its zero padding) and
+    ``_split`` (one slice a column), each timed to a synchronised end;
+    medians of ``reps``, in microseconds. Against ``serve.submit`` under
+    traffic they tell validation from waiting behind the executor's
+    kernels on the shared stream."""
+    import torch
+    dev = srv.plan.device
+
+    def median_us(fn):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            times.append(time.perf_counter() - t0)
+        return 1e6 * float(np.median(times))
+
+    out = {"validate_us": median_us(lambda: srv._validate(xs_dev[0]))}
+    for n in (16, 64):
+        xs = [xs_dev[i % len(xs_dev)] for i in range(n)]
+        out[f"stack_{n}_us"] = median_us(lambda xs=xs: srv._stack(xs))
+    Y = torch.zeros(srv.plan.nrows, 128, device=dev)
+    out["slices_128_us"] = median_us(lambda: srv._split(Y, 128))
+    print(f"  tier host costs, idle (medians of {reps}, us): "
+          f"{ {k: round(v, 1) for k, v in out.items()} }")
+    return out
+
+
+def chaos_serve_tier(srv, xs_dev, ys_ref, total):
+    """The mask tier under ``SERVE["chaos"]`` (exec.spmv, exec.spmm,
+    serve.gather and serve.exec at 10 %, fixed seeds) for one open_loop:
+    every request returns a y within TOL of max|y| of its f64 product
+    (``ys_ref``, one column a vector of ``xs_dev``) or fails with a
+    typed error; some batches degrade and some workers restart."""
+    import concurrent.futures
+    import torch
+    from repro_torch.launch import resilience as RS
+    from repro_torch.launch import server as SV
+    from repro_torch.obs import faults as FL
+    _, _, spmv_name, spmm_name = SERVE_TIERS["mask"]
+    before = srv.stats()
+    rec = _Recorded(srv, xs_dev)
+    FL.set_faults(FL.Faults(SERVE["chaos"]))
+    try:
+        res, _ = _serve_counts(
+            "chaos", lambda: SV.open_loop(rec, xs_dev, SERVE["chaos_qps"],
+                                          duration_s=SERVE["duration_s"]),
+            total, {spmv_name, spmm_name})
+        fired = FL.get_faults().stats()
+    finally:
+        FL.set_faults(None)
+    typed = (FL.FaultError, RS.DeadlineExceededError, RS.ShedError,
+             RS.CircuitOpenError, concurrent.futures.CancelledError)
+    outcomes, worst = {}, 0.0
+    for i, out in rec.calls:
+        if isinstance(out, concurrent.futures.Future):
+            if not out.done():
+                raise SmokeFailure("chaos: a request never resolved")
+            exc = out.exception() if not out.cancelled() else \
+                concurrent.futures.CancelledError()
+            if exc is None:
+                err = rel_err(out.result(), torch.from_numpy(
+                    np.ascontiguousarray(ys_ref[:, i])))
+                worst = max(worst, err)
+                if not err <= TOL:
+                    raise SmokeFailure(f"chaos: a y is off by {err} of "
+                                       f"max|y|")
+                kind = "ok"
+            else:
+                out = exc
+        if not isinstance(out, concurrent.futures.Future):
+            if not isinstance(out, typed):
+                raise SmokeFailure(f"chaos: untyped failure {out!r}")
+            kind = type(out).__name__
+        outcomes[kind] = outcomes.get(kind, 0) + 1
+    after = srv.stats()
+    degraded = after["degraded"] - before["degraded"]
+    restarts = after["worker_restarts"] - before["worker_restarts"]
+    print(f"  chaos on the mask tier ({SERVE['chaos']}): {res['submitted']} "
+          f"submitted at {SERVE['chaos_qps']:.0f} qps, achieved "
+          f"{res['qps_achieved']:.1f}; outcomes {outcomes}; worst y "
+          f"{worst:.3g} of max|y|; degraded batches {degraded}, worker "
+          f"restarts {restarts}; draws {fired}")
+    if degraded <= 0 or restarts <= 0 or not outcomes.get("ok"):
+        raise SmokeFailure(f"chaos: degraded {degraded}, restarts "
+                           f"{restarts}, outcomes {outcomes}")
+    return {"outcomes": outcomes, "degraded": degraded,
+            "restarts": restarts, "qps_achieved": res["qps_achieved"],
+            "worst_err": worst}
+
+
+def ladder_serve(csr, device, total):
+    """A fresh ``PlanCache`` (plans on the card) with ``plan.build:1``
+    armed on the vocab weight's first ``SERVE["ladder_rows"]`` rows: every
+    unsuppressed build fails, so the plan comes from the ``reference``
+    rung, with the ``degrade`` entries in its trace; its SpMV runs on the
+    card and is checked against the f64 product."""
+    import torch
+    from repro_torch.core import formats as F
+    from repro_torch.kernels import ops
+    from repro_torch.launch import server as SV
+    from repro_torch.obs import faults as FL
+    rows = SERVE["ladder_rows"]
+    sub = F.CSRMatrix((rows, csr.shape[1]), csr.rowptr[:rows + 1],
+                      csr.colidx[:csr.rowptr[rows]],
+                      csr.values[:csr.rowptr[rows]])
+    mat = F.csr_to_spc5(sub, *VOCAB["block"])
+    cache = SV.PlanCache(capacity_bytes=SERVE["cache_mb"] << 20)
+    FL.set_faults(FL.Faults("plan.build:1:0"))
+    try:
+        plan = cache.get_or_build(mat, **SV.plan_request(SV.ServeConfig()))
+    finally:
+        FL.set_faults(None)
+    rungs = [e["rung"] for e in plan.trace if e["pass"] == "degrade"]
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        csr.shape[1]).astype(np.float32)).to(device)
+    y, got = _serve_counts("ladder", lambda: ops.spmv(plan, x), total,
+                           set(KERNELS))
+    err = rel_err(y, torch.from_numpy(f64_matrix(sub) @ x.cpu().double()
+                                      .numpy()))
+    print(f"  build ladder (plan.build:1, {rows} rows): rungs {rungs}, plan "
+          f"{plan.layout} + {plan.lowering} on {plan.device}, degraded "
+          f"{cache.stats()['degraded']}; SpMV launches {got}, vs f64 "
+          f"{err:.3g} of max|y|")
+    if (rungs != ["mask-lowering", "f32-values", "reference"]
+            or plan.device.type != device.type or not got
+            or not err <= TOL):
+        raise SmokeFailure(f"build ladder: rungs {rungs} on {plan.device}, "
+                           f"launches {got}, error {err}")
+    return {"rungs": rungs, "launches": got, "err": err}
+
+
+def cli_serve(total):
+    """``repro_torch.launch.serve.main`` once, with ``--metrics`` into a
+    temporary directory: the Prometheus file must parse and the Chrome
+    trace must hold a ``serve.batch`` span whose parent is a
+    ``serve.submit`` span."""
+    import tempfile
+    from repro_torch import obs
+    from repro_torch.launch import serve
+    with tempfile.TemporaryDirectory() as tmp:
+        prom = os.path.join(tmp, "serve_metrics.prom")
+        trace = os.path.join(tmp, "serve_trace.json")
+        argv = ["--vocab-spmv", str(VOCAB["density"]), "--qps",
+                str(SERVE["cli_qps"]), "--duration-s",
+                str(SERVE["duration_s"]), "--metrics", "--metrics-path",
+                prom, "--trace-path", trace]
+        reg = obs.Registry()
+        prev = obs.set_registry(reg)
+        try:
+            _, got = _serve_counts("CLI", lambda: serve.main(argv), total,
+                                   set(KERNELS) | {"spmm_cuda_desc",
+                                                   "spmm_cuda"})
+        finally:
+            obs.set_registry(prev)
+        names = ("requests", "coalesced", "batches", "degraded")
+        after = {k: reg.counter(f"spc5_server_{k}_total").value
+                 for k in names}
+        _tie_launches("CLI", got, dict.fromkeys(names, 0), after,
+                      {k for k in got if k.startswith("spmv")},
+                      {k for k in got if k.startswith("spmm")})
+        with open(prom) as f:
+            samples = obs.export.parse_prometheus(f.read())
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    names = {e["args"]["span_id"]: e["name"] for e in events}
+    linked = sum(names.get(e["args"].get("parent_id")) == "serve.submit"
+                 for e in events if e["name"] == "serve.batch")
+    print(f"  CLI {' '.join(argv[:6])} --metrics: launches {got}; "
+          f"{len(samples)} Prometheus samples "
+          f"(spc5_server_requests_total "
+          f"{samples.get('spc5_server_requests_total')}), {len(events)} "
+          f"trace events, {linked} serve.batch spans under a serve.submit")
+    if not samples.get("spc5_server_requests_total") or not linked:
+        raise SmokeFailure("the serve CLI's metrics do not parse or its "
+                           "trace is not connected")
+    return {"launches": got, "samples": len(samples), "linked": linked}
+
+
+def serving_tier(mat, csr, device):
+    """Phase: the serving tier on the vocab weight (:data:`SERVE_TIERS`):
+    build and cache-hit, correctness and launch counts, the saturation
+    sweep, chaos on the mask tier, the build ladder, the CLI. Returns the
+    phase's numbers and ``launches``, every kernel's launches over the
+    tiers' runs (the lone ``ops.spmv`` comparisons left out)."""
+    import torch
+    total, out = {}, {}
+    rng = np.random.default_rng(17)
+    xs = [rng.standard_normal(VOCAB["cols"]).astype(np.float32)
+          for _ in range(SERVE["requests"] + 1)]
+    t0 = time.perf_counter()
+    y64 = f64_matrix(csr) @ np.stack(xs, axis=1).astype(np.float64)
+    print(f"serving tier: f64 products of {len(xs)} vectors "
+          f"{time.perf_counter() - t0:.1f} s")
+    xs_dev = [torch.from_numpy(x).to(device) for x in xs[:SERVE["requests"]]]
+    for name in SERVE_TIERS:
+        srv, built = build_serve_tier(name, mat, device)
+        try:
+            checked = check_serve_tier(name, srv, xs, y64, total)
+            swept = sweep_serve_tier(name, srv, xs_dev, total)
+            swept["host"] = serve_host_costs(srv, xs_dev)
+            if name == "mask":
+                out["chaos"] = chaos_serve_tier(srv, xs_dev, y64, total)
+            out[name] = {**built, **checked, **swept,
+                         "stats": {k: v for k, v in srv.stats().items()
+                                   if k not in ("cache", "plan")}}
+        finally:
+            srv.close(timeout=30)
+        del srv
+    out["ladder"] = ladder_serve(csr, device, total)
+    out["cli"] = cli_serve(total)
+    out["launches"] = total
+    print(f"launches on the serving path: {total}")
+    print(json.dumps({"serving_tier": out}))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3839,7 +4365,6 @@ def main() -> int:
                               acts, vcsr, tlaunches, terrs, vper, library)
         tq_launches, tq_errs, tq_pins, tq_per = token_quantised(
             vmat, tplan, acts, vcsr, qlib)
-        del vmat
         for row in rows:
             for numbers in (token, batch1):
                 if row["name"] in numbers:
@@ -3847,6 +4372,10 @@ def main() -> int:
         rows += spmm_rows(VOCAB_SPMM, vper, vlaunches, verrs)
         rows += spmm_rows(("spmm_cuda_desc",), vper, tlaunches, terrs)
         del tplan
+        t_phase = time.perf_counter()
+        serve = serving_tier(vmat, vcsr, device)
+        del vmat
+        print(f"phase serving tier: {time.perf_counter() - t_phase:.1f} s")
         mat24 = convert_test_block(vcsr)
         flat = build_flat_test_plan(mat24, device)
         ys, y_flat, la, lb = drive_test(test_layer, flat, x1, acts, device)
@@ -3899,6 +4428,8 @@ def main() -> int:
                     "worst_pin_share": tq_tail_pin,
                     **{f"batch_{n}": numbers
                        for n, numbers in tq_tail_per[name].items()}}}
+        for row in rows:
+            row["serve_launches"] = serve["launches"].get(row["name"], 0)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

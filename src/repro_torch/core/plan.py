@@ -17,8 +17,11 @@ slices ported so far:
     and the pass ``trace``. Geometry keys and array names (per lowering)
     resolve as attributes.
   * **Passes** (:func:`make_plan`): tune -> reorder -> layout -> build, each
-    appending a ``duration_s``-stamped entry to ``plan.trace`` with the
-    reference's keys. The tune pass consults a record store
+    under an ``obs`` span (``plan.tune`` ... ``plan.build``) and appending
+    a ``duration_s``-stamped entry to ``plan.trace`` with the reference's
+    keys; the build checks the fault point ``plan.build`` and the
+    executors ``exec.spmv`` / ``exec.spmm`` (:mod:`repro_torch.obs.faults`,
+    no-ops unless armed). The tune pass consults a record store
     (:mod:`repro_torch.core.selector`) for the records of the plan's
     device only; the reorder pass (:mod:`repro_torch.core.reorder`)
     permutes the matrix before the layout is built; the builds fold what
@@ -41,12 +44,12 @@ import dataclasses
 import difflib
 import hashlib
 import json
-import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import (spc5_spmm, spc5_spmm_desc, spc5_spmv,
                                  spc5_spmv_desc, spc5_spmv_tail)
 
@@ -533,9 +536,10 @@ def _build_pass(st: PlanState) -> SPC5Plan:
     reference: ``extra["cols_fused"]`` (the whole-vector descriptor build
     folded ``col_perm`` into ``xcol``) drops the column permutation,
     ``extra["rows_fused"]`` the inverse row permutation."""
+    obs.faults.get_faults().maybe_fail("plan.build")
     spec = _REGISTRY[st.layout]
-    t0 = time.perf_counter()
-    arrays, geom, *extra = spec.build(st)
+    with obs.span("plan.build", layout=st.layout) as sp:
+        arrays, geom, *extra = spec.build(st)
     extra = extra[0] if extra else {}
     rows_fused = bool(extra.get("rows_fused", False))
     cols_fused = bool(extra.get("cols_fused", False))
@@ -546,7 +550,7 @@ def _build_pass(st: PlanState) -> SPC5Plan:
         if not (rows_fused or st.reo.identity_rows):
             row_iperm = _perm_tensor(st.reo.row_iperm, st.device)
     st.trace.append({"pass": "build", "layout": st.layout,
-                     "duration_s": time.perf_counter() - t0,
+                     "duration_s": sp.duration_s,
                      "rows_fused": rows_fused,
                      **{k: v for k, v in sorted(geom.items())
                         if isinstance(v, (int, float, str, bool))}})
@@ -621,10 +625,12 @@ def make_plan(mat: F.SPC5Matrix, *, device: Device, layout: str = "auto",
                    xw=xw, cb=cb, nvec=nvec, align=align, vdtype=vdtype,
                    tune=tune, dtype=None if dtype is None else np.float32,
                    store=store, reorder=reorder)
-    for pass_fn in (_tune_pass, _reorder_pass, _layout_pass):
-        t0 = time.perf_counter()
-        pass_fn(st)
-        st.trace[-1]["duration_s"] = time.perf_counter() - t0
+    for pass_name, pass_fn in (("tune", _tune_pass),
+                               ("reorder", _reorder_pass),
+                               ("layout", _layout_pass)):
+        with obs.span(f"plan.{pass_name}") as sp:
+            pass_fn(st)
+        st.trace[-1]["duration_s"] = sp.duration_s
     plan = _build_pass(st)
     if verify:
         from repro_torch.analysis.verify import verify_plan
@@ -658,7 +664,9 @@ def execute_spmv(plan: SPC5Plan, x: torch.Tensor, *,
     above; False runs the plain PyTorch version on the plan's device (an
     explicit request, not a fallback; ``double_buffer`` then changes
     nothing). ``interpret`` changes nothing on a CPU plan; True on a card
-    plan raises ``ValueError``: the port has no kernel interpreter."""
+    plan raises ``ValueError``: the port has no kernel interpreter. The
+    fault point ``exec.spmv`` is checked first (a no-op unless armed)."""
+    obs.faults.get_faults().maybe_fail("exec.spmv")
     spec = _executor(plan, x, interpret)
     if use_pallas is False:
         y = spec.plain_spmv(plan, x)
@@ -675,7 +683,9 @@ def execute_spmm(plan: SPC5Plan, x: torch.Tensor, *,
     through the plan's registered lowering (the CUDA kernels on the card,
     the plain PyTorch version on the CPU). ``nvt`` is the reference's
     column tile: nvec must be a multiple of min(nvt, nvec).
-    ``use_pallas`` and ``interpret`` as in :func:`execute_spmv`."""
+    ``use_pallas`` and ``interpret`` as in :func:`execute_spmv`; its fault
+    point is ``exec.spmm``."""
+    obs.faults.get_faults().maybe_fail("exec.spmm")
     spec = _executor(plan, x, interpret)
     if use_pallas is False:
         y = spec.plain_spmm(plan, x)

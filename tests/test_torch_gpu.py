@@ -4247,3 +4247,114 @@ def test_use_pallas_false_runs_the_plain_version_on_the_card(cuda, layout):
         ops.spmm(plan, xs, interpret=True)
     assert torch.equal(ops.spmv(plan, x, interpret=False).cpu().isfinite(),
                        torch.ones(mat.nrows, dtype=torch.bool))
+
+
+# ----------------------------------------------------------------------------
+# The serving tier on the card
+# ----------------------------------------------------------------------------
+
+def _serve_held(plan, **kw):
+    """A server whose gather thread starts only at ``release()``, so every
+    request submitted before lands in one coalesced batch."""
+    import threading
+
+    from repro_torch.launch import server as SV
+
+    class Held(SV.SPC5Server):
+        def __init__(self, *a, **k):
+            self._go = threading.Event()
+            super().__init__(*a, **k)
+
+        def release(self):
+            self._go.set()
+
+        def _gather_once(self):
+            self._go.wait(60)
+            return super()._gather_once()
+
+    return Held(plan, **kw)
+
+
+_SERVE_TIERS = {
+    # tier: (ServeConfig keywords, its SpMV kernel, its SpMM kernel)
+    "token": (dict(lowering="descriptor"), "spmv_cuda_desc_db",
+              "spmm_cuda_desc"),
+    "mask": (dict(lowering="mask"), "spmv_cuda_db", "spmm_cuda"),
+    "panel": (dict(lowering="mask", panel="64,256,8"),
+              "spmv_cuda_panels_db", "spmm_cuda_panels_db"),
+}
+
+
+@pytest.mark.parametrize("n", [1, 13, 64, 200])
+@pytest.mark.parametrize("tier", sorted(_SERVE_TIERS))
+def test_serving_tier_coalesced_results_on_the_card(cuda, tier, n):
+    """``server.start`` on the card: n requests held into one batch (at most
+    the cap: the plan's xw, 128 without one) run the tier's SpMV kernel
+    (n = 1) or its SpMM kernel at the next power of two, and every y is
+    within ``1e-5 * max|y|`` of a lone ``ops.spmv`` and of the float64
+    product (the kernels add with global atomics: not bit for bit, ROADMAP
+    §3)."""
+    from repro_torch.launch import server as SV
+    kw, spmv_name, spmm_name = _SERVE_TIERS[tier]
+    mat = _matrix((4, 8), n=700, m=256, density=0.1, seed=3)
+    cfg = SV.ServeConfig(verify=True, cache_mb=64, **kw)
+    with SV.start(cfg, mat=mat) as started:
+        plan = started.plan
+    assert plan.device.type == "cuda"
+    n_run = min(n, started.max_batch)
+    rng = np.random.default_rng(n)
+    xs = [rng.standard_normal(256).astype(np.float32) for _ in range(n_run)]
+    for mod in (K, KD, KM, KDM, KT):
+        mod.reset_launches()
+    srv = _serve_held(plan, cache=started.cache)
+    try:
+        futs = [srv.submit(x) for x in xs]
+        srv.release()
+        ys = [f.result(timeout=60) for f in futs]
+        st = srv.stats()
+    finally:
+        srv.close()
+    launches = {k: v for mod in (K, KD, KM, KDM, KT)
+                for k, v in mod.LAUNCHES.items() if v}
+    assert launches == {spmv_name if n_run == 1 else spmm_name: 1}
+    assert st["degraded"] == 0 and st["batches"] == 1
+    assert st["widest_batch"] == n_run
+    dense = F.spc5_to_csr(mat).to_dense().astype(np.float64)
+    for x, y in zip(xs, ys):
+        assert y.device.type == "cuda" and y.dtype == torch.float32
+        lone = ops.spmv(plan, torch.from_numpy(x).to(cuda))
+        assert float((y - lone).abs().max()) <= RTOL * float(
+            lone.abs().max())
+        y64 = dense @ x.astype(np.float64)
+        assert float(np.abs(y.cpu().double().numpy() - y64).max()) <= \
+            RTOL * float(np.abs(y64).max())
+
+
+def test_a_refused_dispatch_on_the_card_fails_its_callers(cuda):
+    """On the card only an injected fault takes the oracle rung (ROADMAP
+    §3): a cap of 192 makes 150 held requests an SpMM at nvec 192, which
+    the SpMM wrapper refuses (the nvt rule); the callers get its
+    ValueError, no batch is degraded and no kernel launches. The CPU
+    serves the same batch on the oracle rung, as the reference does."""
+    from repro_torch.launch import server as SV
+    mat = _matrix((4, 8), n=700, m=256, density=0.1, seed=3)
+    cfg = SV.ServeConfig(lowering="mask", cache_mb=64)
+    with SV.start(cfg, mat=mat) as started:
+        plan = started.plan
+    rng = np.random.default_rng(150)
+    xs = [rng.standard_normal(256).astype(np.float32) for _ in range(150)]
+    for mod in (K, KD, KM, KDM, KT):
+        mod.reset_launches()
+    srv = _serve_held(plan, cache=started.cache, max_batch=192)
+    try:
+        futs = [srv.submit(x) for x in xs]
+        srv.release()
+        for f in futs:
+            with pytest.raises(ValueError, match="not divisible"):
+                f.result(timeout=60)
+        st = srv.stats()
+    finally:
+        srv.close()
+    assert st["degraded"] == 0 and st["batches"] == 0
+    assert not any(v for mod in (K, KD, KM, KDM, KT)
+                   for v in mod.LAUNCHES.values())

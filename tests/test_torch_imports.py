@@ -46,7 +46,10 @@ def test_port_modules_cover_the_slice():
             "kernels/spc5_spmv_tail.py", "kernels/ops.py",
             "core/reorder.py", "core/structure.py", "core/selector.py",
             "core/partition.py", "kernels/ref.py", "analysis/__init__.py",
-            "analysis/verify.py"} <= names
+            "analysis/verify.py", "obs/__init__.py", "obs/metrics.py",
+            "obs/spans.py", "obs/export.py", "obs/faults.py",
+            "launch/__init__.py", "launch/resilience.py",
+            "launch/server.py", "launch/serve.py"} <= names
     for src in ("spc5_spmv.cu", "spc5_spmm.cu", "spc5_spmv_desc.cu",
                 "spc5_spmm_desc.cu", "spc5_spmm_desc_cmap.cu",
                 "spc5_spmv_tail.cu", "spc5_stage.cuh",
@@ -78,6 +81,7 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import repro_torch.kernels.spc5_spmv_tail\n"
         "import repro_torch.analysis, repro_torch.core.selector\n"
         "import repro_torch.core.partition, repro_torch.kernels.ref\n"
+        "import repro_torch.obs, repro_torch.launch.serve\n"
         "from repro_torch.kernels import _build\n"
         "assert not any(m.split('.')[0] in {'jax', 'ml_dtypes', 'repro'} "
         "for m in sys.modules), sorted(m for m in sys.modules if 'jax' in m)\n"
