@@ -87,6 +87,25 @@ phase that goes wrong:
    map's cost), beside its bound (the map's 4 * ncols bytes counted once),
    its plain version and cuSPARSE on the same CSR, and the SpMV of all five
    band plans through ``ops`` beside cuSPARSE;
+4c. sharding: the FEM matrix cut into 8 row shards by
+   ``distributed.shard_matrix`` (``partition="auto"``, its mode and nnz
+   skews printed) at ``benchmarks/bench_spmv_par.py``'s geometries
+   (whole-vector cb=512; panels pr=1024, cb=64, xw=512), both layouts x
+   both lowerings at f32 and whole-vector mask at bf16, and the band with
+   its RCM ``Reordering`` on panels + mask; each plan's 8 shards run one
+   after another through ``plan.local_execute_spmv`` on the card, with the
+   counts at 0 (exactly 8 launches of the layout's kernel and nothing
+   else), y assembled by the gather path's helper
+   (``distributed._assemble``) and held to ``1e-5 * max|y|`` of the
+   unsharded ``ops.spmv`` and of the float64 product (bf16: of the
+   dequantised values, and within ``tests/test_vdtype.py``'s pin); each
+   shard timed, with their sum, max and max / mean (the max a model of an
+   8-card step before its all_gather, not a measurement of 8 cards) and
+   the unsharded plan's time; then ``make_distributed_spmv`` on a
+   one-shard plan through a one-rank NCCL group (gathered and
+   ``gather=False``), and ``examples_torch/cg_solver.py`` with and without
+   ``--distributed`` as subprocesses, each converging with its SpMV
+   kernel launched;
 5. SparseLinear path: the vocab projection of yi-6b (64,000 x 4,096, the
    weight ``serve.py``'s vocab bench draws: ``default_rng(0)``, standard
    normal, float32), magnitude-pruned to density 0.1 (beta(4,8) by eq. 4),
@@ -229,9 +248,11 @@ phase that goes wrong:
 9. prints its total time, the ``{"kernels": [...]}`` line (each kernel's
    ``value_dtypes``, the widths it launched at on the main path, and at
    bf16 / int8 its launches, errors and times in turns under
-   ``quantised``, and its launches in the serving phase under
-   ``serve_launches``), then, last, the ``{"ok": true, "device": ...}``
-   line.
+   ``quantised``, its launches in the serving phase under
+   ``serve_launches`` and in the sharding phase under ``shard_launches``),
+   then, last, the ``{"ok": true, "device": ...}`` line; before them a
+   ``{"sharding": ..., "examples": ...}`` line with the sharding phase's
+   numbers.
 
 It needs the repository beside it (``src/repro_torch``) and a CUDA device;
 it never runs on the CPU.
@@ -1256,6 +1277,224 @@ def measure(plans, x, csr, launches, errs, timer=cuda_time_ms):
                          else whole_launches(plan))["s2" if db else "s1"]
         rows.append(row)
     return rows
+
+
+# ----------------------------------------------------------------------------
+# Sharded SpMV: row slabs, one shard after another on the card
+# ----------------------------------------------------------------------------
+
+#: The shard phase: 8 shards, the partition chosen by the nnz skew, and
+#: ``benchmarks/bench_spmv_par.py``'s geometries (flat shards at cb=512,
+#: panel shards at pr=1024 with the panel defaults cb=64, xw=512).
+SHARD = dict(ndev=8, partition="auto")
+SHARD_GEOM = {"whole_vector": dict(cb=512),
+              "panels": dict(pr=1024, cb=64, xw=512)}
+#: (matrix, layout, lowering, vdtype) of each sharded plan: both layouts x
+#: both lowerings at f32 and whole-vector mask at bf16 on the FEM matrix,
+#: and panels + mask on the band with its RCM Reordering.
+SHARD_PLANS = (("fem", "whole_vector", "mask", "f32"),
+               ("fem", "whole_vector", "descriptor", "f32"),
+               ("fem", "panels", "mask", "f32"),
+               ("fem", "panels", "descriptor", "f32"),
+               ("fem", "whole_vector", "mask", "bf16"),
+               ("band", "panels", "mask", "f32"))
+SHARD_KERNEL = {("whole_vector", "mask"): "spmv_cuda_db",
+                ("whole_vector", "descriptor"): "spmv_cuda_desc_db",
+                ("panels", "mask"): "spmv_cuda_panels_db",
+                ("panels", "descriptor"): "spmv_cuda_panels_desc_db"}
+
+
+def shard_inputs(csr, x, vdtype):
+    """The float64 references of a sharded product on ``csr``: the product
+    of the values as the plan stores them (f32, or bf16-rounded) and, for
+    bf16, ``tests/test_vdtype.py``'s pin with the product of the f32
+    values it bounds. Returns (y64, None or (pin, y64 of the f32
+    values))."""
+    import scipy.sparse
+    import torch
+    xh = x.cpu().double().numpy()
+
+    def product(vals, v=xh):
+        return scipy.sparse.csr_matrix((vals, csr.colidx, csr.rowptr),
+                                       shape=csr.shape) @ v
+    vals = csr.values.astype(np.float32)
+    y32 = product(vals.astype(np.float64))
+    if vdtype != "bf16":
+        return y32, None
+    deq = torch.from_numpy(vals).to(torch.bfloat16).double().numpy()
+    pin = 2.0 ** -7 * product(np.abs(vals).astype(np.float64),
+                              np.abs(xh)) + 1e-5
+    return product(deq), (pin, y32)
+
+
+def sharded_y(sh, x):
+    """y of a sharded plan on one card: every shard's
+    ``local_execute_spmv`` one after another on x in the plan's column
+    order, the slabs assembled by the gather path's helper
+    (``distributed._assemble``), then put back in the original row
+    order."""
+    import torch
+    from repro_torch.core import distributed as D
+    from repro_torch.core import plan as PL
+    xp = x if sh.col_perm is None else x.index_select(0, sh.col_perm)
+    slabs = torch.stack([PL.local_execute_spmv(sh, sh.local(k), xp)
+                         for k in range(sh.ndev)])
+    y = D._assemble(slabs, sh.row_start, sh.nrows)
+    return y if sh.row_iperm is None else y.index_select(0, sh.row_iperm)
+
+
+def shard_one(name, csr, mat, layout, lowering, vdtype, reo, device,
+              timer=cuda_time_ms):
+    """One sharded plan (:data:`SHARD_PLANS`): built by ``shard_matrix``
+    on the card, driven once with the counts at 0 (exactly ``ndev``
+    launches of the layout's kernel, nothing else), held against the
+    unsharded ``ops.spmv`` and the float64 product, then each shard
+    timed. Returns its launches, error and times."""
+    import torch
+    from repro_torch.core import distributed as D
+    from repro_torch.core import plan as PL
+    from repro_torch.kernels import ops
+    kw = dict(layout=layout, lowering=lowering, vdtype=vdtype, tune=False,
+              reorder=reo, **SHARD_GEOM[layout])
+    t0 = time.perf_counter()
+    sh = D.shard_matrix(mat, SHARD["ndev"], partition=SHARD["partition"],
+                        device=device, **kw)
+    t1 = time.perf_counter()
+    plan = ops.prepare(mat, device=device, **kw)
+    part = next(e for e in sh.trace if e["pass"] == "partition")
+    print(f"shard {name}: shard_matrix {t1 - t0:.1f} s of host, partition "
+          f"{part['mode']} (skew blocks {part['skew_blocks']}, nnz "
+          f"{part['skew_nnz']}), rows_max {sh.rows_max}, row starts "
+          f"{sh.row_start.tolist()}, "
+          f"{sum(a.numel() * a.element_size() for a in sh.arrays)} bytes "
+          f"of stacks; unsharded plan {plan.layout} + {plan.lowering}")
+    kernel = SHARD_KERNEL[layout, lowering]
+    if (sh.layout, sh.lowering, sh.vdtype) != (layout, lowering, vdtype):
+        raise SmokeFailure(f"shard {name} built {sh.layout} + "
+                           f"{sh.lowering} at {sh.vdtype!r}")
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        mat.ncols).astype(np.float32)).to(device)
+    counts = reset_all_launches()
+    y = sharded_y(sh, x)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in counts().items() if v}
+    print(f"  launches: {launched}")
+    if launched != {kernel: sh.ndev}:
+        raise SmokeFailure(f"shard {name}: launches {launched}, expected "
+                           f"{sh.ndev} of {kernel} and nothing else")
+    if tuple(y.shape) != (mat.nrows,) or not bool(torch.isfinite(y).all()):
+        raise SmokeFailure(f"shard {name}: bad y {tuple(y.shape)}")
+    y_plan = ops.spmv(plan, x)
+    y64, pin = shard_inputs(csr, x, vdtype)
+    e_plan, e64 = rel_err(y, y_plan), rel_err(y, y64)
+    used = 0.0
+    if pin is not None:
+        used = float((np.abs(y.cpu().double().numpy() - pin[1])
+                      / pin[0]).max())
+    print(f"  y vs the unsharded ops.spmv {e_plan:.3g} of max|y|, vs the "
+          f"f64 product {e64:.3g}"
+          + (f", {used:.3g} of the bf16 pin" if pin is not None else ""))
+    if not (e_plan <= TOL and e64 <= TOL and used <= 1.0):
+        raise SmokeFailure(f"shard {name} disagrees: {e_plan} / {e64} > "
+                           f"{TOL} or pin share {used} > 1")
+    xp = x if sh.col_perm is None else x.index_select(0, sh.col_perm)
+    per = []
+    for k in range(sh.ndev):
+        local = sh.local(k)
+        print(f"  timing shard {k}")
+        per.append(timer(lambda local=local: PL.local_execute_spmv(
+            sh, local, xp), device))
+    print("  timing the unsharded plan")
+    whole = timer(lambda: ops.spmv(plan, x), device)
+    mean = sum(per) / len(per)
+    print(f"time shard {name} ({kernel}): shards {[round(t, 4) for t in per]}"
+          f" ms, sum {sum(per):.4f}, max {max(per):.4f}, max / mean "
+          f"{max(per) / mean:.3f}, unsharded {whole:.4f} ms; the max models "
+          f"an {sh.ndev}-card step before its all_gather (a model, not a "
+          f"measurement of {sh.ndev} cards)")
+    return {"kernel": kernel, "launches": sh.ndev, "max_abs_err": float(
+        (y - y_plan).abs().max()), "rel_err_f64": e64, "shard_ms": per,
+        "sum_ms": sum(per), "max_ms": max(per),
+        "max_over_mean": max(per) / mean, "unsharded_ms": whole,
+        "partition": part["mode"], "skew_blocks": part["skew_blocks"],
+        "skew_nnz": part["skew_nnz"]}
+
+
+def nccl_one_rank(mat, device):
+    """``make_distributed_spmv`` on a one-shard plan of ``mat`` through a
+    one-rank NCCL group on the card (an in-process ``HashStore``), gathered
+    and as a slab, each against ``ops.spmv`` of the same layout, one
+    launch of its kernel a call."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import distributed as D
+    from repro_torch.kernels import ops
+    kw = dict(layout="whole_vector", lowering="mask", tune=False,
+              **SHARD_GEOM["whole_vector"])
+    sh = D.shard_matrix(mat, 1, device=device, **kw)
+    plan = ops.prepare(mat, device=device, **kw)
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        mat.ncols).astype(np.float32)).to(device)
+    y_plan = ops.spmv(plan, x)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        counts = reset_all_launches()
+        y = D.make_distributed_spmv(sh)(x)
+        slab = D.make_distributed_spmv(sh, gather=False)(x)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in counts().items() if v}
+    finally:
+        dist.destroy_process_group()
+    errs = (rel_err(y, y_plan), rel_err(slab[0, :mat.nrows], y_plan))
+    print(f"nccl one-rank group: launches {launched}, gathered y "
+          f"{errs[0]:.3g} of max|y| from ops.spmv, slab {errs[1]:.3g}")
+    if launched != {"spmv_cuda_db": 2} or max(errs) > TOL:
+        raise SmokeFailure(f"the one-rank NCCL SpMV: {launched}, {errs}")
+
+
+def run_example(argv):
+    """An ``examples_torch`` script in a subprocess on the card: it must
+    exit 0, converge (relative residual under 1e-4) and have launched its
+    SpMV kernel. Returns its launches."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, *argv], capture_output=True,
+                         text=True, timeout=600, cwd=HERE, env=env)
+    lines = out.stdout.strip().splitlines()
+    print(f"example {' '.join(argv)}: exit {out.returncode}, "
+          f"{time.perf_counter() - t0:.1f} s; "
+          + " | ".join(lines[:1] + lines[-2:]))
+    if out.returncode != 0 or len(lines) < 2:
+        raise SmokeFailure(f"example {argv} failed: {out.stderr[-2000:]}")
+    launches = json.loads(lines[-2].removeprefix("launches: "))
+    residual = float(lines[-1].split()[3])
+    if not (residual < 1e-4 and sum(launches.values()) > 0):
+        raise SmokeFailure(f"example {argv}: residual {residual}, "
+                           f"launches {launches}")
+    return launches
+
+
+def sharding(csr, mat, bcsr, bmat, breo, device):
+    """Phase: the sharded plans of :data:`SHARD_PLANS`, the one-rank NCCL
+    group and the CG solver with and without ``--distributed``. Returns
+    {kernel: launches on the sharded plans} and each plan's numbers."""
+    per = {}
+    shard_launches = {}
+    for matrix, layout, lowering, vdtype in SHARD_PLANS:
+        name = f"{matrix} {layout} {lowering} {vdtype}"
+        c, m, reo = (csr, mat, None) if matrix == "fem" else (bcsr, bmat,
+                                                             breo)
+        per[name] = shard_one(name, c, m, layout, lowering, vdtype, reo,
+                              device)
+        k = per[name]["kernel"]
+        shard_launches[k] = shard_launches.get(k, 0) + per[name]["launches"]
+    nccl_one_rank(mat, device)
+    examples = {
+        "cg_solver": run_example(["examples_torch/cg_solver.py"]),
+        "cg_solver --distributed": run_example(
+            ["examples_torch/cg_solver.py", "--distributed"])}
+    return shard_launches, per, examples
 
 
 # ----------------------------------------------------------------------------
@@ -4301,8 +4540,12 @@ def main() -> int:
         print(f"phase tune and verify: {time.perf_counter() - t_phase:.1f} s")
         t_band = time.perf_counter()
         band = reorder_band(bcsr, bmat, breo, device)
-        del bcsr, bmat
         print(f"phase reordered band: {time.perf_counter() - t_band:.1f} s")
+        t_phase = time.perf_counter()
+        shard_launches, shard_per, examples = sharding(csr, mat, bcsr, bmat,
+                                                       breo, device)
+        del bcsr, bmat
+        print(f"phase sharding: {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
         layers = build_layers(w, vmat, device)
         test_layer = build_test_layer(w, device)
@@ -4430,6 +4673,8 @@ def main() -> int:
                        for n, numbers in tq_tail_per[name].items()}}}
         for row in rows:
             row["serve_launches"] = serve["launches"].get(row["name"], 0)
+            row["shard_launches"] = shard_launches.get(row["name"], 0)
+        print(json.dumps({"sharding": shard_per, "examples": examples}))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1

@@ -180,6 +180,12 @@ class CSRMatrix:
             out[i, self.colidx[lo:hi]] = self.values[lo:hi]
         return out
 
+    def occupancy_bytes(self, s_int: int = 4) -> int:
+        """Paper eq. (3) on this instance: O_CSR = NNZ*S_f + N_rows*S_i +
+        NNZ*S_i, the row pointer counted with its last entry."""
+        s_float = self.values.dtype.itemsize
+        return self.nnz * s_float + (self.nrows + 1) * s_int + self.nnz * s_int
+
 
 @dataclasses.dataclass
 class SPC5Matrix:
@@ -219,6 +225,33 @@ class SPC5Matrix:
     def fill_ratio(self) -> float:
         """Average block fill in [0, 1] (paper tables 1-2 percentages)."""
         return self.avg_nnz_per_block / (self.r * self.c)
+
+    def occupancy_bytes(self, s_int: int = 4) -> int:
+        """Paper eqs. (1)/(2) on this instance: the values, the interval
+        pointer, one column index a block and each block's mask (at least
+        one byte)."""
+        s_float = self.values.dtype.itemsize
+        n_intervals = self.block_rowptr.shape[0] - 1
+        mask_bytes = self.nblocks * max(1, (self.r * self.c) // 8)
+        return (self.nnz * s_float
+                + (n_intervals + 1) * s_int
+                + self.nblocks * s_int
+                + mask_bytes)
+
+
+def occupancy_model_spc5(nnz: int, nrows: int, avg: float, r: int, c: int,
+                         s_float: int = 8, s_int: int = 4) -> float:
+    """Paper eq. (2): the closed-form occupancy model of beta(r,c), in
+    bytes, from the nonzeros a block ``avg``."""
+    return (nnz * s_float
+            + nrows * s_int / r
+            + nnz * (8 * s_int + r * c) / (8 * max(avg, 1e-12)))
+
+
+def occupancy_model_csr(nnz: int, nrows: int, s_float: int = 8,
+                        s_int: int = 4) -> float:
+    """Paper eq. (3): the closed-form occupancy model of CSR, in bytes."""
+    return nnz * s_float + nrows * s_int + nnz * s_int
 
 
 # ----------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Static balanced row partitioning (paper §Parallelization).
 
 The port's copy of ``repro.core.partition``, line for line, so both
-packages cut a matrix at the same rows. Its user in the port, the shard
-pass, is still to come (ROADMAP queue 1, item 10).
+packages cut a matrix at the same rows. Its user in the port is the shard
+pass (:func:`repro_torch.core.plan.shard_plan`).
 
 Row intervals are chosen so every worker owns an equal share of WORK,
 never splitting an r-row interval across workers: the paper's OpenMP

@@ -1,7 +1,6 @@
 """Execution plans: a layout registry, the plan passes and one executor.
 
-The port's counterpart of ``repro.core.plan``, cut to the SpMV and SpMM
-slices ported so far:
+The port's counterpart of ``repro.core.plan``:
 
   * **Registry** (:class:`LayoutSpec`, :func:`register_layout`): the
     ``whole_vector``, ``panels`` and ``test`` layouts, each a ``build``, a
@@ -27,13 +26,20 @@ slices ported so far:
     permutes the matrix before the layout is built; the builds fold what
     they can of the permutations into their index arrays. ``verify=``
     proves the finished plan (:mod:`repro_torch.analysis.verify`).
-  * **Executors** (:func:`execute_spmv`, :func:`execute_spmm`): the only
-    place that dispatches on the layout key. x and y are in the original
+  * **Executors** (:func:`execute_spmv`, :func:`execute_spmm`): with the
+    shard pass's :func:`local_execute_spmv`, the only places that dispatch
+    on the layout key. x and y are in the original
     order: a lowering gathers x by ``col_perm`` (or passes it to the kernel
     as its column map) and the executor gathers y by ``row_iperm``.
   * **Cache substrate** (:func:`matrix_fingerprint`, :func:`plan_cache_key`,
     :func:`append_trace_entries`, :func:`plan_nbytes`): the reference's
     digests, digit for digit, and its footprint figure.
+  * **Shard pass** (:func:`shard_plan`, :class:`ShardedPlan`,
+    :func:`local_execute_spmv`): the matrix tuned at ``workers=ndev``,
+    reordered and cut into row slabs, each slab built by its layout's
+    ``shard_build`` hook and stacked, byte for byte the reference's stacks;
+    one shard's SpMV is the sharded twin of :func:`execute_spmv`
+    (:mod:`repro_torch.core.distributed` runs it over a process group).
 
 Values are stored as f32, bf16 or int8 (the value-dtype axis, ``vdtype``;
 int8 plans carry one f32 scale a chunk, ``value_scale``).
@@ -104,7 +110,13 @@ class LayoutSpec:
     tensors are named by ``desc_array_names`` and viewed by
     ``desc_device_view``. ``plain_spmv`` / ``plain_spmm`` compute the same
     products with the plain PyTorch versions on the plan's device (the
-    executors' ``use_pallas=False``)."""
+    executors' ``use_pallas=False``).
+
+    ``shard_build`` / ``local_spmv`` are the distributed hooks, as in the
+    reference: stack the row slabs of a :class:`ShardState` into host
+    arrays with a leading shard axis, and run one shard's SpMV on its slice
+    of them; ``shard_build_desc`` / ``local_spmv_desc`` are the descriptor
+    lowering's twins (:attr:`shard_lowerings`)."""
 
     name: str
     array_names: Tuple[str, ...]
@@ -115,6 +127,10 @@ class LayoutSpec:
     plain_spmv: Callable
     plain_spmm: Callable
     device_view: Optional[Callable] = None
+    shard_build: Optional[Callable] = None
+    local_spmv: Optional[Callable] = None
+    shard_build_desc: Optional[Callable] = None
+    local_spmv_desc: Optional[Callable] = None
     auto_eligible: bool = True
     lowerings: Tuple[str, ...] = (LOWERING_MASK,)
     desc_array_names: Optional[Tuple[str, ...]] = None
@@ -132,6 +148,18 @@ class LayoutSpec:
         if vdtype == "int8" and "values" in names:
             names = names + ("value_scale",)
         return names
+
+    @property
+    def shard_lowerings(self) -> Tuple[str, ...]:
+        """The lowerings a sharded plan of this layout can take: those with
+        both a stacking and a local SpMV hook."""
+        out = []
+        if self.shard_build is not None and self.local_spmv is not None:
+            out.append(LOWERING_MASK)
+        if (self.shard_build_desc is not None
+                and self.local_spmv_desc is not None):
+            out.append(LOWERING_DESC)
+        return tuple(out)
 
 
 _REGISTRY: Dict[str, LayoutSpec] = {}
@@ -233,6 +261,23 @@ def _meta_vdtype(meta) -> str:
     return ""
 
 
+def _resolve_attr(obj, name):
+    """Attribute resolution of both plan classes: a geometry key of
+    ``meta`` first, then one of the layout's tensors by its name under the
+    plan's lowering and value dtype."""
+    meta = object.__getattribute__(obj, "meta")
+    for k, v in meta:
+        if k == name:
+            return v
+    layout = object.__getattribute__(obj, "layout")
+    names = _REGISTRY[layout].plan_array_names(_meta_lowering(meta),
+                                               _meta_vdtype(meta))
+    if name in names:
+        return object.__getattribute__(obj, "arrays")[names.index(name)]
+    raise AttributeError(f"{type(obj).__name__} ({layout!r}) has no "
+                         f"attribute {name!r}")
+
+
 # ----------------------------------------------------------------------------
 # The plan
 # ----------------------------------------------------------------------------
@@ -258,16 +303,7 @@ class SPC5Plan:
     trace_json: str = "[]"
 
     def __getattr__(self, name):
-        meta = object.__getattribute__(self, "meta")
-        for k, v in meta:
-            if k == name:
-                return v
-        names = _REGISTRY[object.__getattribute__(self, "layout")] \
-            .plan_array_names(_meta_lowering(meta), _meta_vdtype(meta))
-        if name in names:
-            return object.__getattribute__(self, "arrays")[names.index(name)]
-        raise AttributeError(f"SPC5Plan ({self.layout!r}) has no attribute "
-                             f"{name!r}")
+        return _resolve_attr(self, name)
 
     @property
     def shape(self) -> Tuple[int, int]:
@@ -649,7 +685,7 @@ def _is_f32(dtype) -> bool:
 
 
 # ----------------------------------------------------------------------------
-# Executor (the ONLY layout dispatch)
+# Executor (the layout dispatch; its sharded twin is local_execute_spmv)
 # ----------------------------------------------------------------------------
 
 def execute_spmv(plan: SPC5Plan, x: torch.Tensor, *,
@@ -997,6 +1033,83 @@ def _plain_whole(plan: SPC5Plan, x, spmm: bool):
               nrows=plan.nrows, ncols=plan.ncols)
 
 
+def _padded_stack(built, name: str, lead) -> np.ndarray:
+    """Array ``name`` of every shard's build, zero-padded on its leading
+    axes to the sizes ``lead`` and stacked on a new leading shard axis."""
+    arrays = [getattr(b, name) for b in built]
+    return np.stack([np.pad(a, [(0, n - m) for n, m in zip(lead, a.shape)]
+                            + [(0, 0)] * (a.ndim - len(lead)))
+                     for a in arrays])
+
+
+def _stacked_values(built, nvals: int, st: "ShardState") -> np.ndarray:
+    """Every shard's packed values zero-padded to ``nvals`` and stacked, in
+    the shard pass's value store (bf16 as bit patterns; float64 values
+    become float32 on the device, as the reference's do)."""
+    stack = _padded_stack(built, "values", (nvals,))
+    dt = np.dtype(st.dtype or st.mat.values.dtype)
+    return F.bf16_bits(stack) if dt == F.BF16_HOST else stack.astype(dt)
+
+
+def _stack_whole(st: "ShardState"):
+    """The whole-vector stacks both lowerings share, as in the reference:
+    each slab chunked at ``cb`` (256 by default) and padded to the largest
+    shard's chunks, values to the largest ``len + vmax``. Returns the
+    stacked values, ``pad(name)`` (a chunk array of every shard, stacked)
+    and the geometry."""
+    cb = 256 if st.cb is None else st.cb
+    chunked = [F.to_chunked(p, cb=cb) for p in st.parts]
+    nch = max(ch.nchunks for ch in chunked)
+    vmax = max(ch.vmax for ch in chunked)
+    nvals = max(ch.values.shape[0] + vmax for ch in chunked)
+    values = _stacked_values(chunked, nvals, st)
+    geom = dict(r=st.mat.r, c=st.mat.c, cb=cb, vmax=vmax,
+                rows_max=max(p.shape[0] for p in st.parts),
+                nrows=st.mat.shape[0], ncols=st.mat.shape[1], nnz=st.mat.nnz)
+    return values, lambda name: _padded_stack(chunked, name, (nch,)), geom
+
+
+def _shard_build_whole(st: "ShardState"):
+    """The mask lowering's stacks in ``SPC5Device`` order (masks as
+    int32)."""
+    values, pad, geom = _stack_whole(st)
+    return (values, pad("chunk_col"), pad("chunk_mask").astype(np.int32),
+            pad("chunk_voff"), pad("chunk_row"), pad("chunk_vbase")), geom
+
+
+def _shard_build_whole_desc(st: "ShardState"):
+    """The descriptor lowering's stacks: the stacked masks expanded once
+    (``xmax=ncols``, ``ymax=rows_max``); a padding chunk's lanes are unset,
+    so it adds nothing."""
+    values, pad, geom = _stack_whole(st)
+    desc = F.chunk_descriptors(pad("chunk_mask"), pad("chunk_voff"),
+                               pad("chunk_col"), pad("chunk_row"),
+                               r=geom["r"], c=geom["c"], vmax=geom["vmax"],
+                               xmax=geom["ncols"], ymax=geom["rows_max"])
+    return (values, desc.valid, desc.vidx, desc.xcol, desc.yrow,
+            pad("chunk_vbase")), geom
+
+
+def _local_spmv_whole(sh: "ShardedPlan", local, x):
+    """One shard's whole-vector mask SpMV: ``spmv_cuda_db`` on the card,
+    its plain version on the CPU."""
+    dev = R.SPC5Device(*local)
+    return spc5_spmv.spmv_cuda_db(
+        dev.chunk_vbase, dev.chunk_col, dev.chunk_mask, dev.chunk_voff,
+        dev.chunk_row, dev.values, x, r=sh.r, c=sh.c, cb=sh.cb, vmax=sh.vmax,
+        nrows=sh.rows_max, ncols=sh.ncols)
+
+
+def _local_spmv_whole_desc(sh: "ShardedPlan", local, x):
+    """One shard's whole-vector descriptor SpMV: ``spmv_cuda_desc_db`` on
+    the card, its plain version on the CPU."""
+    dev = R.SPC5DescDevice(*local)
+    return spc5_spmv_desc.spmv_cuda_desc_db(
+        dev.chunk_vbase, dev.desc_valid, dev.desc_vidx, dev.desc_xcol,
+        dev.desc_yrow, dev.values, x, r=sh.r, c=sh.c, cb=sh.cb, vmax=sh.vmax,
+        nrows=sh.rows_max, ncols=sh.ncols)
+
+
 register_layout(LayoutSpec(
     name=LAYOUT_WHOLE,
     array_names=R.SPC5Device._fields,
@@ -1007,6 +1120,10 @@ register_layout(LayoutSpec(
     plain_spmv=lambda plan, x: _plain_whole(plan, x, False),
     plain_spmm=lambda plan, x: _plain_whole(plan, x, True),
     device_view=lambda arrays: R.SPC5Device(*arrays),
+    shard_build=_shard_build_whole,
+    local_spmv=_local_spmv_whole,
+    shard_build_desc=_shard_build_whole_desc,
+    local_spmv_desc=_local_spmv_whole_desc,
     lowerings=_LOWERING_NAMES,
     desc_array_names=R.SPC5DescDevice._fields,
     desc_device_view=lambda arrays: R.SPC5DescDevice(*arrays),
@@ -1144,6 +1261,74 @@ def _plain_panels(plan: SPC5Plan, x, spmm: bool):
     return fn(plan.dev, x, plan.col_perm, scale, **geom)
 
 
+def _stack_panels(st: "ShardState"):
+    """The panel stacks both lowerings share, as in the reference: each
+    slab panelled at (pr, cb, xw) (512, 64, 512 by default) and padded to
+    the largest shard's panels and chunks, values to the largest
+    ``chunk_vbase.max() + vmax``. Returns the stacked values, ``pad(name)``
+    and the geometry (``rows_max`` = the padded panels' rows)."""
+    pans = [F.to_panels(p, pr=512 if st.pr is None else st.pr,
+                        cb=64 if st.cb is None else st.cb,
+                        xw=512 if st.xw is None else st.xw)
+            for p in st.parts]
+    pr = pans[0].pr                     # normalised to a multiple of r
+    npan = max(p.npanels for p in pans)
+    nch = max(p.nchunks for p in pans)
+    vmax = max(p.vmax for p in pans)
+    nvals = max(int(p.chunk_vbase.max()) + vmax for p in pans)
+    values = _stacked_values(pans, nvals, st)
+    geom = dict(r=st.mat.r, c=st.mat.c, pr=pr, cb=pans[0].cb, xw=pans[0].xw,
+                vmax=vmax, rows_max=npan * pr, nrows=st.mat.shape[0],
+                ncols=st.mat.shape[1],
+                ncols_pad=max(p.ncols_pad for p in pans), nnz=st.mat.nnz)
+    return (values, lambda name: _padded_stack(pans, name, (npan, nch)),
+            geom)
+
+
+def _shard_build_panels(st: "ShardState"):
+    """The mask lowering's stacks in ``SPC5PanelDevice`` order (masks as
+    int32)."""
+    values, pad, geom = _stack_panels(st)
+    return (values, pad("chunk_col"), pad("chunk_mask").astype(np.int32),
+            pad("chunk_voff"), pad("chunk_row"), pad("chunk_vbase"),
+            pad("chunk_xbase")), geom
+
+
+def _shard_build_panels_desc(st: "ShardState"):
+    """The descriptor lowering's stacks: the stacked masks expanded once,
+    window-relative ``xcol`` (``xmax=xw``) and panel-relative ``yrow``
+    (``ymax=pr``)."""
+    values, pad, geom = _stack_panels(st)
+    desc = F.chunk_descriptors(pad("chunk_mask"), pad("chunk_voff"),
+                               pad("chunk_col"), pad("chunk_row"),
+                               r=geom["r"], c=geom["c"], vmax=geom["vmax"],
+                               xmax=geom["xw"], ymax=geom["pr"])
+    return (values, desc.valid, desc.vidx, desc.xcol, desc.yrow,
+            pad("chunk_vbase"), pad("chunk_xbase")), geom
+
+
+def _local_spmv_panels(sh: "ShardedPlan", local, x):
+    """One shard's panel mask SpMV: ``spmv_cuda_panels_db`` on the card,
+    its plain version on the CPU."""
+    dev = R.SPC5PanelDevice(*local)
+    return spc5_spmv.spmv_cuda_panels_db(
+        dev.chunk_vbase, dev.chunk_xbase, dev.chunk_col, dev.chunk_mask,
+        dev.chunk_voff, dev.chunk_row, dev.values, x, r=sh.r, c=sh.c,
+        cb=sh.cb, vmax=sh.vmax, xw=sh.xw, pr=sh.pr, nrows=sh.rows_max,
+        ncols_pad=sh.ncols_pad)
+
+
+def _local_spmv_panels_desc(sh: "ShardedPlan", local, x):
+    """One shard's panel descriptor SpMV: ``spmv_cuda_panels_desc_db`` on
+    the card, its plain version on the CPU."""
+    dev = R.SPC5PanelDescDevice(*local)
+    return spc5_spmv_desc.spmv_cuda_panels_desc_db(
+        dev.chunk_vbase, dev.chunk_xbase, dev.desc_valid, dev.desc_vidx,
+        dev.desc_xcol, dev.desc_yrow, dev.values, x, r=sh.r, c=sh.c,
+        cb=sh.cb, vmax=sh.vmax, xw=sh.xw, pr=sh.pr, nrows=sh.rows_max,
+        ncols_pad=sh.ncols_pad)
+
+
 register_layout(LayoutSpec(
     name=LAYOUT_PANELS,
     array_names=R.SPC5PanelDevice._fields,
@@ -1154,6 +1339,10 @@ register_layout(LayoutSpec(
     plain_spmv=lambda plan, x: _plain_panels(plan, x, False),
     plain_spmm=lambda plan, x: _plain_panels(plan, x, True),
     device_view=lambda arrays: R.SPC5PanelDevice(*arrays),
+    shard_build=_shard_build_panels,
+    local_spmv=_local_spmv_panels,
+    shard_build_desc=_shard_build_panels_desc,
+    local_spmv_desc=_local_spmv_panels_desc,
     lowerings=_LOWERING_NAMES,
     desc_array_names=R.SPC5PanelDescDevice._fields,
     desc_device_view=lambda arrays: R.SPC5PanelDescDevice(*arrays),
@@ -1315,3 +1504,305 @@ register_layout(LayoutSpec(
     # depend on it
     lowerings=_LOWERING_NAMES,
 ))
+
+
+# ----------------------------------------------------------------------------
+# Shard pass: row slabs as per-shard sub-plans, stacked
+# ----------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShardedPlan:
+    """The sub-plans of one registered layout over ``ndev`` row slabs,
+    stacked, as in the reference.
+
+    ``arrays`` hold the layout's tensors with a leading shard axis (each
+    shard padded to the largest; a padding chunk's mask is 0 and adds
+    nothing), in the order of the layout's array names for the plan's
+    lowering, so :func:`local_execute_spmv` takes one shard's slice without
+    knowing the layout. ``row_start`` is each shard's first global row.
+    With ``rank=None`` the stacks hold every shard, all on one device;
+    with ``rank=k`` they hold shard k's slice alone (leading size 1), the
+    analogue of the reference's stack placed on a mesh by
+    ``NamedSharding``: rank k of a process group holds its own shard.
+    A reordering applied before the partition rides along (``col_perm``,
+    ``row_iperm``) as on :class:`SPC5Plan`."""
+
+    layout: str
+    arrays: Tuple[torch.Tensor, ...]
+    row_start: torch.Tensor         # (ndev,) int32, every shard's
+    meta: Tuple[Tuple[str, Any], ...]
+    col_perm: Optional[torch.Tensor] = None
+    row_iperm: Optional[torch.Tensor] = None
+    reorder: str = ""
+    trace_json: str = "[]"
+    rank: Optional[int] = None
+
+    def __getattr__(self, name):
+        return _resolve_attr(self, name)
+
+    @property
+    def ndev(self) -> int:
+        """The shards of the partition: the stacks' leading size where the
+        plan holds every shard."""
+        return int(self.row_start.shape[0])
+
+    @property
+    def trace(self) -> List[dict]:
+        return json.loads(self.trace_json)
+
+    def local(self, k: int) -> Tuple[torch.Tensor, ...]:
+        """Shard k's tensors: its slice of every stack (views, no copy)."""
+        if self.rank is not None:
+            if k != self.rank:
+                raise ValueError(f"this plan holds shard {self.rank} only, "
+                                 f"not shard {k}")
+            k = 0
+        elif not 0 <= k < self.ndev:
+            raise ValueError(f"shard {k} is not in [0, {self.ndev})")
+        return tuple(a[k] for a in self.arrays)
+
+
+@dataclasses.dataclass
+class ShardState:
+    """What a layout's ``shard_build`` hook builds from: the (permuted)
+    matrix, its row slabs and the geometry requested."""
+
+    mat: F.SPC5Matrix
+    parts: List[F.SPC5Matrix]
+    pr: Optional[int] = None
+    xw: Optional[int] = None
+    cb: Optional[int] = None
+    dtype: Any = None
+
+
+def shard_plan(mat: F.SPC5Matrix, ndev: int, *, layout: str = "auto",
+               cb: Optional[int] = None, dtype=None, vdtype: str = "auto",
+               pr: Optional[int] = None, xw: int = 512,
+               store: Optional[S.RecordStore] = None,
+               config: Optional[S.PanelConfig] = None, tune: bool = True,
+               reorder=None, lowering: str = "auto",
+               partition: str = "auto", device: Optional[Device] = None,
+               rank: Optional[int] = None) -> ShardedPlan:
+    """The shard pass, as in the reference: tune -> reorder -> lowering ->
+    partition -> per-layout stacking, each under an ``obs`` span
+    (``shard.tune`` ... ``shard.build``) and appending a
+    ``duration_s``-stamped entry to the plan's trace with the reference's
+    keys.
+
+    The tune pass runs at ``workers=ndev`` on the records of the plan's
+    device only (:func:`~repro_torch.core.selector.backend_of`) and clamps
+    the tuned config against one shard's rows. ``layout`` is a registry key
+    or "auto" (the tuned config's layout, panels where ``pr`` is given,
+    else whole-vector); ``lowering`` an explicit lowering the layout's
+    shard hooks serve (:attr:`LayoutSpec.shard_lowerings`; anything else
+    raises), or "auto" (the tuned pick, else :func:`lowering_cost`).
+    ``vdtype`` as in :func:`make_plan`, except that "int8" demotes to
+    "bf16" (``vdtype_demoted`` on the lowering entry): the stacks carry no
+    per-chunk scales. ``dtype`` may only be None or float32, and not with
+    a ``vdtype``. ``reorder`` (a strategy name or a Reordering) permutes
+    the whole matrix before the partition. ``partition`` is "blocks" (the
+    paper's equal-block split), "nnz" (equal nonzeros) or "auto" ("nnz"
+    where it cuts the heaviest shard's share of the nonzeros by more than
+    5 %, with the evidence on the trace).
+
+    The plan's tensors go to ``device`` (None: the card, which raises where
+    there is none; ``"cpu"`` runs the plain versions). With ``rank=k`` only
+    shard k's slice goes there (:class:`ShardedPlan`); the host builds
+    every shard either way, as the reference's host does before placing
+    the stack."""
+    from repro_torch.kernels import ops
+    from . import partition as P
+
+    lowering = canonical_lowering(lowering)
+    vdtype = F.canonical_vdtype(vdtype)
+    if vdtype not in ("", "auto") and dtype is not None:
+        raise ValueError(
+            f"pass either dtype= (legacy passthrough) or vdtype={vdtype!r}, "
+            f"not both -- the value-dtype axis owns the cast")
+    if dtype is not None and not _is_f32(dtype):
+        raise NotImplementedError(
+            f"dtype={dtype!r}: the port stores values as float32, or as "
+            f"vdtype='bf16' / 'int8'; no kernel takes another value store "
+            f"(ROADMAP §3, deliberate differences)")
+    if partition not in P.PARTITION_MODES + ("auto",):
+        raise ValueError(
+            f"unknown partition mode {partition!r}; expected one of "
+            f"{P.PARTITION_MODES + ('auto',)}")
+    if rank is not None and not 0 <= rank < ndev:
+        raise ValueError(f"rank {rank} is not in [0, {ndev})")
+    dev = ops.resolve_device(device)
+    if dtype is not None:
+        dtype = np.float32
+    if vdtype == "auto":
+        vdtype = ""
+    # the stacks carry no per-chunk scales: int8 demotes to bf16, traced
+    vdtype_demoted = vdtype == "int8"
+    if vdtype_demoted:
+        vdtype = "bf16"
+    if vdtype:
+        dtype = F.value_dtype(vdtype)
+    trace: List[dict] = []
+
+    # tune at workers=ndev; no whole-vector demotion, as each shard's kernel
+    # sees only its own rows
+    sp = obs.span("shard.tune", workers=int(ndev))
+    tentry: dict = {"pass": "tune", "workers": int(ndev)}
+    if config is None and tune and pr is None and cb is None:
+        tstore = store if store is not None else S.get_default_store()
+        backend = S.backend_of(dev)
+        if S.has_backend(tstore, backend):
+            config = S.tune(S.spc5_features(mat), store=tstore,
+                            kernel=f"{mat.r}x{mat.c}", workers=ndev,
+                            backend=backend)
+            tentry.update(source="store", layout=config.layout,
+                          pr=int(config.pr or 0), xw=int(config.xw or 0),
+                          cb=int(config.cb or 0), reorder=config.reorder)
+        else:
+            tentry["source"] = "no-store"
+    else:
+        tentry["source"] = ("explicit" if (config is not None
+                                           or pr is not None
+                                           or cb is not None)
+                            else "disabled")
+    tentry["duration_s"] = sp.finish().duration_s
+    trace.append(tentry)
+    if reorder is None and config is not None and config.reorder:
+        reorder = config.reorder
+
+    sp = obs.span("shard.reorder")
+    rentry: dict = {"pass": "reorder", "strategy": "", "applied": False}
+    reo = None
+    if reorder is not None:
+        if isinstance(reorder, str):
+            reo = RE.reorder(mat, reorder, r=mat.r, c=mat.c,
+                             pr=(config.pr if config is not None
+                                 and config.layout == LAYOUT_PANELS
+                                 else pr) or 512,
+                             xw=xw, cb=cb or 64)
+        else:
+            reo = as_reordering(reorder)
+            if (reo.nrows, reo.ncols) != mat.shape:
+                raise ValueError(
+                    f"reordering is for shape {(reo.nrows, reo.ncols)}, "
+                    f"matrix is {mat.shape}")
+        rentry.update(strategy=reo.strategy, stats=_scalar_stats(reo.stats))
+        if reo.is_identity:
+            reo = None
+        else:
+            mat = reo.permute_spc5(mat)
+            rentry["applied"] = True
+    rentry["duration_s"] = sp.finish().duration_s
+    trace.append(rentry)
+
+    sp = obs.span("shard.lowering")
+    req_layout = canonical_layout(layout)
+    layout = LAYOUT_WHOLE
+    spr, sxw, scb = pr, xw, cb
+    if config is not None:
+        # clamped against one shard's rows and blocks, not the matrix's
+        config = S.clamp_config(
+            config, nrows=max(-(-mat.nrows // max(ndev, 1)), mat.r),
+            ncols=mat.ncols, r=mat.r, c=mat.c,
+            nblocks=max(1, -(-mat.nblocks // max(ndev, 1))))
+        if config.layout == LAYOUT_PANELS:
+            layout = LAYOUT_PANELS
+            spr = config.pr or 512
+            sxw = config.xw or 512
+            scb = config.cb or 64
+        else:
+            scb = config.cb if cb is None else cb
+    if layout != LAYOUT_PANELS and pr is not None:
+        layout = LAYOUT_PANELS
+        spr, scb = pr, (64 if scb is None else scb)
+    if req_layout not in _LAYOUT_SENTINELS:
+        # an explicit layout wins over the tuned or pr-derived one
+        layout = req_layout
+        if layout == LAYOUT_PANELS and spr is None:
+            spr, scb = 512, (64 if scb is None else scb)
+    spec = _REGISTRY[layout]
+    served = spec.shard_lowerings
+    if not served:
+        raise ValueError(
+            f"layout {layout!r} registers no sharded stacking hooks; "
+            f"shardable layouts: "
+            f"{[n for n in _REGISTRY if _REGISTRY[n].shard_lowerings]}")
+    lentry: dict = {"pass": "lowering", "layout": layout}
+    if lowering not in _LOWERING_SENTINELS:
+        if lowering not in served:
+            raise ValueError(
+                f"layout {layout!r} has no sharded {lowering!r} stacking "
+                f"hooks (serves {served}); pass lowering='auto' or one of "
+                f"{served}")
+        lentry["reason"] = "requested"
+    elif config is not None and config.lowering in served:
+        lowering = config.lowering
+        lentry["reason"] = "tuned"
+    else:
+        itemsize = np.dtype(dtype or mat.values.dtype).itemsize
+        lowering = min(served, key=lambda n: lowering_cost(
+            mat.r, mat.c, mat.avg_nnz_per_block, itemsize, n))
+        lentry["reason"] = "cost-model"
+    lentry["lowering"] = lowering
+    lentry["vdtype"] = vdtype
+    if vdtype_demoted:
+        lentry["vdtype_demoted"] = True
+        lentry["vdtype_demoted_reason"] = "no-sharded-int8-scales"
+    lentry["duration_s"] = sp.finish().duration_s
+    trace.append(lentry)
+
+    # "auto": the nnz-balanced split where it cuts the heaviest shard's
+    # share by more than 5 % (arXiv:1805.11938's load-imbalance criterion)
+    sp = obs.span("shard.partition", ndev=int(ndev))
+    pentry: dict = {"pass": "partition", "requested": partition,
+                    "ndev": int(ndev)}
+    mode = partition
+    if partition == "auto":
+        skew_blocks = P.nnz_skew(mat, ndev, "blocks")
+        skew_nnz = P.nnz_skew(mat, ndev, "nnz")
+        mode = "nnz" if skew_nnz < 0.95 * skew_blocks else "blocks"
+        pentry.update(skew_blocks=round(skew_blocks, 4),
+                      skew_nnz=round(skew_nnz, 4))
+    pentry["mode"] = mode
+    pentry["duration_s"] = sp.finish().duration_s
+    trace.append(pentry)
+
+    sp = obs.span("shard.build", layout=layout, ndev=int(ndev),
+                  lowering=lowering)
+    state = ShardState(mat=mat, parts=P.partition_matrix(mat, ndev, mode),
+                       pr=spr, xw=sxw, cb=scb, dtype=dtype)
+    build = (spec.shard_build_desc if lowering == LOWERING_DESC
+             else spec.shard_build)
+    stacks, geom = build(state)
+    geom["lowering"] = lowering
+    geom["vdtype"] = vdtype
+    trace.append({"pass": "shard", "layout": layout, "ndev": int(ndev),
+                  "duration_s": sp.finish().duration_s,
+                  **{k: v for k, v in sorted(geom.items())
+                     if isinstance(v, (int, float, str, bool))}})
+    held = slice(None) if rank is None else slice(rank, rank + 1)
+    col_perm = row_iperm = None
+    if reo is not None:
+        col_perm = _perm_tensor(reo.col_perm, dev)
+        row_iperm = _perm_tensor(reo.row_iperm, dev)
+    return ShardedPlan(
+        layout=layout, arrays=tuple(R.to_tensor(a[held], dev)
+                                    for a in stacks),
+        row_start=torch.from_numpy(
+            P.partition_row_starts(mat, ndev, mode)).to(dev),
+        meta=tuple(sorted(geom.items())), col_perm=col_perm,
+        row_iperm=row_iperm, reorder="" if reo is None else reo.strategy,
+        trace_json=json.dumps(trace, sort_keys=True), rank=rank)
+
+
+def local_execute_spmv(sh: ShardedPlan, local: Tuple[torch.Tensor, ...],
+                       x: torch.Tensor) -> torch.Tensor:
+    """One shard's y slab ((rows_max,) float32) from its tensors ``local``
+    (:meth:`ShardedPlan.local`) and the whole x in the permuted column
+    order: the sharded twin of :func:`execute_spmv`, and like it the only
+    dispatch on the layout and lowering. On the card it launches the
+    kernel :func:`execute_spmv` launches for the layout and lowering at
+    ``double_buffer=True``; on the CPU it runs the plain version."""
+    spec = _REGISTRY[sh.layout]
+    hook = (spec.local_spmv_desc if _meta_lowering(sh.meta) == LOWERING_DESC
+            else spec.local_spmv)
+    return hook(sh, local, x)

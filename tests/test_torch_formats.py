@@ -170,3 +170,37 @@ def test_greedy_cover_matches_reference(rc, kind):
     tmat = TF.csr_to_spc5(tcsr, *rc)
     assert_same_bytes(JF.csr_to_spc5(jcsr, *rc), tmat, SPC5_FIELDS)
     assert TF.block_stats(tcsr, *rc)[0] == tmat.nblocks
+
+
+# ----------------------------------------------------------------------------
+# Occupancy: the paper's eqs. (1)-(3), measured and modelled
+# ----------------------------------------------------------------------------
+
+OCCUPANCY_MATRICES = {
+    "banded": lambda M: M.banded(1200, 6, 0.8, seed=3),
+    "powerlaw": lambda M: M.powerlaw(1536, 12, alpha=1.6, seed=2),
+    "fem": lambda M: M.fem_blocks(640, 4, 5, seed=4),
+}
+
+
+@pytest.mark.parametrize("rc", TF.SUPPORTED_BLOCKS,
+                         ids=lambda rc: f"{rc[0]}x{rc[1]}")
+@pytest.mark.parametrize("matrix", sorted(OCCUPANCY_MATRICES))
+def test_occupancy_matches_the_reference(matrix, rc):
+    """Both ``occupancy_bytes`` and both closed-form models equal the
+    reference's, at the default and at other integer and float sizes."""
+    jcsr = OCCUPANCY_MATRICES[matrix](JM)
+    tcsr = OCCUPANCY_MATRICES[matrix](TM)
+    jmat, tmat = JF.csr_to_spc5(jcsr, *rc), TF.csr_to_spc5(tcsr, *rc)
+    for s_int in (4, 8):
+        assert tcsr.occupancy_bytes(s_int) == jcsr.occupancy_bytes(s_int)
+        assert tmat.occupancy_bytes(s_int) == jmat.occupancy_bytes(s_int)
+        for s_float in (4, 8):
+            args = (tmat.nnz, tmat.nrows, tmat.avg_nnz_per_block, *rc)
+            assert TF.occupancy_model_spc5(
+                *args, s_float=s_float, s_int=s_int) == \
+                JF.occupancy_model_spc5(*args, s_float=s_float, s_int=s_int)
+            assert TF.occupancy_model_csr(
+                tcsr.nnz, tcsr.nrows, s_float=s_float, s_int=s_int) == \
+                JF.occupancy_model_csr(jcsr.nnz, jcsr.nrows,
+                                       s_float=s_float, s_int=s_int)

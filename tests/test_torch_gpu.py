@@ -4358,3 +4358,59 @@ def test_a_refused_dispatch_on_the_card_fails_its_callers(cuda):
     assert st["degraded"] == 0 and st["batches"] == 0
     assert not any(v for mod in (K, KD, KM, KDM, KT)
                    for v in mod.LAUNCHES.values())
+
+
+# ----------------------------------------------------------------------------
+# Sharded SpMV: every shard's local SpMV through the layout's kernel
+# ----------------------------------------------------------------------------
+
+_SHARD_KERNELS = {("whole_vector", "mask"): "spmv_cuda_db",
+                  ("whole_vector", "descriptor"): "spmv_cuda_desc_db",
+                  ("panels", "mask"): "spmv_cuda_panels_db",
+                  ("panels", "descriptor"): "spmv_cuda_panels_desc_db"}
+
+
+@pytest.mark.parametrize("vdtype", ["f32", "bf16"])
+@pytest.mark.parametrize("layout,lowering", sorted(_SHARD_KERNELS))
+def test_sharded_spmv_runs_each_shard_through_its_kernel(cuda, layout,
+                                                         lowering, vdtype):
+    """8 shards of a FEM matrix on the card, one after another: each
+    shard's ``local_execute_spmv`` launches the kernel ``ops.spmv`` runs
+    for the layout and lowering (8 launches, no other kernel), and y
+    assembled from the slabs is held to ``ops.spmv`` of the unsharded plan
+    and to the float64 product (bf16 to the dequantised values'
+    product)."""
+    from repro_torch.core import distributed as D
+    from repro_torch.core import plan as PL
+    csr = matgen.fem_blocks(2_000, 4, 6, seed=4)
+    mat = F.csr_to_spc5(csr, 4, 4)
+    geom = dict(cb=64) if layout == "whole_vector" else dict(pr=128, cb=16,
+                                                             xw=128)
+    kw = dict(layout=layout, lowering=lowering, vdtype=vdtype, tune=False,
+              **geom)
+    sh = D.shard_matrix(mat, 8, device=cuda, **kw)
+    plan = ops.prepare(mat, device=cuda, **kw)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        mat.ncols).astype(np.float32)).to(cuda)
+    for mod in (K, KD, KM, KDM, KT):
+        mod.reset_launches()
+    slabs = torch.stack([PL.local_execute_spmv(sh, sh.local(k), x)
+                         for k in range(sh.ndev)])
+    y = D._assemble(slabs, sh.row_start, sh.nrows)
+    torch.cuda.synchronize()
+    launches = {k: v for mod in (K, KD, KM, KDM, KT)
+                for k, v in mod.LAUNCHES.items() if v}
+    assert launches == {_SHARD_KERNELS[layout, lowering]: 8}
+    y_plan = ops.spmv(plan, x)
+    scale = float(y_plan.abs().max())
+    assert float((y - y_plan).abs().max()) <= RTOL * scale
+    vals = csr.values.astype(np.float64)
+    if vdtype == "bf16":
+        vals = torch.from_numpy(csr.values.astype(np.float32)).to(
+            torch.bfloat16).double().numpy()
+    import scipy.sparse
+    a64 = scipy.sparse.csr_matrix((vals, csr.colidx, csr.rowptr),
+                                  shape=csr.shape)
+    y64 = a64 @ x.cpu().double().numpy()
+    assert float(np.abs(y.cpu().double().numpy() - y64).max()) <= \
+        RTOL * float(np.abs(y64).max())

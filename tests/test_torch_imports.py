@@ -1,7 +1,7 @@
-"""The port stands alone: no module of ``src/repro_torch`` and not
-``chip_smoke.py`` imports JAX, ``ml_dtypes`` or the JAX package ``repro``
-(the card's machine has none of them), and importing the port builds
-nothing."""
+"""The port stands alone: no module of ``src/repro_torch``, no example of
+``examples_torch`` and not ``chip_smoke.py`` imports JAX, ``ml_dtypes`` or
+the JAX package ``repro`` (the card's machine has none of them), and
+importing the port builds nothing."""
 import ast
 import os
 import subprocess
@@ -13,9 +13,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "src", "repro_torch")
 FORBIDDEN = {"jax", "jaxlib", "ml_dtypes", "repro"}
 
+EXAMPLES = os.path.join(REPO, "examples_torch")
 FILES = sorted(
     os.path.relpath(os.path.join(d, f), REPO)
-    for d, _, fs in os.walk(PORT) for f in fs if f.endswith(".py")
+    for top in (PORT, EXAMPLES)
+    for d, _, fs in os.walk(top) for f in fs if f.endswith(".py")
 ) + ["chip_smoke.py", "time_spmm_desc.py", "time_panels_desc.py"]
 
 
@@ -49,7 +51,10 @@ def test_port_modules_cover_the_slice():
             "analysis/verify.py", "obs/__init__.py", "obs/metrics.py",
             "obs/spans.py", "obs/export.py", "obs/faults.py",
             "launch/__init__.py", "launch/resilience.py",
-            "launch/server.py", "launch/serve.py"} <= names
+            "launch/server.py", "launch/serve.py",
+            "core/distributed.py"} <= names
+    assert {"examples_torch/quickstart.py",
+            "examples_torch/cg_solver.py"} <= set(FILES)
     for src in ("spc5_spmv.cu", "spc5_spmm.cu", "spc5_spmv_desc.cu",
                 "spc5_spmm_desc.cu", "spc5_spmm_desc_cmap.cu",
                 "spc5_spmv_tail.cu", "spc5_stage.cuh",
@@ -82,6 +87,7 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import repro_torch.analysis, repro_torch.core.selector\n"
         "import repro_torch.core.partition, repro_torch.kernels.ref\n"
         "import repro_torch.obs, repro_torch.launch.serve\n"
+        "import repro_torch.core.distributed\n"
         "from repro_torch.kernels import _build\n"
         "assert not any(m.split('.')[0] in {'jax', 'ml_dtypes', 'repro'} "
         "for m in sys.modules), sorted(m for m in sys.modules if 'jax' in m)\n"
