@@ -162,10 +162,10 @@ phase that goes wrong:
    fused and ``col_perm`` kept, and the same Reordering through the two
    mask layers (``lowering="mask"``, auto layout panels, and
    ``layout="whole_vector", lowering="mask"``), rows fused and
-   ``col_perm`` kept, at f32, the default layer also at bf16 and the mask
-   panel layer also at int8 (the other narrow (3b) layers were cut for
-   the serving phase's time; the small check holds every map kernel at
-   both widths): forwards at batch 1, 16 and 128 and their
+   ``col_perm`` kept, at f32 and the mask panel layer also at int8 (the
+   other narrow (3b) layers were cut for the serving and LM phases' time;
+   the small check holds every map kernel at both widths): forwards at
+   batch 1, 16 and 128 and their
    ``double_buffer=False`` twins run the eleven map kernels at every width
    and nothing else, each output held against its plain version, the f64
    product and the unreordered layer of its layout and lowering; each map
@@ -192,7 +192,25 @@ phase that goes wrong:
    rows lands on the ``reference`` rung and its SpMV runs on the card;
    ``python -m repro_torch.launch.serve --vocab-spmv 0.1 --qps 500
    --metrics`` once, its Prometheus file parsed and its Chrome trace
-   holding a ``serve.batch`` span under a ``serve.submit`` span;
+   holding a ``serve.batch`` span under a ``serve.submit`` span; then
+   ``python -m repro_torch.launch.chaos_smoke`` in a subprocess with
+   ``SPC5_FAULTS`` set to the same four points at 10 %, which must exit 0;
+5b. LM decode (ROADMAP queue 1 item 13, the dense decoder): (a) the
+   smoke configs of yi-6b and gemma-2b, one set of params drawn on the
+   host and carried to both devices with ``convert.params_from_numpy``,
+   decoded teacher-forced on the card and on the CPU at a bf16 and an int8
+   KV cache, the logits within 1e-4 of max|logits|; (b) yi-6b at full
+   width and depth (``get_config("yi-6b")``, about 6.06 B parameters): f32
+   masters drawn on the card (24.2 GB), teacher-forced ``decode_step``
+   over 32 positions at batch 4 against ``prefill`` at lengths 1, 2, 8,
+   16 and 32 (TF32 off), then ``cast_params`` to bf16 once and the same
+   check at bf16, then ``ServeConfig``'s default greedy decode (4
+   sequences, 31 steps) timed with CUDA events at both KV dtypes, its ms a
+   step and tok/s printed beside the bound (the bytes a step must read
+   over 3.35 TB/s); (c) ``python -m repro_torch.launch.serve --arch yi-6b
+   --vocab-spmv 0.1`` on the card: it decodes, prints the reference's
+   tok/s line, then its vocab bench launches an SpMV kernel, counted with
+   the counts set to 0 just before;
 6. beta(r,c)_test path: the same weight in beta(2,4) (whose singleton
    blocks hold about 30 % of the nonzeros) as
    ``SparseLinear.from_dense(w, density=0.1, block=(2, 4), layout="test",
@@ -249,10 +267,11 @@ phase that goes wrong:
    ``value_dtypes``, the widths it launched at on the main path, and at
    bf16 / int8 its launches, errors and times in turns under
    ``quantised``, its launches in the serving phase under
-   ``serve_launches`` and in the sharding phase under ``shard_launches``),
-   then, last, the ``{"ok": true, "device": ...}`` line; before them a
-   ``{"sharding": ..., "examples": ...}`` line with the sharding phase's
-   numbers.
+   ``serve_launches``, in the sharding phase under ``shard_launches`` and
+   in the LM launcher's run under ``lm_launches``), then, last, the
+   ``{"ok": true, "device": ...}`` line; before them a ``{"sharding":
+   ..., "examples": ...}`` line with the sharding phase's numbers and a
+   ``{"lm_decode": ...}`` line with the LM phase's.
 
 It needs the repository beside it (``src/repro_torch``) and a CUDA device;
 it never runs on the CPU.
@@ -3753,14 +3772,14 @@ def panel_rows_reordering(seed=7):
 
 #: (3b)'s layers: (layout, lowering) -> the ``ops.prepare`` keywords that
 #: build it beside ``nvec=128`` and the Reordering, and its value widths.
-#: Every layer runs at f32, the default layer also at bf16 and the mask
-#: panel layer also at int8, so the reordered quantised path runs at vocab
-#: width at both narrow widths: each reordered prepare of the weight
-#: re-blocks 26 M nonzeros on the host (16-31 s), and the smoke's time is
-#: capped (the serving phase took the room of the other narrow layers); the
-#: small check holds the eleven map kernels at bf16 and int8.
+#: Every layer runs at f32 and the mask panel layer also at int8, so the
+#: reordered quantised path runs at vocab width: each reordered prepare of
+#: the weight re-blocks 26 M nonzeros on the host (16-31 s), and the
+#: smoke's time is capped (the serving phase took the room of the other
+#: narrow layers, the LM decode phase that of the default layer at bf16);
+#: the small check holds the eleven map kernels at bf16 and int8.
 VOCAB_REORDERED = {
-    ("panels", "descriptor"): ({}, ("f32", "bf16")),
+    ("panels", "descriptor"): ({}, ("f32",)),
     ("panels", "mask"): (dict(lowering="mask"), ("f32", "int8")),
     ("whole_vector", "mask"): (dict(layout="whole_vector", lowering="mask"),
                                ("f32",)),
@@ -4495,6 +4514,326 @@ def serving_tier(mat, csr, device):
     return out
 
 
+# ----------------------------------------------------------------------------
+# LM decode (ROADMAP queue 1 item 13, the dense decoder)
+# ----------------------------------------------------------------------------
+
+#: The smoke configs held card against CPU, and the full-size decode: yi-6b
+#: (``get_config("yi-6b")``: 32 layers, d_model 4,096, vocab 64,000) at
+#: ``ServeConfig``'s default batch and tokens, teacher-forced over
+#: ``positions`` and checked against ``prefill`` at ``checked`` lengths.
+LM = dict(smoke_archs=("yi-6b", "gemma-2b"), smoke_batch=2, smoke_len=12,
+          arch="yi-6b", batch=4, positions=32, checked=(1, 2, 8, 16, 32),
+          seed=0, reps=3)
+LM_KV = ("bfloat16", "int8")
+#: |card - CPU| <= tol * max|CPU| on the smoke configs' f32 logits, by KV
+#: dtype: a bf16 key (the cache in the configs' f32) to the f32 tolerance
+#: ``tests/test_torch_lm_models.py`` starts from; an int8 one to one
+#: quantisation step, 1/127: an entry at a rounding tie on one device can
+#: land one step (max|k| / 127) away on the other.
+LM_SMOKE_TOL = {"bfloat16": 1e-4, "int8": 1 / 127}
+#: |decode - prefill| <= tol * max|prefill| at full size: f32 (TF32 off),
+#: and bf16 weights with a bf16 KV cache (each product rounded to bf16 in
+#: both paths, in other orders, through 32 layers: 0.0231 measured on an
+#: H100, as far from the f32 logits as from each other).
+LM_FULL_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -4}
+
+
+def lm_err(y, ref) -> float:
+    """max|y - ref| / max|ref|, in float64 on ``y``'s device."""
+    ref = ref.to(y.device).double()
+    return float((y.double() - ref).abs().max() / ref.abs().max())
+
+
+def _lm_tree_map(fn, tree):
+    return {k: _lm_tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _lm_leaves(tree):
+    for v in tree.values():
+        yield from (_lm_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def lm_card_vs_cpu(device):
+    """(a) The smoke configs of :data:`LM`'s archs, one set of params made
+    on the host from a seed and carried to both devices as numpy leaves
+    (``convert.params_from_numpy``), decoded teacher-forced at both KV
+    dtypes on the card and on the CPU: the logits of every step within
+    :data:`LM_SMOKE_TOL` of max|CPU|. Returns the error of each case."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import convert as CV
+    from repro_torch.models import model as MD
+    out = {}
+    B, S = LM["smoke_batch"], LM["smoke_len"]
+    for arch in LM["smoke_archs"]:
+        cfg = get_smoke_config(arch)
+        host = MD.init_params(cfg, torch.Generator().manual_seed(LM["seed"]))
+        tree = _lm_tree_map(lambda t: t.numpy(), host)
+        toks = np.random.default_rng(LM["seed"] + 1).integers(
+            0, cfg.vocab, (B, S))
+        for kv in LM_KV:
+            logits = []
+            for dev in (device, torch.device("cpu")):
+                params = CV.params_from_numpy(tree, dev)
+                cache = MD.init_cache(cfg, B, S, kv_dtype=kv, device=dev)
+                tok = torch.from_numpy(toks).to(dev)
+                steps = []
+                for t in range(S):
+                    lg, cache = MD.decode_step(params, cache,
+                                               tok[:, t:t + 1], t, cfg)
+                    steps.append(lg.cpu())
+                logits.append(torch.stack(steps, dim=1))
+            err = lm_err(*logits)
+            out[f"{arch}/{kv}"] = err
+            if not err <= LM_SMOKE_TOL[kv]:
+                raise SmokeFailure(f"LM decode, {arch} kv={kv}: card against "
+                                   f"CPU off by {err} of max|logits|")
+    print(f"  (a) smoke configs, card against CPU, {B}x{S} teacher-forced "
+          f"steps, worst |err| / max|logits|: "
+          f"{ {k: float(f'{v:.3g}') for k, v in out.items()} }")
+    return out
+
+
+def lm_weight_bytes(params, cfg, batch, max_seq, kv_bytes):
+    """Bytes a decode step must move at least: every weight leaf read once
+    (the embedding table: only the batch's rows), the KV cache read once,
+    the logits written once."""
+    emb = params["embed"]
+    total = sum(t.numel() * t.element_size() for t in _lm_leaves(params))
+    total -= emb.numel() * emb.element_size()
+    total += batch * emb.shape[1] * emb.element_size()
+    hd = cfg.resolved_head_dim
+    total += cfg.n_layers * 2 * batch * max_seq * cfg.kv_heads * hd * kv_bytes
+    return total + batch * cfg.vocab * 4
+
+
+def _lm_teacher_forced(params, cfg, toks, kv):
+    """Logits (B, T, vocab) of ``decode_step`` over ``toks`` (B, T), and
+    the greatest |decode - prefill| / max|prefill| at :data:`LM`'s
+    checked lengths."""
+    import torch
+    from repro_torch.models import model as MD
+    B, T = toks.shape
+    cache = MD.init_cache(cfg, B, T, kv_dtype=kv, device=toks.device)
+    steps = []
+    for t in range(T):
+        lg, cache = MD.decode_step(params, cache, toks[:, t:t + 1], t, cfg)
+        steps.append(lg)
+    del cache
+    worst = 0.0
+    for n in LM["checked"]:
+        ref, _ = MD.prefill(params, {"tokens": toks[:, :n]}, cfg)
+        worst = max(worst, lm_err(steps[n - 1], ref))
+    return torch.stack(steps, dim=1), worst
+
+
+def _lm_time_decode(params, cfg, kv, device):
+    """``ServeConfig``'s default greedy loop (``batch`` sequences, ``tokens
+    - 1`` steps from a zero token) through ``make_serve_step``: the median
+    over :data:`LM`'s reps of CUDA-event ms a step (after one untimed
+    loop)."""
+    import torch
+    from repro_torch.launch.server import ServeConfig
+    from repro_torch.models import model as MD
+    from repro_torch.train.step import make_serve_step
+    sc = ServeConfig()
+    step = make_serve_step(cfg)
+    per = []
+    for rep in range(LM["reps"] + 1):
+        cache = MD.init_cache(cfg, sc.batch, sc.tokens, kv_dtype=kv,
+                              device=device)
+        tok = torch.zeros((sc.batch, 1), dtype=torch.long, device=device)
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        for t in range(sc.tokens - 1):
+            tok, cache = step(params, cache, tok, t)
+        e1.record()
+        torch.cuda.synchronize()
+        if rep:
+            per.append(e0.elapsed_time(e1) / (sc.tokens - 1))
+        del cache
+    return float(np.median(per)), sc
+
+
+def _lm_profile_step(params, cfg, kv, device):
+    """One step of ``ServeConfig``'s default greedy loop (after one
+    untimed step) under ``torch.profiler``: the top-level host ops it
+    issues, the kernels it launches and their summed device time in ms
+    (None where the profiler saw no device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.server import ServeConfig
+    from repro_torch.models import model as MD
+    from repro_torch.train.step import make_serve_step
+    sc = ServeConfig()
+    step = make_serve_step(cfg)
+    cache = MD.init_cache(cfg, sc.batch, sc.tokens, kv_dtype=kv,
+                          device=device)
+    tok = torch.zeros((sc.batch, 1), dtype=torch.long, device=device)
+    tok, cache = step(params, cache, tok, 0)
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        tok, cache = step(params, cache, tok, 1)
+        torch.cuda.synchronize()
+    events = prof.events()
+    host_ops = sum(e.cpu_parent is None and e.device_type == DeviceType.CPU
+                   for e in events)
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.device_time_total for e in kernels)
+    return {"host_ops": host_ops, "kernels": len(kernels),
+            "device_ms": device_us / 1e3 if device_us else None}
+
+
+def lm_full_size(device):
+    """(b) yi-6b at full width and depth: f32 masters drawn on the card,
+    teacher-forced ``decode_step`` against ``prefill`` (f32, TF32 off);
+    then ``cast_params`` to bf16 once (the f32 copy freed), the same check
+    at bf16, and ``ServeConfig``'s default greedy decode timed at both KV
+    dtypes beside the bound (the bytes of :func:`lm_weight_bytes` over the
+    card's memory rate)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MD
+    from repro_torch.train.step import cast_params
+    full = get_config(LM["arch"])
+    cfg32 = dataclasses.replace(full, dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = MD.init_params(
+        cfg32, torch.Generator(device=device).manual_seed(LM["seed"]))
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _lm_leaves(params))
+    print(f"  (b) {full.name}: {full.n_layers} layers, d_model "
+          f"{full.d_model}, {full.n_heads} heads (kv {full.kv_heads}), d_ff "
+          f"{full.d_ff}, vocab {full.vocab}; n_params {full.n_params():,}; "
+          f"f32 masters {nbytes / 1e9:.2f} GB drawn on the card in "
+          f"{time.perf_counter() - t0:.3f} s")
+    B, T = LM["batch"], LM["positions"]
+    toks = torch.from_numpy(np.random.default_rng(LM["seed"] + 2).integers(
+        0, full.vocab, (B, T))).to(device)
+    out = {"n_params": full.n_params(), "f32_bytes": nbytes}
+    logits32, err = _lm_teacher_forced(params, cfg32, toks, "bfloat16")
+    out["f32"] = {"decode_vs_prefill": err}
+    print(f"      f32: decode against prefill at lengths {LM['checked']}: "
+          f"{err:.3g} of max|logits| (tol {LM_FULL_TOL['float32']:g})")
+    if not err <= LM_FULL_TOL["float32"]:
+        raise SmokeFailure(f"LM decode, {full.name} f32: decode against "
+                           f"prefill off by {err} of max|logits|")
+    t0 = time.perf_counter()
+    params = cast_params(params, torch.bfloat16)
+    torch.cuda.synchronize()
+    out["cast_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    logits16, err = _lm_teacher_forced(params, full, toks, "bfloat16")
+    against32 = lm_err(logits16, logits32)
+    del logits32, logits16
+    out["bf16"] = {"decode_vs_prefill": err, "against_f32": against32}
+    print(f"      bf16 (cast once, {out['cast_s']:.3f} s; card peak "
+          f"{out['peak_gb']:.1f} GB): decode against prefill {err:.3g} of "
+          f"max|logits| (tol {LM_FULL_TOL['bfloat16']:g}); bf16 decode "
+          f"against f32 decode {against32:.3g}")
+    if not err <= LM_FULL_TOL["bfloat16"]:
+        raise SmokeFailure(f"LM decode, {full.name} bf16: decode against "
+                           f"prefill off by {err} of max|logits|")
+    for kv in LM_KV:
+        ms, sc = _lm_time_decode(params, full, kv, device)
+        kvb = 1 if kv == "int8" else 2
+        bound = lm_weight_bytes(params, full, sc.batch, sc.tokens, kvb) \
+            / HBM_BYTES_PER_S * 1e3
+        out[f"decode_{kv}"] = {"ms_per_step": ms,
+                               "tok_s": sc.batch / ms * 1e3,
+                               "bound_ms": bound, "bound_by": "bytes",
+                               **_lm_profile_step(params, full, kv, device)}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_launcher():
+    """(c) ``repro_torch.launch.serve.main(["--arch", "yi-6b",
+    "--vocab-spmv", "0.1"])`` on the card: it decodes (its tok/s line is
+    printed) and then runs the vocab bench through ``SparseLinear``; the
+    counts, set to 0 just before, must show SpMV kernels and nothing else.
+    Returns the counts."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.launch import serve
+    argv = ["--arch", LM["arch"], "--vocab-spmv", str(VOCAB["density"])]
+    counts = reset_all_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(argv)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in counts().items() if v}
+    lines = buf.getvalue().strip().splitlines()
+    print(f"  (c) python -m repro_torch.launch.serve {' '.join(argv)}: "
+          + " | ".join(lines) + f"; launches {got}")
+    decoded = any(re.search(r"tok/s \(kv=bfloat16, mesh=1 device\)", ln)
+                  for ln in lines)
+    if (not decoded or not got or any(not k.startswith("spmv")
+                                      for k in got)):
+        raise SmokeFailure(f"LM launcher: decoded {decoded}, launches "
+                           f"{got}")
+    return got
+
+
+def chaos_module():
+    """``python -m repro_torch.launch.chaos_smoke`` in a subprocess on the
+    card, ``SPC5_FAULTS`` set to phase 5a's four points at 10 %
+    (``SERVE["chaos"]``): it must exit 0 (every request correct or failed
+    with a catalogued error, at least one landed)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               SPC5_FAULTS=SERVE["chaos"])
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m",
+                          "repro_torch.launch.chaos_smoke"],
+                         capture_output=True, text=True, timeout=600,
+                         cwd=HERE, env=env)
+    lines = out.stdout.strip().splitlines()
+    print(f"chaos module (SPC5_FAULTS={SERVE['chaos']}): exit "
+          f"{out.returncode}, {time.perf_counter() - t0:.1f} s; "
+          + " | ".join(ln.removeprefix("chaos_smoke: ").strip()
+                       for ln in lines))
+    if out.returncode != 0:
+        raise SmokeFailure(f"the chaos module failed: "
+                           f"{out.stderr[-2000:]}")
+    return {"exit": out.returncode, "lines": lines}
+
+
+def lm_decode(device):
+    """Phase: LM decode (item 13, dense): (a) card against CPU on smoke
+    configs, (b) yi-6b at full width and depth, (c) the launcher. Prints
+    the phase's numbers on a ``{"lm_decode": ...}`` line and returns them
+    with ``launches``, the launcher's kernel counts."""
+    out = {"card_vs_cpu": lm_card_vs_cpu(device)}
+    out["full"] = lm_full_size(device)
+    for kv in LM_KV:
+        d = out["full"][f"decode_{kv}"]
+        busy = ("device time not measured" if d["device_ms"] is None else
+                f"{d['device_ms']:.3f} ms of device time a step (busy "
+                f"{d['device_ms'] / d['ms_per_step']:.3f}, idle "
+                f"{1 - d['device_ms'] / d['ms_per_step']:.3f})")
+        print(f"  decode {LM['arch']} bf16 weights, kv {kv}, "
+              f"{LM['batch']} sequences: {d['ms_per_step']:.3f} ms a step, "
+              f"{d['tok_s']:.1f} tok/s, weight-read bound "
+              f"{d['bound_ms']:.3f} ms a step "
+              f"({d['ms_per_step'] / d['bound_ms']:.2f}x); one step under "
+              f"the profiler: {d['host_ops']} host ops, {d['kernels']} "
+              f"kernels, {busy}")
+    out["launches"] = lm_launcher()
+    print(json.dumps({"lm_decode": out}))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4618,7 +4957,11 @@ def main() -> int:
         t_phase = time.perf_counter()
         serve = serving_tier(vmat, vcsr, device)
         del vmat
+        chaos_module()
         print(f"phase serving tier: {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        lm = lm_decode(device)
+        print(f"phase LM decode: {time.perf_counter() - t_phase:.1f} s")
         mat24 = convert_test_block(vcsr)
         flat = build_flat_test_plan(mat24, device)
         ys, y_flat, la, lb = drive_test(test_layer, flat, x1, acts, device)
@@ -4674,6 +5017,7 @@ def main() -> int:
         for row in rows:
             row["serve_launches"] = serve["launches"].get(row["name"], 0)
             row["shard_launches"] = shard_launches.get(row["name"], 0)
+            row["lm_launches"] = lm["launches"].get(row["name"], 0)
         print(json.dumps({"sharding": shard_per, "examples": examples}))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)

@@ -532,7 +532,7 @@ def whole_contract(geom, vsize: int = 4, nvec: int = 1) -> int:
     for a plan of geometry ``geom``, its tables as the build narrows them,
     ``vsize``-byte values and X of ``nvec`` columns; computed on the host,
     without a card. Raises ``ValueError`` where no launch fits."""
-    wv, wx = table_widths(geom, "whole_vector")
+    wv, wx = table_widths(geom, whole=True)
     return whole_cta(cb=geom["cb"], r=geom["r"], c=geom["c"],
                      vmax=geom["vmax"], nvec=nvec,
                      vec=KM.panels_vector(nvec), wv=wv, wx=wx,
@@ -542,7 +542,7 @@ def whole_contract(geom, vsize: int = 4, nvec: int = 1) -> int:
 def panels_contract(geom, vsize: int = 4, nvec: int = 1) -> int:
     """The same for the synchronous panel descriptor SpMM kernel
     (:func:`panels_plan` at one stage, the fewest its launcher takes)."""
-    wv, wx = table_widths(geom, "panels")
+    wv, wx = table_widths(geom, whole=False)
     return panels_plan(1, geom["cb"], geom["r"], geom["c"], geom["vmax"],
                        geom["pr"], nvec, KM.panels_vector(nvec), wv, wx,
                        vsize=vsize)["smem_bytes"]

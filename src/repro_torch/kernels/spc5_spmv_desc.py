@@ -501,12 +501,12 @@ def spmv_cuda_panels_desc_db(chunk_vbase, chunk_xbase, desc_valid,
 # shared-memory contracts (the static verifier's vmem-budget rule)
 # ----------------------------------------------------------------------------
 
-def table_widths(geom, layout: str) -> Tuple[int, int]:
+def table_widths(geom, whole: bool) -> Tuple[int, int]:
     """(vidx, xcol) bytes of a descriptor plan's tables, as the build
     narrows them (:func:`repro_torch.core.formats.chunk_descriptors`) from
-    the geometry: vidx under vmax, xcol under ncols (whole-vector) or xw
-    (panels)."""
-    xmax = geom["ncols"] if layout == "whole_vector" else geom["xw"]
+    the geometry: vidx under vmax, xcol under ncols (``whole``: a
+    whole-vector plan) or xw (a panel plan)."""
+    xmax = geom["ncols"] if whole else geom["xw"]
     return (F.narrow_index_dtype(max(geom["vmax"] - 1, 0)).itemsize,
             F.narrow_index_dtype(max(xmax - 1, 0)).itemsize)
 
@@ -517,7 +517,7 @@ def whole_contract(geom, vsize: int = 4, nvec: int = 1) -> int:
     takes, for a plan of geometry ``geom`` and ``vsize``-byte values;
     computed on the host, without a card."""
     r, c, vmax = geom["r"], geom["c"], geom["vmax"]
-    wv, wx = table_widths(geom, "whole_vector")
+    wv, wx = table_widths(geom, whole=True)
     return _fit(1, geom["cb"], lambda s, nb: whole_smem_bytes(
         s, nb, r, c, vmax, WHOLE_TILE_ROWS, wv, wx, vsize))[2]
 
@@ -526,7 +526,7 @@ def panels_contract(geom, vsize: int = 4, nvec: int = 1) -> int:
     """The same for the panel descriptor SpMV kernels
     (:func:`panels_stages`)."""
     r, c, vmax = geom["r"], geom["c"], geom["vmax"]
-    wv, wx = table_widths(geom, "panels")
+    wv, wx = table_widths(geom, whole=False)
     return _fit(1, geom["cb"], lambda s, nb: panels_smem_bytes(
         s, nb, r, c, vmax, geom["xw"], geom["pr"], wv, wx, vsize))[2]
 

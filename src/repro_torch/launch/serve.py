@@ -1,35 +1,40 @@
-"""The serving launcher's vocab half, on the card.
+"""Batched serving launcher: greedy decode, then the vocab bench, on the
+card.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --vocab-spmv 0.1 \
-        --qps 1000 --metrics
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \
+        --batch 4 --tokens 32 [--kv-dtype int8] [--vocab-spmv 0.1 \
+        [--qps 1000] [--metrics]]
 
 The port of ``repro.launch.serve``. Every knob is a
 :class:`repro_torch.launch.server.ServeConfig` field (the reference's, so
 both CLIs take the same flags); the flags are generated from the
 dataclass (``server.add_config_args``).
 
+The decode loop runs ``--arch``'s smoke configuration in float32 with
+random weights (``torch.Generator`` seed 0): ``--tokens - 1`` greedy steps
+of ``--batch`` sequences from a zero token against a KV cache of
+``--kv-dtype``, timed under the ``serve.decode`` span (the card
+synchronised before it closes), and prints the reference's tok/s line.
+The dense decoder is ported; a MoE, SSM, hybrid or encoder-decoder arch
+exits naming the part of ROADMAP queue 1 item 13 that ports it, and
+``--mesh`` (sharded weights) exits naming item 13 too.
+
 ``--records`` installs a record store (file or directory) as the
 selector's default store (with ``--verify``, its ``verify_records``
-summary is printed first). ``--vocab-spmv DENSITY`` benches a
-magnitude-pruned vocab projection of ``--arch``'s smoke shape: with
-``--qps 0`` (the default) a closed-loop batch-1 microbench of a
-``SparseLinear`` layer (``--panel``, ``--reorder``, ``--lowering``,
-``--vdtype`` as in the reference); with ``--qps RATE`` an open-loop
-Poisson run through the persistent serving tier (plan cache, request
-coalescing; ``repro_torch.launch.server``). ``--metrics`` writes the
-port's global obs registry as Prometheus text (``--metrics-path``) and a
-Chrome trace (``--trace-path``).
-
-The reference's greedy decode loop (``--arch`` / ``--batch`` /
-``--tokens`` / ``--mesh`` / ``--kv-dtype``) runs the LM stack, which the
-port does not have yet (ROADMAP queue 1 item 13): without
-``--vocab-spmv``, or with ``--batch`` / ``--tokens`` / ``--mesh`` /
-``--kv-dtype`` off their defaults, the launcher exits with an error naming
-that item.
+summary is printed first). ``--vocab-spmv DENSITY`` then benches a
+magnitude-pruned vocab projection of the arch's smoke shape: with ``--qps
+0`` (the default) a closed-loop batch-1 microbench of a ``SparseLinear``
+layer (``--panel``, ``--reorder``, ``--lowering``, ``--vdtype`` as in the
+reference); with ``--qps RATE`` an open-loop Poisson run through the
+persistent serving tier (plan cache, request coalescing;
+``repro_torch.launch.server``). ``--metrics`` writes the port's global
+obs registry as Prometheus text (``--metrics-path``) and a Chrome trace
+(``--trace-path``).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -38,22 +43,15 @@ import torch
 from repro_torch import obs
 from repro_torch.launch import server as SV
 
-#: Why the launcher stops without ``--vocab-spmv``.
-NO_DECODE_LOOP = (
-    "repro_torch.launch.serve: the decode loop (--arch/--batch/--tokens/"
-    "--mesh/--kv-dtype) runs the LM stack, which the port does not have "
-    "yet (ROADMAP queue 1 item 13); pass --vocab-spmv DENSITY to bench or "
-    "serve the sparse vocab projection")
-
-
 def main(argv=None, *, device: Optional[str] = None) -> None:
-    """Parse ``argv`` and run the vocab bench or the serving tier.
-    ``device`` (not a flag) is where the plans go: None is the card, as
-    for every entry point of the port."""
+    """Parse ``argv``, decode, then run the vocab bench or the serving tier.
+    ``device`` (not a flag) is where the model and the plans go: None is
+    the card, as for every entry point of the port."""
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve",
-        description="bench or serve a pruned vocab projection through the "
-                    "port's SpMV kernels and serving tier")
+        description="greedy decode of an LM smoke config, then bench or "
+                    "serve a pruned vocab projection through the port's "
+                    "SpMV kernels and serving tier")
     SV.add_config_args(ap)
     args = ap.parse_args(argv)
     config = SV.config_from_args(args)
@@ -67,22 +65,51 @@ def main(argv=None, *, device: Optional[str] = None) -> None:
             print(verify_records(store).summary())
         S.set_default_store(store)
 
-    if config.vocab_spmv <= 0:
-        raise SystemExit(NO_DECODE_LOOP)
-    vocab, d_model = SV.smoke_shape(config.arch)
-    if config.qps > 0:
-        _serve_vocab(config, vocab, d_model, device)
-    else:
-        _bench_vocab(config, vocab, d_model, device)
+    from repro_torch.configs import get_smoke_config
+    cfg = dataclasses.replace(get_smoke_config(config.arch), dtype="float32")
+    try:
+        _decode(config, cfg, device)
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from None
+
+    if config.vocab_spmv > 0 and config.qps > 0:
+        _serve_vocab(config, cfg.vocab, cfg.d_model, device)
+    elif config.vocab_spmv > 0:
+        _bench_vocab(config, cfg.vocab, cfg.d_model, device)
 
     if config.metrics:
-        # one scrape covers the launcher: serving-tier counters and
-        # histograms, plan passes -- all on the port's global registry
+        # one scrape covers the whole launcher: decode span, serving-tier
+        # counters and histograms, plan passes -- all on the port's global
+        # registry
         reg = obs.get_registry()
         obs.export.dump_prometheus(reg, config.metrics_path)
         obs.export.dump_chrome_trace(reg, config.trace_path)
         print(f"metrics: {config.metrics_path} (Prometheus), "
               f"{config.trace_path} (chrome://tracing)")
+
+
+def _decode(config: SV.ServeConfig, cfg, device: Optional[str]) -> None:
+    """The greedy decode loop: ``config.tokens - 1`` steps of
+    ``config.batch`` sequences from a zero token; prints the tok/s line."""
+    from repro_torch.kernels.ops import resolve_device
+    from repro_torch.models import model as MD
+    from repro_torch.train.step import make_serve_step
+    dev = resolve_device(device)
+    params = MD.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    cache = MD.init_cache(cfg, config.batch, config.tokens,
+                          kv_dtype=config.kv_dtype, device=dev)
+    step = make_serve_step(cfg)
+    tok = torch.zeros((config.batch, 1), dtype=torch.long, device=dev)
+    with obs.span("serve.decode", arch=config.arch, batch=config.batch,
+                  tokens=config.tokens) as sp:
+        for t in range(config.tokens - 1):
+            tok, cache = step(params, cache, tok, t)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    dt = sp.duration_s
+    print(f"{config.arch}: {config.batch}x{config.tokens} tokens, "
+          f"{config.batch * (config.tokens - 1) / dt:.1f} tok/s "
+          f"(kv={config.kv_dtype}, mesh={config.mesh or '1 device'})")
 
 
 def _serve_vocab(config: SV.ServeConfig, vocab: int, d_model: int,

@@ -84,11 +84,11 @@ class ServeConfig:
 
     The field set is the source of truth: ``add_config_args`` generates one
     ``--flag`` per field (``_`` -> ``-``). The decode-loop knobs (``arch``,
-    ``batch``, ``tokens``, ``mesh``, ``kv_dtype``) are kept although the
-    port's CLI has no decode loop yet (ROADMAP queue 1 item 13); ``arch``
-    also picks the default matrix's shape."""
+    ``batch``, ``tokens``, ``mesh``, ``kv_dtype``) feed the CLI's decode
+    loop (``mesh`` is refused: ROADMAP queue 1 item 13e); ``arch`` also
+    picks the default matrix's shape."""
 
-    # --- decode-loop launcher (queue 1 item 13; arch: the vocab shape) ---
+    # --- decode-loop launcher (arch: also the vocab shape) ---
     arch: str = _knob("yi-6b", "model architecture for the decode loop")
     batch: int = _knob(4, "decode batch size")
     tokens: int = _knob(32, "tokens to decode")
@@ -171,25 +171,16 @@ def config_from_args(args: argparse.Namespace, cls=ServeConfig):
                   for f in dataclasses.fields(cls)})
 
 
-#: The decode loop's knobs, which the port keeps for flag parity but cannot
-#: run yet (ROADMAP queue 1 item 13).
-DECODE_KNOBS = ("batch", "tokens", "mesh", "kv_dtype")
-
-
 def refuse_decode_knobs(config: ServeConfig) -> None:
-    """Raise ``SystemExit`` naming ROADMAP queue 1 item 13 when a decode
-    knob differs from its default: the port has no decode loop to give it
-    to, and a knob that is silently ignored would mislead."""
-    given = [f"--{k.replace('_', '-')} {getattr(config, k)}"
-             for k in DECODE_KNOBS
-             if getattr(config, k) != ServeConfig.__dataclass_fields__[k]
-             .default]
-    if given:
+    """Raise ``SystemExit`` naming ROADMAP queue 1 item 13 when ``--mesh``
+    is given: the port's decode loop runs on one device (sharded weights
+    are item 13e), and a knob that is silently ignored would mislead."""
+    if config.mesh:
         raise SystemExit(
-            f"repro_torch.launch: {', '.join(given)} configure the decode "
-            f"loop, which the port does not have yet (ROADMAP queue 1 item "
-            f"13); leave them at their defaults to serve the sparse vocab "
-            f"projection")
+            f"repro_torch.launch: --mesh {config.mesh} shards the decode "
+            f"loop, which the port does not do yet (ROADMAP queue 1 item 13, "
+            f"part 13e: sharding/rules.py and launch/mesh.py); leave it "
+            f"empty to decode on one device")
 
 
 def plan_request(config: ServeConfig) -> Dict[str, object]:
@@ -1016,29 +1007,12 @@ def saturation_sweep(server: SPC5Server, xs: Sequence, *,
 # start(config): the programmatic entry point the CLI shares
 # ----------------------------------------------------------------------------
 
-#: (vocab, d_model) of the reference's smoke configurations
-#: (``repro.configs.get_smoke_config(arch)``), the default matrix's shape;
-#: a copy with no model code.
-SMOKE_SHAPES: Dict[str, Tuple[int, int]] = {
-    "phi3.5-moe-42b-a6.6b": (256, 64),
-    "granite-moe-3b-a800m": (256, 48),
-    "glm4-9b": (256, 64),
-    "gemma-2b": (256, 64),
-    "deepseek-67b": (256, 64),
-    "yi-6b": (256, 64),
-    "seamless-m4t-medium": (256, 64),
-    "mamba2-370m": (256, 64),
-    "recurrentgemma-9b": (256, 64),
-    "internvl2-26b": (256, 64),
-}
-
-
 def smoke_shape(arch: str) -> Tuple[int, int]:
-    """(vocab, d_model) of ``arch``'s smoke configuration."""
-    if arch not in SMOKE_SHAPES:
-        raise KeyError(f"unknown arch {arch!r}; known: "
-                       f"{sorted(SMOKE_SHAPES)}")
-    return SMOKE_SHAPES[arch]
+    """(vocab, d_model) of ``arch``'s smoke configuration
+    (:func:`repro_torch.configs.get_smoke_config`)."""
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config(arch)
+    return cfg.vocab, cfg.d_model
 
 
 def _default_matrix(config: ServeConfig) -> F.SPC5Matrix:
@@ -1069,8 +1043,9 @@ def start(config: ServeConfig, mat: Optional[F.SPC5Matrix] = None, *,
     With ``config.metrics`` the tier's instruments and spans land on the
     port's GLOBAL obs registry; otherwise the tier gets a private
     registry. ``config.faults`` arms the port's process-global fault set
-    (the ``SPC5_FAULTS`` grammar). A decode knob off its default raises
-    ``SystemExit`` (:func:`refuse_decode_knobs`)."""
+    (the ``SPC5_FAULTS`` grammar). ``config.mesh`` raises ``SystemExit``
+    (:func:`refuse_decode_knobs`); the other decode knobs are the CLI's
+    decode loop's and change nothing here."""
     refuse_decode_knobs(config)
     if config.faults:
         obs.faults.set_faults(obs.faults.Faults(config.faults))

@@ -1,7 +1,7 @@
-"""The port's two library examples (``examples_torch/``) on the CPU: the
-quickstart and the CG solver, with and without ``--distributed`` (a group
-of one gloo rank in this process), each run through its ``main`` with
-``--device cpu``. The solver must converge (relative residual under 1e-4,
+"""The port's examples (``examples_torch/``) on the CPU: the quickstart,
+the CG solver, with and without ``--distributed`` (a group of one gloo
+rank in this process), and the LM serving loop, each run through its
+``main`` with ``--device cpu``. The solver must converge (relative residual under 1e-4,
 the reference's ``rs < 1e-10`` stop), and the line before each last line
 gives the launches of the SpMV kernels: none on the CPU. Without a card
 and without ``--device cpu`` both raise."""
@@ -52,9 +52,31 @@ def test_cg_solver_converges_on_the_cpu(capsys, distributed):
     assert not torch.distributed.is_initialized()
 
 
+def test_serve_lm_decodes_on_the_cpu(capsys):
+    """The greedy loop from a seeded first token: the same tokens run after
+    run, inside the vocab, and the reference's two lines."""
+    argv = ["--device", "cpu", "--arch", "gemma-2b", "--batch", "2",
+            "--tokens", "9", "--kv-dtype", "int8"]
+    seqs = _example("serve_lm").main(argv)
+    again = _example("serve_lm").main(argv)
+    assert seqs.shape == (2, 9) and (seqs == again).all()
+    assert 0 <= seqs.min() and seqs.max() < 256
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("gemma-2b: generated 2x9 tokens in ")
+    assert lines[0].endswith("tok/s, kv=int8)")
+    assert lines[1].startswith("first sequence: [")
+
+
+def test_serve_lm_names_the_part_of_item_13_an_arch_needs():
+    with pytest.raises(SystemExit, match="ROADMAP queue 1 item 13b"):
+        _example("serve_lm").main(["--device", "cpu", "--arch",
+                                   "recurrentgemma-9b"])
+
+
 @pytest.mark.parametrize("name,argv", [("quickstart", []),
                                        ("cg_solver", []),
-                                       ("cg_solver", ["--distributed"])])
+                                       ("cg_solver", ["--distributed"]),
+                                       ("serve_lm", [])])
 def test_examples_need_a_card_or_device_cpu(monkeypatch, name, argv):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

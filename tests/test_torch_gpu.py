@@ -4414,3 +4414,89 @@ def test_sharded_spmv_runs_each_shard_through_its_kernel(cuda, layout,
     y64 = a64 @ x.cpu().double().numpy()
     assert float(np.abs(y.cpu().double().numpy() - y64).max()) <= \
         RTOL * float(np.abs(y64).max())
+
+
+# ----------------------------------------------------------------------------
+# The dense LM decoder on the card (ROADMAP queue 1 item 13): the same params
+# and tokens on the card and on the CPU. The decoder has no kernel of its
+# own (dense products and einsums); its f32 logits agree to 1e-4 of
+# max|logits|, the f32 tolerance the CPU tests start from. With an int8 KV
+# cache, an entry at a rounding tie on one device can land one quantisation
+# step (max|k| / 127) away on the other, so those logits are held to 1/127.
+# ----------------------------------------------------------------------------
+
+_LM_ARCHS = ("yi-6b", "gemma-2b", "glm4-9b", "deepseek-67b", "internvl2-26b")
+_LM_TOL = {"bfloat16": 1e-4, "int8": 1 / 127}
+
+
+def _lm_pair(arch, cuda, seed=0):
+    """(cfg, params on the card, params on the CPU): one draw on the host,
+    carried to both devices through ``convert.params_from_numpy``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import convert as CV
+    from repro_torch.models import model as MD
+    cfg = get_smoke_config(arch)
+    host = MD.init_params(cfg, torch.Generator().manual_seed(seed))
+
+    def numpy_tree(t):
+        return {k: numpy_tree(v) if isinstance(v, dict) else v.numpy()
+                for k, v in t.items()}
+    tree = numpy_tree(host)
+    return (cfg, CV.params_from_numpy(tree, cuda),
+            CV.params_from_numpy(tree, "cpu"))
+
+
+def _lm_err(y, ref):
+    ref = ref.cpu().double()
+    return float((y.cpu().double() - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+@pytest.mark.parametrize("arch", _LM_ARCHS)
+def test_lm_decode_on_the_card_matches_the_cpu(cuda, arch, kv):
+    from repro_torch.models import model as MD
+    cfg, pc, ph = _lm_pair(arch, cuda)
+    B, S = 2, 12
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (B, S)))
+    caches = [MD.init_cache(cfg, B, S, kv_dtype=kv, device=d)
+              for d in (cuda, "cpu")]
+    for t in range(S):
+        yc, caches[0] = MD.decode_step(pc, caches[0],
+                                       toks[:, t:t + 1].to(cuda), t, cfg)
+        yh, caches[1] = MD.decode_step(ph, caches[1], toks[:, t:t + 1], t,
+                                       cfg)
+        assert yc.device.type == "cuda" and yc.dtype == torch.float32
+        assert _lm_err(yc, yh) <= _LM_TOL[kv], t
+
+
+@pytest.mark.parametrize("arch", _LM_ARCHS)
+def test_lm_prefill_on_the_card_matches_the_cpu(cuda, arch):
+    from repro_torch.models import model as MD
+    cfg, pc, ph = _lm_pair(arch, cuda, seed=3)
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)))}
+    if cfg.frontend == "patches":
+        batch["prefix"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.n_prefix, cfg.d_model)).astype(np.float32))
+    yh, _ = MD.prefill(ph, batch, cfg)
+    yc, _ = MD.prefill(pc, {k: v.to(cuda) for k, v in batch.items()}, cfg)
+    assert _lm_err(yc, yh) <= _LM_TOL["bfloat16"]
+
+
+def test_lm_serve_cli_decodes_on_the_card_then_runs_the_spmv_kernel(
+        cuda, capsys):
+    """``serve.main`` with no device: the decode loop on the card, then the
+    vocab bench, whose SparseLinear launches an SpMV kernel."""
+    from repro_torch.launch import serve
+    for mod in (K, KD, KM, KDM, KT):
+        mod.reset_launches()
+    serve.main(["--arch", "gemma-2b", "--batch", "2", "--tokens", "8",
+                "--kv-dtype", "int8", "--vocab-spmv", "0.1"])
+    torch.cuda.synchronize()
+    out = capsys.readouterr().out
+    assert "gemma-2b: 2x8 tokens" in out and "(kv=int8, mesh=1 device)" in out
+    assert "vocab_spmv[256x64@0.1]" in out
+    launches = {k: v for mod in (K, KD, KM, KDM, KT)
+                for k, v in mod.LAUNCHES.items() if v}
+    assert launches and all(k.startswith("spmv") for k in launches)

@@ -1,7 +1,8 @@
 """The port stands alone: no module of ``src/repro_torch``, no example of
-``examples_torch`` and not ``chip_smoke.py`` imports JAX, ``ml_dtypes`` or
-the JAX package ``repro`` (the card's machine has none of them), and
-importing the port builds nothing."""
+``examples_torch``, not ``chip_smoke.py`` and not the port's lint
+(``tools/spc5_torch_lint.py``) imports JAX, ``ml_dtypes`` or the JAX
+package ``repro`` (the card's machine has none of them), and importing the
+port builds nothing."""
 import ast
 import os
 import subprocess
@@ -18,7 +19,8 @@ FILES = sorted(
     os.path.relpath(os.path.join(d, f), REPO)
     for top in (PORT, EXAMPLES)
     for d, _, fs in os.walk(top) for f in fs if f.endswith(".py")
-) + ["chip_smoke.py", "time_spmm_desc.py", "time_panels_desc.py"]
+) + ["chip_smoke.py", "time_spmm_desc.py", "time_panels_desc.py",
+   os.path.join("tools", "spc5_torch_lint.py")]
 
 
 def _imported_roots(path):
@@ -52,9 +54,17 @@ def test_port_modules_cover_the_slice():
             "obs/spans.py", "obs/export.py", "obs/faults.py",
             "launch/__init__.py", "launch/resilience.py",
             "launch/server.py", "launch/serve.py",
-            "core/distributed.py"} <= names
+            "core/distributed.py", "launch/chaos_smoke.py",
+            "models/__init__.py", "models/config.py", "models/layers.py",
+            "models/transformer.py", "models/model.py",
+            "models/convert.py", "configs/__init__.py",
+            "train/__init__.py", "train/step.py"} <= names
+    configs = {os.path.basename(p) for p in os.listdir(
+        os.path.join(REPO, "src", "repro", "configs")) if p.endswith(".py")}
+    assert {f"configs/{c}" for c in configs} <= names
     assert {"examples_torch/quickstart.py",
-            "examples_torch/cg_solver.py"} <= set(FILES)
+            "examples_torch/cg_solver.py",
+            "examples_torch/serve_lm.py"} <= set(FILES)
     for src in ("spc5_spmv.cu", "spc5_spmm.cu", "spc5_spmv_desc.cu",
                 "spc5_spmm_desc.cu", "spc5_spmm_desc_cmap.cu",
                 "spc5_spmv_tail.cu", "spc5_stage.cuh",
@@ -88,6 +98,9 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import repro_torch.core.partition, repro_torch.kernels.ref\n"
         "import repro_torch.obs, repro_torch.launch.serve\n"
         "import repro_torch.core.distributed\n"
+        "import repro_torch.models.model, repro_torch.models.convert\n"
+        "import repro_torch.configs, repro_torch.train.step\n"
+        "import repro_torch.launch.chaos_smoke\n"
         "from repro_torch.kernels import _build\n"
         "assert not any(m.split('.')[0] in {'jax', 'ml_dtypes', 'repro'} "
         "for m in sys.modules), sorted(m for m in sys.modules if 'jax' in m)\n"

@@ -169,8 +169,9 @@ def test_bad_choices_are_refused_by_both_parsers():
 
 def test_smoke_shapes_are_the_references_smoke_configs():
     from repro.configs import SMOKE_REGISTRY
-    assert SV.SMOKE_SHAPES == {arch: (cfg.vocab, cfg.d_model)
-                               for arch, cfg in SMOKE_REGISTRY.items()}
+    assert {arch: SV.smoke_shape(arch) for arch in SMOKE_REGISTRY} == \
+        {arch: (cfg.vocab, cfg.d_model)
+         for arch, cfg in SMOKE_REGISTRY.items()}
     with pytest.raises(KeyError):
         SV.smoke_shape("gpt-17")
 
@@ -671,38 +672,73 @@ def test_open_loop_and_sweep_on_a_real_tier(plan):
 # The CLI
 # ----------------------------------------------------------------------------
 
-def test_the_cli_without_a_vocab_density_names_item_13(capsys):
-    with pytest.raises(SystemExit) as e:
-        serve.main([])
-    assert "ROADMAP queue 1 item 13" in str(e.value.code)
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--vocab-spmv", "0", "--arch", "gemma-2b", "--batch",
-                    "2", "--tokens", "8"])
-    assert "item 13" in str(e.value.code)
-    assert capsys.readouterr().out == ""
+def test_the_cli_with_vocab_spmv_0_decodes_and_builds_no_plan(
+        capsys, monkeypatch):
+    """``--vocab-spmv 0`` runs the decode loop and stops, as the
+    reference does: no plan is built and no tier starts."""
+    from repro_torch.core import sparse_linear
+    from repro_torch.kernels import ops
+
+    def refuse(*a, **k):
+        raise AssertionError("a plan was built")
+    monkeypatch.setattr(ops, "prepare", refuse)
+    monkeypatch.setattr(sparse_linear.SparseLinear, "from_dense", refuse)
+    monkeypatch.setattr(SV, "start", refuse)
+    serve.main(["--vocab-spmv", "0", "--arch", "gemma-2b", "--batch", "2",
+                "--tokens", "8"], device="cpu")
+    out = capsys.readouterr().out.strip().splitlines()
+    assert len(out) == 1
+    assert out[0].startswith("gemma-2b: 2x8 tokens, ")
+    assert out[0].endswith(" tok/s (kv=bfloat16, mesh=1 device)")
 
 
-@pytest.mark.parametrize("flag,value", [("--batch", "8"), ("--tokens", "64"),
-                                        ("--mesh", "1x4"),
-                                        ("--kv-dtype", "int8")])
-def test_decode_knobs_off_their_defaults_name_item_13(flag, value, capsys):
-    """The decode knobs are kept for flag parity, but the port has no
-    decode loop to give them to: the CLI and ``start`` refuse a value off
-    the default, naming the item, before anything is built."""
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--vocab-spmv", "0.1", "--qps", "100", flag, value],
-                   device="cpu")
-    assert "ROADMAP queue 1 item 13" in str(e.value.code)
-    assert flag in str(e.value.code)
-    assert capsys.readouterr().out == ""
+@pytest.mark.parametrize("flag,value,line", [
+    ("--batch", "3", "yi-6b: 3x32 tokens, "),
+    ("--tokens", "6", "yi-6b: 4x6 tokens, "),
+    ("--kv-dtype", "int8", "(kv=int8, mesh=1 device)"),
+])
+def test_decode_knobs_go_to_the_decode_loop(flag, value, line, capsys):
+    """``--batch``, ``--tokens`` and ``--kv-dtype`` configure the decode
+    loop, which prints the reference's tok/s line before the vocab bench;
+    ``start`` takes them and serves as before."""
+    serve.main(["--vocab-spmv", "0.1", flag, value], device="cpu")
+    out = capsys.readouterr().out.strip().splitlines()
+    assert line in out[0] and " tok/s (kv=" in out[0]
+    assert out[1].startswith("vocab_spmv[256x64@0.1]: ")
     ap = argparse.ArgumentParser()
     SV.add_config_args(ap)
     cfg = SV.config_from_args(ap.parse_args(["--vocab-spmv", "0.1", flag,
                                              value]))
     tmat, _ = _pair(seed=3)
+    SV.start(cfg, mat=tmat, device="cpu").close()
+
+
+def test_mesh_still_names_item_13(capsys):
+    """``--mesh`` shards the decode loop, which the port does not yet: the
+    CLI and ``start`` refuse it, naming the item, before anything runs."""
+    with pytest.raises(SystemExit) as e:
+        serve.main(["--vocab-spmv", "0.1", "--mesh", "1x4"], device="cpu")
+    assert "ROADMAP queue 1 item 13" in str(e.value.code)
+    assert "--mesh 1x4" in str(e.value.code)
+    assert capsys.readouterr().out == ""
+    tmat, _ = _pair(seed=3)
     with pytest.raises(SystemExit, match="item 13"):
-        SV.start(cfg, mat=tmat, device="cpu")
-    SV.refuse_decode_knobs(SV.ServeConfig(vocab_spmv=0.1, arch="gemma-2b"))
+        SV.start(SV.ServeConfig(vocab_spmv=0.1, mesh="1x4"), mat=tmat,
+                 device="cpu")
+    SV.refuse_decode_knobs(SV.ServeConfig(vocab_spmv=0.1, arch="gemma-2b",
+                                          batch=8, tokens=64,
+                                          kv_dtype="int8"))
+
+
+@pytest.mark.parametrize("arch,part", [("phi3.5-moe-42b-a6.6b", "13a"),
+                                       ("mamba2-370m", "13b"),
+                                       ("recurrentgemma-9b", "13b"),
+                                       ("seamless-m4t-medium", "13c")])
+def test_an_unported_arch_names_its_part_of_item_13(arch, part, capsys):
+    with pytest.raises(SystemExit) as e:
+        serve.main(["--arch", arch, "--vocab-spmv", "0.1"], device="cpu")
+    assert f"ROADMAP queue 1 item {part}" in str(e.value.code)
+    assert capsys.readouterr().out == ""
 
 
 def test_the_cli_serves_and_exports_on_the_host(tmp_path, capsys):

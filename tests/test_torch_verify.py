@@ -488,7 +488,8 @@ def test_contracts_are_the_launch_plans_shared_memory(layout, lowering,
                                 nvec=16, vec=4, **geo)
     else:
         wv, wx = plan.desc_vidx.element_size(), plan.desc_xcol.element_size()
-        assert (wv, wx) == KD.table_widths(g, layout)
+        assert (wv, wx) == KD.table_widths(
+            g, whole=layout == "whole_vector")
         if layout == "whole_vector":
             spmv = KD.whole_launch(1, nch, c=g["c"], wv=wv, wx=wx, **geo)
             spmm = KDM.whole_launch(nch, c=g["c"], nvec=16, vec=4, wv=wv,
