@@ -99,17 +99,27 @@ def _decode(config: SV.ServeConfig, cfg, device: Optional[str]) -> None:
     cache = MD.init_cache(cfg, config.batch, config.tokens,
                           kv_dtype=config.kv_dtype, device=dev)
     step = make_serve_step(cfg)
-    tok = torch.zeros((config.batch, 1), dtype=torch.long, device=dev)
     with obs.span("serve.decode", arch=config.arch, batch=config.batch,
                   tokens=config.tokens) as sp:
-        for t in range(config.tokens - 1):
-            tok, cache = step(params, cache, tok, t)
+        greedy_decode(step, params, cache, config.batch, config.tokens - 1)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
     dt = sp.duration_s
     print(f"{config.arch}: {config.batch}x{config.tokens} tokens, "
           f"{config.batch * (config.tokens - 1) / dt:.1f} tok/s "
           f"(kv={config.kv_dtype}, mesh={config.mesh or '1 device'})")
+
+
+def greedy_decode(step, params, cache, batch: int, steps: int):
+    """``steps`` greedy steps of ``batch`` sequences from a zero token
+    through ``step`` (``make_serve_step``) against ``cache``, on the
+    cache's device. Returns (the last tokens (batch, 1), the cache)."""
+    from repro_torch.models.convert import tree_leaves
+    device = next(tree_leaves(cache)).device
+    tok = torch.zeros((batch, 1), dtype=torch.long, device=device)
+    for t in range(steps):
+        tok, cache = step(params, cache, tok, t)
+    return tok, cache
 
 
 def _serve_vocab(config: SV.ServeConfig, vocab: int, d_model: int,

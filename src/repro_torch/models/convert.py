@@ -9,12 +9,24 @@ tests give both packages the same weights; it imports nothing of JAX.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
 Tree = Dict[str, Any]
+
+
+def tree_map(fn: Callable[[Any], Any], tree: Tree) -> Tree:
+    """The nested dict ``tree`` with ``fn`` applied to every leaf."""
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def tree_leaves(tree: Tree) -> Iterator[Any]:
+    """The leaves of the nested dict ``tree``, in its key order."""
+    for v in tree.values():
+        yield from (tree_leaves(v) if isinstance(v, dict) else (v,))
 
 
 def tensor_from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -26,17 +38,13 @@ def tensor_from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _convert(tree: Tree, device: torch.device) -> Tree:
-    return {k: _convert(v, device) if isinstance(v, dict)
-            else tensor_from_numpy(v, device) for k, v in tree.items()}
-
-
 def params_from_numpy(tree: Tree,
                       device: Optional[torch.device] = None) -> Tree:
     """The reference's parameter tree (numpy leaves) as tensors on
     ``device`` (None: the card)."""
     from repro_torch.kernels.ops import resolve_device
-    return _convert(tree, resolve_device(device))
+    device = resolve_device(device)
+    return tree_map(lambda a: tensor_from_numpy(a, device), tree)
 
 
 #: The reference's KV-cache tree (numpy leaves) as tensors on ``device``:

@@ -228,8 +228,13 @@ def quantize_kv(k: Tensor) -> Tuple[Tensor, Tensor]:
     """Per-(token, head) symmetric int8 quantisation of a cache tensor
     (round half to even, as ``jnp.round``). In bf16 ``k / scale`` can reach
     127.5, which rounds to 128: the cast saturates it to 127, as the
-    reference's XLA convert does (torch's cast would wrap it to -128)."""
-    scale = torch.amax(torch.abs(k), dim=-1, keepdim=True) / 127.0 + 1e-8
+    reference's XLA convert does (torch's cast would wrap it to -128).
+    The divisor 127 is a tensor on ``k``'s device: divided by a Python
+    number, a CUDA tensor is multiplied by its reciprocal instead, a bit
+    off the true quotient the CPU and the reference take."""
+    amax = torch.amax(torch.abs(k), dim=-1, keepdim=True)
+    scale = amax / torch.full((), 127.0, dtype=amax.dtype,
+                              device=amax.device) + 1e-8
     q = torch.clamp(torch.round(k / scale), -128, 127)
     return q.to(torch.int8), scale.float()
 

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.models import model as MD
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.convert import tree_map
 
 
 def _refuse_rules(rules) -> None:
@@ -53,5 +54,4 @@ def cast_params(params: Dict[str, Any], dtype) -> Dict[str, Any]:
     """Every leaf cast to ``dtype`` (a torch dtype or its name), once: the
     values the reference's per-matmul ``.astype(dt)`` gives."""
     dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
-    return {k: cast_params(v, dt) if isinstance(v, dict) else v.to(dt)
-            for k, v in params.items()}
+    return tree_map(lambda t: t.to(dt), params)
