@@ -195,29 +195,41 @@ phase that goes wrong:
    holding a ``serve.batch`` span under a ``serve.submit`` span; then
    ``python -m repro_torch.launch.chaos_smoke`` in a subprocess with
    ``SPC5_FAULTS`` set to the same four points at 10 %, which must exit 0;
-5b. LM decode (ROADMAP queue 1 item 13, the dense decoder): (a) the
-   smoke configs of the five dense archs, one set of params drawn on the
-   host and carried to both devices with ``convert.params_from_numpy``,
-   decoded teacher-forced on the card and on the CPU at a bf16 and an int8
-   KV cache (``lm_hold``): the logits within 1e-4 of max|logits| at every
-   step, with the int8 cache up to the step where the quantised keys part
-   and 5e-3 after it; the int8 quantiser giving the same bits on the card
-   for the CPU's inputs, the first split at a rounding tie (within 1e-3
-   of a step), the caches within the logits' limit of their max and their
-   int8 entries at most one step apart in under 2e-2 of them; (b)
-   yi-6b at full width and depth (``get_config("yi-6b")``, about 6.06 B
-   parameters): f32 masters drawn on the card (24.2 GB), teacher-forced
-   ``decode_step`` over 32 positions at batch 4 against ``prefill`` at
-   lengths 1, 2, 8, 16 and 32 (TF32 off), then ``cast_params`` to bf16
-   once and the same check at bf16, then ``ServeConfig``'s default greedy
-   decode (4 sequences, 31 steps, ``serve.greedy_decode``) timed once with
-   CUDA events at both KV dtypes after two untimed steps, its ms a step
-   and tok/s printed beside the bound (the bytes a step must read over
-   3.35 TB/s), one step at the bf16 KV cache under the profiler; (c)
-   ``python -m repro_torch.launch.serve --arch yi-6b --vocab-spmv 0.1``
-   on the card: it decodes, prints the reference's tok/s line, then its
-   vocab bench launches an SpMV kernel, counted with the counts set to 0
-   just before;
+5b. LM decode (ROADMAP queue 1 item 13, every family the reference
+   decodes): (a) the smoke configs of all ten archs (dense, MoE, SSM,
+   hybrid, vlm, enc-dec), one set of params drawn on the host and carried
+   to both devices with ``convert.params_from_numpy``, decoded
+   teacher-forced on the card and on the CPU at a bf16 and an int8 KV
+   cache where the arch has an attention cache (the SSM and the enc-dec at
+   their one cache; ``lm_hold``): the logits within 1e-4 of max|logits|
+   at every step, with the int8 cache up to the step where the quantised
+   keys part and 5e-3 after it; the int8 quantiser giving the same bits on
+   the card for the CPU's inputs, the first split at a rounding tie
+   (within 1e-3 of a step), the caches within the logits' limit of their
+   max and their int8 entries at most one step apart in under 2e-2 of
+   them; a MoE token the devices route to other experts only at a
+   near-tie (``LM_ROUTE_GAP``), the CPU then replayed on the card's
+   experts; (b) yi-6b at full width and depth (``get_config("yi-6b")``,
+   about 6.06 B parameters): f32 masters drawn on the card (24.2 GB),
+   teacher-forced ``decode_step`` over 32 positions at batch 4 against
+   ``prefill`` at lengths 1, 2, 8, 16 and 32 (TF32 off), then
+   ``cast_params`` to bf16 once and the same check at bf16, then
+   ``ServeConfig``'s default greedy decode (4 sequences, 31 steps,
+   ``serve.greedy_decode``) timed once with CUDA events at both KV dtypes
+   after two untimed steps, its ms a step and tok/s printed beside the
+   bound (the bytes a step must read over 3.35 TB/s), one step at the
+   bf16 KV cache under the profiler; then the same, the loop at the bf16
+   KV cache alone, for granite-moe-3b, mamba2-370m, recurrentgemma-9b and
+   seamless-m4t-medium at full width and depth and phi3.5-moe at full
+   width and 2 of its 32 layers (``LM_FAMILIES``; a MoE's prefill on the
+   experts the decode picked, its own picks only a near-tie apart; the
+   enc-dec's cache from ``encode`` + ``build_cross_cache``); (c) ``python
+   -m repro_torch.launch.serve --arch <arch> --vocab-spmv 0.1`` on the
+   card for yi-6b, granite-moe-3b and recurrentgemma-9b: each decodes,
+   prints the reference's tok/s line, then its vocab bench launches an
+   SpMV kernel, counted with the counts set to 0 just before. (a) and (b)
+   launch no kernel of the port and run while nvcc builds the kernels,
+   after the host inputs; (c) runs here;
 6. beta(r,c)_test path: the same weight in beta(2,4) (whose singleton
    blocks hold about 30 % of the nonzeros) as
    ``SparseLinear.from_dense(w, density=0.1, block=(2, 4), layout="test",
@@ -4522,7 +4534,7 @@ def serving_tier(mat, csr, device):
 
 
 # ----------------------------------------------------------------------------
-# LM decode (ROADMAP queue 1 item 13, the dense decoder)
+# LM decode (ROADMAP queue 1 item 13: every family the reference decodes)
 # ----------------------------------------------------------------------------
 
 #: The smoke configs held card against CPU, and the full-size decode: yi-6b
@@ -4530,9 +4542,20 @@ def serving_tier(mat, csr, device):
 #: ``ServeConfig``'s default batch and tokens, teacher-forced over
 #: ``positions`` and checked against ``prefill`` at ``checked`` lengths.
 LM = dict(smoke_archs=("yi-6b", "gemma-2b", "glm4-9b", "deepseek-67b",
-                       "internvl2-26b"), smoke_batch=2, smoke_len=12,
-          arch="yi-6b", batch=4, positions=32, checked=(1, 2, 8, 16, 32),
-          seed=0, warm_steps=2)
+                       "internvl2-26b", "phi3.5-moe-42b-a6.6b",
+                       "granite-moe-3b-a800m", "mamba2-370m",
+                       "recurrentgemma-9b", "seamless-m4t-medium"),
+          smoke_batch=2, smoke_len=12, arch="yi-6b", batch=4, positions=32,
+          checked=(1, 2, 8, 16, 32), seed=0, warm_steps=2)
+#: (b)'s other families at full width (``get_config``), each at its full
+#: depth but phi3.5-moe, cut to this many of its 32 layers: its
+#: 41,874,096,128 parameters (83.7 GB at bf16) do not fit the card's 80 GB
+#: (the whole model waits for sharding, ROADMAP queue 1 item 13e).
+LM_FAMILIES = {"granite-moe-3b-a800m": None, "mamba2-370m": None,
+               "recurrentgemma-9b": None, "seamless-m4t-medium": None,
+               "phi3.5-moe-42b-a6.6b": 2}
+#: (c)'s launcher runs, one ``--arch`` each.
+LM_LAUNCHER = ("yi-6b", "granite-moe-3b-a800m", "recurrentgemma-9b")
 LM_KV = ("bfloat16", "int8")
 #: |card - CPU| <= tol * max|CPU| on the smoke configs' f32 logits, by KV
 #: dtype. A bf16 key (the cache in the configs' f32): the f32 tolerance
@@ -4555,6 +4578,20 @@ LM_INT8_SHARE = 2e-2
 #: 3.6e-5 and 4.6e-5 measured), and the keys that part lie this close to a
 #: rounding tie (9.5e-6 and 1.7e-5): the split is a tie, not a wrong key.
 LM_SPLIT_GAP = 1e-3
+#: A MoE router's split: a token two runs (card and CPU; decode and
+#: prefill) route to different experts is accepted only at a near-tie,
+#: where the log-probabilities (the router logits, less one shift) of the
+#: experts the runs exchanged lie within this of each other in both runs,
+#: by compute dtype. The runs differ by the rounding of their products:
+#: f32 logits a few 1e-6 of their size apart, so 1e-5; bf16 decode and
+#: prefill are held only to 2**-4 of max|logits| (``LM_FULL_TOL``), and
+#: router logits of size up to 4 at that error differ by up to 2**-2. On
+#: an H100 the first bf16 granite-moe split was 0.0664 apart (a limit of
+#: 2**-4 set before any run refused it). After a split the CPU (or
+#: prefill) run is replayed on the card's (or decode's) experts and held
+#: to the limits above from the first step: the limit on the logits is
+#: never loosened for a split.
+LM_ROUTE_GAP = {"float32": 1e-5, "bfloat16": 2.0 ** -2}
 #: |decode - prefill| <= tol * max|prefill| at full size: f32 (TF32 off),
 #: and bf16 weights with a bf16 KV cache (each product rounded to bf16 in
 #: both paths, in other orders, through 32 layers: 0.0231 measured on an
@@ -4598,15 +4635,118 @@ def lm_cache_err(cache, ref, kv):
     return err, share
 
 
-def _lm_decode(params, cfg, toks, kv, calls):
+def lm_kv_dtypes(cfg):
+    """The KV dtypes a smoke config is held at: both where it has an
+    attention cache; one where it has none (an SSM) or one whose dtype
+    is fixed (the encoder-decoder's, always the model's)."""
+    attn = any(k in ("attn", "lattn") for k in cfg.layer_pattern)
+    return LM_KV if attn and not cfg.is_encdec else LM_KV[:1]
+
+
+def lm_frames(cfg, batch, length):
+    """An encoder-decoder's frame embeddings (batch, length, d_model), made
+    on the host from :data:`LM`'s seed (the same on every device)."""
+    import torch
+    return torch.from_numpy(np.random.default_rng(LM["seed"] + 3)
+                            .standard_normal((batch, length, cfg.d_model))
+                            .astype(np.float32))
+
+
+def lm_cache(params, cfg, batch, max_seq, kv, device):
+    """``model.init_cache`` on ``device``; an encoder-decoder's cross K/V
+    built from :func:`lm_frames` (``encode`` + ``build_cross_cache``)."""
+    from repro_torch.models import encdec as E
+    from repro_torch.models import model as MD
+    cache = MD.init_cache(cfg, batch, max_seq, kv_dtype=kv, device=device)
+    if cfg.is_encdec:
+        enc = E.encode(params, lm_frames(cfg, batch, max_seq).to(device), cfg)
+        cache = E.build_cross_cache(params, enc, cfg, cache)
+    return cache
+
+
+def lm_router(routes=None, forced=None):
+    """A context that wraps ``repro_torch.models.moe.route``: every call
+    appends (its probabilities, the experts it picks itself) on the host
+    to ``routes`` (None: nothing kept); with ``forced`` (one expert-index
+    tensor a call, in call order) the call takes those experts instead,
+    its gates its own probabilities renormalised over them."""
+    import contextlib
+    from repro_torch.models import moe as M
+    route = M.route
+    count = [0]
+
+    def wrapped(probs, k):
+        gate, idx = route(probs, k)
+        if routes is not None:
+            routes.append((probs.cpu(), idx.cpu()))
+        if forced is not None:
+            idx = forced[count[0]].to(probs.device)
+            g = probs.gather(-1, idx)
+            gate = g / (g.sum(-1, keepdim=True) + 1e-9)
+        count[0] += 1
+        return gate, idx
+
+    @contextlib.contextmanager
+    def ctx():
+        M.route = wrapped
+        try:
+            yield
+        finally:
+            M.route = route
+    return ctx()
+
+
+def lm_route_split(card, host, limit):
+    """Two runs' router calls ((probs, experts) each, in one order): every
+    token routed to another set of experts (a split) must be a near-tie,
+    the log-probabilities of the experts exchanged within ``limit`` of
+    each other in both runs. Returns the number of calls and of splits,
+    the first split (its call, token, both expert sets and gap), the
+    greatest gap and ``logp_err``, the greatest |log-probability apart|
+    of an expert either run picks (the runs' noise); raises on a wider
+    gap."""
+    import torch
+    out = {"calls": len(host), "splits": 0, "first": None, "gap_max": 0.0,
+           "logp_err": 0.0}
+    for i, ((pc, ic), (ph, ih)) in enumerate(zip(card, host)):
+        pc, ph = pc.reshape(-1, pc.shape[-1]), ph.reshape(-1, ph.shape[-1])
+        ic, ih = ic.reshape(-1, ic.shape[-1]), ih.reshape(-1, ih.shape[-1])
+        for idx in (ic, ih):
+            lc, lh = (torch.log(p.gather(-1, idx).double()) for p in (pc, ph))
+            out["logp_err"] = max(out["logp_err"],
+                                  float((lc - lh).abs().max()))
+        apart = (ic.sort(-1).values != ih.sort(-1).values).any(-1)
+        for tok in apart.nonzero().flatten().tolist():
+            a, b = set(ic[tok].tolist()), set(ih[tok].tolist())
+            ex = sorted(a ^ b)
+            gap = max(float(torch.log(p[tok, ex].double()).max()
+                            - torch.log(p[tok, ex].double()).min())
+                      for p in (pc, ph))
+            out["splits"] += 1
+            out["gap_max"] = max(out["gap_max"], gap)
+            if out["first"] is None:
+                out["first"] = {"call": i, "token": tok,
+                                "card": sorted(a), "cpu": sorted(b),
+                                "gap": gap}
+            if not gap <= limit:
+                raise SmokeFailure(
+                    f"LM decode: call {i} routes token {tok} to experts "
+                    f"{sorted(a)} and {sorted(b)}, {gap:.3g} apart in "
+                    f"log-probability, not a near-tie (limit {limit})")
+    return out
+
+
+def _lm_decode(params, cfg, toks, kv, calls, routes=None, forced=None):
     """Teacher-forced ``decode_step`` over ``toks`` (B, S) on their device:
     (logits (B, S, vocab), the cache). Every call of the int8 quantiser
-    appends (its input, q, scale) on the host to ``calls``."""
+    appends (its input, q, scale) on the host to ``calls``; a MoE's router
+    calls go to :func:`lm_router` (``routes``, ``forced``). An
+    encoder-decoder's cross cache comes from :func:`lm_frames`."""
     import torch
     from repro_torch.models import layers as L
     from repro_torch.models import model as MD
     B, S = toks.shape
-    cache = MD.init_cache(cfg, B, S, kv_dtype=kv, device=toks.device)
+    cache = lm_cache(params, cfg, B, S, kv, toks.device)
     quantize = L.quantize_kv
 
     def recorded(k):
@@ -4616,10 +4756,11 @@ def _lm_decode(params, cfg, toks, kv, calls):
     L.quantize_kv = recorded
     try:
         steps = []
-        for t in range(S):
-            lg, cache = MD.decode_step(params, cache, toks[:, t:t + 1], t,
-                                       cfg)
-            steps.append(lg)
+        with lm_router(routes, forced):
+            for t in range(S):
+                lg, cache = MD.decode_step(params, cache, toks[:, t:t + 1],
+                                           t, cfg)
+                steps.append(lg)
     finally:
         L.quantize_kv = quantize
     return torch.stack(steps, dim=1), cache
@@ -4664,16 +4805,36 @@ def lm_quantiser_split(card, host, steps, device):
     return out
 
 
-def lm_hold(card, host, kv, device):
+def lm_hold(card, host, kv, device, replay=None):
     """A card and a CPU run of :func:`_lm_decode` ((logits, cache, calls)
-    each) held to each other: the logits by :data:`LM_SMOKE_TOL` (at int8
-    the f32 tolerance up to the step where the quantised keys part), the
-    caches by :func:`lm_cache_err`, the quantiser by
-    :func:`lm_quantiser_split`. Returns the readings; raises on a miss."""
-    (lc, cc, qc), (lh, ch, qh) = card, host
+    each, and the router's calls where there is a MoE) held to each
+    other: the logits by :data:`LM_SMOKE_TOL` (at int8 the f32 tolerance
+    up to the step where the quantised keys part), the caches by
+    :func:`lm_cache_err`, the quantiser by :func:`lm_quantiser_split`.
+    Where the runs route a token to other experts, the split must be a
+    near-tie (:func:`lm_route_split`, :data:`LM_ROUTE_GAP`), and the CPU
+    run is replaced by ``replay(experts)``, a CPU run on the card's
+    experts, held to the same limits. Returns the readings; raises on a
+    miss."""
+    (lc, cc, qc, *rc), (lh, ch, qh, *rh) = card, host
     steps = lh.shape[1]
+    case = {}
+    if rc and rc[0]:
+        picks = [i for _, i in rc[0]]
+        if any(not i.equal(j) for i, (_, j) in zip(picks, rh[0])):
+            if replay is None:
+                raise SmokeFailure("LM decode: the card and the CPU route "
+                                   "apart and there is no replay")
+            lh, ch, qh, *rh = host = replay(picks)
+            case["replayed"] = True
+        case["routing"] = r = lm_route_split(rc[0], rh[0],
+                                             LM_ROUTE_GAP["float32"])
+        if r["first"] is not None:
+            per = r["calls"] // steps
+            r["first"].update(step=r["first"]["call"] // per,
+                              layer=r["first"]["call"] % per)
     errs = [lm_err(lc[:, t], lh[:, t]) for t in range(steps)]
-    case = {"logits": max(errs)}
+    case["logits"] = max(errs)
     parted = steps
     if kv == "int8":
         case["quantiser"] = q = lm_quantiser_split(qc, qh, steps, device)
@@ -4692,30 +4853,33 @@ def lm_hold(card, host, kv, device):
 def lm_card_vs_cpu(device):
     """(a) The smoke configs of :data:`LM`'s archs, one set of params made
     on the host from a seed and carried to both devices as numpy leaves
-    (``convert.params_from_numpy``), decoded teacher-forced at both KV
-    dtypes on the card and on the CPU and held by :func:`lm_hold`.
-    Returns, for each case, the logits' error, the cache's, the share of
-    int8 cache entries one step apart and the quantiser's readings."""
+    (``convert.params_from_numpy``), decoded teacher-forced at their KV
+    dtypes (:func:`lm_kv_dtypes`) on the card and on the CPU and held by
+    :func:`lm_hold`. Returns, for each case, the logits' error, the
+    cache's, the share of int8 cache entries one step apart, the
+    quantiser's readings and the router's."""
     import torch
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import convert as CV
     from repro_torch.models import model as MD
     out = {}
     B, S = LM["smoke_batch"], LM["smoke_len"]
+    cpu = torch.device("cpu")
     for arch in LM["smoke_archs"]:
         cfg = get_smoke_config(arch)
         host = MD.init_params(cfg, torch.Generator().manual_seed(LM["seed"]))
         tree = CV.tree_map(lambda t: t.numpy(), host)
         toks = torch.from_numpy(np.random.default_rng(LM["seed"] + 1)
                                 .integers(0, cfg.vocab, (B, S)))
-        for kv in LM_KV:
-            runs = []
-            for dev in (device, torch.device("cpu")):
-                calls = []
-                runs.append((*_lm_decode(CV.params_from_numpy(tree, dev),
-                                         cfg, toks.to(dev), kv, calls),
-                             calls))
-            out[f"{arch}/{kv}"] = lm_hold(*runs, kv, device)
+        for kv in lm_kv_dtypes(cfg):
+            def run(dev, forced=None):
+                calls, routes = [], []
+                return (*_lm_decode(CV.params_from_numpy(tree, dev), cfg,
+                                    toks.to(dev), kv, calls, routes, forced),
+                        calls, routes)
+            out[f"{arch}/{kv}"] = lm_hold(
+                run(device), run(cpu), kv, device,
+                replay=lambda picks: run(cpu, picks))
     print(f"  (a) smoke configs, card against CPU, {B}x{S} teacher-forced "
           f"steps, worst |err| / max (logits, cache), share of int8 cache "
           f"entries one step apart: "
@@ -4724,66 +4888,116 @@ def lm_card_vs_cpu(device):
           + f" (logits limits {LM_SMOKE_TOL}, int8 share < "
           f"{LM_INT8_SHARE}); int8 quantiser: "
           + json.dumps({k: v["quantiser"] for k, v in out.items()
-                        if "quantiser" in v}))
+                        if "quantiser" in v})
+          + f"; MoE routing (splits within {LM_ROUTE_GAP['float32']} in "
+          f"log-probability, then the CPU replayed on the card's experts): "
+          + json.dumps({k: v["routing"] for k, v in out.items()
+                        if "routing" in v}))
     return out
 
 
-def lm_weight_bytes(params, cfg, batch, max_seq, kv_bytes):
-    """Bytes a decode step must move at least: every weight leaf read once
-    (the embedding table: only the batch's rows), the KV cache read once,
-    the logits written once."""
+def lm_weight_bytes(params, cfg, batch, cache):
+    """Bytes a decode step must move at least: every weight leaf it reads
+    once (the embedding table: only the batch's rows, unless it is the
+    tied head; an encoder's stack: not at all), ``cache`` read once, the
+    recurrent states (SSM, RG-LRU: every leaf of a cache without ``k``)
+    written once, the logits written once."""
     from repro_torch.models.convert import tree_leaves
-    emb = params["embed"]
-    total = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-    total -= emb.numel() * emb.element_size()
-    total += batch * emb.shape[1] * emb.element_size()
-    hd = cfg.resolved_head_dim
-    total += cfg.n_layers * 2 * batch * max_seq * cfg.kv_heads * hd * kv_bytes
-    return total + batch * cfg.vocab * 4
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    read = {k: v for k, v in params.items() if k not in ("enc", "enc_norm")}
+    total = nbytes(read)
+    if not cfg.tie_embeddings:
+        emb = params["embed"]
+        total += (batch - emb.shape[0]) * emb.shape[1] * emb.element_size()
+    total += nbytes(cache)
+
+    def states(tree):
+        if "k" in tree or "self_k" in tree:
+            return 0
+        if all(not isinstance(v, dict) for v in tree.values()):
+            return nbytes(tree)
+        return sum(states(v) for v in tree.values() if isinstance(v, dict))
+    return total + states(cache) + batch * cfg.vocab * 4
+
+
+def _lm_prefill_routes(routes, per_step, batch, n):
+    """Decode's router calls over its first ``n`` steps as one prefill's, a
+    call a layer: (probabilities (batch * n, experts), picks (batch * n,
+    k)), rows in (sequence, position) order."""
+    import torch
+    return [tuple(torch.stack([routes[t * per_step + layer][j].reshape(
+        batch, -1) for t in range(n)], dim=1).reshape(batch * n, -1)
+        for j in (0, 1)) for layer in range(per_step)]
 
 
 def _lm_teacher_forced(params, cfg, toks, kv):
-    """Logits (B, T, vocab) of ``decode_step`` over ``toks`` (B, T), and
-    the greatest |decode - prefill| / max|prefill| at :data:`LM`'s
-    checked lengths."""
+    """Logits (B, T, vocab) of ``decode_step`` over ``toks`` (B, T), the
+    greatest |decode - prefill| / max|prefill| at :data:`LM`'s checked
+    lengths, and a MoE's routing (None without one): each prefill runs on
+    the experts the decode picked, and where its own router picks others
+    the split must be a near-tie (:func:`lm_route_split`)."""
     import torch
     from repro_torch.models import model as MD
     B, T = toks.shape
-    cache = MD.init_cache(cfg, B, T, kv_dtype=kv, device=toks.device)
+    moe = bool(cfg.n_experts)
+    cache = lm_cache(params, cfg, B, T, kv, toks.device)
+    routes = [] if moe else None
     steps = []
-    for t in range(T):
-        lg, cache = MD.decode_step(params, cache, toks[:, t:t + 1], t, cfg)
-        steps.append(lg)
+    with lm_router(routes):
+        for t in range(T):
+            lg, cache = MD.decode_step(params, cache, toks[:, t:t + 1], t,
+                                       cfg)
+            steps.append(lg)
     del cache
-    worst = 0.0
+    worst, routing = 0.0, None
     for n in LM["checked"]:
-        ref, _ = MD.prefill(params, {"tokens": toks[:, :n]}, cfg)
+        batch = {"tokens": toks[:, :n]}
+        if cfg.is_encdec:
+            batch["frames"] = lm_frames(cfg, B, T).to(toks.device)
+        forced = own = None
+        if moe:
+            per = len(routes) // T
+            dec = _lm_prefill_routes(routes, per, B, n)
+            forced, own = [picks for _, picks in dec], []
+        with lm_router(own, forced):
+            ref, _ = MD.prefill(params, batch, cfg)
+        if moe:
+            r = lm_route_split(dec, own, LM_ROUTE_GAP[cfg.dtype])
+            if r["first"] is not None:
+                r["first"].update(length=n, layer=r["first"]["call"],
+                                  step=r["first"]["token"] % n)
+            routing = r if routing is None else {
+                "calls": routing["calls"] + r["calls"],
+                "splits": routing["splits"] + r["splits"],
+                "first": routing["first"] or r["first"],
+                "gap_max": max(routing["gap_max"], r["gap_max"]),
+                "logp_err": max(routing["logp_err"], r["logp_err"])}
         worst = max(worst, lm_err(steps[n - 1], ref))
-    return torch.stack(steps, dim=1), worst
+    return torch.stack(steps, dim=1), worst, routing
 
 
 def _lm_time_decode(params, cfg, kv, device, profiled):
     """``ServeConfig``'s default greedy loop (``batch`` sequences, ``tokens
     - 1`` steps from a zero token, ``serve.greedy_decode``) on a fresh
-    cache, timed with CUDA events after :data:`LM`'s ``warm_steps``
-    untimed steps; where ``profiled``, one step after those under
-    ``torch.profiler``: the top-level host ops it issues, the kernels it
-    launches and their summed device time in ms (None where the profiler
-    saw no device time, or did not run). Returns ({ms_per_step,
-    host_ops, kernels, device_ms}, the ServeConfig)."""
+    cache (:func:`lm_cache`), timed with CUDA events after :data:`LM`'s
+    ``warm_steps`` untimed steps; where ``profiled``, one step after those
+    under ``torch.profiler``: the top-level host ops it issues, the
+    kernels it launches and their summed device time in ms (None where the
+    profiler saw no device time, or did not run). Returns ({ms_per_step,
+    host_ops, kernels, device_ms}, the ServeConfig, the cache's bytes)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import greedy_decode
     from repro_torch.launch.server import ServeConfig
-    from repro_torch.models import model as MD
     from repro_torch.train.step import make_serve_step
     sc = ServeConfig()
     step = make_serve_step(cfg)
 
     def fresh():
-        return MD.init_cache(cfg, sc.batch, sc.tokens, kv_dtype=kv,
-                             device=device)
+        return lm_cache(params, cfg, sc.batch, sc.tokens, kv, device)
     warm = LM["warm_steps"]
     tok, cache = greedy_decode(step, params, fresh(), sc.batch, warm)
     torch.cuda.synchronize()
@@ -4810,42 +5024,52 @@ def _lm_time_decode(params, cfg, kv, device, profiled):
     e1.record()
     torch.cuda.synchronize()
     out["ms_per_step"] = e0.elapsed_time(e1) / (sc.tokens - 1)
-    return out, sc
+    return out, sc, cache
 
 
-def lm_full_size(device):
-    """(b) yi-6b at full width and depth: f32 masters drawn on the card,
-    teacher-forced ``decode_step`` against ``prefill`` (f32, TF32 off);
-    then ``cast_params`` to bf16 once (the f32 copy freed), the same check
-    at bf16, and ``ServeConfig``'s default greedy decode timed at both KV
-    dtypes beside the bound (the bytes of :func:`lm_weight_bytes` over the
-    card's memory rate)."""
+def lm_full_size(device, arch=LM["arch"], depth=None, kvs=LM_KV):
+    """(b) ``arch`` at full width (and depth, or ``depth`` layers): f32
+    masters drawn on the card, teacher-forced ``decode_step`` against
+    ``prefill`` (f32, TF32 off); then ``cast_params`` to bf16 once (the
+    f32 copy freed), the same check at bf16, and ``ServeConfig``'s default
+    greedy decode timed at each KV dtype of ``kvs`` (the first one
+    profiled) beside the bound (the bytes of :func:`lm_weight_bytes` over
+    the card's memory rate). Returns the readings."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import model as MD
     from repro_torch.models.convert import tree_leaves
     from repro_torch.train.step import cast_params
-    full = get_config(LM["arch"])
+    full = get_config(arch)
+    cut = ""
+    if depth:
+        cut = f" (cut from {full.n_layers})"
+        full = dataclasses.replace(full, n_layers=depth)
     cfg32 = dataclasses.replace(full, dtype="float32")
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = MD.init_params(
         cfg32, torch.Generator(device=device).manual_seed(LM["seed"]))
     torch.cuda.synchronize()
     nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-    print(f"  (b) {full.name}: {full.n_layers} layers, d_model "
-          f"{full.d_model}, {full.n_heads} heads (kv {full.kv_heads}), d_ff "
-          f"{full.d_ff}, vocab {full.vocab}; n_params {full.n_params():,}; "
-          f"f32 masters {nbytes / 1e9:.2f} GB drawn on the card in "
-          f"{time.perf_counter() - t0:.3f} s")
+    print(f"  (b) {full.name}: {full.n_layers} layers{cut} "
+          f"{'/'.join(full.layer_pattern)}, d_model {full.d_model}, "
+          f"{full.n_heads} heads (kv {full.kv_heads}), d_ff {full.d_ff}, "
+          f"experts {full.n_experts} top {full.topk}, enc layers "
+          f"{full.enc_layers}, vocab {full.vocab}; n_params "
+          f"{full.n_params():,}; f32 masters {nbytes / 1e9:.2f} GB drawn on "
+          f"the card in {time.perf_counter() - t0:.3f} s")
     B, T = LM["batch"], LM["positions"]
     toks = torch.from_numpy(np.random.default_rng(LM["seed"] + 2).integers(
         0, full.vocab, (B, T))).to(device)
-    out = {"n_params": full.n_params(), "f32_bytes": nbytes}
-    logits32, err = _lm_teacher_forced(params, cfg32, toks, "bfloat16")
-    out["f32"] = {"decode_vs_prefill": err}
+    out = {"n_params": full.n_params(), "layers": full.n_layers,
+           "f32_bytes": nbytes}
+    logits32, err, routing = _lm_teacher_forced(params, cfg32, toks, kvs[0])
+    out["f32"] = {"decode_vs_prefill": err, "routing": routing}
     print(f"      f32: decode against prefill at lengths {LM['checked']}: "
-          f"{err:.3g} of max|logits| (tol {LM_FULL_TOL['float32']:g})")
+          f"{err:.3g} of max|logits| (tol {LM_FULL_TOL['float32']:g})"
+          + (f"; routing {json.dumps(routing)}" if routing else ""))
     if not err <= LM_FULL_TOL["float32"]:
         raise SmokeFailure(f"LM decode, {full.name} f32: decode against "
                            f"prefill off by {err} of max|logits|")
@@ -4855,57 +5079,67 @@ def lm_full_size(device):
     out["cast_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    logits16, err = _lm_teacher_forced(params, full, toks, "bfloat16")
+    logits16, err, routing = _lm_teacher_forced(params, full, toks, kvs[0])
     against32 = lm_err(logits16, logits32)
     del logits32, logits16
-    out["bf16"] = {"decode_vs_prefill": err, "against_f32": against32}
+    out["bf16"] = {"decode_vs_prefill": err, "against_f32": against32,
+                   "routing": routing}
     print(f"      bf16 (cast once, {out['cast_s']:.3f} s; card peak "
           f"{out['peak_gb']:.1f} GB): decode against prefill {err:.3g} of "
           f"max|logits| (tol {LM_FULL_TOL['bfloat16']:g}); bf16 decode "
-          f"against f32 decode {against32:.3g}")
+          f"against f32 decode {against32:.3g}"
+          + (f"; routing {json.dumps(routing)}" if routing else ""))
     if not err <= LM_FULL_TOL["bfloat16"]:
         raise SmokeFailure(f"LM decode, {full.name} bf16: decode against "
                            f"prefill off by {err} of max|logits|")
-    for kv in LM_KV:
-        d, sc = _lm_time_decode(params, full, kv, device,
-                                profiled=kv == LM_KV[0])
-        kvb = 1 if kv == "int8" else 2
-        bound = lm_weight_bytes(params, full, sc.batch, sc.tokens, kvb) \
+    for kv in kvs:
+        d, sc, cache = _lm_time_decode(params, full, kv, device,
+                                       profiled=kv == kvs[0])
+        bound = lm_weight_bytes(params, full, sc.batch, cache) \
             / HBM_BYTES_PER_S * 1e3
-        out[f"decode_{kv}"] = {**d, "tok_s": sc.batch / d["ms_per_step"]
-                               * 1e3, "bound_ms": bound, "bound_by": "bytes"}
+        del cache
+        out[f"decode_{kv}"] = d = {**d, "tok_s": sc.batch / d["ms_per_step"]
+                                   * 1e3, "bound_ms": bound,
+                                   "bound_by": "bytes"}
+        _lm_print_decode(full.name, kv, d)
     del params
     torch.cuda.empty_cache()
     return out
 
 
 def lm_launcher():
-    """(c) ``repro_torch.launch.serve.main(["--arch", "yi-6b",
-    "--vocab-spmv", "0.1"])`` on the card: it decodes (its tok/s line is
-    printed) and then runs the vocab bench through ``SparseLinear``; the
-    counts, set to 0 just before, must show SpMV kernels and nothing else.
-    Returns the counts."""
+    """(c) ``repro_torch.launch.serve.main(["--arch", arch, "--vocab-spmv",
+    "0.1"])`` on the card for each arch of :data:`LM_LAUNCHER`: it decodes
+    (its tok/s line is printed) and then runs the vocab bench through
+    ``SparseLinear``; the counts, set to 0 just before each run, must show
+    SpMV kernels and nothing else. Returns the counts summed over the
+    runs, and each run's."""
     import contextlib
     import io
     import torch
     from repro_torch.launch import serve
-    argv = ["--arch", LM["arch"], "--vocab-spmv", str(VOCAB["density"])]
-    counts = reset_all_launches()
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        serve.main(argv)
-    torch.cuda.synchronize()
-    got = {k: v for k, v in counts().items() if v}
-    lines = buf.getvalue().strip().splitlines()
-    print(f"  (c) python -m repro_torch.launch.serve {' '.join(argv)}: "
-          + " | ".join(lines) + f"; launches {got}")
-    decoded = any(re.search(r"tok/s \(kv=bfloat16, mesh=1 device\)", ln)
-                  for ln in lines)
-    if (not decoded or not got or any(not k.startswith("spmv")
-                                      for k in got)):
-        raise SmokeFailure(f"LM launcher: decoded {decoded}, launches "
-                           f"{got}")
-    return got
+    total, per = {}, {}
+    for arch in LM_LAUNCHER:
+        argv = ["--arch", arch, "--vocab-spmv", str(VOCAB["density"])]
+        counts = reset_all_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve.main(argv)
+        torch.cuda.synchronize()
+        per[arch] = got = {k: v for k, v in counts().items() if v}
+        lines = buf.getvalue().strip().splitlines()
+        print(f"  (c) python -m repro_torch.launch.serve {' '.join(argv)}: "
+              + " | ".join(lines) + f"; launches {got}")
+        decoded = any(re.search(rf"^{re.escape(arch)}: .* tok/s "
+                                r"\(kv=bfloat16, mesh=1 device\)", ln)
+                      for ln in lines)
+        if (not decoded or not got or any(not k.startswith("spmv")
+                                          for k in got)):
+            raise SmokeFailure(f"LM launcher, {arch}: decoded {decoded}, "
+                               f"launches {got}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    return total, per
 
 
 def chaos_module():
@@ -4931,28 +5165,50 @@ def chaos_module():
     return {"exit": out.returncode, "lines": lines}
 
 
+def _lm_print_decode(name, kv, d):
+    """One timed greedy loop's line: ms a step, tok/s, the bound and the
+    profiled step's busy share."""
+    busy = ("device time not measured" if d["device_ms"] is None else
+            f"{d['device_ms']:.3f} ms of device time a step (busy "
+            f"{d['device_ms'] / d['ms_per_step']:.3f}, idle "
+            f"{1 - d['device_ms'] / d['ms_per_step']:.3f})")
+    prof = ("not profiled" if d["kernels"] is None else
+            f"one step under the profiler: {d['host_ops']} host ops, "
+            f"{d['kernels']} kernels, {busy}")
+    print(f"  decode {name} bf16 weights, kv {kv}, {LM['batch']} sequences: "
+          f"{d['ms_per_step']:.3f} ms a step, {d['tok_s']:.1f} tok/s, "
+          f"read bound {d['bound_ms']:.3f} ms a step "
+          f"({d['ms_per_step'] / d['bound_ms']:.2f}x); {prof}")
+
+
 def lm_decode(device):
-    """Phase: LM decode (item 13, dense): (a) card against CPU on smoke
-    configs, (b) yi-6b at full width and depth, (c) the launcher. Prints
-    the phase's numbers on a ``{"lm_decode": ...}`` line and returns them
-    with ``launches``, the launcher's kernel counts."""
-    out = {"card_vs_cpu": lm_card_vs_cpu(device)}
-    out["full"] = lm_full_size(device)
-    for kv in LM_KV:
-        d = out["full"][f"decode_{kv}"]
-        busy = ("device time not measured" if d["device_ms"] is None else
-                f"{d['device_ms']:.3f} ms of device time a step (busy "
-                f"{d['device_ms'] / d['ms_per_step']:.3f}, idle "
-                f"{1 - d['device_ms'] / d['ms_per_step']:.3f})")
-        prof = ("not profiled" if d["kernels"] is None else
-                f"one step under the profiler: {d['host_ops']} host ops, "
-                f"{d['kernels']} kernels, {busy}")
-        print(f"  decode {LM['arch']} bf16 weights, kv {kv}, "
-              f"{LM['batch']} sequences: {d['ms_per_step']:.3f} ms a step, "
-              f"{d['tok_s']:.1f} tok/s, weight-read bound "
-              f"{d['bound_ms']:.3f} ms a step "
-              f"({d['ms_per_step'] / d['bound_ms']:.2f}x); {prof}")
-    out["launches"] = lm_launcher()
+    """Phase 5b's (a) card against CPU on every smoke config and (b)
+    yi-6b, then each of :data:`LM_FAMILIES`, at full width. They launch no
+    kernel of the port, so ``main`` runs them beside the kernels' build
+    (``lm_launched`` runs (c) after it). Returns the readings and their
+    seconds."""
+    t0 = time.perf_counter()
+    out = {"card_vs_cpu": lm_card_vs_cpu(device), "full": {}}
+    out["seconds"] = {"a": time.perf_counter() - t0}
+    for arch, depth in ((LM["arch"], None), *LM_FAMILIES.items()):
+        t0 = time.perf_counter()
+        out["full"][arch] = lm_full_size(
+            device, arch, depth, kvs=LM_KV if arch == LM["arch"]
+            else LM_KV[:1])
+        out["seconds"]["b " + arch] = time.perf_counter() - t0
+    return out
+
+
+def lm_launched(out):
+    """Phase 5b's (c), the launcher, once the kernels are built: adds its
+    counts summed over its runs to :func:`lm_decode`'s ``out`` as
+    ``launches`` (and each run's as ``launcher``), prints the phase's
+    numbers on a ``{"lm_decode": ...}`` line and returns ``out``."""
+    t0 = time.perf_counter()
+    out["launches"], out["launcher"] = lm_launcher()
+    out["seconds"]["c"] = time.perf_counter() - t0
+    print("  phase 5b seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in out["seconds"].items()))
     print(json.dumps({"lm_decode": out}))
     return out
 
@@ -4971,16 +5227,23 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     try:
-        # the host-only inputs are made while nvcc builds the kernels
+        # the host-only inputs, and phase 5b's (a) and (b) (eager torch,
+        # no kernel of the port), run while nvcc builds the kernels
         wait_build = start_build()
-        t_host = time.perf_counter()
-        csr, mat = make_matrix()
-        bcsr, bmat = make_band()
-        breo, _ = band_reordering(bmat)
-        w, vcsr, vmat = make_vocab()
-        print(f"host inputs made beside the build: "
-              f"{time.perf_counter() - t_host:.1f} s")
-        wait_build()
+        try:
+            t_host = time.perf_counter()
+            csr, mat = make_matrix()
+            bcsr, bmat = make_band()
+            breo, _ = band_reordering(bmat)
+            w, vcsr, vmat = make_vocab()
+            print(f"host inputs made beside the build: "
+                  f"{time.perf_counter() - t_host:.1f} s")
+            t_phase = time.perf_counter()
+            lm = lm_decode(device)
+            print(f"phase LM decode (a) and (b), beside the build: "
+                  f"{time.perf_counter() - t_phase:.1f} s")
+        finally:
+            wait_build()
         t_phase = time.perf_counter()
         small_check(device)
         print(f"phase small check: {time.perf_counter() - t_phase:.1f} s")
@@ -5083,8 +5346,8 @@ def main() -> int:
         chaos_module()
         print(f"phase serving tier: {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
-        lm = lm_decode(device)
-        print(f"phase LM decode: {time.perf_counter() - t_phase:.1f} s")
+        lm_launched(lm)
+        print(f"phase LM decode (c): {time.perf_counter() - t_phase:.1f} s")
         mat24 = convert_test_block(vcsr)
         flat = build_flat_test_plan(mat24, device)
         ys, y_flat, la, lb = drive_test(test_layer, flat, x1, acts, device)

@@ -6,9 +6,9 @@
 The port of ``examples/serve_lm.py``: the reduced per-arch config with
 random weights (``torch.Generator`` seed 0), a random first token, then a
 ``decode_step`` token loop over the KV cache (ring buffers for local
-attention). It runs on the card unless ``--device cpu`` is given. The
-dense decoder is ported; a MoE, SSM, hybrid or encoder-decoder arch exits
-naming the part of ROADMAP queue 1 item 13 that ports it.
+attention, SSM and RG-LRU state, MoE routing, depending on the arch). It
+runs on the card unless ``--device cpu`` is given. An encoder-decoder
+arch exits with the reference example's message.
 """
 import argparse
 
@@ -34,12 +34,11 @@ def main(argv=None):
     device = ops.resolve_device(args.device)
 
     cfg = get_smoke_config(args.arch)
+    if cfg.is_encdec:
+        raise SystemExit("use the encdec example path: seamless decode is "
+                         "exercised in tests/test_models.py")
     B, T = args.batch, args.tokens
-    try:
-        params = MD.init_params(
-            cfg, torch.Generator(device=device).manual_seed(0))
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from None
+    params = MD.init_params(cfg, torch.Generator(device=device).manual_seed(0))
     cache = MD.init_cache(cfg, B, T, kv_dtype=args.kv_dtype, device=device)
 
     rng = np.random.default_rng(0)

@@ -15,9 +15,10 @@ random weights (``torch.Generator`` seed 0): ``--tokens - 1`` greedy steps
 of ``--batch`` sequences from a zero token against a KV cache of
 ``--kv-dtype``, timed under the ``serve.decode`` span (the card
 synchronised before it closes), and prints the reference's tok/s line.
-The dense decoder is ported; a MoE, SSM, hybrid or encoder-decoder arch
-exits naming the part of ROADMAP queue 1 item 13 that ports it, and
-``--mesh`` (sharded weights) exits naming item 13 too.
+Every decoder-only arch decodes (dense, MoE, SSM, hybrid, vlm); an
+encoder-decoder arch exits with the reference's message, as its launcher
+does, and ``--mesh`` (sharded weights) exits naming ROADMAP queue 1 item
+13e.
 
 ``--records`` installs a record store (file or directory) as the
 selector's default store (with ``--verify``, its ``verify_records``
@@ -43,6 +44,10 @@ import torch
 from repro_torch import obs
 from repro_torch.launch import server as SV
 
+#: The reference launcher's exit for an encoder-decoder ``--arch``: it has
+#: no enc-dec CLI path (its tests drive the enc-dec decode).
+ENCDEC_EXIT = "enc-dec serving path: see tests/test_models.py"
+
 def main(argv=None, *, device: Optional[str] = None) -> None:
     """Parse ``argv``, decode, then run the vocab bench or the serving tier.
     ``device`` (not a flag) is where the model and the plans go: None is
@@ -67,10 +72,9 @@ def main(argv=None, *, device: Optional[str] = None) -> None:
 
     from repro_torch.configs import get_smoke_config
     cfg = dataclasses.replace(get_smoke_config(config.arch), dtype="float32")
-    try:
-        _decode(config, cfg, device)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from None
+    if cfg.is_encdec:
+        raise SystemExit(ENCDEC_EXIT)
+    _decode(config, cfg, device)
 
     if config.vocab_spmv > 0 and config.qps > 0:
         _serve_vocab(config, cfg.vocab, cfg.d_model, device)

@@ -1,0 +1,154 @@
+"""Encoder-decoder backbone (seamless-m4t family), the serving half of
+``repro.models.encdec``.
+
+The encoder takes precomputed frame embeddings (the modality frontend is a
+stub, as in the reference); the decoder is a causal LM with
+cross-attention into the encoder output. Both stacks are stacked over
+their layers (``enc`` / ``dec``, the reference's trees) and run as a loop.
+The decode cache holds the self-attention K/V and the cross-attention K/V
+built once from the encoder output, all in the model dtype. The training
+loss waits for ROADMAP queue 1 item 13d.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from . import layers as L
+from .config import ModelConfig
+from .transformer import _dtype, _index, _logits
+
+Params = Dict[str, Any]
+Tensor = torch.Tensor
+
+
+def _init_enc_layer(cfg: ModelConfig, gen: torch.Generator, lead) -> Params:
+    d = cfg.d_model
+    return {"norm": L.zinit(gen, (d,), lead),
+            "attn": L.init_attn(gen, cfg, lead),
+            "norm2": L.zinit(gen, (d,), lead),
+            "mlp": L.init_mlp(gen, cfg, lead=lead)}
+
+
+def _init_dec_layer(cfg: ModelConfig, gen: torch.Generator, lead) -> Params:
+    d = cfg.d_model
+    return {"norm": L.zinit(gen, (d,), lead),
+            "attn": L.init_attn(gen, cfg, lead),
+            "norm_x": L.zinit(gen, (d,), lead),
+            "xattn": L.init_attn(gen, cfg, lead),
+            "norm2": L.zinit(gen, (d,), lead),
+            "mlp": L.init_mlp(gen, cfg, lead=lead)}
+
+
+def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    """Float32 masters on ``gen``'s device (the reference's tree and
+    scales)."""
+    d = cfg.d_model
+    params: Params = {
+        "embed": L.ninit(gen, (cfg.vocab_padded, d), scale=1.0),
+        "enc": _init_enc_layer(cfg, gen, (cfg.enc_layers,)),
+        "dec": _init_dec_layer(cfg, gen, (cfg.n_layers,)),
+        "enc_norm": L.zinit(gen, (d,)),
+        "final_norm": L.zinit(gen, (d,)),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.ninit(gen, (d, cfg.vocab_padded))
+    return params
+
+
+def _cross_kv(p: Params, enc_out: Tensor, cfg: ModelConfig
+              ) -> Tuple[Tensor, Tensor]:
+    """One decoder layer's cross-attention K/V of ``enc_out``."""
+    hd, dt = cfg.resolved_head_dim, enc_out.dtype
+    return (L._split_heads(enc_out @ p["xattn"]["wk"].to(dt), cfg.kv_heads,
+                           hd),
+            L._split_heads(enc_out @ p["xattn"]["wv"].to(dt), cfg.kv_heads,
+                           hd))
+
+
+def encode(params: Params, frames: Tensor, cfg: ModelConfig) -> Tensor:
+    """frames: (B, S_enc, D) precomputed embeddings -> encoder output."""
+    x = frames.to(_dtype(cfg))
+    for i in range(cfg.enc_layers):
+        p = _index(params["enc"], i)
+        h = L.rmsnorm(x, p["norm"], cfg.norm_eps)
+        x = x + L.attention_fwd(p["attn"], h, cfg, causal=False)
+        h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
+        x = x + L.mlp_fwd(p["mlp"], h2, cfg)
+    return L.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
+
+
+def decode_train(params: Params, enc_out: Tensor, tokens: Tensor,
+                 cfg: ModelConfig) -> Tensor:
+    """Teacher-forced decoder forward -> hidden states (B, S_dec, D)."""
+    x = params["embed"][tokens].to(_dtype(cfg))
+    for i in range(cfg.n_layers):
+        p = _index(params["dec"], i)
+        h = L.rmsnorm(x, p["norm"], cfg.norm_eps)
+        x = x + L.attention_fwd(p["attn"], h, cfg, causal=True)
+        hx = L.rmsnorm(x, p["norm_x"], cfg.norm_eps)
+        x = x + L.attention_fwd(p["xattn"], hx, cfg, causal=False,
+                                kv_override=_cross_kv(p, enc_out.to(x.dtype),
+                                                      cfg),
+                                rope=False)
+        h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
+        x = x + L.mlp_fwd(p["mlp"], h2, cfg)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# decode (serving)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, enc_len: int,
+               kv_dtype: str = "bfloat16",
+               device: Optional[torch.device] = None) -> Params:
+    """Zero self- and cross-attention K/V on ``device`` (None: the card),
+    always in cfg.dtype: ``kv_dtype`` is taken and ignored, as in the
+    reference."""
+    from repro_torch.kernels.ops import resolve_device
+    device = resolve_device(device)
+    hd, dt, Ld = cfg.resolved_head_dim, _dtype(cfg), cfg.n_layers
+
+    def zeros(S):
+        return torch.zeros((Ld, batch, S, cfg.kv_heads, hd), dtype=dt,
+                           device=device)
+    return {"self_k": zeros(max_seq), "self_v": zeros(max_seq),
+            "cross_k": zeros(enc_len), "cross_v": zeros(enc_len)}
+
+
+def build_cross_cache(params: Params, enc_out: Tensor, cfg: ModelConfig,
+                      cache: Params) -> Params:
+    """``cache`` with its cross-attention K/V computed from ``enc_out``
+    (B, S_enc, D), every decoder layer's, stacked (a new dict; the self
+    K/V are the same tensors)."""
+    kv = [_cross_kv(_index(params["dec"], i), enc_out, cfg)
+          for i in range(cfg.n_layers)]
+    return dict(cache, cross_k=torch.stack([k for k, _ in kv]),
+                cross_v=torch.stack([v for _, v in kv]))
+
+
+def decode_step(params: Params, cache: Params, token: Tensor, pos: int,
+                cfg: ModelConfig) -> Tuple[Tensor, Params]:
+    """One decode step. token: (B, 1); pos: the current position (a Python
+    int). Returns (logits (B, vocab) float32, cache); the self K/V are
+    updated in place."""
+    pos = int(pos)
+    dt = _dtype(cfg)
+    x = params["embed"][token].to(dt)
+    for i in range(cfg.n_layers):
+        p = _index(params["dec"], i)
+        h = L.rmsnorm(x, p["norm"], cfg.norm_eps)
+        o, _ = L.attention_decode(p["attn"], h, {"k": cache["self_k"][i],
+                                                 "v": cache["self_v"][i]},
+                                  pos, cfg)
+        x = x + o
+        hx = L.rmsnorm(x, p["norm_x"], cfg.norm_eps)
+        x = x + L.attention_fwd(p["xattn"], hx, cfg, causal=False,
+                                kv_override=(cache["cross_k"][i].to(dt),
+                                             cache["cross_v"][i].to(dt)),
+                                rope=False)
+        h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
+        x = x + L.mlp_fwd(p["mlp"], h2, cfg)
+    return _logits(params, x[:, 0], cfg), cache

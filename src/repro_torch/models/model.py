@@ -1,10 +1,10 @@
 """Unified model facade: dispatch by family (the port of
 ``repro.models.model``).
 
-The decoder-only families run through :mod:`.transformer`, which raises
-``NotImplementedError`` for an encoder-decoder (ROADMAP queue 1 item 13c)
-and for the blocks not ported yet; ``input_specs`` / ``cache_specs``
-belong to the dry run (item 13f).
+Encoder-decoders run through :mod:`.encdec`, every other family through
+:mod:`.transformer`. ``forward_loss`` waits for the training part of
+ROADMAP queue 1 item 13 (13d); ``input_specs`` / ``cache_specs`` belong to
+the dry run (13f).
 """
 from __future__ import annotations
 
@@ -12,30 +12,49 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from . import transformer
+from . import encdec, transformer
+from . import layers as L
 from .config import ModelConfig
 
 Params = Dict[str, Any]
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    if cfg.is_encdec:
+        return encdec.init_params(cfg, gen)
     return transformer.init_params(cfg, gen)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                kv_dtype: str = "bfloat16",
                device: Optional[torch.device] = None) -> Params:
+    """The decode cache on ``device`` (None: the card). An encoder-decoder's
+    cross-attention cache is ``max_seq`` frames long, as in the
+    reference."""
+    if cfg.is_encdec:
+        return encdec.init_cache(cfg, batch, max_seq, enc_len=max_seq,
+                                 kv_dtype=kv_dtype, device=device)
     return transformer.init_cache(cfg, batch, max_seq, kv_dtype,
                                   device=device)
 
 
 def decode_step(params: Params, cache: Params, token: torch.Tensor, pos: int,
                 cfg: ModelConfig):
+    if cfg.is_encdec:
+        return encdec.decode_step(params, cache, token, pos, cfg)
     return transformer.decode_step(params, cache, token, pos, cfg)
 
 
 def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     """``batch``: "tokens" (B, S) and, for the vlm family, "prefix"
-    (B, P, D). Returns (last-position logits (B, vocab), hidden)."""
+    (B, P, D), for an encoder-decoder "frames" (B, S_enc, D). Returns
+    (last-position logits (B, vocab), hidden)."""
+    if cfg.is_encdec:
+        enc_out = encdec.encode(params, batch["frames"], cfg)
+        x = encdec.decode_train(params, enc_out, batch["tokens"], cfg)
+        x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+        head = transformer._lm_head(params, cfg)
+        logits = (x[:, -1] @ head.to(x.dtype)).float()
+        return logits[:, :cfg.vocab], x
     return transformer.prefill(params, batch["tokens"], cfg,
                                prefix=batch.get("prefix"))

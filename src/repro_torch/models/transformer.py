@@ -1,7 +1,7 @@
-"""Decoder-only LM assembly, dense blocks: init, prefill and decode.
+"""Decoder-only LM assembly: init, prefill and decode (the port of
+``repro.models.transformer``).
 
-The port of ``repro.models.transformer`` for the ``attn`` and ``lattn``
-blocks. The parameter and cache trees are the reference's: complete
+The parameter and cache trees are the reference's: complete
 ``cfg.layer_pattern`` repetitions are stacked over ``U = pattern_units``
 under ``units[str(p_idx)]``, remainder layers sit under ``rem[str(r_idx)]``,
 so a reference tree carries over leaf for leaf
@@ -9,9 +9,11 @@ so a reference tree carries over leaf for leaf
 here they are a Python loop over the leading axis. Its sharding
 constraints are no-ops outside a sharding scope and are left out.
 
-MoE, SSM and RG-LRU blocks are not ported yet: a config that needs one
-raises ``NotImplementedError`` naming the part of ROADMAP queue 1 item 13
-that ports it (:func:`check_dense`).
+Blocks: ``attn`` and ``lattn`` (global and windowed attention, each with
+an MLP or, under ``cfg.n_experts``, a MoE), ``ssm`` (Mamba-2 SSD) and
+``rec`` (RG-LRU, with an MLP or MoE). An unknown kind raises
+``ValueError``, as in the reference. The training loss waits for ROADMAP
+queue 1 item 13d.
 """
 from __future__ import annotations
 
@@ -20,51 +22,50 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from . import layers as L
+from . import moe as M
+from . import rglru as R
+from . import ssm as S
 from .config import ModelConfig
 
 Params = Dict[str, Any]
 Tensor = torch.Tensor
-
-#: The blocks this module runs.
-DENSE_BLOCKS = ("attn", "lattn")
-
-
-def check_dense(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot run yet:
-    an encoder-decoder (item 13c), MoE MLPs (item 13a), or SSM / RG-LRU
-    blocks (item 13b)."""
-    if cfg.is_encdec:
-        part, what = "13c", f"an encoder-decoder (enc_layers={cfg.enc_layers})"
-    elif cfg.n_experts:
-        part, what = "13a", f"MoE blocks (n_experts={cfg.n_experts})"
-    else:
-        other = sorted(set(cfg.layer_pattern) - set(DENSE_BLOCKS))
-        if not other:
-            return
-        part, what = "13b", f"{'/'.join(other)} blocks"
-    raise NotImplementedError(
-        f"repro_torch.models: {cfg.name} uses {what}, which the port does "
-        f"not have yet (ROADMAP queue 1 item {part}); the dense 'attn' / "
-        f"'lattn' decoder is ported")
 
 
 # ----------------------------------------------------------------------------
 # init
 # ----------------------------------------------------------------------------
 
+def _init_ffn(p: Params, cfg: ModelConfig, gen: torch.Generator,
+              lead) -> Params:
+    """``p`` with its second half: a MoE under ``cfg.n_experts``, else an
+    MLP."""
+    if cfg.n_experts:
+        p["moe"] = M.init_moe(gen, cfg, lead)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg, lead=lead)
+    return p
+
+
 def _init_block(kind: str, cfg: ModelConfig, gen: torch.Generator,
                 lead=()) -> Params:
     d = cfg.d_model
-    return {"norm": L.zinit(gen, (d,), lead),
-            "attn": L.init_attn(gen, cfg, lead),
-            "norm2": L.zinit(gen, (d,), lead),
-            "mlp": L.init_mlp(gen, cfg, lead=lead)}
+    if kind in ("attn", "lattn"):
+        return _init_ffn({"norm": L.zinit(gen, (d,), lead),
+                          "attn": L.init_attn(gen, cfg, lead),
+                          "norm2": L.zinit(gen, (d,), lead)}, cfg, gen, lead)
+    if kind == "ssm":
+        return {"norm": L.zinit(gen, (d,), lead),
+                "ssm": S.init_ssm(gen, cfg, lead)}
+    if kind == "rec":
+        return _init_ffn({"norm": L.zinit(gen, (d,), lead),
+                          "rec": R.init_rec(gen, cfg, lead),
+                          "norm2": L.zinit(gen, (d,), lead)}, cfg, gen, lead)
+    raise ValueError(kind)
 
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Float32 masters on ``gen``'s device, drawn from ``gen`` (the
     reference's tree and scales; not the JAX PRNG's values)."""
-    check_dense(cfg)
     d = cfg.d_model
     params: Params = {
         "embed": L.ninit(gen, (cfg.vocab_padded, d), scale=1.0),
@@ -92,27 +93,51 @@ def _index(tree: Params, u: int) -> Params:
 # blocks
 # ----------------------------------------------------------------------------
 
-def _apply_block(kind: str, p: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
-    """Full-sequence forward for one dense block."""
-    window = cfg.window if kind == "lattn" else 0
-    h = L.rmsnorm(x, p["norm"], cfg.norm_eps)
-    x = x + L.attention_fwd(p["attn"], h, cfg, causal=True, window=window)
+def _ffn(p: Params, x: Tensor, cfg: ModelConfig, dropless: bool
+         ) -> Tuple[Tensor, Optional[Tensor]]:
+    """The block's second half on ``x``: (x + out, the MoE's aux loss or
+    None for an MLP)."""
     h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
-    return x + L.mlp_fwd(p["mlp"], h2, cfg)
+    if cfg.n_experts:
+        o2, aux = M.moe_fwd(p["moe"], h2, cfg, dropless=dropless)
+        return x + o2, aux
+    return x + L.mlp_fwd(p["mlp"], h2, cfg), None
 
 
-def backbone(params: Params, x: Tensor, cfg: ModelConfig
-             ) -> Tuple[Tensor, Tensor]:
-    """Run all layers on hidden states x (B, S, D). Returns (x, aux_loss);
-    the aux loss is MoE's, 0 for the dense blocks."""
-    check_dense(cfg)
-    for u in range(cfg.pattern_units):
-        for p_idx, kind in enumerate(cfg.layer_pattern):
-            x = _apply_block(kind, _index(params["units"][str(p_idx)], u),
-                             x, cfg)
-    for r_idx, kind in enumerate(cfg.remainder_layers):
-        x = _apply_block(kind, params["rem"][str(r_idx)], x, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+def _apply_block(kind: str, p: Params, x: Tensor, cfg: ModelConfig,
+                 train: bool = False) -> Tuple[Tensor, Optional[Tensor]]:
+    """Full-sequence forward for one block: (x, the MoE's aux loss or
+    None). ``train`` only affects MoE blocks: training drops tokens over
+    capacity, prefill runs dropless so its logits match step decode."""
+    h = L.rmsnorm(x, p["norm"], cfg.norm_eps)
+    if kind in ("attn", "lattn"):
+        window = cfg.window if kind == "lattn" else 0
+        o = L.attention_fwd(p["attn"], h, cfg, causal=True, window=window)
+    elif kind == "ssm":
+        return x + S.ssm_fwd(p["ssm"], h, cfg), None
+    elif kind == "rec":
+        o = R.rec_fwd(p["rec"], h, cfg)
+    else:
+        raise ValueError(kind)
+    return _ffn(p, x + o, cfg, dropless=not train)
+
+
+def backbone(params: Params, x: Tensor, cfg: ModelConfig,
+             train: bool = False) -> Tuple[Tensor, Tensor]:
+    """Run all layers on hidden states x (B, S, D). Returns (x, aux_loss),
+    the sum of the MoE blocks' aux losses (0 without one). ``train=False``
+    runs MoE blocks dropless."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    blocks = [(kind, _index(params["units"][str(p_idx)], u))
+              for u in range(cfg.pattern_units)
+              for p_idx, kind in enumerate(cfg.layer_pattern)]
+    blocks += [(kind, params["rem"][str(r_idx)])
+               for r_idx, kind in enumerate(cfg.remainder_layers)]
+    for kind, p in blocks:
+        x, a = _apply_block(kind, p, x, cfg, train)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 # ----------------------------------------------------------------------------
@@ -154,12 +179,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     float32 scales; any other value keeps k / v in cfg.dtype, as in the
     reference."""
     from repro_torch.kernels.ops import resolve_device
-    check_dense(cfg)
     device = resolve_device(device)
     hd = cfg.resolved_head_dim
     dt = _dtype(cfg)
 
     def one(kind: str, lead=()) -> Params:
+        if kind == "ssm":
+            return S.ssm_init_cache(cfg, batch, dt, device, lead)
+        if kind == "rec":
+            return R.rec_init_cache(cfg, batch, dt, device, lead)
+        if kind not in ("attn", "lattn"):
+            raise ValueError(kind)
         Sc = max_seq if kind == "attn" else min(max_seq, cfg.window)
         shape = (*lead, batch, Sc, cfg.kv_heads, hd)
         if kv_dtype == "int8":
@@ -185,12 +215,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 def _decode_block(kind: str, p: Params, x: Tensor, cache: Params, pos: int,
                   cfg: ModelConfig) -> Tensor:
-    window = cfg.window if kind == "lattn" else 0
+    """One block of a decode step; its cache is updated in place. MoE
+    blocks run dropless."""
     h = L.rmsnorm(x, p["norm"], cfg.norm_eps)
-    o, _ = L.attention_decode(p["attn"], h, cache, pos, cfg, window=window)
-    x = x + o
-    h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
-    return x + L.mlp_fwd(p["mlp"], h2, cfg)
+    if kind in ("attn", "lattn"):
+        window = cfg.window if kind == "lattn" else 0
+        o, _ = L.attention_decode(p["attn"], h, cache, pos, cfg,
+                                  window=window)
+    elif kind == "ssm":
+        o, _ = S.ssm_decode(p["ssm"], h, cache, cfg)
+        return x + o
+    elif kind == "rec":
+        o, _ = R.rec_decode(p["rec"], h, cache, cfg)
+    else:
+        raise ValueError(kind)
+    return _ffn(p, x + o, cfg, dropless=True)[0]
 
 
 def decode_step(params: Params, cache: Params, token: Tensor, pos: int,
@@ -199,7 +238,6 @@ def decode_step(params: Params, cache: Params, token: Tensor, pos: int,
     (a Python int, the same for the whole batch). Returns (logits
     (B, vocab) float32, cache); the cache is updated in place and keeps the
     reference's structure."""
-    check_dense(cfg)
     pos = int(pos)
     x = embed_tokens(params, token, cfg)
     for u in range(cfg.pattern_units):

@@ -68,9 +68,17 @@ def test_serve_lm_decodes_on_the_cpu(capsys):
 
 
 def test_serve_lm_names_the_part_of_item_13_an_arch_needs():
-    with pytest.raises(SystemExit, match="ROADMAP queue 1 item 13b"):
+    """Every decoder-only arch decodes (recurrentgemma's RG-LRU state and
+    lattn ring, granite's MoE routing); the encoder-decoder exits with
+    the reference example's message."""
+    for arch in ("recurrentgemma-9b", "granite-moe-3b-a800m"):
+        seqs = _example("serve_lm").main(["--device", "cpu", "--arch", arch,
+                                          "--batch", "2", "--tokens", "20"])
+        assert seqs.shape == (2, 20) and seqs.max() < 256
+    with pytest.raises(SystemExit, match="^use the encdec example path: "
+                       "seamless decode is exercised in tests/test_models.py"):
         _example("serve_lm").main(["--device", "cpu", "--arch",
-                                   "recurrentgemma-9b"])
+                                   "seamless-m4t-medium"])
 
 
 @pytest.mark.parametrize("name,argv", [("quickstart", []),

@@ -4417,17 +4417,21 @@ def test_sharded_spmv_runs_each_shard_through_its_kernel(cuda, layout,
 
 
 # ----------------------------------------------------------------------------
-# The dense LM decoder on the card (ROADMAP queue 1 item 13): the same params
-# and tokens on the card and on the CPU. The decoder has no kernel of its
-# own (dense products and einsums). The limits and checks are chip_smoke.py's
-# (``lm_hold``): f32 logits to 1e-4 of max|logits| at every step; with an
-# int8 KV cache, to 1e-4 up to the step where the quantised keys part (a key
-# at a rounding tie landing one step apart), 5e-3 after it; the quantiser
-# the same function on both devices, the int8 cache entries at most one
-# step apart in under 2e-2 of them.
+# The LM decoder on the card (ROADMAP queue 1 item 13), every family: the
+# same params and tokens on the card and on the CPU. The decoder has no
+# kernel of its own (dense products, einsums, scans and scatters). The
+# limits and checks are chip_smoke.py's (``lm_hold``): f32 logits to 1e-4 of
+# max|logits| at every step; with an int8 KV cache, to 1e-4 up to the step
+# where the quantised keys part (a key at a rounding tie landing one step
+# apart), 5e-3 after it; the quantiser the same function on both devices,
+# the int8 cache entries at most one step apart in under 2e-2 of them; a
+# MoE token routed to other experts only at a near-tie, the CPU then
+# replayed on the card's experts and held to the same limits.
 # ----------------------------------------------------------------------------
 
-_LM_ARCHS = ("yi-6b", "gemma-2b", "glm4-9b", "deepseek-67b", "internvl2-26b")
+_LM_ARCHS = ("yi-6b", "gemma-2b", "glm4-9b", "deepseek-67b", "internvl2-26b",
+             "phi3.5-moe-42b-a6.6b", "granite-moe-3b-a800m", "mamba2-370m",
+             "recurrentgemma-9b", "seamless-m4t-medium")
 
 
 def _chip_smoke():
@@ -4460,14 +4464,19 @@ def test_lm_decode_on_the_card_matches_the_cpu(cuda, arch, kv):
     cfg, pc, ph = _lm_pair(arch, cuda)
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab, (2, 12)))
-    runs = []
-    for params, dev in ((pc, cuda), (ph, "cpu")):
-        calls = []
-        runs.append((*S_._lm_decode(params, cfg, toks.to(dev), kv, calls),
-                     calls))
-    assert runs[0][0].device.type == "cuda"
-    assert runs[0][0].dtype == torch.float32
-    S_.lm_hold(*runs, kv, cuda)
+    if kv not in S_.lm_kv_dtypes(cfg):
+        kv = "bfloat16"        # no attention cache, or the enc-dec's own
+
+    def run(params, dev, forced=None):
+        calls, routes = [], []
+        return (*S_._lm_decode(params, cfg, toks.to(dev), kv, calls, routes,
+                               forced), calls, routes)
+    card = run(pc, cuda)
+    assert card[0].device.type == "cuda"
+    assert card[0].dtype == torch.float32
+    case = S_.lm_hold(card, run(ph, "cpu"), kv, cuda,
+                      replay=lambda picks: run(ph, "cpu", picks))
+    assert ("routing" in case) == bool(cfg.n_experts)
 
 
 @pytest.mark.parametrize("arch", _LM_ARCHS)
@@ -4479,6 +4488,9 @@ def test_lm_prefill_on_the_card_matches_the_cpu(cuda, arch):
     if cfg.frontend == "patches":
         batch["prefix"] = torch.from_numpy(rng.standard_normal(
             (2, cfg.n_prefix, cfg.d_model)).astype(np.float32))
+    if cfg.is_encdec:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, 20, cfg.d_model)).astype(np.float32))
     yh, _ = MD.prefill(ph, batch, cfg)
     yc, _ = MD.prefill(pc, {k: v.to(cuda) for k, v in batch.items()}, cfg)
     S_ = _chip_smoke()
@@ -4501,3 +4513,25 @@ def test_lm_serve_cli_decodes_on_the_card_then_runs_the_spmv_kernel(
     launches = {k: v for mod in (K, KD, KM, KDM, KT)
                 for k, v in mod.LAUNCHES.items() if v}
     assert launches and all(k.startswith("spmv") for k in launches)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mamba2-370m",
+                                  "recurrentgemma-9b"])
+def test_lm_serve_cli_decodes_every_decoder_family_on_the_card(cuda, arch,
+                                                                capsys):
+    """A MoE, an SSM and the RG-LRU hybrid through ``serve.main`` on the
+    card: the reference's tok/s line, then the vocab bench's SpMV
+    launches; an encoder-decoder exits with the reference's message."""
+    from repro_torch.launch import serve
+    for mod in (K, KD, KM, KDM, KT):
+        mod.reset_launches()
+    serve.main(["--arch", arch, "--batch", "2", "--tokens", "8",
+                "--vocab-spmv", "0.1"])
+    torch.cuda.synchronize()
+    out = capsys.readouterr().out
+    assert f"{arch}: 2x8 tokens" in out
+    launches = {k: v for mod in (K, KD, KM, KDM, KT)
+                for k, v in mod.LAUNCHES.items() if v}
+    assert launches and all(k.startswith("spmv") for k in launches)
+    with pytest.raises(SystemExit, match="enc-dec serving path"):
+        serve.main(["--arch", "seamless-m4t-medium"])

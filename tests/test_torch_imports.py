@@ -57,7 +57,8 @@ def test_port_modules_cover_the_slice():
             "core/distributed.py", "launch/chaos_smoke.py",
             "models/__init__.py", "models/config.py", "models/layers.py",
             "models/transformer.py", "models/model.py",
-            "models/convert.py", "configs/__init__.py",
+            "models/convert.py", "models/moe.py", "models/ssm.py",
+            "models/rglru.py", "models/encdec.py", "configs/__init__.py",
             "train/__init__.py", "train/step.py"} <= names
     configs = {os.path.basename(p) for p in os.listdir(
         os.path.join(REPO, "src", "repro", "configs")) if p.endswith(".py")}
@@ -99,6 +100,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import repro_torch.obs, repro_torch.launch.serve\n"
         "import repro_torch.core.distributed\n"
         "import repro_torch.models.model, repro_torch.models.convert\n"
+        "import repro_torch.models.moe, repro_torch.models.ssm\n"
+        "import repro_torch.models.rglru, repro_torch.models.encdec\n"
         "import repro_torch.configs, repro_torch.train.step\n"
         "import repro_torch.launch.chaos_smoke\n"
         "from repro_torch.kernels import _build\n"

@@ -1,10 +1,12 @@
-"""The port's dense LM decoder (``repro_torch.models``, ``train.step``)
-against the reference's (``repro.models``) on the CPU.
+"""The port's LM stack (``repro_torch.models``, ``train.step``) against the
+reference's (``repro.models``) on the CPU, every arch's smoke config:
+dense, MoE, SSM, hybrid, vlm and the encoder-decoder.
 
 Every test gives both packages the same weights: the reference draws them
 (``jax.random.PRNGKey``), ``jax.tree.map(np.asarray, ...)`` takes them to
 the host, and ``convert.params_from_numpy`` carries them into the port
-leaf for leaf. Tokens come from a seeded numpy generator.
+leaf for leaf. Tokens, and the encoder-decoder's frames, come from a seeded numpy
+generator.
 
 Tolerances: float32 logits within ``rtol=1e-5, atol=1e-5 * max|ref|``
 (both packages sum the same products in another order; the measured worst
@@ -19,21 +21,26 @@ import pytest
 import torch
 
 from repro.configs import get_smoke_config as ref_smoke_config
+from repro.models import encdec as JE
 from repro.models import layers as JL
 from repro.models import model as JMD
 from repro.models import transformer as JT
 from repro.train import step as JS
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import convert as CV
+from repro_torch.models import encdec as TE
 from repro_torch.models import layers as L
 from repro_torch.models import model as MD
 from repro_torch.models import transformer as T
 from repro_torch.train import step as S
 
 DENSE = ("yi-6b", "gemma-2b", "glm4-9b", "deepseek-67b", "internvl2-26b")
+#: The archs of ROADMAP queue 1 items 13a-13c (MoE, SSM, RG-LRU, enc-dec),
+#: which the port refused before it ran them.
 UNPORTED = {"phi3.5-moe-42b-a6.6b": "13a", "granite-moe-3b-a800m": "13a",
             "mamba2-370m": "13b", "recurrentgemma-9b": "13b",
             "seamless-m4t-medium": "13c"}
+ARCHS = DENSE + tuple(UNPORTED)
 KV = ("bfloat16", "int8")
 F32 = 1e-5
 BF16 = 2.0 ** -6
@@ -62,14 +69,27 @@ def _tokens(cfg, B, S, seed=2):
         .astype(np.int32)
 
 
+def _frames(cfg, B, S, seed=16):
+    """An encoder-decoder's precomputed frame embeddings (B, S, D)."""
+    return np.random.default_rng(seed).standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32)
+
+
 def _decode_both(cfg, jp, tp, toks, kv, tcfg=None):
     """Teacher-forced decode in both packages: (ref logits, port logits,
-    ref cache, port cache), logits (B, S, vocab)."""
+    ref cache, port cache), logits (B, S, vocab). An encoder-decoder's
+    cross cache is built from :func:`_frames` first, in both."""
     tcfg = tcfg or cfg
     B, Sq = toks.shape
     jstep = jax.jit(lambda p, c, t, pos: JMD.decode_step(p, c, t, pos, cfg))
     jc = JMD.init_cache(cfg, B, Sq, kv_dtype=kv)
     tc = MD.init_cache(tcfg, B, Sq, kv_dtype=kv, device="cpu")
+    if cfg.is_encdec:
+        fr = _frames(cfg, B, Sq)
+        jc = JE.build_cross_cache(jp, JE.encode(jp, jnp.asarray(fr), cfg),
+                                  cfg, jc)
+        tc = TE.build_cross_cache(tp, TE.encode(tp, torch.from_numpy(fr),
+                                                tcfg), tcfg, tc)
     js, ts = [], []
     for t in range(Sq):
         jl, jc = jstep(jp, jc, jnp.asarray(toks[:, t:t + 1]), jnp.asarray(t))
@@ -87,13 +107,15 @@ def _port_cfg(cfg):
 
 
 # ----------------------------------------------------------------------------
-# the five dense archs
+# every arch
 # ----------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kv", KV)
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_decode_step_matches_the_reference(arch, kv):
-    """decode_step's logits step by step, and the cache it leaves."""
+    """decode_step's logits step by step, and the cache it leaves (an
+    SSM's or RG-LRU's state, an encoder-decoder's cache in its model dtype
+    whatever ``kv``)."""
     cfg = ref_smoke_config(arch)
     jp, tp = _params(cfg)
     jl, tl, jc, tc = _decode_both(cfg, jp, tp, _tokens(cfg, 2, 12), kv,
@@ -114,10 +136,10 @@ def test_decode_step_matches_the_reference(arch, kv):
             _close(node, leaf)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_matches_the_reference(arch):
     """prefill's last-position logits and hidden states; internvl2 takes
-    its patch embeddings as ``prefix``."""
+    its patch embeddings as ``prefix``, seamless its frames."""
     cfg = ref_smoke_config(arch)
     jp, tp = _params(cfg, seed=3)
     toks = _tokens(cfg, 2, 16, seed=4)
@@ -125,6 +147,8 @@ def test_prefill_matches_the_reference(arch):
     if cfg.frontend == "patches":
         batch["prefix"] = np.random.default_rng(5).standard_normal(
             (2, cfg.n_prefix, cfg.d_model)).astype(np.float32)
+    if cfg.is_encdec:
+        batch["frames"] = _frames(cfg, 2, 24)
     jl, jx = JMD.prefill(jp, {k: jnp.asarray(v) for k, v in batch.items()},
                          cfg)
     tl, tx = MD.prefill(tp, {k: torch.from_numpy(v)
@@ -136,7 +160,7 @@ def test_prefill_matches_the_reference(arch):
 
 
 @pytest.mark.parametrize("kv", KV)
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_init_cache_is_the_references_tree(arch, kv):
     jc = JMD.init_cache(ref_smoke_config(arch), 3, 10, kv_dtype=kv)
     tc = MD.init_cache(get_smoke_config(arch), 3, 10, kv_dtype=kv,
@@ -152,7 +176,7 @@ def test_init_cache_is_the_references_tree(arch, kv):
         assert not tflat[k].any()
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_init_params_is_the_references_tree(arch):
     """The port's own draw has the reference's tree, shapes, dtypes and
     init scales (not its values: the two PRNGs differ)."""
@@ -215,6 +239,27 @@ def test_bf16_compute_matches_the_reference(kv):
     _close(tl, jl, tol=BF16)
     if kv == "bfloat16":
         assert tc["units"]["0"]["k"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("kv", KV)
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mamba2-370m"])
+def test_bf16_compute_of_moe_and_ssm_matches_the_reference(arch, kv):
+    """bfloat16 compute through a MoE (its router's softmax and top-k in
+    float32 on bf16 logits) and an SSM (its state float32, its conv states
+    bf16): the logits within 2**-6 of max|ref|, and prefill's."""
+    cfg = dataclasses.replace(ref_smoke_config(arch), dtype="bfloat16")
+    jp, tp = _params(cfg, seed=18)
+    toks = _tokens(cfg, 2, 10, seed=19)
+    jl, tl, jc, tc = _decode_both(cfg, jp, tp, toks, kv, _port_cfg(cfg))
+    _close(tl, jl, tol=BF16)
+    jp_, _ = JMD.prefill(jp, {"tokens": jnp.asarray(toks)}, cfg)
+    tp_, _ = MD.prefill(tp, {"tokens": torch.from_numpy(toks)},
+                        _port_cfg(cfg))
+    _close(tp_, jp_, tol=BF16)
+    if arch == "mamba2-370m":
+        unit = tc["units"]["0"]
+        assert unit["state"].dtype == torch.float32
+        assert unit["conv_x"].dtype == torch.bfloat16
 
 
 def test_plain_attn_max_dispatches_to_flash_as_in_the_reference(monkeypatch):
@@ -321,11 +366,11 @@ def test_decode_slot_and_ring_positions_use_a_floor_modulo():
 # the serving half of train.step, convert, and the refusals
 # ----------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["yi-6b", "gemma-2b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "gemma-2b", *UNPORTED])
 def test_greedy_serve_loop_matches_the_reference(arch):
     """The slice as a whole: make_serve_step's greedy loop from a zero
     token gives the reference's tokens, and make_prefill_step its next
-    token."""
+    token (an encoder-decoder's on the frames its cross cache holds)."""
     cfg = ref_smoke_config(arch)
     tcfg = get_smoke_config(arch)
     jp, tp = _params(cfg, seed=14)
@@ -334,6 +379,15 @@ def test_greedy_serve_loop_matches_the_reference(arch):
     tstep = S.make_serve_step(tcfg)
     jc = JMD.init_cache(cfg, B, T_)
     tc = MD.init_cache(tcfg, B, T_, device="cpu")
+    jbatch, tbatch = {}, {}
+    if cfg.is_encdec:
+        fr = _frames(cfg, B, T_)
+        jbatch["frames"], tbatch["frames"] = (jnp.asarray(fr),
+                                              torch.from_numpy(fr))
+        jc = JE.build_cross_cache(jp, JE.encode(jp, jbatch["frames"], cfg),
+                                  cfg, jc)
+        tc = TE.build_cross_cache(tp, TE.encode(tp, tbatch["frames"], tcfg),
+                                  tcfg, tc)
     jt = jnp.zeros((B, 1), jnp.int32)
     tt = torch.zeros((B, 1), dtype=torch.long)
     seq = []
@@ -344,8 +398,10 @@ def test_greedy_serve_loop_matches_the_reference(arch):
         assert np.array_equal(tt.numpy(), np.asarray(jt)), t
         seq.append(tt)
     toks = torch.cat(seq, 1).numpy().astype(np.int32)
-    jn = JS.make_prefill_step(cfg)(jp, {"tokens": jnp.asarray(toks)})
-    tn = S.make_prefill_step(tcfg)(tp, {"tokens": torch.from_numpy(toks)})
+    jn = JS.make_prefill_step(cfg)(jp, {"tokens": jnp.asarray(toks),
+                                        **jbatch})
+    tn = S.make_prefill_step(tcfg)(tp, {"tokens": torch.from_numpy(toks),
+                                        **tbatch})
     assert np.array_equal(tn.numpy(), np.asarray(jn))
 
 
@@ -394,18 +450,62 @@ def test_params_from_numpy_keeps_dtypes_and_bits():
 
 
 @pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_blocks_are_refused_naming_their_part(arch):
-    """MoE, SSM, RG-LRU and enc-dec configs raise at every entry point,
-    naming the part of ROADMAP queue 1 item 13 that ports them."""
+def test_new_trees_carry_and_cast_leaf_for_leaf(arch):
+    """params_from_numpy carries the MoE, SSM (its float32 ``A_log``,
+    ``D``, ``dt_bias``, ``norm_scale``), RG-LRU (``lam``) and enc / dec
+    stacks bit for bit, and cast_params gives the reference's bf16 bits."""
+    cfg = ref_smoke_config(arch)
+    jp, tp = _params(cfg, seed=17)
+    ref16 = _np_tree(JS.cast_params(jp, jnp.bfloat16))
+    cast = S.cast_params(tp, torch.bfloat16)
+    paths = set()
+    for (path, leaf), (_, leaf16) in zip(
+            jax.tree_util.tree_leaves_with_path(_np_tree(jp)),
+            jax.tree_util.tree_leaves_with_path(ref16)):
+        node, node16 = tp, cast
+        for key in path:
+            node, node16 = node[key.key], node16[key.key]
+        paths.add(path[-1].key)
+        assert node.dtype == torch.float32 and np.array_equal(node.numpy(),
+                                                              leaf)
+        assert np.array_equal(node16.view(torch.int16).numpy(),
+                              leaf16.view(np.int16))
+    want = {"phi3.5-moe-42b-a6.6b": {"router", "w_in", "w_gate", "w_out"},
+            "granite-moe-3b-a800m": {"router", "w_in", "w_gate", "w_out"},
+            "mamba2-370m": {"A_log", "D", "dt_bias", "norm_scale",
+                            "conv_xw", "conv_Bb"},
+            "recurrentgemma-9b": {"lam", "w_rg", "w_ig", "conv_w"},
+            "seamless-m4t-medium": {"enc_norm", "wq"}}[arch]
+    assert want <= paths
+    if cfg.is_encdec:
+        assert tp["enc"]["attn"]["wq"].shape[0] == cfg.enc_layers
+        assert tp["dec"]["xattn"]["wk"].shape[0] == cfg.n_layers
+
+
+@pytest.mark.parametrize("arch", sorted(UNPORTED))
+def test_unported_blocks_are_refused_naming_their_part(arch, capsys):
+    """What the launcher still refuses for the archs ROADMAP queue 1
+    items 13a-13c ported: an encoder-decoder ``--arch`` exits with the
+    reference launcher's message (it has no enc-dec CLI path either), and
+    ``--mesh`` names part 13e, before anything runs. Every model entry
+    point takes the arch."""
+    from repro_torch.launch import serve
     cfg = get_smoke_config(arch)
-    match = f"ROADMAP queue 1 item {UNPORTED[arch]}"
-    tp = {"embed": torch.zeros(1)}
-    for call in (lambda: MD.init_params(cfg, torch.Generator()),
-                 lambda: MD.init_cache(cfg, 1, 4, device="cpu"),
-                 lambda: MD.decode_step(tp, {}, torch.zeros((1, 1),
-                                                            dtype=torch.long),
-                                        0, cfg),
-                 lambda: MD.prefill(tp, {"tokens": torch.zeros(
-                     (1, 2), dtype=torch.long)}, cfg)):
-        with pytest.raises(NotImplementedError, match=match):
-            call()
+    with pytest.raises(SystemExit) as e:
+        serve.main(["--arch", arch, "--mesh", "1x2"], device="cpu")
+    assert "item 13, part 13e" in str(e.value.code)
+    if cfg.is_encdec:
+        with pytest.raises(SystemExit) as e:
+            serve.main(["--arch", arch], device="cpu")
+        assert e.value.code == \
+            "enc-dec serving path: see tests/test_models.py"
+    assert capsys.readouterr().out == ""
+    tp = MD.init_params(cfg, torch.Generator().manual_seed(0))
+    tc = MD.init_cache(cfg, 1, 4, device="cpu")
+    logits, _ = MD.decode_step(tp, tc, torch.zeros((1, 1), dtype=torch.long),
+                               0, cfg)
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
+    if cfg.is_encdec:
+        batch["frames"] = torch.zeros((1, 4, cfg.d_model))
+    last, _ = MD.prefill(tp, batch, cfg)
+    assert logits.shape == last.shape == (1, cfg.vocab)

@@ -735,10 +735,26 @@ def test_mesh_still_names_item_13(capsys):
                                        ("recurrentgemma-9b", "13b"),
                                        ("seamless-m4t-medium", "13c")])
 def test_an_unported_arch_names_its_part_of_item_13(arch, part, capsys):
+    """The archs that ROADMAP queue 1 part ``part`` ported: a decoder-only
+    one decodes and benches (the reference's tok/s line first); an
+    encoder-decoder exits with the reference launcher's message, which has
+    no enc-dec CLI path either. ``--mesh`` still names part 13e."""
     with pytest.raises(SystemExit) as e:
-        serve.main(["--arch", arch, "--vocab-spmv", "0.1"], device="cpu")
-    assert f"ROADMAP queue 1 item {part}" in str(e.value.code)
-    assert capsys.readouterr().out == ""
+        serve.main(["--arch", arch, "--mesh", "1x2"], device="cpu")
+    assert "item 13, part 13e" in str(e.value.code)
+    if part == "13c":
+        with pytest.raises(SystemExit) as e:
+            serve.main(["--arch", arch, "--vocab-spmv", "0.1"], device="cpu")
+        assert e.value.code == serve.ENCDEC_EXIT == \
+            "enc-dec serving path: see tests/test_models.py"
+        assert capsys.readouterr().out == ""
+        return
+    serve.main(["--arch", arch, "--vocab-spmv", "0.1", "--batch", "2",
+                "--tokens", "6"], device="cpu")
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[0].startswith(f"{arch}: 2x6 tokens, ")
+    assert out[0].endswith(" tok/s (kv=bfloat16, mesh=1 device)")
+    assert out[1].startswith("vocab_spmv[256x")
 
 
 def test_the_cli_serves_and_exports_on_the_host(tmp_path, capsys):
