@@ -230,6 +230,27 @@ phase that goes wrong:
    SpMV kernel, counted with the counts set to 0 just before. (a) and (b)
    launch no kernel of the port and run while nvcc builds the kernels,
    after the host inputs; (c) runs here;
+5c. LM training (ROADMAP queue 1 item 13d), beside the build after 5b's
+   (a) and (b), since it launches no kernel of the port: (a) the ten
+   smoke configs card against CPU (``lm_train_case``), params drawn on
+   the host and carried with ``convert`` to both devices with a fresh
+   AdamW state, two steps of 2 x 32 ``SyntheticLM`` tokens, the CPU
+   starting each step from the card's params and state: the loss and
+   every gradient leaf of ``train.step.value_and_grad`` within 1e-5 of
+   its max (a MoE split only at a near-tie, the CPU then replayed on the
+   card's experts), ``adamw_update`` of the card's gradients within 1e-6
+   leaf for leaf on both, ``make_train_step``'s loss the same, and the
+   remat policies "dots" and "everything" against "nothing"; (b) yi-6b at
+   full width and 4 of its 32 layers (1.216 B parameters, f32 masters),
+   8 x 256 tokens, at f32 and at the config's bf16 compute: one untimed
+   step, 3 timed with CUDA events, one profiled; ms a step, tokens/s, the
+   bound (the flops of ``lm_train_flops`` over 67 / 989 TFLOP/s, AdamW's
+   bytes over 3.35 TB/s), peak memory; the loss must fall; (c) ``python
+   -m repro_torch.launch.train --arch yi-6b --steps 8 --ckpt-dir <tmp>``
+   and again with ``--steps 12`` (in process), which must resume at 8
+   and end at 12, and ``examples_torch/train_lm.py --preset 100m --steps
+   40`` in a subprocess, whose loss must fall; prints a ``{"lm_train":
+   ...}`` line;
 6. beta(r,c)_test path: the same weight in beta(2,4) (whose singleton
    blocks hold about 30 % of the nonzeros) as
    ``SparseLinear.from_dense(w, density=0.1, block=(2, 4), layout="test",
@@ -289,8 +310,9 @@ phase that goes wrong:
    ``serve_launches``, in the sharding phase under ``shard_launches`` and
    in the LM launcher's run under ``lm_launches``), then, last, the
    ``{"ok": true, "device": ...}`` line; before them a ``{"sharding":
-   ..., "examples": ...}`` line with the sharding phase's numbers and a
-   ``{"lm_decode": ...}`` line with the LM phase's.
+   ..., "examples": ...}`` line with the sharding phase's numbers, a
+   ``{"lm_decode": ...}`` line with the LM decode phase's and a
+   ``{"lm_train": ...}`` line with the training phase's.
 
 It needs the repository beside it (``src/repro_torch``) and a CUDA device;
 it never runs on the CPU.
@@ -4678,7 +4700,7 @@ def lm_router(routes=None, forced=None):
     def wrapped(probs, k):
         gate, idx = route(probs, k)
         if routes is not None:
-            routes.append((probs.cpu(), idx.cpu()))
+            routes.append((probs.detach().cpu(), idx.cpu()))
         if forced is not None:
             idx = forced[count[0]].to(probs.device)
             g = probs.gather(-1, idx)
@@ -5213,6 +5235,420 @@ def lm_launched(out):
     return out
 
 
+# ----------------------------------------------------------------------------
+# phase 5c: LM training
+# ----------------------------------------------------------------------------
+
+#: (a) the smoke configs card against CPU: ``steps`` steps of ``batch`` x
+#: ``seq`` ``SyntheticLM`` tokens each (``lr`` constant); (b) ``arch`` at
+#: full width and ``depth`` of its layers, ``batch`` x ``seq`` (the
+#: reference launcher's defaults), one untimed step and ``timed`` steps
+#: timed at each dtype of ``dtypes``, on the launcher's schedule (a cosine
+#: to ``full_lr`` after 10 warmup steps, over 50: at a constant 3e-4 the
+#: loss rose from the second step on an H100); (c) the
+#: launcher's two runs and the 100m example's steps.
+LM_TRAIN = dict(smoke_batch=2, smoke_seq=32, steps=2, lr=1e-3, seed=0,
+                arch="yi-6b", depth=4, batch=8, seq=256, timed=3,
+                full_lr=3e-4,
+                dtypes=("float32", "bfloat16"), launcher=(8, 12),
+                example_steps=40)
+#: |card - CPU| <= tol * max|CPU| for the smoke configs' f32 loss and each
+#: gradient leaf (TF32 off): both devices sum the same products in other
+#: orders (the CPU tests hold the port to the reference at the same
+#: tolerance; 3.2e-6 measured there at worst, mamba2's dt_bias). On an
+#: H100 the worst leaf was mamba2's A_log at 7.61e-6, every other arch's
+#: under 1.7e-6.
+LM_TRAIN_TOL = 1e-5
+#: One AdamW update of the same params, state and gradients on the card and
+#: on the CPU: every new leaf (params, m, v) within this of its max. The
+#: update is elementwise but for the global norm (one sum in another
+#: order), so the two differ by a few ulps.
+LM_UPDATE_TOL = 1e-6
+#: The compute rates the flop bound of (b) divides by: float32 outside the
+#: tensor cores (TF32 off) and dense bf16 on them, an H100 SXM's published
+#: peaks at 700 W.
+LM_FLOP_RATE = {"float32": F32_FLOP_PER_S, "bfloat16": 989e12}
+
+
+def _leaf_errs(got, ref):
+    """{path: max|got - ref| / max|ref|} over two trees of one structure,
+    in float64 on the host (a leaf whose ref is all zero: max|got|)."""
+    import torch
+    out = {}
+
+    def walk(a, b, pre):
+        for k in b:
+            if isinstance(b[k], dict):
+                walk(a[k], b[k], pre + k + "/")
+                continue
+            x, y = a[k].detach().cpu().double(), b[k].detach().cpu().double()
+            m = float(y.abs().max()) if y.numel() else 0.0
+            d = float((x - y).abs().max()) if y.numel() else 0.0
+            out[pre + k] = d / m if m else d
+    walk(got, ref, "")
+    return out
+
+
+def _worst(errs):
+    """(the greatest error, its leaf) of :func:`_leaf_errs`."""
+    key = max(errs, key=errs.get)
+    return errs[key], key
+
+
+def _to(tree, device):
+    """A float / int tree carried to ``device`` through the host
+    (``convert.tree_to_numpy`` + ``params_from_numpy``)."""
+    from repro_torch.models import convert as CV
+    return CV.params_from_numpy(CV.tree_to_numpy(tree), device)
+
+
+def lm_train_case(arch, device, cpu=None):
+    """(a) for one smoke config: params drawn on the host from
+    :data:`LM_TRAIN`'s seed and carried with ``convert`` to the card and
+    the CPU with a fresh AdamW state; each step the CPU starts from the
+    card's params and state (carried), both take ``value_and_grad`` on the
+    step's batch, the loss and every gradient leaf held to
+    :data:`LM_TRAIN_TOL` (a MoE's split only at a near-tie, the CPU then
+    replayed on the card's experts), and ``adamw_update`` of the card's
+    gradients held leaf for leaf on both (:data:`LM_UPDATE_TOL`). Then
+    ``make_train_step`` once on the card from the first state, its loss
+    the held one, and the three remat policies on the card. Returns the
+    readings; raises on a miss."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import convert as CV
+    from repro_torch.models import model as MD
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.train.loop import device_batch
+    from repro_torch.train.step import make_train_step, value_and_grad
+    cpu = cpu or torch.device("cpu")
+    cfg = get_smoke_config(arch)
+    host = MD.init_params(cfg, torch.Generator().manual_seed(LM_TRAIN["seed"]))
+    pc = CV.params_from_numpy(CV.tree_to_numpy(host), device)
+    oc = CV.opt_state_from_numpy(CV.tree_to_numpy(adamw_init(host)), device)
+    p0, o0 = pc, oc
+    data = SyntheticLM(cfg, LM_TRAIN["smoke_seq"], LM_TRAIN["smoke_batch"],
+                       seed=LM_TRAIN["seed"])
+    opt_cfg = AdamWConfig(lr=LM_TRAIN["lr"])
+    vg = value_and_grad(cfg)
+    moe = bool(cfg.n_experts)
+    out = {"steps": []}
+    for k in range(LM_TRAIN["steps"]):
+        b = data.batch(k)
+        ph, oh = _to(pc, cpu), CV.opt_state_from_numpy(
+            CV.tree_to_numpy(oc), cpu)
+        rc, rh = [], []
+        with lm_router(rc if moe else None):
+            (lc, _), gc = vg(pc, device_batch(b, device))
+        with lm_router(rh if moe else None):
+            (lh, _), gh = vg(ph, device_batch(b, cpu))
+        row = {}
+        if moe:
+            row["routing"] = lm_route_split(rc, rh, LM_ROUTE_GAP["float32"])
+            if row["routing"]["splits"]:
+                with lm_router(forced=[idx for _, idx in rc]):
+                    (lh, _), gh = vg(ph, device_batch(b, cpu))
+        row["loss"] = float(lc)
+        row["loss_err"] = abs(float(lc) - float(lh)) / abs(float(lh))
+        row["grad_err"], row["grad_leaf"] = _worst(_leaf_errs(gc, gh))
+        if not (row["loss_err"] <= LM_TRAIN_TOL
+                and row["grad_err"] <= LM_TRAIN_TOL
+                and np.isfinite(row["loss"])):
+            raise SmokeFailure(
+                f"LM training, {arch} step {k}: card against CPU loss "
+                f"{row['loss_err']:.3g}, gradient {row['grad_err']:.3g} "
+                f"({row['grad_leaf']}) of max (tol {LM_TRAIN_TOL})")
+        nc = adamw_update(pc, gc, oc, opt_cfg)
+        nh = adamw_update(ph, _to(gc, cpu), oh, opt_cfg)
+        row["update_err"], row["update_leaf"] = _worst(
+            _leaf_errs({"p": nc[0], "m": nc[1]["m"], "v": nc[1]["v"]},
+                       {"p": nh[0], "m": nh[1]["m"], "v": nh[1]["v"]}))
+        if not row["update_err"] <= LM_UPDATE_TOL or int(nc[1]["step"]) != \
+                k + 1:
+            raise SmokeFailure(
+                f"LM training, {arch} step {k}: AdamW on the same "
+                f"gradients {row['update_err']:.3g} ({row['update_leaf']}) "
+                f"of max apart (tol {LM_UPDATE_TOL})")
+        pc, oc = nc[0], nc[1]
+        out["steps"].append(row)
+    b0 = device_batch(data.batch(0), device)
+    _, o1, m = make_train_step(cfg, opt_cfg)(p0, o0, b0)
+    out["train_step_loss_err"] = abs(float(m["loss"]) - out["steps"][0][
+        "loss"]) / abs(out["steps"][0]["loss"])
+    if not (out["train_step_loss_err"] <= LM_TRAIN_TOL
+            and int(o1["step"]) == 1 and int(o0["step"]) == 0):
+        raise SmokeFailure(f"LM training, {arch}: make_train_step's loss "
+                           f"{out['train_step_loss_err']:.3g} off, or its "
+                           f"state steps {int(o0['step'])} -> "
+                           f"{int(o1['step'])}")
+    (l0, _), g0 = vg(p0, b0)
+    out["remat"] = {}
+    for policy in ("dots", "everything"):
+        (lp, _), gp = value_and_grad(cfg, policy)(p0, b0)
+        e = abs(float(lp) - float(l0)) / abs(float(l0))
+        ge, leaf = _worst(_leaf_errs(gp, g0))
+        out["remat"][policy] = {"loss_err": e, "grad_err": ge}
+        if not (e <= LM_TRAIN_TOL and ge <= LM_TRAIN_TOL):
+            raise SmokeFailure(f"LM training, {arch}: remat {policy} "
+                               f"against nothing, loss {e:.3g}, gradient "
+                               f"{ge:.3g} ({leaf})")
+    return out
+
+
+def lm_train_card_vs_cpu(device):
+    """(a) :func:`lm_train_case` for every smoke config of :data:`LM`."""
+    out = {arch: lm_train_case(arch, device) for arch in LM["smoke_archs"]}
+    print(f"  (a) smoke configs, card against CPU, {LM_TRAIN['steps']} "
+          f"steps of {LM_TRAIN['smoke_batch']}x{LM_TRAIN['smoke_seq']} "
+          f"tokens, the CPU from the card's state each step: worst |err| / "
+          f"max (loss, gradient leaf, AdamW on the same gradients; tol "
+          f"{LM_TRAIN_TOL}, {LM_UPDATE_TOL}); remat dots / everything "
+          f"against nothing: "
+          + "; ".join(
+              f"{a} {max(s['loss_err'] for s in v['steps']):.3g}, "
+              f"{max(s['grad_err'] for s in v['steps']):.3g}, "
+              f"{max(s['update_err'] for s in v['steps']):.3g}; "
+              f"{max(r['grad_err'] for r in v['remat'].values()):.3g}"
+              for a, v in out.items())
+          + "; MoE routing: " + json.dumps(
+              {a: [s["routing"]["splits"] for s in v["steps"]]
+               for a, v in out.items() if "routing" in v["steps"][0]}))
+    return out
+
+
+def lm_train_flops(cfg, batch, seq, remat="nothing"):
+    """Operations of one train step of ``cfg`` on ``batch`` x ``seq``
+    tokens: 6 N T for the matmul weights N (every parameter but the
+    embedding table, which is a gather: the untied head counts), the
+    attention scores (4 B S^2 H hd a layer forward, the plain path's full
+    square, three times that for forward and backward), and the remat
+    recompute: under "nothing" every unit's forward again, under "dots"
+    its attention scores again, and the loss chunks' head product again
+    under every policy."""
+    T = batch * seq
+    emb = cfg.vocab_padded * cfg.d_model
+    n_mm = cfg.n_params() - (0 if cfg.tie_embeddings else emb)
+    head = emb
+    n_attn = sum(cfg.layer_pattern[i % len(cfg.layer_pattern)]
+                 in ("attn", "lattn") for i in range(cfg.n_layers))
+    attn = 4 * batch * seq * seq * cfg.n_heads * cfg.resolved_head_dim \
+        * n_attn
+    flops = 6 * n_mm * T + 3 * attn + 2 * head * T
+    if remat == "nothing":
+        flops += 2 * (n_mm - head) * T + attn
+    elif remat == "dots":
+        flops += attn
+    return flops
+
+
+def _lm_train_steps(step, params, opt, batches, vg, update):
+    """One untimed step on ``batches[0]``, then one step a batch of the
+    rest timed with CUDA events, then one under ``torch.profiler``, then
+    one timed in its two parts: ``vg`` (``value_and_grad``'s fn) and
+    ``update`` (``adamw_update`` bound to the step's config). Returns (ms
+    a step, every step's loss, {host_ops, kernels, device_ms, top,
+    grad_ms, adamw_ms}: the profiled step's, ``top`` the six kernel names
+    with the most device time, ms each)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    losses = []
+    params, opt, m = step(params, opt, batches[0])
+    losses.append(m["loss"])
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for b in batches[1:]:
+        params, opt, m = step(params, opt, b)
+        losses.append(m["loss"])
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / (len(batches) - 1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, opt, m = step(params, opt, batches[-1])
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.device_time_total for e in kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    e2 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    _, grads = vg(params, batches[-1])
+    e1.record()
+    update(params, grads, opt)
+    e2.record()
+    torch.cuda.synchronize()
+    return ms, [float(x) for x in losses], {
+        "host_ops": sum(e.cpu_parent is None
+                        and e.device_type == DeviceType.CPU for e in events),
+        "kernels": len(kernels),
+        "device_ms": device_us / 1e3 if device_us else None,
+        "top": [[name[:80], us / 1e3] for name, us in top],
+        "grad_ms": e0.elapsed_time(e1), "adamw_ms": e1.elapsed_time(e2)}
+
+
+def lm_train_full(device):
+    """(b) :data:`LM_TRAIN`'s arch at full width and ``depth`` layers
+    (``dataclasses.replace(get_config(arch), n_layers=depth)``): f32
+    masters drawn on the card, ``make_train_step`` at each compute dtype
+    (f32, then the config's bf16), one untimed step and ``timed`` timed
+    ones on consecutive ``SyntheticLM`` batches, one more profiled and
+    one in parts (:func:`_lm_train_steps`); ms a step, tokens/s, the
+    bound (the flops of :func:`lm_train_flops` over
+    :data:`LM_FLOP_RATE`, and the bytes AdamW must move over 3.35 TB/s)
+    and the card's peak memory. The loss must be finite and fall from the
+    first step to the last. Returns the readings."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import model as MD
+    from repro_torch.models.convert import tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init, cosine_schedule
+    from repro_torch.optim.adamw import adamw_update
+    from repro_torch.train.loop import device_batch
+    from repro_torch.train.step import make_train_step, value_and_grad
+    full = get_config(LM_TRAIN["arch"])
+    cut = dataclasses.replace(full, n_layers=LM_TRAIN["depth"])
+    B, S = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    data = SyntheticLM(cut, S, B, seed=LM_TRAIN["seed"])
+    host = [data.batch(k) for k in range(LM_TRAIN["timed"] + 1)]
+    out = {"arch": full.name, "layers": cut.n_layers,
+           "cut_from": full.n_layers, "n_params": cut.n_params(),
+           "batch": B, "seq": S}
+    for dtype in LM_TRAIN["dtypes"]:
+        cfg = dataclasses.replace(cut, dtype=dtype)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = MD.init_params(cfg, torch.Generator(device=device)
+                                .manual_seed(LM_TRAIN["seed"]))
+        opt = adamw_init(params)
+        n = sum(t.numel() for t in tree_leaves(params))
+        batches = [device_batch(b, device) for b in host]
+        ocfg = AdamWConfig(lr=cosine_schedule(LM_TRAIN["full_lr"], 10, 50))
+        step = make_train_step(cfg, ocfg)
+        ms, losses, prof = _lm_train_steps(
+            step, params, opt, batches, value_and_grad(cfg),
+            lambda p, g, o: adamw_update(p, g, o, ocfg))
+        del params, opt
+        flops = lm_train_flops(cfg, B, S)
+        flop_ms = flops / LM_FLOP_RATE[dtype] * 1e3
+        # AdamW: params, m and v read and written, grads read, in f32
+        bytes_ms = 28 * n / HBM_BYTES_PER_S * 1e3
+        d = {"ms_per_step": ms, "tok_s": B * S / ms * 1e3, "losses": losses,
+             "flops": flops, "flop_bound_ms": flop_ms,
+             "bytes_bound_ms": bytes_ms, "bound_ms": max(flop_ms, bytes_ms),
+             "bound_by": "operations" if flop_ms >= bytes_ms else "bytes",
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9, **prof}
+        out[dtype] = d
+        busy = ("device time not measured" if d["device_ms"] is None else
+                f"one profiled step {d['device_ms']:.1f} ms of device time "
+                f"in {d['kernels']} kernels from {d['host_ops']} host ops "
+                f"(busy {d['device_ms'] / ms:.3f})")
+        print(f"  (b) train {full.name} {cut.n_layers} of {full.n_layers} "
+              f"layers ({n:,} params, f32 masters), {dtype} compute, "
+              f"{B}x{S} tokens: {ms:.1f} ms a step, {d['tok_s']:.0f} tok/s; "
+              f"bound {d['bound_ms']:.1f} ms by {d['bound_by']} (flops "
+              f"{flops:.3g} / {LM_FLOP_RATE[dtype] / 1e12:g} TFLOP/s = "
+              f"{flop_ms:.1f} ms, AdamW bytes {bytes_ms:.1f} ms; "
+              f"{ms / d['bound_ms']:.2f}x); peak {d['peak_gb']:.1f} GB; "
+              f"{busy}; one more step in parts: value_and_grad "
+              f"{d['grad_ms']:.1f} ms, adamw_update {d['adamw_ms']:.1f} ms; "
+              f"losses "
+              + ", ".join(f"{x:.4f}" for x in losses)
+              + ("" if not d["top"] else "; top kernels (ms): " + "; ".join(
+                  f"{name} {t:.2f}" for name, t in d["top"])))
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise SmokeFailure(f"LM training, {full.name} {dtype}: losses "
+                               f"{losses} (finite and falling wanted)")
+        del step, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_entry():
+    """(c) the entry points on the card: ``repro_torch.launch.train.main``
+    for :data:`LM_TRAIN`'s ``launcher`` steps in a fresh checkpoint
+    directory, then again for more steps, which must print the resume line
+    and end at that step; and ``examples_torch/train_lm.py --preset 100m``
+    in a subprocess for ``example_steps`` steps, whose loss must fall.
+    Returns their lines' numbers."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.launch import train
+    out = {"launcher": []}
+    first, second = LM_TRAIN["launcher"]
+    with tempfile.TemporaryDirectory() as d:
+        for steps in (first, second):
+            argv = ["--arch", LM_TRAIN["arch"], "--steps", str(steps),
+                    "--ckpt-dir", d]
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = train.main(argv)
+            lines = buf.getvalue().strip().splitlines()
+            last = res["history"][-1]["step"] + 1 if res["history"] else None
+            out["launcher"].append({"argv": argv, "end_step": last,
+                                    "latest": latest_step(d),
+                                    "seconds": time.perf_counter() - t0})
+            print(f"  (c) python -m repro_torch.launch.train "
+                  f"{' '.join(argv[:4])} --ckpt-dir <tmp>: "
+                  + " | ".join(lines))
+            resumed = any(ln.startswith(f"[resume] restored step {first}")
+                          for ln in lines)
+            if last != steps or latest_step(d) != steps or \
+                    (steps == second) != resumed:
+                raise SmokeFailure(f"LM training launcher {argv}: ended at "
+                                   f"{last}, latest checkpoint "
+                                   f"{latest_step(d)}, resumed {resumed}")
+    argv = [os.path.join("examples_torch", "train_lm.py"), "--preset", "100m",
+            "--steps", str(LM_TRAIN["example_steps"])]
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, *argv], capture_output=True,
+                         text=True, timeout=600, cwd=HERE, env=env)
+    lines = res.stdout.strip().splitlines()
+    print(f"  (c) {' '.join(argv)}: exit {res.returncode}, "
+          f"{time.perf_counter() - t0:.1f} s; "
+          + " | ".join(lines[:1] + lines[-3:]))
+    m = re.search(r"^done: loss ([0-9.]+) -> ([0-9.]+)",
+                  lines[-1] if lines else "")
+    if res.returncode != 0 or not m or not float(m[2]) < float(m[1]):
+        raise SmokeFailure(f"example {argv}: exit {res.returncode}, "
+                           f"{lines[-1:]} {res.stderr[-2000:]}")
+    out["example"] = {"argv": argv, "loss_first": float(m[1]),
+                      "loss_last": float(m[2]),
+                      "seconds": time.perf_counter() - t0}
+    return out
+
+
+def lm_train(device):
+    """Phase 5c: (a) :func:`lm_train_card_vs_cpu`, (b)
+    :func:`lm_train_full`, (c) :func:`lm_train_entry`. Training launches
+    no kernel of the port, so ``main`` runs it beside the kernels' build
+    after 5b's (a) and (b). Prints the ``{"lm_train": ...}`` line and
+    returns the readings with their seconds."""
+    out, seconds = {}, {}
+    for key, fn in (("card_vs_cpu", lambda: lm_train_card_vs_cpu(device)),
+                    ("full", lambda: lm_train_full(device)),
+                    ("entry", lm_train_entry)):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        seconds[key] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    print("  phase 5c seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
+    print(json.dumps({"lm_train": out}))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5227,8 +5663,8 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     try:
-        # the host-only inputs, and phase 5b's (a) and (b) (eager torch,
-        # no kernel of the port), run while nvcc builds the kernels
+        # the host-only inputs, phase 5b's (a) and (b) and phase 5c (eager
+        # torch, no kernel of the port) run while nvcc builds the kernels
         wait_build = start_build()
         try:
             t_host = time.perf_counter()
@@ -5241,6 +5677,10 @@ def main() -> int:
             t_phase = time.perf_counter()
             lm = lm_decode(device)
             print(f"phase LM decode (a) and (b), beside the build: "
+                  f"{time.perf_counter() - t_phase:.1f} s")
+            t_phase = time.perf_counter()
+            lm_train(device)
+            print(f"phase LM training 5c, beside the build: "
                   f"{time.perf_counter() - t_phase:.1f} s")
         finally:
             wait_build()

@@ -1,11 +1,15 @@
-"""Carry the reference's parameter and cache trees into the port.
+"""Carry the reference's parameter, cache and optimizer trees into the
+port, and the port's back to the host.
 
-``params_from_numpy`` / ``cache_from_numpy`` take a nested dict of numpy
-arrays -- the reference's pytree after ``jax.tree.map(np.asarray, ...)``
--- and return the same tree of tensors on ``device``, leaf for leaf, with
-the dtypes kept (float32, int8, and ``ml_dtypes.bfloat16``, known by its
-dtype name, as ``torch.bfloat16`` with the same bits). This is how the
-tests give both packages the same weights; it imports nothing of JAX.
+``params_from_numpy`` / ``cache_from_numpy`` / ``opt_state_from_numpy``
+take a nested dict of numpy arrays -- the reference's pytree after
+``jax.tree.map(np.asarray, ...)`` -- and return the same tree of tensors
+on ``device``, leaf for leaf, with the dtypes kept (float32, int8, int32,
+and ``ml_dtypes.bfloat16``, known by its dtype name, as ``torch.bfloat16``
+with the same bits). ``tree_to_numpy`` is the way back, for float and
+integer leaves. This is how the tests and the smoke give both packages
+(or the card and the CPU) the same weights and training state; it imports
+nothing of JAX.
 """
 from __future__ import annotations
 
@@ -50,3 +54,30 @@ def params_from_numpy(tree: Tree,
 #: The reference's KV-cache tree (numpy leaves) as tensors on ``device``:
 #: the same leaf-for-leaf carry as the parameters.
 cache_from_numpy = params_from_numpy
+
+
+def opt_state_from_numpy(tree: Tree,
+                         device: Optional[torch.device] = None) -> Tree:
+    """The reference's AdamW state ``{"m", "v", "step"}`` (numpy leaves)
+    as the port's on ``device`` (None: the card): ``m`` and ``v`` float32
+    trees, ``step`` a 0-d int32 tensor."""
+    if set(tree) != {"m", "v", "step"}:
+        raise ValueError(f"an AdamW state has m, v and step; got "
+                         f"{sorted(tree)}")
+    from repro_torch.kernels.ops import resolve_device
+    device = resolve_device(device)
+    out = params_from_numpy({"m": tree["m"], "v": tree["v"]}, device)
+    out["step"] = tensor_from_numpy(
+        np.asarray(tree["step"], dtype=np.int32).reshape(()), device)
+    return out
+
+
+def tree_to_numpy(tree: Tree) -> Tree:
+    """A tree of tensors as numpy arrays on the host, dtypes kept (float32,
+    integers); the reverse of :func:`params_from_numpy` for those."""
+    def host(t):
+        if t.dtype == torch.bfloat16:
+            raise TypeError("tree_to_numpy: numpy has no bfloat16 here; "
+                            "cast the tree to float32 first")
+        return t.detach().cpu().numpy()
+    return tree_map(host, tree)

@@ -1,4 +1,4 @@
-"""Encoder-decoder backbone (seamless-m4t family), the serving half of
+"""Encoder-decoder backbone (seamless-m4t family), the port of
 ``repro.models.encdec``.
 
 The encoder takes precomputed frame embeddings (the modality frontend is a
@@ -6,8 +6,10 @@ stub, as in the reference); the decoder is a causal LM with
 cross-attention into the encoder output. Both stacks are stacked over
 their layers (``enc`` / ``dec``, the reference's trees) and run as a loop.
 The decode cache holds the self-attention K/V and the cross-attention K/V
-built once from the encoder output, all in the model dtype. The training
-loss waits for ROADMAP queue 1 item 13d.
+built once from the encoder output, all in the model dtype. Under
+autograd each layer of both stacks runs under a checkpoint, as the
+reference's ``jax.checkpoint(layer)`` (whatever ``remat_policy``, which
+the reference takes and ignores here too).
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import torch
 
 from . import layers as L
 from .config import ModelConfig
-from .transformer import _dtype, _index, _logits
+from .transformer import (_dtype, _index, _lm_head, _logits, _unstack,
+                          chunked_ce_loss)
 
 Params = Dict[str, Any]
 Tensor = torch.Tensor
@@ -70,12 +73,16 @@ def _cross_kv(p: Params, enc_out: Tensor, cfg: ModelConfig
 def encode(params: Params, frames: Tensor, cfg: ModelConfig) -> Tensor:
     """frames: (B, S_enc, D) precomputed embeddings -> encoder output."""
     x = frames.to(_dtype(cfg))
-    for i in range(cfg.enc_layers):
-        p = _index(params["enc"], i)
+
+    @L.remat
+    def layer(x, p):
         h = L.rmsnorm(x, p["norm"], cfg.norm_eps)
         x = x + L.attention_fwd(p["attn"], h, cfg, causal=False)
         h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
-        x = x + L.mlp_fwd(p["mlp"], h2, cfg)
+        return x + L.mlp_fwd(p["mlp"], h2, cfg)
+
+    for p in _unstack(params["enc"], cfg.enc_layers):
+        x = layer(x, p)
     return L.rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -83,8 +90,9 @@ def decode_train(params: Params, enc_out: Tensor, tokens: Tensor,
                  cfg: ModelConfig) -> Tensor:
     """Teacher-forced decoder forward -> hidden states (B, S_dec, D)."""
     x = params["embed"][tokens].to(_dtype(cfg))
-    for i in range(cfg.n_layers):
-        p = _index(params["dec"], i)
+
+    @L.remat
+    def layer(x, p, enc_out):
         h = L.rmsnorm(x, p["norm"], cfg.norm_eps)
         x = x + L.attention_fwd(p["attn"], h, cfg, causal=True)
         hx = L.rmsnorm(x, p["norm_x"], cfg.norm_eps)
@@ -93,8 +101,24 @@ def decode_train(params: Params, enc_out: Tensor, tokens: Tensor,
                                                       cfg),
                                 rope=False)
         h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
-        x = x + L.mlp_fwd(p["mlp"], h2, cfg)
+        return x + L.mlp_fwd(p["mlp"], h2, cfg)
+
+    for p in _unstack(params["dec"], cfg.n_layers):
+        x = layer(x, p, enc_out)
     return x
+
+
+def forward_loss(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
+                 remat_policy: str = "nothing"
+                 ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Training loss: ``encode`` the batch's frames, ``decode_train`` its
+    tokens, the head and :func:`chunked_ce_loss` on its labels. Returns
+    (loss, {"ce_loss"})."""
+    enc_out = encode(params, batch["frames"], cfg)
+    x = decode_train(params, enc_out, batch["tokens"], cfg)
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    loss = chunked_ce_loss(x, _lm_head(params, cfg), batch["labels"], cfg)
+    return loss, {"ce_loss": loss}
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,7 @@ Conventions, as in the reference:
   * a query head h reads KV head ``h // G`` (G = n_heads // kv_heads);
   * sequence length <= PLAIN_ATTN_MAX uses plain masked attention; longer
     sequences use a blocked flash attention (online softmax over kv
-    blocks);
+    blocks, a checkpoint a q block under autograd);
   * decode uses a dedicated one-token path over the KV cache, with optional
     int8 cache quantisation and ring-buffer windows for local attention.
 
@@ -20,11 +20,12 @@ decode cache is updated in place (the reference's caller donates it).
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as Fn
+from torch.utils import checkpoint as ckpt
 
 from .config import ModelConfig
 
@@ -55,6 +56,46 @@ def zinit(gen: torch.Generator, shape: Sequence[int],
     """Float32 zeros of ``(*lead, *shape)`` on ``gen``'s device."""
     return torch.zeros((*lead, *shape), dtype=torch.float32,
                        device=gen.device)
+
+
+# ----------------------------------------------------------------------------
+# rematerialisation
+# ----------------------------------------------------------------------------
+
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the matmuls without batch dims (a weight product on flattened
+    tokens lowers to ``mm``), recompute the rest: the reference's
+    ``dots_with_no_batch_dims_saveable``."""
+    if op in _SAVED_DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMAT_POLICIES = ("nothing", "dots", "everything")
+
+
+def remat(fn: Callable, policy: str = "nothing") -> Callable:
+    """``fn`` under ``torch.utils.checkpoint`` by ``policy``: "nothing"
+    saves only its inputs, "dots" also the matmuls without batch dims,
+    "everything" is ``fn`` itself. Outside autograd (no grad mode) it is
+    ``fn``."""
+    if policy not in REMAT_POLICIES:
+        raise KeyError(policy)
+    if policy == "everything":
+        return fn
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
 
 
 # ----------------------------------------------------------------------------
@@ -142,16 +183,19 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
                     kvb: int = FLASH_KVB) -> Tensor:
     """Blocked attention with an online-softmax carry; same shapes as
     :func:`plain_attention`. A loop over q blocks, and within each over kv
-    blocks, so the scores held at once are (qb, kvb) a head."""
+    blocks, so the scores held at once are (qb, kvb) a head. Under
+    autograd each q block runs under a checkpoint (the reference's
+    ``jax.checkpoint(q_block)``): its backward recomputes the block's
+    scores instead of keeping them."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     qb = min(qb, Sq)
     kvb = min(kvb, Sk)
     assert Sq % qb == 0 and Sk % kvb == 0, (Sq, qb, Sk, kvb)
     dev = q.device
-    outs = []
-    for qi in range(Sq // qb):
-        qblk = q[:, qi * qb:(qi + 1) * qb].float()
+
+    def q_block(qblk, k, v, qi):
+        qblk = qblk.float()
         qpos = qi * qb + torch.arange(qb, device=dev)
         m = torch.full((B, H, qb), -torch.inf, dtype=torch.float32,
                        device=dev)
@@ -177,8 +221,11 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
             acc = acc * alpha[..., None] + pv
             m = m_new
         out = acc / torch.clamp_min(l[..., None], 1e-30)
-        outs.append(out.transpose(1, 2).to(q.dtype))          # (B,qb,H,D)
-    return torch.cat(outs, dim=1)
+        return out.transpose(1, 2).to(q.dtype)                # (B,qb,H,D)
+
+    block = remat(q_block)
+    return torch.cat([block(q[:, qi * qb:(qi + 1) * qb], k, v, qi)
+                      for qi in range(Sq // qb)], dim=1)
 
 
 def attention_fwd(params: Dict[str, Tensor], x: Tensor, cfg: ModelConfig, *,

@@ -2,9 +2,8 @@
 ``repro.models.model``).
 
 Encoder-decoders run through :mod:`.encdec`, every other family through
-:mod:`.transformer`. ``forward_loss`` waits for the training part of
-ROADMAP queue 1 item 13 (13d); ``input_specs`` / ``cache_specs`` belong to
-the dry run (13f).
+:mod:`.transformer`. ``input_specs`` / ``cache_specs`` belong to the dry
+run (ROADMAP queue 1 item 13f).
 """
 from __future__ import annotations
 
@@ -23,6 +22,14 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     if cfg.is_encdec:
         return encdec.init_params(cfg, gen)
     return transformer.init_params(cfg, gen)
+
+
+def forward_loss(params: Params, batch: Dict[str, torch.Tensor],
+                 cfg: ModelConfig, remat_policy: str = "nothing"):
+    """The training loss and its metrics: (loss, {"ce_loss", ...})."""
+    if cfg.is_encdec:
+        return encdec.forward_loss(params, batch, cfg, remat_policy)
+    return transformer.forward_loss(params, batch, cfg, remat_policy)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,

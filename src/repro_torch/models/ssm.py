@@ -104,7 +104,6 @@ def ssd_chunked(xh: Tensor, dt: Tensor, B_: Tensor, C_: Tensor, A: Tensor,
     Bm_c = B_.float().reshape(Bsz, nc, Q, N)
     Cm_c = C_.float().reshape(Bsz, nc, Q, N)
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dev))
-    zero = torch.zeros((), dtype=intra_dtype, device=dev)
     h = torch.zeros((Bsz, H, N, P), dtype=f32, device=dev)
     ys = []
     for c in range(nc):
@@ -114,9 +113,11 @@ def ssd_chunked(xh: Tensor, dt: Tensor, B_: Tensor, C_: Tensor, A: Tensor,
         cb = torch.einsum("bqn,bsn->bqs", Cm.to(intra_dtype),
                           Bm.to(intra_dtype))
         ldiff = l[:, :, None, :] - l[:, None, :, :]         # (B, Q, Q, H)
-        # a select, not a product: exp(ldiff) is inf above the diagonal
-        decay = torch.where(mask[None, :, :, None],
-                            torch.exp(ldiff).to(intra_dtype), zero)
+        # masked before the exp, not after: exp(ldiff) can be inf above
+        # the diagonal, and a select after it would take 0 * inf = NaN
+        # into the backward pass (the forward's values are the same)
+        decay = torch.exp(ldiff.masked_fill(~mask[None, :, :, None],
+                                            -torch.inf)).to(intra_dtype)
         M = cb[..., None] * decay * dt_[:, None, :, :].to(intra_dtype)
         y = torch.einsum("bqsh,bshp->bqhp", M.float(),
                          xh_.to(intra_dtype).float())

@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly: init, prefill and decode (the port of
-``repro.models.transformer``).
+"""Decoder-only LM assembly: init, the training loss, prefill and decode
+(the port of ``repro.models.transformer``).
 
 The parameter and cache trees are the reference's: complete
 ``cfg.layer_pattern`` repetitions are stacked over ``U = pattern_units``
@@ -12,12 +12,20 @@ constraints are no-ops outside a sharding scope and are left out.
 Blocks: ``attn`` and ``lattn`` (global and windowed attention, each with
 an MLP or, under ``cfg.n_experts``, a MoE), ``ssm`` (Mamba-2 SSD) and
 ``rec`` (RG-LRU, with an MLP or MoE). An unknown kind raises
-``ValueError``, as in the reference. The training loss waits for ROADMAP
-queue 1 item 13d.
+``ValueError``, as in the reference.
+
+Training (:func:`forward_loss`) runs each unit under
+``torch.utils.checkpoint`` by ``remat_policy``, the reference's three
+policies. The reference nests a checkpoint a half-block inside each unit
+and groups the units two levels deep (sqrt(L) carries); here there is one
+checkpoint a unit (and a remainder layer): the same numbers, more
+activation memory (ROADMAP §3). :func:`chunked_ce_loss` never holds the
+(B, S, V) logits: each sequence chunk's logits are recomputed in the
+backward pass.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -89,6 +97,18 @@ def _index(tree: Params, u: int) -> Params:
             for k, v in tree.items()}
 
 
+def _unstack(tree: Params, n: int) -> List[Params]:
+    """The ``n`` units of a tree stacked over the units, each leaf taken
+    apart by one ``unbind(0)`` (views). Under autograd its backward stacks
+    the units' gradients once, where ``n`` selects would each allocate a
+    zero gradient the size of the whole stack."""
+    if not n:
+        return []
+    parts = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    return [{k: v[u] for k, v in parts.items()} for u in range(n)]
+
+
 # ----------------------------------------------------------------------------
 # blocks
 # ----------------------------------------------------------------------------
@@ -123,20 +143,34 @@ def _apply_block(kind: str, p: Params, x: Tensor, cfg: ModelConfig,
 
 
 def backbone(params: Params, x: Tensor, cfg: ModelConfig,
-             train: bool = False) -> Tuple[Tensor, Tensor]:
+             remat_policy: str = "nothing", train: bool = False
+             ) -> Tuple[Tensor, Tensor]:
     """Run all layers on hidden states x (B, S, D). Returns (x, aux_loss),
     the sum of the MoE blocks' aux losses (0 without one). ``train=False``
-    runs MoE blocks dropless."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    blocks = [(kind, _index(params["units"][str(p_idx)], u))
-              for u in range(cfg.pattern_units)
-              for p_idx, kind in enumerate(cfg.layer_pattern)]
-    blocks += [(kind, params["rem"][str(r_idx)])
-               for r_idx, kind in enumerate(cfg.remainder_layers)]
-    for kind, p in blocks:
-        x, a = _apply_block(kind, p, x, cfg, train)
-        if a is not None:
-            aux = aux + a
+    runs MoE blocks dropless. Under autograd each unit (and each remainder
+    layer) runs under :func:`layers.remat` by ``remat_policy``."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def run(kinds):
+        def fn(x, p):
+            aux = zero
+            for key, kind in kinds:
+                x, a = _apply_block(kind, p[key], x, cfg, train)
+                if a is not None:
+                    aux = aux + a
+            return x, aux
+        return L.remat(fn, remat_policy)
+
+    unit = run([(str(i), kind) for i, kind in enumerate(cfg.layer_pattern)])
+    aux = zero
+    U = cfg.pattern_units
+    units = {k: _unstack(v, U) for k, v in params["units"].items()}
+    for u in range(U):
+        x, a = unit(x, {k: v[u] for k, v in units.items()})
+        aux = aux + a
+    for r_idx, kind in enumerate(cfg.remainder_layers):
+        x, a = run([(str(r_idx), kind)])(x, params["rem"])
+        aux = aux + a
     return x, aux
 
 
@@ -160,11 +194,68 @@ def embed_tokens(params: Params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
     return params["embed"][tokens].to(_dtype(cfg))
 
 
+def chunked_ce_loss(h: Tensor, head: Tensor, labels: Tensor,
+                    cfg: ModelConfig, chunk: int = 512) -> Tensor:
+    """Cross-entropy over sequence chunks; the full (B, S, V) logits are
+    never held (each chunk runs under a checkpoint, its logits recomputed
+    in the backward pass). ``labels == -1`` are masked out; padded vocab
+    columns (>= cfg.vocab) are masked to -inf. Returns the mean over the
+    valid labels (``loss_sum / max(n, 1)``), float32."""
+    B, Sq, D = h.shape
+    chunk = min(chunk, Sq)
+    assert Sq % chunk == 0
+    vpad = cfg.vocab_padded - cfg.vocab
+
+    def step(hc, head, lc):
+        logits = (hc @ head.to(hc.dtype)).float()
+        if vpad:
+            dead = torch.arange(logits.shape[-1],
+                                device=logits.device) >= cfg.vocab
+            logits = logits.masked_fill(dead, -torch.inf)
+        lse = torch.logsumexp(logits, dim=-1)
+        lcc = torch.clamp(lc, 0, cfg.vocab - 1).long()
+        gold = torch.gather(logits, -1, lcc[..., None])[..., 0]
+        valid = (lc >= 0).float()
+        return ((lse - gold) * valid).sum(), valid.sum()
+
+    step = L.remat(step)
+    loss_sum = n = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(Sq // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        ls, nc = step(h[:, sl], head, labels[:, sl])
+        loss_sum, n = loss_sum + ls, n + nc
+    return loss_sum / torch.clamp_min(n, 1.0)
+
+
 def _logits(params: Params, x: Tensor, cfg: ModelConfig) -> Tensor:
     """Float32 logits over the real vocab of hidden states ``x`` (B, D)."""
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ _lm_head(params, cfg).to(x.dtype)).float()
     return logits[:, :cfg.vocab]
+
+
+def forward_loss(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
+                 remat_policy: str = "nothing"
+                 ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Training loss. batch: tokens (B, S) and labels (B, S), int32 or
+    int64; the vlm family adds prefix (B, P, D), whose positions get
+    labels of -1. MoE blocks keep capacity dropping and add 0.01 x their
+    aux loss. Returns (loss, {"ce_loss", "aux_loss"})."""
+    x = embed_tokens(params, batch["tokens"], cfg)
+    labels = batch["labels"]
+    if cfg.frontend == "patches":
+        prefix = batch["prefix"].to(x.dtype)
+        x = torch.cat([prefix, x], dim=1)
+        labels = torch.cat([torch.full(prefix.shape[:2], -1,
+                                       dtype=labels.dtype,
+                                       device=labels.device), labels], dim=1)
+    x, aux = backbone(params, x, cfg, remat_policy, train=True)
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    loss = chunked_ce_loss(x, _lm_head(params, cfg), labels, cfg)
+    metrics = {"ce_loss": loss, "aux_loss": aux}
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux
+    return loss, metrics
 
 
 # ----------------------------------------------------------------------------

@@ -1,3 +1,4 @@
-"""The port's step builders (ROADMAP queue 1 item 13): the serving half of
-``repro.train.step``. Importing this package imports none of its
-modules."""
+"""The port's step builders and training loop (ROADMAP queue 1 items 13
+and 13d), ``repro.train`` on torch."""
+from .step import make_serve_step, make_train_step  # noqa: F401
+from .loop import TrainLoopConfig, train_loop  # noqa: F401

@@ -59,13 +59,18 @@ def test_port_modules_cover_the_slice():
             "models/transformer.py", "models/model.py",
             "models/convert.py", "models/moe.py", "models/ssm.py",
             "models/rglru.py", "models/encdec.py", "configs/__init__.py",
-            "train/__init__.py", "train/step.py"} <= names
+            "train/__init__.py", "train/step.py", "train/loop.py",
+            "optim/__init__.py", "optim/schedule.py", "optim/adamw.py",
+            "optim/compress.py", "data/__init__.py", "data/synthetic.py",
+            "checkpoint/__init__.py", "checkpoint/ckpt.py",
+            "launch/train.py"} <= names
     configs = {os.path.basename(p) for p in os.listdir(
         os.path.join(REPO, "src", "repro", "configs")) if p.endswith(".py")}
     assert {f"configs/{c}" for c in configs} <= names
     assert {"examples_torch/quickstart.py",
             "examples_torch/cg_solver.py",
-            "examples_torch/serve_lm.py"} <= set(FILES)
+            "examples_torch/serve_lm.py",
+            "examples_torch/train_lm.py"} <= set(FILES)
     for src in ("spc5_spmv.cu", "spc5_spmm.cu", "spc5_spmv_desc.cu",
                 "spc5_spmm_desc.cu", "spc5_spmm_desc_cmap.cu",
                 "spc5_spmv_tail.cu", "spc5_stage.cuh",
@@ -104,6 +109,9 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import repro_torch.models.rglru, repro_torch.models.encdec\n"
         "import repro_torch.configs, repro_torch.train.step\n"
         "import repro_torch.launch.chaos_smoke\n"
+        "import repro_torch.launch.train, repro_torch.train.loop\n"
+        "import repro_torch.optim.compress, repro_torch.checkpoint\n"
+        "import repro_torch.data.synthetic\n"
         "from repro_torch.kernels import _build\n"
         "assert not any(m.split('.')[0] in {'jax', 'ml_dtypes', 'repro'} "
         "for m in sys.modules), sorted(m for m in sys.modules if 'jax' in m)\n"
