@@ -4576,8 +4576,11 @@ LM = dict(smoke_archs=("yi-6b", "gemma-2b", "glm4-9b", "deepseek-67b",
 LM_FAMILIES = {"granite-moe-3b-a800m": None, "mamba2-370m": None,
                "recurrentgemma-9b": None, "seamless-m4t-medium": None,
                "phi3.5-moe-42b-a6.6b": 2}
-#: (c)'s launcher runs, one ``--arch`` each.
-LM_LAUNCHER = ("yi-6b", "granite-moe-3b-a800m", "recurrentgemma-9b")
+#: (c)'s launcher runs, (``--arch``, ``--mesh``) each: the last decodes
+#: on a 1x1 mesh (a one-rank NCCL group the launcher makes and destroys)
+#: and its vocab bench must still launch.
+LM_LAUNCHER = (("yi-6b", ""), ("granite-moe-3b-a800m", ""),
+               ("recurrentgemma-9b", ""), ("yi-6b", "1x1"))
 LM_KV = ("bfloat16", "int8")
 #: |card - CPU| <= tol * max|CPU| on the smoke configs' f32 logits, by KV
 #: dtype. A bf16 key (the cache in the configs' f32): the f32 tolerance
@@ -5131,29 +5134,32 @@ def lm_full_size(device, arch=LM["arch"], depth=None, kvs=LM_KV):
 
 def lm_launcher():
     """(c) ``repro_torch.launch.serve.main(["--arch", arch, "--vocab-spmv",
-    "0.1"])`` on the card for each arch of :data:`LM_LAUNCHER`: it decodes
-    (its tok/s line is printed) and then runs the vocab bench through
-    ``SparseLinear``; the counts, set to 0 just before each run, must show
-    SpMV kernels and nothing else. Returns the counts summed over the
-    runs, and each run's."""
+    "0.1"])`` (with ``--mesh`` where given) on the card for each run of
+    :data:`LM_LAUNCHER`: it decodes (its tok/s line is printed) and then
+    runs the vocab bench through ``SparseLinear``; the counts, set to 0
+    just before each run, must show SpMV kernels and nothing else. Returns
+    the counts summed over the runs, and each run's by its arguments."""
     import contextlib
     import io
     import torch
     from repro_torch.launch import serve
     total, per = {}, {}
-    for arch in LM_LAUNCHER:
+    for arch, mesh in LM_LAUNCHER:
         argv = ["--arch", arch, "--vocab-spmv", str(VOCAB["density"])]
+        argv += ["--mesh", mesh] if mesh else []
         counts = reset_all_launches()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             serve.main(argv)
         torch.cuda.synchronize()
-        per[arch] = got = {k: v for k, v in counts().items() if v}
+        per[" ".join(argv)] = got = {k: v for k, v in counts().items()
+                                     if v}
         lines = buf.getvalue().strip().splitlines()
         print(f"  (c) python -m repro_torch.launch.serve {' '.join(argv)}: "
               + " | ".join(lines) + f"; launches {got}")
         decoded = any(re.search(rf"^{re.escape(arch)}: .* tok/s "
-                                r"\(kv=bfloat16, mesh=1 device\)", ln)
+                                rf"\(kv=bfloat16, mesh="
+                                rf"{re.escape(mesh or '1 device')}\)", ln)
                       for ln in lines)
         if (not decoded or not got or any(not k.startswith("spmv")
                                           for k in got)):
@@ -5649,6 +5655,402 @@ def lm_train(device):
     return out
 
 
+#: Phase 5d, the sharding rules on the card: (a) each smoke config's
+#: gradients, one FSDP and one ``cast_once`` train step, and ``decode_steps``
+#: greedy decode steps under the serve rules, on a 1x1 mesh over a one-rank
+#: NCCL group, each against ``rules=None`` on the card; (b) ``arch`` at full
+#: width and ``depth`` layers, one FSDP step on the 1x1 mesh against
+#: ``rules=None``, timed (``timed`` steps after one untimed). AdamW runs with
+#: ``eps`` 1: its first step then moves each entry by about lr x its
+#: gradient, where the default eps moves an entry whose gradient is float
+#: noise by +-lr either way (the CPU tests hold the default on identical
+#: gradients).
+LM_SHARD = dict(batch=2, seq=32, decode_batch=2, decode_len=16,
+                decode_steps=8, lr=1e-3, eps=1.0, seed=0, arch="yi-6b",
+                depth=2, full_batch=8, full_seq=256, timed=3)
+#: |rules - rules=None| <= tol * max|rules=None| on the card: loss, each
+#: gradient leaf, each new param leaf, each step's logits. On a 1x1 mesh
+#: the local ops are the plain ones (DTensor reorders a few reductions).
+LM_SHARD_TOL = 1e-6
+#: (c), the dry run on the host, in a subprocess beside the rest of the
+#: smoke: the reference's test cell on both production meshes; ``cut`` (the
+#: shape and depth phase 5c's (b) trains) on a 1x1 mesh, its per-device
+#: flops held within ``flop_tol`` of :func:`lm_train_flops` and its peak
+#: printed beside the ``measured_gb`` 5c's (b) measured at f32 on an
+#: H100 80GB HBM3 at 700 W (PERF.md); then,
+#: while the smoke runs, the ``full`` cells on the (16, 16) mesh at full
+#: depth, each per-device peak against the card's 80 GB. The full cells
+#: still running when the smoke ends are stopped and named.
+LM_DRYRUN = dict(test=("mamba2-370m", "decode_32k"),
+                 cut=dict(arch="yi-6b", depth=4, batch=8, seq=256),
+                 full=(("phi3.5-moe-42b-a6.6b", "decode_32k"),
+                       ("yi-6b", "train_4k")),
+                 flop_tol=0.05, measured_gb=52.3, card_gb=80.0)
+
+#: Seconds the smoke waits at its end for the dry run's full cells.
+DRYRUN_WAIT_S = 60
+
+_DRYRUN_SCRIPT = r"""
+import dataclasses, json, logging, sys, tempfile, time
+import torch
+torch.set_num_threads(1)
+from repro_torch.launch import dryrun as D
+D.join_fake_group()
+logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+    logging.ERROR)
+from repro_torch.configs import get_config
+from repro_torch.models.config import ShapeConfig
+spec = json.loads(sys.argv[1])
+out = tempfile.mkdtemp()
+
+
+def emit(key, rec, t0):
+    m, h = rec["memory"], rec["hlo"]
+    print(json.dumps({"cell": key, "mesh": rec["mesh"],
+                      "arg_gb": m["argument_bytes"] / 1e9,
+                      "temp_gb": m["temp_bytes"] / 1e9,
+                      "peak_gb": m["peak_bytes_per_device"] / 1e9,
+                      "flops": h["flops_per_device"],
+                      "hbm_gb": h["hbm_bytes_per_device"] / 1e9,
+                      "coll_gb": h["coll_bytes_per_device"] / 1e9,
+                      "coll_count": h["coll_count"],
+                      "lower_s": rec["lower_s"], "run_s": rec["compile_s"],
+                      "seconds": time.perf_counter() - t0}), flush=True)
+
+
+arch, shape = spec["test"]
+for mp in (False, True):
+    t0 = time.perf_counter()
+    emit("test", D.run_cell(arch, shape, multi_pod=mp, out_dir=out,
+                            verbose=False), t0)
+c = spec["cut"]
+t0 = time.perf_counter()
+cfg = dataclasses.replace(get_config(c["arch"]), n_layers=c["depth"],
+                          dtype="float32")
+emit("cut", D.run_cell(c["arch"], "train_cut", cfg=cfg,
+                       shape=ShapeConfig("train_cut", c["seq"], c["batch"],
+                                         "train"),
+                       mesh_shape=(1, 1), out_dir=out, verbose=False), t0)
+for arch, shape in spec["full"]:
+    t0 = time.perf_counter()
+    emit(f"{arch} x {shape}", D.run_cell(arch, shape, out_dir=out,
+                                         verbose=False), t0)
+"""
+
+
+def start_dryrun():
+    """(c): start the dry run's subprocess on the host. Returns a function
+    that collects its records, stops it, checks them and prints them."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"),
+               OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_SCRIPT, json.dumps(LM_DRYRUN)],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    lines = []
+    reader = threading.Thread(
+        target=lambda: lines.extend(iter(proc.stdout.readline, "")),
+        daemon=True)
+    reader.start()
+
+    def finish(wait_s):
+        try:
+            proc.wait(timeout=wait_s)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        reader.join(timeout=10)
+        err = proc.stderr.read()
+        recs = [json.loads(ln) for ln in lines if ln.startswith("{")]
+        return recs, err, time.perf_counter() - t0
+    finish.proc = proc
+    return finish
+
+
+def stop_dryrun(finish) -> None:
+    """Stop the dry run's subprocess if it still runs."""
+    if finish.proc.poll() is None:
+        finish.proc.kill()
+        finish.proc.wait()
+
+
+def lm_dryrun_report(finish, wait_s):
+    """(c)'s checks: the test cell on both meshes and the cut cell are
+    required; the cut cell's flops within ``flop_tol`` of
+    :func:`lm_train_flops`. Prints every record. Returns them."""
+    from repro_torch.configs import get_config
+    recs, err, seconds = finish(wait_s)
+    c = LM_DRYRUN["cut"]
+    cfg = dataclasses.replace(get_config(c["arch"]), n_layers=c["depth"],
+                              dtype="float32")
+    want = lm_train_flops(cfg, c["batch"], c["seq"])
+    cells = {r["cell"]: r for r in recs}
+    tests = [r for r in recs if r["cell"] == "test"]
+    if len(tests) != 2 or "cut" not in cells:
+        raise SmokeFailure(f"the dry run: {[r['cell'] for r in recs]} "
+                           f"after {seconds:.1f} s; {err[-3000:]}")
+    for r in recs:
+        print(f"  (c) dry run {r['cell']} on {r['mesh']} (estimates, per "
+              f"device): peak {r['peak_gb']:.3f} GB (arguments "
+              f"{r['arg_gb']:.3f}, temp {r['temp_gb']:.3f}), flops "
+              f"{r['flops']:.4g}, HBM {r['hbm_gb']:.3f} GB, collectives "
+              f"{r['coll_gb']:.3f} GB {r['coll_count']}; build "
+              f"{r['lower_s']:.1f} s, run {r['run_s']:.1f} s")
+    cut = cells["cut"]
+    ratio = cut["flops"] / want
+    cut["flops_want"] = want
+    measured = LM_DRYRUN["measured_gb"]
+    print(f"  (c) cut {c['arch']} {c['depth']} layers {c['batch']}x"
+          f"{c['seq']} on 1x1: flops {cut['flops']:.4g} against "
+          f"lm_train_flops {want:.4g} ({ratio:.4f}); predicted peak "
+          f"{cut['peak_gb']:.1f} GB beside the {measured} GB phase 5c "
+          f"measured ({cut['peak_gb'] / measured:.3f}); the dry run's wall "
+          f"{seconds:.1f} s")
+    for arch, shape in LM_DRYRUN["full"]:
+        r = cells.get(f"{arch} x {shape}")
+        print(f"  (c) {arch} x {shape} on 16x16, full depth: "
+              + ("not reached before the smoke's end (stopped)" if r is None
+                 else f"peak {r['peak_gb']:.2f} GB a device against the "
+                      f"card's {LM_DRYRUN['card_gb']:g} GB"))
+    if not abs(ratio - 1) <= LM_DRYRUN["flop_tol"]:
+        raise SmokeFailure(f"the dry run's flops of the cut cell: "
+                           f"{cut['flops']:.4g} against {want:.4g}")
+    print(json.dumps({"lm_dryrun": {"records": recs, "seconds": seconds}}))
+    return recs
+
+
+def _routed(moe, fn_plain, fn_rules):
+    """(plain result, rules result, the routing split): both runs with
+    their router calls recorded; a near-tie split (:func:`lm_route_split`)
+    replays the rules run on the plain run's experts."""
+    if not moe:
+        return fn_plain(), fn_rules(), None
+    rp, rr = [], []
+    with lm_router(rp):
+        a = fn_plain()
+    with lm_router(rr):
+        b = fn_rules()
+    split = lm_route_split(rr, rp, LM_ROUTE_GAP["float32"])
+    if split["splits"]:
+        with lm_router(forced=[idx for _, idx in rp]):
+            b = fn_rules()
+    return a, b, split
+
+
+def _err(got, want):
+    """max|got - want| / max|want| over two tensors or trees (DTensors
+    gathered)."""
+    from repro_torch.sharding import rules as SR
+    if isinstance(want, dict):
+        return _worst(_leaf_errs(_full_tree(got), want))[0]
+    got, want = SR.full(got).double(), want.double()
+    m = float(want.abs().max())
+    d = float((got - want).abs().max())
+    return d / m if m else d
+
+
+def _full_tree(tree):
+    from repro_torch.models.convert import tree_map
+    from repro_torch.sharding import rules as SR
+    return tree_map(SR.full, tree)
+
+
+def lm_shard_case(arch, mesh, device):
+    """(a) for one smoke config; returns the worst errors; raises on a
+    miss."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import model as MD
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.sharding import rules as SR
+    from repro_torch.train.loop import device_batch
+    from repro_torch.train.step import make_train_step, value_and_grad
+    cfg = get_smoke_config(arch)
+    sh = LM_SHARD
+    params = MD.init_params(cfg, torch.Generator(device=device)
+                            .manual_seed(sh["seed"]))
+    b = device_batch(SyntheticLM(cfg, sh["seq"], sh["batch"],
+                                 seed=sh["seed"]).batch(0), device)
+    rules = SR.make_rules(mesh)
+    dp, db = rules.place_params(params), rules.place_batch(b)
+    moe = bool(cfg.n_experts)
+    vg = value_and_grad(cfg)
+
+    def grads_rules():
+        with SR.sharding_scope(rules):
+            return vg(dp, db)
+    ((l0, _), g0), ((l1, _), g1), split = _routed(
+        moe, lambda: vg(params, b), grads_rules)
+    out = {"loss": _err(l1, l0), "grad": _err(g1, g0), "splits": []}
+    if split:
+        out["splits"].append(split["splits"])
+    ocfg = AdamWConfig(lr=sh["lr"], eps=sh["eps"])
+    for cast_once in (False, True):
+        key = "cast_once" if cast_once else "fsdp"
+        (new0, _, m0), (new1, o1, m1), split = _routed(
+            moe, lambda: make_train_step(cfg, ocfg)(
+                params, adamw_init(params), b),
+            lambda: make_train_step(cfg, ocfg, rules, cast_once=cast_once)(
+                dp, adamw_init(dp), db))
+        if split:
+            out["splits"].append(split["splits"])
+        out[key] = max(_err(new1, new0), _err(m1["loss"], m0["loss"]))
+        if not all(SR.is_dtensor(t) for t in _leaves(new1)):
+            raise SmokeFailure(f"LM sharding, {arch} {key}: a new param is "
+                               f"not a DTensor")
+    srules = SR.make_rules(mesh, fsdp=False, seq_shard=False)
+    sp = srules.place_params(params)
+
+    def decode(p, cache, rules_):
+        tok = torch.zeros((sh["decode_batch"], 1), dtype=torch.long,
+                          device=device)
+        logits, toks = [], []
+        for t in range(sh["decode_steps"]):
+            with SR.sharding_scope(rules_):
+                lg, cache = MD.decode_step(p, cache, tok, t, cfg)
+            lg = SR.full(lg)
+            tok = lg.argmax(-1)[:, None]
+            logits.append(lg)
+            toks.append(tok)
+        return torch.stack(logits), torch.cat(toks, 1)
+
+    def cache():
+        return MD.init_cache(cfg, sh["decode_batch"], sh["decode_len"],
+                             device=device)
+    (lg0, tk0), (lg1, tk1), split = _routed(
+        moe, lambda: decode(params, cache(), None),
+        lambda: decode(sp, srules.place_cache(cache()), srules))
+    if split:
+        out["splits"].append(split["splits"])
+    out["logits"] = _err(lg1, lg0)
+    out["tokens_equal"] = bool(torch.equal(tk0, tk1))
+    worst = max(out["loss"], out["grad"], out["fsdp"], out["cast_once"],
+                out["logits"])
+    if not (worst <= LM_SHARD_TOL and out["tokens_equal"]):
+        raise SmokeFailure(f"LM sharding, {arch} on the 1x1 mesh against "
+                           f"rules=None: {out} (tol {LM_SHARD_TOL})")
+    return out
+
+
+def _leaves(tree):
+    from repro_torch.models.convert import tree_leaves
+    return list(tree_leaves(tree))
+
+
+def lm_shard_full(mesh, device):
+    """(b): :data:`LM_SHARD`'s arch at full width and ``depth`` layers, f32,
+    one FSDP step on the 1x1 mesh against ``rules=None``: the first step's
+    loss and new params held to :data:`LM_SHARD_TOL`, then ``timed`` steps
+    of each timed with CUDA events (DTensor's dispatch beside the plain
+    step) and each one's peak memory."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import SyntheticLM
+    from repro_torch.models import model as MD
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.sharding import rules as SR
+    from repro_torch.train.loop import device_batch
+    from repro_torch.train.step import make_train_step
+    sh = LM_SHARD
+    full = get_config(sh["arch"])
+    cfg = dataclasses.replace(full, n_layers=sh["depth"], dtype="float32")
+    B, S = sh["full_batch"], sh["full_seq"]
+    data = SyntheticLM(cfg, S, B, seed=sh["seed"])
+    host = [data.batch(k) for k in range(sh["timed"] + 1)]
+    ocfg = AdamWConfig(lr=sh["lr"], eps=sh["eps"])
+    rules = SR.make_rules(mesh)
+    out = {"arch": full.name, "layers": cfg.n_layers, "batch": B, "seq": S}
+    firsts = {}
+    for key in ("plain", "fsdp"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = MD.init_params(cfg, torch.Generator(device=device)
+                                .manual_seed(sh["seed"]))
+        batches = [device_batch(x, device) for x in host]
+        r = None
+        if key == "fsdp":
+            r = rules
+            params = rules.place_params(params)
+            batches = [rules.place_batch(x) for x in batches]
+        opt = adamw_init(params)
+        step = make_train_step(cfg, ocfg, r)
+        p, o, m = step(params, opt, batches[0])
+        firsts[key] = (_full_tree(p), float(m["loss"]))
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for x in batches[1:]:
+            p, o, m = step(p, o, x)
+        t1.record()
+        torch.cuda.synchronize()
+        out[key] = {"ms_per_step": t0.elapsed_time(t1) / sh["timed"],
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "loss_last": float(m["loss"])}
+        del params, opt, p, o, batches, step
+    out["loss_err"] = abs(firsts["fsdp"][1] - firsts["plain"][1]) / abs(
+        firsts["plain"][1])
+    out["param_err"] = _worst(_leaf_errs(firsts["fsdp"][0],
+                                         firsts["plain"][0]))[0]
+    del firsts
+    torch.cuda.empty_cache()
+    print(f"  (b) {full.name} at full width, {cfg.n_layers} of "
+          f"{full.n_layers} layers, f32, {B}x{S}, on the 1x1 mesh: FSDP "
+          f"{out['fsdp']['ms_per_step']:.2f} ms a step against rules=None "
+          f"{out['plain']['ms_per_step']:.2f} ms "
+          f"({out['fsdp']['ms_per_step'] / out['plain']['ms_per_step']:.3f}"
+          f"x); peak {out['fsdp']['peak_gb']:.2f} GB against "
+          f"{out['plain']['peak_gb']:.2f} GB; first step's loss "
+          f"{out['loss_err']:.3g}, new params {out['param_err']:.3g} of max "
+          f"apart")
+    if not (out["loss_err"] <= LM_SHARD_TOL
+            and out["param_err"] <= LM_SHARD_TOL
+            and np.isfinite(out["fsdp"]["loss_last"])):
+        raise SmokeFailure(f"LM sharding at full width: {out}")
+    return out
+
+
+def lm_shard(device):
+    """Phase 5d: (a) :func:`lm_shard_case` for every smoke config and (b)
+    :func:`lm_shard_full`, on a 1x1 mesh over a one-rank NCCL group (made
+    and destroyed here, before phase 4c makes its own). This proves
+    DTensor's dispatch on the card, not a collective. Prints the
+    ``{"lm_shard": ...}`` line and returns the readings."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as LM_MESH
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    out, seconds = {}, {}
+    try:
+        mesh = LM_MESH.make_test_mesh((1, 1), device_type="cuda")
+        t0 = time.perf_counter()
+        out["smoke"] = {arch: lm_shard_case(arch, mesh, device)
+                        for arch in LM["smoke_archs"]}
+        seconds["smoke"] = time.perf_counter() - t0
+        print(f"  (a) smoke configs on the 1x1 mesh against rules=None on "
+              f"the card, worst |err| / max (loss, gradient leaf, FSDP step, "
+              f"cast_once step, decode logits; tol {LM_SHARD_TOL}): "
+              + "; ".join(f"{a} {v['loss']:.3g}, {v['grad']:.3g}, "
+                          f"{v['fsdp']:.3g}, {v['cast_once']:.3g}, "
+                          f"{v['logits']:.3g}"
+                          for a, v in out["smoke"].items())
+              + "; MoE routing splits: " + json.dumps(
+                  {a: v["splits"] for a, v in out["smoke"].items()
+                   if v["splits"]}))
+        t0 = time.perf_counter()
+        out["full"] = lm_shard_full(mesh, device)
+        seconds["full"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = seconds
+    print("  phase 5d seconds: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
+    print(json.dumps({"lm_shard": out}))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5662,9 +6064,12 @@ def main() -> int:
     print(card_line())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    finish_dryrun = start_dryrun()
     try:
-        # the host-only inputs, phase 5b's (a) and (b) and phase 5c (eager
-        # torch, no kernel of the port) run while nvcc builds the kernels
+        # the host-only inputs, phase 5b's (a) and (b), phase 5c and phase
+        # 5d's (a) and (b) (eager torch, no kernel of the port) run while
+        # nvcc builds the kernels; 5d's (c), the dry run, runs on the host
+        # in a subprocess until the end
         wait_build = start_build()
         try:
             t_host = time.perf_counter()
@@ -5681,6 +6086,10 @@ def main() -> int:
             t_phase = time.perf_counter()
             lm_train(device)
             print(f"phase LM training 5c, beside the build: "
+                  f"{time.perf_counter() - t_phase:.1f} s")
+            t_phase = time.perf_counter()
+            lm_shard(device)
+            print(f"phase LM sharding 5d (a) and (b), beside the build: "
                   f"{time.perf_counter() - t_phase:.1f} s")
         finally:
             wait_build()
@@ -5845,9 +6254,15 @@ def main() -> int:
             row["shard_launches"] = shard_launches.get(row["name"], 0)
             row["lm_launches"] = lm["launches"].get(row["name"], 0)
         print(json.dumps({"sharding": shard_per, "examples": examples}))
+        t_phase = time.perf_counter()
+        lm_dryrun_report(finish_dryrun, DRYRUN_WAIT_S)
+        print(f"phase LM dry run 5d (c), waited for: "
+              f"{time.perf_counter() - t_phase:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        stop_dryrun(finish_dryrun)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -14,6 +14,14 @@ host numpy arrays and puts each leaf on its template leaf's device, in its
 dtype (a template of numpy arrays gets numpy arrays back). A bfloat16
 tensor is written as float32 (numpy has no bfloat16 without ``ml_dtypes``)
 and cast back on restore, which loses nothing.
+
+A sharded tree (DTensor leaves) is saved whole: every rank gathers each
+leaf (``full_tensor``, a collective), rank 0 writes the reference's
+layout, and the other ranks wait for it at a barrier. On restore a
+DTensor template leaf gets the checkpoint's global value laid out as the
+template is (each rank keeps its block), so a checkpoint written on one
+mesh resumes on another, or in the reference: the elastic restore of
+``repro.checkpoint.ckpt``.
 """
 from __future__ import annotations
 
@@ -37,7 +45,14 @@ def _paths(tree: Any, prefix: Tuple[str, ...] = ()
         yield "/".join(prefix), tree
 
 
+def _is_dt(leaf: Any) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(leaf, DTensor)
+
+
 def _host(leaf: Any) -> np.ndarray:
+    if _is_dt(leaf):
+        leaf = leaf.full_tensor()
     if torch.is_tensor(leaf):
         leaf = leaf.detach()
         if leaf.dtype == torch.bfloat16:
@@ -51,8 +66,16 @@ def _flatten(tree: Any) -> Dict[str, np.ndarray]:
 
 
 def _like(arr: np.ndarray, leaf: Any) -> Any:
-    """``arr`` as ``leaf`` is: a tensor on its device in its dtype, or a
-    numpy array of its dtype."""
+    """``arr`` as ``leaf`` is: a tensor on its device in its dtype (a
+    DTensor laid out as it is), or a numpy array of its dtype."""
+    if _is_dt(leaf):
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh = leaf.device_mesh
+        full = torch.from_numpy(np.array(arr, order="C")).to(
+            device=leaf.to_local().device, dtype=leaf.dtype)
+        return DTensor.from_local(full, mesh, [Replicate()] * mesh.ndim,
+                                  run_check=False).redistribute(
+                                      mesh, leaf.placements)
     if torch.is_tensor(leaf):
         return torch.from_numpy(np.array(arr, order="C")).to(
             device=leaf.device, dtype=leaf.dtype)
@@ -74,12 +97,29 @@ def _unflatten_into(template: Any, flat: Dict[str, np.ndarray],
 
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
                     keep_last: int = 3) -> str:
+    """Write ``tree`` as step ``step``; returns its directory. Every rank of
+    a sharded tree calls it (rank 0 writes)."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    flat = _flatten(tree)
+    sharded = any(_is_dt(leaf) for _, leaf in _paths(tree))
+    if sharded:
+        import torch.distributed as dist
+        if dist.get_rank() != 0:
+            dist.barrier()
+            return final
+    try:
+        return _write(ckpt_dir, final, step, flat, keep_last)
+    finally:
+        if sharded:
+            dist.barrier()
+
+
+def _write(ckpt_dir: str, final: str, step: int,
+           flat: Dict[str, np.ndarray], keep_last: int) -> str:
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp, exist_ok=True)
-    flat = _flatten(tree)
     np.savez(os.path.join(tmp, "arrays.npz"), **flat)
     manifest = {
         "step": step,

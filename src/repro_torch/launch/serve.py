@@ -17,8 +17,16 @@ of ``--batch`` sequences from a zero token against a KV cache of
 synchronised before it closes), and prints the reference's tok/s line.
 Every decoder-only arch decodes (dense, MoE, SSM, hybrid, vlm); an
 encoder-decoder arch exits with the reference's message, as its launcher
-does, and ``--mesh`` (sharded weights) exits naming ROADMAP queue 1 item
-13e.
+does.
+
+``--mesh DxM`` decodes on a data x model mesh of the ranks ``torchrun``
+starts (``torchrun --nproc-per-node D*M -m repro_torch.launch.serve
+--mesh DxM``), under the reference's serve rules (``make_rules(mesh,
+fsdp=False, seq_shard=False)``): params laid out by ``param_shardings``,
+the cache by ``cache_shardings``. A mesh of another size than the process
+group exits naming the ranks it needs. The vocab bench or tier that
+follows runs on rank 0 alone, as the reference's one process runs it; the
+other ranks wait for it at a barrier. Output lines come from rank 0.
 
 ``--records`` installs a record store (file or directory) as the
 selector's default store (with ``--verify``, its ``verify_records``
@@ -60,10 +68,27 @@ def main(argv=None, *, device: Optional[str] = None) -> None:
     SV.add_config_args(ap)
     args = ap.parse_args(argv)
     config = SV.config_from_args(args)
-    SV.refuse_decode_knobs(config)
+    import torch.distributed as dist
+    from repro_torch.kernels.ops import resolve_device
+    from repro_torch.launch import mesh as LM
+    joined = bool(config.mesh) and not dist.is_initialized()
+    if config.mesh:
+        LM.join_mesh_ranks(config.mesh, resolve_device(device),
+                           one_rank_group=True)
+    try:
+        _run(config, device, LM.rank() == 0)
+    finally:
+        if joined and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(config: SV.ServeConfig, device: Optional[str], lead: bool) -> None:
+    """The launcher once its ranks are joined: records (rank 0), decode,
+    then rank 0's vocab bench or tier while the others wait."""
+    from repro_torch.launch import mesh as LM
 
     from repro_torch.core import selector as S
-    if config.records:
+    if lead and config.records:
         store = S.load_records(config.records)
         if config.verify:
             from repro_torch.analysis.verify import verify_records
@@ -75,7 +100,19 @@ def main(argv=None, *, device: Optional[str] = None) -> None:
     if cfg.is_encdec:
         raise SystemExit(ENCDEC_EXIT)
     _decode(config, cfg, device)
+    try:
+        if lead:
+            _vocab_and_metrics(config, cfg, device)
+    finally:
+        if LM.world_size() > 1:
+            import torch.distributed as dist
+            dist.barrier()
 
+
+def _vocab_and_metrics(config: SV.ServeConfig, cfg,
+                       device: Optional[str]) -> None:
+    """Rank 0's part after the decode: the vocab bench or tier, then the
+    metrics dump."""
     if config.vocab_spmv > 0 and config.qps > 0:
         _serve_vocab(config, cfg.vocab, cfg.d_model, device)
     elif config.vocab_spmv > 0:
@@ -94,24 +131,35 @@ def main(argv=None, *, device: Optional[str] = None) -> None:
 
 def _decode(config: SV.ServeConfig, cfg, device: Optional[str]) -> None:
     """The greedy decode loop: ``config.tokens - 1`` steps of
-    ``config.batch`` sequences from a zero token; prints the tok/s line."""
+    ``config.batch`` sequences from a zero token; rank 0 prints the tok/s
+    line. Under ``config.mesh`` every rank runs it on its blocks."""
     from repro_torch.kernels.ops import resolve_device
+    from repro_torch.launch import mesh as LM
     from repro_torch.models import model as MD
+    from repro_torch.sharding import rules as SR
     from repro_torch.train.step import make_serve_step
     dev = resolve_device(device)
     params = MD.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     cache = MD.init_cache(cfg, config.batch, config.tokens,
                           kv_dtype=config.kv_dtype, device=dev)
-    step = make_serve_step(cfg)
+    rules = None
+    if config.mesh:
+        mesh = LM.make_test_mesh(LM.parse_mesh(config.mesh),
+                                 device_type=dev.type)
+        rules = SR.make_rules(mesh, fsdp=False, seq_shard=False)
+        params = rules.place_params(params)
+        cache = rules.place_cache(cache)
+    step = make_serve_step(cfg, rules)
     with obs.span("serve.decode", arch=config.arch, batch=config.batch,
                   tokens=config.tokens) as sp:
         greedy_decode(step, params, cache, config.batch, config.tokens - 1)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
     dt = sp.duration_s
-    print(f"{config.arch}: {config.batch}x{config.tokens} tokens, "
-          f"{config.batch * (config.tokens - 1) / dt:.1f} tok/s "
-          f"(kv={config.kv_dtype}, mesh={config.mesh or '1 device'})")
+    if LM.rank() == 0:
+        print(f"{config.arch}: {config.batch}x{config.tokens} tokens, "
+              f"{config.batch * (config.tokens - 1) / dt:.1f} tok/s "
+              f"(kv={config.kv_dtype}, mesh={config.mesh or '1 device'})")
 
 
 def greedy_decode(step, params, cache, batch: int, steps: int):

@@ -85,8 +85,8 @@ class ServeConfig:
     The field set is the source of truth: ``add_config_args`` generates one
     ``--flag`` per field (``_`` -> ``-``). The decode-loop knobs (``arch``,
     ``batch``, ``tokens``, ``mesh``, ``kv_dtype``) feed the CLI's decode
-    loop (``mesh`` is refused: ROADMAP queue 1 item 13e); ``arch`` also
-    picks the default matrix's shape."""
+    loop (``mesh`` lays it out over the ranks ``torchrun`` starts); ``arch``
+    also picks the default matrix's shape."""
 
     # --- decode-loop launcher (arch: also the vocab shape) ---
     arch: str = _knob("yi-6b", "model architecture for the decode loop")
@@ -169,18 +169,6 @@ def config_from_args(args: argparse.Namespace, cls=ServeConfig):
     """The parsed-namespace -> config half of the argparse round trip."""
     return cls(**{f.name: getattr(args, f.name)
                   for f in dataclasses.fields(cls)})
-
-
-def refuse_decode_knobs(config: ServeConfig) -> None:
-    """Raise ``SystemExit`` naming ROADMAP queue 1 item 13 when ``--mesh``
-    is given: the port's decode loop runs on one device (sharded weights
-    are item 13e), and a knob that is silently ignored would mislead."""
-    if config.mesh:
-        raise SystemExit(
-            f"repro_torch.launch: --mesh {config.mesh} shards the decode "
-            f"loop, which the port does not do yet (ROADMAP queue 1 item 13, "
-            f"part 13e: sharding/rules.py and launch/mesh.py); leave it "
-            f"empty to decode on one device")
 
 
 def plan_request(config: ServeConfig) -> Dict[str, object]:
@@ -1043,10 +1031,8 @@ def start(config: ServeConfig, mat: Optional[F.SPC5Matrix] = None, *,
     With ``config.metrics`` the tier's instruments and spans land on the
     port's GLOBAL obs registry; otherwise the tier gets a private
     registry. ``config.faults`` arms the port's process-global fault set
-    (the ``SPC5_FAULTS`` grammar). ``config.mesh`` raises ``SystemExit``
-    (:func:`refuse_decode_knobs`); the other decode knobs are the CLI's
-    decode loop's and change nothing here."""
-    refuse_decode_knobs(config)
+    (the ``SPC5_FAULTS`` grammar). The decode knobs (``mesh`` among
+    them) are the CLI's decode loop's and change nothing here."""
     if config.faults:
         obs.faults.set_faults(obs.faults.Faults(config.faults))
     if install_records and config.records:

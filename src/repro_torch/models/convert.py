@@ -27,6 +27,13 @@ def tree_map(fn: Callable[[Any], Any], tree: Tree) -> Tree:
             for k, v in tree.items()}
 
 
+def zip_map(fn: Callable[..., Any], tree: Tree, *rest: Tree) -> Tree:
+    """``fn`` over the leaves of ``tree`` and the same leaves of ``rest``
+    (trees of one structure), as a tree of ``tree``'s structure."""
+    return {k: zip_map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
+            else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
+
+
 def tree_leaves(tree: Tree) -> Iterator[Any]:
     """The leaves of the nested dict ``tree``, in its key order."""
     for v in tree.values():

@@ -17,6 +17,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.sharding.rules import constrain, one_split_a_dim
+
 from . import layers as L
 from .config import ModelConfig
 from .transformer import (_dtype, _index, _lm_head, _logits, _unstack,
@@ -72,14 +74,14 @@ def _cross_kv(p: Params, enc_out: Tensor, cfg: ModelConfig
 
 def encode(params: Params, frames: Tensor, cfg: ModelConfig) -> Tensor:
     """frames: (B, S_enc, D) precomputed embeddings -> encoder output."""
-    x = frames.to(_dtype(cfg))
+    x = constrain(frames.to(_dtype(cfg)), "act")
 
     @L.remat
     def layer(x, p):
         h = L.rmsnorm(x, p["norm"], cfg.norm_eps)
         x = x + L.attention_fwd(p["attn"], h, cfg, causal=False)
         h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
-        return x + L.mlp_fwd(p["mlp"], h2, cfg)
+        return constrain(x + L.mlp_fwd(p["mlp"], h2, cfg), "act")
 
     for p in _unstack(params["enc"], cfg.enc_layers):
         x = layer(x, p)
@@ -89,7 +91,8 @@ def encode(params: Params, frames: Tensor, cfg: ModelConfig) -> Tensor:
 def decode_train(params: Params, enc_out: Tensor, tokens: Tensor,
                  cfg: ModelConfig) -> Tensor:
     """Teacher-forced decoder forward -> hidden states (B, S_dec, D)."""
-    x = params["embed"][tokens].to(_dtype(cfg))
+    x = constrain(params["embed"][one_split_a_dim(tokens)].to(_dtype(cfg)),
+                  "act")
 
     @L.remat
     def layer(x, p, enc_out):
@@ -101,7 +104,7 @@ def decode_train(params: Params, enc_out: Tensor, tokens: Tensor,
                                                       cfg),
                                 rope=False)
         h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
-        return x + L.mlp_fwd(p["mlp"], h2, cfg)
+        return constrain(x + L.mlp_fwd(p["mlp"], h2, cfg), "act")
 
     for p in _unstack(params["dec"], cfg.n_layers):
         x = layer(x, p, enc_out)
@@ -160,7 +163,8 @@ def decode_step(params: Params, cache: Params, token: Tensor, pos: int,
     updated in place."""
     pos = int(pos)
     dt = _dtype(cfg)
-    x = params["embed"][token].to(dt)
+    x = constrain(params["embed"][one_split_a_dim(token)].to(dt),
+                  "act_decode")
     for i in range(cfg.n_layers):
         p = _index(params["dec"], i)
         h = L.rmsnorm(x, p["norm"], cfg.norm_eps)
@@ -174,5 +178,5 @@ def decode_step(params: Params, cache: Params, token: Tensor, pos: int,
                                              cache["cross_v"][i].to(dt)),
                                 rope=False)
         h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
-        x = x + L.mlp_fwd(p["mlp"], h2, cfg)
+        x = constrain(x + L.mlp_fwd(p["mlp"], h2, cfg), "act_decode")
     return _logits(params, x[:, 0], cfg), cache

@@ -27,6 +27,8 @@ import torch
 import torch.nn.functional as Fn
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.sharding import rules as SR
+
 from .config import ModelConfig
 
 PLAIN_ATTN_MAX = 1_024   # use plain attention at/below this seq len
@@ -151,7 +153,7 @@ def init_attn(gen: torch.Generator, cfg: ModelConfig,
 
 
 def _split_heads(x: Tensor, n: int, hd: int) -> Tensor:
-    return x.reshape(*x.shape[:-1], n, hd)
+    return SR.reshape(x, *x.shape[:-1], n, hd)
 
 
 def _mask_ok(qpos: Tensor, kpos: Tensor, causal: bool, window: int) -> Tensor:
@@ -251,11 +253,21 @@ def attention_fwd(params: Dict[str, Tensor], x: Tensor, cfg: ModelConfig, *,
         if kv_override is None:
             k = apply_rope(k, pos, cfg.rope_theta)
     if G > 1:
+        # replicate the small kv tensors over tp BEFORE the head broadcast
+        # so the expand is a local slice
+        k = SR.constrain(k, "kv_small")
+        v = SR.constrain(v, "kv_small")
         k = torch.repeat_interleave(k, G, dim=2)
         v = torch.repeat_interleave(v, G, dim=2)
+    q = SR.constrain(q, "qkv")
+    k = SR.constrain(k, "qkv")
+    v = SR.constrain(v, "qkv")
     fn = plain_attention if x.shape[1] <= PLAIN_ATTN_MAX else flash_attention
-    o = fn(q, k, v, causal=causal, window=window)
-    o = o.reshape(*o.shape[:2], H * hd)
+    # batch and heads split, sequence and head dim whole: each rank's
+    # attention is its own
+    o, = SR.local(functools.partial(fn, causal=causal, window=window),
+                  [q, k, v], [("qkv", tuple(q.shape))])
+    o = SR.reshape(o, *o.shape[:2], H * hd)
     return o @ params["wo"].to(dt)
 
 
@@ -328,18 +340,17 @@ def attention_decode(params: Dict[str, Tensor], x: Tensor,
     if "k_scale" in cache:
         kq, ksc = quantize_kv(k_new)
         vq, vsc = quantize_kv(v_new)
-        cache["k"][:, slot] = kq[:, 0]
-        cache["v"][:, slot] = vq[:, 0]
-        cache["k_scale"][:, slot] = ksc[:, 0]
-        cache["v_scale"][:, slot] = vsc[:, 0]
+        for key, new in (("k", kq), ("v", vq), ("k_scale", ksc),
+                         ("v_scale", vsc)):
+            SR.write_slot(cache[key], slot, new)
         k = dequantize_kv(cache["k"], cache["k_scale"], dt)
         v = dequantize_kv(cache["v"], cache["v_scale"], dt)
     else:
-        cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+        SR.write_slot(cache["k"], slot, k_new)
+        SR.write_slot(cache["v"], slot, v_new)
         k, v = cache["k"].to(dt), cache["v"].to(dt)
 
-    qh = q.reshape(B, 1, K, G, hd)
+    qh = SR.reshape(q, B, 1, K, G, hd)
     s = torch.einsum("bqkgd,bskd->bkgqs", qh.float(), k.float()) \
         * (hd ** -0.5)
     idx = torch.arange(S, device=x.device)
@@ -351,7 +362,7 @@ def attention_decode(params: Dict[str, Tensor], x: Tensor,
         ok = idx <= pos
     s = s.masked_fill(~ok, -torch.inf)
     p = torch.softmax(s, dim=-1).to(dt)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v).reshape(B, 1, H * hd)
+    o = SR.reshape(torch.einsum("bkgqs,bskd->bqkgd", p, v), B, 1, H * hd)
     return o @ params["wo"].to(dt), cache
 
 

@@ -2,8 +2,9 @@
 ``repro.models.model``).
 
 Encoder-decoders run through :mod:`.encdec`, every other family through
-:mod:`.transformer`. ``input_specs`` / ``cache_specs`` belong to the dry
-run (ROADMAP queue 1 item 13f).
+:mod:`.transformer`. ``input_specs`` / ``cache_specs`` /
+``decode_input_specs`` give the dry run its inputs: ``device="meta"``
+tensors of the reference's shapes and dtypes (no allocation).
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 
 from . import encdec, transformer
 from . import layers as L
-from .config import ModelConfig
+from .config import ModelConfig, ShapeConfig
 
 Params = Dict[str, Any]
 
@@ -65,3 +66,45 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
         return logits[:, :cfg.vocab], x
     return transformer.prefill(params, batch["tokens"], cfg,
                                prefix=batch.get("prefix"))
+
+
+# ----------------------------------------------------------------------------
+# input specs (meta tensors -- no allocation; the dry run's inputs)
+# ----------------------------------------------------------------------------
+
+META = torch.device("meta")
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                dtype: str = "bfloat16") -> Dict[str, torch.Tensor]:
+    """Stand-ins for every model input of a train / prefill step."""
+    B, Sq = shape.global_batch, shape.seq_len
+    i32, dt = torch.int32, getattr(torch, dtype)
+    if cfg.is_encdec:
+        Sd = max(256, Sq // cfg.dec_ratio)
+        return {"frames": _meta((B, Sq, cfg.d_model), dt),
+                "tokens": _meta((B, Sd), i32),
+                "labels": _meta((B, Sd), i32)}
+    if cfg.frontend == "patches":
+        St = Sq - cfg.n_prefix
+        return {"prefix": _meta((B, cfg.n_prefix, cfg.d_model), dt),
+                "tokens": _meta((B, St), i32),
+                "labels": _meta((B, St), i32)}
+    return {"tokens": _meta((B, Sq), i32), "labels": _meta((B, Sq), i32)}
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig,
+                kv_dtype: str = "bfloat16") -> Params:
+    """``init_cache`` on the meta device (no allocation)."""
+    return init_cache(cfg, shape.global_batch, shape.seq_len,
+                      kv_dtype=kv_dtype, device=META)
+
+
+def decode_input_specs(cfg: ModelConfig, shape: ShapeConfig
+                       ) -> Dict[str, torch.Tensor]:
+    return {"token": _meta((shape.global_batch, 1), torch.int32),
+            "pos": _meta((), torch.int32)}

@@ -19,6 +19,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as Fn
 
+from repro_torch.sharding.rules import constrain
+
 from . import layers as L
 from .config import ModelConfig
 
@@ -84,8 +86,9 @@ def scan(a: Tensor, b: Tensor) -> Tensor:
 def rec_fwd(params: Dict[str, Tensor], x: Tensor, cfg: ModelConfig) -> Tensor:
     """Prefill forward. x: (B, S, D)."""
     dt = x.dtype
-    xb = x @ params["w_x"].to(dt)
-    gate = Fn.gelu(x @ params["w_gate"].to(dt), approximate="tanh")
+    xb = constrain(x @ params["w_x"].to(dt), "rec_inner")
+    gate = Fn.gelu(constrain(x @ params["w_gate"].to(dt), "rec_inner"),
+                   approximate="tanh")
     xb, _ = _conv(xb, params["conv_w"], params["conv_b"])
     h = scan(*_gates(params, xb))
     return (h.to(dt) * gate) @ params["w_out"].to(dt)

@@ -17,6 +17,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as Fn
 
+from repro_torch.sharding.rules import constrain, reshape
+
 from . import layers as L
 from .config import ModelConfig
 
@@ -71,14 +73,15 @@ def _causal_conv(x: Tensor, w: Tensor, b: Tensor,
 
 def _project(params: Dict[str, Tensor], x: Tensor):
     """The separate (z, x, B, C, dt) projections; dt through softplus in
-    float32."""
+    float32. Each is shard-clean: z and x over heads, B and C replicated
+    over the model axis."""
     dt_ = x.dtype
-    z = x @ params["w_z"].to(dt_)
-    xs = x @ params["w_x"].to(dt_)
-    B_ = x @ params["w_B"].to(dt_)
-    C_ = x @ params["w_C"].to(dt_)
+    z = constrain(x @ params["w_z"].to(dt_), "rec_inner")
+    xs = constrain(x @ params["w_x"].to(dt_), "rec_inner")
+    B_ = constrain(x @ params["w_B"].to(dt_), "ssm_bc")
+    C_ = constrain(x @ params["w_C"].to(dt_), "ssm_bc")
     dt = Fn.softplus((x @ params["w_dt"].to(dt_)).float() + params["dt_bias"])
-    return z, xs, B_, C_, dt
+    return z, xs, B_, C_, constrain(dt, "ssm_dt")
 
 
 def ssd_chunked(xh: Tensor, dt: Tensor, B_: Tensor, C_: Tensor, A: Tensor,
@@ -99,10 +102,10 @@ def ssd_chunked(xh: Tensor, dt: Tensor, B_: Tensor, C_: Tensor, A: Tensor,
     nc = S // Q
     f32 = torch.float32
     dev = xh.device
-    xh_c = xh.float().reshape(Bsz, nc, Q, H, P)
-    dt_c = dt.float().reshape(Bsz, nc, Q, H)
-    Bm_c = B_.float().reshape(Bsz, nc, Q, N)
-    Cm_c = C_.float().reshape(Bsz, nc, Q, N)
+    xh_c = reshape(xh.float(), Bsz, nc, Q, H, P)
+    dt_c = reshape(dt.float(), Bsz, nc, Q, H)
+    Bm_c = reshape(B_.float(), Bsz, nc, Q, N)
+    Cm_c = reshape(C_.float(), Bsz, nc, Q, N)
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=dev))
     h = torch.zeros((Bsz, H, N, P), dtype=f32, device=dev)
     ys = []
@@ -127,22 +130,26 @@ def ssd_chunked(xh: Tensor, dt: Tensor, B_: Tensor, C_: Tensor, A: Tensor,
         h = (torch.exp(ltot)[..., None, None] * h
              + torch.einsum("bqh,bqn,bqhp->bhnp", sdecay, Bm, xh_))
         ys.append(y)
-    y = torch.stack(ys, dim=1).reshape(Bsz, S, H, P)
+    y = reshape(torch.stack(ys, dim=1), Bsz, S, H, P)
     return y + xh.float() * D[:, None]
 
 
 def ssm_fwd(params: Dict[str, Tensor], x: Tensor, cfg: ModelConfig) -> Tensor:
-    """Prefill forward. x: (B, S, D); S a multiple of min(ssm_chunk, S)."""
+    """Prefill forward. x: (B, S, D); S a multiple of min(ssm_chunk, S).
+    Under sharding rules the internals are head-sharded with the whole
+    sequence on each rank (the recurrence runs along S): ``x`` is gathered
+    once at the block's entry."""
     di, h, p = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    x = constrain(x, "act_full")
     z, xs, B_, C_, dt = _project(params, x)
     xs, _ = _causal_conv(xs, params["conv_xw"], params["conv_xb"])
     B_, _ = _causal_conv(B_, params["conv_Bw"], params["conv_Bb"])
     C_, _ = _causal_conv(C_, params["conv_Cw"], params["conv_Cb"])
     A = torch.exp(params["A_log"])
-    xh = xs.reshape(*xs.shape[:2], h, p)
+    xh = constrain(reshape(xs, *xs.shape[:2], h, p), "ssm_inner")
     y = ssd_chunked(xh, dt, B_, C_, A, params["D"], cfg.ssm_chunk,
                     intra_dtype=getattr(torch, cfg.ssd_dtype))
-    y = y.reshape(*x.shape[:2], di).to(x.dtype)
+    y = reshape(y, *x.shape[:2], di).to(x.dtype)
     y = L.rmsnorm(y * Fn.silu(z), params["norm_scale"], cfg.norm_eps)
     return y @ params["w_out"].to(x.dtype)
 
@@ -176,13 +183,13 @@ def ssm_decode(params: Dict[str, Tensor], x: Tensor, cache: Dict[str, Tensor],
     B0, C0 = B_[:, 0], C_[:, 0]
     dt0 = dt[:, 0]                                          # (B, H)
     a = torch.exp(-dt0 * torch.exp(params["A_log"]))        # (B, H)
-    xhh = xs[:, 0].reshape(-1, h, p).float()
+    xhh = reshape(xs[:, 0], -1, h, p).float()
     upd = (dt0[..., None, None] * B0[:, None, :, None].float()
            * xhh[:, :, None, :])                            # (B, H, N, P)
     state = a[..., None, None] * cache["state"] + upd
     y = torch.einsum("bn,bhnp->bhp", C0.float(), state)
     y = y + xhh * params["D"][:, None]
-    y = y.reshape(-1, 1, di).to(x.dtype)
+    y = reshape(y, -1, 1, di).to(x.dtype)
     y = L.rmsnorm(y * Fn.silu(z), params["norm_scale"], cfg.norm_eps)
     for key, new in (("conv_x", conv_x), ("conv_B", conv_B),
                      ("conv_C", conv_C), ("state", state)):

@@ -7,7 +7,10 @@ under ``units[str(p_idx)]``, remainder layers sit under ``rem[str(r_idx)]``,
 so a reference tree carries over leaf for leaf
 (:mod:`repro_torch.models.convert`). The reference scans the stacked units;
 here they are a Python loop over the leading axis. Its sharding
-constraints are no-ops outside a sharding scope and are left out.
+constraints sit where the reference's do (:func:`repro_torch.sharding.
+rules.constrain`, the identity outside a sharding scope): each
+half-block's output is constrained to the boundary spec before the
+residual add.
 
 Blocks: ``attn`` and ``lattn`` (global and windowed attention, each with
 an MLP or, under ``cfg.n_experts``, a MoE), ``ssm`` (Mamba-2 SSD) and
@@ -28,6 +31,8 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+
+from repro_torch.sharding import rules as SR
 
 from . import layers as L
 from . import moe as M
@@ -120,8 +125,8 @@ def _ffn(p: Params, x: Tensor, cfg: ModelConfig, dropless: bool
     h2 = L.rmsnorm(x, p["norm2"], cfg.norm_eps)
     if cfg.n_experts:
         o2, aux = M.moe_fwd(p["moe"], h2, cfg, dropless=dropless)
-        return x + o2, aux
-    return x + L.mlp_fwd(p["mlp"], h2, cfg), None
+        return x + SR.constrain(o2, "act"), aux
+    return x + SR.constrain(L.mlp_fwd(p["mlp"], h2, cfg), "act"), None
 
 
 def _apply_block(kind: str, p: Params, x: Tensor, cfg: ModelConfig,
@@ -134,12 +139,14 @@ def _apply_block(kind: str, p: Params, x: Tensor, cfg: ModelConfig,
         window = cfg.window if kind == "lattn" else 0
         o = L.attention_fwd(p["attn"], h, cfg, causal=True, window=window)
     elif kind == "ssm":
-        return x + S.ssm_fwd(p["ssm"], h, cfg), None
+        o = SR.constrain(S.ssm_fwd(p["ssm"], h, cfg), "act")
+        return SR.constrain(x + o, "act"), None
     elif kind == "rec":
         o = R.rec_fwd(p["rec"], h, cfg)
     else:
         raise ValueError(kind)
-    return _ffn(p, x + o, cfg, dropless=not train)
+    x, aux = _ffn(p, x + SR.constrain(o, "act"), cfg, dropless=not train)
+    return SR.constrain(x, "act"), aux
 
 
 def backbone(params: Params, x: Tensor, cfg: ModelConfig,
@@ -191,7 +198,7 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 def embed_tokens(params: Params, tokens: Tensor, cfg: ModelConfig) -> Tensor:
     """The tokens' embedding rows in cfg.dtype (the gathered rows are cast,
     not the whole table: the same values)."""
-    return params["embed"][tokens].to(_dtype(cfg))
+    return params["embed"][SR.one_split_a_dim(tokens)].to(_dtype(cfg))
 
 
 def chunked_ce_loss(h: Tensor, head: Tensor, labels: Tensor,
@@ -212,6 +219,8 @@ def chunked_ce_loss(h: Tensor, head: Tensor, labels: Tensor,
             dead = torch.arange(logits.shape[-1],
                                 device=logits.device) >= cfg.vocab
             logits = logits.masked_fill(dead, -torch.inf)
+        # the gold logit is gathered from the whole vocab row
+        logits = SR.unshard(logits, -1)
         lse = torch.logsumexp(logits, dim=-1)
         lcc = torch.clamp(lc, 0, cfg.vocab - 1).long()
         gold = torch.gather(logits, -1, lcc[..., None])[..., 0]
@@ -249,6 +258,7 @@ def forward_loss(params: Params, batch: Dict[str, Tensor], cfg: ModelConfig,
         labels = torch.cat([torch.full(prefix.shape[:2], -1,
                                        dtype=labels.dtype,
                                        device=labels.device), labels], dim=1)
+    x = SR.constrain(x, "act")
     x, aux = backbone(params, x, cfg, remat_policy, train=True)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     loss = chunked_ce_loss(x, _lm_head(params, cfg), labels, cfg)
@@ -323,6 +333,12 @@ def _decode_block(kind: str, p: Params, x: Tensor, cache: Params, pos: int,
     return _ffn(p, x + o, cfg, dropless=True)[0]
 
 
+def _decode_block_c(kind: str, p: Params, x: Tensor, cache: Params,
+                    pos: int, cfg: ModelConfig) -> Tensor:
+    return SR.constrain(_decode_block(kind, p, x, cache, pos, cfg),
+                        "act_decode")
+
+
 def decode_step(params: Params, cache: Params, token: Tensor, pos: int,
                 cfg: ModelConfig) -> Tuple[Tensor, Params]:
     """One decode step. token: (B, 1) integer; pos: the current position
@@ -330,16 +346,16 @@ def decode_step(params: Params, cache: Params, token: Tensor, pos: int,
     (B, vocab) float32, cache); the cache is updated in place and keeps the
     reference's structure."""
     pos = int(pos)
-    x = embed_tokens(params, token, cfg)
+    x = SR.constrain(embed_tokens(params, token, cfg), "act_decode")
     for u in range(cfg.pattern_units):
         for p_idx, kind in enumerate(cfg.layer_pattern):
             key = str(p_idx)
-            x = _decode_block(kind, _index(params["units"][key], u), x,
-                              _index(cache["units"][key], u), pos, cfg)
+            x = _decode_block_c(kind, _index(params["units"][key], u), x,
+                                _index(cache["units"][key], u), pos, cfg)
     for r_idx, kind in enumerate(cfg.remainder_layers):
         key = str(r_idx)
-        x = _decode_block(kind, params["rem"][key], x, cache["rem"][key],
-                          pos, cfg)
+        x = _decode_block_c(kind, params["rem"][key], x,
+                            cache["rem"][key], pos, cfg)
     return _logits(params, x[:, 0], cfg), cache
 
 
@@ -351,6 +367,7 @@ def prefill(params: Params, tokens: Tensor, cfg: ModelConfig,
     x = embed_tokens(params, tokens, cfg)
     if prefix is not None:
         x = torch.cat([prefix.to(x.dtype), x], dim=1)
+    x = SR.constrain(x, "act")
     x, _ = backbone(params, x, cfg)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = (x[:, -1] @ _lm_head(params, cfg).to(x.dtype)).float()

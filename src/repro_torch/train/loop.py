@@ -57,7 +57,11 @@ def train_loop(train_step: Callable, params: Any, opt_state: Any,
                log_fn: Callable = print) -> Dict[str, Any]:
     """Run the loop; returns {params, opt_state, history, stragglers,
     step_times}. ``put_batch`` (default :func:`device_batch` on the
-    params' device) takes each host batch to the device."""
+    params' device) takes each host batch to the device; a sharded run's
+    lays the batch out by the rules. In a sharded run every rank runs the
+    loop and its own watchdog, and every rank takes part in each
+    checkpoint, which rank 0 writes; the launcher gives the other ranks a
+    silent ``log_fn``."""
     device = next(tree_leaves(params)).device
     if put_batch is None:
         def put_batch(b):

@@ -63,14 +63,17 @@ def test_port_modules_cover_the_slice():
             "optim/__init__.py", "optim/schedule.py", "optim/adamw.py",
             "optim/compress.py", "data/__init__.py", "data/synthetic.py",
             "checkpoint/__init__.py", "checkpoint/ckpt.py",
-            "launch/train.py"} <= names
+            "launch/train.py", "sharding/__init__.py", "sharding/rules.py",
+            "launch/mesh.py", "launch/dryrun.py",
+            "analysis/cost.py"} <= names
     configs = {os.path.basename(p) for p in os.listdir(
         os.path.join(REPO, "src", "repro", "configs")) if p.endswith(".py")}
     assert {f"configs/{c}" for c in configs} <= names
     assert {"examples_torch/quickstart.py",
             "examples_torch/cg_solver.py",
             "examples_torch/serve_lm.py",
-            "examples_torch/train_lm.py"} <= set(FILES)
+            "examples_torch/train_lm.py",
+            "examples_torch/sharded_collectives.py"} <= set(FILES)
     for src in ("spc5_spmv.cu", "spc5_spmm.cu", "spc5_spmv_desc.cu",
                 "spc5_spmm_desc.cu", "spc5_spmm_desc_cmap.cu",
                 "spc5_spmv_tail.cu", "spc5_stage.cuh",
@@ -112,6 +115,8 @@ def test_importing_the_port_loads_no_jax_and_builds_nothing():
         "import repro_torch.launch.train, repro_torch.train.loop\n"
         "import repro_torch.optim.compress, repro_torch.checkpoint\n"
         "import repro_torch.data.synthetic\n"
+        "import repro_torch.sharding.rules, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.dryrun, repro_torch.analysis.cost\n"
         "from repro_torch.kernels import _build\n"
         "assert not any(m.split('.')[0] in {'jax', 'ml_dtypes', 'repro'} "
         "for m in sys.modules), sorted(m for m in sys.modules if 'jax' in m)\n"

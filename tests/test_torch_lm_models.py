@@ -412,12 +412,16 @@ def test_argmax_ties_go_to_the_first_index():
 
 
 def test_step_builders_refuse_rules_and_other_sampling():
+    """The step builders take ``rules=`` (the reference's serve rules on a
+    mesh's shape build both steps) and refuse another sampling."""
+    from repro_torch.sharding import rules as SR
     cfg = get_smoke_config("yi-6b")
+    rules = SR.make_rules(SR.MeshShape((1, 4), ("data", "model")),
+                          fsdp=False, seq_shard=False)
     for build in (S.make_serve_step, S.make_prefill_step):
-        with pytest.raises(NotImplementedError, match="item 13e"):
-            build(cfg, rules=object())
+        assert callable(build(cfg, rules=rules))
     with pytest.raises(ValueError):
-        S.make_serve_step(cfg, sample="top-k")
+        S.make_serve_step(cfg, rules, sample="top-k")
 
 
 def test_cast_params_gives_the_references_per_matmul_cast():
@@ -487,13 +491,13 @@ def test_unported_blocks_are_refused_naming_their_part(arch, capsys):
     """What the launcher still refuses for the archs ROADMAP queue 1
     items 13a-13c ported: an encoder-decoder ``--arch`` exits with the
     reference launcher's message (it has no enc-dec CLI path either), and
-    ``--mesh`` names part 13e, before anything runs. Every model entry
-    point takes the arch."""
+    ``--mesh 1x2`` on one process exits naming the 2 ranks it needs,
+    before anything runs. Every model entry point takes the arch."""
     from repro_torch.launch import serve
     cfg = get_smoke_config(arch)
     with pytest.raises(SystemExit) as e:
         serve.main(["--arch", arch, "--mesh", "1x2"], device="cpu")
-    assert "item 13, part 13e" in str(e.value.code)
+    assert "needs 2 ranks" in str(e.value.code)
     if cfg.is_encdec:
         with pytest.raises(SystemExit) as e:
             serve.main(["--arch", arch], device="cpu")

@@ -714,20 +714,24 @@ def test_decode_knobs_go_to_the_decode_loop(flag, value, line, capsys):
 
 
 def test_mesh_still_names_item_13(capsys):
-    """``--mesh`` shards the decode loop, which the port does not yet: the
-    CLI and ``start`` refuse it, naming the item, before anything runs."""
+    """``--mesh`` shards the decode loop over the ranks ``torchrun``
+    starts: one process is one rank, so ``--mesh 1x4`` exits naming the 4
+    ranks it needs and how to start them, before anything runs. ``start``
+    (the serving tier alone) takes the decode knobs and ignores them."""
     with pytest.raises(SystemExit) as e:
         serve.main(["--vocab-spmv", "0.1", "--mesh", "1x4"], device="cpu")
-    assert "ROADMAP queue 1 item 13" in str(e.value.code)
     assert "--mesh 1x4" in str(e.value.code)
+    assert "needs 4 ranks" in str(e.value.code)
+    assert "torchrun --nproc-per-node 4" in str(e.value.code)
     assert capsys.readouterr().out == ""
     tmat, _ = _pair(seed=3)
-    with pytest.raises(SystemExit, match="item 13"):
-        SV.start(SV.ServeConfig(vocab_spmv=0.1, mesh="1x4"), mat=tmat,
-                 device="cpu")
-    SV.refuse_decode_knobs(SV.ServeConfig(vocab_spmv=0.1, arch="gemma-2b",
-                                          batch=8, tokens=64,
-                                          kv_dtype="int8"))
+    srv = SV.start(SV.ServeConfig(vocab_spmv=0.1, mesh="1x4", arch="gemma-2b",
+                                  batch=8, tokens=64, kv_dtype="int8"),
+                   mat=tmat, device="cpu")
+    with srv:
+        x = torch.ones(tmat.shape[1], dtype=torch.float32)
+        y = srv.submit(x).result(timeout=WAIT_S)
+        assert torch.equal(y, ops.spmv(srv.plan, x))
 
 
 @pytest.mark.parametrize("arch,part", [("phi3.5-moe-42b-a6.6b", "13a"),
@@ -738,10 +742,12 @@ def test_an_unported_arch_names_its_part_of_item_13(arch, part, capsys):
     """The archs that ROADMAP queue 1 part ``part`` ported: a decoder-only
     one decodes and benches (the reference's tok/s line first); an
     encoder-decoder exits with the reference launcher's message, which has
-    no enc-dec CLI path either. ``--mesh`` still names part 13e."""
+    no enc-dec CLI path either. ``--mesh 1x2`` on one process exits naming
+    the 2 ranks it needs."""
     with pytest.raises(SystemExit) as e:
         serve.main(["--arch", arch, "--mesh", "1x2"], device="cpu")
-    assert "item 13, part 13e" in str(e.value.code)
+    assert "needs 2 ranks" in str(e.value.code)
+    assert "torchrun --nproc-per-node 2" in str(e.value.code)
     if part == "13c":
         with pytest.raises(SystemExit) as e:
             serve.main(["--arch", arch, "--vocab-spmv", "0.1"], device="cpu")

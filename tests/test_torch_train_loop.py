@@ -2,8 +2,9 @@
 cases of ``tests/test_train.py`` (the loss falls, exact resume, the
 straggler watchdog), a SIGTERM preemption checkpoint, a reference
 checkpoint resuming in the port's ``train_loop`` and the port's in the
-reference's, ``launch.train.main(..., device="cpu")`` with ``--mesh`` /
-``rules=`` refused naming item 13e, and ``examples_torch/train_lm.py``.
+reference's, ``launch.train.main(..., device="cpu")`` (a ``--mesh`` of
+more ranks than the process has exits naming what it needs), and
+``examples_torch/train_lm.py``.
 Without ``device="cpu"`` and without a card, the entry points raise.
 """
 import dataclasses
@@ -249,8 +250,14 @@ def test_launcher_trains_checkpoints_and_resumes_on_the_cpu(
 
 @pytest.mark.parametrize("mesh", ["2x4", "1x2", "8x1"])
 def test_launcher_refuses_a_mesh_naming_13e(mesh):
-    with pytest.raises(SystemExit, match="13e"):
+    """One process without ``torchrun`` is one rank: a mesh of more exits
+    naming the ranks it needs and how to start them."""
+    d, m = (int(x) for x in mesh.split("x"))
+    with pytest.raises(SystemExit) as e:
         LT.main(["--mesh", mesh, "--steps", "1"], device="cpu")
+    msg = str(e.value.code)
+    assert f"needs {d * m} ranks" in msg and "has 1" in msg
+    assert f"torchrun --nproc-per-node {d * m}" in msg
 
 
 def test_entry_points_without_a_card_raise(monkeypatch):

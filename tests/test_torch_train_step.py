@@ -1,6 +1,6 @@
 """The port's train step on the CPU against the reference's:
 ``make_train_step`` on identical gradients, its metrics, its purity,
-gradient accumulation and the refusal of sharding rules.
+gradient accumulation and sharding rules on one rank.
 
 Tolerances: losses and metrics within 1e-5 of themselves
 (``tests/torch_train_parity.py``), an AdamW update of identical gradients
@@ -148,10 +148,37 @@ def test_accum_matches_the_references_accum(accum):
 
 
 def test_rules_are_refused_naming_13e():
-    cfg = get_smoke_config("yi-6b")
-    with pytest.raises(NotImplementedError, match="13e"):
-        make_train_step(cfg, AdamWConfig(), rules=object())
-    make_train_step(cfg, AdamWConfig(), cast_once=True)   # no rules: no-op
+    """``rules=`` on one rank builds a step: on a one-rank gloo group's 1x1
+    mesh, the FSDP step and the ``cast_once`` step give ``rules=None``'s
+    loss, metrics and new params (the params and state DTensors laid out
+    by the rules, and kept so)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as LM
+    from repro_torch.sharding import rules as SR
+    cfg, params, b = _setup()
+    ocfg = AdamWConfig(lr=1e-3)
+    make_train_step(cfg, ocfg, cast_once=True)   # no rules: no-op
+    want, _, wm = make_train_step(cfg, ocfg)(params, adamw_init(params), b)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        rules = SR.make_rules(LM.make_test_mesh((1, 1)))
+        dp = rules.place_params(params)
+        for cast_once in (False, True):
+            new, nopt, m = make_train_step(cfg, ocfg, rules,
+                                           cast_once=cast_once)(
+                dp, adamw_init(dp), rules.place_batch(b))
+            for k in wm:
+                assert float(m[k]) == pytest.approx(float(wm[k]), rel=TOL,
+                                                    abs=1e-12), k
+            for x, y, p in zip(CV.tree_leaves(new), CV.tree_leaves(want),
+                               CV.tree_leaves(dp)):
+                assert SR.is_dtensor(x) and x.placements == p.placements
+                m_ = float(y.abs().max())
+                assert float((x.full_tensor() - y).abs().max()) <= \
+                    UPDATE_TOL * m_
+    finally:
+        dist.destroy_process_group()
 
 
 def test_an_unknown_remat_policy_raises():
